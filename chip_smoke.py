@@ -18,7 +18,18 @@ Phases, each printing JSON lines; any failure exits non-zero:
    plain forward must agree with every chosen token.
 4. profile — torch.profiler over one more ``generate``: device time by
    kernel and the device's busy share of the wall time.
-5. the ``kernels`` summary line, the card's ``nvidia-smi`` name and power
+5. serve — the same model behind ``ServeEngine.replay_trace`` on a
+   32-request Poisson trace, in two legs: A, the unified tick
+   (``ragged_paged_attention`` + fused epilogue), and B, the phase-split
+   tick with the paged decode (``paged_decode_attention`` + fused
+   epilogue).  Per leg: every request finished, launch counts equal what
+   the ticks imply, one host fetch per dispatching tick (leg A), every
+   token teacher-forced against a cache-less plain forward, and wall
+   time, tok/s, ticks, dispatches, TTFT and TPOT.  A float32 run of both
+   legs must match the offline ``generate_ragged`` token for token (or
+   differ only at a near-tie), and torch.profiler traces a short leg-A
+   replay.
+6. the ``kernels`` summary line, the card's ``nvidia-smi`` name and power
    limit, and last the result line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -55,6 +66,19 @@ F32_STEPS = 16
 
 DECODE_STEPS = 64
 STREAM_TOKENS = 8
+
+# the serve phase: Llama-3.2-1B behind the engine, the trace and pool of
+# its issue (32 requests at 40 req/s, prompts 16-200 tokens, 32 new
+# tokens each; 8 slots, 16-slot blocks, 64-token prefill chunks)
+SERVE_REQUESTS = 32
+SERVE_NEW_TOKENS = 32
+SERVE_PROMPTS = (16, 200)
+SERVE_SLOTS, SERVE_BLOCK, SERVE_CHUNK = 8, 16, 64
+F32_SERVE_REQUESTS, F32_SERVE_TOKENS = 8, 16
+SERVE_LEGS = {
+    "A_mixed": dict(mixed_step="on"),
+    "B_split_paged": dict(mixed_step="off", decode_attn_impl="paged"),
+}
 
 
 def emit(obj: dict) -> None:
@@ -233,6 +257,179 @@ def epilogue_cases(torch, se, norms) -> list[dict]:
     return cases
 
 
+# the paged kernels' cases: a serve-shaped pool (rows with ragged lengths
+# and left pads, random distinct blocks), Llama-3.2-1B widths first
+SERVE_LENGTHS = [350, 37, 128, 201, 288, 64, 17, 300]
+SERVE_PADS = [0, 11, 0, 55, 32, 0, 9, 0]
+
+
+def make_pool(torch, quantize_kv, g, rows: int, mb: int, bs: int, kh: int, d: int, int8: bool):
+    """(k pages, v pages, tables [rows, mb], scale kwargs) in bf16 (or int8
+    + float32 scale pages); every row gets distinct random blocks."""
+    nbp = rows * mb + 1
+    k = torch.randn((nbp, bs, kh, d), generator=g, device="cuda").bfloat16()
+    v = torch.randn((nbp, bs, kh, d), generator=g, device="cuda").bfloat16()
+    perm = torch.randperm(nbp - 1, generator=g, device="cuda")[: rows * mb] + 1
+    tables = perm.view(rows, mb).to(torch.int32)
+    if not int8:
+        return k, v, tables, {}
+    k, ks = quantize_kv(k)
+    v, vs = quantize_kv(v)
+    return k, v, tables, dict(k_scale=ks, v_scale=vs)
+
+
+def gathered(pages, tables):
+    """Pool pages → the rows' contiguous [R, MB*BS, ...] views."""
+    r, mb = tables.shape
+    return pages[tables.long()].reshape(r, mb * pages.shape[1], *pages.shape[2:])
+
+
+def sdpa_pregathered(torch, F, q, kv_views, mask, scale):
+    """SDPA over already-gathered contiguous K/V: q [N, Sq, H, D], views
+    [N, S, K, D], mask [N, Sq, S] bool."""
+    k, v = kv_views
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask[:, None],
+        scale=scale, enable_gqa=True)
+
+
+def paged_cases(torch, F, da, quantize_kv, sdpa_gqa: bool) -> list[dict]:
+    cases = []
+    specs = [
+        # name, H, K, D, lengths, pads, softcap, window, int8 — serve shape first
+        ("llama1b_serve_b8_bs16", 32, 8, 64, SERVE_LENGTHS, SERVE_PADS, None, None, False),
+        ("llama1b_b8_s4096_bs16", 32, 8, 64, [4096, 3900, 3000, 2048, 4096, 1000, 3500, 4095],
+         [0, 100, 0, 48, 0, 0, 7, 0], None, None, False),
+        ("llama1b_serve_b8_bs16_int8", 32, 8, 64, SERVE_LENGTHS, SERVE_PADS, None, None, True),
+        # the window enters as row_pads = max(pads, lengths - window), as
+        # the engine passes it on a sliding layer
+        ("gemma2_widths_b8_bs16_softcap50_window128", 8, 4, 256, SERVE_LENGTHS, SERVE_PADS, 50.0,
+         128, False),
+    ]
+    bs = SERVE_BLOCK
+    for name, h, kh, d, lengths, pads, cap, win, int8 in specs:
+        g = torch.Generator(device="cuda").manual_seed(200 + len(cases))
+        b, mb = len(lengths), -(-max(lengths) // bs)
+        k, v, tables, scales = make_pool(torch, quantize_kv, g, b, mb, bs, kh, d, int8)
+        q = torch.randn((b, 1, h, d), generator=g, device="cuda").bfloat16()
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        row_pads = torch.tensor(pads, dtype=torch.int32, device="cuda")
+        if win is not None:
+            row_pads = torch.maximum(row_pads, lens - win)
+        kw = dict(scale=d ** -0.5, logit_softcap=cap, **scales)
+        args = (q, k, v, tables, lens, row_pads)
+        out = da.paged_decode_attention(*args, **kw)
+        torch.cuda.synchronize()
+        ref = da.paged_decode_attention_plain(*args, **kw)
+        err, ok = attn_err(out, ref)
+        ms = time_ms(torch, lambda: da.paged_decode_attention(*args, **kw), 100)
+        plain_ms = time_ms(torch, lambda: da.paged_decode_attention_plain(*args, **kw), 10)
+        lib_ms = gather_ms = None
+        if not int8 and cap is None and sdpa_gqa:
+            views = (gathered(k, tables), gathered(v, tables))
+            pos = torch.arange(mb * bs, device="cuda")
+            mask = ((pos >= row_pads[:, None]) & (pos < lens[:, None]))[:, None, :]
+            lib_ms = time_ms(torch, lambda: sdpa_pregathered(torch, F, q, views, mask, kw["scale"]), 100)
+            gather_ms = time_ms(torch, lambda: (gathered(k, tables), gathered(v, tables)), 100)
+        visible = int((lens - row_pads).clamp_min(0).sum().item())
+        per_slot = kh * d * k.element_size() * 2 + (kh * 4 * 2 if int8 else 0)
+        nbytes = 2 * 2 * b * h * d + visible * per_slot + 4 * (b * mb + 2 * b)
+        bms, by = bound(nbytes, 4.0 * h * d * visible)
+        cases.append(dict(kernel="paged_decode_attention", case=name, max_abs_err=err,
+                          tol=ATTN_TOL, within_tol=ok, ms=ms, plain_ms=plain_ms,
+                          library_ms=lib_ms, library="SDPA, pre-gathered" if lib_ms else None,
+                          gather_ms=gather_ms, bound_ms=bms, bound_by=by))
+    return cases
+
+
+def ragged_layout(torch, segments: list[tuple[int, int, int]], width: int):
+    """Pack (row, first cache slot, tokens) segments as the engine does:
+    each on a RAGGED_Q_TILE boundary, dead tiles up to ``width`` tokens.
+    Returns (tile_row, tile_qpos0, tile_qlen) int32 tensors and the [T]
+    live-lane mask."""
+    from llm_np_cp_tpu_torch.ops.cuda.decode_attention import RAGGED_Q_TILE as qt
+
+    rows, qpos0, qlen, live = [], [], [], []
+    for row, slot0, n in segments:
+        for t in range(-(-n // qt)):
+            m = min(qt, n - t * qt)
+            rows.append(row)
+            qpos0.append(slot0 + t * qt)
+            qlen.append(m)
+            live += [True] * m + [False] * (qt - m)
+    while len(live) < width:
+        rows.append(0)
+        qpos0.append(0)
+        qlen.append(0)
+        live += [False] * qt
+    meta = [torch.tensor(a, dtype=torch.int32, device="cuda") for a in (rows, qpos0, qlen)]
+    return meta, torch.tensor(live, device="cuda")
+
+
+def ragged_cases(torch, F, da, quantize_kv, sdpa_gqa: bool) -> list[dict]:
+    cases = []
+    specs = [
+        # name, H, K, D, softcap, window, int8 — main path widths first
+        ("llama1b_mixed_6dec_2x64pf", 32, 8, 64, None, None, False),
+        ("llama1b_mixed_6dec_2x64pf_int8", 32, 8, 64, None, None, True),
+        ("gemma2_widths_mixed_softcap50_window128", 8, 4, 256, 50.0, 128, False),
+    ]
+    bs = SERVE_BLOCK
+    lengths, pads = SERVE_LENGTHS, SERVE_PADS
+    # rows 0-5 decode one token each; row 6 runs its second 64-token
+    # prefill chunk, row 7 its first; packed into the engine's 192 bucket
+    segments = [(r, lengths[r] - 1, 1) for r in range(6)]
+    segments += [(6, pads[6] + 64, 64), (7, pads[7], 64)]
+    for name, h, kh, d, cap, win, int8 in specs:
+        g = torch.Generator(device="cuda").manual_seed(300 + len(cases))
+        rows, mb = len(lengths), -(-max(lengths) // bs)
+        k, v, tables, scales = make_pool(torch, quantize_kv, g, rows, mb, bs, kh, d, int8)
+        meta, live = ragged_layout(torch, segments, 192)
+        t = live.numel()
+        q = torch.randn((t, h, d), generator=g, device="cuda").bfloat16()
+        pad_t = torch.tensor(pads, dtype=torch.int32, device="cuda")
+        window = win if win is not None else 1 << 30
+        kw = dict(scale=d ** -0.5, logit_softcap=cap, **scales)
+        args = (q, k, v, tables, *meta, pad_t, window)
+        out = da.ragged_paged_attention(*args, **kw)
+        torch.cuda.synchronize()
+        ref = da.ragged_paged_attention_plain(*args, **kw)
+        err, ok = attn_err(out[live], ref[live])
+        ok = ok and not bool(out[~live].any())
+        ms = time_ms(torch, lambda: da.ragged_paged_attention(*args, **kw), 100)
+        plain_ms = time_ms(torch, lambda: da.ragged_paged_attention_plain(*args, **kw), 10)
+        # every token's visible band [lo, slot] (a dead lane sees nothing)
+        lane = torch.arange(t, device="cuda")
+        tile = lane // 8
+        row = meta[0].long()[tile]
+        slot = meta[1].long()[tile] + lane % 8
+        lo = torch.maximum(pad_t.long()[row], slot - window + 1)
+        span = torch.where(live, slot - lo + 1, 0)
+        lib_ms = gather_ms = None
+        if not int8 and cap is None and sdpa_gqa:
+            views = (gathered(k, tables)[row], gathered(v, tables)[row])
+            pos = torch.arange(mb * bs, device="cuda")
+            mask = (live[:, None] & (pos >= lo[:, None]) & (pos <= slot[:, None]))[:, None, :]
+            lib_ms = time_ms(torch, lambda: sdpa_pregathered(torch, F, q[:, None], views, mask,
+                                                             kw["scale"]), 100)
+            gather_ms = time_ms(torch, lambda: (gathered(k, tables)[row], gathered(v, tables)[row]),
+                                100)
+        # bytes: each row's slots read once (the union of its tokens' bands)
+        read = 0
+        for r in range(rows):
+            sel = live & (row == r)
+            if bool(sel.any()):
+                read += int((slot[sel].max() - lo[sel].min() + 1).item())
+        per_slot = kh * d * k.element_size() * 2 + (kh * 4 * 2 if int8 else 0)
+        nbytes = 2 * 2 * t * h * d + read * per_slot + 4 * (rows * mb + rows + 3 * (t // 8))
+        bms, by = bound(nbytes, 4.0 * h * d * int(span.sum().item()))
+        cases.append(dict(kernel="ragged_paged_attention", case=name, max_abs_err=err,
+                          tol=ATTN_TOL, within_tol=ok, ms=ms, plain_ms=plain_ms,
+                          library_ms=lib_ms, library="SDPA, pre-gathered" if lib_ms else None,
+                          gather_ms=gather_ms, bound_ms=bms, bound_by=by))
+    return cases
+
+
 # ----------------------------------------------------------------------
 # phase 3: the main path
 # ----------------------------------------------------------------------
@@ -327,6 +524,8 @@ def main_path(torch, np, kernels: dict, card: str) -> tuple:
         "flash_attention": layers * 2,  # generate + stream prefill
         "decode_attention": layers * (2 * steps + STREAM_TOKENS - 1),
         "sample_epilogue": 2 * steps + STREAM_TOKENS - 1,
+        "paged_decode_attention": 0,
+        "ragged_paged_attention": 0,
     }
     if launches != want:
         raise AssertionError(f"launch counts {launches} != implied {want}")
@@ -376,21 +575,19 @@ def main_path(torch, np, kernels: dict, card: str) -> tuple:
     return result, gen, prompts
 
 
-def profile_generate(torch, gen, prompts, card: str, steps: int = 32) -> dict:
-    """torch.profiler over one ``generate`` (prefill + ``steps`` decode
-    steps): device time summed by kernel name, and the device's busy share
-    of the wall time."""
+def profile_run(torch, fn, markers: dict[str, str]) -> dict:
+    """torch.profiler over ``fn()``: device time summed by kernel name,
+    the port's kernels by ``markers`` (name → substring of the CUDA
+    kernel's symbol), and the device's busy share of the wall time."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    gen.generate(prompts, 2)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        gen.generate(prompts, steps)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    from torch.autograd import DeviceType
-
     rows = []
     for e in prof.key_averages():
         # kernels only: an operator's own "self device time" repeats the
@@ -401,12 +598,185 @@ def profile_generate(torch, gen, prompts, card: str, steps: int = 32) -> dict:
     rows.sort(key=lambda r: -r["device_ms"])
     busy = sum(r["device_ms"] for r in rows) / 1e3
     by_kernel = {name: sum(r["device_ms"] for r in rows if marker in r["name"])
-                 for name, marker in (("flash_attention", "flash_kernel"),
-                                      ("decode_attention", "decode_kernel"),
-                                      ("sample_epilogue", "epilogue_"))}
-    return dict(phase="profile", card=card, generate_new_tokens=steps, batch=len(prompts),
-                wall_s=wall, device_busy_s=busy, port_kernels_device_ms=by_kernel,
+                 for name, marker in markers.items()}
+    return dict(wall_s=wall, device_busy_s=busy, port_kernels_device_ms=by_kernel,
                 device_busy_share=busy / wall if rows else None, top=rows[:15])
+
+
+def profile_generate(torch, gen, prompts, card: str, steps: int = 32) -> dict:
+    """torch.profiler over one ``generate`` (prefill + ``steps`` decode
+    steps)."""
+    gen.generate(prompts, 2)
+    prof = profile_run(torch, lambda: gen.generate(prompts, steps), {
+        "flash_attention": "flash_kernel", "decode_attention": "decode_kernel",
+        "sample_epilogue": "epilogue_"})
+    return dict(phase="profile", card=card, generate_new_tokens=steps, batch=len(prompts),
+                **prof)
+
+
+# ----------------------------------------------------------------------
+# phase 5: the serve engine
+# ----------------------------------------------------------------------
+
+def serve_engine(params, cfg, dtype, leg: str):
+    """A ServeEngine in one of SERVE_LEGS, its pool sized by
+    ``pool_geometry`` for the trace's worst request."""
+    import torch
+
+    from llm_np_cp_tpu_torch.ops.sampling import Sampler
+    from llm_np_cp_tpu_torch.serve import ServeEngine, pool_geometry
+
+    _, num_blocks, max_seq_len = pool_geometry(
+        SERVE_PROMPTS[1], SERVE_NEW_TOKENS, SERVE_SLOTS, SERVE_BLOCK, SERVE_CHUNK)
+    return ServeEngine(params, cfg, sampler=Sampler("greedy"), max_slots=SERVE_SLOTS,
+                       num_blocks=num_blocks, block_size=SERVE_BLOCK, max_seq_len=max_seq_len,
+                       prefill_chunk=SERVE_CHUNK, cache_dtype=dtype, device=torch.device("cuda"),
+                       **SERVE_LEGS[leg])
+
+
+def serve_trace(np, cfg, n: int, new_tokens: int, seed: int) -> list[dict]:
+    from llm_np_cp_tpu_torch.serve import poisson_trace
+
+    return poisson_trace(np.random.default_rng(seed), n, rate_rps=40.0,
+                         prompt_len_range=SERVE_PROMPTS, max_new_tokens=new_tokens,
+                         vocab_size=cfg.vocab_size)
+
+
+def teacher_forced_requests(torch, forward, params, cfg, reqs, tol: float) -> dict:
+    """Every request's tokens against one cache-less plain forward over
+    its prompt + tokens: each chosen token's logit within ``tol`` of its
+    row's max."""
+    gaps, exact, n, finite = [], 0, 0, True
+    for r in reqs:
+        gen = torch.tensor(r.generated, device="cuda").long()
+        ids = torch.cat([torch.as_tensor(r.prompt, device="cuda").long(), gen[:-1]])[None]
+        logits, _ = forward(params, ids, cfg, None)
+        rows = logits[0, r.prompt.size - 1:]  # the row behind each chosen token
+        finite = finite and bool(torch.isfinite(rows).all())
+        chosen = rows.gather(-1, gen[:, None])[:, 0]
+        gaps.append((rows.amax(dim=-1) - chosen).max().item())
+        exact += int((rows.argmax(dim=-1) == gen).sum().item())
+        n += gen.numel()
+    return dict(requests=len(reqs), tokens=n, exact_share_vs_cacheless=exact / n,
+                max_gap_vs_cacheless=max(gaps), tol=tol, ok=finite and max(gaps) <= tol)
+
+
+def first_divergence(torch, forward, params, cfg, prompt, a: list, b: list) -> float | None:
+    """None when the two token lists agree; else the plain logits' top-two
+    gap at their first difference (a near-tie is a small gap)."""
+    j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    if j is None and len(a) == len(b):
+        return None
+    ids = torch.cat([torch.as_tensor(prompt, device="cuda").long(),
+                     torch.tensor(a[:j], device="cuda").long()])[None]
+    logits, _ = forward(params, ids, cfg, None, logits_last_only=True)
+    top2 = torch.topk(logits[0, -1], 2).values
+    return (top2[0] - top2[1]).item()
+
+
+def serve_phase(torch, np, kernels: dict, card: str) -> dict:
+    """Llama-3.2-1B behind the ServeEngine, both legs on one trace."""
+    from llm_np_cp_tpu_torch.config import PRESETS
+    from llm_np_cp_tpu_torch.generate import Generator
+    from llm_np_cp_tpu_torch.models.transformer import forward, init_params
+    from llm_np_cp_tpu_torch.ops.sampling import Sampler
+
+    cfg = PRESETS["meta-llama/Llama-3.2-1B"]
+    layers = cfg.num_hidden_layers
+    params = init_params(0, cfg, torch.bfloat16, device="cuda")
+    trace = serve_trace(np, cfg, SERVE_REQUESTS, SERVE_NEW_TOKENS, seed=0)
+    legs = {}
+    for leg in SERVE_LEGS:
+        eng = serve_engine(params, cfg, torch.bfloat16, leg)
+        if eng.epilogue_impl != "fused":
+            raise AssertionError(f"serve leg {leg} did not select the fused epilogue")
+        eng.warmup([SERVE_PROMPTS[0]], 2)
+        torch.cuda.synchronize()
+        for fn in kernels.values():
+            fn.launches = 0
+        d0, dd0, f0 = eng.n_dispatches, eng.n_decode_dispatches, eng.n_host_fetches
+        t0 = time.perf_counter()
+        snap = eng.replay_trace(trace)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in kernels.items()}
+        dispatches, fetches = eng.n_dispatches - d0, eng.n_host_fetches - f0
+        decode_dispatches = eng.n_decode_dispatches - dd0
+        if snap["finished"] != SERVE_REQUESTS:
+            raise AssertionError(f"serve leg {leg}: {snap['finished']} of {SERVE_REQUESTS} finished")
+        steps = dispatches if eng.mixed else decode_dispatches  # steps that fetch
+        want = {name: 0 for name in kernels}
+        want["sample_epilogue"] = steps
+        want["ragged_paged_attention" if eng.mixed else "paged_decode_attention"] = layers * steps
+        if launches != want:
+            raise AssertionError(f"serve leg {leg}: launch counts {launches} != implied {want}")
+        if fetches != steps:
+            raise AssertionError(f"serve leg {leg}: {fetches} host fetches for {steps} dispatching steps")
+        tf = teacher_forced_requests(torch, forward, params, cfg, eng.scheduler.finished,
+                                     TEACHER_TOL)
+        legs[leg] = dict(
+            launches=launches, implied=want, wall_s=wall,
+            generated_tokens=snap["total_generated_tokens"],
+            tok_s_per_card=snap["total_generated_tokens"] / wall,
+            ticks=snap["ticks"], dispatches=dispatches, decode_dispatches=decode_dispatches,
+            host_fetches=fetches, preemptions=snap["preemptions"],
+            ttft_s_p50=snap.get("ttft_s_p50"), ttft_s_p99=snap.get("ttft_s_p99"),
+            tpot_s_p50=snap.get("tpot_s_p50"), tpot_s_p99=snap.get("tpot_s_p99"),
+            mixed_prefill_tokens=snap["mixed_prefill_tokens"],
+            mixed_decode_tokens=snap["mixed_decode_tokens"], teacher_forced=tf,
+            tokens={r.seed: list(r.generated) for r in eng.scheduler.finished},
+        )
+        if leg == "A_mixed":
+            prof_engine = eng
+        else:
+            del eng
+
+    # torch.profiler over a short leg-A replay (outside the counted runs)
+    short = serve_trace(np, cfg, F32_SERVE_REQUESTS, F32_SERVE_TOKENS, seed=2)
+    prof = profile_run(torch, lambda: prof_engine.replay_trace(short), {
+        "ragged_paged_attention": "ragged_kernel", "sample_epilogue": "epilogue_"})
+    del prof_engine
+
+    # float32 run of both legs against the offline Generator
+    params32 = {k: {n: t.float() for n, t in v.items()} if k == "layers" else v.float()
+                for k, v in params.items()}
+    del params
+    trace32 = serve_trace(np, cfg, F32_SERVE_REQUESTS, F32_SERVE_TOKENS, seed=1)
+    got32 = {}
+    for leg in SERVE_LEGS:
+        eng = serve_engine(params32, cfg, torch.float32, leg)
+        eng.replay_trace(trace32)
+        got32[leg] = {r.seed: list(r.generated) for r in eng.scheduler.finished}
+        del eng
+    gen32 = Generator(params32, cfg, sampler=Sampler("greedy"), prefill_attn_impl="xla",
+                      decode_attn_impl="flash_decode", cache_dtype=torch.float32)
+    identical, gaps = 0, []
+    for item in trace32:
+        want = [int(t) for t in gen32.generate_ragged([item["prompt"]], F32_SERVE_TOKENS).tokens[0]]
+        seqs = [got32[leg].get(item["seed"]) for leg in SERVE_LEGS]
+        if any(s is None for s in seqs):
+            raise AssertionError(f"float32 serve run lost request {item['seed']}")
+        divs = [first_divergence(torch, forward, params32, cfg, item["prompt"], s, want)
+                for s in seqs]
+        divs.append(first_divergence(torch, forward, params32, cfg, item["prompt"], seqs[0],
+                                     seqs[1]))
+        divs = [d for d in divs if d is not None]
+        identical += not divs
+        gaps += divs
+    f32 = dict(requests=F32_SERVE_REQUESTS, new_tokens=F32_SERVE_TOKENS,
+               identical_across_legs_and_offline=identical, divergence_top2_gaps=gaps,
+               tol=F32_TEACHER_TOL, ok=all(g <= F32_TEACHER_TOL for g in gaps))
+    for leg in legs.values():
+        leg.pop("tokens")
+    return dict(phase="serve", model="meta-llama/Llama-3.2-1B", layers=layers,
+                weights="seeded random bf16", card=card,
+                trace=dict(requests=SERVE_REQUESTS, rate_rps=40.0, prompt_len=SERVE_PROMPTS,
+                           new_tokens=SERVE_NEW_TOKENS),
+                engine=dict(max_slots=SERVE_SLOTS, block_size=SERVE_BLOCK,
+                            prefill_chunk=SERVE_CHUNK),
+                legs=legs, float32=f32,
+                profile=dict(leg="A_mixed", requests=F32_SERVE_REQUESTS,
+                             new_tokens=F32_SERVE_TOKENS, **prof))
 
 
 # ----------------------------------------------------------------------
@@ -418,6 +788,10 @@ KERNEL_META = {
                          "llm_np_cp_tpu/ops/pallas/decode_attention.py:930"),
     "sample_epilogue": ("llm_np_cp_tpu_torch/csrc/sample_epilogue.cu",
                         "llm_np_cp_tpu/ops/pallas/sample_epilogue.py:215"),
+    "paged_decode_attention": ("llm_np_cp_tpu_torch/csrc/paged_decode_attention.cu",
+                               "llm_np_cp_tpu/ops/pallas/decode_attention.py:453"),
+    "ragged_paged_attention": ("llm_np_cp_tpu_torch/csrc/ragged_paged_attention.cu",
+                               "llm_np_cp_tpu/ops/pallas/decode_attention.py:740"),
 }
 
 
@@ -461,7 +835,9 @@ def main() -> int:
     sdpa_gqa = tuple(int(p) for p in torch.__version__.split(".")[:2]) >= (2, 5)
     cases = (flash_cases(torch, F, fa, sdpa_gqa)
              + decode_cases(torch, F, da, quantize_kv, sdpa_gqa)
-             + epilogue_cases(torch, se, norms))
+             + epilogue_cases(torch, se, norms)
+             + paged_cases(torch, F, da, quantize_kv, sdpa_gqa)
+             + ragged_cases(torch, F, da, quantize_kv, sdpa_gqa))
     for c in cases:
         line = dict(phase="kernel_case", card=smi, **c)
         emit(line)
@@ -471,7 +847,9 @@ def main() -> int:
         raise AssertionError(f"kernels outside tolerance: {bad}")
 
     kernels = {"flash_attention": fa.flash_attention, "decode_attention": da.decode_attention,
-               "sample_epilogue": se.sample_epilogue}
+               "sample_epilogue": se.sample_epilogue,
+               "paged_decode_attention": da.paged_decode_attention,
+               "ragged_paged_attention": da.ragged_paged_attention}
     mp, gen, prompts = main_path(torch, np, kernels, smi)
     emit(mp)
     results.append(mp)
@@ -481,15 +859,31 @@ def main() -> int:
     failed = [k for k, v in mp.items() if isinstance(v, dict) and not v.get("teacher_forced", {}).get("ok", True)]
     if failed:
         raise AssertionError(f"teacher-forced check failed for {failed}")
+    del gen
+    torch.cuda.empty_cache()
+
+    sv = serve_phase(torch, np, kernels, smi)
+    emit(sv)
+    results.append(sv)
+    failed = [leg for leg, v in sv["legs"].items() if not v["teacher_forced"]["ok"]]
+    if failed or not sv["float32"]["ok"]:
+        raise AssertionError(f"serve checks failed: teacher-forced {failed}, float32 {sv['float32']}")
+    path_launches = dict(mp["launches"])
+    path_launches["ragged_paged_attention"] = sv["legs"]["A_mixed"]["launches"]["ragged_paged_attention"]
+    path_launches["paged_decode_attention"] = sv["legs"]["B_split_paged"]["launches"]["paged_decode_attention"]
+    idle = [name for name, n in path_launches.items() if n == 0]
+    if idle:
+        raise AssertionError(f"kernels never launched on their path: {idle}")
 
     summary = []
     for name, (source, replaces) in KERNEL_META.items():
         c = next(c for c in cases if c["kernel"] == name)  # the main-path shape
         summary.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=mp["launches"][name], max_abs_err=c["max_abs_err"], ms=c["ms"],
+            launches=path_launches[name], max_abs_err=c["max_abs_err"], ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"], bound_by=c["bound_by"],
             library_ms=c["library_ms"], case=c["case"],
+            **{k: c[k] for k in ("library", "gather_ms") if k in c},
         ))
     if args.out:
         with open(args.out, "w") as f:

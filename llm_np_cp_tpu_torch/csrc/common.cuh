@@ -29,6 +29,20 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f32<T>(from_f32<T>(x));
 }
 
+// One K/V element as float: the storage type T, or an int8 cache value
+// dequantised as JAX does, `kb.astype(dtype) * k_scale.astype(dtype)`
+// (the product rounded to T).
+template <typename T, bool INT8>
+__device__ __forceinline__ float load_kv(const void* p, const float* sc, size_t off,
+                                         size_t soff) {
+  if constexpr (INT8) {
+    const float qv = (float)((const int8_t*)p)[off];
+    return round_to<T>(qv * round_to<T>(sc[soff]));
+  } else {
+    return to_f32(((const T*)p)[off]);
+  }
+}
+
 __device__ __forceinline__ float softcap_f(float s, float cap) {
   return cap > 0.f ? tanhf(s / cap) * cap : s;
 }

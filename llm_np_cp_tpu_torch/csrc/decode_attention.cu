@@ -34,18 +34,6 @@ constexpr int kMaxOut = 8;  // outputs per thread: G*D <= kThreads*kMaxOut
 template <int D> struct DecodeTile { static constexpr int BS = 64; };
 template <> struct DecodeTile<256> { static constexpr int BS = 32; };
 
-template <typename T, bool INT8>
-__device__ __forceinline__ float load_kv(const void* p, const float* sc, size_t off,
-                                         size_t soff) {
-  if constexpr (INT8) {
-    // JAX: kb.astype(dtype) * k_scale.astype(dtype), product in dtype
-    const float qv = (float)((const int8_t*)p)[off];
-    return round_to<T>(qv * round_to<T>(sc[soff]));
-  } else {
-    return to_f32(((const T*)p)[off]);
-  }
-}
-
 template <typename T, bool INT8, int D>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const T* __restrict__ q, const void* __restrict__ k,

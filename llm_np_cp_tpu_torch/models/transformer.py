@@ -222,19 +222,23 @@ def run_decoder_layer(
     act: Callable[[torch.Tensor], torch.Tensor],
     cos: torch.Tensor,
     sin: torch.Tensor,
-    mask: torch.Tensor | None,
+    mask: torch.Tensor | None = None,
     sliding: bool = False,
     attn_impl: str = "xla",
     kv_update: Callable | None = None,
     output_attentions: bool = False,
+    attn_fn: Callable | None = None,
 ) -> tuple[torch.Tensor, tuple[Any, Any], torch.Tensor | None]:
     """One decoder block (pre-norm or Gemma sandwich-norm residual).
 
     w: one layer's weights (views into the stacked leaves).
     mask: [B, Sq, Skv] bool for this layer (the local mask on a sliding
-        layer); unused by the flash path.
+        layer); unused by the flash path and by ``attn_fn``.
     kv_update: optional ``(k, v) -> (k_att, v_att)`` hook — the in-place
         cache write; None attends over the fresh K/V (cache-less mode).
+    attn_fn: optional ``(q, k_att, v_att, sliding) -> attn`` override —
+        the serving engine's block-table kernels plug in here (their
+        visibility comes from per-row scalars, not a mask tensor).
     Returns ``(x_out, (k_att, v_att), attn_weights | None)``.
     """
     b, s = x.shape[:2]
@@ -255,7 +259,9 @@ def run_decoder_layer(
     k_att, v_att = kv_update(k, v) if kv_update is not None else (k, v)
 
     attn_weights = None
-    if attn_impl == "flash":
+    if attn_fn is not None:
+        attn = attn_fn(q, k_att, v_att, sliding)
+    elif attn_impl == "flash":
         # self-attention over the fresh K/V, positions 0..S-1
         attn = flash_attention(
             q, k, v, scale=config.attn_scale,

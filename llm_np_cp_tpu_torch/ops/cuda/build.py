@@ -122,6 +122,13 @@ SIGNATURES: dict[str, tuple] = {
     # q, k, v, k_scale, v_scale, mask, out, B, S, H, K, D, scale, softcap,
     # dtype code, int8 cache flag, stream
     "decode_attention_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P),
+    # q, k_pages, v_pages, k_scale, v_scale, tables, lengths, pads, out,
+    # B, MB, BS, H, K, D, scale, softcap, dtype code, int8 pages flag, stream
+    "paged_decode_attention_launch": (_P,) * 9 + (_I,) * 6 + (_F, _F, _I, _I, _P),
+    # q, k_pages, v_pages, k_scale, v_scale, tables, tile_row, tile_qpos0,
+    # tile_qlen, pads, out, NT, MB, BS, H, K, D, window, scale, softcap,
+    # dtype code, int8 pages flag, stream
+    "ragged_paged_attention_launch": (_P,) * 11 + (_I,) * 7 + (_F, _F, _I, _I, _P),
     # x, gamma, w, part_val, part_idx, out, N, H, V, tied, eps, unit_offset,
     # softcap, dtype code, stream
     "sample_epilogue_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _I, _P),

@@ -1,0 +1,46 @@
+"""Continuous-batching serving engine over a paged KV block pool (port of
+``llm_np_cp_tpu/serve/``, its device paths and the host side they need).
+
+Modules:
+- ``block_pool``   — fixed-size KV blocks in one preallocated slab per
+  layer, a refcounted free-list allocator, int8 scale pages.
+- ``prefix_cache`` — refcounted prompt-prefix block sharing: chained
+  content hashes → pool block ids (byte-identical keys to the JAX
+  package's).
+- ``scheduler``    — admission, the unified tick's token-budget planner,
+  block growth and youngest-first preemption; pure Python/NumPy.
+- ``metrics``      — TTFT, TPOT, queue depth, occupancy, prefix hit rate,
+  the unified tick's prefill/decode token split.
+- ``trace``        — Poisson request traces and the replay loop.
+- ``engine``       — ``ServeEngine``: the unified ragged tick
+  (``ragged_paged_attention``) and the phase-split tick (chunked prefill,
+  then a decode step over gathered views or ``paged_decode_attention``).
+
+The HTTP front end, CLI, journal, fleet, speculative serving and
+observability layers of the JAX package are later slices.
+"""
+
+from llm_np_cp_tpu_torch.serve.block_pool import BlockPool, FreeList, PagedKV
+from llm_np_cp_tpu_torch.serve.engine import ServeEngine, pool_geometry, worst_case_slots
+from llm_np_cp_tpu_torch.serve.metrics import ServeMetrics
+from llm_np_cp_tpu_torch.serve.prefix_cache import PrefixCache, prefix_block_keys
+from llm_np_cp_tpu_torch.serve.scheduler import QueueFull, Request, RequestState, Scheduler
+from llm_np_cp_tpu_torch.serve.trace import poisson_trace, replay_arrivals
+
+__all__ = [
+    "BlockPool",
+    "FreeList",
+    "PagedKV",
+    "PrefixCache",
+    "QueueFull",
+    "Request",
+    "RequestState",
+    "Scheduler",
+    "ServeEngine",
+    "ServeMetrics",
+    "poisson_trace",
+    "pool_geometry",
+    "prefix_block_keys",
+    "replay_arrivals",
+    "worst_case_slots",
+]

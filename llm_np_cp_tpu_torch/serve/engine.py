@@ -1,0 +1,1002 @@
+"""ServeEngine: continuous-batching serving over the paged block pool
+(port of ``llm_np_cp_tpu/serve/engine.py``).
+
+One engine owns the params, the block pool and the scheduler, and runs
+the device steps from a host-side tick loop.  Two tick modes, as in the
+JAX package:
+
+- **Unified tick** (``mixed_step="on"``, and ``"auto"``, which means
+  "on": the port has no kernel probe).  ONE step per tick runs a packed
+  ragged batch of prefill-chunk slices and decode rows through the
+  decoder: every token's K/V is written straight into its pool block and
+  attention reads the pool through the block tables with
+  ``ragged_paged_attention``; each row's sample comes out of the same
+  step (the fused ``sample_epilogue`` for a greedy sampler over a float
+  head).  The scheduler's token-budget planner (``plan_tick``) puts
+  decode rows first and fills the rest of ``tick_token_budget`` with
+  prefill.
+- **Phase-split tick** (``mixed_step="off"``).  Each admitted request is
+  prefilled in ``prefill_chunk`` chunks into a temporary contiguous cache
+  (``make_ragged_prefill_step``, the plain masked path), scattered into
+  its blocks, and its first token sampled; then one decode step serves
+  every running row.  ``decode_attn_impl`` picks that step's attention:
+  ``"xla"`` gathers each row's blocks into a [B, S_max, K, D] view and
+  runs the plain masked attention, ``"flash_decode"`` gathers the same
+  view for the ``decode_attention`` kernel, ``"paged"`` reads the pool
+  through the block tables with ``paged_decode_attention`` (no gathered
+  view exists).
+
+Block 0 is the scratch block: inactive rows and dead packing lanes write
+there and no live table reads it.  Every tick that dispatches fetches ONE
+packed ``[R, W+3]`` int32 array to the host (``_pack_sync``; the
+``n_host_fetches`` ledger counts it).  Prefix sharing
+(``enable_prefix_cache``) claims a prompt's registered leading blocks at
+admission and skips their prefill.  A non-greedy sampler draws each
+token with a ``torch.Generator`` seeded from (request seed, content
+position), so a preempted request replays its stream; the draws differ
+from ``jax.random``'s, so only greedy tokens match the JAX engine.
+
+What the port leaves out, as the JAX package has it: ``jit`` and its
+buckets' compiles (PyTorch runs eagerly; ``compile_counts`` has no
+meaning here and is not ported), donation (pages are updated in place),
+and the runtime degradation to XLA fallbacks — on the card a kernel
+launches or raises, nothing falls back.  Speculative serving, meshes,
+the host tier, the journal, request log, tracer, sentinel, lifecycle
+actions, telemetry, tenants and fault injection raise
+``NotImplementedError``; ``recover``, ``finish_recovered``,
+``clone_fresh`` and ``share_compiled_steps`` are not defined yet.
+"""
+
+from __future__ import annotations
+
+import logging
+import math
+import time
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from llm_np_cp_tpu_torch.cache import KVCache, dequantize_kv, quantize_kv
+from llm_np_cp_tpu_torch.config import ModelConfig
+from llm_np_cp_tpu_torch.device import resolve_device
+from llm_np_cp_tpu_torch.generate import IncrementalDetok, make_ragged_prefill_step
+from llm_np_cp_tpu_torch.models import transformer
+from llm_np_cp_tpu_torch.models.transformer import (
+    embed_inputs,
+    epilogue_gate_error,
+    final_logits,
+    run_decoder_layer,
+)
+from llm_np_cp_tpu_torch.ops.activations import ACT2FN
+from llm_np_cp_tpu_torch.ops.attention import gqa_attention
+from llm_np_cp_tpu_torch.ops.cuda import decode_attention as _da
+from llm_np_cp_tpu_torch.ops.rope import rope_cos_sin
+from llm_np_cp_tpu_torch.ops.sampling import Sampler
+from llm_np_cp_tpu_torch.serve.block_pool import BlockPool
+from llm_np_cp_tpu_torch.serve.metrics import ServeMetrics
+from llm_np_cp_tpu_torch.serve.prefix_cache import prefix_block_keys
+from llm_np_cp_tpu_torch.serve.scheduler import QueueFull, Request, RequestState, Scheduler
+
+Params = dict[str, Any]
+
+# the window a global layer passes to the ragged kernel
+GLOBAL_WINDOW = 1 << 30
+
+# keyword → value that means "off", for the JAX engine's options the port
+# does not have yet
+_NOT_PORTED = {
+    "spec_k": 0, "mesh_plan": None, "host_tier": None, "journal": None,
+    "request_log": None, "tracer": None, "sentinel": None, "actions": None,
+    "telemetry": None, "tenants": None, "fault_injector": None,
+}
+
+
+def _ceil_to(n: int, g: int) -> int:
+    return -(-n // g) * g
+
+
+def _stop_hits(samples: torch.Tensor, stop_tokens: tuple[int, ...]) -> torch.Tensor:
+    """[.., W] bool — which sampled tokens are stop tokens."""
+    hit = torch.zeros(samples.shape, dtype=torch.bool, device=samples.device)
+    for t in stop_tokens:
+        hit = hit | (samples == t)
+    return hit
+
+
+def _pack_sync(samples: torch.Tensor, stop_hit: torch.Tensor, accept: torch.Tensor) -> torch.Tensor:
+    """The one-fetch host-sync contract: the tick's whole outcome as ONE
+    int32 array ``[R, W+3]`` — columns ``[0:W)`` the sampled tokens, ``W``
+    a stop-hit bitmask over them, ``W+1`` the advance watermark (tokens
+    the accept walk emits: up to the first stop inside the accepted
+    prefix, else accept+1), ``W+2`` the accept length.  The split tick is
+    the W=1 case.  The deliver walk reads the token column; finish rules
+    stay host-side in ``_maybe_finish``, as in the JAX engine."""
+    r, w = samples.shape
+    dev = samples.device
+    bits = torch.tensor([1 << j for j in range(w)], dtype=torch.int32, device=dev)
+    stop_mask = torch.where(stop_hit, bits[None, :], 0).sum(dim=1, dtype=torch.int32)
+    kcol = torch.arange(w, dtype=torch.int32, device=dev)[None, :]
+    cand = stop_hit & (kcol <= accept[:, None])
+    first = torch.argmax(cand.to(torch.int32), dim=1).to(torch.int32) + 1
+    advance = torch.where(cand.any(dim=1), first, accept + 1)
+    return torch.cat(
+        [samples.to(torch.int32), stop_mask[:, None], advance[:, None], accept[:, None]], dim=1
+    )
+
+
+def worst_case_slots(prompt_len: int, max_new_tokens: int, chunk: int) -> int:
+    """Peak cache slots a request can occupy over its whole lifetime,
+    including re-prefills after preemption.
+
+    A re-prefill with ``g`` tokens already generated left-pads the
+    content ``p+g`` to whole chunks and the remaining ``m-g`` decode
+    steps extend from there, so the peak is
+    ``max_g ceil_to(p+g, chunk) + (m-g)`` over ``0 <= g < m``: either the
+    uninterrupted path (g=0) or just past a chunk boundary
+    (``p+g ≡ 1 mod chunk``), where it equals ``p + m + chunk - 1``.
+    """
+    p, m = prompt_len, max_new_tokens
+    worst = _ceil_to(p, chunk) + m
+    g_cross = (1 - p) % chunk or chunk  # smallest g>0 with p+g ≡ 1 (mod chunk)
+    if g_cross <= m - 1:
+        worst = max(worst, p + m + chunk - 1)
+    return worst
+
+
+def pool_geometry(
+    prompt_len: int,
+    max_new_tokens: int,
+    slots: int,
+    block_size: int,
+    prefill_chunk: int | None = None,
+    spare_blocks: int = 2,
+) -> tuple[int, int, int]:
+    """Size a pool for a worst-case trace: ``(blocks_per_seq, num_blocks,
+    max_seq_len)`` — every slot can hold a worst-case request (incl.
+    preemption re-prefills, see ``worst_case_slots``) plus
+    ``spare_blocks`` of headroom for the scratch block and the
+    scheduler's decode reserve.  ``prefill_chunk=None`` means the engine
+    default (``block_size``)."""
+    chunk = prefill_chunk or block_size
+    worst = worst_case_slots(prompt_len, max_new_tokens, chunk)
+    blocks_per_seq = -(-worst // block_size)
+    num_blocks = slots * blocks_per_seq + spare_blocks
+    return blocks_per_seq, num_blocks, blocks_per_seq * block_size
+
+
+class ServeEngine:
+    """Continuous-batching engine over a paged KV pool on ``device``
+    (``"cuda"`` by default; raises without a card unless ``"cpu"``)."""
+
+    def __init__(
+        self,
+        params: Params,
+        config: ModelConfig,
+        *,
+        sampler: Sampler | None = None,
+        stop_tokens: tuple[int, ...] = (),
+        max_slots: int = 4,
+        num_blocks: int = 64,
+        block_size: int = 64,
+        max_seq_len: int = 1024,
+        prefill_chunk: int | None = None,
+        cache_dtype: torch.dtype = torch.bfloat16,
+        decode_attn_impl: str = "xla",
+        enable_prefix_cache: bool = False,
+        max_queue: int | None = None,
+        tokenizer: Any = None,
+        clock: Callable[[], float] = time.perf_counter,
+        mixed_step: str = "off",
+        sample_epilogue: str = "auto",
+        tick_token_budget: int | None = None,
+        device: str | torch.device = "cuda",
+        **not_ported: Any,
+    ) -> None:
+        for name, value in not_ported.items():
+            if name not in _NOT_PORTED:
+                raise TypeError(f"ServeEngine got an unexpected keyword argument {name!r}")
+            if value != _NOT_PORTED[name]:
+                raise NotImplementedError(
+                    f"ServeEngine({name}=...) is not ported to PyTorch yet")
+        if decode_attn_impl not in ("xla", "flash_decode", "paged"):
+            raise ValueError(
+                f"decode_attn_impl must be 'xla', 'flash_decode' or 'paged', "
+                f"got {decode_attn_impl!r}"
+            )
+        if mixed_step not in ("auto", "on", "off"):
+            raise ValueError(f"mixed_step must be 'auto', 'on' or 'off', got {mixed_step!r}")
+        if sample_epilogue not in ("auto", "on", "off"):
+            raise ValueError(
+                f"sample_epilogue must be 'auto', 'on' or 'off', got {sample_epilogue!r}")
+        self.device = resolve_device(device)
+        if params["final_norm"].device != self.device:
+            raise ValueError(
+                f"params live on {params['final_norm'].device}, the engine asked for "
+                f"device={str(self.device)!r}"
+            )
+        self.params = params
+        self.config = config
+        self.decode_attn_impl = decode_attn_impl
+        self.mixed = mixed_step != "off"  # "auto" = "on": no probe to consult
+        self.sampler = sampler or Sampler(kind="greedy")
+        self.stop_tokens = tuple(stop_tokens)
+        self.tokenizer = tokenizer
+        self.clock = clock
+        self.cache_dtype = cache_dtype
+        self.block_size = block_size
+        self.prefill_chunk = prefill_chunk or block_size
+        # per-request cache ceiling, in whole blocks (fixes the table
+        # width and the gathered view's S_max = max_blocks_per_seq * bs)
+        self.max_seq_len = _ceil_to(max_seq_len, block_size)
+        self.max_blocks_per_seq = self.max_seq_len // block_size
+        # prefix-share granularity in BLOCKS: shared prefixes cover whole
+        # blocks AND whole prefill chunks (a partial chunk would
+        # re-prefill and re-write a shared block)
+        self._share_unit = math.lcm(self.block_size, self.prefill_chunk) // self.block_size
+
+        self.pool = BlockPool(
+            config, num_blocks, block_size, dtype=cache_dtype,
+            enable_prefix_cache=enable_prefix_cache, device=self.device,
+        )
+        self.scheduler = Scheduler(
+            self.pool,
+            max_slots=max_slots,
+            block_size=block_size,
+            prefill_plan=self._prefill_plan,
+            max_queue=max_queue,
+        )
+        self.metrics = ServeMetrics(clock=clock)
+        self._next_id = 0
+        self._detok: dict[int, IncrementalDetok] = {}
+        # live (queued or running) requests by id — the abort/deadline index
+        self._requests: dict[int, Request] = {}
+        # device steps issued (every prefill chunk, copy program, sample
+        # and decode/mixed step, as the JAX engine counts them), the
+        # split path's decode steps among them, and the host fetches
+        self.n_dispatches = 0
+        self.n_decode_dispatches = 0
+        self.n_host_fetches = 0
+
+        # fused sampling epilogue: greedy sampler over a float head
+        self.epilogue_impl = "xla"
+        if sample_epilogue != "off":
+            err = epilogue_gate_error(params, config, self.sampler.kind)
+            if err is None:
+                self.epilogue_impl = "fused"
+            elif sample_epilogue == "on":
+                logging.getLogger("llm_np_cp_tpu_torch").warning(
+                    "sample_epilogue='on' but the fused epilogue cannot serve this "
+                    "engine (%s); using the logits tail", err,
+                )
+
+        if self.mixed:
+            self._q_tile = _da.RAGGED_Q_TILE
+            self._spec_w = 1  # sample columns per row (speculation not ported)
+            budget = tick_token_budget or (max_slots + 2 * self.prefill_chunk)
+            if budget < max_slots:
+                raise ValueError(
+                    f"tick_token_budget ({budget}) must be >= max_slots ({max_slots}): "
+                    "every decode row needs one token per tick before prefill fills "
+                    "the remainder"
+                )
+            self.tick_token_budget = budget
+            self.mixed_buckets = self._make_buckets(budget, max_slots)
+        else:
+            self.tick_token_budget = 0
+            self.mixed_buckets: tuple[int, ...] = ()
+            self._prefill_step = make_ragged_prefill_step(config, device=self.device)
+
+    def _make_buckets(self, budget: int, max_slots: int) -> tuple[int, ...]:
+        """Packed-width buckets for the mixed step: a doubling ladder of
+        q-tile multiples capped by the worst aligned total (every planned
+        token plus per-row tile padding).  Eager PyTorch compiles
+        nothing, but the ladder keeps the packed shapes — and with them
+        the dead-lane work — the JAX engine's."""
+        qb = self._q_tile
+        a_max = _ceil_to(budget + max_slots * (qb - 1), qb)
+        buckets = []
+        t = qb
+        while t < a_max:
+            buckets.append(t)
+            t *= 2
+        buckets.append(a_max)
+        return tuple(sorted(set(buckets)))
+
+    def _pick_bucket(self, n: int) -> int:
+        for t in self.mixed_buckets:
+            if t >= n:
+                return t
+        raise AssertionError(
+            f"planner produced {n} aligned tokens > largest bucket "
+            f"{self.mixed_buckets[-1]} — budget accounting is broken"
+        )
+
+    # ------------------------------------------------------------------
+    def _prefill_width(self, req: Request) -> int:
+        """Left-padded prefill width: the request's content rounded up to
+        a whole number of chunks."""
+        return _ceil_to(req.total_len, self.prefill_chunk)
+
+    def _prefill_plan(self, req: Request) -> tuple[list[int], int]:
+        """Admission plan: ``(claimed shared block ids, fresh blocks
+        needed)``.  With the prefix cache on, the prompt's fully-filled
+        leading blocks are hashed and the longest registered chain is
+        CLAIMED (one reference per block); the fresh need excludes them.
+        The shareable span is capped at ``width - prefill_chunk``: the
+        LAST chunk always re-prefills (the first token's logits come out
+        of it), which also keeps decode writes strictly past every shared
+        block."""
+        w = self._prefill_width(req)
+        total = self.pool.blocks_for(w)
+        cache = self.pool.prefix_cache
+        if cache is None:
+            return [], total
+        unit = self._share_unit
+        n_keys = ((w - self.prefill_chunk) // (unit * self.block_size)) * unit
+        if n_keys <= 0:
+            return [], total
+        # a request stuck at the queue head is re-planned every tick:
+        # reuse the hashes while its content (hence width) is unchanged
+        keys = req.extra.get("prefix_keys")
+        if keys is None or req.extra.get("prefix_keys_width") != w:
+            content = req.effective_prompt()
+            keys = prefix_block_keys(content, w - content.size, self.block_size, n_keys)
+            req.extra["prefix_keys"] = keys
+            req.extra["prefix_keys_width"] = w
+        # only whole prefill chunks can be skipped
+        n_shared = (len(cache.match(keys)) // unit) * unit
+        shared = cache.claim(keys[:n_shared]) if n_shared else []
+        return shared, total - len(shared)
+
+    # ------------------------------------------------------------------
+    # Device steps
+    # ------------------------------------------------------------------
+    def _upload(self, *arrays: np.ndarray) -> list[torch.Tensor]:
+        """Host metadata → the engine's device as int32 tensors, in ONE
+        copy: the arrays are concatenated, moved, and split into
+        contiguous views of their own shapes."""
+        flat = np.concatenate([np.asarray(a, dtype=np.int32).ravel() for a in arrays])
+        dev = torch.from_numpy(flat).to(self.device)
+        out, o = [], 0
+        for a in arrays:
+            out.append(dev[o:o + a.size].view(a.shape))
+            o += a.size
+        return out
+
+    def _layer_pages(self, i: int) -> tuple:
+        """Layer ``i``'s pool slabs ``(k, v, k_scale, v_scale)`` (scales
+        None for a float pool), as contiguous views."""
+        p = self.pool.pages
+        if p.quantized:
+            return p.k[i], p.v[i], p.k_scale[i], p.v_scale[i]
+        return p.k[i], p.v[i], None, None
+
+    def _write_kv(self, i: int, blk: torch.Tensor, off: torch.Tensor,
+                  k: torch.Tensor, v: torch.Tensor) -> None:
+        """Write fresh K/V ``[N, K, D]`` of layer ``i`` at pool slots
+        ``(blk, off)``, in place.  Dead lanes all write (scratch block 0,
+        slot 0); which duplicate lands is unspecified on CUDA and
+        harmless — no live table reads block 0."""
+        kp, vp, ksp, vsp = self._layer_pages(i)
+        if ksp is not None:
+            kq, ks = quantize_kv(k)
+            vq, vs = quantize_kv(v)
+            kp[blk, off] = kq
+            vp[blk, off] = vq
+            ksp[blk, off] = ks
+            vsp[blk, off] = vs
+        else:
+            kp[blk, off] = k.to(kp.dtype)
+            vp[blk, off] = v.to(vp.dtype)
+
+    def _run_layers(self, x: torch.Tensor, positions: torch.Tensor,
+                    write: Callable, attend: Callable) -> torch.Tensor:
+        """The decoder stack over ``x`` with the pool as its cache: layer
+        i's fresh K/V go to ``write(i, k, v)`` and its attention is
+        ``attend(i, q, sliding)``."""
+        cfg = self.config
+        cos, sin = rope_cos_sin(positions, cfg, dtype=torch.float32)
+        act = ACT2FN[cfg.hidden_act]
+        for i in range(cfg.num_hidden_layers):
+            w = {name: t[i] for name, t in self.params["layers"].items()}
+
+            def kv_update(k, v, i=i):
+                write(i, k, v)
+                return None, None
+
+            x, _, _ = run_decoder_layer(
+                w, x, config=cfg, act=act, cos=cos, sin=sin,
+                sliding=cfg.layer_is_sliding(i), kv_update=kv_update,
+                attn_fn=lambda q, _k, _v, sliding, i=i: attend(i, q, sliding),
+            )
+        return x
+
+    def _row_generator(self, seed: int, pos: int) -> torch.Generator:
+        """The draw of the token at content position ``pos`` of a request
+        seeded ``seed``: a generator of its own per (seed, pos), so a
+        preempted request replays its stream."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed((int(seed) << 32) | int(pos))
+        return gen
+
+    def _sample(self, logits: torch.Tensor, seeds: np.ndarray, pos: np.ndarray,
+                live: np.ndarray) -> torch.Tensor:
+        """Sample ``logits [N, V]`` row by row with the (seed, position)
+        rule; rows not ``live`` give 0.  A greedy sampler needs no draw."""
+        if self.sampler.kind == "greedy":
+            return self.sampler(None, logits)
+        out = torch.zeros(logits.shape[0], dtype=torch.int32, device=logits.device)
+        for n in np.flatnonzero(live):
+            gen = self._row_generator(seeds[n], pos[n])
+            out[n] = self.sampler(gen, logits[n:n + 1])[0]
+        return out
+
+    def _sample_tail(self, x: torch.Tensor, seeds: np.ndarray, pos: np.ndarray,
+                     live: np.ndarray) -> torch.Tensor:
+        """Rows of pre-final-norm hidden states ``x [N, H]`` → ``[N]``
+        int32 samples: the fused epilogue kernel (greedy, float head), or
+        final_logits + the sampler."""
+        if self.epilogue_impl == "fused":
+            return transformer.sample_epilogue_tail(self.params, x, self.config)
+        return self._sample(final_logits(self.params, x[:, None], self.config)[:, 0],
+                            seeds, pos, live)
+
+    def _mixed_step(self, host: dict[str, np.ndarray]) -> torch.Tensor:
+        """The unified-tick step: ONE pass of the packed ragged batch
+        through the decoder — every token's K/V scattered into its pool
+        block, ``ragged_paged_attention`` over the block tables in every
+        layer, and each row's sample slot through the tail.  Returns the
+        packed ``[R, W+3]`` sync rows (on the device)."""
+        cfg = self.config
+        (tokens, positions, tok_blk, tok_off, tile_row, tile_qpos0, tile_qlen, tables,
+         pads, last_idx) = self._upload(*(host[k] for k in (
+             "tokens", "positions", "tok_blk", "tok_off", "tile_row", "tile_qpos0",
+             "tile_qlen", "tables", "pads", "last_idx")))
+        win = cfg.sliding_window
+
+        def write(i, k, v):
+            self._write_kv(i, tok_blk, tok_off, k[0], v[0])
+
+        def attend(i, q, sliding):
+            kp, vp, ksp, vsp = self._layer_pages(i)
+            window = win if (win is not None and sliding) else GLOBAL_WINDOW
+            return _da.ragged_paged_attention(
+                q[0], kp, vp, tables, tile_row, tile_qpos0, tile_qlen, pads, window,
+                k_scale=ksp, v_scale=vsp, scale=cfg.attn_scale,
+                logit_softcap=cfg.attn_logit_softcapping,
+            )[None]
+
+        x = embed_inputs(self.params, tokens[None, :], cfg)  # [1, T, H]
+        x = self._run_layers(x, positions[None, :], write, attend)
+        r, w_cols = host["last_idx"].shape
+        xr = x[0][last_idx.reshape(-1)]  # [R*W, H]: only the sample slots
+        nxt = self._sample_tail(
+            xr, np.repeat(host["seeds"], w_cols), host["sample_pos"].reshape(-1),
+            (np.arange(w_cols)[None, :] < host["verify_len"][:, None]).reshape(-1),
+        ).reshape(r, w_cols)
+        accept = torch.zeros(r, dtype=torch.int32, device=nxt.device)
+        return _pack_sync(nxt, _stop_hits(nxt, self.stop_tokens), accept)
+
+    def _decode_step(self, host: dict[str, np.ndarray]) -> torch.Tensor:
+        """The phase-split decode step over every slot: the input token's
+        K/V goes to slot ``lengths`` of its row, then row b attends slots
+        ``[pads, lengths]`` (window-clipped on sliding layers) through
+        ``decode_attn_impl``.  Returns the packed ``[B, 4]`` sync rows."""
+        cfg = self.config
+        impl = self.decode_attn_impl
+        toks, content_pos, blk, off, tables, vis, pads, pads_sliding = self._upload(
+            *(host[k] for k in ("toks", "content_pos", "blk", "off", "tables", "vis",
+                                "pads", "pads_sliding")))
+        s_max = self.max_seq_len
+        pos = None if impl == "paged" else torch.arange(s_max, device=self.device)[None, :]
+
+        def write(i, k, v):
+            self._write_kv(i, blk, off, k[:, 0], v[:, 0])
+
+        def attend(i, q, sliding):
+            kp, vp, ksp, vsp = self._layer_pages(i)
+            lower = pads_sliding if sliding else pads
+            kw = dict(scale=cfg.attn_scale, logit_softcap=cfg.attn_logit_softcapping)
+            if impl == "paged":
+                return _da.paged_decode_attention(q, kp, vp, tables, vis, lower,
+                                                  k_scale=ksp, v_scale=vsp, **kw)
+            b = tables.shape[0]
+
+            def view(pages):  # [NB, BS, *t] → the rows' [B, S_max, *t]
+                return pages[tables.long()].reshape(b, s_max, *pages.shape[2:])
+
+            mask = (pos >= lower[:, None]) & (pos < vis[:, None])
+            if impl == "flash_decode":
+                scales = {}
+                if ksp is not None:
+                    scales = dict(k_scale=view(ksp), v_scale=view(vsp))
+                return _da.decode_attention(q, view(kp), view(vp), mask, **scales, **kw)
+            k_att, v_att = view(kp), view(vp)
+            if ksp is not None:
+                k_att = dequantize_kv(k_att, view(ksp), q.dtype)
+                v_att = dequantize_kv(v_att, view(vsp), q.dtype)
+            return gqa_attention(q, k_att, v_att, mask[:, None, :], **kw)
+
+        x = embed_inputs(self.params, toks[:, None], cfg)  # [B, 1, H]
+        x = self._run_layers(x, content_pos[:, None], write, attend)
+        nxt = self._sample_tail(x[:, -1], host["seeds"], host["content_pos"],
+                                host["live"])[:, None]
+        accept = torch.zeros(nxt.shape[0], dtype=torch.int32, device=nxt.device)
+        return _pack_sync(nxt, _stop_hits(nxt, self.stop_tokens), accept)
+
+    def _gather_prefix(self, cache: KVCache, ids: list[int], pad: int) -> None:
+        """Copy shared blocks ``ids`` into the temp cache's slots
+        ``[0, H*bs)`` and set its validity/length — the state a full
+        prefill of those chunks would have left."""
+        h = len(ids)
+        n = h * self.block_size
+        idx = torch.tensor(ids, dtype=torch.long, device=self.device)
+        p = self.pool.pages
+        l_axis = p.k.shape[0]
+        for slab, page in ((cache.k, p.k), (cache.v, p.v),
+                           (cache.k_scale, p.k_scale), (cache.v_scale, p.v_scale)):
+            if page is not None:
+                slab[:, 0, :n] = page[:, idx].reshape(l_axis, n, *page.shape[3:])
+        pos = torch.arange(cache.max_seq_len, device=self.device)
+        cache.valid[0] = (pos >= pad) & (pos < n)
+        cache.length = n
+
+    def _scatter_prefill(self, cache: KVCache, ids: list[int], start: int) -> None:
+        """Copy the temp cache's slots from block offset ``start`` into
+        pool blocks ``ids`` (shared blocks before ``start`` are never
+        written)."""
+        nb, bs = len(ids), self.block_size
+        idx = torch.tensor(ids, dtype=torch.long, device=self.device)
+        p = self.pool.pages
+        l_axis = p.k.shape[0]
+        for slab, page in ((cache.k, p.k), (cache.v, p.v),
+                           (cache.k_scale, p.k_scale), (cache.v_scale, p.v_scale)):
+            if page is not None:
+                fresh = slab[:, 0, start * bs:(start + nb) * bs]
+                page[:, idx] = fresh.reshape(l_axis, nb, bs, *page.shape[3:])
+
+    # ------------------------------------------------------------------
+    # Request lifecycle
+    # ------------------------------------------------------------------
+    def submit(
+        self,
+        prompt_ids: np.ndarray | list[int],
+        max_new_tokens: int,
+        *,
+        request_id: int | None = None,
+        seed: int = 0,
+        callback: Callable[[Request, int, str | None], None] | None = None,
+        on_event: Callable[[Request, str], None] | None = None,
+        deadline_s: float | None = None,
+        arrival_time: float | None = None,
+    ) -> Request:
+        prompt = np.asarray(prompt_ids, dtype=np.int32).reshape(-1)
+        if prompt.size == 0:
+            raise ValueError("empty prompt")
+        if max_new_tokens < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
+        worst = worst_case_slots(prompt.size, max_new_tokens, self.prefill_chunk)
+        if worst > self.max_seq_len:
+            raise ValueError(
+                f"prompt ({prompt.size}) + max_new_tokens ({max_new_tokens}) needs up "
+                f"to {worst} cache slots > max_seq_len {self.max_seq_len}"
+            )
+        # worst-case ADMISSION need (a re-prefill carries up to
+        # max_new_tokens-1 generated tokens): a request that can never be
+        # admitted would block the strict-FIFO queue head forever
+        need_max = self.pool.blocks_for(
+            _ceil_to(prompt.size + max_new_tokens - 1, self.prefill_chunk))
+        headroom = need_max + self.scheduler.decode_reserve
+        if headroom > self.pool.capacity:
+            raise ValueError(
+                f"request needs up to {need_max} blocks + "
+                f"{self.scheduler.decode_reserve} reserve to admit > pool capacity "
+                f"{self.pool.capacity}; grow num_blocks or shrink the request"
+            )
+        if deadline_s is not None and deadline_s <= 0:
+            raise ValueError(f"deadline_s must be > 0, got {deadline_s}")
+        if request_id is None:
+            request_id = self._next_id
+        self._next_id = max(self._next_id, request_id) + 1
+        req = Request(
+            req_id=request_id,
+            prompt=prompt,
+            max_new_tokens=max_new_tokens,
+            seed=seed,
+            callback=callback,
+            on_event=on_event,
+            arrival_time=arrival_time if arrival_time is not None else 0.0,
+        )
+        req.submit_time = self.clock()
+        if deadline_s is not None:
+            req.deadline = req.submit_time + deadline_s
+        try:
+            self.scheduler.add(req)
+        except QueueFull:
+            self.metrics.on_reject()
+            raise
+        self.metrics.on_submit(req)
+        self._requests[req.req_id] = req
+        if self.tokenizer is not None:
+            self._detok[req.req_id] = IncrementalDetok(self.tokenizer)
+        return req
+
+    def _emit(self, req: Request, token: int) -> None:
+        req.generated.append(int(token))
+        if req.first_token_time is None:
+            req.first_token_time = self.clock()
+        self.metrics.on_token(req)
+        if req.callback is not None:
+            delta = None
+            detok = self._detok.get(req.req_id)
+            if detok is not None:
+                delta = detok.push(token)
+            req.callback(req, int(token), delta)
+
+    def _emit_event(self, req: Request, event: str) -> None:
+        if req.on_event is not None:
+            req.on_event(req, event)
+
+    def _flush_detok(self, req: Request) -> None:
+        """Pop the request's detokenizer and park any held-back tail text
+        in ``req.extra['final_text_delta']``."""
+        detok = self._detok.pop(req.req_id, None)
+        if detok is not None:
+            tail = detok.flush()
+            if tail:
+                req.extra["final_text_delta"] = tail
+
+    def _maybe_finish(self, req: Request) -> bool:
+        if req.state is not RequestState.RUNNING:
+            # aborted out from under us (e.g. from a token callback)
+            return True
+        hit_stop = bool(
+            self.stop_tokens and req.generated and req.generated[-1] in self.stop_tokens
+        )
+        if req.done or hit_stop:
+            # a stop token on the last budgeted step still reports "stop"
+            req.finish_reason = "stop" if hit_stop else "length"
+            req.finish_time = self.clock()
+            self.scheduler.finish(req)
+            self._requests.pop(req.req_id, None)
+            self._flush_detok(req)
+            self.metrics.on_finish(req)
+            self._emit_event(req, req.finish_reason)
+            return True
+        return False
+
+    def abort(self, request_id: int) -> bool:
+        """Cancel a live request — queued, prefilled, or mid-decode: its
+        slot frees, its block references drop (shared prefix blocks
+        survive), and the terminal ``"aborted"`` event fires.  Returns
+        False when the id is unknown or already terminal.  Not
+        thread-safe, like every other engine entry point."""
+        req = self._requests.pop(request_id, None)
+        if req is None:
+            return False
+        self.scheduler.abort(req)
+        req.finish_reason = "aborted"
+        req.finish_time = self.clock()
+        self._flush_detok(req)
+        self.metrics.on_abort(req)
+        self._emit_event(req, "aborted")
+        return True
+
+    def _sweep_deadlines(self) -> None:
+        """Abort every live request past its deadline (checked once per
+        tick)."""
+        now = self.clock()
+        expired = [r.req_id for r in self._requests.values()
+                   if r.deadline is not None and now >= r.deadline]
+        for rid in expired:
+            self.abort(rid)
+
+    def _register_prefix(self, req: Request) -> None:
+        """After a prefill: register the request's fully-filled prompt
+        blocks so the next matching prompt hits."""
+        pc = self.pool.prefix_cache
+        keys = req.extra.pop("prefix_keys", None)
+        req.extra.pop("prefix_keys_width", None)
+        if pc is not None and keys:
+            pc.register(keys, req.block_ids[: len(keys)])
+            self.metrics.on_prefix(requested=len(keys), hits=req.n_shared_blocks)
+
+    # ------------------------------------------------------------------
+    # Phase-split tick
+    # ------------------------------------------------------------------
+    def _prefill_request(self, req: Request) -> None:
+        """Chunked ragged prefill into a temp contiguous cache, scatter
+        into the request's blocks, sample + emit the first token.
+        Prefix-cache hits (``req.n_shared_blocks`` leading blocks) skip
+        their chunks: the shared K/V is copied into the temp cache (a
+        slot's K/V depends only on its token and position) and the
+        remaining chunks run from that offset."""
+        content = req.effective_prompt()
+        w = self._prefill_width(req)
+        req.pad = w - content.size
+        n_shared = req.n_shared_blocks
+        shared_slots = n_shared * self.block_size
+        dev = self.device
+        ids = np.zeros((1, w), dtype=np.int64)
+        mask = np.zeros((1, w), dtype=bool)
+        ids[0, req.pad:] = content
+        mask[0, req.pad:] = True
+        ids_d = torch.from_numpy(ids).to(dev)
+        mask_d = torch.from_numpy(mask).to(dev)
+        pads = torch.tensor([req.pad], dtype=torch.long, device=dev)
+        cache = KVCache.init(self.config, 1, self.max_seq_len, dtype=self.cache_dtype,
+                             device=dev)
+        if n_shared:
+            self.n_dispatches += 1
+            self._gather_prefix(cache, req.block_ids[:n_shared], req.pad)
+        last = None
+        for off in range(shared_slots, w, self.prefill_chunk):
+            end = off + self.prefill_chunk
+            self.n_dispatches += 1
+            last, cache = self._prefill_step(
+                self.params, ids_d[:, off:end], cache, mask_d[:, off:end], pads)
+        self.n_dispatches += 1
+        self._scatter_prefill(cache, req.block_ids[n_shared:], n_shared)
+        self._register_prefix(req)
+        self.n_dispatches += 1
+        pos = np.asarray([content.size - 1])
+        tok = self._sample(last, np.asarray([req.seed]), pos, np.ones(1, bool))
+        # the phase-split design emits the first token inside the prefill
+        # phase (its own sync); the unified tick retired this fetch
+        self._emit(req, int(tok[0].item()))
+
+    def step(self) -> bool:
+        """One scheduler tick; returns True while work remains."""
+        if self.mixed:
+            return self._step_mixed()
+        return self._step_split()
+
+    def _step_split(self) -> bool:
+        """One phase-split tick: deadline sweep, admissions (+prefill),
+        block growth, then one packed decode step."""
+        self._sweep_deadlines()
+        admitted = self.scheduler.admit()
+        for req in admitted:
+            t_req = self.clock()
+            if req.admit_time is None:
+                req.admit_time = t_req
+            self._prefill_request(req)
+            req.prefill_s += self.clock() - t_req
+            self._maybe_finish(req)
+
+        # preempted requests are already requeued; slots rebuilt below
+        for req in self.scheduler.ensure_decode_blocks():
+            self._emit_event(req, "evicted-requeued")
+
+        running = [r for r in self.scheduler.running if r.generated]
+        if running:
+            b = self.scheduler.max_slots
+            bs = self.block_size
+            win = self.config.sliding_window
+            tables = np.zeros((b, self.max_blocks_per_seq), dtype=np.int32)
+            lengths = np.zeros(b, dtype=np.int32)
+            pads = np.zeros(b, dtype=np.int32)
+            toks = np.zeros(b, dtype=np.int32)
+            seeds = np.zeros(b, dtype=np.int64)
+            live = np.zeros(b, dtype=bool)
+            for r in running:
+                tables[r.slot, : len(r.block_ids)] = r.block_ids
+                # slots written so far: pads + content minus the latest
+                # generated token (this tick's input, written by the step)
+                lengths[r.slot] = r.cache_len - 1
+                pads[r.slot] = r.pad
+                toks[r.slot] = r.generated[-1]
+                seeds[r.slot] = r.seed
+                live[r.slot] = True
+            vis = lengths + 1
+            # a sliding layer's single query at slot lengths sees slots
+            # > lengths - window: an effective left pad of vis - window
+            pads_sliding = np.maximum(pads, vis - win) if win is not None else pads
+            host = dict(
+                toks=toks, content_pos=lengths - pads,
+                blk=tables[np.arange(b), lengths // bs], off=lengths % bs,
+                tables=tables, vis=vis, pads=pads, pads_sliding=pads_sliding,
+                seeds=seeds, live=live,
+            )
+            self.n_dispatches += 1
+            self.n_decode_dispatches += 1
+            out = self._decode_step(host)
+            # THE tick's one device→host transfer: the packed [B, 4] rows
+            out_host = out.cpu().numpy()
+            self.n_host_fetches += 1
+            for r in running:
+                self._emit(r, int(out_host[r.slot, 0]))
+                self._maybe_finish(r)
+
+        self.metrics.on_tick(
+            queue_depth=self.scheduler.queue_depth,
+            occupancy=self.pool.occupancy,
+            active_slots=len(running),
+            preemptions_total=self.scheduler.n_preemptions,
+        )
+        return self.scheduler.has_work
+
+    # ------------------------------------------------------------------
+    # Unified tick
+    # ------------------------------------------------------------------
+    def _init_mixed_prefill(self, req: Request) -> None:
+        """Admission bookkeeping for the unified tick: fix the request's
+        left-pad and prefill target, pre-mark prefix-cache-covered
+        content as done (covered chunks consume no tick budget and are
+        attended in place through the block table), and stash the
+        teacher-forced content for the packer."""
+        content = req.effective_prompt()
+        w = self._prefill_width(req)
+        req.pad = w - content.size
+        shared_slots = req.n_shared_blocks * self.block_size
+        req.prefill_target = int(content.size)
+        req.prefill_done = max(shared_slots - req.pad, 0)
+        req.prefilled = False
+        req.extra["prefill_content"] = content
+
+    def _pack_mixed(
+        self,
+        decode_rows: list[Request],
+        prefill_segs: list[tuple[Request, int]],
+    ) -> dict[str, np.ndarray]:
+        """Build the mixed step's packed operands (host arrays) from the
+        planner's verdict.  Each row's token segment lands at
+        consecutive, q-tile-aligned packed positions (dead alignment
+        lanes point at the scratch block and are masked); the packed
+        width is the smallest bucket covering the aligned total."""
+        qb = self._q_tile
+        b = self.scheduler.max_slots
+        mb = self.max_blocks_per_seq
+        bs = self.block_size
+        w_v = self._spec_w
+        # segment = (request, tokens, first cache slot, n_verify): the
+        # n_verify sample slots cover the segment's LAST n_verify tokens
+        # — a decode row or completing prefill samples 1, a mid-prefill
+        # chunk samples 0
+        segs: list[tuple[Request, np.ndarray, int, int]] = []
+        for r in decode_rows:
+            segs.append((r, np.asarray([r.generated[-1]], np.int32), r.cache_len - 1, 1))
+        for r, n in prefill_segs:
+            content = r.extra["prefill_content"]
+            toks = np.asarray(content[r.prefill_done:r.prefill_done + n], np.int32)
+            segs.append((r, toks, r.pad + r.prefill_done,
+                         1 if r.prefill_done + n >= r.prefill_target else 0))
+        aligned = sum(_ceil_to(t.size, qb) for _, t, _, _ in segs)
+        t_w = self._pick_bucket(max(aligned, qb))
+        nt = t_w // qb
+        h = dict(
+            tokens=np.zeros(t_w, np.int32), positions=np.zeros(t_w, np.int32),
+            tok_blk=np.zeros(t_w, np.int32), tok_off=np.zeros(t_w, np.int32),
+            tile_row=np.zeros(nt, np.int32), tile_qpos0=np.zeros(nt, np.int32),
+            tile_qlen=np.zeros(nt, np.int32), tables=np.zeros((b, mb), np.int32),
+            pads=np.zeros(b, np.int32), last_idx=np.zeros((b, w_v), np.int32),
+            sample_pos=np.zeros((b, w_v), np.int32), seeds=np.zeros(b, np.int64),
+            verify_len=np.zeros(b, np.int32),
+        )
+        cur = 0
+        for r, toks, start_slot, n_verify in segs:
+            n = toks.size
+            slot = r.slot
+            h["tables"][slot, :len(r.block_ids)] = r.block_ids
+            h["pads"][slot] = r.pad
+            h["seeds"][slot] = r.seed
+            sl = start_slot + np.arange(n, dtype=np.int32)
+            h["tokens"][cur:cur + n] = toks
+            h["positions"][cur:cur + n] = sl - r.pad
+            h["tok_blk"][cur:cur + n] = np.asarray(r.block_ids, np.int32)[sl // bs]
+            h["tok_off"][cur:cur + n] = sl % bs
+            n_tiles = -(-n // qb)
+            ti0 = cur // qb
+            for k in range(n_tiles):
+                h["tile_row"][ti0 + k] = slot
+                h["tile_qpos0"][ti0 + k] = start_slot + k * qb
+                h["tile_qlen"][ti0 + k] = min(qb, n - k * qb)
+            if n_verify:
+                first = n - n_verify  # verify slots = the last n_verify
+                h["verify_len"][slot] = n_verify
+                for j in range(n_verify):
+                    h["last_idx"][slot, j] = cur + first + j
+                    h["sample_pos"][slot, j] = start_slot + first + j - r.pad
+            cur += n_tiles * qb
+        return h
+
+    def _finish_mixed_prefill(self, req: Request, tok: int) -> None:
+        """A row's prefill reached its target this tick: register its
+        prompt blocks with the prefix cache (they are already IN the
+        pool) and emit the first token sampled by the same step."""
+        req.prefilled = True
+        req.extra.pop("prefill_content", None)
+        self._register_prefix(req)
+        self._emit(req, tok)
+        self._maybe_finish(req)
+
+    def _step_mixed(self) -> bool:
+        """One unified tick: deadline sweep + admission, block growth,
+        token-budget planning, then ONE mixed step covering every planned
+        prefill slice and decode row, and ONE host fetch."""
+        self._sweep_deadlines()
+        admitted = self.scheduler.admit()
+        for req in admitted:
+            if req.admit_time is None:
+                req.admit_time = self.clock()
+            self._init_mixed_prefill(req)
+
+        for req in self.scheduler.ensure_decode_blocks():
+            self._emit_event(req, "evicted-requeued")
+
+        decode_rows, prefill_segs = self.scheduler.plan_tick(
+            self.tick_token_budget, self.prefill_chunk)
+        n_prefill_tok = sum(n for _, n in prefill_segs)
+        n_decode_tok = len(decode_rows)
+        if decode_rows or prefill_segs:
+            host = self._pack_mixed(decode_rows, prefill_segs)
+            td0 = self.clock()
+            self.n_dispatches += 1
+            out = self._mixed_step(host)
+            # THE tick's one device→host transfer: samples + stop mask +
+            # watermark + accept length in one int32 array
+            out_host = out.cpu().numpy()
+            self.n_host_fetches += 1
+            nxt_host = out_host[:, : self._spec_w]
+            if n_prefill_tok:
+                # per-request prefill time: the step's wall split by
+                # token share (the mixed analogue of Request.prefill_s)
+                per_tok = (self.clock() - td0) / (n_prefill_tok + n_decode_tok)
+                for r, n in prefill_segs:
+                    r.prefill_s += per_tok * n
+            for r, n in prefill_segs:
+                r.prefill_done += n
+                if r.prefill_done >= r.prefill_target:
+                    self._finish_mixed_prefill(r, int(nxt_host[r.slot, 0]))
+            for r in decode_rows:
+                self._emit(r, int(nxt_host[r.slot, 0]))
+                self._maybe_finish(r)
+
+        self.metrics.on_tick(
+            queue_depth=self.scheduler.queue_depth,
+            occupancy=self.pool.occupancy,
+            active_slots=n_decode_tok + len(prefill_segs),
+            preemptions_total=self.scheduler.n_preemptions,
+            prefill_tokens=n_prefill_tok,
+            decode_tokens=n_decode_tok,
+        )
+        return self.scheduler.has_work
+
+    # ------------------------------------------------------------------
+    def warmup(self, prompt_lens: list[int], max_new_tokens: int = 2) -> None:
+        """Run one dummy request through the engine before measuring —
+        it builds the kernel library and warms the card's allocator and
+        cuBLAS handles (eager PyTorch has no compiles to warm) — then
+        drop its traces: prefix-cache entries, the finished ledger and
+        the metrics."""
+        if not prompt_lens:
+            return
+        self.submit(np.ones(min(prompt_lens), np.int32), min(2, max_new_tokens))
+        self.run_until_complete()
+        if self.pool.prefix_cache is not None:
+            self.pool.prefix_cache.clear()
+        self.scheduler.finished.clear()
+        self.metrics = ServeMetrics(clock=self.clock)
+
+    def run_until_complete(self, max_ticks: int = 100_000) -> None:
+        for _ in range(max_ticks):
+            if not self.step():
+                return
+        raise RuntimeError(f"serve loop did not drain within {max_ticks} ticks")
+
+    def replay_trace(
+        self,
+        trace: list[dict[str, Any]],
+        *,
+        realtime: bool = False,
+        max_ticks: int = 100_000,
+    ) -> dict[str, Any]:
+        """Replay ``[{"arrival_s", "prompt", "max_new_tokens", "seed"?}]``
+        (see ``serve/trace.replay_arrivals``): a virtual clock releases
+        arrivals whenever the engine is idle, or ``realtime=True`` sleeps
+        until each one.  Returns ``metrics.snapshot()``."""
+        from llm_np_cp_tpu_torch.serve.trace import replay_arrivals
+
+        return replay_arrivals(self, trace, self.metrics.snapshot,
+                               realtime=realtime, max_ticks=max_ticks)

@@ -1,0 +1,386 @@
+"""Continuous-batching scheduler: requests → decode slots + blocks.
+
+Static batching (``Generator.generate_many``) holds a whole batch until
+its slowest row finishes; the chip idles on every early-EOS row.  Here
+the schedulable unit is one request and one decode tick: queued requests
+are admitted into free decode slots as soon as the block pool can hold
+their prefill (join-on-prefill), and a finished request's slot + blocks
+are reusable at the very next tick.
+
+Policies (deliberately boring — the interesting state is in the pool):
+- **Admission**: strict FIFO.  The head of the queue is admitted when a
+  decode slot is free AND the pool can allocate its prefill blocks while
+  keeping ``decode_reserve`` blocks spare (so a fresh admission cannot
+  instantly OOM the running set).  No queue-jumping → no starvation.
+- **Backpressure**: an optional ``max_queue`` depth cap — ``add`` raises
+  ``QueueFull`` instead of growing the queue without bound (the HTTP
+  front-end maps it to 429 + Retry-After).  Preemption requeues are
+  EXEMPT: they re-enter at the front and were already admitted once, so
+  the cap can never deadlock the running set.
+- **Abort**: a request can be cancelled in any live state.  Queued
+  requests just leave the queue (they hold no blocks); running requests
+  release their slot and decref their blocks — shared prefix blocks
+  survive for their other holders exactly as on finish/eviction.
+- **Growth**: before each decode tick every running request whose next
+  token would overflow its allocated blocks gets one more block.
+- **Eviction**: if that allocation fails, the *youngest* running request
+  (most recent admission) is preempted: its block references drop (a
+  block returns to the pool only when its LAST sharer lets go — prefix
+  blocks shared with other requests survive) and it is requeued at the
+  FRONT of the queue with its generated tokens kept.  On readmission it
+  re-prefills prompt+generated (teacher-forced) and continues — with a
+  deterministic sampler (or draws seeded per content position) this
+  reproduces the uninterrupted output exactly (pinned in tests).
+  Preempting youngest + requeue-at-front preserves FIFO completion
+  order, so no request starves.
+
+Pure Python/NumPy over the ``FreeList`` accounting interface, so
+scheduling policies are testable without a model or a device (a test
+drives this scheduler and the JAX package's side by side).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from collections import deque
+from typing import Any, Callable
+
+import numpy as np
+
+
+class RequestState(enum.Enum):
+    QUEUED = "queued"
+    RUNNING = "running"
+    FINISHED = "finished"
+    ABORTED = "aborted"
+
+
+class QueueFull(RuntimeError):
+    """Admission rejected: the scheduler's queue-depth cap is reached.
+
+    Deliberately NOT a ValueError — callers must be able to tell "this
+    request can never run" (ValueError at submit) apart from "try again
+    later" (this), because only the latter maps to HTTP 429."""
+
+    def __init__(self, depth: int, cap: int) -> None:
+        super().__init__(
+            f"scheduler queue is full ({depth} waiting, cap {cap})"
+        )
+        self.depth = depth
+        self.cap = cap
+
+
+@dataclasses.dataclass
+class Request:
+    """One generation request and its serving-side bookkeeping."""
+
+    req_id: int
+    prompt: np.ndarray  # [P] int32
+    max_new_tokens: int
+    arrival_time: float = 0.0
+    seed: int = 0
+    # callback(request, token_id, text_delta_or_None) per generated token
+    callback: Callable[["Request", int, str | None], None] | None = None
+
+    # -- scheduler/engine state ---------------------------------------
+    state: RequestState = RequestState.QUEUED
+    # terminal outcome: "stop" | "length" | "aborted" (None while live);
+    # the SAME vocabulary flows through engine events, the metrics
+    # snapshot, and the HTTP ``finish_reason`` field
+    finish_reason: str | None = None
+    # absolute deadline on the engine clock; the engine aborts past it
+    deadline: float | None = None
+    # on_event(request, event) — terminal events ("stop"/"length"/
+    # "aborted") plus the non-terminal "evicted-requeued" preemption
+    # notice; token-level streaming stays on ``callback``
+    on_event: Callable[["Request", str], None] | None = None
+    generated: list[int] = dataclasses.field(default_factory=list)
+    block_ids: list[int] = dataclasses.field(default_factory=list)
+    # leading entries of block_ids claimed from the prefix cache (their
+    # K/V is already in the pool; the engine skips those prefill chunks)
+    n_shared_blocks: int = 0
+    pad: int = 0  # left-pad slots in this request's cache region
+    # -- unified-tick (mixed_step) prefill progress -------------------
+    # content tokens whose K/V is already in the pool this admission
+    # (prefix-cache hits pre-seed it — covered content never consumes
+    # tick budget), the content length this admission must reach, and
+    # the completion flag the planner keys on.  The phase-split engine
+    # leaves these untouched; a preemption resets them with pad.
+    prefill_done: int = 0
+    prefill_target: int = 0
+    prefilled: bool = False
+    slot: int = -1  # decode slot while RUNNING
+    n_preemptions: int = 0
+    # -- metrics timestamps -------------------------------------------
+    submit_time: float | None = None
+    # first admission into a decode slot (queue_wait_s = admit_time -
+    # submit_time; preemption requeues keep the FIRST admission — the
+    # user-visible wait ended when work first started)
+    admit_time: float | None = None
+    # cumulative wall time spent in prefill dispatch for this request
+    # (re-prefills after preemption/recovery add to it)
+    prefill_s: float = 0.0
+    first_token_time: float | None = None
+    finish_time: float | None = None
+    extra: dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    @property
+    def prompt_len(self) -> int:
+        return int(self.prompt.shape[0])
+
+    @property
+    def total_len(self) -> int:
+        """Prompt + generated tokens (the sequence content length)."""
+        return self.prompt_len + len(self.generated)
+
+    @property
+    def cache_len(self) -> int:
+        """Cache slots used: left pads + content."""
+        return self.pad + self.total_len
+
+    @property
+    def done(self) -> bool:
+        return len(self.generated) >= self.max_new_tokens
+
+    def effective_prompt(self) -> np.ndarray:
+        """Prefill input: the prompt plus any already-generated tokens
+        (teacher-forced after a preemption)."""
+        if not self.generated:
+            return self.prompt
+        return np.concatenate(
+            [self.prompt, np.asarray(self.generated, dtype=np.int32)]
+        )
+
+
+class Scheduler:
+    """Admission + growth + eviction over a block allocator.
+
+    ``allocator`` is anything with the FreeList interface (alloc/free/
+    num_free); ``blocks_for_prefill(req)`` maps a request to the block
+    count its prefill will occupy (the engine's bucketing decides this —
+    the scheduler does not assume a layout).
+    """
+
+    def __init__(
+        self,
+        allocator: Any,
+        *,
+        max_slots: int,
+        block_size: int,
+        blocks_for_prefill: Callable[[Request], int] | None = None,
+        prefill_plan: Callable[[Request], tuple[list[int], int]] | None = None,
+        decode_reserve: int = 1,
+        max_queue: int | None = None,
+    ) -> None:
+        if max_slots < 1:
+            raise ValueError(f"max_slots must be >= 1, got {max_slots}")
+        if max_queue is not None and max_queue < 1:
+            raise ValueError(f"max_queue must be >= 1 or None, got {max_queue}")
+        self.allocator = allocator
+        self.max_slots = max_slots
+        self.block_size = block_size
+        self.decode_reserve = decode_reserve
+        self._blocks_for_prefill = blocks_for_prefill or (
+            lambda req: -(-req.total_len // block_size)
+        )
+        # prefill_plan(req) → (shared_block_ids, fresh_need): shared ids
+        # arrive ALREADY claimed (one reference each, prefix-cache hit);
+        # admission either completes with them at the head of
+        # req.block_ids or releases them before backing off.  Default:
+        # no sharing, everything fresh.
+        self._prefill_plan = prefill_plan or (
+            lambda req: ([], self._blocks_for_prefill(req))
+        )
+        self.max_queue = max_queue
+        self.queue: deque[Request] = deque()
+        self.running: list[Request] = []  # admission order (oldest first)
+        self.finished: list[Request] = []
+        self.aborted: list[Request] = []
+        self._free_slots: list[int] = list(range(max_slots - 1, -1, -1))
+        self.n_preemptions = 0
+
+    # ------------------------------------------------------------------
+    @property
+    def queue_depth(self) -> int:
+        return len(self.queue)
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self.queue or self.running)
+
+    def add(self, req: Request) -> None:
+        """Enqueue a NEW request; raises ``QueueFull`` past ``max_queue``.
+        Preemption requeues bypass this (``_preempt`` appendleft's
+        directly): they were already admitted once and must be able to
+        come back, cap or no cap."""
+        if self.max_queue is not None and len(self.queue) >= self.max_queue:
+            raise QueueFull(len(self.queue), self.max_queue)
+        req.state = RequestState.QUEUED
+        self.queue.append(req)
+
+    # ------------------------------------------------------------------
+    def admit(self) -> list[Request]:
+        """Admit queue-head requests into free slots while blocks last.
+
+        Allocates each admitted request's prefill blocks (req.block_ids)
+        and assigns its decode slot.  Returns the newly admitted requests
+        (the engine prefills them).
+        """
+        admitted: list[Request] = []
+        while self.queue and self._free_slots:
+            req = self.queue[0]
+            shared, need = self._prefill_plan(req)
+            if self.allocator.num_free < need + self.decode_reserve:
+                if shared:  # release the claim before backing off
+                    self.allocator.free(shared)
+                break  # strict FIFO: never skip the head
+            ids = self.allocator.alloc(need)
+            if ids is None:
+                if shared:
+                    self.allocator.free(shared)
+                break
+            self.queue.popleft()
+            req.block_ids = shared + ids
+            req.n_shared_blocks = len(shared)
+            req.slot = self._free_slots.pop()
+            req.state = RequestState.RUNNING
+            self.running.append(req)
+            admitted.append(req)
+        return admitted
+
+    # ------------------------------------------------------------------
+    def plan_tick(
+        self, budget: int, max_chunk: int,
+    ) -> tuple[list[Request], list[tuple[Request, int]]]:
+        """The unified-tick token-budget planner: split this tick's
+        ``budget`` tokens between decode rows and prefill chunk slices.
+
+        Returns ``(decode_rows, prefill_segments)`` where each segment is
+        ``(request, n_tokens)``.  Policy (the SLO-aware co-schedule):
+
+        - **decode first, never starved**: every running request that
+          has finished prefill gets its one decode token before any
+          prefill work is budgeted — a long prefill can no longer stall
+          the decoding batch, it only fills the REMAINING budget.
+        - **prefill fills the rest, oldest first**: mid-prefill rows
+          (admission order, so FIFO completion order is preserved) take
+          up to ``max_chunk`` tokens each from what is left.  Token
+          granularity: a segment smaller than a full chunk is legal, so
+          any ``budget >= max_slots`` guarantees forward progress.
+        - **budgets are exact**: the planned token count never exceeds
+          ``budget``.
+        - **prefix-cache hits are free**: covered content was pre-marked
+          done at admission (``Request.prefill_done``), so shared blocks
+          consume zero budget — the cap applies to work, not to reuse.
+
+        Pure accounting (no allocation): callers run it after admission
+        and block growth, then build the packed mixed batch from it.
+        (The JAX scheduler also budgets speculative verify lanes and
+        takes a tenant-fairness order here; neither is ported.)
+        """
+        decode = [r for r in self.running if r.prefilled and r.generated]
+        left = budget - len(decode)
+        prefill: list[tuple[Request, int]] = []
+        for r in self.running:
+            if r.prefilled or left <= 0:
+                continue
+            n = min(max_chunk, r.prefill_target - r.prefill_done, left)
+            if n > 0:
+                prefill.append((r, n))
+                left -= n
+        return decode, prefill
+
+    # ------------------------------------------------------------------
+    def ensure_decode_blocks(self) -> list[Request]:
+        """Grow every running request that needs a block for its next
+        token; evict (preempt → requeue) youngest-first on OOM.  A
+        preempted request is fully unwound HERE (blocks freed, slot
+        released, requeued at the front) — the returned list is
+        informational only (metrics/tests); callers must NOT release
+        anything again."""
+        preempted: list[Request] = []
+        # oldest first, so older requests steal from younger ones
+        for req in list(self.running):
+            if req.state is not RequestState.RUNNING:
+                continue  # already preempted below
+            # this tick writes slot cache_len-1, so the allocation is
+            # short only when cache_len EXCEEDS it (at an exact block
+            # boundary the last slot still fits — growing there would
+            # preempt a victim for a block that may never be used)
+            while req.cache_len > len(req.block_ids) * self.block_size:
+                ids = self.allocator.alloc(1)
+                if ids is not None:
+                    req.block_ids.extend(ids)
+                    continue
+                victim = self._pick_victim(req)
+                self._preempt(victim)
+                preempted.append(victim)
+                if victim is req:
+                    break
+        return preempted
+
+    def _pick_victim(self, needing: Request) -> Request:
+        """Always the youngest running request — including the needing
+        request itself when it IS the youngest.  Evicting anything older
+        would invert FIFO completion order and let a young request starve
+        an old one by repeatedly re-evicting it on each growth."""
+        return self.running[-1]
+
+    def _preempt(self, req: Request) -> None:
+        self.allocator.free(req.block_ids)
+        req.block_ids = []
+        req.n_shared_blocks = 0
+        req.pad = 0
+        # unified-tick prefill progress is per-admission state: the
+        # readmission re-prefills prompt+generated from scratch
+        req.prefill_done = 0
+        req.prefill_target = 0
+        req.prefilled = False
+        self._release_slot(req)
+        self.running.remove(req)
+        req.state = RequestState.QUEUED
+        self.queue.appendleft(req)
+        req.n_preemptions += 1
+        self.n_preemptions += 1
+
+    # ------------------------------------------------------------------
+    def finish(self, req: Request) -> None:
+        self.allocator.free(req.block_ids)
+        req.block_ids = []
+        self._release_slot(req)
+        self.running.remove(req)
+        req.state = RequestState.FINISHED
+        self.finished.append(req)
+
+    def abort(self, req: Request) -> None:
+        """Cancel a live request in whatever state it is in.
+
+        QUEUED (including a preemption requeue waiting at the front)
+        holds no blocks — it just leaves the queue.  RUNNING releases its
+        decode slot and drops one reference per block: the same decref
+        path as finish/eviction, so prefix blocks shared with other
+        requests survive and only this request's references return to
+        the pool.  Terminal states are a hard error — the caller
+        (``ServeEngine.abort``) filters those, and a double-abort here
+        would double-free blocks."""
+        if req.state is RequestState.QUEUED:
+            self.queue.remove(req)
+        elif req.state is RequestState.RUNNING:
+            self.allocator.free(req.block_ids)
+            req.block_ids = []
+            req.n_shared_blocks = 0
+            self._release_slot(req)
+            self.running.remove(req)
+        else:
+            raise ValueError(
+                f"abort on request {req.req_id} in terminal state "
+                f"{req.state.value}"
+            )
+        req.state = RequestState.ABORTED
+        self.aborted.append(req)
+
+    def _release_slot(self, req: Request) -> None:
+        if req.slot >= 0:
+            self._free_slots.append(req.slot)
+            req.slot = -1

@@ -126,3 +126,164 @@ def test_kernel_argument_errors(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         qq = torch.zeros((1, 2, 8, 64), device="cuda").transpose(1, 2)
         fa.flash_attention(qq, qq, qq, scale=1.0)
+
+
+# ----------------------------------------------------------------------
+# the paged pool kernels (serve slice)
+# ----------------------------------------------------------------------
+
+def _pool(g, nbp, bs, kh, d, dtype, int8):
+    k, v = _randn((nbp, bs, kh, d), g, dtype, 2), _randn((nbp, bs, kh, d), g, dtype)
+    if not int8:
+        return k, v, {}
+    k, ks = quantize_kv(k)
+    v, vs = quantize_kv(v)
+    return k, v, dict(k_scale=ks, v_scale=vs)
+
+
+def _tables(g, rows, mb, nbp):
+    """Distinct random pool blocks per row (never scratch block 0)."""
+    perm = torch.randperm(nbp - 1, generator=torch.Generator().manual_seed(nbp))[: rows * mb] + 1
+    return perm.view(rows, mb).to(torch.int32).cuda()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("h,kh,d,bs,softcap", [(32, 8, 64, 16, None), (8, 2, 128, 8, None),
+                                               (8, 4, 256, 16, 50.0)])
+def test_paged_decode_attention_kernel(cuda, dtype, int8, h, kh, d, bs, softcap):
+    g = torch.Generator(device="cuda").manual_seed(h + d + bs)
+    b, mb = 5, 12
+    k, v, scales = _pool(g, b * mb + 1, bs, kh, d, dtype, int8)
+    tables = _tables(g, b, mb, b * mb + 1)
+    s = mb * bs
+    lengths = torch.tensor([s, s // 2 + 3, 1, 40, 17], dtype=torch.int32, device="cuda")
+    pads = torch.tensor([0, 2 * bs + 1, 0, 40, 5], dtype=torch.int32, device="cuda")  # row 3: nothing
+    q = _randn((b, 1, h, d), g, dtype, 2)
+    kw = dict(scale=d ** -0.5, logit_softcap=softcap, **scales)
+    before = da.paged_decode_attention.launches
+    out = da.paged_decode_attention(q, k, v, tables, lengths, pads, **kw)
+    torch.cuda.synchronize()
+    assert da.paged_decode_attention.launches == before + 1
+    _assert_close(out, da.paged_decode_attention_plain(q, k, v, tables, lengths, pads, **kw), dtype)
+    assert not out[3].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("h,kh,d,bs,softcap,window", [(32, 8, 64, 16, None, 1 << 30),
+                                                      (8, 4, 256, 16, 50.0, 40),
+                                                      (12, 2, 128, 8, None, 1 << 30)])
+def test_ragged_paged_attention_kernel(cuda, dtype, int8, h, kh, d, bs, softcap, window):
+    g = torch.Generator(device="cuda").manual_seed(h * d + bs)
+    rows, mb = 4, 10
+    k, v, scales = _pool(g, rows * mb + 1, bs, kh, d, dtype, int8)
+    tables = _tables(g, rows, mb, rows * mb + 1)
+    pads = torch.tensor([3, 2 * bs + 1, 0, 7], dtype=torch.int32, device="cuda")
+    # (row, first slot, tokens): decode, long prefill slice, prefill, decode
+    segments = [(0, 70, 1), (1, 2 * bs + 1 + 9, 37), (2, 0, 16), (3, 7 + 50, 1)]
+    qt = da.RAGGED_Q_TILE
+    tile_row, qpos0, qlen, live = [], [], [], []
+    for row, slot0, n in segments:
+        for t in range(-(-n // qt)):
+            m = min(qt, n - t * qt)
+            tile_row.append(row), qpos0.append(slot0 + t * qt), qlen.append(m)
+            live += [True] * m + [False] * (qt - m)
+    tile_row.append(0), qpos0.append(0), qlen.append(0)  # a dead tile
+    live += [False] * qt
+    meta = [torch.tensor(a, dtype=torch.int32, device="cuda") for a in (tile_row, qpos0, qlen)]
+    live = torch.tensor(live, device="cuda")
+    q = _randn((live.numel(), h, d), g, dtype, 2)
+    kw = dict(scale=d ** -0.5, logit_softcap=softcap, **scales)
+    before = da.ragged_paged_attention.launches
+    out = da.ragged_paged_attention(q, k, v, tables, *meta, pads, window, **kw)
+    torch.cuda.synchronize()
+    assert da.ragged_paged_attention.launches == before + 1
+    ref = da.ragged_paged_attention_plain(q, k, v, tables, *meta, pads, window, **kw)
+    _assert_close(out, ref, dtype)
+    assert not out[~live].any()
+
+
+def test_paged_kernel_argument_errors(cuda):
+    q = torch.zeros((1, 1, 4, 64), device="cuda")
+    pages = torch.zeros((2, 8, 2, 64), device="cuda")
+    tables = torch.zeros((1, 1), dtype=torch.int64, device="cuda")
+    one = torch.ones(1, dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError, match="int32"):
+        da.paged_decode_attention(q, pages, pages, tables, one, one, scale=1.0)
+    with pytest.raises(TypeError, match="dtype"):
+        da.paged_decode_attention(q.bfloat16(), pages, pages, tables.int(), one, one, scale=1.0)
+
+
+def test_serve_mixed_and_split_give_equal_tokens(cuda):
+    """A short float32 serve run on the card: the unified tick (ragged
+    kernel) and the split paged decode (paged kernel) emit the same
+    tokens, through the kernels as many times as the ticks imply."""
+    import numpy as np
+
+    from llm_np_cp_tpu_torch.config import tiny_config
+    from llm_np_cp_tpu_torch.models.transformer import init_params
+    from llm_np_cp_tpu_torch.serve import ServeEngine, poisson_trace
+
+    cfg = tiny_config("llama", head_dim=64, hidden_size=128, num_attention_heads=4,
+                      num_key_value_heads=2)
+    params = init_params(0, cfg, torch.float32, device="cuda")
+    trace = poisson_trace(np.random.default_rng(0), 8, rate_rps=40.0, prompt_len_range=(5, 40),
+                          max_new_tokens=8, vocab_size=cfg.vocab_size)
+    out = {}
+    for leg, (mixed, impl) in {"mixed": ("on", "xla"), "split": ("off", "paged")}.items():
+        eng = ServeEngine(params, cfg, mixed_step=mixed, decode_attn_impl=impl, max_slots=4,
+                          num_blocks=40, block_size=16, max_seq_len=96, prefill_chunk=16,
+                          cache_dtype=torch.float32)
+        rag, pag = da.ragged_paged_attention.launches, da.paged_decode_attention.launches
+        assert eng.replay_trace(trace)["finished"] == 8
+        layers = cfg.num_hidden_layers
+        if eng.mixed:
+            assert da.ragged_paged_attention.launches - rag == layers * eng.n_dispatches
+            assert eng.n_host_fetches == eng.n_dispatches
+        else:
+            assert da.paged_decode_attention.launches - pag == layers * eng.n_decode_dispatches
+        out[leg] = {r.req_id: r.generated for r in eng.scheduler.finished}
+    assert out["mixed"] == out["split"]
+
+
+@pytest.mark.parametrize("pool,tie_tol", [(torch.float32, 1e-4), (torch.int8, 0.05)])
+def test_serve_prefix_sharing_and_preemption_on_the_card(cuda, pool, tie_tol):
+    """Repeated prompts through a tight pool on the card: prefix blocks
+    are shared and requests are preempted and re-prefilled in both tick
+    modes, and the two modes emit the same tokens — or part at a near-tie
+    of the plain float32 logits (an int8 pool's quantization rounds the
+    two modes' K/V apart by a step at most)."""
+    import numpy as np
+
+    from llm_np_cp_tpu_torch.config import tiny_config
+    from llm_np_cp_tpu_torch.models.transformer import forward, init_params
+    from llm_np_cp_tpu_torch.serve import ServeEngine
+
+    cfg = tiny_config("llama", head_dim=64, hidden_size=128, num_attention_heads=4,
+                      num_key_value_heads=2)
+    params = init_params(0, cfg, torch.float32, device="cuda")
+    rng = np.random.default_rng(3)
+    prompts = [p for p in (rng.integers(1, 256, size=n) for n in (40, 35, 50)) for _ in range(3)]
+    out = {}
+    for leg, (mixed, impl) in {"mixed": ("on", "xla"), "split": ("off", "paged")}.items():
+        eng = ServeEngine(params, cfg, mixed_step=mixed, decode_attn_impl=impl, max_slots=4,
+                          num_blocks=12, block_size=16, max_seq_len=96, prefill_chunk=16,
+                          cache_dtype=pool, enable_prefix_cache=True)
+        for j, p in enumerate(prompts):
+            eng.submit(p, 12, seed=j)
+        eng.run_until_complete()
+        assert eng.scheduler.n_preemptions > 0
+        assert eng.metrics.snapshot()["prefix_blocks_hit"] > 0
+        assert eng.pool.stats()["request_held"] == 0
+        out[leg] = {r.req_id: r.generated for r in eng.scheduler.finished}
+    assert out["mixed"].keys() == out["split"].keys() == set(range(len(prompts)))
+    for rid, a in out["mixed"].items():
+        b = out["split"][rid]
+        j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        ids = torch.tensor(np.concatenate([prompts[rid], a[:j]]), device="cuda")[None]
+        logits, _ = forward(params, ids, cfg, None, logits_last_only=True)
+        top2 = torch.topk(logits[0, -1], 2).values
+        assert (top2[0] - top2[1]).item() <= tie_tol, (rid, j)

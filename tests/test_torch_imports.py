@@ -34,6 +34,21 @@ def test_scan_sees_the_port():
     """The scan covers the whole package (and would catch a JAX import)."""
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert {"llm_np_cp_tpu_torch/generate.py", "llm_np_cp_tpu_torch/ops/cuda/build.py",
+            "llm_np_cp_tpu_torch/serve/engine.py", "llm_np_cp_tpu_torch/serve/scheduler.py",
             "chip_smoke.py"} <= names
     assert imported_roots(ROOT / "tests" / "test_torch_model.py") >= {"jax", "llm_np_cp_tpu"}
     assert "llm_np_cp_tpu_torch" in imported_roots(ROOT / "chip_smoke.py")
+
+
+CUDA_SOURCES = sorted((ROOT / "llm_np_cp_tpu_torch" / "csrc").glob("*.cu*"))
+
+
+@pytest.mark.parametrize("path", CUDA_SOURCES, ids=lambda p: p.name)
+def test_cuda_sources_include_only_their_own_and_cuda_headers(path):
+    """Kernel sources include system headers (<...>) and each other by
+    bare name, nothing else (no path into the JAX package)."""
+    local = {p.name for p in CUDA_SOURCES}
+    for line in path.read_text().splitlines():
+        if line.startswith("#include"):
+            spec = line.split()[1]
+            assert spec.startswith("<") or spec.strip('"') in local, spec

@@ -191,7 +191,8 @@ def test_build_is_lazy_and_named_by_sources():
     assert build._LIB is None or torch.cuda.is_available()
     sources = build._sources()
     assert {p.name for p in sources} == {
-        "flash_attention.cu", "decode_attention.cu", "sample_epilogue.cu"}
+        "flash_attention.cu", "decode_attention.cu", "sample_epilogue.cu",
+        "paged_decode_attention.cu", "ragged_paged_attention.cu"}
     assert build._digest() == build._digest()
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)
 
