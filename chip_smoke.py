@@ -10,7 +10,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
 2. kernels — each kernel against its plain PyTorch version on the card,
    in bfloat16, at the main path's shapes and at wider ones: max error
    against the stated tolerance, kernel / plain / library-call times
-   (CUDA events over many launches after warm-up) and the bound.
+   (CUDA events over many launches after warm-up) and the bound.  The
+   epilogue's int8-head variant and ``softmax`` (on no model path, as in
+   the JAX package) are timed here too.
 3. main path — Llama-3.2-1B at full width and depth on seeded random
    bf16 weights: ``Generator.generate`` (flash prefill, decode kernel,
    fused epilogue), ``generate_ragged`` and ``stream``; launch counts
@@ -29,7 +31,19 @@ Phases, each printing JSON lines; any failure exits non-zero:
    legs must match the offline ``generate_ragged`` token for token (or
    differ only at a near-tie), and torch.profiler traces a short leg-A
    replay.
-6. the ``kernels`` summary line, the card's ``nvidia-smi`` name and power
+6. quant — the same model quantized on the card (``quantize_params``) in
+   each of int8, int8_a8, int4 and int4_a8: ``Generator.generate`` with
+   the int8-head epilogue as the decode tail (launch counts equal what
+   the path implies: one int8 epilogue launch per decode step, no float
+   one), every token teacher-forced against a cache-less plain forward
+   over the same quantized params, TTFT and decode rate beside the bf16
+   main path's, ``param_bytes`` and ``quant_quality`` against the bf16
+   model (recorded, not gated); float32 int8 and int8_a8 runs (the int8
+   gap must be ~0: summation order only; W8A8 keeps its activation
+   rounding noise); a torch.profiler trace of an int8 ``generate``; and
+   one unified-tick ``replay_trace`` of the serve trace with int8
+   weights (16 ragged + 1 int8 epilogue launches per tick).
+7. the ``kernels`` summary line, the card's ``nvidia-smi`` name and power
    limit, and last the result line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -48,6 +62,8 @@ import time
 # bf16 tensor-core rate — the bound of each kernel case.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+# float32 outside the tensor cores: softmax's exp/sum/scale
+F32_FLOPS_PER_S = 67e12
 
 # bf16 attention outputs: |kernel - plain| <= ATTN_TOL * (1 + |plain|),
 # two bf16 ulps (2^-6 relative) at the output's own magnitude
@@ -79,6 +95,29 @@ SERVE_LEGS = {
     "A_mixed": dict(mixed_step="on"),
     "B_split_paged": dict(mixed_step="off", decode_attn_impl="paged"),
 }
+
+# the quant phase: quantize_params keywords per weight mode, and the
+# greedy continuation quant_quality compares with the bf16 model
+QUANT_MODES = {
+    "int8": dict(bits=8, act_quant=False),
+    "int8_a8": dict(bits=8, act_quant=True),
+    "int4": dict(bits=4, act_quant=False),
+    "int4_a8": dict(bits=4, act_quant=True),
+}
+QUALITY_STEPS = 32
+# the W8A8 / W4A8 modes quantize every projection's input rows to int8
+# on the fly: any rounding difference upstream (summation order, even in
+# float32) moves some activation across an int8 rounding boundary, and
+# the flip carries through the layers.  The plain path alone (cached
+# twin against the cache-less forward, no kernels) measured gaps of
+# 0.23-0.28 in bf16 and 0.19 in float32 in these modes on an NVIDIA H100
+# 80GB HBM3 (700 W), against 0.00-0.07 weight-only; the limit is ~3x
+# that floor and still
+# far below a wrong token's gap (logit std ~0.9)
+A8_TEACHER_TOL = 0.8
+# softmax outputs: two bf16 ulps at the output's own magnitude, or 1e-6
+# in float32
+SOFTMAX_TOL = {"bfloat16": 2.0 ** -6, "float32": 1e-6}
 
 
 def emit(obj: dict) -> None:
@@ -114,9 +153,26 @@ def attn_err(out, ref) -> tuple[float, bool]:
     return diff.max().item(), ok
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    tb, tf = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+def bound(nbytes: float, flops: float, flops_per_s: float = BF16_FLOPS_PER_S) -> tuple[float, str]:
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return (max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations")
+
+
+def reset_counts(kernels: dict) -> None:
+    """Set every launch count to 0; ``kernels`` maps a name to its
+    (wrapper, count attribute)."""
+    for fn, attr in kernels.values():
+        setattr(fn, attr, 0)
+
+
+def read_counts(kernels: dict) -> dict:
+    return {name: getattr(fn, attr) for name, (fn, attr) in kernels.items()}
+
+
+def float32_params(params: dict) -> dict:
+    """A float param dict's float32 copy."""
+    return {k: {n: t.float() for n, t in v.items()} if k == "layers" else v.float()
+            for k, v in params.items()}
 
 
 # ----------------------------------------------------------------------
@@ -254,6 +310,89 @@ def epilogue_cases(torch, se, norms) -> list[dict]:
         cases.append(dict(kernel="sample_epilogue", case=name, max_abs_err=err,
                           tol=EPILOGUE_TOL, within_tol=err <= EPILOGUE_TOL, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                           bound_ms=bms, bound_by=by))
+    return cases
+
+
+def epilogue_int8_cases(torch, se, norms, quantize_array) -> list[dict]:
+    """The int8-head variant: the head quantized on the card as
+    ``quantize_params`` quantizes it (tied: per embedding row; untied:
+    per lm_head column), scales handed over as [1, V]."""
+    cases = []
+    specs = [
+        # name, N, H, V, tied, softcap, unit_offset — main path shape first
+        ("llama1b_n4_tied_int8", 4, 2048, 128256, True, None, False),
+        ("llama1b_n8_tied_int8_serve_tick", 8, 2048, 128256, True, None, False),
+        ("gemma2_widths_n4_untied_int8_softcap30_unitoffset", 4, 2304, 256000, False, 30.0, True),
+    ]
+    for name, n, hd, vocab, tied, cap, unit in specs:
+        g = torch.Generator(device="cuda").manual_seed(17 + len(cases))
+        x = torch.randn((n, hd), generator=g, device="cuda").bfloat16()
+        gamma = (0.1 * torch.randn((hd,), generator=g, device="cuda") + (0.0 if unit else 1.0)).bfloat16()
+        wshape = (vocab, hd) if tied else (hd, vocab)
+        wq = quantize_array((0.02 * torch.randn(wshape, generator=g, device="cuda")).bfloat16(),
+                            axis=-1 if tied else -2)
+        w, ws = wq["q"], wq["s"].reshape(1, -1)
+        kw = dict(w_scale=ws, tied=tied, eps=1e-6, unit_offset=unit, logit_softcap=cap)
+        got = se.sample_epilogue(x, gamma, w, **kw)
+        torch.cuda.synchronize()
+        xn = norms.rms_norm(x, gamma, eps=1e-6, unit_offset=unit)
+        logits = (xn.float() @ (w.float().T if tied else w.float())) * ws
+        if cap is not None:
+            logits = torch.tanh(logits / cap) * cap
+        err = check_tokens(torch, logits, got, EPILOGUE_TOL)
+        plain = se.sample_epilogue_plain(x, gamma, w, **kw)
+        if not torch.equal(plain, torch.argmax(logits, -1).to(torch.int32)):
+            raise AssertionError("sample_epilogue_plain (int8) disagrees with its own logits")
+        del logits
+        ms = time_ms(torch, lambda: se.sample_epilogue(x, gamma, w, **kw), 50)
+        plain_ms = time_ms(torch, lambda: se.sample_epilogue_plain(x, gamma, w, **kw), 5)
+        # the library yardstick: matmul on the dequantized (bf16) head + argmax
+        wdq = (w.float() * (ws.reshape(-1, 1) if tied else ws)).bfloat16()
+        wt = wdq.T if tied else wdq
+        lib_ms = time_ms(torch, lambda: torch.argmax(torch.matmul(xn, wt), dim=-1), 50)
+        del wdq, wt
+        nbytes = vocab * hd + vocab * 4 + n * hd * 2 + hd * 2 + n * 4
+        bms, by = bound(nbytes, 2.0 * n * hd * vocab)
+        cases.append(dict(kernel="sample_epilogue_int8", case=name, max_abs_err=err,
+                          tol=EPILOGUE_TOL, within_tol=err <= EPILOGUE_TOL, ms=ms, plain_ms=plain_ms,
+                          library_ms=lib_ms, library="matmul on the dequantized bf16 head + argmax",
+                          bound_ms=bms, bound_by=by))
+    return cases
+
+
+def softmax_cases(torch, sm) -> list[dict]:
+    """Vocab-wide rows (a block streams each row) and attention-shaped
+    rows (a warp per row)."""
+    cases = []
+    specs = [
+        # name, shape, dtype
+        ("vocab_8x128256_bf16", (8, 128256), torch.bfloat16),
+        ("vocab_8x128256_f32", (8, 128256), torch.float32),
+        ("attn_rows_16384x128_bf16", (4 * 32 * 128, 128), torch.bfloat16),
+    ]
+    for name, shape, dtype in specs:
+        g = torch.Generator(device="cuda").manual_seed(400 + len(cases))
+        x = (4.0 * torch.randn(shape, generator=g, device="cuda")).to(dtype)
+        out = sm.softmax(x)
+        torch.cuda.synchronize()
+        ref = sm.softmax_plain(x)
+        diff = (out.float() - ref.float()).abs()
+        tol = SOFTMAX_TOL[str(dtype).removeprefix("torch.")]
+        if dtype == torch.bfloat16:
+            ok = bool((diff <= tol * ref.float().abs() + 1e-30).all())
+        else:
+            ok = bool((diff <= tol).all())
+        ms = time_ms(torch, lambda: sm.softmax(x), 100)
+        plain_ms = time_ms(torch, lambda: sm.softmax_plain(x), 20)
+        lib_ms = time_ms(torch, lambda: torch.softmax(x, dim=-1), 100)
+        numel = x.numel()
+        # each element read once and written once; ~4 float32 operations
+        # (max, exp of the difference, sum, scale)
+        bms, by = bound(2 * numel * x.element_size(), 4.0 * numel, F32_FLOPS_PER_S)
+        cases.append(dict(kernel="softmax", case=name, max_abs_err=diff.max().item(), tol=tol,
+                          tol_kind="relative to the output" if dtype == torch.bfloat16 else "absolute",
+                          within_tol=ok, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          library="torch.softmax", bound_ms=bms, bound_by=by))
     return cases
 
 
@@ -509,24 +648,22 @@ def main_path(torch, np, kernels: dict, card: str) -> tuple:
         raise AssertionError("greedy Generator did not select the fused epilogue")
     gen.generate(prompts, 4)  # warm-up: cuBLAS handles, allocator
 
-    for fn in kernels.values():
-        fn.launches = 0
+    reset_counts(kernels)
     t0 = time.perf_counter()
     res = gen.generate(prompts, DECODE_STEPS)
     res_r = gen_ragged.generate_ragged(ragged, DECODE_STEPS)
     streamed = list(gen.stream(prompts[0], STREAM_TOKENS))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in kernels.items()}
+    launches = read_counts(kernels)
 
     steps = DECODE_STEPS - 1
-    want = {
+    want = {name: 0 for name in kernels}
+    want.update({
         "flash_attention": layers * 2,  # generate + stream prefill
         "decode_attention": layers * (2 * steps + STREAM_TOKENS - 1),
         "sample_epilogue": 2 * steps + STREAM_TOKENS - 1,
-        "paged_decode_attention": 0,
-        "ragged_paged_attention": 0,
-    }
+    })
     if launches != want:
         raise AssertionError(f"launch counts {launches} != implied {want}")
     if res.tokens.shape != (4, DECODE_STEPS) or res_r.tokens.shape != (4, DECODE_STEPS):
@@ -548,8 +685,7 @@ def main_path(torch, np, kernels: dict, card: str) -> tuple:
         torch.as_tensor([streamed], device=dev))
 
     # float32 twin of the kernel path (outside the counted window)
-    params32 = {k: {n: t.float() for n, t in v.items()} if k == "layers" else v.float()
-                for k, v in params.items()}
+    params32 = float32_params(params)
     gen32 = Generator(params32, cfg, sampler=Sampler("greedy"), prefill_attn_impl="flash",
                       decode_attn_impl="flash_decode", cache_dtype=torch.float32)
     res32 = gen32.generate(prompts, F32_STEPS)
@@ -692,14 +828,13 @@ def serve_phase(torch, np, kernels: dict, card: str) -> dict:
             raise AssertionError(f"serve leg {leg} did not select the fused epilogue")
         eng.warmup([SERVE_PROMPTS[0]], 2)
         torch.cuda.synchronize()
-        for fn in kernels.values():
-            fn.launches = 0
+        reset_counts(kernels)
         d0, dd0, f0 = eng.n_dispatches, eng.n_decode_dispatches, eng.n_host_fetches
         t0 = time.perf_counter()
         snap = eng.replay_trace(trace)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {name: fn.launches for name, fn in kernels.items()}
+        launches = read_counts(kernels)
         dispatches, fetches = eng.n_dispatches - d0, eng.n_host_fetches - f0
         decode_dispatches = eng.n_decode_dispatches - dd0
         if snap["finished"] != SERVE_REQUESTS:
@@ -738,8 +873,7 @@ def serve_phase(torch, np, kernels: dict, card: str) -> dict:
     del prof_engine
 
     # float32 run of both legs against the offline Generator
-    params32 = {k: {n: t.float() for n, t in v.items()} if k == "layers" else v.float()
-                for k, v in params.items()}
+    params32 = float32_params(params)
     del params
     trace32 = serve_trace(np, cfg, F32_SERVE_REQUESTS, F32_SERVE_TOKENS, seed=1)
     got32 = {}
@@ -780,6 +914,130 @@ def serve_phase(torch, np, kernels: dict, card: str) -> dict:
 
 
 # ----------------------------------------------------------------------
+# phase 6: quantized weights
+# ----------------------------------------------------------------------
+
+def quant_phase(torch, np, kernels: dict, card: str, main: dict, serve: dict) -> dict:
+    """Llama-3.2-1B with its weights quantized on the card, in each weight
+    mode, through ``Generator`` (and once, int8, through the unified-tick
+    ``ServeEngine``); ``main`` / ``serve`` are the bf16 phases' results of
+    this run, for comparison."""
+    from llm_np_cp_tpu_torch.cache import KVCache
+    from llm_np_cp_tpu_torch.config import PRESETS
+    from llm_np_cp_tpu_torch.generate import Generator
+    from llm_np_cp_tpu_torch.models.transformer import forward, init_params
+    from llm_np_cp_tpu_torch.ops.sampling import Sampler
+    from llm_np_cp_tpu_torch.quant import param_bytes, quantize_params
+    from llm_np_cp_tpu_torch.utils.quality import quant_quality
+
+    cfg = PRESETS["meta-llama/Llama-3.2-1B"]
+    layers = cfg.num_hidden_layers
+    params = init_params(0, cfg, torch.bfloat16, device="cuda")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(4, 128))
+    dev = torch.device("cuda")
+    steps = DECODE_STEPS - 1
+    kernel_kw = dict(prefill_attn_impl="flash", decode_attn_impl="flash_decode")
+    modes = {}
+    for mode, qkw in QUANT_MODES.items():
+        qp = quantize_params(params, **qkw)
+        gen = Generator(qp, cfg, sampler=Sampler("greedy"), **kernel_kw)
+        if gen.epilogue_impl != "fused":
+            raise AssertionError(f"quant {mode}: the int8-head epilogue was not selected")
+        gen.generate(prompts, 4)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts(kernels)
+        res = gen.generate(prompts, DECODE_STEPS)
+        torch.cuda.synchronize()
+        launches = read_counts(kernels)
+        want = {name: 0 for name in kernels}
+        want.update(flash_attention=layers, decode_attention=layers * steps,
+                    sample_epilogue_int8=steps)
+        if launches != want:
+            raise AssertionError(f"quant {mode}: launch counts {launches} != implied {want}")
+        if res.tokens.shape != (4, DECODE_STEPS):
+            raise AssertionError(f"quant {mode}: token shape {res.tokens.shape}")
+        tf = teacher_forced(torch, forward, KVCache, qp, cfg, torch.as_tensor(prompts, device=dev),
+                            torch.as_tensor(res.tokens, device=dev),
+                            tol=A8_TEACHER_TOL if qkw["act_quant"] else TEACHER_TOL)
+        nbytes = param_bytes(qp)
+        if mode == "int8":
+            prof = profile_run(torch, lambda: gen.generate(prompts, 16), {
+                "flash_attention": "flash_kernel", "decode_attention": "decode_kernel",
+                "sample_epilogue_int8": "epilogue_"})
+        del gen, qp
+        quality = quant_quality(cfg, params, mode, steps=QUALITY_STEPS, base_dtype=torch.bfloat16,
+                                device="cuda", **kernel_kw)
+        modes[mode] = dict(
+            launches=launches, implied=want, param_bytes=nbytes,
+            ttft_s=res.ttft_s, decode_tok_s_per_seq=res.decode_tokens_per_s,
+            decode_tok_s=res.decode_tokens_per_s * 4, teacher_forced=tf, quality=quality)
+        torch.cuda.empty_cache()
+
+    # float32 twins: kernels and plain references then differ only in
+    # summation order
+    f32 = {}
+    for mode, tol in (("int8", F32_TEACHER_TOL), ("int8_a8", A8_TEACHER_TOL)):
+        qp32 = quantize_params(float32_params(params), **QUANT_MODES[mode])
+        gen32 = Generator(qp32, cfg, sampler=Sampler("greedy"), cache_dtype=torch.float32,
+                          **kernel_kw)
+        res32 = gen32.generate(prompts, F32_STEPS)
+        f32[mode] = dict(new_tokens=F32_STEPS, teacher_tol=tol, teacher_forced=teacher_forced(
+            torch, forward, KVCache, qp32, cfg, torch.as_tensor(prompts, device=dev),
+            torch.as_tensor(res32.tokens, device=dev), tol=tol))
+        del gen32, qp32
+        torch.cuda.empty_cache()
+
+    # the serve trace behind the unified tick, int8 weights
+    qp = quantize_params(params)
+    eng = serve_engine(qp, cfg, torch.bfloat16, "A_mixed")
+    if eng.epilogue_impl != "fused":
+        raise AssertionError("int8 serve: the int8-head epilogue was not selected")
+    eng.warmup([SERVE_PROMPTS[0]], 2)
+    torch.cuda.synchronize()
+    trace = serve_trace(np, cfg, SERVE_REQUESTS, SERVE_NEW_TOKENS, seed=0)
+    reset_counts(kernels)
+    d0, f0 = eng.n_dispatches, eng.n_host_fetches
+    t0 = time.perf_counter()
+    snap = eng.replay_trace(trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(kernels)
+    dispatches, fetches = eng.n_dispatches - d0, eng.n_host_fetches - f0
+    if snap["finished"] != SERVE_REQUESTS:
+        raise AssertionError(f"int8 serve: {snap['finished']} of {SERVE_REQUESTS} finished")
+    want = {name: 0 for name in kernels}
+    want.update(ragged_paged_attention=layers * dispatches, sample_epilogue_int8=dispatches)
+    if launches != want or fetches != dispatches:
+        raise AssertionError(f"int8 serve: launch counts {launches} != implied {want}, "
+                             f"{fetches} host fetches for {dispatches} dispatches")
+    tf_serve = teacher_forced_requests(torch, forward, qp, cfg, eng.scheduler.finished,
+                                       TEACHER_TOL)
+    served = dict(
+        weights="int8", leg="A_mixed", launches=launches, implied=want, wall_s=wall,
+        generated_tokens=snap["total_generated_tokens"],
+        tok_s_per_card=snap["total_generated_tokens"] / wall, ticks=snap["ticks"],
+        dispatches=dispatches, host_fetches=fetches,
+        ttft_s_p50=snap.get("ttft_s_p50"), ttft_s_p99=snap.get("ttft_s_p99"),
+        tpot_s_p50=snap.get("tpot_s_p50"), tpot_s_p99=snap.get("tpot_s_p99"),
+        teacher_forced=tf_serve,
+        bf16_leg_A=dict(tok_s_per_card=serve["legs"]["A_mixed"]["tok_s_per_card"],
+                        ttft_s_p50=serve["legs"]["A_mixed"]["ttft_s_p50"],
+                        tpot_s_p50=serve["legs"]["A_mixed"]["tpot_s_p50"]))
+    del eng, qp
+    torch.cuda.empty_cache()
+    gen_bf16 = main["generate"]
+    return dict(phase="quant", model="meta-llama/Llama-3.2-1B", layers=layers,
+                weights="seeded random bf16, quantized on the card", card=card,
+                generate=dict(batch=4, prompt_len=128, new_tokens=DECODE_STEPS),
+                bf16=dict(param_bytes=param_bytes(params), ttft_s=gen_bf16["ttft_s"],
+                          decode_tok_s_per_seq=gen_bf16["decode_tok_s_per_seq"],
+                          decode_tok_s=gen_bf16["decode_tok_s"]),
+                modes=modes, quality_steps=QUALITY_STEPS, float32=f32, serve=served,
+                teacher_tol=TEACHER_TOL, a8_teacher_tol=A8_TEACHER_TOL,
+                profile_int8=dict(mode="int8", generate_new_tokens=16, batch=len(prompts), **prof))
+
+
+# ----------------------------------------------------------------------
 
 KERNEL_META = {
     "flash_attention": ("llm_np_cp_tpu_torch/csrc/flash_attention.cu",
@@ -792,6 +1050,9 @@ KERNEL_META = {
                                "llm_np_cp_tpu/ops/pallas/decode_attention.py:453"),
     "ragged_paged_attention": ("llm_np_cp_tpu_torch/csrc/ragged_paged_attention.cu",
                                "llm_np_cp_tpu/ops/pallas/decode_attention.py:740"),
+    "sample_epilogue_int8": ("llm_np_cp_tpu_torch/csrc/sample_epilogue.cu",
+                             "llm_np_cp_tpu/ops/pallas/sample_epilogue.py:215"),
+    "softmax": ("llm_np_cp_tpu_torch/csrc/softmax.cu", "llm_np_cp_tpu/ops/pallas/softmax.py:52"),
 }
 
 
@@ -815,11 +1076,22 @@ def main() -> int:
     from llm_np_cp_tpu_torch.ops.cuda import decode_attention as da
     from llm_np_cp_tpu_torch.ops.cuda import flash_attention as fa
     from llm_np_cp_tpu_torch.ops.cuda import sample_epilogue as se
+    from llm_np_cp_tpu_torch.ops.cuda import softmax as sm
+    from llm_np_cp_tpu_torch.quant import quantize_array
 
     # plain versions and library calls in full float32, not TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     results: list[dict] = []
+
+    def record(line: dict) -> None:
+        """Print a result line and rewrite the --out file with every line
+        so far, so that a run that fails later keeps what it measured."""
+        emit(line)
+        results.append(line)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(dict(results=results, ptxas=build.BUILD_INFO.get("ptxas")), f, indent=1)
 
     smi = nvidia_smi_line()
     card = torch.cuda.get_device_name(0)
@@ -829,33 +1101,37 @@ def main() -> int:
     dev_line = dict(phase="device", kind=card, count=torch.cuda.device_count(),
                     torch=torch.__version__, cuda=torch.version.cuda, nvidia_smi=smi,
                     build_s=build_s, build_cached=build.BUILD_INFO.get("cached"))
-    emit(dev_line)
-    results.append(dev_line)
+    record(dev_line)
 
     sdpa_gqa = tuple(int(p) for p in torch.__version__.split(".")[:2]) >= (2, 5)
+    sm.softmax.launches = 0
     cases = (flash_cases(torch, F, fa, sdpa_gqa)
              + decode_cases(torch, F, da, quantize_kv, sdpa_gqa)
              + epilogue_cases(torch, se, norms)
              + paged_cases(torch, F, da, quantize_kv, sdpa_gqa)
-             + ragged_cases(torch, F, da, quantize_kv, sdpa_gqa))
+             + ragged_cases(torch, F, da, quantize_kv, sdpa_gqa)
+             + epilogue_int8_cases(torch, se, norms, quantize_array)
+             + softmax_cases(torch, sm))
+    # no model path calls softmax (as in the JAX package): its launches
+    # are the kernel phase's
+    softmax_launches = sm.softmax.launches
     for c in cases:
-        line = dict(phase="kernel_case", card=smi, **c)
-        emit(line)
-        results.append(line)
+        record(dict(phase="kernel_case", card=smi, **c))
     bad = [c for c in cases if not c["within_tol"]]
     if bad:
         raise AssertionError(f"kernels outside tolerance: {bad}")
 
-    kernels = {"flash_attention": fa.flash_attention, "decode_attention": da.decode_attention,
-               "sample_epilogue": se.sample_epilogue,
-               "paged_decode_attention": da.paged_decode_attention,
-               "ragged_paged_attention": da.ragged_paged_attention}
+    # the main paths' kernels: name → (wrapper, its launch count)
+    kernels = {"flash_attention": (fa.flash_attention, "launches"),
+               "decode_attention": (da.decode_attention, "launches"),
+               "sample_epilogue": (se.sample_epilogue, "launches"),
+               "paged_decode_attention": (da.paged_decode_attention, "launches"),
+               "ragged_paged_attention": (da.ragged_paged_attention, "launches"),
+               "sample_epilogue_int8": (se.sample_epilogue, "launches_int8")}
     mp, gen, prompts = main_path(torch, np, kernels, smi)
-    emit(mp)
-    results.append(mp)
+    record(mp)
     prof = profile_generate(torch, gen, prompts, smi)
-    emit(prof)
-    results.append(prof)
+    record(prof)
     failed = [k for k, v in mp.items() if isinstance(v, dict) and not v.get("teacher_forced", {}).get("ok", True)]
     if failed:
         raise AssertionError(f"teacher-forced check failed for {failed}")
@@ -863,24 +1139,40 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     sv = serve_phase(torch, np, kernels, smi)
-    emit(sv)
-    results.append(sv)
+    record(sv)
     failed = [leg for leg, v in sv["legs"].items() if not v["teacher_forced"]["ok"]]
     if failed or not sv["float32"]["ok"]:
         raise AssertionError(f"serve checks failed: teacher-forced {failed}, float32 {sv['float32']}")
+    qt = quant_phase(torch, np, kernels, smi, mp, sv)
+    record(qt)
+    failed = [m for m, v in qt["modes"].items() if not v["teacher_forced"]["ok"]]
+    failed += [f"float32 {m}" for m, v in qt["float32"].items() if not v["teacher_forced"]["ok"]]
+    if failed or not qt["serve"]["teacher_forced"]["ok"]:
+        raise AssertionError(f"quant checks failed: teacher-forced {failed}, serve "
+                             f"{qt['serve']['teacher_forced']}")
+
     path_launches = dict(mp["launches"])
     path_launches["ragged_paged_attention"] = sv["legs"]["A_mixed"]["launches"]["ragged_paged_attention"]
     path_launches["paged_decode_attention"] = sv["legs"]["B_split_paged"]["launches"]["paged_decode_attention"]
+    path_launches["sample_epilogue_int8"] = sum(
+        v["launches"]["sample_epilogue_int8"] for v in qt["modes"].values())
     idle = [name for name, n in path_launches.items() if n == 0]
     if idle:
         raise AssertionError(f"kernels never launched on their path: {idle}")
+    path_launches["softmax"] = softmax_launches
+    launches_from = {name: "main path" for name in path_launches}
+    launches_from.update(
+        ragged_paged_attention="serve leg A", paged_decode_attention="serve leg B",
+        sample_epilogue_int8="quant phase, the four modes' generate runs",
+        softmax="kernel phase (no model path calls softmax, as in the JAX package)")
 
     summary = []
     for name, (source, replaces) in KERNEL_META.items():
         c = next(c for c in cases if c["kernel"] == name)  # the main-path shape
         summary.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=path_launches[name], max_abs_err=c["max_abs_err"], ms=c["ms"],
+            launches=path_launches[name], launches_from=launches_from[name],
+            max_abs_err=c["max_abs_err"], ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"], bound_by=c["bound_by"],
             library_ms=c["library_ms"], case=c["case"],
             **{k: c[k] for k in ("library", "gather_ms") if k in c},

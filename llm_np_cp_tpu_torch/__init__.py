@@ -5,10 +5,15 @@ one NVIDIA H100: plain tensor code is PyTorch, and each Pallas kernel on
 the ported path is a hand-written CUDA C++ kernel for ``sm_90a``
 (``csrc/``, built at first use by ``ops/cuda/build.py``).
 
-Ported so far (slice 1): the offline ``Generator`` path — config, ops,
-the static KV cache, the dense decoder forward, samplers, generation and
+Ported so far: the offline ``Generator`` path — config, ops, the static
+KV cache, the dense decoder forward, samplers, generation and
 safetensors loading — with the ``flash_attention``, ``decode_attention``
-and ``sample_epilogue`` kernels.
+and ``sample_epilogue`` kernels (slice 1); the ``ServeEngine``'s paged
+block pool and tick modes with the ``ragged_paged_attention`` and
+``paged_decode_attention`` kernels (slice 2); quantized weights
+(``quant.py``: int8 / int4, weight-only or W8A8) through both, with the
+epilogue's int8-head variant, ``utils/quality.py``, and the ``softmax``
+kernel, which no model path calls (slice 3).
 
 Entry points take ``device=`` and default to ``"cuda"``; they raise when
 no card is present unless the caller asks for ``"cpu"``.

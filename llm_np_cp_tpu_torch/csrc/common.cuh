@@ -1,6 +1,7 @@
 // Shared helpers for the port's hand-written Hopper kernels.
 //
-// Element types: float (dtype code 0) and __nv_bfloat16 (dtype code 1).
+// Element types: float (dtype code 0) and __nv_bfloat16 (dtype code 1);
+// int8_t payloads (quantized weights and caches) read through to_f32.
 // Every kernel computes in float32 and rounds to the storage type exactly
 // where the Pallas kernel it replaces calls .astype(dtype).
 #pragma once
@@ -17,6 +18,7 @@ template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; 
 template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+template <> __device__ __forceinline__ float to_f32<int8_t>(int8_t x) { return (float)x; }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }

@@ -7,7 +7,7 @@ token keep feeding it (``_trim_after_stop`` normalises the tail), and
 ``early_stop`` leaves the loop once every row is done.  CUDA-graph
 capture of the step is later work.
 
-The decode tail under a greedy sampler with a float head is the fused
+The decode tail under a greedy sampler with a float or int8 head is the fused
 ``sample_epilogue`` kernel (``epilogue_impl == "fused"``); the prefill
 tail stays ``final_logits`` + ``Sampler``.  Draws use one
 ``torch.Generator`` per call, seeded with ``seed``.  ``GenerateResult``
@@ -256,7 +256,8 @@ class Generator:
     ``prefill_attn_impl="flash"`` runs prefill attention through the
     flash kernel, ``decode_attn_impl="flash_decode"`` runs each decode
     step's attention through the decode kernel, and a greedy sampler over
-    a float head takes the fused epilogue kernel as its decode tail.
+    a float or int8 (quant.py ``"q"``) head takes the fused epilogue kernel
+    as its decode tail.
     There is no probe and no fallback: on the card a kernel launches or
     raises.
     """

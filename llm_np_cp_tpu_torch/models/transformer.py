@@ -11,8 +11,10 @@ view ``t[i]``), projections stored (in, out) so every matmul is
 ``x @ W``, activations [B, S, H*D] / [B, S, K, D].  The layer loop is a
 Python loop in place of ``lax.scan``, the ``lax.cond`` on a sliding
 layer is a Python branch on ``config.layer_is_sliding(i)``, and the KV
-cache is written in place.  Dense layers only: MoE configs and
-quantized (``quant.py``) weight payloads raise ``NotImplementedError``.
+cache is written in place.  Weights may be quantized payloads
+(``quant.quantize_params``: int8 / int4, weight-only or W8A8): every
+projection goes through ``quant_einsum``.  Dense layers only: MoE
+configs raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from llm_np_cp_tpu_torch.ops.cuda.flash_attention import flash_attention
 from llm_np_cp_tpu_torch.ops.cuda.sample_epilogue import sample_epilogue
 from llm_np_cp_tpu_torch.ops.norms import rms_norm
 from llm_np_cp_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from llm_np_cp_tpu_torch.quant import is_quantized, quant_einsum
 
 Params = dict[str, Any]
 
@@ -127,23 +130,36 @@ def compute_dtype(params: Params) -> torch.dtype:
     return params["final_norm"].dtype
 
 
-def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _project(x: torch.Tensor, w: Any) -> torch.Tensor:
     """``x @ W`` with float32 accumulation, rounded to x's dtype (cuBLAS
     accumulates bf16 products in float32, the JAX einsums'
-    ``preferred_element_type``)."""
+    ``preferred_element_type``); a quantized ``W`` goes through
+    ``quant_einsum``, whose float32 result is rescaled before the
+    rounding."""
+    if is_quantized(w):
+        return quant_einsum("bsh,ho->bso", x, w).to(x.dtype)
     return (x @ w).to(x.dtype)
 
 
-def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Float32 product of (possibly bf16) inputs with a float32 result."""
-    return x.float() @ w.float()
+def layer_weights(layers: Params, i: int) -> Params:
+    """Layer ``i``'s weights: views ``t[i]`` of the stacked leaves (a
+    quantized leaf's payload and scale alike: ``[L, 1, out]`` scales
+    become ``[1, out]``)."""
+    return {
+        name: {k: v[i] for k, v in t.items()} if isinstance(t, dict) else t[i]
+        for name, t in layers.items()
+    }
 
 
 def embed_inputs(params: Params, input_ids: torch.Tensor, config: ModelConfig) -> torch.Tensor:
     """Token embedding lookup (+ Gemma's sqrt(hidden) scaling in the
     weight dtype)."""
     dtype = compute_dtype(params)
-    x = params["embed_tokens"][input_ids].to(dtype)
+    emb = params["embed_tokens"]
+    if is_quantized(emb):  # int8 rows with per-row scales
+        x = (emb["q"][input_ids].float() * emb["s"][input_ids]).to(dtype)
+    else:
+        x = emb[input_ids].to(dtype)
     if config.scale_embeddings:
         x = x * torch.tensor(math.sqrt(config.hidden_size), dtype=dtype, device=x.device)
     return x
@@ -160,32 +176,38 @@ def final_logits(
     if last_only:
         x = x[:, -1:, :]
     if config.tie_word_embeddings:
-        logits = _matmul_f32(x, params["embed_tokens"].T)
+        logits = quant_einsum("bsh,vh->bsv", x, params["embed_tokens"])
     else:
-        logits = _matmul_f32(x, params["lm_head"])
+        logits = quant_einsum("bsh,hv->bsv", x, params["lm_head"])
     if config.final_logit_softcapping is not None:
         logits = softcap(logits, config.final_logit_softcapping)
     return logits
 
 
 def head_quant_mode(params: Params, config: ModelConfig) -> str | None:
-    """How the lm-head weight is stored: ``"float"`` (plain tensor) or
-    None (a quantized payload: the int8 epilogue waits for quant.py)."""
+    """How the lm-head weight is stored: ``"float"`` (plain tensor),
+    ``"int8"`` (a quant.py ``"q"`` payload, which the epilogue's int8
+    variant streams) or None for payloads the epilogue does not take
+    (``q4``/``qa`` heads keep the logits tail)."""
     w = params.get("embed_tokens") if config.tie_word_embeddings else params.get("lm_head")
-    if w is None or isinstance(w, dict):
+    if w is None:
         return None
+    if isinstance(w, dict):
+        return "int8" if "q" in w and "s" in w else None
     return "float"
 
 
 def epilogue_params(
     params: Params, config: ModelConfig
-) -> tuple[torch.Tensor, torch.Tensor, None]:
-    """``(final-norm gamma, lm-head weight, None)`` — the leaves the fused
-    sampling epilogue streams: the embedding table ``[V, H]`` for tied
-    heads, ``lm_head [H, V]`` otherwise."""
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """``(final-norm gamma, lm-head weight payload, [1, V] float32 scales
+    or None)`` — the leaves the fused sampling epilogue streams: the
+    embedding table ``[V, H]`` for tied heads (its per-row scales laid
+    out per column), ``lm_head [H, V]`` otherwise.  Callers gate on
+    ``head_quant_mode`` first."""
     w = params["embed_tokens"] if config.tie_word_embeddings else params["lm_head"]
     if isinstance(w, dict):
-        raise NotImplementedError("the int8 lm-head epilogue waits for the quant.py port")
+        return params["final_norm"], w["q"], w["s"].reshape(1, -1)
     return params["final_norm"], w, None
 
 
@@ -210,7 +232,7 @@ def epilogue_gate_error(params: Params, config: ModelConfig, sampler_kind: str) 
         return (f"sampler kind {sampler_kind!r} (only the greedy draw "
                 "is reproduced by the streamed argmax)")
     if head_quant_mode(params, config) is None:
-        return "quantized lm-head payload (the int8 epilogue is not ported yet)"
+        return "unsupported lm-head payload (q4/qa heads keep the logits tail)"
     return None
 
 
@@ -317,9 +339,6 @@ def _check_contracts(
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
     if output_attentions and attn_impl != "xla":
         raise ValueError("output_attentions requires attn_impl='xla'")
-    leaves = [params["embed_tokens"], params.get("lm_head"), *params["layers"].values()]
-    if any(isinstance(t, dict) for t in leaves):
-        raise NotImplementedError("quantized weight payloads wait for the quant.py port")
     if params["final_norm"].device != dev:
         raise ValueError(
             f"params live on {params['final_norm'].device}, forward asked "
@@ -424,7 +443,7 @@ def forward(
     lp = params["layers"]
     hidden_states, attentions = [], []
     for i in range(config.num_hidden_layers):
-        w = {name: t[i] for name, t in lp.items()}
+        w = layer_weights(lp, i)
         sliding = config.layer_is_sliding(i)
         kv_update = None
         if cache is not None and cache.quantized:

@@ -129,10 +129,12 @@ SIGNATURES: dict[str, tuple] = {
     # tile_qlen, pads, out, NT, MB, BS, H, K, D, window, scale, softcap,
     # dtype code, int8 pages flag, stream
     "ragged_paged_attention_launch": (_P,) * 11 + (_I,) * 7 + (_F, _F, _I, _I, _P),
-    # x, gamma, w, part_val, part_idx, out, N, H, V, tied, eps, unit_offset,
-    # softcap, dtype code, stream
-    "sample_epilogue_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _I, _P),
+    # x, gamma, w, w_scale (null for float heads), part_val, part_idx, out,
+    # N, H, V, tied, eps, unit_offset, softcap, dtype code, stream
+    "sample_epilogue_launch": (_P,) * 7 + (_I, _I, _I, _I, _F, _I, _F, _I, _P),
     "sample_epilogue_num_tiles": (_I,),
+    # x, out, rows, n (the softmax axis), dtype code, stream
+    "softmax_launch": (_P, _P, _I, _I, _I, _P),
 }
 
 

@@ -1,9 +1,9 @@
 """Fused sampling epilogue: final RMSNorm → lm_head → greedy argmax.
 
 Port of ``llm_np_cp_tpu/ops/pallas/sample_epilogue.py`` for float heads
-(the int8-head variant waits for the port of ``quant.py``).  The kernel
-is ``csrc/sample_epilogue.cu``; ``sample_epilogue_plain`` is the same
-function in plain PyTorch.
+and int8 heads (quant.py's ``"q"`` payload with per-vocab-column float32
+scales).  The kernel is ``csrc/sample_epilogue.cu``;
+``sample_epilogue_plain`` is the same function in plain PyTorch.
 
 The logits are never written: the kernel keeps one (best value, first
 index) per row and vocab tile and combines them with jnp.argmax's
@@ -23,13 +23,18 @@ from llm_np_cp_tpu_torch.ops.norms import rms_norm
 
 def sample_epilogue_plain(
     x: torch.Tensor, gamma: torch.Tensor, w: torch.Tensor, *,
+    w_scale: torch.Tensor | None = None,
     tied: bool, eps: float, unit_offset: bool = False,
     logit_softcap: float | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch version: rms_norm (cast back to x's dtype), float32
-    logits from a float32 product, softcap, first-occurrence argmax."""
+    logits from a float32 product (an int8 head's payload as float32,
+    the product times the per-column scale), softcap, first-occurrence
+    argmax."""
     xn = rms_norm(x, gamma, eps=eps, unit_offset=unit_offset).float()
     logits = xn @ (w.float().T if tied else w.float())
+    if w_scale is not None:
+        logits = logits * w_scale.float().reshape(1, -1)
     if logit_softcap is not None:
         logits = _softcap(logits, logit_softcap)
     return torch.argmax(logits, dim=-1).to(torch.int32)
@@ -46,14 +51,19 @@ def sample_epilogue(
 
     x [N, H] pre-final-norm hidden states, gamma [H] the final norm
     weight, w the lm-head weight: ``[V, H]`` when ``tied``, ``[H, V]``
-    otherwise → [N] int32 token ids.  ``w_scale`` (int8 heads) is not
-    ported yet and raises.
+    otherwise → [N] int32 token ids.  An int8 ``w`` comes with
+    ``w_scale`` [1, V] float32 per-vocab-column scales (and only then).
 
     CPU tensors run ``sample_epilogue_plain``; CUDA tensors launch the
-    kernel or raise.
+    kernel or raise.  ``launches`` counts float-head launches,
+    ``launches_int8`` int8-head launches.
     """
-    if w_scale is not None or w.dtype == torch.int8:
-        raise NotImplementedError("int8 lm-head epilogue waits for the quant.py port")
+    int8 = w.dtype == torch.int8
+    if int8 != (w_scale is not None):
+        raise ValueError(
+            "int8 lm-head payloads require w_scale (and vice versa); "
+            f"got w={w.dtype}, w_scale={'set' if w_scale is not None else None}"
+        )
     n, h = x.shape
     v = w.shape[0] if tied else w.shape[1]
     if (w.shape[1] if tied else w.shape[0]) != h or gamma.shape != (h,):
@@ -61,33 +71,47 @@ def sample_epilogue(
             f"lm-head weight {tuple(w.shape)} / gamma {tuple(gamma.shape)} do "
             f"not match hidden size {h} (tied={tied})"
         )
-    if _common.on_cpu(x, gamma, w):
+    if int8 and w_scale.numel() != v:
+        raise ValueError(f"w_scale has {w_scale.numel()} entries for a vocab of {v}")
+    extra = (w_scale,) if int8 else ()
+    if _common.on_cpu(x, gamma, w, *extra):
         return sample_epilogue_plain(
-            x, gamma, w, tied=tied, eps=eps, unit_offset=unit_offset,
+            x, gamma, w, w_scale=w_scale, tied=tied, eps=eps, unit_offset=unit_offset,
             logit_softcap=logit_softcap,
         )
-    if not (x.dtype == gamma.dtype == w.dtype):
+    if x.dtype != gamma.dtype or (not int8 and w.dtype != x.dtype):
         raise TypeError(f"sample_epilogue: dtypes differ: {x.dtype}, {gamma.dtype}, {w.dtype}")
+    if int8 and w_scale.dtype != torch.float32:
+        raise TypeError(f"sample_epilogue: w_scale must be float32, got {w_scale.dtype}")
     code = _common.dtype_code("sample_epilogue", x.dtype)
-    if (h * x.element_size()) % 16 or w.data_ptr() % 16:
+    # the tied loop reads 16-byte vectors of the weight row and the
+    # matching elements of the normed row: both rows whole vectors
+    if (h * x.element_size()) % 16 or (h * w.element_size()) % 16 or w.data_ptr() % 16:
         raise ValueError(
             f"sample_epilogue: the kernel reads 16-byte vectors: hidden size {h} rows "
-            "must be a multiple of 16 bytes and w 16-byte aligned"
+            f"of {x.dtype} and of {w.dtype} must be multiples of 16 bytes and w "
+            "16-byte aligned"
         )
-    _common.check_contiguous("sample_epilogue", x=x, gamma=gamma, w=w)
+    _common.check_contiguous("sample_epilogue", x=x, gamma=gamma, w=w, **(
+        {"w_scale": w_scale} if int8 else {}))
     lib = library()
     nt = lib.sample_epilogue_num_tiles(v)
     part_val = torch.empty((n, nt), dtype=torch.float32, device=x.device)
     part_idx = torch.empty((n, nt), dtype=torch.int32, device=x.device)
     out = torch.empty((n,), dtype=torch.int32, device=x.device)
     err = lib.sample_epilogue_launch(
-        x.data_ptr(), gamma.data_ptr(), w.data_ptr(), part_val.data_ptr(),
-        part_idx.data_ptr(), out.data_ptr(), n, h, v, int(tied), float(eps),
-        int(unit_offset), float(logit_softcap or 0.0), code, _common.stream_ptr(x),
+        x.data_ptr(), gamma.data_ptr(), w.data_ptr(), w_scale.data_ptr() if int8 else None,
+        part_val.data_ptr(), part_idx.data_ptr(), out.data_ptr(), n, h, v, int(tied),
+        float(eps), int(unit_offset), float(logit_softcap or 0.0), code,
+        _common.stream_ptr(x),
     )
     check(err, "sample_epilogue")
-    sample_epilogue.launches += 1
+    if int8:
+        sample_epilogue.launches_int8 += 1
+    else:
+        sample_epilogue.launches += 1
     return out
 
 
 sample_epilogue.launches = 0
+sample_epilogue.launches_int8 = 0

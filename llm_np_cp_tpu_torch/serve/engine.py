@@ -12,7 +12,7 @@ JAX package:
   attention reads the pool through the block tables with
   ``ragged_paged_attention``; each row's sample comes out of the same
   step (the fused ``sample_epilogue`` for a greedy sampler over a float
-  head).  The scheduler's token-budget planner (``plan_tick``) puts
+  or int8 head).  The scheduler's token-budget planner (``plan_tick``) puts
   decode rows first and fills the rest of ``tick_token_budget`` with
   prefill.
 - **Phase-split tick** (``mixed_step="off"``).  Each admitted request is
@@ -258,7 +258,7 @@ class ServeEngine:
         self.n_decode_dispatches = 0
         self.n_host_fetches = 0
 
-        # fused sampling epilogue: greedy sampler over a float head
+        # fused sampling epilogue: greedy sampler over a float or int8 head
         self.epilogue_impl = "xla"
         if sample_epilogue != "off":
             err = epilogue_gate_error(params, config, self.sampler.kind)
@@ -399,7 +399,7 @@ class ServeEngine:
         cos, sin = rope_cos_sin(positions, cfg, dtype=torch.float32)
         act = ACT2FN[cfg.hidden_act]
         for i in range(cfg.num_hidden_layers):
-            w = {name: t[i] for name, t in self.params["layers"].items()}
+            w = transformer.layer_weights(self.params["layers"], i)
 
             def kv_update(k, v, i=i):
                 write(i, k, v)
@@ -435,7 +435,7 @@ class ServeEngine:
     def _sample_tail(self, x: torch.Tensor, seeds: np.ndarray, pos: np.ndarray,
                      live: np.ndarray) -> torch.Tensor:
         """Rows of pre-final-norm hidden states ``x [N, H]`` → ``[N]``
-        int32 samples: the fused epilogue kernel (greedy, float head), or
+        int32 samples: the fused epilogue kernel (greedy, float or int8 head), or
         final_logits + the sampler."""
         if self.epilogue_impl == "fused":
             return transformer.sample_epilogue_tail(self.params, x, self.config)

@@ -14,6 +14,8 @@ from llm_np_cp_tpu_torch.cache import quantize_kv
 from llm_np_cp_tpu_torch.ops.cuda import decode_attention as da
 from llm_np_cp_tpu_torch.ops.cuda import flash_attention as fa
 from llm_np_cp_tpu_torch.ops.cuda import sample_epilogue as se
+from llm_np_cp_tpu_torch.ops.cuda import softmax as sm
+from llm_np_cp_tpu_torch.quant import quant_einsum, quantize_array, quantize_params
 
 pytestmark = pytest.mark.gpu
 
@@ -108,6 +110,39 @@ def test_sample_epilogue_kernel(cuda, dtype, n, hd, vocab, tied, softcap, unit):
         assert bool(((logits.amax(-1) - picked) <= 1e-4).all())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "n,hd,vocab,tied,softcap,unit",
+    [(4, 256, 1000, True, None, False), (3, 512, 3001, False, 30.0, True),
+     (11, 128, 777, True, 5.0, True), (8, 64, 256, False, None, False)],
+)
+def test_sample_epilogue_int8_kernel(cuda, dtype, n, hd, vocab, tied, softcap, unit):
+    """int8 heads: the kernel's variant of its own (``launches_int8``)
+    against the plain version over the same payload and scales."""
+    g = torch.Generator(device="cuda").manual_seed(vocab + 1)
+    x = _randn((n, hd), g, dtype)
+    gamma = (0.1 * torch.randn((hd,), generator=g, device="cuda") + (0.0 if unit else 1.0)).to(dtype)
+    wq = quantize_array(_randn((vocab, hd) if tied else (hd, vocab), g, torch.float32, 0.1),
+                        axis=-1 if tied else -2)
+    w, ws = wq["q"], wq["s"].reshape(1, -1)
+    kw = dict(w_scale=ws, tied=tied, eps=1e-6, unit_offset=unit, logit_softcap=softcap)
+    before, before_float = se.sample_epilogue.launches_int8, se.sample_epilogue.launches
+    got = se.sample_epilogue(x, gamma, w, **kw)
+    torch.cuda.synchronize()
+    assert se.sample_epilogue.launches_int8 == before + 1
+    assert se.sample_epilogue.launches == before_float
+    want = se.sample_epilogue_plain(x, gamma, w, **kw)
+    if not torch.equal(got, want):
+        from llm_np_cp_tpu_torch.ops.norms import rms_norm
+
+        xn = rms_norm(x, gamma, eps=1e-6, unit_offset=unit).float()
+        logits = (xn @ (w.float().T if tied else w.float())) * ws
+        if softcap is not None:
+            logits = torch.tanh(logits / softcap) * softcap
+        picked = logits.gather(-1, got.long()[:, None])[:, 0]
+        assert bool(((logits.amax(-1) - picked) <= 1e-4).all())
+
+
 def test_sample_epilogue_exact_tie(cuda):
     """Identical columns in different vocab tiles: the lowest index wins."""
     x = torch.ones((2, 64), device="cuda")
@@ -115,6 +150,92 @@ def test_sample_epilogue_exact_tie(cuda):
     w[[300, 20, 999]] = 1.0
     got = se.sample_epilogue(x, torch.ones(64, device="cuda"), w, tied=True, eps=1e-6)
     assert got.tolist() == [20, 20]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 128256), (3, 5, 257), (512, 128), (2, 1), (5, 1025),
+                                   (1, 3000), (16, 1024)])
+def test_softmax_kernel(cuda, dtype, shape):
+    """Warp-per-row (short axes) and block-per-row (long axes) against
+    the float32 plain version: within 1e-6 in float32, within two bf16
+    ulps of the output's own magnitude in bf16."""
+    g = torch.Generator(device="cuda").manual_seed(shape[-1])
+    x = _randn(shape, g, dtype, 4.0)
+    before = sm.softmax.launches
+    out = sm.softmax(x)
+    torch.cuda.synchronize()
+    assert sm.softmax.launches == before + 1 and out.dtype == dtype and out.shape == x.shape
+    ref = sm.softmax_plain(x)
+    diff = (out.float() - ref.float()).abs()
+    bound = 1e-6 if dtype == torch.float32 else 2.0 ** -6 * ref.float().abs() + 1e-30
+    assert bool((diff <= bound).all()), f"max error {diff.max().item()}"
+
+
+def test_softmax_large_values(cuda):
+    x = 1000.0 * torch.randn((4, 64), generator=torch.Generator(device="cuda").manual_seed(0),
+                             device="cuda")
+    out = sm.softmax(x)
+    assert bool(torch.isfinite(out).all())
+    assert bool(((out.sum(-1) - 1.0).abs() <= 1e-5).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("key", ["q", "qa", "q4", "q4a"])
+@pytest.mark.parametrize("rows", [1, 4, 40])
+def test_quant_einsum_on_the_card(cuda, dtype, key, rows):
+    """The card's products against the CPU's on the same payloads: the
+    W8A8 / W4A8 int32 product (rows padded past cuBLAS's 16-row minimum)
+    is exact, so float32 results are equal; the weight-only products
+    differ by summation order only."""
+    g = torch.Generator().manual_seed(rows)
+    w = 0.05 * torch.randn((256, 512), generator=g)
+    x = torch.randn((1, rows, 256), generator=g).to(dtype)
+    p = quantize_params({"layers": {"q_proj": w[None]}}, embed=False,
+                        bits=4 if key.startswith("q4") else 8, act_quant=key.endswith("a"))
+    wq = {k: v[0] for k, v in p["layers"]["q_proj"].items()}
+    assert key in wq
+    want = quant_einsum("bsh,ho->bso", x, wq)
+    got = quant_einsum("bsh,ho->bso", x.cuda(), {k: v.cuda() for k, v in wq.items()})
+    assert got.dtype == torch.float32 and got.shape == (1, rows, 512)
+    if key.endswith("a") and dtype == torch.float32:
+        assert torch.equal(got.cpu(), want)
+    else:
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+def _to(tree, dev):
+    """A param dict (quantized leaves are dicts too) on ``dev``."""
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("mode", ["int8", "int8_a8", "int4", "int4_a8"])
+def test_quantized_generate_on_the_card(cuda, mode):
+    """A tiny float32 model quantized on the card: the Generator's decode
+    tail is the int8-head epilogue (one launch per decode step, no
+    float-head launch) and its tokens equal the CPU run's."""
+    import numpy as np
+
+    from llm_np_cp_tpu_torch.config import tiny_config
+    from llm_np_cp_tpu_torch.generate import Generator
+    from llm_np_cp_tpu_torch.models.transformer import init_params
+    from llm_np_cp_tpu_torch.ops.sampling import Sampler
+
+    cfg = tiny_config("llama", head_dim=64, hidden_size=128, num_attention_heads=4,
+                      num_key_value_heads=2)
+    kw = dict(bits=4 if mode.startswith("int4") else 8, act_quant=mode.endswith("_a8"))
+    params = quantize_params(init_params(0, cfg, torch.float32, device="cpu"), **kw)
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 12))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        gen = Generator(_to(params, dev), cfg, sampler=Sampler("greedy"), cache_dtype=torch.float32, device=dev,
+                        prefill_attn_impl="flash", decode_attn_impl="flash_decode")
+        assert gen.epilogue_impl == "fused"
+        before, before_float = se.sample_epilogue.launches_int8, se.sample_epilogue.launches
+        out[dev] = gen.generate(prompts, 8).tokens
+        if dev == "cuda":
+            assert se.sample_epilogue.launches_int8 - before == 7
+            assert se.sample_epilogue.launches == before_float
+    np.testing.assert_array_equal(out["cuda"], out["cpu"])
 
 
 def test_kernel_argument_errors(cuda):

@@ -1,5 +1,7 @@
-"""The port's three kernel wrappers on CPU tensors (their plain versions)
-against the JAX package's Pallas kernels in interpret mode, in float32.
+"""The port's slab kernel wrappers (flash and decode attention, the
+sampling epilogue with float and int8 heads, softmax) on CPU tensors
+(their plain versions) against the JAX package's Pallas kernels in
+interpret mode, in float32.
 
 The CUDA kernels themselves run only on the card: ``tests/test_torch_gpu.py``
 holds each one against its plain version there.  Here the plain versions
@@ -19,10 +21,14 @@ from llm_np_cp_tpu import cache as jcache
 from llm_np_cp_tpu.ops.pallas.decode_attention import decode_attention as j_decode
 from llm_np_cp_tpu.ops.pallas.flash_attention import flash_attention as j_flash
 from llm_np_cp_tpu.ops.pallas.sample_epilogue import sample_epilogue as j_epilogue
+from llm_np_cp_tpu.ops.pallas.softmax import softmax as j_softmax
+from llm_np_cp_tpu.quant import quantize_array as j_quantize_array
+from llm_np_cp_tpu_torch import quant as tq
 from llm_np_cp_tpu_torch.ops.cuda import build
 from llm_np_cp_tpu_torch.ops.cuda.decode_attention import decode_attention
 from llm_np_cp_tpu_torch.ops.cuda.flash_attention import flash_attention
 from llm_np_cp_tpu_torch.ops.cuda.sample_epilogue import sample_epilogue
+from llm_np_cp_tpu_torch.ops.cuda.softmax import softmax
 
 ATOL = 2e-5  # float32 on both sides; only summation order differs
 
@@ -159,13 +165,72 @@ def test_epilogue_exact_tie_takes_first_index():
             assert (got == 7).all()
 
 
+@pytest.mark.parametrize(
+    "tied,softcap,unit_offset",
+    [(True, None, False), (False, None, False), (True, 2.0, True), (False, 30.0, True)],
+)
+def test_epilogue_int8_plain_matches_pallas(tied, softcap, unit_offset):
+    """int8 heads (quant.py "q" payloads, quantized by the JAX package):
+    the payload as float, the float32 product times the per-column scale,
+    then softcap and argmax — the TPU kernel's quantized=True branch."""
+    rng = np.random.default_rng(5)
+    n, h, v = 5, 64, 300
+    x = _np(rng, (n, h))
+    gamma = _np(rng, (h,), 0.3) + (0.0 if unit_offset else 1.0)
+    wf = _np(rng, (v, h) if tied else (h, v), 0.5)
+    wq = j_quantize_array(jnp.asarray(wf), axis=-1 if tied else -2)
+    ws = np.array(wq["s"]).reshape(1, -1)
+    kw = dict(tied=tied, eps=1e-6, unit_offset=unit_offset, logit_softcap=softcap)
+    want = j_epilogue(jnp.asarray(x), jnp.asarray(gamma), wq["q"], w_scale=jnp.asarray(ws),
+                      block_v=128, interpret=True, **kw)
+    got = sample_epilogue(torch.from_numpy(x), torch.from_numpy(gamma),
+                          torch.from_numpy(np.array(wq["q"])), w_scale=torch.from_numpy(ws),
+                          **kw)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # the port's own quantization gives the same payload, hence the same tokens
+    tw = tq.quantize_array(torch.from_numpy(wf), axis=-1 if tied else -2)
+    again = sample_epilogue(torch.from_numpy(x), torch.from_numpy(gamma), tw["q"],
+                            w_scale=tw["s"].reshape(1, -1), **kw)
+    np.testing.assert_array_equal(again.numpy(), np.asarray(want))
+
+
 def test_epilogue_argument_checks():
     x, g = torch.zeros(2, 16), torch.ones(16)
     with pytest.raises(ValueError, match="hidden size"):
         sample_epilogue(x, g, torch.zeros(32, 8), tied=True, eps=1e-6)
-    with pytest.raises(NotImplementedError, match="quant"):
-        sample_epilogue(x, g, torch.zeros(32, 16, dtype=torch.int8), tied=True, eps=1e-6,
+    with pytest.raises(ValueError, match="w_scale"):
+        sample_epilogue(x, g, torch.zeros(32, 16, dtype=torch.int8), tied=True, eps=1e-6)
+    with pytest.raises(ValueError, match="w_scale"):
+        sample_epilogue(x, g, torch.zeros(32, 16), tied=True, eps=1e-6,
                         w_scale=torch.ones(1, 32))
+    with pytest.raises(ValueError, match="vocab"):
+        sample_epilogue(x, g, torch.zeros(32, 16, dtype=torch.int8), tied=True, eps=1e-6,
+                        w_scale=torch.ones(1, 31))
+
+
+# ----------------------------------------------------------------------
+# softmax
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape,scale", [((3, 5, 257), 10.0), ((4, 64), 1000.0), ((7, 3), 1.0)])
+def test_softmax_plain_matches_pallas(shape, scale):
+    """Leading axes flattened to rows (the 8-row tiles pad), and the large
+    magnitudes of the JAX package's own stability test."""
+    x = (scale * np.random.default_rng(6).standard_normal(shape)).astype(np.float32)
+    want = np.asarray(j_softmax(jnp.asarray(x), interpret=True))
+    before = softmax.launches
+    got = softmax(torch.from_numpy(x))
+    assert softmax.launches == before and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6)
+    assert np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(got.numpy().sum(-1), 1.0, atol=1e-5)
+
+
+def test_softmax_keeps_bf16():
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal((2, 33)).astype(np.float32))
+    got = softmax(x.bfloat16())
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got, torch.softmax(x.bfloat16().float(), -1).bfloat16())
 
 
 # ----------------------------------------------------------------------
@@ -192,7 +257,7 @@ def test_build_is_lazy_and_named_by_sources():
     sources = build._sources()
     assert {p.name for p in sources} == {
         "flash_attention.cu", "decode_attention.cu", "sample_epilogue.cu",
-        "paged_decode_attention.cu", "ragged_paged_attention.cu"}
+        "paged_decode_attention.cu", "ragged_paged_attention.cu", "softmax.cu"}
     assert build._digest() == build._digest()
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)
 

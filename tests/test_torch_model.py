@@ -203,9 +203,10 @@ def test_forward_contracts():
         fwd(tp, ids, cfg, attn_impl="ring")
     with pytest.raises(ValueError, match="params live on"):
         ttf.forward(tp, ids, cfg, device="meta")
-    with pytest.raises(NotImplementedError, match="quant"):
-        q = dict(tp, layers=dict(tp["layers"], q_proj={"q": None, "s": None}))
-        fwd(q, ids, cfg)
+    # a quantized payload is a contract the forward keeps, not a refusal
+    from llm_np_cp_tpu_torch.quant import quantize_params
+
+    assert fwd(quantize_params(tp), ids, cfg)[0].shape == (1, 4, cfg.vocab_size)
     c.length = torch.tensor([1])
     with pytest.raises(TypeError, match="per-row"):
         fwd(tp, ids, cfg, c)
@@ -217,8 +218,11 @@ def test_epilogue_gate():
     assert ttf.epilogue_gate_error(tp, cfg, "greedy") is None
     assert "greedy" in ttf.epilogue_gate_error(tp, cfg, "top_p")
     q = dict(tp, embed_tokens={"q": None, "s": None})
-    assert ttf.head_quant_mode(q, cfg) is None
-    assert ttf.epilogue_gate_error(q, cfg, "greedy") is not None
+    assert ttf.head_quant_mode(q, cfg) == "int8"
+    assert ttf.epilogue_gate_error(q, cfg, "greedy") is None
+    q4 = dict(tp, embed_tokens={"q4": None, "s": None})
+    assert ttf.head_quant_mode(q4, cfg) is None
+    assert ttf.epilogue_gate_error(q4, cfg, "greedy") is not None
 
 
 def test_convert_bf16_bit_exact():
