@@ -11,6 +11,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
    in bfloat16, at the main path's shapes and at wider ones: max error
    against the stated tolerance, kernel / plain / library-call times
    (CUDA events over many launches after warm-up) and the bound.  The
+   slab decode (split-KV) records each case's NSPLIT and its kernels'
+   own device time (torch.profiler), and its combine is held alone
+   against its plain version on the split kernel's partials.  The
    epilogue's int8-head variant and ``softmax`` (on no model path, as in
    the JAX package) are timed here too.
 3. main path — Llama-3.2-1B at full width and depth on seeded random
@@ -146,6 +149,31 @@ def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, markers: dict[str, str], iters: int = 20) -> dict[str, float]:
+    """Device time per call of ``fn`` by kernel (name → substring of the
+    CUDA symbol), from torch.profiler over ``iters`` calls after warm-up:
+    the kernels' own time, without the host's launch overhead that CUDA
+    events around a short kernel also measure."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    got = {name: 0.0 for name in markers}
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", 0) or 0
+        if e.device_type != DeviceType.CUDA or dev_us <= 0:
+            continue
+        for name, marker in markers.items():
+            if marker in e.key:
+                got[name] += dev_us / 1e3 / iters
+    return got
+
+
 def attn_err(out, ref) -> tuple[float, bool]:
     """(max |out - ref|, whether every element is within ATTN_TOL * (1 + |ref|))."""
     diff = (out.float() - ref.float()).abs()
@@ -224,41 +252,84 @@ def decode_mask(torch, b: int, s: int):
     return mask
 
 
+# the slab decode's two kernels by CUDA symbol: the split kernel and the
+# split-KV combine (csrc/split_kv.cuh)
+DECODE_MARKERS = {"decode_attention": "decode_kernel",
+                  "decode_attention_combine": "combine_splits_kernel"}
+
+
 def decode_cases(torch, F, da, quantize_kv, sdpa_gqa: bool) -> list[dict]:
+    """The slab kernel at Llama-3.2-1B widths: the main path's S=256 first,
+    a long cache (S=4096), and one long-context row (B=1, S=32768).  Each
+    case records the NSPLIT that ``split_plan`` gives it on this card."""
     cases = []
-    b, h, kh, d = 4, 32, 8, 64
-    for s in (256, 4096):
-        for int8 in (False, True):
-            name = f"llama1b_b4_s{s}_{'int8' if int8 else 'bf16'}_ragged"
-            g = torch.Generator(device="cuda").manual_seed(100 + s + int8)
-            q = torch.randn((b, 1, h, d), generator=g, device="cuda").bfloat16()
-            k = torch.randn((b, s, kh, d), generator=g, device="cuda").bfloat16()
-            v = torch.randn((b, s, kh, d), generator=g, device="cuda").bfloat16()
-            mask = decode_mask(torch, b, s)
-            kw = dict(scale=d ** -0.5)
-            if int8:
-                k, ks = quantize_kv(k)
-                v, vs = quantize_kv(v)
-                kw.update(k_scale=ks, v_scale=vs)
-            out = da.decode_attention(q, k, v, mask, **kw)
-            torch.cuda.synchronize()
-            ref = da.decode_attention_plain(q, k, v, mask, **kw)
-            err, ok = attn_err(out, ref)
-            ms = time_ms(torch, lambda: da.decode_attention(q, k, v, mask, **kw), 100)
-            plain_ms = time_ms(torch, lambda: da.decode_attention_plain(q, k, v, mask, **kw), 10)
-            lib_ms = None
-            if not int8 and sdpa_gqa:
-                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-                am = mask[:, None, None, :]
-                lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=am, scale=kw["scale"], enable_gqa=True), 100)
-            visible = int(mask.sum().item())
-            per_slot = kh * d * k.element_size() * 2 + (kh * 4 * 2 if int8 else 0)
-            nbytes = 2 * 2 * b * h * d + visible * per_slot + b * s
-            bms, by = bound(nbytes, 4.0 * h * d * visible)
-            cases.append(dict(kernel="decode_attention", case=name, max_abs_err=err,
-                              tol=ATTN_TOL, within_tol=ok, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                              bound_ms=bms, bound_by=by))
+    h, kh, d = 32, 8, 64
+    sms = da.sm_count(torch.device("cuda"))
+    specs = [(4, 256, False), (4, 256, True), (4, 4096, False), (4, 4096, True),
+             (1, 32768, False)]
+    for b, s, int8 in specs:
+        name = (f"llama1b_b{b}_s{s}_{'int8' if int8 else 'bf16'}"
+                + ("_ragged" if b > 1 else ""))
+        g = torch.Generator(device="cuda").manual_seed(100 + s + int8)
+        q = torch.randn((b, 1, h, d), generator=g, device="cuda").bfloat16()
+        k = torch.randn((b, s, kh, d), generator=g, device="cuda").bfloat16()
+        v = torch.randn((b, s, kh, d), generator=g, device="cuda").bfloat16()
+        mask = decode_mask(torch, b, s)
+        kw = dict(scale=d ** -0.5)
+        if int8:
+            k, ks = quantize_kv(k)
+            v, vs = quantize_kv(v)
+            kw.update(k_scale=ks, v_scale=vs)
+        out = da.decode_attention(q, k, v, mask, **kw)
+        torch.cuda.synchronize()
+        ref = da.decode_attention_plain(q, k, v, mask, **kw)
+        err, ok = attn_err(out, ref)
+        ms = time_ms(torch, lambda: da.decode_attention(q, k, v, mask, **kw), 100)
+        plain_ms = time_ms(torch, lambda: da.decode_attention_plain(q, k, v, mask, **kw), 10)
+        lib_ms = None
+        if not int8 and sdpa_gqa:
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            am = mask[:, None, None, :]
+            lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=am, scale=kw["scale"], enable_gqa=True), 100)
+        dev = device_ms(torch, lambda: da.decode_attention(q, k, v, mask, **kw), DECODE_MARKERS)
+        visible = int(mask.sum().item())
+        per_slot = kh * d * k.element_size() * 2 + (kh * 4 * 2 if int8 else 0)
+        nbytes = 2 * 2 * b * h * d + visible * per_slot + b * s
+        bms, by = bound(nbytes, 4.0 * h * d * visible)
+        cases.append(dict(kernel="decode_attention", case=name, max_abs_err=err,
+                          tol=ATTN_TOL, within_tol=ok, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=bms, bound_by=by, nsplit=da.split_plan(b, kh, s, d, sms),
+                          device_ms=sum(dev.values()), device_ms_by_kernel=dev))
+    return cases
+
+
+def combine_cases(torch, da) -> list[dict]:
+    """The split-KV combine alone (``csrc/split_kv.cuh``) on the split
+    kernel's own partials, against its plain version on the same partials:
+    the main path's shape (B=4, S=256) first, then S=4096."""
+    cases = []
+    h, kh, d = 32, 8, 64
+    sms = da.sm_count(torch.device("cuda"))
+    for b, s in ((4, 256), (4, 4096)):
+        n = da.split_plan(b, kh, s, d, sms)
+        g = torch.Generator(device="cuda").manual_seed(500 + s)
+        q = torch.randn((b, 1, h, d), generator=g, device="cuda").bfloat16()
+        k = torch.randn((b, s, kh, d), generator=g, device="cuda").bfloat16()
+        v = torch.randn((b, s, kh, d), generator=g, device="cuda").bfloat16()
+        acc, m, l = da.decode_attention_split(q, k, v, decode_mask(torch, b, s), nsplit=n,
+                                              scale=d ** -0.5)
+        out = da.combine_splits(acc, m, l, torch.bfloat16)
+        torch.cuda.synchronize()
+        err, ok = attn_err(out, da.combine_splits_plain(acc, m, l, torch.bfloat16))
+        ms = time_ms(torch, lambda: da.combine_splits(acc, m, l, torch.bfloat16), 100)
+        plain_ms = time_ms(torch, lambda: da.combine_splits_plain(acc, m, l, torch.bfloat16), 20)
+        nbytes = 4 * (acc.numel() + m.numel() + l.numel()) + 2 * out.numel()
+        bms, by = bound(nbytes, 2.0 * acc.numel() + 4.0 * m.numel(), F32_FLOPS_PER_S)
+        cases.append(dict(kernel="decode_attention_combine", case=f"llama1b_b{b}_s{s}_nsplit{n}",
+                          max_abs_err=err, tol=ATTN_TOL, within_tol=ok, ms=ms, plain_ms=plain_ms,
+                          library_ms=None, library="none: no one PyTorch call merges partials",
+                          bound_ms=bms, bound_by=by, nsplit=n))
     return cases
 
 
@@ -622,6 +693,18 @@ def teacher_forced(torch, forward, KVCache, params, cfg, prompt_ids, tokens,
     return out
 
 
+def combines(torch, cfg, b: int, need: int) -> int:
+    """1 when a decode step over a Generator cache of ``need`` slots
+    (rounded up as the Generator rounds it) launches the combine, else 0."""
+    from llm_np_cp_tpu_torch.cache import align_capacity
+    from llm_np_cp_tpu_torch.ops.cuda import decode_attention as da
+
+    kh = cfg.num_key_value_heads
+    n = da.split_plan(b, kh, align_capacity(need), cfg.head_dim,
+                      da.sm_count(torch.device("cuda")), cfg.num_attention_heads // kh)
+    return int(n > 1)
+
+
 def main_path(torch, np, kernels: dict, card: str) -> tuple:
     """Drive the main path; returns (result line, the kernel Generator,
     its prompts) — the last two for the profile phase."""
@@ -662,6 +745,11 @@ def main_path(torch, np, kernels: dict, card: str) -> tuple:
     want.update({
         "flash_attention": layers * 2,  # generate + stream prefill
         "decode_attention": layers * (2 * steps + STREAM_TOKENS - 1),
+        # a combine follows every decode launch whose split plan has NSPLIT > 1
+        "decode_attention_combine": layers * (
+            steps * combines(torch, cfg, 4, 128 + DECODE_STEPS)
+            + steps * combines(torch, cfg, 4, max(len(r) for r in ragged) + DECODE_STEPS)
+            + (STREAM_TOKENS - 1) * combines(torch, cfg, 1, 128 + STREAM_TOKENS)),
         "sample_epilogue": 2 * steps + STREAM_TOKENS - 1,
     })
     if launches != want:
@@ -744,8 +832,7 @@ def profile_generate(torch, gen, prompts, card: str, steps: int = 32) -> dict:
     steps)."""
     gen.generate(prompts, 2)
     prof = profile_run(torch, lambda: gen.generate(prompts, steps), {
-        "flash_attention": "flash_kernel", "decode_attention": "decode_kernel",
-        "sample_epilogue": "epilogue_"})
+        "flash_attention": "flash_kernel", **DECODE_MARKERS, "sample_epilogue": "epilogue_"})
     return dict(phase="profile", card=card, generate_new_tokens=steps, batch=len(prompts),
                 **prof)
 
@@ -951,6 +1038,8 @@ def quant_phase(torch, np, kernels: dict, card: str, main: dict, serve: dict) ->
         launches = read_counts(kernels)
         want = {name: 0 for name in kernels}
         want.update(flash_attention=layers, decode_attention=layers * steps,
+                    decode_attention_combine=layers * steps * combines(
+                        torch, cfg, 4, 128 + DECODE_STEPS),
                     sample_epilogue_int8=steps)
         if launches != want:
             raise AssertionError(f"quant {mode}: launch counts {launches} != implied {want}")
@@ -962,7 +1051,7 @@ def quant_phase(torch, np, kernels: dict, card: str, main: dict, serve: dict) ->
         nbytes = param_bytes(qp)
         if mode == "int8":
             prof = profile_run(torch, lambda: gen.generate(prompts, 16), {
-                "flash_attention": "flash_kernel", "decode_attention": "decode_kernel",
+                "flash_attention": "flash_kernel", **DECODE_MARKERS,
                 "sample_epilogue_int8": "epilogue_"})
         del gen, qp
         quality = quant_quality(cfg, params, mode, steps=QUALITY_STEPS, base_dtype=torch.bfloat16,
@@ -1044,6 +1133,10 @@ KERNEL_META = {
                         "llm_np_cp_tpu/ops/pallas/flash_attention.py:180"),
     "decode_attention": ("llm_np_cp_tpu_torch/csrc/decode_attention.cu",
                          "llm_np_cp_tpu/ops/pallas/decode_attention.py:930"),
+    # the split-KV merge: the part of the same TPU kernel that its
+    # _finalize step (:192) does at the end of the sequential kv axis
+    "decode_attention_combine": ("llm_np_cp_tpu_torch/csrc/split_kv.cuh",
+                                 "llm_np_cp_tpu/ops/pallas/decode_attention.py:930"),
     "sample_epilogue": ("llm_np_cp_tpu_torch/csrc/sample_epilogue.cu",
                         "llm_np_cp_tpu/ops/pallas/sample_epilogue.py:215"),
     "paged_decode_attention": ("llm_np_cp_tpu_torch/csrc/paged_decode_attention.cu",
@@ -1107,6 +1200,7 @@ def main() -> int:
     sm.softmax.launches = 0
     cases = (flash_cases(torch, F, fa, sdpa_gqa)
              + decode_cases(torch, F, da, quantize_kv, sdpa_gqa)
+             + combine_cases(torch, da)
              + epilogue_cases(torch, se, norms)
              + paged_cases(torch, F, da, quantize_kv, sdpa_gqa)
              + ragged_cases(torch, F, da, quantize_kv, sdpa_gqa)
@@ -1124,6 +1218,7 @@ def main() -> int:
     # the main paths' kernels: name → (wrapper, its launch count)
     kernels = {"flash_attention": (fa.flash_attention, "launches"),
                "decode_attention": (da.decode_attention, "launches"),
+               "decode_attention_combine": (da.decode_attention, "combine_launches"),
                "sample_epilogue": (se.sample_epilogue, "launches"),
                "paged_decode_attention": (da.paged_decode_attention, "launches"),
                "ragged_paged_attention": (da.ragged_paged_attention, "launches"),
@@ -1175,7 +1270,7 @@ def main() -> int:
             max_abs_err=c["max_abs_err"], ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"], bound_by=c["bound_by"],
             library_ms=c["library_ms"], case=c["case"],
-            **{k: c[k] for k in ("library", "gather_ms") if k in c},
+            **{k: c[k] for k in ("library", "gather_ms", "nsplit", "device_ms") if k in c},
         ))
     if args.out:
         with open(args.out, "w") as f:

@@ -1,181 +1,414 @@
-// One-token GQA decode attention over the static KV cache slab.
+// One-token GQA decode attention over the static KV cache slab, split-KV.
 //
 // Replaces the TPU kernel llm_np_cp_tpu/ops/pallas/decode_attention.py:
 // decode_attention (_decode_kernel, bounds from _block_bounds).
 //
 // What bounds it on the H100: bytes.  Each step reads every visible K/V
 // slot once (2*S*K*D elements per row) for 4*H*D FLOPs per slot — about
-// G FLOPs per byte, far below the card's ridge.  What the design does
-// about it: it reads only the kv blocks inside the row's visible range
-// [first, last] of the mask (the TPU kernel's block skip), each K/V
-// element once per (row, kv head) — the G query heads of a kv head share
-// every loaded tile — and an int8 cache streams 1-byte values plus
-// float32 scales, dequantised in shared memory.
+// G FLOPs per byte (G = 4 query heads per kv head), far below the card's
+// ridge of ~295.  The tensor cores (wgmma) and TMA are not the tool: with
+// G query rows there is no 64-row tile to feed, and the limit is how many
+// bytes are in flight, not arithmetic.  What the design does about it:
 //
-// Design: one block of 256 threads per (kv head, row b).  The block first
-// reduces its mask row to the first/last visible slot, then loops over
-// the kv blocks in between (the TPU kernel's sequential grid axis).  Per
-// block: stage K/V as float32 in shared memory (padded K rows:
-// conflict-free column reads), score G x BS (q.k * scale, softcap, mask),
-// online softmax per query head by one warp, masked p re-zeroed, p
-// rounded to the storage type, then acc = acc*alpha + P V with each
-// thread owning (head, dim) outputs.  A row with nothing visible writes
-// zeros.  At B=4, K=8 this is 32 blocks on 132 SMs: one block per SM
-// streams its slab serially, so long caches leave the card mostly idle
-// (split-KV is later work).
+// - Split-KV.  The TPU kernel walks a row's kv blocks in order on one
+//   core.  One block per (kv head, row) is only K*B blocks (32 at
+//   Llama-3.2-1B's K=8, B=4, on 132 SMs), each streaming its whole band
+//   serially.  Here the grid is (K * ceil(G/4), B, NSPLIT): every block
+//   reduces its mask row to the visible band [first, last] (the TPU
+//   kernel's block skip), takes the n = last/BS - first/BS + 1 tiles of
+//   that band and attends the split's contiguous 1/NSPLIT of them.  The
+//   ranges follow the row's own band, so a short fill in a long cache
+//   still spreads over every split.  Each split writes float32 partials
+//   (acc, m, l), and split_kv.cuh's combine merges them (the TPU kernel's
+//   _finalize).  NSPLIT comes from the host (split_plan in
+//   ops/cuda/decode_attention.py: two blocks per SM, the most that fit
+//   at once, at least two tiles a split); with NSPLIT == 1 the block
+//   writes the output itself.
+// - No shared-memory tiles and no barrier in the kv loop.  CPR = D/8
+//   consecutive lanes own one slot's head row, 8 elements each (16 bytes
+//   of bf16, two 16-byte copies of float32, 8 bytes of int8: one layout
+//   for every type), so the block streams 256/CPR slots at a time.  Each
+//   lane copies its own K/V elements of its next kStages-1 slots with
+//   cp.async into its own entries of a shared-memory ring and reads back
+//   only those: the bytes in flight cost no registers and need no
+//   barrier.  A lane keeps its 8 elements of the block's (up to) 4 query
+//   heads in registers; a score is 8 FMAs and a butterfly over the CPR
+//   lanes.
+//   Each lane group runs its own online softmax (running max m, sum l,
+//   acc of p rounded to the storage type times V) over the slots it
+//   sees, and the groups merge at the end, by shuffles inside a warp and
+//   through shared memory across warps — the same merge as the combine.
+// - Each K/V element is read once per (row, kv head, 4 query heads): the
+//   G query heads of a kv head share every load (G > 4 takes ceil(G/4)
+//   blocks).  An int8 cache streams 1-byte values plus float32 scales,
+//   dequantised as JAX does, round_to<T>(q * round_to<T>(scale)).
+//
+// Masked slots never enter (no exp of NEG_INF - NEG_INF); a row or split
+// with nothing visible has l = 0 and writes zeros.
+#include <type_traits>
+
 #include "common.cuh"
+#include "split_kv.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxOut = 8;  // outputs per thread: G*D <= kThreads*kMaxOut
+constexpr int kGC = 4;       // query heads per block
+constexpr int kEPL = 8;      // elements of a head row per lane
+constexpr int kStages = 4;   // ring depth: a lane's slots in flight + the one it reads
 
+// Tile of the split plan (slots): the kv band is cut into NSPLIT ranges
+// of whole tiles, as split_plan and the plain version count them.
 template <int D> struct DecodeTile { static constexpr int BS = 64; };
 template <> struct DecodeTile<256> { static constexpr int BS = 32; };
 
+// One lane's 8 elements of a head row: one 16-byte chunk of bf16, two of
+// float32, one 8-byte chunk of int8.
+template <typename T, bool INT8>
+struct Lane8 {
+  using Chunk = std::conditional_t<INT8, uint2, uint4>;
+  static constexpr int NCH = (INT8 ? kEPL : (int)sizeof(T) * kEPL) / (int)sizeof(Chunk);
+  static constexpr int WORDS = NCH * (int)sizeof(Chunk) / 4;
+  uint32_t w[WORDS];
+
+  // this lane's chunks in the ring: chunk c at ring[c * kThreads]
+  __device__ __forceinline__ void read(const Chunk* ring) {
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+      const Chunk t = ring[c * kThreads];
+      if constexpr (INT8) {
+        w[2 * c] = t.x; w[2 * c + 1] = t.y;
+      } else {
+        w[4 * c] = t.x; w[4 * c + 1] = t.y; w[4 * c + 2] = t.z; w[4 * c + 3] = t.w;
+      }
+    }
+  }
+
+  // to float; an int8 value times its slot's scale, both rounded to T
+  __device__ __forceinline__ void unpack(float sc, float* f) const {
+    if constexpr (INT8) {
+      const float s = round_to<T>(sc);
+#pragma unroll
+      for (int e = 0; e < kEPL; ++e)
+        f[e] = round_to<T>((float)(int8_t)(w[e / 4] >> (8 * (e % 4))) * s);
+    } else if constexpr (std::is_same_v<T, float>) {
+#pragma unroll
+      for (int e = 0; e < kEPL; ++e) f[e] = __uint_as_float(w[e]);
+    } else {  // bf16: the high 16 bits of a float32
+#pragma unroll
+      for (int e = 0; e < kEPL / 2; ++e) {
+        f[2 * e] = __uint_as_float(w[e] << 16);
+        f[2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
+      }
+    }
+  }
+};
+
+// cp.async of one chunk (16 bytes bypass L1, 8 bytes through it), the
+// group commit, and the wait for all but the newest N groups
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst), "l"(gmem),
+                 "n"(BYTES));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// First and last nonzero byte of mask row [0, S), this thread's share;
+// 16-byte loads over the aligned middle of the row.
+__device__ __forceinline__ void mask_bounds(const uint8_t* __restrict__ mrow, int S, int tid,
+                                            int& first, int& last) {
+  int head = (int)((16 - ((uintptr_t)mrow & 15)) & 15);
+  head = min(head, S);
+  const int nvec = (S - head) / 16;
+  const int tail = head + nvec * 16;
+  for (int i = tid; i < head; i += kThreads)
+    if (mrow[i]) { first = min(first, i); last = max(last, i); }
+  for (int i = tail + tid; i < S; i += kThreads)
+    if (mrow[i]) { first = min(first, i); last = max(last, i); }
+  const uint4* mv = reinterpret_cast<const uint4*>(mrow + head);
+  for (int i = tid; i < nvec; i += kThreads) {
+    const uint4 x = __ldg(mv + i);
+    const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (w[e]) {
+        const int base = head + i * 16 + e * 4;
+        first = min(first, base + (__ffs(w[e]) - 1) / 8);
+        last = max(last, base + (31 - __clz(w[e])) / 8);
+      }
+    }
+  }
+}
+
+// Merge softmax state (m, l, acc) with another's: the larger max wins,
+// each side scaled by exp(its max - the larger); a side with l == 0 (it
+// saw nothing) has weight 0.
+__device__ __forceinline__ void merge_state(float& m, float& l, float* acc, float mo, float lo,
+                                            const float* ao) {
+  const float mx = fmaxf(m, mo);
+  const float w = l > 0.f ? expf(m - mx) : 0.f;
+  const float wo = lo > 0.f ? expf(mo - mx) : 0.f;
+  l = l * w + lo * wo;
+#pragma unroll
+  for (int e = 0; e < kEPL; ++e) acc[e] = acc[e] * w + ao[e] * wo;
+  m = mx;
+}
+
+// out != nullptr: NSPLIT == 1, write the normalised output; else write
+// this split's partials at [b*K + kh, split] of part_acc/part_m/part_l.
 template <typename T, bool INT8, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 decode_kernel(const T* __restrict__ q, const void* __restrict__ k,
               const void* __restrict__ v, const float* __restrict__ ks,
               const float* __restrict__ vs, const uint8_t* __restrict__ mask,
-              T* __restrict__ out, int S, int H, int K, float scale, float softcap) {
+              T* __restrict__ out, float* __restrict__ part_acc, float* __restrict__ part_m,
+              float* __restrict__ part_l, int S, int H, int K, int nsplit, float scale,
+              float softcap) {
+  using E = std::conditional_t<INT8, int8_t, T>;
   constexpr int BS = DecodeTile<D>::BS;
-  constexpr int LD = D + 1;
-  const int G = H / K;
-  extern __shared__ float smem[];
-  float* sK = smem;              // [BS][LD]
-  float* sV = sK + BS * LD;      // [BS][D]
-  float* sQ = sV + BS * D;       // [G][D]
-  float* sP = sQ + G * D;        // [G][BS] scores, then p
-  float* sM = sP + G * BS;       // [G] running max
-  float* sL = sM + G;            // [G] running sum
-  float* sA = sL + G;            // [G] this block's rescale
-  uint8_t* sMask = (uint8_t*)(sA + G);  // [BS]
+  constexpr int CPR = D / kEPL;         // lanes per slot's head row: 8, 16 or 32
+  constexpr int NG = kThreads / CPR;    // slots the block streams at a time
   __shared__ int s_first, s_last;
+  __shared__ float sM[kWarps][kGC], sL[kWarps][kGC];
 
+  const int G = H / K, nch = (G + kGC - 1) / kGC;
+  const int kh = blockIdx.x / nch, g0 = (blockIdx.x % nch) * kGC, gn = min(kGC, G - g0);
+  const int b = blockIdx.y, split = blockIdx.z;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int kh = blockIdx.x, b = blockIdx.y;
+  const int j = tid % CPR, grp = tid / CPR;
   const uint8_t* mrow = mask + (size_t)b * S;
 
   if (tid == 0) { s_first = S; s_last = -1; }
-  for (int i = tid; i < G * D; i += kThreads)
-    sQ[i] = to_f32(q[((size_t)b * H + kh * G) * D + i]);
-  for (int g = tid; g < G; g += kThreads) { sM[g] = LLM_NEG_INF; sL[g] = 0.f; }
+  // this lane's 8 elements of each query head (zeros past the G heads)
+  float qr[kGC][kEPL];
+  const T* qb = q + ((size_t)b * H + kh * G + g0) * D + j * kEPL;
+#pragma unroll
+  for (int g = 0; g < kGC; ++g)
+#pragma unroll
+    for (int e = 0; e < kEPL; ++e) qr[g][e] = g < gn ? to_f32(qb[g * D + e]) : 0.f;
   __syncthreads();
   int first = S, last = -1;
-  for (int i = tid; i < S; i += kThreads)
-    if (mrow[i]) { first = min(first, i); last = max(last, i); }
+  mask_bounds(mrow, S, tid, first, last);
   if (first < S) { atomicMin(&s_first, first); atomicMax(&s_last, last); }
   __syncthreads();
   first = s_first;
   last = s_last;
 
-  float acc[kMaxOut];
-#pragma unroll
-  for (int u = 0; u < kMaxOut; ++u) acc[u] = 0.f;
-
-  const int start = last >= 0 ? first / BS : 0;
-  const int nb = last >= 0 ? last / BS + 1 : 0;  // nothing visible: no block
-  for (int jb = start; jb < nb; ++jb) {
-    const int s0 = jb * BS;
-    for (int idx = tid; idx < BS * D; idx += kThreads) {
-      const int c = idx / D, d = idx % D, slot = s0 + c;
-      float kv = 0.f, vv = 0.f;
-      if (slot < S) {
-        const size_t soff = ((size_t)b * S + slot) * K + kh;
-        kv = load_kv<T, INT8>(k, ks, soff * D + d, soff);
-        vv = load_kv<T, INT8>(v, vs, soff * D + d, soff);
-      }
-      sK[c * LD + d] = kv;
-      sV[c * D + d] = vv;
-    }
-    for (int c = tid; c < BS; c += kThreads) sMask[c] = (s0 + c < S) ? mrow[s0 + c] : 0;
-    __syncthreads();
-
-    for (int idx = tid; idx < G * BS; idx += kThreads) {
-      const int g = idx / BS, c = idx % BS;
-      float dot = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) dot = fmaf(sQ[g * D + d], sK[c * LD + d], dot);
-      const float s = softcap_f(dot * scale, softcap);
-      sP[idx] = sMask[c] ? s : LLM_NEG_INF;
-    }
-    __syncthreads();
-
-    for (int g = warp; g < G; g += kWarps) {
-      float tmax = LLM_NEG_INF;
-      for (int c = lane; c < BS; c += 32) tmax = fmaxf(tmax, sP[g * BS + c]);
-      tmax = warp_max(tmax);
-      const float m_prev = sM[g];
-      const float m_new = fmaxf(m_prev, tmax);
-      float psum = 0.f;
-      for (int c = lane; c < BS; c += 32) {
-        // re-zero masked slots: with nothing visible yet m_new is
-        // NEG_INF and exp(NEG_INF - NEG_INF) would be 1
-        const float p = sMask[c] ? expf(sP[g * BS + c] - m_new) : 0.f;
-        psum += p;
-        sP[g * BS + c] = round_to<T>(p);
-      }
-      psum = warp_sum(psum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        sA[g] = alpha;
-        sL[g] = sL[g] * alpha + psum;
-        sM[g] = m_new;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int u = 0; u < kMaxOut; ++u) {
-      const int o = tid + u * kThreads;
-      if (o < G * D) {
-        const int g = o / D, d = o % D;
-        float pv = 0.f;
-#pragma unroll 8
-        for (int c = 0; c < BS; ++c) pv = fmaf(sP[g * BS + c], sV[c * D + d], pv);
-        acc[u] = acc[u] * sA[g] + pv;
-      }
-    }
-    __syncthreads();  // sK/sV/sP are rewritten by the next block
+  // this split's slots [lo, hi): its tiles of the visible band, clipped
+  // to the band
+  int lo = 0, hi = 0;
+  if (last >= 0) {
+    const int t0 = first / BS, n = last / BS - t0 + 1;
+    lo = max((t0 + (int)((long long)split * n / nsplit)) * BS, first);
+    hi = min((t0 + (int)((long long)(split + 1) * n / nsplit)) * BS, last + 1);
   }
 
+  // dynamic shared memory: the ring, [kStages][K, V][NCH][kThreads]
+  // chunks, of which a lane touches only its own column; then the
+  // warps' merged acc, [kWarps][kGC][D] floats
+  using L8 = Lane8<T, INT8>;
+  using Chunk = typename L8::Chunk;
+  constexpr int RS = 2 * L8::NCH * kThreads;  // chunks per ring stage
+  extern __shared__ float4 decode_smem[];
+  Chunk* ring = reinterpret_cast<Chunk*>(decode_smem) + tid;
+  float* sAcc = reinterpret_cast<float*>(reinterpret_cast<Chunk*>(decode_smem) + kStages * RS);
+
+  const size_t row0 = (size_t)b * S * K + kh;  // slot 0's (b, kh) index
+  const char* kb = (const char*)((const E*)k + row0 * D + j * kEPL);
+  const char* vb = (const char*)((const E*)v + row0 * D + j * kEPL);
+  int vis[kStages];
+  float ksr[kStages], vsr[kStages];
+  // start the copy of `slot` into ring stage u (nothing past the range)
+  auto start_copy = [&](int u, int slot) {
+    vis[u] = 0;
+    if (slot < hi) {
+      const size_t off = (size_t)slot * K;
+      const Chunk* gk = reinterpret_cast<const Chunk*>(kb + off * D * sizeof(E));
+      const Chunk* gv = reinterpret_cast<const Chunk*>(vb + off * D * sizeof(E));
 #pragma unroll
-  for (int u = 0; u < kMaxOut; ++u) {
-    const int o = tid + u * kThreads;
-    if (o < G * D) {
-      const int g = o / D;
-      const float l = sL[g];
-      out[((size_t)b * H + kh * G) * D + o] = from_f32<T>(acc[u] / (l == 0.f ? 1.f : l));
+      for (int c = 0; c < L8::NCH; ++c) {
+        cp_async<sizeof(Chunk)>(ring + u * RS + c * kThreads, gk + c);
+        cp_async<sizeof(Chunk)>(ring + u * RS + (L8::NCH + c) * kThreads, gv + c);
+      }
+      vis[u] = mrow[slot];
+      if constexpr (INT8) {
+        ksr[u] = __ldg(ks + row0 + off);
+        vsr[u] = __ldg(vs + row0 + off);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float m[kGC], l[kGC], acc[kGC][kEPL];
+#pragma unroll
+  for (int g = 0; g < kGC; ++g) {
+    m[g] = LLM_NEG_INF;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < kEPL; ++e) acc[g][e] = 0.f;
+  }
+
+  // one slot of this lane group from ring stage u: scores by 8 FMAs + a
+  // butterfly over the group's lanes (every lane runs it: the trip count
+  // is the block's), then the online softmax update where it is visible
+  auto attend = [&](int u) {
+    L8 kx;
+    kx.read(ring + u * RS);
+    float kf[kEPL], s[kGC];
+    kx.unpack(INT8 ? ksr[u] : 0.f, kf);
+#pragma unroll
+    for (int g = 0; g < kGC; ++g) {
+      float a = 0.f;
+#pragma unroll
+      for (int e = 0; e < kEPL; ++e) a = fmaf(qr[g][e], kf[e], a);
+      s[g] = a;
+    }
+#pragma unroll
+    for (int off = CPR / 2; off > 0; off >>= 1)
+#pragma unroll
+      for (int g = 0; g < kGC; ++g) s[g] += __shfl_xor_sync(0xffffffffu, s[g], off);
+    if (!vis[u]) return;
+    L8 vx;
+    vx.read(ring + u * RS + L8::NCH * kThreads);
+    float vf[kEPL];
+    vx.unpack(INT8 ? vsr[u] : 0.f, vf);
+#pragma unroll
+    for (int g = 0; g < kGC; ++g) {
+      const float sg = softcap_f(s[g] * scale, softcap);
+      if (sg > m[g]) {
+        const float alpha = expf(m[g] - sg);
+        l[g] *= alpha;
+#pragma unroll
+        for (int e = 0; e < kEPL; ++e) acc[g][e] *= alpha;
+        m[g] = sg;
+      }
+      const float p = expf(sg - m[g]);
+      l[g] += p;
+      const float pr = round_to<T>(p);
+#pragma unroll
+      for (int e = 0; e < kEPL; ++e) acc[g][e] = fmaf(pr, vf[e], acc[g][e]);
+    }
+  };
+
+  // step t reads stage t % kStages; the copy for step t + kStages - 1 is
+  // started first, into the stage step t - 1 read
+  const int nsteps = hi > lo ? (hi - lo + NG - 1) / NG : 0;  // the same for every lane
+#pragma unroll
+  for (int u = 0; u < kStages - 1; ++u) start_copy(u, lo + grp + u * NG);
+  for (int step = 0; step < nsteps; step += kStages) {
+#pragma unroll
+    for (int u = 0; u < kStages; ++u) {
+      if (step + u < nsteps) {
+        start_copy((u + kStages - 1) % kStages, lo + grp + (step + u + kStages - 1) * NG);
+        cp_async_wait<kStages - 1>();
+        attend(u);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // merge the lane groups: inside a warp by shuffles (lanes CPR apart
+  // hold the same elements), then the warps through shared memory
+#pragma unroll
+  for (int off = CPR; off < 32; off <<= 1) {
+#pragma unroll
+    for (int g = 0; g < kGC; ++g) {
+      float ao[kEPL];
+#pragma unroll
+      for (int e = 0; e < kEPL; ++e) ao[e] = __shfl_xor_sync(0xffffffffu, acc[g][e], off);
+      const float mo = __shfl_xor_sync(0xffffffffu, m[g], off);
+      const float lo_ = __shfl_xor_sync(0xffffffffu, l[g], off);
+      merge_state(m[g], l[g], acc[g], mo, lo_, ao);
+    }
+  }
+  if (lane < CPR) {
+#pragma unroll
+    for (int g = 0; g < kGC; ++g) {
+#pragma unroll
+      for (int e = 0; e < kEPL; ++e) sAcc[(warp * kGC + g) * D + j * kEPL + e] = acc[g][e];
+      if (lane == 0) { sM[warp][g] = m[g]; sL[warp][g] = l[g]; }
+    }
+  }
+  __syncthreads();
+
+  const size_t r = (size_t)b * K + kh;
+  const size_t part = r * nsplit + split;
+  for (int o = tid; o < gn * D; o += kThreads) {
+    const int g = o / D, d = o % D;
+    float mx = LLM_NEG_INF;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w)
+      if (sL[w][g] > 0.f) mx = fmaxf(mx, sM[w][g]);
+    float num = 0.f, den = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float lw = sL[w][g];
+      const float ww = lw > 0.f ? expf(sM[w][g] - mx) : 0.f;
+      num = fmaf(ww, sAcc[(w * kGC + g) * D + d], num);
+      den = fmaf(ww, lw, den);
+    }
+    const size_t row = (size_t)(g0 + g) * D + d;  // within this (b, kh)'s G x D
+    if (out != nullptr) {
+      out[r * G * D + row] = from_f32<T>(den > 0.f ? num / den : 0.f);
+    } else {
+      part_acc[part * G * D + row] = num;
+      if (d == 0) {
+        part_m[part * G + g0 + g] = mx;
+        part_l[part * G + g0 + g] = den;
+      }
     }
   }
 }
 
+// out == nullptr: the partials only (no combine).
 template <typename T, bool INT8, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const float* ks,
-                   const float* vs, const uint8_t* mask, void* out, int B, int S,
-                   int H, int K, float scale, float softcap, cudaStream_t stream) {
-  constexpr int BS = DecodeTile<D>::BS;
+                   const float* vs, const uint8_t* mask, void* out, float* acc, float* m,
+                   float* l, int B, int S, int H, int K, int nsplit, float scale, float softcap,
+                   cudaStream_t stream) {
   const int G = H / K;
-  if (G * D > kThreads * kMaxOut) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (BS * (D + 1) + BS * D + G * D + G * BS + 3 * G) + BS;
+  if (G * D > 2048 || nsplit < 1 || nsplit > 65535 || B > 65535) return cudaErrorInvalidValue;
+  const bool direct = out != nullptr && nsplit == 1;
+  if (!direct && (acc == nullptr || m == nullptr || l == nullptr)) return cudaErrorInvalidValue;
+  const int blocks_x = K * ((G + kGC - 1) / kGC);
+  const size_t smem = (size_t)kStages * 2 * kThreads * (INT8 ? kEPL : sizeof(T) * kEPL) +
+                      sizeof(float) * kWarps * kGC * D;
+  // the cap covers the static __shared__ variables too (under 1 KB)
   static size_t configured = 0;
-  cudaError_t e = ensure_smem(decode_kernel<T, INT8, D>, smem, &configured);
+  cudaError_t e = ensure_smem(decode_kernel<T, INT8, D>, smem + 1024, &configured);
   if (e != cudaSuccess) return e;
-  decode_kernel<T, INT8, D><<<dim3(K, B), kThreads, smem, stream>>>(
-      (const T*)q, k, v, ks, vs, mask, (T*)out, S, H, K, scale, softcap);
-  return cudaGetLastError();
+  decode_kernel<T, INT8, D><<<dim3(blocks_x, B, nsplit), kThreads, smem, stream>>>(
+      (const T*)q, k, v, ks, vs, mask, direct ? (T*)out : nullptr, acc, m, l, S, H, K, nsplit,
+      scale, softcap);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || direct || out == nullptr) return e;
+  return split_kv::combine<T>(acc, m, l, (T*)out, B * K, nsplit, G, D, stream);
 }
 
 template <typename T, bool INT8>
 cudaError_t launch_d(const void* q, const void* k, const void* v, const float* ks,
-                     const float* vs, const uint8_t* mask, void* out, int B, int S,
-                     int H, int K, int D, float scale, float softcap, cudaStream_t st) {
+                     const float* vs, const uint8_t* mask, void* out, float* acc, float* m,
+                     float* l, int B, int S, int H, int K, int D, int nsplit, float scale,
+                     float softcap, cudaStream_t st) {
   switch (D) {
-    case 64: return launch<T, INT8, 64>(q, k, v, ks, vs, mask, out, B, S, H, K, scale, softcap, st);
-    case 128: return launch<T, INT8, 128>(q, k, v, ks, vs, mask, out, B, S, H, K, scale, softcap, st);
-    case 256: return launch<T, INT8, 256>(q, k, v, ks, vs, mask, out, B, S, H, K, scale, softcap, st);
+    case 64:
+      return launch<T, INT8, 64>(q, k, v, ks, vs, mask, out, acc, m, l, B, S, H, K, nsplit, scale,
+                                 softcap, st);
+    case 128:
+      return launch<T, INT8, 128>(q, k, v, ks, vs, mask, out, acc, m, l, B, S, H, K, nsplit,
+                                  scale, softcap, st);
+    case 256:
+      return launch<T, INT8, 256>(q, k, v, ks, vs, mask, out, acc, m, l, B, S, H, K, nsplit,
+                                  scale, softcap, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -183,24 +416,52 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, const float* k
 }  // namespace
 
 // q [B,1,H,D] (dtype), k/v [B,S,K,D] (dtype, or int8 with k_scale/v_scale
-// [B,S,K] float32), mask [B,S] bool bytes, out [B,1,H,D]; all contiguous.
+// [B,S,K] float32; 16-byte aligned), mask [B,S] bool bytes, out [B,1,H,D]
+// or null (then only the partials are written); part_acc [B,K,NSPLIT,G,D],
+// part_m / part_l [B,K,NSPLIT,G] float32 scratch (unused when NSPLIT == 1
+// and out is set); all contiguous.  Launches the split kernel and, when
+// NSPLIT > 1 and out is set, the combine.
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
                                        const void* k_scale, const void* v_scale,
-                                       const void* mask, void* out, int B, int S,
-                                       int H, int K, int D, float scale, float softcap,
+                                       const void* mask, void* out, void* part_acc,
+                                       void* part_m, void* part_l, int B, int S, int H, int K,
+                                       int D, int nsplit, float scale, float softcap,
                                        int dtype, int int8_cache, void* stream) {
   if (B <= 0 || S <= 0) return cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
   const float* ks = (const float*)k_scale;
   const float* vs = (const float*)v_scale;
-  const uint8_t* m = (const uint8_t*)mask;
+  const uint8_t* mk = (const uint8_t*)mask;
+  float* acc = (float*)part_acc;
+  float* m = (float*)part_m;
+  float* l = (float*)part_l;
   if (dtype == 0 && !int8_cache)
-    return launch_d<float, false>(q, k, v, ks, vs, m, out, B, S, H, K, D, scale, softcap, st);
+    return launch_d<float, false>(q, k, v, ks, vs, mk, out, acc, m, l, B, S, H, K, D, nsplit,
+                                  scale, softcap, st);
   if (dtype == 0 && int8_cache)
-    return launch_d<float, true>(q, k, v, ks, vs, m, out, B, S, H, K, D, scale, softcap, st);
+    return launch_d<float, true>(q, k, v, ks, vs, mk, out, acc, m, l, B, S, H, K, D, nsplit,
+                                 scale, softcap, st);
   if (dtype == 1 && !int8_cache)
-    return launch_d<__nv_bfloat16, false>(q, k, v, ks, vs, m, out, B, S, H, K, D, scale, softcap, st);
+    return launch_d<__nv_bfloat16, false>(q, k, v, ks, vs, mk, out, acc, m, l, B, S, H, K, D,
+                                          nsplit, scale, softcap, st);
   if (dtype == 1 && int8_cache)
-    return launch_d<__nv_bfloat16, true>(q, k, v, ks, vs, m, out, B, S, H, K, D, scale, softcap, st);
+    return launch_d<__nv_bfloat16, true>(q, k, v, ks, vs, mk, out, acc, m, l, B, S, H, K, D,
+                                         nsplit, scale, softcap, st);
+  return cudaErrorInvalidValue;
+}
+
+// The combine alone: acc [R, NSPLIT, rows, D], m / l [R, NSPLIT, rows]
+// float32 → out [R, rows, D] (dtype); all contiguous.
+extern "C" int split_kv_combine_launch(const void* acc, const void* m, const void* l, void* out,
+                                       int R, int nsplit, int rows, int D, int dtype,
+                                       void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const float* a = (const float*)acc;
+  const float* mm = (const float*)m;
+  const float* ll = (const float*)l;
+  if (dtype == 0) return split_kv::combine<float>(a, mm, ll, (float*)out, R, nsplit, rows, D, st);
+  if (dtype == 1)
+    return split_kv::combine<__nv_bfloat16>(a, mm, ll, (__nv_bfloat16*)out, R, nsplit, rows, D,
+                                            st);
   return cudaErrorInvalidValue;
 }

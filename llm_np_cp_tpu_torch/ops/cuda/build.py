@@ -119,9 +119,12 @@ SIGNATURES: dict[str, tuple] = {
     # q, k, v, out, B, S, H, K, D, scale, softcap (0 = off), window (0 = off),
     # dtype code, stream
     "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P),
-    # q, k, v, k_scale, v_scale, mask, out, B, S, H, K, D, scale, softcap,
-    # dtype code, int8 cache flag, stream
-    "decode_attention_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P),
+    # q, k, v, k_scale, v_scale, mask, out (null: partials only), part_acc,
+    # part_m, part_l, B, S, H, K, D, nsplit, scale, softcap, dtype code,
+    # int8 cache flag, stream
+    "decode_attention_launch": (_P,) * 10 + (_I,) * 6 + (_F, _F, _I, _I, _P),
+    # acc, m, l, out, R, nsplit, rows, D, dtype code, stream
+    "split_kv_combine_launch": (_P,) * 4 + (_I,) * 5 + (_P,),
     # q, k_pages, v_pages, k_scale, v_scale, tables, lengths, pads, out,
     # B, MB, BS, H, K, D, scale, softcap, dtype code, int8 pages flag, stream
     "paged_decode_attention_launch": (_P,) * 9 + (_I,) * 6 + (_F, _F, _I, _I, _P),

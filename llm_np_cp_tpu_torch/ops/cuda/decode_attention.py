@@ -8,8 +8,12 @@ each with its plain PyTorch version beside it:
   kernel: the caller passes the same [B, S] bool mask the plain path uses
   (cache validity, causality, sliding window, ragged-batch pads), and only
   the kv blocks between each row's first and last visible slot are read.
-  The TPU kernel's block-size search and cache padding exist for Mosaic's
-  tiling rules and are not ported.
+  Split-KV: ``split_plan`` cuts each row's visible band into NSPLIT
+  contiguous ranges, one block each, whose float32 partials a second
+  kernel combines (``csrc/split_kv.cuh``); ``decode_attention_split`` /
+  ``combine_splits`` launch the two halves alone, beside their plain
+  versions.  The TPU kernel's block-size search and cache padding exist
+  for Mosaic's tiling rules and are not ported.
 - ``paged_decode_attention`` (``csrc/paged_decode_attention.cu``): one
   token per row straight off the serving engine's paged pool through block
   tables; row b sees logical slots ``[pads[b], lengths[b])``.
@@ -57,6 +61,54 @@ RAGGED_Q_TILE = 8
 _PAGED_MAX_OUT = 8192
 
 
+def _tile(d: int) -> int:
+    """Slots per kv tile of the slab kernel (``csrc/decode_attention.cu``)."""
+    return 32 if d == 256 else 64
+
+
+# query heads one block of the slab kernel takes (kGC in the source)
+_HEADS_PER_BLOCK = 4
+
+
+def split_plan(b: int, kh: int, s: int, d: int, sm_count: int, g: int = _HEADS_PER_BLOCK) -> int:
+    """NSPLIT of the slab kernel's (kh * ceil(g/4), b, NSPLIT) grid for
+    ``g`` query heads per kv head: as many blocks as fit on the card at
+    once, two per SM — a block more would wait for a second wave — with
+    at least two kv tiles per split; never more splits than tiles, never
+    fewer than 1.  It reads shapes only, so it costs no host sync."""
+    tiles = -(-s // _tile(d))
+    rows = max(b * kh * -(-g // _HEADS_PER_BLOCK), 1)
+    return max(1, min(2 * sm_count // rows, tiles // 2))
+
+
+_SM_COUNT: dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors, read once per device."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SM_COUNT[idx]
+
+
+def _dequant(q, k, v, k_scale, v_scale):
+    """An int8 cache dequantised in q's dtype (the kernel's rounding)."""
+    if k_scale is None:
+        return k, v
+    return (k.to(q.dtype) * k_scale[..., None].to(q.dtype),
+            v.to(q.dtype) * v_scale[..., None].to(q.dtype))
+
+
+def _scores(q, k, scale, logit_softcap) -> torch.Tensor:
+    """float32 scores [B, K, G, S] of q [B, 1, H, D] against k [B, S, K, D]."""
+    b, _, h, d = q.shape
+    kh = k.shape[2]
+    qg = q.reshape(b, kh, h // kh, d).float()
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k.float()) * scale
+    return _softcap(s, logit_softcap) if logit_softcap is not None else s
+
+
 def decode_attention_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor, *,
     k_scale: torch.Tensor | None = None, v_scale: torch.Tensor | None = None,
@@ -67,15 +119,8 @@ def decode_attention_plain(
     before the PV product, division by the float32 sum (zeros where it
     is 0).  An int8 cache is dequantised in q's dtype first."""
     b, _, h, d = q.shape
-    kh = k.shape[2]
-    g = h // kh
-    if k_scale is not None:
-        k = k.to(q.dtype) * k_scale[..., None].to(q.dtype)
-        v = v.to(q.dtype) * v_scale[..., None].to(q.dtype)
-    qg = q.reshape(b, kh, g, d).float()
-    s = torch.einsum("bkgd,bskd->bkgs", qg, k.float()) * scale
-    if logit_softcap is not None:
-        s = _softcap(s, logit_softcap)
+    k, v = _dequant(q, k, v, k_scale, v_scale)
+    s = _scores(q, k, scale, logit_softcap)
     vis = mask[:, None, None, :]
     s = torch.where(vis, s, NEG_INF)
     p = torch.where(vis, torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)
@@ -83,6 +128,123 @@ def decode_attention_plain(
     pv = torch.einsum("bkgs,bskd->bkgd", p.to(v.dtype).float(), v.float())
     out = pv / torch.where(l == 0.0, 1.0, l)
     return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def _split_bounds(mask: torch.Tensor, nsplit: int, bs: int) -> torch.Tensor:
+    """[B, nsplit + 1] tile boundaries: split i of row b attends tiles
+    ``[bounds[b, i], bounds[b, i + 1])`` — the n tiles of the row's
+    visible band cut into equal contiguous ranges, as the kernel cuts
+    them (an empty row has none)."""
+    s = mask.shape[1]
+    pos = torch.arange(s, device=mask.device)
+    first = torch.where(mask, pos, s).amin(dim=1)
+    last = torch.where(mask, pos, -1).amax(dim=1)
+    t0 = torch.where(last >= 0, first // bs, 0)
+    n = torch.where(last >= 0, last // bs - t0 + 1, 0)
+    i = torch.arange(nsplit + 1, device=mask.device)
+    return t0[:, None] + (i[None, :] * n[:, None]) // nsplit
+
+
+def decode_attention_split_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor, *,
+    nsplit: int, k_scale: torch.Tensor | None = None, v_scale: torch.Tensor | None = None,
+    scale: float, logit_softcap: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the split kernel: each split's float32 partials
+    over its range of the row's visible band → (acc [B, K, nsplit, G, D],
+    m [B, K, nsplit, G], l [B, K, nsplit, G]).  ``m`` is the split's max
+    score (NEG_INF where it sees nothing), ``l`` its sum of unrounded p,
+    ``acc`` the sum of p rounded to the value dtype times V; a split with
+    nothing visible gives l = 0 and acc = 0."""
+    d = q.shape[-1]
+    k, v = _dequant(q, k, v, k_scale, v_scale)
+    s = _scores(q, k, scale, logit_softcap)
+    bounds = _split_bounds(mask, nsplit, _tile(d))
+    tile = torch.arange(k.shape[1], device=q.device) // _tile(d)
+    part = (tile >= bounds[:, :-1, None]) & (tile < bounds[:, 1:, None])  # [B, N, S]
+    vis = (mask[:, None, :] & part)[:, None, :, None, :]  # [B, 1, N, 1, S]
+    sv = torch.where(vis, s[:, :, None], NEG_INF)  # [B, K, N, G, S]
+    m = sv.amax(dim=-1)
+    p = torch.where(vis, torch.exp(sv - m[..., None]), 0.0)
+    acc = torch.einsum("bkngs,bskd->bkngd", p.to(v.dtype).float(), v.float())
+    return acc, m, p.sum(dim=-1)
+
+
+def combine_splits_plain(
+    acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor, dtype: torch.dtype,
+) -> torch.Tensor:
+    """Plain version of the combine (``csrc/split_kv.cuh``): acc [..., N,
+    G, D], m / l [..., N, G] float32 → [..., G, D] in ``dtype``.  With
+    M the max m over the splits with l > 0 and w = exp(m - M) there (0
+    elsewhere): sum w*acc / sum w*l, zeros where that sum is 0."""
+    live = l > 0.0
+    mx = torch.where(live, m, NEG_INF).amax(dim=-2, keepdim=True)
+    w = torch.where(live, torch.exp(m - mx), 0.0)
+    den = (w * l).sum(dim=-2)[..., None]
+    num = (w[..., None] * acc).sum(dim=-3)
+    return torch.where(den > 0.0, num / torch.where(den > 0.0, den, 1.0), 0.0).to(dtype)
+
+
+def _check_decode(name: str, q, k, v, mask, k_scale, v_scale) -> bool:
+    """Shape checks of the slab wrappers; returns whether the cache is int8."""
+    quantized = _check_int8(k, v, k_scale, v_scale)
+    b, one, h, d = q.shape
+    if one != 1:
+        raise ValueError(f"{name} is q_len=1 only, got {one}")
+    _, s, kh, _ = k.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d or h % kh:
+        raise ValueError(f"{name}: q {tuple(q.shape)} vs k {tuple(k.shape)} / v {tuple(v.shape)}")
+    if mask.shape != (b, s) or mask.dtype != torch.bool:
+        raise ValueError(f"{name}: mask must be bool [{b}, {s}], got {mask.dtype} {tuple(mask.shape)}")
+    if quantized and (k_scale.shape != (b, s, kh) or v_scale.shape != (b, s, kh)):
+        raise ValueError(f"{name}: scales must be [{b}, {s}, {kh}]")
+    return quantized
+
+
+def _launch_decode(name: str, q, k, v, mask, k_scale, v_scale, scale, logit_softcap,
+                   nsplit: int, out):
+    """The kernel-side checks, then ``decode_attention_launch``: with
+    ``out`` the output (split kernel, then the combine when nsplit > 1),
+    without it the partials alone.  Returns the partials (acc, m, l)
+    when there is no ``out``, else None."""
+    quantized = k_scale is not None
+    code = _common.dtype_code(name, q.dtype)
+    if not quantized and k.dtype != q.dtype:
+        raise TypeError(f"{name}: k/v dtype {k.dtype} != q dtype {q.dtype}")
+    if quantized and (k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32):
+        raise TypeError(f"{name}: int8 scales must be float32")
+    b, _, h, d = q.shape
+    _, s, kh, _ = k.shape
+    g = h // kh
+    _common.check_head_dim(name, d)
+    if g * d > 2048:
+        raise ValueError(f"{name}: query group x head_dim {g * d} > 2048")
+    _common.check_contiguous(name, q=q, k=k, v=v, mask=mask)
+    if quantized:
+        _common.check_contiguous(name, k_scale=k_scale, v_scale=v_scale)
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError(f"{name}: k/v must be 16-byte aligned (the kernel loads 16-byte vectors)")
+    # one float32 scratch buffer: acc [B, K, N, G, D], then m and l [B, K, N, G]
+    n = b * kh * nsplit * g
+    buf = None
+    ptrs = (None, None, None)
+    if out is None or nsplit > 1:
+        buf = torch.empty(n * (d + 2), dtype=torch.float32, device=q.device)
+        base = buf.data_ptr()
+        ptrs = (base, base + 4 * n * d, base + 4 * n * (d + 1))
+    err = library().decode_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        k_scale.data_ptr() if quantized else None,
+        v_scale.data_ptr() if quantized else None,
+        mask.data_ptr(), out.data_ptr() if out is not None else None, *ptrs,
+        b, s, h, kh, d, nsplit, float(scale), float(logit_softcap or 0.0), code, int(quantized),
+        _common.stream_ptr(q),
+    )
+    check(err, name)
+    if buf is None or out is not None:
+        return None
+    return (buf[: n * d].view(b, kh, nsplit, g, d), buf[n * d: n * (d + 1)].view(b, kh, nsplit, g),
+            buf[n * (d + 1):].view(b, kh, nsplit, g))
 
 
 def decode_attention(
@@ -97,50 +259,91 @@ def decode_attention(
     [B, S, K] float32 (``cache.quantize_kv`` layout).
 
     CPU tensors run ``decode_attention_plain``; CUDA tensors launch the
-    kernel or raise.
+    split kernel over ``split_plan``'s NSPLIT ranges of each row's band
+    and, when NSPLIT > 1, the combine (``combine_launches``), or raise.
     """
-    quantized = _check_int8(k, v, k_scale, v_scale)
-    b, one, h, d = q.shape
-    if one != 1:
-        raise ValueError(f"decode_attention is q_len=1 only, got {one}")
-    _, s, kh, _ = k.shape
-    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d or h % kh:
-        raise ValueError(f"decode_attention: q {tuple(q.shape)} vs k {tuple(k.shape)} / v {tuple(v.shape)}")
-    if mask.shape != (b, s) or mask.dtype != torch.bool:
-        raise ValueError(f"decode_attention: mask must be bool [{b}, {s}], got {mask.dtype} {tuple(mask.shape)}")
+    quantized = _check_decode("decode_attention", q, k, v, mask, k_scale, v_scale)
     scales = (k_scale, v_scale) if quantized else ()
-    if quantized and (k_scale.shape != (b, s, kh) or v_scale.shape != (b, s, kh)):
-        raise ValueError(f"decode_attention: scales must be [{b}, {s}, {kh}]")
     if _common.on_cpu(q, k, v, mask, *scales):
         return decode_attention_plain(
             q, k, v, mask, k_scale=k_scale, v_scale=v_scale,
             scale=scale, logit_softcap=logit_softcap,
         )
-    code = _common.dtype_code("decode_attention", q.dtype)
-    if not quantized and k.dtype != q.dtype:
-        raise TypeError(f"decode_attention: k/v dtype {k.dtype} != q dtype {q.dtype}")
-    if quantized and (k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32):
-        raise TypeError("decode_attention: int8 scales must be float32")
-    _common.check_head_dim("decode_attention", d)
-    if (h // kh) * d > 2048:
-        raise ValueError(f"decode_attention: query group x head_dim {(h // kh) * d} > 2048")
-    _common.check_contiguous("decode_attention", q=q, k=k, v=v, mask=mask)
-    if quantized:
-        _common.check_contiguous("decode_attention", k_scale=k_scale, v_scale=v_scale)
+    b, _, h, d = q.shape
+    nsplit = split_plan(b, k.shape[2], k.shape[1], d, sm_count(q.device), h // k.shape[2])
     out = torch.empty_like(q)
-    err = library().decode_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        k_scale.data_ptr() if quantized else None,
-        v_scale.data_ptr() if quantized else None,
-        mask.data_ptr(), out.data_ptr(), b, s, h, kh, d, float(scale),
-        float(logit_softcap or 0.0), code, int(quantized), _common.stream_ptr(q),
-    )
-    check(err, "decode_attention")
+    _launch_decode("decode_attention", q, k, v, mask, k_scale, v_scale, scale, logit_softcap,
+                   nsplit, out)
     decode_attention.launches += 1
+    if nsplit > 1:
+        decode_attention.combine_launches += 1
     return out
 
 
 decode_attention.launches = 0
+decode_attention.combine_launches = 0
+
+
+def decode_attention_split(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor, *,
+    nsplit: int, k_scale: torch.Tensor | None = None, v_scale: torch.Tensor | None = None,
+    scale: float, logit_softcap: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The split kernel alone, over ``nsplit`` ranges: its float32 partials
+    (acc, m, l) as ``decode_attention_split_plain`` returns them.  For the
+    card tests and ``chip_smoke.py``; CPU tensors run the plain version."""
+    if nsplit < 1:
+        raise ValueError(f"decode_attention_split: nsplit must be >= 1, got {nsplit}")
+    quantized = _check_decode("decode_attention_split", q, k, v, mask, k_scale, v_scale)
+    scales = (k_scale, v_scale) if quantized else ()
+    if _common.on_cpu(q, k, v, mask, *scales):
+        return decode_attention_split_plain(
+            q, k, v, mask, nsplit=nsplit, k_scale=k_scale, v_scale=v_scale,
+            scale=scale, logit_softcap=logit_softcap,
+        )
+    parts = _launch_decode("decode_attention_split", q, k, v, mask, k_scale, v_scale, scale,
+                           logit_softcap, nsplit, None)
+    decode_attention_split.launches += 1
+    return parts
+
+
+decode_attention_split.launches = 0
+
+# the combine keeps its weights in shared memory (csrc/split_kv.cuh)
+_COMBINE_MAX_SMEM = 227 * 1024
+
+
+def combine_splits(
+    acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor, dtype: torch.dtype,
+) -> torch.Tensor:
+    """The combine alone: acc [..., N, G, D], m / l [..., N, G] float32 →
+    [..., G, D] in ``dtype`` (``combine_splits_plain``'s function).  For
+    the card tests and ``chip_smoke.py``; CPU tensors run the plain
+    version, CUDA tensors launch the kernel or raise."""
+    if acc.ndim < 3 or m.shape != acc.shape[:-1] or l.shape != m.shape:
+        raise ValueError(f"combine_splits: acc {tuple(acc.shape)}, m {tuple(m.shape)}, "
+                         f"l {tuple(l.shape)}")
+    if _common.on_cpu(acc, m, l):
+        return combine_splits_plain(acc, m, l, dtype)
+    code = _common.dtype_code("combine_splits", dtype)
+    if {acc.dtype, m.dtype, l.dtype} != {torch.float32}:
+        raise TypeError("combine_splits: partials must be float32")
+    _common.check_contiguous("combine_splits", acc=acc, m=m, l=l)
+    n, g, d = acc.shape[-3:]
+    if 4 * (n * g + g) > _COMBINE_MAX_SMEM:
+        raise ValueError(f"combine_splits: {n} splits x {g} rows exceed shared memory")
+    out = torch.empty((*acc.shape[:-3], g, d), dtype=dtype, device=acc.device)
+    r = out.numel() // max(g * d, 1)
+    err = library().split_kv_combine_launch(
+        acc.data_ptr(), m.data_ptr(), l.data_ptr(), out.data_ptr(), r, n, g, d, code,
+        _common.stream_ptr(acc),
+    )
+    check(err, "combine_splits")
+    combine_splits.launches += 1
+    return out
+
+
+combine_splits.launches = 0
 
 
 # ----------------------------------------------------------------------

@@ -64,24 +64,96 @@ def test_flash_attention_kernel(cuda, dtype, b, s, h, kh, d, softcap, window):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("int8", [False, True])
-@pytest.mark.parametrize("s,h,kh,d", [(96, 8, 2, 64), (300, 8, 4, 256), (1000, 14, 2, 128)])
-def test_decode_attention_kernel(cuda, dtype, int8, s, h, kh, d):
+@pytest.mark.parametrize("b,s,h,kh,d", [
+    (4, 96, 8, 2, 64), (4, 300, 8, 4, 256), (4, 1000, 14, 2, 128),
+    (4, 4096, 32, 8, 64),   # Llama-3.2-1B widths, long cache: 9 splits on an H100
+    (1, 32768, 32, 8, 64),  # one long-context row: 33 splits
+])
+def test_decode_attention_kernel(cuda, dtype, int8, b, s, h, kh, d):
+    """The split kernel (+ combine when split_plan gives NSPLIT > 1)
+    against the one-pass plain version; ``launches`` counts every call,
+    ``combine_launches`` the calls with NSPLIT > 1."""
     g = torch.Generator(device="cuda").manual_seed(s + int8)
-    b = 4
     q = _randn((b, 1, h, d), g, dtype, 2)
     k, v = _randn((b, s, kh, d), g, dtype, 2), _randn((b, s, kh, d), g, dtype)
     mask = torch.rand((b, s), generator=g, device="cuda") > 0.3
-    mask[1] = False  # fully masked row → zeros
-    mask[2, : s // 2] = False  # left pad
+    if b > 1:
+        mask[1] = False  # fully masked row → zeros
+        mask[2, : s // 2] = False  # left pad
+        mask[3] = False
+        mask[3, s // 3: s // 3 + 40] = True  # short fill in a long row
     kw = dict(scale=d ** -0.5, logit_softcap=30.0 if d == 256 else None)
     if int8:
         k, ks = quantize_kv(k)
         v, vs = quantize_kv(v)
         kw.update(k_scale=ks, v_scale=vs)
+    nsplit = da.split_plan(b, kh, s, d, da.sm_count(q.device), h // kh)
+    if s >= 4096:
+        assert nsplit > 1
+    before = (da.decode_attention.launches, da.decode_attention.combine_launches)
     out = da.decode_attention(q, k, v, mask, **kw)
     torch.cuda.synchronize()
+    assert da.decode_attention.launches == before[0] + 1
+    assert da.decode_attention.combine_launches == before[1] + (nsplit > 1)
     _assert_close(out, da.decode_attention_plain(q, k, v, mask, **kw), dtype)
-    assert not out[1].any()
+    if b > 1:
+        assert not out[1].any()
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("nsplit", [1, 3, 8, 40])
+def test_decode_split_kernel_partials(cuda, int8, nsplit):
+    """The split kernel alone (no combine) against its plain version, in
+    float32: the partials (acc, m, l) of every split, empty ones included
+    (l = 0, m = NEG_INF, acc = 0)."""
+    g = torch.Generator(device="cuda").manual_seed(nsplit)
+    b, s, h, kh, d = 4, 1000, 8, 2, 128
+    q = _randn((b, 1, h, d), g, torch.float32, 2)
+    k, v = _randn((b, s, kh, d), g, torch.float32, 2), _randn((b, s, kh, d), g, torch.float32)
+    mask = torch.rand((b, s), generator=g, device="cuda") > 0.3
+    mask[1] = False
+    mask[3] = False
+    mask[3, 300:340] = True
+    kw = dict(scale=d ** -0.5)
+    if int8:
+        k, ks = quantize_kv(k)
+        v, vs = quantize_kv(v)
+        kw.update(k_scale=ks, v_scale=vs)
+    before = (da.decode_attention_split.launches, da.decode_attention.launches,
+              da.decode_attention.combine_launches)
+    got = da.decode_attention_split(q, k, v, mask, nsplit=nsplit, **kw)
+    torch.cuda.synchronize()
+    assert (da.decode_attention_split.launches - 1, da.decode_attention.launches,
+            da.decode_attention.combine_launches) == before
+    want = da.decode_attention_split_plain(q, k, v, mask, nsplit=nsplit, **kw)
+    for name, a, ref in zip("acc m l".split(), got, want):
+        assert a.shape == ref.shape, name
+        _assert_close(a, ref, torch.float32)
+    assert not got[2][1].any() and not got[0][1].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r,nsplit,rows,d", [(32, 9, 4, 64), (8, 33, 4, 64), (3, 5, 7, 128),
+                                             (2, 2, 2, 256), (5, 1, 4, 64)])
+def test_combine_kernel(cuda, dtype, r, nsplit, rows, d):
+    """The combine alone against its plain version on the same partials,
+    with dead splits (l = 0, m = NEG_INF) and a row of all-dead splits."""
+    from llm_np_cp_tpu_torch.ops.attention import NEG_INF
+
+    g = torch.Generator(device="cuda").manual_seed(r * nsplit)
+    acc = _randn((r, nsplit, rows, d), g, torch.float32, 3)
+    m = _randn((r, nsplit, rows), g, torch.float32, 4)
+    l = 10 * torch.rand((r, nsplit, rows), generator=g, device="cuda") + 0.1
+    dead = torch.rand((r, nsplit, rows), generator=g, device="cuda") < 0.3
+    dead[0] = True
+    acc[dead], m[dead], l[dead] = 0.0, NEG_INF, 0.0
+    before = da.combine_splits.launches
+    out = da.combine_splits(acc, m, l, dtype)
+    torch.cuda.synchronize()
+    assert da.combine_splits.launches == before + 1
+    assert out.shape == (r, rows, d) and out.dtype == dtype
+    _assert_close(out, da.combine_splits_plain(acc, m, l, dtype), dtype)
+    assert not out[0].any()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

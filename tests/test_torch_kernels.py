@@ -25,7 +25,11 @@ from llm_np_cp_tpu.ops.pallas.softmax import softmax as j_softmax
 from llm_np_cp_tpu.quant import quantize_array as j_quantize_array
 from llm_np_cp_tpu_torch import quant as tq
 from llm_np_cp_tpu_torch.ops.cuda import build
-from llm_np_cp_tpu_torch.ops.cuda.decode_attention import decode_attention
+from llm_np_cp_tpu_torch.ops.cuda.decode_attention import (
+    combine_splits,
+    decode_attention,
+    decode_attention_split,
+)
 from llm_np_cp_tpu_torch.ops.cuda.flash_attention import flash_attention
 from llm_np_cp_tpu_torch.ops.cuda.sample_epilogue import sample_epilogue
 from llm_np_cp_tpu_torch.ops.cuda.softmax import softmax
@@ -108,6 +112,30 @@ def test_decode_int8_plain_matches_pallas():
     got = decode_attention(torch.from_numpy(q), t(kq), t(vq), torch.from_numpy(mask),
                            k_scale=t(ks), v_scale=t(vs), scale=0.25)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+@pytest.mark.parametrize("nsplit", [1, 2, 3, 16])
+@pytest.mark.parametrize("softcap,int8", [(None, False), (25.0, False), (None, True)])
+def test_decode_split_combine_matches_pallas(nsplit, softcap, int8):
+    """The split kernel's plain version over ``nsplit`` ranges of each
+    row's band, then the combine's, against the one-pass TPU kernel."""
+    rng = np.random.default_rng(3 + nsplit)
+    q, k, v, mask = _decode_inputs(rng, s=200)
+    jkw, tkw = {}, {}
+    jk, jv = jnp.asarray(k), jnp.asarray(v)
+    if int8:
+        jk, ks = jcache.quantize_kv(jk)
+        jv, vs = jcache.quantize_kv(jv)
+        jkw = dict(k_scale=ks, v_scale=vs)
+        tkw = {name: torch.from_numpy(np.array(a)) for name, a in jkw.items()}
+    want = j_decode(jnp.asarray(q), jk, jv, jnp.asarray(mask), scale=0.25,
+                    logit_softcap=softcap, block_s=32, interpret=True, **jkw)
+    t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
+    parts = decode_attention_split(t(q), t(jk), t(jv), t(mask), nsplit=nsplit, scale=0.25,
+                                   logit_softcap=softcap, **tkw)
+    got = combine_splits(*parts, torch.float32).reshape(q.shape)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+    assert not got[2].any()
 
 
 def test_decode_argument_checks():
