@@ -374,7 +374,7 @@ template <typename T, bool INT8, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const float* ks,
                    const float* vs, const uint8_t* mask, void* out, float* acc, float* m,
                    float* l, int B, int S, int H, int K, int nsplit, float scale, float softcap,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, int* launched) {
   const int G = H / K;
   if (G * D > 2048 || nsplit < 1 || nsplit > 65535 || B > 65535) return cudaErrorInvalidValue;
   const bool direct = out != nullptr && nsplit == 1;
@@ -390,25 +390,29 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* ks,
       (const T*)q, k, v, ks, vs, mask, direct ? (T*)out : nullptr, acc, m, l, S, H, K, nsplit,
       scale, softcap);
   e = cudaGetLastError();
-  if (e != cudaSuccess || direct || out == nullptr) return e;
-  return split_kv::combine<T>(acc, m, l, (T*)out, B * K, nsplit, G, D, stream);
+  if (e != cudaSuccess) return e;
+  *launched = 1;
+  if (direct || out == nullptr) return e;
+  e = split_kv::combine<T>(acc, m, l, (T*)out, B * K, nsplit, G, D, stream);
+  if (e == cudaSuccess) *launched = 2;
+  return e;
 }
 
 template <typename T, bool INT8>
 cudaError_t launch_d(const void* q, const void* k, const void* v, const float* ks,
                      const float* vs, const uint8_t* mask, void* out, float* acc, float* m,
                      float* l, int B, int S, int H, int K, int D, int nsplit, float scale,
-                     float softcap, cudaStream_t st) {
+                     float softcap, cudaStream_t st, int* launched) {
   switch (D) {
     case 64:
       return launch<T, INT8, 64>(q, k, v, ks, vs, mask, out, acc, m, l, B, S, H, K, nsplit, scale,
-                                 softcap, st);
+                                 softcap, st, launched);
     case 128:
       return launch<T, INT8, 128>(q, k, v, ks, vs, mask, out, acc, m, l, B, S, H, K, nsplit,
-                                  scale, softcap, st);
+                                  scale, softcap, st, launched);
     case 256:
       return launch<T, INT8, 256>(q, k, v, ks, vs, mask, out, acc, m, l, B, S, H, K, nsplit,
-                                  scale, softcap, st);
+                                  scale, softcap, st, launched);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -420,13 +424,16 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, const float* k
 // or null (then only the partials are written); part_acc [B,K,NSPLIT,G,D],
 // part_m / part_l [B,K,NSPLIT,G] float32 scratch (unused when NSPLIT == 1
 // and out is set); all contiguous.  Launches the split kernel and, when
-// NSPLIT > 1 and out is set, the combine.
+// NSPLIT > 1 and out is set, the combine; *launched reports how many of
+// the two it launched.
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
                                        const void* k_scale, const void* v_scale,
                                        const void* mask, void* out, void* part_acc,
                                        void* part_m, void* part_l, int B, int S, int H, int K,
                                        int D, int nsplit, float scale, float softcap,
-                                       int dtype, int int8_cache, void* stream) {
+                                       int dtype, int int8_cache, void* stream,
+                                       int* launched) {
+  *launched = 0;
   if (B <= 0 || S <= 0) return cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
   const float* ks = (const float*)k_scale;
@@ -437,16 +444,16 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
   float* l = (float*)part_l;
   if (dtype == 0 && !int8_cache)
     return launch_d<float, false>(q, k, v, ks, vs, mk, out, acc, m, l, B, S, H, K, D, nsplit,
-                                  scale, softcap, st);
+                                  scale, softcap, st, launched);
   if (dtype == 0 && int8_cache)
     return launch_d<float, true>(q, k, v, ks, vs, mk, out, acc, m, l, B, S, H, K, D, nsplit,
-                                 scale, softcap, st);
+                                 scale, softcap, st, launched);
   if (dtype == 1 && !int8_cache)
     return launch_d<__nv_bfloat16, false>(q, k, v, ks, vs, mk, out, acc, m, l, B, S, H, K, D,
-                                          nsplit, scale, softcap, st);
+                                          nsplit, scale, softcap, st, launched);
   if (dtype == 1 && int8_cache)
     return launch_d<__nv_bfloat16, true>(q, k, v, ks, vs, mk, out, acc, m, l, B, S, H, K, D,
-                                         nsplit, scale, softcap, st);
+                                         nsplit, scale, softcap, st, launched);
   return cudaErrorInvalidValue;
 }
 

@@ -121,8 +121,8 @@ SIGNATURES: dict[str, tuple] = {
     "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P),
     # q, k, v, k_scale, v_scale, mask, out (null: partials only), part_acc,
     # part_m, part_l, B, S, H, K, D, nsplit, scale, softcap, dtype code,
-    # int8 cache flag, stream
-    "decode_attention_launch": (_P,) * 10 + (_I,) * 6 + (_F, _F, _I, _I, _P),
+    # int8 cache flag, stream, int* the kernels launched (out)
+    "decode_attention_launch": (_P,) * 10 + (_I,) * 6 + (_F, _F, _I, _I, _P, _P),
     # acc, m, l, out, R, nsplit, rows, D, dtype code, stream
     "split_kv_combine_launch": (_P,) * 4 + (_I,) * 5 + (_P,),
     # q, k_pages, v_pages, k_scale, v_scale, tables, lengths, pads, out,

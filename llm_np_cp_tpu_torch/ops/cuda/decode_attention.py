@@ -29,6 +29,8 @@ matter); the plain versions take the global max.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from llm_np_cp_tpu_torch.ops.attention import NEG_INF
@@ -205,8 +207,8 @@ def _launch_decode(name: str, q, k, v, mask, k_scale, v_scale, scale, logit_soft
                    nsplit: int, out):
     """The kernel-side checks, then ``decode_attention_launch``: with
     ``out`` the output (split kernel, then the combine when nsplit > 1),
-    without it the partials alone.  Returns the partials (acc, m, l)
-    when there is no ``out``, else None."""
+    without it the partials alone.  Returns (the kernels the C entry
+    reports it launched, the partials (acc, m, l) or None with ``out``)."""
     quantized = k_scale is not None
     code = _common.dtype_code(name, q.dtype)
     if not quantized and k.dtype != q.dtype:
@@ -232,19 +234,21 @@ def _launch_decode(name: str, q, k, v, mask, k_scale, v_scale, scale, logit_soft
         buf = torch.empty(n * (d + 2), dtype=torch.float32, device=q.device)
         base = buf.data_ptr()
         ptrs = (base, base + 4 * n * d, base + 4 * n * (d + 1))
+    launched = ctypes.c_int(0)
     err = library().decode_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         k_scale.data_ptr() if quantized else None,
         v_scale.data_ptr() if quantized else None,
         mask.data_ptr(), out.data_ptr() if out is not None else None, *ptrs,
         b, s, h, kh, d, nsplit, float(scale), float(logit_softcap or 0.0), code, int(quantized),
-        _common.stream_ptr(q),
+        _common.stream_ptr(q), ctypes.addressof(launched),
     )
     check(err, name)
     if buf is None or out is not None:
-        return None
-    return (buf[: n * d].view(b, kh, nsplit, g, d), buf[n * d: n * (d + 1)].view(b, kh, nsplit, g),
-            buf[n * (d + 1):].view(b, kh, nsplit, g))
+        return launched.value, None
+    return launched.value, (buf[: n * d].view(b, kh, nsplit, g, d),
+                            buf[n * d: n * (d + 1)].view(b, kh, nsplit, g),
+                            buf[n * (d + 1):].view(b, kh, nsplit, g))
 
 
 def decode_attention(
@@ -260,7 +264,9 @@ def decode_attention(
 
     CPU tensors run ``decode_attention_plain``; CUDA tensors launch the
     split kernel over ``split_plan``'s NSPLIT ranges of each row's band
-    and, when NSPLIT > 1, the combine (``combine_launches``), or raise.
+    and, when NSPLIT > 1, the combine, or raise.  ``launches`` counts the
+    split kernel's launches and ``combine_launches`` the combine's, as the
+    C entry reports them.
     """
     quantized = _check_decode("decode_attention", q, k, v, mask, k_scale, v_scale)
     scales = (k_scale, v_scale) if quantized else ()
@@ -272,11 +278,10 @@ def decode_attention(
     b, _, h, d = q.shape
     nsplit = split_plan(b, k.shape[2], k.shape[1], d, sm_count(q.device), h // k.shape[2])
     out = torch.empty_like(q)
-    _launch_decode("decode_attention", q, k, v, mask, k_scale, v_scale, scale, logit_softcap,
-                   nsplit, out)
-    decode_attention.launches += 1
-    if nsplit > 1:
-        decode_attention.combine_launches += 1
+    launched, _ = _launch_decode("decode_attention", q, k, v, mask, k_scale, v_scale, scale,
+                                 logit_softcap, nsplit, out)
+    decode_attention.launches += int(launched >= 1)
+    decode_attention.combine_launches += int(launched >= 2)
     return out
 
 
@@ -301,9 +306,9 @@ def decode_attention_split(
             q, k, v, mask, nsplit=nsplit, k_scale=k_scale, v_scale=v_scale,
             scale=scale, logit_softcap=logit_softcap,
         )
-    parts = _launch_decode("decode_attention_split", q, k, v, mask, k_scale, v_scale, scale,
-                           logit_softcap, nsplit, None)
-    decode_attention_split.launches += 1
+    launched, parts = _launch_decode("decode_attention_split", q, k, v, mask, k_scale, v_scale,
+                                     scale, logit_softcap, nsplit, None)
+    decode_attention_split.launches += launched
     return parts
 
 

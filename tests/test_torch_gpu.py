@@ -66,7 +66,7 @@ def test_flash_attention_kernel(cuda, dtype, b, s, h, kh, d, softcap, window):
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("b,s,h,kh,d", [
     (4, 96, 8, 2, 64), (4, 300, 8, 4, 256), (4, 1000, 14, 2, 128),
-    (4, 4096, 32, 8, 64),   # Llama-3.2-1B widths, long cache: 9 splits on an H100
+    (4, 4096, 32, 8, 64),   # Llama-3.2-1B widths, long cache: 8 splits (two blocks per SM)
     (1, 32768, 32, 8, 64),  # one long-context row: 33 splits
 ])
 def test_decode_attention_kernel(cuda, dtype, int8, b, s, h, kh, d):

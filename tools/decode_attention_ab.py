@@ -1,35 +1,106 @@
 #!/usr/bin/env python3
-"""Time one checkout's slab decode kernel on the card, to compare two.
+"""Time one checkout's slab decode on the card, kernel and main path, to compare two.
 
     python tools/decode_attention_ab.py [--root DIR] [--label NAME]
 
 Imports ``llm_np_cp_tpu_torch`` from DIR (default: the checkout this file
-is in), builds its kernels, and times ``decode_attention`` at the shapes
-of ``chip_smoke.py``'s decode cases (Llama-3.2-1B widths: B=4 × S=256 and
-S=4096 with ragged rows, bf16 and int8 cache, and one B=1 × S=32768 row),
-with CUDA events over 100 calls after warm-up and as device time
-(torch.profiler, every kernel of the call), SDPA beside each bf16 case.
-Prints one JSON line.  Run it for two checkouts in turns (A, B,
-B, A) in one call: only times from one call on one card compare.
+is in) and builds its kernels; the inputs, the timers and the main path's
+settings are this checkout's ``chip_smoke.py``'s, so both versions see
+the same work.  Prints one JSON line with:
+
+- ``cases``: ``decode_attention`` at the shapes of ``chip_smoke.py``'s
+  decode cases (Llama-3.2-1B widths: B=4 x S=256 and S=4096 with its
+  ragged rows, bf16 and int8 cache, and one B=1 x S=32768 row), in CUDA
+  events over 100 calls after warm-up and as device time (torch.profiler,
+  every kernel of the call), SDPA beside each bf16 case;
+- ``main_path``: the decode rate per sequence of ``Generator.generate``
+  on Llama-3.2-1B (seeded random bf16 weights, B=4, 128-token prompts,
+  ``chip_smoke.DECODE_STEPS`` new tokens, flash prefill and the slab
+  decode kernel), one value per repeat after a warm-up.
+
+Run it for two checkouts in turns (A, B, B, A) in one call: only times
+from one call on one card compare.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import sys
 from pathlib import Path
 
+HERE = Path(__file__).resolve().parents[1]
 CASES = [(4, 256, False), (4, 256, True), (4, 4096, False), (4, 4096, True), (1, 32768, False)]
+REPEATS = 5
+
+
+def load_chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def kernel_cases(torch, F, cs, da, quantize_kv) -> list[dict]:
+    every_kernel = {"all": ""}
+    h, kh, d = 32, 8, 64
+    rows = []
+    for b, s, int8 in CASES:
+        # the inputs of chip_smoke.py's decode_cases
+        g = torch.Generator(device="cuda").manual_seed(100 + s + int8)
+        q = torch.randn((b, 1, h, d), generator=g, device="cuda").bfloat16()
+        k = torch.randn((b, s, kh, d), generator=g, device="cuda").bfloat16()
+        v = torch.randn((b, s, kh, d), generator=g, device="cuda").bfloat16()
+        mask = cs.decode_mask(torch, b, s)
+        kw = dict(scale=d ** -0.5)
+        if int8:
+            k, ks = quantize_kv(k)
+            v, vs = quantize_kv(v)
+            kw.update(k_scale=ks, v_scale=vs)
+        out = da.decode_attention(q, k, v, mask, **kw)
+        err, ok = cs.attn_err_rows(out, da.decode_attention_plain(q, k, v, mask, **kw))
+        call = lambda: da.decode_attention(q, k, v, mask, **kw)  # noqa: E731
+        row = dict(case=f"b{b}_s{s}_{'int8' if int8 else 'bf16'}", max_abs_err=err, within_tol=ok,
+                   ms=cs.time_ms(torch, call, 100),
+                   device_ms=cs.device_ms(torch, call, every_kernel)["all"])
+        if not int8:
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            am = mask[:, None, None, :]
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, attn_mask=am, scale=kw["scale"], enable_gqa=True)
+            row.update(sdpa_ms=cs.time_ms(torch, sdpa, 100),
+                       sdpa_device_ms=cs.device_ms(torch, sdpa, every_kernel)["all"])
+        rows.append(row)
+    return rows
+
+
+def main_path_rates(torch, np, cs) -> dict:
+    from llm_np_cp_tpu_torch.config import PRESETS
+    from llm_np_cp_tpu_torch.generate import Generator
+    from llm_np_cp_tpu_torch.models.transformer import init_params
+    from llm_np_cp_tpu_torch.ops.sampling import Sampler
+
+    cfg = PRESETS["meta-llama/Llama-3.2-1B"]
+    params = init_params(0, cfg, torch.bfloat16, device="cuda")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(4, 128))
+    gen = Generator(params, cfg, sampler=Sampler("greedy"), prefill_attn_impl="flash",
+                    decode_attn_impl="flash_decode")
+    gen.generate(prompts, 4)  # warm-up: cuBLAS handles, allocator
+    rates = [gen.generate(prompts, cs.DECODE_STEPS).decode_tokens_per_s for _ in range(REPEATS)]
+    return dict(batch=4, prompt_len=128, new_tokens=cs.DECODE_STEPS,
+                decode_tok_s_per_seq=rates, median=sorted(rates)[len(rates) // 2])
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
+    ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--label", default="")
     args = ap.parse_args()
+    cs = load_chip_smoke()
     sys.path.insert(0, str(Path(args.root).resolve()))
 
+    import numpy as np
     import torch
     import torch.nn.functional as F
 
@@ -39,65 +110,10 @@ def main() -> int:
     from llm_np_cp_tpu_torch.cache import quantize_kv
     from llm_np_cp_tpu_torch.ops.cuda import decode_attention as da
 
-    def device_ms(fn, iters=20):
-        """Device time per call: every CUDA kernel ``fn`` launches, summed
-        by torch.profiler (without the host's launch overhead)."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        return sum(getattr(e, "self_device_time_total", 0) or 0 for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA) / 1e3 / iters
-
-    def time_ms(fn, iters=100):
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / iters
-
-    h, kh, d = 32, 8, 64
-    rows = []
-    for b, s, int8 in CASES:
-        # the inputs of chip_smoke.py's decode_cases (same seeds and mask)
-        g = torch.Generator(device="cuda").manual_seed(100 + s + int8)
-        q = torch.randn((b, 1, h, d), generator=g, device="cuda").bfloat16()
-        k = torch.randn((b, s, kh, d), generator=g, device="cuda").bfloat16()
-        v = torch.randn((b, s, kh, d), generator=g, device="cuda").bfloat16()
-        mask = torch.zeros((b, s), dtype=torch.bool, device="cuda")
-        for r, (pad, end) in enumerate(zip([0, 17, 40, 3], [s, s, s, s // 3])):
-            if r < b:
-                mask[r, pad:end] = True
-        kw = dict(scale=d ** -0.5)
-        if int8:
-            k, ks = quantize_kv(k)
-            v, vs = quantize_kv(v)
-            kw.update(k_scale=ks, v_scale=vs)
-        out = da.decode_attention(q, k, v, mask, **kw)
-        ref = da.decode_attention_plain(q, k, v, mask, **kw)
-        err = (out.float() - ref.float()).abs().max().item()
-        call = lambda: da.decode_attention(q, k, v, mask, **kw)  # noqa: E731
-        row = dict(case=f"b{b}_s{s}_{'int8' if int8 else 'bf16'}", max_abs_err=err,
-                   ms=time_ms(call), device_ms=device_ms(call))
-        if not int8:
-            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            am = mask[:, None, None, :]
-            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                qt, kt, vt, attn_mask=am, scale=kw["scale"], enable_gqa=True)
-            row.update(sdpa_ms=time_ms(sdpa), sdpa_device_ms=device_ms(sdpa))
-        rows.append(row)
-    print(json.dumps(dict(label=args.label, root=args.root, card=torch.cuda.get_device_name(0),
-                          cases=rows)), flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(json.dumps(dict(label=args.label, root=args.root, card=cs.nvidia_smi_line(),
+                          cases=kernel_cases(torch, F, cs, da, quantize_kv),
+                          main_path=main_path_rates(torch, np, cs))), flush=True)
     return 0
 
 
