@@ -11,9 +11,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
    in bfloat16, at the main path's shapes and at wider ones: max error
    against the stated tolerance, kernel / plain / library-call times
    (CUDA events over many launches after warm-up) and the bound.  The
-   slab decode (split-KV) records each case's NSPLIT and its kernels'
-   own device time (torch.profiler), and its combine is held alone
-   against its plain version on the split kernel's partials.  The
+   two split-KV decode kernels (slab and paged) record each case's NSPLIT
+   and their kernels' own device time (torch.profiler), and their combine
+   is held alone against its plain version on each split kernel's
+   partials, with a dropped split that the check must catch.  The
    epilogue's int8-head variant and ``softmax`` (on no model path, as in
    the JAX package) are timed here too.
 3. main path — Llama-3.2-1B at full width and depth on seeded random
@@ -26,8 +27,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
 5. serve — the same model behind ``ServeEngine.replay_trace`` on a
    32-request Poisson trace, in two legs: A, the unified tick
    (``ragged_paged_attention`` + fused epilogue), and B, the phase-split
-   tick with the paged decode (``paged_decode_attention`` + fused
-   epilogue).  Per leg: every request finished, launch counts equal what
+   tick with the paged decode (``paged_decode_attention`` + its combine
+   when NSPLIT > 1 + fused epilogue).  Per leg: every request finished,
+   launch counts equal what
    the ticks imply, one host fetch per dispatching tick (leg A), every
    token teacher-forced against a cache-less plain forward, and wall
    time, tok/s, ticks, dispatches, TTFT and TPOT.  A float32 run of both
@@ -69,10 +71,10 @@ BF16_FLOPS_PER_S = 989e12
 F32_FLOPS_PER_S = 67e12
 
 # bf16 attention outputs: |kernel - plain| <= ATTN_TOL * (1 + |plain|),
-# two bf16 ulps (2^-6 relative) at the output's own magnitude.  The slab
-# decode and its combine are held to ATTN_TOL times each head row's
-# largest |plain| instead (attn_err_rows): over S visible slots their
-# outputs are ~sqrt(e / S) in size, below the 1 + |plain| floor.
+# two bf16 ulps (2^-6 relative) at the output's own magnitude.  The decode
+# kernels (slab, paged, ragged) and the combine are held to ATTN_TOL times
+# each head row's largest |plain| instead (attn_err_rows): over S visible
+# slots their outputs are ~sqrt(e / S) in size, below the 1 + |plain| floor.
 ATTN_TOL = 2.0 ** -6
 EPILOGUE_TOL = 1e-3  # float32 logits: summation order and norm rounding
 # bf16 logits after 16 layers: the kernel path against plain references.
@@ -152,28 +154,35 @@ def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, markers: dict[str, str], iters: int = 20) -> dict[str, float]:
+def device_ms(torch, fn, markers: dict[str, str], iters: int = 20,
+              attempts: int = 3) -> dict[str, float]:
     """Device time per call of ``fn`` by kernel (name → substring of the
     CUDA symbol), from torch.profiler over ``iters`` calls after warm-up:
     the kernels' own time, without the host's launch overhead that CUDA
-    events around a short kernel also measure."""
+    events around a short kernel also measure.  The tracer now and then
+    loses a trace's device activity on the card, so a trace in which a
+    marker reads 0 is taken again, up to ``attempts`` times; a kernel
+    that is really not launched reads 0 every time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    got = {name: 0.0 for name in markers}
-    for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total", 0) or 0
-        if e.device_type != DeviceType.CUDA or dev_us <= 0:
-            continue
-        for name, marker in markers.items():
-            if marker in e.key:
-                got[name] += dev_us / 1e3 / iters
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        got = {name: 0.0 for name in markers}
+        for e in prof.key_averages():
+            dev_us = getattr(e, "self_device_time_total", 0) or 0
+            if e.device_type != DeviceType.CUDA or dev_us <= 0:
+                continue
+            for name, marker in markers.items():
+                if marker in e.key:
+                    got[name] += dev_us / 1e3 / iters
+        if all(got.values()):
+            break
     return got
 
 
@@ -328,9 +337,7 @@ def combine_cases(torch, da) -> list[dict]:
     the main path's shape (B=4, S=256) first, then S=4096 and one B=1 x
     S=32768 row.  Each case also shows that its check sees a fault: the
     combine over the partials with the middle split dropped must fall
-    outside the tolerance against the whole."""
-    from llm_np_cp_tpu_torch.ops.attention import NEG_INF
-
+    outside the tolerance against the whole (``combine_case``)."""
     cases = []
     h, kh, d = 32, 8, 64
     sms = da.sm_count(torch.device("cuda"))
@@ -342,25 +349,35 @@ def combine_cases(torch, da) -> list[dict]:
         v = torch.randn((b, s, kh, d), generator=g, device="cuda").bfloat16()
         acc, m, l = da.decode_attention_split(q, k, v, decode_mask(torch, b, s), nsplit=n,
                                               scale=d ** -0.5)
-        out = da.combine_splits(acc, m, l, torch.bfloat16)
-        ref = da.combine_splits_plain(acc, m, l, torch.bfloat16)
-        err, ok = attn_err_rows(out, ref)
-        dropped = [t.clone() for t in (acc, m, l)]
-        for t, dead, axis in zip(dropped, (0.0, NEG_INF, 0.0), (-3, -2, -2)):
-            t.select(axis, n // 2).fill_(dead)
-        _, fault_passes = attn_err_rows(da.combine_splits(*dropped, torch.bfloat16), ref)
-        ms = time_ms(torch, lambda: da.combine_splits(acc, m, l, torch.bfloat16), 100)
-        plain_ms = time_ms(torch, lambda: da.combine_splits_plain(acc, m, l, torch.bfloat16), 20)
-        nbytes = 4 * (acc.numel() + m.numel() + l.numel()) + 2 * out.numel()
-        bms, by = bound(nbytes, 2.0 * acc.numel() + 4.0 * m.numel(), F32_FLOPS_PER_S)
-        cases.append(dict(kernel="decode_attention_combine", case=f"llama1b_b{b}_s{s}_nsplit{n}",
-                          max_abs_err=err, tol=ATTN_TOL,
-                          tol_kind="relative to the head row's largest |plain|",
-                          within_tol=ok and not fault_passes, dropped_split_caught=not fault_passes,
-                          ms=ms, plain_ms=plain_ms,
-                          library_ms=None, library="none: no one PyTorch call merges partials",
-                          bound_ms=bms, bound_by=by, nsplit=n))
+        cases.append(combine_case(torch, da, "decode_attention_combine",
+                                  f"llama1b_b{b}_s{s}_nsplit{n}", acc, m, l))
     return cases
+
+
+def combine_case(torch, da, kernel: str, name: str, acc, m, l) -> dict:
+    """The combine on a split kernel's partials against its plain version,
+    and the fault its check must see: the combine over the partials with
+    the middle split dropped falls outside the tolerance against the whole."""
+    from llm_np_cp_tpu_torch.ops.attention import NEG_INF
+
+    n = m.shape[-2]
+    out = da.combine_splits(acc, m, l, torch.bfloat16)
+    ref = da.combine_splits_plain(acc, m, l, torch.bfloat16)
+    err, ok = attn_err_rows(out, ref)
+    dropped = [t.clone() for t in (acc, m, l)]
+    for t, dead, axis in zip(dropped, (0.0, NEG_INF, 0.0), (-3, -2, -2)):
+        t.select(axis, n // 2).fill_(dead)
+    _, fault_passes = attn_err_rows(da.combine_splits(*dropped, torch.bfloat16), ref)
+    ms = time_ms(torch, lambda: da.combine_splits(acc, m, l, torch.bfloat16), 100)
+    plain_ms = time_ms(torch, lambda: da.combine_splits_plain(acc, m, l, torch.bfloat16), 20)
+    nbytes = 4 * (acc.numel() + m.numel() + l.numel()) + 2 * out.numel()
+    bms, by = bound(nbytes, 2.0 * acc.numel() + 4.0 * m.numel(), F32_FLOPS_PER_S)
+    return dict(kernel=kernel, case=name, max_abs_err=err, tol=ATTN_TOL,
+                tol_kind="relative to the head row's largest |plain|",
+                within_tol=ok and not fault_passes, dropped_split_caught=not fault_passes,
+                ms=ms, plain_ms=plain_ms,
+                library_ms=None, library="none: no one PyTorch call merges partials",
+                bound_ms=bms, bound_by=by, nsplit=n)
 
 
 def check_tokens(torch, logits, got, tol: float) -> float:
@@ -533,36 +550,60 @@ def sdpa_pregathered(torch, F, q, kv_views, mask, scale):
         scale=scale, enable_gqa=True)
 
 
-def paged_cases(torch, F, da, quantize_kv, sdpa_gqa: bool) -> list[dict]:
-    cases = []
-    specs = [
-        # name, H, K, D, lengths, pads, softcap, window, int8 — serve shape first
-        ("llama1b_serve_b8_bs16", 32, 8, 64, SERVE_LENGTHS, SERVE_PADS, None, None, False),
-        ("llama1b_b8_s4096_bs16", 32, 8, 64, [4096, 3900, 3000, 2048, 4096, 1000, 3500, 4095],
-         [0, 100, 0, 48, 0, 0, 7, 0], None, None, False),
-        ("llama1b_serve_b8_bs16_int8", 32, 8, 64, SERVE_LENGTHS, SERVE_PADS, None, None, True),
-        # the window enters as row_pads = max(pads, lengths - window), as
-        # the engine passes it on a sliding layer
-        ("gemma2_widths_b8_bs16_softcap50_window128", 8, 4, 256, SERVE_LENGTHS, SERVE_PADS, 50.0,
-         128, False),
-    ]
+# the paged decode's two kernels by CUDA symbol: the split kernel and the
+# split-KV combine (csrc/split_kv.cuh)
+PAGED_MARKERS = {"paged_decode_attention": "paged_decode_kernel",
+                 "paged_decode_attention_combine": "combine_splits_kernel"}
+
+LONG_LENGTHS = [4096, 3900, 3000, 2048, 4096, 1000, 3500, 4095]
+LONG_PADS = [0, 100, 0, 48, 0, 0, 7, 0]
+PAGED_SPECS = [
+    # name, H, K, D, lengths, pads, softcap, window, int8 — serve shape first
+    ("llama1b_serve_b8_bs16", 32, 8, 64, SERVE_LENGTHS, SERVE_PADS, None, None, False),
+    ("llama1b_b8_s4096_bs16", 32, 8, 64, LONG_LENGTHS, LONG_PADS, None, None, False),
+    ("llama1b_serve_b8_bs16_int8", 32, 8, 64, SERVE_LENGTHS, SERVE_PADS, None, None, True),
+    # the window enters as row_pads = max(pads, lengths - window), as
+    # the engine passes it on a sliding layer
+    ("gemma2_widths_b8_bs16_softcap50_window128", 8, 4, 256, SERVE_LENGTHS, SERVE_PADS, 50.0,
+     128, False),
+    ("llama1b_b8_s4096_bs16_int8", 32, 8, 64, LONG_LENGTHS, LONG_PADS, None, None, True),
+    # one long-context row: 2048 blocks of 16, ~67 MB of bf16 K/V
+    ("llama1b_b1_s32768_bs16", 32, 8, 64, [32768], [0], None, None, False),
+]
+
+
+def paged_inputs(torch, quantize_kv, i: int):
+    """PAGED_SPECS[i]'s inputs, made on the card from a seed: (the
+    positional arguments of ``paged_decode_attention``, its keywords)."""
+    name, h, kh, d, lengths, pads, cap, win, int8 = PAGED_SPECS[i]
     bs = SERVE_BLOCK
-    for name, h, kh, d, lengths, pads, cap, win, int8 in specs:
-        g = torch.Generator(device="cuda").manual_seed(200 + len(cases))
-        b, mb = len(lengths), -(-max(lengths) // bs)
-        k, v, tables, scales = make_pool(torch, quantize_kv, g, b, mb, bs, kh, d, int8)
-        q = torch.randn((b, 1, h, d), generator=g, device="cuda").bfloat16()
-        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-        row_pads = torch.tensor(pads, dtype=torch.int32, device="cuda")
-        if win is not None:
-            row_pads = torch.maximum(row_pads, lens - win)
-        kw = dict(scale=d ** -0.5, logit_softcap=cap, **scales)
-        args = (q, k, v, tables, lens, row_pads)
+    g = torch.Generator(device="cuda").manual_seed(200 + i)
+    b, mb = len(lengths), -(-max(lengths) // bs)
+    k, v, tables, scales = make_pool(torch, quantize_kv, g, b, mb, bs, kh, d, int8)
+    q = torch.randn((b, 1, h, d), generator=g, device="cuda").bfloat16()
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    row_pads = torch.tensor(pads, dtype=torch.int32, device="cuda")
+    if win is not None:
+        row_pads = torch.maximum(row_pads, lens - win)
+    return (q, k, v, tables, lens, row_pads), dict(scale=d ** -0.5, logit_softcap=cap, **scales)
+
+
+def paged_cases(torch, F, da, quantize_kv, sdpa_gqa: bool) -> list[dict]:
+    """The paged decode (split-KV) at the serve shape and wider ones; each
+    case records the NSPLIT that ``paged_split_plan`` gives it on this card
+    and its kernels' own device time."""
+    cases = []
+    for i, (name, h, kh, d, _, _, cap, _, int8) in enumerate(PAGED_SPECS):
+        args, kw = paged_inputs(torch, quantize_kv, i)
+        q, k, v, tables, lens, row_pads = args
+        b, mb = tables.shape
+        bs = k.shape[1]
         out = da.paged_decode_attention(*args, **kw)
         torch.cuda.synchronize()
         ref = da.paged_decode_attention_plain(*args, **kw)
-        err, ok = attn_err(out, ref)
-        ms = time_ms(torch, lambda: da.paged_decode_attention(*args, **kw), 100)
+        err, ok = attn_err_rows(out, ref)
+        call = lambda: da.paged_decode_attention(*args, **kw)  # noqa: E731
+        ms = time_ms(torch, call, 100)
         plain_ms = time_ms(torch, lambda: da.paged_decode_attention_plain(*args, **kw), 10)
         lib_ms = gather_ms = None
         if not int8 and cap is None and sdpa_gqa:
@@ -571,14 +612,37 @@ def paged_cases(torch, F, da, quantize_kv, sdpa_gqa: bool) -> list[dict]:
             mask = ((pos >= row_pads[:, None]) & (pos < lens[:, None]))[:, None, :]
             lib_ms = time_ms(torch, lambda: sdpa_pregathered(torch, F, q, views, mask, kw["scale"]), 100)
             gather_ms = time_ms(torch, lambda: (gathered(k, tables), gathered(v, tables)), 100)
-        visible = int((lens - row_pads).clamp_min(0).sum().item())
+            del views
+        dev = device_ms(torch, call, PAGED_MARKERS)
+        nsplit = da.paged_split_plan(q, k, tables)
+        if (dev["paged_decode_attention_combine"] > 0) != (nsplit > 1):
+            raise AssertionError(f"{name}: NSPLIT {nsplit} but the profiler saw combine time "
+                                 f"{dev['paged_decode_attention_combine']} ms")
+        visible = int((lens.clamp_max(mb * bs) - row_pads.clamp_min(0)).clamp_min(0).sum().item())
         per_slot = kh * d * k.element_size() * 2 + (kh * 4 * 2 if int8 else 0)
         nbytes = 2 * 2 * b * h * d + visible * per_slot + 4 * (b * mb + 2 * b)
         bms, by = bound(nbytes, 4.0 * h * d * visible)
         cases.append(dict(kernel="paged_decode_attention", case=name, max_abs_err=err,
-                          tol=ATTN_TOL, within_tol=ok, ms=ms, plain_ms=plain_ms,
+                          tol=ATTN_TOL, tol_kind="relative to the head row's largest |plain|",
+                          within_tol=ok, ms=ms, plain_ms=plain_ms,
                           library_ms=lib_ms, library="SDPA, pre-gathered" if lib_ms else None,
-                          gather_ms=gather_ms, bound_ms=bms, bound_by=by))
+                          gather_ms=gather_ms, bound_ms=bms, bound_by=by, nsplit=nsplit,
+                          device_ms=sum(dev.values()), device_ms_by_kernel=dev))
+        del args, out, ref
+    return cases
+
+
+def paged_combine_cases(torch, da, quantize_kv) -> list[dict]:
+    """The combine alone on the paged split kernel's own partials, against
+    its plain version, with the dropped-split fault (``combine_case``): the
+    serve shape first, then B=8 x 4096 and the B=1 x 32768 row."""
+    cases = []
+    for i in (0, 1, 5):
+        args, kw = paged_inputs(torch, quantize_kv, i)
+        n = da.paged_split_plan(args[0], args[1], args[3])
+        acc, m, l = da.paged_decode_attention_split(*args, nsplit=n, **kw)
+        cases.append(combine_case(torch, da, "paged_decode_attention_combine",
+                                  f"{PAGED_SPECS[i][0]}_nsplit{n}", acc, m, l))
     return cases
 
 
@@ -634,7 +698,7 @@ def ragged_cases(torch, F, da, quantize_kv, sdpa_gqa: bool) -> list[dict]:
         out = da.ragged_paged_attention(*args, **kw)
         torch.cuda.synchronize()
         ref = da.ragged_paged_attention_plain(*args, **kw)
-        err, ok = attn_err(out[live], ref[live])
+        err, ok = attn_err_rows(out[live], ref[live])
         ok = ok and not bool(out[~live].any())
         ms = time_ms(torch, lambda: da.ragged_paged_attention(*args, **kw), 100)
         plain_ms = time_ms(torch, lambda: da.ragged_paged_attention_plain(*args, **kw), 10)
@@ -664,7 +728,8 @@ def ragged_cases(torch, F, da, quantize_kv, sdpa_gqa: bool) -> list[dict]:
         nbytes = 2 * 2 * t * h * d + read * per_slot + 4 * (rows * mb + rows + 3 * (t // 8))
         bms, by = bound(nbytes, 4.0 * h * d * int(span.sum().item()))
         cases.append(dict(kernel="ragged_paged_attention", case=name, max_abs_err=err,
-                          tol=ATTN_TOL, within_tol=ok, ms=ms, plain_ms=plain_ms,
+                          tol=ATTN_TOL, tol_kind="relative to the head row's largest |plain|",
+                          within_tol=ok, ms=ms, plain_ms=plain_ms,
                           library_ms=lib_ms, library="SDPA, pre-gathered" if lib_ms else None,
                           gather_ms=gather_ms, bound_ms=bms, bound_by=by))
     return cases
@@ -932,10 +997,12 @@ def serve_phase(torch, np, kernels: dict, card: str) -> dict:
     from llm_np_cp_tpu_torch.config import PRESETS
     from llm_np_cp_tpu_torch.generate import Generator
     from llm_np_cp_tpu_torch.models.transformer import forward, init_params
+    from llm_np_cp_tpu_torch.ops.cuda import decode_attention as da
     from llm_np_cp_tpu_torch.ops.sampling import Sampler
 
     cfg = PRESETS["meta-llama/Llama-3.2-1B"]
     layers = cfg.num_hidden_layers
+    kh = cfg.num_key_value_heads
     params = init_params(0, cfg, torch.bfloat16, device="cuda")
     trace = serve_trace(np, cfg, SERVE_REQUESTS, SERVE_NEW_TOKENS, seed=0)
     legs = {}
@@ -960,6 +1027,14 @@ def serve_phase(torch, np, kernels: dict, card: str) -> dict:
         want = {name: 0 for name in kernels}
         want["sample_epilogue"] = steps
         want["ragged_paged_attention" if eng.mixed else "paged_decode_attention"] = layers * steps
+        nsplit = None
+        if not eng.mixed:
+            # the paged decode's split plan over the engine's [slots, blocks
+            # per sequence] tables: a combine follows each launch when > 1
+            nsplit = da.split_plan(eng.scheduler.max_slots, kh, eng.max_blocks_per_seq * SERVE_BLOCK,
+                                   cfg.head_dim, da.sm_count(torch.device("cuda")),
+                                   cfg.num_attention_heads // kh)
+            want["paged_decode_attention_combine"] = layers * steps * int(nsplit > 1)
         if launches != want:
             raise AssertionError(f"serve leg {leg}: launch counts {launches} != implied {want}")
         if fetches != steps:
@@ -967,7 +1042,7 @@ def serve_phase(torch, np, kernels: dict, card: str) -> dict:
         tf = teacher_forced_requests(torch, forward, params, cfg, eng.scheduler.finished,
                                      TEACHER_TOL)
         legs[leg] = dict(
-            launches=launches, implied=want, wall_s=wall,
+            launches=launches, implied=want, paged_nsplit=nsplit, wall_s=wall,
             generated_tokens=snap["total_generated_tokens"],
             tok_s_per_card=snap["total_generated_tokens"] / wall,
             ticks=snap["ticks"], dispatches=dispatches, decode_dispatches=decode_dispatches,
@@ -1171,6 +1246,10 @@ KERNEL_META = {
                         "llm_np_cp_tpu/ops/pallas/sample_epilogue.py:215"),
     "paged_decode_attention": ("llm_np_cp_tpu_torch/csrc/paged_decode_attention.cu",
                                "llm_np_cp_tpu/ops/pallas/decode_attention.py:453"),
+    # the same split-KV merge after the paged split kernel: that kernel's
+    # _finalize across splits
+    "paged_decode_attention_combine": ("llm_np_cp_tpu_torch/csrc/split_kv.cuh",
+                                       "llm_np_cp_tpu/ops/pallas/decode_attention.py:453"),
     "ragged_paged_attention": ("llm_np_cp_tpu_torch/csrc/ragged_paged_attention.cu",
                                "llm_np_cp_tpu/ops/pallas/decode_attention.py:740"),
     "sample_epilogue_int8": ("llm_np_cp_tpu_torch/csrc/sample_epilogue.cu",
@@ -1233,6 +1312,7 @@ def main() -> int:
              + combine_cases(torch, da)
              + epilogue_cases(torch, se, norms)
              + paged_cases(torch, F, da, quantize_kv, sdpa_gqa)
+             + paged_combine_cases(torch, da, quantize_kv)
              + ragged_cases(torch, F, da, quantize_kv, sdpa_gqa)
              + epilogue_int8_cases(torch, se, norms, quantize_array)
              + softmax_cases(torch, sm))
@@ -1251,6 +1331,7 @@ def main() -> int:
                "decode_attention_combine": (da.decode_attention, "combine_launches"),
                "sample_epilogue": (se.sample_epilogue, "launches"),
                "paged_decode_attention": (da.paged_decode_attention, "launches"),
+               "paged_decode_attention_combine": (da.paged_decode_attention, "combine_launches"),
                "ragged_paged_attention": (da.ragged_paged_attention, "launches"),
                "sample_epilogue_int8": (se.sample_epilogue, "launches_int8")}
     mp, gen, prompts = main_path(torch, np, kernels, smi)
@@ -1278,7 +1359,8 @@ def main() -> int:
 
     path_launches = dict(mp["launches"])
     path_launches["ragged_paged_attention"] = sv["legs"]["A_mixed"]["launches"]["ragged_paged_attention"]
-    path_launches["paged_decode_attention"] = sv["legs"]["B_split_paged"]["launches"]["paged_decode_attention"]
+    for name in ("paged_decode_attention", "paged_decode_attention_combine"):
+        path_launches[name] = sv["legs"]["B_split_paged"]["launches"][name]
     path_launches["sample_epilogue_int8"] = sum(
         v["launches"]["sample_epilogue_int8"] for v in qt["modes"].values())
     idle = [name for name, n in path_launches.items() if n == 0]
@@ -1288,6 +1370,7 @@ def main() -> int:
     launches_from = {name: "main path" for name in path_launches}
     launches_from.update(
         ragged_paged_attention="serve leg A", paged_decode_attention="serve leg B",
+        paged_decode_attention_combine="serve leg B",
         sample_epilogue_int8="quant phase, the four modes' generate runs",
         softmax="kernel phase (no model path calls softmax, as in the JAX package)")
 

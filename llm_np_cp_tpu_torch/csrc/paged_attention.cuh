@@ -1,5 +1,5 @@
-// Shared core of the two block-table attention kernels
-// (paged_decode_attention.cu, ragged_paged_attention.cu).
+// Core of the unified tick's block-table attention kernel
+// (ragged_paged_attention.cu).
 //
 // One thread block attends `nq` consecutive queries x the G query heads
 // of ONE kv head against K/V read straight from the paged pool
@@ -19,10 +19,10 @@
 // and a query with nothing visible at all writes zeros — the TPU
 // kernels' _finalize rule.
 //
-// Layout per tile, as in decode_attention.cu: K/V staged as float32 in
-// shared memory (K rows padded by one float: conflict-free column reads),
-// loads coalesced along D (one pool slot's head row is D contiguous
-// elements, slots K*D apart), scores rows x TS by scalar FMAs, one warp
+// Layout per tile: K/V staged as float32 in shared memory (K rows
+// padded by one float: conflict-free column reads), loads coalesced
+// along D (one pool slot's head row is D contiguous elements, slots K*D
+// apart), scores rows x TS by scalar FMAs, one warp
 // per query row for the max/sum, p rounded to T, then acc = acc*alpha +
 // P V with each thread owning up to kMaxOut (row, dim) outputs.
 #pragma once

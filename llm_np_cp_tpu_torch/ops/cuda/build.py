@@ -125,9 +125,11 @@ SIGNATURES: dict[str, tuple] = {
     "decode_attention_launch": (_P,) * 10 + (_I,) * 6 + (_F, _F, _I, _I, _P, _P),
     # acc, m, l, out, R, nsplit, rows, D, dtype code, stream
     "split_kv_combine_launch": (_P,) * 4 + (_I,) * 5 + (_P,),
-    # q, k_pages, v_pages, k_scale, v_scale, tables, lengths, pads, out,
-    # B, MB, BS, H, K, D, scale, softcap, dtype code, int8 pages flag, stream
-    "paged_decode_attention_launch": (_P,) * 9 + (_I,) * 6 + (_F, _F, _I, _I, _P),
+    # q, k_pages, v_pages, k_scale, v_scale, tables, lengths, pads, out
+    # (null: partials only), part_acc, part_m, part_l, B, MB, BS, H, K, D,
+    # nsplit, scale, softcap, dtype code, int8 pages flag, stream, int* the
+    # kernels launched (out)
+    "paged_decode_attention_launch": (_P,) * 12 + (_I,) * 7 + (_F, _F, _I, _I, _P, _P),
     # q, k_pages, v_pages, k_scale, v_scale, tables, tile_row, tile_qpos0,
     # tile_qlen, pads, out, NT, MB, BS, H, K, D, window, scale, softcap,
     # dtype code, int8 pages flag, stream

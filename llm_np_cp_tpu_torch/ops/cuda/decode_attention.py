@@ -16,15 +16,18 @@ each with its plain PyTorch version beside it:
   for Mosaic's tiling rules and are not ported.
 - ``paged_decode_attention`` (``csrc/paged_decode_attention.cu``): one
   token per row straight off the serving engine's paged pool through block
-  tables; row b sees logical slots ``[pads[b], lengths[b])``.
+  tables; row b sees logical slots ``[pads[b], lengths[b])``.  Split-KV
+  like the slab kernel (the two share ``csrc/split_decode.cuh``), planned
+  over the table width MB*BS; ``paged_decode_attention_split`` launches
+  the split kernel alone.
 - ``ragged_paged_attention`` (``csrc/ragged_paged_attention.cu``): the
   unified tick's mixed prefill + decode batch, packed in
   ``RAGGED_Q_TILE``-token query tiles, off the paged pool.
 
-A query with nothing visible yields zeros in all three.  The paged
-kernels use the classic online softmax where the TPU kernels keep an AMLA
-ln2-grid running max (``csrc/paged_attention.cuh`` says why it does not
-matter); the plain versions take the global max.
+A query with nothing visible yields zeros in all three.  The kernels use
+the classic online softmax where the TPU kernels keep an AMLA ln2-grid
+running max (``csrc/paged_attention.cuh`` says why it does not matter);
+the plain versions take the global max.
 """
 
 from __future__ import annotations
@@ -59,22 +62,24 @@ def _check_int8(k, v, k_scale, v_scale) -> bool:
 # row's segment starts on a multiple of it, so every tile has one owner
 RAGGED_Q_TILE = 8
 
-# the paged kernels hold nq*G*D outputs of a block in 256 threads x 32
-_PAGED_MAX_OUT = 8192
+# the ragged kernel holds nq*G*D outputs of a block in 256 threads x 32
+_RAGGED_MAX_OUT = 8192
 
 
 def _tile(d: int) -> int:
-    """Slots per kv tile of the slab kernel (``csrc/decode_attention.cu``)."""
+    """Slots per kv tile of the split decode kernels (``DecodeTile`` in
+    ``csrc/split_decode.cuh``)."""
     return 32 if d == 256 else 64
 
 
-# query heads one block of the slab kernel takes (kGC in the source)
+# query heads one block of a split decode kernel takes (kGC in split_decode.cuh)
 _HEADS_PER_BLOCK = 4
 
 
 def split_plan(b: int, kh: int, s: int, d: int, sm_count: int, g: int = _HEADS_PER_BLOCK) -> int:
-    """NSPLIT of the slab kernel's (kh * ceil(g/4), b, NSPLIT) grid for
-    ``g`` query heads per kv head: as many blocks as fit on the card at
+    """NSPLIT of a split decode kernel's (kh * ceil(g/4), b, NSPLIT) grid
+    (slab, or paged over the table width) for ``g`` query heads per kv
+    head and ``s`` slots: as many blocks as fit on the card at
     once, two per SM — a block more would wait for a second wave — with
     at least two kv tiles per split; never more splits than tiles, never
     fewer than 1.  It reads shapes only, so it costs no host sync."""
@@ -203,6 +208,32 @@ def _check_decode(name: str, q, k, v, mask, k_scale, v_scale) -> bool:
     return quantized
 
 
+def _check_aligned(name: str, **tensors: torch.Tensor) -> None:
+    """The split kernel copies K/V in 16-byte vectors (``cp.async``)."""
+    for arg, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must be 16-byte aligned (the kernel loads 16-byte "
+                             "vectors)")
+
+
+def _partials(q: torch.Tensor, b: int, kh: int, nsplit: int, g: int, d: int):
+    """One float32 scratch buffer for the split kernel's partials, acc [B,
+    K, N, G, D] then m and l [B, K, N, G]: (the buffer, their three
+    pointers)."""
+    n = b * kh * nsplit * g
+    buf = torch.empty(n * (d + 2), dtype=torch.float32, device=q.device)
+    base = buf.data_ptr()
+    return buf, (base, base + 4 * n * d, base + 4 * n * (d + 1))
+
+
+def _partial_views(buf: torch.Tensor, b: int, kh: int, nsplit: int, g: int, d: int):
+    """``_partials``' buffer as (acc, m, l)."""
+    n = b * kh * nsplit * g
+    return (buf[: n * d].view(b, kh, nsplit, g, d),
+            buf[n * d: n * (d + 1)].view(b, kh, nsplit, g),
+            buf[n * (d + 1):].view(b, kh, nsplit, g))
+
+
 def _launch_decode(name: str, q, k, v, mask, k_scale, v_scale, scale, logit_softcap,
                    nsplit: int, out):
     """The kernel-side checks, then ``decode_attention_launch``: with
@@ -224,16 +255,10 @@ def _launch_decode(name: str, q, k, v, mask, k_scale, v_scale, scale, logit_soft
     _common.check_contiguous(name, q=q, k=k, v=v, mask=mask)
     if quantized:
         _common.check_contiguous(name, k_scale=k_scale, v_scale=v_scale)
-    if k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError(f"{name}: k/v must be 16-byte aligned (the kernel loads 16-byte vectors)")
-    # one float32 scratch buffer: acc [B, K, N, G, D], then m and l [B, K, N, G]
-    n = b * kh * nsplit * g
-    buf = None
-    ptrs = (None, None, None)
+    _check_aligned(name, k=k, v=v)
+    buf, ptrs = None, (None, None, None)
     if out is None or nsplit > 1:
-        buf = torch.empty(n * (d + 2), dtype=torch.float32, device=q.device)
-        base = buf.data_ptr()
-        ptrs = (base, base + 4 * n * d, base + 4 * n * (d + 1))
+        buf, ptrs = _partials(q, b, kh, nsplit, g, d)
     launched = ctypes.c_int(0)
     err = library().decode_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -244,11 +269,7 @@ def _launch_decode(name: str, q, k, v, mask, k_scale, v_scale, scale, logit_soft
         _common.stream_ptr(q), ctypes.addressof(launched),
     )
     check(err, name)
-    if buf is None or out is not None:
-        return launched.value, None
-    return launched.value, (buf[: n * d].view(b, kh, nsplit, g, d),
-                            buf[n * d: n * (d + 1)].view(b, kh, nsplit, g),
-                            buf[n * (d + 1):].view(b, kh, nsplit, g))
+    return launched.value, _partial_views(buf, b, kh, nsplit, g, d) if out is None else None
 
 
 def decode_attention(
@@ -361,6 +382,18 @@ def _gather_rows(pages: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
     return pages[tables.long()].reshape(r, mb * pages.shape[1], *pages.shape[2:])
 
 
+def _paged_views(q, k_pages, v_pages, tables, lengths, pads, k_scale, v_scale):
+    """The rows' gathered contiguous K/V views and the mask ``pads <= pos <
+    lengths``: (k, v, mask, scale kwargs) for the slab's plain versions."""
+    s = tables.shape[1] * k_pages.shape[1]
+    pos = torch.arange(s, device=q.device)
+    mask = (pos >= pads.long()[:, None]) & (pos < lengths.long()[:, None])
+    scales = {}
+    if k_scale is not None:
+        scales = dict(k_scale=_gather_rows(k_scale, tables), v_scale=_gather_rows(v_scale, tables))
+    return _gather_rows(k_pages, tables), _gather_rows(v_pages, tables), mask, scales
+
+
 def paged_decode_attention_plain(
     q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
     tables: torch.Tensor, lengths: torch.Tensor, pads: torch.Tensor, *,
@@ -370,16 +403,24 @@ def paged_decode_attention_plain(
     """Plain PyTorch version: gather each row's blocks into a contiguous
     view and run ``decode_attention_plain`` with the mask
     ``pads <= pos < lengths`` (the kernel's numerics)."""
-    s = tables.shape[1] * k_pages.shape[1]
-    pos = torch.arange(s, device=q.device)
-    mask = (pos >= pads.long()[:, None]) & (pos < lengths.long()[:, None])
-    scales = {}
-    if k_scale is not None:
-        scales = dict(k_scale=_gather_rows(k_scale, tables), v_scale=_gather_rows(v_scale, tables))
-    return decode_attention_plain(
-        q, _gather_rows(k_pages, tables), _gather_rows(v_pages, tables), mask,
-        scale=scale, logit_softcap=logit_softcap, **scales,
-    )
+    k, v, mask, scales = _paged_views(q, k_pages, v_pages, tables, lengths, pads, k_scale, v_scale)
+    return decode_attention_plain(q, k, v, mask, scale=scale, logit_softcap=logit_softcap,
+                                  **scales)
+
+
+def paged_decode_attention_split_plain(
+    q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+    tables: torch.Tensor, lengths: torch.Tensor, pads: torch.Tensor, *,
+    nsplit: int, k_scale: torch.Tensor | None = None, v_scale: torch.Tensor | None = None,
+    scale: float, logit_softcap: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the paged split kernel: the gathered views and the
+    mask ``pads <= pos < lengths`` through ``decode_attention_split_plain``.
+    The mask's visible band is ``[max(pads, 0), min(lengths, MB*BS))``, the
+    kernel's band, so the splits cut the same tiles."""
+    k, v, mask, scales = _paged_views(q, k_pages, v_pages, tables, lengths, pads, k_scale, v_scale)
+    return decode_attention_split_plain(q, k, v, mask, nsplit=nsplit, scale=scale,
+                                        logit_softcap=logit_softcap, **scales)
 
 
 def _check_pages(name: str, q_heads: int, d: int, k_pages, v_pages, k_scale, v_scale) -> bool:
@@ -394,8 +435,7 @@ def _check_pages(name: str, q_heads: int, d: int, k_pages, v_pages, k_scale, v_s
     return quantized
 
 
-def _check_launch(name: str, q, k_pages, v_pages, quantized, k_scale, v_scale, rows: int,
-                  **ints) -> int:
+def _check_launch(name: str, q, k_pages, v_pages, quantized, k_scale, v_scale, **ints) -> int:
     """The kernel-side checks of both paged wrappers (``ints``: the int32
     index operands); returns the dtype code."""
     code = _common.dtype_code(name, q.dtype)
@@ -403,10 +443,7 @@ def _check_launch(name: str, q, k_pages, v_pages, quantized, k_scale, v_scale, r
         raise TypeError(f"{name}: pages dtype {k_pages.dtype} != q dtype {q.dtype}")
     if quantized and (k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32):
         raise TypeError(f"{name}: int8 scale pages must be float32")
-    d = q.shape[-1]
-    _common.check_head_dim(name, d)
-    if rows * d > _PAGED_MAX_OUT:
-        raise ValueError(f"{name}: {rows} query rows x head_dim {d} > {_PAGED_MAX_OUT}")
+    _common.check_head_dim(name, q.shape[-1])
     for arg, t in ints.items():
         if t.dtype != torch.int32:
             raise TypeError(f"{name}: {arg} must be int32, got {t.dtype}")
@@ -414,6 +451,59 @@ def _check_launch(name: str, q, k_pages, v_pages, quantized, k_scale, v_scale, r
     if quantized:
         _common.check_contiguous(name, k_scale=k_scale, v_scale=v_scale)
     return code
+
+
+def _check_paged_decode(name: str, q, k_pages, v_pages, tables, lengths, pads, k_scale,
+                        v_scale) -> bool:
+    """Shape checks of the paged decode wrappers; returns whether the pool
+    is int8."""
+    b, one, h, d = q.shape
+    if one != 1:
+        raise ValueError(f"{name} is q_len=1 only, got {one}")
+    quantized = _check_pages(name, h, d, k_pages, v_pages, k_scale, v_scale)
+    if tables.ndim != 2 or tables.shape[0] != b or lengths.shape != (b,) or pads.shape != (b,):
+        raise ValueError(
+            f"{name}: tables {tuple(tables.shape)}, lengths "
+            f"{tuple(lengths.shape)}, pads {tuple(pads.shape)} for batch {b}")
+    return quantized
+
+
+def paged_split_plan(q: torch.Tensor, k_pages: torch.Tensor, tables: torch.Tensor) -> int:
+    """NSPLIT of the paged kernel on this card: ``split_plan`` over the
+    table width MB*BS (the lengths live on the card)."""
+    b, _, h, d = q.shape
+    kh = k_pages.shape[2]
+    return split_plan(b, kh, tables.shape[1] * k_pages.shape[1], d, sm_count(q.device), h // kh)
+
+
+def _launch_paged(name: str, q, k_pages, v_pages, tables, lengths, pads, k_scale, v_scale,
+                  scale, logit_softcap, nsplit: int, out):
+    """The kernel-side checks, then ``paged_decode_attention_launch``: with
+    ``out`` the output (split kernel, then the combine when nsplit > 1),
+    without it the partials alone.  Returns (the kernels the C entry
+    reports it launched, the partials (acc, m, l) or None with ``out``)."""
+    quantized = k_scale is not None
+    code = _check_launch(name, q, k_pages, v_pages, quantized, k_scale, v_scale, tables=tables,
+                         lengths=lengths, pads=pads)
+    _check_aligned(name, k_pages=k_pages, v_pages=v_pages)
+    b, _, h, d = q.shape
+    _, bs, kh, _ = k_pages.shape
+    g = h // kh
+    buf, ptrs = None, (None, None, None)
+    if out is None or nsplit > 1:
+        buf, ptrs = _partials(q, b, kh, nsplit, g, d)
+    launched = ctypes.c_int(0)
+    err = library().paged_decode_attention_launch(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        k_scale.data_ptr() if quantized else None,
+        v_scale.data_ptr() if quantized else None,
+        tables.data_ptr(), lengths.data_ptr(), pads.data_ptr(),
+        out.data_ptr() if out is not None else None, *ptrs,
+        b, tables.shape[1], bs, h, kh, d, nsplit, float(scale), float(logit_softcap or 0.0), code,
+        int(quantized), _common.stream_ptr(q), ctypes.addressof(launched),
+    )
+    check(err, name)
+    return launched.value, _partial_views(buf, b, kh, nsplit, g, d) if out is None else None
 
 
 def paged_decode_attention(
@@ -434,40 +524,61 @@ def paged_decode_attention(
     [NB, BS, K] float32 scale pages.
 
     CPU tensors run ``paged_decode_attention_plain``; CUDA tensors launch
-    the kernel or raise.
+    the split kernel over ``paged_split_plan``'s NSPLIT ranges of each
+    row's band and, when NSPLIT > 1, the combine, or raise.  ``launches``
+    counts the split kernel's launches and ``combine_launches`` the
+    combine's, as the C entry reports them.
     """
-    b, one, h, d = q.shape
-    if one != 1:
-        raise ValueError(f"paged_decode_attention is q_len=1 only, got {one}")
-    quantized = _check_pages("paged_decode_attention", h, d, k_pages, v_pages, k_scale, v_scale)
-    nb, bs, kh, _ = k_pages.shape
-    if tables.ndim != 2 or tables.shape[0] != b or lengths.shape != (b,) or pads.shape != (b,):
-        raise ValueError(
-            f"paged_decode_attention: tables {tuple(tables.shape)}, lengths "
-            f"{tuple(lengths.shape)}, pads {tuple(pads.shape)} for batch {b}")
+    name = "paged_decode_attention"
+    quantized = _check_paged_decode(name, q, k_pages, v_pages, tables, lengths, pads, k_scale,
+                                    v_scale)
     scales = (k_scale, v_scale) if quantized else ()
     if _common.on_cpu(q, k_pages, v_pages, tables, lengths, pads, *scales):
         return paged_decode_attention_plain(
             q, k_pages, v_pages, tables, lengths, pads, k_scale=k_scale, v_scale=v_scale,
             scale=scale, logit_softcap=logit_softcap,
         )
-    code = _check_launch("paged_decode_attention", q, k_pages, v_pages, quantized, k_scale,
-                         v_scale, h // kh, tables=tables, lengths=lengths, pads=pads)
     out = torch.empty_like(q)
-    err = library().paged_decode_attention_launch(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        k_scale.data_ptr() if quantized else None,
-        v_scale.data_ptr() if quantized else None,
-        tables.data_ptr(), lengths.data_ptr(), pads.data_ptr(), out.data_ptr(),
-        b, tables.shape[1], bs, h, kh, d, float(scale), float(logit_softcap or 0.0), code,
-        int(quantized), _common.stream_ptr(q),
-    )
-    check(err, "paged_decode_attention")
-    paged_decode_attention.launches += 1
+    launched, _ = _launch_paged(name, q, k_pages, v_pages, tables, lengths, pads, k_scale,
+                                v_scale, scale, logit_softcap,
+                                paged_split_plan(q, k_pages, tables), out)
+    paged_decode_attention.launches += int(launched >= 1)
+    paged_decode_attention.combine_launches += int(launched >= 2)
     return out
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.combine_launches = 0
+
+
+def paged_decode_attention_split(
+    q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+    tables: torch.Tensor, lengths: torch.Tensor, pads: torch.Tensor, *,
+    nsplit: int, k_scale: torch.Tensor | None = None, v_scale: torch.Tensor | None = None,
+    scale: float, logit_softcap: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The paged split kernel alone, over ``nsplit`` ranges: its float32
+    partials (acc, m, l) as ``paged_decode_attention_split_plain`` returns
+    them.  For the card tests and ``chip_smoke.py``; CPU tensors run the
+    plain version."""
+    name = "paged_decode_attention_split"
+    if nsplit < 1:
+        raise ValueError(f"{name}: nsplit must be >= 1, got {nsplit}")
+    quantized = _check_paged_decode(name, q, k_pages, v_pages, tables, lengths, pads, k_scale,
+                                    v_scale)
+    scales = (k_scale, v_scale) if quantized else ()
+    if _common.on_cpu(q, k_pages, v_pages, tables, lengths, pads, *scales):
+        return paged_decode_attention_split_plain(
+            q, k_pages, v_pages, tables, lengths, pads, nsplit=nsplit, k_scale=k_scale,
+            v_scale=v_scale, scale=scale, logit_softcap=logit_softcap,
+        )
+    launched, parts = _launch_paged(name, q, k_pages, v_pages, tables, lengths, pads, k_scale,
+                                    v_scale, scale, logit_softcap, nsplit, None)
+    paged_decode_attention_split.launches += launched
+    return parts
+
+
+paged_decode_attention_split.launches = 0
 
 
 def ragged_paged_attention_plain(
@@ -549,9 +660,13 @@ def ragged_paged_attention(
             q, k_pages, v_pages, tables, tile_row, tile_qpos0, tile_qlen, pads, window,
             k_scale=k_scale, v_scale=v_scale, scale=scale, logit_softcap=logit_softcap,
         )
+    rows = RAGGED_Q_TILE * (h // kh)
+    if rows * d > _RAGGED_MAX_OUT:
+        raise ValueError(f"ragged_paged_attention: {rows} query rows x head_dim {d} > "
+                         f"{_RAGGED_MAX_OUT}")
     code = _check_launch("ragged_paged_attention", q, k_pages, v_pages, quantized, k_scale,
-                         v_scale, RAGGED_Q_TILE * (h // kh), tables=tables,
-                         tile_row=tile_row, tile_qpos0=tile_qpos0, tile_qlen=tile_qlen, pads=pads)
+                         v_scale, tables=tables, tile_row=tile_row, tile_qpos0=tile_qpos0,
+                         tile_qlen=tile_qlen, pads=pads)
     out = torch.empty_like(q)
     err = library().ragged_paged_attention_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),

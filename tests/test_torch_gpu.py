@@ -354,12 +354,68 @@ def test_paged_decode_attention_kernel(cuda, dtype, int8, h, kh, d, bs, softcap)
     pads = torch.tensor([0, 2 * bs + 1, 0, 40, 5], dtype=torch.int32, device="cuda")  # row 3: nothing
     q = _randn((b, 1, h, d), g, dtype, 2)
     kw = dict(scale=d ** -0.5, logit_softcap=softcap, **scales)
-    before = da.paged_decode_attention.launches
+    nsplit = da.paged_split_plan(q, k, tables)
+    before = (da.paged_decode_attention.launches, da.paged_decode_attention.combine_launches)
     out = da.paged_decode_attention(q, k, v, tables, lengths, pads, **kw)
     torch.cuda.synchronize()
-    assert da.paged_decode_attention.launches == before + 1
+    assert da.paged_decode_attention.launches == before[0] + 1
+    assert da.paged_decode_attention.combine_launches == before[1] + (nsplit > 1)
     _assert_close(out, da.paged_decode_attention_plain(q, k, v, tables, lengths, pads, **kw), dtype)
     assert not out[3].any()
+
+
+@pytest.mark.parametrize("dtype,int8", [(torch.bfloat16, False), (torch.bfloat16, True),
+                                        (torch.float32, False)])
+def test_paged_decode_attention_long_row(cuda, dtype, int8):
+    """One long-context row at Llama-3.2-1B widths: a table of 2048 blocks
+    of 16 (32768 slots, 33 splits on an H100), the band from a left pad
+    to a length short of the table's end."""
+    g = torch.Generator(device="cuda").manual_seed(2048 + int8)
+    h, kh, d, bs, mb = 32, 8, 64, 16, 2048
+    k, v, scales = _pool(g, mb + 1, bs, kh, d, dtype, int8)
+    tables = _tables(g, 1, mb, mb + 1)
+    lengths = torch.tensor([mb * bs - 5], dtype=torch.int32, device="cuda")
+    pads = torch.tensor([17], dtype=torch.int32, device="cuda")
+    q = _randn((1, 1, h, d), g, dtype, 2)
+    kw = dict(scale=d ** -0.5, **scales)
+    nsplit = da.paged_split_plan(q, k, tables)
+    assert nsplit > 1
+    before = (da.paged_decode_attention.launches, da.paged_decode_attention.combine_launches)
+    out = da.paged_decode_attention(q, k, v, tables, lengths, pads, **kw)
+    torch.cuda.synchronize()
+    assert (da.paged_decode_attention.launches, da.paged_decode_attention.combine_launches) == (
+        before[0] + 1, before[1] + 1)
+    _assert_close(out, da.paged_decode_attention_plain(q, k, v, tables, lengths, pads, **kw), dtype)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("nsplit", [1, 3, 8, 40])
+def test_paged_decode_split_kernel_partials(cuda, int8, nsplit):
+    """The paged split kernel alone (no combine) against its plain
+    version, in float32: the partials (acc, m, l) of every split, empty
+    ones included (l = 0, m = NEG_INF, acc = 0), with a fully padded row,
+    a short band in a wide table and a length past the table (clipped)."""
+    g = torch.Generator(device="cuda").manual_seed(300 + nsplit)
+    b, h, kh, d, bs, mb = 4, 8, 2, 128, 16, 64
+    k, v, scales = _pool(g, b * mb + 1, bs, kh, d, torch.float32, int8)
+    tables = _tables(g, b, mb, b * mb + 1)
+    s = mb * bs
+    lengths = torch.tensor([s - 7, 90, 340, s + 50], dtype=torch.int32, device="cuda")
+    pads = torch.tensor([5, 90, 300, 0], dtype=torch.int32, device="cuda")  # row 1: nothing
+    q = _randn((b, 1, h, d), g, torch.float32, 2)
+    kw = dict(scale=d ** -0.5, **scales)
+    before = (da.paged_decode_attention_split.launches, da.paged_decode_attention.launches,
+              da.paged_decode_attention.combine_launches)
+    got = da.paged_decode_attention_split(q, k, v, tables, lengths, pads, nsplit=nsplit, **kw)
+    torch.cuda.synchronize()
+    assert (da.paged_decode_attention_split.launches - 1, da.paged_decode_attention.launches,
+            da.paged_decode_attention.combine_launches) == before
+    want = da.paged_decode_attention_split_plain(q, k, v, tables, lengths, pads, nsplit=nsplit,
+                                                 **kw)
+    for name, a, ref in zip("acc m l".split(), got, want):
+        assert a.shape == ref.shape, name
+        _assert_close(a, ref, torch.float32)
+    assert not got[2][1].any() and not got[0][1].any()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -406,6 +462,13 @@ def test_paged_kernel_argument_errors(cuda):
         da.paged_decode_attention(q, pages, pages, tables, one, one, scale=1.0)
     with pytest.raises(TypeError, match="dtype"):
         da.paged_decode_attention(q.bfloat16(), pages, pages, tables.int(), one, one, scale=1.0)
+    # the split kernel copies 16-byte vectors: a pool 4 bytes off is refused
+    shifted = torch.zeros(pages.numel() + 1, device="cuda")[1:].view(pages.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        da.paged_decode_attention(q, shifted, pages, tables.int(), one, one, scale=1.0)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        da.paged_decode_attention_split(q, pages, shifted, tables.int(), one, one, nsplit=2,
+                                        scale=1.0)
 
 
 def test_serve_mixed_and_split_give_equal_tokens(cuda):

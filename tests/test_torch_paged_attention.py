@@ -13,6 +13,8 @@ compared on live lanes only: the port's dead lanes are zeros by
 definition, and the kernels agree there too (pinned separately).
 """
 
+from functools import lru_cache
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,11 +26,14 @@ from llm_np_cp_tpu.ops.pallas.decode_attention import (
     ragged_paged_attention as j_ragged,
 )
 from llm_np_cp_tpu_torch.cache import quantize_kv
+from llm_np_cp_tpu_torch.ops.attention import NEG_INF
+from llm_np_cp_tpu_torch.ops.cuda import decode_attention as da
 from llm_np_cp_tpu_torch.ops.cuda.decode_attention import (
     RAGGED_Q_TILE,
     paged_decode_attention,
     ragged_paged_attention,
 )
+from llm_np_cp_tpu_torch.serve import pool_geometry
 
 ATOL = 1e-5  # float32 on both sides; only summation order and the
 # softmax's max (AMLA grid vs global) differ
@@ -138,6 +143,134 @@ def test_paged_argument_checks():
     with pytest.raises(ValueError, match="query heads"):
         paged_decode_attention(torch.zeros(1, 1, 3, 8), pages.float(), pages.float(), *args,
                                scale=0.35)
+
+
+# ----------------------------------------------------------------------
+# paged_decode_attention, split-KV: the plain split + combine
+# ----------------------------------------------------------------------
+
+H100_SMS = 132
+
+
+@lru_cache(maxsize=None)
+def _paged_case(name):
+    """A PAGED_CASES entry's numpy inputs (test_paged_plain_matches_pallas's
+    seed), attention keywords and scale pages, and the JAX kernel's output
+    in interpret mode (computed once per case)."""
+    _, h, kh, d, bs, tables, lengths, pads, softcap, int8 = next(
+        c for c in PAGED_CASES if c[0] == name)
+    rng = np.random.default_rng(h * 31 + kh * 7 + d)
+    q = _np(rng, (len(tables), 1, h, d), 2)
+    k, v, ks, vs = _pages(rng, 10, bs, kh, d, int8)
+    arrays = (q, k, v, np.asarray(tables, np.int32), np.asarray(lengths, np.int32),
+              np.asarray(pads, np.int32))
+    kw = dict(scale=d ** -0.5, logit_softcap=softcap)
+    want = j_paged(*(jnp.asarray(a) for a in arrays), interpret=True,
+                   **_scales_kw(ks, vs, jnp.asarray), **kw)
+    return arrays, (ks, vs), kw, np.asarray(want)
+
+
+def _torch_scales(ks, vs):
+    return _scales_kw(ks, vs, lambda a: _t(a)[0])
+
+
+@pytest.mark.parametrize("nsplit", [1, 2, 3, 7, 16])
+@pytest.mark.parametrize("case", PAGED_CASES, ids=[c[0] for c in PAGED_CASES])
+def test_paged_split_combine_matches_pallas(case, nsplit):
+    """The paged split kernel's plain version composed with the combine's
+    equals the TPU kernel in interpret mode, for any number of splits."""
+    arrays, (ks, vs), kw, want = _paged_case(case[0])
+    q = arrays[0]
+    acc, m, l = da.paged_decode_attention_split_plain(*_t(*arrays), nsplit=nsplit,
+                                                      **_torch_scales(ks, vs), **kw)
+    b, _, h, d = q.shape
+    kh = arrays[1].shape[2]
+    assert acc.shape == (b, kh, nsplit, h // kh, d) and m.shape == l.shape == acc.shape[:-1]
+    assert acc.dtype == m.dtype == l.dtype == torch.float32
+    got = da.combine_splits_plain(acc, m, l, torch.float32).reshape(q.shape)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+
+
+@pytest.mark.parametrize("nsplit", [2, 7, 16])
+def test_paged_split_empty_rows_and_splits(nsplit):
+    """A row with nothing visible (pads == lengths, or pads past lengths)
+    gives zeros, and a split that gets no tile of its row's band holds
+    l = 0, m = NEG_INF and acc = 0: a one-tile band has one live split."""
+    rng = np.random.default_rng(40 + nsplit)
+    h, kh, d, bs, mb = 8, 2, 16, 8, 40  # 320 slots: five 64-slot tiles
+    tables = rng.permutation(np.arange(1, 4 * mb + 1)).reshape(4, mb).astype(np.int32)
+    lengths = np.asarray([300, 50, 150, 100], np.int32)
+    pads = np.asarray([3, 50, 130, 200], np.int32)  # rows 1, 3: nothing; row 2: tile 2 only
+    q = _np(rng, (4, 1, h, d), 2)
+    k, v, _, _ = _pages(rng, 4 * mb + 1, bs, kh, d, False)
+    args = _t(q, k, v, tables, lengths, pads)
+    acc, m, l = da.paged_decode_attention_split_plain(*args, nsplit=nsplit, scale=0.25)
+    for row in (1, 3):
+        assert not l[row].any() and bool((m[row] == NEG_INF).all()) and not acc[row].any()
+    live = l[2, 0, :, 0] > 0
+    assert int(live.sum()) == 1
+    assert bool((m[2][:, ~live] == NEG_INF).all()) and not acc[2][:, ~live].any()
+    assert int((l[0, 0, :, 0] > 0).sum()) == min(nsplit, 5)  # row 0's band spans five tiles
+    got = da.combine_splits_plain(acc, m, l, torch.float32).reshape(q.shape)
+    assert not got[1].any() and not got[3].any()
+    want = paged_decode_attention(*args, scale=0.25)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL)
+
+
+@pytest.mark.parametrize("nsplit", [1, 3, 16])
+def test_paged_split_bounds_are_the_kernels(nsplit):
+    """The paged kernel cuts the band [max(pads, 0), min(lengths, MB*BS))
+    into tiles (csrc/split_decode.cuh); the plain version cuts the band of
+    the gathered mask pads <= pos < lengths with _split_bounds.  The two
+    agree, with lengths past the table (clipped) and negative pads, and
+    each row's split ranges cover its band exactly."""
+    s, tile = 10 * 16, 64
+    lengths = np.asarray([160, 200, 1, 50, 100, 0, 64, 130])
+    pads = np.asarray([0, 20, 0, -5, 100, 0, 63, 129])
+    pos = torch.arange(s)
+    mask = (pos >= torch.from_numpy(pads)[:, None]) & (pos < torch.from_numpy(lengths)[:, None])
+    want = da._split_bounds(mask, nsplit, tile).numpy()
+    first, last = np.maximum(pads, 0), np.minimum(lengths, s) - 1
+    for r in range(len(lengths)):
+        t0, n = (first[r] // tile, last[r] // tile - first[r] // tile + 1) if last[r] >= first[r] \
+            else (0, 0)
+        bounds = [t0 + i * n // nsplit for i in range(nsplit + 1)]
+        assert bounds == want[r].tolist(), r
+        slots = [x for i in range(nsplit)
+                 for x in range(max(bounds[i] * tile, first[r]), min(bounds[i + 1] * tile, last[r] + 1))]
+        assert slots == list(range(first[r], last[r] + 1)), r
+
+
+@pytest.mark.parametrize("b,width,want", [
+    (8, 288, 2),  # serve leg B
+    (8, 4096, 4),
+    (1, 32768, 33),  # one long-context row: 2048 blocks of 16
+])
+def test_paged_split_plan_at_the_paged_shapes(b, width, want):
+    """NSPLIT is planned over the table width (Llama-3.2-1B: 8 kv heads of
+    4 query heads, D=64) on the H100's 132 SMs; serve leg B's tables are
+    ``pool_geometry``'s 288 slots."""
+    assert pool_geometry(200, 32, 8, 16, 64)[2] == 288
+    assert da.split_plan(b, 8, width, 64, H100_SMS, 4) == want
+
+
+def test_paged_split_wrappers_on_cpu_never_launch():
+    """CPU tensors take the plain versions; no launch count moves."""
+    arrays, (ks, vs), kw, _ = _paged_case("window_as_pad_int8_softcap")
+    args, scales = _t(*arrays), _torch_scales(ks, vs)
+    counts = lambda: (da.paged_decode_attention.launches,  # noqa: E731
+                      da.paged_decode_attention.combine_launches,
+                      da.paged_decode_attention_split.launches, da.combine_splits.launches)
+    before = counts()
+    parts = da.paged_decode_attention_split(*args, nsplit=3, **scales, **kw)
+    for got, ref in zip(parts, da.paged_decode_attention_split_plain(*args, nsplit=3, **scales,
+                                                                     **kw)):
+        assert torch.equal(got, ref)
+    da.combine_splits(*parts, torch.float32)
+    da.paged_decode_attention(*args, **scales, **kw)
+    assert counts() == before
+    with pytest.raises(ValueError, match="nsplit"):
+        da.paged_decode_attention_split(*args, nsplit=0, **scales, **kw)
 
 
 # ----------------------------------------------------------------------

@@ -1,25 +1,34 @@
 #!/usr/bin/env python3
-"""Time one checkout's slab decode on the card, kernel and main path, to compare two.
+"""Time one checkout's decode attention on the card, kernels and end to end, to compare two.
 
     python tools/decode_attention_ab.py [--root DIR] [--label NAME]
+        [--parts cases,paged_cases,main_path,serve_leg_b] [--replays N]
 
 Imports ``llm_np_cp_tpu_torch`` from DIR (default: the checkout this file
 is in) and builds its kernels; the inputs, the timers and the main path's
-settings are this checkout's ``chip_smoke.py``'s, so both versions see
-the same work.  Prints one JSON line with:
+and the serve leg's settings are this checkout's ``chip_smoke.py``'s, so
+both versions see the same work.  Prints one JSON line with:
 
-- ``cases``: ``decode_attention`` at the shapes of ``chip_smoke.py``'s
-  decode cases (Llama-3.2-1B widths: B=4 x S=256 and S=4096 with its
-  ragged rows, bf16 and int8 cache, and one B=1 x S=32768 row), in CUDA
-  events over 100 calls after warm-up and as device time (torch.profiler,
-  every kernel of the call), SDPA beside each bf16 case;
+- ``cases``: ``decode_attention`` (the slab) at the shapes of
+  ``chip_smoke.py``'s decode cases (Llama-3.2-1B widths: B=4 x S=256 and
+  S=4096 with its ragged rows, bf16 and int8 cache, and one B=1 x S=32768
+  row), in CUDA events over 100 calls after warm-up and as device time
+  (torch.profiler, every kernel of the call), SDPA beside each bf16 case;
+- ``paged_cases``: ``paged_decode_attention`` on the inputs of
+  ``chip_smoke.py``'s paged cases (``PAGED_SPECS`` through
+  ``paged_inputs``), timed the same way, SDPA on the pre-gathered view and
+  the gather beside each bf16 case without softcap;
 - ``main_path``: the decode rate per sequence of ``Generator.generate``
   on Llama-3.2-1B (seeded random bf16 weights, B=4, 128-token prompts,
   ``chip_smoke.DECODE_STEPS`` new tokens, flash prefill and the slab
-  decode kernel), one value per repeat after a warm-up.
+  decode kernel), one value per repeat after a warm-up;
+- ``serve_leg_b``: served tok/s and TPOT p50 of ``ServeEngine.replay_trace``
+  on ``chip_smoke.py``'s 32-request trace in its leg B (phase-split tick,
+  paged decode), a fresh engine per replay, and their medians.
 
-Run it for two checkouts in turns (A, B, B, A) in one call: only times
-from one call on one card compare.
+``--parts`` keeps some of the four (default: all), ``--replays`` sets the
+serve leg's replay count (default 3).  Run it for two checkouts in turns
+(A, B, B, A) in one call: only times from one call on one card compare.
 """
 
 from __future__ import annotations
@@ -28,11 +37,14 @@ import argparse
 import importlib.util
 import json
 import sys
+import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
 CASES = [(4, 256, False), (4, 256, True), (4, 4096, False), (4, 4096, True), (1, 32768, False)]
 REPEATS = 5
+SERVE_REPLAYS = 3
+PARTS = ("cases", "paged_cases", "main_path", "serve_leg_b")
 
 
 def load_chip_smoke():
@@ -43,7 +55,6 @@ def load_chip_smoke():
 
 
 def kernel_cases(torch, F, cs, da, quantize_kv) -> list[dict]:
-    every_kernel = {"all": ""}
     h, kh, d = 32, 8, 64
     rows = []
     for b, s, int8 in CASES:
@@ -60,19 +71,76 @@ def kernel_cases(torch, F, cs, da, quantize_kv) -> list[dict]:
             kw.update(k_scale=ks, v_scale=vs)
         out = da.decode_attention(q, k, v, mask, **kw)
         err, ok = cs.attn_err_rows(out, da.decode_attention_plain(q, k, v, mask, **kw))
-        call = lambda: da.decode_attention(q, k, v, mask, **kw)  # noqa: E731
-        row = dict(case=f"b{b}_s{s}_{'int8' if int8 else 'bf16'}", max_abs_err=err, within_tol=ok,
-                   ms=cs.time_ms(torch, call, 100),
-                   device_ms=cs.device_ms(torch, call, every_kernel)["all"])
+        sdpa = None
         if not int8:
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             am = mask[:, None, None, :]
             sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 qt, kt, vt, attn_mask=am, scale=kw["scale"], enable_gqa=True)
-            row.update(sdpa_ms=cs.time_ms(torch, sdpa, 100),
-                       sdpa_device_ms=cs.device_ms(torch, sdpa, every_kernel)["all"])
+        rows.append(dict(case=f"b{b}_s{s}_{'int8' if int8 else 'bf16'}", max_abs_err=err,
+                         within_tol=ok, **timed(torch, cs, lambda: da.decode_attention(
+                             q, k, v, mask, **kw), sdpa)))
+    return rows
+
+
+def timed(torch, cs, call, sdpa=None) -> dict:
+    """CUDA-event ms and profiler device ms of ``call`` (and of ``sdpa``)."""
+    every_kernel = {"all": ""}
+    row = dict(ms=cs.time_ms(torch, call, 100),
+               device_ms=cs.device_ms(torch, call, every_kernel)["all"])
+    if sdpa is not None:
+        row.update(sdpa_ms=cs.time_ms(torch, sdpa, 100),
+                   sdpa_device_ms=cs.device_ms(torch, sdpa, every_kernel)["all"])
+    return row
+
+
+def paged_cases(torch, F, cs, da, quantize_kv) -> list[dict]:
+    rows = []
+    for i, (name, *_, cap, _, int8) in enumerate(cs.PAGED_SPECS):
+        args, kw = cs.paged_inputs(torch, quantize_kv, i)
+        q, k, v, tables, lens, pads = args
+        out = da.paged_decode_attention(*args, **kw)
+        err, ok = cs.attn_err_rows(out, da.paged_decode_attention_plain(*args, **kw))
+        sdpa = None
+        row = dict(case=name, max_abs_err=err, within_tol=ok,
+                   nsplit=da.paged_split_plan(q, k, tables) if hasattr(da, "paged_split_plan")
+                   else None)
+        if not int8 and cap is None:
+            views = (cs.gathered(k, tables), cs.gathered(v, tables))
+            pos = torch.arange(views[0].shape[1], device=q.device)
+            mask = ((pos >= pads[:, None]) & (pos < lens[:, None]))[:, None, :]
+            sdpa = lambda: cs.sdpa_pregathered(torch, F, q, views, mask, kw["scale"])  # noqa: E731
+            row["gather_ms"] = cs.time_ms(
+                torch, lambda: (cs.gathered(k, tables), cs.gathered(v, tables)), 100)
+        row.update(timed(torch, cs, lambda: da.paged_decode_attention(*args, **kw), sdpa))
         rows.append(row)
     return rows
+
+
+def serve_leg_b(torch, np, cs, replays: int) -> dict:
+    from llm_np_cp_tpu_torch.config import PRESETS
+    from llm_np_cp_tpu_torch.models.transformer import init_params
+
+    cfg = PRESETS["meta-llama/Llama-3.2-1B"]
+    params = init_params(0, cfg, torch.bfloat16, device="cuda")
+    trace = cs.serve_trace(np, cfg, cs.SERVE_REQUESTS, cs.SERVE_NEW_TOKENS, seed=0)
+    tok_s, tpot = [], []
+    for _ in range(replays):
+        eng = cs.serve_engine(params, cfg, torch.bfloat16, "B_split_paged")
+        eng.warmup([cs.SERVE_PROMPTS[0]], 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snap = eng.replay_trace(trace)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if snap["finished"] != cs.SERVE_REQUESTS:
+            raise AssertionError(f"leg B finished {snap['finished']} of {cs.SERVE_REQUESTS}")
+        tok_s.append(snap["total_generated_tokens"] / wall)
+        tpot.append(snap["tpot_s_p50"])
+        del eng
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    return dict(requests=cs.SERVE_REQUESTS, new_tokens=cs.SERVE_NEW_TOKENS, tok_s=tok_s,
+                tpot_s_p50=tpot, tok_s_median=med(tok_s), tpot_s_p50_median=med(tpot))
 
 
 def main_path_rates(torch, np, cs) -> dict:
@@ -96,7 +164,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--label", default="")
+    ap.add_argument("--parts", default=",".join(PARTS))
+    ap.add_argument("--replays", type=int, default=SERVE_REPLAYS)
     args = ap.parse_args()
+    parts = args.parts.split(",")
+    if not set(parts) <= set(PARTS):
+        ap.error(f"--parts: choose from {','.join(PARTS)}")
     cs = load_chip_smoke()
     sys.path.insert(0, str(Path(args.root).resolve()))
 
@@ -111,9 +184,12 @@ def main() -> int:
     from llm_np_cp_tpu_torch.ops.cuda import decode_attention as da
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    run = dict(cases=lambda: kernel_cases(torch, F, cs, da, quantize_kv),
+               paged_cases=lambda: paged_cases(torch, F, cs, da, quantize_kv),
+               main_path=lambda: main_path_rates(torch, np, cs),
+               serve_leg_b=lambda: serve_leg_b(torch, np, cs, args.replays))
     print(json.dumps(dict(label=args.label, root=args.root, card=cs.nvidia_smi_line(),
-                          cases=kernel_cases(torch, F, cs, da, quantize_kv),
-                          main_path=main_path_rates(torch, np, cs))), flush=True)
+                          **{part: run[part]() for part in parts})), flush=True)
     return 0
 
 
