@@ -15,8 +15,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
    and their kernels' own device time (torch.profiler), and their combine
    is held alone against its plain version on each split kernel's
    partials, with a dropped split that the check must catch.  The
-   epilogue's int8-head variant and ``softmax`` (on no model path, as in
-   the JAX package) are timed here too.
+   epilogue (float and int8 heads, tied and untied, Llama-3.2-1B,
+   Gemma-2 and Llama-3.1-8B widths) records its device time too, and
+   each of its cases plants row 0's best column at V-1 and row 1's at 0
+   and checks those tokens exactly.  ``softmax`` (on no model path, as in
+   the JAX package) is timed here too.
 3. main path — Llama-3.2-1B at full width and depth on seeded random
    bf16 weights: ``Generator.generate`` (flash prefill, decode kernel,
    fused epilogue), ``generate_ragged`` and ``stream``; launch counts
@@ -395,86 +398,138 @@ def check_tokens(torch, logits, got, tol: float) -> float:
     return gap.max().item()
 
 
-def epilogue_cases(torch, se, norms) -> list[dict]:
+# the epilogue's cases: name, N, H, V, tied, softcap, unit_offset — the
+# main path's shape first.  Llama-3.1-8B's head is untied ([H, V]).
+EPILOGUE_SPECS = [
+    ("llama1b_n4_tied", 4, 2048, 128256, True, None, False),
+    ("gemma2_widths_n4_untied_softcap30_unitoffset", 4, 2304, 256000, False, 30.0, True),
+    ("llama1b_n8_tied_serve_tick", 8, 2048, 128256, True, None, False),
+    ("llama3_8b_n8_untied", 8, 4096, 128256, False, None, False),
+    # Gemma-2-9B's and -27B's tied heads: the widest normed rows a block
+    # keeps in shared memory (8 float32 rows: 112 KiB; 144 KiB would leave
+    # one block an SM, so 27B's are kept as bf16)
+    ("gemma2_9b_n8_tied_softcap30_unitoffset", 8, 3584, 256000, True, 30.0, True),
+    ("gemma2_27b_n8_tied_softcap30_unitoffset", 8, 4608, 256000, True, 30.0, True),
+]
+EPILOGUE_INT8_SPECS = [
+    ("llama1b_n4_tied_int8", 4, 2048, 128256, True, None, False),
+    ("llama1b_n8_tied_int8_serve_tick", 8, 2048, 128256, True, None, False),
+    ("gemma2_widths_n4_untied_int8_softcap30_unitoffset", 4, 2304, 256000, False, 30.0, True),
+    ("llama3_8b_n8_untied_int8", 8, 4096, 128256, False, None, False),
+    ("gemma2_27b_n8_tied_int8_softcap30_unitoffset", 8, 4608, 256000, True, 30.0, True),
+]
+EPILOGUE_MARKERS = {"sample_epilogue": "epilogue_"}
+# how far a planted column's logit lies above its row's best random one:
+# 50x EPILOGUE_TOL, and enough that an int8 head's rounding keeps it ahead
+PLANT_MARGIN = 0.05
+
+
+def epilogue_inputs(torch, norms, quantize_array, spec: tuple, i: int, int8: bool):
+    """(x, gamma, w, keywords) of epilogue case ``i`` from ``spec``.  Row
+    0's best column is planted at V-1 and row 1's at 0: that row's normed
+    vector scaled so that its logit lies ``PLANT_MARGIN`` above the row's
+    best random logit.  The other rows see about 1/sqrt(H) of it, far
+    below their own best; the planted row's token holds the vocab's first
+    and last tiles, and a kernel that summed only part of H (one warp's
+    slice of it) would lose the planted column's lead.  An int8 head is
+    quantized on the card as ``quantize_params`` quantizes it (tied: per
+    embedding row; untied: per lm_head column), its scales handed over as
+    [1, V]."""
+    name, n, hd, vocab, tied, cap, unit = spec
+    g = torch.Generator(device="cuda").manual_seed((17 if int8 else 7) + i)
+    x = torch.randn((n, hd), generator=g, device="cuda").bfloat16()
+    gamma = (0.1 * torch.randn((hd,), generator=g, device="cuda") + (0.0 if unit else 1.0)).bfloat16()
+    w = (0.02 * torch.randn((vocab, hd) if tied else (hd, vocab), generator=g, device="cuda")).bfloat16()
+    xn = norms.rms_norm(x, gamma, eps=1e-6, unit_offset=unit)[:2].float()
+    best = (xn @ (w.T if tied else w).float()).max(dim=-1).values
+    for row, col in ((0, vocab - 1), (1, 0)):
+        v = xn[row]
+        planted = (v * ((best[row] + PLANT_MARGIN) / v.dot(v))).bfloat16()
+        if tied:
+            w[col] = planted
+        else:
+            w[:, col] = planted
+    kw = dict(tied=tied, eps=1e-6, unit_offset=unit, logit_softcap=cap)
+    if int8:
+        wq = quantize_array(w, axis=-1 if tied else -2)
+        del w
+        w = wq["q"]
+        kw["w_scale"] = wq["s"].reshape(1, -1)
+    return x, gamma, w, kw
+
+
+def plant_needs_full_sum(torch, xn, w, kw) -> bool:
+    """True when rows 0 and 1's logits summed over only the first eighth
+    of H (one of the untied kernel's 8 warp slices) pick neither planted
+    column: the planted tokens are exact only if every slice's dot
+    arrives."""
+    h8 = xn.shape[-1] // 8
+    part = xn[:2, :h8].float() @ (w[:, :h8].T if kw["tied"] else w[:h8]).float()
+    if "w_scale" in kw:
+        part = part * kw["w_scale"]
+    got = torch.argmax(part, dim=-1).tolist()
+    return got[0] != w.shape[0 if kw["tied"] else 1] - 1 and got[1] != 0
+
+
+def epilogue_library(torch, norms, x, gamma, w, kw):
+    """One PyTorch call computing the epilogue's function on the normed
+    rows: matmul + argmax (an int8 head dequantized to bf16 first)."""
+    xn = norms.rms_norm(x, gamma, eps=kw["eps"], unit_offset=kw["unit_offset"])
+    ws = kw.get("w_scale")
+    if ws is not None:
+        w = (w.float() * (ws.reshape(-1, 1) if kw["tied"] else ws)).bfloat16()
+    wt = w.T if kw["tied"] else w
+    return lambda: torch.argmax(torch.matmul(xn, wt), dim=-1)
+
+
+def epilogue_cases(torch, se, norms, quantize_array, int8: bool) -> list[dict]:
+    """The float-head (``sample_epilogue``) or int8-head
+    (``sample_epilogue_int8``) cases; each head is freed after its case."""
     cases = []
-    specs = [
-        # name, N, H, V, tied, softcap, unit_offset — main path shape first
-        ("llama1b_n4_tied", 4, 2048, 128256, True, None, False),
-        ("gemma2_widths_n4_untied_softcap30_unitoffset", 4, 2304, 256000, False, 30.0, True),
-    ]
-    for name, n, hd, vocab, tied, cap, unit in specs:
-        g = torch.Generator(device="cuda").manual_seed(7 + len(cases))
-        x = torch.randn((n, hd), generator=g, device="cuda").bfloat16()
-        gamma = (0.1 * torch.randn((hd,), generator=g, device="cuda") + (0.0 if unit else 1.0)).bfloat16()
-        wshape = (vocab, hd) if tied else (hd, vocab)
-        w = (0.02 * torch.randn(wshape, generator=g, device="cuda")).bfloat16()
-        kw = dict(tied=tied, eps=1e-6, unit_offset=unit, logit_softcap=cap)
+    kernel = "sample_epilogue_int8" if int8 else "sample_epilogue"
+    for i, spec in enumerate(EPILOGUE_INT8_SPECS if int8 else EPILOGUE_SPECS):
+        name, n, hd, vocab, tied, cap, unit = spec
+        x, gamma, w, kw = epilogue_inputs(torch, norms, quantize_array, spec, i, int8)
         got = se.sample_epilogue(x, gamma, w, **kw)
         torch.cuda.synchronize()
         xn = norms.rms_norm(x, gamma, eps=1e-6, unit_offset=unit)
         logits = xn.float() @ (w.float().T if tied else w.float())
+        if int8:
+            logits = logits * kw["w_scale"]
         if cap is not None:
             logits = torch.tanh(logits / cap) * cap
         err = check_tokens(torch, logits, got, EPILOGUE_TOL)
+        if got[:2].tolist() != [vocab - 1, 0]:
+            raise AssertionError(f"{name}: planted best columns [{vocab - 1}, 0], got {got[:2].tolist()}")
+        want = torch.argmax(logits, -1).to(torch.int32)
+        if {0, vocab - 1} & set(want[2:].tolist()):
+            raise AssertionError(f"{name}: a planted column wins an unplanted row: {want.tolist()}")
+        if not plant_needs_full_sum(torch, xn, w, kw):
+            raise AssertionError(f"{name}: the planted columns win on an eighth of H")
         plain = se.sample_epilogue_plain(x, gamma, w, **kw)
-        if not torch.equal(plain, torch.argmax(logits, -1).to(torch.int32)):
-            raise AssertionError("sample_epilogue_plain disagrees with its own logits")
-        ms = time_ms(torch, lambda: se.sample_epilogue(x, gamma, w, **kw), 50)
+        if not torch.equal(plain, want):
+            raise AssertionError(f"{name}: sample_epilogue_plain disagrees with its own logits")
+        del logits, xn
+        call = lambda: se.sample_epilogue(x, gamma, w, **kw)  # noqa: E731
+        ms = time_ms(torch, call, 50)
+        dev = device_ms(torch, call, EPILOGUE_MARKERS)["sample_epilogue"]
         plain_ms = time_ms(torch, lambda: se.sample_epilogue_plain(x, gamma, w, **kw), 5)
-        wt = w.T if tied else w
-        lib_ms = time_ms(torch, lambda: torch.argmax(torch.matmul(xn, wt), dim=-1), 50)
-        nbytes = vocab * hd * 2 + n * hd * 2 + hd * 2 + n * 4
+        lib = epilogue_library(torch, norms, x, gamma, w, kw)
+        lib_ms = time_ms(torch, lib, 50)
+        del lib
+        if int8:
+            nbytes = vocab * hd + vocab * 4 + n * hd * 2 + hd * 2 + n * 4
+        else:
+            nbytes = vocab * hd * 2 + n * hd * 2 + hd * 2 + n * 4
         bms, by = bound(nbytes, 2.0 * n * hd * vocab)
-        cases.append(dict(kernel="sample_epilogue", case=name, max_abs_err=err,
-                          tol=EPILOGUE_TOL, within_tol=err <= EPILOGUE_TOL, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                          bound_ms=bms, bound_by=by))
-    return cases
-
-
-def epilogue_int8_cases(torch, se, norms, quantize_array) -> list[dict]:
-    """The int8-head variant: the head quantized on the card as
-    ``quantize_params`` quantizes it (tied: per embedding row; untied:
-    per lm_head column), scales handed over as [1, V]."""
-    cases = []
-    specs = [
-        # name, N, H, V, tied, softcap, unit_offset — main path shape first
-        ("llama1b_n4_tied_int8", 4, 2048, 128256, True, None, False),
-        ("llama1b_n8_tied_int8_serve_tick", 8, 2048, 128256, True, None, False),
-        ("gemma2_widths_n4_untied_int8_softcap30_unitoffset", 4, 2304, 256000, False, 30.0, True),
-    ]
-    for name, n, hd, vocab, tied, cap, unit in specs:
-        g = torch.Generator(device="cuda").manual_seed(17 + len(cases))
-        x = torch.randn((n, hd), generator=g, device="cuda").bfloat16()
-        gamma = (0.1 * torch.randn((hd,), generator=g, device="cuda") + (0.0 if unit else 1.0)).bfloat16()
-        wshape = (vocab, hd) if tied else (hd, vocab)
-        wq = quantize_array((0.02 * torch.randn(wshape, generator=g, device="cuda")).bfloat16(),
-                            axis=-1 if tied else -2)
-        w, ws = wq["q"], wq["s"].reshape(1, -1)
-        kw = dict(w_scale=ws, tied=tied, eps=1e-6, unit_offset=unit, logit_softcap=cap)
-        got = se.sample_epilogue(x, gamma, w, **kw)
-        torch.cuda.synchronize()
-        xn = norms.rms_norm(x, gamma, eps=1e-6, unit_offset=unit)
-        logits = (xn.float() @ (w.float().T if tied else w.float())) * ws
-        if cap is not None:
-            logits = torch.tanh(logits / cap) * cap
-        err = check_tokens(torch, logits, got, EPILOGUE_TOL)
-        plain = se.sample_epilogue_plain(x, gamma, w, **kw)
-        if not torch.equal(plain, torch.argmax(logits, -1).to(torch.int32)):
-            raise AssertionError("sample_epilogue_plain (int8) disagrees with its own logits")
-        del logits
-        ms = time_ms(torch, lambda: se.sample_epilogue(x, gamma, w, **kw), 50)
-        plain_ms = time_ms(torch, lambda: se.sample_epilogue_plain(x, gamma, w, **kw), 5)
-        # the library yardstick: matmul on the dequantized (bf16) head + argmax
-        wdq = (w.float() * (ws.reshape(-1, 1) if tied else ws)).bfloat16()
-        wt = wdq.T if tied else wdq
-        lib_ms = time_ms(torch, lambda: torch.argmax(torch.matmul(xn, wt), dim=-1), 50)
-        del wdq, wt
-        nbytes = vocab * hd + vocab * 4 + n * hd * 2 + hd * 2 + n * 4
-        bms, by = bound(nbytes, 2.0 * n * hd * vocab)
-        cases.append(dict(kernel="sample_epilogue_int8", case=name, max_abs_err=err,
-                          tol=EPILOGUE_TOL, within_tol=err <= EPILOGUE_TOL, ms=ms, plain_ms=plain_ms,
-                          library_ms=lib_ms, library="matmul on the dequantized bf16 head + argmax",
-                          bound_ms=bms, bound_by=by))
+        case = dict(kernel=kernel, case=name, max_abs_err=err, tol=EPILOGUE_TOL,
+                    within_tol=err <= EPILOGUE_TOL, ms=ms, device_ms=dev,
+                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by)
+        if int8:
+            case["library"] = "matmul on the dequantized bf16 head + argmax"
+        cases.append(case)
+        del x, gamma, w, kw, call
+        torch.cuda.empty_cache()
     return cases
 
 
@@ -1310,11 +1365,11 @@ def main() -> int:
     cases = (flash_cases(torch, F, fa, sdpa_gqa)
              + decode_cases(torch, F, da, quantize_kv, sdpa_gqa)
              + combine_cases(torch, da)
-             + epilogue_cases(torch, se, norms)
+             + epilogue_cases(torch, se, norms, quantize_array, int8=False)
              + paged_cases(torch, F, da, quantize_kv, sdpa_gqa)
              + paged_combine_cases(torch, da, quantize_kv)
              + ragged_cases(torch, F, da, quantize_kv, sdpa_gqa)
-             + epilogue_int8_cases(torch, se, norms, quantize_array)
+             + epilogue_cases(torch, se, norms, quantize_array, int8=True)
              + softmax_cases(torch, sm))
     # no model path calls softmax (as in the JAX package): its launches
     # are the kernel phase's

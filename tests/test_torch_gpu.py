@@ -160,7 +160,17 @@ def test_combine_kernel(cuda, dtype, r, nsplit, rows, d):
 @pytest.mark.parametrize(
     "n,hd,vocab,tied,softcap,unit",
     [(4, 256, 1000, True, None, False), (3, 512, 3001, False, 30.0, True),
-     (11, 128, 777, True, 5.0, True), (1, 64, 256, False, None, False)],
+     (11, 128, 777, True, 5.0, True), (1, 64, 256, False, None, False),
+     # untied 16-byte rows (the vector loads), N=8 and N=9 (a second row pass)
+     (8, 2304, 4096, False, None, False), (9, 200, 1040, False, 30.0, True),
+     # untied odd vocab (the scalar loads) and N=16; H=136 and H=200 are not
+     # multiples of the warps' slices of H
+     (16, 136, 3001, False, None, False), (1, 2048, 1001, False, None, True),
+     # tied N=1, 8, 9, 16
+     (1, 2048, 3000, True, None, False), (8, 2048, 5000, True, 30.0, False),
+     (9, 96, 600, True, None, True), (16, 256, 2000, True, None, False),
+     # tied at Gemma-2-27B's width: bf16 rows kept as bf16 in shared memory
+     (8, 4608, 2000, True, 30.0, True)],
 )
 def test_sample_epilogue_kernel(cuda, dtype, n, hd, vocab, tied, softcap, unit):
     g = torch.Generator(device="cuda").manual_seed(vocab)
@@ -186,7 +196,18 @@ def test_sample_epilogue_kernel(cuda, dtype, n, hd, vocab, tied, softcap, unit):
 @pytest.mark.parametrize(
     "n,hd,vocab,tied,softcap,unit",
     [(4, 256, 1000, True, None, False), (3, 512, 3001, False, 30.0, True),
-     (11, 128, 777, True, 5.0, True), (8, 64, 256, False, None, False)],
+     (11, 128, 777, True, 5.0, True), (8, 64, 256, False, None, False),
+     # untied 16-byte rows (the vector loads), N=8 and N=9 (a second row pass)
+     (8, 2304, 4096, False, None, False), (9, 208, 1040, False, 30.0, True),
+     # untied vocab not a multiple of 16 (the scalar loads) and N=16; H=208
+     # and H=144 are not multiples of the warps' slices of H
+     (16, 144, 1000, False, None, False), (1, 2048, 1001, False, None, True),
+     # tied N=1, 8, 9, 16
+     (1, 2048, 3000, True, None, False), (8, 2048, 5000, True, 30.0, False),
+     (9, 96, 600, True, None, True), (16, 256, 2000, True, None, False),
+     # tied at Gemma-2-27B's width, N=5 (three spare rows in the pass):
+     # bf16 rows kept as bf16 in shared memory
+     (5, 4608, 2000, True, None, False)],
 )
 def test_sample_epilogue_int8_kernel(cuda, dtype, n, hd, vocab, tied, softcap, unit):
     """int8 heads: the kernel's variant of its own (``launches_int8``)
@@ -221,6 +242,20 @@ def test_sample_epilogue_exact_tie(cuda):
     w = torch.zeros((1000, 64), device="cuda")
     w[[300, 20, 999]] = 1.0
     got = se.sample_epilogue(x, torch.ones(64, device="cuda"), w, tied=True, eps=1e-6)
+    assert got.tolist() == [20, 20]
+
+
+@pytest.mark.parametrize("dtype,vocab", [(torch.float32, 1000), (torch.bfloat16, 1001)])
+def test_sample_epilogue_exact_tie_untied(cuda, dtype, vocab):
+    """Untied: identical columns in different vocab tiles, through the
+    vector loads (V * 4 bytes a multiple of 16) and the scalar ones (an
+    odd V): the lowest index wins, after the warps' partial dots are
+    summed."""
+    x = torch.ones((2, 64), device="cuda", dtype=dtype)
+    w = torch.zeros((64, vocab), device="cuda", dtype=dtype)
+    w[:, [300, 20, vocab - 1]] = 1.0
+    got = se.sample_epilogue(x, torch.ones(64, device="cuda", dtype=dtype), w, tied=False,
+                             eps=1e-6)
     assert got.tolist() == [20, 20]
 
 

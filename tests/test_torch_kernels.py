@@ -154,13 +154,21 @@ def test_decode_argument_checks():
 # sample_epilogue
 # ----------------------------------------------------------------------
 
-@pytest.mark.parametrize(
-    "tied,softcap,unit_offset",
-    [(True, None, False), (False, None, False), (True, 2.0, True), (False, 30.0, True)],
-)
-def test_epilogue_plain_matches_pallas(tied, softcap, unit_offset):
+# (tied, softcap, unit_offset, N, V): N=5 and V=300, a multi-tile vocab
+# with a ragged tail; then N=9 (the kernel's second row pass) with an odd V
+# (an untied head whose rows are not 16-byte aligned: the scalar loads)
+EPILOGUE_CASES = [(True, None, False, 5, 300), (False, None, False, 5, 300),
+                  (True, 2.0, True, 5, 300), (False, 30.0, True, 5, 300),
+                  (True, None, False, 9, 301), (False, None, False, 9, 301),
+                  (False, 30.0, True, 9, 777)]
+EPILOGUE_IDS = ["True-None-False", "False-None-False", "True-2.0-True", "False-30.0-True",
+                "n9-v301-tied", "n9-v301-untied", "n9-v777-untied-softcap30-unit"]
+
+
+@pytest.mark.parametrize("tied,softcap,unit_offset,n,v", EPILOGUE_CASES, ids=EPILOGUE_IDS)
+def test_epilogue_plain_matches_pallas(tied, softcap, unit_offset, n, v):
     rng = np.random.default_rng(3)
-    n, h, v = 5, 64, 300  # multi-tile vocab with a ragged tail
+    h = 64
     x = _np(rng, (n, h))
     gamma = _np(rng, (h,), 0.3) + (0.0 if unit_offset else 1.0)
     w = _np(rng, (v, h) if tied else (h, v), 0.5)
@@ -193,16 +201,13 @@ def test_epilogue_exact_tie_takes_first_index():
             assert (got == 7).all()
 
 
-@pytest.mark.parametrize(
-    "tied,softcap,unit_offset",
-    [(True, None, False), (False, None, False), (True, 2.0, True), (False, 30.0, True)],
-)
-def test_epilogue_int8_plain_matches_pallas(tied, softcap, unit_offset):
+@pytest.mark.parametrize("tied,softcap,unit_offset,n,v", EPILOGUE_CASES, ids=EPILOGUE_IDS)
+def test_epilogue_int8_plain_matches_pallas(tied, softcap, unit_offset, n, v):
     """int8 heads (quant.py "q" payloads, quantized by the JAX package):
     the payload as float, the float32 product times the per-column scale,
     then softcap and argmax — the TPU kernel's quantized=True branch."""
     rng = np.random.default_rng(5)
-    n, h, v = 5, 64, 300
+    h = 64
     x = _np(rng, (n, h))
     gamma = _np(rng, (h,), 0.3) + (0.0 if unit_offset else 1.0)
     wf = _np(rng, (v, h) if tied else (h, v), 0.5)

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time one checkout's decode attention on the card, kernels and end to end, to compare two.
+"""Time one checkout's decode attention and sampling epilogue on the card, kernels and end to end, to compare two.
 
     python tools/decode_attention_ab.py [--root DIR] [--label NAME]
-        [--parts cases,paged_cases,main_path,serve_leg_b] [--replays N]
+        [--parts cases,paged_cases,epilogue,main_path,serve_leg_b] [--replays N]
 
 Imports ``llm_np_cp_tpu_torch`` from DIR (default: the checkout this file
 is in) and builds its kernels; the inputs, the timers and the main path's
@@ -18,6 +18,11 @@ both versions see the same work.  Prints one JSON line with:
   ``chip_smoke.py``'s paged cases (``PAGED_SPECS`` through
   ``paged_inputs``), timed the same way, SDPA on the pre-gathered view and
   the gather beside each bf16 case without softcap;
+- ``epilogue``: ``sample_epilogue`` on the inputs of ``chip_smoke.py``'s
+  epilogue cases (``EPILOGUE_SPECS`` and ``EPILOGUE_INT8_SPECS`` through
+  ``epilogue_inputs``: float and int8 heads, tied and untied, with the
+  planted best columns checked), timed the same way, the library call
+  (``epilogue_library``: matmul + argmax) beside each;
 - ``main_path``: the decode rate per sequence of ``Generator.generate``
   on Llama-3.2-1B (seeded random bf16 weights, B=4, 128-token prompts,
   ``chip_smoke.DECODE_STEPS`` new tokens, flash prefill and the slab
@@ -26,7 +31,8 @@ both versions see the same work.  Prints one JSON line with:
   on ``chip_smoke.py``'s 32-request trace in its leg B (phase-split tick,
   paged decode), a fresh engine per replay, and their medians.
 
-``--parts`` keeps some of the four (default: all), ``--replays`` sets the
+Each library call's times are keyed ``library_ms`` and
+``library_device_ms``.  ``--parts`` keeps some of the five (default: all), ``--replays`` sets the
 serve leg's replay count (default 3).  Run it for two checkouts in turns
 (A, B, B, A) in one call: only times from one call on one card compare.
 """
@@ -44,7 +50,7 @@ HERE = Path(__file__).resolve().parents[1]
 CASES = [(4, 256, False), (4, 256, True), (4, 4096, False), (4, 4096, True), (1, 32768, False)]
 REPEATS = 5
 SERVE_REPLAYS = 3
-PARTS = ("cases", "paged_cases", "main_path", "serve_leg_b")
+PARTS = ("cases", "paged_cases", "epilogue", "main_path", "serve_leg_b")
 
 
 def load_chip_smoke():
@@ -83,15 +89,35 @@ def kernel_cases(torch, F, cs, da, quantize_kv) -> list[dict]:
     return rows
 
 
-def timed(torch, cs, call, sdpa=None) -> dict:
-    """CUDA-event ms and profiler device ms of ``call`` (and of ``sdpa``)."""
+def timed(torch, cs, call, library=None) -> dict:
+    """CUDA-event ms and profiler device ms of ``call`` (and of
+    ``library``, the one library call beside it)."""
     every_kernel = {"all": ""}
     row = dict(ms=cs.time_ms(torch, call, 100),
                device_ms=cs.device_ms(torch, call, every_kernel)["all"])
-    if sdpa is not None:
-        row.update(sdpa_ms=cs.time_ms(torch, sdpa, 100),
-                   sdpa_device_ms=cs.device_ms(torch, sdpa, every_kernel)["all"])
+    if library is not None:
+        row.update(library_ms=cs.time_ms(torch, library, 100),
+                   library_device_ms=cs.device_ms(torch, library, every_kernel)["all"])
     return row
+
+
+def epilogue_cases(torch, cs) -> list[dict]:
+    from llm_np_cp_tpu_torch.ops import norms
+    from llm_np_cp_tpu_torch.ops.cuda import sample_epilogue as se
+    from llm_np_cp_tpu_torch.quant import quantize_array
+
+    rows = []
+    for int8, specs in ((False, cs.EPILOGUE_SPECS), (True, cs.EPILOGUE_INT8_SPECS)):
+        for i, spec in enumerate(specs):
+            x, gamma, w, kw = cs.epilogue_inputs(torch, norms, quantize_array, spec, i, int8)
+            got = se.sample_epilogue(x, gamma, w, **kw)
+            planted_ok = got[:2].tolist() == [spec[3] - 1, 0]
+            lib = cs.epilogue_library(torch, norms, x, gamma, w, kw)
+            rows.append(dict(case=spec[0], planted_ok=planted_ok, **timed(
+                torch, cs, lambda: se.sample_epilogue(x, gamma, w, **kw), lib)))
+            del x, gamma, w, kw, lib
+            torch.cuda.empty_cache()
+    return rows
 
 
 def paged_cases(torch, F, cs, da, quantize_kv) -> list[dict]:
@@ -186,6 +212,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     run = dict(cases=lambda: kernel_cases(torch, F, cs, da, quantize_kv),
                paged_cases=lambda: paged_cases(torch, F, cs, da, quantize_kv),
+               epilogue=lambda: epilogue_cases(torch, cs),
                main_path=lambda: main_path_rates(torch, np, cs),
                serve_leg_b=lambda: serve_leg_b(torch, np, cs, args.replays))
     print(json.dumps(dict(label=args.label, root=args.root, card=cs.nvidia_smi_line(),
