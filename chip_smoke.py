@@ -11,6 +11,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
    in bfloat16, at the main path's shapes and at wider ones: max error
    against the stated tolerance, kernel / plain / library-call times
    (CUDA events over many launches after warm-up) and the bound.  The
+   prefill kernel (``flash_attention``, up to 4096-token prompts at
+   Llama-3.2-1B, Llama-3.1-8B and Gemma-2-2B widths) records its own
+   device time (torch.profiler), SDPA's beside it and the achieved
+   TFLOP/s, and each of its cases shows that its check catches the plain
+   version with one visible kv tile dropped.  The
    two split-KV decode kernels (slab and paged) record each case's NSPLIT
    and their kernels' own device time (torch.profiler), and their combine
    is held alone against its plain version on each split kernel's
@@ -22,7 +27,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
    the JAX package) is timed here too.
 3. main path — Llama-3.2-1B at full width and depth on seeded random
    bf16 weights: ``Generator.generate`` (flash prefill, decode kernel,
-   fused epilogue), ``generate_ragged`` and ``stream``; launch counts
+   fused epilogue), ``generate_ragged`` and ``stream``, then one
+   ``generate`` on a B=1 x 4096-token prompt (its TTFT); launch counts
    must equal what the path implies, and a teacher-forced cache-less
    plain forward must agree with every chosen token.
 4. profile — torch.profiler over one more ``generate``: device time by
@@ -78,6 +84,7 @@ F32_FLOPS_PER_S = 67e12
 # kernels (slab, paged, ragged) and the combine are held to ATTN_TOL times
 # each head row's largest |plain| instead (attn_err_rows): over S visible
 # slots their outputs are ~sqrt(e / S) in size, below the 1 + |plain| floor.
+# The prefill kernel is held to both (flash_err).
 ATTN_TOL = 2.0 ** -6
 EPILOGUE_TOL = 1e-3  # float32 logits: summation order and norm rounding
 # bf16 logits after 16 layers: the kernel path against plain references.
@@ -93,6 +100,8 @@ F32_STEPS = 16
 
 DECODE_STEPS = 64
 STREAM_TOKENS = 8
+# the main path's long prompt: B=1, flash prefill bound by operations
+LONG_PROMPT, LONG_NEW_TOKENS = 4096, 8
 
 # the serve phase: Llama-3.2-1B behind the engine, the trace and pool of
 # its issue (32 requests at 40 req/s, prompts 16-200 tokens, 32 new
@@ -232,38 +241,92 @@ def float32_params(params: dict) -> dict:
 # phase 2: kernels against their plain versions
 # ----------------------------------------------------------------------
 
+# name, B, S, H, K, D, softcap, window — the main path's shape first,
+# then the long prompts where prefill attention is bound by operations:
+# Llama-3.2-1B at 4096, Llama-3.1-8B's widths (D=128, also Llama-3.2-3B's
+# and Qwen-2's), Gemma-2-2B with its real 4096-slot window
+FLASH_SPECS = (
+    ("llama1b_main_4x128", 4, 128, 32, 8, 64, None, None),
+    ("llama1b_prefill_1x512", 1, 512, 32, 8, 64, None, None),
+    ("gemma2_2b_1x512_softcap50_window128", 1, 512, 8, 4, 256, 50.0, 128),
+    ("llama1b_prefill_1x4096", 1, 4096, 32, 8, 64, None, None),
+    ("llama8b_prefill_1x2048_d128", 1, 2048, 32, 8, 128, None, None),
+    ("gemma2_2b_1x4096_softcap50_window4096", 1, 4096, 8, 4, 256, 50.0, 4096),
+)
+
+
+def flash_inputs(torch, i: int):
+    """(q, k, v, keywords) of ``FLASH_SPECS[i]``, bf16, seeded."""
+    _, b, s, h, kh, d, cap, win = FLASH_SPECS[i]
+    g = torch.Generator(device="cuda").manual_seed(i + 1)
+    q = torch.randn((b, s, h, d), generator=g, device="cuda").bfloat16()
+    k = torch.randn((b, s, kh, d), generator=g, device="cuda").bfloat16()
+    v = torch.randn((b, s, kh, d), generator=g, device="cuda").bfloat16()
+    return q, k, v, dict(scale=d ** -0.5, logit_softcap=cap, window=win)
+
+
+def flash_err(out, ref) -> tuple[float, bool]:
+    """``attn_err_rows`` and ``attn_err`` together: within ATTN_TOL times
+    both the head row's largest |plain| and 1 + |plain|."""
+    err, rows_ok = attn_err_rows(out, ref)
+    return err, rows_ok and attn_err(out, ref)[1]
+
+
+def flash_dropped_tile(torch, fa, q, k, v, kw):
+    """The plain version with one visible kv tile dropped: the last q
+    tile's diagonal tile (the kernel's plan), gone from that q tile's
+    rows.  A fault the check must catch."""
+    from llm_np_cp_tpu_torch.ops.attention import causal_mask, gqa_attention
+
+    s = q.shape[1]
+    plan = fa.flash_plan(s, q.shape[3], q.dtype)
+    q0, kv0 = (plan.q_tiles - 1) * plan.bq, (s - 1) // plan.bkv * plan.bkv
+    pos = torch.arange(s, device=q.device)
+    mask = causal_mask(pos[None, :], pos, window=kw["window"])
+    mask[:, q0:, kv0:kv0 + plan.bkv] = False
+    return gqa_attention(q, k, v, mask, scale=kw["scale"], logit_softcap=kw["logit_softcap"])
+
+
 def flash_cases(torch, F, fa, sdpa_gqa: bool) -> list[dict]:
+    """The prefill kernel on ``FLASH_SPECS``: events ms, the kernel's own
+    device time (profiler), SDPA's beside it where SDPA computes the same
+    function (no softcap, no window), the bound and the achieved rate."""
     cases = []
-    specs = [
-        # name, B, S, H, K, D, softcap, window — main path shape first
-        ("llama1b_main_4x128", 4, 128, 32, 8, 64, None, None),
-        ("llama1b_prefill_1x512", 1, 512, 32, 8, 64, None, None),
-        ("gemma2_2b_1x512_softcap50_window128", 1, 512, 8, 4, 256, 50.0, 128),
-    ]
-    for name, b, s, h, kh, d, cap, win in specs:
-        g = torch.Generator(device="cuda").manual_seed(len(cases) + 1)
-        q = torch.randn((b, s, h, d), generator=g, device="cuda").bfloat16()
-        k = torch.randn((b, s, kh, d), generator=g, device="cuda").bfloat16()
-        v = torch.randn((b, s, kh, d), generator=g, device="cuda").bfloat16()
-        scale = d ** -0.5
-        kw = dict(scale=scale, logit_softcap=cap, window=win)
+    for i, (name, b, s, h, kh, d, cap, win) in enumerate(FLASH_SPECS):
+        q, k, v, kw = flash_inputs(torch, i)
         out = fa.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
         ref = fa.flash_attention_plain(q, k, v, **kw)
-        err, ok = attn_err(out, ref)
-        ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, **kw), 50)
+        err, ok = flash_err(out, ref)
+        _, fault_passes = flash_err(flash_dropped_tile(torch, fa, q, k, v, kw), ref)
+        del ref
+        call = lambda: fa.flash_attention(q, k, v, **kw)  # noqa: E731
+        ms = time_ms(torch, call, 50)
+        dev = device_ms(torch, call, {"flash": "flash_kernel"})["flash"]
         plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, **kw), 5)
-        lib_ms = None
+        lib_ms = lib_dev = None
         if cap is None and win is None and sdpa_gqa:
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True), 50)
-        pairs = sum(min(i + 1, win or s) for i in range(s))
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=True, scale=kw["scale"], enable_gqa=True)
+            lib_ms = time_ms(torch, sdpa, 50)
+            lib_dev = device_ms(torch, sdpa, {"all": ""})["all"]
+        pairs = sum(min(r + 1, win or s) for r in range(s))
+        flops = 4.0 * b * h * d * pairs
         nbytes = 2 * (2 * b * s * h * d + 2 * b * s * kh * d)
-        bms, by = bound(nbytes, 4.0 * b * h * d * pairs)
-        cases.append(dict(kernel="flash_attention", case=name, max_abs_err=err,
-                          tol=ATTN_TOL, within_tol=ok, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                          bound_ms=bms, bound_by=by))
+        bms, by = bound(nbytes, flops)
+        plan = fa.flash_plan(s, d, q.dtype)
+        cases.append(dict(kernel="flash_attention", case=name, max_abs_err=err, tol=ATTN_TOL,
+                          tol_kind="relative to the head row's largest |plain| and to 1 + |plain|",
+                          within_tol=ok and not fault_passes,
+                          dropped_tile_caught=not fault_passes, ms=ms, device_ms=dev,
+                          tflops=flops / dev / 1e9 if dev else None,
+                          plain_ms=plain_ms, library_ms=lib_ms, library_device_ms=lib_dev,
+                          bound_ms=bms, bound_by=by,
+                          plan=dict(bq=plan.bq, bkv=plan.bkv, warps=plan.warps,
+                                    smem_bytes=plan.smem_bytes)))
+        del q, k, v, out
+        torch.cuda.empty_cache()
     return cases
 
 
@@ -931,6 +994,8 @@ def main_path(torch, np, kernels: dict, card: str) -> tuple:
         torch, forward, KVCache, params32, cfg, torch.as_tensor(prompts, device=dev),
         torch.as_tensor(res32.tokens, device=dev), tol=F32_TEACHER_TOL)
     del params32, gen32
+    torch.cuda.empty_cache()
+    long = long_prompt(torch, np, kernels, gen, params, cfg)
     result = dict(
         phase="main_path", model="meta-llama/Llama-3.2-1B", layers=layers,
         weights="seeded random bf16", card=card, launches=launches, implied=want,
@@ -944,9 +1009,40 @@ def main_path(torch, np, kernels: dict, card: str) -> tuple:
         stream=dict(tokens=len(streamed), teacher_forced=tf_s),
         float32=dict(batch=4, prompt_len=128, new_tokens=F32_STEPS, teacher_forced=tf32,
                      teacher_tol=F32_TEACHER_TOL),
-        wall_s=wall, teacher_tol=TEACHER_TOL,
+        long_prompt=long, wall_s=wall, teacher_tol=TEACHER_TOL,
     )
     return result, gen, prompts
+
+
+def long_prompt(torch, np, kernels: dict, gen, params, cfg) -> dict:
+    """One ``generate`` on a B=1 x LONG_PROMPT-token prompt, where prefill
+    attention is bound by operations: flash launched once a layer, every
+    token teacher-forced against the cache-less plain forward, and TTFT."""
+    from llm_np_cp_tpu_torch.cache import KVCache
+    from llm_np_cp_tpu_torch.models.transformer import forward
+
+    layers = cfg.num_hidden_layers
+    prompt = np.random.default_rng(3).integers(0, cfg.vocab_size, size=(1, LONG_PROMPT))
+    gen.generate(prompt, 2)  # warm-up: the allocator's long-prompt buffers
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    res = gen.generate(prompt, LONG_NEW_TOKENS)
+    torch.cuda.synchronize()
+    launches = read_counts(kernels)
+    steps = LONG_NEW_TOKENS - 1
+    want = {name: 0 for name in kernels}
+    want.update(flash_attention=layers, decode_attention=layers * steps,
+                decode_attention_combine=layers * steps * combines(
+                    torch, cfg, 1, LONG_PROMPT + LONG_NEW_TOKENS),
+                sample_epilogue=steps)
+    if launches != want:
+        raise AssertionError(f"long prompt: launch counts {launches} != implied {want}")
+    dev = torch.device("cuda")
+    tf = teacher_forced(torch, forward, KVCache, params, cfg, torch.as_tensor(prompt, device=dev),
+                        torch.as_tensor(res.tokens, device=dev))
+    return dict(batch=1, prompt_len=LONG_PROMPT, new_tokens=LONG_NEW_TOKENS, launches=launches,
+                implied=want, ttft_s=res.ttft_s, decode_tok_s_per_seq=res.decode_tokens_per_s,
+                teacher_forced=tf)
 
 
 def profile_run(torch, fn, markers: dict[str, str]) -> dict:

@@ -113,12 +113,13 @@ def library() -> ctypes.CDLL:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_S = ctypes.c_size_t
 
 # launcher name → argtypes (every pointer and the stream are c_void_p)
 SIGNATURES: dict[str, tuple] = {
     # q, k, v, out, B, S, H, K, D, scale, softcap (0 = off), window (0 = off),
-    # dtype code, stream
-    "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P),
+    # dtype code, the tile plan (BQ, BKV, warps, shared-memory bytes), stream
+    "flash_attention_launch": (_P,) * 4 + (_I,) * 5 + (_F, _F) + (_I,) * 5 + (_S, _P),
     # q, k, v, k_scale, v_scale, mask, out (null: partials only), part_acc,
     # part_m, part_l, B, S, H, K, D, nsplit, scale, softcap, dtype code,
     # int8 cache flag, stream, int* the kernels launched (out)

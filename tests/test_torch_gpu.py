@@ -37,6 +37,16 @@ def _assert_close(out, ref, dtype):
     assert bool((diff <= bound).all()), f"max error {diff.max().item()}"
 
 
+def _assert_close_rows(out, ref, dtype):
+    """``_assert_close`` and, besides, within TOL times the largest |ref|
+    of each head row (the last axis): over a long causal row the outputs
+    are ~sqrt(e / S), below the 1 + |ref| floor."""
+    _assert_close(out, ref, dtype)
+    diff = (out.float() - ref.float()).abs()
+    bound = TOL[dtype] * ref.float().abs().amax(dim=-1, keepdim=True)
+    assert bool((diff <= bound).all()), f"max error {diff.max().item()} against the row bound"
+
+
 def _randn(shape, gen, dtype, scale=1.0):
     return (scale * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
 
@@ -49,9 +59,15 @@ def _randn(shape, gen, dtype, scale=1.0):
         (1, 200, 4, 4, 128, None, None),   # ragged tail
         (1, 300, 4, 2, 256, 50.0, 64),     # Gemma-2: softcap + window, D=256
         (3, 7, 2, 1, 64, None, 3),
+        (2, 1, 4, 2, 64, None, None),      # one token
+        (1, 1000, 4, 2, 64, 30.0, None),   # ragged tail past the last full q tile
+        (1, 333, 4, 1, 256, None, 100),    # a window that ends mid kv tile
+        (1, 517, 16, 4, 128, None, None),  # D=128, group 4, ragged tail
+        (1, 4096, 32, 8, 64, None, None),  # Llama-3.2-1B widths, a long prompt
     ],
 )
 def test_flash_attention_kernel(cuda, dtype, b, s, h, kh, d, softcap, window):
+    """bf16 is held to both the 1 + |ref| and the per-row bound."""
     g = torch.Generator(device="cuda").manual_seed(s)
     q, k, v = (_randn(sh, g, dtype, 2) for sh in ((b, s, h, d), (b, s, kh, d), (b, s, kh, d)))
     kw = dict(scale=d ** -0.5, logit_softcap=softcap, window=window)
@@ -59,7 +75,8 @@ def test_flash_attention_kernel(cuda, dtype, b, s, h, kh, d, softcap, window):
     out = fa.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert fa.flash_attention.launches == before + 1
-    _assert_close(out, fa.flash_attention_plain(q, k, v, **kw), dtype)
+    check = _assert_close_rows if dtype == torch.bfloat16 else _assert_close
+    check(out, fa.flash_attention_plain(q, k, v, **kw), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time one checkout's decode attention and sampling epilogue on the card, kernels and end to end, to compare two.
+"""Time one checkout's attention kernels and sampling epilogue on the card, kernels and end to end, to compare two.
 
     python tools/decode_attention_ab.py [--root DIR] [--label NAME]
-        [--parts cases,paged_cases,epilogue,main_path,serve_leg_b] [--replays N]
+        [--parts cases,paged_cases,epilogue,flash,main_path,prefill,serve_leg_b,sass]
+        [--replays N]
 
 Imports ``llm_np_cp_tpu_torch`` from DIR (default: the checkout this file
 is in) and builds its kernels; the inputs, the timers and the main path's
@@ -23,17 +24,30 @@ both versions see the same work.  Prints one JSON line with:
   ``epilogue_inputs``: float and int8 heads, tied and untied, with the
   planted best columns checked), timed the same way, the library call
   (``epilogue_library``: matmul + argmax) beside each;
+- ``flash``: ``flash_attention`` (prefill) on the inputs of
+  ``chip_smoke.py``'s flash cases (``FLASH_SPECS`` through
+  ``flash_inputs``: Llama-3.2-1B's main path and 512- and 4096-token
+  prompts, Llama-3.1-8B's D=128 at 2048, Gemma-2-2B's D=256 with softcap
+  and window), timed the same way, SDPA beside each case without softcap
+  or window;
 - ``main_path``: the decode rate per sequence of ``Generator.generate``
   on Llama-3.2-1B (seeded random bf16 weights, B=4, 128-token prompts,
   ``chip_smoke.DECODE_STEPS`` new tokens, flash prefill and the slab
   decode kernel), one value per repeat after a warm-up;
+- ``prefill``: TTFT of ``Generator.generate`` on Llama-3.2-1B (seeded
+  random bf16 weights, B=1 x ``chip_smoke.LONG_PROMPT`` tokens, flash
+  prefill), one value per repeat after a warm-up, and their median;
 - ``serve_leg_b``: served tok/s and TPOT p50 of ``ServeEngine.replay_trace``
   on ``chip_smoke.py``'s 32-request trace in its leg B (phase-split tick,
-  paged decode), a fresh engine per replay, and their medians.
+  paged decode), a fresh engine per replay, and their medians;
+- ``sass``: for each flash kernel of the library, its ``HMMA`` (tensor
+  core) and ``FFMA`` instructions in ``cuobjdump -sass`` and, when this
+  process compiled the library, its ptxas report (registers, shared
+  memory, spills).
 
 Each library call's times are keyed ``library_ms`` and
-``library_device_ms``.  ``--parts`` keeps some of the five (default: all), ``--replays`` sets the
-serve leg's replay count (default 3).  Run it for two checkouts in turns
+``library_device_ms``.  ``--parts`` keeps some of the parts (default: all
+but ``sass``), ``--replays`` sets the serve leg's replay count (default 3).  Run it for two checkouts in turns
 (A, B, B, A) in one call: only times from one call on one card compare.
 """
 
@@ -42,6 +56,8 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import json
+import re
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -50,7 +66,8 @@ HERE = Path(__file__).resolve().parents[1]
 CASES = [(4, 256, False), (4, 256, True), (4, 4096, False), (4, 4096, True), (1, 32768, False)]
 REPEATS = 5
 SERVE_REPLAYS = 3
-PARTS = ("cases", "paged_cases", "epilogue", "main_path", "serve_leg_b")
+PARTS = ("cases", "paged_cases", "epilogue", "flash", "main_path", "prefill", "serve_leg_b",
+         "sass")
 
 
 def load_chip_smoke():
@@ -143,6 +160,65 @@ def paged_cases(torch, F, cs, da, quantize_kv) -> list[dict]:
     return rows
 
 
+def flash_cases(torch, F, cs) -> list[dict]:
+    from llm_np_cp_tpu_torch.ops.cuda import flash_attention as fa
+
+    rows = []
+    for i, (name, *_, cap, win) in enumerate(cs.FLASH_SPECS):
+        q, k, v, kw = cs.flash_inputs(torch, i)
+        out = fa.flash_attention(q, k, v, **kw)
+        err, ok = cs.flash_err(out, fa.flash_attention_plain(q, k, v, **kw))
+        sdpa = None
+        if cap is None and win is None:
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=True, scale=kw["scale"], enable_gqa=True)
+        rows.append(dict(case=name, max_abs_err=err, within_tol=ok, **timed(
+            torch, cs, lambda: fa.flash_attention(q, k, v, **kw), sdpa)))
+        del q, k, v, out, sdpa
+        torch.cuda.empty_cache()
+    return rows
+
+
+def prefill_ttft(torch, np, cs) -> dict:
+    from llm_np_cp_tpu_torch.config import PRESETS
+    from llm_np_cp_tpu_torch.generate import Generator
+    from llm_np_cp_tpu_torch.models.transformer import init_params
+    from llm_np_cp_tpu_torch.ops.sampling import Sampler
+
+    cfg = PRESETS["meta-llama/Llama-3.2-1B"]
+    params = init_params(0, cfg, torch.bfloat16, device="cuda")
+    prompt = np.random.default_rng(3).integers(0, cfg.vocab_size, size=(1, cs.LONG_PROMPT))
+    gen = Generator(params, cfg, sampler=Sampler("greedy"), prefill_attn_impl="flash",
+                    decode_attn_impl="flash_decode")
+    gen.generate(prompt, 1)  # warm-up: cuBLAS handles, allocator
+    ttft = [gen.generate(prompt, 1).ttft_s for _ in range(REPEATS)]
+    return dict(batch=1, prompt_len=cs.LONG_PROMPT, ttft_s=ttft, median=sorted(ttft)[len(ttft) // 2])
+
+
+def sass_counts() -> dict:
+    from llm_np_cp_tpu_torch.ops.cuda import build
+
+    lib = build.build()
+    cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1) if "flash_kernel" in m.group(1) else None
+            if name:
+                counts[name] = dict(HMMA=0, FFMA=0)
+        elif name:
+            for op in ("HMMA", "FFMA"):
+                counts[name][op] += bool(re.search(rf"\b{op}\b", line))
+    # ptxas's lines for each flash entry (present when this process built it)
+    ptxas = [blk for blk in (build.BUILD_INFO.get("ptxas") or "").split("Compiling entry function")
+             if "flash_kernel" in blk.split("\n", 1)[0]]
+    return dict(library=str(lib), sass=counts, ptxas=[blk.strip() for blk in ptxas])
+
+
 def serve_leg_b(torch, np, cs, replays: int) -> dict:
     from llm_np_cp_tpu_torch.config import PRESETS
     from llm_np_cp_tpu_torch.models.transformer import init_params
@@ -190,7 +266,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--label", default="")
-    ap.add_argument("--parts", default=",".join(PARTS))
+    ap.add_argument("--parts", default=",".join(p for p in PARTS if p != "sass"))
     ap.add_argument("--replays", type=int, default=SERVE_REPLAYS)
     args = ap.parse_args()
     parts = args.parts.split(",")
@@ -213,8 +289,11 @@ def main() -> int:
     run = dict(cases=lambda: kernel_cases(torch, F, cs, da, quantize_kv),
                paged_cases=lambda: paged_cases(torch, F, cs, da, quantize_kv),
                epilogue=lambda: epilogue_cases(torch, cs),
+               flash=lambda: flash_cases(torch, F, cs),
                main_path=lambda: main_path_rates(torch, np, cs),
-               serve_leg_b=lambda: serve_leg_b(torch, np, cs, args.replays))
+               prefill=lambda: prefill_ttft(torch, np, cs),
+               serve_leg_b=lambda: serve_leg_b(torch, np, cs, args.replays),
+               sass=sass_counts)
     print(json.dumps(dict(label=args.label, root=args.root, card=cs.nvidia_smi_line(),
                           **{part: run[part]() for part in parts})), flush=True)
     return 0
