@@ -35,9 +35,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
    kernel and the device's busy share of the wall time.
 5. serve — the same model behind ``ServeEngine.replay_trace`` on a
    32-request Poisson trace, in two legs: A, the unified tick
-   (``ragged_paged_attention`` + fused epilogue), and B, the phase-split
-   tick with the paged decode (``paged_decode_attention`` + its combine
-   when NSPLIT > 1 + fused epilogue).  Per leg: every request finished,
+   (``ragged_paged_attention`` + its combine when NSPLIT > 1 + fused
+   epilogue), and B, the phase-split tick with the paged decode
+   (``paged_decode_attention`` + its combine when NSPLIT > 1 + fused
+   epilogue); leg A once more at long context (4 requests of 1024-1536
+   tokens), where the ragged plan splits.  Per leg: every request finished,
    launch counts equal what
    the ticks imply, one host fetch per dispatching tick (leg A), every
    token teacher-forced against a cache-less plain forward, and wall
@@ -111,6 +113,9 @@ SERVE_NEW_TOKENS = 32
 SERVE_PROMPTS = (16, 200)
 SERVE_SLOTS, SERVE_BLOCK, SERVE_CHUNK = 8, 16, 64
 F32_SERVE_REQUESTS, F32_SERVE_TOKENS = 8, 16
+# leg A at long context, where the ragged kernel's plan splits the bands
+# (and launches the combine): 4 requests of 1024-1536-token prompts
+LONG_SERVE_REQUESTS, LONG_SERVE_PROMPTS, LONG_SERVE_TOKENS = 4, (1024, 1536), 16
 SERVE_LEGS = {
     "A_mixed": dict(mixed_step="on"),
     "B_split_paged": dict(mixed_step="off", decode_attn_impl="paged"),
@@ -596,39 +601,57 @@ def epilogue_cases(torch, se, norms, quantize_array, int8: bool) -> list[dict]:
     return cases
 
 
+SOFTMAX_SPECS = [
+    # name, shape, dtype name: vocab rows (split over a thread-block
+    # cluster), attention rows (a few rows a warp), and one row longer
+    # than a cluster holds on chip (the two-read stream)
+    ("vocab_8x128256_bf16", (8, 128256), "bfloat16"),
+    ("vocab_8x128256_f32", (8, 128256), "float32"),
+    ("attn_rows_16384x128_bf16", (4 * 32 * 128, 128), "bfloat16"),
+    ("long_row_1x2097152_f32", (1, 2 ** 21), "float32"),
+]
+SOFTMAX_MARKERS = {"softmax": "softmax_"}
+
+
+def softmax_inputs(torch, i: int):
+    """SOFTMAX_SPECS[i]'s input, made on the card from a seed."""
+    _, shape, dtype = SOFTMAX_SPECS[i]
+    g = torch.Generator(device="cuda").manual_seed(400 + i)
+    return (4.0 * torch.randn(shape, generator=g, device="cuda")).to(getattr(torch, dtype))
+
+
 def softmax_cases(torch, sm) -> list[dict]:
-    """Vocab-wide rows (a block streams each row) and attention-shaped
-    rows (a warp per row)."""
+    """Each of SOFTMAX_SPECS against the plain version: events, device
+    time (torch.profiler) and ``torch.softmax``'s beside them."""
     cases = []
-    specs = [
-        # name, shape, dtype
-        ("vocab_8x128256_bf16", (8, 128256), torch.bfloat16),
-        ("vocab_8x128256_f32", (8, 128256), torch.float32),
-        ("attn_rows_16384x128_bf16", (4 * 32 * 128, 128), torch.bfloat16),
-    ]
-    for name, shape, dtype in specs:
-        g = torch.Generator(device="cuda").manual_seed(400 + len(cases))
-        x = (4.0 * torch.randn(shape, generator=g, device="cuda")).to(dtype)
+    for i, (name, _, dtype) in enumerate(SOFTMAX_SPECS):
+        x = softmax_inputs(torch, i)
         out = sm.softmax(x)
         torch.cuda.synchronize()
         ref = sm.softmax_plain(x)
         diff = (out.float() - ref.float()).abs()
-        tol = SOFTMAX_TOL[str(dtype).removeprefix("torch.")]
-        if dtype == torch.bfloat16:
+        tol = SOFTMAX_TOL[dtype]
+        if dtype == "bfloat16":
             ok = bool((diff <= tol * ref.float().abs() + 1e-30).all())
         else:
             ok = bool((diff <= tol).all())
-        ms = time_ms(torch, lambda: sm.softmax(x), 100)
+        call = lambda: sm.softmax(x)  # noqa: E731
+        lib = lambda: torch.softmax(x, dim=-1)  # noqa: E731
+        ms = time_ms(torch, call, 100)
         plain_ms = time_ms(torch, lambda: sm.softmax_plain(x), 20)
-        lib_ms = time_ms(torch, lambda: torch.softmax(x, dim=-1), 100)
+        lib_ms = time_ms(torch, lib, 100)
+        dev = device_ms(torch, call, SOFTMAX_MARKERS)["softmax"]
+        lib_dev = device_ms(torch, lib, {"all": ""})["all"]
         numel = x.numel()
         # each element read once and written once; ~4 float32 operations
         # (max, exp of the difference, sum, scale)
         bms, by = bound(2 * numel * x.element_size(), 4.0 * numel, F32_FLOPS_PER_S)
         cases.append(dict(kernel="softmax", case=name, max_abs_err=diff.max().item(), tol=tol,
-                          tol_kind="relative to the output" if dtype == torch.bfloat16 else "absolute",
+                          tol_kind="relative to the output" if dtype == "bfloat16" else "absolute",
                           within_tol=ok, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                          library="torch.softmax", bound_ms=bms, bound_by=by))
+                          library="torch.softmax", bound_ms=bms, bound_by=by, device_ms=dev,
+                          library_device_ms=lib_dev, bound_share=bms / dev if dev else None))
+        del x, out, ref
     return cases
 
 
@@ -788,68 +811,180 @@ def ragged_layout(torch, segments: list[tuple[int, int, int]], width: int):
     return meta, torch.tensor(live, device="cuda")
 
 
+# the ragged kernel's packed batches: (row, first cache slot, tokens)
+# segments.  The serve shape: rows 0-5 decode one token each; row 6 runs
+# its second 64-token prefill chunk, row 7 its first (the engine's 192
+# bucket)
+SERVE_SEGMENTS = ([(r, SERVE_LENGTHS[r] - 1, 1) for r in range(6)]
+                  + [(6, SERVE_PADS[6] + 64, 64), (7, SERVE_PADS[7], 64)])
+# leg A's steady state at long context: 8 decode rows at the paged
+# B=8 x 4096 lengths
+LONG_DECODE_SEGMENTS = [(r, LONG_LENGTHS[r] - 1, 1) for r in range(8)]
+# the long mixed tick: 7 decode rows at up to 4096 and one 512-token
+# prefill chunk at slots 3584-4095
+MIXED_LONG_LENGTHS = LONG_LENGTHS[:7] + [4096]
+MIXED_LONG_PADS = LONG_PADS[:7] + [0]
+MIXED_LONG_SEGMENTS = LONG_DECODE_SEGMENTS[:7] + [(7, 3584, 512)]
+# serve leg A's steady state: 8 decode rows within its 288-slot tables
+LEG_A_LENGTHS = [232, 40, 150, 201, 288, 64, 17, 120]
+LEG_A_SEGMENTS = [(r, LEG_A_LENGTHS[r] - 1, 1) for r in range(8)]
+RAGGED_SPECS = [
+    # name, H, K, D, softcap, window, int8, segments, row lengths, row
+    # pads, packed width — the serve shape first
+    ("llama1b_mixed_6dec_2x64pf", 32, 8, 64, None, None, False, SERVE_SEGMENTS, SERVE_LENGTHS,
+     SERVE_PADS, 192),
+    ("llama1b_mixed_6dec_2x64pf_int8", 32, 8, 64, None, None, True, SERVE_SEGMENTS,
+     SERVE_LENGTHS, SERVE_PADS, 192),
+    ("gemma2_widths_mixed_softcap50_window128", 8, 4, 256, 50.0, 128, False, SERVE_SEGMENTS,
+     SERVE_LENGTHS, SERVE_PADS, 192),
+    ("llama1b_decode8_4096", 32, 8, 64, None, None, False, LONG_DECODE_SEGMENTS, LONG_LENGTHS,
+     LONG_PADS, 64),
+    ("llama1b_decode8_4096_int8", 32, 8, 64, None, None, True, LONG_DECODE_SEGMENTS,
+     LONG_LENGTHS, LONG_PADS, 64),
+    # one long-context row: 2048 blocks of 16
+    ("llama1b_decode1_32768", 32, 8, 64, None, None, False, [(0, 32767, 1)], [32768], [0], 8),
+    ("llama1b_mixed_7dec4096_pf512", 32, 8, 64, None, None, False, MIXED_LONG_SEGMENTS,
+     MIXED_LONG_LENGTHS, MIXED_LONG_PADS, 568),
+    # the serve shape at Llama-3.1-8B's attention widths
+    ("llama8b_widths_mixed_6dec_2x64pf", 32, 8, 128, None, None, False, SERVE_SEGMENTS,
+     SERVE_LENGTHS, SERVE_PADS, 192),
+    # serve leg A's decode-only tick: its 8 slots, its 288-slot tables
+    ("llama1b_legA_decode8_288", 32, 8, 64, None, None, False, LEG_A_SEGMENTS, LEG_A_LENGTHS,
+     SERVE_PADS, 64),
+]
+RAGGED_MARKERS = {"ragged_paged_attention": "ragged_kernel",
+                  "ragged_paged_attention_combine": "combine_splits_kernel"}
+
+
+def ragged_inputs(torch, quantize_kv, i: int, spec: tuple | None = None):
+    """RAGGED_SPECS[i]'s inputs (or ``spec``'s, seeded by i), made on the
+    card from a seed: (the positional arguments of
+    ``ragged_paged_attention``, its keywords, the [T] live-lane mask)."""
+    name, h, kh, d, cap, win, int8, segments, lengths, pads, width = spec or RAGGED_SPECS[i]
+    g = torch.Generator(device="cuda").manual_seed(300 + i)
+    rows, mb = len(lengths), -(-max(lengths) // SERVE_BLOCK)
+    k, v, tables, scales = make_pool(torch, quantize_kv, g, rows, mb, SERVE_BLOCK, kh, d, int8)
+    meta, live = ragged_layout(torch, segments, width)
+    q = torch.randn((live.numel(), h, d), generator=g, device="cuda").bfloat16()
+    pad_t = torch.tensor(pads, dtype=torch.int32, device="cuda")
+    window = win if win is not None else 1 << 30
+    kw = dict(scale=d ** -0.5, logit_softcap=cap, **scales)
+    return (q, k, v, tables, *meta, pad_t, window), kw, live
+
+
+def ragged_bands(torch, args, live):
+    """Each packed token's engine row, cache slot and band start [T]."""
+    q, _, _, _, tile_row, tile_qpos0, _, pads, window = args
+    lane = torch.arange(q.shape[0], device="cuda")
+    row = tile_row.long()[lane // 8]
+    slot = tile_qpos0.long()[lane // 8] + lane % 8
+    lo = torch.maximum(pads.long()[row], slot - window + 1)
+    return row, slot, lo
+
+
+def ragged_library(torch, F, args, kw, live):
+    """SDPA on each engine row's pre-gathered K/V view, its tokens as the
+    query axis (zero-padded to the longest segment), and the gather by
+    itself: (SDPA's call, the gather's call)."""
+    q, k, v, tables = args[:4]
+    row, slot, lo = ragged_bands(torch, args, live)
+    rows, mb = tables.shape
+    s = mb * k.shape[1]
+    live_rows = row[live]
+    n = torch.bincount(live_rows, minlength=rows)
+    qmax = int(n.max().item())
+    # token j of row r: its position in the packed axis (live tokens keep
+    # their packed order, so a row's are consecutive)
+    idx = torch.nonzero(live).flatten()
+    first = torch.cumsum(n, 0) - n
+    j = torch.arange(idx.numel(), device="cuda") - first[live_rows]
+    qr = torch.zeros((rows, qmax, *q.shape[1:]), dtype=q.dtype, device="cuda")
+    qr[live_rows, j] = q[idx]
+    pos = torch.arange(s, device="cuda")
+    mask = torch.zeros((rows, qmax, s), dtype=torch.bool, device="cuda")
+    mask[live_rows, j] = (pos >= lo[idx, None]) & (pos <= slot[idx, None])
+    views = (gathered(k, tables), gathered(v, tables))
+    sdpa = lambda: sdpa_pregathered(torch, F, qr, views, mask, kw["scale"])  # noqa: E731
+    gather = lambda: (gathered(k, tables), gathered(v, tables))  # noqa: E731
+    return sdpa, gather
+
+
+def ragged_bound(torch, args, live) -> tuple[float, str]:
+    """The ragged case's bound: each row's slots read once (the union of
+    its tokens' bands), q read and out written once, 4*H*D FLOPs per
+    visible (token, slot) pair."""
+    q, k, _, tables, _, _, _, pads, _ = args
+    t, h, d = q.shape
+    rows, mb = tables.shape
+    kh = k.shape[2]
+    row, slot, lo = ragged_bands(torch, args, live)
+    span = torch.where(live, slot - lo + 1, 0)
+    read = 0
+    for r in range(rows):
+        sel = live & (row == r)
+        if bool(sel.any()):
+            read += int((slot[sel].max() - lo[sel].min() + 1).item())
+    int8 = k.dtype == torch.int8
+    per_slot = kh * d * k.element_size() * 2 + (kh * 4 * 2 if int8 else 0)
+    nbytes = 2 * 2 * t * h * d + read * per_slot + 4 * (rows * mb + rows + 3 * (t // 8))
+    return bound(nbytes, 4.0 * h * d * int(span.sum().item()))
+
+
 def ragged_cases(torch, F, da, quantize_kv, sdpa_gqa: bool) -> list[dict]:
+    """The unified tick's kernel on each of RAGGED_SPECS: live lanes held
+    to the plain version, dead lanes exactly zero, events and device time
+    (the kernel and its combine), and SDPA on the rows' pre-gathered views
+    beside each bf16 case without softcap."""
     cases = []
-    specs = [
-        # name, H, K, D, softcap, window, int8 — main path widths first
-        ("llama1b_mixed_6dec_2x64pf", 32, 8, 64, None, None, False),
-        ("llama1b_mixed_6dec_2x64pf_int8", 32, 8, 64, None, None, True),
-        ("gemma2_widths_mixed_softcap50_window128", 8, 4, 256, 50.0, 128, False),
-    ]
-    bs = SERVE_BLOCK
-    lengths, pads = SERVE_LENGTHS, SERVE_PADS
-    # rows 0-5 decode one token each; row 6 runs its second 64-token
-    # prefill chunk, row 7 its first; packed into the engine's 192 bucket
-    segments = [(r, lengths[r] - 1, 1) for r in range(6)]
-    segments += [(6, pads[6] + 64, 64), (7, pads[7], 64)]
-    for name, h, kh, d, cap, win, int8 in specs:
-        g = torch.Generator(device="cuda").manual_seed(300 + len(cases))
-        rows, mb = len(lengths), -(-max(lengths) // bs)
-        k, v, tables, scales = make_pool(torch, quantize_kv, g, rows, mb, bs, kh, d, int8)
-        meta, live = ragged_layout(torch, segments, 192)
-        t = live.numel()
-        q = torch.randn((t, h, d), generator=g, device="cuda").bfloat16()
-        pad_t = torch.tensor(pads, dtype=torch.int32, device="cuda")
-        window = win if win is not None else 1 << 30
-        kw = dict(scale=d ** -0.5, logit_softcap=cap, **scales)
-        args = (q, k, v, tables, *meta, pad_t, window)
-        out = da.ragged_paged_attention(*args, **kw)
+    for i, (name, *_, cap, _, int8, _, _, _, _) in enumerate(RAGGED_SPECS):
+        args, kw, live = ragged_inputs(torch, quantize_kv, i)
+        call = lambda: da.ragged_paged_attention(*args, **kw)  # noqa: E731
+        out = call()
         torch.cuda.synchronize()
         ref = da.ragged_paged_attention_plain(*args, **kw)
         err, ok = attn_err_rows(out[live], ref[live])
         ok = ok and not bool(out[~live].any())
-        ms = time_ms(torch, lambda: da.ragged_paged_attention(*args, **kw), 100)
-        plain_ms = time_ms(torch, lambda: da.ragged_paged_attention_plain(*args, **kw), 10)
-        # every token's visible band [lo, slot] (a dead lane sees nothing)
-        lane = torch.arange(t, device="cuda")
-        tile = lane // 8
-        row = meta[0].long()[tile]
-        slot = meta[1].long()[tile] + lane % 8
-        lo = torch.maximum(pad_t.long()[row], slot - window + 1)
-        span = torch.where(live, slot - lo + 1, 0)
-        lib_ms = gather_ms = None
+        del ref
+        ms = time_ms(torch, call, 100)
+        plain_ms = time_ms(torch, lambda: da.ragged_paged_attention_plain(*args, **kw), 5)
+        torch.cuda.empty_cache()
+        dev = device_ms(torch, call, RAGGED_MARKERS, attempts=1)
+        lib_ms = gather_ms = lib_dev = None
         if not int8 and cap is None and sdpa_gqa:
-            views = (gathered(k, tables)[row], gathered(v, tables)[row])
-            pos = torch.arange(mb * bs, device="cuda")
-            mask = (live[:, None] & (pos >= lo[:, None]) & (pos <= slot[:, None]))[:, None, :]
-            lib_ms = time_ms(torch, lambda: sdpa_pregathered(torch, F, q[:, None], views, mask,
-                                                             kw["scale"]), 100)
-            gather_ms = time_ms(torch, lambda: (gathered(k, tables)[row], gathered(v, tables)[row]),
-                                100)
-        # bytes: each row's slots read once (the union of its tokens' bands)
-        read = 0
-        for r in range(rows):
-            sel = live & (row == r)
-            if bool(sel.any()):
-                read += int((slot[sel].max() - lo[sel].min() + 1).item())
-        per_slot = kh * d * k.element_size() * 2 + (kh * 4 * 2 if int8 else 0)
-        nbytes = 2 * 2 * t * h * d + read * per_slot + 4 * (rows * mb + rows + 3 * (t // 8))
-        bms, by = bound(nbytes, 4.0 * h * d * int(span.sum().item()))
+            sdpa, gather = ragged_library(torch, F, args, kw, live)
+            lib_ms = time_ms(torch, sdpa, 100)
+            lib_dev = device_ms(torch, sdpa, {"all": ""})["all"]
+            gather_ms = time_ms(torch, gather, 100)
+            del sdpa, gather
+        bms, by = ragged_bound(torch, args, live)
+        nsplit = da.ragged_split_plan(args[0], args[1], args[3], args[8])
         cases.append(dict(kernel="ragged_paged_attention", case=name, max_abs_err=err,
                           tol=ATTN_TOL, tol_kind="relative to the head row's largest |plain|",
                           within_tol=ok, ms=ms, plain_ms=plain_ms,
-                          library_ms=lib_ms, library="SDPA, pre-gathered" if lib_ms else None,
-                          gather_ms=gather_ms, bound_ms=bms, bound_by=by))
+                          library_ms=lib_ms, library="SDPA, pre-gathered rows" if lib_ms else None,
+                          library_device_ms=lib_dev, gather_ms=gather_ms, bound_ms=bms,
+                          bound_by=by, nsplit=nsplit, device_ms=sum(dev.values()),
+                          device_ms_by_kernel=dev))
+        del args, kw, out
+        torch.cuda.empty_cache()
+    return cases
+
+
+def ragged_combine_cases(torch, da, quantize_kv) -> list[dict]:
+    """The combine alone on the ragged kernel's own partials (rows: tile x
+    kv head, 8 lanes x G heads), against its plain version, with the
+    dropped-split fault (``combine_case``): the long decode rows (as leg A
+    at long context splits) and the long row at their planned NSPLIT,
+    then the serve shape's mixed tick at NSPLIT 2."""
+    cases = []
+    for i, n in ((3, None), (5, None), (0, 2)):
+        args, kw, _ = ragged_inputs(torch, quantize_kv, i)
+        n = n or da.ragged_split_plan(args[0], args[1], args[3], args[8])
+        acc, m, l = da.ragged_paged_attention_split(*args, nsplit=n, **kw)
+        cases.append(combine_case(torch, da, "ragged_paged_attention_combine",
+                                  f"{RAGGED_SPECS[i][0]}_nsplit{n}", acc, m, l))
+        del args, kw, acc, m, l
+        torch.cuda.empty_cache()
     return cases
 
 
@@ -1087,28 +1222,52 @@ def profile_generate(torch, gen, prompts, card: str, steps: int = 32) -> dict:
 # phase 5: the serve engine
 # ----------------------------------------------------------------------
 
-def serve_engine(params, cfg, dtype, leg: str):
+def serve_engine(params, cfg, dtype, leg: str, prompt: int = SERVE_PROMPTS[1],
+                 new_tokens: int = SERVE_NEW_TOKENS):
     """A ServeEngine in one of SERVE_LEGS, its pool sized by
-    ``pool_geometry`` for the trace's worst request."""
+    ``pool_geometry`` for the trace's worst request (``prompt`` tokens,
+    ``new_tokens`` more)."""
     import torch
 
     from llm_np_cp_tpu_torch.ops.sampling import Sampler
     from llm_np_cp_tpu_torch.serve import ServeEngine, pool_geometry
 
     _, num_blocks, max_seq_len = pool_geometry(
-        SERVE_PROMPTS[1], SERVE_NEW_TOKENS, SERVE_SLOTS, SERVE_BLOCK, SERVE_CHUNK)
+        prompt, new_tokens, SERVE_SLOTS, SERVE_BLOCK, SERVE_CHUNK)
     return ServeEngine(params, cfg, sampler=Sampler("greedy"), max_slots=SERVE_SLOTS,
                        num_blocks=num_blocks, block_size=SERVE_BLOCK, max_seq_len=max_seq_len,
                        prefill_chunk=SERVE_CHUNK, cache_dtype=dtype, device=torch.device("cuda"),
                        **SERVE_LEGS[leg])
 
 
-def serve_trace(np, cfg, n: int, new_tokens: int, seed: int) -> list[dict]:
+def serve_trace(np, cfg, n: int, new_tokens: int, seed: int,
+                prompts: tuple[int, int] = SERVE_PROMPTS) -> list[dict]:
     from llm_np_cp_tpu_torch.serve import poisson_trace
 
     return poisson_trace(np.random.default_rng(seed), n, rate_rps=40.0,
-                         prompt_len_range=SERVE_PROMPTS, max_new_tokens=new_tokens,
+                         prompt_len_range=prompts, max_new_tokens=new_tokens,
                          vocab_size=cfg.vocab_size)
+
+
+class RaggedSplits:
+    """Counts, while entered, the ragged kernel's calls whose split plan
+    (``ragged_split_plan``, which the wrapper asks each call) is > 1:
+    each of them launches the combine after the kernel."""
+
+    def __init__(self, da):
+        self.da, self.plan, self.n = da, da.ragged_split_plan, 0
+
+    def __enter__(self):
+        def spy(*args, **kw):
+            nsplit = self.plan(*args, **kw)
+            self.n += nsplit > 1
+            return nsplit
+
+        self.da.ragged_split_plan = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.da.ragged_split_plan = self.plan
 
 
 def teacher_forced_requests(torch, forward, params, cfg, reqs, tol: float) -> dict:
@@ -1143,6 +1302,50 @@ def first_divergence(torch, forward, params, cfg, prompt, a: list, b: list) -> f
     return (top2[0] - top2[1]).item()
 
 
+def long_context_leg(torch, np, kernels: dict, params, cfg) -> dict:
+    """Leg A (the unified tick) at long context: LONG_SERVE_REQUESTS
+    prompts of LONG_SERVE_PROMPTS tokens, so the ragged kernel's bands
+    are long enough for its plan to split them and launch the combine;
+    launch counts against what the ticks imply, teacher-forced tokens."""
+    from llm_np_cp_tpu_torch.models.transformer import forward
+    from llm_np_cp_tpu_torch.ops.cuda import decode_attention as da
+
+    layers = cfg.num_hidden_layers
+    eng = serve_engine(params, cfg, torch.bfloat16, "A_mixed", LONG_SERVE_PROMPTS[1],
+                       LONG_SERVE_TOKENS)
+    eng.warmup([SERVE_PROMPTS[0]], 2)
+    trace = serve_trace(np, cfg, LONG_SERVE_REQUESTS, LONG_SERVE_TOKENS, seed=3,
+                        prompts=LONG_SERVE_PROMPTS)
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    d0, f0 = eng.n_dispatches, eng.n_host_fetches
+    t0 = time.perf_counter()
+    with RaggedSplits(da) as splits:
+        snap = eng.replay_trace(trace)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(kernels)
+    dispatches, fetches = eng.n_dispatches - d0, eng.n_host_fetches - f0
+    if snap["finished"] != LONG_SERVE_REQUESTS:
+        raise AssertionError(f"long-context leg: {snap['finished']} of {LONG_SERVE_REQUESTS} "
+                             "finished")
+    want = {name: 0 for name in kernels}
+    want.update(ragged_paged_attention=layers * dispatches, sample_epilogue=dispatches,
+                ragged_paged_attention_combine=splits.n)
+    if launches != want or fetches != dispatches:
+        raise AssertionError(f"long-context leg: launch counts {launches} != implied {want}, "
+                             f"{fetches} host fetches for {dispatches} dispatches")
+    tf = teacher_forced_requests(torch, forward, params, cfg, eng.scheduler.finished,
+                                 TEACHER_TOL)
+    return dict(launches=launches, implied=want, requests=LONG_SERVE_REQUESTS,
+                prompt_len=LONG_SERVE_PROMPTS, new_tokens=LONG_SERVE_TOKENS,
+                table_slots=eng.max_blocks_per_seq * SERVE_BLOCK, wall_s=wall,
+                generated_tokens=snap["total_generated_tokens"], ticks=snap["ticks"],
+                dispatches=dispatches, host_fetches=fetches,
+                ttft_s_p50=snap.get("ttft_s_p50"), tpot_s_p50=snap.get("tpot_s_p50"),
+                teacher_forced=tf)
+
+
 def serve_phase(torch, np, kernels: dict, card: str) -> dict:
     """Llama-3.2-1B behind the ServeEngine, both legs on one trace."""
     from llm_np_cp_tpu_torch.config import PRESETS
@@ -1166,8 +1369,9 @@ def serve_phase(torch, np, kernels: dict, card: str) -> dict:
         reset_counts(kernels)
         d0, dd0, f0 = eng.n_dispatches, eng.n_decode_dispatches, eng.n_host_fetches
         t0 = time.perf_counter()
-        snap = eng.replay_trace(trace)
-        torch.cuda.synchronize()
+        with RaggedSplits(da) as splits:
+            snap = eng.replay_trace(trace)
+            torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_counts(kernels)
         dispatches, fetches = eng.n_dispatches - d0, eng.n_host_fetches - f0
@@ -1179,6 +1383,8 @@ def serve_phase(torch, np, kernels: dict, card: str) -> dict:
         want["sample_epilogue"] = steps
         want["ragged_paged_attention" if eng.mixed else "paged_decode_attention"] = layers * steps
         nsplit = None
+        if eng.mixed:
+            want["ragged_paged_attention_combine"] = splits.n
         if not eng.mixed:
             # the paged decode's split plan over the engine's [slots, blocks
             # per sequence] tables: a combine follows each launch when > 1
@@ -1208,6 +1414,7 @@ def serve_phase(torch, np, kernels: dict, card: str) -> dict:
             prof_engine = eng
         else:
             del eng
+    legs["A_long_context"] = long_context_leg(torch, np, kernels, params, cfg)
 
     # torch.profiler over a short leg-A replay (outside the counted runs)
     short = serve_trace(np, cfg, F32_SERVE_REQUESTS, F32_SERVE_TOKENS, seed=2)
@@ -1244,7 +1451,7 @@ def serve_phase(torch, np, kernels: dict, card: str) -> dict:
                identical_across_legs_and_offline=identical, divergence_top2_gaps=gaps,
                tol=F32_TEACHER_TOL, ok=all(g <= F32_TEACHER_TOL for g in gaps))
     for leg in legs.values():
-        leg.pop("tokens")
+        leg.pop("tokens", None)
     return dict(phase="serve", model="meta-llama/Llama-3.2-1B", layers=layers,
                 weights="seeded random bf16", card=card,
                 trace=dict(requests=SERVE_REQUESTS, rate_rps=40.0, prompt_len=SERVE_PROMPTS,
@@ -1269,6 +1476,7 @@ def quant_phase(torch, np, kernels: dict, card: str, main: dict, serve: dict) ->
     from llm_np_cp_tpu_torch.config import PRESETS
     from llm_np_cp_tpu_torch.generate import Generator
     from llm_np_cp_tpu_torch.models.transformer import forward, init_params
+    from llm_np_cp_tpu_torch.ops.cuda import decode_attention as da
     from llm_np_cp_tpu_torch.ops.sampling import Sampler
     from llm_np_cp_tpu_torch.quant import param_bytes, quantize_params
     from llm_np_cp_tpu_torch.utils.quality import quant_quality
@@ -1343,15 +1551,17 @@ def quant_phase(torch, np, kernels: dict, card: str, main: dict, serve: dict) ->
     reset_counts(kernels)
     d0, f0 = eng.n_dispatches, eng.n_host_fetches
     t0 = time.perf_counter()
-    snap = eng.replay_trace(trace)
-    torch.cuda.synchronize()
+    with RaggedSplits(da) as splits:
+        snap = eng.replay_trace(trace)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts(kernels)
     dispatches, fetches = eng.n_dispatches - d0, eng.n_host_fetches - f0
     if snap["finished"] != SERVE_REQUESTS:
         raise AssertionError(f"int8 serve: {snap['finished']} of {SERVE_REQUESTS} finished")
     want = {name: 0 for name in kernels}
-    want.update(ragged_paged_attention=layers * dispatches, sample_epilogue_int8=dispatches)
+    want.update(ragged_paged_attention=layers * dispatches, sample_epilogue_int8=dispatches,
+                ragged_paged_attention_combine=splits.n)
     if launches != want or fetches != dispatches:
         raise AssertionError(f"int8 serve: launch counts {launches} != implied {want}, "
                              f"{fetches} host fetches for {dispatches} dispatches")
@@ -1403,6 +1613,9 @@ KERNEL_META = {
                                        "llm_np_cp_tpu/ops/pallas/decode_attention.py:453"),
     "ragged_paged_attention": ("llm_np_cp_tpu_torch/csrc/ragged_paged_attention.cu",
                                "llm_np_cp_tpu/ops/pallas/decode_attention.py:740"),
+    # the split-KV merge after the ragged kernel: its _finalize across splits
+    "ragged_paged_attention_combine": ("llm_np_cp_tpu_torch/csrc/split_kv.cuh",
+                                       "llm_np_cp_tpu/ops/pallas/decode_attention.py:740"),
     "sample_epilogue_int8": ("llm_np_cp_tpu_torch/csrc/sample_epilogue.cu",
                              "llm_np_cp_tpu/ops/pallas/sample_epilogue.py:215"),
     "softmax": ("llm_np_cp_tpu_torch/csrc/softmax.cu", "llm_np_cp_tpu/ops/pallas/softmax.py:52"),
@@ -1465,6 +1678,7 @@ def main() -> int:
              + paged_cases(torch, F, da, quantize_kv, sdpa_gqa)
              + paged_combine_cases(torch, da, quantize_kv)
              + ragged_cases(torch, F, da, quantize_kv, sdpa_gqa)
+             + ragged_combine_cases(torch, da, quantize_kv)
              + epilogue_cases(torch, se, norms, quantize_array, int8=True)
              + softmax_cases(torch, sm))
     # no model path calls softmax (as in the JAX package): its launches
@@ -1484,6 +1698,7 @@ def main() -> int:
                "paged_decode_attention": (da.paged_decode_attention, "launches"),
                "paged_decode_attention_combine": (da.paged_decode_attention, "combine_launches"),
                "ragged_paged_attention": (da.ragged_paged_attention, "launches"),
+               "ragged_paged_attention_combine": (da.ragged_paged_attention, "combine_launches"),
                "sample_epilogue_int8": (se.sample_epilogue, "launches_int8")}
     mp, gen, prompts = main_path(torch, np, kernels, smi)
     record(mp)
@@ -1509,7 +1724,10 @@ def main() -> int:
                              f"{qt['serve']['teacher_forced']}")
 
     path_launches = dict(mp["launches"])
-    path_launches["ragged_paged_attention"] = sv["legs"]["A_mixed"]["launches"]["ragged_paged_attention"]
+    path_launches["ragged_paged_attention"] = sv["legs"]["A_mixed"]["launches"][
+        "ragged_paged_attention"]
+    path_launches["ragged_paged_attention_combine"] = sv["legs"]["A_long_context"]["launches"][
+        "ragged_paged_attention_combine"]
     for name in ("paged_decode_attention", "paged_decode_attention_combine"):
         path_launches[name] = sv["legs"]["B_split_paged"]["launches"][name]
     path_launches["sample_epilogue_int8"] = sum(
@@ -1520,7 +1738,9 @@ def main() -> int:
     path_launches["softmax"] = softmax_launches
     launches_from = {name: "main path" for name in path_launches}
     launches_from.update(
-        ragged_paged_attention="serve leg A", paged_decode_attention="serve leg B",
+        ragged_paged_attention="serve leg A",
+        ragged_paged_attention_combine="serve leg A at long context (1024-1536-token prompts)",
+        paged_decode_attention="serve leg B",
         paged_decode_attention_combine="serve leg B",
         sample_epilogue_int8="quant phase, the four modes' generate runs",
         softmax="kernel phase (no model path calls softmax, as in the JAX package)")

@@ -84,8 +84,8 @@ decode_kernel(const T* __restrict__ q, const void* __restrict__ k,
   __syncthreads();
 
   SlabSlots src{mrow, (size_t)b * S * K + hd.kh, K};
-  attend<T, INT8, D>(src, qr, hd, b, s_first, s_last, k, v, ks, vs, out, part_acc, part_m,
-                     part_l, K, nsplit, scale, softcap);
+  attend<T, INT8, D>(src, qr, hd, row_dest(b, K, hd), s_first, s_last, k, v, ks, vs, out,
+                     part_acc, part_m, part_l, nsplit, scale, softcap);
 }
 
 // out == nullptr: the partials only (no combine).

@@ -1,14 +1,19 @@
-// Core of the unified tick's block-table attention kernel
-// (ragged_paged_attention.cu).
+// The float32 prefill tiles of the unified tick's block-table attention
+// kernel (ragged_paged_attention.cu), on CUDA cores: float32 products
+// keep the float32 serve path's tokens equal to the offline path's (the
+// bf16 tiles run on the tensor cores there).
 //
-// One thread block attends `nq` consecutive queries x the G query heads
-// of ONE kv head against K/V read straight from the paged pool
-// ([NB, BS, K, D] per layer) through one row of the block table.  Query
-// row r = qi * G + g; query qi sees the logical kv slots [lo[qi], hi[qi]]
-// (inclusive; lo > hi = nothing).  The block walks the logical slots
-// [s_begin, s_end) — the union of what its queries can see, so slots
-// outside every query's band are never read — in tiles of TS slots; each
-// slot s of a tile lives in pool block table[s / BS] at offset s % BS.
+// One thread block attends `nq` consecutive queries x G query heads (a
+// block's share, at most 4, of ONE kv head's) against K/V read straight
+// from the paged pool ([NB, BS, K, D] per layer) through one row of the
+// block table.  Query row r = qi * G + g; query qi sees the logical kv
+// slots [lo[qi], hi[qi]] (inclusive; lo > hi = nothing).  The block walks
+// the logical slots [s_begin, s_end) — its split of the union of what its
+// queries can see, so slots outside every query's band are never read —
+// in tiles of TS slots; each slot s of a tile lives in pool block
+// table[s / BS] at offset s % BS.  It writes the normalised output, or,
+// under split-KV, the split's float32 partials (acc, m, l) for
+// split_kv.cuh's combine.
 //
 // Softmax: the classic online recurrence (running max m, rescale
 // alpha = exp(m_prev - m_new)), not the TPU kernels' AMLA ln2-grid max
@@ -16,8 +21,8 @@
 // differ only in where p = exp(s - m) is rounded to the storage type
 // before the PV product.  Masked slots are re-zeroed after the exp (a
 // query with nothing visible yet has m = NEG_INF and would get p = 1),
-// and a query with nothing visible at all writes zeros — the TPU
-// kernels' _finalize rule.
+// and a query with nothing visible at all writes zeros (or l = 0) — the
+// TPU kernels' _finalize rule.
 //
 // Layout per tile: K/V staged as float32 in shared memory (K rows
 // padded by one float: conflict-free column reads), loads coalesced
@@ -50,15 +55,19 @@ __device__ __forceinline__ bool visible(int s, int qi, const int* lo, const int*
   return s >= lo[qi] && s <= hi[qi];
 }
 
-// q / out: query 0 of this block's kv head (head kh*G), queries `qstride`
-// elements apart, heads D apart.  table: this row's block ids.
+// q / out: query 0 of this block's first head, queries `qstride`
+// elements apart, heads D apart.  table: this row's block ids.  pacc /
+// pm / pl (null: write `out`): the split's partials, row r at (r / G) *
+// gfull + g0 + r % G (a tile's [8, gfull] rows, this block's heads from
+// g0 on).
 template <typename T, bool INT8, int D>
 __device__ void attend(const T* __restrict__ q, T* __restrict__ out, size_t qstride,
                        const void* __restrict__ kp, const void* __restrict__ vp,
                        const float* __restrict__ ks, const float* __restrict__ vs,
                        const int* __restrict__ table, int BS, int K, int kh, int G, int nq,
                        const int* lo, const int* hi, int s_begin, int s_end, float scale,
-                       float softcap) {
+                       float softcap, float* __restrict__ pacc, float* __restrict__ pm,
+                       float* __restrict__ pl, int gfull, int g0) {
   constexpr int TS = Tile<D>::TS;
   constexpr int LD = D + 1;
   const int rows = nq * G;
@@ -159,22 +168,18 @@ __device__ void attend(const T* __restrict__ q, T* __restrict__ out, size_t qstr
     if (o < rows * D) {
       const int r = o / D, d = o % D;
       const float l = sL[r];
-      out[(r / G) * qstride + (r % G) * D + d] = from_f32<T>(acc[u] / (l == 0.f ? 1.f : l));
+      if (pacc == nullptr) {
+        out[(r / G) * qstride + (r % G) * D + d] = from_f32<T>(acc[u] / (l == 0.f ? 1.f : l));
+      } else {
+        const int pr = (r / G) * gfull + g0 + r % G;
+        pacc[(size_t)pr * D + d] = acc[u];
+        if (d == 0) {
+          pm[pr] = sM[r];
+          pl[pr] = l;
+        }
+      }
     }
   }
-}
-
-// Host-side launch of `kernel` over `grid` blocks: checks the output
-// budget, raises the shared-memory cap once, launches, reports the error.
-template <int D, typename Kernel, typename... Args>
-cudaError_t launch(Kernel kernel, size_t* configured, dim3 grid, int rows, cudaStream_t stream,
-                   Args... args) {
-  if (rows * D > kThreads * kMaxOut) return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes<D>(rows);
-  cudaError_t e = ensure_smem(kernel, smem, configured);
-  if (e != cudaSuccess) return e;
-  kernel<<<grid, kThreads, smem, stream>>>(args...);
-  return cudaGetLastError();
 }
 
 }  // namespace paged

@@ -35,38 +35,6 @@ namespace {
 
 using namespace split_decode;
 
-constexpr int kTableCap = 512;  // table entries staged at a time
-
-// The paged slots: row b's table, staged into shared memory kTableCap
-// entries at a time.
-struct PagedSlots {
-  const int* table;               // the row's [MB] block ids
-  int* s_table;                   // [kTableCap] staged entries
-  size_t row0;                    // the kv head kh
-  int BS, shift, K;               // shift = log2(BS), or -1
-  int base;                       // the table index of s_table[0]
-
-  __device__ __forceinline__ int block_of(int s) const { return shift >= 0 ? s >> shift : s / BS; }
-
-  __device__ __forceinline__ int stage(int c0, int hi) {
-    const int b0 = block_of(c0);
-    const int c1 = min(hi, (b0 + kTableCap) * BS);
-    const int nb = block_of(c1 - 1) - b0 + 1;
-    __syncthreads();  // every reader of the previous chunk is done
-    for (int i = threadIdx.x; i < nb; i += kThreads) s_table[i] = table[b0 + i];
-    __syncthreads();
-    base = b0;
-    return c1;
-  }
-
-  __device__ __forceinline__ size_t row(int s) const {
-    const int blk = block_of(s);
-    return ((size_t)s_table[blk - base] * BS + (s - blk * BS)) * K;
-  }
-
-  __device__ __forceinline__ bool visible(int) const { return true; }
-};
-
 template <typename T, bool INT8, int D>
 __global__ void __launch_bounds__(kThreads, 2)
 paged_decode_kernel(const T* __restrict__ q, const void* __restrict__ kp,
@@ -84,8 +52,8 @@ paged_decode_kernel(const T* __restrict__ q, const void* __restrict__ kp,
   const int first = max(pads[b], 0);
   const int last = min(lengths[b], MB * BS) - 1;
   PagedSlots src{tables + (size_t)b * MB, s_table, (size_t)hd.kh, BS, shift, K, 0};
-  attend<T, INT8, D>(src, qr, hd, b, first, last, kp, vp, ks, vs, out, part_acc, part_m,
-                     part_l, K, nsplit, scale, softcap);
+  attend<T, INT8, D>(src, qr, hd, row_dest(b, K, hd), first, last, kp, vp, ks, vs, out,
+                     part_acc, part_m, part_l, nsplit, scale, softcap);
 }
 
 // out == nullptr: the partials only (no combine).

@@ -174,19 +174,35 @@ __device__ __forceinline__ void load_q(const T* __restrict__ q, int b, int H, co
     for (int e = 0; e < kEPL; ++e) qr[g][e] = g < hd.gn ? to_f32(qb[g * D + e]) : 0.f;
 }
 
-// Attend row b's band [first, last] (last < first: nothing visible),
-// this block's split of it.  out != nullptr: NSPLIT == 1, write the
-// normalised output [B, H, D]; else this split's partials at
-// [b*K + kh, split] of part_acc/part_m/part_l.
+// Where a block's results go: the normalised output of head g0 + g at
+// out + (out_row * G + g0 + g) * D, or the split's partials at part =
+// part_row * NSPLIT + split, `prow` rows a part (G; the ragged kernel's
+// tiles 8 * G), this block's at rows g0 + g.
+struct Dest {
+  size_t out_row, part_row;
+  int prow;
+};
+
+// The slab and paged kernels' destination: row b's [G, D] of [B, H, D],
+// its partials at [b*K + kh, split].
+__device__ __forceinline__ Dest row_dest(int b, int K, const Heads& hd) {
+  const size_t r = (size_t)b * K + hd.kh;
+  return Dest{r, r, hd.G};
+}
+
+// Attend the band [first, last] (last < first: nothing visible), this
+// block's split of it.  out != nullptr: NSPLIT == 1, write the normalised
+// output; else this split's partials (``Dest``).
 template <typename T, bool INT8, int D, typename Src>
 __device__ __forceinline__ void attend(Src& src, const float (&qr)[kGC][kEPL], const Heads& hd,
-                                       int b, int first, int last, const void* __restrict__ k,
+                                       const Dest& dst, int first, int last,
+                                       const void* __restrict__ k,
                                        const void* __restrict__ v,
                                        const float* __restrict__ ks,
                                        const float* __restrict__ vs, T* __restrict__ out,
                                        float* __restrict__ part_acc, float* __restrict__ part_m,
-                                       float* __restrict__ part_l, int K, int nsplit,
-                                       float scale, float softcap) {
+                                       float* __restrict__ part_l, int nsplit, float scale,
+                                       float softcap) {
   using E = std::conditional_t<INT8, int8_t, T>;
   constexpr int BS = DecodeTile<D>::BS;
   constexpr int CPR = D / kEPL;         // lanes per slot's head row: 8, 16 or 32
@@ -338,9 +354,7 @@ __device__ __forceinline__ void attend(Src& src, const float (&qr)[kGC][kEPL], c
   }
   __syncthreads();
 
-  const int G = hd.G;
-  const size_t r = (size_t)b * K + hd.kh;
-  const size_t part = r * nsplit + split;
+  const size_t part = dst.part_row * nsplit + split;
   for (int o = tid; o < hd.gn * D; o += kThreads) {
     const int g = o / D, d = o % D;
     float mx = LLM_NEG_INF;
@@ -357,15 +371,48 @@ __device__ __forceinline__ void attend(Src& src, const float (&qr)[kGC][kEPL], c
     }
     const size_t row = (size_t)(hd.g0 + g) * D + d;  // within this (b, kh)'s G x D
     if (out != nullptr) {
-      out[r * G * D + row] = from_f32<T>(den > 0.f ? num / den : 0.f);
+      out[dst.out_row * hd.G * D + row] = from_f32<T>(den > 0.f ? num / den : 0.f);
     } else {
-      part_acc[part * G * D + row] = num;
+      part_acc[part * dst.prow * D + row] = num;
       if (d == 0) {
-        part_m[part * G + hd.g0 + g] = mx;
-        part_l[part * G + hd.g0 + g] = den;
+        part_m[part * dst.prow + hd.g0 + g] = mx;
+        part_l[part * dst.prow + hd.g0 + g] = den;
       }
     }
   }
 }
+
+// The paged pool's slots (paged_decode_attention.cu, and the decode tiles
+// of ragged_paged_attention.cu): one row's block table, staged into
+// shared memory kTableCap entries at a time.
+constexpr int kTableCap = 512;  // table entries staged at a time
+
+struct PagedSlots {
+  const int* table;               // the row's [MB] block ids
+  int* s_table;                   // [kTableCap] staged entries
+  size_t row0;                    // the kv head kh
+  int BS, shift, K;               // shift = log2(BS), or -1
+  int base;                       // the table index of s_table[0]
+
+  __device__ __forceinline__ int block_of(int s) const { return shift >= 0 ? s >> shift : s / BS; }
+
+  __device__ __forceinline__ int stage(int c0, int hi) {
+    const int b0 = block_of(c0);
+    const int c1 = min(hi, (b0 + kTableCap) * BS);
+    const int nb = block_of(c1 - 1) - b0 + 1;
+    __syncthreads();  // every reader of the previous chunk is done
+    for (int i = threadIdx.x; i < nb; i += kThreads) s_table[i] = table[b0 + i];
+    __syncthreads();
+    base = b0;
+    return c1;
+  }
+
+  __device__ __forceinline__ size_t row(int s) const {
+    const int blk = block_of(s);
+    return ((size_t)s_table[blk - base] * BS + (s - blk * BS)) * K;
+  }
+
+  __device__ __forceinline__ bool visible(int) const { return true; }
+};
 
 }  // namespace split_decode

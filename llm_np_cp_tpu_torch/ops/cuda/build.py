@@ -132,9 +132,10 @@ SIGNATURES: dict[str, tuple] = {
     # kernels launched (out)
     "paged_decode_attention_launch": (_P,) * 12 + (_I,) * 7 + (_F, _F, _I, _I, _P, _P),
     # q, k_pages, v_pages, k_scale, v_scale, tables, tile_row, tile_qpos0,
-    # tile_qlen, pads, out, NT, MB, BS, H, K, D, window, scale, softcap,
-    # dtype code, int8 pages flag, stream
-    "ragged_paged_attention_launch": (_P,) * 11 + (_I,) * 7 + (_F, _F, _I, _I, _P),
+    # tile_qlen, pads, out (null: partials only), part_acc, part_m, part_l,
+    # NT, MB, BS, H, K, D, window, nsplit, scale, softcap, dtype code, int8
+    # pages flag, stream, int* the kernels launched (out)
+    "ragged_paged_attention_launch": (_P,) * 14 + (_I,) * 8 + (_F, _F, _I, _I, _P, _P),
     # x, gamma, w, w_scale (null for float heads), part_val, part_idx, out,
     # N, H, V, tied, eps, unit_offset, softcap, dtype code, stream
     "sample_epilogue_launch": (_P,) * 7 + (_I, _I, _I, _I, _F, _I, _F, _I, _P),

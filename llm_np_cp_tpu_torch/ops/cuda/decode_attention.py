@@ -22,7 +22,11 @@ each with its plain PyTorch version beside it:
   the split kernel alone.
 - ``ragged_paged_attention`` (``csrc/ragged_paged_attention.cu``): the
   unified tick's mixed prefill + decode batch, packed in
-  ``RAGGED_Q_TILE``-token query tiles, off the paged pool.
+  ``RAGGED_Q_TILE``-token query tiles, off the paged pool.  Split-KV over
+  each tile's band (``ragged_split_plan``, from the shapes alone); decode
+  tiles run the split decode kernels' kv loop, bf16 prefill tiles the
+  tensor cores; ``ragged_paged_attention_split`` launches the kernel
+  alone.
 
 A query with nothing visible yields zeros in all three.  The kernels use
 the classic online softmax where the TPU kernels keep an AMLA ln2-grid
@@ -62,10 +66,6 @@ def _check_int8(k, v, k_scale, v_scale) -> bool:
 # row's segment starts on a multiple of it, so every tile has one owner
 RAGGED_Q_TILE = 8
 
-# the ragged kernel holds nq*G*D outputs of a block in 256 threads x 32
-_RAGGED_MAX_OUT = 8192
-
-
 def _tile(d: int) -> int:
     """Slots per kv tile of the split decode kernels (``DecodeTile`` in
     ``csrc/split_decode.cuh``)."""
@@ -76,16 +76,19 @@ def _tile(d: int) -> int:
 _HEADS_PER_BLOCK = 4
 
 
-def split_plan(b: int, kh: int, s: int, d: int, sm_count: int, g: int = _HEADS_PER_BLOCK) -> int:
+def split_plan(b: int, kh: int, s: int, d: int, sm_count: int, g: int = _HEADS_PER_BLOCK,
+               min_tiles: int = 2) -> int:
     """NSPLIT of a split decode kernel's (kh * ceil(g/4), b, NSPLIT) grid
-    (slab, or paged over the table width) for ``g`` query heads per kv
-    head and ``s`` slots: as many blocks as fit on the card at
+    (slab, or paged over the table width; the ragged kernel's b is its q
+    tiles) for ``g`` query heads per kv head and ``s`` slots: as many
+    blocks as fit on the card at
     once, two per SM — a block more would wait for a second wave — with
-    at least two kv tiles per split; never more splits than tiles, never
-    fewer than 1.  It reads shapes only, so it costs no host sync."""
+    at least ``min_tiles`` kv tiles per split; never more splits than
+    tiles, never fewer than 1.  It reads shapes only, so it costs no host
+    sync."""
     tiles = -(-s // _tile(d))
     rows = max(b * kh * -(-g // _HEADS_PER_BLOCK), 1)
-    return max(1, min(2 * sm_count // rows, tiles // 2))
+    return max(1, min(2 * sm_count // rows, tiles // min_tiles))
 
 
 _SM_COUNT: dict[int, int] = {}
@@ -163,10 +166,16 @@ def decode_attention_split_plain(
     score (NEG_INF where it sees nothing), ``l`` its sum of unrounded p,
     ``acc`` the sum of p rounded to the value dtype times V; a split with
     nothing visible gives l = 0 and acc = 0."""
+    bounds = _split_bounds(mask, nsplit, _tile(q.shape[-1]))
+    return _split_partials(q, k, v, mask, bounds, k_scale, v_scale, scale, logit_softcap)
+
+
+def _split_partials(q, k, v, mask, bounds, k_scale, v_scale, scale, logit_softcap):
+    """The partials of ``decode_attention_split_plain`` with split i of row
+    b over the kv tiles ``[bounds[b, i], bounds[b, i + 1])``."""
     d = q.shape[-1]
     k, v = _dequant(q, k, v, k_scale, v_scale)
     s = _scores(q, k, scale, logit_softcap)
-    bounds = _split_bounds(mask, nsplit, _tile(d))
     tile = torch.arange(k.shape[1], device=q.device) // _tile(d)
     part = (tile >= bounds[:, :-1, None]) & (tile < bounds[:, 1:, None])  # [B, N, S]
     vis = (mask[:, None, :] & part)[:, None, :, None, :]  # [B, 1, N, 1, S]
@@ -183,12 +192,13 @@ def combine_splits_plain(
     """Plain version of the combine (``csrc/split_kv.cuh``): acc [..., N,
     G, D], m / l [..., N, G] float32 → [..., G, D] in ``dtype``.  With
     M the max m over the splits with l > 0 and w = exp(m - M) there (0
-    elsewhere): sum w*acc / sum w*l, zeros where that sum is 0."""
+    elsewhere): sum w*acc / sum w*l, zeros where that sum is 0.  A split
+    with l = 0 never enters (its acc may be unwritten scratch)."""
     live = l > 0.0
     mx = torch.where(live, m, NEG_INF).amax(dim=-2, keepdim=True)
     w = torch.where(live, torch.exp(m - mx), 0.0)
     den = (w * l).sum(dim=-2)[..., None]
-    num = (w[..., None] * acc).sum(dim=-3)
+    num = torch.where(live[..., None], w[..., None] * acc, 0.0).sum(dim=-3)
     return torch.where(den > 0.0, num / torch.where(den > 0.0, den, 1.0), 0.0).to(dtype)
 
 
@@ -209,19 +219,22 @@ def _check_decode(name: str, q, k, v, mask, k_scale, v_scale) -> bool:
 
 
 def _check_aligned(name: str, **tensors: torch.Tensor) -> None:
-    """The split kernel copies K/V in 16-byte vectors (``cp.async``)."""
+    """The split kernels copy K/V (and the ragged kernel's prefill tiles
+    q) in 16-byte vectors (``cp.async``)."""
     for arg, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} must be 16-byte aligned (the kernel loads 16-byte "
                              "vectors)")
 
 
-def _partials(q: torch.Tensor, b: int, kh: int, nsplit: int, g: int, d: int):
+def _partials(q: torch.Tensor, b: int, kh: int, nsplit: int, g: int, d: int,
+              zeroed: bool = False):
     """One float32 scratch buffer for the split kernel's partials, acc [B,
     K, N, G, D] then m and l [B, K, N, G]: (the buffer, their three
-    pointers)."""
+    pointers).  ``zeroed``: for a kernel that leaves some acc unwritten."""
     n = b * kh * nsplit * g
-    buf = torch.empty(n * (d + 2), dtype=torch.float32, device=q.device)
+    buf = (torch.zeros if zeroed else torch.empty)(n * (d + 2), dtype=torch.float32,
+                                                   device=q.device)
     base = buf.data_ptr()
     return buf, (base, base + 4 * n * d, base + 4 * n * (d + 1))
 
@@ -581,6 +594,29 @@ def paged_decode_attention_split(
 paged_decode_attention_split.launches = 0
 
 
+def _ragged_views(q, k_pages, v_pages, tables, tile_row, tile_qpos0, tile_qlen, pads, window,
+                  k_scale, v_scale):
+    """Every packed token's row view and its mask ``live ∧ kv >= pad ∧ kv >
+    slot - window ∧ kv <= slot``: (q [T, 1, H, D], k, v [T, S, K, D], mask
+    [T, S], scale kwargs) for the slab's plain versions."""
+    lane = torch.arange(q.shape[0], device=q.device)
+    tile = lane // RAGGED_Q_TILE
+    lane = lane % RAGGED_Q_TILE
+    row = tile_row.long()[tile]
+    slot = tile_qpos0.long()[tile] + lane
+    live = lane < tile_qlen.long()[tile]
+    lower = torch.maximum(slot - int(window) + 1, pads.long()[row])
+    s = tables.shape[1] * k_pages.shape[1]
+    pos = torch.arange(s, device=q.device)[None, :]
+    mask = live[:, None] & (pos >= lower[:, None]) & (pos <= slot[:, None])
+    scales = {}
+    if k_scale is not None:
+        scales = dict(k_scale=_gather_rows(k_scale, tables)[row],
+                      v_scale=_gather_rows(v_scale, tables)[row])
+    return (q[:, None], _gather_rows(k_pages, tables)[row], _gather_rows(v_pages, tables)[row],
+            mask, scales)
+
+
 def ragged_paged_attention_plain(
     q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
     tables: torch.Tensor, tile_row: torch.Tensor, tile_qpos0: torch.Tensor,
@@ -592,26 +628,143 @@ def ragged_paged_attention_plain(
     gathered view through ``decode_attention_plain`` with the kernel's
     per-token mask ``live ∧ kv >= pad ∧ kv > slot - window ∧ kv <= slot``
     (dead lanes and dead tiles give zeros)."""
-    t = q.shape[0]
-    lane = torch.arange(t, device=q.device)
-    tile = lane // RAGGED_Q_TILE
-    lane = lane % RAGGED_Q_TILE
-    row = tile_row.long()[tile]
-    slot = tile_qpos0.long()[tile] + lane
-    live = lane < tile_qlen.long()[tile]
-    s = tables.shape[1] * k_pages.shape[1]
-    pos = torch.arange(s, device=q.device)[None, :]
-    lower = torch.maximum(slot - int(window) + 1, pads.long()[row])
-    mask = live[:, None] & (pos >= lower[:, None]) & (pos <= slot[:, None])
-    scales = {}
-    if k_scale is not None:
-        scales = dict(k_scale=_gather_rows(k_scale, tables)[row],
-                      v_scale=_gather_rows(v_scale, tables)[row])
-    out = decode_attention_plain(
-        q[:, None], _gather_rows(k_pages, tables)[row], _gather_rows(v_pages, tables)[row], mask,
-        scale=scale, logit_softcap=logit_softcap, **scales,
-    )
+    qt, k, v, mask, scales = _ragged_views(q, k_pages, v_pages, tables, tile_row, tile_qpos0,
+                                           tile_qlen, pads, window, k_scale, v_scale)
+    out = decode_attention_plain(qt, k, v, mask, scale=scale, logit_softcap=logit_softcap,
+                                 **scales)
     return out[:, 0]
+
+
+def _ragged_split_bounds(tile_row, tile_qpos0, tile_qlen, pads, window, s, nsplit, bs):
+    """[NT, nsplit + 1] kv-tile boundaries of each q tile's splits: the
+    tile's band ``[max(pad, qpos0 - window + 1, 0), min(qpos0 + qlen, s) -
+    1]`` cut as ``_split_bounds`` cuts a row's (a dead tile has none)."""
+    qpos0, qlen = tile_qpos0.long(), tile_qlen.long()
+    first = torch.clamp(torch.maximum(pads.long()[tile_row.long()], qpos0 - int(window) + 1),
+                        min=0)
+    last = torch.clamp(qpos0 + qlen, max=s) - 1
+    some = (qlen > 0) & (last >= first)
+    t0 = torch.where(some, first // bs, 0)
+    n = torch.where(some, last // bs - t0 + 1, 0)
+    i = torch.arange(nsplit + 1, device=tile_row.device)
+    return t0[:, None] + (i[None, :] * n[:, None]) // nsplit
+
+
+def ragged_paged_attention_split_plain(
+    q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+    tables: torch.Tensor, tile_row: torch.Tensor, tile_qpos0: torch.Tensor,
+    tile_qlen: torch.Tensor, pads: torch.Tensor, window: int, *, nsplit: int,
+    k_scale: torch.Tensor | None = None, v_scale: torch.Tensor | None = None,
+    scale: float, logit_softcap: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the ragged kernel's split-KV partials: split i of
+    a q tile attends kv tiles ``[bounds[i], bounds[i + 1])`` of the tile's
+    band (``_ragged_split_bounds``) → (acc [NT, K, nsplit, 8*G, D], m / l
+    [NT, K, nsplit, 8*G]), rows (lane, head), as
+    ``decode_attention_split_plain`` defines them.  ``combine_splits_plain``
+    of them is [NT, K, 8*G, D]; ``ragged_from_rows`` packs that as the
+    output."""
+    t, h, d = q.shape
+    nt, kh = t // RAGGED_Q_TILE, k_pages.shape[2]
+    qt, k, v, mask, scales = _ragged_views(q, k_pages, v_pages, tables, tile_row, tile_qpos0,
+                                           tile_qlen, pads, window, k_scale, v_scale)
+    bounds = _ragged_split_bounds(tile_row, tile_qpos0, tile_qlen, pads, window, mask.shape[1],
+                                  nsplit, _tile(d))
+    acc, m, l = _split_partials(qt, k, v, mask, bounds.repeat_interleave(RAGGED_Q_TILE, 0),
+                                scales.get("k_scale"), scales.get("v_scale"), scale,
+                                logit_softcap)
+    # [T, K, N, G, ...] per token → [NT, K, N, 8*G, ...] per tile
+    g = h // kh
+
+    def rows(x):
+        x = x.reshape(nt, RAGGED_Q_TILE, kh, nsplit, g, *x.shape[4:])
+        return x.transpose(1, 2).transpose(2, 3).reshape(nt, kh, nsplit, RAGGED_Q_TILE * g,
+                                                         *x.shape[5:])
+
+    return rows(acc), rows(m), rows(l)
+
+
+def ragged_from_rows(x: torch.Tensor) -> torch.Tensor:
+    """The ragged kernel's per-tile rows [NT, K, 8*G, D] packed as its
+    output [NT*8, K*G, D]."""
+    nt, kh, rows, d = x.shape
+    g = rows // RAGGED_Q_TILE
+    return x.reshape(nt, kh, RAGGED_Q_TILE, g, d).transpose(1, 2).reshape(
+        nt * RAGGED_Q_TILE, kh * g, d)
+
+
+# kv tiles a split of the ragged kernel takes at least: below that the
+# combine's ~5 us costs more than the split saves (PERF.md §6)
+RAGGED_MIN_TILES = 4
+
+
+def ragged_split_plan(q: torch.Tensor, k_pages: torch.Tensor, tables: torch.Tensor,
+                      window: int) -> int:
+    """NSPLIT of the ragged kernel on q's card: ``split_plan`` for the
+    packed width's q tiles over the longest band a tile can have, the
+    table width MB*BS or the window and the tile's tokens, with at least
+    ``RAGGED_MIN_TILES`` kv tiles a split (the lengths live on the card).  A tick of many prefill tiles fills the
+    card without a split; raising NSPLIT for its long decode rows only
+    added partials and the combine (PERF.md §6)."""
+    t, h, d = q.shape
+    kh = k_pages.shape[2]
+    s = min(tables.shape[1] * k_pages.shape[1], int(window) + RAGGED_Q_TILE - 1)
+    return split_plan(t // RAGGED_Q_TILE, kh, s, d, sm_count(q.device), h // kh,
+                      RAGGED_MIN_TILES)
+
+
+def _check_ragged(name: str, q, k_pages, v_pages, tables, tile_row, tile_qpos0, tile_qlen, pads,
+                  k_scale, v_scale) -> bool:
+    """Shape checks of the ragged wrappers; returns whether the pool is int8."""
+    t, h, d = q.shape
+    if t % RAGGED_Q_TILE:
+        raise ValueError(
+            f"packed token axis ({t}) must be a multiple of RAGGED_Q_TILE ({RAGGED_Q_TILE})")
+    nt = t // RAGGED_Q_TILE
+    for arg, meta in (("tile_row", tile_row), ("tile_qpos0", tile_qpos0), ("tile_qlen", tile_qlen)):
+        if meta.shape != (nt,):
+            raise ValueError(
+                f"tile metadata must have T/RAGGED_Q_TILE = {nt} entries, {arg} has "
+                f"{tuple(meta.shape)}")
+    quantized = _check_pages(name, h, d, k_pages, v_pages, k_scale, v_scale)
+    if tables.ndim != 2 or pads.shape != (tables.shape[0],):
+        raise ValueError(f"{name}: tables {tuple(tables.shape)} vs pads {tuple(pads.shape)}")
+    return quantized
+
+
+def _launch_ragged(name: str, q, k_pages, v_pages, tables, tile_row, tile_qpos0, tile_qlen,
+                   pads, window, k_scale, v_scale, scale, logit_softcap, nsplit: int, out):
+    """The kernel-side checks, then ``ragged_paged_attention_launch``: with
+    ``out`` the output (the kernel, then the combine when nsplit > 1),
+    without it the partials alone.  Returns (the kernels the C entry
+    reports it launched, the partials (acc, m, l) or None with ``out``)."""
+    quantized = k_scale is not None
+    code = _check_launch(name, q, k_pages, v_pages, quantized, k_scale, v_scale, tables=tables,
+                         tile_row=tile_row, tile_qpos0=tile_qpos0, tile_qlen=tile_qlen,
+                         pads=pads)
+    # the bf16 prefill tiles copy q rows by 16-byte cp.async too
+    _check_aligned(name, q=q, k_pages=k_pages, v_pages=v_pages)
+    t, h, d = q.shape
+    _, bs, kh, _ = k_pages.shape
+    nt, rows = t // RAGGED_Q_TILE, RAGGED_Q_TILE * (h // kh)
+    buf, ptrs = None, (None, None, None)
+    if out is None or nsplit > 1:
+        # the partials alone leave a dead lane's acc zero (unwritten), as
+        # combine_splits reads it
+        buf, ptrs = _partials(q, nt, kh, nsplit, rows, d, zeroed=out is None)
+    launched = ctypes.c_int(0)
+    err = library().ragged_paged_attention_launch(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        k_scale.data_ptr() if quantized else None,
+        v_scale.data_ptr() if quantized else None,
+        tables.data_ptr(), tile_row.data_ptr(), tile_qpos0.data_ptr(), tile_qlen.data_ptr(),
+        pads.data_ptr(), out.data_ptr() if out is not None else None, *ptrs,
+        nt, tables.shape[1], bs, h, kh, d, window, nsplit, float(scale),
+        float(logit_softcap or 0.0), code, int(quantized), _common.stream_ptr(q),
+        ctypes.addressof(launched),
+    )
+    check(err, name)
+    return launched.value, _partial_views(buf, nt, kh, nsplit, rows, d) if out is None else None
 
 
 def ragged_paged_attention(
@@ -636,23 +789,14 @@ def ragged_paged_attention(
     ``paged_decode_attention``.
 
     CPU tensors run ``ragged_paged_attention_plain``; CUDA tensors launch
-    the kernel or raise.
+    the kernel over ``ragged_split_plan``'s NSPLIT ranges of each tile's
+    band and, when NSPLIT > 1, the combine, or raise.  ``launches`` counts
+    the kernel's launches and ``combine_launches`` the combine's, as the C
+    entry reports them.
     """
-    t, h, d = q.shape
-    if t % RAGGED_Q_TILE:
-        raise ValueError(
-            f"packed token axis ({t}) must be a multiple of RAGGED_Q_TILE ({RAGGED_Q_TILE})")
-    nt = t // RAGGED_Q_TILE
-    for name, meta in (("tile_row", tile_row), ("tile_qpos0", tile_qpos0), ("tile_qlen", tile_qlen)):
-        if meta.shape != (nt,):
-            raise ValueError(
-                f"tile metadata must have T/RAGGED_Q_TILE = {nt} entries, {name} has "
-                f"{tuple(meta.shape)}")
-    quantized = _check_pages("ragged_paged_attention", h, d, k_pages, v_pages, k_scale, v_scale)
-    nb, bs, kh, _ = k_pages.shape
-    if tables.ndim != 2 or pads.shape != (tables.shape[0],):
-        raise ValueError(f"ragged_paged_attention: tables {tuple(tables.shape)} vs pads "
-                         f"{tuple(pads.shape)}")
+    name = "ragged_paged_attention"
+    quantized = _check_ragged(name, q, k_pages, v_pages, tables, tile_row, tile_qpos0, tile_qlen,
+                              pads, k_scale, v_scale)
     window = min(int(window), 2**31 - 1)
     scales = (k_scale, v_scale) if quantized else ()
     if _common.on_cpu(q, k_pages, v_pages, tables, tile_row, tile_qpos0, tile_qlen, pads, *scales):
@@ -660,25 +804,48 @@ def ragged_paged_attention(
             q, k_pages, v_pages, tables, tile_row, tile_qpos0, tile_qlen, pads, window,
             k_scale=k_scale, v_scale=v_scale, scale=scale, logit_softcap=logit_softcap,
         )
-    rows = RAGGED_Q_TILE * (h // kh)
-    if rows * d > _RAGGED_MAX_OUT:
-        raise ValueError(f"ragged_paged_attention: {rows} query rows x head_dim {d} > "
-                         f"{_RAGGED_MAX_OUT}")
-    code = _check_launch("ragged_paged_attention", q, k_pages, v_pages, quantized, k_scale,
-                         v_scale, tables=tables, tile_row=tile_row, tile_qpos0=tile_qpos0,
-                         tile_qlen=tile_qlen, pads=pads)
     out = torch.empty_like(q)
-    err = library().ragged_paged_attention_launch(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        k_scale.data_ptr() if quantized else None,
-        v_scale.data_ptr() if quantized else None,
-        tables.data_ptr(), tile_row.data_ptr(), tile_qpos0.data_ptr(), tile_qlen.data_ptr(),
-        pads.data_ptr(), out.data_ptr(), nt, tables.shape[1], bs, h, kh, d, window,
-        float(scale), float(logit_softcap or 0.0), code, int(quantized), _common.stream_ptr(q),
-    )
-    check(err, "ragged_paged_attention")
-    ragged_paged_attention.launches += 1
+    launched, _ = _launch_ragged(name, q, k_pages, v_pages, tables, tile_row, tile_qpos0,
+                                 tile_qlen, pads, window, k_scale, v_scale, scale, logit_softcap,
+                                 ragged_split_plan(q, k_pages, tables, window), out)
+    ragged_paged_attention.launches += int(launched >= 1)
+    ragged_paged_attention.combine_launches += int(launched >= 2)
     return out
 
 
 ragged_paged_attention.launches = 0
+ragged_paged_attention.combine_launches = 0
+
+
+def ragged_paged_attention_split(
+    q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+    tables: torch.Tensor, tile_row: torch.Tensor, tile_qpos0: torch.Tensor,
+    tile_qlen: torch.Tensor, pads: torch.Tensor, window: int, *, nsplit: int,
+    k_scale: torch.Tensor | None = None, v_scale: torch.Tensor | None = None,
+    scale: float, logit_softcap: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The ragged kernel alone, over ``nsplit`` ranges of each tile's band:
+    its float32 partials (acc, m, l) as ``ragged_paged_attention_split_plain``
+    returns them.  For the card tests and ``chip_smoke.py``; CPU tensors
+    run the plain version."""
+    name = "ragged_paged_attention_split"
+    if nsplit < 1:
+        raise ValueError(f"{name}: nsplit must be >= 1, got {nsplit}")
+    quantized = _check_ragged(name, q, k_pages, v_pages, tables, tile_row, tile_qpos0, tile_qlen,
+                              pads, k_scale, v_scale)
+    window = min(int(window), 2**31 - 1)
+    scales = (k_scale, v_scale) if quantized else ()
+    if _common.on_cpu(q, k_pages, v_pages, tables, tile_row, tile_qpos0, tile_qlen, pads, *scales):
+        return ragged_paged_attention_split_plain(
+            q, k_pages, v_pages, tables, tile_row, tile_qpos0, tile_qlen, pads, window,
+            nsplit=nsplit, k_scale=k_scale, v_scale=v_scale, scale=scale,
+            logit_softcap=logit_softcap,
+        )
+    launched, parts = _launch_ragged(name, q, k_pages, v_pages, tables, tile_row, tile_qpos0,
+                                     tile_qlen, pads, window, k_scale, v_scale, scale,
+                                     logit_softcap, nsplit, None)
+    ragged_paged_attention_split.launches += launched
+    return parts
+
+
+ragged_paged_attention_split.launches = 0

@@ -1,8 +1,9 @@
 """Softmax over the last axis (port of ``llm_np_cp_tpu/ops/pallas/softmax.py``).
 
-The kernel is ``csrc/softmax.cu``; ``softmax_plain`` is the same function
-in plain PyTorch.  As in the JAX package, no model path calls it: the
-kernel is held against its plain version and timed on its own.
+The kernel is ``csrc/softmax.cu``: short rows a few to a warp, long rows
+split over a thread-block cluster of up to 8 blocks, every row read from
+memory once.  ``softmax_plain`` is the same function in plain PyTorch.  As in the JAX package, no model path calls it: the kernel
+is held against its plain version and timed on its own.
 """
 
 from __future__ import annotations

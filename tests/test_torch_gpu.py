@@ -276,23 +276,62 @@ def test_sample_epilogue_exact_tie_untied(cuda, dtype, vocab):
     assert got.tolist() == [20, 20]
 
 
+def _assert_softmax_close(out, ref, dtype):
+    """Within 1e-6 in float32, within two bf16 ulps of the output's own
+    magnitude in bf16; NaN exactly where the plain version has NaN."""
+    nan = torch.isnan(ref.float())
+    assert torch.equal(torch.isnan(out.float()), nan)
+    diff = (out.float() - ref.float()).abs()[~nan]
+    bound = 1e-6 if dtype == torch.float32 else 2.0 ** -6 * ref.float().abs()[~nan] + 1e-30
+    assert bool((diff <= bound).all()), f"max error {diff.max().item()}"
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(8, 128256), (3, 5, 257), (512, 128), (2, 1), (5, 1025),
-                                   (1, 3000), (16, 1024)])
+                                   (1, 3000), (16, 1024), (16384, 128), (4, 2047), (3, 70001)])
 def test_softmax_kernel(cuda, dtype, shape):
-    """Warp-per-row (short axes) and block-per-row (long axes) against
-    the float32 plain version: within 1e-6 in float32, within two bf16
-    ulps of the output's own magnitude in bf16."""
+    """Rows a few to a warp (short axes) and rows split over a cluster of
+    blocks (long axes; odd widths take scalar loads) against the float32
+    plain version."""
     g = torch.Generator(device="cuda").manual_seed(shape[-1])
     x = _randn(shape, g, dtype, 4.0)
     before = sm.softmax.launches
     out = sm.softmax(x)
     torch.cuda.synchronize()
     assert sm.softmax.launches == before + 1 and out.dtype == dtype and out.shape == x.shape
-    ref = sm.softmax_plain(x)
-    diff = (out.float() - ref.float()).abs()
-    bound = 1e-6 if dtype == torch.float32 else 2.0 ** -6 * ref.float().abs() + 1e-30
-    assert bool((diff <= bound).all()), f"max error {diff.max().item()}"
+    _assert_softmax_close(out, sm.softmax_plain(x), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 128256), (40, 128256), (66, 128256), (132, 128256),
+                                   (1, 2 ** 21)])
+def test_softmax_kernel_cluster_sizes(cuda, dtype, shape):
+    """Vocab rows over clusters of 8, 4, 2 and 1 blocks (the launcher
+    takes as many blocks a row as fill the 132 SMs, at most 8), and one
+    row of 2M elements, longer than a cluster holds in registers (the
+    two-read stream inside the same kernel)."""
+    x = _randn(shape, torch.Generator(device="cuda").manual_seed(shape[0]), dtype, 4.0)
+    out = sm.softmax(x)
+    torch.cuda.synchronize()
+    _assert_softmax_close(out, sm.softmax_plain(x), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [128, 1000, 128256])
+def test_softmax_kernel_inf_entries(cuda, dtype, n):
+    """-inf entries give 0, a row all -inf gives NaN (as the plain
+    version), a row -inf but for one entry gives a one-hot row; short
+    rows and cluster rows."""
+    g = torch.Generator(device="cuda").manual_seed(n)
+    x = _randn((4, n), g, dtype, 4.0)
+    x[0, ::3] = -float("inf")
+    x[1] = -float("inf")
+    x[2] = -float("inf")
+    x[2, n // 2] = 1.0
+    out = sm.softmax(x)
+    torch.cuda.synchronize()
+    _assert_softmax_close(out, sm.softmax_plain(x), dtype)
+    assert bool(torch.isnan(out[1].float()).all()) and out[2, n // 2].item() == 1.0
 
 
 def test_softmax_large_values(cuda):
@@ -470,19 +509,10 @@ def test_paged_decode_split_kernel_partials(cuda, int8, nsplit):
     assert not got[2][1].any() and not got[0][1].any()
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("int8", [False, True])
-@pytest.mark.parametrize("h,kh,d,bs,softcap,window", [(32, 8, 64, 16, None, 1 << 30),
-                                                      (8, 4, 256, 16, 50.0, 40),
-                                                      (12, 2, 128, 8, None, 1 << 30)])
-def test_ragged_paged_attention_kernel(cuda, dtype, int8, h, kh, d, bs, softcap, window):
-    g = torch.Generator(device="cuda").manual_seed(h * d + bs)
-    rows, mb = 4, 10
-    k, v, scales = _pool(g, rows * mb + 1, bs, kh, d, dtype, int8)
-    tables = _tables(g, rows, mb, rows * mb + 1)
-    pads = torch.tensor([3, 2 * bs + 1, 0, 7], dtype=torch.int32, device="cuda")
-    # (row, first slot, tokens): decode, long prefill slice, prefill, decode
-    segments = [(0, 70, 1), (1, 2 * bs + 1 + 9, 37), (2, 0, 16), (3, 7 + 50, 1)]
+def _ragged_meta(segments, dead_tiles=1):
+    """Pack (row, first slot, tokens) segments as the engine does, with
+    ``dead_tiles`` trailing dead tiles: (tile_row, qpos0, qlen) int32 on
+    the card and the [T] live-lane mask."""
     qt = da.RAGGED_Q_TILE
     tile_row, qpos0, qlen, live = [], [], [], []
     for row, slot0, n in segments:
@@ -490,18 +520,106 @@ def test_ragged_paged_attention_kernel(cuda, dtype, int8, h, kh, d, bs, softcap,
             m = min(qt, n - t * qt)
             tile_row.append(row), qpos0.append(slot0 + t * qt), qlen.append(m)
             live += [True] * m + [False] * (qt - m)
-    tile_row.append(0), qpos0.append(0), qlen.append(0)  # a dead tile
-    live += [False] * qt
+    for _ in range(dead_tiles):
+        tile_row.append(0), qpos0.append(0), qlen.append(0)
+        live += [False] * qt
     meta = [torch.tensor(a, dtype=torch.int32, device="cuda") for a in (tile_row, qpos0, qlen)]
-    live = torch.tensor(live, device="cuda")
+    return meta, torch.tensor(live, device="cuda")
+
+
+def _ragged_inputs(seed, dtype, int8, h, kh, d, bs, rows, mb, pads, segments):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    k, v, scales = _pool(g, rows * mb + 1, bs, kh, d, dtype, int8)
+    tables = _tables(g, rows, mb, rows * mb + 1)
+    meta, live = _ragged_meta(segments)
     q = _randn((live.numel(), h, d), g, dtype, 2)
+    pads = torch.tensor(pads, dtype=torch.int32, device="cuda")
+    return (q, k, v, tables, *meta, pads), scales, live
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("h,kh,d,bs,softcap,window", [(32, 8, 64, 16, None, 1 << 30),
+                                                      (8, 4, 256, 16, 50.0, 40),
+                                                      (12, 2, 128, 8, None, 1 << 30),
+                                                      (28, 4, 64, 16, None, 1 << 30),
+                                                      (56, 8, 128, 16, 30.0, 50),
+                                                      (8, 8, 64, 16, None, 1 << 30)])
+def test_ragged_paged_attention_kernel(cuda, dtype, int8, h, kh, d, bs, softcap, window):
+    """Every tile class in one launch (decode, prefill slices of 2-8 live
+    lanes, a dead tile) against the plain version, at G = 4, 1, 6 and 7
+    (Qwen-2: two blocks of 4 + 3 heads), D = 64 / 128 / 256; dead lanes
+    exactly zero, and the combine launched when the plan splits."""
+    args, scales, live = _ragged_inputs(
+        h * d + bs, dtype, int8, h, kh, d, bs, 4, 10, [3, 2 * bs + 1, 0, 7],
+        # (row, first slot, tokens): decode, long prefill slice, prefill, decode
+        [(0, 70, 1), (1, 2 * bs + 1 + 9, 37), (2, 0, 16), (3, 7 + 50, 1)])
+    q, k, _, tables = args[:4]
     kw = dict(scale=d ** -0.5, logit_softcap=softcap, **scales)
-    before = da.ragged_paged_attention.launches
-    out = da.ragged_paged_attention(q, k, v, tables, *meta, pads, window, **kw)
+    nsplit = da.ragged_split_plan(q, k, tables, window)
+    before = (da.ragged_paged_attention.launches, da.ragged_paged_attention.combine_launches)
+    out = da.ragged_paged_attention(*args, window, **kw)
     torch.cuda.synchronize()
-    assert da.ragged_paged_attention.launches == before + 1
-    ref = da.ragged_paged_attention_plain(q, k, v, tables, *meta, pads, window, **kw)
+    assert (da.ragged_paged_attention.launches, da.ragged_paged_attention.combine_launches) == (
+        before[0] + 1, before[1] + (nsplit > 1))
+    ref = da.ragged_paged_attention_plain(*args, window, **kw)
     _assert_close(out, ref, dtype)
+    assert not out[~live].any()
+
+
+@pytest.mark.parametrize("dtype,int8", [(torch.bfloat16, False), (torch.bfloat16, True),
+                                        (torch.float32, False)])
+@pytest.mark.parametrize("h,kh,d,window", [(32, 8, 64, 1 << 30), (32, 8, 128, 1 << 30),
+                                           (8, 4, 256, 700)])
+def test_ragged_paged_attention_long_bands(cuda, dtype, int8, h, kh, d, window):
+    """Long bands at serve widths: decode rows at up to 2048 slots and a
+    64-token prefill chunk ending at slot 1999, so the plan splits every
+    band (a combine follows); held to the plain version per head row."""
+    bs, mb = 16, 128
+    args, scales, live = _ragged_inputs(
+        d + int8, dtype, int8, h, kh, d, bs, 4, mb, [0, 5, 0, 31],
+        [(0, 2047, 1), (1, 1936, 64), (2, 999, 1), (3, 1500, 1)])
+    q, k, _, tables = args[:4]
+    kw = dict(scale=d ** -0.5, **scales)
+    assert da.ragged_split_plan(q, k, tables, window) > 1
+    before = da.ragged_paged_attention.combine_launches
+    out = da.ragged_paged_attention(*args, window, **kw)
+    torch.cuda.synchronize()
+    assert da.ragged_paged_attention.combine_launches == before + 1
+    ref = da.ragged_paged_attention_plain(*args, window, **kw)
+    _assert_close_rows(out[live], ref[live], dtype)
+    assert not out[~live].any()
+
+
+@pytest.mark.parametrize("dtype,int8", [(torch.bfloat16, False), (torch.bfloat16, True),
+                                        (torch.float32, False), (torch.float32, True)])
+@pytest.mark.parametrize("nsplit", [1, 2, 5, 17])
+@pytest.mark.parametrize("h,kh,d", [(12, 2, 128), (16, 4, 64)])
+def test_ragged_split_kernel_partials(cuda, dtype, int8, nsplit, h, kh, d):
+    """The ragged kernel alone (no combine) against its plain version: the
+    partials (acc, m, l) of every split of every tile class where l > 0,
+    l = 0 and m = NEG_INF elsewhere (dead lanes, the dead tile, splits
+    past a short band); G = 6 (two blocks of 4 + 2 heads) at D = 128, and
+    G = 4 at D = 64.  The combine of the kernel's partials is the output."""
+    bs = 16
+    args, scales, live = _ragged_inputs(
+        40 + nsplit, dtype, int8, h, kh, d, bs, 4, 40, [3, 2 * bs + 1, 0, 7],
+        [(0, 600, 1), (1, 2 * bs + 1 + 9, 37), (2, 300, 16), (3, 7 + 50, 1)])
+    kw = dict(scale=d ** -0.5, **scales)
+    before = (da.ragged_paged_attention_split.launches, da.ragged_paged_attention.launches)
+    acc, m, l = da.ragged_paged_attention_split(*args, 1 << 30, nsplit=nsplit, **kw)
+    torch.cuda.synchronize()
+    assert (da.ragged_paged_attention_split.launches - 1, da.ragged_paged_attention.launches) == \
+        before
+    racc, rm, rl = da.ragged_paged_attention_split_plain(*args, 1 << 30, nsplit=nsplit, **kw)
+    seen = rl > 0
+    assert torch.equal(l > 0, seen)
+    assert bool((m[~seen] == -3.4028234663852886e38).all())
+    _assert_close(l[seen], rl[seen], torch.float32 if dtype == torch.float32 else dtype)
+    _assert_close(m[seen], rm[seen], torch.float32 if dtype == torch.float32 else dtype)
+    _assert_close(acc[seen], racc[seen], torch.float32 if dtype == torch.float32 else dtype)
+    out = da.ragged_from_rows(da.combine_splits(acc, m, l, dtype))
+    _assert_close(out, da.ragged_paged_attention_plain(*args, 1 << 30, **kw), dtype)
     assert not out[~live].any()
 
 
@@ -521,6 +639,31 @@ def test_paged_kernel_argument_errors(cuda):
     with pytest.raises(ValueError, match="16-byte aligned"):
         da.paged_decode_attention_split(q, pages, shifted, tables.int(), one, one, nsplit=2,
                                         scale=1.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ragged_kernel_refuses_misaligned_q(cuda, dtype):
+    """The bf16 prefill tiles copy q rows in 16-byte vectors (cp.async): a
+    contiguous q that starts off a 16-byte boundary is refused before any
+    launch, by the wrapper and by the split kernel alone."""
+    args, scales, _ = _ragged_inputs(5, dtype, False, 8, 2, 64, 16, 2, 4, [0, 0],
+                                     [(0, 20, 1), (1, 0, 16)])
+    q = args[0]
+    shifted = torch.zeros(q.numel() + 1, dtype=dtype, device="cuda")[1:].view(q.shape)
+    shifted.copy_(q)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    counts = lambda: (da.ragged_paged_attention.launches,  # noqa: E731
+                      da.ragged_paged_attention_split.launches)
+    before = counts()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        da.ragged_paged_attention(shifted, *args[1:], 1 << 30, scale=0.125, **scales)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        da.ragged_paged_attention_split(shifted, *args[1:], 1 << 30, nsplit=2, scale=0.125,
+                                        **scales)
+    assert counts() == before
+    out = da.ragged_paged_attention(q, *args[1:], 1 << 30, scale=0.125, **scales)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
 
 
 def test_serve_mixed_and_split_give_equal_tokens(cuda):

@@ -259,6 +259,54 @@ def test_softmax_plain_matches_pallas(shape, scale):
     np.testing.assert_allclose(got.numpy().sum(-1), 1.0, atol=1e-5)
 
 
+def _emulate_cluster_softmax(x: np.ndarray, chunks: int) -> np.ndarray:
+    """The cluster kernel's arithmetic in numpy, float32: each of
+    ``chunks`` blocks takes its running (max, sum of exp(x - max)) over its
+    chunk of the row, the blocks' pairs merge (the larger max wins, the
+    other sum rescaled by exp(its max - the larger); a chunk with max
+    -inf never enters), and every element is exp(x - M) / S."""
+    rows, n = x.shape
+    size = -(-n // chunks)
+    m_row = np.full(rows, -np.inf, np.float32)
+    s_row = np.zeros(rows, np.float32)
+    for c in range(chunks):
+        part = x[:, c * size:(c + 1) * size]
+        m_c = part.max(axis=1, initial=-np.inf).astype(np.float32)
+        with np.errstate(invalid="ignore"):
+            s_c = np.where(m_c == -np.inf, 0,
+                           np.exp(part - m_c[:, None]).sum(axis=1)).astype(np.float32)
+        mm = np.maximum(m_row, m_c)
+        with np.errstate(invalid="ignore"):
+            s_row = np.where(mm == -np.inf, 0,
+                             np.where(m_row == -np.inf, 0, s_row * np.exp(m_row - mm))
+                             + np.where(m_c == -np.inf, 0, s_c * np.exp(m_c - mm)))
+        m_row = mm
+    with np.errstate(invalid="ignore", divide="ignore"):
+        return (np.exp(x - m_row[:, None]) / s_row[:, None]).astype(np.float32)
+
+
+@pytest.mark.parametrize("chunks", [1, 2, 4, 8])
+@pytest.mark.parametrize("n", [1000, 4099])
+def test_softmax_cluster_merge_matches_pallas(chunks, n):
+    """The long-row kernel's merge of per-block (max, sum) pairs, for the
+    1-8 blocks a row of its clusters, against the TPU kernel in interpret
+    mode: -inf entries give 0, a chunk of nothing but -inf drops out of
+    the merge, and a row all -inf gives NaN on both sides."""
+    x = (6.0 * np.random.default_rng(n + chunks).standard_normal((5, n))).astype(np.float32)
+    x[0, ::7] = -np.inf
+    x[1] = -np.inf
+    x[2, : n // 2] = -np.inf  # whole chunks of -inf
+    x[3] = -np.inf
+    x[3, n - 1] = 2.0
+    want = np.asarray(j_softmax(jnp.asarray(x), interpret=True))
+    got = _emulate_cluster_softmax(x, chunks)
+    assert np.isnan(want[1]).all() and np.isnan(got[1]).all()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    live = ~np.isnan(want)
+    np.testing.assert_allclose(got[live], want[live], atol=1e-6)
+    assert got[3, n - 1] == 1.0
+
+
 def test_softmax_keeps_bf16():
     x = torch.from_numpy(np.random.default_rng(7).standard_normal((2, 33)).astype(np.float32))
     got = softmax(x.bfloat16())

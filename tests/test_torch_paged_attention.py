@@ -13,6 +13,7 @@ compared on live lanes only: the port's dead lanes are zeros by
 definition, and the kernels agree there too (pinned separately).
 """
 
+import itertools
 from functools import lru_cache
 
 import jax.numpy as jnp
@@ -393,3 +394,245 @@ def test_ragged_argument_checks():
     with pytest.raises(ValueError, match="k_scale"):
         ragged_paged_attention(torch.zeros(8, 4, 8), pages.to(torch.int8), pages.to(torch.int8),
                                tables, *meta, pads, 8, scale=1.0)
+
+
+# ----------------------------------------------------------------------
+# the ragged kernel's split-KV and its prefill tiles (the CUDA kernel runs
+# only on the card; here its plain split version and an emulation of its
+# tensor-core loop are held against the TPU kernel)
+# ----------------------------------------------------------------------
+
+# Qwen-2's group of 7: the kernel takes two blocks (4 + 3 heads) a kv head
+RAGGED_SPLIT_CASES = RAGGED_CASES + [("group7", 14, 2, 16, 8, None, 1 << 30, False)]
+
+
+@lru_cache(maxsize=None)
+def _ragged_case(name):
+    """A RAGGED_SPLIT_CASES entry's numpy inputs (test_ragged_plain_matches_pallas's
+    layout and seed), window, scale pages, keywords, live mask and the JAX
+    kernel's output in interpret mode (computed once per case)."""
+    _, h, kh, d, bs, softcap, window, int8 = next(c for c in RAGGED_SPLIT_CASES if c[0] == name)
+    rng = np.random.default_rng(h * 13 + kh + d + bs)
+    tables = np.asarray([[3, 4, 5, 6, 0, 0], [7, 8, 9, 1, 0, 0], [10, 11, 2, 0, 0, 0],
+                         [12, 13, 14, 15, 16, 0]], np.int32)
+    pads = np.asarray([2 * bs + 1, 3, 0, 5], np.int32)
+    segments = [(0, 3 * bs + 4, 1), (1, 3 + 5, 13), (2, 9, 11), (3, 4 * bs + 2, 1)]
+    t, tile_row, tile_qpos0, tile_qlen, live = _ragged_layout(segments, n_dead_tiles=1)
+    q = _np(rng, (t, h, d), 2)
+    k, v, ks, vs = _pages(rng, 17, bs, kh, d, int8)
+    arrays = (q, k, v, tables, tile_row, tile_qpos0, tile_qlen, pads)
+    kw = dict(scale=d ** -0.5, logit_softcap=softcap)
+    want = j_ragged(*(jnp.asarray(a) for a in arrays), jnp.int32(window), interpret=True,
+                    **_scales_kw(ks, vs, jnp.asarray), **kw)
+    return arrays, window, (ks, vs), kw, live, np.asarray(want)
+
+
+@pytest.mark.parametrize("nsplit", [1, 2, 3, 5])
+@pytest.mark.parametrize("case", RAGGED_SPLIT_CASES, ids=[c[0] for c in RAGGED_SPLIT_CASES])
+def test_ragged_split_combine_matches_pallas(case, nsplit):
+    """The ragged kernel's split plain version composed with the combine's,
+    packed back to [T, H, D], equals the TPU kernel in interpret mode on
+    live lanes, for any number of splits; dead lanes and the dead tile are
+    exactly zero."""
+    arrays, window, (ks, vs), kw, live, want = _ragged_case(case[0])
+    t, h, d = arrays[0].shape
+    kh = arrays[1].shape[2]
+    acc, m, l = da.ragged_paged_attention_split_plain(*_t(*arrays), window, nsplit=nsplit,
+                                                      **_torch_scales(ks, vs), **kw)
+    rows = RAGGED_Q_TILE * (h // kh)
+    assert acc.shape == (t // RAGGED_Q_TILE, kh, nsplit, rows, d)
+    assert m.shape == l.shape == acc.shape[:-1]
+    got = da.ragged_from_rows(da.combine_splits_plain(acc, m, l, torch.float32)).numpy()
+    np.testing.assert_allclose(got[live], want[live], atol=ATOL)
+    assert not got[~live].any()
+    # a lane that sees nothing holds l = 0 and m = NEG_INF in every split
+    dead = ~torch.from_numpy(live).view(-1, RAGGED_Q_TILE)
+    dl = l.view(*l.shape[:3], RAGGED_Q_TILE, -1).permute(0, 3, 1, 2, 4)[dead]
+    dm = m.view(*m.shape[:3], RAGGED_Q_TILE, -1).permute(0, 3, 1, 2, 4)[dead]
+    assert not dl.any() and bool((dm == NEG_INF).all())
+
+
+@pytest.mark.parametrize("nsplit", [1, 2, 5])
+def test_ragged_split_bounds_are_the_kernels(nsplit):
+    """The kernel cuts each tile's band [max(pad, qpos0 - window + 1, 0),
+    min(qpos0 + qlen, MB*BS) - 1] into nsplit ranges of whole DecodeTile
+    tiles, clipped to the band (csrc/ragged_paged_attention.cu, as
+    split_decode.cuh's attend); _ragged_split_bounds gives the same tiles,
+    and the ranges cover the band exactly.  Dead tiles have no band."""
+    s, tile = 10 * 16, 64
+    qpos0 = np.asarray([0, 40, 150, 159, 63, 100, 0])
+    qlen = np.asarray([8, 1, 8, 1, 3, 5, 0])
+    pads = np.asarray([0, 20, 7, 159, 0])
+    row = np.asarray([0, 1, 2, 3, 4, 1, 0])
+    window = 50
+    bounds = da._ragged_split_bounds(*_t(row, qpos0, qlen, pads), window, s, nsplit,
+                                     tile).numpy()
+    for i in range(len(qpos0)):
+        first = max(pads[row[i]], qpos0[i] - window + 1, 0)
+        last = min(qpos0[i] + qlen[i], s) - 1
+        if qlen[i] == 0 or last < first:
+            assert (bounds[i] == bounds[i, 0]).all(), i
+            continue
+        t0, n = first // tile, last // tile - first // tile + 1
+        assert bounds[i].tolist() == [t0 + z * n // nsplit for z in range(nsplit + 1)], i
+        slots = [x for z in range(nsplit)
+                 for x in range(max(bounds[i, z] * tile, first),
+                                min(bounds[i, z + 1] * tile, last + 1))]
+        assert slots == list(range(first, last + 1)), i
+
+
+NO_WINDOW = 1 << 30
+
+
+@pytest.mark.parametrize("width,table,h,kh,d,window,want", [
+    (192, 288, 32, 8, 64, NO_WINDOW, 1),   # serve leg A's widest tick: 24 tiles x 8 kv heads
+    (64, 288, 32, 8, 64, NO_WINDOW, 1),    # its decode-only tick: 5 kv tiles, < 4 a split
+    (192, 352, 32, 8, 64, NO_WINDOW, 1),   # chip_smoke's serve-shaped pool (22 blocks of 16)
+    (64, 1152, 32, 8, 64, NO_WINDOW, 4),   # 8 decode rows at up to 1152: 18 tiles
+    (64, 4096, 32, 8, 64, NO_WINDOW, 4),   # 8 decode rows at up to 4096
+    (8, 32768, 32, 8, 64, NO_WINDOW, 33),  # one decode row at 32768
+    (568, 4096, 32, 8, 64, NO_WINDOW, 1),  # the long mixed tick: 71 tiles fill the card
+    (192, 352, 32, 8, 128, NO_WINDOW, 1),  # Llama-3.1-8B widths
+    (64, 576, 32, 8, 128, NO_WINDOW, 2),   # its decode-only tick at 576: 9 tiles
+    (192, 352, 8, 4, 256, 128, 1),         # Gemma-2 widths: the window cuts bands to 135 slots
+    (64, 288, 8, 4, 256, 4096, 2),         # Gemma-2 decode-only at 288: 9 tiles of 32
+])
+def test_ragged_split_plan_at_the_serve_shapes(width, table, h, kh, d, window, want, monkeypatch):
+    """NSPLIT from the shapes alone on the H100's 132 SMs: split_plan's
+    count of blocks for the packed width's q tiles over the longest band
+    (the table width, or the window and a tile's 8 tokens), at least
+    RAGGED_MIN_TILES kv tiles a split."""
+    monkeypatch.setattr(da, "sm_count", lambda device: H100_SMS)
+    q = torch.empty((width, h, d), device="meta")
+    pages = torch.empty((1, 16, kh, d), device="meta")
+    tables = torch.empty((8, table // 16), dtype=torch.int32, device="meta")
+    assert da.ragged_split_plan(q, pages, tables, window) == want
+
+
+def test_ragged_split_wrappers_on_cpu_never_launch():
+    arrays, window, (ks, vs), kw, _, _ = _ragged_case("window_softcap_int8")
+    args, scales = _t(*arrays), _torch_scales(ks, vs)
+    counts = lambda: (da.ragged_paged_attention.launches,  # noqa: E731
+                      da.ragged_paged_attention.combine_launches,
+                      da.ragged_paged_attention_split.launches)
+    before = counts()
+    parts = da.ragged_paged_attention_split(*args, window, nsplit=3, **scales, **kw)
+    for got, ref in zip(parts, da.ragged_paged_attention_split_plain(
+            *args, window, nsplit=3, **scales, **kw)):
+        assert torch.equal(got, ref)
+    assert counts() == before
+    with pytest.raises(ValueError, match="nsplit"):
+        da.ragged_paged_attention_split(*args, window, nsplit=0, **scales, **kw)
+
+
+def _emulate_ragged(q, k, v, tables, tile_row, tile_qpos0, tile_qlen, pads, window, scale,
+                    softcap, nsplit, p_dtype, ks=None, vs=None):
+    """The tensor-core path of the ragged kernel in numpy, float32: per
+    (tile, kv head, block of <= 4 heads, split) the rows r = lane * gn +
+    head padded to RT = 1 or 2 tiles of 16 (padding rows and dead lanes
+    see nothing), kv tiles of the split plan's slots (``DecodeTile<D>::BS``),
+    a warp per 16-slot chunk of each (8 warps: RT x chunks x column
+    parts), slots outside the split zero, scores in the
+    log2 domain with masked slots -inf and the running max guarded while a
+    row has seen nothing, P rounded to ``p_dtype`` before the PV product,
+    then the warps' states merged and written as partials (m back in the
+    natural log).  Returns the output through the combine's plain
+    version, packed as [T, H, D]."""
+    t, h, d = q.shape
+    _, bs, kh, _ = k.shape
+    g_all = h // kh
+    nt, tile = t // RAGGED_Q_TILE, da._tile(d)
+    nc = tile // 16
+    s_max = tables.shape[1] * bs
+    if ks is not None:
+        k = k.astype(np.float32) * ks[..., None]
+        v = v.astype(np.float32) * vs[..., None]
+    log2e = np.float32(np.log2(np.e))
+    unit = np.float32(1.0) if softcap else np.float32(scale) * log2e
+    rows8 = RAGGED_Q_TILE * g_all
+    acc = np.zeros((nt, kh, nsplit, rows8, d), np.float32)
+    m_out = np.full((nt, kh, nsplit, rows8), NEG_INF, np.float32)
+    l_out = np.zeros((nt, kh, nsplit, rows8), np.float32)
+    for ti, kv, g0 in itertools.product(range(nt), range(kh), range(0, g_all, 4)):
+        qlen = int(tile_qlen[ti])
+        if qlen == 0:
+            continue
+        gn = min(4, g_all - g0)
+        rows = RAGGED_Q_TILE * gn
+        rpad = 16 if rows <= 16 else 32
+        row, qpos0 = int(tile_row[ti]), int(tile_qpos0[ti])
+        first = max(int(pads[row]), qpos0 - window + 1, 0)
+        last = min(qpos0 + qlen, s_max) - 1
+        r = np.arange(rpad)
+        tok, head = r // gn, g0 + r % gn
+        live = (r < rows) & (tok < qlen)
+        qr = np.where(live[:, None], q[ti * RAGGED_Q_TILE + np.minimum(tok, qlen - 1),
+                                       kv * g_all + np.minimum(head, g_all - 1)], 0)
+        qr = qr.astype(np.float32)
+        slot = qpos0 + tok
+        for z in range(nsplit):
+            lo = hi = 0
+            if last >= first:
+                t0, n = first // tile, last // tile - first // tile + 1
+                lo = max((t0 + z * n // nsplit) * tile, first)
+                hi = min((t0 + (z + 1) * n // nsplit) * tile, last + 1)
+            vlo = np.maximum(np.maximum(int(pads[row]), slot - window + 1), lo)
+            vhi = np.where(live, np.minimum(slot, hi - 1), vlo - 1)
+            states = []
+            for c in range(nc):
+                m = np.full(rpad, -np.inf, np.float32)
+                l = np.zeros(rpad, np.float32)
+                o = np.zeros((rpad, d), np.float32)
+                for j in range(lo // tile, (hi - 1) // tile + 1 if hi > lo else lo // tile):
+                    cols = j * tile + c * 16 + np.arange(16)
+                    ok = (cols >= lo) & (cols < hi)
+                    pool = tables[row, np.minimum(cols, s_max - 1) // bs]
+                    kc = np.where(ok[:, None], k[pool, cols % bs, kv], 0)
+                    vc = np.where(ok[:, None], v[pool, cols % bs, kv], 0)
+                    x = qr @ kc.T
+                    if softcap:
+                        x = np.tanh(x * np.float32(scale / softcap)) * np.float32(softcap * log2e)
+                    x = np.where((cols[None] >= vlo[:, None]) & (cols[None] <= vhi[:, None]), x,
+                                 -np.inf)
+                    m_new = np.maximum(m, x.max(axis=1) * unit)
+                    dead = m_new == -np.inf
+                    with np.errstate(invalid="ignore"):
+                        alpha = np.where(dead, 1, np.exp2(m - m_new))
+                    base = np.where(dead, 0, m_new)
+                    p = np.exp2(x * unit - base[:, None]).astype(np.float32)
+                    l = l * alpha + p.sum(axis=1)
+                    pr = torch.from_numpy(p).to(p_dtype).float().numpy()
+                    o = o * alpha[:, None] + pr @ vc
+                    m = m_new
+                states.append((m, l, o))
+            ms = np.stack([s_[0] for s_ in states])
+            ls = np.stack([s_[1] for s_ in states])
+            mx = np.where(ls > 0, ms, -np.inf).max(axis=0)
+            with np.errstate(invalid="ignore"):
+                w = np.where(ls > 0, np.exp2(ms - mx), 0)
+            den = (w * ls).sum(axis=0)
+            num = sum(w[c][:, None] * states[c][2] for c in range(len(states)))
+            for rr in np.nonzero(live)[0]:
+                pr_ = tok[rr] * g_all + head[rr]
+                acc[ti, kv, z, pr_] = num[rr]
+                l_out[ti, kv, z, pr_] = den[rr]
+                m_out[ti, kv, z, pr_] = mx[rr] / log2e if den[rr] > 0 else NEG_INF
+    out = da.combine_splits_plain(*_t(acc, m_out, l_out), torch.float32)
+    return da.ragged_from_rows(out).numpy()
+
+
+@pytest.mark.parametrize("p_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nsplit", [1, 2, 3])
+@pytest.mark.parametrize("case", RAGGED_SPLIT_CASES, ids=[c[0] for c in RAGGED_SPLIT_CASES])
+def test_emulated_ragged_tiles_match_pallas(case, nsplit, p_dtype):
+    """The tensor-core tiles' loop (emulated) against the TPU kernel, one
+    to three splits of each tile's band: float32 P within summation order
+    (2e-5); bf16 P within one rounding of each weight (2^-9 relative),
+    averaged over the row's visible slots (1e-2, as the flash kernel's
+    emulation)."""
+    arrays, window, (ks, vs), kw, live, want = _ragged_case(case[0])
+    got = _emulate_ragged(*arrays, window, kw["scale"], kw["logit_softcap"], nsplit, p_dtype,
+                          ks, vs)
+    np.testing.assert_allclose(got[live], want[live],
+                               atol=2e-5 if p_dtype == torch.float32 else 1e-2)
+    assert not got[~live].any()

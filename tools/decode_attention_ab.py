@@ -2,7 +2,8 @@
 """Time one checkout's attention kernels and sampling epilogue on the card, kernels and end to end, to compare two.
 
     python tools/decode_attention_ab.py [--root DIR] [--label NAME]
-        [--parts cases,paged_cases,epilogue,flash,main_path,prefill,serve_leg_b,sass]
+        [--parts cases,paged_cases,ragged,ragged_nsplit,softmax,epilogue,flash,main_path,
+                 prefill,serve_leg_a,serve_leg_b,sass]
         [--replays N]
 
 Imports ``llm_np_cp_tpu_torch`` from DIR (default: the checkout this file
@@ -14,11 +15,27 @@ both versions see the same work.  Prints one JSON line with:
   ``chip_smoke.py``'s decode cases (Llama-3.2-1B widths: B=4 x S=256 and
   S=4096 with its ragged rows, bf16 and int8 cache, and one B=1 x S=32768
   row), in CUDA events over 100 calls after warm-up and as device time
-  (torch.profiler, every kernel of the call), SDPA beside each bf16 case;
+  (torch.profiler, every kernel of the call, and the split kernel and the
+  combine apart), SDPA beside each bf16 case;
 - ``paged_cases``: ``paged_decode_attention`` on the inputs of
   ``chip_smoke.py``'s paged cases (``PAGED_SPECS`` through
   ``paged_inputs``), timed the same way, SDPA on the pre-gathered view and
   the gather beside each bf16 case without softcap;
+- ``ragged``: ``ragged_paged_attention`` (the unified tick's kernel) on
+  the inputs of ``chip_smoke.py``'s ragged cases (``RAGGED_SPECS``
+  through ``ragged_inputs``: the serve shape, long decode rows, the long
+  mixed tick, int8 pools, Gemma-2-2B and Llama-3.1-8B widths), timed the
+  same way, SDPA on the rows' pre-gathered views beside each bf16 case
+  without softcap and the gather timed apart; for the split-KV kernel
+  also its NSPLIT, the device time of the kernel and of the combine
+  apart, and, where NSPLIT > 1, the kernel alone at one split;
+- ``ragged_nsplit``: the same cases and decode-only ticks of 8 rows at
+  288-2304 slots (Llama-3.2-1B, Llama-3.1-8B and Gemma-2 widths), the
+  device time of kernel + combine at each NSPLIT the band's kv tiles
+  allow, the split plan overridden, beside the plan's own NSPLIT;
+- ``softmax``: ``softmax`` on the inputs of ``chip_smoke.py``'s softmax
+  cases (``SOFTMAX_SPECS`` through ``softmax_inputs``), timed the same
+  way, ``torch.softmax`` beside each;
 - ``epilogue``: ``sample_epilogue`` on the inputs of ``chip_smoke.py``'s
   epilogue cases (``EPILOGUE_SPECS`` and ``EPILOGUE_INT8_SPECS`` through
   ``epilogue_inputs``: float and int8 heads, tied and untied, with the
@@ -37,17 +54,19 @@ both versions see the same work.  Prints one JSON line with:
 - ``prefill``: TTFT of ``Generator.generate`` on Llama-3.2-1B (seeded
   random bf16 weights, B=1 x ``chip_smoke.LONG_PROMPT`` tokens, flash
   prefill), one value per repeat after a warm-up, and their median;
-- ``serve_leg_b``: served tok/s and TPOT p50 of ``ServeEngine.replay_trace``
-  on ``chip_smoke.py``'s 32-request trace in its leg B (phase-split tick,
-  paged decode), a fresh engine per replay, and their medians;
-- ``sass``: for each flash kernel of the library, its ``HMMA`` (tensor
-  core) and ``FFMA`` instructions in ``cuobjdump -sass`` and, when this
+- ``serve_leg_a`` / ``serve_leg_b``: served tok/s and TPOT p50 of
+  ``ServeEngine.replay_trace`` on ``chip_smoke.py``'s 32-request trace in
+  its leg A (unified tick, ragged kernel) or B (phase-split tick, paged
+  decode), a fresh engine per replay, and their medians;
+- ``sass``: for each flash and ragged kernel of the library, its ``HMMA``
+  (tensor core) and ``FFMA`` instructions in ``cuobjdump -sass`` and, when this
   process compiled the library, its ptxas report (registers, shared
   memory, spills).
 
 Each library call's times are keyed ``library_ms`` and
 ``library_device_ms``.  ``--parts`` keeps some of the parts (default: all
-but ``sass``), ``--replays`` sets the serve leg's replay count (default 3).  Run it for two checkouts in turns
+but ``ragged_nsplit`` and ``sass``), ``--replays`` sets the serve leg's
+replay count (default 3).  Run it for two checkouts in turns
 (A, B, B, A) in one call: only times from one call on one card compare.
 """
 
@@ -66,8 +85,10 @@ HERE = Path(__file__).resolve().parents[1]
 CASES = [(4, 256, False), (4, 256, True), (4, 4096, False), (4, 4096, True), (1, 32768, False)]
 REPEATS = 5
 SERVE_REPLAYS = 3
-PARTS = ("cases", "paged_cases", "epilogue", "flash", "main_path", "prefill", "serve_leg_b",
-         "sass")
+PARTS = ("cases", "paged_cases", "ragged", "ragged_nsplit", "softmax", "epilogue", "flash",
+         "main_path", "prefill", "serve_leg_a", "serve_leg_b", "sass")
+# the kernels whose SASS ``sass`` counts, by symbol
+SASS_KERNELS = ("flash_kernel", "ragged_kernel")
 
 
 def load_chip_smoke():
@@ -100,9 +121,10 @@ def kernel_cases(torch, F, cs, da, quantize_kv) -> list[dict]:
             am = mask[:, None, None, :]
             sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 qt, kt, vt, attn_mask=am, scale=kw["scale"], enable_gqa=True)
+        call = lambda: da.decode_attention(q, k, v, mask, **kw)  # noqa: E731
         rows.append(dict(case=f"b{b}_s{s}_{'int8' if int8 else 'bf16'}", max_abs_err=err,
-                         within_tol=ok, **timed(torch, cs, lambda: da.decode_attention(
-                             q, k, v, mask, **kw), sdpa)))
+                         within_tol=ok, **timed(torch, cs, call, sdpa),
+                         device_ms_by_kernel=cs.device_ms(torch, call, cs.DECODE_MARKERS)))
     return rows
 
 
@@ -155,8 +177,93 @@ def paged_cases(torch, F, cs, da, quantize_kv) -> list[dict]:
             sdpa = lambda: cs.sdpa_pregathered(torch, F, q, views, mask, kw["scale"])  # noqa: E731
             row["gather_ms"] = cs.time_ms(
                 torch, lambda: (cs.gathered(k, tables), cs.gathered(v, tables)), 100)
-        row.update(timed(torch, cs, lambda: da.paged_decode_attention(*args, **kw), sdpa))
+        call = lambda: da.paged_decode_attention(*args, **kw)  # noqa: E731
+        row.update(timed(torch, cs, call, sdpa),
+                   device_ms_by_kernel=cs.device_ms(torch, call, cs.PAGED_MARKERS))
         rows.append(row)
+    return rows
+
+
+def ragged_cases(torch, F, cs, da, quantize_kv) -> list[dict]:
+    rows = []
+    for i, (name, *_, cap, _, int8, _, _, _, _) in enumerate(cs.RAGGED_SPECS):
+        args, kw, live = cs.ragged_inputs(torch, quantize_kv, i)
+        call = lambda: da.ragged_paged_attention(*args, **kw)  # noqa: E731
+        out = call()
+        err, ok = cs.attn_err_rows(out[live], da.ragged_paged_attention_plain(*args, **kw)[live])
+        row = dict(case=name, max_abs_err=err, within_tol=ok and not bool(out[~live].any()))
+        sdpa = None
+        if not int8 and cap is None:
+            sdpa, gather = cs.ragged_library(torch, F, args, kw, live)
+            row["gather_ms"] = cs.time_ms(torch, gather, 100)
+        row.update(timed(torch, cs, call, sdpa))
+        if hasattr(da, "ragged_split_plan"):  # the split-KV kernel (not the scalar one)
+            nsplit = da.ragged_split_plan(args[0], args[1], args[3], args[8])
+            row.update(nsplit=nsplit, device_ms_by_kernel=cs.device_ms(
+                torch, call, cs.RAGGED_MARKERS, attempts=1 if nsplit == 1 else 3))
+            if nsplit > 1:  # the kernel alone at one split, no combine
+                one = lambda: da.ragged_paged_attention_split(*args, nsplit=1, **kw)  # noqa: E731
+                row["nsplit1_device_ms"] = cs.device_ms(torch, one, {"k": "ragged_kernel"})["k"]
+        rows.append(row)
+        del args, kw, out, sdpa
+        torch.cuda.empty_cache()
+    return rows
+
+
+# decode-only ticks of 8 rows all at one length (segments, lengths, pads,
+# width) for the NSPLIT sweep
+def _decode8(length: int) -> tuple:
+    return [(r, length - 1, 1) for r in range(8)], [length] * 8, [0] * 8, 64
+
+
+SWEEP_SPECS = [
+    (f"{tag}_decode8_{n}", h, kh, d, None, None, False, *_decode8(n))
+    for tag, h, kh, d in (("llama1b", 32, 8, 64), ("llama8b_widths", 32, 8, 128),
+                          ("gemma2_widths", 8, 4, 256))
+    for n in (288, 576, 1152, 2304)
+]
+SWEEP_NSPLIT = (1, 2, 3, 4, 6, 8, 16)
+
+
+def ragged_nsplit(torch, cs, da, quantize_kv) -> list[dict]:
+    """Device ms of ``ragged_paged_attention`` (kernel + combine) with its
+    split plan replaced by each NSPLIT of ``SWEEP_NSPLIT`` up to the
+    band's kv tiles, on ``RAGGED_SPECS`` and ``SWEEP_SPECS``, beside the
+    plan's own NSPLIT."""
+    rows = []
+    plan = da.ragged_split_plan
+    specs = [(i, None) for i in range(len(cs.RAGGED_SPECS))] + [
+        (100 + i, spec) for i, spec in enumerate(SWEEP_SPECS)]
+    try:
+        for i, spec in specs:
+            args, kw, live = cs.ragged_inputs(torch, quantize_kv, i, spec)
+            name, *_, d, _, _, _, _, lengths, _, _ = spec or cs.RAGGED_SPECS[i]
+            call = lambda: da.ragged_paged_attention(*args, **kw)  # noqa: E731
+            row = dict(case=name, planned=plan(args[0], args[1], args[3], args[8]), device_ms={})
+            tiles = -(-max(lengths) // da._tile(d))
+            for n in (n for n in SWEEP_NSPLIT if n <= tiles):
+                da.ragged_split_plan = lambda *_, n=n: n
+                dev = cs.device_ms(torch, call, cs.RAGGED_MARKERS, attempts=1 if n == 1 else 3)
+                row["device_ms"][n] = dict(dev, total=sum(dev.values()))
+                da.ragged_split_plan = plan
+            rows.append(row)
+            del args, kw, live
+            torch.cuda.empty_cache()
+    finally:
+        da.ragged_split_plan = plan
+    return rows
+
+
+def softmax_cases(torch, cs) -> list[dict]:
+    from llm_np_cp_tpu_torch.ops.cuda import softmax as sm
+
+    rows = []
+    for i, (name, _, dtype) in enumerate(cs.SOFTMAX_SPECS):
+        x = cs.softmax_inputs(torch, i)
+        diff = (sm.softmax(x).float() - sm.softmax_plain(x).float()).abs()
+        rows.append(dict(case=name, max_abs_err=diff.max().item(), **timed(
+            torch, cs, lambda: sm.softmax(x), lambda: torch.softmax(x, dim=-1))))
+        del x
     return rows
 
 
@@ -207,19 +314,19 @@ def sass_counts() -> dict:
     for line in sass.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
-            name = m.group(1) if "flash_kernel" in m.group(1) else None
+            name = m.group(1) if any(k in m.group(1) for k in SASS_KERNELS) else None
             if name:
                 counts[name] = dict(HMMA=0, FFMA=0)
         elif name:
             for op in ("HMMA", "FFMA"):
                 counts[name][op] += bool(re.search(rf"\b{op}\b", line))
-    # ptxas's lines for each flash entry (present when this process built it)
+    # ptxas's lines for each such entry (present when this process built it)
     ptxas = [blk for blk in (build.BUILD_INFO.get("ptxas") or "").split("Compiling entry function")
-             if "flash_kernel" in blk.split("\n", 1)[0]]
+             if any(k in blk.split("\n", 1)[0] for k in SASS_KERNELS)]
     return dict(library=str(lib), sass=counts, ptxas=[blk.strip() for blk in ptxas])
 
 
-def serve_leg_b(torch, np, cs, replays: int) -> dict:
+def serve_leg(torch, np, cs, leg: str, replays: int) -> dict:
     from llm_np_cp_tpu_torch.config import PRESETS
     from llm_np_cp_tpu_torch.models.transformer import init_params
 
@@ -228,7 +335,7 @@ def serve_leg_b(torch, np, cs, replays: int) -> dict:
     trace = cs.serve_trace(np, cfg, cs.SERVE_REQUESTS, cs.SERVE_NEW_TOKENS, seed=0)
     tok_s, tpot = [], []
     for _ in range(replays):
-        eng = cs.serve_engine(params, cfg, torch.bfloat16, "B_split_paged")
+        eng = cs.serve_engine(params, cfg, torch.bfloat16, leg)
         eng.warmup([cs.SERVE_PROMPTS[0]], 2)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -236,12 +343,12 @@ def serve_leg_b(torch, np, cs, replays: int) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         if snap["finished"] != cs.SERVE_REQUESTS:
-            raise AssertionError(f"leg B finished {snap['finished']} of {cs.SERVE_REQUESTS}")
+            raise AssertionError(f"leg {leg} finished {snap['finished']} of {cs.SERVE_REQUESTS}")
         tok_s.append(snap["total_generated_tokens"] / wall)
         tpot.append(snap["tpot_s_p50"])
         del eng
     med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
-    return dict(requests=cs.SERVE_REQUESTS, new_tokens=cs.SERVE_NEW_TOKENS, tok_s=tok_s,
+    return dict(leg=leg, requests=cs.SERVE_REQUESTS, new_tokens=cs.SERVE_NEW_TOKENS, tok_s=tok_s,
                 tpot_s_p50=tpot, tok_s_median=med(tok_s), tpot_s_p50_median=med(tpot))
 
 
@@ -266,7 +373,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--label", default="")
-    ap.add_argument("--parts", default=",".join(p for p in PARTS if p != "sass"))
+    ap.add_argument("--parts", default=",".join(p for p in PARTS
+                                                if p not in ("ragged_nsplit", "sass")))
     ap.add_argument("--replays", type=int, default=SERVE_REPLAYS)
     args = ap.parse_args()
     parts = args.parts.split(",")
@@ -288,11 +396,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     run = dict(cases=lambda: kernel_cases(torch, F, cs, da, quantize_kv),
                paged_cases=lambda: paged_cases(torch, F, cs, da, quantize_kv),
+               ragged=lambda: ragged_cases(torch, F, cs, da, quantize_kv),
+               ragged_nsplit=lambda: ragged_nsplit(torch, cs, da, quantize_kv),
+               softmax=lambda: softmax_cases(torch, cs),
                epilogue=lambda: epilogue_cases(torch, cs),
                flash=lambda: flash_cases(torch, F, cs),
                main_path=lambda: main_path_rates(torch, np, cs),
                prefill=lambda: prefill_ttft(torch, np, cs),
-               serve_leg_b=lambda: serve_leg_b(torch, np, cs, args.replays),
+               serve_leg_a=lambda: serve_leg(torch, np, cs, "A_mixed", args.replays),
+               serve_leg_b=lambda: serve_leg(torch, np, cs, "B_split_paged", args.replays),
                sass=sass_counts)
     print(json.dumps(dict(label=args.label, root=args.root, card=cs.nvidia_smi_line(),
                           **{part: run[part]() for part in parts})), flush=True)
