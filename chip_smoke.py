@@ -31,8 +31,21 @@ Phases, each printing JSON lines; any failure exits non-zero:
    ``generate`` on a B=1 x 4096-token prompt (its TTFT); launch counts
    must equal what the path implies, and a teacher-forced cache-less
    plain forward must agree with every chosen token.
+   Every decode step of these runs (and every unified tick of leg A
+   below) is a captured CUDA graph: each shape's first step runs eagerly
+   and is captured (the engine's ``warmup`` captures every bucket), every
+   later one is a replay, which the launch counts see (each replay adds
+   the kernels its graph captured); the script requires that every step
+   was a replay or such a first step.
 4. profile — torch.profiler over one more ``generate``: device time by
    kernel and the device's busy share of the wall time.
+4b. graphs — each kind of captured step against the same step function
+   run eagerly (``graphs.eager_steps``), identical greedy tokens
+   required: the main path's Generator, the decode loop with xla
+   attention or the logits tail, a min-p Generator (the captured draws
+   against the eager draws of the same seed) and the unified tick of
+   leg A on the serve trace's requests submitted at once; each graph's
+   capture time, pool bytes and replays.
 5. serve — the same model behind ``ServeEngine.replay_trace`` on a
    32-request Poisson trace, in two legs: A, the unified tick
    (``ragged_paged_attention`` + its combine when NSPLIT > 1 + fused
@@ -1080,6 +1093,7 @@ def main_path(torch, np, kernels: dict, card: str) -> tuple:
     gen.generate(prompts, 4)  # warm-up: cuBLAS handles, allocator
 
     reset_counts(kernels)
+    g0 = graph_totals()
     t0 = time.perf_counter()
     res = gen.generate(prompts, DECODE_STEPS)
     res_r = gen_ragged.generate_ragged(ragged, DECODE_STEPS)
@@ -1087,8 +1101,10 @@ def main_path(torch, np, kernels: dict, card: str) -> tuple:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts(kernels)
+    graphs_run = graph_delta(g0)
 
     steps = DECODE_STEPS - 1
+    check_replayed("main path", graphs_run, 2 * steps + STREAM_TOKENS - 1)
     want = {name: 0 for name in kernels}
     want.update({
         "flash_attention": layers * 2,  # generate + stream prefill
@@ -1134,6 +1150,7 @@ def main_path(torch, np, kernels: dict, card: str) -> tuple:
     result = dict(
         phase="main_path", model="meta-llama/Llama-3.2-1B", layers=layers,
         weights="seeded random bf16", card=card, launches=launches, implied=want,
+        graphs=graphs_run,
         generate=dict(batch=4, prompt_len=128, new_tokens=DECODE_STEPS,
                       ttft_s=res.ttft_s, decode_tok_s_per_seq=res.decode_tokens_per_s,
                       decode_tok_s=res.decode_tokens_per_s * 4,
@@ -1146,7 +1163,7 @@ def main_path(torch, np, kernels: dict, card: str) -> tuple:
                      teacher_tol=F32_TEACHER_TOL),
         long_prompt=long, wall_s=wall, teacher_tol=TEACHER_TOL,
     )
-    return result, gen, prompts
+    return result, gen, prompts, res.tokens
 
 
 def long_prompt(torch, np, kernels: dict, gen, params, cfg) -> dict:
@@ -1161,10 +1178,12 @@ def long_prompt(torch, np, kernels: dict, gen, params, cfg) -> dict:
     gen.generate(prompt, 2)  # warm-up: the allocator's long-prompt buffers
     torch.cuda.synchronize()
     reset_counts(kernels)
+    g0 = graph_totals()
     res = gen.generate(prompt, LONG_NEW_TOKENS)
     torch.cuda.synchronize()
     launches = read_counts(kernels)
     steps = LONG_NEW_TOKENS - 1
+    check_replayed("long prompt", graph_delta(g0), steps)
     want = {name: 0 for name in kernels}
     want.update(flash_attention=layers, decode_attention=layers * steps,
                 decode_attention_combine=layers * steps * combines(
@@ -1219,6 +1238,98 @@ def profile_generate(torch, gen, prompts, card: str, steps: int = 32) -> dict:
 
 
 # ----------------------------------------------------------------------
+# phase 4b: captured steps against their eager runs
+# ----------------------------------------------------------------------
+
+GRAPH_STEPS = 32
+
+
+def step_stats(steps) -> list[dict]:
+    return [dict(name=st.name, capture_s=st.capture_s, pool_bytes=st.pool_bytes,
+                 replays=st.replays) for st in steps if st.graph is not None]
+
+
+def graph_phase(torch, np, card: str, gen, prompts, captured_tokens) -> dict:
+    """Each kind of captured step against the same step function run
+    eagerly (``graphs.eager_steps``) on the main path's model, identical
+    greedy tokens required: the main path's Generator (decode kernel,
+    fused epilogue; its captured tokens against an eager ``generate``),
+    the decode loop with the other three (attention, tail) pairs, a min-p
+    Generator (the captured stream against the eager stream of its seed,
+    twice), and serve leg A (the unified tick) on the serve trace's
+    requests submitted at once, so that both runs tick alike.  Records
+    each graph's capture time, pool bytes and replays."""
+    from llm_np_cp_tpu_torch import graphs
+    from llm_np_cp_tpu_torch.cache import KVCache, align_capacity
+    from llm_np_cp_tpu_torch.generate import Generator, make_decode_loop_fn
+    from llm_np_cp_tpu_torch.models.transformer import forward
+    from llm_np_cp_tpu_torch.ops.sampling import Sampler
+
+    params, cfg = gen.params, gen.config
+    ids = torch.as_tensor(prompts, device="cuda")
+    checks = {}
+    with graphs.eager_steps():
+        eager = gen.generate(prompts, DECODE_STEPS).tokens
+    checks["generator_flash_decode_fused"] = dict(
+        identical=bool((eager == captured_tokens).all()), steps=DECODE_STEPS - 1,
+        graphs=step_stats(gen.graph_steps()))
+
+    def loop_tokens(attn: str, fused: bool):
+        loop = make_decode_loop_fn(cfg, Sampler("greedy"), attn_impl=attn, fused_epilogue=fused)
+        cache = KVCache.init(cfg, ids.shape[0], align_capacity(ids.shape[1] + GRAPH_STEPS))
+        logits, cache = forward(params, ids, cfg, cache, logits_last_only=True)
+        toks, cache, _ = loop(params, logits[:, -1].argmax(-1).int(), cache, None, GRAPH_STEPS)
+        return toks.cpu().numpy(), cache
+
+    for attn, fused in (("xla", True), ("xla", False), ("flash_decode", False)):
+        with graphs.eager_steps():
+            want, _ = loop_tokens(attn, fused)
+        got, cache = loop_tokens(attn, fused)
+        checks[f"loop_{attn}_{'fused' if fused else 'logits'}"] = dict(
+            identical=bool((got == want).all()), steps=GRAPH_STEPS,
+            graphs=step_stats(st.run for st in cache.steps.values()))
+        del cache
+
+    sampled = Generator(params, cfg, sampler=Sampler("min_p"), prefill_attn_impl="flash",
+                        decode_attn_impl="flash_decode")
+    with graphs.eager_steps():
+        want = sampled.generate(prompts, GRAPH_STEPS, seed=11).tokens
+    got = [sampled.generate(prompts, GRAPH_STEPS, seed=11).tokens for _ in range(2)]
+    checks["generator_min_p"] = dict(identical=all(bool((g == want).all()) for g in got),
+                                     steps=GRAPH_STEPS - 1, calls=2,
+                                     graphs=step_stats(sampled.graph_steps()))
+    del sampled
+
+    trace = serve_trace(np, cfg, SERVE_REQUESTS, SERVE_NEW_TOKENS, seed=0)
+
+    def serve_all():
+        eng = serve_engine(params, cfg, torch.bfloat16, "A_mixed")
+        for j, item in enumerate(trace):
+            eng.submit(item["prompt"], item["max_new_tokens"], seed=j)
+        eng.run_until_complete()
+        return {r.req_id: list(r.generated) for r in eng.scheduler.finished}, eng
+
+    with graphs.eager_steps():
+        want, _ = serve_all()
+    got, eng = serve_all()
+    checks["serve_leg_A"] = dict(
+        identical=got == want and len(got) == SERVE_REQUESTS, dispatches=eng.n_dispatches,
+        compile_counts=eng.compile_counts(), buckets=list(eng.mixed_buckets),
+        graphs=step_stats(eng.graph_steps()))
+    del eng
+    torch.cuda.empty_cache()
+    every = [g for c in checks.values() for g in c["graphs"]]
+    return dict(phase="graphs", card=card, model="meta-llama/Llama-3.2-1B",
+                weights="seeded random bf16", checks=checks,
+                capture_s_per_graph=dict(min=min(g["capture_s"] for g in every),
+                                         max=max(g["capture_s"] for g in every),
+                                         mean=sum(g["capture_s"] for g in every) / len(every)),
+                pool_bytes_per_graph=dict(min=min(g["pool_bytes"] for g in every),
+                                          max=max(g["pool_bytes"] for g in every)),
+                totals=graph_totals(), ok=all(c["identical"] for c in checks.values()))
+
+
+# ----------------------------------------------------------------------
 # phase 5: the serve engine
 # ----------------------------------------------------------------------
 
@@ -1249,25 +1360,44 @@ def serve_trace(np, cfg, n: int, new_tokens: int, seed: int,
                          vocab_size=cfg.vocab_size)
 
 
-class RaggedSplits:
-    """Counts, while entered, the ragged kernel's calls whose split plan
-    (``ragged_split_plan``, which the wrapper asks each call) is > 1:
-    each of them launches the combine after the kernel."""
+def ragged_combines(torch, da, eng, cfg, since: dict[int, int]) -> int:
+    """Combine launches the unified tick's dispatches since ``since`` (the
+    engine's ``bucket_dispatches`` then) imply: per packed width, the
+    layers whose ragged split plan over that width is > 1 (the plan reads
+    shapes alone, so a replayed graph launches the combine exactly where
+    the eager step did)."""
+    from llm_np_cp_tpu_torch.serve.engine import GLOBAL_WINDOW
 
-    def __init__(self, da):
-        self.da, self.plan, self.n = da, da.ragged_split_plan, 0
+    pages = eng.pool.pages.k[0]
+    tables = torch.empty((eng.scheduler.max_slots, eng.max_blocks_per_seq), dtype=torch.int32,
+                         device="cuda")
+    n = 0
+    for t_w, count in eng.bucket_dispatches.items():
+        q = torch.empty((t_w, cfg.num_attention_heads, cfg.head_dim), dtype=torch.bfloat16,
+                        device="cuda")
+        for i in range(cfg.num_hidden_layers):
+            window = (cfg.sliding_window if cfg.sliding_window is not None
+                      and cfg.layer_is_sliding(i) else GLOBAL_WINDOW)
+            n += (count - since.get(t_w, 0)) * int(da.ragged_split_plan(q, pages, tables, window) > 1)
+    return n
 
-    def __enter__(self):
-        def spy(*args, **kw):
-            nsplit = self.plan(*args, **kw)
-            self.n += nsplit > 1
-            return nsplit
 
-        self.da.ragged_split_plan = spy
-        return self
+def check_replayed(where: str, graphs_run: dict, steps: int) -> None:
+    """Every one of ``steps`` captured steps ran as a graph replay, or as
+    the eager first call of a new shape; some replayed."""
+    if graphs_run["replays"] + graphs_run["eager"] != steps or graphs_run["replays"] == 0:
+        raise AssertionError(f"{where}: {steps} steps, graphs ran {graphs_run}")
 
-    def __exit__(self, *exc):
-        self.da.ragged_split_plan = self.plan
+
+def graph_totals() -> dict:
+    from llm_np_cp_tpu_torch import graphs
+
+    return dict(graphs.TOTALS)
+
+
+def graph_delta(before: dict) -> dict:
+    now = graph_totals()
+    return {k: now[k] - before[k] for k in ("captures", "replays", "eager")}
 
 
 def teacher_forced_requests(torch, forward, params, cfg, reqs, tol: float) -> dict:
@@ -1318,26 +1448,28 @@ def long_context_leg(torch, np, kernels: dict, params, cfg) -> dict:
                         prompts=LONG_SERVE_PROMPTS)
     torch.cuda.synchronize()
     reset_counts(kernels)
-    d0, f0 = eng.n_dispatches, eng.n_host_fetches
+    d0, f0, b0, g0 = (eng.n_dispatches, eng.n_host_fetches, dict(eng.bucket_dispatches),
+                      graph_totals())
     t0 = time.perf_counter()
-    with RaggedSplits(da) as splits:
-        snap = eng.replay_trace(trace)
-        torch.cuda.synchronize()
+    snap = eng.replay_trace(trace)
+    torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts(kernels)
+    graphs_run = graph_delta(g0)
     dispatches, fetches = eng.n_dispatches - d0, eng.n_host_fetches - f0
     if snap["finished"] != LONG_SERVE_REQUESTS:
         raise AssertionError(f"long-context leg: {snap['finished']} of {LONG_SERVE_REQUESTS} "
                              "finished")
     want = {name: 0 for name in kernels}
     want.update(ragged_paged_attention=layers * dispatches, sample_epilogue=dispatches,
-                ragged_paged_attention_combine=splits.n)
+                ragged_paged_attention_combine=ragged_combines(torch, da, eng, cfg, b0))
     if launches != want or fetches != dispatches:
         raise AssertionError(f"long-context leg: launch counts {launches} != implied {want}, "
                              f"{fetches} host fetches for {dispatches} dispatches")
+    check_replayed("long-context leg", graphs_run, dispatches)
     tf = teacher_forced_requests(torch, forward, params, cfg, eng.scheduler.finished,
                                  TEACHER_TOL)
-    return dict(launches=launches, implied=want, requests=LONG_SERVE_REQUESTS,
+    return dict(launches=launches, implied=want, graphs=graphs_run, requests=LONG_SERVE_REQUESTS,
                 prompt_len=LONG_SERVE_PROMPTS, new_tokens=LONG_SERVE_TOKENS,
                 table_slots=eng.max_blocks_per_seq * SERVE_BLOCK, wall_s=wall,
                 generated_tokens=snap["total_generated_tokens"], ticks=snap["ticks"],
@@ -1368,12 +1500,13 @@ def serve_phase(torch, np, kernels: dict, card: str) -> dict:
         torch.cuda.synchronize()
         reset_counts(kernels)
         d0, dd0, f0 = eng.n_dispatches, eng.n_decode_dispatches, eng.n_host_fetches
+        b0, g0 = dict(eng.bucket_dispatches), graph_totals()
         t0 = time.perf_counter()
-        with RaggedSplits(da) as splits:
-            snap = eng.replay_trace(trace)
-            torch.cuda.synchronize()
+        snap = eng.replay_trace(trace)
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_counts(kernels)
+        graphs_run = graph_delta(g0)
         dispatches, fetches = eng.n_dispatches - d0, eng.n_host_fetches - f0
         decode_dispatches = eng.n_decode_dispatches - dd0
         if snap["finished"] != SERVE_REQUESTS:
@@ -1384,7 +1517,11 @@ def serve_phase(torch, np, kernels: dict, card: str) -> dict:
         want["ragged_paged_attention" if eng.mixed else "paged_decode_attention"] = layers * steps
         nsplit = None
         if eng.mixed:
-            want["ragged_paged_attention_combine"] = splits.n
+            want["ragged_paged_attention_combine"] = ragged_combines(torch, da, eng, cfg, b0)
+            # the unified tick replays one graph per bucket
+            check_replayed(f"serve leg {leg}", graphs_run, dispatches)
+        elif any(graphs_run.values()):
+            raise AssertionError(f"serve leg {leg}: the phase-split tick ran graphs {graphs_run}")
         if not eng.mixed:
             # the paged decode's split plan over the engine's [slots, blocks
             # per sequence] tables: a combine follows each launch when > 1
@@ -1399,7 +1536,8 @@ def serve_phase(torch, np, kernels: dict, card: str) -> dict:
         tf = teacher_forced_requests(torch, forward, params, cfg, eng.scheduler.finished,
                                      TEACHER_TOL)
         legs[leg] = dict(
-            launches=launches, implied=want, paged_nsplit=nsplit, wall_s=wall,
+            launches=launches, implied=want, graphs=graphs_run, compile_counts=eng.compile_counts(),
+            mixed_buckets=list(eng.mixed_buckets), paged_nsplit=nsplit, wall_s=wall,
             generated_tokens=snap["total_generated_tokens"],
             tok_s_per_card=snap["total_generated_tokens"] / wall,
             ticks=snap["ticks"], dispatches=dispatches, decode_dispatches=decode_dispatches,
@@ -1497,9 +1635,11 @@ def quant_phase(torch, np, kernels: dict, card: str, main: dict, serve: dict) ->
         gen.generate(prompts, 4)  # warm-up
         torch.cuda.synchronize()
         reset_counts(kernels)
+        g0 = graph_totals()
         res = gen.generate(prompts, DECODE_STEPS)
         torch.cuda.synchronize()
         launches = read_counts(kernels)
+        check_replayed(f"quant {mode}", graph_delta(g0), steps)
         want = {name: 0 for name in kernels}
         want.update(flash_attention=layers, decode_attention=layers * steps,
                     decode_attention_combine=layers * steps * combines(
@@ -1549,19 +1689,20 @@ def quant_phase(torch, np, kernels: dict, card: str, main: dict, serve: dict) ->
     torch.cuda.synchronize()
     trace = serve_trace(np, cfg, SERVE_REQUESTS, SERVE_NEW_TOKENS, seed=0)
     reset_counts(kernels)
-    d0, f0 = eng.n_dispatches, eng.n_host_fetches
+    d0, f0, b0, g0 = (eng.n_dispatches, eng.n_host_fetches, dict(eng.bucket_dispatches),
+                      graph_totals())
     t0 = time.perf_counter()
-    with RaggedSplits(da) as splits:
-        snap = eng.replay_trace(trace)
-        torch.cuda.synchronize()
+    snap = eng.replay_trace(trace)
+    torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts(kernels)
+    check_replayed("int8 serve", graph_delta(g0), eng.n_dispatches - d0)
     dispatches, fetches = eng.n_dispatches - d0, eng.n_host_fetches - f0
     if snap["finished"] != SERVE_REQUESTS:
         raise AssertionError(f"int8 serve: {snap['finished']} of {SERVE_REQUESTS} finished")
     want = {name: 0 for name in kernels}
     want.update(ragged_paged_attention=layers * dispatches, sample_epilogue_int8=dispatches,
-                ragged_paged_attention_combine=splits.n)
+                ragged_paged_attention_combine=ragged_combines(torch, da, eng, cfg, b0))
     if launches != want or fetches != dispatches:
         raise AssertionError(f"int8 serve: launch counts {launches} != implied {want}, "
                              f"{fetches} host fetches for {dispatches} dispatches")
@@ -1700,13 +1841,18 @@ def main() -> int:
                "ragged_paged_attention": (da.ragged_paged_attention, "launches"),
                "ragged_paged_attention_combine": (da.ragged_paged_attention, "combine_launches"),
                "sample_epilogue_int8": (se.sample_epilogue, "launches_int8")}
-    mp, gen, prompts = main_path(torch, np, kernels, smi)
+    mp, gen, prompts, main_tokens = main_path(torch, np, kernels, smi)
     record(mp)
     prof = profile_generate(torch, gen, prompts, smi)
     record(prof)
     failed = [k for k, v in mp.items() if isinstance(v, dict) and not v.get("teacher_forced", {}).get("ok", True)]
     if failed:
         raise AssertionError(f"teacher-forced check failed for {failed}")
+    gp = graph_phase(torch, np, smi, gen, prompts, main_tokens)
+    record(gp)
+    if not gp["ok"]:
+        raise AssertionError("captured steps differ from their eager runs: " + json.dumps(
+            {k: v["identical"] for k, v in gp["checks"].items()}))
     del gen
     torch.cuda.empty_cache()
 

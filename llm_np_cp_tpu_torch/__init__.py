@@ -13,7 +13,10 @@ block pool and tick modes with the ``ragged_paged_attention`` and
 ``paged_decode_attention`` kernels (slice 2); quantized weights
 (``quant.py``: int8 / int4, weight-only or W8A8) through both, with the
 epilogue's int8-head variant, ``utils/quality.py``, and the ``softmax``
-kernel, which no model path calls (slice 3).
+kernel, which no model path calls (slice 3); the captured step
+(``graphs.py``: the decode step and the engine's unified tick replayed
+as CUDA graphs, the KV cache's offset on the card), the counterpart of
+``jax.jit``.
 
 Entry points take ``device=`` and default to ``"cuda"``; they raise when
 no card is present unless the caller asks for ``"cpu"``.

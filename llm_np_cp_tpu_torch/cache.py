@@ -1,14 +1,22 @@
 """Static preallocated KV cache (port of ``llm_np_cp_tpu/cache.py``).
 
-    k, v:  [num_layers, batch, max_seq, num_kv_heads, head_dim]
-    valid: [batch, max_seq] bool — written AND not a pad token
-    length: Python int — tokens written so far
+    k, v:   [num_layers, batch, max_seq, num_kv_heads, head_dim]
+    valid:  [batch, max_seq] bool — written AND not a pad token
+    offset: 0-d int32 tensor on the cache's device — tokens written so
+            far (the JAX cache's ``length`` scalar)
+    length: Python int — the same count, kept on the host
 
 The JAX cache is an immutable pytree that jit donates and rebinds; here
 the slabs are updated IN PLACE (``update_layer`` writes into the layer's
-slice, ``truncate`` clears the bitmap), so one allocation serves the
-whole generation.  Only the scalar offset is ported: per-row ``[B]``
-lengths belong to speculative decoding, which is a later slice.
+slots, ``truncate`` clears the bitmap), so one allocation serves the
+whole generation.  A step reads its write slots, positions and mask from
+``offset`` and advances it in place, so the step never reads the count
+back and a CUDA graph of it replays at the right slots; whoever advances
+``offset`` advances ``length`` too, and the host-side checks (capacity,
+the flash prefill's fresh cache, chunk offsets) read ``length`` alone.
+Only the scalar offset is ported: per-row ``[B]`` lengths belong to
+speculative decoding, which is a later slice (the writes already take a
+``[B, S]`` slot index, so a ``[B]`` offset changes only ``cache_slots``).
 
 int8 mode (``dtype=torch.int8``): per-token-per-head symmetric absmax/127
 scales ``[L, B, S, K]`` float32 ride beside the 1-byte slabs.
@@ -17,6 +25,7 @@ scales ``[L, B, S, K]`` float32 ride beside the 1-byte slabs.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 
@@ -40,6 +49,20 @@ class KVCache:
     length: int = 0
     k_scale: torch.Tensor | None = None  # [L, B, S_max, K] f32 (int8 mode)
     v_scale: torch.Tensor | None = None
+    offset: torch.Tensor | None = None  # 0-d int32 on the slabs' device
+    # the static-shape decode steps built over this cache (generate.py),
+    # keyed by their static inputs: a CUDA graph replays this cache's
+    # addresses, so it lives as long as the cache does
+    steps: dict[Any, Any] = dataclasses.field(default_factory=dict, repr=False, compare=False)
+
+    def __post_init__(self) -> None:
+        if self.offset is None:
+            self.offset = torch.full((), self.length, dtype=torch.int32, device=self.k.device)
+
+    def set_length(self, n: int) -> None:
+        """Move both counts to ``n`` (the device one in place, no sync)."""
+        self.length = n
+        self.offset.fill_(n)
 
     @classmethod
     def init(
@@ -83,28 +106,45 @@ class KVCache:
 
 def truncate(cache: KVCache, new_length: int) -> KVCache:
     """Logically roll the cache back to ``new_length`` tokens, in place:
-    slots ≥ new_length are marked invalid and ``length`` moves back; the
-    slabs are left as they are and later writes overwrite them."""
+    slots ≥ new_length are marked invalid and ``length`` and ``offset``
+    move back; the slabs are left as they are and later writes overwrite
+    them."""
     if not isinstance(new_length, int):
         raise TypeError(
             "truncate takes a scalar int length; per-row [B] lengths are "
             "not ported yet"
         )
     cache.valid[:, new_length:] = False
-    cache.length = new_length
+    cache.set_length(new_length)
     return cache
 
 
-def _check_offset(offset: int, s_new: int, s_max: int) -> None:
-    if not isinstance(offset, int):
-        raise TypeError(
-            "the cache offset must be a Python int; per-row [B] offsets "
-            "are not ported yet"
-        )
-    if offset < 0 or offset + s_new > s_max:
-        raise ValueError(
-            f"cache write [{offset}, {offset + s_new}) outside capacity {s_max}"
-        )
+def cache_slots(offset: int | torch.Tensor, b: int, s_new: int, s_max: int,
+                device: torch.device) -> torch.Tensor:
+    """``[B, S_new]`` int64 cache slots of a write of ``s_new`` tokens at
+    ``offset``: a host int (checked against the capacity ``s_max``) or a
+    0-d device tensor (never read back: its caller checks the capacity
+    on its host count).  Per-row ``[B]`` offsets raise."""
+    if isinstance(offset, torch.Tensor):
+        if offset.ndim:
+            raise TypeError("per-row [B] cache offsets are not ported yet")
+        base = offset.long()
+    elif isinstance(offset, int):
+        if offset < 0 or offset + s_new > s_max:
+            raise ValueError(
+                f"cache write [{offset}, {offset + s_new}) outside capacity {s_max}"
+            )
+        base = offset
+    else:
+        raise TypeError(f"the cache offset must be an int or a 0-d tensor, got {type(offset)}")
+    return (base + torch.arange(s_new, device=device)).expand(b, s_new)
+
+
+def write_slots(slab: torch.Tensor, new: torch.Tensor, slots: torch.Tensor) -> None:
+    """``slab[b, slots[b, j]] = new[b, j]`` along the seq axis, IN PLACE
+    (slab [B, S_max, ...], new [B, S_new, ...], slots [B, S_new])."""
+    idx = slots.reshape(*slots.shape, *(1,) * (new.ndim - 2)).expand(new.shape)
+    slab.scatter_(1, idx, new.to(slab.dtype))
 
 
 def update_layer(
@@ -112,20 +152,28 @@ def update_layer(
     v_layer: torch.Tensor,
     k_new: torch.Tensor,
     v_new: torch.Tensor,
-    offset: int,
+    offset: int | torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Write new keys/values at ``offset`` along the seq axis, IN PLACE.
 
-    k_layer/v_layer: [B, S_max, K, D]; k_new/v_new: [B, S_new, K, D].
-    Unlike the JAX version (whose clamped dynamic_update_slice silently
-    corrupts an overflowing write), an out-of-capacity write raises.
-    Returns the (updated) layer slabs.
+    k_layer/v_layer: [B, S_max, K, D]; k_new/v_new: [B, S_new, K, D];
+    offset: a host int or a 0-d device tensor, or the ``[B, S_new]``
+    slots ``cache_slots`` made of one.  Unlike the JAX version (whose
+    clamped dynamic_update_slice silently corrupts an overflowing write),
+    an out-of-capacity host offset raises.  Returns the (updated) layer
+    slabs.
     """
-    _check_offset(offset, k_new.shape[1], k_layer.shape[1])
-    s_new = k_new.shape[1]
-    k_layer[:, offset:offset + s_new] = k_new.to(k_layer.dtype)
-    v_layer[:, offset:offset + s_new] = v_new.to(v_layer.dtype)
+    slots = _slots(offset, k_new, k_layer)
+    write_slots(k_layer, k_new, slots)
+    write_slots(v_layer, v_new, slots)
     return k_layer, v_layer
+
+
+def _slots(offset: int | torch.Tensor, k_new: torch.Tensor, k_layer: torch.Tensor) -> torch.Tensor:
+    b, s_new = k_new.shape[:2]
+    if isinstance(offset, torch.Tensor) and offset.shape == (b, s_new):
+        return offset
+    return cache_slots(offset, b, s_new, k_layer.shape[1], k_layer.device)
 
 
 def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -152,17 +200,15 @@ def update_layer_quantized(
     vs_layer: torch.Tensor,
     k_new: torch.Tensor,
     v_new: torch.Tensor,
-    offset: int,
+    offset: int | torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """``update_layer`` for the int8 cache: quantize the new tokens' K/V
     and write values and scales at ``offset``, IN PLACE."""
-    _check_offset(offset, k_new.shape[1], k_layer.shape[1])
-    s_new = k_new.shape[1]
+    slots = _slots(offset, k_new, k_layer)
     kq, ks = quantize_kv(k_new)
     vq, vs = quantize_kv(v_new)
-    sl = slice(offset, offset + s_new)
-    k_layer[:, sl] = kq
-    v_layer[:, sl] = vq
-    ks_layer[:, sl] = ks
-    vs_layer[:, sl] = vs
+    write_slots(k_layer, kq, slots)
+    write_slots(v_layer, vq, slots)
+    write_slots(ks_layer, ks, slots)
+    write_slots(vs_layer, vs, slots)
     return k_layer, v_layer, ks_layer, vs_layer

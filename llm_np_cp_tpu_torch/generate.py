@@ -1,17 +1,31 @@
 """Generation: prefill + decode loops (port of ``llm_np_cp_tpu/generate.py``).
 
-The JAX package compiles the whole decode loop into one program
-(``lax.scan`` / ``lax.while_loop``).  Here the loop is a Python loop of
-single-token forwards with the same outputs: sequences that hit a stop
-token keep feeding it (``_trim_after_stop`` normalises the tail), and
-``early_stop`` leaves the loop once every row is done.  CUDA-graph
-capture of the step is later work.
+The JAX package compiles each decode step into one program
+(``make_decode_step_fn`` / ``make_decode_loop_fn`` under ``jax.jit``).
+Here the decode step is a function over static buffers that the cache
+owns (the input token, the ``done`` rows, the pad offsets), reading its
+write slot and positions from the cache's device offset, and
+``graphs.CapturedStep`` runs it: on the card it is captured as a CUDA
+graph once per static shape — (batch, cache capacity, ragged or not)
+within one step function, whose attention impl, tail, sampler and cache
+dtype are fixed — and replayed with one launch per token; on the CPU
+the same function runs eagerly, which is what the tests compare with
+the JAX package.  The loop stays a Python loop with the same outputs:
+sequences that hit a stop token keep feeding it (the ``where`` / ``isin``
+update is inside the step, ``_trim_after_stop`` normalises the tail),
+and ``early_stop`` reads ``done.all()`` back once per step to leave the
+loop once every row is done.  Prefill stays eager: its shape is the
+prompt's.
 
 The decode tail under a greedy sampler with a float or int8 head is the fused
 ``sample_epilogue`` kernel (``epilogue_impl == "fused"``); the prefill
-tail stays ``final_logits`` + ``Sampler``.  Draws use one
-``torch.Generator`` per call, seeded with ``seed``.  ``GenerateResult``
-timings synchronise the card before reading the clock.
+tail stays ``final_logits`` + ``Sampler``.  Draws use the Generator's
+one ``torch.Generator``, reseeded with ``seed`` per call and registered
+with each graph, so a replay draws as the eager step would.  A
+``Generator`` keeps one cache per (batch, capacity) and resets it per
+call (validity bitmap and offsets), so its graphs replay the same
+addresses.  ``GenerateResult`` timings synchronise the card before
+reading the clock.
 """
 
 from __future__ import annotations
@@ -26,6 +40,7 @@ import torch
 from llm_np_cp_tpu_torch.cache import KVCache, align_capacity
 from llm_np_cp_tpu_torch.config import ModelConfig
 from llm_np_cp_tpu_torch.device import resolve_device
+from llm_np_cp_tpu_torch.graphs import CapturedStep
 from llm_np_cp_tpu_torch.models.transformer import (
     epilogue_gate_error,
     forward,
@@ -156,21 +171,106 @@ def _make_sample_tail(config: ModelConfig, sampler: Sampler, fused_epilogue: boo
     return lambda params, gen, hid: sample_epilogue_tail(params, hid[:, -1], config)
 
 
+@dataclasses.dataclass(eq=False)
+class _StepState:
+    """One decode step's static buffers over one cache: the input token
+    (the step writes its sample back here), the rows that hit a stop
+    token, the ragged batch's pad offsets, and the step runner."""
+
+    cache: KVCache
+    params: Params
+    tok: torch.Tensor  # [B] int32
+    done: torch.Tensor  # [B] bool
+    pads: torch.Tensor | None  # [B] int64 (ragged batches)
+    stops: torch.Tensor | None
+    gen: torch.Generator | None
+    run: CapturedStep | None = None
+
+
+def _make_step_body(config: ModelConfig, sampler: Sampler, attn_impl: str,
+                    fused_epilogue: bool, device: torch.device) -> Callable:
+    """``body(st)``: one token through the decoder from ``st.tok`` at the
+    cache's device offset, the sample written back to ``st.tok`` (rows
+    already ``done`` keep their token, and a stop token marks its row
+    done).  It moves the device offset alone: a replay runs no Python,
+    so the caller advances the host count."""
+    sample_tail = _make_sample_tail(config, sampler, fused_epilogue)
+
+    def body(st: _StepState) -> None:
+        n = st.cache.length
+        out, _ = forward(
+            st.params, st.tok[:, None], config, st.cache, logits_last_only=True,
+            pad_offsets=st.pads, attn_impl=attn_impl, skip_logits=fused_epilogue,
+            device=device,
+        )
+        st.cache.length = n
+        nxt = sample_tail(st.params, st.gen, out)
+        if st.stops is not None:
+            nxt = torch.where(st.done, st.tok, nxt)
+            st.done |= torch.isin(nxt, st.stops)
+        st.tok.copy_(nxt)
+
+    return body
+
+
+def _step_state(body: Callable, sampler: Sampler, stop_tokens: tuple[int, ...], params: Params,
+                cache: KVCache, gen: torch.Generator | None, ragged: bool) -> _StepState:
+    """The cache's static step for ``body`` over ``params`` (and, for a
+    sampled kind, ``gen``), built at the first call with these inputs."""
+    draws = sampler.kind != "greedy"
+    key = (body, id(params), id(gen) if draws else None, ragged)
+    st = cache.steps.get(key)
+    if st is None:
+        dev, b = cache.k.device, cache.k.shape[1]
+        st = _StepState(
+            cache=cache, params=params,
+            tok=torch.zeros(b, dtype=torch.int32, device=dev),
+            done=torch.zeros(b, dtype=torch.bool, device=dev),
+            pads=torch.zeros(b, dtype=torch.int64, device=dev) if ragged else None,
+            stops=(torch.tensor(stop_tokens, dtype=torch.int32, device=dev)
+                   if stop_tokens else None),
+            gen=gen if draws else None,
+        )
+        st.run = CapturedStep(lambda: body(st), dev,
+                              f"decode_step[B={b}, S={cache.max_seq_len}]", st.gen)
+        cache.steps[key] = st
+    return st
+
+
+def _advance(st: _StepState) -> None:
+    """Run the step once (eagerly, or its graph) and advance the host
+    count as the step advanced the device offset."""
+    cache = st.cache
+    if cache.length + 1 > cache.max_seq_len:
+        raise ValueError(
+            f"writing 1 token at offset {cache.length} exceeds KV-cache "
+            f"capacity {cache.max_seq_len}"
+        )
+    st.run()
+    cache.length += 1
+
+
+def _load_inputs(st: _StepState, tok: torch.Tensor, pad_offsets: torch.Tensor | None) -> None:
+    st.tok.copy_(tok)
+    if st.pads is not None:
+        st.pads.copy_(pad_offsets)
+
+
 def make_decode_step_fn(
     config: ModelConfig, sampler: Sampler, attn_impl: str = "xla",
     fused_epilogue: bool = False, *, device: str | torch.device = "cuda",
 ) -> Callable:
     """(params, tok [B], cache, gen, pad_offsets=None) → (next_tok [B],
-    cache) — one token, the cache written in place."""
-    sample_tail = _make_sample_tail(config, sampler, fused_epilogue)
+    cache) — one token, the cache written in place.  The step is built
+    over the cache's static buffers and, on the card, captured at its
+    first call and replayed after."""
+    body = _make_step_body(config, sampler, attn_impl, fused_epilogue, resolve_device(device))
 
     def step(params, tok, cache, gen, pad_offsets=None):
-        out, cache = forward(
-            params, tok[:, None], config, cache, logits_last_only=True,
-            pad_offsets=pad_offsets, attn_impl=attn_impl,
-            skip_logits=fused_epilogue, device=device,
-        )
-        return sample_tail(params, gen, out), cache
+        st = _step_state(body, sampler, (), params, cache, gen, pad_offsets is not None)
+        _load_inputs(st, tok, pad_offsets)
+        _advance(st)
+        return st.tok.clone(), cache
 
     return step
 
@@ -191,29 +291,26 @@ def make_decode_loop_fn(
     Rows that hit a stop token keep feeding it.  early_stop=True (needs
     stop_tokens) leaves the loop once every row is done; unfilled tail
     slots hold 0 and ``_trim_after_stop`` normalises them, so outputs
-    equal the fixed-trip loop's."""
+    equal the fixed-trip loop's.  Every step is the one static step of
+    the cache (captured on the card at the first, replayed after)."""
     if early_stop and not stop_tokens:
         raise ValueError("early_stop requires stop_tokens")
-    step = make_decode_step_fn(config, sampler, attn_impl, fused_epilogue, device=device)
+    body = _make_step_body(config, sampler, attn_impl, fused_epilogue, resolve_device(device))
 
     def decode_loop(params, first_tok, cache, gen, num_steps, pad_offsets=None):
-        dev = first_tok.device
-        stops = torch.tensor(stop_tokens, dtype=first_tok.dtype, device=dev) if stop_tokens else None
-        done = (
-            torch.isin(first_tok, stops) if stops is not None
-            else torch.zeros(first_tok.shape, dtype=torch.bool, device=dev)
-        )
-        buf = torch.zeros((first_tok.shape[0], num_steps), dtype=torch.int32, device=dev)
-        tok, i = first_tok, 0
+        st = _step_state(body, sampler, stop_tokens, params, cache, gen, pad_offsets is not None)
+        _load_inputs(st, first_tok, pad_offsets)
+        if st.stops is not None:
+            st.done.copy_(torch.isin(st.tok, st.stops))
+        buf = torch.zeros((first_tok.shape[0], num_steps), dtype=torch.int32,
+                          device=first_tok.device)
+        i = 0
         while i < num_steps:
-            if early_stop and bool(done.all()):
+            if early_stop and bool(st.done.all()):
                 break
-            nxt, cache = step(params, tok, cache, gen, pad_offsets)
-            if stops is not None:
-                nxt = torch.where(done, tok, nxt)
-                done = done | torch.isin(nxt, stops)
-            buf[:, i] = nxt
-            tok, i = nxt, i + 1
+            _advance(st)
+            buf[:, i] = st.tok
+            i += 1
         return buf, cache, i
 
     return decode_loop
@@ -259,7 +356,10 @@ class Generator:
     a float or int8 (quant.py ``"q"``) head takes the fused epilogue kernel
     as its decode tail.
     There is no probe and no fallback: on the card a kernel launches or
-    raises.
+    raises, and a decode step captures and replays its graph or raises.
+    ``compile_counts()`` reports the decode-step graphs captured (on the
+    CPU, the static steps built), one per (batch, capacity, ragged)
+    the Generator has served.
     """
 
     def __init__(
@@ -300,28 +400,47 @@ class Generator:
             "fused" if epilogue_gate_error(params, config, self.sampler.kind) is None else "xla"
         )
         fused_epi = self.epilogue_impl == "fused"
-        self._step = make_decode_step_fn(
-            config, self.sampler, decode_attn_impl, fused_epilogue=fused_epi, device=dev
-        )
+        # one cache per (batch, capacity) and one generator: the decode
+        # steps' graphs replay their addresses
+        self._caches: dict[tuple[int, int], KVCache] = {}
+        self._gen = torch.Generator(device=dev)
         self._loop = make_decode_loop_fn(
             config, self.sampler, self.stop_tokens, decode_attn_impl,
             early_stop=early_stop, fused_epilogue=fused_epi, device=dev,
         )
 
-    def _init_cache(self, batch: int, max_seq_len: int) -> KVCache:
-        return KVCache.init(
-            self.config, batch, align_capacity(max_seq_len),
-            dtype=self.cache_dtype, device=self.device,
-        )
+    def _cache(self, batch: int, max_seq_len: int) -> KVCache:
+        """The Generator's cache for (batch, aligned capacity), reset to
+        empty: no slot valid, both offsets 0.  The slabs keep the last
+        call's values; nothing reads a slot the bitmap does not mark."""
+        key = (batch, align_capacity(max_seq_len))
+        cache = self._caches.get(key)
+        if cache is None:
+            cache = self._caches[key] = KVCache.init(
+                self.config, batch, key[1], dtype=self.cache_dtype, device=self.device)
+        else:
+            cache.valid.zero_()
+            cache.set_length(0)
+        return cache
+
+    def compile_counts(self) -> dict[str, int]:
+        """``{"decode_step": n}``: the decode-step graphs captured so far
+        (on the CPU, the static steps built) — one per (batch, capacity,
+        ragged) served, and no more on a repeat of the same shapes."""
+        return {"decode_step": sum(st.run.compiled for c in self._caches.values()
+                                   for st in c.steps.values())}
+
+    def graph_steps(self) -> list[CapturedStep]:
+        """Every decode step the Generator has built (capture time,
+        pool bytes and replays are on each)."""
+        return [st.run for c in self._caches.values() for st in c.steps.values()]
 
     def _ids(self, ids: Any) -> torch.Tensor:
         t = torch.as_tensor(ids, dtype=torch.long, device=self.device)
         return t[None, :] if t.ndim == 1 else t
 
     def _generator(self, seed: int) -> torch.Generator:
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed)
-        return gen
+        return self._gen.manual_seed(seed)
 
     def _run(
         self,
@@ -337,7 +456,7 @@ class Generator:
         max_seq_len = max_seq_len or s + max_new_tokens
         _check_capacity(s, max_new_tokens, max_seq_len)
         gen = self._generator(seed)
-        cache = self._init_cache(b, max_seq_len)
+        cache = self._cache(b, max_seq_len)
 
         _sync(self.device)
         t0 = time.perf_counter()
@@ -466,14 +585,17 @@ class Generator:
         max_seq_len = max_seq_len or s + max_new_tokens
         _check_capacity(s, max_new_tokens, max_seq_len)
         gen = self._generator(seed)
-        cache = self._init_cache(1, max_seq_len)
+        cache = self._cache(1, max_seq_len)
         tok, cache, _ = self._prefill(self.params, prompt_ids, cache, gen)
         t = int(tok[0])
         yield t
         for _ in range(max_new_tokens - 1):
             if t in self.stop_tokens:
                 return
-            tok, cache = self._step(self.params, tok, cache, gen)
+            # one step of the decode loop: the same static step (and graph)
+            # as generate's at this shape
+            nxt, cache, _ = self._loop(self.params, tok, cache, gen, 1)
+            tok = nxt[:, 0]
             t = int(tok[0])
             yield t
 

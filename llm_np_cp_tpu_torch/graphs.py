@@ -1,0 +1,146 @@
+"""Captured static-shape steps: the port's counterpart of ``jax.jit``.
+
+The JAX package compiles each decode step (``make_decode_step_fn``) and
+each packed-width bucket of the engine's unified tick (``_mixed_step``)
+into one program, built once per static shape and dispatched once per
+step.  Here such a step is a Python function over buffers that keep
+their addresses from one call to the next (the step's inputs are copied
+into them, its outputs read out of them), and ``CapturedStep`` runs it:
+
+- for a step on the CPU, eagerly on every call: there are no graphs, so
+  the tests run exactly the function the card captures;
+- on the card, the first call runs the function eagerly on a side stream
+  (a real step, and the warm-up that creates cuBLAS workspaces before a
+  capture may not), then captures it into a CUDA graph with a private
+  memory pool; every later call replays the graph with one launch.  A
+  capture that fails raises: nothing falls back to the eager step.
+
+``eager_steps()`` runs every step eagerly while it is entered (no
+capture, no replay): the check that a replayed step gives what the same
+function gives eagerly, on the same card.
+
+A replay runs no Python, so the kernel wrappers' launch counters would
+not see it.  The capture therefore records how far each counter moved
+while the step was captured (the kernels in the graph), puts the
+counters back (a capture launches nothing) and adds that record at every
+replay: a counter reads kernels captured × replays, plus eager launches.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import gc
+import time
+from typing import Callable, Iterator
+
+import torch
+
+# totals over every captured step of the process, as a caller may read
+# them around a run: captures, replays, eager first calls, seconds spent
+# capturing and the bytes the graphs' pools took from the card
+TOTALS = {"captures": 0, "replays": 0, "eager": 0, "capture_s": 0.0, "pool_bytes": 0}
+
+
+_EAGER = [0]
+
+
+@contextlib.contextmanager
+def eager_steps() -> Iterator[None]:
+    """While entered, every ``CapturedStep`` runs its function eagerly on
+    the current stream: nothing is captured or replayed."""
+    _EAGER[0] += 1
+    try:
+        yield
+    finally:
+        _EAGER[0] -= 1
+
+
+def launch_counters() -> list[tuple[Callable, str]]:
+    """``(wrapper, attribute)`` of every kernel launch counter."""
+    from llm_np_cp_tpu_torch.ops.cuda import decode_attention as da
+    from llm_np_cp_tpu_torch.ops.cuda import flash_attention as fa
+    from llm_np_cp_tpu_torch.ops.cuda import sample_epilogue as se
+    from llm_np_cp_tpu_torch.ops.cuda import softmax as sm
+
+    wrappers = (da.decode_attention, da.decode_attention_split, da.combine_splits,
+                da.paged_decode_attention, da.paged_decode_attention_split,
+                da.ragged_paged_attention, da.ragged_paged_attention_split,
+                fa.flash_attention, se.sample_epilogue, sm.softmax)
+    return [(fn, attr) for fn in wrappers
+            for attr in ("launches", "combine_launches", "launches_int8") if hasattr(fn, attr)]
+
+
+class CapturedStep:
+    """``fn()`` run eagerly on the CPU; on the card captured as a CUDA
+    graph at its first call and replayed at every later one.
+
+    ``generator``: a ``torch.Generator`` the step draws from, registered
+    with the graph so that each replay advances it as an eager call
+    would (reseeding it between calls restarts the stream).
+    """
+
+    def __init__(self, fn: Callable[[], None], device: torch.device, name: str,
+                 generator: torch.Generator | None = None) -> None:
+        self.fn, self.device, self.name, self.generator = fn, device, name, generator
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.deltas: tuple[tuple[Callable, str, int], ...] = ()
+        self.calls = self.replays = 0
+        self.capture_s: float | None = None
+        self.pool_bytes: int | None = None
+
+    @property
+    def compiled(self) -> bool:
+        """The step's graph exists (on the CPU, where the step runs
+        eagerly: the step has been built and run)."""
+        return self.graph is not None if self.device.type == "cuda" else self.calls > 0
+
+    def __call__(self) -> None:
+        self.calls += 1
+        if self.device.type != "cuda" or _EAGER[0]:
+            self.fn()
+            return
+        if self.graph is not None:
+            self.graph.replay()
+            self.replays += 1
+            TOTALS["replays"] += 1
+            for fn, attr, n in self.deltas:
+                setattr(fn, attr, getattr(fn, attr) + n)
+            return
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            self.fn()
+        cur.wait_stream(side)
+        TOTALS["eager"] += 1
+        self._capture()
+
+    def _capture(self) -> None:
+        snap = [(fn, attr, getattr(fn, attr)) for fn, attr in launch_counters()]
+        graph = torch.cuda.CUDAGraph()
+        if self.generator is not None:
+            graph.register_generator_state(self.generator)
+        # what torch.cuda.graph does on entry, done first so that the
+        # reserved bytes below move by the graph's pool alone
+        torch.cuda.synchronize(self.device)
+        gc.collect()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device)
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(graph):
+                self.fn()
+            torch.cuda.synchronize(self.device)
+        except Exception as e:
+            raise RuntimeError(f"capturing {self.name} as a CUDA graph failed: {e}") from e
+        finally:
+            moved = [(fn, attr, getattr(fn, attr) - n) for fn, attr, n in snap]
+            for fn, attr, n in snap:
+                setattr(fn, attr, n)
+        self.capture_s = time.perf_counter() - t0
+        self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+        self.deltas = tuple(m for m in moved if m[2])
+        self.graph = graph
+        TOTALS["captures"] += 1
+        TOTALS["capture_s"] += self.capture_s
+        TOTALS["pool_bytes"] += self.pool_bytes

@@ -26,6 +26,7 @@ import torch
 
 from llm_np_cp_tpu_torch.cache import (
     KVCache,
+    cache_slots,
     dequantize_kv,
     update_layer,
     update_layer_quantized,
@@ -161,7 +162,9 @@ def embed_inputs(params: Params, input_ids: torch.Tensor, config: ModelConfig) -
     else:
         x = emb[input_ids].to(dtype)
     if config.scale_embeddings:
-        x = x * torch.tensor(math.sqrt(config.hidden_size), dtype=dtype, device=x.device)
+        # sqrt(hidden) rounded to the weight dtype on the host: a scalar
+        # operand, so the step copies nothing to the card
+        x = x * torch.tensor(math.sqrt(config.hidden_size), dtype=dtype).item()
     return x
 
 
@@ -380,9 +383,12 @@ def forward(
     """Run the decoder (same contract as the JAX ``forward``).
 
     input_ids: [B, S] integer ids.
-    cache: ``KVCache`` written IN PLACE (slabs, validity bitmap and
-        ``length``), or None for cache-less full recompute.
-    positions: [B, S] absolute positions; default ``cache.length + arange(S)``.
+    cache: ``KVCache`` written IN PLACE (slabs and validity bitmap at
+        the slots its device ``offset`` names; ``offset`` and the host
+        ``length`` advance by S), or None for cache-less full recompute.
+        The step reads nothing back from the card: the capacity check
+        uses the host ``length``.
+    positions: [B, S] absolute positions; default ``cache.offset + arange(S)``.
     attn_mask: optional [B, S] bool marking valid (non-pad) input tokens.
     pad_offsets: optional [B] per-row LEFT-padding amounts (ragged batch).
     logits_last_only: lm_head for the final position only.
@@ -407,14 +413,16 @@ def forward(
     if pad_offsets is not None:
         pad_offsets = torch.as_tensor(pad_offsets, device=dev).long()
 
-    offset = cache.length if cache is not None else 0
-    if cache is not None and offset + s > cache.max_seq_len:
+    if cache is not None and cache.length + s > cache.max_seq_len:
         raise ValueError(
-            f"writing {s} tokens at offset {offset} exceeds KV-cache "
+            f"writing {s} tokens at offset {cache.length} exceeds KV-cache "
             f"capacity {cache.max_seq_len}"
         )
+    # [B, S] cache slots of this call's tokens, from the device offset
+    slots = (cache_slots(cache.offset, b, s, cache.max_seq_len, dev) if cache is not None
+             else torch.arange(s, device=dev).expand(b, s))
     if positions is None:
-        positions = offset + torch.arange(s, device=dev)[None, :].expand(b, s)
+        positions = slots
         if pad_offsets is not None:
             positions = torch.clamp_min(positions - pad_offsets[:, None], 0)
     else:
@@ -428,7 +436,7 @@ def forward(
         if pad_offsets is not None:
             kv_positions = kv_positions[None, :] - pad_offsets[:, None]
         # the persisted bitmap keeps pad slots of earlier calls masked
-        cache.valid[:, offset:offset + s] = attn_mask if attn_mask is not None else True
+        cache.valid.scatter_(1, slots, attn_mask if attn_mask is not None else True)
         kv_valid = cache.valid
     else:
         kv_positions = positions
@@ -451,7 +459,7 @@ def forward(
             def kv_update(k, v, i=i):
                 kl, vl, ksl, vsl = update_layer_quantized(
                     cache.k[i], cache.v[i], cache.k_scale[i], cache.v_scale[i],
-                    k, v, offset,
+                    k, v, slots,
                 )
                 if attn_impl == "flash_decode" and k.shape[1] == 1:
                     return (kl, ksl), (vl, vsl)
@@ -460,7 +468,7 @@ def forward(
         elif cache is not None:
 
             def kv_update(k, v, i=i):
-                return update_layer(cache.k[i], cache.v[i], k, v, offset)
+                return update_layer(cache.k[i], cache.v[i], k, v, slots)
 
         if output_hidden_states:
             hidden_states.append(x)
@@ -478,7 +486,8 @@ def forward(
     else:
         logits = final_logits(params, x, config, last_only=logits_last_only)
     if cache is not None:
-        cache.length = offset + s
+        cache.offset.add_(s)
+        cache.length += s
 
     aux: dict[str, torch.Tensor] = {}
     if output_hidden_states:

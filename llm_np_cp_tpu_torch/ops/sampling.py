@@ -52,10 +52,13 @@ def top_p_mask(logits: torch.Tensor, p: float) -> torch.Tensor:
 
 
 def _categorical(gen: torch.Generator | None, logits: torch.Tensor) -> torch.Tensor:
+    """One draw per row from softmax(logits): the exponential race that
+    ``torch.multinomial`` runs for a single sample (argmax of p / q with
+    q ~ Exp(1)), without its host-side check of the probabilities, so a
+    captured decode step can take it."""
     probs = torch.softmax(logits, dim=-1)
-    flat = probs.reshape(-1, probs.shape[-1])
-    draw = torch.multinomial(flat, 1, generator=gen)
-    return draw.reshape(probs.shape[:-1]).to(torch.int32)
+    q = torch.empty_like(probs).exponential_(1.0, generator=gen)
+    return torch.argmax(probs / q, dim=-1).to(torch.int32)
 
 
 def sample_cdf(gen: torch.Generator | None, logits: torch.Tensor) -> torch.Tensor:

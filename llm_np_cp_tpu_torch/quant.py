@@ -101,8 +101,7 @@ def quantize_array4(w: torch.Tensor, *, axis: int = -2) -> dict[str, torch.Tenso
 
 def _unpack4_pairs(p: torch.Tensor) -> torch.Tensor:
     """uint8 [..., in/2, out] → int8 [..., in/2, 2, out] (n=0 low nibble)."""
-    shifts = torch.tensor([0, 4], dtype=torch.uint8, device=p.device).reshape(2, 1)
-    q = (p[..., None, :] >> shifts) & 0xF
+    q = torch.stack([p & 0xF, p >> 4], dim=-2)  # no host-made constant: capturable
     return q.to(torch.int8) - 8
 
 
@@ -152,9 +151,10 @@ def quantize_params(
 
 def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x [M, K] @ w [K, N]`` with a float32 result.  On the card a
-    bf16 product keeps its float32 accumulators (``out_dtype``); on the
-    CPU the product runs in float32, which is exact for bf16 inputs."""
-    if x.is_cuda and x.dtype != torch.float32:
+    bf16 product keeps its float32 accumulators (``out_dtype``) and
+    copies neither operand; on the CPU the product runs in float32,
+    which is exact for bf16 inputs."""
+    if x.is_cuda and x.dtype != torch.float32 and w.dtype == x.dtype:
         return torch.mm(x, w, out_dtype=torch.float32)
     return x.float() @ w.float()
 
@@ -190,7 +190,7 @@ def quant_einsum(spec: str, x: torch.Tensor, w: Any) -> torch.Tensor:
     lead, h = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, h)
     if not is_quantized(w):
-        return (x2.float() @ (w.T if out_major else w).float()).reshape(*lead, -1)
+        return _mm_f32(x2, w.T if out_major else w).reshape(*lead, -1)
     key = payload_key(w)
     p = payload(w)  # int8 [in, out] (or [out, in] when out_major)
     wt = p.T if out_major else p

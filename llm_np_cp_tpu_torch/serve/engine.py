@@ -36,15 +36,33 @@ token with a ``torch.Generator`` seeded from (request seed, content
 position), so a preempted request replays its stream; the draws differ
 from ``jax.random``'s, so only greedy tokens match the JAX engine.
 
-What the port leaves out, as the JAX package has it: ``jit`` and its
-buckets' compiles (PyTorch runs eagerly; ``compile_counts`` has no
-meaning here and is not ported), donation (pages are updated in place),
-and the runtime degradation to XLA fallbacks — on the card a kernel
-launches or raises, nothing falls back.  Speculative serving, meshes,
-the host tier, the journal, request log, tracer, sentinel, lifecycle
-actions, telemetry, tenants and fault injection raise
-``NotImplementedError``; ``recover``, ``finish_recovered``,
-``clone_fresh`` and ``share_compiled_steps`` are not defined yet.
+The unified tick's step is the port's counterpart of the JAX engine's
+one compile per packed-width bucket: each bucket owns static device
+buffers for its packed operands (token ids, positions, pool slots, the
+[T/8] tile metadata, the [R, MB] tables, pads, sample slots) and a
+static ``[R, W+3]`` output, and ``graphs.CapturedStep`` runs the step
+over them — on the card captured as a CUDA graph at ``warmup`` (every
+bucket, on an all-dead batch, as the JAX engine compiles every bucket)
+or at the bucket's first tick, and replayed at every later one; on the
+CPU run eagerly.  A tick
+writes its packed host metadata into the bucket's pinned host buffer
+and copies it to the card in ONE copy before the step.
+``compile_counts()`` reports ``{"mixed_step": graphs captured}``: at
+most ``len(mixed_buckets)``, and no more on a replay of the same trace.
+Eager in this slice, and so uncaptured: a non-greedy unified tick (its
+draws use a host-side ``torch.Generator`` per row and (seed, position);
+an in-graph draw is its own slice) and the phase-split tick
+(``_prefill_request``, ``_decode_step``).
+
+What the port leaves out, as the JAX package has it: donation (pages are
+updated in place) and the runtime degradation to XLA fallbacks — on the
+card a kernel launches or raises, and a step captures or raises; nothing
+falls back.  Speculative serving, meshes, the host tier, the journal,
+request log, tracer, sentinel, lifecycle actions, telemetry, tenants and
+fault injection raise ``NotImplementedError``; ``recover``,
+``finish_recovered`` and ``clone_fresh`` are not defined yet, nor is
+``share_compiled_steps``: a graph replays its own engine's pool and
+weight addresses, so a peer engine cannot adopt it.
 """
 
 from __future__ import annotations
@@ -61,6 +79,7 @@ from llm_np_cp_tpu_torch.cache import KVCache, dequantize_kv, quantize_kv
 from llm_np_cp_tpu_torch.config import ModelConfig
 from llm_np_cp_tpu_torch.device import resolve_device
 from llm_np_cp_tpu_torch.generate import IncrementalDetok, make_ragged_prefill_step
+from llm_np_cp_tpu_torch.graphs import CapturedStep
 from llm_np_cp_tpu_torch.models import transformer
 from llm_np_cp_tpu_torch.models.transformer import (
     embed_inputs,
@@ -96,12 +115,12 @@ def _ceil_to(n: int, g: int) -> int:
     return -(-n // g) * g
 
 
-def _stop_hits(samples: torch.Tensor, stop_tokens: tuple[int, ...]) -> torch.Tensor:
-    """[.., W] bool — which sampled tokens are stop tokens."""
-    hit = torch.zeros(samples.shape, dtype=torch.bool, device=samples.device)
-    for t in stop_tokens:
-        hit = hit | (samples == t)
-    return hit
+def _stop_hits(samples: torch.Tensor, stops: torch.Tensor | None) -> torch.Tensor:
+    """[.., W] bool — which sampled tokens are stop tokens (``stops``: the
+    engine's stop ids on its device, or None)."""
+    if stops is None:
+        return torch.zeros(samples.shape, dtype=torch.bool, device=samples.device)
+    return torch.isin(samples, stops)
 
 
 def _pack_sync(samples: torch.Tensor, stop_hit: torch.Tensor, accept: torch.Tensor) -> torch.Tensor:
@@ -113,10 +132,9 @@ def _pack_sync(samples: torch.Tensor, stop_hit: torch.Tensor, accept: torch.Tens
     the W=1 case.  The deliver walk reads the token column; finish rules
     stay host-side in ``_maybe_finish``, as in the JAX engine."""
     r, w = samples.shape
-    dev = samples.device
-    bits = torch.tensor([1 << j for j in range(w)], dtype=torch.int32, device=dev)
-    stop_mask = torch.where(stop_hit, bits[None, :], 0).sum(dim=1, dtype=torch.int32)
-    kcol = torch.arange(w, dtype=torch.int32, device=dev)[None, :]
+    # column ids and their bits made on the device: no host copy in a step
+    kcol = torch.arange(w, dtype=torch.int32, device=samples.device)[None, :]
+    stop_mask = torch.where(stop_hit, 1 << kcol, 0).sum(dim=1, dtype=torch.int32)
     cand = stop_hit & (kcol <= accept[:, None])
     first = torch.argmax(cand.to(torch.int32), dim=1).to(torch.int32) + 1
     advance = torch.where(cand.any(dim=1), first, accept + 1)
@@ -163,6 +181,48 @@ def pool_geometry(
     blocks_per_seq = -(-worst // block_size)
     num_blocks = slots * blocks_per_seq + spare_blocks
     return blocks_per_seq, num_blocks, blocks_per_seq * block_size
+
+
+# the unified tick's packed int32 operands, in the order of their static
+# device buffer
+_MIXED_OPERANDS = ("tokens", "positions", "tok_blk", "tok_off", "tile_row", "tile_qpos0",
+                   "tile_qlen", "tables", "pads", "last_idx")
+
+
+class _MixedStep:
+    """One packed-width bucket's static step: its operands' device buffer
+    (one int32 buffer, viewed per operand), the pinned host buffer a tick
+    packs into, the ``[R, W+3]`` sync rows it writes, and its runner."""
+
+    def __init__(self, eng: "ServeEngine", t_w: int) -> None:
+        r, w = eng.scheduler.max_slots, eng._spec_w
+        nt = t_w // eng._q_tile
+        shapes = dict(tokens=(t_w,), positions=(t_w,), tok_blk=(t_w,), tok_off=(t_w,),
+                      tile_row=(nt,), tile_qpos0=(nt,), tile_qlen=(nt,),
+                      tables=(r, eng.max_blocks_per_seq), pads=(r,), last_idx=(r, w))
+        dev = eng.device
+        total = sum(math.prod(shapes[k]) for k in _MIXED_OPERANDS)
+        self.dev = torch.zeros(total, dtype=torch.int32, device=dev)
+        self.host = torch.zeros(total, dtype=torch.int32, pin_memory=dev.type == "cuda")
+        self.host_np = self.host.numpy()
+        self.spans: dict[str, tuple[int, int]] = {}
+        self.ops: dict[str, torch.Tensor] = {}
+        o = 0
+        for k in _MIXED_OPERANDS:
+            n = math.prod(shapes[k])
+            self.spans[k] = (o, n)
+            self.ops[k] = self.dev[o:o + n].view(shapes[k])
+            o += n
+        self.out = torch.zeros((r, w + 3), dtype=torch.int32, device=dev)
+        self.run = CapturedStep(lambda: eng._mixed_body(self.ops, self.out), dev,
+                                f"mixed_step[T={t_w}]")
+
+    def upload(self, host: dict[str, np.ndarray]) -> None:
+        """The tick's packed host metadata → the static device buffer, in
+        ONE copy (pinned host memory, so the copy is asynchronous)."""
+        for k, (o, n) in self.spans.items():
+            self.host_np[o:o + n] = host[k].reshape(-1)
+        self.dev.copy_(self.host, non_blocking=True)
 
 
 class ServeEngine:
@@ -257,6 +317,11 @@ class ServeEngine:
         self.n_dispatches = 0
         self.n_decode_dispatches = 0
         self.n_host_fetches = 0
+        # the unified tick's steps by packed width, and its dispatches per width
+        self._mixed_steps: dict[int, _MixedStep] = {}
+        self.bucket_dispatches: dict[int, int] = {}
+        self._stops = (torch.tensor(self.stop_tokens, dtype=torch.int32, device=self.device)
+                       if self.stop_tokens else None)
 
         # fused sampling epilogue: greedy sampler over a float or int8 head
         self.epilogue_impl = "xla"
@@ -290,9 +355,9 @@ class ServeEngine:
     def _make_buckets(self, budget: int, max_slots: int) -> tuple[int, ...]:
         """Packed-width buckets for the mixed step: a doubling ladder of
         q-tile multiples capped by the worst aligned total (every planned
-        token plus per-row tile padding).  Eager PyTorch compiles
-        nothing, but the ladder keeps the packed shapes — and with them
-        the dead-lane work — the JAX engine's."""
+        token plus per-row tile padding) — the JAX engine's ladder, so
+        the packed shapes (and the dead-lane work) are its too, with one
+        captured graph per bucket used."""
         qb = self._q_tile
         a_max = _ceil_to(budget + max_slots * (qb - 1), qb)
         buckets = []
@@ -443,16 +508,38 @@ class ServeEngine:
                             seeds, pos, live)
 
     def _mixed_step(self, host: dict[str, np.ndarray]) -> torch.Tensor:
-        """The unified-tick step: ONE pass of the packed ragged batch
-        through the decoder — every token's K/V scattered into its pool
-        block, ``ragged_paged_attention`` over the block tables in every
-        layer, and each row's sample slot through the tail.  Returns the
-        packed ``[R, W+3]`` sync rows (on the device)."""
+        """The unified-tick step of the tick's bucket: the packed operands
+        copied into the bucket's static buffers, then its captured step
+        (a greedy sampler) or the same step run eagerly with the host
+        draws (a sampled kind).  Returns the bucket's static ``[R, W+3]``
+        sync rows (on the device; read them before the next tick)."""
+        t_w = host["tokens"].shape[0]
+        st = self._bucket_step(t_w)
+        st.upload(host)
+        self.bucket_dispatches[t_w] = self.bucket_dispatches.get(t_w, 0) + 1
+        if self.sampler.kind == "greedy":
+            st.run()
+        else:
+            self._mixed_body(st.ops, st.out, host)
+        return st.out
+
+    def _bucket_step(self, t_w: int) -> _MixedStep:
+        st = self._mixed_steps.get(t_w)
+        if st is None:
+            st = self._mixed_steps[t_w] = _MixedStep(self, t_w)
+        return st
+
+    def _mixed_body(self, ops: dict[str, torch.Tensor], out: torch.Tensor,
+                    host: dict[str, np.ndarray] | None = None) -> None:
+        """ONE pass of the packed ragged batch through the decoder — every
+        token's K/V scattered into its pool block, ``ragged_paged_attention``
+        over the block tables in every layer, and each row's sample slot
+        through the tail — writing the packed sync rows to ``out``.
+        ``host`` carries the draws' (seed, position) rows of a sampled
+        kind; a greedy step reads nothing from the host."""
         cfg = self.config
         (tokens, positions, tok_blk, tok_off, tile_row, tile_qpos0, tile_qlen, tables,
-         pads, last_idx) = self._upload(*(host[k] for k in (
-             "tokens", "positions", "tok_blk", "tok_off", "tile_row", "tile_qpos0",
-             "tile_qlen", "tables", "pads", "last_idx")))
+         pads, last_idx) = (ops[k] for k in _MIXED_OPERANDS)
         win = cfg.sliding_window
 
         def write(i, k, v):
@@ -469,14 +556,14 @@ class ServeEngine:
 
         x = embed_inputs(self.params, tokens[None, :], cfg)  # [1, T, H]
         x = self._run_layers(x, positions[None, :], write, attend)
-        r, w_cols = host["last_idx"].shape
+        r, w_cols = last_idx.shape
         xr = x[0][last_idx.reshape(-1)]  # [R*W, H]: only the sample slots
-        nxt = self._sample_tail(
-            xr, np.repeat(host["seeds"], w_cols), host["sample_pos"].reshape(-1),
-            (np.arange(w_cols)[None, :] < host["verify_len"][:, None]).reshape(-1),
-        ).reshape(r, w_cols)
+        draws = (None, None, None) if host is None else (
+            np.repeat(host["seeds"], w_cols), host["sample_pos"].reshape(-1),
+            (np.arange(w_cols)[None, :] < host["verify_len"][:, None]).reshape(-1))
+        nxt = self._sample_tail(xr, *draws).reshape(r, w_cols)
         accept = torch.zeros(r, dtype=torch.int32, device=nxt.device)
-        return _pack_sync(nxt, _stop_hits(nxt, self.stop_tokens), accept)
+        out.copy_(_pack_sync(nxt, _stop_hits(nxt, self._stops), accept))
 
     def _decode_step(self, host: dict[str, np.ndarray]) -> torch.Tensor:
         """The phase-split decode step over every slot: the input token's
@@ -523,7 +610,7 @@ class ServeEngine:
         nxt = self._sample_tail(x[:, -1], host["seeds"], host["content_pos"],
                                 host["live"])[:, None]
         accept = torch.zeros(nxt.shape[0], dtype=torch.int32, device=nxt.device)
-        return _pack_sync(nxt, _stop_hits(nxt, self.stop_tokens), accept)
+        return _pack_sync(nxt, _stop_hits(nxt, self._stops), accept)
 
     def _gather_prefix(self, cache: KVCache, ids: list[int], pad: int) -> None:
         """Copy shared blocks ``ids`` into the temp cache's slots
@@ -540,7 +627,7 @@ class ServeEngine:
                 slab[:, 0, :n] = page[:, idx].reshape(l_axis, n, *page.shape[3:])
         pos = torch.arange(cache.max_seq_len, device=self.device)
         cache.valid[0] = (pos >= pad) & (pos < n)
-        cache.length = n
+        cache.set_length(n)
 
     def _scatter_prefill(self, cache: KVCache, ids: list[int], start: int) -> None:
         """Copy the temp cache's slots from block offset ``start`` into
@@ -964,16 +1051,47 @@ class ServeEngine:
         return self.scheduler.has_work
 
     # ------------------------------------------------------------------
+    def compile_counts(self) -> dict[str, int]:
+        """The static-shape contract, as the JAX engine reports it: a
+        unified-tick engine reports ``{"mixed_step": n}``, the buckets
+        whose step has its CUDA graph (on the CPU, whose static step has
+        run) — at most ``len(mixed_buckets)``, and no more on a replay of
+        the same trace.  A non-greedy unified tick runs eagerly (n stays
+        0); the phase-split tick runs eagerly and reports nothing."""
+        if not self.mixed:
+            return {}
+        return {"mixed_step": sum(st.run.compiled for st in self._mixed_steps.values())}
+
+    def graph_steps(self) -> list[CapturedStep]:
+        """The unified tick's bucket steps (capture time, pool bytes and
+        replays are on each)."""
+        return [st.run for st in self._mixed_steps.values()]
+
+    def _warm_mixed_bucket(self, t_w: int) -> None:
+        """Capture one packed-width bucket's step with an all-dead batch:
+        every lane points at the scratch block and is fully masked, so
+        the only effect is the capture (and a garbage write to scratch)."""
+        st = self._bucket_step(t_w)
+        if not st.run.compiled:
+            st.upload({k: np.zeros(st.ops[k].shape, np.int32) for k in _MIXED_OPERANDS})
+            st.run()
+            st.out.cpu()
+
     def warmup(self, prompt_lens: list[int], max_new_tokens: int = 2) -> None:
         """Run one dummy request through the engine before measuring —
         it builds the kernel library and warms the card's allocator and
-        cuBLAS handles (eager PyTorch has no compiles to warm) — then
-        drop its traces: prefix-cache entries, the finished ledger and
+        cuBLAS handles — and, as the JAX engine compiles every bucket,
+        capture every packed-width bucket's graph (a greedy unified
+        tick), so that no capture stalls a measured tick; then drop the
+        dummy's traces: prefix-cache entries, the finished ledger and
         the metrics."""
         if not prompt_lens:
             return
         self.submit(np.ones(min(prompt_lens), np.int32), min(2, max_new_tokens))
         self.run_until_complete()
+        if self.mixed and self.sampler.kind == "greedy":
+            for t_w in self.mixed_buckets:
+                self._warm_mixed_bucket(t_w)
         if self.pool.prefix_cache is not None:
             self.pool.prefix_cache.clear()
         self.scheduler.finished.clear()

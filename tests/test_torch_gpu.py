@@ -738,3 +738,168 @@ def test_serve_prefix_sharing_and_preemption_on_the_card(cuda, pool, tie_tol):
         logits, _ = forward(params, ids, cfg, None, logits_last_only=True)
         top2 = torch.topk(logits[0, -1], 2).values
         assert (top2[0] - top2[1]).item() <= tie_tol, (rid, j)
+
+
+# ----------------------------------------------------------------------
+# captured steps: each CUDA graph against the same step function run
+# eagerly (graphs.eager_steps), and the launch counts of its replays
+# ----------------------------------------------------------------------
+
+def _tiny_llama(dtype):
+    from llm_np_cp_tpu_torch.config import tiny_config
+    from llm_np_cp_tpu_torch.models.transformer import init_params
+
+    cfg = tiny_config("llama", head_dim=64, hidden_size=128, num_attention_heads=4,
+                      num_key_value_heads=2)
+    return cfg, init_params(0, cfg, dtype, device="cuda")
+
+
+def _counts():
+    return dict(decode=da.decode_attention.launches, ragged=da.ragged_paged_attention.launches,
+                epilogue=se.sample_epilogue.launches)
+
+
+@pytest.mark.parametrize("attn", ["xla", "flash_decode"])
+@pytest.mark.parametrize("fused", [True, False])
+def test_decode_loop_replays_as_eager(cuda, attn, fused):
+    """The decode loop's captured step (fused epilogue or the greedy
+    logits tail) gives the eager step's tokens bit for bit, and every
+    replay counts its kernels."""
+    from llm_np_cp_tpu_torch import graphs
+    from llm_np_cp_tpu_torch.cache import KVCache
+    from llm_np_cp_tpu_torch.generate import make_decode_loop_fn
+    from llm_np_cp_tpu_torch.models.transformer import forward
+    from llm_np_cp_tpu_torch.ops.sampling import Sampler
+
+    cfg, params = _tiny_llama(torch.bfloat16)
+    loop = make_decode_loop_fn(cfg, Sampler("greedy"), attn_impl=attn, fused_epilogue=fused,
+                               device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    prompts = torch.randint(0, cfg.vocab_size, (3, 20), generator=g, device="cuda")
+    steps = 24
+
+    def run():
+        cache = KVCache.init(cfg, 3, 128, torch.bfloat16, device="cuda")
+        logits, cache = forward(params, prompts, cfg, cache, logits_last_only=True)
+        toks, cache, n = loop(params, logits[:, -1].argmax(-1).int(), cache, None, steps)
+        torch.cuda.synchronize()
+        return toks, cache, n
+
+    with graphs.eager_steps():
+        want, _, _ = run()
+    before = _counts()
+    got, cache, n = run()
+    after = _counts()
+    (st,) = cache.steps.values()
+    assert n == steps and st.run.graph is not None and st.run.replays == steps - 1
+    assert torch.equal(got, want)
+    layers = cfg.num_hidden_layers
+    assert after["decode"] - before["decode"] == (layers * steps if attn == "flash_decode" else 0)
+    assert after["epilogue"] - before["epilogue"] == (steps if fused else 0)
+
+
+@pytest.mark.parametrize("kind", ["greedy", "min_p", "top_p", "cdf"])
+def test_generator_replays_as_eager(cuda, kind):
+    """``Generator.generate`` twice (the second call replays from its
+    first step) and ``stream`` give the eager step's tokens; a sampled
+    kind draws from the Generator's registered generator, reseeded per
+    call, so the captured stream equals the eager stream of its seed."""
+    from llm_np_cp_tpu_torch import graphs
+    from llm_np_cp_tpu_torch.generate import Generator
+    from llm_np_cp_tpu_torch.ops.sampling import Sampler
+
+    cfg, params = _tiny_llama(torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    prompts = torch.randint(0, cfg.vocab_size, (4, 17), generator=g, device="cuda")
+    kw = dict(sampler=Sampler(kind, temperature=0.9), prefill_attn_impl="flash",
+              decode_attn_impl="flash_decode")
+    with graphs.eager_steps():
+        eager = Generator(params, cfg, **kw)
+        want = eager.generate(prompts, 20, seed=7).tokens
+        want_s = list(eager.stream(prompts[0], 9, seed=8))
+    gen = Generator(params, cfg, **kw)
+    assert gen.epilogue_impl == ("fused" if kind == "greedy" else "xla")
+    for _ in range(2):
+        assert (gen.generate(prompts, 20, seed=7).tokens == want).all()
+    assert list(gen.stream(prompts[0], 9, seed=8)) == want_s
+    assert gen.compile_counts() == {"decode_step": 2}
+    assert sum(s.replays for s in gen.graph_steps()) == 18 + 19 + 7
+
+
+def test_serve_unified_tick_replays_as_eager(cuda):
+    """The unified tick's bucket graphs give the eager tick's tokens; one
+    graph per bucket used, none more on a second trace; every replay
+    counts the ragged kernel once a layer and the epilogue once."""
+    import numpy as np
+
+    from llm_np_cp_tpu_torch import graphs
+    from llm_np_cp_tpu_torch.serve import ServeEngine, poisson_trace
+
+    cfg, params = _tiny_llama(torch.bfloat16)
+    trace = poisson_trace(np.random.default_rng(1), 12, rate_rps=40.0, prompt_len_range=(5, 60),
+                          max_new_tokens=10, vocab_size=cfg.vocab_size)
+
+    def engine():
+        return ServeEngine(params, cfg, mixed_step="on", max_slots=4, num_blocks=64,
+                           block_size=16, max_seq_len=96, prefill_chunk=16,
+                           cache_dtype=torch.bfloat16)
+
+    def serve_all(eng):
+        for j, item in enumerate(trace):
+            eng.submit(item["prompt"], item["max_new_tokens"], seed=j)
+        eng.run_until_complete()
+        return {r.req_id: r.generated for r in eng.scheduler.finished}
+
+    with graphs.eager_steps():
+        want = serve_all(engine())
+    eng = engine()
+    before = _counts()
+    assert serve_all(eng) == want
+    after = _counts()
+    counts = eng.compile_counts()
+    assert 0 < counts["mixed_step"] <= len(eng.mixed_buckets)
+    assert after["ragged"] - before["ragged"] == cfg.num_hidden_layers * eng.n_dispatches
+    assert after["epilogue"] - before["epilogue"] == eng.n_dispatches
+    assert sum(s.replays for s in eng.graph_steps()) == eng.n_dispatches - counts["mixed_step"]
+    serve_all(eng)
+    assert eng.compile_counts() == counts
+
+
+@pytest.mark.parametrize("tied", [True, False])
+def test_quant_einsum_plain_head_keeps_bf16(cuda, tied):
+    """The plain head product takes the bf16 head as it is: float32
+    results within bf16 accumulation noise of a float32 product, and no
+    float32 copy of the head on the card."""
+    g = torch.Generator(device="cuda").manual_seed(6)
+    h, v = 512, 32000
+    x = _randn((1, 4, h), g, torch.bfloat16)
+    w = _randn((v, h) if tied else (h, v), g, torch.bfloat16, 0.05)
+    spec = "bsh,vh->bsv" if tied else "bsh,hv->bsv"
+    ref = x.float() @ (w.float().T if tied else w.float())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = quant_einsum(spec, x, w)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and out.shape == (1, 4, v)
+    assert torch.cuda.max_memory_allocated() - base < w.numel() * 4 // 2
+    # bf16 products are exact in float32; cuBLAS may reduce split-K
+    # partials in bf16, so the bound is two bf16 ulps
+    _assert_close(out, ref, torch.bfloat16)
+
+
+def test_capture_raises_on_host_sync(cuda):
+    """A step that reads the card back while captured raises; nothing
+    falls back to running it eagerly.  (Last in this file: it leaves a
+    failed capture behind.)"""
+    from llm_np_cp_tpu_torch import graphs
+
+    x = torch.ones(4, device="cuda")
+    seen = []
+    step = graphs.CapturedStep(lambda: seen.append(x.sum().item()), torch.device("cuda"),
+                               "host sync")
+    with pytest.raises(RuntimeError, match="capturing host sync"):
+        step()
+    assert step.graph is None and not step.compiled and seen == [4.0]
+    torch.cuda.synchronize()
+    assert torch.ones(3, device="cuda").sum().item() == 3.0

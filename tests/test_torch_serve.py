@@ -457,9 +457,9 @@ def test_auto_means_on_and_unported_options_raise(llama):
         serve.ServeEngine(tp, cfg, bogus=1, **kw)
     with pytest.raises(ValueError, match="device"):
         serve.ServeEngine(tp, cfg, **{**kw, "device": "meta"})
-    for name in ("recover", "finish_recovered", "clone_fresh", "share_compiled_steps",
-                 "compile_counts"):
+    for name in ("recover", "finish_recovered", "clone_fresh", "share_compiled_steps"):
         assert not hasattr(eng, name)
+    assert eng.compile_counts() == {"mixed_step": 0}
 
 
 def test_block_pool_layout_and_stats(llama):

@@ -3,7 +3,7 @@
 
     python tools/decode_attention_ab.py [--root DIR] [--label NAME]
         [--parts cases,paged_cases,ragged,ragged_nsplit,softmax,epilogue,flash,main_path,
-                 prefill,serve_leg_a,serve_leg_b,sass]
+                 busy,sampled,head,prefill,serve_leg_a,serve_leg_b,sass]
         [--replays N]
 
 Imports ``llm_np_cp_tpu_torch`` from DIR (default: the checkout this file
@@ -51,6 +51,14 @@ both versions see the same work.  Prints one JSON line with:
   on Llama-3.2-1B (seeded random bf16 weights, B=4, 128-token prompts,
   ``chip_smoke.DECODE_STEPS`` new tokens, flash prefill and the slab
   decode kernel), one value per repeat after a warm-up;
+- ``busy``: torch.profiler over one 32-token ``generate`` of the
+  main path's Generator (``chip_smoke.profile_generate``): wall time,
+  device busy time and the busy share;
+- ``sampled``: the ``main_path`` rates with a min-p sampler, whose decode
+  tail is ``final_logits`` (the plain head product) + the sampler;
+- ``head``: the plain head product of that tail (``final_logits`` on
+  4 rows over Llama-3.2-1B's tied bf16 head), timed as the kernel cases
+  are, and the bytes it allocates above its inputs at its peak;
 - ``prefill``: TTFT of ``Generator.generate`` on Llama-3.2-1B (seeded
   random bf16 weights, B=1 x ``chip_smoke.LONG_PROMPT`` tokens, flash
   prefill), one value per repeat after a warm-up, and their median;
@@ -86,7 +94,7 @@ CASES = [(4, 256, False), (4, 256, True), (4, 4096, False), (4, 4096, True), (1,
 REPEATS = 5
 SERVE_REPLAYS = 3
 PARTS = ("cases", "paged_cases", "ragged", "ragged_nsplit", "softmax", "epilogue", "flash",
-         "main_path", "prefill", "serve_leg_a", "serve_leg_b", "sass")
+         "main_path", "busy", "sampled", "head", "prefill", "serve_leg_a", "serve_leg_b", "sass")
 # the kernels whose SASS ``sass`` counts, by symbol
 SASS_KERNELS = ("flash_kernel", "ragged_kernel")
 
@@ -352,7 +360,10 @@ def serve_leg(torch, np, cs, leg: str, replays: int) -> dict:
                 tpot_s_p50=tpot, tok_s_median=med(tok_s), tpot_s_p50_median=med(tpot))
 
 
-def main_path_rates(torch, np, cs) -> dict:
+def main_generator(torch, np, kind: str = "greedy"):
+    """The main path's Generator on Llama-3.2-1B (seeded random bf16
+    weights, flash prefill, the slab decode kernel) with a ``kind``
+    sampler, and its B=4 x 128-token prompts."""
     from llm_np_cp_tpu_torch.config import PRESETS
     from llm_np_cp_tpu_torch.generate import Generator
     from llm_np_cp_tpu_torch.models.transformer import init_params
@@ -361,12 +372,45 @@ def main_path_rates(torch, np, cs) -> dict:
     cfg = PRESETS["meta-llama/Llama-3.2-1B"]
     params = init_params(0, cfg, torch.bfloat16, device="cuda")
     prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(4, 128))
-    gen = Generator(params, cfg, sampler=Sampler("greedy"), prefill_attn_impl="flash",
+    gen = Generator(params, cfg, sampler=Sampler(kind), prefill_attn_impl="flash",
                     decode_attn_impl="flash_decode")
-    gen.generate(prompts, 4)  # warm-up: cuBLAS handles, allocator
+    return gen, prompts
+
+
+def main_path_rates(torch, np, cs, kind: str = "greedy") -> dict:
+    gen, prompts = main_generator(torch, np, kind)
+    gen.generate(prompts, 4)  # warm-up: cuBLAS handles, allocator (and the step's graph)
     rates = [gen.generate(prompts, cs.DECODE_STEPS).decode_tokens_per_s for _ in range(REPEATS)]
-    return dict(batch=4, prompt_len=128, new_tokens=cs.DECODE_STEPS,
+    return dict(sampler=kind, batch=4, prompt_len=128, new_tokens=cs.DECODE_STEPS,
                 decode_tok_s_per_seq=rates, median=sorted(rates)[len(rates) // 2])
+
+
+def head_product(torch, cs) -> dict:
+    from llm_np_cp_tpu_torch.config import PRESETS
+    from llm_np_cp_tpu_torch.models.transformer import final_logits
+
+    cfg = PRESETS["meta-llama/Llama-3.2-1B"]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    h, v = cfg.hidden_size, cfg.vocab_size
+    params = {"final_norm": torch.ones(h, dtype=torch.bfloat16, device="cuda"),
+              "embed_tokens": (0.02 * torch.randn((v, h), generator=g, device="cuda")).bfloat16()}
+    x = torch.randn((4, 1, h), generator=g, device="cuda").bfloat16()
+    call = lambda: final_logits(params, x, cfg)  # noqa: E731
+    row = timed(torch, cs, call)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    call()
+    torch.cuda.synchronize()
+    return dict(rows=4, hidden=h, vocab=v, **row,
+                peak_bytes_above_inputs=torch.cuda.max_memory_allocated() - base)
+
+
+def busy_share(torch, np, cs) -> dict:
+    gen, prompts = main_generator(torch, np)
+    prof = cs.profile_generate(torch, gen, prompts, cs.nvidia_smi_line())
+    return {k: prof[k] for k in ("generate_new_tokens", "batch", "wall_s", "device_busy_s",
+                                 "device_busy_share", "port_kernels_device_ms")}
 
 
 def main() -> int:
@@ -402,6 +446,9 @@ def main() -> int:
                epilogue=lambda: epilogue_cases(torch, cs),
                flash=lambda: flash_cases(torch, F, cs),
                main_path=lambda: main_path_rates(torch, np, cs),
+               busy=lambda: busy_share(torch, np, cs),
+               sampled=lambda: main_path_rates(torch, np, cs, "min_p"),
+               head=lambda: head_product(torch, cs),
                prefill=lambda: prefill_ttft(torch, np, cs),
                serve_leg_a=lambda: serve_leg(torch, np, cs, "A_mixed", args.replays),
                serve_leg_b=lambda: serve_leg(torch, np, cs, "B_split_paged", args.replays),
