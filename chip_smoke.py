@@ -72,7 +72,27 @@ Phases, each printing JSON lines; any failure exits non-zero:
    rounding noise); a torch.profiler trace of an int8 ``generate``; and
    one unified-tick ``replay_trace`` of the serve trace with int8
    weights (16 ragged + 1 int8 epilogue launches per tick).
-7. the ``kernels`` summary line, the card's ``nvidia-smi`` name and power
+7. spec — speculative decoding on the same model.  Offline,
+   ``SpeculativeGenerator`` (B=4 x 128-token prompts, 64 new tokens,
+   gamma=4) with the int8 self-draft and with an 8-layer
+   ``truncated_draft``: every token teacher-forced against a cache-less
+   plain forward, the tokens equal to the plain ``Generator``'s or first
+   apart at a near-tie, no kernel launched (the draft and verify forwards
+   take the plain attention path, as in the JAX package), every round a
+   graph replay after a warm-up, the captured rounds' tokens equal to an
+   eager run's; decode rate beside the plain ``Generator``'s, TTFT,
+   acceptance, tokens a round.  Served, ``ServeEngine(spec_k=4)`` leg A
+   on the serve trace's arrivals with every prompt a random 32-token
+   segment tiled to 128 tokens and 64 new tokens, submitted
+   ``speculative=True``: every request
+   finished and teacher-forced, drafts drafted and accepted, one host
+   fetch per dispatching tick, no graph beyond the buckets, 16 ragged
+   launches and 1 epilogue launch per tick, the captured ticks' tokens
+   equal to an eager run's, and a float32 run of spec and plain leg A
+   equal token for token or apart only at a near-tie; tok/s, TPOT, TTFT
+   and ticks beside plain leg A on the same trace at the same tick
+   budget, and the ticks that carried a verify slice.
+8. the ``kernels`` summary line, the card's ``nvidia-smi`` name and power
    limit, and last the result line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -126,6 +146,14 @@ SERVE_NEW_TOKENS = 32
 SERVE_PROMPTS = (16, 200)
 SERVE_SLOTS, SERVE_BLOCK, SERVE_CHUNK = 8, 16, 64
 F32_SERVE_REQUESTS, F32_SERVE_TOKENS = 8, 16
+# the spec phase: gamma of the offline rounds, the truncated draft's
+# layers, spec_k of the served leg, the served prompts' tiled segment
+# (extractive traffic: quoting, code edits, structured output) and new
+# tokens: a random model's greedy stream rarely copies its prompt, and
+# prompt lookup drafts only once the stream repeats itself, which a
+# longer stream does more often
+SPEC_GAMMA, SPEC_DRAFT_LAYERS, SPEC_K = 4, 8, 4
+SPEC_SEGMENT, SPEC_PROMPT, SPEC_NEW_TOKENS = 32, 128, 64
 # leg A at long context, where the ragged kernel's plan splits the bands
 # (and launches the combine): 4 requests of 1024-1536-token prompts
 LONG_SERVE_REQUESTS, LONG_SERVE_PROMPTS, LONG_SERVE_TOKENS = 4, (1024, 1536), 16
@@ -185,7 +213,7 @@ def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
 
 
 def device_ms(torch, fn, markers: dict[str, str], iters: int = 20,
-              attempts: int = 3) -> dict[str, float]:
+              attempts: int = 6) -> dict[str, float]:
     """Device time per call of ``fn`` by kernel (name → substring of the
     CUDA symbol), from torch.profiler over ``iters`` calls after warm-up:
     the kernels' own time, without the host's launch overhead that CUDA
@@ -491,6 +519,8 @@ EPILOGUE_SPECS = [
     # one block an SM, so 27B's are kept as bf16)
     ("gemma2_9b_n8_tied_softcap30_unitoffset", 8, 3584, 256000, True, 30.0, True),
     ("gemma2_27b_n8_tied_softcap30_unitoffset", 8, 4608, 256000, True, 30.0, True),
+    # the spec_k=4 tick: 8 slots x 5 sample columns
+    ("llama1b_n40_tied_spec_tick", 40, 2048, 128256, True, None, False),
 ]
 EPILOGUE_INT8_SPECS = [
     ("llama1b_n4_tied_int8", 4, 2048, 128256, True, None, False),
@@ -597,6 +627,7 @@ def epilogue_cases(torch, se, norms, quantize_array, int8: bool) -> list[dict]:
         plain_ms = time_ms(torch, lambda: se.sample_epilogue_plain(x, gamma, w, **kw), 5)
         lib = epilogue_library(torch, norms, x, gamma, w, kw)
         lib_ms = time_ms(torch, lib, 50)
+        lib_dev = device_ms(torch, lib, {"all": ""})["all"]
         del lib
         if int8:
             nbytes = vocab * hd + vocab * 4 + n * hd * 2 + hd * 2 + n * 4
@@ -605,7 +636,8 @@ def epilogue_cases(torch, se, norms, quantize_array, int8: bool) -> list[dict]:
         bms, by = bound(nbytes, 2.0 * n * hd * vocab)
         case = dict(kernel=kernel, case=name, max_abs_err=err, tol=EPILOGUE_TOL,
                     within_tol=err <= EPILOGUE_TOL, ms=ms, device_ms=dev,
-                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by)
+                    plain_ms=plain_ms, library_ms=lib_ms, library_device_ms=lib_dev,
+                    bound_ms=bms, bound_by=by)
         if int8:
             case["library"] = "matmul on the dequantized bf16 head + argmax"
         cases.append(case)
@@ -841,6 +873,10 @@ MIXED_LONG_SEGMENTS = LONG_DECODE_SEGMENTS[:7] + [(7, 3584, 512)]
 # serve leg A's steady state: 8 decode rows within its 288-slot tables
 LEG_A_LENGTHS = [232, 40, 150, 201, 288, 64, 17, 120]
 LEG_A_SEGMENTS = [(r, LEG_A_LENGTHS[r] - 1, 1) for r in range(8)]
+# a spec_k=4 verify tick: every row's input token and 4 drafts, a 5-token
+# slice (one q tile) ending at its length
+VERIFY_SEGMENTS = [(r, LEG_A_LENGTHS[r] - 5, 5) for r in range(8)]
+LONG_VERIFY_SEGMENTS = [(r, LONG_LENGTHS[r] - 5, 5) for r in range(8)]
 RAGGED_SPECS = [
     # name, H, K, D, softcap, window, int8, segments, row lengths, row
     # pads, packed width — the serve shape first
@@ -864,6 +900,12 @@ RAGGED_SPECS = [
     # serve leg A's decode-only tick: its 8 slots, its 288-slot tables
     ("llama1b_legA_decode8_288", 32, 8, 64, None, None, False, LEG_A_SEGMENTS, LEG_A_LENGTHS,
      SERVE_PADS, 64),
+    # speculative verify ticks: 8 rows x 5-token verify slices, at leg A's
+    # 288-slot tables and at up to 4096 slots (the prefill-tile path)
+    ("llama1b_verify8x5_288", 32, 8, 64, None, None, False, VERIFY_SEGMENTS, LEG_A_LENGTHS,
+     SERVE_PADS, 64),
+    ("llama1b_verify8x5_4096", 32, 8, 64, None, None, False, LONG_VERIFY_SEGMENTS,
+     LONG_LENGTHS, LONG_PADS, 64),
 ]
 RAGGED_MARKERS = {"ragged_paged_attention": "ragged_kernel",
                   "ragged_paged_attention_combine": "combine_splits_kernel"}
@@ -1334,10 +1376,10 @@ def graph_phase(torch, np, card: str, gen, prompts, captured_tokens) -> dict:
 # ----------------------------------------------------------------------
 
 def serve_engine(params, cfg, dtype, leg: str, prompt: int = SERVE_PROMPTS[1],
-                 new_tokens: int = SERVE_NEW_TOKENS):
-    """A ServeEngine in one of SERVE_LEGS, its pool sized by
-    ``pool_geometry`` for the trace's worst request (``prompt`` tokens,
-    ``new_tokens`` more)."""
+                 new_tokens: int = SERVE_NEW_TOKENS, **extra):
+    """A ServeEngine in one of SERVE_LEGS (and ``extra`` keywords), its
+    pool sized by ``pool_geometry`` for the trace's worst request
+    (``prompt`` tokens, ``new_tokens`` more)."""
     import torch
 
     from llm_np_cp_tpu_torch.ops.sampling import Sampler
@@ -1348,7 +1390,7 @@ def serve_engine(params, cfg, dtype, leg: str, prompt: int = SERVE_PROMPTS[1],
     return ServeEngine(params, cfg, sampler=Sampler("greedy"), max_slots=SERVE_SLOTS,
                        num_blocks=num_blocks, block_size=SERVE_BLOCK, max_seq_len=max_seq_len,
                        prefill_chunk=SERVE_CHUNK, cache_dtype=dtype, device=torch.device("cuda"),
-                       **SERVE_LEGS[leg])
+                       **SERVE_LEGS[leg], **extra)
 
 
 def serve_trace(np, cfg, n: int, new_tokens: int, seed: int,
@@ -1432,24 +1474,28 @@ def first_divergence(torch, forward, params, cfg, prompt, a: list, b: list) -> f
     return (top2[0] - top2[1]).item()
 
 
-def long_context_leg(torch, np, kernels: dict, params, cfg) -> dict:
-    """Leg A (the unified tick) at long context: LONG_SERVE_REQUESTS
-    prompts of LONG_SERVE_PROMPTS tokens, so the ragged kernel's bands
-    are long enough for its plan to split them and launch the combine;
-    launch counts against what the ticks imply, teacher-forced tokens."""
+def leg_a_replay(torch, np, kernels: dict, params, cfg, where: str, trace: list[dict],
+                 prompt: int, new_tokens: int, epilogue: str = "sample_epilogue",
+                 **extra) -> tuple[dict, dict]:
+    """Serve leg A (the unified tick; ``extra``: engine keywords) on
+    ``trace``, its pool sized for ``prompt`` + ``new_tokens`` tokens, after
+    a warm-up that captures every bucket: launch counts (``epilogue``: the
+    head's epilogue kernel) against what the ticks imply, one host fetch
+    per dispatching tick, every step a replay and no graph beyond the
+    buckets, teacher-forced tokens.  Returns the record and each
+    request's tokens by seed."""
     from llm_np_cp_tpu_torch.models.transformer import forward
     from llm_np_cp_tpu_torch.ops.cuda import decode_attention as da
 
     layers = cfg.num_hidden_layers
-    eng = serve_engine(params, cfg, torch.bfloat16, "A_mixed", LONG_SERVE_PROMPTS[1],
-                       LONG_SERVE_TOKENS)
+    eng = serve_engine(params, cfg, torch.bfloat16, "A_mixed", prompt, new_tokens, **extra)
+    if eng.epilogue_impl != "fused":
+        raise AssertionError(f"{where} did not select the fused epilogue")
     eng.warmup([SERVE_PROMPTS[0]], 2)
-    trace = serve_trace(np, cfg, LONG_SERVE_REQUESTS, LONG_SERVE_TOKENS, seed=3,
-                        prompts=LONG_SERVE_PROMPTS)
     torch.cuda.synchronize()
     reset_counts(kernels)
-    d0, f0, b0, g0 = (eng.n_dispatches, eng.n_host_fetches, dict(eng.bucket_dispatches),
-                      graph_totals())
+    d0, v0, f0, b0, g0 = (eng.n_dispatches, eng.n_verify_dispatches, eng.n_host_fetches,
+                          dict(eng.bucket_dispatches), graph_totals())
     t0 = time.perf_counter()
     snap = eng.replay_trace(trace)
     torch.cuda.synchronize()
@@ -1457,25 +1503,36 @@ def long_context_leg(torch, np, kernels: dict, params, cfg) -> dict:
     launches = read_counts(kernels)
     graphs_run = graph_delta(g0)
     dispatches, fetches = eng.n_dispatches - d0, eng.n_host_fetches - f0
-    if snap["finished"] != LONG_SERVE_REQUESTS:
-        raise AssertionError(f"long-context leg: {snap['finished']} of {LONG_SERVE_REQUESTS} "
-                             "finished")
+    if snap["finished"] != len(trace):
+        raise AssertionError(f"{where}: {snap['finished']} of {len(trace)} finished")
     want = {name: 0 for name in kernels}
-    want.update(ragged_paged_attention=layers * dispatches, sample_epilogue=dispatches,
-                ragged_paged_attention_combine=ragged_combines(torch, da, eng, cfg, b0))
+    want.update({"ragged_paged_attention": layers * dispatches, epilogue: dispatches,
+                 "ragged_paged_attention_combine": ragged_combines(torch, da, eng, cfg, b0)})
     if launches != want or fetches != dispatches:
-        raise AssertionError(f"long-context leg: launch counts {launches} != implied {want}, "
+        raise AssertionError(f"{where}: launch counts {launches} != implied {want}, "
                              f"{fetches} host fetches for {dispatches} dispatches")
-    check_replayed("long-context leg", graphs_run, dispatches)
-    tf = teacher_forced_requests(torch, forward, params, cfg, eng.scheduler.finished,
-                                 TEACHER_TOL)
-    return dict(launches=launches, implied=want, graphs=graphs_run, requests=LONG_SERVE_REQUESTS,
-                prompt_len=LONG_SERVE_PROMPTS, new_tokens=LONG_SERVE_TOKENS,
-                table_slots=eng.max_blocks_per_seq * SERVE_BLOCK, wall_s=wall,
-                generated_tokens=snap["total_generated_tokens"], ticks=snap["ticks"],
-                dispatches=dispatches, host_fetches=fetches,
-                ttft_s_p50=snap.get("ttft_s_p50"), tpot_s_p50=snap.get("tpot_s_p50"),
-                teacher_forced=tf)
+    check_replayed(where, graphs_run, dispatches)
+    if graphs_run["captures"] or eng.compile_counts()["mixed_step"] > len(eng.mixed_buckets):
+        raise AssertionError(f"{where}: graphs beyond the buckets: {graphs_run}, "
+                             f"{eng.compile_counts()}")
+    tf = teacher_forced_requests(torch, forward, params, cfg, eng.scheduler.finished, TEACHER_TOL)
+    out = dict(launches=launches, implied=want, graphs=graphs_run,
+               compile_counts=eng.compile_counts(), mixed_buckets=list(eng.mixed_buckets),
+               requests=len(trace), new_tokens=new_tokens,
+               table_slots=eng.max_blocks_per_seq * SERVE_BLOCK,
+               tick_token_budget=eng.tick_token_budget, wall_s=wall,
+               generated_tokens=snap["total_generated_tokens"],
+               tok_s_per_card=snap["total_generated_tokens"] / wall, ticks=snap["ticks"],
+               dispatches=dispatches, verify_dispatches=eng.n_verify_dispatches - v0,
+               host_fetches=fetches, preemptions=snap["preemptions"],
+               ttft_s_p50=snap.get("ttft_s_p50"), ttft_s_p99=snap.get("ttft_s_p99"),
+               tpot_s_p50=snap.get("tpot_s_p50"), tpot_s_p99=snap.get("tpot_s_p99"),
+               teacher_forced=tf,
+               **{k: v for k, v in snap.items() if k.startswith("spec_")})
+    tokens = {r.seed: list(r.generated) for r in eng.scheduler.finished}
+    del eng
+    torch.cuda.empty_cache()
+    return out, tokens
 
 
 def serve_phase(torch, np, kernels: dict, card: str) -> dict:
@@ -1552,7 +1609,13 @@ def serve_phase(torch, np, kernels: dict, card: str) -> dict:
             prof_engine = eng
         else:
             del eng
-    legs["A_long_context"] = long_context_leg(torch, np, kernels, params, cfg)
+    # leg A at long context: the ragged kernel's bands are long enough for
+    # its plan to split them and launch the combine
+    long_trace = serve_trace(np, cfg, LONG_SERVE_REQUESTS, LONG_SERVE_TOKENS, seed=3,
+                             prompts=LONG_SERVE_PROMPTS)
+    legs["A_long_context"] = dict(leg_a_replay(
+        torch, np, kernels, params, cfg, "long-context leg", long_trace, LONG_SERVE_PROMPTS[1],
+        LONG_SERVE_TOKENS)[0], prompt_len=LONG_SERVE_PROMPTS)
 
     # torch.profiler over a short leg-A replay (outside the counted runs)
     short = serve_trace(np, cfg, F32_SERVE_REQUESTS, F32_SERVE_TOKENS, seed=2)
@@ -1614,7 +1677,6 @@ def quant_phase(torch, np, kernels: dict, card: str, main: dict, serve: dict) ->
     from llm_np_cp_tpu_torch.config import PRESETS
     from llm_np_cp_tpu_torch.generate import Generator
     from llm_np_cp_tpu_torch.models.transformer import forward, init_params
-    from llm_np_cp_tpu_torch.ops.cuda import decode_attention as da
     from llm_np_cp_tpu_torch.ops.sampling import Sampler
     from llm_np_cp_tpu_torch.quant import param_bytes, quantize_params
     from llm_np_cp_tpu_torch.utils.quality import quant_quality
@@ -1682,44 +1744,15 @@ def quant_phase(torch, np, kernels: dict, card: str, main: dict, serve: dict) ->
 
     # the serve trace behind the unified tick, int8 weights
     qp = quantize_params(params)
-    eng = serve_engine(qp, cfg, torch.bfloat16, "A_mixed")
-    if eng.epilogue_impl != "fused":
-        raise AssertionError("int8 serve: the int8-head epilogue was not selected")
-    eng.warmup([SERVE_PROMPTS[0]], 2)
-    torch.cuda.synchronize()
-    trace = serve_trace(np, cfg, SERVE_REQUESTS, SERVE_NEW_TOKENS, seed=0)
-    reset_counts(kernels)
-    d0, f0, b0, g0 = (eng.n_dispatches, eng.n_host_fetches, dict(eng.bucket_dispatches),
-                      graph_totals())
-    t0 = time.perf_counter()
-    snap = eng.replay_trace(trace)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = read_counts(kernels)
-    check_replayed("int8 serve", graph_delta(g0), eng.n_dispatches - d0)
-    dispatches, fetches = eng.n_dispatches - d0, eng.n_host_fetches - f0
-    if snap["finished"] != SERVE_REQUESTS:
-        raise AssertionError(f"int8 serve: {snap['finished']} of {SERVE_REQUESTS} finished")
-    want = {name: 0 for name in kernels}
-    want.update(ragged_paged_attention=layers * dispatches, sample_epilogue_int8=dispatches,
-                ragged_paged_attention_combine=ragged_combines(torch, da, eng, cfg, b0))
-    if launches != want or fetches != dispatches:
-        raise AssertionError(f"int8 serve: launch counts {launches} != implied {want}, "
-                             f"{fetches} host fetches for {dispatches} dispatches")
-    tf_serve = teacher_forced_requests(torch, forward, qp, cfg, eng.scheduler.finished,
-                                       TEACHER_TOL)
+    run, _ = leg_a_replay(torch, np, kernels, qp, cfg, "int8 serve",
+                          serve_trace(np, cfg, SERVE_REQUESTS, SERVE_NEW_TOKENS, seed=0),
+                          SERVE_PROMPTS[1], SERVE_NEW_TOKENS, epilogue="sample_epilogue_int8")
     served = dict(
-        weights="int8", leg="A_mixed", launches=launches, implied=want, wall_s=wall,
-        generated_tokens=snap["total_generated_tokens"],
-        tok_s_per_card=snap["total_generated_tokens"] / wall, ticks=snap["ticks"],
-        dispatches=dispatches, host_fetches=fetches,
-        ttft_s_p50=snap.get("ttft_s_p50"), ttft_s_p99=snap.get("ttft_s_p99"),
-        tpot_s_p50=snap.get("tpot_s_p50"), tpot_s_p99=snap.get("tpot_s_p99"),
-        teacher_forced=tf_serve,
+        weights="int8", leg="A_mixed", **run,
         bf16_leg_A=dict(tok_s_per_card=serve["legs"]["A_mixed"]["tok_s_per_card"],
                         ttft_s_p50=serve["legs"]["A_mixed"]["ttft_s_p50"],
                         tpot_s_p50=serve["legs"]["A_mixed"]["tpot_s_p50"]))
-    del eng, qp
+    del qp
     torch.cuda.empty_cache()
     gen_bf16 = main["generate"]
     return dict(phase="quant", model="meta-llama/Llama-3.2-1B", layers=layers,
@@ -1731,6 +1764,187 @@ def quant_phase(torch, np, kernels: dict, card: str, main: dict, serve: dict) ->
                 modes=modes, quality_steps=QUALITY_STEPS, float32=f32, serve=served,
                 teacher_tol=TEACHER_TOL, a8_teacher_tol=A8_TEACHER_TOL,
                 profile_int8=dict(mode="int8", generate_new_tokens=16, batch=len(prompts), **prof))
+
+
+# ----------------------------------------------------------------------
+# phase 7: speculative decoding
+# ----------------------------------------------------------------------
+
+def tiled_trace(np, cfg, n: int, new_tokens: int, seed: int) -> list[dict]:
+    """The serve trace's arrivals with every prompt a random SPEC_SEGMENT-
+    token segment tiled to SPEC_PROMPT tokens, submitted speculative."""
+    trace = serve_trace(np, cfg, n, new_tokens, seed)
+    rng = np.random.default_rng(100 + seed)
+    for item in trace:
+        seg = rng.integers(1, cfg.vocab_size, size=SPEC_SEGMENT).astype(np.int32)
+        item["prompt"] = np.resize(seg, SPEC_PROMPT)
+        item["speculative"] = True
+    return trace
+
+
+def spec_offline(torch, np, kernels: dict, params, cfg, prompts, plain, name: str,
+                 **draft) -> dict:
+    """One SpeculativeGenerator (``draft``: its draft keywords, none for
+    the int8 self-draft) on the main path's prompts: a warm-up call
+    captures the round, the timed call must replay it every round and
+    launch no kernel; teacher-forced tokens, equal to the plain
+    Generator's (``plain``, its result) or first apart at a near-tie, and the
+    captured rounds' tokens against an eager run's."""
+    from llm_np_cp_tpu_torch import graphs
+    from llm_np_cp_tpu_torch.cache import KVCache
+    from llm_np_cp_tpu_torch.models.transformer import forward
+    from llm_np_cp_tpu_torch.ops.sampling import Sampler
+    from llm_np_cp_tpu_torch.speculative import SpeculativeGenerator
+
+    spec = SpeculativeGenerator(params, cfg, gamma=SPEC_GAMMA, sampler=Sampler("greedy"), **draft)
+    first = spec.generate(prompts, DECODE_STEPS)  # captures the round
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    g0 = graph_totals()
+    calls0 = sum(s.calls for s in spec.graph_steps())
+    res = spec.generate(prompts, DECODE_STEPS)
+    torch.cuda.synchronize()
+    launches = read_counts(kernels)
+    graphs_run = graph_delta(g0)
+    rounds_run = sum(s.calls for s in spec.graph_steps()) - calls0
+    if any(launches.values()):
+        raise AssertionError(f"offline spec {name} launched kernels {launches}")
+    if graphs_run != dict(captures=0, replays=rounds_run, eager=0) or rounds_run == 0:
+        raise AssertionError(f"offline spec {name}: {rounds_run} rounds, graphs ran {graphs_run}")
+    if res.tokens.shape != (4, DECODE_STEPS) or not (res.tokens == first.tokens).all():
+        raise AssertionError(f"offline spec {name}: tokens {res.tokens.shape} differ between calls")
+    with graphs.eager_steps():
+        eager = spec.generate(prompts, DECODE_STEPS).tokens
+    dev = torch.device("cuda")
+    tf = teacher_forced(torch, forward, KVCache, params, cfg, torch.as_tensor(prompts, device=dev),
+                        torch.as_tensor(res.tokens, device=dev))
+    divs = [first_divergence(torch, forward, params, cfg, prompts[r], list(res.tokens[r]),
+                             list(plain.tokens[r])) for r in range(len(prompts))]
+    gaps = [d for d in divs if d is not None]
+    out = dict(draft=name, gamma=SPEC_GAMMA, ttft_s=res.ttft_s,
+               decode_tok_s=res.decode_tokens_per_s,
+               decode_tok_s_per_seq=res.decode_tokens_per_s / len(prompts),
+               plain_decode_tok_s_per_seq=plain.decode_tokens_per_s, plain_ttft_s=plain.ttft_s,
+               acceptance_rate=res.acceptance_rate, tokens_per_round=res.tokens_per_round,
+               rounds=res.rounds, rounds_run=rounds_run, graphs=graphs_run,
+               compile_counts=spec.compile_counts(), graph_steps=step_stats(spec.graph_steps()),
+               launches=launches, captured_equals_eager=bool((eager == res.tokens).all()),
+               rows_identical_to_plain=len(divs) - len(gaps), divergence_top2_gaps=gaps,
+               teacher_forced=tf)
+    out["ok"] = tf["ok"] and out["captured_equals_eager"] and all(g <= TEACHER_TOL for g in gaps)
+    del spec
+    torch.cuda.empty_cache()
+    return out
+
+
+def spec_phase(torch, np, kernels: dict, card: str, main: dict) -> dict:
+    """Speculative decoding on Llama-3.2-1B, offline and served (module
+    docstring, phase 7); ``main`` is the main path's result of this run."""
+    from llm_np_cp_tpu_torch import graphs
+    from llm_np_cp_tpu_torch.config import PRESETS
+    from llm_np_cp_tpu_torch.generate import Generator
+    from llm_np_cp_tpu_torch.models.transformer import forward, init_params
+    from llm_np_cp_tpu_torch.ops.sampling import Sampler
+    from llm_np_cp_tpu_torch.speculative import truncated_draft
+
+    cfg = PRESETS["meta-llama/Llama-3.2-1B"]
+    params = init_params(0, cfg, torch.bfloat16, device="cuda")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(4, 128))
+    gen = Generator(params, cfg, sampler=Sampler("greedy"), prefill_attn_impl="flash",
+                    decode_attn_impl="flash_decode")
+    gen.generate(prompts, 4)
+    plain = gen.generate(prompts, DECODE_STEPS)
+    del gen
+    dp, dc = truncated_draft(params, cfg, SPEC_DRAFT_LAYERS)
+    offline = {
+        "int8_self_draft": spec_offline(torch, np, kernels, params, cfg, prompts, plain,
+                                        "int8 self-draft (quantize_params)"),
+        "truncated_draft": spec_offline(torch, np, kernels, params, cfg, prompts, plain,
+                                        f"truncated_draft({SPEC_DRAFT_LAYERS} layers)",
+                                        draft_params=dp, draft_config=dc),
+    }
+    del dp
+
+    # both served legs take the spec engine's default tick budget, so ticks,
+    # tok/s and TPOT differ by the verify slices alone
+    budget = SERVE_SLOTS * (1 + SPEC_K) + 2 * SERVE_CHUNK
+
+    def leg(where: str, trace: list[dict], **extra) -> tuple[dict, dict]:
+        return leg_a_replay(torch, np, kernels, params, cfg, where, trace, SPEC_PROMPT,
+                            SPEC_NEW_TOKENS, tick_token_budget=budget, **extra)
+
+    trace = tiled_trace(np, cfg, SERVE_REQUESTS, SPEC_NEW_TOKENS, seed=0)
+    spec, _ = leg(f"spec serve (spec_k={SPEC_K})", trace, spec_k=SPEC_K)
+    plain_a, _ = leg("plain leg A", trace)
+    if not spec.get("spec_drafted_tokens") or not spec.get("spec_accepted_tokens"):
+        raise AssertionError(f"spec serve: speculation did not engage: {spec}")
+    # the ragged launches of the ticks that carried a verify slice
+    spec["verify_ragged_launches"] = cfg.num_hidden_layers * spec["verify_dispatches"]
+
+    # the captured spec ticks against the eager ticks, requests submitted
+    # at once so both runs tick alike; and plain leg A on the same
+    # submissions, whose ticks differ from the spec run's by the accepted
+    # drafts alone (a replay's virtual clock follows the wall, so a
+    # slower tick batches more arrivals)
+    def serve_all(spec_k: int) -> tuple[dict, int]:
+        eng = serve_engine(params, cfg, torch.bfloat16, "A_mixed", SPEC_PROMPT, SPEC_NEW_TOKENS,
+                           spec_k=spec_k, tick_token_budget=budget)
+        for j, item in enumerate(trace):
+            eng.submit(item["prompt"], item["max_new_tokens"], seed=j, speculative=True)
+        eng.run_until_complete()
+        got = {r.req_id: list(r.generated) for r in eng.scheduler.finished}
+        return got, eng.n_dispatches
+
+    with graphs.eager_steps():
+        want, _ = serve_all(SPEC_K)
+    got, dispatches = serve_all(SPEC_K)
+    captured = dict(identical=got == want and len(got) == SERVE_REQUESTS, dispatches=dispatches,
+                    plain_dispatches=serve_all(0)[1])
+
+    # float32: spec and plain leg A on the whole served trace, token for
+    # token or apart only at a near-tie
+    params32 = float32_params(params)
+    del params
+    torch.cuda.empty_cache()
+    got32 = {}
+    for k in (SPEC_K, 0):
+        eng = serve_engine(params32, cfg, torch.float32, "A_mixed", SPEC_PROMPT, SPEC_NEW_TOKENS,
+                           spec_k=k, tick_token_budget=budget)
+        snap = eng.replay_trace(trace)
+        got32[k] = {r.seed: list(r.generated) for r in eng.scheduler.finished}
+        if k:
+            drafted32 = snap.get("spec_drafted_tokens", 0)
+        del eng
+    identical, gaps = 0, []
+    for item in trace:
+        a, b = got32[SPEC_K].get(item["seed"]), got32[0].get(item["seed"])
+        if a is None or b is None:
+            raise AssertionError(f"float32 spec serve lost request {item['seed']}")
+        d = first_divergence(torch, forward, params32, cfg, item["prompt"], a, b)
+        identical += d is None
+        gaps += [d] if d is not None else []
+    f32 = dict(requests=SERVE_REQUESTS, new_tokens=SPEC_NEW_TOKENS, spec_k=SPEC_K,
+               spec_drafted_tokens=drafted32, identical=identical, divergence_top2_gaps=gaps,
+               tol=F32_TEACHER_TOL, ok=all(g <= F32_TEACHER_TOL for g in gaps))
+    del params32
+    torch.cuda.empty_cache()
+    served = dict(spec=spec, plain_leg_A=plain_a, captured_equals_eager=captured, float32=f32,
+                  ticks_spec_over_plain=spec["ticks"] / plain_a["ticks"],
+                  tok_s_spec_over_plain=spec["tok_s_per_card"] / plain_a["tok_s_per_card"],
+                  tpot_p50_spec_over_plain=spec["tpot_s_p50"] / plain_a["tpot_s_p50"])
+    ok = (all(v["ok"] for v in offline.values()) and spec["teacher_forced"]["ok"]
+          and plain_a["teacher_forced"]["ok"] and captured["identical"] and f32["ok"])
+    return dict(phase="spec", model="meta-llama/Llama-3.2-1B", layers=cfg.num_hidden_layers,
+                weights="seeded random bf16", card=card,
+                offline=dict(batch=4, prompt_len=128, new_tokens=DECODE_STEPS, gamma=SPEC_GAMMA,
+                             main_path_decode_tok_s_per_seq=main["generate"]["decode_tok_s_per_seq"],
+                             **offline),
+                served=dict(trace=dict(requests=SERVE_REQUESTS, rate_rps=40.0,
+                                       prompt=f"{SPEC_SEGMENT}-token segment tiled to {SPEC_PROMPT}",
+                                       new_tokens=SPEC_NEW_TOKENS, spec_k=SPEC_K,
+                                       tick_token_budget=budget),
+                            **served),
+                teacher_tol=TEACHER_TOL, ok=ok)
 
 
 # ----------------------------------------------------------------------
@@ -1868,6 +2082,10 @@ def main() -> int:
     if failed or not qt["serve"]["teacher_forced"]["ok"]:
         raise AssertionError(f"quant checks failed: teacher-forced {failed}, serve "
                              f"{qt['serve']['teacher_forced']}")
+    sp = spec_phase(torch, np, kernels, smi, mp)
+    record(sp)
+    if not sp["ok"]:
+        raise AssertionError("spec checks failed: " + json.dumps(sp, default=str))
 
     path_launches = dict(mp["launches"])
     path_launches["ragged_paged_attention"] = sv["legs"]["A_mixed"]["launches"][

@@ -16,7 +16,10 @@ epilogue's int8-head variant, ``utils/quality.py``, and the ``softmax``
 kernel, which no model path calls (slice 3); the captured step
 (``graphs.py``: the decode step and the engine's unified tick replayed
 as CUDA graphs, the KV cache's offset on the card), the counterpart of
-``jax.jit``.
+``jax.jit``; and speculative decoding (``speculative.py``, the
+offline ``SpeculativeGenerator`` over per-row cache offsets, its round
+one captured graph; ``ServeEngine(spec_k=...)`` with ``serve/spec.py``'s
+prompt-lookup drafts verified in the captured unified tick).
 
 Entry points take ``device=`` and default to ``"cuda"``; they raise when
 no card is present unless the caller asks for ``"cpu"``.

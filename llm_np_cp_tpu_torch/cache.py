@@ -2,9 +2,15 @@
 
     k, v:   [num_layers, batch, max_seq, num_kv_heads, head_dim]
     valid:  [batch, max_seq] bool — written AND not a pad token
-    offset: 0-d int32 tensor on the cache's device — tokens written so
-            far (the JAX cache's ``length`` scalar)
-    length: Python int — the same count, kept on the host
+    offset: int32 tensor on the cache's device — tokens written so far:
+            0-d (one count for every row, the JAX cache's ``length``
+            scalar) or ``[B]`` per row (the JAX cache's vector
+            ``length``, which speculative decoding broadcasts a scalar
+            one to at its first round and rolls back row by row)
+    length: Python int — the same count kept on the host; with a ``[B]``
+            offset an upper bound over the rows still writing, which
+            the host sets from what it has fetched (it never reads the
+            offsets back)
 
 The JAX cache is an immutable pytree that jit donates and rebinds; here
 the slabs are updated IN PLACE (``update_layer`` writes into the layer's
@@ -14,9 +20,9 @@ whole generation.  A step reads its write slots, positions and mask from
 back and a CUDA graph of it replays at the right slots; whoever advances
 ``offset`` advances ``length`` too, and the host-side checks (capacity,
 the flash prefill's fresh cache, chunk offsets) read ``length`` alone.
-Only the scalar offset is ported: per-row ``[B]`` lengths belong to
-speculative decoding, which is a later slice (the writes already take a
-``[B, S]`` slot index, so a ``[B]`` offset changes only ``cache_slots``).
+A ``[B]`` offset gives each row its own write slots
+(``offset[:, None] + arange(S)``), positions and mask, and ``truncate``
+rolls each row back to its own length on the card.
 
 int8 mode (``dtype=torch.int8``): per-token-per-head symmetric absmax/127
 scales ``[L, B, S, K]`` float32 ride beside the 1-byte slabs.
@@ -49,7 +55,7 @@ class KVCache:
     length: int = 0
     k_scale: torch.Tensor | None = None  # [L, B, S_max, K] f32 (int8 mode)
     v_scale: torch.Tensor | None = None
-    offset: torch.Tensor | None = None  # 0-d int32 on the slabs' device
+    offset: torch.Tensor | None = None  # 0-d or [B] int32 on the slabs' device
     # the static-shape decode steps built over this cache (generate.py),
     # keyed by their static inputs: a CUDA graph replays this cache's
     # addresses, so it lives as long as the cache does
@@ -60,7 +66,8 @@ class KVCache:
             self.offset = torch.full((), self.length, dtype=torch.int32, device=self.k.device)
 
     def set_length(self, n: int) -> None:
-        """Move both counts to ``n`` (the device one in place, no sync)."""
+        """Move both counts to ``n`` (the device one in place, every row
+        of a ``[B]`` offset, no sync)."""
         self.length = n
         self.offset.fill_(n)
 
@@ -104,30 +111,44 @@ class KVCache:
         return self.k.shape[2]
 
 
-def truncate(cache: KVCache, new_length: int) -> KVCache:
-    """Logically roll the cache back to ``new_length`` tokens, in place:
-    slots ≥ new_length are marked invalid and ``length`` and ``offset``
-    move back; the slabs are left as they are and later writes overwrite
-    them."""
-    if not isinstance(new_length, int):
-        raise TypeError(
-            "truncate takes a scalar int length; per-row [B] lengths are "
-            "not ported yet"
+def truncate(cache: KVCache, new_length: int | torch.Tensor) -> KVCache:
+    """Logically roll the cache back, in place: slots at or past the new
+    length are marked invalid and the offset moves back; the slabs are
+    left as they are and later writes overwrite them.
+
+    new_length: a host int (every row; ``length`` moves too), or a
+    ``[B]`` device tensor for a cache with a per-row offset — each row
+    keeps its own count, cleared on the card with no sync, and the host
+    ``length`` stays where it was, an upper bound when no row grows."""
+    if isinstance(new_length, int):
+        cache.valid[:, new_length:] = False
+        cache.set_length(new_length)
+        return cache
+    if cache.offset.ndim != 1 or new_length.shape != cache.offset.shape:
+        raise ValueError(
+            f"truncate to [B] lengths {tuple(new_length.shape)} needs a per-row "
+            f"offset of that shape, got "
+            f"{tuple(cache.offset.shape)}"
         )
-    cache.valid[:, new_length:] = False
-    cache.set_length(new_length)
+    keep = torch.arange(cache.max_seq_len, device=cache.valid.device)[None, :] < new_length[:, None]
+    cache.valid &= keep
+    cache.offset.copy_(new_length)
     return cache
 
 
 def cache_slots(offset: int | torch.Tensor, b: int, s_new: int, s_max: int,
                 device: torch.device) -> torch.Tensor:
     """``[B, S_new]`` int64 cache slots of a write of ``s_new`` tokens at
-    ``offset``: a host int (checked against the capacity ``s_max``) or a
-    0-d device tensor (never read back: its caller checks the capacity
-    on its host count).  Per-row ``[B]`` offsets raise."""
+    ``offset``: a host int (checked against the capacity ``s_max``), a
+    0-d device tensor, or a ``[B]`` one, each row at its own offset
+    (device offsets are never read back: their caller checks the
+    capacity on its host bound).  A per-row slot past the capacity —
+    only a row that has stopped writing gets there — is clamped to the
+    last slot, whose contents that row never reads again."""
+    arange = torch.arange(s_new, device=device)
     if isinstance(offset, torch.Tensor):
-        if offset.ndim:
-            raise TypeError("per-row [B] cache offsets are not ported yet")
+        if offset.ndim == 1:
+            return torch.clamp_max(offset.long()[:, None] + arange, s_max - 1)
         base = offset.long()
     elif isinstance(offset, int):
         if offset < 0 or offset + s_new > s_max:
@@ -136,8 +157,8 @@ def cache_slots(offset: int | torch.Tensor, b: int, s_new: int, s_max: int,
             )
         base = offset
     else:
-        raise TypeError(f"the cache offset must be an int or a 0-d tensor, got {type(offset)}")
-    return (base + torch.arange(s_new, device=device)).expand(b, s_new)
+        raise TypeError(f"the cache offset must be an int or a tensor, got {type(offset)}")
+    return (base + arange).expand(b, s_new)
 
 
 def write_slots(slab: torch.Tensor, new: torch.Tensor, slots: torch.Tensor) -> None:
@@ -157,11 +178,11 @@ def update_layer(
     """Write new keys/values at ``offset`` along the seq axis, IN PLACE.
 
     k_layer/v_layer: [B, S_max, K, D]; k_new/v_new: [B, S_new, K, D];
-    offset: a host int or a 0-d device tensor, or the ``[B, S_new]``
-    slots ``cache_slots`` made of one.  Unlike the JAX version (whose
-    clamped dynamic_update_slice silently corrupts an overflowing write),
-    an out-of-capacity host offset raises.  Returns the (updated) layer
-    slabs.
+    offset: a host int, a 0-d or ``[B]`` device tensor, or the
+    ``[B, S_new]`` slots ``cache_slots`` made of one.  Unlike the JAX
+    version (whose clamped dynamic_update_slice silently corrupts an
+    overflowing write), an out-of-capacity host offset raises.  Returns
+    the (updated) layer slabs.
     """
     slots = _slots(offset, k_new, k_layer)
     write_slots(k_layer, k_new, slots)

@@ -1,9 +1,10 @@
 """Captured static-shape steps: the port's counterpart of ``jax.jit``.
 
-The JAX package compiles each decode step (``make_decode_step_fn``) and
-each packed-width bucket of the engine's unified tick (``_mixed_step``)
-into one program, built once per static shape and dispatched once per
-step.  Here such a step is a Python function over buffers that keep
+The JAX package compiles each decode step (``make_decode_step_fn``),
+each packed-width bucket of the engine's unified tick (``_mixed_step``,
+verify lanes included) and each speculative round
+(``speculative.make_spec_decode_fn``) into one program, built once per
+static shape and dispatched once per step.  Here such a step is a Python function over buffers that keep
 their addresses from one call to the next (the step's inputs are copied
 into them, its outputs read out of them), and ``CapturedStep`` runs it:
 

@@ -361,7 +361,9 @@ def _check_contracts(
                 f"{cache.length}): cached history is not visible to the kernel"
             )
     if cache is not None and not isinstance(cache.length, int):
-        raise TypeError("per-row [B] cache lengths are not ported yet")
+        raise TypeError(
+            "the cache's host length is an int; per-row [B] lengths live in its device offset"
+        )
 
 
 def forward(
@@ -386,9 +388,13 @@ def forward(
     cache: ``KVCache`` written IN PLACE (slabs and validity bitmap at
         the slots its device ``offset`` names; ``offset`` and the host
         ``length`` advance by S), or None for cache-less full recompute.
-        The step reads nothing back from the card: the capacity check
-        uses the host ``length``.
-    positions: [B, S] absolute positions; default ``cache.offset + arange(S)``.
+        A ``[B]`` offset writes, positions and masks each row at its own
+        length (batched speculative decoding).  The step reads nothing
+        back from the card: the capacity check uses the host ``length``
+        (with a ``[B]`` offset, the host's bound over the rows still
+        writing).
+    positions: [B, S] absolute positions; default ``cache.offset + arange(S)``
+        (per row for a ``[B]`` offset).
     attn_mask: optional [B, S] bool marking valid (non-pad) input tokens.
     pad_offsets: optional [B] per-row LEFT-padding amounts (ragged batch).
     logits_last_only: lm_head for the final position only.

@@ -12,12 +12,15 @@ Modules:
 - ``metrics``      — TTFT, TPOT, queue depth, occupancy, prefix hit rate,
   the unified tick's prefill/decode token split.
 - ``trace``        — Poisson request traces and the replay loop.
+- ``spec``         — ``DraftState``: the host-side prompt-lookup draft
+  stream of speculative serving.
 - ``engine``       — ``ServeEngine``: the unified ragged tick
-  (``ragged_paged_attention``) and the phase-split tick (chunked prefill,
-  then a decode step over gathered views or ``paged_decode_attention``).
+  (``ragged_paged_attention``; with ``spec_k`` it verifies drafts in
+  the same step) and the phase-split tick (chunked prefill, then a
+  decode step over gathered views or ``paged_decode_attention``).
 
-The HTTP front end, CLI, journal, fleet, speculative serving and
-observability layers of the JAX package are later slices.
+The HTTP front end, CLI, journal, fleet and observability layers of the
+JAX package are later slices.
 """
 
 from llm_np_cp_tpu_torch.serve.block_pool import BlockPool, FreeList, PagedKV
@@ -25,10 +28,12 @@ from llm_np_cp_tpu_torch.serve.engine import ServeEngine, pool_geometry, worst_c
 from llm_np_cp_tpu_torch.serve.metrics import ServeMetrics
 from llm_np_cp_tpu_torch.serve.prefix_cache import PrefixCache, prefix_block_keys
 from llm_np_cp_tpu_torch.serve.scheduler import QueueFull, Request, RequestState, Scheduler
+from llm_np_cp_tpu_torch.serve.spec import DraftState
 from llm_np_cp_tpu_torch.serve.trace import poisson_trace, replay_arrivals
 
 __all__ = [
     "BlockPool",
+    "DraftState",
     "FreeList",
     "PagedKV",
     "PrefixCache",

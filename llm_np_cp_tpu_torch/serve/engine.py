@@ -49,17 +49,31 @@ writes its packed host metadata into the bucket's pinned host buffer
 and copies it to the card in ONE copy before the step.
 ``compile_counts()`` reports ``{"mixed_step": graphs captured}``: at
 most ``len(mixed_buckets)``, and no more on a replay of the same trace.
-Eager in this slice, and so uncaptured: a non-greedy unified tick (its
-draws use a host-side ``torch.Generator`` per row and (seed, position);
-an in-graph draw is its own slice) and the phase-split tick
-(``_prefill_request``, ``_decode_step``).
+Eager, and so uncaptured: a non-greedy unified tick (its draws use a
+host-side ``torch.Generator`` per row and (seed, position); an in-graph
+draw is its own slice) and the phase-split tick (``_prefill_request``,
+``_decode_step``).
+
+Speculative serving (``spec_k=K``, unified tick only), as in the JAX
+engine: requests that opt in (``submit(..., speculative=True)``) draft
+up to K tokens a tick by host-side prompt lookup (``serve/spec.py``);
+the tick packs each as a ragged verify slice of width <= K+1 (the input
+token and its drafts, the ragged kernel's prefill tiles) in the same one
+step, which samples every verify position by the plain decode rule and
+walks the accepted prefix on the card (its drafts are its own packed
+input tokens), so the tick still makes ONE host fetch and accepted
+streams are token-identical to plain decode.  ``verify_len`` is a device
+operand of the step; K fixes the ``[R, K+1]`` sample columns, so a
+greedy spec tick replays one graph per bucket whatever the draft widths.
+A request whose rolling acceptance falls below ``spec_min_accept`` over
+``spec_window`` drafted tokens goes back to plain decode rows.
 
 What the port leaves out, as the JAX package has it: donation (pages are
 updated in place) and the runtime degradation to XLA fallbacks — on the
 card a kernel launches or raises, and a step captures or raises; nothing
-falls back.  Speculative serving, meshes, the host tier, the journal,
-request log, tracer, sentinel, lifecycle actions, telemetry, tenants and
-fault injection raise ``NotImplementedError``; ``recover``,
+falls back.  Meshes, the host tier, the journal, request log, tracer,
+sentinel, lifecycle actions, telemetry, tenants and fault injection
+raise ``NotImplementedError``; ``recover``,
 ``finish_recovered`` and ``clone_fresh`` are not defined yet, nor is
 ``share_compiled_steps``: a graph replays its own engine's pool and
 weight addresses, so a peer engine cannot adopt it.
@@ -96,6 +110,7 @@ from llm_np_cp_tpu_torch.serve.block_pool import BlockPool
 from llm_np_cp_tpu_torch.serve.metrics import ServeMetrics
 from llm_np_cp_tpu_torch.serve.prefix_cache import prefix_block_keys
 from llm_np_cp_tpu_torch.serve.scheduler import QueueFull, Request, RequestState, Scheduler
+from llm_np_cp_tpu_torch.serve.spec import DraftState
 
 Params = dict[str, Any]
 
@@ -105,7 +120,7 @@ GLOBAL_WINDOW = 1 << 30
 # keyword → value that means "off", for the JAX engine's options the port
 # does not have yet
 _NOT_PORTED = {
-    "spec_k": 0, "mesh_plan": None, "host_tier": None, "journal": None,
+    "mesh_plan": None, "host_tier": None, "journal": None,
     "request_log": None, "tracer": None, "sentinel": None, "actions": None,
     "telemetry": None, "tenants": None, "fault_injector": None,
 }
@@ -186,7 +201,7 @@ def pool_geometry(
 # the unified tick's packed int32 operands, in the order of their static
 # device buffer
 _MIXED_OPERANDS = ("tokens", "positions", "tok_blk", "tok_off", "tile_row", "tile_qpos0",
-                   "tile_qlen", "tables", "pads", "last_idx")
+                   "tile_qlen", "tables", "pads", "last_idx", "verify_len")
 
 
 class _MixedStep:
@@ -199,7 +214,8 @@ class _MixedStep:
         nt = t_w // eng._q_tile
         shapes = dict(tokens=(t_w,), positions=(t_w,), tok_blk=(t_w,), tok_off=(t_w,),
                       tile_row=(nt,), tile_qpos0=(nt,), tile_qlen=(nt,),
-                      tables=(r, eng.max_blocks_per_seq), pads=(r,), last_idx=(r, w))
+                      tables=(r, eng.max_blocks_per_seq), pads=(r,), last_idx=(r, w),
+                      verify_len=(r,))
         dev = eng.device
         total = sum(math.prod(shapes[k]) for k in _MIXED_OPERANDS)
         self.dev = torch.zeros(total, dtype=torch.int32, device=dev)
@@ -250,6 +266,10 @@ class ServeEngine:
         mixed_step: str = "off",
         sample_epilogue: str = "auto",
         tick_token_budget: int | None = None,
+        spec_k: int = 0,
+        spec_ngram: int = 3,
+        spec_min_accept: float = 0.1,
+        spec_window: int = 64,
         device: str | torch.device = "cuda",
         **not_ported: Any,
     ) -> None:
@@ -269,6 +289,22 @@ class ServeEngine:
         if sample_epilogue not in ("auto", "on", "off"):
             raise ValueError(
                 f"sample_epilogue must be 'auto', 'on' or 'off', got {sample_epilogue!r}")
+        if spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {spec_k}")
+        if spec_k > 30:
+            # the one-fetch sync carries a per-row stop-hit BITMASK over
+            # the spec_k+1 sample columns in one int32
+            raise ValueError(
+                f"spec_k must be <= 30 (the packed host-sync stop mask is an int32 "
+                f"bitmask over spec_k+1 columns), got {spec_k}")
+        if spec_k and spec_ngram < 2:
+            # at construction, not at the first draft tick (DraftState
+            # needs ngram_min <= ngram_max, and its lookup floor is 2)
+            raise ValueError(f"spec_ngram must be >= 2, got {spec_ngram}")
+        if spec_k and mixed_step == "off":
+            raise ValueError(
+                "speculative serving (spec_k > 0) rides the unified tick's batched "
+                "verifier; it cannot run with mixed_step='off'")
         self.device = resolve_device(device)
         if params["final_norm"].device != self.device:
             raise ValueError(
@@ -313,15 +349,25 @@ class ServeEngine:
         self._requests: dict[int, Request] = {}
         # device steps issued (every prefill chunk, copy program, sample
         # and decode/mixed step, as the JAX engine counts them), the
-        # split path's decode steps among them, and the host fetches
+        # split path's decode steps among them, the unified ticks that
+        # carried a verify slice (some draft packed), and the host fetches
         self.n_dispatches = 0
         self.n_decode_dispatches = 0
+        self.n_verify_dispatches = 0
         self.n_host_fetches = 0
         # the unified tick's steps by packed width, and its dispatches per width
         self._mixed_steps: dict[int, _MixedStep] = {}
         self.bucket_dispatches: dict[int, int] = {}
         self._stops = (torch.tensor(self.stop_tokens, dtype=torch.int32, device=self.device)
                        if self.stop_tokens else None)
+        # speculative serving: spec_k fixes the step's [R, spec_k+1]
+        # sample columns; per-request draft streams (serve/spec.py) by
+        # request id leave with their request
+        self.spec_k = spec_k
+        self.spec_ngram = spec_ngram
+        self.spec_min_accept = spec_min_accept
+        self.spec_window = spec_window
+        self._draft_states: dict[int, DraftState] = {}
 
         # fused sampling epilogue: greedy sampler over a float or int8 head
         self.epilogue_impl = "xla"
@@ -337,8 +383,14 @@ class ServeEngine:
 
         if self.mixed:
             self._q_tile = _da.RAGGED_Q_TILE
-            self._spec_w = 1  # sample columns per row (speculation not ported)
-            budget = tick_token_budget or (max_slots + 2 * self.prefill_chunk)
+            # sample columns per row: a verify slice samples its input
+            # token and every draft; plain rows use column 0
+            self._spec_w = spec_k + 1
+            # a spec engine's default budget leaves room for verify
+            # lanes: drafts only spend what prefill leaves, so without
+            # it a busy admission window would trim every draft away
+            budget = tick_token_budget or (
+                max_slots * (1 + spec_k) + 2 * self.prefill_chunk)
             if budget < max_slots:
                 raise ValueError(
                     f"tick_token_budget ({budget}) must be >= max_slots ({max_slots}): "
@@ -539,7 +591,7 @@ class ServeEngine:
         kind; a greedy step reads nothing from the host."""
         cfg = self.config
         (tokens, positions, tok_blk, tok_off, tile_row, tile_qpos0, tile_qlen, tables,
-         pads, last_idx) = (ops[k] for k in _MIXED_OPERANDS)
+         pads, last_idx, verify_len) = (ops[k] for k in _MIXED_OPERANDS)
         win = cfg.sliding_window
 
         def write(i, k, v):
@@ -562,7 +614,13 @@ class ServeEngine:
             np.repeat(host["seeds"], w_cols), host["sample_pos"].reshape(-1),
             (np.arange(w_cols)[None, :] < host["verify_len"][:, None]).reshape(-1))
         nxt = self._sample_tail(xr, *draws).reshape(r, w_cols)
-        accept = torch.zeros(r, dtype=torch.int32, device=nxt.device)
+        # the accept walk on the card: a verify slice's drafts ARE its
+        # packed input tokens at columns 1..k', so the longest prefix
+        # matching the samples needs no host round trip
+        drafts = tokens[last_idx[:, 1:]]  # [R, W-1]
+        jpos = torch.arange(w_cols - 1, dtype=torch.int32, device=nxt.device)[None, :]
+        hit = (drafts == nxt[:, :-1]) & (jpos < verify_len[:, None] - 1)
+        accept = torch.cumprod(hit.to(torch.int32), dim=1).sum(dim=1, dtype=torch.int32)
         out.copy_(_pack_sync(nxt, _stop_hits(nxt, self._stops), accept))
 
     def _decode_step(self, host: dict[str, np.ndarray]) -> torch.Tensor:
@@ -657,7 +715,10 @@ class ServeEngine:
         on_event: Callable[[Request, str], None] | None = None,
         deadline_s: float | None = None,
         arrival_time: float | None = None,
+        speculative: bool = False,
     ) -> Request:
+        """Queue a request.  ``speculative=True`` opts it into draft-then-
+        verify (inert on an engine built without ``spec_k``)."""
         prompt = np.asarray(prompt_ids, dtype=np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")
@@ -694,6 +755,7 @@ class ServeEngine:
             callback=callback,
             on_event=on_event,
             arrival_time=arrival_time if arrival_time is not None else 0.0,
+            speculative=bool(speculative),
         )
         req.submit_time = self.clock()
         if deadline_s is not None:
@@ -747,6 +809,7 @@ class ServeEngine:
             req.finish_time = self.clock()
             self.scheduler.finish(req)
             self._requests.pop(req.req_id, None)
+            self._draft_states.pop(req.req_id, None)
             self._flush_detok(req)
             self.metrics.on_finish(req)
             self._emit_event(req, req.finish_reason)
@@ -762,6 +825,7 @@ class ServeEngine:
         req = self._requests.pop(request_id, None)
         if req is None:
             return False
+        self._draft_states.pop(request_id, None)
         self.scheduler.abort(req)
         req.finish_reason = "aborted"
         req.finish_time = self.clock()
@@ -939,11 +1003,15 @@ class ServeEngine:
         w_v = self._spec_w
         # segment = (request, tokens, first cache slot, n_verify): the
         # n_verify sample slots cover the segment's LAST n_verify tokens
-        # — a decode row or completing prefill samples 1, a mid-prefill
-        # chunk samples 0
+        # — a plain decode row or completing prefill samples 1 (its last
+        # token), a speculating row its whole verify slice (input +
+        # drafts), a mid-prefill chunk 0
         segs: list[tuple[Request, np.ndarray, int, int]] = []
         for r in decode_rows:
-            segs.append((r, np.asarray([r.generated[-1]], np.int32), r.cache_len - 1, 1))
+            toks = [r.generated[-1]]
+            if r.draft_len:
+                toks.extend(int(t) for t in r.extra["spec_draft"][:r.draft_len])
+            segs.append((r, np.asarray(toks, np.int32), r.cache_len - 1, len(toks)))
         for r, n in prefill_segs:
             content = r.extra["prefill_content"]
             toks = np.asarray(content[r.prefill_done:r.prefill_done + n], np.int32)
@@ -998,10 +1066,83 @@ class ServeEngine:
         self._emit(req, tok)
         self._maybe_finish(req)
 
+    def _draft_tick(self) -> None:
+        """Propose draft tokens for every speculating decode row by
+        host-side prompt lookup (``DraftState``): no device work.  Sets
+        ``Request.draft_len`` (the verify width the planner budgets and
+        growth covers) and stashes the tokens in ``extra['spec_draft']``.
+        The cap keeps every verify write inside the request's cache
+        ceiling and every possible accept inside its token budget."""
+        if not self.spec_k:
+            return
+        for r in self.scheduler.running:
+            r.draft_len = 0
+            if not (r.speculative and r.prefilled and r.generated) or r.extra.get("spec_off"):
+                continue
+            rem = r.max_new_tokens - len(r.generated)
+            cap = min(self.spec_k, rem - 1, self.max_seq_len - r.cache_len)
+            if cap <= 0:
+                continue
+            st = self._draft_states.get(r.req_id)
+            if st is None:
+                # built lazily (a preemption re-admission lands here too):
+                # the stream is prompt + generated, what an uninterrupted
+                # request would have indexed
+                st = self._draft_states[r.req_id] = DraftState(self.spec_ngram)
+                st.extend(int(t) for t in r.prompt)
+            st.extend(r.generated[st.size - r.prompt_len:])
+            draft = st.propose(cap)
+            if draft:
+                r.extra["spec_draft"] = draft
+                r.draft_len = len(draft)
+
+    def _spec_feedback(self, req: Request, drafted: int, accepted: int) -> None:
+        """One verify round's accounting and the per-request fallback: a
+        stream whose rolling acceptance falls below ``spec_min_accept``
+        stops drafting (a plain decode row from then on), so a cold
+        stream costs at most one window of wasted verify lanes."""
+        self.metrics.on_spec(drafted=drafted, accepted=accepted)
+        st = req.extra.setdefault("spec_acc", [0, 0])
+        st[0] += drafted
+        st[1] += accepted
+        if st[0] < self.spec_window:
+            return
+        if st[1] < self.spec_min_accept * st[0]:
+            req.extra["spec_off"] = True
+            self._draft_states.pop(req.req_id, None)
+        else:
+            st[0] //= 2
+            st[1] //= 2
+
+    def _deliver_verify(self, r: Request, samples: np.ndarray, n_match: int) -> None:
+        """The host deliver walk of one verify slice: the step sampled
+        every position of the slice by the plain decode rule, so sample
+        j IS the token the stream emits there — emit while the drafts
+        matched (``n_match`` of them, from the packed fetch), then the
+        first correction or the bonus sample, stopping early at a stop
+        token, the budget or an abort.  Rejected drafts' K/V sit past
+        the new ``cache_len`` and are overwritten before being read."""
+        r.extra.pop("spec_draft")
+        acc = 0
+        for j in range(1 + r.draft_len):
+            self._emit(r, int(samples[j]))
+            if j < n_match:
+                # a drafted stop token still paid off: count it before
+                # the finish check
+                acc += 1
+                if self._maybe_finish(r):
+                    break
+            else:
+                self._maybe_finish(r)
+                break
+        drafted, r.draft_len = r.draft_len, 0
+        self._spec_feedback(r, drafted, acc)
+
     def _step_mixed(self) -> bool:
-        """One unified tick: deadline sweep + admission, block growth,
-        token-budget planning, then ONE mixed step covering every planned
-        prefill slice and decode row, and ONE host fetch."""
+        """One unified tick: deadline sweep + admission, draft proposal,
+        block growth, token-budget planning, then ONE mixed step covering
+        every planned prefill slice, plain decode row and verify slice,
+        and ONE host fetch."""
         self._sweep_deadlines()
         admitted = self.scheduler.admit()
         for req in admitted:
@@ -1009,6 +1150,7 @@ class ServeEngine:
                 req.admit_time = self.clock()
             self._init_mixed_prefill(req)
 
+        self._draft_tick()
         for req in self.scheduler.ensure_decode_blocks():
             self._emit_event(req, "evicted-requeued")
 
@@ -1016,20 +1158,24 @@ class ServeEngine:
             self.tick_token_budget, self.prefill_chunk)
         n_prefill_tok = sum(n for _, n in prefill_segs)
         n_decode_tok = len(decode_rows)
+        # drafts packed this tick (after the planner's trim)
+        n_spec_tok = sum(r.draft_len for r in decode_rows)
         if decode_rows or prefill_segs:
             host = self._pack_mixed(decode_rows, prefill_segs)
             td0 = self.clock()
             self.n_dispatches += 1
+            self.n_verify_dispatches += n_spec_tok > 0
             out = self._mixed_step(host)
             # THE tick's one device→host transfer: samples + stop mask +
             # watermark + accept length in one int32 array
             out_host = out.cpu().numpy()
             self.n_host_fetches += 1
             nxt_host = out_host[:, : self._spec_w]
+            accept_host = out_host[:, self._spec_w + 2]
             if n_prefill_tok:
                 # per-request prefill time: the step's wall split by
                 # token share (the mixed analogue of Request.prefill_s)
-                per_tok = (self.clock() - td0) / (n_prefill_tok + n_decode_tok)
+                per_tok = (self.clock() - td0) / (n_prefill_tok + n_decode_tok + n_spec_tok)
                 for r, n in prefill_segs:
                     r.prefill_s += per_tok * n
             for r, n in prefill_segs:
@@ -1037,8 +1183,11 @@ class ServeEngine:
                 if r.prefill_done >= r.prefill_target:
                     self._finish_mixed_prefill(r, int(nxt_host[r.slot, 0]))
             for r in decode_rows:
-                self._emit(r, int(nxt_host[r.slot, 0]))
-                self._maybe_finish(r)
+                if r.draft_len:
+                    self._deliver_verify(r, nxt_host[r.slot], int(accept_host[r.slot]))
+                else:
+                    self._emit(r, int(nxt_host[r.slot, 0]))
+                    self._maybe_finish(r)
 
         self.metrics.on_tick(
             queue_depth=self.scheduler.queue_depth,
@@ -1110,7 +1259,8 @@ class ServeEngine:
         realtime: bool = False,
         max_ticks: int = 100_000,
     ) -> dict[str, Any]:
-        """Replay ``[{"arrival_s", "prompt", "max_new_tokens", "seed"?}]``
+        """Replay ``[{"arrival_s", "prompt", "max_new_tokens", "seed"?,
+        "speculative"?}]``
         (see ``serve/trace.replay_arrivals``): a virtual clock releases
         arrivals whenever the engine is idle, or ``realtime=True`` sleeps
         until each one.  Returns ``metrics.snapshot()``."""

@@ -20,12 +20,17 @@ flat dict (``snapshot()``):
                              / shareable prompt blocks requested
 - ``mixed_prefill_tokens`` / ``mixed_decode_tokens`` — how the unified
                              tick's token budget was spent
-- ``queue_wait_s_*`` / ``prefill_s_*`` — per-request phase splits.
+- ``queue_wait_s_*`` / ``prefill_s_*`` — per-request phase splits
+- ``spec_drafted_tokens`` / ``spec_accepted_tokens`` /
+  ``spec_rejected_tokens`` / ``spec_rounds`` / ``spec_accept_rate`` /
+  ``spec_accept_len_mean`` — speculative verify rounds, present only
+  once a round ran.
 
 Percentiles are p50/p90/p99 over every sample (no windowing).  Left out
 with the layers that use them: the operator text block and the
-Prometheus format with its histograms (CLI, HTTP front end), SLO,
-speculative, roofline and host-tier series.  Every record hook and
+Prometheus format with its histograms (CLI, HTTP front end; the
+speculative accept-length histogram with it), SLO, roofline and
+host-tier series.  Every record hook and
 ``snapshot()`` take one lock, as in the JAX package.
 """
 
@@ -78,6 +83,9 @@ class ServeMetrics:
         self.prefix_blocks_hit = 0
         self.mixed_prefill_tokens = 0
         self.mixed_decode_tokens = 0
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        self.spec_rounds = 0
 
     # -- record hooks (engine calls these) -----------------------------
     def on_submit(self, req: Request) -> None:
@@ -112,6 +120,15 @@ class ServeMetrics:
         with self._lock:
             self.prefix_blocks_requested += requested
             self.prefix_blocks_hit += hits
+
+    def on_spec(self, *, drafted: int, accepted: int) -> None:
+        """One speculative verify round for one request: ``drafted``
+        candidate tokens rode the tick's step, ``accepted`` of them
+        matched the verifier's samples."""
+        with self._lock:
+            self.spec_drafted += drafted
+            self.spec_accepted += accepted
+            self.spec_rounds += 1
 
     def on_token(self, req: Request) -> None:
         with self._lock:
@@ -167,6 +184,16 @@ class ServeMetrics:
                 "prefix_blocks_requested": self.prefix_blocks_requested,
                 "prefix_blocks_hit": self.prefix_blocks_hit,
             }
+            if self.spec_rounds:
+                # only once a verify round ran: a 0-acceptance series on
+                # an engine that never speculated would read as broken
+                out["spec_drafted_tokens"] = self.spec_drafted
+                out["spec_accepted_tokens"] = self.spec_accepted
+                out["spec_rejected_tokens"] = self.spec_drafted - self.spec_accepted
+                out["spec_rounds"] = self.spec_rounds
+                out["spec_accept_rate"] = (
+                    self.spec_accepted / self.spec_drafted if self.spec_drafted else 0.0)
+                out["spec_accept_len_mean"] = self.spec_accepted / self.spec_rounds
             # copy-on-read: percentile math sees frozen lists
             series = {
                 "ttft_s": list(self.ttft_s),

@@ -110,6 +110,15 @@ class Request:
     prefill_done: int = 0
     prefill_target: int = 0
     prefilled: bool = False
+    # -- speculative decoding (unified tick only) ---------------------
+    # opt-in flag (``submit(..., speculative=True)``); the engine drafts
+    # for it only when built with spec_k > 0
+    speculative: bool = False
+    # draft tokens packed for THIS tick's verify lane (set by the
+    # engine's draft pass, trimmed by plan_tick's budget, consumed by
+    # the accept walk; always 0 between ticks).  Growth covers
+    # cache_len + draft_len so every verify write has a block.
+    draft_len: int = 0
     slot: int = -1  # decode slot while RUNNING
     n_preemptions: int = 0
     # -- metrics timestamps -------------------------------------------
@@ -273,11 +282,17 @@ class Scheduler:
         - **prefix-cache hits are free**: covered content was pre-marked
           done at admission (``Request.prefill_done``), so shared blocks
           consume zero budget — the cap applies to work, not to reuse.
+        - **verify widths are tokens**: a speculating decode row's draft
+          lanes (``Request.draft_len``) are budgeted AFTER prefill, out
+          of whatever budget remains — speculation spends the tick's
+          slack, so enabling it can never stall an admission's TTFT.
+          Drafts that don't fit are trimmed (``draft_len`` shrinks),
+          never the row's base token.
 
         Pure accounting (no allocation): callers run it after admission
         and block growth, then build the packed mixed batch from it.
-        (The JAX scheduler also budgets speculative verify lanes and
-        takes a tenant-fairness order here; neither is ported.)
+        (The JAX scheduler also takes a tenant-fairness order here; it
+        is not ported.)
         """
         decode = [r for r in self.running if r.prefilled and r.generated]
         left = budget - len(decode)
@@ -289,6 +304,10 @@ class Scheduler:
             if n > 0:
                 prefill.append((r, n))
                 left -= n
+        for r in decode:
+            if r.draft_len > left:
+                r.draft_len = max(left, 0)
+            left -= r.draft_len
         return decode, prefill
 
     # ------------------------------------------------------------------
@@ -318,6 +337,19 @@ class Scheduler:
                 preempted.append(victim)
                 if victim is req:
                     break
+            # speculative verify lanes write slots up to
+            # cache_len-1+draft_len; grow to cover them, but NEVER evict
+            # for a draft — speculation is opportunistic, so under
+            # pressure the draft is trimmed to the blocks that exist and
+            # the scheduling trajectory stays identical to plain decode
+            if req.state is RequestState.RUNNING and req.draft_len:
+                while req.cache_len + req.draft_len > len(req.block_ids) * self.block_size:
+                    ids = self.allocator.alloc(1)
+                    if ids is None:
+                        req.draft_len = max(
+                            len(req.block_ids) * self.block_size - req.cache_len, 0)
+                        break
+                    req.block_ids.extend(ids)
         return preempted
 
     def _pick_victim(self, needing: Request) -> Request:
@@ -337,6 +369,7 @@ class Scheduler:
         req.prefill_done = 0
         req.prefill_target = 0
         req.prefilled = False
+        req.draft_len = 0
         self._release_slot(req)
         self.running.remove(req)
         req.state = RequestState.QUEUED

@@ -50,6 +50,7 @@ def replay_arrivals(
                 seed=item.get("seed", 0),
                 callback=item.get("callback"),
                 arrival_time=item["arrival_s"],
+                speculative=item.get("speculative", False),
             )
             if realtime:
                 # wall arrival: TTFT then counts the wait between

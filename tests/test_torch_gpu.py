@@ -865,6 +865,80 @@ def test_serve_unified_tick_replays_as_eager(cuda):
     assert eng.compile_counts() == counts
 
 
+def test_serve_spec_tick_replays_as_eager(cuda):
+    """The greedy spec tick (spec_k=4, verify slices beside prefill and
+    plain decode rows) captured per bucket gives the eager tick's
+    tokens (bf16: a verify row and a plain decode row may part at a
+    near-tie, so the plain engine is not the yardstick here); one graph
+    per bucket used, none
+    more on a second trace however the draft widths churn; one fetch a
+    tick, the ragged kernel once a layer and the epilogue once a tick."""
+    import numpy as np
+
+    from llm_np_cp_tpu_torch import graphs
+    from llm_np_cp_tpu_torch.serve import ServeEngine, poisson_trace
+
+    cfg, params = _tiny_llama(torch.bfloat16)
+    rng = np.random.default_rng(2)
+    trace = poisson_trace(rng, 12, rate_rps=40.0, prompt_len_range=(5, 60),
+                          max_new_tokens=12, vocab_size=cfg.vocab_size)
+    prompts = [np.resize(rng.integers(1, cfg.vocab_size, size=6).astype(np.int32),
+                         item["prompt"].size) for item in trace]
+
+    def engine(spec_k):
+        return ServeEngine(params, cfg, mixed_step="on", max_slots=4, num_blocks=64,
+                           block_size=16, max_seq_len=96, prefill_chunk=16,
+                           cache_dtype=torch.bfloat16, spec_k=spec_k)
+
+    def serve_all(eng):
+        for j, (item, p) in enumerate(zip(trace, prompts)):
+            eng.submit(p, item["max_new_tokens"], seed=j, speculative=True)
+        eng.run_until_complete()
+        return {r.req_id: r.generated for r in eng.scheduler.finished}
+
+    with graphs.eager_steps():
+        want = serve_all(engine(4))
+    eng = engine(4)
+    before = _counts()
+    assert serve_all(eng) == want
+    after = _counts()
+    assert eng.metrics.snapshot()["spec_accepted_tokens"] > 0
+    counts = eng.compile_counts()
+    assert 0 < counts["mixed_step"] <= len(eng.mixed_buckets)
+    assert eng.n_host_fetches == eng.n_dispatches
+    assert after["ragged"] - before["ragged"] == cfg.num_hidden_layers * eng.n_dispatches
+    assert after["epilogue"] - before["epilogue"] == eng.n_dispatches
+    serve_all(eng)
+    assert eng.compile_counts() == counts
+
+
+@pytest.mark.parametrize("kind", ["greedy", "min_p"])
+def test_spec_round_replays_as_eager(cuda, kind):
+    """The offline speculative round (int8 self-draft) captured once per
+    shape gives the eager round's tokens — a sampled kind draws from the
+    registered generator, reseeded per call; every later round is a
+    replay and no kernel launches (the draft and verify forwards take
+    the plain path)."""
+    from llm_np_cp_tpu_torch import graphs
+    from llm_np_cp_tpu_torch.ops.sampling import Sampler
+    from llm_np_cp_tpu_torch.speculative import SpeculativeGenerator
+
+    cfg, params = _tiny_llama(torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    prompts = torch.randint(0, cfg.vocab_size, (3, 19), generator=g, device="cuda")
+    kw = dict(gamma=3, sampler=Sampler(kind))
+    with graphs.eager_steps():
+        want = SpeculativeGenerator(params, cfg, **kw).generate(prompts, 20, seed=3).tokens
+    spec = SpeculativeGenerator(params, cfg, **kw)
+    before = _counts()
+    for _ in range(2):
+        assert (spec.generate(prompts, 20, seed=3).tokens == want).all()
+    assert _counts() == before
+    assert spec.compile_counts() == {"spec_round": 1}
+    (step,) = spec.graph_steps()
+    assert step.replays == step.calls - 1 > 0
+
+
 @pytest.mark.parametrize("tied", [True, False])
 def test_quant_einsum_plain_head_keeps_bf16(cuda, tied):
     """The plain head product takes the bf16 head as it is: float32

@@ -109,8 +109,10 @@ def test_device_offset_alone_places_the_write():
     assert c.valid[0].tolist() == [False] * 3 + [True] * 2 + [False] * 11
     tcache.truncate(c, 4)
     assert (c.length, int(c.offset)) == (4, 4) and not c.valid[0, 4:].any()
-    with pytest.raises(TypeError, match="per-row"):
-        tcache.cache_slots(torch.zeros(2, dtype=torch.int32), 2, 1, 16, torch.device("cpu"))
+    # a [B] offset (speculative decoding) writes each row at its own slot
+    slots = tcache.cache_slots(torch.tensor([0, 3], dtype=torch.int32), 2, 2, 16,
+                               torch.device("cpu"))
+    assert slots.tolist() == [[0, 1], [3, 4]]
 
 
 # ----------------------------------------------------------------------

@@ -125,8 +125,13 @@ def test_cache_updates_in_place():
     np.testing.assert_array_equal(vl.numpy(), np.asarray(jv))
     with pytest.raises(ValueError, match="capacity"):
         tcache.update_layer(c.k[0], c.v[0], k_new, v_new, 126)
-    with pytest.raises(TypeError, match="per-row"):
-        tcache.update_layer(c.k[0], c.v[0], k_new, v_new, torch.tensor([1, 2]))
+    # a [B] offset (speculative decoding) writes each row at its own slots
+    kl, vl = tcache.update_layer(c.k[0], c.v[0], k_new, v_new, torch.tensor([1, 2]))
+    jk, jv = jcache.update_layer(jnp.zeros((2, 128, 2, 16)), jnp.zeros((2, 128, 2, 16)),
+                                 jnp.asarray(k_new.numpy()), jnp.asarray(v_new.numpy()),
+                                 jnp.asarray([1, 2], jnp.int32))
+    np.testing.assert_array_equal(kl.numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(vl.numpy(), np.asarray(jv))
     c.valid[:, :20] = True
     c.length = 20
     tcache.truncate(c, 12)

@@ -451,8 +451,8 @@ def test_auto_means_on_and_unported_options_raise(llama):
     for opt in ("tracer", "journal", "telemetry", "mesh_plan", "host_tier", "fault_injector"):
         with pytest.raises(NotImplementedError, match=opt):
             serve.ServeEngine(tp, cfg, **{opt: object()}, **kw)
-    with pytest.raises(NotImplementedError, match="spec_k"):
-        serve.ServeEngine(tp, cfg, spec_k=4, **kw)
+    # spec_k is ported: it rides the unified tick ("auto" means "on")
+    assert serve.ServeEngine(tp, cfg, spec_k=4, mixed_step="auto", **kw).spec_k == 4
     with pytest.raises(TypeError, match="bogus"):
         serve.ServeEngine(tp, cfg, bogus=1, **kw)
     with pytest.raises(ValueError, match="device"):
