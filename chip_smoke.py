@@ -24,7 +24,14 @@ Phases, each printing JSON lines; any failure exits non-zero:
    Gemma-2 and Llama-3.1-8B widths) records its device time too, and
    each of its cases plants row 0's best column at V-1 and row 1's at 0
    and checks those tokens exactly.  ``softmax`` (on no model path, as in
-   the JAX package) is timed here too.
+   the JAX package) is timed here too.  The threefry kernels
+   (``csrc/threefry.cu``, jax.random's bits on the card): their words and
+   draws against known answers made from jax by the CPU tests
+   (``KNOWN_ANSWERS``), ``threefry2x32`` against its plain version on the
+   tick's row keys and a [4, 128256] draw, and ``categorical`` on 8, 4
+   and 40 rows of 128256 and 8 of 256000, tokens equal (flips under a
+   1e-5 top-2 margin count as ties), with the exponential race the port
+   drew with before timed beside it.
 3. main path — Llama-3.2-1B at full width and depth on seeded random
    bf16 weights: ``Generator.generate`` (flash prefill, decode kernel,
    fused epilogue), ``generate_ragged`` and ``stream``, then one
@@ -40,23 +47,29 @@ Phases, each printing JSON lines; any failure exits non-zero:
 4. profile — torch.profiler over one more ``generate``: device time by
    kernel and the device's busy share of the wall time.
 4b. graphs — each kind of captured step against the same step function
-   run eagerly (``graphs.eager_steps``), identical greedy tokens
-   required: the main path's Generator, the decode loop with xla
-   attention or the logits tail, a min-p Generator (the captured draws
-   against the eager draws of the same seed) and the unified tick of
-   leg A on the serve trace's requests submitted at once; each graph's
-   capture time, pool bytes and replays.
+   run eagerly (``graphs.eager_steps``), identical tokens required: the
+   main path's Generator, the decode loop with xla attention or the
+   logits tail, a min-p Generator (the captured draws against the eager
+   draws of the same seed, every step a replay) and, on the serve
+   trace's requests submitted at once, the unified tick of leg A (greedy
+   and min-p) and the phase-split decode step of leg B (paged,
+   flash_decode and xla decode attention, and paged with min-p; one
+   graph an engine); each graph's capture time, pool bytes and replays.
 5. serve — the same model behind ``ServeEngine.replay_trace`` on a
    32-request Poisson trace, in two legs: A, the unified tick
    (``ragged_paged_attention`` + its combine when NSPLIT > 1 + fused
    epilogue), and B, the phase-split tick with the paged decode
    (``paged_decode_attention`` + its combine when NSPLIT > 1 + fused
-   epilogue); leg A once more at long context (4 requests of 1024-1536
-   tokens), where the ragged plan splits.  Per leg: every request finished,
-   launch counts equal what
-   the ticks imply, one host fetch per dispatching tick (leg A), every
-   token teacher-forced against a cache-less plain forward, and wall
-   time, tok/s, ticks, dispatches, TTFT and TPOT.  A float32 run of both
+   epilogue; its decode step a captured graph); both legs again with
+   min-p (the logits tail, each tick's row keys ``fold_in(PRNGKey(seed),
+   position)`` and the categorical draw on the card); leg A once more at
+   long context (4 requests of 1024-1536 tokens), where the ragged plan
+   splits.  Per leg: every request finished, launch counts equal what the
+   ticks imply, one host fetch per dispatching tick, every step a graph
+   replay and no capture in the timed replay, every token teacher-forced
+   against a cache-less plain forward (min-p: inside the sampler's
+   support there), and wall time, tok/s, ticks, dispatches, TTFT and
+   TPOT.  A float32 run of both
    legs must match the offline ``generate_ragged`` token for token (or
    differ only at a near-tie), and torch.profiler traces a short leg-A
    replay.
@@ -77,8 +90,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
    gamma=4) with the int8 self-draft and with an 8-layer
    ``truncated_draft``: every token teacher-forced against a cache-less
    plain forward, the tokens equal to the plain ``Generator``'s or first
-   apart at a near-tie, no kernel launched (the draft and verify forwards
-   take the plain attention path, as in the JAX package), every round a
+   apart at a near-tie, no attention or epilogue kernel launched (the
+   draft and verify forwards take the plain attention path, as in the
+   JAX package) and only the round's keyed draws, every round a
    graph replay after a warm-up, the captured rounds' tokens equal to an
    eager run's; decode rate beside the plain ``Generator``'s, TTFT,
    acceptance, tokens a round.  Served, ``ServeEngine(spec_k=4)`` leg A
@@ -161,6 +175,10 @@ SERVE_LEGS = {
     "A_mixed": dict(mixed_step="on"),
     "B_split_paged": dict(mixed_step="off", decode_attn_impl="paged"),
 }
+# the served samplers: greedy (the fused epilogue) and min-p, the
+# reference's live sampler (its default p_base), through the logits tail
+# and the keyed categorical draw
+SERVE_SAMPLERS = {"greedy": {}, "min_p": dict(p_base=0.1)}
 
 # the quant phase: quantize_params keywords per weight mode, and the
 # greedy continuation quant_quality compares with the bf16 model
@@ -184,6 +202,27 @@ A8_TEACHER_TOL = 0.8
 # softmax outputs: two bf16 ulps at the output's own magnitude, or 1e-6
 # in float32
 SOFTMAX_TOL = {"bfloat16": 2.0 ** -6, "float32": 1e-6}
+
+# jax.random's words and draws (jax 0.9.0, threefry2x32, partitionable,
+# 64-bit types off), made from jax on the CPU by
+# tests/test_torch_random.py::test_chip_smoke_known_answers_match_jax: the
+# card has no jax, so the threefry kernels are held against these.  The
+# categorical case's logits are ((i * 7919) % 1000) / 100 - 5 over the
+# flat index i of [4, 128256] (exact in float32); its draws are at least
+# 0.3 clear of a tie.
+KNOWN_ANSWERS = {
+    "seed": 42,
+    "split3": [[1832780943, 270669613], [64467757, 2916123636], [2465931498, 255383827]],
+    "fold_data": 123457, "fold_in": [2757193699, 325797471],
+    "bits8": [2098992034, 2919706841, 2646866425, 2409546199, 1935504149, 2516274904,
+              321304473, 3329172656],
+    "uniform8_words": [1056585764, 1059981104, 1058915320, 1057988288, 1055308516, 1058405198,
+                       1033450928, 1061580580],
+    "categorical_shape": [4, 128256], "wide_index": [0, 1, 128255, 128256, 513023],
+    "bits_wide": [2098992034, 2919706841, 4199866158, 342779515, 1060354040],
+    "categorical": [34593, 82329, 74402, 38739],
+    "categorical_rows": [123954, 100785, 77811, 9492],
+}
 
 
 def emit(obj: dict) -> None:
@@ -697,6 +736,133 @@ def softmax_cases(torch, sm) -> list[dict]:
                           library="torch.softmax", bound_ms=bms, bound_by=by, device_ms=dev,
                           library_device_ms=lib_dev, bound_share=bms / dev if dev else None))
         del x, out, ref
+    return cases
+
+
+# ----------------------------------------------------------------------
+# threefry2x32 (jax.random's bits) and the fused categorical draw
+# ----------------------------------------------------------------------
+
+# int32 issue of one H100 SXM: 132 SMs x 64 INT32 lanes x 1.98 GHz boost
+# (Hopper's SM has 64 INT32 units; the data sheet's boost clock)
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# int32 operations an element of csrc/threefry.cu: 20 rounds of (add,
+# rotate, xor), 5 key injections of 2 adds, the 64-bit counter (2), the
+# word's xor, and the uniform's shift and or
+THREEFRY_OPS = 20 * 3 + 5 * 2 + 2 + 1 + 2
+# a draw whose plain top-2 margin (gumbel + logits) is under this may
+# flip between the kernel and the plain version (their logs may differ
+# in the last bit): counted as a tie, not an error
+CATEGORICAL_TIE = 1e-5
+# name, N, V: the min-p unified tick's 8 rows first (the path whose
+# launches the summary counts), the min-p Generator's 4 rows, the
+# spec_k=4 tick's 8 x 5 rows, and Gemma-2's vocab
+CATEGORICAL_SPECS = (
+    ("serve_tick_8x128256", 8, 128256),
+    ("generator_4x128256", 4, 128256),
+    ("spec_tick_40x128256", 40, 128256),
+    ("gemma2_vocab_8x256000", 8, 256000),
+)
+
+
+def threefry_known_answers(torch, tr) -> dict:
+    """The kernels' words and draws against jax's (``KNOWN_ANSWERS``)."""
+    ka = KNOWN_ANSWERS
+    key = tr.PRNGKey(ka["seed"], "cuda")
+
+    def u32(t):
+        return (t.cpu().long() & 0xFFFFFFFF).tolist()
+
+    n, v = ka["categorical_shape"]
+    flat = torch.arange(n * v, dtype=torch.int64, device="cuda")
+    logits = (((flat * 7919) % 1000).double() / 100.0 - 5.0).float().view(n, v)
+    got = dict(split3=u32(tr.split(key, 3)), fold_in=u32(tr.fold_in(key, ka["fold_data"])),
+               bits8=u32(tr.random_bits(key, (8,))),
+               uniform8_words=u32(tr.uniform(key, (8,)).view(torch.int32)),
+               bits_wide=u32(tr.random_bits(key, (n, v)).reshape(-1)[ka["wide_index"]]),
+               categorical=tr.categorical(key, logits).tolist(),
+               categorical_rows=tr.categorical(tr.split(key, n), logits).tolist())
+    return {k: dict(ok=g == ka[k]) for k, g in got.items()}
+
+
+def threefry_cases(torch, tr, tfk) -> list[dict]:
+    """``threefry2x32`` (the serve tick's row keys first: fold_in of 8
+    seeds and positions; then the words of a [4, 128256] draw) and
+    ``categorical`` (CATEGORICAL_SPECS) against their plain versions:
+    words equal, tokens equal (flips under CATEGORICAL_TIE are ties);
+    events and device ms, the plain version's, the bound, and for the
+    draw the exponential race the port drew with before (softmax,
+    ``exponential_``, divide, argmax) as the yardstick."""
+    known = threefry_known_answers(torch, tr)
+    known_ok = all(v["ok"] for v in known.values())
+    cases = []
+    seeds = torch.arange(8, dtype=torch.int32, device="cuda") * 7919 + 5
+    pos = torch.arange(8, dtype=torch.int32, device="cuda") * 61 + 100
+    keys = tr.PRNGKey(seeds)
+    for name, n, cols, data, mode in (
+            ("serve_tick_row_keys_8", 8, 1, pos, tr.PAIR),
+            ("words_4x128256", 4 * 128256, 4 * 128256, None, tr.BITS)):
+        k = keys if data is not None else tr.PRNGKey(42, "cuda")
+        call = lambda: tfk.threefry2x32(k, n, cols, data, mode)  # noqa: E731
+        got = call()
+        torch.cuda.synchronize()
+        want = tr.words_plain(k, n, cols, data, mode)
+        wrong = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        ok = wrong == 0 and known_ok
+        out_bytes = got.numel() * 4
+        bms, by = bound(k.numel() * 4 + (0 if data is None else n * 4) + out_bytes,
+                        THREEFRY_OPS * n, INT32_OPS_PER_S)
+        dev = device_ms(torch, call, {"k": "threefry2x32_kernel"})["k"]
+        # max_abs_err: words that differ from the plain version's
+        cases.append(dict(kernel="threefry2x32", case=name, max_abs_err=float(wrong),
+                          words_equal=ok, known_answers=known, within_tol=ok,
+                          ms=time_ms(torch, call, 100),
+                          plain_ms=time_ms(torch, lambda: tr.words_plain(k, n, cols, data, mode),
+                                           10),
+                          library_ms=None, library="none: no PyTorch call draws jax's bits",
+                          bound_ms=bms, bound_by=by, device_ms=dev,
+                          bound_share=bms / dev if dev else None))
+
+    def draw_check(k, logits) -> tuple[bool, int, int]:
+        """(tokens equal but for ties, flips, flips at a tie) of the
+        kernel's draw against the plain version's under keys ``k``."""
+        n, v = logits.shape
+        got = tfk.categorical(k, logits)
+        torch.cuda.synchronize()
+        want = tr.categorical_plain(k, logits)
+        top2 = torch.topk(tr.gumbel(k, (n, v)) + logits, 2).values
+        ties = (top2[:, 0] - top2[:, 1]) < CATEGORICAL_TIE
+        flips = got != want
+        return bool((~flips | ties).all()), int(flips.sum()), int((flips & ties).sum())
+
+    for i, (name, n, v) in enumerate(CATEGORICAL_SPECS):
+        g = torch.Generator(device="cuda").manual_seed(900 + i)
+        logits = 3.0 * torch.randn((n, v), generator=g, device="cuda")
+        k = tr.PRNGKey(i, "cuda")
+        ok, flips, tie_flips = draw_check(k, logits)
+        ok_rows, flips_rows, tie_flips_rows = draw_check(tr.split(k, n), logits)
+        first = dict(ok=ok and ok_rows and known_ok, flips=flips + flips_rows,
+                     ties_flipped=tie_flips + tie_flips_rows)
+        call = lambda: tfk.categorical(k, logits)  # noqa: E731
+        race = lambda: torch.argmax(  # noqa: E731
+            torch.softmax(logits, dim=-1) / torch.empty_like(logits).exponential_(), dim=-1)
+        bms, by = bound(n * v * 4 + 8 + n * 4, THREEFRY_OPS * n * v, INT32_OPS_PER_S)
+        dev = device_ms(torch, call, {"k": "categorical_"})["k"]
+        # max_abs_err: tokens that differ from the plain version's, ties aside
+        cases.append(dict(kernel="categorical", case=name,
+                          max_abs_err=float(first["flips"] - first["ties_flipped"]),
+                          tokens_equal=first["ok"], flips=first["flips"],
+                          ties_flipped=first["ties_flipped"], tie_margin=CATEGORICAL_TIE,
+                          keys="one key, and a key a row",
+                          within_tol=first["ok"], ms=time_ms(torch, call, 100),
+                          plain_ms=time_ms(torch, lambda: tr.categorical_plain(k, logits), 10),
+                          library_ms=None,
+                          library="none: no PyTorch call draws jax's stream",
+                          race_ms=time_ms(torch, race, 100),
+                          race_device_ms=device_ms(torch, race, {"all": ""})["all"],
+                          bound_ms=bms, bound_by=by, device_ms=dev,
+                          bound_share=bms / dev if dev else None))
+        del logits
     return cases
 
 
@@ -1294,13 +1460,16 @@ def step_stats(steps) -> list[dict]:
 def graph_phase(torch, np, card: str, gen, prompts, captured_tokens) -> dict:
     """Each kind of captured step against the same step function run
     eagerly (``graphs.eager_steps``) on the main path's model, identical
-    greedy tokens required: the main path's Generator (decode kernel,
-    fused epilogue; its captured tokens against an eager ``generate``),
-    the decode loop with the other three (attention, tail) pairs, a min-p
+    tokens required: the main path's Generator (decode kernel, fused
+    epilogue; its captured tokens against an eager ``generate``), the
+    decode loop with the other three (attention, tail) pairs, a min-p
     Generator (the captured stream against the eager stream of its seed,
-    twice), and serve leg A (the unified tick) on the serve trace's
-    requests submitted at once, so that both runs tick alike.  Records
-    each graph's capture time, pool bytes and replays."""
+    twice, every step after the first call's first a replay), and on the
+    serve trace's requests submitted at once, so that both runs tick
+    alike: leg A (the unified tick, one graph per bucket) greedy and
+    min-p, and leg B (the phase-split decode step, one graph an engine)
+    with the paged, flash_decode and xla decode attention, and min-p.
+    Records each graph's capture time, pool bytes and replays."""
     from llm_np_cp_tpu_torch import graphs
     from llm_np_cp_tpu_torch.cache import KVCache, align_capacity
     from llm_np_cp_tpu_torch.generate import Generator, make_decode_loop_fn
@@ -1336,30 +1505,51 @@ def graph_phase(torch, np, card: str, gen, prompts, captured_tokens) -> dict:
                         decode_attn_impl="flash_decode")
     with graphs.eager_steps():
         want = sampled.generate(prompts, GRAPH_STEPS, seed=11).tokens
+    g0 = graph_totals()
     got = [sampled.generate(prompts, GRAPH_STEPS, seed=11).tokens for _ in range(2)]
-    checks["generator_min_p"] = dict(identical=all(bool((g == want).all()) for g in got),
-                                     steps=GRAPH_STEPS - 1, calls=2,
-                                     graphs=step_stats(sampled.graph_steps()))
+    run = graph_delta(g0)
+    checks["generator_min_p"] = dict(
+        identical=all(bool((g == want).all()) for g in got)
+        and run == dict(captures=1, eager=1, replays=2 * (GRAPH_STEPS - 1) - 1),
+        steps=GRAPH_STEPS - 1, calls=2, graphs_run=run, graphs=step_stats(sampled.graph_steps()))
     del sampled
 
     trace = serve_trace(np, cfg, SERVE_REQUESTS, SERVE_NEW_TOKENS, seed=0)
 
-    def serve_all():
-        eng = serve_engine(params, cfg, torch.bfloat16, "A_mixed")
+    def serve_all(leg: str, sampler: str, **extra):
+        eng = serve_engine(params, cfg, torch.bfloat16, leg, sampler=sampler, **extra)
         for j, item in enumerate(trace):
             eng.submit(item["prompt"], item["max_new_tokens"], seed=j)
         eng.run_until_complete()
         return {r.req_id: list(r.generated) for r in eng.scheduler.finished}, eng
 
-    with graphs.eager_steps():
-        want, _ = serve_all()
-    got, eng = serve_all()
-    checks["serve_leg_A"] = dict(
-        identical=got == want and len(got) == SERVE_REQUESTS, dispatches=eng.n_dispatches,
-        compile_counts=eng.compile_counts(), buckets=list(eng.mixed_buckets),
-        graphs=step_stats(eng.graph_steps()))
-    del eng
-    torch.cuda.empty_cache()
+    # leg A greedy and min-p (a bucket graph each, the sampled tick's
+    # row keys and draw inside it); leg B (the phase-split decode step,
+    # one graph per engine) with each decode attention, and min-p
+    serves = {"serve_leg_A": ("A_mixed", "greedy", {}),
+              "serve_leg_A_min_p": ("A_mixed", "min_p", {}),
+              "serve_leg_B_paged": ("B_split_paged", "greedy", {}),
+              "serve_leg_B_paged_min_p": ("B_split_paged", "min_p", {}),
+              "serve_leg_B_flash_decode": ("B_split_paged", "greedy",
+                                           dict(decode_attn_impl="flash_decode")),
+              "serve_leg_B_xla": ("B_split_paged", "greedy", dict(decode_attn_impl="xla"))}
+    for name, (leg, sampler, extra) in serves.items():
+        with graphs.eager_steps():
+            want, _ = serve_all(leg, sampler, **extra)
+        g0 = graph_totals()
+        got, eng = serve_all(leg, sampler, **extra)
+        counts = eng.compile_counts()
+        steps = eng.n_dispatches if eng.mixed else eng.n_decode_dispatches
+        run = graph_delta(g0)
+        graphs_ok = (0 < counts["mixed_step"] <= len(eng.mixed_buckets) if eng.mixed
+                     else counts == {"decode_step": 1})
+        checks[name] = dict(
+            identical=got == want and len(got) == SERVE_REQUESTS and graphs_ok
+            and run["replays"] + run["eager"] == steps,
+            sampler=sampler, steps=steps, graphs_run=run, compile_counts=counts,
+            buckets=list(eng.mixed_buckets), graphs=step_stats(eng.graph_steps()))
+        del eng
+        torch.cuda.empty_cache()
     every = [g for c in checks.values() for g in c["graphs"]]
     return dict(phase="graphs", card=card, model="meta-llama/Llama-3.2-1B",
                 weights="seeded random bf16", checks=checks,
@@ -1376,10 +1566,10 @@ def graph_phase(torch, np, card: str, gen, prompts, captured_tokens) -> dict:
 # ----------------------------------------------------------------------
 
 def serve_engine(params, cfg, dtype, leg: str, prompt: int = SERVE_PROMPTS[1],
-                 new_tokens: int = SERVE_NEW_TOKENS, **extra):
-    """A ServeEngine in one of SERVE_LEGS (and ``extra`` keywords), its
-    pool sized by ``pool_geometry`` for the trace's worst request
-    (``prompt`` tokens, ``new_tokens`` more)."""
+                 new_tokens: int = SERVE_NEW_TOKENS, sampler: str = "greedy", **extra):
+    """A ServeEngine in one of SERVE_LEGS (and ``extra`` keywords) with a
+    ``sampler`` (SERVE_SAMPLERS), its pool sized by ``pool_geometry`` for
+    the trace's worst request (``prompt`` tokens, ``new_tokens`` more)."""
     import torch
 
     from llm_np_cp_tpu_torch.ops.sampling import Sampler
@@ -1387,10 +1577,11 @@ def serve_engine(params, cfg, dtype, leg: str, prompt: int = SERVE_PROMPTS[1],
 
     _, num_blocks, max_seq_len = pool_geometry(
         prompt, new_tokens, SERVE_SLOTS, SERVE_BLOCK, SERVE_CHUNK)
-    return ServeEngine(params, cfg, sampler=Sampler("greedy"), max_slots=SERVE_SLOTS,
+    return ServeEngine(params, cfg, sampler=Sampler(sampler, **SERVE_SAMPLERS[sampler]),
+                       max_slots=SERVE_SLOTS,
                        num_blocks=num_blocks, block_size=SERVE_BLOCK, max_seq_len=max_seq_len,
                        prefill_chunk=SERVE_CHUNK, cache_dtype=dtype, device=torch.device("cuda"),
-                       **SERVE_LEGS[leg], **extra)
+                       **{**SERVE_LEGS[leg], **extra})
 
 
 def serve_trace(np, cfg, n: int, new_tokens: int, seed: int,
@@ -1461,6 +1652,37 @@ def teacher_forced_requests(torch, forward, params, cfg, reqs, tol: float) -> di
                 max_gap_vs_cacheless=max(gaps), tol=tol, ok=finite and max(gaps) <= tol)
 
 
+def sampled_support(torch, forward, params, cfg, sampler, reqs, tol: float = TEACHER_TOL) -> dict:
+    """Every request's min-p tokens against one cache-less plain forward
+    over its prompt + tokens: each chosen token inside the sampler's
+    support there, its log-prob within ``tol`` of the keep threshold (the
+    bf16 noise of the cached path against the cache-less one)."""
+    import math
+
+    if sampler.kind != "min_p":
+        raise ValueError(f"sampled_support checks min-p draws, got {sampler.kind}")
+
+    n, inside, finite = 0, 0, True
+    worst = 0.0
+    for r in reqs:
+        gen = torch.tensor(r.generated, device="cuda").long()
+        ids = torch.cat([torch.as_tensor(r.prompt, device="cuda").long(), gen[:-1]])[None]
+        logits, _ = forward(params, ids, cfg, None)
+        rows = logits[0, r.prompt.size - 1:].float()
+        finite = finite and bool(torch.isfinite(rows).all())
+        if sampler.temperature != 1.0:
+            rows = rows / sampler.temperature
+        logp = torch.log_softmax(rows, dim=-1)
+        chosen = logp.gather(-1, gen[:, None])[:, 0]
+        thresh = logp.amax(dim=-1) + math.log(sampler.p_base)
+        short = (thresh - chosen).clamp_min(0.0)
+        worst = max(worst, short.max().item())
+        inside += int((short <= tol).sum().item())
+        n += gen.numel()
+    return dict(requests=len(reqs), tokens=n, inside_support=inside,
+                max_logp_below_threshold=worst, tol=tol, ok=finite and inside == n)
+
+
 def first_divergence(torch, forward, params, cfg, prompt, a: list, b: list) -> float | None:
     """None when the two token lists agree; else the plain logits' top-two
     gap at their first difference (a near-tie is a small gap)."""
@@ -1476,21 +1698,24 @@ def first_divergence(torch, forward, params, cfg, prompt, a: list, b: list) -> f
 
 def leg_a_replay(torch, np, kernels: dict, params, cfg, where: str, trace: list[dict],
                  prompt: int, new_tokens: int, epilogue: str = "sample_epilogue",
-                 **extra) -> tuple[dict, dict]:
+                 sampler: str = "greedy", **extra) -> tuple[dict, dict]:
     """Serve leg A (the unified tick; ``extra``: engine keywords) on
     ``trace``, its pool sized for ``prompt`` + ``new_tokens`` tokens, after
     a warm-up that captures every bucket: launch counts (``epilogue``: the
-    head's epilogue kernel) against what the ticks imply, one host fetch
-    per dispatching tick, every step a replay and no graph beyond the
-    buckets, teacher-forced tokens.  Returns the record and each
-    request's tokens by seed."""
+    head's epilogue kernel; a sampled kind draws instead, one row-key
+    derivation and one categorical a tick) against what the ticks imply,
+    one host fetch per dispatching tick, every step a replay and no graph
+    beyond the buckets, teacher-forced tokens (a sampled kind: each token
+    inside its sampler's support, ``sampled_support``).  Returns the
+    record and each request's tokens by seed."""
     from llm_np_cp_tpu_torch.models.transformer import forward
     from llm_np_cp_tpu_torch.ops.cuda import decode_attention as da
 
     layers = cfg.num_hidden_layers
-    eng = serve_engine(params, cfg, torch.bfloat16, "A_mixed", prompt, new_tokens, **extra)
-    if eng.epilogue_impl != "fused":
-        raise AssertionError(f"{where} did not select the fused epilogue")
+    eng = serve_engine(params, cfg, torch.bfloat16, "A_mixed", prompt, new_tokens,
+                       sampler=sampler, **extra)
+    if (eng.epilogue_impl == "fused") != (sampler == "greedy"):
+        raise AssertionError(f"{where}: epilogue {eng.epilogue_impl} for a {sampler} sampler")
     eng.warmup([SERVE_PROMPTS[0]], 2)
     torch.cuda.synchronize()
     reset_counts(kernels)
@@ -1506,8 +1731,12 @@ def leg_a_replay(torch, np, kernels: dict, params, cfg, where: str, trace: list[
     if snap["finished"] != len(trace):
         raise AssertionError(f"{where}: {snap['finished']} of {len(trace)} finished")
     want = {name: 0 for name in kernels}
-    want.update({"ragged_paged_attention": layers * dispatches, epilogue: dispatches,
+    want.update({"ragged_paged_attention": layers * dispatches,
                  "ragged_paged_attention_combine": ragged_combines(torch, da, eng, cfg, b0)})
+    if sampler == "greedy":
+        want[epilogue] = dispatches
+    else:
+        want.update(threefry2x32=dispatches, categorical=dispatches)
     if launches != want or fetches != dispatches:
         raise AssertionError(f"{where}: launch counts {launches} != implied {want}, "
                              f"{fetches} host fetches for {dispatches} dispatches")
@@ -1515,8 +1744,12 @@ def leg_a_replay(torch, np, kernels: dict, params, cfg, where: str, trace: list[
     if graphs_run["captures"] or eng.compile_counts()["mixed_step"] > len(eng.mixed_buckets):
         raise AssertionError(f"{where}: graphs beyond the buckets: {graphs_run}, "
                              f"{eng.compile_counts()}")
-    tf = teacher_forced_requests(torch, forward, params, cfg, eng.scheduler.finished, TEACHER_TOL)
-    out = dict(launches=launches, implied=want, graphs=graphs_run,
+    if sampler == "greedy":
+        tf = teacher_forced_requests(torch, forward, params, cfg, eng.scheduler.finished,
+                                     TEACHER_TOL)
+    else:
+        tf = sampled_support(torch, forward, params, cfg, eng.sampler, eng.scheduler.finished)
+    out = dict(sampler=sampler, launches=launches, implied=want, graphs=graphs_run,
                compile_counts=eng.compile_counts(), mixed_buckets=list(eng.mixed_buckets),
                requests=len(trace), new_tokens=new_tokens,
                table_slots=eng.max_blocks_per_seq * SERVE_BLOCK,
@@ -1549,10 +1782,14 @@ def serve_phase(torch, np, kernels: dict, card: str) -> dict:
     params = init_params(0, cfg, torch.bfloat16, device="cuda")
     trace = serve_trace(np, cfg, SERVE_REQUESTS, SERVE_NEW_TOKENS, seed=0)
     legs = {}
-    for leg in SERVE_LEGS:
-        eng = serve_engine(params, cfg, torch.bfloat16, leg)
-        if eng.epilogue_impl != "fused":
-            raise AssertionError(f"serve leg {leg} did not select the fused epilogue")
+    # each leg greedy (the fused epilogue), then each with min-p (the
+    # logits tail and the keyed draw, captured like greedy)
+    runs = {"A_mixed": ("A_mixed", "greedy"), "B_split_paged": ("B_split_paged", "greedy"),
+            "A_min_p": ("A_mixed", "min_p"), "B_min_p": ("B_split_paged", "min_p")}
+    for name, (leg, sampler) in runs.items():
+        eng = serve_engine(params, cfg, torch.bfloat16, leg, sampler=sampler)
+        if (eng.epilogue_impl == "fused") != (sampler == "greedy"):
+            raise AssertionError(f"serve leg {name}: epilogue {eng.epilogue_impl}")
         eng.warmup([SERVE_PROMPTS[0]], 2)
         torch.cuda.synchronize()
         reset_counts(kernels)
@@ -1567,18 +1804,28 @@ def serve_phase(torch, np, kernels: dict, card: str) -> dict:
         dispatches, fetches = eng.n_dispatches - d0, eng.n_host_fetches - f0
         decode_dispatches = eng.n_decode_dispatches - dd0
         if snap["finished"] != SERVE_REQUESTS:
-            raise AssertionError(f"serve leg {leg}: {snap['finished']} of {SERVE_REQUESTS} finished")
+            raise AssertionError(f"serve leg {name}: {snap['finished']} of {SERVE_REQUESTS} "
+                                 "finished")
         steps = dispatches if eng.mixed else decode_dispatches  # steps that fetch
-        want = {name: 0 for name in kernels}
-        want["sample_epilogue"] = steps
+        want = {k: 0 for k in kernels}
+        if sampler == "greedy":
+            want["sample_epilogue"] = steps
+        else:
+            # a draw a step (its row keys, then the categorical); the
+            # phase split also draws each prefill's first token
+            draws = steps + (0 if eng.mixed else SERVE_REQUESTS + snap["preemptions"])
+            want.update(threefry2x32=draws, categorical=draws)
         want["ragged_paged_attention" if eng.mixed else "paged_decode_attention"] = layers * steps
         nsplit = None
+        # the unified tick replays one graph per bucket, the phase-split
+        # tick its one decode step's graph (both captured at warmup)
+        check_replayed(f"serve leg {name}", graphs_run, steps)
+        if graphs_run["captures"] or (not eng.mixed
+                                      and eng.compile_counts() != {"decode_step": 1}):
+            raise AssertionError(f"serve leg {name}: captures in the timed replay {graphs_run}, "
+                                 f"{eng.compile_counts()}")
         if eng.mixed:
             want["ragged_paged_attention_combine"] = ragged_combines(torch, da, eng, cfg, b0)
-            # the unified tick replays one graph per bucket
-            check_replayed(f"serve leg {leg}", graphs_run, dispatches)
-        elif any(graphs_run.values()):
-            raise AssertionError(f"serve leg {leg}: the phase-split tick ran graphs {graphs_run}")
         if not eng.mixed:
             # the paged decode's split plan over the engine's [slots, blocks
             # per sequence] tables: a combine follows each launch when > 1
@@ -1587,13 +1834,18 @@ def serve_phase(torch, np, kernels: dict, card: str) -> dict:
                                    cfg.num_attention_heads // kh)
             want["paged_decode_attention_combine"] = layers * steps * int(nsplit > 1)
         if launches != want:
-            raise AssertionError(f"serve leg {leg}: launch counts {launches} != implied {want}")
+            raise AssertionError(f"serve leg {name}: launch counts {launches} != implied {want}")
         if fetches != steps:
-            raise AssertionError(f"serve leg {leg}: {fetches} host fetches for {steps} dispatching steps")
-        tf = teacher_forced_requests(torch, forward, params, cfg, eng.scheduler.finished,
-                                     TEACHER_TOL)
-        legs[leg] = dict(
-            launches=launches, implied=want, graphs=graphs_run, compile_counts=eng.compile_counts(),
+            raise AssertionError(f"serve leg {name}: {fetches} host fetches for {steps} "
+                                 "dispatching steps")
+        if sampler == "greedy":
+            tf = teacher_forced_requests(torch, forward, params, cfg, eng.scheduler.finished,
+                                         TEACHER_TOL)
+        else:
+            tf = sampled_support(torch, forward, params, cfg, eng.sampler, eng.scheduler.finished)
+        legs[name] = dict(
+            sampler=sampler, launches=launches, implied=want, graphs=graphs_run,
+            compile_counts=eng.compile_counts(),
             mixed_buckets=list(eng.mixed_buckets), paged_nsplit=nsplit, wall_s=wall,
             generated_tokens=snap["total_generated_tokens"],
             tok_s_per_card=snap["total_generated_tokens"] / wall,
@@ -1605,7 +1857,7 @@ def serve_phase(torch, np, kernels: dict, card: str) -> dict:
             mixed_decode_tokens=snap["mixed_decode_tokens"], teacher_forced=tf,
             tokens={r.seed: list(r.generated) for r in eng.scheduler.finished},
         )
-        if leg == "A_mixed":
+        if name == "A_mixed":
             prof_engine = eng
         else:
             del eng
@@ -1787,7 +2039,12 @@ def spec_offline(torch, np, kernels: dict, params, cfg, prompts, plain, name: st
     """One SpeculativeGenerator (``draft``: its draft keywords, none for
     the int8 self-draft) on the main path's prompts: a warm-up call
     captures the round, the timed call must replay it every round and
-    launch no kernel; teacher-forced tokens, equal to the plain
+    launch no attention or epilogue kernel, only a round's keyed draws
+    (four threefry launches: the round's key, its three subkeys, the
+    draft keys, the accept uniforms, and one a generation for its first
+    split; gamma + 2 categorical draws, even
+    greedy, whose filtered logits are one-hot, as in the JAX package);
+    teacher-forced tokens, equal to the plain
     Generator's (``plain``, its result) or first apart at a near-tie, and the
     captured rounds' tokens against an eager run's."""
     from llm_np_cp_tpu_torch import graphs
@@ -1807,8 +2064,11 @@ def spec_offline(torch, np, kernels: dict, params, cfg, prompts, plain, name: st
     launches = read_counts(kernels)
     graphs_run = graph_delta(g0)
     rounds_run = sum(s.calls for s in spec.graph_steps()) - calls0
-    if any(launches.values()):
-        raise AssertionError(f"offline spec {name} launched kernels {launches}")
+    # and the generation's own key, kp = split(PRNGKey(seed))
+    draws = dict(threefry2x32=4 * rounds_run + 1, categorical=(SPEC_GAMMA + 2) * rounds_run)
+    if launches != {**{k: 0 for k in launches}, **draws}:
+        raise AssertionError(f"offline spec {name} launched kernels {launches}, the rounds' "
+                             f"draws imply {draws}")
     if graphs_run != dict(captures=0, replays=rounds_run, eager=0) or rounds_run == 0:
         raise AssertionError(f"offline spec {name}: {rounds_run} rounds, graphs ran {graphs_run}")
     if res.tokens.shape != (4, DECODE_STEPS) or not (res.tokens == first.tokens).all():
@@ -1974,6 +2234,15 @@ KERNEL_META = {
     "sample_epilogue_int8": ("llm_np_cp_tpu_torch/csrc/sample_epilogue.cu",
                              "llm_np_cp_tpu/ops/pallas/sample_epilogue.py:215"),
     "softmax": ("llm_np_cp_tpu_torch/csrc/softmax.cu", "llm_np_cp_tpu/ops/pallas/softmax.py:52"),
+    # no pl.pallas_call: the JAX package draws with jax.random, which XLA
+    # lowers to a fused threefry2x32 loop; the row keys of its min-p tick
+    # and its categorical draw
+    "threefry2x32": ("llm_np_cp_tpu_torch/csrc/threefry.cu",
+                     "no pl.pallas_call: XLA's fused threefry, jax.random.fold_in at "
+                     "llm_np_cp_tpu/serve/engine.py:1774"),
+    "categorical": ("llm_np_cp_tpu_torch/csrc/threefry.cu",
+                    "no pl.pallas_call: XLA's fused threefry, jax.random.categorical at "
+                    "llm_np_cp_tpu/ops/sampling.py:108"),
 }
 
 
@@ -1991,6 +2260,7 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
 
+    from llm_np_cp_tpu_torch import random as tr
     from llm_np_cp_tpu_torch.cache import quantize_kv
     from llm_np_cp_tpu_torch.ops import norms
     from llm_np_cp_tpu_torch.ops.cuda import build
@@ -1998,6 +2268,7 @@ def main() -> int:
     from llm_np_cp_tpu_torch.ops.cuda import flash_attention as fa
     from llm_np_cp_tpu_torch.ops.cuda import sample_epilogue as se
     from llm_np_cp_tpu_torch.ops.cuda import softmax as sm
+    from llm_np_cp_tpu_torch.ops.cuda import threefry as tfk
     from llm_np_cp_tpu_torch.quant import quantize_array
 
     # plain versions and library calls in full float32, not TF32
@@ -2035,7 +2306,8 @@ def main() -> int:
              + ragged_cases(torch, F, da, quantize_kv, sdpa_gqa)
              + ragged_combine_cases(torch, da, quantize_kv)
              + epilogue_cases(torch, se, norms, quantize_array, int8=True)
-             + softmax_cases(torch, sm))
+             + softmax_cases(torch, sm)
+             + threefry_cases(torch, tr, tfk))
     # no model path calls softmax (as in the JAX package): its launches
     # are the kernel phase's
     softmax_launches = sm.softmax.launches
@@ -2054,7 +2326,9 @@ def main() -> int:
                "paged_decode_attention_combine": (da.paged_decode_attention, "combine_launches"),
                "ragged_paged_attention": (da.ragged_paged_attention, "launches"),
                "ragged_paged_attention_combine": (da.ragged_paged_attention, "combine_launches"),
-               "sample_epilogue_int8": (se.sample_epilogue, "launches_int8")}
+               "sample_epilogue_int8": (se.sample_epilogue, "launches_int8"),
+               "threefry2x32": (tfk.threefry2x32, "launches"),
+               "categorical": (tfk.categorical, "launches")}
     mp, gen, prompts, main_tokens = main_path(torch, np, kernels, smi)
     record(mp)
     prof = profile_generate(torch, gen, prompts, smi)
@@ -2096,6 +2370,8 @@ def main() -> int:
         path_launches[name] = sv["legs"]["B_split_paged"]["launches"][name]
     path_launches["sample_epilogue_int8"] = sum(
         v["launches"]["sample_epilogue_int8"] for v in qt["modes"].values())
+    for name in ("threefry2x32", "categorical"):
+        path_launches[name] = sv["legs"]["A_min_p"]["launches"][name]
     idle = [name for name, n in path_launches.items() if n == 0]
     if idle:
         raise AssertionError(f"kernels never launched on their path: {idle}")
@@ -2107,6 +2383,8 @@ def main() -> int:
         paged_decode_attention="serve leg B",
         paged_decode_attention_combine="serve leg B",
         sample_epilogue_int8="quant phase, the four modes' generate runs",
+        threefry2x32="serve leg A with min-p (each tick's row keys)",
+        categorical="serve leg A with min-p (each tick's draw)",
         softmax="kernel phase (no model path calls softmax, as in the JAX package)")
 
     summary = []
@@ -2118,7 +2396,8 @@ def main() -> int:
             max_abs_err=c["max_abs_err"], ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"], bound_by=c["bound_by"],
             library_ms=c["library_ms"], case=c["case"],
-            **{k: c[k] for k in ("library", "gather_ms", "nsplit", "device_ms") if k in c},
+            **{k: c[k] for k in ("library", "gather_ms", "nsplit", "device_ms", "race_ms")
+               if k in c},
         ))
     if args.out:
         with open(args.out, "w") as f:

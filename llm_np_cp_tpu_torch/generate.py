@@ -19,13 +19,15 @@ prompt's.
 
 The decode tail under a greedy sampler with a float or int8 head is the fused
 ``sample_epilogue`` kernel (``epilogue_impl == "fused"``); the prefill
-tail stays ``final_logits`` + ``Sampler``.  Draws use the Generator's
-one ``torch.Generator``, reseeded with ``seed`` per call and registered
-with each graph, so a replay draws as the eager step would.  A
-``Generator`` keeps one cache per (batch, capacity) and resets it per
-call (validity bitmap and offsets), so its graphs replay the same
-addresses.  ``GenerateResult`` timings synchronise the card before
-reading the clock.
+tail stays ``final_logits`` + ``Sampler``.  A sampled kind is keyed as
+the JAX package keys it (``random``): ``PRNGKey(seed)`` splits into the
+prefill's key and the loop's, and the loop's splits into one key a step,
+which the step reads from a static buffer at a step index on the card
+(the host hands a replay no key), so captured and eager steps draw the
+JAX package's tokens.  A ``Generator`` keeps one cache per (batch,
+capacity) and resets it per call (validity bitmap and offsets), so its
+graphs replay the same addresses.  ``GenerateResult`` timings
+synchronise the card before reading the clock.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from typing import Any, Callable, Iterator
 import numpy as np
 import torch
 
+from llm_np_cp_tpu_torch import random
 from llm_np_cp_tpu_torch.cache import KVCache, align_capacity
 from llm_np_cp_tpu_torch.config import ModelConfig
 from llm_np_cp_tpu_torch.device import resolve_device
@@ -83,18 +86,18 @@ def make_prefill_fn(
     config: ModelConfig, sampler: Sampler, attn_impl: str = "xla",
     *, device: str | torch.device = "cuda",
 ) -> Callable:
-    """(params, prompt_ids, cache, gen, attn_mask=None, pad_offsets=None)
+    """(params, prompt_ids, cache, key, attn_mask=None, pad_offsets=None)
     → (first_token [B], cache, last logits [B, V]).  The cache is written
     in place.  attn_impl="flash" routes prefill attention through the
     flash kernel (prefill always starts from a fresh cache)."""
 
-    def prefill(params, prompt_ids, cache, gen, attn_mask=None, pad_offsets=None):
+    def prefill(params, prompt_ids, cache, key, attn_mask=None, pad_offsets=None):
         logits, cache = forward(
             params, prompt_ids, config, cache, logits_last_only=True,
             attn_mask=attn_mask, pad_offsets=pad_offsets, attn_impl=attn_impl,
             device=device,
         )
-        return sampler(gen, logits[:, -1]), cache, logits[:, -1]
+        return sampler(key, logits[:, -1]), cache, logits[:, -1]
 
     return prefill
 
@@ -136,7 +139,7 @@ def make_chunked_prefill_fn(
         )
         return logits[:, -1], cache
 
-    def prefill_chunked(params, prompt_ids, cache, gen, attn_mask=None, pad_offsets=None):
+    def prefill_chunked(params, prompt_ids, cache, key, attn_mask=None, pad_offsets=None):
         ragged = attn_mask is not None or pad_offsets is not None
         if ragged and (attn_mask is None or pad_offsets is None):
             raise ValueError("ragged chunked prefill needs BOTH attn_mask and pad_offsets")
@@ -157,25 +160,26 @@ def make_chunked_prefill_fn(
             else:
                 last, cache = step(params, prompt_ids[:, off:off + w], cache, impl)
             impl, off = "xla", off + w
-        return sampler(gen, last), cache, last
+        return sampler(key, last), cache, last
 
     return prefill_chunked
 
 
 def _make_sample_tail(config: ModelConfig, sampler: Sampler, fused_epilogue: bool) -> Callable:
-    """``(params, gen, fwd_out) → next_tok [B]`` — the decode tail: the
+    """``(params, key, fwd_out) → next_tok [B]`` — the decode tail: the
     fused epilogue kernel over pre-final-norm hidden states, or the
     sampler over the last logits."""
     if not fused_epilogue:
-        return lambda params, gen, logits: sampler(gen, logits[:, -1])
-    return lambda params, gen, hid: sample_epilogue_tail(params, hid[:, -1], config)
+        return lambda params, key, logits: sampler(key, logits[:, -1])
+    return lambda params, key, hid: sample_epilogue_tail(params, hid[:, -1], config)
 
 
 @dataclasses.dataclass(eq=False)
 class _StepState:
     """One decode step's static buffers over one cache: the input token
     (the step writes its sample back here), the rows that hit a stop
-    token, the ragged batch's pad offsets, and the step runner."""
+    token, the ragged batch's pad offsets, a sampled kind's keys (one a
+    step) and the index of the next, and the step runner."""
 
     cache: KVCache
     params: Params
@@ -183,7 +187,8 @@ class _StepState:
     done: torch.Tensor  # [B] bool
     pads: torch.Tensor | None  # [B] int64 (ragged batches)
     stops: torch.Tensor | None
-    gen: torch.Generator | None
+    keys: torch.Tensor | None  # [capacity, 2] int32 (sampled kinds)
+    step: torch.Tensor | None  # [1] int64: the next step's row of keys
     run: CapturedStep | None = None
 
 
@@ -192,8 +197,9 @@ def _make_step_body(config: ModelConfig, sampler: Sampler, attn_impl: str,
     """``body(st)``: one token through the decoder from ``st.tok`` at the
     cache's device offset, the sample written back to ``st.tok`` (rows
     already ``done`` keep their token, and a stop token marks its row
-    done).  It moves the device offset alone: a replay runs no Python,
-    so the caller advances the host count."""
+    done), a sampled kind drawing under ``st.keys[st.step]`` and moving
+    the index on.  It moves the device offsets alone: a replay runs no
+    Python, so the caller advances the host count."""
     sample_tail = _make_sample_tail(config, sampler, fused_epilogue)
 
     def body(st: _StepState) -> None:
@@ -204,7 +210,11 @@ def _make_step_body(config: ModelConfig, sampler: Sampler, attn_impl: str,
             device=device,
         )
         st.cache.length = n
-        nxt = sample_tail(st.params, st.gen, out)
+        key = None
+        if st.keys is not None:
+            key = st.keys.index_select(0, st.step)[0]
+            st.step += 1
+        nxt = sample_tail(st.params, key, out)
         if st.stops is not None:
             nxt = torch.where(st.done, st.tok, nxt)
             st.done |= torch.isin(nxt, st.stops)
@@ -214,14 +224,14 @@ def _make_step_body(config: ModelConfig, sampler: Sampler, attn_impl: str,
 
 
 def _step_state(body: Callable, sampler: Sampler, stop_tokens: tuple[int, ...], params: Params,
-                cache: KVCache, gen: torch.Generator | None, ragged: bool) -> _StepState:
-    """The cache's static step for ``body`` over ``params`` (and, for a
-    sampled kind, ``gen``), built at the first call with these inputs."""
-    draws = sampler.kind != "greedy"
-    key = (body, id(params), id(gen) if draws else None, ragged)
+                cache: KVCache, ragged: bool) -> _StepState:
+    """The cache's static step for ``body`` over ``params``, built at the
+    first call with these inputs."""
+    key = (body, id(params), ragged)
     st = cache.steps.get(key)
     if st is None:
         dev, b = cache.k.device, cache.k.shape[1]
+        draws = sampler.kind != "greedy"
         st = _StepState(
             cache=cache, params=params,
             tok=torch.zeros(b, dtype=torch.int32, device=dev),
@@ -229,10 +239,12 @@ def _step_state(body: Callable, sampler: Sampler, stop_tokens: tuple[int, ...], 
             pads=torch.zeros(b, dtype=torch.int64, device=dev) if ragged else None,
             stops=(torch.tensor(stop_tokens, dtype=torch.int32, device=dev)
                    if stop_tokens else None),
-            gen=gen if draws else None,
+            keys=(torch.zeros((cache.max_seq_len, 2), dtype=torch.int32, device=dev)
+                  if draws else None),
+            step=torch.zeros(1, dtype=torch.int64, device=dev) if draws else None,
         )
         st.run = CapturedStep(lambda: body(st), dev,
-                              f"decode_step[B={b}, S={cache.max_seq_len}]", st.gen)
+                              f"decode_step[B={b}, S={cache.max_seq_len}]")
         cache.steps[key] = st
     return st
 
@@ -250,25 +262,33 @@ def _advance(st: _StepState) -> None:
     cache.length += 1
 
 
-def _load_inputs(st: _StepState, tok: torch.Tensor, pad_offsets: torch.Tensor | None) -> None:
+def _load_inputs(st: _StepState, tok: torch.Tensor, pad_offsets: torch.Tensor | None,
+                 keys: torch.Tensor | None) -> None:
+    """The step's inputs into its static buffers: the token, the pads
+    and, for a sampled kind, the keys of the steps to come ``[n, 2]``."""
     st.tok.copy_(tok)
     if st.pads is not None:
         st.pads.copy_(pad_offsets)
+    if st.keys is not None:
+        if keys is None:
+            raise ValueError("a sampled decode step needs a key")
+        st.keys[:keys.shape[0]].copy_(keys)
+        st.step.zero_()
 
 
 def make_decode_step_fn(
     config: ModelConfig, sampler: Sampler, attn_impl: str = "xla",
     fused_epilogue: bool = False, *, device: str | torch.device = "cuda",
 ) -> Callable:
-    """(params, tok [B], cache, gen, pad_offsets=None) → (next_tok [B],
-    cache) — one token, the cache written in place.  The step is built
-    over the cache's static buffers and, on the card, captured at its
-    first call and replayed after."""
+    """(params, tok [B], cache, key, pad_offsets=None) → (next_tok [B],
+    cache) — one token drawn under ``key`` (None for greedy), the cache
+    written in place.  The step is built over the cache's static buffers
+    and, on the card, captured at its first call and replayed after."""
     body = _make_step_body(config, sampler, attn_impl, fused_epilogue, resolve_device(device))
 
-    def step(params, tok, cache, gen, pad_offsets=None):
-        st = _step_state(body, sampler, (), params, cache, gen, pad_offsets is not None)
-        _load_inputs(st, tok, pad_offsets)
+    def step(params, tok, cache, key, pad_offsets=None):
+        st = _step_state(body, sampler, (), params, cache, pad_offsets is not None)
+        _load_inputs(st, tok, pad_offsets, None if key is None else key[None])
         _advance(st)
         return st.tok.clone(), cache
 
@@ -285,21 +305,25 @@ def make_decode_loop_fn(
     *,
     device: str | torch.device = "cuda",
 ) -> Callable:
-    """(params, first_tok, cache, gen, num_steps, pad_offsets=None) →
+    """(params, first_tok, cache, key, num_steps, pad_offsets=None) →
     (tokens [B, num_steps], cache, steps_executed).
 
-    Rows that hit a stop token keep feeding it.  early_stop=True (needs
-    stop_tokens) leaves the loop once every row is done; unfilled tail
-    slots hold 0 and ``_trim_after_stop`` normalises them, so outputs
-    equal the fixed-trip loop's.  Every step is the one static step of
-    the cache (captured on the card at the first, replayed after)."""
+    A sampled kind draws step i under ``split(key, num_steps)[i]``, as
+    the JAX loop does (``decode_loop.run_keys`` takes those keys
+    ``[num_steps, 2]`` as they are).  Rows that hit a stop token keep
+    feeding it.  early_stop=True (needs stop_tokens) leaves the loop once
+    every row is done; unfilled tail slots hold 0 and
+    ``_trim_after_stop`` normalises them, so outputs equal the
+    fixed-trip loop's.  Every step is the one static step of the cache
+    (captured on the card at the first, replayed after)."""
     if early_stop and not stop_tokens:
         raise ValueError("early_stop requires stop_tokens")
     body = _make_step_body(config, sampler, attn_impl, fused_epilogue, resolve_device(device))
+    draws = sampler.kind != "greedy"
 
-    def decode_loop(params, first_tok, cache, gen, num_steps, pad_offsets=None):
-        st = _step_state(body, sampler, stop_tokens, params, cache, gen, pad_offsets is not None)
-        _load_inputs(st, first_tok, pad_offsets)
+    def run_keys(params, first_tok, cache, keys, num_steps, pad_offsets=None):
+        st = _step_state(body, sampler, stop_tokens, params, cache, pad_offsets is not None)
+        _load_inputs(st, first_tok, pad_offsets, keys)
         if st.stops is not None:
             st.done.copy_(torch.isin(st.tok, st.stops))
         buf = torch.zeros((first_tok.shape[0], num_steps), dtype=torch.int32,
@@ -313,6 +337,11 @@ def make_decode_loop_fn(
             i += 1
         return buf, cache, i
 
+    def decode_loop(params, first_tok, cache, key, num_steps, pad_offsets=None):
+        keys = random.split(key, num_steps) if draws and num_steps > 0 else None
+        return run_keys(params, first_tok, cache, keys, num_steps, pad_offsets)
+
+    decode_loop.run_keys = run_keys
     return decode_loop
 
 
@@ -400,10 +429,9 @@ class Generator:
             "fused" if epilogue_gate_error(params, config, self.sampler.kind) is None else "xla"
         )
         fused_epi = self.epilogue_impl == "fused"
-        # one cache per (batch, capacity) and one generator: the decode
-        # steps' graphs replay their addresses
+        # one cache per (batch, capacity): the decode steps' graphs
+        # replay their addresses
         self._caches: dict[tuple[int, int], KVCache] = {}
-        self._gen = torch.Generator(device=dev)
         self._loop = make_decode_loop_fn(
             config, self.sampler, self.stop_tokens, decode_attn_impl,
             early_stop=early_stop, fused_epilogue=fused_epi, device=dev,
@@ -439,8 +467,10 @@ class Generator:
         t = torch.as_tensor(ids, dtype=torch.long, device=self.device)
         return t[None, :] if t.ndim == 1 else t
 
-    def _generator(self, seed: int) -> torch.Generator:
-        return self._gen.manual_seed(seed)
+    def _key(self, seed: int) -> torch.Tensor | None:
+        """``PRNGKey(seed)`` on the card for a sampled kind; greedy draws
+        nothing."""
+        return None if self.sampler.kind == "greedy" else random.PRNGKey(seed, self.device)
 
     def _run(
         self,
@@ -455,19 +485,21 @@ class Generator:
         b, s = prompt_ids.shape
         max_seq_len = max_seq_len or s + max_new_tokens
         _check_capacity(s, max_new_tokens, max_seq_len)
-        gen = self._generator(seed)
+        key = self._key(seed)
+        k_pre, k_loop = (None, None) if key is None else random.split(key)
         cache = self._cache(b, max_seq_len)
 
         _sync(self.device)
         t0 = time.perf_counter()
-        tok0, cache, _ = self._prefill(self.params, prompt_ids, cache, gen, attn_mask, pad_offsets)
+        tok0, cache, _ = self._prefill(self.params, prompt_ids, cache, k_pre, attn_mask,
+                                       pad_offsets)
         _sync(self.device)
         t1 = time.perf_counter()
 
         first = tok0.cpu().numpy()[:, None]
         if max_new_tokens > 1:
             rest, cache, steps = self._loop(
-                self.params, tok0, cache, gen, max_new_tokens - 1, pad_offsets
+                self.params, tok0, cache, k_loop, max_new_tokens - 1, pad_offsets
             )
             _sync(self.device)
             t2 = time.perf_counter()
@@ -584,17 +616,25 @@ class Generator:
         s = prompt_ids.shape[1]
         max_seq_len = max_seq_len or s + max_new_tokens
         _check_capacity(s, max_new_tokens, max_seq_len)
-        gen = self._generator(seed)
+        # JAX's stream: ``key, k = split(key)`` before the prefill and
+        # before every step
+        key = self._key(seed)
+        k = None
+        if key is not None:
+            key, k = random.split(key)
         cache = self._cache(1, max_seq_len)
-        tok, cache, _ = self._prefill(self.params, prompt_ids, cache, gen)
+        tok, cache, _ = self._prefill(self.params, prompt_ids, cache, k)
         t = int(tok[0])
         yield t
         for _ in range(max_new_tokens - 1):
             if t in self.stop_tokens:
                 return
+            if key is not None:
+                key, k = random.split(key)
             # one step of the decode loop: the same static step (and graph)
             # as generate's at this shape
-            nxt, cache, _ = self._loop(self.params, tok, cache, gen, 1)
+            nxt, cache, _ = self._loop.run_keys(self.params, tok, cache,
+                                                None if k is None else k[None], 1)
             tok = nxt[:, 0]
             t = int(tok[0])
             yield t

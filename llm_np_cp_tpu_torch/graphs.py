@@ -62,27 +62,25 @@ def launch_counters() -> list[tuple[Callable, str]]:
     from llm_np_cp_tpu_torch.ops.cuda import flash_attention as fa
     from llm_np_cp_tpu_torch.ops.cuda import sample_epilogue as se
     from llm_np_cp_tpu_torch.ops.cuda import softmax as sm
+    from llm_np_cp_tpu_torch.ops.cuda import threefry as tf
 
     wrappers = (da.decode_attention, da.decode_attention_split, da.combine_splits,
                 da.paged_decode_attention, da.paged_decode_attention_split,
                 da.ragged_paged_attention, da.ragged_paged_attention_split,
-                fa.flash_attention, se.sample_epilogue, sm.softmax)
+                fa.flash_attention, se.sample_epilogue, sm.softmax, tf.threefry2x32,
+                tf.categorical)
     return [(fn, attr) for fn in wrappers
             for attr in ("launches", "combine_launches", "launches_int8") if hasattr(fn, attr)]
 
 
 class CapturedStep:
     """``fn()`` run eagerly on the CPU; on the card captured as a CUDA
-    graph at its first call and replayed at every later one.
+    graph at its first call and replayed at every later one.  A step
+    that draws reads its keys from its static buffers (``random``), so a
+    replay draws as the eager step would."""
 
-    ``generator``: a ``torch.Generator`` the step draws from, registered
-    with the graph so that each replay advances it as an eager call
-    would (reseeding it between calls restarts the stream).
-    """
-
-    def __init__(self, fn: Callable[[], None], device: torch.device, name: str,
-                 generator: torch.Generator | None = None) -> None:
-        self.fn, self.device, self.name, self.generator = fn, device, name, generator
+    def __init__(self, fn: Callable[[], None], device: torch.device, name: str) -> None:
+        self.fn, self.device, self.name = fn, device, name
         self.graph: torch.cuda.CUDAGraph | None = None
         self.deltas: tuple[tuple[Callable, str, int], ...] = ()
         self.calls = self.replays = 0
@@ -119,8 +117,6 @@ class CapturedStep:
     def _capture(self) -> None:
         snap = [(fn, attr, getattr(fn, attr)) for fn, attr in launch_counters()]
         graph = torch.cuda.CUDAGraph()
-        if self.generator is not None:
-            graph.register_generator_state(self.generator)
         # what torch.cuda.graph does on entry, done first so that the
         # reserved bytes below move by the graph's pool alone
         torch.cuda.synchronize(self.device)

@@ -142,6 +142,12 @@ SIGNATURES: dict[str, tuple] = {
     "sample_epilogue_num_tiles": (_I,),
     # x, out, rows, n (the softmax axis), dtype code, stream
     "softmax_launch": (_P, _P, _I, _I, _I, _P),
+    # keys, per-row keys flag, data (null: counters), out, n, cols, mode,
+    # minval, maxval - minval, stream
+    "threefry2x32_launch": (_P, _I, _P, _P, ctypes.c_longlong, _I, _I, _F, _F, _P),
+    # keys, per-row keys flag, logits, part_val, part_idx, out, N, V,
+    # chunks a row, stream
+    "categorical_launch": (_P, _I) + (_P,) * 4 + (_I, _I, _I, _P),
 }
 
 

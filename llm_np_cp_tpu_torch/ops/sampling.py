@@ -1,10 +1,10 @@
 """Token sampling (port of ``llm_np_cp_tpu/ops/sampling.py``).
 
 Greedy argmax, min-p, top-k, top-p and the inverse-CDF draw over a
-``[..., vocab]`` logits tensor.  Draws use an explicit ``torch.Generator``
-in place of a ``jax.random`` key: the two give different streams from
-the same seed, so only greedy is token-identical to the JAX package and
-the stochastic kinds match it in distribution (their filtered logits).
+``[..., vocab]`` logits tensor.  Draws take a key (``random``: a ``[2]``
+key over the whole tensor, or ``[N, 2]`` keys, one a row) and draw
+``jax.random``'s bits, so a sampled token equals the JAX package's
+wherever the logits agree.
 """
 
 from __future__ import annotations
@@ -13,6 +13,8 @@ import dataclasses
 import math
 
 import torch
+
+from llm_np_cp_tpu_torch import random
 
 NEG_INF = float(torch.finfo(torch.float32).min)
 
@@ -29,6 +31,11 @@ def min_p_mask(logits: torch.Tensor, p_base: float) -> torch.Tensor:
     logp = torch.log_softmax(logits, dim=-1)
     keep = logp >= (logp.amax(dim=-1, keepdim=True) + math.log(p_base))
     return torch.where(keep, logits, NEG_INF)
+
+
+def min_p(key: torch.Tensor, logits: torch.Tensor, p_base: float = 0.1) -> torch.Tensor:
+    """One min-p draw per row: ``categorical`` over ``min_p_mask``."""
+    return random.categorical(key, min_p_mask(logits, p_base))
 
 
 def top_k_mask(logits: torch.Tensor, k: int) -> torch.Tensor:
@@ -51,32 +58,20 @@ def top_p_mask(logits: torch.Tensor, p: float) -> torch.Tensor:
     return torch.where(logits >= threshold, logits, NEG_INF)
 
 
-def _categorical(gen: torch.Generator | None, logits: torch.Tensor) -> torch.Tensor:
-    """One draw per row from softmax(logits): the exponential race that
-    ``torch.multinomial`` runs for a single sample (argmax of p / q with
-    q ~ Exp(1)), without its host-side check of the probabilities, so a
-    captured decode step can take it."""
-    probs = torch.softmax(logits, dim=-1)
-    q = torch.empty_like(probs).exponential_(1.0, generator=gen)
-    return torch.argmax(probs / q, dim=-1).to(torch.int32)
-
-
-def sample_cdf(gen: torch.Generator | None, logits: torch.Tensor) -> torch.Tensor:
+def sample_cdf(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     """Inverse-CDF draw — the vectorized form of the reference's Python
-    probability walk."""
+    probability walk — with one uniform a row."""
     probs = torch.softmax(logits.float(), dim=-1)
     cdf = torch.cumsum(probs, dim=-1)
-    u = torch.rand(
-        logits.shape[:-1] + (1,), generator=gen, device=logits.device,
-        dtype=torch.float32,
-    )
+    u = random.uniform(key, tuple(logits.shape[:-1]) + (1,))
     return (cdf < u).sum(dim=-1).to(torch.int32)
 
 
 @dataclasses.dataclass(frozen=True)
 class Sampler:
-    """Static sampler spec.  ``__call__(gen, logits)`` draws with the
-    ``torch.Generator`` ``gen`` (which must live on ``logits.device``).
+    """Static sampler spec.  ``__call__(key, logits)`` draws under ``key``
+    (a ``[2]`` key, or ``[N, 2]`` keys for logits ``[N, V]``, on
+    ``logits.device``; greedy takes None).
 
     kind: "greedy" | "min_p" | "cdf" | "top_k" | "top_p"
     """
@@ -87,15 +82,15 @@ class Sampler:
     top_k: int = 50
     top_p: float = 0.9
 
-    def __call__(self, gen: torch.Generator | None, logits: torch.Tensor) -> torch.Tensor:
+    def __call__(self, key: torch.Tensor | None, logits: torch.Tensor) -> torch.Tensor:
         logits = logits.float()
         if self.kind == "greedy":
             return greedy(logits)
         if self.kind == "cdf":
             if self.temperature != 1.0:
                 logits = logits / self.temperature
-            return sample_cdf(gen, logits)
-        return _categorical(gen, self.filtered_logits(logits))
+            return sample_cdf(key, logits)
+        return random.categorical(key, self.filtered_logits(logits))
 
     def filtered_logits(self, logits: torch.Tensor) -> torch.Tensor:
         """Post-filter logits whose softmax is this sampler's effective

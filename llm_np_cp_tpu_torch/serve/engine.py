@@ -18,23 +18,26 @@ JAX package:
 - **Phase-split tick** (``mixed_step="off"``).  Each admitted request is
   prefilled in ``prefill_chunk`` chunks into a temporary contiguous cache
   (``make_ragged_prefill_step``, the plain masked path), scattered into
-  its blocks, and its first token sampled; then one decode step serves
-  every running row.  ``decode_attn_impl`` picks that step's attention:
-  ``"xla"`` gathers each row's blocks into a [B, S_max, K, D] view and
-  runs the plain masked attention, ``"flash_decode"`` gathers the same
-  view for the ``decode_attention`` kernel, ``"paged"`` reads the pool
-  through the block tables with ``paged_decode_attention`` (no gathered
-  view exists).
+  its blocks, and its first token sampled, all eagerly; then one decode
+  step serves every running row, over static ``[max_slots, ...]``
+  operands (``[max_slots, blocks per sequence]`` tables), captured once.
+  ``decode_attn_impl`` picks that step's attention: ``"xla"`` gathers
+  each row's blocks into a [B, S_max, K, D] view and runs the plain
+  masked attention, ``"flash_decode"`` gathers the same view for the
+  ``decode_attention`` kernel, ``"paged"`` reads the pool through the
+  block tables with ``paged_decode_attention`` (no gathered view exists).
 
 Block 0 is the scratch block: inactive rows and dead packing lanes write
 there and no live table reads it.  Every tick that dispatches fetches ONE
 packed ``[R, W+3]`` int32 array to the host (``_pack_sync``; the
 ``n_host_fetches`` ledger counts it).  Prefix sharing
 (``enable_prefix_cache``) claims a prompt's registered leading blocks at
-admission and skips their prefill.  A non-greedy sampler draws each
-token with a ``torch.Generator`` seeded from (request seed, content
-position), so a preempted request replays its stream; the draws differ
-from ``jax.random``'s, so only greedy tokens match the JAX engine.
+admission and skips their prefill.  A non-greedy sampler draws row n
+under the key ``fold_in(PRNGKey(seed), content position)``, computed on
+the card from the step's seed and position operands (``random``, the
+bits ``jax.random`` draws), as the JAX engine keys it: a preempted
+request replays its stream, and sampled tokens equal the JAX engine's
+wherever the logits agree.
 
 The unified tick's step is the port's counterpart of the JAX engine's
 one compile per packed-width bucket: each bucket owns static device
@@ -47,12 +50,14 @@ or at the bucket's first tick, and replayed at every later one; on the
 CPU run eagerly.  A tick
 writes its packed host metadata into the bucket's pinned host buffer
 and copies it to the card in ONE copy before the step.
-``compile_counts()`` reports ``{"mixed_step": graphs captured}``: at
-most ``len(mixed_buckets)``, and no more on a replay of the same trace.
-Eager, and so uncaptured: a non-greedy unified tick (its draws use a
-host-side ``torch.Generator`` per row and (seed, position); an in-graph
-draw is its own slice) and the phase-split tick (``_prefill_request``,
-``_decode_step``).
+The phase-split decode step owns such buffers too, and is captured at
+its first call (``warmup`` runs one).  ``compile_counts()`` reports
+``{"mixed_step": graphs captured}`` — at most ``len(mixed_buckets)``,
+greedy or sampled, and no more on a replay of the same trace — or, for
+a phase-split engine, ``{"decode_step": n}``, where the JAX engine
+reports five phase-split programs: its prefill chunks, first sample and
+scatter stay eager here (``_prefill_request``; they need a static
+prefill cache first).
 
 Speculative serving (``spec_k=K``, unified tick only), as in the JAX
 engine: requests that opt in (``submit(..., speculative=True)``) draft
@@ -89,6 +94,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from llm_np_cp_tpu_torch import random
 from llm_np_cp_tpu_torch.cache import KVCache, dequantize_kv, quantize_kv
 from llm_np_cp_tpu_torch.config import ModelConfig
 from llm_np_cp_tpu_torch.device import resolve_device
@@ -198,47 +204,76 @@ def pool_geometry(
     return blocks_per_seq, num_blocks, blocks_per_seq * block_size
 
 
+def _seed_word(seed: int) -> int:
+    """A request seed's low 32 bits as an int32 (the JAX engine's uint32
+    seed operand; ``random.PRNGKey`` reads the same word)."""
+    return ((int(seed) & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000
+
+
 # the unified tick's packed int32 operands, in the order of their static
 # device buffer
 _MIXED_OPERANDS = ("tokens", "positions", "tok_blk", "tok_off", "tile_row", "tile_qpos0",
-                   "tile_qlen", "tables", "pads", "last_idx", "verify_len")
+                   "tile_qlen", "tables", "pads", "last_idx", "verify_len", "seeds",
+                   "sample_pos")
+# the phase-split decode step's int32 operands, one row a slot
+_DECODE_OPERANDS = ("toks", "content_pos", "blk", "off", "tables", "vis", "pads",
+                    "pads_sliding", "seeds")
 
 
-class _MixedStep:
-    """One packed-width bucket's static step: its operands' device buffer
-    (one int32 buffer, viewed per operand), the pinned host buffer a tick
-    packs into, the ``[R, W+3]`` sync rows it writes, and its runner."""
+class _StaticStep:
+    """A step over static buffers: its int32 operands' device buffer (one
+    buffer, viewed per operand), the pinned host buffer a tick packs
+    into, the ``[R, W+3]`` sync rows the step writes (``out``), and its
+    runner, ``body(ops, out)`` run by ``graphs.CapturedStep``."""
 
-    def __init__(self, eng: "ServeEngine", t_w: int) -> None:
-        r, w = eng.scheduler.max_slots, eng._spec_w
-        nt = t_w // eng._q_tile
-        shapes = dict(tokens=(t_w,), positions=(t_w,), tok_blk=(t_w,), tok_off=(t_w,),
-                      tile_row=(nt,), tile_qpos0=(nt,), tile_qlen=(nt,),
-                      tables=(r, eng.max_blocks_per_seq), pads=(r,), last_idx=(r, w),
-                      verify_len=(r,))
+    def __init__(self, eng: "ServeEngine", shapes: dict[str, tuple[int, ...]], out_cols: int,
+                 body: Callable, name: str) -> None:
         dev = eng.device
-        total = sum(math.prod(shapes[k]) for k in _MIXED_OPERANDS)
+        total = sum(math.prod(v) for v in shapes.values())
         self.dev = torch.zeros(total, dtype=torch.int32, device=dev)
         self.host = torch.zeros(total, dtype=torch.int32, pin_memory=dev.type == "cuda")
         self.host_np = self.host.numpy()
         self.spans: dict[str, tuple[int, int]] = {}
         self.ops: dict[str, torch.Tensor] = {}
         o = 0
-        for k in _MIXED_OPERANDS:
-            n = math.prod(shapes[k])
+        for k, shape in shapes.items():
+            n = math.prod(shape)
             self.spans[k] = (o, n)
-            self.ops[k] = self.dev[o:o + n].view(shapes[k])
+            self.ops[k] = self.dev[o:o + n].view(shape)
             o += n
-        self.out = torch.zeros((r, w + 3), dtype=torch.int32, device=dev)
-        self.run = CapturedStep(lambda: eng._mixed_body(self.ops, self.out), dev,
-                                f"mixed_step[T={t_w}]")
+        self.out = torch.zeros((eng.scheduler.max_slots, out_cols), dtype=torch.int32,
+                               device=dev)
+        self.run = CapturedStep(lambda: body(self.ops, self.out), dev, name)
 
     def upload(self, host: dict[str, np.ndarray]) -> None:
-        """The tick's packed host metadata → the static device buffer, in
-        ONE copy (pinned host memory, so the copy is asynchronous)."""
+        """The tick's host operands → the static device buffer, in ONE
+        copy (pinned host memory, so the copy is asynchronous)."""
         for k, (o, n) in self.spans.items():
             self.host_np[o:o + n] = host[k].reshape(-1)
         self.dev.copy_(self.host, non_blocking=True)
+
+
+def _mixed_step_state(eng: "ServeEngine", t_w: int) -> _StaticStep:
+    """One packed-width bucket's static step (its operands ``_MIXED_OPERANDS``)."""
+    r, w = eng.scheduler.max_slots, eng._spec_w
+    nt = t_w // eng._q_tile
+    shapes = dict(tokens=(t_w,), positions=(t_w,), tok_blk=(t_w,), tok_off=(t_w,),
+                  tile_row=(nt,), tile_qpos0=(nt,), tile_qlen=(nt,),
+                  tables=(r, eng.max_blocks_per_seq), pads=(r,), last_idx=(r, w),
+                  verify_len=(r,), seeds=(r,), sample_pos=(r, w))
+    return _StaticStep(eng, {k: shapes[k] for k in _MIXED_OPERANDS}, w + 3, eng._mixed_body,
+                       f"mixed_step[T={t_w}]")
+
+
+def _decode_step_state(eng: "ServeEngine") -> _StaticStep:
+    """The phase-split decode step over every slot (its operands
+    ``_DECODE_OPERANDS``, ``[max_slots]`` rows and ``[max_slots, blocks
+    per sequence]`` tables)."""
+    b = eng.scheduler.max_slots
+    shapes = {k: (b,) for k in _DECODE_OPERANDS}
+    shapes["tables"] = (b, eng.max_blocks_per_seq)
+    return _StaticStep(eng, shapes, 4, eng._decode_body,
+                       f"decode_step[{eng.decode_attn_impl}, B={b}]")
 
 
 class ServeEngine:
@@ -355,8 +390,10 @@ class ServeEngine:
         self.n_decode_dispatches = 0
         self.n_verify_dispatches = 0
         self.n_host_fetches = 0
-        # the unified tick's steps by packed width, and its dispatches per width
-        self._mixed_steps: dict[int, _MixedStep] = {}
+        # the unified tick's steps by packed width, and its dispatches per
+        # width; the phase-split tick's decode step
+        self._mixed_steps: dict[int, _StaticStep] = {}
+        self._split_step: _StaticStep | None = None
         self.bucket_dispatches: dict[int, int] = {}
         self._stops = (torch.tensor(self.stop_tokens, dtype=torch.int32, device=self.device)
                        if self.stop_tokens else None)
@@ -529,69 +566,54 @@ class ServeEngine:
             )
         return x
 
-    def _row_generator(self, seed: int, pos: int) -> torch.Generator:
-        """The draw of the token at content position ``pos`` of a request
-        seeded ``seed``: a generator of its own per (seed, pos), so a
-        preempted request replays its stream."""
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed((int(seed) << 32) | int(pos))
-        return gen
-
-    def _sample(self, logits: torch.Tensor, seeds: np.ndarray, pos: np.ndarray,
-                live: np.ndarray) -> torch.Tensor:
-        """Sample ``logits [N, V]`` row by row with the (seed, position)
-        rule; rows not ``live`` give 0.  A greedy sampler needs no draw."""
+    def _draw(self, logits: torch.Tensor, seeds: torch.Tensor,
+              pos: torch.Tensor) -> torch.Tensor:
+        """Sample ``logits [N, V]``, row n under the key ``fold_in(
+        PRNGKey(seeds[n]), pos[n])`` (int32 ``[N]`` on the card: the
+        request's seed word and the token's content position), as the JAX
+        engine keys its rows, so a preempted request replays its stream.
+        A greedy sampler needs no key."""
         if self.sampler.kind == "greedy":
             return self.sampler(None, logits)
-        out = torch.zeros(logits.shape[0], dtype=torch.int32, device=logits.device)
-        for n in np.flatnonzero(live):
-            gen = self._row_generator(seeds[n], pos[n])
-            out[n] = self.sampler(gen, logits[n:n + 1])[0]
-        return out
+        return self.sampler(random.fold_in(random.PRNGKey(seeds), pos), logits)
 
-    def _sample_tail(self, x: torch.Tensor, seeds: np.ndarray, pos: np.ndarray,
-                     live: np.ndarray) -> torch.Tensor:
+    def _sample_tail(self, x: torch.Tensor, seeds: torch.Tensor,
+                     pos: torch.Tensor) -> torch.Tensor:
         """Rows of pre-final-norm hidden states ``x [N, H]`` → ``[N]``
         int32 samples: the fused epilogue kernel (greedy, float or int8 head), or
-        final_logits + the sampler."""
+        final_logits + the keyed sampler."""
         if self.epilogue_impl == "fused":
             return transformer.sample_epilogue_tail(self.params, x, self.config)
-        return self._sample(final_logits(self.params, x[:, None], self.config)[:, 0],
-                            seeds, pos, live)
+        return self._draw(final_logits(self.params, x[:, None], self.config)[:, 0], seeds, pos)
 
     def _mixed_step(self, host: dict[str, np.ndarray]) -> torch.Tensor:
         """The unified-tick step of the tick's bucket: the packed operands
-        copied into the bucket's static buffers, then its captured step
-        (a greedy sampler) or the same step run eagerly with the host
-        draws (a sampled kind).  Returns the bucket's static ``[R, W+3]``
-        sync rows (on the device; read them before the next tick)."""
+        copied into the bucket's static buffers, then its captured step.
+        Returns the bucket's static ``[R, W+3]`` sync rows (on the device;
+        read them before the next tick)."""
         t_w = host["tokens"].shape[0]
         st = self._bucket_step(t_w)
         st.upload(host)
         self.bucket_dispatches[t_w] = self.bucket_dispatches.get(t_w, 0) + 1
-        if self.sampler.kind == "greedy":
-            st.run()
-        else:
-            self._mixed_body(st.ops, st.out, host)
+        st.run()
         return st.out
 
-    def _bucket_step(self, t_w: int) -> _MixedStep:
+    def _bucket_step(self, t_w: int) -> _StaticStep:
         st = self._mixed_steps.get(t_w)
         if st is None:
-            st = self._mixed_steps[t_w] = _MixedStep(self, t_w)
+            st = self._mixed_steps[t_w] = _mixed_step_state(self, t_w)
         return st
 
-    def _mixed_body(self, ops: dict[str, torch.Tensor], out: torch.Tensor,
-                    host: dict[str, np.ndarray] | None = None) -> None:
+    def _mixed_body(self, ops: dict[str, torch.Tensor], out: torch.Tensor) -> None:
         """ONE pass of the packed ragged batch through the decoder — every
         token's K/V scattered into its pool block, ``ragged_paged_attention``
-        over the block tables in every layer, and each row's sample slot
-        through the tail — writing the packed sync rows to ``out``.
-        ``host`` carries the draws' (seed, position) rows of a sampled
-        kind; a greedy step reads nothing from the host."""
+        over the block tables in every layer, and each row's sample slots
+        through the tail (a sampled kind keyed by the rows' seeds and
+        sample positions) — writing the packed sync rows to ``out``.  It
+        reads nothing from the host."""
         cfg = self.config
         (tokens, positions, tok_blk, tok_off, tile_row, tile_qpos0, tile_qlen, tables,
-         pads, last_idx, verify_len) = (ops[k] for k in _MIXED_OPERANDS)
+         pads, last_idx, verify_len, seeds, sample_pos) = (ops[k] for k in _MIXED_OPERANDS)
         win = cfg.sliding_window
 
         def write(i, k, v):
@@ -610,10 +632,8 @@ class ServeEngine:
         x = self._run_layers(x, positions[None, :], write, attend)
         r, w_cols = last_idx.shape
         xr = x[0][last_idx.reshape(-1)]  # [R*W, H]: only the sample slots
-        draws = (None, None, None) if host is None else (
-            np.repeat(host["seeds"], w_cols), host["sample_pos"].reshape(-1),
-            (np.arange(w_cols)[None, :] < host["verify_len"][:, None]).reshape(-1))
-        nxt = self._sample_tail(xr, *draws).reshape(r, w_cols)
+        nxt = self._sample_tail(xr, seeds.repeat_interleave(w_cols),
+                                sample_pos.reshape(-1)).reshape(r, w_cols)
         # the accept walk on the card: a verify slice's drafts ARE its
         # packed input tokens at columns 1..k', so the longest prefix
         # matching the samples needs no host round trip
@@ -624,15 +644,28 @@ class ServeEngine:
         out.copy_(_pack_sync(nxt, _stop_hits(nxt, self._stops), accept))
 
     def _decode_step(self, host: dict[str, np.ndarray]) -> torch.Tensor:
+        """The phase-split decode step: the operands copied into its static
+        buffers, then its captured step (one graph, captured at the first
+        call).  Returns the static packed ``[B, 4]`` sync rows (on the
+        device; read them before the next tick)."""
+        if self._split_step is None:
+            self._split_step = _decode_step_state(self)
+        st = self._split_step
+        st.upload(host)
+        st.run()
+        return st.out
+
+    def _decode_body(self, ops: dict[str, torch.Tensor], out: torch.Tensor) -> None:
         """The phase-split decode step over every slot: the input token's
         K/V goes to slot ``lengths`` of its row, then row b attends slots
         ``[pads, lengths]`` (window-clipped on sliding layers) through
-        ``decode_attn_impl``.  Returns the packed ``[B, 4]`` sync rows."""
+        ``decode_attn_impl``, and the sample (keyed by the row's seed and
+        content position) lands in the packed ``[B, 4]`` sync rows
+        ``out``.  It reads nothing from the host."""
         cfg = self.config
         impl = self.decode_attn_impl
-        toks, content_pos, blk, off, tables, vis, pads, pads_sliding = self._upload(
-            *(host[k] for k in ("toks", "content_pos", "blk", "off", "tables", "vis",
-                                "pads", "pads_sliding")))
+        toks, content_pos, blk, off, tables, vis, pads, pads_sliding, seeds = (
+            ops[k] for k in _DECODE_OPERANDS)
         s_max = self.max_seq_len
         pos = None if impl == "paged" else torch.arange(s_max, device=self.device)[None, :]
 
@@ -665,10 +698,9 @@ class ServeEngine:
 
         x = embed_inputs(self.params, toks[:, None], cfg)  # [B, 1, H]
         x = self._run_layers(x, content_pos[:, None], write, attend)
-        nxt = self._sample_tail(x[:, -1], host["seeds"], host["content_pos"],
-                                host["live"])[:, None]
+        nxt = self._sample_tail(x[:, -1], seeds, content_pos)[:, None]
         accept = torch.zeros(nxt.shape[0], dtype=torch.int32, device=nxt.device)
-        return _pack_sync(nxt, _stop_hits(nxt, self._stops), accept)
+        out.copy_(_pack_sync(nxt, _stop_hits(nxt, self._stops), accept))
 
     def _gather_prefix(self, cache: KVCache, ids: list[int], pad: int) -> None:
         """Copy shared blocks ``ids`` into the temp cache's slots
@@ -891,8 +923,9 @@ class ServeEngine:
         self._scatter_prefill(cache, req.block_ids[n_shared:], n_shared)
         self._register_prefix(req)
         self.n_dispatches += 1
-        pos = np.asarray([content.size - 1])
-        tok = self._sample(last, np.asarray([req.seed]), pos, np.ones(1, bool))
+        seed, pos = self._upload(np.asarray([_seed_word(req.seed)]),
+                                 np.asarray([content.size - 1]))
+        tok = self._draw(last, seed, pos)
         # the phase-split design emits the first token inside the prefill
         # phase (its own sync); the unified tick retired this fetch
         self._emit(req, int(tok[0].item()))
@@ -929,8 +962,7 @@ class ServeEngine:
             lengths = np.zeros(b, dtype=np.int32)
             pads = np.zeros(b, dtype=np.int32)
             toks = np.zeros(b, dtype=np.int32)
-            seeds = np.zeros(b, dtype=np.int64)
-            live = np.zeros(b, dtype=bool)
+            seeds = np.zeros(b, dtype=np.int32)
             for r in running:
                 tables[r.slot, : len(r.block_ids)] = r.block_ids
                 # slots written so far: pads + content minus the latest
@@ -938,8 +970,7 @@ class ServeEngine:
                 lengths[r.slot] = r.cache_len - 1
                 pads[r.slot] = r.pad
                 toks[r.slot] = r.generated[-1]
-                seeds[r.slot] = r.seed
-                live[r.slot] = True
+                seeds[r.slot] = _seed_word(r.seed)
             vis = lengths + 1
             # a sliding layer's single query at slot lengths sees slots
             # > lengths - window: an effective left pad of vis - window
@@ -947,8 +978,7 @@ class ServeEngine:
             host = dict(
                 toks=toks, content_pos=lengths - pads,
                 blk=tables[np.arange(b), lengths // bs], off=lengths % bs,
-                tables=tables, vis=vis, pads=pads, pads_sliding=pads_sliding,
-                seeds=seeds, live=live,
+                tables=tables, vis=vis, pads=pads, pads_sliding=pads_sliding, seeds=seeds,
             )
             self.n_dispatches += 1
             self.n_decode_dispatches += 1
@@ -1026,7 +1056,7 @@ class ServeEngine:
             tile_row=np.zeros(nt, np.int32), tile_qpos0=np.zeros(nt, np.int32),
             tile_qlen=np.zeros(nt, np.int32), tables=np.zeros((b, mb), np.int32),
             pads=np.zeros(b, np.int32), last_idx=np.zeros((b, w_v), np.int32),
-            sample_pos=np.zeros((b, w_v), np.int32), seeds=np.zeros(b, np.int64),
+            sample_pos=np.zeros((b, w_v), np.int32), seeds=np.zeros(b, np.int32),
             verify_len=np.zeros(b, np.int32),
         )
         cur = 0
@@ -1035,7 +1065,7 @@ class ServeEngine:
             slot = r.slot
             h["tables"][slot, :len(r.block_ids)] = r.block_ids
             h["pads"][slot] = r.pad
-            h["seeds"][slot] = r.seed
+            h["seeds"][slot] = _seed_word(r.seed)
             sl = start_slot + np.arange(n, dtype=np.int32)
             h["tokens"][cur:cur + n] = toks
             h["positions"][cur:cur + n] = sl - r.pad
@@ -1201,20 +1231,28 @@ class ServeEngine:
 
     # ------------------------------------------------------------------
     def compile_counts(self) -> dict[str, int]:
-        """The static-shape contract, as the JAX engine reports it: a
-        unified-tick engine reports ``{"mixed_step": n}``, the buckets
-        whose step has its CUDA graph (on the CPU, whose static step has
-        run) — at most ``len(mixed_buckets)``, and no more on a replay of
-        the same trace.  A non-greedy unified tick runs eagerly (n stays
-        0); the phase-split tick runs eagerly and reports nothing."""
+        """The static-shape contract: a unified-tick engine reports
+        ``{"mixed_step": n}``, the buckets whose step has its CUDA graph
+        (on the CPU, whose static step has run) — at most
+        ``len(mixed_buckets)``, greedy or sampled, and no more on a replay
+        of the same trace; a phase-split engine ``{"decode_step": n}``, its
+        one decode step's graph (n is 0 or 1).  The JAX engine reports
+        five phase-split programs; here the phase-split prefill chunks,
+        the first sample and the scatter run eagerly and are not
+        reported."""
         if not self.mixed:
-            return {}
+            st = self._split_step
+            return {"decode_step": int(st is not None and st.run.compiled)}
         return {"mixed_step": sum(st.run.compiled for st in self._mixed_steps.values())}
 
     def graph_steps(self) -> list[CapturedStep]:
-        """The unified tick's bucket steps (capture time, pool bytes and
-        replays are on each)."""
-        return [st.run for st in self._mixed_steps.values()]
+        """The captured steps: the unified tick's bucket steps, or the
+        phase-split decode step (capture time, pool bytes and replays are
+        on each)."""
+        steps = list(self._mixed_steps.values())
+        if self._split_step is not None:
+            steps.append(self._split_step)
+        return [st.run for st in steps]
 
     def _warm_mixed_bucket(self, t_w: int) -> None:
         """Capture one packed-width bucket's step with an all-dead batch:
@@ -1229,16 +1267,16 @@ class ServeEngine:
     def warmup(self, prompt_lens: list[int], max_new_tokens: int = 2) -> None:
         """Run one dummy request through the engine before measuring —
         it builds the kernel library and warms the card's allocator and
-        cuBLAS handles — and, as the JAX engine compiles every bucket,
-        capture every packed-width bucket's graph (a greedy unified
-        tick), so that no capture stalls a measured tick; then drop the
-        dummy's traces: prefix-cache entries, the finished ledger and
-        the metrics."""
+        cuBLAS handles, and a phase-split engine's decode step captures
+        its graph — and, as the JAX engine compiles every bucket, capture
+        every packed-width bucket's graph, greedy or sampled, so that no
+        capture stalls a measured tick; then drop the dummy's traces:
+        prefix-cache entries, the finished ledger and the metrics."""
         if not prompt_lens:
             return
         self.submit(np.ones(min(prompt_lens), np.int32), min(2, max_new_tokens))
         self.run_until_complete()
-        if self.mixed and self.sampler.kind == "greedy":
+        if self.mixed:
             for t_w in self.mixed_buckets:
                 self._warm_mixed_bucket(t_w)
         if self.pool.prefix_cache is not None:

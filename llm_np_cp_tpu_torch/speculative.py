@@ -26,10 +26,12 @@ function over static buffers that ``graphs.CapturedStep`` captures as a
 CUDA graph on the card (one per batch, γ, capacity, sampler and stop
 set; eager on the CPU), and the host loop makes one fetch a round (each
 row's total and done flag) to decide whether to run another.  A round
-reads nothing back and holds no host tensor: its draws come from the
-generator's ``torch.Generator``, registered with the graph — the draft
-and correction draws through the exponential race of
-``ops/sampling._categorical``, the accept uniforms from ``torch.rand``.
+reads nothing back and holds no host tensor.  Its draws are keyed as the
+JAX package keys them (``random``): the generation's key sits in a
+static buffer and each round takes ``key, kr = split(key)`` on the card,
+then ``kd, ku, kc = split(kr, 3)`` — the draft draws under ``split(kd,
+γ+1)``, the accept uniforms under ``ku``, the correction under ``kc`` —
+so a sampled round draws the JAX package's tokens.
 The host's cache ``length`` is the bound over the rows still writing,
 set from each fetch; capacity is sized once, up front, as in JAX.
 
@@ -49,6 +51,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from llm_np_cp_tpu_torch import random
 from llm_np_cp_tpu_torch.cache import KVCache, align_capacity, truncate
 from llm_np_cp_tpu_torch.config import ModelConfig
 from llm_np_cp_tpu_torch.device import resolve_device
@@ -62,7 +65,7 @@ from llm_np_cp_tpu_torch.generate import (
 )
 from llm_np_cp_tpu_torch.graphs import CapturedStep
 from llm_np_cp_tpu_torch.models.transformer import forward
-from llm_np_cp_tpu_torch.ops.sampling import Sampler, _categorical
+from llm_np_cp_tpu_torch.ops.sampling import Sampler
 
 Params = dict[str, Any]
 
@@ -122,7 +125,7 @@ def _spec_round_core(
     t0: torch.Tensor,
     dcache: KVCache,
     tcache: KVCache,
-    gen: torch.Generator | None,
+    key: torch.Tensor,
     *,
     draft_config: ModelConfig,
     target_config: ModelConfig,
@@ -141,13 +144,15 @@ def _spec_round_core(
     own prefix length n_b and both caches roll back to its accepted
     inputs t0..d_{n_b}.  ``active``: [B] bool — rows already done count
     0 and roll back to where they started.  ``pad_offsets``: [B] left
-    pads of a ragged batch, threaded into every forward.
+    pads of a ragged batch, threaded into every forward.  ``key``: the
+    round's key ``[2]``, split as JAX's ``_spec_round_core`` splits it.
 
     Returns (emitted [B, γ+1] (the first count_b real per row), count
     [B] int32, next_t0 [B] int32).  Moves the caches' host ``length``
     by γ+1 (each forward advances it): the caller owns that bound.
     """
     b = t0.shape[0]
+    kd, ku, kc = random.split(key, 3)
     t_base = tcache.offset.clone()
     d_base = dcache.offset.clone()
 
@@ -155,11 +160,11 @@ def _spec_round_core(
     # leaves the draft cache covering every verified input, so the
     # rollback target base+n+1 always exists
     tok, drafts, qprobs = t0, [], []
-    for _ in range(gamma + 1):
+    for k in random.split(kd, gamma + 1):
         logits, _ = forward(draft_params, tok[:, None], draft_config, dcache,
                             logits_last_only=True, pad_offsets=pad_offsets, device=device)
         fl = draft_sampler.filtered_logits(logits[:, -1])  # [B, V]
-        tok = _categorical(gen, fl)
+        tok = random.categorical(k, fl)
         drafts.append(tok)
         qprobs.append(torch.softmax(fl, dim=-1))
     d = torch.stack(drafts[:gamma], dim=1)  # [B, γ] proposals d_1..d_γ
@@ -175,7 +180,7 @@ def _spec_round_core(
     dl = d.long()[..., None]
     p_d = p[:, :gamma].gather(-1, dl)[..., 0]
     q_d = qp[:, :gamma].gather(-1, dl)[..., 0]
-    u = torch.rand((b, gamma), generator=gen, device=t0.device, dtype=torch.float32)
+    u = random.uniform(ku, (b, gamma))
     accept = u * q_d < p_d  # [B, γ]
     n = torch.where(accept.all(dim=-1), gamma,
                     torch.argmin(accept.to(torch.int32), dim=-1))  # [B], first rejection
@@ -189,7 +194,7 @@ def _spec_round_core(
     residual = torch.clamp_min(p_n - qp.gather(1, idx)[:, 0], 0.0)
     total = residual.sum(dim=-1, keepdim=True)
     dist = torch.where(total > 0, residual / torch.clamp_min(total, 1e-38), p_n)
-    c = _categorical(gen, torch.log(dist + 1e-38))
+    c = random.categorical(kc, torch.log(dist + 1e-38))
 
     emitted = torch.cat([d, torch.zeros_like(d[:, :1])], dim=1)
     emitted.scatter_(1, n[:, None], c[:, None])
@@ -216,17 +221,17 @@ def make_spec_round_fn(
 ) -> Callable:
     """One speculative round, run eagerly (the granular API).
 
-    (draft_params, target_params, t0 [B], dcache, tcache, gen) →
+    (draft_params, target_params, t0 [B], dcache, tcache, key) →
     (emitted [B, γ+1] (the first ``count_b`` of each row real), count
     [B], dcache, tcache, next_t0 [B]).  Both caches are updated in place
     and given per-row offsets at the first round; their host ``length``
     advances by γ+1 a round, an upper bound."""
     dev = resolve_device(device)
 
-    def spec_round(draft_params, target_params, t0, dcache, tcache, gen):
+    def spec_round(draft_params, target_params, t0, dcache, tcache, key):
         b = t0.shape[0]
         emitted, count, next_t0 = _spec_round_core(
-            draft_params, target_params, t0, _per_row(dcache, b), _per_row(tcache, b), gen,
+            draft_params, target_params, t0, _per_row(dcache, b), _per_row(tcache, b), key,
             draft_config=draft_config, target_config=target_config, gamma=gamma,
             sampler=sampler, draft_sampler=draft_sampler or sampler, device=dev,
         )
@@ -241,8 +246,9 @@ class _LoopState:
     the round's input tokens, each row's done flag, emitted total and
     active rounds, the accepted / proposed sums, the output rows (one
     slot per cache slot: the last round's window always fits), the
-    budget, the pad offsets of a ragged batch, and the [2, B] (total,
-    done) rows the host fetches once a round."""
+    budget, the pad offsets of a ragged batch, the [2, B] (total, done)
+    rows the host fetches once a round, and the generation's key, which
+    each round splits and moves on."""
 
     tok: torch.Tensor  # [B] int32
     done: torch.Tensor  # [B] bool
@@ -254,7 +260,7 @@ class _LoopState:
     pads: torch.Tensor | None  # [B] int64
     stops: torch.Tensor | None
     sync: torch.Tensor  # [2, B] int32
-    gen: torch.Generator | None
+    key: torch.Tensor  # [2] int32
     run: CapturedStep | None = None
 
 
@@ -274,7 +280,7 @@ def make_spec_decode_fn(
     round.  Rows that reach their budget or a stop token freeze (count
     0, caches pinned) while the rest go on.
 
-    (draft_params, target_params, t0 [B], dcache, tcache, gen, max_new,
+    (draft_params, target_params, t0 [B], dcache, tcache, key, max_new,
     pad_offsets=None) → (buf [B, max_new+γ+1] (the first ``total_b``
     real per row, t0 included), total [B], rounds [B] (rounds each row
     was active in), accepted, proposed (summed over active rows),
@@ -288,8 +294,10 @@ def make_spec_decode_fn(
     def body(st: _LoopState, draft_params, target_params, dcache, tcache) -> None:
         active = (st.total < st.max_new) & ~st.done
         nd, nt = dcache.length, tcache.length
+        ks = random.split(st.key)  # JAX's ``key, kr = split(key)``
+        st.key.copy_(ks[0])
         emitted, count, nxt = _spec_round_core(
-            draft_params, target_params, st.tok, dcache, tcache, st.gen,
+            draft_params, target_params, st.tok, dcache, tcache, ks[1],
             draft_config=draft_config, target_config=target_config, gamma=gamma,
             sampler=sampler, draft_sampler=dsampler, active=active, pad_offsets=st.pads,
             device=dev,
@@ -311,9 +319,9 @@ def make_spec_decode_fn(
         st.sync[0].copy_(st.total)
         st.sync[1].copy_(st.done)
 
-    def state(tcache: KVCache, dcache: KVCache, draft_params, target_params, gen,
+    def state(tcache: KVCache, dcache: KVCache, draft_params, target_params,
               ragged: bool) -> _LoopState:
-        key = (body, id(draft_params), id(target_params), id(dcache), id(gen), ragged)
+        key = (body, id(draft_params), id(target_params), id(dcache), ragged)
         st = tcache.steps.get(key)
         if st is None:
             b, cap = tcache.k.shape[1], tcache.max_seq_len
@@ -326,15 +334,15 @@ def make_spec_decode_fn(
                 buf=z(b, cap), max_new=z(), pads=z(b, dtype=torch.int64) if ragged else None,
                 stops=(torch.tensor(stop_tokens, dtype=torch.int32, device=dev)
                        if stop_tokens else None),
-                sync=z(2, b), gen=gen,
+                sync=z(2, b), key=z(2),
             )
             st.run = CapturedStep(
                 lambda: body(st, draft_params, target_params, dcache, tcache), dev,
-                f"spec_round[B={b}, gamma={gamma}, S={cap}]", gen)
+                f"spec_round[B={b}, gamma={gamma}, S={cap}]")
             tcache.steps[key] = st
         return st
 
-    def spec_decode(draft_params, target_params, t0, dcache, tcache, gen, max_new,
+    def spec_decode(draft_params, target_params, t0, dcache, tcache, key, max_new,
                     pad_offsets=None):
         b = t0.shape[0]
         _per_row(dcache, b)
@@ -348,7 +356,8 @@ def make_spec_decode_fn(
             raise ValueError(
                 f"prompt ({base}) + max_new ({max_new}) + gamma + 1 = {need} exceeds the "
                 f"caches' capacity ({tcache.max_seq_len}, {dcache.max_seq_len})")
-        st = state(tcache, dcache, draft_params, target_params, gen, pad_offsets is not None)
+        st = state(tcache, dcache, draft_params, target_params, pad_offsets is not None)
+        st.key.copy_(key)
         st.tok.copy_(t0)
         st.done.copy_(torch.isin(t0, st.stops) if st.stops is not None
                       else torch.zeros_like(st.done))
@@ -434,10 +443,9 @@ class SpeculativeGenerator:
             self._prefill_d = make_prefill_fn(self.draft_config, self.sampler, device=dev)
         self._draft_sampler = draft_sampler
         self._loops: dict[tuple[int, ...], Callable] = {}  # one per stop-token set
-        # one (target, draft) cache pair per (batch, capacity) and one
-        # generator: the round graphs replay their addresses
+        # one (target, draft) cache pair per (batch, capacity): the round
+        # graphs replay their addresses
         self._caches: dict[tuple[int, int], tuple[KVCache, KVCache]] = {}
-        self._gen = torch.Generator(device=dev)
 
     def _loop(self, stop_tokens: tuple[int, ...]) -> Callable:
         if stop_tokens not in self._loops:
@@ -531,20 +539,20 @@ class SpeculativeGenerator:
         max_seq_len = max_seq_len or s + max_new_tokens + self.gamma + 1
         _check_capacity(s, max_new_tokens + self.gamma + 1, max_seq_len)
         tcache, dcache = self._cache_pair(b, align_capacity(max_seq_len))
-        gen = self._gen.manual_seed(seed)
+        key, kp = random.split(random.PRNGKey(seed, self.device))
 
         _sync(self.device)
         t0 = time.perf_counter()
-        tok, tcache, _ = self._prefill_t(self.params, prompt_ids, tcache, gen, attn_mask,
+        tok, tcache, _ = self._prefill_t(self.params, prompt_ids, tcache, kp, attn_mask,
                                          pad_offsets)
-        self._prefill_d(self.draft_params, prompt_ids, dcache, gen, attn_mask, pad_offsets)
+        self._prefill_d(self.draft_params, prompt_ids, dcache, kp, attn_mask, pad_offsets)
         # both prefills (the draft's included) land in TTFT
         _sync(self.device)
         ttft = time.perf_counter() - t0
 
         t_dec = time.perf_counter()
         buf, total, rounds, accepted, proposed, _, _ = self._loop(stop_tokens)(
-            self.draft_params, self.params, tok, dcache, tcache, gen, max_new_tokens,
+            self.draft_params, self.params, tok, dcache, tcache, key, max_new_tokens,
             pad_offsets,
         )
         buf = buf.cpu().numpy()

@@ -99,5 +99,5 @@ def _cached_logit_delta(base: Generator, quant: Generator, seq: torch.Tensor,
 
 def _prefill_logits(gen: Generator, ids: torch.Tensor) -> np.ndarray:
     cache = gen._cache(ids.shape[0], ids.shape[1])
-    _, _, logits = gen._prefill(gen.params, ids, cache, gen._generator(0), None, None)
+    _, _, logits = gen._prefill(gen.params, ids, cache, gen._key(0), None, None)
     return logits.float().cpu().numpy()

@@ -5,7 +5,8 @@ Pallas kernels of the path in interpret mode (``prefill_attn_impl=
 "flash"``, ``decode_attn_impl="flash_decode"`` and the fused greedy
 epilogue, which the JAX Generator selects by itself on the CPU); the port
 runs the kernels' plain versions, which is what its wrappers do for CPU
-tensors.  Greedy tokens must be identical.
+tensors.  Greedy tokens must be identical; sampled tokens too, each row
+up to the JAX side's first near-tie (``sampled_parity``).
 """
 
 import dataclasses
@@ -24,6 +25,7 @@ from llm_np_cp_tpu_torch.config import tiny_config
 from llm_np_cp_tpu_torch.convert import params_from_jax
 from llm_np_cp_tpu_torch.models.transformer import param_shapes
 from llm_np_cp_tpu_torch.ops.sampling import Sampler
+from sampled_parity import assert_prefix_parity, generate_margins, stream_margins
 
 
 def np_params(cfg, seed, scale=0.15):
@@ -137,18 +139,48 @@ def test_int8_cache_matches_jax():
     np.testing.assert_array_equal(got.tokens, want.tokens)
 
 
+SAMPLED = {"min_p": dict(p_base=0.05), "top_k": dict(top_k=20), "top_p": dict(top_p=0.9),
+           "cdf": {}}
+
+
 @pytest.mark.parametrize("kind", ["min_p", "top_k", "top_p", "cdf"])
 def test_stochastic_sampler_generate(kind):
-    """Stochastic draws differ from jax.random's by design: check the
-    plain tail is taken, draws are reproducible per seed and in range."""
-    cfg, tp, _, _ = pair("llama", 13)
-    g = tgen.Generator(tp, cfg, sampler=Sampler(kind, temperature=0.8), cache_dtype=torch.float32,
+    """A sampled kind keys its draws as the JAX Generator does
+    (``PRNGKey(seed)`` → the prefill's key and one a step): the tokens
+    equal JAX's, each row up to the JAX side's first near-tie
+    (``sampled_parity``); the plain tail is taken and a repeat of the
+    seed draws the same tokens."""
+    cfg, tp, jcfg, jp = pair("llama", 13)
+    kw = dict(temperature=0.8, **SAMPLED[kind])
+    g = tgen.Generator(tp, cfg, sampler=Sampler(kind, **kw), cache_dtype=torch.float32,
                        device="cpu", **KERNELS)
-    assert g.epilogue_impl == "xla"
-    prompts = np.random.default_rng(14).integers(0, cfg.vocab_size, (2, 6))
-    a = g.generate(prompts, 7, seed=3).tokens
-    np.testing.assert_array_equal(a, g.generate(prompts, 7, seed=3).tokens)
-    assert a.shape == (2, 7) and a.min() >= 0 and a.max() < cfg.vocab_size
+    js = JSampler(kind, **kw)
+    jg = jgen.Generator(jp, jcfg, sampler=js, cache_dtype=jnp.float32, **KERNELS)
+    assert g.epilogue_impl == jg.epilogue_impl == "xla"
+    prompts = np.random.default_rng(14).integers(0, cfg.vocab_size, (3, 6))
+    for seed in (3, 2**31 + 9):
+        a = g.generate(prompts, 12, seed=seed).tokens
+        want = jg.generate(prompts, 12, seed=seed).tokens
+        margins = generate_margins(jp, jcfg, js, prompts, want, seed)
+        assert assert_prefix_parity(want, a, margins, f"{kind} seed {seed}") > 0
+        np.testing.assert_array_equal(a, g.generate(prompts, 12, seed=seed).tokens)
+    assert a.shape == (3, 12) and a.min() >= 0 and a.max() < cfg.vocab_size
+
+
+@pytest.mark.parametrize("kind", ["min_p", "cdf"])
+def test_sampled_stream_matches_jax(kind):
+    """``stream`` keys the prefill and every step by ``key, k =
+    split(key)``, as the JAX stream does."""
+    cfg, tp, jcfg, jp = pair("gemma2", 17)
+    js = JSampler(kind, **SAMPLED[kind])
+    g = tgen.Generator(tp, cfg, sampler=Sampler(kind, **SAMPLED[kind]),
+                       cache_dtype=torch.float32, device="cpu", **KERNELS)
+    jg = jgen.Generator(jp, jcfg, sampler=js, cache_dtype=jnp.float32, **KERNELS)
+    prompt = np.random.default_rng(18).integers(0, cfg.vocab_size, 9)
+    want = list(jg.stream(prompt, 10, seed=5))
+    got = list(g.stream(prompt, 10, seed=5))
+    margins = stream_margins(jp, jcfg, js, prompt, want, 5)
+    assert assert_prefix_parity([want], [got], [margins], f"{kind} stream") > 0
 
 
 def test_generator_contracts():

@@ -15,6 +15,7 @@ from llm_np_cp_tpu_torch.ops.cuda import decode_attention as da
 from llm_np_cp_tpu_torch.ops.cuda import flash_attention as fa
 from llm_np_cp_tpu_torch.ops.cuda import sample_epilogue as se
 from llm_np_cp_tpu_torch.ops.cuda import softmax as sm
+from llm_np_cp_tpu_torch.ops.cuda import threefry as tf
 from llm_np_cp_tpu_torch.quant import quant_einsum, quantize_array, quantize_params
 
 pytestmark = pytest.mark.gpu
@@ -756,7 +757,8 @@ def _tiny_llama(dtype):
 
 def _counts():
     return dict(decode=da.decode_attention.launches, ragged=da.ragged_paged_attention.launches,
-                epilogue=se.sample_epilogue.launches)
+                epilogue=se.sample_epilogue.launches, paged=da.paged_decode_attention.launches,
+                threefry=tf.threefry2x32.launches, categorical=tf.categorical.launches)
 
 
 @pytest.mark.parametrize("attn", ["xla", "flash_decode"])
@@ -802,8 +804,10 @@ def test_decode_loop_replays_as_eager(cuda, attn, fused):
 def test_generator_replays_as_eager(cuda, kind):
     """``Generator.generate`` twice (the second call replays from its
     first step) and ``stream`` give the eager step's tokens; a sampled
-    kind draws from the Generator's registered generator, reseeded per
-    call, so the captured stream equals the eager stream of its seed."""
+    kind reads its step's key from the step's static key buffer at a
+    step index on the card, so the captured stream equals the eager
+    stream of its seed, and every min-p / top-p step launches the
+    categorical kernel once."""
     from llm_np_cp_tpu_torch import graphs
     from llm_np_cp_tpu_torch.generate import Generator
     from llm_np_cp_tpu_torch.ops.sampling import Sampler
@@ -819,8 +823,11 @@ def test_generator_replays_as_eager(cuda, kind):
         want_s = list(eager.stream(prompts[0], 9, seed=8))
     gen = Generator(params, cfg, **kw)
     assert gen.epilogue_impl == ("fused" if kind == "greedy" else "xla")
+    before = _counts()
     for _ in range(2):
         assert (gen.generate(prompts, 20, seed=7).tokens == want).all()
+    draws = _counts()["categorical"] - before["categorical"]
+    assert draws == (2 * 20 if kind in ("min_p", "top_p") else 0)  # prefill + 19 steps
     assert list(gen.stream(prompts[0], 9, seed=8)) == want_s
     assert gen.compile_counts() == {"decode_step": 2}
     assert sum(s.replays for s in gen.graph_steps()) == 18 + 19 + 7
@@ -915,10 +922,11 @@ def test_serve_spec_tick_replays_as_eager(cuda):
 @pytest.mark.parametrize("kind", ["greedy", "min_p"])
 def test_spec_round_replays_as_eager(cuda, kind):
     """The offline speculative round (int8 self-draft) captured once per
-    shape gives the eager round's tokens — a sampled kind draws from the
-    registered generator, reseeded per call; every later round is a
-    replay and no kernel launches (the draft and verify forwards take
-    the plain path)."""
+    shape gives the eager round's tokens — the round splits the key in
+    its static buffer on the card, so a replay draws as the eager round;
+    every later round is a replay; the draft and verify forwards take the
+    plain path (no attention or epilogue kernel), and each round draws
+    through the categorical kernel gamma + 2 times."""
     from llm_np_cp_tpu_torch import graphs
     from llm_np_cp_tpu_torch.ops.sampling import Sampler
     from llm_np_cp_tpu_torch.speculative import SpeculativeGenerator
@@ -933,10 +941,14 @@ def test_spec_round_replays_as_eager(cuda, kind):
     before = _counts()
     for _ in range(2):
         assert (spec.generate(prompts, 20, seed=3).tokens == want).all()
-    assert _counts() == before
+    after = _counts()
+    assert {k: after[k] - before[k] for k in ("decode", "ragged", "epilogue", "paged")} == dict(
+        decode=0, ragged=0, epilogue=0, paged=0)
     assert spec.compile_counts() == {"spec_round": 1}
     (step,) = spec.graph_steps()
     assert step.replays == step.calls - 1 > 0
+    prefills = 2 * 2 * (kind != "greedy")  # target and draft, two calls
+    assert after["categorical"] - before["categorical"] == prefills + 5 * step.calls
 
 
 @pytest.mark.parametrize("tied", [True, False])
@@ -960,6 +972,122 @@ def test_quant_einsum_plain_head_keeps_bf16(cuda, tied):
     # bf16 products are exact in float32; cuBLAS may reduce split-K
     # partials in bf16, so the bound is two bf16 ulps
     _assert_close(out, ref, torch.bfloat16)
+
+
+# ----------------------------------------------------------------------
+# threefry2x32 draws (jax.random's bits on the card)
+# ----------------------------------------------------------------------
+
+def _known_answers():
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.KNOWN_ANSWERS
+
+
+def test_threefry_kernels_give_jax_words(cuda):
+    """The hash on the card gives the words jax gives (constants made
+    from jax by the CPU tests), and equals its plain version in every
+    mode, for one key and for a key a row."""
+    from llm_np_cp_tpu_torch import random as tr
+
+    ka = _known_answers()
+    key = tr.PRNGKey(ka["seed"], "cuda")
+    u32 = lambda t: (t.cpu().long() & 0xFFFFFFFF).tolist()  # noqa: E731
+    assert u32(tr.split(key, 3)) == ka["split3"]
+    assert u32(tr.fold_in(key, ka["fold_data"])) == ka["fold_in"]
+    assert u32(tr.random_bits(key, (8,))) == ka["bits8"]
+    assert u32(tr.uniform(key, (8,)).view(torch.int32)) == ka["uniform8_words"]
+    wide = tr.random_bits(key, tuple(ka["categorical_shape"])).reshape(-1)
+    assert u32(wide[ka["wide_index"]]) == ka["bits_wide"]
+    keys = tr.split(key, 5)
+    data = torch.arange(5, dtype=torch.int32, device="cuda") * 977
+    for mode in (tr.PAIR, tr.BITS, tr.UNIFORM):
+        for k, n, cols, d in ((key, 1000, 1000, None), (keys, 5 * 33, 33, None),
+                              (keys, 5, 1, data)):
+            got = tf.threefry2x32(k, n, cols, d, mode, -2.0, 3.0).cpu()
+            want = tr.words_plain(k.cpu(), n, cols, None if d is None else d.cpu(), mode,
+                                  -2.0, 3.0)
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("n,v", [(4, 128256), (8, 128256), (40, 128256), (8, 256000), (3, 100)])
+def test_categorical_kernel_matches_plain(cuda, n, v):
+    """The fused draw gives its plain version's tokens, under one key and
+    under a key a row, and jax's on the known-answer logits."""
+    from llm_np_cp_tpu_torch import random as tr
+
+    g = torch.Generator(device="cuda").manual_seed(n + v)
+    logits = _randn((n, v), g, torch.float32, 3.0)
+    key = tr.PRNGKey(n, "cuda")
+    for k in (key, tr.split(key, n)):
+        before = tf.categorical.launches
+        got = tf.categorical(k, logits)
+        assert tf.categorical.launches == before + 1 and got.dtype == torch.int32
+        assert torch.equal(got.cpu(), tr.categorical_plain(k.cpu(), logits.cpu()))
+    ka = _known_answers()
+    rows, cols = ka["categorical_shape"]
+    flat = torch.arange(rows * cols, dtype=torch.int64, device="cuda")
+    known = (((flat * 7919) % 1000).double() / 100.0 - 5.0).float().view(rows, cols)
+    key = tr.PRNGKey(ka["seed"], "cuda")
+    assert tr.categorical(key, known).tolist() == ka["categorical"]
+    assert tr.categorical(tr.split(key, rows), known).tolist() == ka["categorical_rows"]
+
+
+@pytest.mark.parametrize("leg", ["mixed", "split_paged", "split_xla"])
+def test_sampled_ticks_replay_as_eager(cuda, leg):
+    """A min-p engine's steps — the unified tick per bucket, or the
+    phase-split decode step — are captured like greedy ones: the
+    captured run gives the eager run's tokens, warmup captures every
+    step, each sampled tick draws through the categorical kernel once
+    and derives its row keys in one threefry launch."""
+    import numpy as np
+
+    from llm_np_cp_tpu_torch import graphs
+    from llm_np_cp_tpu_torch.ops.sampling import Sampler
+    from llm_np_cp_tpu_torch.serve import ServeEngine, poisson_trace
+
+    cfg, params = _tiny_llama(torch.bfloat16)
+    trace = poisson_trace(np.random.default_rng(3), 10, rate_rps=40.0, prompt_len_range=(5, 50),
+                          max_new_tokens=10, vocab_size=cfg.vocab_size)
+    mixed, impl = {"mixed": ("on", "xla"), "split_paged": ("off", "paged"),
+                   "split_xla": ("off", "xla")}[leg]
+
+    def engine():
+        return ServeEngine(params, cfg, sampler=Sampler("min_p", p_base=0.05), mixed_step=mixed,
+                           decode_attn_impl=impl, max_slots=4, num_blocks=64, block_size=16,
+                           max_seq_len=96, prefill_chunk=16, cache_dtype=torch.bfloat16)
+
+    def serve_all(eng):
+        for j, item in enumerate(trace):
+            eng.submit(item["prompt"], item["max_new_tokens"], seed=j)
+        eng.run_until_complete()
+        return {r.req_id: r.generated for r in eng.scheduler.finished}
+
+    with graphs.eager_steps():
+        want = serve_all(engine())
+    eng = engine()
+    eng.warmup([8], 2)
+    warm = eng.compile_counts()
+    assert warm == ({"mixed_step": len(eng.mixed_buckets)} if mixed == "on"
+                    else {"decode_step": 1})
+    eng.n_dispatches = eng.n_decode_dispatches = 0
+    before, g0 = _counts(), dict(graphs.TOTALS)
+    got = {k - 1: v for k, v in serve_all(eng).items()}  # the warmup's request took id 0
+    after = _counts()
+    assert got == want
+    assert eng.compile_counts() == warm and graphs.TOTALS["captures"] == g0["captures"]
+    ticks = eng.n_dispatches if mixed == "on" else eng.n_decode_dispatches
+    if mixed == "on":
+        draws = ticks
+    else:  # the decode ticks and each request's first token
+        draws = ticks + len(trace)
+    assert after["categorical"] - before["categorical"] == draws
+    assert after["threefry"] - before["threefry"] == draws
 
 
 def test_capture_raises_on_host_sync(cuda):

@@ -263,14 +263,18 @@ def test_engine_compile_counts_match_jax_contract():
     # (the warmup's dummy request took id 0)
     assert {r.req_id - 1: list(r.generated) for r in warm.scheduler.finished} == first
     assert warm.compile_counts() == {"mixed_step": len(warm.mixed_buckets)}
+    # the phase-split engine: one decode step, built at its first tick
     split = serve.ServeEngine(tp, cfg, mixed_step="off", cache_dtype=torch.float32,
                               device="cpu", **kw)
-    assert split.compile_counts() == {}
+    assert split.compile_counts() == {"decode_step": 0}
+    assert split.replay_trace(trace)["finished"] == 32
+    assert split.compile_counts() == {"decode_step": 1}
 
 
 def test_engine_sampled_tick_stays_eager():
-    """A non-greedy unified tick runs the same step function eagerly with
-    the host draws: no step is counted."""
+    """A non-greedy unified tick is a static step like a greedy one (its
+    keys come from the bucket's seed and position operands): it is
+    counted once per bucket used, and warmup builds every bucket."""
     cfg, tp, _, _ = pair("llama", 0)
     eng = serve.ServeEngine(tp, cfg, sampler=Sampler("min_p"), mixed_step="on",
                             cache_dtype=torch.float32, device="cpu", max_slots=2,
@@ -278,4 +282,7 @@ def test_engine_sampled_tick_stays_eager():
     eng.submit(np.arange(1, 9), 4, seed=3)
     eng.run_until_complete()
     assert len(eng.scheduler.finished[0].generated) == 4
-    assert eng.compile_counts() == {"mixed_step": 0}
+    assert eng.compile_counts() == {"mixed_step": len(eng.bucket_dispatches)} != {
+        "mixed_step": 0}
+    eng.warmup([5], 2)
+    assert eng.compile_counts() == {"mixed_step": len(eng.mixed_buckets)}

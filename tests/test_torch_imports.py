@@ -35,6 +35,7 @@ def test_scan_sees_the_port():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert {"llm_np_cp_tpu_torch/generate.py", "llm_np_cp_tpu_torch/ops/cuda/build.py",
             "llm_np_cp_tpu_torch/serve/engine.py", "llm_np_cp_tpu_torch/serve/scheduler.py",
+            "llm_np_cp_tpu_torch/random.py", "llm_np_cp_tpu_torch/ops/cuda/threefry.py",
             "chip_smoke.py"} <= names
     assert imported_roots(ROOT / "tests" / "test_torch_model.py") >= {"jax", "llm_np_cp_tpu"}
     assert "llm_np_cp_tpu_torch" in imported_roots(ROOT / "chip_smoke.py")
@@ -52,3 +53,15 @@ def test_cuda_sources_include_only_their_own_and_cuda_headers(path):
         if line.startswith("#include"):
             spec = line.split()[1]
             assert spec.startswith("<") or spec.strip('"') in local, spec
+
+
+@pytest.mark.parametrize("path", [p for p in FILES if p.name != "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_torch_generator_draws(path):
+    """Model-path draws are keyed (``random``, jax's threefry bits): no
+    module of the port draws from a ``torch.Generator``.  Only the seeded
+    random weights of ``init_params`` use one."""
+    text = path.read_text()
+    allowed = path.name == "transformer.py" and text.count("torch.Generator(") == 1
+    assert "torch.Generator" not in text or allowed, path
+    assert "exponential_(" not in text and "torch.rand(" not in text, path

@@ -338,7 +338,7 @@ def test_build_is_lazy_and_named_by_sources():
     sources = build._sources()
     assert {p.name for p in sources} == {
         "flash_attention.cu", "decode_attention.cu", "sample_epilogue.cu",
-        "paged_decode_attention.cu", "ragged_paged_attention.cu", "softmax.cu"}
+        "paged_decode_attention.cu", "ragged_paged_attention.cu", "softmax.cu", "threefry.cu"}
     assert build._digest() == build._digest()
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)
 

@@ -18,6 +18,7 @@ from llm_np_cp_tpu.ops import rope as jrope
 from llm_np_cp_tpu.ops import sampling as jsamp
 from llm_np_cp_tpu_torch import cache as tcache
 from llm_np_cp_tpu_torch import config as tconfig
+from llm_np_cp_tpu_torch import random as trandom
 from llm_np_cp_tpu_torch.device import resolve_device
 from llm_np_cp_tpu_torch.ops import activations as tact
 from llm_np_cp_tpu_torch.ops import attention as tattn
@@ -187,9 +188,8 @@ def test_stochastic_draws_follow_filtered_distribution(kind):
     sampler = tsamp.Sampler(kind, top_k=5, top_p=0.8, p_base=0.1)
     probs = np.asarray(jax.nn.softmax(
         jsamp.Sampler(kind, top_k=5, top_p=0.8, p_base=0.1).filtered_logits(jnp.asarray(logits))))
-    gen = torch.Generator().manual_seed(0)
     big = torch.from_numpy(np.repeat(logits, 4000, axis=0))
-    draws = sampler(gen, big).numpy()
+    draws = sampler(trandom.PRNGKey(0), big).numpy()  # one key: each row its own counters
     freq = np.bincount(draws, minlength=12) / draws.size
     assert (freq[probs[0] == 0] == 0).all()
     np.testing.assert_allclose(freq, probs[0], atol=0.025)

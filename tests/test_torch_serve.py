@@ -14,7 +14,8 @@ Also here: the copied host-side pieces against their originals (trace
 draws, prefix keys, pool sizing, the scheduler's decisions), the port's
 own structural pins (no gathered view in the paged step, no logits in
 the fused step), the one-fetch contract, and a min-p request replaying
-its stream across a preemption.
+its stream across a preemption.  Sampled requests draw the JAX engine's
+tokens, each up to the JAX side's first near-tie (``sampled_parity``).
 """
 
 import dataclasses
@@ -42,6 +43,7 @@ from llm_np_cp_tpu_torch.models.transformer import param_shapes
 from llm_np_cp_tpu_torch.ops.cuda import decode_attention as da
 from llm_np_cp_tpu_torch.ops.sampling import Sampler
 from llm_np_cp_tpu_torch.serve.engine import _pack_sync
+from sampled_parity import assert_prefix_parity, request_margins
 
 # leg name → (mixed_step, decode_attn_impl) on both engines
 LEGS = {
@@ -265,6 +267,49 @@ def test_min_p_stream_survives_preemption(llama, leg):
                                num_blocks=48, block_size=8, max_seq_len=64,
                                cache_dtype=torch.float32, device="cpu")
     assert submit_all(greedy, prompts, 20) != roomy
+
+
+@pytest.mark.parametrize("leg", ["mixed", "split_paged", "split_xla"])
+def test_min_p_ticks_match_jax_engine(llama, leg):
+    """Min-p (the reference's live sampler) through the unified tick or
+    the phase-split tick, with a pool tight enough to preempt: every
+    request draws the JAX engine's tokens (each row keyed by
+    ``fold_in(PRNGKey(seed), content position)`` on the card), up to a
+    near-tie (``sampled_parity``), and a preempted request's stream is
+    the one it draws unpreempted.  The step is a static step (counted by
+    ``compile_counts``)."""
+    cfg, tp, jcfg, jp = llama
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(1, 256, size=n) for n in (4, 5, 3)]
+    kw = dict(p_base=0.05, temperature=1.5)
+    js = JSampler("min_p", **kw)
+    mixed, impl = LEGS[leg]
+
+    def port_engine(num_blocks):
+        return serve.ServeEngine(tp, cfg, sampler=Sampler("min_p", **kw), mixed_step=mixed,
+                                 decode_attn_impl=impl, max_slots=2, num_blocks=num_blocks,
+                                 block_size=8, max_seq_len=64, cache_dtype=torch.float32,
+                                 device="cpu")
+
+    port = port_engine(6)
+    ref = jserve.ServeEngine(jp, jcfg, sampler=js, mixed_step=mixed, decode_attn_impl=impl,
+                             max_slots=2, num_blocks=6, block_size=8, max_seq_len=64,
+                             cache_dtype=jnp.float32)
+    got, want = submit_all(port, prompts, 20), submit_all(ref, prompts, 20)
+    assert port.scheduler.n_preemptions > 0 and ref.scheduler.n_preemptions > 0
+    reqs = {r.req_id: r for r in ref.scheduler.finished}
+    ids = sorted(want)
+    assert sorted(got) == ids
+    margins = [request_margins(jp, jcfg, js, reqs[i]) for i in ids]
+    assert assert_prefix_parity([want[i] for i in ids], [got[i] for i in ids], margins,
+                                f"min_p {leg}") > 0
+    preempted = [r.req_id for r in port.scheduler.finished if r.n_preemptions]
+    assert preempted
+    roomy = submit_all(port_engine(48), prompts, 20)
+    assert all(got[i] == roomy[i] for i in preempted)
+    counts = port.compile_counts()
+    assert counts == ({"decode_step": 1} if mixed == "off"
+                      else {"mixed_step": len(port.bucket_dispatches)})
 
 
 # ----------------------------------------------------------------------

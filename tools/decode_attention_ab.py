@@ -3,7 +3,8 @@
 
     python tools/decode_attention_ab.py [--root DIR] [--label NAME]
         [--parts cases,paged_cases,ragged,ragged_nsplit,softmax,epilogue,flash,main_path,
-                 busy,sampled,head,prefill,serve_leg_a,serve_leg_b,sass]
+                 busy,sampled,head,prefill,serve_leg_a,serve_leg_b,serve_leg_a_min_p,
+                 serve_leg_b_min_p,sass]
         [--replays N]
 
 Imports ``llm_np_cp_tpu_torch`` from DIR (default: the checkout this file
@@ -65,7 +66,9 @@ both versions see the same work.  Prints one JSON line with:
 - ``serve_leg_a`` / ``serve_leg_b``: served tok/s and TPOT p50 of
   ``ServeEngine.replay_trace`` on ``chip_smoke.py``'s 32-request trace in
   its leg A (unified tick, ragged kernel) or B (phase-split tick, paged
-  decode), a fresh engine per replay, and their medians;
+  decode), a fresh engine per replay (after its ``warmup``), and their
+  medians; ``serve_leg_a_min_p`` / ``serve_leg_b_min_p``: the same with
+  ``chip_smoke.py``'s min-p sampler;
 - ``sass``: for each flash and ragged kernel of the library, its ``HMMA``
   (tensor core) and ``FFMA`` instructions in ``cuobjdump -sass`` and, when this
   process compiled the library, its ptxas report (registers, shared
@@ -94,7 +97,8 @@ CASES = [(4, 256, False), (4, 256, True), (4, 4096, False), (4, 4096, True), (1,
 REPEATS = 5
 SERVE_REPLAYS = 3
 PARTS = ("cases", "paged_cases", "ragged", "ragged_nsplit", "softmax", "epilogue", "flash",
-         "main_path", "busy", "sampled", "head", "prefill", "serve_leg_a", "serve_leg_b", "sass")
+         "main_path", "busy", "sampled", "head", "prefill", "serve_leg_a", "serve_leg_b",
+         "serve_leg_a_min_p", "serve_leg_b_min_p", "sass")
 # the kernels whose SASS ``sass`` counts, by symbol
 SASS_KERNELS = ("flash_kernel", "ragged_kernel")
 
@@ -334,7 +338,7 @@ def sass_counts() -> dict:
     return dict(library=str(lib), sass=counts, ptxas=[blk.strip() for blk in ptxas])
 
 
-def serve_leg(torch, np, cs, leg: str, replays: int) -> dict:
+def serve_leg(torch, np, cs, leg: str, replays: int, sampler: str = "greedy") -> dict:
     from llm_np_cp_tpu_torch.config import PRESETS
     from llm_np_cp_tpu_torch.models.transformer import init_params
 
@@ -343,7 +347,7 @@ def serve_leg(torch, np, cs, leg: str, replays: int) -> dict:
     trace = cs.serve_trace(np, cfg, cs.SERVE_REQUESTS, cs.SERVE_NEW_TOKENS, seed=0)
     tok_s, tpot = [], []
     for _ in range(replays):
-        eng = cs.serve_engine(params, cfg, torch.bfloat16, leg)
+        eng = cs.serve_engine(params, cfg, torch.bfloat16, leg, sampler=sampler)
         eng.warmup([cs.SERVE_PROMPTS[0]], 2)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -356,7 +360,8 @@ def serve_leg(torch, np, cs, leg: str, replays: int) -> dict:
         tpot.append(snap["tpot_s_p50"])
         del eng
     med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
-    return dict(leg=leg, requests=cs.SERVE_REQUESTS, new_tokens=cs.SERVE_NEW_TOKENS, tok_s=tok_s,
+    return dict(leg=leg, sampler=sampler, requests=cs.SERVE_REQUESTS,
+                new_tokens=cs.SERVE_NEW_TOKENS, tok_s=tok_s,
                 tpot_s_p50=tpot, tok_s_median=med(tok_s), tpot_s_p50_median=med(tpot))
 
 
@@ -452,6 +457,10 @@ def main() -> int:
                prefill=lambda: prefill_ttft(torch, np, cs),
                serve_leg_a=lambda: serve_leg(torch, np, cs, "A_mixed", args.replays),
                serve_leg_b=lambda: serve_leg(torch, np, cs, "B_split_paged", args.replays),
+               serve_leg_a_min_p=lambda: serve_leg(torch, np, cs, "A_mixed", args.replays,
+                                                   "min_p"),
+               serve_leg_b_min_p=lambda: serve_leg(torch, np, cs, "B_split_paged", args.replays,
+                                                   "min_p"),
                sass=sass_counts)
     print(json.dumps(dict(label=args.label, root=args.root, card=cs.nvidia_smi_line(),
                           **{part: run[part]() for part in parts})), flush=True)
