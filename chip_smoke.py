@@ -106,7 +106,23 @@ Phases, each printing JSON lines; any failure exits non-zero:
    equal token for token or apart only at a near-tie; tok/s, TPOT, TTFT
    and ticks beside plain leg A on the same trace at the same tick
    budget, and the ticks that carried a verify slice.
-8. the ``kernels`` summary line, the card's ``nvidia-smi`` name and power
+8. tier — the host-RAM KV tier on the JAX package's
+   ``serve_prefix_tiered`` shape: the same model behind the engine, 48
+   requests at 16 req/s cycling 24 distinct 512-token prompts, 64 new
+   tokens, 8 slots, 128-slot blocks, 256-token chunks and a 14-block pool
+   against a 48-block prefix working set.  On identical arrivals: (a) the
+   unified tick without a tier, (b) with a 4 GiB ``HostTier``, (c) as (b)
+   with the int8 pool, (d) the phase split with the paged decode and the
+   tier.  Per leg: every request finished and teacher-forced, launch
+   counts equal what the steps imply, one host fetch a step, every step a
+   replay and no capture in the timed replay; tier legs: no restore miss,
+   the spill / restore ledgers equal the tier's own stats, restore latency
+   p50/p99, the probe's GB/s and the breakeven ratio.  (b) must dispatch
+   fewer prefill tokens than (a) at a higher prefix hit rate, with (a)'s
+   tokens or apart first at a near-tie.  A block spilled and restored into
+   another block id comes back bit-exact, and ``spill_prefix_blocks`` lets
+   a second engine sharing the tier prefill only a prompt's last chunk.
+9. the ``kernels`` summary line, the card's ``nvidia-smi`` name and power
    limit, and last the result line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -179,6 +195,22 @@ SERVE_LEGS = {
 # reference's live sampler (its default p_base), through the logits tail
 # and the keyed categorical draw
 SERVE_SAMPLERS = {"greedy": {}, "min_p": dict(p_base=0.1)}
+
+# the tier phase: the JAX package's serve_prefix_tiered workload
+# (bench.py SERVE_TIER_CONFIGS) — 48 requests at 16 req/s cycling 24
+# distinct 512-token prompts, 64 new tokens, 8 slots, 128-slot blocks,
+# 256-token prefill chunks, a deliberately starved 14-block pool (13
+# usable, against a 48-block prefix working set) and a 4 GiB host tier
+TIER_REQUESTS, TIER_RATE, TIER_PROMPT, TIER_DISTINCT, TIER_NEW = 48, 16.0, 512, 24, 64
+TIER_SLOTS, TIER_BLOCK, TIER_CHUNK, TIER_BLOCKS = 8, 128, 256, 14
+TIER_BYTES = 4 << 30
+# leg → (engine keywords, tier on, int8 pool)
+TIER_LEGS = {
+    "a_mixed_off": (dict(mixed_step="on"), False, False),
+    "b_mixed_tier": (dict(mixed_step="on"), True, False),
+    "c_mixed_tier_int8": (dict(mixed_step="on"), True, True),
+    "d_split_paged_tier": (dict(mixed_step="off", decode_attn_impl="paged"), True, False),
+}
 
 # the quant phase: quantize_params keywords per weight mode, and the
 # greedy continuation quant_quality compares with the bf16 model
@@ -1633,15 +1665,23 @@ def graph_delta(before: dict) -> dict:
     return {k: now[k] - before[k] for k in ("captures", "replays", "eager")}
 
 
-def teacher_forced_requests(torch, forward, params, cfg, reqs, tol: float) -> dict:
-    """Every request's tokens against one cache-less plain forward over
-    its prompt + tokens: each chosen token's logit within ``tol`` of its
-    row's max."""
+def teacher_forced_requests(torch, forward, params, cfg, reqs, tol: float,
+                            cache_dtype=None) -> dict:
+    """Every request's tokens against one plain forward over its prompt +
+    tokens: each chosen token's logit within ``tol`` of its row's max.
+    The forward is cache-less, or with ``cache_dtype`` (the int8 pool's
+    ``torch.int8``) writes every position into a fresh plain cache of that
+    type and attends it: the plain twin of an int8-cache engine, its
+    quantization included."""
+    from llm_np_cp_tpu_torch.cache import KVCache
+
     gaps, exact, n, finite = [], 0, 0, True
     for r in reqs:
         gen = torch.tensor(r.generated, device="cuda").long()
         ids = torch.cat([torch.as_tensor(r.prompt, device="cuda").long(), gen[:-1]])[None]
-        logits, _ = forward(params, ids, cfg, None)
+        cache = (None if cache_dtype is None
+                 else KVCache.init(cfg, 1, ids.shape[1], cache_dtype, device="cuda"))
+        logits, _ = forward(params, ids, cfg, cache)
         rows = logits[0, r.prompt.size - 1:]  # the row behind each chosen token
         finite = finite and bool(torch.isfinite(rows).all())
         chosen = rows.gather(-1, gen[:, None])[:, 0]
@@ -2209,6 +2249,232 @@ def spec_phase(torch, np, kernels: dict, card: str, main: dict) -> dict:
 
 # ----------------------------------------------------------------------
 
+# ----------------------------------------------------------------------
+# phase 8: the host-RAM KV tier
+# ----------------------------------------------------------------------
+
+def tier_engine(params, cfg, tier, int8: bool = False, **legs):
+    """A ServeEngine of the tier phase's geometry (prefix cache on)."""
+    import torch
+
+    from llm_np_cp_tpu_torch.ops.sampling import Sampler
+    from llm_np_cp_tpu_torch.serve import ServeEngine
+
+    max_seq_len = -(-(TIER_PROMPT + TIER_NEW + TIER_CHUNK) // TIER_BLOCK) * TIER_BLOCK
+    return ServeEngine(params, cfg, sampler=Sampler("greedy"), max_slots=TIER_SLOTS,
+                       num_blocks=TIER_BLOCKS, block_size=TIER_BLOCK, max_seq_len=max_seq_len,
+                       prefill_chunk=TIER_CHUNK,
+                       cache_dtype=torch.int8 if int8 else torch.bfloat16,
+                       enable_prefix_cache=True, host_tier=tier, device=torch.device("cuda"),
+                       **legs)
+
+
+def tier_roundtrip(torch, eng) -> dict:
+    """One registered pool block spilled through a fresh tier (pinned
+    memory, the writer's stream) and restored into a different free block
+    id the way the engine lands a restore: bit-exact, page by page."""
+    from llm_np_cp_tpu_torch.serve import HostTier
+
+    key, src = eng.pool.prefix_cache.items()[-1]
+    (dst,) = eng.pool.alloc(1)
+    tier = HostTier(1 << 30)
+    try:
+        tier.enqueue_spill(b"roundtrip", *eng._block_clone(src))
+        tier.drain()
+        host = tier._wentries[b"roundtrip"]
+        pinned = all(a.is_pinned() for a in host if a is not None)
+        (res,) = tier.take_restored([tier.enqueue_restore(b"roundtrip", dst, eng.device)])
+        _, staged, dt, ready = res
+        stream = torch.cuda.current_stream()
+        stream.wait_event(ready)
+        for page, a in zip(eng.pool.pages, staged):
+            if page is not None:
+                page[:, dst].copy_(a)
+                a.record_stream(stream)
+        torch.cuda.synchronize()
+        exact = all(torch.equal(page[:, dst], page[:, src])
+                    for page in eng.pool.pages if page is not None)
+    finally:
+        tier.close()
+        eng.pool.free([dst])
+    return dict(src_block=src, dst_block=dst, bytes=host.nbytes, pinned=pinned,
+                stage_s=dt, bit_exact=exact)
+
+
+def tier_phase(torch, np, kernels: dict, card: str) -> dict:
+    """Llama-3.2-1B behind the engine on the serve_prefix_tiered trace, on
+    identical arrivals: (a) the unified tick without a tier, (b) with a 4
+    GiB host tier, (c) as (b) with the int8 pool, (d) the phase split with
+    the paged decode and the tier.  Then a block's round trip through the
+    tier, and ``spill_prefix_blocks`` shipping a prefix into a second
+    engine that shares the tier."""
+    from llm_np_cp_tpu_torch.config import PRESETS
+    from llm_np_cp_tpu_torch.models.transformer import forward, init_params
+    from llm_np_cp_tpu_torch.ops.cuda import decode_attention as da
+    from llm_np_cp_tpu_torch.serve import HostTier, poisson_trace
+
+    cfg = PRESETS["meta-llama/Llama-3.2-1B"]
+    layers, kh = cfg.num_hidden_layers, cfg.num_key_value_heads
+    params = init_params(0, cfg, torch.bfloat16, device="cuda")
+    trace = poisson_trace(np.random.default_rng(29), TIER_REQUESTS, rate_rps=TIER_RATE,
+                          prompt_len_range=(TIER_PROMPT, TIER_PROMPT), max_new_tokens=TIER_NEW,
+                          vocab_size=cfg.vocab_size, seed_base=29,
+                          distinct_prompts=TIER_DISTINCT)
+    legs, tokens, checks = {}, {}, []
+    roundtrip = None
+    for name, (extra, tiered, int8) in TIER_LEGS.items():
+        tier = HostTier(TIER_BYTES) if tiered else None
+        eng = tier_engine(params, cfg, tier, int8, **extra)
+        eng.warmup([TIER_PROMPT], 2)
+        torch.cuda.synchronize()
+        reset_counts(kernels)
+        dd0, f0 = eng.n_decode_dispatches, eng.n_host_fetches
+        b0, g0 = dict(eng.bucket_dispatches), graph_totals()
+        t0 = time.perf_counter()
+        snap = eng.replay_trace(trace)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts(kernels)
+        graphs_run = graph_delta(g0)
+        if tier is not None:
+            tier.drain()
+            snap = eng.metrics.snapshot()
+        fetches = eng.n_host_fetches - f0
+        if eng.mixed:
+            steps = sum(eng.bucket_dispatches.values()) - sum(b0.values())
+        else:
+            steps = eng.n_decode_dispatches - dd0
+        want = {k: 0 for k in kernels}
+        want["sample_epilogue"] = steps
+        if eng.mixed:
+            want["ragged_paged_attention"] = layers * steps
+            want["ragged_paged_attention_combine"] = ragged_combines(torch, da, eng, cfg, b0)
+        else:
+            nsplit = da.split_plan(eng.scheduler.max_slots, kh,
+                                   eng.max_blocks_per_seq * TIER_BLOCK, cfg.head_dim,
+                                   da.sm_count(torch.device("cuda")),
+                                   cfg.num_attention_heads // kh)
+            want["paged_decode_attention"] = layers * steps
+            want["paged_decode_attention_combine"] = layers * steps * int(nsplit > 1)
+        if snap["finished"] != TIER_REQUESTS:
+            checks.append(f"{name}: {snap['finished']} of {TIER_REQUESTS} finished")
+        if launches != want:
+            checks.append(f"{name}: launch counts {launches} != implied {want}")
+        if fetches != steps:
+            checks.append(f"{name}: {fetches} host fetches for {steps} steps")
+        check_replayed(f"tier leg {name}", graphs_run, steps)
+        if graphs_run["captures"]:
+            checks.append(f"{name}: captures in the timed replay {graphs_run}")
+        # an int8 pool is held against the plain forward over an int8
+        # cache (its own quantization); the bf16 cache-less gap is kept
+        tf = teacher_forced_requests(torch, forward, params, cfg, eng.scheduler.finished,
+                                     TEACHER_TOL, torch.int8 if int8 else None)
+        if not tf["ok"]:
+            checks.append(f"{name}: teacher-forced check failed {tf}")
+        tf_cacheless = (teacher_forced_requests(torch, forward, params, cfg,
+                                                eng.scheduler.finished, TEACHER_TOL)
+                        if int8 else None)
+        leg = dict(
+            engine=extra, tier=tiered, pool="int8" if int8 else "bf16", launches=launches,
+            implied=want, graphs=graphs_run, compile_counts=eng.compile_counts(),
+            wall_s=wall, generated_tokens=snap["total_generated_tokens"],
+            tok_s_per_card=snap["total_generated_tokens"] / wall, ticks=snap["ticks"],
+            steps=steps, host_fetches=fetches, preemptions=snap["preemptions"],
+            ttft_s_p50=snap.get("ttft_s_p50"), ttft_s_p99=snap.get("ttft_s_p99"),
+            tpot_s_p50=snap.get("tpot_s_p50"), tpot_s_p99=snap.get("tpot_s_p99"),
+            mixed_prefill_tokens=snap["mixed_prefill_tokens"],
+            prefix_blocks_hit=snap["prefix_blocks_hit"],
+            prefix_hit_rate=snap.get("prefix_hit_rate", 0.0),
+            prefix_evicted_blocks=snap["prefix_evicted_blocks"], teacher_forced=tf,
+            teacher_forced_vs_bf16_cacheless=tf_cacheless)
+        if tier is not None:
+            st = tier.stats()
+            leg.update(
+                tier_spilled_blocks=snap["tier_spilled_blocks"],
+                tier_restored_blocks=snap["tier_restored_blocks"],
+                tier_restore_s_p50=snap.get("tier_restore_s_p50"),
+                tier_restore_s_p99=snap.get("tier_restore_s_p99"),
+                tier_breakeven_ratio=snap["tier_breakeven_ratio"],
+                probe_restore_s_per_block=tier.restore_s_per_block,
+                probe_gbps=st["restore_gbps"], block_bytes=eng._block_nbytes, tier_stats=st)
+            if st["restore_misses"]:
+                checks.append(f"{name}: {st['restore_misses']} restore misses")
+            if (snap["tier_restored_blocks"] != st["restored_blocks"]
+                    or snap["tier_spilled_blocks"] != st["spilled_blocks"]):
+                checks.append(f"{name}: tier ledgers {snap['tier_spilled_blocks']} / "
+                              f"{snap['tier_restored_blocks']} != the tier's stats {st}")
+            if not st["restored_blocks"]:
+                checks.append(f"{name}: nothing restored")
+            if roundtrip is None and not int8:
+                roundtrip = tier_roundtrip(torch, eng)
+                if not (roundtrip["bit_exact"] and roundtrip["pinned"]):
+                    checks.append(f"{name}: block round trip {roundtrip}")
+            tier.close()
+        legs[name] = leg
+        tokens[name] = {r.seed: (r.prompt, list(r.generated)) for r in eng.scheduler.finished}
+        del eng
+        torch.cuda.empty_cache()
+    a, b = legs["a_mixed_off"], legs["b_mixed_tier"]
+    if not (b["mixed_prefill_tokens"] < a["mixed_prefill_tokens"]
+            and b["prefix_hit_rate"] > a["prefix_hit_rate"]):
+        checks.append(f"tier leg b does not beat leg a: prefill tokens "
+                      f"{b['mixed_prefill_tokens']} vs {a['mixed_prefill_tokens']}, hit rate "
+                      f"{b['prefix_hit_rate']} vs {a['prefix_hit_rate']}")
+    # tokens of the tier-on legs against leg (a): equal, or apart first at
+    # a near-tie of the plain logits (the cuBLAS products of a token's K/V
+    # may round apart between ticks of different packed widths)
+    parity = {}
+    for name in ("b_mixed_tier", "c_mixed_tier_int8", "d_split_paged_tier"):
+        gaps = []
+        for seed, (prompt, want_toks) in tokens["a_mixed_off"].items():
+            got = tokens[name][seed][1]
+            gap = first_divergence(torch, forward, params, cfg, prompt, got, want_toks)
+            if gap is not None:
+                gaps.append(gap)
+        parity[name] = dict(identical=TIER_REQUESTS - len(gaps), divergence_top2_gaps=gaps,
+                            tol=TEACHER_TOL, ok=all(g <= TEACHER_TOL for g in gaps))
+        if name == "b_mixed_tier" and not parity[name]["ok"]:
+            checks.append(f"tier leg b parts from leg a away from a near-tie: {parity[name]}")
+
+    # ship: one engine spills its registered prefix into a tier a second
+    # engine shares; that engine's first request of the prompt restores
+    # the whole shareable prefix and prefills only the last chunk
+    tier = HostTier(TIER_BYTES)
+    src, dst = (tier_engine(params, cfg, tier, mixed_step="on") for _ in range(2))
+    prompt = trace[0]["prompt"]
+    first = src.submit(prompt, TIER_NEW)
+    src.run_until_complete()
+    shipped = src.spill_prefix_blocks()
+    tier.drain()
+    again = dst.submit(prompt, TIER_NEW)
+    dst.run_until_complete()
+    snap = dst.metrics.snapshot()
+    ship = dict(shipped_blocks=shipped, shared_blocks=again.n_shared_blocks,
+                restored_blocks=snap.get("tier_restored_blocks", 0),
+                prefill_tokens=snap["mixed_prefill_tokens"],
+                last_chunk=TIER_PROMPT - again.n_shared_blocks * TIER_BLOCK,
+                divergence_top2_gap=first_divergence(torch, forward, params, cfg, prompt,
+                                                     again.generated, first.generated))
+    ship["ok"] = (shipped > 0 and ship["restored_blocks"] == again.n_shared_blocks > 0
+                  and ship["prefill_tokens"] == ship["last_chunk"] <= TIER_CHUNK
+                  and (ship["divergence_top2_gap"] is None
+                       or ship["divergence_top2_gap"] <= TEACHER_TOL))
+    if not ship["ok"]:
+        checks.append(f"spill_prefix_blocks into a second engine: {ship}")
+    tier.close()
+    del src, dst
+    torch.cuda.empty_cache()
+    return dict(phase="tier", model="meta-llama/Llama-3.2-1B", layers=layers,
+                weights="seeded random bf16", card=card,
+                trace=dict(requests=TIER_REQUESTS, rate_rps=TIER_RATE, prompt_len=TIER_PROMPT,
+                           distinct_prompts=TIER_DISTINCT, new_tokens=TIER_NEW),
+                engine=dict(max_slots=TIER_SLOTS, block_size=TIER_BLOCK,
+                            prefill_chunk=TIER_CHUNK, num_blocks=TIER_BLOCKS,
+                            tier_bytes=TIER_BYTES),
+                legs=legs, parity_vs_a=parity, roundtrip=roundtrip, ship=ship,
+                checks=checks, ok=not checks)
+
+
 KERNEL_META = {
     "flash_attention": ("llm_np_cp_tpu_torch/csrc/flash_attention.cu",
                         "llm_np_cp_tpu/ops/pallas/flash_attention.py:180"),
@@ -2360,6 +2626,10 @@ def main() -> int:
     record(sp)
     if not sp["ok"]:
         raise AssertionError("spec checks failed: " + json.dumps(sp, default=str))
+    tp = tier_phase(torch, np, kernels, smi)
+    record(tp)
+    if not tp["ok"]:
+        raise AssertionError("tier checks failed: " + json.dumps(tp["checks"], default=str))
 
     path_launches = dict(mp["launches"])
     path_launches["ragged_paged_attention"] = sv["legs"]["A_mixed"]["launches"][

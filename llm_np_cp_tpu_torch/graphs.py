@@ -77,10 +77,16 @@ class CapturedStep:
     """``fn()`` run eagerly on the CPU; on the card captured as a CUDA
     graph at its first call and replayed at every later one.  A step
     that draws reads its keys from its static buffers (``random``), so a
-    replay draws as the eager step would."""
+    replay draws as the eager step would.  ``guard()``, when given, is
+    entered around the capture: a CUDA call from another thread while a
+    capture is open would break it."""
 
-    def __init__(self, fn: Callable[[], None], device: torch.device, name: str) -> None:
+    def __init__(self, fn: Callable[[], None], device: torch.device, name: str,
+                 guard: Callable[[], contextlib.AbstractContextManager] | None = None) -> None:
         self.fn, self.device, self.name = fn, device, name
+        # entered around a capture: what must stay off the card meanwhile
+        # (the engine's host tier writer, ``HostTier.quiesce``)
+        self.guard = guard
         self.graph: torch.cuda.CUDAGraph | None = None
         self.deltas: tuple[tuple[Callable, str, int], ...] = ()
         self.calls = self.replays = 0
@@ -112,7 +118,8 @@ class CapturedStep:
             self.fn()
         cur.wait_stream(side)
         TOTALS["eager"] += 1
-        self._capture()
+        with self.guard() if self.guard is not None else contextlib.nullcontext():
+            self._capture()
 
     def _capture(self) -> None:
         snap = [(fn, attr, getattr(fn, attr)) for fn, attr in launch_counters()]

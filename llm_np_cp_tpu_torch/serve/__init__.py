@@ -14,6 +14,9 @@ Modules:
 - ``trace``        — Poisson request traces and the replay loop.
 - ``spec``         — ``DraftState``: the host-side prompt-lookup draft
   stream of speculative serving.
+- ``host_tier``    — ``HostTier``: the host-RAM KV block tier that LRU-
+  reclaimed prefix blocks spill to and admissions restore from (pinned
+  memory and a writer thread with its own stream on the card).
 - ``engine``       — ``ServeEngine``: the unified ragged tick
   (``ragged_paged_attention``; with ``spec_k`` it verifies drafts in
   the same step) and the phase-split tick (chunked prefill, then a
@@ -24,6 +27,7 @@ JAX package are later slices.
 """
 
 from llm_np_cp_tpu_torch.serve.block_pool import BlockPool, FreeList, PagedKV
+from llm_np_cp_tpu_torch.serve.host_tier import HostBlock, HostTier, HostTierError
 from llm_np_cp_tpu_torch.serve.engine import ServeEngine, pool_geometry, worst_case_slots
 from llm_np_cp_tpu_torch.serve.metrics import ServeMetrics
 from llm_np_cp_tpu_torch.serve.prefix_cache import PrefixCache, prefix_block_keys
@@ -35,6 +39,9 @@ __all__ = [
     "BlockPool",
     "DraftState",
     "FreeList",
+    "HostBlock",
+    "HostTier",
+    "HostTierError",
     "PagedKV",
     "PrefixCache",
     "QueueFull",

@@ -73,12 +73,27 @@ greedy spec tick replays one graph per bucket whatever the draft widths.
 A request whose rolling acceptance falls below ``spec_min_accept`` over
 ``spec_window`` drafted tokens goes back to plain decode rows.
 
+The host-RAM KV tier (``host_tier=HostTier(...)``, prefix cache on), as
+in the JAX engine: a prefix block LRU reclaim drops is cloned on the
+engine's stream and spilled to host memory by the tier's writer thread
+(``_on_prefix_reclaim``); an admission whose prefix the device cache
+misses but the tier holds plans ordinary pool blocks for it
+(``_prefill_plan``), and the staged blocks are copied into the pool's
+own pages before the covering step (``_apply_tier_restores``: the
+unified tick after admission, the phase-split prefill before its shared
+blocks are gathered).  The copies are eager operations between steps: a
+restore writes the pool in place, so every captured step reads it at the
+addresses it was captured with, and no tier copy is ever captured.  A
+capture holds the tier's writer off the card (``HostTier.quiesce``).
+A copy that fails raises; only a missing host block falls back to
+re-prefill.
+
 What the port leaves out, as the JAX package has it: donation (pages are
 updated in place) and the runtime degradation to XLA fallbacks — on the
 card a kernel launches or raises, and a step captures or raises; nothing
-falls back.  Meshes, the host tier, the journal, request log, tracer,
-sentinel, lifecycle actions, telemetry, tenants and fault injection
-raise ``NotImplementedError``; ``recover``,
+falls back.  Meshes, the journal, request log, tracer, sentinel,
+lifecycle actions, telemetry, tenants and fault injection raise
+``NotImplementedError``; ``recover``,
 ``finish_recovered`` and ``clone_fresh`` are not defined yet, nor is
 ``share_compiled_steps``: a graph replays its own engine's pool and
 weight addresses, so a peer engine cannot adopt it.
@@ -113,6 +128,7 @@ from llm_np_cp_tpu_torch.ops.cuda import decode_attention as _da
 from llm_np_cp_tpu_torch.ops.rope import rope_cos_sin
 from llm_np_cp_tpu_torch.ops.sampling import Sampler
 from llm_np_cp_tpu_torch.serve.block_pool import BlockPool
+from llm_np_cp_tpu_torch.serve.host_tier import HostTier
 from llm_np_cp_tpu_torch.serve.metrics import ServeMetrics
 from llm_np_cp_tpu_torch.serve.prefix_cache import prefix_block_keys
 from llm_np_cp_tpu_torch.serve.scheduler import QueueFull, Request, RequestState, Scheduler
@@ -126,7 +142,7 @@ GLOBAL_WINDOW = 1 << 30
 # keyword → value that means "off", for the JAX engine's options the port
 # does not have yet
 _NOT_PORTED = {
-    "mesh_plan": None, "host_tier": None, "journal": None,
+    "mesh_plan": None, "journal": None,
     "request_log": None, "tracer": None, "sentinel": None, "actions": None,
     "telemetry": None, "tenants": None, "fault_injector": None,
 }
@@ -243,7 +259,8 @@ class _StaticStep:
             o += n
         self.out = torch.zeros((eng.scheduler.max_slots, out_cols), dtype=torch.int32,
                                device=dev)
-        self.run = CapturedStep(lambda: body(self.ops, self.out), dev, name)
+        self.run = CapturedStep(lambda: body(self.ops, self.out), dev, name,
+                                guard=eng._capture_guard)
 
     def upload(self, host: dict[str, np.ndarray]) -> None:
         """The tick's host operands → the static device buffer, in ONE
@@ -305,6 +322,7 @@ class ServeEngine:
         spec_ngram: int = 3,
         spec_min_accept: float = 0.1,
         spec_window: int = 64,
+        host_tier: HostTier | None = None,
         device: str | torch.device = "cuda",
         **not_ported: Any,
     ) -> None:
@@ -340,6 +358,10 @@ class ServeEngine:
             raise ValueError(
                 "speculative serving (spec_k > 0) rides the unified tick's batched "
                 "verifier; it cannot run with mixed_step='off'")
+        if host_tier is not None and not enable_prefix_cache:
+            raise ValueError(
+                "host_tier requires enable_prefix_cache=True: the tier is keyed by the "
+                "prefix cache's chained content hashes")
         self.device = resolve_device(device)
         if params["final_norm"].device != self.device:
             raise ValueError(
@@ -378,6 +400,36 @@ class ServeEngine:
             max_queue=max_queue,
         )
         self.metrics = ServeMetrics(clock=clock)
+        # -- host-RAM KV block tier: spilled prefix blocks keyed by the
+        # prefix cache's chained content hash, restored at admission as
+        # ordinary claimed pool blocks.  None = every hook is an is-None
+        # check.  A capture holds the tier's writer off the card.
+        self.host_tier = host_tier
+        self._capture_guard = host_tier.quiesce if host_tier is not None else None
+        # bytes one pool block holds across all layers (K+V + int8 scale
+        # pages) — the unit every tier ledger counts in
+        self._block_nbytes = int(sum(
+            a.numel() * a.element_size() // a.shape[1]
+            for a in self.pool.pages if a is not None))
+        # bytes spilled and restored this tick (the per-tick gauge refresh)
+        self._tier_spill_bytes = 0
+        self._tier_restore_bytes = 0
+        if self.pool.prefix_cache is not None:
+            # LRU reclaim is counted and, with a tier, spills the block
+            self.pool.prefix_cache.on_reclaim = self._on_prefix_reclaim
+        if host_tier is not None:
+            # the restore side of the breakeven: a block-sized pinned
+            # host→device copy timed at build; the recompute side comes
+            # from measured prefill rates (HostTier.note_prefill_rate)
+            shape = self.pool.pages.k.shape
+            blk_shape = (shape[0],) + tuple(shape[2:])
+            probes = [(blk_shape, cache_dtype)] * 2
+            if self.pool.pages.quantized:
+                probes += [(blk_shape[:-1], torch.float32)] * 2
+            host_tier.ensure_probe(probes, device=self.device)
+            self.metrics.on_tier_gauge(
+                resident_bytes=host_tier.resident_bytes,
+                breakeven=host_tier.breakeven_ratio(self.block_size))
         self._next_id = 0
         self._detok: dict[int, IncrementalDetok] = {}
         # live (queued or running) requests by id — the abort/deadline index
@@ -480,10 +532,21 @@ class ServeEngine:
         The shareable span is capped at ``width - prefill_chunk``: the
         LAST chunk always re-prefills (the first token's logits come out
         of it), which also keeps decode writes strictly past every shared
-        block."""
+        block.
+
+        With the host tier attached, keys the device cache misses are
+        looked up host-side as well: a hit at or above the measured
+        restore-vs-recompute breakeven allocates ordinary pool blocks for
+        the span now, and the restore is staged after admission (the plan
+        only decides: a backed-off plan frees the blocks with nothing in
+        flight to write into them).  Below breakeven the span re-prefills
+        (counted)."""
         w = self._prefill_width(req)
         total = self.pool.blocks_for(w)
         cache = self.pool.prefix_cache
+        # a backed-off admission freed its planned restore blocks; the
+        # stale plan must not survive into this attempt
+        req.extra.pop("tier_restore", None)
         if cache is None:
             return [], total
         unit = self._share_unit
@@ -501,7 +564,66 @@ class ServeEngine:
         # only whole prefill chunks can be skipped
         n_shared = (len(cache.match(keys)) // unit) * unit
         shared = cache.claim(keys[:n_shared]) if n_shared else []
-        return shared, total - len(shared)
+        restore_ids: list[int] = []
+        if self.host_tier is not None and n_shared < len(keys):
+            restore_ids = self._plan_tier_span(req, keys[n_shared:])
+        return shared + restore_ids, total - len(shared) - len(restore_ids)
+
+    def _plan_tier_span(self, req: Request, keys: list[bytes]) -> list[int]:
+        """The combined device-and-host coverage walk past the device
+        match, as in the JAX engine: LRU reclaim evicts a chain an entry
+        at a time, so a prefix routinely ends up split between the pool
+        and the tier.  Each covered key is a device hit (claimed in place)
+        or a host hit (restored into a fresh block); the walk stops at the
+        first key neither side holds, and the span truncates to whole
+        share units.  Returns the span's block ids, in order (with the
+        plan in ``req.extra["tier_restore"]``), or [] when the span is
+        declined or an alloc fails (every claim and alloc rolled back)."""
+        cache = self.pool.prefix_cache
+        unit = self._share_unit
+        span: list[tuple[bytes, int | None]] = []
+        for key in keys:
+            # device first: a key resident on both sides claims in place
+            dev = cache.match([key])
+            if dev:
+                span.append((key, dev[0]))
+            elif self.host_tier.contains(key):
+                span.append((key, None))
+            else:
+                break
+        span = span[: (len(span) // unit) * unit]
+        n_host = sum(1 for _, b in span if b is None)
+        if not n_host:
+            return []
+        if not self.host_tier.should_restore(n_host, self.block_size):
+            # the measured breakeven says re-prefilling is cheaper
+            self.host_tier.note_skip(n_host)
+            return []
+        # claim the span's device entries FIRST: their increfs pin them
+        # against the LRU reclaim the restore-target allocs may trigger
+        for key, dev_blk in span:
+            if dev_blk is not None:
+                cache.claim([key])
+        plan: list[tuple[bytes, int, bool]] = []
+        ordered: list[int] = []
+        for key, dev_blk in span:
+            if dev_blk is not None:
+                ordered.append(dev_blk)
+                plan.append((key, dev_blk, False))
+                continue
+            ids = self.pool.alloc(1)
+            if ids is None:
+                # roll the partial span back: decref the claimed device
+                # entries, free the allocated targets (nothing enqueued)
+                self.pool.free(ordered)
+                for _, rest in span[len(ordered):]:
+                    if rest is not None:
+                        self.pool.free([rest])
+                return []
+            ordered.append(ids[0])
+            plan.append((key, ids[0], True))
+        req.extra["tier_restore"] = plan
+        return ordered
 
     # ------------------------------------------------------------------
     # Device steps
@@ -734,6 +856,149 @@ class ServeEngine:
                 page[:, idx] = fresh.reshape(l_axis, nb, bs, *page.shape[3:])
 
     # ------------------------------------------------------------------
+    # Host-RAM KV tier (serve/host_tier.py)
+    # ------------------------------------------------------------------
+    def _block_clone(self, blk: int) -> list[torch.Tensor]:
+        """Pool block ``blk``'s K/V (+ scale pages) as contiguous clones,
+        made on the engine's stream: a block ``[L, BS, K, D]`` strides
+        over the layer axis, and a host copy of such a view would go
+        through a hidden temporary."""
+        return [a[:, blk].clone(memory_format=torch.contiguous_format)
+                for a in self.pool.pages if a is not None]
+
+    def _on_prefix_reclaim(self, key: bytes, blk: int) -> None:
+        """One prefix-cache entry is about to be LRU-reclaimed (its block
+        returns to the free list).  Always counted; with the host tier
+        attached, the block is cloned BEFORE the id frees — the clone is
+        ordered on the engine's stream ahead of any later write to the
+        block — and handed to the tier's writer thread."""
+        nbytes = self._block_nbytes
+        if self.host_tier is not None:
+            # the ledgers count only blocks the tier accepted (it dedupes
+            # resident and queued keys)
+            if self.host_tier.enqueue_spill(key, *self._block_clone(blk)):
+                self._tier_spill_bytes += nbytes
+                self.metrics.on_tier_spill(blocks=1, nbytes=nbytes)
+        self.metrics.on_prefix_evicted(blocks=1, nbytes=nbytes)
+
+    def _enqueue_tier_restores(self, req: Request) -> None:
+        """Stage the admission plan's host-tier hits: one writer-thread
+        job per block.  Runs only after the admission stuck — the planned
+        blocks are owned by ``req``, so a job never targets a free id."""
+        plan = req.extra.get("tier_restore")
+        if not plan or self.host_tier is None:
+            return
+        req.extra["tier_tickets"] = [
+            self.host_tier.enqueue_restore(key, blk, self.device)
+            for key, blk, is_restore in plan if is_restore
+        ]
+
+    def _apply_tier_restores(self, reqs: list[Request]) -> None:
+        """Land staged restores in the pool BEFORE the covering step: each
+        staged block is copied into the pool's own pages at its planned id
+        (in place — the captured steps read the pages by address), after
+        the engine's stream waits on the staging copy's event.  A miss
+        (the host entry raced a capacity eviction, or ``take_restored``
+        timed out) un-covers the span's tail: those blocks stay allocated
+        and ordinary prefill writes them.  Restored blocks register in the
+        prefix cache at once.  A failed copy raises (``HostTierError``)."""
+        if self.host_tier is None:
+            return
+        cuda = self.device.type == "cuda"
+        for req in reqs:
+            plan = req.extra.pop("tier_restore", None)
+            tickets = req.extra.pop("tier_tickets", None)
+            if not plan or tickets is None:
+                continue
+            results = iter(self.host_tier.take_restored(tickets))
+            n_dev = req.n_shared_blocks - len(plan)
+            ok = 0
+            n_restored = 0
+            lat = 0.0
+            pages = self.pool.pages
+            stream = torch.cuda.current_stream(self.device) if cuda else None
+            for key, blk, is_restore in plan:
+                if not is_restore:
+                    ok += 1  # device-claimed in place: already valid
+                    continue
+                res = next(results)
+                if res is None:
+                    break  # coverage is prefix-contiguous: stop here
+                _, staged, dt, ready = res
+                if ready is not None:
+                    stream.wait_event(ready)
+                self.n_dispatches += 1
+                for dst, src in zip(pages, staged):
+                    if dst is not None:
+                        dst[:, blk].copy_(src)
+                        if stream is not None:
+                            src.record_stream(stream)
+                ok += 1
+                n_restored += 1
+                lat = max(lat, dt)
+            unit = self._share_unit
+            ok = (ok // unit) * unit  # coverage in whole share units
+            if ok < len(plan):
+                # re-prefill the un-covered tail: the tail blocks stay in
+                # req.block_ids and the prefill writes them (a device-
+                # claimed block rounded out of the span is rewritten with
+                # the same content, so its sharers are unaffected)
+                req.n_shared_blocks = n_dev + ok
+                req.prefill_done = min(
+                    req.prefill_done,
+                    max(req.n_shared_blocks * self.block_size - req.pad, 0))
+            pc = self.pool.prefix_cache
+            for key, blk, is_restore in plan[:ok]:
+                if is_restore and pc is not None:
+                    pc.register([key], [blk])
+            if n_restored:
+                nbytes = n_restored * self._block_nbytes
+                self._tier_restore_bytes += nbytes
+                self.metrics.on_tier_restore(blocks=n_restored, nbytes=nbytes, latency_s=lat)
+
+    def spill_prefix_blocks(self, keys: list[bytes] | None = None) -> int:
+        """Ship registered prefix blocks into the host tier WITHOUT
+        dropping them — the fleet's block-shipping primitive: another
+        engine that shares the tier then restores the prefix instead of
+        re-prefilling it.  ``keys=None`` ships every registered entry;
+        a key chain ships its matched prefix.  A registered full prefix
+        block is never rewritten while registered, so the clones are
+        stable; they are made while the tier is quiesced, so a call from
+        another thread cannot overlap a capture.  Returns the number of
+        blocks enqueued."""
+        if self.host_tier is None or self.pool.prefix_cache is None:
+            return 0
+        if keys is None:
+            pairs = self.pool.prefix_cache.items()
+        else:
+            ids = self.pool.prefix_cache.match(list(keys))
+            pairs = list(zip(keys, ids))
+        n = 0
+        with self.host_tier.quiesce():
+            for key, blk in pairs:
+                if self.host_tier.contains(key):
+                    continue  # fast path; the enqueue dedupe is authoritative
+                if self.host_tier.enqueue_spill(key, *self._block_clone(blk)):
+                    self.metrics.on_tier_spill(blocks=1, nbytes=self._block_nbytes)
+                    n += 1
+        return n
+
+    def _tier_tick_start(self) -> None:
+        """Per-tick tier bookkeeping: zero the tick's byte counters and
+        raise a failure the writer kept since the last tick."""
+        if self.host_tier is not None:
+            self.host_tier.check()
+            self._tier_spill_bytes = 0
+            self._tier_restore_bytes = 0
+
+    def _tier_tick_end(self) -> None:
+        """Refresh the tier gauges on a tick that moved tier bytes."""
+        if self.host_tier is not None and (self._tier_spill_bytes or self._tier_restore_bytes):
+            self.metrics.on_tier_gauge(
+                resident_bytes=self.host_tier.resident_bytes,
+                breakeven=self.host_tier.breakeven_ratio(self.block_size))
+
+    # ------------------------------------------------------------------
     # Request lifecycle
     # ------------------------------------------------------------------
     def submit(
@@ -894,7 +1159,11 @@ class ServeEngine:
         Prefix-cache hits (``req.n_shared_blocks`` leading blocks) skip
         their chunks: the shared K/V is copied into the temp cache (a
         slot's K/V depends only on its token and position) and the
-        remaining chunks run from that offset."""
+        remaining chunks run from that offset.  Host-tier hits land
+        first: the claimed blocks must hold real K/V before they are
+        gathered (a miss un-covers the tail, which then prefills)."""
+        self._enqueue_tier_restores(req)
+        self._apply_tier_restores([req])
         content = req.effective_prompt()
         w = self._prefill_width(req)
         req.pad = w - content.size
@@ -913,6 +1182,7 @@ class ServeEngine:
         if n_shared:
             self.n_dispatches += 1
             self._gather_prefix(cache, req.block_ids[:n_shared], req.pad)
+        t_pf = self.clock() if self.host_tier is not None else 0.0
         last = None
         for off in range(shared_slots, w, self.prefill_chunk):
             end = off + self.prefill_chunk
@@ -928,7 +1198,14 @@ class ServeEngine:
         tok = self._draw(last, seed, pos)
         # the phase-split design emits the first token inside the prefill
         # phase (its own sync); the unified tick retired this fetch
-        self._emit(req, int(tok[0].item()))
+        tok_host = int(tok[0].item())
+        if self.host_tier is not None and w > shared_slots:
+            # measured prefill rate over the fresh chunks (the sync above
+            # closed the window) — the breakeven's recompute side
+            dt = self.clock() - t_pf
+            if dt > 0:
+                self.host_tier.note_prefill_rate((w - shared_slots) / dt)
+        self._emit(req, tok_host)
 
     def step(self) -> bool:
         """One scheduler tick; returns True while work remains."""
@@ -939,6 +1216,7 @@ class ServeEngine:
     def _step_split(self) -> bool:
         """One phase-split tick: deadline sweep, admissions (+prefill),
         block growth, then one packed decode step."""
+        self._tier_tick_start()
         self._sweep_deadlines()
         admitted = self.scheduler.admit()
         for req in admitted:
@@ -990,6 +1268,7 @@ class ServeEngine:
                 self._emit(r, int(out_host[r.slot, 0]))
                 self._maybe_finish(r)
 
+        self._tier_tick_end()
         self.metrics.on_tick(
             queue_depth=self.scheduler.queue_depth,
             occupancy=self.pool.occupancy,
@@ -1173,12 +1452,18 @@ class ServeEngine:
         block growth, token-budget planning, then ONE mixed step covering
         every planned prefill slice, plain decode row and verify slice,
         and ONE host fetch."""
+        self._tier_tick_start()
         self._sweep_deadlines()
         admitted = self.scheduler.admit()
         for req in admitted:
             if req.admit_time is None:
                 req.admit_time = self.clock()
+            # stage this admission's host-tier hits first, so the writer's
+            # copies overlap the rest of the admission loop; they land
+            # below, before the step that attends them
+            self._enqueue_tier_restores(req)
             self._init_mixed_prefill(req)
+        self._apply_tier_restores(admitted)
 
         self._draft_tick()
         for req in self.scheduler.ensure_decode_blocks():
@@ -1208,6 +1493,9 @@ class ServeEngine:
                 per_tok = (self.clock() - td0) / (n_prefill_tok + n_decode_tok + n_spec_tok)
                 for r, n in prefill_segs:
                     r.prefill_s += per_tok * n
+                if self.host_tier is not None and per_tok > 0:
+                    # the breakeven's recompute side: a measured rate
+                    self.host_tier.note_prefill_rate(1.0 / per_tok)
             for r, n in prefill_segs:
                 r.prefill_done += n
                 if r.prefill_done >= r.prefill_target:
@@ -1219,6 +1507,7 @@ class ServeEngine:
                     self._emit(r, int(nxt_host[r.slot, 0]))
                     self._maybe_finish(r)
 
+        self._tier_tick_end()
         self.metrics.on_tick(
             queue_depth=self.scheduler.queue_depth,
             occupancy=self.pool.occupancy,
@@ -1239,7 +1528,9 @@ class ServeEngine:
         one decode step's graph (n is 0 or 1).  The JAX engine reports
         five phase-split programs; here the phase-split prefill chunks,
         the first sample and the scatter run eagerly and are not
-        reported."""
+        reported.  Nor are the host tier's copies (the JAX engine's
+        ``restore_block`` / ``slice_block`` programs): they are eager
+        operations between steps, so a tier-on run adds no capture."""
         if not self.mixed:
             st = self._split_step
             return {"decode_step": int(st is not None and st.run.compiled)}
@@ -1271,14 +1562,20 @@ class ServeEngine:
         its graph — and, as the JAX engine compiles every bucket, capture
         every packed-width bucket's graph, greedy or sampled, so that no
         capture stalls a measured tick; then drop the dummy's traces:
-        prefix-cache entries, the finished ledger and the metrics."""
+        prefix-cache entries, the finished ledger and the metrics.  The
+        host tier is detached meanwhile: the dummy's blocks neither spill
+        nor restore, and its times do not feed the breakeven."""
         if not prompt_lens:
             return
-        self.submit(np.ones(min(prompt_lens), np.int32), min(2, max_new_tokens))
-        self.run_until_complete()
-        if self.mixed:
-            for t_w in self.mixed_buckets:
-                self._warm_mixed_bucket(t_w)
+        host_tier, self.host_tier = self.host_tier, None
+        try:
+            self.submit(np.ones(min(prompt_lens), np.int32), min(2, max_new_tokens))
+            self.run_until_complete()
+            if self.mixed:
+                for t_w in self.mixed_buckets:
+                    self._warm_mixed_bucket(t_w)
+        finally:
+            self.host_tier = host_tier
         if self.pool.prefix_cache is not None:
             self.pool.prefix_cache.clear()
         self.scheduler.finished.clear()

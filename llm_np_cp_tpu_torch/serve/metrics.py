@@ -25,12 +25,18 @@ flat dict (``snapshot()``):
   ``spec_rejected_tokens`` / ``spec_rounds`` / ``spec_accept_rate`` /
   ``spec_accept_len_mean`` — speculative verify rounds, present only
   once a round ran.
+- ``prefix_evicted_blocks`` / ``prefix_evicted_bytes`` — prefix-cache
+  entries LRU reclaim dropped (always present).
+- ``tier_spilled_*`` / ``tier_restored_*`` / ``tier_resident_bytes`` /
+  ``tier_breakeven_ratio`` / ``tier_restore_s_*`` — the host-RAM KV
+  tier's flow (``serve/host_tier.py``), present only once a tier is
+  attached.
 
 Percentiles are p50/p90/p99 over every sample (no windowing).  Left out
 with the layers that use them: the operator text block and the
 Prometheus format with its histograms (CLI, HTTP front end; the
-speculative accept-length histogram with it), SLO, roofline and
-host-tier series.  Every record hook and
+speculative accept-length histogram and the tier's series with it), SLO
+and roofline series.  Every record hook and
 ``snapshot()`` take one lock, as in the JAX package.
 """
 
@@ -86,6 +92,17 @@ class ServeMetrics:
         self.spec_drafted = 0
         self.spec_accepted = 0
         self.spec_rounds = 0
+        # LRU prefix reclaim, and the host-RAM KV tier's flow (spills,
+        # restores, restore latencies, the live gauges)
+        self.prefix_evicted_blocks = 0
+        self.prefix_evicted_bytes = 0.0
+        self.tier_spilled_blocks = 0
+        self.tier_spilled_bytes = 0.0
+        self.tier_restored_blocks = 0
+        self.tier_restored_bytes = 0.0
+        self.tier_restore_s: list[float] = []
+        self.tier_resident_bytes = 0.0
+        self.tier_breakeven: float | None = None
 
     # -- record hooks (engine calls these) -----------------------------
     def on_submit(self, req: Request) -> None:
@@ -120,6 +137,39 @@ class ServeMetrics:
         with self._lock:
             self.prefix_blocks_requested += requested
             self.prefix_blocks_hit += hits
+
+    def on_prefix_evicted(self, *, blocks: int, nbytes: int) -> None:
+        """LRU reclaim dropped ``blocks`` prefix-cache entries (their K/V
+        bytes included) — with the host tier attached the same blocks
+        also count as spills."""
+        with self._lock:
+            self.prefix_evicted_blocks += blocks
+            self.prefix_evicted_bytes += nbytes
+
+    def on_tier_spill(self, *, blocks: int, nbytes: int) -> None:
+        """``blocks`` evicted prefix blocks were handed to the host tier's
+        writer thread instead of being dropped."""
+        with self._lock:
+            self.tier_spilled_blocks += blocks
+            self.tier_spilled_bytes += nbytes
+
+    def on_tier_restore(self, *, blocks: int, nbytes: int, latency_s: float) -> None:
+        """One admission's host-tier span landed back in the pool:
+        ``blocks`` restored (``nbytes`` of K/V that did not re-prefill)
+        after ``latency_s`` of writer-thread staging."""
+        with self._lock:
+            self.tier_restored_blocks += blocks
+            self.tier_restored_bytes += nbytes
+            self.tier_restore_s.append(latency_s)
+
+    def on_tier_gauge(self, *, resident_bytes: int, breakeven: float | None) -> None:
+        """Refresh the tier's live gauges: host bytes resident and the
+        measured restore-vs-recompute breakeven ratio (>1 = restoring one
+        block is cheaper than re-prefilling it; None until both sides are
+        measured)."""
+        with self._lock:
+            self.tier_resident_bytes = float(resident_bytes)
+            self.tier_breakeven = breakeven
 
     def on_spec(self, *, drafted: int, accepted: int) -> None:
         """One speculative verify round for one request: ``drafted``
@@ -183,7 +233,19 @@ class ServeMetrics:
                 "mixed_decode_tokens": self.mixed_decode_tokens,
                 "prefix_blocks_requested": self.prefix_blocks_requested,
                 "prefix_blocks_hit": self.prefix_blocks_hit,
+                "prefix_evicted_blocks": self.prefix_evicted_blocks,
+                "prefix_evicted_bytes": self.prefix_evicted_bytes,
             }
+            if (self.tier_spilled_blocks or self.tier_restored_blocks
+                    or self.tier_breakeven is not None):
+                # only once a tier is attached or active: zeros would
+                # read as a wedged tier
+                out["tier_spilled_blocks"] = self.tier_spilled_blocks
+                out["tier_spilled_bytes"] = self.tier_spilled_bytes
+                out["tier_restored_blocks"] = self.tier_restored_blocks
+                out["tier_restored_bytes"] = self.tier_restored_bytes
+                out["tier_resident_bytes"] = self.tier_resident_bytes
+                out["tier_breakeven_ratio"] = self.tier_breakeven or 0.0
             if self.spec_rounds:
                 # only once a verify round ran: a 0-acceptance series on
                 # an engine that never speculated would read as broken
@@ -203,6 +265,7 @@ class ServeMetrics:
                 "queue_depth": [float(q) for q in self.queue_depth],
                 "occupancy": list(self.occupancy),
                 "active_slots": [float(a) for a in self.active_slots],
+                "tier_restore_s": list(self.tier_restore_s),
             }
         for name, values in series.items():
             out.update(_pcts(values, name))

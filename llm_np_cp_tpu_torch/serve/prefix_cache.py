@@ -78,6 +78,12 @@ class PrefixCache:
         # LRU order: oldest entry first (move_to_end on hit)
         self._entries: OrderedDict[bytes, int] = OrderedDict()
         self._key_by_block: dict[int, bytes] = {}
+        # on_reclaim(key, block_id): called for each entry ``release`` is
+        # about to drop, BEFORE its block returns to the free list — the
+        # engine counts the eviction and, with the host tier attached,
+        # spills the block's K/V (serve/host_tier.py).  None = reclaim
+        # stays a pure free.
+        self.on_reclaim = None
 
     def __len__(self) -> int:
         return len(self._entries)
@@ -147,6 +153,11 @@ class PrefixCache:
             blk = self._entries[key]
             if self.free_list.refcount(blk) != 1:
                 continue
+            if self.on_reclaim is not None:
+                # observe (and possibly spill) the block BEFORE the id
+                # frees — once on the free list it may be rewritten by
+                # the very allocation that triggered this reclaim
+                self.on_reclaim(key, blk)
             del self._entries[key]
             del self._key_by_block[blk]
             self.free_list.free([blk])
@@ -154,6 +165,12 @@ class PrefixCache:
             if freed >= n:
                 break
         return freed
+
+    def items(self) -> list[tuple[bytes, int]]:
+        """Snapshot of the registered ``(key, block id)`` pairs, LRU order
+        (oldest first) — what ``ServeEngine.spill_prefix_blocks`` walks
+        to ship an engine's whole prefix set."""
+        return list(self._entries.items())
 
     def clear(self) -> None:
         """Drop every entry and the cache's references (blocks still

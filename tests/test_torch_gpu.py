@@ -1090,6 +1090,186 @@ def test_sampled_ticks_replay_as_eager(cuda, leg):
     assert after["threefry"] - before["threefry"] == draws
 
 
+# ----------------------------------------------------------------------
+# the host-RAM KV tier on the card: pinned host blocks, the writer's own
+# stream, captures beside a busy writer, restores before the replay
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_tier_spill_restore_roundtrip_on_the_card(cuda, int8):
+    """A pool block spilled through pinned memory on the writer's stream
+    and restored into another block id comes back bit-exact; the probe
+    times a block's host→device copy with events."""
+    from llm_np_cp_tpu_torch.cache import quantize_kv
+    from llm_np_cp_tpu_torch.serve import HostTier
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    shape = (2, 6, 16, 2, 64)  # [L, NB, BS, K, D]
+    k, v = (torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
+    pages = [k, v, None, None]
+    if int8:
+        (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+        pages = [kq, vq, ks, vs]
+    tier = HostTier(1 << 30)
+    tier.ensure_probe([(tuple(a[:, 0].shape), a.dtype) for a in pages if a is not None],
+                      device="cuda")
+    assert tier.restore_s_per_block > 0 and tier.restore_gbps > 0
+    clones = [a[:, 3].clone(memory_format=torch.contiguous_format) for a in pages if a is not None]
+    assert tier.enqueue_spill(b"blk", *clones)
+    assert tier.drain()
+    host = tier._wentries[b"blk"]
+    assert all(a.is_pinned() and not a.is_cuda for a in host if a is not None)
+    (res,) = tier.take_restored([tier.enqueue_restore(b"blk", 5, "cuda")])
+    blk, staged, dt, ready = res
+    assert blk == 5 and dt > 0 and isinstance(ready, torch.cuda.Event)
+    stream = torch.cuda.current_stream()
+    stream.wait_event(ready)
+    for page, a in zip(pages, staged):
+        if page is not None:
+            assert a.is_cuda
+            page[:, 5].copy_(a)
+            a.record_stream(stream)
+    torch.cuda.synchronize()
+    for page in pages:
+        if page is not None:
+            assert torch.equal(page[:, 5], page[:, 3])
+    tier.close()
+
+
+def _tier_engine(cfg, params, tier, dtype, **kw):
+    from llm_np_cp_tpu_torch.serve import ServeEngine
+
+    kw.setdefault("mixed_step", "on")
+    return ServeEngine(params, cfg, max_slots=2, block_size=16, max_seq_len=96,
+                       prefill_chunk=16, cache_dtype=dtype, enable_prefix_cache=True,
+                       host_tier=tier, **kw)
+
+
+def _serve_each(eng, prompts, max_new=8):
+    """Each prompt in turn to completion, the tier drained after each."""
+    for j, p in enumerate(prompts):
+        eng.submit(p, max_new, seed=j)
+        eng.run_until_complete()
+        if eng.host_tier is not None:
+            eng.host_tier.drain()
+    return {r.req_id: r.generated for r in eng.scheduler.finished}
+
+
+def test_tier_capture_while_spills_are_queued(cuda):
+    """Every bucket is captured while the writer still has spills queued
+    (queued behind a long product on the engine's stream, which their
+    copies wait on): the captures succeed (the writer is held off the
+    card meanwhile), the spills land bit-exact afterwards, and the
+    captured tier-on engine emits the tokens the same engine gives with
+    eager steps."""
+    import numpy as np
+
+    from llm_np_cp_tpu_torch import graphs
+    from llm_np_cp_tpu_torch.serve import HostTier
+
+    cfg, params = _tiny_llama(torch.bfloat16)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, 256, size=48) for _ in range(5)] * 2
+    tier = HostTier(4 << 30)
+    tier.policy = "always"
+    eng = _tier_engine(cfg, params, tier, torch.bfloat16, num_blocks=12)
+    guard, seen = eng._capture_guard, []
+
+    def watched():
+        seen.append(len(tier._pending_spill_keys))
+        return guard()
+
+    eng._capture_guard = watched
+    with graphs.eager_steps():  # the kernels built and cuBLAS warm, nothing captured
+        _serve_each(eng, prompts[:1], 2)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    big = [torch.randn((2, 1 << 20), generator=g, device="cuda") for _ in range(48)]
+    x = torch.randn((4096, 4096), generator=g, device="cuda")
+    for _ in range(40):  # ~0.1 s of float32 products ahead of the spills' events
+        x = torch.tanh(x @ x)
+    for i, a in enumerate(big):
+        assert tier.enqueue_spill(b"big%d" % i, a, a + 1)
+    for t_w in eng.mixed_buckets:
+        eng._warm_mixed_bucket(t_w)
+    assert eng.compile_counts()["mixed_step"] == len(eng.mixed_buckets) == len(seen)
+    assert max(seen) > 0, "every capture began after the writer had emptied its queue"
+    assert tier.drain()
+    assert tier.stats()["spilled_blocks"] == 48
+    for i in (0, 47):
+        host = tier._wentries[b"big%d" % i]
+        assert torch.equal(host.k, big[i].cpu()) and torch.equal(host.v, (big[i] + 1).cpu())
+    got = _serve_each(eng, prompts)
+    assert tier.stats()["restored_blocks"] > 0
+    assert eng.compile_counts()["mixed_step"] == len(eng.mixed_buckets)
+    assert sum(s.replays for s in eng.graph_steps()) > 0
+    eager_tier = HostTier(4 << 30)
+    eager_tier.policy = "always"
+    with graphs.eager_steps():
+        twin = _tier_engine(cfg, params, eager_tier, torch.bfloat16, num_blocks=12)
+        _serve_each(twin, prompts[:1], 2)
+        want = _serve_each(twin, prompts)
+    assert got == want
+    assert eager_tier.stats()["restored_blocks"] == tier.stats()["restored_blocks"]
+    tier.close()
+    eager_tier.close()
+
+
+@pytest.mark.parametrize("mixed", ["on", "off"])
+def test_tier_restore_lands_before_the_replay(cuda, mixed):
+    """float32, a starved pool, prompts that come back after their prefix
+    was reclaimed: the tier-on engine restores, and the captured step that
+    attends the restored blocks emits the tier-off engine's tokens (or
+    parts from them first at a near-tie of the plain logits)."""
+    import numpy as np
+
+    from llm_np_cp_tpu_torch.models.transformer import forward
+    from llm_np_cp_tpu_torch.serve import HostTier
+
+    cfg, params = _tiny_llama(torch.float32)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(1, 256, size=48) for _ in range(5)] * 2
+    tier = HostTier(1 << 30)
+    tier.policy = "always"
+    extra = dict(num_blocks=12, mixed_step=mixed, decode_attn_impl="paged")
+    on = _tier_engine(cfg, params, tier, torch.float32, **extra)
+    off = _tier_engine(cfg, params, None, torch.float32, **extra)
+    got, want = _serve_each(on, prompts), _serve_each(off, prompts)
+    assert tier.stats()["restored_blocks"] > 0 and tier.stats()["restore_misses"] == 0
+    assert sum(s.replays for s in on.graph_steps()) > 0
+    assert on.pool.stats()["request_held"] == 0
+    for rid, a in got.items():
+        b = want[rid]
+        j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        ids = torch.tensor(np.concatenate([prompts[rid], a[:j]]), device="cuda")[None]
+        logits, _ = forward(params, ids, cfg, None, logits_last_only=True)
+        top2 = torch.topk(logits[0, -1], 2).values
+        assert (top2[0] - top2[1]).item() <= 1e-4, (rid, j)
+    tier.close()
+
+
+def test_tier_cuda_error_raises_not_a_miss(cuda):
+    """A restore staged onto a card that does not exist fails in CUDA on
+    the writer thread: the engine side gets the error, not a miss, and
+    the context stays usable."""
+    from llm_np_cp_tpu_torch.serve import HostTier, HostTierError
+
+    tier = HostTier(1 << 20)
+    one = torch.ones((2, 16, 2, 64), device="cuda")
+    tier.enqueue_spill(b"k", one, one)
+    tier.drain()
+    bad = torch.device("cuda", torch.cuda.device_count())
+    ticket = tier.enqueue_restore(b"k", 1, bad)
+    with pytest.raises(HostTierError):
+        tier.take_restored([ticket])
+    with pytest.raises(HostTierError):
+        tier.check()
+    assert tier.stats()["restore_misses"] == 0 and tier.stats()["restored_blocks"] == 0
+    tier.close()
+    assert torch.ones(3, device="cuda").sum().item() == 3.0
+
+
 def test_capture_raises_on_host_sync(cuda):
     """A step that reads the card back while captured raises; nothing
     falls back to running it eagerly.  (Last in this file: it leaves a

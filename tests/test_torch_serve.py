@@ -493,9 +493,12 @@ def test_auto_means_on_and_unported_options_raise(llama):
               device="cpu")
     eng = serve.ServeEngine(tp, cfg, mixed_step="auto", **kw)
     assert eng.mixed and eng.mixed_buckets[0] == da.RAGGED_Q_TILE
-    for opt in ("tracer", "journal", "telemetry", "mesh_plan", "host_tier", "fault_injector"):
+    for opt in ("tracer", "journal", "telemetry", "mesh_plan", "tenants", "fault_injector"):
         with pytest.raises(NotImplementedError, match=opt):
             serve.ServeEngine(tp, cfg, **{opt: object()}, **kw)
+    # host_tier is ported: it takes the JAX engine's gate instead
+    with pytest.raises(ValueError, match="enable_prefix_cache"):
+        serve.ServeEngine(tp, cfg, host_tier=object(), **kw)
     # spec_k is ported: it rides the unified tick ("auto" means "on")
     assert serve.ServeEngine(tp, cfg, spec_k=4, mixed_step="auto", **kw).spec_k == 4
     with pytest.raises(TypeError, match="bogus"):
