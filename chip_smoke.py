@@ -122,7 +122,27 @@ Phases, each printing JSON lines; any failure exits non-zero:
    tokens or apart first at a near-tie.  A block spilled and restored into
    another block id comes back bit-exact, and ``spill_prefix_blocks`` lets
    a second engine sharing the tier prefill only a prompt's last chunk.
-9. the ``kernels`` summary line, the card's ``nvidia-smi`` name and power
+9. http — the HTTP front end (``serve/http``) on the JAX bench's
+   ``serve_http_poisson`` shape: the same model behind the engine (8
+   slots, 128-slot blocks, 256-token chunks, the unified tick, greedy), 32
+   requests at 16 req/s with 128-512-token prompts (``poisson_trace``
+   seeded 13) and 64 new tokens.  On one warmed engine, four legs in the
+   order direct, HTTP, HTTP, direct: the direct
+   ``replay_trace(realtime=True)``, and the same arrivals through the
+   server started in process by ``run_server`` (the coroutine
+   ``serve_forever`` runs) with one ``astream_completion`` client a
+   request.  Every response 200; each request's tokens equal the first
+   direct leg's or first apart at a near-tie, every HTTP request
+   teacher-forced; every tick of every leg a graph replay with no capture
+   (the HTTP legs' from the runner's thread); launch counts as the ticks
+   imply; the ``/metrics`` scrape parses and its finished / submitted
+   counters equal the snapshot; one more stream, cut after a few tokens,
+   leaves ``request_held`` at 0.  Per leg: client-observed TTFT p50/p99,
+   TPOT p50 and tok/s, and each tick's host wall and thread-CPU time on
+   the thread that ran it (their difference, the time off the CPU inside
+   the tick, is what the event loop's share of the GIL costs the HTTP
+   legs), with the kv_bytes_tick gauge's host time.
+10. the ``kernels`` summary line, the card's ``nvidia-smi`` name and power
    limit, and last the result line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -211,6 +231,17 @@ TIER_LEGS = {
     "c_mixed_tier_int8": (dict(mixed_step="on"), True, True),
     "d_split_paged_tier": (dict(mixed_step="off", decode_attn_impl="paged"), True, False),
 }
+
+# the http phase: the JAX bench's serve_http_poisson (bench.py:178-181,
+# its trace at bench.py:2027-2033) — 32 requests at 16 req/s, prompts
+# 128-512 tokens, 64 new tokens, 8 slots, 128-slot blocks, 256-token
+# chunks; the trace seeded 13
+HTTP_REQUESTS, HTTP_RATE, HTTP_PROMPTS, HTTP_NEW, HTTP_SEED = 32, 16.0, (128, 512), 64, 13
+HTTP_SLOTS, HTTP_BLOCK, HTTP_CHUNK = 8, 128, 256
+# tokens the disconnect check's stream reads before it hangs up
+HTTP_CUT_AFTER = 3
+# the scrape's sample lines: the JAX package's own pattern
+PROM_LINE = r"[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? -?[0-9.]+(e[+-]?[0-9]+)?"
 
 # the quant phase: quantize_params keywords per weight mode, and the
 # greedy continuation quant_quality compares with the bf16 model
@@ -2475,6 +2506,309 @@ def tier_phase(torch, np, kernels: dict, card: str) -> dict:
                 checks=checks, ok=not checks)
 
 
+# ----------------------------------------------------------------------
+# phase 9: the HTTP front end
+# ----------------------------------------------------------------------
+
+def _pct(np, vals: list, q: float) -> float | None:
+    """The JAX bench's client percentile (np.percentile, linear)."""
+    return float(np.percentile(vals, q)) if vals else None
+
+
+def http_leg(torch, np, eng, trace: list[dict], model_id: str) -> dict:
+    """The trace's arrivals through the port's server over ``eng``, started
+    through ``run_server`` (the coroutine ``serve_forever`` runs) on this
+    event loop, its runner thread ticking the engine: one
+    ``astream_completion`` client a request, sleeping until its arrival;
+    then a ``/metrics`` scrape, and one more stream cut after
+    HTTP_CUT_AFTER tokens, whose blocks must come back; then the drain
+    that ends ``run_server``."""
+    import asyncio
+
+    from llm_np_cp_tpu_torch.serve.http.client import astream_completion, http_get
+    from llm_np_cp_tpu_torch.serve.http.server import run_server
+
+    async def leg() -> dict:
+        loop = asyncio.get_running_loop()
+        started = loop.create_future()
+        serving = asyncio.ensure_future(run_server(
+            eng, model_id=model_id, host="127.0.0.1", port=0, drain_timeout=60.0,
+            on_started=started.set_result))
+        await asyncio.wait([started, serving], return_when=asyncio.FIRST_COMPLETED)
+        if not started.done():
+            serving.result()  # raises what ended the server before it started
+        server = started.result()
+
+        async def one(item):
+            await asyncio.sleep(item["arrival_s"])
+            return await astream_completion(
+                server.host, server.port,
+                {"model": model_id, "prompt": [int(t) for t in item["prompt"]],
+                 "max_tokens": item["max_new_tokens"], "seed": item["seed"]},
+                timeout=300.0)
+
+        t0 = time.perf_counter()
+        results = await asyncio.gather(*(one(item) for item in trace))
+        wall = time.perf_counter() - t0
+        status, raw = await loop.run_in_executor(None, http_get, server.host, server.port,
+                                                 "/metrics")
+        snap = eng.metrics.snapshot()
+        cut = await astream_completion(
+            server.host, server.port,
+            {"model": model_id, "prompt": [int(t) for t in trace[0]["prompt"]],
+             "max_tokens": HTTP_NEW}, disconnect_after=HTTP_CUT_AFTER, timeout=300.0)
+        t_end = time.perf_counter() + 30.0
+        while time.perf_counter() < t_end and not (
+                eng.metrics.snapshot()["aborted"] == 1
+                and eng.pool.stats()["request_held"] == 0):
+            await asyncio.sleep(0.01)
+        held = eng.pool.stats()["request_held"]
+        aborted = eng.metrics.snapshot()["aborted"]
+        server.begin_drain()
+        await serving
+        return dict(results=results, wall=wall, status=status, prom=raw.decode(), snap=snap,
+                    cut=cut, held=held, aborted=aborted)
+
+    return asyncio.run(leg())
+
+
+def tick_timer(np, eng):
+    """Time every dispatching tick on the thread that runs it (the HTTP
+    leg's runner thread): its wall time and that thread's CPU time, whose
+    difference is the time the thread spent off the CPU inside the tick
+    (held against the direct leg's, which has no event loop beside it:
+    in the HTTP leg the excess is waiting for the GIL), and the
+    kv_bytes_tick gauge's host time.  Only means over a leg are
+    reported: the thread clock advances in coarse steps on the card's
+    host (a single tick can read more CPU than wall time), so per-tick
+    percentiles of the difference mean nothing.  Wraps the engine's
+    bound methods; returns (summary, restore)."""
+    rec = dict(wall=[], cpu=[], gauge=[])
+    real_step, real_gauge = eng.step, eng._kv_bytes_tick_mixed
+
+    def step():
+        d0, w0, c0 = eng.n_dispatches, time.perf_counter(), time.thread_time()
+        try:
+            return real_step()
+        finally:
+            if eng.n_dispatches != d0:
+                rec["cpu"].append(time.thread_time() - c0)
+                rec["wall"].append(time.perf_counter() - w0)
+
+    def gauge(*args):
+        t0 = time.perf_counter()
+        out = real_gauge(*args)
+        rec["gauge"].append(time.perf_counter() - t0)
+        return out
+
+    def summary() -> dict:
+        wall, cpu = np.asarray(rec["wall"]), np.asarray(rec["cpu"])
+        off = wall - cpu
+        return dict(ticks=int(wall.size), wall_ms_mean=float(wall.mean() * 1e3),
+                    wall_ms_p50=float(np.percentile(wall, 50) * 1e3),
+                    cpu_ms_mean=float(cpu.mean() * 1e3),
+                    off_cpu_ms_mean=float(off.mean() * 1e3),
+                    off_cpu_share=float(off.sum() / wall.sum()),
+                    gauge_us_mean=float(np.mean(rec["gauge"]) * 1e6),
+                    gauge_us_max=float(np.max(rec["gauge"]) * 1e6))
+
+    def restore() -> None:
+        del eng.step, eng._kv_bytes_tick_mixed
+
+    eng.step, eng._kv_bytes_tick_mixed = step, gauge
+    return summary, restore
+
+
+def scrape_counters(prom: str) -> tuple[list[str], dict[str, float]]:
+    """(lines that are not Prometheus text, unlabelled samples by name)."""
+    import re
+
+    bad, samples = [], {}
+    for line in prom.splitlines():
+        if line.startswith("# "):
+            continue
+        if not re.fullmatch(PROM_LINE, line):
+            bad.append(line)
+        elif "{" not in line:
+            name, value = line.split()
+            samples[name] = float(value)
+    return bad, samples
+
+
+def http_phase(torch, np, kernels: dict, card: str) -> dict:
+    """The HTTP front end on the JAX bench's serve_http_poisson shape:
+    the direct realtime replay and the same arrivals over HTTP on one
+    warmed engine."""
+    from types import SimpleNamespace
+
+    from llm_np_cp_tpu_torch.config import PRESETS
+    from llm_np_cp_tpu_torch.models.transformer import forward, init_params
+    from llm_np_cp_tpu_torch.ops.cuda import decode_attention as da
+    from llm_np_cp_tpu_torch.ops.sampling import Sampler
+    from llm_np_cp_tpu_torch.serve import ServeEngine, ServeMetrics, poisson_trace, pool_geometry
+
+    model_id = "meta-llama/Llama-3.2-1B"
+    cfg = PRESETS[model_id]
+    layers = cfg.num_hidden_layers
+    params = init_params(0, cfg, torch.bfloat16, device="cuda")
+    trace = poisson_trace(np.random.default_rng(HTTP_SEED), HTTP_REQUESTS, rate_rps=HTTP_RATE,
+                          prompt_len_range=HTTP_PROMPTS, max_new_tokens=HTTP_NEW,
+                          vocab_size=cfg.vocab_size, seed_base=HTTP_SEED)
+    _, num_blocks, max_seq_len = pool_geometry(HTTP_PROMPTS[1], HTTP_NEW, HTTP_SLOTS,
+                                               HTTP_BLOCK, HTTP_CHUNK)
+    eng = ServeEngine(params, cfg, sampler=Sampler("greedy"), max_slots=HTTP_SLOTS,
+                      num_blocks=num_blocks, block_size=HTTP_BLOCK, max_seq_len=max_seq_len,
+                      prefill_chunk=HTTP_CHUNK, cache_dtype=torch.bfloat16, mixed_step="on",
+                      device=torch.device("cuda"))
+    if eng.epilogue_impl != "fused":
+        raise AssertionError(f"http: epilogue {eng.epilogue_impl} for a greedy sampler")
+    eng.warmup([int(t["prompt"].size) for t in trace], HTTP_NEW)
+    torch.cuda.synchronize()
+    checks: list[str] = []
+
+    def counted(where: str, run) -> tuple[dict, object]:
+        """Run one leg with the launch counters at 0; check its launches,
+        host fetches and graph replays against its dispatches."""
+        reset_counts(kernels)
+        d0, f0, b0, g0 = (eng.n_dispatches, eng.n_host_fetches, dict(eng.bucket_dispatches),
+                          graph_totals())
+        out = run()
+        torch.cuda.synchronize()
+        launches, graphs_run = read_counts(kernels), graph_delta(g0)
+        dispatches, fetches = eng.n_dispatches - d0, eng.n_host_fetches - f0
+        want = {name: 0 for name in kernels}
+        want.update(ragged_paged_attention=layers * dispatches, sample_epilogue=dispatches,
+                    ragged_paged_attention_combine=ragged_combines(torch, da, eng, cfg, b0))
+        if launches != want or fetches != dispatches:
+            checks.append(f"{where}: launch counts {launches} != implied {want}, "
+                          f"{fetches} host fetches for {dispatches} dispatches")
+        if graphs_run != dict(captures=0, replays=dispatches, eager=0):
+            checks.append(f"{where}: {dispatches} ticks, graphs ran {graphs_run}")
+        return dict(launches=launches, implied=want, graphs=graphs_run, dispatches=dispatches,
+                    host_fetches=fetches), out
+
+    def direct_leg(where: str) -> dict:
+        """The direct realtime replay, the no-HTTP baseline."""
+        eng.metrics = ServeMetrics(clock=eng.clock)
+        eng.scheduler.finished.clear()
+        summary, restore = tick_timer(np, eng)
+        t0 = time.perf_counter()
+        try:
+            counts, snap = counted(where, lambda: eng.replay_trace(trace, realtime=True))
+        finally:
+            restore()
+        wall = time.perf_counter() - t0
+        if snap["finished"] != HTTP_REQUESTS:
+            checks.append(f"{where}: {snap['finished']} of {HTTP_REQUESTS} finished")
+        return dict(leg=where, **counts, wall_s=wall,
+                    generated_tokens=snap["total_generated_tokens"],
+                    tok_s=snap["total_generated_tokens"] / wall, ticks=snap["ticks"],
+                    tokens_per_tick=(snap["mixed_prefill_tokens"] + snap["mixed_decode_tokens"])
+                    / max(snap["ticks"], 1),
+                    ttft_s_p50=snap.get("ttft_s_p50"), ttft_s_p99=snap.get("ttft_s_p99"),
+                    tpot_s_p50=snap.get("tpot_s_p50"), tpot_s_p99=snap.get("tpot_s_p99"),
+                    tick_host=summary(),
+                    tokens={r.seed: list(r.generated) for r in eng.scheduler.finished})
+
+    def served_leg(where: str, direct_tokens: dict) -> dict:
+        """The same arrivals over HTTP, the engine ticked by the runner's
+        thread."""
+        eng.metrics = ServeMetrics(clock=eng.clock)
+        eng.scheduler.finished.clear()
+        summary, restore = tick_timer(np, eng)
+        try:
+            counts, res = counted(where, lambda: http_leg(torch, np, eng, trace, model_id))
+        finally:
+            restore()
+        results = res["results"]
+        ok200 = [r for r in results if r["status"] == 200 and r["finish_reason"] == "length"
+                 and len(r["token_ids"]) == HTTP_NEW]
+        if len(ok200) != HTTP_REQUESTS:
+            checks.append(f"{where}: {len(ok200)} of {HTTP_REQUESTS} answered 200 with "
+                          f"{HTTP_NEW} tokens: {[r['status'] for r in results]}")
+        gaps = []
+        for item, r in zip(trace, results):
+            gap = first_divergence(torch, forward, params, cfg, item["prompt"], r["token_ids"],
+                                   direct_tokens.get(item["seed"], []))
+            if gap is not None:
+                gaps.append(gap)
+        parity = dict(identical=HTTP_REQUESTS - len(gaps), divergence_top2_gaps=gaps,
+                      tol=TEACHER_TOL, ok=all(g <= TEACHER_TOL for g in gaps))
+        if not parity["ok"]:
+            checks.append(f"{where} parts from the direct leg away from a near-tie: {parity}")
+        tf = teacher_forced_requests(
+            torch, forward, params, cfg,
+            [SimpleNamespace(prompt=item["prompt"], generated=r["token_ids"])
+             for item, r in zip(trace, results) if r["token_ids"]], TEACHER_TOL)
+        if not tf["ok"] or tf["requests"] != HTTP_REQUESTS:
+            checks.append(f"{where} teacher-forced: {tf}")
+        bad_lines, samples = scrape_counters(res["prom"])
+        hsnap = res["snap"]
+        scrape = dict(status=res["status"], bad_lines=bad_lines[:5],
+                      finished=samples.get("llm_serve_requests_finished_total"),
+                      submitted=samples.get("llm_serve_requests_submitted_total"),
+                      snapshot_finished=hsnap["finished"], snapshot_submitted=hsnap["submitted"])
+        if (res["status"] != 200 or bad_lines or scrape["finished"] != hsnap["finished"]
+                or scrape["submitted"] != hsnap["submitted"]
+                or hsnap["finished"] != HTTP_REQUESTS):
+            checks.append(f"{where} scrape: {scrape}")
+        cut = dict(finish_reason=res["cut"]["finish_reason"],
+                   tokens=len(res["cut"]["token_ids"]), request_held_after=res["held"],
+                   aborted=res["aborted"])
+        if cut != dict(finish_reason="disconnected", tokens=HTTP_CUT_AFTER,
+                       request_held_after=0, aborted=1):
+            checks.append(f"{where} disconnect: {cut}")
+        ttft = [r["ttft_s"] for r in ok200 if r["ttft_s"] is not None]
+        # client TPOT: the time after the first token over the tokens after it
+        tpot = [(r["latency_s"] - r["ttft_s"]) / (len(r["token_ids"]) - 1) for r in ok200
+                if r["ttft_s"] is not None and len(r["token_ids"]) > 1]
+        generated = sum(len(r["token_ids"]) for r in results)
+        return dict(leg=where, **counts, wall_s=res["wall"], generated_tokens=generated,
+                    tok_s=generated / res["wall"], ticks=hsnap["ticks"],
+                    tokens_per_tick=(hsnap["mixed_prefill_tokens"]
+                                     + hsnap["mixed_decode_tokens"]) / max(hsnap["ticks"], 1),
+                    ttft_s_p50=_pct(np, ttft, 50), ttft_s_p99=_pct(np, ttft, 99),
+                    tpot_s_p50=_pct(np, tpot, 50), tpot_s_p99=_pct(np, tpot, 99),
+                    engine_ttft_s_p50=hsnap.get("ttft_s_p50"),
+                    engine_tpot_s_p50=hsnap.get("tpot_s_p50"), tick_host=summary(),
+                    parity_vs_direct=parity, teacher_forced=tf, scrape=scrape, disconnect=cut)
+
+    # the legs alternate, direct, HTTP, HTTP, direct, so that what one
+    # leg leaves behind (allocator state, a warmer host) falls on both
+    # kinds; the HTTP legs are held to the first direct leg's tokens
+    d1 = direct_leg("http direct 1")
+    h1 = served_leg("http leg 1", d1["tokens"])
+    h2 = served_leg("http leg 2", d1["tokens"])
+    d2 = direct_leg("http direct 2")
+    d2["identical_to_direct_1"] = sum(d2["tokens"].get(k) == v for k, v in d1["tokens"].items())
+    legs = [d1, h1, h2, d2]
+    for leg in (d1, d2):
+        del leg["tokens"]
+    keys = ("ttft_s_p50", "ttft_s_p99", "tpot_s_p50", "tok_s")
+
+    def mean(pair, key):
+        vals = [leg[key] for leg in pair]
+        return None if None in vals else sum(vals) / len(vals)
+
+    direct = {k: mean((d1, d2), k) for k in keys}
+    http = {k: mean((h1, h2), k) for k in keys}
+    delta = {k: (http[k] - direct[k]) if http[k] is not None and direct[k] is not None else None
+             for k in keys}
+    off_cpu = {kind: sum(leg["tick_host"]["off_cpu_ms_mean"] for leg in pair) / 2
+               for kind, pair in (("direct", (d1, d2)), ("http", (h1, h2)))}
+    del eng, params
+    torch.cuda.empty_cache()
+    return dict(phase="http", model=model_id, layers=layers, weights="seeded random bf16",
+                card=card,
+                trace=dict(requests=HTTP_REQUESTS, rate_rps=HTTP_RATE, prompt_len=HTTP_PROMPTS,
+                           new_tokens=HTTP_NEW, seed=HTTP_SEED),
+                engine=dict(max_slots=HTTP_SLOTS, block_size=HTTP_BLOCK,
+                            prefill_chunk=HTTP_CHUNK, num_blocks=num_blocks,
+                            max_seq_len=max_seq_len, mixed_step="on", sampler="greedy"),
+                legs=legs, direct=direct, http=http, http_minus_direct=delta,
+                tick_off_cpu_ms_mean=off_cpu, checks=checks, ok=not checks)
+
+
 KERNEL_META = {
     "flash_attention": ("llm_np_cp_tpu_torch/csrc/flash_attention.cu",
                         "llm_np_cp_tpu/ops/pallas/flash_attention.py:180"),
@@ -2630,6 +2964,10 @@ def main() -> int:
     record(tp)
     if not tp["ok"]:
         raise AssertionError("tier checks failed: " + json.dumps(tp["checks"], default=str))
+    hp = http_phase(torch, np, kernels, smi)
+    record(hp)
+    if not hp["ok"]:
+        raise AssertionError("http checks failed: " + json.dumps(hp["checks"], default=str))
 
     path_launches = dict(mp["launches"])
     path_launches["ragged_paged_attention"] = sv["legs"]["A_mixed"]["launches"][

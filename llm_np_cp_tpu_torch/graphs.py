@@ -130,6 +130,11 @@ class CapturedStep:
         gc.collect()
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(self.device)
+        # no collection while the capture is open: one that another
+        # thread's allocation triggers (the HTTP server's event loop)
+        # would free CUDA tensors from that thread mid-capture
+        gc_on = gc.isenabled()
+        gc.disable()
         t0 = time.perf_counter()
         try:
             with torch.cuda.graph(graph):
@@ -138,6 +143,8 @@ class CapturedStep:
         except Exception as e:
             raise RuntimeError(f"capturing {self.name} as a CUDA graph failed: {e}") from e
         finally:
+            if gc_on:
+                gc.enable()
             moved = [(fn, attr, getattr(fn, attr) - n) for fn, attr, n in snap]
             for fn, attr, n in snap:
                 setattr(fn, attr, n)

@@ -21,9 +21,19 @@ Modules:
   (``ragged_paged_attention``; with ``spec_k`` it verifies drafts in
   the same step) and the phase-split tick (chunked prefill, then a
   decode step over gathered views or ``paged_decode_attention``).
+- ``http``         — the OpenAI-compatible streaming HTTP front end:
+  ``EngineRunner`` (the engine's tick thread, which makes every CUDA
+  call) and ``HttpServer`` (``/v1/completions`` unary and SSE, stream
+  resume, ``/healthz``, ``/metrics``), ``run_server`` /
+  ``serve_forever``, and the stdlib ``client``.  Imported on its own
+  (``llm_np_cp_tpu_torch.serve.http``), as in the JAX package.
+- ``tenants``      — ``normalize_tenant``, the tenant-id validator the
+  protocol uses (the tenant ledger is a later slice).
+- ``tracing``      — the W3C ``traceparent`` helpers (the trace
+  recorder is a later slice).
 
-The HTTP front end, CLI, journal, fleet and observability layers of the
-JAX package are later slices.
+The supervised restart, journal, fleet, lifecycle, SLO, tenant ledger,
+trace recorder and CLI layers of the JAX package are later slices.
 """
 
 from llm_np_cp_tpu_torch.serve.block_pool import BlockPool, FreeList, PagedKV
@@ -31,7 +41,13 @@ from llm_np_cp_tpu_torch.serve.host_tier import HostBlock, HostTier, HostTierErr
 from llm_np_cp_tpu_torch.serve.engine import ServeEngine, pool_geometry, worst_case_slots
 from llm_np_cp_tpu_torch.serve.metrics import ServeMetrics
 from llm_np_cp_tpu_torch.serve.prefix_cache import PrefixCache, prefix_block_keys
-from llm_np_cp_tpu_torch.serve.scheduler import QueueFull, Request, RequestState, Scheduler
+from llm_np_cp_tpu_torch.serve.scheduler import (
+    QueueFull,
+    Request,
+    RequestState,
+    Scheduler,
+    TenantThrottled,
+)
 from llm_np_cp_tpu_torch.serve.spec import DraftState
 from llm_np_cp_tpu_torch.serve.trace import poisson_trace, replay_arrivals
 
@@ -50,6 +66,7 @@ __all__ = [
     "Scheduler",
     "ServeEngine",
     "ServeMetrics",
+    "TenantThrottled",
     "poisson_trace",
     "pool_geometry",
     "prefix_block_keys",

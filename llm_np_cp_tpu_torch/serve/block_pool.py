@@ -217,22 +217,27 @@ class BlockPool:
         """Point-in-time accounting for tests and reports: raw free-list
         state plus the prefix-cache split (``cache_only`` blocks are held
         solely by the cache's own reference and are reclaimable on
-        demand), ``request_held = allocated - cache_only``, and
-        ``kv_bytes_total``, the bytes of every page."""
+        demand), ``request_held = allocated - cache_only``, and the JAX
+        pool's ``shard_stats``: ``kv_bytes_total``, the bytes of every
+        page, ``kv_bytes_shard``, what one device holds, and ``kv_shards``,
+        the shards the slabs split into.  The port's pool lives on one
+        card, so the shard is the whole slab and there is one (the
+        ``/metrics`` scrape reads both)."""
         allocated = self.free_list.num_allocated
         cache_only = (
             self.prefix_cache.n_reclaimable
             if self.prefix_cache is not None else 0
         )
+        total = int(sum(a.numel() * a.element_size() for a in self.pages if a is not None))
         return {
             "capacity": self.capacity,
             "free": self.free_list.num_free,
             "allocated": allocated,
             "cache_only": cache_only,
             "request_held": allocated - cache_only,
-            "kv_bytes_total": int(sum(
-                a.numel() * a.element_size() for a in self.pages if a is not None
-            )),
+            "kv_bytes_total": total,
+            "kv_bytes_shard": total,
+            "kv_shards": 1,
         }
 
     def alloc(self, n: int) -> list[int] | None:

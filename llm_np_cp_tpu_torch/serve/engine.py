@@ -152,6 +152,50 @@ def _ceil_to(n: int, g: int) -> int:
     return -(-n // g) * g
 
 
+def _floor_sum(n: int, m: int, a: int, b: int) -> int:
+    """``sum((a * i + b) // m for i in range(n))`` for non-negative a, b
+    in O(log m) steps (the Euclid-like floor sum)."""
+    total = 0
+    while True:
+        if a >= m:
+            total += n * (n - 1) // 2 * (a // m)
+            a %= m
+        if b >= m:
+            total += n * (b // m)
+            b %= m
+        y_max = a * n + b
+        if y_max < m:
+            return total
+        n, b = divmod(y_max, m)
+        m, a = a, m
+
+
+def _segment_kv_slots(pad: int, start: int, n: int, *, block_size: int, q_tile: int,
+                      window: int | None, n_layers: int, n_sliding: int) -> int:
+    """Cache slots (summed over layers) the ragged kernel reads for one
+    row's segment of ``n`` query tokens from position ``start``: each
+    q tile reads the blocks from its row's first (``pad``) through the
+    one holding its last query, a sliding layer only those from its
+    window's first.  The per-tile sum in closed form, so a tick's gauge
+    costs O(rows), not O(tiles)."""
+    bs, qb = block_size, q_tile
+    m = -(-n // qb)
+    # sum over tiles of (last query // bs): the tiles before the last
+    # end at start + (k + 1) * qb - 1, the last at start + n - 1
+    last_blocks = _floor_sum(m - 1, bs, qb, start + qb - 1) + (start + n - 1) // bs
+    full = last_blocks - m * (pad // bs) + m
+    windowed = 0
+    if n_sliding:
+        # tile k's window starts at max(pad, start + k * qb - window + 1):
+        # at pad for the first k0 tiles, then on an arithmetic run
+        k0 = min(m, max(0, (pad + window - 1 - start) // qb + 1))
+        first_blocks = k0 * (pad // bs)
+        if m > k0:
+            first_blocks += _floor_sum(m - k0, bs, qb, start - window + 1 + k0 * qb)
+        windowed = last_blocks - first_blocks + m
+    return ((n_layers - n_sliding) * full + n_sliding * windowed) * bs
+
+
 def _stop_hits(samples: torch.Tensor, stops: torch.Tensor | None) -> torch.Tensor:
     """[.., W] bool — which sampled tokens are stop tokens (``stops``: the
     engine's stop ids on its device, or None)."""
@@ -411,6 +455,14 @@ class ServeEngine:
         self._block_nbytes = int(sum(
             a.numel() * a.element_size() // a.shape[1]
             for a in self.pool.pages if a is not None))
+        # the kv_bytes_tick gauge's constants: K+V bytes one cache slot
+        # costs per layer (an int8 pool streams its float32 scale pages
+        # beside the quantized blocks), and the layers that read only
+        # their sliding window
+        n_layers = config.num_hidden_layers
+        self._kv_slot_bytes = self._block_nbytes // (block_size * n_layers)
+        self._kv_n_sliding = 0 if config.sliding_window is None else sum(
+            config.layer_is_sliding(i) for i in range(n_layers))
         # bytes spilled and restored this tick (the per-tick gauge refresh)
         self._tier_spill_bytes = 0
         self._tier_restore_bytes = 0
@@ -430,6 +482,14 @@ class ServeEngine:
             self.metrics.on_tier_gauge(
                 resident_bytes=host_tier.resident_bytes,
                 breakeven=host_tier.breakeven_ratio(self.block_size))
+        # what the HTTP server reads of the JAX engine's later layers, at
+        # the values that engine holds with them off: the weight version
+        # a rolling upgrade bumps, the runtime degradation to an XLA
+        # fallback (none here: a kernel launches or raises), the tracer,
+        # lifecycle actions, fault injector, journal and tenant ledger
+        self.weights_version = 0
+        self.decode_degraded: str | None = None
+        self.tracer = self.actions = self.faults = self.journal = self.tenants = None
         self._next_id = 0
         self._detok: dict[int, IncrementalDetok] = {}
         # live (queued or running) requests by id — the abort/deadline index
@@ -472,6 +532,10 @@ class ServeEngine:
 
         if self.mixed:
             self._q_tile = _da.RAGGED_Q_TILE
+            self._kv_geom = dict(block_size=block_size, q_tile=self._q_tile,
+                                 window=config.sliding_window,
+                                 n_layers=config.num_hidden_layers,
+                                 n_sliding=self._kv_n_sliding)
             # sample columns per row: a verify slice samples its input
             # token and every draft; plain rows use column 0
             self._spec_w = spec_k + 1
@@ -1012,10 +1076,15 @@ class ServeEngine:
         on_event: Callable[[Request, str], None] | None = None,
         deadline_s: float | None = None,
         arrival_time: float | None = None,
+        trace_id: str | None = None,
         speculative: bool = False,
+        tenant: str = "default",
     ) -> Request:
         """Queue a request.  ``speculative=True`` opts it into draft-then-
-        verify (inert on an engine built without ``spec_k``)."""
+        verify (inert on an engine built without ``spec_k``).  ``trace_id``
+        (the W3C trace id the HTTP server parsed or generated) is kept in
+        ``req.extra["trace"]``; ``tenant`` is recorded on the request only,
+        as the JAX engine records it with no tenant ledger attached."""
         prompt = np.asarray(prompt_ids, dtype=np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")
@@ -1053,10 +1122,14 @@ class ServeEngine:
             on_event=on_event,
             arrival_time=arrival_time if arrival_time is not None else 0.0,
             speculative=bool(speculative),
+            tenant=tenant,
         )
         req.submit_time = self.clock()
         if deadline_s is not None:
             req.deadline = req.submit_time + deadline_s
+        if trace_id is not None:
+            req.extra["trace"] = trace_id
+        req.extra["weights_version"] = self.weights_version
         try:
             self.scheduler.add(req)
         except QueueFull:
@@ -1274,6 +1347,7 @@ class ServeEngine:
             occupancy=self.pool.occupancy,
             active_slots=len(running),
             preemptions_total=self.scheduler.n_preemptions,
+            kv_bytes=self._kv_bytes_tick(running) if running else 0,
         )
         return self.scheduler.has_work
 
@@ -1508,15 +1582,54 @@ class ServeEngine:
                     self._maybe_finish(r)
 
         self._tier_tick_end()
+        active = n_decode_tok + len(prefill_segs)
         self.metrics.on_tick(
             queue_depth=self.scheduler.queue_depth,
             occupancy=self.pool.occupancy,
-            active_slots=n_decode_tok + len(prefill_segs),
+            active_slots=active,
             preemptions_total=self.scheduler.n_preemptions,
+            kv_bytes=self._kv_bytes_tick_mixed(decode_rows, prefill_segs) if active else 0,
             prefill_tokens=n_prefill_tok,
             decode_tokens=n_decode_tok,
         )
         return self.scheduler.has_work
+
+    # ------------------------------------------------------------------
+    # K/V bytes a tick's attention reads (the metrics' kv_bytes_tick; the
+    # JAX engine's arithmetic, serve/telemetry.py's tick totals)
+    # ------------------------------------------------------------------
+    def _kv_bytes_tick_mixed(self, decode_rows: list[Request],
+                             prefill_segs: list[tuple[Request, int]]) -> int:
+        """K/V bytes one unified tick's ragged kernel reads: each q tile's
+        visible blocks, window-aware per layer.  Called after the tick's
+        accept walk and prefill bookkeeping, as the JAX engine calls it
+        (draft_len is 0 and prefill_done already counts this tick's
+        slice), so the gauge equals that engine's."""
+        geom = self._kv_geom
+        total = sum(_segment_kv_slots(r.pad, r.cache_len - 1, 1 + r.draft_len, **geom)
+                    for r in decode_rows)
+        total += sum(_segment_kv_slots(r.pad, r.pad + r.prefill_done, n, **geom)
+                     for r, n in prefill_segs)
+        return total * self._kv_slot_bytes
+
+    def _kv_bytes_tick(self, running: list[Request]) -> int:
+        """K/V bytes one phase-split decode step reads: the gathered
+        [B, S_max] view of every slot for the gathering impls, each row's
+        visible blocks (window-aware) for the paged kernel."""
+        n_layers, per_slot = self.config.num_hidden_layers, self._kv_slot_bytes
+        if self.decode_attn_impl != "paged":
+            return self.scheduler.max_slots * self.max_seq_len * n_layers * per_slot
+        n_sliding = self._kv_n_sliding
+        win, bs = self.config.sliding_window, self.block_size
+        total = 0
+        for r in running:
+            nb_hi = -(-r.cache_len // bs)
+            slot_layers = (n_layers - n_sliding) * (nb_hi - r.pad // bs) * bs
+            if n_sliding:
+                pad_eff = max(r.pad, r.cache_len - win)
+                slot_layers += n_sliding * (nb_hi - pad_eff // bs) * bs
+            total += slot_layers * per_slot
+        return total
 
     # ------------------------------------------------------------------
     def compile_counts(self) -> dict[str, int]:

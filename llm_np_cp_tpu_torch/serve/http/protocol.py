@@ -1,0 +1,295 @@
+"""OpenAI-compatible completions protocol: parse, validate, render (port
+of ``llm_np_cp_tpu/serve/http/protocol.py``: the same statuses, error
+types and messages).
+
+Pure functions over bytes/dicts — no sockets, no engine — so every
+status-code branch (400 malformed JSON, 404 unknown model, 413 oversized
+body) is unit-testable without a running server.
+
+Scope: ``POST /v1/completions`` with a single prompt.  ``prompt`` is a
+string (tokenized with the server's tokenizer) or a list of token ids
+(the tokenizer-free path tests and the bench loadgen use).  Sampling is
+engine-level (one compiled sampler for the whole packed batch), so
+per-request ``temperature``/``top_p`` are accepted but ignored — the
+response echoes the engine's behavior, it does not silently vary it.
+Streaming chunks carry a ``token_id`` extension field per token (the
+final chunk has only the held-back text tail + ``finish_reason``);
+non-streaming responses carry the full ``token_ids`` list — either way
+tokenizer-less clients (and the parity tests) consume exact ids, not
+just text.
+
+``finish_reason`` uses the engine's uniform vocabulary: ``stop``,
+``length``, and ``aborted`` (client disconnect or deadline — the
+non-OpenAI extension this server's abort path needs a name for).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from typing import Any
+
+import numpy as np
+
+from llm_np_cp_tpu_torch.serve.tenants import normalize_tenant
+
+
+class HTTPError(Exception):
+    """Maps straight to an HTTP error response."""
+
+    def __init__(
+        self, status: int, message: str, *,
+        etype: str = "invalid_request_error", code: str | None = None,
+        headers: tuple[tuple[str, str], ...] = (),
+    ) -> None:
+        super().__init__(message)
+        self.status = status
+        self.message = message
+        self.etype = etype
+        self.code = code
+        self.headers = headers
+
+
+def error_body(message: str, etype: str = "invalid_request_error",
+               code: str | None = None) -> bytes:
+    return json.dumps(
+        {"error": {"message": message, "type": etype, "code": code}}
+    ).encode()
+
+
+@dataclasses.dataclass
+class CompletionPayload:
+    """A validated /v1/completions request, ready for the engine."""
+
+    prompt_ids: np.ndarray  # [P] int32
+    max_tokens: int
+    stream: bool
+    seed: int
+    echo_model: str  # what the response's "model" field echoes
+    timeout_s: float | None  # per-request deadline (caps the server's)
+    # per-request speculative-decoding opt-in (extension field): the
+    # engine drafts-then-verifies this stream when built with spec_k > 0;
+    # ignored (plain decode, identical tokens) otherwise
+    speculative: bool = False
+    # normalized tenant id (serve/tenants.normalize_tenant): the
+    # `X-Tenant-Id` header, overridden by a `"tenant"` body field;
+    # absent → "default"
+    tenant: str = "default"
+    # -- observability plumbing (filled AFTER parse, not client fields):
+    # the W3C trace id (from the request's `traceparent` header, or
+    # generated by the server)
+    trace_id: str | None = None
+
+
+def parse_completion_request(
+    body: bytes,
+    *,
+    model_id: str,
+    tokenizer: Any = None,
+    default_max_tokens: int = 16,
+    max_tokens_cap: int | None = None,
+    header_tenant: str | None = None,
+) -> CompletionPayload:
+    """Validate a raw request body → payload, raising ``HTTPError`` with
+    the right status for every malformed shape.  Capacity limits are NOT
+    checked here — the engine owns those (its ValueError comes back to
+    the client as a 400 through the runner's error event)."""
+    try:
+        obj = json.loads(body)
+    except (json.JSONDecodeError, UnicodeDecodeError) as e:
+        raise HTTPError(400, f"invalid JSON body: {e}") from e
+    if not isinstance(obj, dict):
+        raise HTTPError(400, "request body must be a JSON object")
+
+    model = obj.get("model", model_id)
+    if not isinstance(model, str) or model != model_id:
+        raise HTTPError(
+            404, f"model {model!r} not found; this server serves "
+            f"{model_id!r}", code="model_not_found",
+        )
+
+    prompt = obj.get("prompt")
+    if isinstance(prompt, str) and prompt:
+        if tokenizer is None:
+            raise HTTPError(
+                400, "this server has no tokenizer loaded; pass 'prompt' "
+                "as a list of token ids",
+            )
+        ids = tokenizer(prompt, return_tensors="np")["input_ids"][0]
+        prompt_ids = np.asarray(ids, dtype=np.int32).reshape(-1)
+    elif isinstance(prompt, list) and prompt and all(
+        isinstance(t, int) and not isinstance(t, bool) for t in prompt
+    ):
+        prompt_ids = np.asarray(prompt, dtype=np.int32)
+    else:
+        raise HTTPError(
+            400, "'prompt' must be a non-empty string or a non-empty "
+            "list of token ids",
+        )
+
+    max_tokens = obj.get("max_tokens", default_max_tokens)
+    if not isinstance(max_tokens, int) or isinstance(max_tokens, bool) \
+            or max_tokens < 1:
+        raise HTTPError(400, f"'max_tokens' must be an int >= 1, got "
+                             f"{max_tokens!r}")
+    if max_tokens_cap is not None and max_tokens > max_tokens_cap:
+        # the operator's per-request decode budget (max_tokens_cap) is
+        # a hard cap, not just the pool-sizing input — reject rather
+        # than silently clamp so clients learn the server's limit
+        raise HTTPError(
+            400, f"'max_tokens' {max_tokens} exceeds this server's "
+            f"per-request cap {max_tokens_cap}",
+        )
+    stream = obj.get("stream", False)
+    if not isinstance(stream, bool):
+        raise HTTPError(400, "'stream' must be a boolean")
+    seed = obj.get("seed", 0)
+    if not isinstance(seed, int) or isinstance(seed, bool):
+        raise HTTPError(400, "'seed' must be an int")
+    timeout_s = obj.get("timeout_s")
+    if timeout_s is not None and (
+        not isinstance(timeout_s, (int, float)) or isinstance(timeout_s, bool)
+        or timeout_s <= 0
+    ):
+        raise HTTPError(400, "'timeout_s' must be a number > 0")
+    n = obj.get("n", 1)
+    if n != 1:
+        raise HTTPError(400, "'n' != 1 is not supported")
+    speculative = obj.get("speculative", False)
+    if not isinstance(speculative, bool):
+        raise HTTPError(400, "'speculative' must be a boolean")
+    # tenant identity: the X-Tenant-Id header names the tenant, a
+    # "tenant" body field overrides it (the body is the request of
+    # record); both funnel through the ONE normalizer so a hostile id
+    # can never reach a Prometheus label or a log line un-vetted
+    try:
+        tenant = normalize_tenant(
+            obj["tenant"] if "tenant" in obj else header_tenant
+        )
+    except ValueError as e:
+        raise HTTPError(400, str(e)) from e
+    return CompletionPayload(
+        prompt_ids=prompt_ids,
+        max_tokens=max_tokens,
+        stream=stream,
+        seed=seed,
+        echo_model=model,
+        timeout_s=float(timeout_s) if timeout_s is not None else None,
+        speculative=speculative,
+        tenant=tenant,
+    )
+
+
+def parse_completion_rid(raw: Any) -> int:
+    """``"cmpl-123"`` (what responses echo) or a bare int → 123."""
+    if isinstance(raw, int) and not isinstance(raw, bool) and raw >= 0:
+        return raw
+    if isinstance(raw, str) and raw.startswith("cmpl-"):
+        tail = raw[len("cmpl-"):]
+        if tail.isdigit():
+            return int(tail)
+    raise HTTPError(
+        400, f"'request_id' must be a completion id like 'cmpl-7' "
+        f"(or its bare integer), got {raw!r}")
+
+
+def parse_last_event_id(raw: Any) -> int:
+    """``Last-Event-ID`` header / ``last_event_id`` field → delivered-
+    token count (0 = replay from the start)."""
+    if raw is None:
+        return 0
+    try:
+        n = int(raw)
+    except (TypeError, ValueError):
+        n = -1
+    if n < 0 or isinstance(raw, bool):
+        raise HTTPError(
+            400, f"Last-Event-ID must be a delivered-token count >= 0, "
+            f"got {raw!r}")
+    return n
+
+
+def parse_resume_request(
+    body: bytes, headers: dict[str, str], *, model_id: str,
+) -> tuple[int, int, str] | None:
+    """Stream-resume detection for ``POST /v1/completions``: a body
+    naming a ``request_id`` is a resume of that dropped SSE stream →
+    ``(rid, last delivered-token index, echo model)``; None means a
+    fresh completion (the normal parser takes over).  The resume index
+    comes from the ``Last-Event-ID`` header (the SSE reconnect
+    convention — event ids on token frames are delivered-token indices)
+    or a ``last_event_id`` body field."""
+    try:
+        obj = json.loads(body)
+    except (json.JSONDecodeError, UnicodeDecodeError):
+        return None  # let the normal parser raise its 400
+    if not isinstance(obj, dict) or "request_id" not in obj:
+        return None
+    rid = parse_completion_rid(obj["request_id"])
+    model = obj.get("model", model_id)
+    if not isinstance(model, str) or model != model_id:
+        raise HTTPError(
+            404, f"model {model!r} not found; this server serves "
+            f"{model_id!r}", code="model_not_found",
+        )
+    if obj.get("stream", True) is not True:
+        raise HTTPError(400, "resume replays an SSE stream; "
+                             "'stream' must be true")
+    raw = headers.get("last-event-id")
+    if raw is None:
+        raw = obj.get("last_event_id")
+    return rid, parse_last_event_id(raw), model
+
+
+# ----------------------------------------------------------------------
+# Response payloads
+# ----------------------------------------------------------------------
+def completion_id(rid: int) -> str:
+    return f"cmpl-{rid}"
+
+
+def chunk_payload(
+    rid: int, model: str, created: int, *,
+    text: str, token_id: int | None, finish_reason: str | None,
+) -> dict[str, Any]:
+    """One streaming SSE chunk (OpenAI text_completion shape plus the
+    ``token_id`` extension)."""
+    choice: dict[str, Any] = {
+        "index": 0,
+        "text": text,
+        "finish_reason": finish_reason,
+    }
+    if token_id is not None:
+        choice["token_id"] = token_id
+    return {
+        "id": completion_id(rid),
+        "object": "text_completion",
+        "created": created,
+        "model": model,
+        "choices": [choice],
+    }
+
+
+def completion_payload(
+    rid: int, model: str, created: int, *,
+    text: str, token_ids: list[int], finish_reason: str,
+    prompt_tokens: int,
+) -> dict[str, Any]:
+    """The non-streaming response object (plus ``token_ids``)."""
+    return {
+        "id": completion_id(rid),
+        "object": "text_completion",
+        "created": created,
+        "model": model,
+        "choices": [{
+            "index": 0,
+            "text": text,
+            "token_ids": token_ids,
+            "finish_reason": finish_reason,
+        }],
+        "usage": {
+            "prompt_tokens": prompt_tokens,
+            "completion_tokens": len(token_ids),
+            "total_tokens": prompt_tokens + len(token_ids),
+        },
+    }

@@ -1,0 +1,1025 @@
+"""Dependency-free asyncio HTTP front end over ``ServeEngine`` (port of
+``llm_np_cp_tpu/serve/http/server.py``).
+
+Two threads, one contract:
+
+- The **engine thread** (``EngineRunner``) owns the ``ServeEngine``
+  exclusively: every engine entry point (submit/abort/step) runs there,
+  so the engine needs no locks, and every CUDA call of the server is
+  made there.  Handlers talk to it through a thread-safe command queue;
+  admission verdicts (queue full → 429, capacity ValueError → 400) are
+  made on the engine thread, where the scheduler's state is consistent,
+  and come back as the first event on the request's bridge queue.  The
+  thread runs on the engine's device and on the CUDA stream (and grad
+  mode) that the runner's constructor found current, so the graphs that
+  ``warmup`` captured on the caller's thread replay from it.
+- The **event loop** (``HttpServer``) speaks HTTP/1.1 over stdlib
+  ``asyncio`` streams and touches no tensor: the protocol hands numpy
+  prompts to the runner, and the events that cross back (through
+  ``loop.call_soon_threadsafe`` onto per-request ``asyncio.Queue``s) are
+  ints and strings.
+
+Endpoints:
+
+- ``POST /v1/completions`` — OpenAI-compatible JSON; ``"stream": true``
+  streams SSE chunks fed from the engine's per-request callbacks.  A
+  client that disconnects mid-stream aborts its request (its blocks go
+  back to the pool); ``timeout_s`` (or the server-wide
+  ``request_timeout``) becomes an engine deadline with the same abort.
+  A body naming a ``request_id`` resumes that stream.
+- ``GET /v1/completions/<id>`` with ``Last-Event-ID`` — stream resume:
+  the delivered-token suffix from the in-flight ledger (or, for a
+  finished stream, from the bounded LRUs of finished output), then live.
+- ``GET /healthz`` — ``ok`` / ``draining`` / ``crashed``.
+- ``GET /metrics`` — Prometheus text from ``ServeMetrics`` plus the
+  live pool/stream gauges of the JAX server.
+
+Shutdown (``begin_drain``, SIGTERM/SIGINT when the server runs on the
+main thread): new completions get 503, in-flight streams finish up to
+``drain_timeout``, stragglers are aborted, then the socket closes.
+
+With supervision off, a dead tick thread ends every stream cleanly
+(``aborted``), ``/healthz`` turns 503 ``crashed`` and new work gets 503;
+a tick that hangs past ``tick_deadline`` is such a death.  What the JAX
+server has beyond this slice raises ``NotImplementedError`` naming its
+layer: supervised restarts (``max_restarts > 0``, which need the
+engine's ``clone_fresh`` and ``recover``), a ``ReplicaRunner`` fleet
+(``runner=``), rolling upgrades (``upgrade_loader=``), and an engine
+with a journal or a tracer.  ``/debug/slo``, ``/debug/tenants``,
+``/debug/trace``, ``/admin/upgrade`` and ``/admin/scale`` answer as the
+JAX server does with those layers off.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import contextlib
+import itertools
+import json
+import queue as queue_mod
+import signal
+import threading
+import time
+import traceback
+from typing import Any
+
+import torch
+
+from llm_np_cp_tpu_torch.serve.http.protocol import (
+    HTTPError,
+    chunk_payload,
+    completion_payload,
+    error_body,
+    parse_completion_request,
+    parse_completion_rid,
+    parse_last_event_id,
+    parse_resume_request,
+)
+from llm_np_cp_tpu_torch.serve.http.sse import DONE_SENTINEL, sse_event
+from llm_np_cp_tpu_torch.serve.scheduler import QueueFull, TenantThrottled
+from llm_np_cp_tpu_torch.serve.tracing import gen_trace_id, make_traceparent, parse_traceparent
+
+TERMINAL_EVENTS = ("stop", "length", "aborted")
+
+
+class _ResumeEcho:
+    """The one payload field ``_stream_response`` reads, for resumed
+    streams (which carry no CompletionPayload)."""
+
+    def __init__(self, echo_model: str) -> None:
+        self.echo_model = echo_model
+
+
+_REASONS = {
+    200: "OK", 400: "Bad Request", 404: "Not Found",
+    405: "Method Not Allowed", 408: "Request Timeout",
+    409: "Conflict", 413: "Payload Too Large",
+    429: "Too Many Requests",
+    500: "Internal Server Error", 503: "Service Unavailable",
+}
+MAX_BODY_BYTES = 8 << 20
+
+
+def _not_ported(what: str, layer: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to PyTorch yet: it is the {layer} slice")
+
+
+class EngineRunner:
+    """Runs the engine's tick loop on a worker thread and bridges it to
+    asyncio handlers.
+
+    Commands (submit/attach/abort) are drained at the top of every loop
+    pass, then one ``engine.step()`` runs if there is work; when idle the
+    loop blocks on the command queue (no spin).  Events flow back per
+    request: ``("accepted",)`` / ``("rejected", retry_after[, msg])`` /
+    ``("error", msg)`` on the admission verdict, ``("token", id, delta)``
+    per generated token, ``("finish", reason, final_text_delta)``
+    terminally.
+
+    A tick that raises, or one the watchdog finds hung (no heartbeat
+    within ``tick_deadline``), is a terminal crash: the generation
+    counter moves on (a hung thread that wakes finds itself superseded
+    and its callbacks mute), every stream gets ``aborted``, and
+    ``crashed`` holds the reason.  Nothing catches a tick failure and
+    carries on.
+    """
+
+    def __init__(self, engine: Any, *, request_timeout: float | None = None,
+                 idle_poll_s: float = 0.02,
+                 metrics_max_samples: int = 100_000,
+                 tick_deadline: float | None = None,
+                 max_restarts: int = 0) -> None:
+        if max_restarts > 0:
+            raise _not_ported(
+                "EngineRunner(max_restarts > 0), a supervised restart that rebuilds the "
+                "engine (ServeEngine.clone_fresh) and replays its streams (recover),",
+                "faults-and-recovery")
+        if getattr(engine, "journal", None) is not None:
+            raise _not_ported("serving an engine with a request journal", "journal")
+        if getattr(engine, "tracer", None) is not None:
+            raise _not_ported("serving an engine with a tracer", "tracing")
+        self.engine = engine
+        self.request_timeout = request_timeout
+        self.idle_poll_s = idle_poll_s
+        self.tick_deadline = tick_deadline
+        # a server runs for weeks: bound the metrics sample lists
+        # (counters stay exact; percentiles become a recent window) and
+        # drop the scheduler's terminal ledgers after every tick
+        engine.metrics.max_samples = metrics_max_samples
+        # the torch state the tick thread runs under, which is per
+        # thread: the engine's device, the stream current here (where
+        # warmup captured the step graphs) and grad mode
+        self._device = getattr(engine, "device", torch.device("cpu"))
+        self._stream = (torch.cuda.current_stream(self._device)
+                        if self._device.type == "cuda" else None)
+        self._grad = torch.is_grad_enabled()
+        self._cmds: queue_mod.Queue = queue_mod.Queue()
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+        self._watchdog: threading.Thread | None = None
+        # rid → (loop, asyncio.Queue); each rid is registered once
+        # (submit/attach) and removed once (engine thread, on the
+        # terminal event or reject)
+        self._live: dict[int, tuple[asyncio.AbstractEventLoop, asyncio.Queue]] = {}
+        # set when the tick thread dies: the server turns /healthz
+        # unhealthy and rejects new work instead of wedging every stream
+        self.crashed: str | None = None
+        # guards the generation check against the engine calls and the
+        # crash flush; reentrant, since an abort's terminal event
+        # re-enters it through the bridge callbacks
+        self._sup_lock = threading.RLock()
+        self._gen = 0  # a terminal crash moves it on: the old thread mutes
+        self._beat = time.monotonic()
+        # rid → {trace, tokens and text deltas delivered so far}: what a
+        # Last-Event-ID resume replays
+        self._inflight: dict[int, dict] = {}
+        # terminal output of streams that finished while no client was
+        # attached (the client's loop went away), kept so a late resume
+        # gets its suffix + finish; bounded LRU
+        self._resumable: dict[int, dict] = {}
+        # delivered terminals, re-readable for a while: a client whose
+        # final read tore on the wire can replay the stream; bounded LRU
+        self._claimed: dict[int, dict] = {}
+        # Last-Event-ID attaches served (the JAX server's scrape names
+        # it journal_resumed_total, journal or not)
+        self.journal_resumed = 0
+        self._rid = itertools.count(getattr(engine, "_next_id", 0))
+
+    # -- stream resume --------------------------------------------------
+    @staticmethod
+    def _fin_record(rec: dict, reason: str, tail: str | None) -> dict:
+        """The one parked/claimed terminal record shape (the resume wire
+        format)."""
+        return {
+            "tokens": list(rec["tokens"]),
+            "deltas": list(rec["deltas"]),
+            "reason": reason,
+            "tail": tail,
+            # a late resume's response carries the original trace context
+            "trace": rec.get("trace"),
+        }
+
+    def _stash_resumable(self, rid: int, rec: dict, reason: str, tail: str | None) -> None:
+        """Park a detached stream's terminal output (bounded LRU)."""
+        self._resumable[rid] = self._fin_record(rec, reason, tail)
+        while len(self._resumable) > 512:
+            self._resumable.pop(next(iter(self._resumable)))
+
+    def resume(self, rid: int, last_idx: int,
+               loop: asyncio.AbstractEventLoop, aq: asyncio.Queue) -> None:
+        """Re-attach a dropped SSE stream: replay delivered tokens from
+        index ``last_idx`` (the client's Last-Event-ID), then continue
+        live.  The attach runs on the engine thread, between ticks, so
+        the replayed suffix and the live continuation cannot race."""
+        self._cmds.put(("attach", rid, last_idx, loop, aq))
+        if self.crashed:
+            # nobody will process the command (a duplicate verdict is
+            # harmless: the handler stops at the first)
+            aq.put_nowait(("gone", f"engine tick thread crashed: {self.crashed}"))
+
+    # -- event-loop side ----------------------------------------------
+    def start(self) -> None:
+        self._thread = threading.Thread(target=self._run, args=(self._gen,),
+                                        name="serve-engine-tick", daemon=True)
+        self._thread.start()
+        if self.tick_deadline is not None:
+            self._watchdog = threading.Thread(target=self._watch, name="serve-engine-watchdog",
+                                              daemon=True)
+            self._watchdog.start()
+
+    def stop(self, timeout: float = 10.0) -> None:
+        self._stop.set()
+        self._cmds.put(("wake",))
+        if self._thread is not None:
+            self._thread.join(timeout=timeout)
+        if self._watchdog is not None:
+            self._watchdog.join(timeout=1.0)
+
+    @property
+    def inflight(self) -> int:
+        """Live bridged requests (accepted, not yet terminal)."""
+        return len(self._live)
+
+    @property
+    def state(self) -> str:
+        """``ok`` | ``crashed``."""
+        return "crashed" if self.crashed else "ok"
+
+    def next_rid(self) -> int:
+        return next(self._rid)
+
+    def submit(self, rid: int, payload: Any,
+               loop: asyncio.AbstractEventLoop, aq: asyncio.Queue) -> None:
+        self._live[rid] = (loop, aq)
+        self._cmds.put(("submit", rid, payload))
+        # crash race: if the tick thread died between the handler's
+        # pre-check and this registration, its flush may have run
+        # already — nobody will answer the command, so answer it here
+        if self.crashed and self._live.pop(rid, None) is not None:
+            aq.put_nowait(("error", f"engine tick thread crashed: {self.crashed}"))
+
+    def abort(self, rid: int) -> None:
+        self._cmds.put(("abort", rid))
+
+    def abort_all(self) -> None:
+        self._cmds.put(("abort_all",))
+
+    # -- engine-thread side -------------------------------------------
+    def _push(self, rid: int, item: tuple) -> None:
+        ent = self._live.get(rid)
+        if ent is None:
+            return
+        loop, aq = ent
+        try:
+            loop.call_soon_threadsafe(aq.put_nowait, item)
+        except RuntimeError:
+            # loop already closed (shutdown race): nobody is reading
+            self._live.pop(rid, None)
+
+    def _bridge(self, gen: int) -> tuple:
+        """Per-request engine callbacks for generation ``gen``: a thread
+        superseded by a crash (a hung tick that wakes) is mute."""
+
+        def cb(req: Any, tok: int, delta: str | None) -> None:
+            with self._sup_lock:
+                if gen != self._gen:
+                    return
+                rec = self._inflight.get(req.req_id)
+                if rec is not None:
+                    rec["tokens"].append(int(tok))
+                    rec["deltas"].append(delta)
+            self._push(req.req_id, ("token", int(tok), delta))
+
+        def on_event(req: Any, event: str) -> None:
+            if event not in TERMINAL_EVENTS:
+                return
+            with self._sup_lock:
+                if gen != self._gen:
+                    return
+                rec = self._inflight.pop(req.req_id, None)
+            tail = req.extra.pop("final_text_delta", None)
+            if req.req_id not in self._live:
+                # detached terminal: park the output for a late resume
+                if rec is not None:
+                    self._stash_resumable(req.req_id, rec, event, tail)
+                return
+            self._push(req.req_id, ("finish", event, tail))
+            self._live.pop(req.req_id, None)
+            if rec is not None:
+                self._claim_insert(req.req_id, self._fin_record(rec, event, tail))
+
+        return cb, on_event
+
+    def _claim_insert(self, rid: int, fin: dict) -> None:
+        """Park a terminal's full output in the claimed LRU (bounded, most
+        recent last)."""
+        self._claimed.pop(rid, None)
+        self._claimed[rid] = fin
+        while len(self._claimed) > 64:
+            self._claimed.pop(next(iter(self._claimed)))
+
+    def _exec(self, cmd: tuple, gen: int) -> bool:
+        """Execute one command for generation ``gen``; False when the
+        thread was superseded (the command is dropped with it: a crashed
+        runner answers nothing more)."""
+        with self._sup_lock:
+            if gen != self._gen:
+                return False
+            self._exec_inner(cmd, gen)
+        return True
+
+    def _exec_inner(self, cmd: tuple, gen: int) -> None:
+        kind = cmd[0]
+        if kind == "submit":
+            _, rid, payload = cmd
+            deadline = payload.timeout_s
+            if self.request_timeout is not None:
+                deadline = min(deadline or self.request_timeout, self.request_timeout)
+            cb, on_event = self._bridge(gen)
+            try:
+                req = self.engine.submit(
+                    payload.prompt_ids, payload.max_tokens,
+                    request_id=rid, seed=payload.seed, callback=cb,
+                    on_event=on_event, deadline_s=deadline,
+                    trace_id=payload.trace_id,
+                    speculative=payload.speculative,
+                    tenant=payload.tenant,
+                )
+            except TenantThrottled as e:
+                # the 429 + Retry-After of a full queue, naming the cap
+                self._push(rid, ("rejected", 1, str(e)))
+                self._live.pop(rid, None)
+            except QueueFull:
+                self._push(rid, ("rejected", 1))
+                self._live.pop(rid, None)
+            except ValueError as e:
+                self._push(rid, ("error", str(e)))
+                self._live.pop(rid, None)
+            else:
+                self._inflight[rid] = {
+                    "trace": req.extra.get("trace"),
+                    "tokens": [],
+                    # parallel text deltas: a resume replays the exact
+                    # text the stream carried
+                    "deltas": [],
+                }
+                self._push(rid, ("accepted",))
+        elif kind == "attach":
+            self._exec_attach(cmd)
+        elif kind == "abort":
+            self.engine.abort(cmd[1])
+        elif kind == "abort_all":
+            for rid in list(self._live):
+                self.engine.abort(rid)
+
+    def _exec_attach(self, cmd: tuple) -> None:
+        """Attach a resuming client to a live or finished stream.  Event
+        ids are delivered-token indices: the client's Last-Event-ID is
+        the count it has, so the replay starts there."""
+        _, rid, last_idx, loop, aq = cmd
+        rec = self._inflight.get(rid)
+        fin = None
+        if rec is None:
+            fin = self._resumable.get(rid)
+            if fin is None:
+                fin = self._claimed.get(rid)
+        src = rec if rec is not None else fin
+        verdict = None
+        if src is not None and rid in self._live:
+            # a duplicate resume (or a guessed id) must not rebind the
+            # live bridge entry and strand the attached client
+            verdict = ("gone", f"request {rid} already has an attached stream")
+        elif src is None:
+            verdict = ("gone", f"unknown or expired request id {rid}")
+        elif last_idx > len(src["tokens"]):
+            if rec is not None:
+                verdict = ("busy",
+                           f"request {rid} has regenerated {len(src['tokens'])} of the "
+                           f"{last_idx} tokens the client holds; retry shortly")
+            else:
+                verdict = ("gone",
+                           f"Last-Event-ID {last_idx} is past the {len(src['tokens'])} "
+                           f"tokens delivered for request {rid}")
+        if verdict is not None:
+            with contextlib.suppress(RuntimeError):
+                loop.call_soon_threadsafe(aq.put_nowait, verdict)
+            return
+        self._live[rid] = (loop, aq)
+        self.journal_resumed += 1
+        # the verdict carries the original trace id: the resumed response
+        # emits the same traceparent the first one did
+        self._push(rid, ("accepted", src.get("trace")))
+        for tok, delta in zip(src["tokens"][last_idx:], src["deltas"][last_idx:]):
+            self._push(rid, ("token", tok, delta))
+        if fin is not None:
+            # finished while detached: suffix + finish; the claim moves
+            # it to the claimed LRU, re-readable until evicted
+            self._resumable.pop(rid, None)
+            self._claim_insert(rid, fin)
+            self._push(rid, ("finish", fin["reason"], fin["tail"]))
+            self._live.pop(rid, None)
+
+    # -- the tick thread -------------------------------------------------
+    def _torch_context(self) -> contextlib.ExitStack:
+        stack = contextlib.ExitStack()
+        stack.enter_context(torch.set_grad_enabled(self._grad))
+        if self._stream is not None:
+            stack.enter_context(torch.cuda.device(self._device))
+            stack.enter_context(torch.cuda.stream(self._stream))
+        return stack
+
+    def _run(self, gen: int) -> None:
+        try:
+            with self._torch_context():
+                self._loop(gen)
+        except BaseException as e:  # noqa: BLE001 — the thread's boundary
+            traceback.print_exc()
+            self._on_engine_death(f"{type(e).__name__}: {e}", gen)
+
+    def _loop(self, gen: int) -> None:
+        engine = self.engine
+        while not self._stop.is_set() and gen == self._gen:
+            try:
+                block = not engine.scheduler.has_work
+                cmd = self._cmds.get(block=block, timeout=self.idle_poll_s if block else None)
+            except queue_mod.Empty:
+                cmd = None
+            while cmd is not None:
+                if cmd[0] != "wake" and not self._exec(cmd, gen):
+                    return  # superseded
+                try:
+                    cmd = self._cmds.get_nowait()
+                except queue_mod.Empty:
+                    cmd = None
+            if self._stop.is_set() or gen != self._gen:
+                break
+            if engine.scheduler.has_work:
+                engine.step()
+                # terminal requests delivered their events through the
+                # bridge: dropping them keeps a long-running server flat
+                engine.scheduler.finished.clear()
+                engine.scheduler.aborted.clear()
+            # tick heartbeat: idle passes beat every idle_poll_s, so only
+            # a stuck tick starves it (a superseded thread must not
+            # freshen the heartbeat)
+            if gen == self._gen:
+                self._beat = time.monotonic()
+
+    def _on_engine_death(self, reason: str, gen: int) -> None:
+        """Crash or hang (from the dying thread or the watchdog): with
+        supervision off, the terminal backstop."""
+        with self._sup_lock:
+            if gen != self._gen:
+                return  # a superseded thread died late: already handled
+            self._terminal_crash(reason)
+
+    def _terminal_crash(self, reason: str) -> None:
+        """The backstop (caller holds ``_sup_lock``): every in-flight
+        stream gets a terminal event, /healthz turns unhealthy, and new
+        submits are refused.  The generation moves on, so a hung thread
+        that wakes stops instead of ticking for flushed streams."""
+        self.crashed = reason
+        self._gen += 1
+        for rid in list(self._live):
+            self._push(rid, ("finish", "aborted", None))
+            self._live.pop(rid, None)
+        self._inflight.clear()
+
+    def _watch(self) -> None:
+        """Watchdog: declare the engine hung when the tick heartbeat goes
+        stale past ``tick_deadline``."""
+        assert self.tick_deadline is not None
+        interval = max(self.tick_deadline / 4.0, 0.01)
+        while not self._stop.is_set() and not self.crashed:
+            time.sleep(interval)
+            with self._sup_lock:
+                gen, beat = self._gen, self._beat
+            stale = time.monotonic() - beat
+            if stale > self.tick_deadline:
+                self._on_engine_death(
+                    f"engine tick hung ({stale:.2f}s > tick-deadline {self.tick_deadline:g}s)",
+                    gen)
+
+
+class HttpServer:
+    """The asyncio front: routing, SSE streaming, drain shutdown."""
+
+    def __init__(
+        self,
+        engine: Any,
+        *,
+        model_id: str,
+        tokenizer: Any = None,
+        request_timeout: float | None = None,
+        drain_timeout: float = 30.0,
+        default_max_tokens: int = 16,
+        max_tokens_cap: int | None = None,
+        tick_deadline: float | None = None,
+        max_restarts: int = 0,
+        runner: Any = None,
+        upgrade_loader: Any = None,
+    ) -> None:
+        if runner is not None:
+            raise _not_ported("HttpServer(runner=...), a ReplicaRunner fleet,", "fleet")
+        if upgrade_loader is not None:
+            raise _not_ported("HttpServer(upgrade_loader=...), rolling weight upgrades,",
+                              "lifecycle")
+        self.engine = engine
+        self.model_id = model_id
+        self.tokenizer = tokenizer if tokenizer is not None \
+            else getattr(engine, "tokenizer", None)
+        self.drain_timeout = drain_timeout
+        self.default_max_tokens = default_max_tokens
+        self.max_tokens_cap = max_tokens_cap
+        self.runner = EngineRunner(
+            engine, request_timeout=request_timeout,
+            tick_deadline=tick_deadline, max_restarts=max_restarts,
+        )
+        self.draining = False
+        self.host: str | None = None
+        self.port: int | None = None
+        self._server: asyncio.AbstractServer | None = None
+        self._loop: asyncio.AbstractEventLoop | None = None
+        self._done: asyncio.Event | None = None
+        self._drain_task: asyncio.Task | None = None
+        self._conn_tasks: set[asyncio.Task] = set()
+        self._signals: list[int] = []
+
+    # ------------------------------------------------------------------
+    async def start(self, host: str = "127.0.0.1", port: int = 0) -> None:
+        self._loop = asyncio.get_running_loop()
+        self._done = asyncio.Event()
+        self.runner.start()
+        self._server = await asyncio.start_server(self._on_conn, host, port)
+        sock = self._server.sockets[0]
+        self.host, self.port = sock.getsockname()[:2]
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                self._loop.add_signal_handler(sig, self.begin_drain)
+                self._signals.append(sig)
+            except (NotImplementedError, RuntimeError, ValueError):
+                # not the main thread (a test or chip_smoke.py runs the
+                # server in a worker) or an embedded loop: drain stays
+                # reachable through begin_drain
+                break
+
+    def begin_drain(self) -> None:
+        """Idempotent shutdown trigger — the SIGTERM handler and the
+        test hook both land here."""
+        if self._drain_task is None and self._loop is not None:
+            self._drain_task = self._loop.create_task(self._drain())
+
+    async def _drain(self) -> None:
+        self.draining = True
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + self.drain_timeout
+        while self.runner.inflight and loop.time() < deadline:
+            await asyncio.sleep(0.02)
+        if self.runner.inflight:
+            self.runner.abort_all()
+            grace = loop.time() + 5.0
+            while self.runner.inflight and loop.time() < grace:
+                await asyncio.sleep(0.02)
+        # every stream got its terminal event; give the handlers a
+        # bounded window to flush their last bytes before the socket
+        # closes
+        flush_deadline = loop.time() + 5.0
+        while self._conn_tasks and loop.time() < flush_deadline:
+            await asyncio.sleep(0.02)
+        assert self._server is not None
+        self._server.close()
+        await self._server.wait_closed()
+        for sig in self._signals:
+            with contextlib.suppress(Exception):
+                self._loop.remove_signal_handler(sig)  # type: ignore[union-attr]
+        self.runner.stop()
+        assert self._done is not None
+        self._done.set()
+
+    async def serve_until_shutdown(self) -> None:
+        assert self._done is not None, "call start() first"
+        await self._done.wait()
+
+    # ------------------------------------------------------------------
+    async def _on_conn(self, reader: asyncio.StreamReader,
+                       writer: asyncio.StreamWriter) -> None:
+        task = asyncio.current_task()
+        if task is not None:
+            self._conn_tasks.add(task)
+        try:
+            await self._handle(reader, writer)
+        except (ConnectionResetError, BrokenPipeError, asyncio.TimeoutError):
+            pass
+        finally:
+            if task is not None:
+                self._conn_tasks.discard(task)
+            with contextlib.suppress(Exception):
+                writer.close()
+                await writer.wait_closed()
+
+    async def _handle(self, reader: asyncio.StreamReader,
+                      writer: asyncio.StreamWriter) -> None:
+        try:
+            method, path, headers, body = await asyncio.wait_for(
+                self._read_request(reader), timeout=30.0)
+        except HTTPError as e:
+            await self._respond_error(writer, e)
+            return
+        except (asyncio.IncompleteReadError, ValueError, asyncio.TimeoutError):
+            return  # torn/oversized request line — nothing to answer
+        if method == "GET" and path == "/healthz":
+            crashed = self.runner.crashed
+            status = 503 if (self.draining or crashed) else 200
+            state = ("crashed" if crashed
+                     else "draining" if self.draining
+                     else self.runner.state)
+            payload = {
+                "status": state, "model": self.model_id,
+                "restarts": 0,  # supervised restarts are not ported
+                "weights_version": self.engine.weights_version,
+            }
+            if crashed:
+                payload["error"] = crashed
+            await self._respond(writer, status, json.dumps(payload).encode())
+        elif method == "GET" and path == "/metrics":
+            await self._respond(
+                writer, 200, self._render_metrics().encode(),
+                content_type="text/plain; version=0.0.4; charset=utf-8")
+        elif method == "GET" and path == "/debug/slo":
+            await self._respond_error(writer, HTTPError(
+                404, "SLO accounting is off; start the server with --slo-ttft/--slo-tpot"))
+        elif method == "GET" and path == "/debug/tenants":
+            await self._respond_error(writer, HTTPError(
+                404, "tenant accounting is off; start the server with --tenants"))
+        elif method == "GET" and path == "/debug/trace":
+            await self._respond_error(writer, HTTPError(
+                404, "tracing is off; start the server with "
+                "--trace-ring N (and/or --trace-out PATH)"))
+        elif path == "/admin/upgrade":
+            if method != "POST":
+                await self._respond_error(writer, HTTPError(405, "use POST for /admin/upgrade"))
+            else:
+                await self._respond_error(writer, HTTPError(
+                    404, "no upgrade loader configured; the serve CLI "
+                    "wires one (POST /admin/upgrade)"))
+        elif path == "/admin/scale":
+            if method != "POST":
+                await self._respond_error(writer, HTTPError(405, "use POST for /admin/scale"))
+            else:
+                await self._respond_error(writer, HTTPError(
+                    400, "single-engine server cannot scale; start with --replicas N"))
+        elif path == "/v1/completions":
+            if method != "POST":
+                await self._respond_error(writer, HTTPError(405, "use POST for /v1/completions"))
+            else:
+                await self._completions(reader, writer, body, headers)
+        elif path.startswith("/v1/completions/"):
+            # stream resume by id: GET /v1/completions/cmpl-N with a
+            # Last-Event-ID header replays the suffix and continues live
+            if method != "GET":
+                await self._respond_error(writer, HTTPError(
+                    405, "use GET to resume a completion stream"))
+                return
+            try:
+                rid = parse_completion_rid(path.rsplit("/", 1)[1])
+                last_idx = parse_last_event_id(headers.get("last-event-id"))
+            except HTTPError as e:
+                await self._respond_error(writer, e)
+                return
+            await self._resume(reader, writer, rid, last_idx, self.model_id)
+        else:
+            await self._respond_error(writer, HTTPError(404, f"no route for {method} {path}"))
+
+    async def _read_request(
+        self, reader: asyncio.StreamReader,
+    ) -> tuple[str, str, dict[str, str], bytes]:
+        line = await reader.readline()
+        if not line:
+            raise asyncio.IncompleteReadError(b"", None)
+        parts = line.decode("latin-1").split()
+        if len(parts) != 3:
+            raise HTTPError(400, "malformed request line")
+        method, path = parts[0].upper(), parts[1]
+        headers: dict[str, str] = {}
+        while True:
+            hline = await reader.readline()
+            if hline in (b"\r\n", b"\n", b""):
+                break
+            key, _, value = hline.decode("latin-1").partition(":")
+            headers[key.strip().lower()] = value.strip()
+        try:
+            n = int(headers.get("content-length", "0"))
+        except ValueError as e:
+            raise HTTPError(400, "bad Content-Length") from e
+        if n > MAX_BODY_BYTES:
+            raise HTTPError(413, f"body exceeds {MAX_BODY_BYTES} bytes")
+        body = await reader.readexactly(n) if n else b""
+        return method, path, headers, body
+
+    def _render_metrics(self) -> str:
+        """The JAX server's scrape: the metrics' exposition plus its live
+        gauges, in its order.  Host reads only (the pool's counts and the
+        pages' shapes): no CUDA call from the event loop."""
+        engine = self.engine
+        stats = engine.pool.stats()
+        wv = engine.weights_version
+        return engine.metrics.prometheus(
+            # the version label appears once an upgrade rolled (wv > 0)
+            const_labels={"version": str(wv)} if wv else None,
+            extra_gauges={
+                "weights_version": float(wv),
+                "pool_blocks_free": stats["free"],
+                "pool_blocks_request_held": stats["request_held"],
+                "pool_blocks_cache_only": stats["cache_only"],
+                "pool_kv_bytes_shard": stats["kv_bytes_shard"],
+                "pool_kv_shards": stats["kv_shards"],
+                "inflight_streams": self.runner.inflight,
+                "queue_depth_live": engine.scheduler.queue_depth,
+                "draining": 1.0 if self.draining else 0.0,
+                # supervised restarts and fault injection, at their
+                # values with those layers absent
+                "restarts_total": 0.0,
+                "faults_injected_total": 0.0,
+                "degraded": 0.0,
+                "recovery_latency_s_last": 0.0,
+                "decode_impl_degraded": 1.0 if engine.decode_degraded else 0.0,
+                # the journal's: nothing replays without one; resumes
+                # count all the same
+                "journal_replayed_total": 0.0,
+                "journal_resumed_total": float(self.runner.journal_resumed),
+            })
+
+    # ------------------------------------------------------------------
+    async def _completions(self, reader: asyncio.StreamReader,
+                           writer: asyncio.StreamWriter,
+                           body: bytes, headers: dict[str, str]) -> None:
+        if self.draining or self.runner.crashed:
+            msg = ("engine tick thread crashed: " + self.runner.crashed
+                   if self.runner.crashed
+                   else "server is draining for shutdown")
+            await self._respond_error(writer, HTTPError(
+                503, msg, etype="server_error", headers=(("Retry-After", "1"),)))
+            return
+        try:
+            resume = parse_resume_request(body, headers, model_id=self.model_id)
+            if resume is not None:
+                # re-POST with the original request id: the resume
+                # protocol's POST spelling
+                rid, last_idx, echo_model = resume
+                await self._resume(reader, writer, rid, last_idx, echo_model)
+                return
+            payload = parse_completion_request(
+                body, model_id=self.model_id, tokenizer=self.tokenizer,
+                default_max_tokens=self.default_max_tokens,
+                max_tokens_cap=self.max_tokens_cap,
+                header_tenant=headers.get("x-tenant-id"),
+            )
+        except HTTPError as e:
+            await self._respond_error(writer, e)
+            return
+        # W3C trace context: continue the caller's trace or start one (a
+        # malformed header means a fresh trace, never a 400)
+        ctx = parse_traceparent(headers.get("traceparent"))
+        payload.trace_id = ctx[0] if ctx is not None else gen_trace_id()
+
+        loop = asyncio.get_running_loop()
+        aq: asyncio.Queue = asyncio.Queue()
+        rid = self.runner.next_rid()
+        self.runner.submit(rid, payload, loop, aq)
+        verdict = await aq.get()
+        if verdict[0] == "rejected":
+            msg = (verdict[2] + "; retry later" if len(verdict) > 2
+                   else "request queue is full; retry later")
+            await self._respond_error(writer, HTTPError(
+                429, msg, etype="rate_limit_error",
+                headers=(("Retry-After", str(verdict[1])),)))
+            return
+        if verdict[0] == "error":
+            await self._respond_error(writer, HTTPError(400, verdict[1]))
+            return
+        if verdict[0] == "finish":
+            # terminal before acceptance: only the crash backstop does it
+            await self._respond_error(writer, HTTPError(
+                503, "engine tick thread crashed before the request "
+                "was accepted", etype="server_error"))
+            return
+        created = int(time.time())
+        resp_headers = (("traceparent", make_traceparent(payload.trace_id)),)
+        # disconnect watch: drain (and discard) anything else the client
+        # sends, and complete only at EOF — for an HTTP/1.1 client, a
+        # hang-up → abort
+        monitor = asyncio.ensure_future(self._watch_disconnect(reader))
+        try:
+            if payload.stream:
+                await self._stream_response(writer, aq, monitor, rid, payload, created,
+                                            extra_headers=resp_headers)
+            else:
+                await self._unary_response(writer, aq, monitor, rid, payload, created,
+                                           extra_headers=resp_headers)
+        finally:
+            monitor.cancel()
+            with contextlib.suppress(asyncio.CancelledError):
+                await monitor
+
+    async def _resume(self, reader: asyncio.StreamReader,
+                      writer: asyncio.StreamWriter, rid: int,
+                      last_idx: int, echo_model: str) -> None:
+        """Re-attach a dropped SSE stream: replay the delivered-token
+        suffix from the client's Last-Event-ID, then continue live.  404
+        when the id is unknown or expired — the client falls back to a
+        fresh POST."""
+        if self.draining or self.runner.crashed:
+            await self._respond_error(writer, HTTPError(
+                503, "server is draining for shutdown"
+                if self.draining else
+                "engine tick thread crashed: " + str(self.runner.crashed),
+                etype="server_error", headers=(("Retry-After", "1"),)))
+            return
+        loop = asyncio.get_running_loop()
+        aq: asyncio.Queue = asyncio.Queue()
+        self.runner.resume(rid, last_idx, loop, aq)
+        verdict = await aq.get()
+        if verdict[0] == "gone":
+            await self._respond_error(writer, HTTPError(404, verdict[1], code="unknown_completion"))
+            return
+        if verdict[0] == "busy":
+            await self._respond_error(writer, HTTPError(
+                503, verdict[1], etype="server_error", headers=(("Retry-After", "1"),)))
+            return
+        if verdict[0] == "finish":
+            await self._respond_error(writer, HTTPError(
+                503, "engine tick thread crashed before the resume "
+                "was attached", etype="server_error"))
+            return
+        created = int(time.time())
+        tp = verdict[1] if len(verdict) > 1 else None
+        resume_headers = (("traceparent", make_traceparent(tp)),) if tp else ()
+        monitor = asyncio.ensure_future(self._watch_disconnect(reader))
+        try:
+            await self._stream_response(writer, aq, monitor, rid, _ResumeEcho(echo_model),
+                                        created, start_idx=last_idx,
+                                        extra_headers=resume_headers)
+        finally:
+            monitor.cancel()
+            with contextlib.suppress(asyncio.CancelledError):
+                await monitor
+
+    @staticmethod
+    async def _watch_disconnect(reader: asyncio.StreamReader) -> None:
+        while True:
+            data = await reader.read(4096)
+            if not data:
+                return
+
+    async def _next_event(self, aq: asyncio.Queue,
+                          monitor: asyncio.Future) -> tuple | None:
+        """Next engine event, or None if the client disconnected first."""
+        getter = asyncio.ensure_future(aq.get())
+        done, _ = await asyncio.wait({getter, monitor}, return_when=asyncio.FIRST_COMPLETED)
+        if getter in done:
+            return getter.result()
+        getter.cancel()
+        with contextlib.suppress(asyncio.CancelledError):
+            await getter
+        return None
+
+    async def _stream_response(self, writer, aq, monitor, rid,
+                               payload, created, start_idx: int = 0,
+                               extra_headers: tuple = ()) -> None:
+        # delivered-token index, the SSE event id of every token frame: a
+        # client that reconnects with Last-Event-ID = the last id it saw
+        # gets exactly the tokens it is missing
+        idx = start_idx
+        head = (
+            "HTTP/1.1 200 OK\r\n"
+            "Content-Type: text/event-stream\r\n"
+            "Cache-Control: no-cache\r\n"
+            "Connection: close\r\n"
+        )
+        for key, value in extra_headers:
+            head += f"{key}: {value}\r\n"
+        try:
+            writer.write(head.encode() + b"\r\n")
+            await writer.drain()
+        except (ConnectionResetError, BrokenPipeError, OSError):
+            # gone before the first byte: free the decode slot
+            self.runner.abort(rid)
+            return
+        while True:
+            ev = await self._next_event(aq, monitor)
+            if ev is None:  # client went away mid-stream
+                self.runner.abort(rid)
+                return
+            if ev[0] == "token":
+                _, tok, delta = ev
+                idx += 1
+                frame = sse_event(chunk_payload(
+                    rid, payload.echo_model, created,
+                    text=delta or "", token_id=tok, finish_reason=None,
+                ), event_id=idx)
+            else:  # ("finish", reason, tail)
+                _, reason, tail = ev
+                frame = sse_event(chunk_payload(
+                    rid, payload.echo_model, created,
+                    text=tail or "", token_id=None, finish_reason=reason,
+                )) + DONE_SENTINEL
+            try:
+                writer.write(frame)
+                await writer.drain()
+            except (ConnectionResetError, BrokenPipeError, OSError):
+                self.runner.abort(rid)
+                return
+            if ev[0] == "finish":
+                return
+
+    async def _unary_response(self, writer, aq, monitor, rid,
+                              payload, created, extra_headers: tuple = ()) -> None:
+        token_ids: list[int] = []
+        text_parts: list[str] = []
+        while True:
+            ev = await self._next_event(aq, monitor)
+            if ev is None:
+                self.runner.abort(rid)
+                return
+            if ev[0] == "token":
+                token_ids.append(ev[1])
+                if ev[2]:
+                    text_parts.append(ev[2])
+            else:
+                reason, tail = ev[1], ev[2]
+                if tail:
+                    text_parts.append(tail)
+                break
+        body = json.dumps(completion_payload(
+            rid, payload.echo_model, created,
+            text="".join(text_parts), token_ids=token_ids,
+            finish_reason=reason, prompt_tokens=int(payload.prompt_ids.size),
+        )).encode()
+        await self._respond(writer, 200, body, extra_headers=extra_headers)
+
+    # ------------------------------------------------------------------
+    async def _respond(self, writer: asyncio.StreamWriter, status: int,
+                       body: bytes, content_type: str = "application/json",
+                       extra_headers: tuple = ()) -> None:
+        head = (
+            f"HTTP/1.1 {status} {_REASONS.get(status, '')}\r\n"
+            f"Content-Type: {content_type}\r\n"
+            f"Content-Length: {len(body)}\r\n"
+            "Connection: close\r\n"
+        )
+        for key, value in extra_headers:
+            head += f"{key}: {value}\r\n"
+        writer.write(head.encode() + b"\r\n" + body)
+        with contextlib.suppress(ConnectionResetError, BrokenPipeError, OSError):
+            await writer.drain()
+
+    async def _respond_error(self, writer: asyncio.StreamWriter, e: HTTPError) -> None:
+        await self._respond(writer, e.status, error_body(e.message, e.etype, e.code),
+                            extra_headers=tuple(e.headers))
+
+
+async def run_server(
+    engine: Any,
+    *,
+    model_id: str,
+    tokenizer: Any = None,
+    host: str = "127.0.0.1",
+    port: int = 8000,
+    request_timeout: float | None = None,
+    drain_timeout: float = 30.0,
+    default_max_tokens: int = 16,
+    max_tokens_cap: int | None = None,
+    tick_deadline: float | None = None,
+    max_restarts: int = 0,
+    port_file: str | None = None,
+    exit_after_s: float | None = None,
+    on_started: Any = None,
+    runner: Any = None,
+    upgrade_loader: Any = None,
+) -> HttpServer:
+    """Start serving and block until drain shutdown completes."""
+    server = HttpServer(
+        engine, model_id=model_id, tokenizer=tokenizer,
+        request_timeout=request_timeout, drain_timeout=drain_timeout,
+        default_max_tokens=default_max_tokens,
+        max_tokens_cap=max_tokens_cap,
+        tick_deadline=tick_deadline, max_restarts=max_restarts,
+        runner=runner,
+        upgrade_loader=upgrade_loader,
+    )
+    await server.start(host, port)
+    if port_file:
+        with open(port_file, "w") as f:
+            f.write(f"{server.host} {server.port}\n")
+    if exit_after_s is not None:
+        asyncio.get_running_loop().call_later(exit_after_s, server.begin_drain)
+    if on_started is not None:
+        on_started(server)
+    await server.serve_until_shutdown()
+    return server
+
+
+def serve_forever(engine: Any, **kwargs: Any) -> None:
+    """Synchronous entry: run the server on a fresh event loop until a
+    drain shutdown (SIGTERM/SIGINT, or ``exit_after_s``) completes."""
+    asyncio.run(run_server(engine, **kwargs))

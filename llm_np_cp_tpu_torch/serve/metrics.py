@@ -1,47 +1,56 @@
-"""Serving metrics (port of ``llm_np_cp_tpu/serve/metrics.py``, as far as
-the engine records them).
+"""Serving metrics (port of ``llm_np_cp_tpu/serve/metrics.py``).
 
 Collected by ``ServeEngine`` per tick and per request, exported as one
-flat dict (``snapshot()``):
+flat dict (``snapshot()``), so tests, ``chip_smoke.py`` and the HTTP
+``/metrics`` scrape read the same numbers:
 
 - ``queue_depth_*``        — requests waiting (sampled per tick)
 - ``ttft_s_*``             — arrival (realtime replay) or submit → first
                              emitted token, per request
-- ``tpot_s_*``             — time per output token after the first
-                             (time after the first token / tokens after
-                             it), per request
+- ``decode_tok_s_*``       — per-request steady decode rate (tokens
+                             after the first / time after the first)
+- ``tpot_s_*``             — its inverse per request, derived at
+                             snapshot: time per output token after the
+                             first (the port's records read it; the JAX
+                             package has no such key)
 - ``occupancy_*``          — fraction of allocatable blocks held
 - ``active_slots_*``       — rows a tick's dispatch served
 - ``preemptions``          — evict-on-OOM count (requeues)
-- ``aborted`` / ``rejected`` — cancelled requests and queue-full rejects
+- ``aborted`` / ``rejected`` — cancelled requests (client disconnect or
+                             deadline) and queue-full rejects
 - ``finish_reasons``       — terminal outcome counts by reason
 - ``throughput_tok_s``     — total generated tokens / wall span
 - ``prefix_hit_rate``      — prompt blocks reused from the prefix cache
                              / shareable prompt blocks requested
+- ``kv_bytes_tick_*``      — K/V bytes a tick's attention reads (the
+                             engine's ``_kv_bytes_tick*``)
 - ``mixed_prefill_tokens`` / ``mixed_decode_tokens`` — how the unified
                              tick's token budget was spent
 - ``queue_wait_s_*`` / ``prefill_s_*`` — per-request phase splits
-- ``spec_drafted_tokens`` / ``spec_accepted_tokens`` /
-  ``spec_rejected_tokens`` / ``spec_rounds`` / ``spec_accept_rate`` /
-  ``spec_accept_len_mean`` — speculative verify rounds, present only
-  once a round ran.
-- ``prefix_evicted_blocks`` / ``prefix_evicted_bytes`` — prefix-cache
-  entries LRU reclaim dropped (always present).
-- ``tier_spilled_*`` / ``tier_restored_*`` / ``tier_resident_bytes`` /
-  ``tier_breakeven_ratio`` / ``tier_restore_s_*`` — the host-RAM KV
-  tier's flow (``serve/host_tier.py``), present only once a tier is
-  attached.
+- ``spec_*``               — speculative verify rounds, present only
+                             once a round ran
+- ``prefix_evicted_*`` / ``tier_*`` — LRU prefix reclaim, and the
+                             host-RAM KV tier's flow, present only once
+                             a tier is attached
 
-Percentiles are p50/p90/p99 over every sample (no windowing).  Left out
-with the layers that use them: the operator text block and the
-Prometheus format with its histograms (CLI, HTTP front end; the
-speculative accept-length histogram and the tier's series with it), SLO
-and roofline series.  Every record hook and
-``snapshot()`` take one lock, as in the JAX package.
+``ttft_s`` and ``decode_tok_s`` also keep real Prometheus histograms
+(``TTFT_BUCKETS`` / ``DECODE_TOK_S_BUCKETS``) updated at record time, so
+they stay exact when ``max_samples`` trims the percentile windows (the
+HTTP runner sets it for a long-running server).  ``prometheus()``
+renders the text exposition format (0.0.4) and ``format()`` the operator
+block, both as the JAX package renders them for the layers the port has;
+the series of layers it has not yet (SLO goodput, roofline telemetry,
+the anomaly sentinel, lifecycle actions) are absent, as the JAX package
+leaves them out when those layers are off, and
+``requests_recovered_total`` (supervised restarts) reads 0.
+
+Every record hook and ``snapshot()`` take one lock: the engine thread
+records while the HTTP scrape renders from the event loop.
 """
 
 from __future__ import annotations
 
+import bisect
 import threading
 import time
 from collections import Counter
@@ -50,6 +59,15 @@ from typing import Any
 import numpy as np
 
 from llm_np_cp_tpu_torch.serve.scheduler import Request
+
+# Fixed histogram buckets (upper bounds, seconds / tokens per second /
+# accepted drafts), the JAX package's: series stay comparable and
+# joinable across runs and replicas
+TTFT_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
+                0.5, 1.0, 2.5, 5.0, 10.0)
+DECODE_TOK_S_BUCKETS = (0.5, 1.0, 2.0, 5.0, 10.0, 20.0, 50.0, 100.0,
+                        200.0, 500.0, 1000.0)
+SPEC_ACCEPT_BUCKETS = (0.0, 1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 12.0, 16.0)
 
 
 def _pcts(values: list[float], name: str) -> dict[str, float]:
@@ -65,9 +83,14 @@ def _pcts(values: list[float], name: str) -> dict[str, float]:
 
 
 class ServeMetrics:
-    def __init__(self, clock=time.perf_counter) -> None:
+    def __init__(self, clock=time.perf_counter, max_samples: int | None = None) -> None:
         self.clock = clock
         self._lock = threading.Lock()
+        # bounded retention for long-running servers: None keeps every
+        # sample (exact full-trace percentiles); an int caps each value
+        # list, dropping the oldest half on overflow (percentiles become
+        # a recent window; counters and histograms stay exact)
+        self.max_samples = max_samples
         self.t_start = clock()
         self.t_last: float | None = None
         self.n_submitted = 0
@@ -79,12 +102,19 @@ class ServeMetrics:
         self.total_generated = 0
         self.finish_reasons: Counter[str] = Counter()
         self.ttft_s: list[float] = []
-        self.tpot_s: list[float] = []
+        self.decode_tok_s: list[float] = []
         self.queue_wait_s: list[float] = []
         self.prefill_s: list[float] = []
+        # exact cumulative histogram state (never trimmed): bucket i
+        # counts values <= bucket[i], the trailing slot is +Inf
+        self.ttft_hist = [0] * (len(TTFT_BUCKETS) + 1)
+        self.ttft_hist_sum = 0.0
+        self.decode_hist = [0] * (len(DECODE_TOK_S_BUCKETS) + 1)
+        self.decode_hist_sum = 0.0
         self.queue_depth: list[int] = []
         self.occupancy: list[float] = []
         self.active_slots: list[int] = []
+        self.kv_bytes_tick: list[float] = []
         self.prefix_blocks_requested = 0
         self.prefix_blocks_hit = 0
         self.mixed_prefill_tokens = 0
@@ -92,6 +122,8 @@ class ServeMetrics:
         self.spec_drafted = 0
         self.spec_accepted = 0
         self.spec_rounds = 0
+        self.spec_hist = [0] * (len(SPEC_ACCEPT_BUCKETS) + 1)
+        self.spec_hist_sum = 0.0
         # LRU prefix reclaim, and the host-RAM KV tier's flow (spills,
         # restores, restore latencies, the live gauges)
         self.prefix_evicted_blocks = 0
@@ -113,13 +145,19 @@ class ServeMetrics:
             self.n_submitted += 1
 
     def on_reject(self) -> None:
-        """A submit bounced off the queue-depth cap."""
+        """A submit bounced off the queue-depth cap (HTTP 429)."""
         with self._lock:
             self.n_rejected += 1
 
+    def _trim(self, values: list) -> None:
+        # caller holds the lock
+        if self.max_samples is not None and len(values) > self.max_samples:
+            del values[: len(values) // 2]
+
     def on_tick(
         self, *, queue_depth: int, occupancy: float, active_slots: int,
-        preemptions_total: int, prefill_tokens: int = 0, decode_tokens: int = 0,
+        preemptions_total: int, kv_bytes: int = 0,
+        prefill_tokens: int = 0, decode_tokens: int = 0,
     ) -> None:
         with self._lock:
             self.mixed_prefill_tokens += prefill_tokens
@@ -130,6 +168,12 @@ class ServeMetrics:
             self.occupancy.append(occupancy)
             self.active_slots.append(active_slots)
             self.preemptions = preemptions_total
+            if active_slots:
+                # idle ticks would dilute the per-tick gauge with zeros
+                self.kv_bytes_tick.append(float(kv_bytes))
+            for vals in (self.queue_depth, self.occupancy, self.active_slots,
+                         self.kv_bytes_tick):
+                self._trim(vals)
 
     def on_prefix(self, *, requested: int, hits: int) -> None:
         """One prefill's prefix-cache outcome: ``requested`` shareable
@@ -161,6 +205,7 @@ class ServeMetrics:
             self.tier_restored_blocks += blocks
             self.tier_restored_bytes += nbytes
             self.tier_restore_s.append(latency_s)
+            self._trim(self.tier_restore_s)
 
     def on_tier_gauge(self, *, resident_bytes: int, breakeven: float | None) -> None:
         """Refresh the tier's live gauges: host bytes resident and the
@@ -179,6 +224,8 @@ class ServeMetrics:
             self.spec_drafted += drafted
             self.spec_accepted += accepted
             self.spec_rounds += 1
+            self.spec_hist[bisect.bisect_left(SPEC_ACCEPT_BUCKETS, float(accepted))] += 1
+            self.spec_hist_sum += accepted
 
     def on_token(self, req: Request) -> None:
         with self._lock:
@@ -191,8 +238,8 @@ class ServeMetrics:
             self._record_latencies(req)
 
     def on_abort(self, req: Request) -> None:
-        """Request cancelled.  Counted apart from ``finished`` — its TTFT
-        still records if a token got out."""
+        """Request cancelled (disconnect or deadline).  Counted apart
+        from ``finished`` — its TTFT still records if a token got out."""
         with self._lock:
             self.n_aborted += 1
             self.finish_reasons["aborted"] += 1
@@ -204,15 +251,25 @@ class ServeMetrics:
             # realtime replay records the wall arrival, so TTFT includes
             # the wait before the tick loop noticed the request
             base = req.extra.get("arrival_wall", req.submit_time)
-            self.ttft_s.append(req.first_token_time - base)
+            ttft = req.first_token_time - base
+            self.ttft_s.append(ttft)
+            self._trim(self.ttft_s)
+            self.ttft_hist[bisect.bisect_left(TTFT_BUCKETS, ttft)] += 1
+            self.ttft_hist_sum += ttft
             n_after_first = len(req.generated) - 1
             span = (req.finish_time or self.clock()) - req.first_token_time
             if n_after_first > 0 and span > 0:
-                self.tpot_s.append(span / n_after_first)
+                rate = n_after_first / span
+                self.decode_tok_s.append(rate)
+                self._trim(self.decode_tok_s)
+                self.decode_hist[bisect.bisect_left(DECODE_TOK_S_BUCKETS, rate)] += 1
+                self.decode_hist_sum += rate
         if req.submit_time is not None and req.admit_time is not None:
             self.queue_wait_s.append(req.admit_time - req.submit_time)
+            self._trim(self.queue_wait_s)
         if req.prefill_s:
             self.prefill_s.append(req.prefill_s)
+            self._trim(self.prefill_s)
 
     # ------------------------------------------------------------------
     def snapshot(self) -> dict[str, Any]:
@@ -223,6 +280,9 @@ class ServeMetrics:
                 "finished": self.n_finished,
                 "aborted": self.n_aborted,
                 "rejected": self.n_rejected,
+                # supervised restarts (the JAX engine's recover) are not
+                # ported: nothing is ever replayed into a rebuilt engine
+                "recovered": 0,
                 "ticks": self.n_ticks,
                 "preemptions": self.preemptions,
                 "total_generated_tokens": self.total_generated,
@@ -231,8 +291,6 @@ class ServeMetrics:
                 "finish_reasons": dict(self.finish_reasons),
                 "mixed_prefill_tokens": self.mixed_prefill_tokens,
                 "mixed_decode_tokens": self.mixed_decode_tokens,
-                "prefix_blocks_requested": self.prefix_blocks_requested,
-                "prefix_blocks_hit": self.prefix_blocks_hit,
                 "prefix_evicted_blocks": self.prefix_evicted_blocks,
                 "prefix_evicted_bytes": self.prefix_evicted_bytes,
             }
@@ -256,19 +314,259 @@ class ServeMetrics:
                 out["spec_accept_rate"] = (
                     self.spec_accepted / self.spec_drafted if self.spec_drafted else 0.0)
                 out["spec_accept_len_mean"] = self.spec_accepted / self.spec_rounds
-            # copy-on-read: percentile math sees frozen lists
+            # copy-on-read: percentile math sees frozen lists while the
+            # tick loop keeps appending
             series = {
                 "ttft_s": list(self.ttft_s),
-                "tpot_s": list(self.tpot_s),
+                "decode_tok_s": list(self.decode_tok_s),
+                "tpot_s": [1.0 / r for r in self.decode_tok_s],
                 "queue_wait_s": list(self.queue_wait_s),
                 "prefill_s": list(self.prefill_s),
                 "queue_depth": [float(q) for q in self.queue_depth],
                 "occupancy": list(self.occupancy),
                 "active_slots": [float(a) for a in self.active_slots],
+                "kv_bytes_tick": list(self.kv_bytes_tick),
                 "tier_restore_s": list(self.tier_restore_s),
             }
+            prefix_req = self.prefix_blocks_requested
+            prefix_hit = self.prefix_blocks_hit
         for name, values in series.items():
             out.update(_pcts(values, name))
-        if out["prefix_blocks_requested"]:
-            out["prefix_hit_rate"] = out["prefix_blocks_hit"] / out["prefix_blocks_requested"]
+        # *_last: the most recent per-tick sample — the live gauge a
+        # scrape wants, beside the trace-wide percentiles
+        for name in ("queue_depth", "occupancy", "active_slots"):
+            if series[name]:
+                out[f"{name}_last"] = series[name][-1]
+        out["kv_bytes_total"] = float(sum(series["kv_bytes_tick"]))
+        out["prefix_blocks_requested"] = prefix_req
+        out["prefix_blocks_hit"] = prefix_hit
+        if prefix_req:
+            out["prefix_hit_rate"] = prefix_hit / prefix_req
         return out
+
+    # ------------------------------------------------------------------
+    def prometheus(
+        self, extra_gauges: dict[str, float] | None = None,
+        prefix: str = "llm_serve",
+        const_labels: dict[str, str] | None = None,
+    ) -> str:
+        """Text exposition format (0.0.4) for a ``GET /metrics`` scrape,
+        rendered from one ``snapshot()``.  ``extra_gauges`` adds live
+        gauges the metrics object cannot know (pool free blocks, in-flight
+        streams); ``const_labels`` are spliced into every sample's
+        labelset."""
+        s = self.snapshot()
+        lines: list[str] = []
+        const = ",".join(f'{k}="{v}"' for k, v in (const_labels or {}).items())
+
+        def lab(labels: str) -> str:
+            if not const:
+                return labels
+            if not labels:
+                return "{" + const + "}"
+            return labels[:-1] + "," + const + "}"
+
+        def emit(name: str, mtype: str, help_: str,
+                 samples: list[tuple[str, float]]) -> None:
+            full = f"{prefix}_{name}"
+            lines.append(f"# HELP {full} {help_}")
+            lines.append(f"# TYPE {full} {mtype}")
+            for labels, value in samples:
+                lines.append(f"{full}{lab(labels)} {value:.10g}")
+
+        emit("requests_submitted_total", "counter",
+             "Requests accepted into the scheduler queue", [("", s["submitted"])])
+        emit("requests_finished_total", "counter",
+             "Requests that ran to a natural finish", [("", s["finished"])])
+        emit("requests_aborted_total", "counter",
+             "Requests cancelled (client disconnect or deadline)", [("", s["aborted"])])
+        emit("requests_rejected_total", "counter",
+             "Submits bounced off the queue-depth cap (HTTP 429)", [("", s["rejected"])])
+        emit("requests_recovered_total", "counter",
+             "In-flight requests replayed into a rebuilt engine after a "
+             "supervised restart",
+             [("", s["recovered"])])
+        emit("finish_total", "counter",
+             "Terminal events by finish reason",
+             [(f'{{reason="{r}"}}', n)
+              for r, n in sorted(s["finish_reasons"].items())] or
+             [('{reason="stop"}', 0)])
+        emit("preemptions_total", "counter",
+             "Evict-on-OOM requeues", [("", s["preemptions"])])
+        emit("tokens_generated_total", "counter",
+             "Generated tokens across all requests", [("", s["total_generated_tokens"])])
+        emit("ticks_total", "counter", "Scheduler ticks", [("", s["ticks"])])
+        emit("queue_depth", "gauge",
+             "Requests waiting for admission (last tick sample)",
+             [("", s.get("queue_depth_last", 0.0))])
+        emit("pool_occupancy", "gauge",
+             "Fraction of allocatable KV blocks held (last tick sample)",
+             [("", s.get("occupancy_last", 0.0))])
+        emit("active_slots", "gauge",
+             "Decode slots busy (last tick sample)",
+             [("", s.get("active_slots_last", 0.0))])
+        emit("prefix_hit_rate", "gauge",
+             "Prompt blocks reused from the prefix cache / shareable "
+             "blocks requested",
+             [("", s.get("prefix_hit_rate", 0.0))])
+        emit("prefix_evicted_total", "counter",
+             "Prefix-cache blocks LRU-reclaimed under pool pressure "
+             "(spilled to the host tier when --kv-tier host, dropped "
+             "otherwise)",
+             [("", s["prefix_evicted_blocks"])])
+        if "tier_spilled_blocks" in s:
+            emit("kv_tier_blocks_total", "counter",
+                 "Host-tier block flow: spill = evicted prefix blocks "
+                 "copied to host RAM, restore = blocks staged back as "
+                 "pool blocks instead of re-prefilling",
+                 [('{op="spill"}', s["tier_spilled_blocks"]),
+                  ('{op="restore"}', s["tier_restored_blocks"])])
+            emit("kv_tier_bytes_total", "counter",
+                 "Host-tier byte flow (the restored-bytes ledger is "
+                 "prefill work the tier saved)",
+                 [('{op="spill"}', s["tier_spilled_bytes"]),
+                  ('{op="restore"}', s["tier_restored_bytes"])])
+            emit("kv_tier_resident_bytes", "gauge",
+                 "Host RAM currently holding spilled KV blocks",
+                 [("", s["tier_resident_bytes"])])
+            emit("kv_tier_breakeven_ratio", "gauge",
+                 "Measured restore-vs-recompute breakeven (re-prefill "
+                 "seconds per block / restore seconds per block; >1 = "
+                 "restoring is cheaper; 0 = not yet measured)",
+                 [("", s["tier_breakeven_ratio"])])
+        emit("kv_bytes_tick_mean", "gauge",
+             "Mean K/V bytes decode attention touches per tick",
+             [("", s.get("kv_bytes_tick_mean", 0.0))])
+        emit("mixed_tokens_total", "counter",
+             "Unified-tick token budget spent, split by work kind",
+             [('{kind="prefill"}', s["mixed_prefill_tokens"]),
+              ('{kind="decode"}', s["mixed_decode_tokens"])])
+        if "spec_drafted_tokens" in s:
+            emit("spec_tokens_total", "counter",
+                 "Speculative draft tokens by verify outcome",
+                 [('{kind="drafted"}', s["spec_drafted_tokens"]),
+                  ('{kind="accepted"}', s["spec_accepted_tokens"]),
+                  ('{kind="rejected"}', s["spec_rejected_tokens"])])
+            emit("spec_accept_rate", "gauge",
+                 "Accepted / drafted speculative tokens over the "
+                 "traffic span",
+                 [("", s["spec_accept_rate"])])
+        emit("throughput_tok_s", "gauge",
+             "Generated tokens per second over the traffic span",
+             [("", s["throughput_tok_s"])])
+        # -- real histograms: cumulative _bucket/_sum/_count from the
+        # incrementally kept counters (exact, unlike the trimmed windows)
+        with self._lock:
+            ttft_hist = list(self.ttft_hist)
+            ttft_hist_sum = self.ttft_hist_sum
+            decode_hist = list(self.decode_hist)
+            decode_hist_sum = self.decode_hist_sum
+            spec_hist = list(self.spec_hist)
+            spec_hist_sum = self.spec_hist_sum
+            spec_rounds = self.spec_rounds
+
+        def emit_hist(name: str, help_: str, buckets: tuple,
+                      counts: list[int], total: float) -> None:
+            full = f"{prefix}_{name}"
+            lines.append(f"# HELP {full} {help_}")
+            lines.append(f"# TYPE {full} histogram")
+            cum = 0
+            for le, n in zip(buckets, counts):
+                cum += n
+                labels = lab('{le="%.10g"}' % le)
+                lines.append(f"{full}_bucket{labels} {cum}")
+            cum += counts[-1]
+            labels = lab('{le="+Inf"}')
+            lines.append(f"{full}_bucket{labels} {cum}")
+            lines.append(f"{full}_sum{lab('')} {total:.10g}")
+            lines.append(f"{full}_count{lab('')} {cum}")
+
+        emit_hist("ttft_seconds", "Submit/arrival to first token, per request",
+                  TTFT_BUCKETS, ttft_hist, ttft_hist_sum)
+        emit_hist("decode_tok_s",
+                  "Per-request steady decode rate (tokens after the "
+                  "first / time after first token)",
+                  DECODE_TOK_S_BUCKETS, decode_hist, decode_hist_sum)
+        if spec_rounds:
+            emit_hist("spec_accept_length",
+                      "Accepted draft tokens per speculative verify "
+                      "round",
+                      SPEC_ACCEPT_BUCKETS, spec_hist, spec_hist_sum)
+        # -- quantile gauges over the recorded windows, and the
+        # per-request phase split ("queueing or compute?")
+        for base, help_ in (
+            ("ttft_s", "TTFT quantiles over the recorded window"),
+            ("decode_tok_s", "Decode-rate quantiles over the recorded window"),
+            ("queue_wait_s",
+             "Submit to first admission into a decode slot, per request"),
+            ("prefill_s",
+             "Cumulative prefill dispatch time per request "
+             "(re-prefills after preemption/recovery included)"),
+            ("tier_restore_s",
+             "Host-tier restore staging latency per restored span"),
+        ):
+            samples = [(f'{{quantile="{q}"}}', s[f"{base}_{p}"])
+                       for q, p in (("0.5", "p50"), ("0.9", "p90"), ("0.99", "p99"))
+                       if f"{base}_{p}" in s]
+            if samples:
+                emit(f"{base}_quantile", "gauge", help_, samples)
+        for key, value in (extra_gauges or {}).items():
+            emit(key, "gauge", "Live server gauge", [("", float(value))])
+        return "\n".join(lines) + "\n"
+
+    def format(self) -> str:
+        """One operator-readable block."""
+        s = self.snapshot()
+
+        def g(key: str, fmt: str = "{:.3f}") -> str:
+            return fmt.format(s[key]) if key in s else "-"
+
+        mb_tick = (f"{s['kv_bytes_tick_mean'] / 2**20:.2f}"
+                   if "kv_bytes_tick_mean" in s else "-")
+        prefix = (
+            f"{s['prefix_hit_rate']:.2f} "
+            f"({s['prefix_blocks_hit']}/{s['prefix_blocks_requested']} blocks)"
+            if "prefix_hit_rate" in s else "-"
+        )
+        aborts = (
+            f", {s['aborted']} aborted" if s["aborted"] else ""
+        ) + (
+            f", {s['rejected']} rejected" if s["rejected"] else ""
+        )
+        spec = (
+            f"\nspeculative: {s['spec_accept_rate']:.2f} accept rate "
+            f"({s['spec_accepted_tokens']}/{s['spec_drafted_tokens']} "
+            f"drafts over {s['spec_rounds']} rounds, "
+            f"mean accept len {s['spec_accept_len_mean']:.2f})"
+            if "spec_drafted_tokens" in s else ""
+        )
+        tier = (
+            f"\nkv tier: {s['tier_restored_blocks']} blocks restored "
+            f"({s['tier_restored_bytes'] / 2**20:.2f} MiB of prefill "
+            f"saved), {s['tier_spilled_blocks']} spilled, "
+            f"{s['prefix_evicted_blocks']} evictions, breakeven "
+            f"{s['tier_breakeven_ratio']:.2f}"
+            if "tier_spilled_blocks" in s else ""
+        )
+        return (
+            f"requests: {s['submitted']} submitted, {s['finished']} finished"
+            f"{aborts}, "
+            f"{s['preemptions']} preemptions over {s['ticks']} ticks\n"
+            f"throughput: {s['throughput_tok_s']:.1f} tok/s total "
+            f"({s['total_generated_tokens']} tokens in {s['wall_s']:.2f}s)\n"
+            f"ttft_s      p50 {g('ttft_s_p50')}  p90 {g('ttft_s_p90')}  "
+            f"p99 {g('ttft_s_p99')}\n"
+            f"queue_wait_s p50 {g('queue_wait_s_p50')}  "
+            f"p99 {g('queue_wait_s_p99')}; "
+            f"prefill_s p50 {g('prefill_s_p50')}  "
+            f"p99 {g('prefill_s_p99')}\n"
+            f"decode_tok_s p50 {g('decode_tok_s_p50', '{:.1f}')}  "
+            f"p90 {g('decode_tok_s_p90', '{:.1f}')}\n"
+            f"queue_depth p50 {g('queue_depth_p50', '{:.1f}')}  "
+            f"p99 {g('queue_depth_p99', '{:.1f}')}; "
+            f"occupancy p50 {g('occupancy_p50', '{:.2f}')}  "
+            f"p99 {g('occupancy_p99', '{:.2f}')}; "
+            f"active_slots mean {g('active_slots_mean', '{:.2f}')}\n"
+            f"kv MiB/tick mean {mb_tick}; prefix cache hit rate {prefix}"
+            f"{spec}{tier}"
+        )

@@ -71,6 +71,23 @@ class QueueFull(RuntimeError):
         self.cap = cap
 
 
+class TenantThrottled(QueueFull):
+    """Admission rejected by a per-tenant in-flight cap.  A ``QueueFull``
+    subclass so every "try again later" handler (HTTP 429 + Retry-After)
+    applies unchanged; carries the tenant.  Raised by the JAX engine's
+    tenant ledger, which the port has not yet: the HTTP runner maps it
+    as the JAX runner does."""
+
+    def __init__(self, tenant: str, inflight: int, cap: int) -> None:
+        # bypass QueueFull.__init__: the message names the TENANT's live
+        # count, not the queue depth
+        RuntimeError.__init__(
+            self, f"tenant {tenant!r} is at its in-flight cap ({inflight} live, cap {cap})")
+        self.tenant = tenant
+        self.depth = inflight
+        self.cap = cap
+
+
 @dataclasses.dataclass
 class Request:
     """One generation request and its serving-side bookkeeping."""
@@ -119,6 +136,10 @@ class Request:
     # the accept walk; always 0 between ticks).  Growth covers
     # cache_len + draft_len so every verify write has a block.
     draft_len: int = 0
+    # normalized tenant id (``serve/tenants.normalize_tenant``): the
+    # X-Tenant-Id header or a "tenant" body field, "default" without
+    # one.  Recorded only: the tenant ledger is not ported yet
+    tenant: str = "default"
     slot: int = -1  # decode slot while RUNNING
     n_preemptions: int = 0
     # -- metrics timestamps -------------------------------------------

@@ -36,7 +36,8 @@ def test_scan_sees_the_port():
     assert {"llm_np_cp_tpu_torch/generate.py", "llm_np_cp_tpu_torch/ops/cuda/build.py",
             "llm_np_cp_tpu_torch/serve/engine.py", "llm_np_cp_tpu_torch/serve/scheduler.py",
             "llm_np_cp_tpu_torch/random.py", "llm_np_cp_tpu_torch/ops/cuda/threefry.py",
-            "llm_np_cp_tpu_torch/serve/host_tier.py", "chip_smoke.py"} <= names
+            "llm_np_cp_tpu_torch/serve/host_tier.py", "llm_np_cp_tpu_torch/serve/http/server.py",
+            "llm_np_cp_tpu_torch/serve/http/protocol.py", "chip_smoke.py"} <= names
     assert imported_roots(ROOT / "tests" / "test_torch_model.py") >= {"jax", "llm_np_cp_tpu"}
     assert "llm_np_cp_tpu_torch" in imported_roots(ROOT / "chip_smoke.py")
 

@@ -180,6 +180,8 @@ def test_int8_pool_parity(llama, leg):
     port, ref = engines(llama, leg, int8=True, max_slots=3, num_blocks=16)
     assert port.pool.pages.quantized
     assert submit_all(port, prompts, 5) == submit_all(ref, prompts, 5)
+    # the K/V bytes the ticks' attention read (the scale pages counted)
+    assert port.metrics.snapshot()["kv_bytes_total"] == ref.metrics.snapshot()["kv_bytes_total"] > 0
 
 
 @pytest.mark.parametrize("leg", ["mixed", "split_paged"])
@@ -192,6 +194,8 @@ def test_gemma2_sliding_window_parity(leg):
     prompts = [rng.integers(1, 256, size=n) for n in (9, 13)]
     port, ref = engines(models, leg, max_slots=2, num_blocks=32)
     assert submit_all(port, prompts, 16) == submit_all(ref, prompts, 16)
+    # the K/V bytes the ticks' attention read, window-aware per layer
+    assert port.metrics.snapshot()["kv_bytes_total"] == ref.metrics.snapshot()["kv_bytes_total"] > 0
 
 
 @pytest.mark.parametrize("leg", ["mixed", "split_paged"])
@@ -422,6 +426,38 @@ def test_pool_sizing_matches_jax(p, m, chunk, slots, bs):
     assert serve.worst_case_slots(p, m, chunk) == jserve.worst_case_slots(p, m, chunk)
     assert (serve.pool_geometry(p, m, slots, bs, chunk)
             == jserve.pool_geometry(p, m, slots, bs, chunk))
+
+
+@pytest.mark.parametrize("bs,qb,window,n_sliding", [(16, 8, None, 0), (128, 8, None, 0),
+                                                   (8, 8, 16, 2), (16, 8, 5, 1), (12, 8, 40, 3)])
+def test_segment_kv_slots_equals_the_per_tile_sum(bs, qb, window, n_sliding):
+    """The kv_bytes_tick gauge's closed form equals the per-q-tile sum
+    the JAX engine walks, on random segments."""
+    from llm_np_cp_tpu_torch.serve.engine import _segment_kv_slots
+
+    n_layers = 4
+
+    def per_tile(pad, start, n):
+        slots = 0
+        for k in range(-(-n // qb)):
+            q0 = start + k * qb
+            qlast = q0 + min(qb, n - k * qb) - 1
+            full = (qlast // bs - pad // bs + 1) * bs
+            windowed = 0
+            if n_sliding:
+                lo = max(pad, q0 - window + 1)
+                windowed = (qlast // bs - lo // bs + 1) * bs
+            slots += (n_layers - n_sliding) * full + n_sliding * windowed
+        return slots
+
+    rng = np.random.default_rng(bs * 7 + qb)
+    for _ in range(300):
+        pad = int(rng.integers(0, 40))
+        start = pad + int(rng.integers(0, 300))
+        n = int(rng.integers(1, 300))
+        assert _segment_kv_slots(pad, start, n, block_size=bs, q_tile=qb, window=window,
+                                 n_layers=n_layers, n_sliding=n_sliding) \
+            == per_tile(pad, start, n), (pad, start, n)
 
 
 def test_scheduler_decisions_match_jax():
