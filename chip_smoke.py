@@ -142,7 +142,38 @@ Phases, each printing JSON lines; any failure exits non-zero:
    the thread that ran it (their difference, the time off the CPU inside
    the tick, is what the event loop's share of the GIL costs the HTTP
    legs), with the kv_bytes_tick gauge's host time.
-10. the ``kernels`` summary line, the card's ``nvidia-smi`` name and power
+10. chaos — faults and supervised recovery (``serve/faults.py``, the
+   runner's restart) on the JAX bench's ``serve_chaos_poisson`` shape,
+   not cut: the http phase's model, trace and engine over HTTP
+   (``run_server`` with ``max_restarts=3``, ``restart_backoff_s=0.2``,
+   ``tick_deadline=60``), a clean leg and a leg under
+   ``tick_crash@90;decode@40`` (both sites restart the engine in the
+   port).  Per leg: every request answered with 64 tokens, restarts and
+   each one's recovery latency, each rebuild's capture seconds and
+   graph-pool bytes, peak reserved memory, client TTFT p50/p99 and TPOT
+   p50, the scrape's ``requests_recovered_total`` and
+   ``faults_injected_total``.  The chaos leg must restart at least twice,
+   capture only in its rebuilds (every tick a replay, 16 ragged launches
+   a tick or capture), replay no graph after its engine was retired, stay
+   within one pool plus its graph pools of the clean leg's peak reserved
+   memory, and give the clean leg's tokens or part from them at a
+   near-tie, every token teacher-forced.  Float32 legs on the trace's
+   first 8 requests (16 new tokens), greedy and min-p, under a crash and
+   a hang past a 3 s ``tick_deadline``: two restarts, recovered streams
+   equal to the clean leg's token for token.
+11. restart — the durable journal's ``kill -9`` resume on the JAX bench's
+   ``serve_restart_poisson`` shape: the server runs in a child process
+   (this script with ``--serve-child``).  A plain leg and a journaled leg
+   on the same arrivals (their tok/s, the journal's fsync p99), then a
+   journaled child that SIGKILLs itself at its 90th busy tick
+   (``proc_kill@90``); a new child on the same port and journal replays
+   it, and every client resumes by Last-Event-ID.  Required: exit by
+   SIGKILL, 32 of 32 streams complete with 64 tokens (none resent), the
+   journal replayed, every stream teacher-forced and equal to the plain
+   leg's or apart at a near-tie; recorded: restart to first resumed token
+   as the clients saw it (the new child's start, weights and captures
+   included) and ``journal_replayed_total``.
+12. the ``kernels`` summary line, the card's ``nvidia-smi`` name and power
    limit, and last the result line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -242,6 +273,25 @@ HTTP_SLOTS, HTTP_BLOCK, HTTP_CHUNK = 8, 128, 256
 HTTP_CUT_AFTER = 3
 # the scrape's sample lines: the JAX package's own pattern
 PROM_LINE = r"[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? -?[0-9.]+(e[+-]?[0-9]+)?"
+
+# the chaos phase: the JAX bench's serve_chaos_poisson (bench.py:196-200,
+# run at bench.py:2189-2351), not cut — the http phase's model, trace and
+# pool, supervised (max_restarts 3, backoff 0.2 s, tick_deadline 60 s)
+# under a tick-thread crash at the 90th busy tick and a dispatch fault at
+# the 40th dispatch; clients retry 4 times (backoff 0.1 s), as the
+# bench's do.  Then a float32 leg on the trace's first 8 requests (16 new
+# tokens) under a crash and a hang past a short tick_deadline, greedy and
+# min-p, whose recovered streams must equal the clean ones exactly.
+CHAOS_SPEC, CHAOS_DEADLINE, CHAOS_BACKOFF, CHAOS_RESTARTS = (
+    "tick_crash@90;decode@40", 60.0, 0.2, 3)
+F32_CHAOS_REQUESTS, F32_CHAOS_TOKENS = 8, 16
+F32_CHAOS_SPEC, F32_CHAOS_DEADLINE = "tick_crash@6;tick_hang@12=6", 3.0
+# the restart phase: the JAX bench's serve_restart_poisson (bench.py:285-
+# 287, run at bench.py:2354-): the same trace and model, the server in a
+# child process (this script with --serve-child) that SIGKILLs itself at
+# its 90th busy tick (proc_kill@90); a new child on the same port and
+# journal replays it, and every client resumes by Last-Event-ID
+RESTART_KILL_TICK = 90
 
 # the quant phase: quantize_params keywords per weight mode, and the
 # greedy continuation quant_quality compares with the bf16 model
@@ -2515,14 +2565,17 @@ def _pct(np, vals: list, q: float) -> float | None:
     return float(np.percentile(vals, q)) if vals else None
 
 
-def http_leg(torch, np, eng, trace: list[dict], model_id: str) -> dict:
+def http_leg(torch, np, eng, trace: list[dict], model_id: str, *, server_kwargs=None,
+             retries: int = 0, cut_stream: bool = True) -> dict:
     """The trace's arrivals through the port's server over ``eng``, started
     through ``run_server`` (the coroutine ``serve_forever`` runs) on this
     event loop, its runner thread ticking the engine: one
-    ``astream_completion`` client a request, sleeping until its arrival;
-    then a ``/metrics`` scrape, and one more stream cut after
-    HTTP_CUT_AFTER tokens, whose blocks must come back; then the drain
-    that ends ``run_server``."""
+    ``astream_completion`` client a request (``retries`` transient
+    failures each), sleeping until its arrival; then a ``/metrics``
+    scrape, and (``cut_stream``) one more stream cut after HTTP_CUT_AFTER tokens,
+    whose blocks must come back; then the drain that ends ``run_server``.
+    ``server_kwargs`` go to ``run_server`` (supervision).  The runner's
+    engine is read at the end: a supervised restart replaces ``eng``."""
     import asyncio
 
     from llm_np_cp_tpu_torch.serve.http.client import astream_completion, http_get
@@ -2533,7 +2586,7 @@ def http_leg(torch, np, eng, trace: list[dict], model_id: str) -> dict:
         started = loop.create_future()
         serving = asyncio.ensure_future(run_server(
             eng, model_id=model_id, host="127.0.0.1", port=0, drain_timeout=60.0,
-            on_started=started.set_result))
+            on_started=started.set_result, **(server_kwargs or {})))
         await asyncio.wait([started, serving], return_when=asyncio.FIRST_COMPLETED)
         if not started.done():
             serving.result()  # raises what ended the server before it started
@@ -2545,14 +2598,22 @@ def http_leg(torch, np, eng, trace: list[dict], model_id: str) -> dict:
                 server.host, server.port,
                 {"model": model_id, "prompt": [int(t) for t in item["prompt"]],
                  "max_tokens": item["max_new_tokens"], "seed": item["seed"]},
-                timeout=300.0)
+                timeout=300.0, retries=retries, backoff_s=0.1)
 
         t0 = time.perf_counter()
         results = await asyncio.gather(*(one(item) for item in trace))
         wall = time.perf_counter() - t0
         status, raw = await loop.run_in_executor(None, http_get, server.host, server.port,
                                                  "/metrics")
-        snap = eng.metrics.snapshot()
+        runner = server.runner
+        snap = runner.engine.metrics.snapshot()
+        sup = dict(restarts=runner.restarts, recovery_latency_s=list(runner.recovery_latency_s),
+                   rebuilds=list(runner.rebuilds), state=runner.state, engine=runner.engine)
+        if not cut_stream:
+            server.begin_drain()
+            await serving
+            return dict(results=results, wall=wall, status=status, prom=raw.decode(),
+                        snap=snap, sup=sup)
         cut = await astream_completion(
             server.host, server.port,
             {"model": model_id, "prompt": [int(t) for t in trace[0]["prompt"]],
@@ -2567,7 +2628,7 @@ def http_leg(torch, np, eng, trace: list[dict], model_id: str) -> dict:
         server.begin_drain()
         await serving
         return dict(results=results, wall=wall, status=status, prom=raw.decode(), snap=snap,
-                    cut=cut, held=held, aborted=aborted)
+                    sup=sup, cut=cut, held=held, aborted=aborted)
 
     return asyncio.run(leg())
 
@@ -2809,6 +2870,414 @@ def http_phase(torch, np, kernels: dict, card: str) -> dict:
                 tick_off_cpu_ms_mean=off_cpu, checks=checks, ok=not checks)
 
 
+# ----------------------------------------------------------------------
+# phase 10: faults and recovery — the chaos injector and the supervised
+# restart
+# ----------------------------------------------------------------------
+
+def chaos_phase(torch, np, kernels: dict, card: str) -> dict:
+    """The JAX bench's serve_chaos_poisson: the http phase's trace over
+    HTTP, a clean leg and a leg under CHAOS_SPEC with supervised
+    restarts; then float32 legs (greedy, min-p) under a crash and a hang,
+    whose recovered streams must equal the clean ones."""
+    import gc
+    from types import SimpleNamespace
+
+    from llm_np_cp_tpu_torch.config import PRESETS
+    from llm_np_cp_tpu_torch.models.transformer import forward, init_params
+    from llm_np_cp_tpu_torch.ops.sampling import Sampler
+    from llm_np_cp_tpu_torch.serve import FaultInjector, ServeEngine, poisson_trace, pool_geometry
+
+    model_id = "meta-llama/Llama-3.2-1B"
+    cfg = PRESETS[model_id]
+    layers = cfg.num_hidden_layers
+    params = init_params(0, cfg, torch.bfloat16, device="cuda")
+    trace = poisson_trace(np.random.default_rng(HTTP_SEED), HTTP_REQUESTS, rate_rps=HTTP_RATE,
+                          prompt_len_range=HTTP_PROMPTS, max_new_tokens=HTTP_NEW,
+                          vocab_size=cfg.vocab_size, seed_base=HTTP_SEED)
+    _, num_blocks, max_seq_len = pool_geometry(HTTP_PROMPTS[1], HTTP_NEW, HTTP_SLOTS,
+                                               HTTP_BLOCK, HTTP_CHUNK)
+    checks: list[str] = []
+    # every engine a restart builds, and each retired engine's captured
+    # steps with their replay counts at retirement
+    built, retired = [], []
+    real_clone, real_retire = ServeEngine.clone_fresh, ServeEngine.retire
+
+    def clone_fresh(self):
+        eng = real_clone(self)
+        built.append(eng)
+        return eng
+
+    def retire(self, reason="superseded by a restart"):
+        if self.retired is None:
+            retired.append([(st, st.replays) for st in self.graph_steps()])
+        real_retire(self, reason)
+
+    def leg(where: str, leg_params, dtype, leg_trace, sampler, new_tokens: int,
+            spec: str | None, server_kwargs: dict) -> dict:
+        # what earlier engines left in reference cycles goes first, so
+        # that both legs' peaks start from the same reserved memory
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        injector = FaultInjector(spec, seed=HTTP_SEED) if spec else None
+        eng = ServeEngine(leg_params, cfg, sampler=sampler, max_slots=HTTP_SLOTS,
+                          num_blocks=num_blocks, block_size=HTTP_BLOCK, max_seq_len=max_seq_len,
+                          prefill_chunk=HTTP_CHUNK, cache_dtype=dtype, mixed_step="on",
+                          fault_injector=injector, device=torch.device("cuda"))
+        eng.warmup([int(t["prompt"].size) for t in leg_trace], new_tokens)
+        torch.cuda.synchronize()
+        graph_pool = sum(st.pool_bytes or 0 for st in eng.graph_steps())
+        pool_bytes = eng.pool.stats()["kv_bytes_total"]
+        built.clear()
+        retired.clear()
+        reset_counts(kernels)
+        d0, g0 = eng.n_dispatches, graph_totals()
+        res = http_leg(torch, np, eng, leg_trace, model_id, server_kwargs=server_kwargs,
+                       retries=4, cut_stream=False)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_reserved()
+        launches, graphs_run = read_counts(kernels), graph_delta(g0)
+        sup = res["sup"]
+        dispatches = eng.n_dispatches - d0 + sum(e.n_dispatches for e in built)
+        rebuild_captures = sum(r["captures"] for r in sup["rebuilds"])
+        if graphs_run != dict(captures=rebuild_captures, replays=dispatches,
+                              eager=rebuild_captures):
+            checks.append(f"{where}: {dispatches} ticks and {rebuild_captures} rebuild captures, "
+                          f"graphs ran {graphs_run}")
+        want_ragged = layers * (dispatches + rebuild_captures)
+        if launches["ragged_paged_attention"] != want_ragged:
+            checks.append(f"{where}: {launches['ragged_paged_attention']} ragged launches, "
+                          f"{want_ragged} implied")
+        late = [(st.name, n, st.replays) for steps in retired for st, n in steps
+                if st.replays != n or not st.retired]
+        if late or len(retired) != sup["restarts"]:
+            checks.append(f"{where}: {len(retired)} engines retired for {sup['restarts']} "
+                          f"restarts; steps replayed after retirement: {late}")
+        results = res["results"]
+        ok = [r for r in results if r["status"] == 200 and r["finish_reason"] == "length"
+              and len(r["token_ids"]) == new_tokens]
+        if len(ok) != len(leg_trace):
+            checks.append(f"{where}: {len(ok)} of {len(leg_trace)} answered with {new_tokens} "
+                          f"tokens: {[(r['status'], r['finish_reason']) for r in results]}")
+        bad_lines, samples = scrape_counters(res["prom"])
+        scrape = {k: samples.get(f"llm_serve_{k}") for k in (
+            "restarts_total", "faults_injected_total", "requests_recovered_total",
+            "recovery_latency_s_last", "requests_submitted_total", "requests_finished_total")}
+        if bad_lines or scrape["restarts_total"] != sup["restarts"]:
+            checks.append(f"{where} scrape: {scrape}, bad lines {bad_lines[:3]}")
+        ttft = [r["ttft_s"] for r in ok if r["ttft_s"] is not None]
+        tpot = [(r["latency_s"] - r["ttft_s"]) / (len(r["token_ids"]) - 1) for r in ok
+                if r["ttft_s"] is not None and len(r["token_ids"]) > 1]
+        generated = sum(len(r["token_ids"]) for r in results)
+        out = dict(leg=where, spec=spec, dtype=str(dtype).replace("torch.", ""),
+                   sampler=sampler.kind, answered=len(ok), restarts=sup["restarts"],
+                   recovery_latency_s=sup["recovery_latency_s"], rebuilds=sup["rebuilds"],
+                   injected=injector.snapshot() if injector else None, dispatches=dispatches,
+                   graphs=graphs_run, launches=launches, scrape=scrape,
+                   client_retries=sum(r.get("retries", 0) for r in results),
+                   peak_reserved_bytes=peak, pool_bytes=pool_bytes, graph_pool_bytes=graph_pool,
+                   wall_s=res["wall"], tok_s=generated / res["wall"],
+                   ttft_s_p50=_pct(np, ttft, 50), ttft_s_p99=_pct(np, ttft, 99),
+                   tpot_s_p50=_pct(np, tpot, 50),
+                   tokens={item["seed"]: r["token_ids"] for item, r in zip(leg_trace, results)})
+        del eng, res
+        built.clear()
+        retired.clear()
+        return out
+
+    def pair(where: str, leg_params, dtype, leg_trace, sampler, new_tokens: int, spec: str,
+             server_kwargs: dict) -> tuple[dict, dict]:
+        clean = leg(f"{where} clean", leg_params, dtype, leg_trace, sampler, new_tokens, None,
+                    server_kwargs)
+        chaos = leg(f"{where} chaos", leg_params, dtype, leg_trace, sampler, new_tokens, spec,
+                    server_kwargs)
+        if clean["restarts"]:
+            checks.append(f"{where}: the clean leg restarted {clean['restarts']} times")
+        return clean, chaos
+
+    ServeEngine.clone_fresh, ServeEngine.retire = clone_fresh, retire
+    try:
+        sup_kw = dict(tick_deadline=CHAOS_DEADLINE, max_restarts=CHAOS_RESTARTS,
+                      restart_backoff_s=CHAOS_BACKOFF)
+        clean, chaos = pair("chaos bf16", params, torch.bfloat16, trace, Sampler("greedy"),
+                            HTTP_NEW, CHAOS_SPEC, sup_kw)
+        if chaos["restarts"] < 2:
+            checks.append(f"chaos bf16: {chaos['restarts']} restarts, 2 expected")
+        growth = chaos["peak_reserved_bytes"] - clean["peak_reserved_bytes"]
+        allowed = clean["pool_bytes"] + clean["graph_pool_bytes"]
+        memory = dict(clean_peak=clean["peak_reserved_bytes"],
+                      chaos_peak=chaos["peak_reserved_bytes"], growth=growth,
+                      pool_plus_graph_pools=allowed, ok=growth <= allowed)
+        if not memory["ok"]:
+            checks.append(f"chaos bf16 peak reserved memory: {memory}")
+        gaps = []
+        for item in trace:
+            gap = first_divergence(torch, forward, params, cfg, item["prompt"],
+                                   chaos["tokens"][item["seed"]], clean["tokens"][item["seed"]])
+            if gap is not None:
+                gaps.append(gap)
+        parity = dict(identical=HTTP_REQUESTS - len(gaps), divergence_top2_gaps=gaps,
+                      tol=TEACHER_TOL, ok=all(g <= TEACHER_TOL for g in gaps))
+        if not parity["ok"]:
+            checks.append(f"chaos bf16 parts from the clean leg away from a near-tie: {parity}")
+        tf = teacher_forced_requests(
+            torch, forward, params, cfg,
+            [SimpleNamespace(prompt=item["prompt"], generated=chaos["tokens"][item["seed"]])
+             for item in trace if chaos["tokens"][item["seed"]]], TEACHER_TOL)
+        if not tf["ok"] or tf["requests"] != HTTP_REQUESTS:
+            checks.append(f"chaos bf16 teacher-forced: {tf}")
+
+        f32 = float32_params(params)
+        del params
+        f32_trace = [dict(item, max_new_tokens=F32_CHAOS_TOKENS)
+                     for item in trace[:F32_CHAOS_REQUESTS]]
+        f32_kw = dict(tick_deadline=F32_CHAOS_DEADLINE, max_restarts=CHAOS_RESTARTS,
+                      restart_backoff_s=CHAOS_BACKOFF)
+        float32 = {}
+        for name, sampler in SERVE_SAMPLERS.items():
+            fc, fx = pair(f"chaos float32 {name}", f32, torch.float32, f32_trace,
+                          Sampler(name, **sampler), F32_CHAOS_TOKENS, F32_CHAOS_SPEC, f32_kw)
+            same = sum(fx["tokens"][k] == v for k, v in fc["tokens"].items())
+            float32[name] = dict(identical=same, requests=F32_CHAOS_REQUESTS,
+                                 restarts=fx["restarts"], injected=fx["injected"],
+                                 recovery_latency_s=fx["recovery_latency_s"],
+                                 rebuilds=fx["rebuilds"],
+                                 ok=same == F32_CHAOS_REQUESTS and fx["restarts"] == 2)
+            if not float32[name]["ok"]:
+                checks.append(f"chaos float32 {name}: {float32[name]}")
+        del f32
+    finally:
+        ServeEngine.clone_fresh, ServeEngine.retire = real_clone, real_retire
+    torch.cuda.empty_cache()
+    for one in (clean, chaos):
+        del one["tokens"]
+    return dict(phase="chaos", model=model_id, layers=layers, weights="seeded random bf16",
+                card=card,
+                trace=dict(requests=HTTP_REQUESTS, rate_rps=HTTP_RATE, prompt_len=HTTP_PROMPTS,
+                           new_tokens=HTTP_NEW, seed=HTTP_SEED),
+                engine=dict(max_slots=HTTP_SLOTS, block_size=HTTP_BLOCK,
+                            prefill_chunk=HTTP_CHUNK, num_blocks=num_blocks,
+                            max_seq_len=max_seq_len, mixed_step="on", sampler="greedy"),
+                supervision=dict(spec=CHAOS_SPEC, tick_deadline=CHAOS_DEADLINE,
+                                 restart_backoff_s=CHAOS_BACKOFF, max_restarts=CHAOS_RESTARTS),
+                legs=[clean, chaos], memory=memory, parity_vs_clean=parity, teacher_forced=tf,
+                float32=dict(spec=F32_CHAOS_SPEC, tick_deadline=F32_CHAOS_DEADLINE,
+                             new_tokens=F32_CHAOS_TOKENS, **float32),
+                checks=checks, ok=not checks)
+
+
+def serve_child(argv: list[str]) -> int:
+    """``--serve-child``: serve the http phase's model and engine from this
+    process until SIGTERM (the restart phase's server), with a request
+    journal and a chaos spec when given."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--serve-child", action="store_true")
+    ap.add_argument("--port", type=int, default=0)
+    ap.add_argument("--port-file", required=True)
+    ap.add_argument("--journal")
+    ap.add_argument("--chaos")
+    args = ap.parse_args(argv)
+
+    import numpy as np
+    import torch
+
+    from llm_np_cp_tpu_torch.config import PRESETS
+    from llm_np_cp_tpu_torch.models.transformer import init_params
+    from llm_np_cp_tpu_torch.ops.sampling import Sampler
+    from llm_np_cp_tpu_torch.serve import (FaultInjector, RequestJournal, ServeEngine,
+                                           poisson_trace, pool_geometry)
+    from llm_np_cp_tpu_torch.serve.http.server import serve_forever
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card visible", file=sys.stderr)
+        return 1
+    model_id = "meta-llama/Llama-3.2-1B"
+    cfg = PRESETS[model_id]
+    trace = poisson_trace(np.random.default_rng(HTTP_SEED), HTTP_REQUESTS, rate_rps=HTTP_RATE,
+                          prompt_len_range=HTTP_PROMPTS, max_new_tokens=HTTP_NEW,
+                          vocab_size=cfg.vocab_size, seed_base=HTTP_SEED)
+    _, num_blocks, max_seq_len = pool_geometry(HTTP_PROMPTS[1], HTTP_NEW, HTTP_SLOTS,
+                                               HTTP_BLOCK, HTTP_CHUNK)
+    eng = ServeEngine(init_params(0, cfg, torch.bfloat16, device="cuda"), cfg,
+                      sampler=Sampler("greedy"), max_slots=HTTP_SLOTS, num_blocks=num_blocks,
+                      block_size=HTTP_BLOCK, max_seq_len=max_seq_len, prefill_chunk=HTTP_CHUNK,
+                      cache_dtype=torch.bfloat16, mixed_step="on", device=torch.device("cuda"),
+                      journal=RequestJournal(args.journal) if args.journal else None,
+                      fault_injector=FaultInjector(args.chaos) if args.chaos else None)
+    eng.warmup([int(t["prompt"].size) for t in trace], HTTP_NEW)
+    torch.cuda.synchronize()
+    serve_forever(eng, model_id=model_id, host="127.0.0.1", port=args.port,
+                  port_file=args.port_file, drain_timeout=60.0)
+    return 0
+
+
+def restart_phase(torch, np, card: str) -> dict:
+    """The JAX bench's serve_restart_poisson: the http phase's trace
+    against a server in a child process — a plain leg, a journaled leg,
+    and a leg whose child SIGKILLs itself at its RESTART_KILL_TICK-th busy
+    tick (proc_kill), restarted on the same port and journal while every
+    client resumes its stream by Last-Event-ID."""
+    import asyncio
+    import os
+    import shutil
+    import signal
+    from types import SimpleNamespace
+
+    from llm_np_cp_tpu_torch.config import PRESETS
+    from llm_np_cp_tpu_torch.models.transformer import forward, init_params
+    from llm_np_cp_tpu_torch.serve import poisson_trace
+    from llm_np_cp_tpu_torch.serve.http.client import astream_completion, http_get
+
+    model_id = "meta-llama/Llama-3.2-1B"
+    cfg = PRESETS[model_id]
+    params = init_params(0, cfg, torch.bfloat16, device="cuda")
+    trace = poisson_trace(np.random.default_rng(HTTP_SEED), HTTP_REQUESTS, rate_rps=HTTP_RATE,
+                          prompt_len_range=HTTP_PROMPTS, max_new_tokens=HTTP_NEW,
+                          vocab_size=cfg.vocab_size, seed_base=HTTP_SEED)
+    # the journals and the children's logs, under the checkout's
+    # smoke_out/ (gitignored), made anew: a stale journal would replay
+    tmp = os.path.join(os.path.dirname(os.path.abspath(__file__)), "smoke_out", "restart")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    checks: list[str] = []
+    children: list = []
+
+    def spawn(tag: str, port: int = 0, journal: str | None = None,
+              chaos: str | None = None) -> tuple:
+        """Start a child server; → (process, port, seconds to its port file)."""
+        pf = os.path.join(tmp, f"port_{tag}")
+        cmd = [sys.executable, os.path.abspath(__file__), "--serve-child", "--port", str(port),
+               "--port-file", pf]
+        if journal:
+            cmd += ["--journal", journal]
+        if chaos:
+            cmd += ["--chaos", chaos]
+        log = open(os.path.join(tmp, f"log_{tag}"), "w")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+        children.append(proc)
+        while not os.path.exists(pf):
+            if proc.poll() is not None or time.perf_counter() - t0 > 300:
+                raise RuntimeError(f"child {tag} did not start: {log_tail(tag)}")
+            time.sleep(0.05)
+        while not open(pf).read().endswith("\n"):
+            time.sleep(0.01)
+        return proc, int(open(pf).read().split()[1]), time.perf_counter() - t0
+
+    def log_tail(tag: str) -> str:
+        with open(os.path.join(tmp, f"log_{tag}")) as f:
+            return f.read()[-2000:]
+
+    def stop(proc) -> None:
+        proc.send_signal(signal.SIGTERM)
+        proc.wait(timeout=120)
+
+    def scrape(port: int) -> dict:
+        _, raw = http_get("127.0.0.1", port, "/metrics")
+        return scrape_counters(raw.decode())[1]
+
+    async def clients(port: int, retries: int) -> tuple[list, float]:
+        async def one(item):
+            await asyncio.sleep(item["arrival_s"])
+            return await astream_completion(
+                "127.0.0.1", port,
+                {"model": model_id, "prompt": [int(t) for t in item["prompt"]],
+                 "max_tokens": item["max_new_tokens"], "seed": item["seed"]},
+                timeout=300.0, retries=retries, backoff_s=0.25, max_backoff_s=1.0)
+
+        t0 = time.perf_counter()
+        results = await asyncio.gather(*(one(item) for item in trace))
+        return results, time.perf_counter() - t0
+
+    def served(tag: str, journal: str | None) -> dict:
+        proc, port, startup = spawn(tag, journal=journal)
+        results, wall = asyncio.run(clients(port, retries=0))
+        samples = scrape(port)
+        stop(proc)
+        generated = sum(len(r["token_ids"]) for r in results)
+        return dict(leg=tag, startup_s=startup, wall_s=wall, tok_s=generated / wall,
+                    answered=sum(r["status"] == 200 and len(r["token_ids"]) == HTTP_NEW
+                                 for r in results),
+                    journal_fsync_p99_s=samples.get("llm_serve_journal_fsync_p99_s"),
+                    journal_records=samples.get("llm_serve_journal_records_total"),
+                    tokens={item["seed"]: r["token_ids"] for item, r in zip(trace, results)})
+
+    try:
+        plain = served("plain", None)
+        journaled = served("journaled", os.path.join(tmp, "journal_journaled"))
+        jpath = os.path.join(tmp, "journal_kill")
+        first, port, startup = spawn("kill", journal=jpath, chaos=f"proc_kill@{RESTART_KILL_TICK}")
+        restarted = {}
+
+        async def kill_leg():
+            loop = asyncio.get_running_loop()
+            streams = asyncio.ensure_future(clients(port, retries=200))
+            code = await loop.run_in_executor(None, first.wait)
+            restarted["killed_at"] = time.perf_counter()
+            restarted["exit_code"] = code
+            proc, _, secs = await loop.run_in_executor(
+                None, lambda: spawn("restarted", port=port, journal=jpath))
+            restarted.update(proc=proc, startup_s=secs)
+            return await streams
+
+        results, wall = asyncio.run(kill_leg())
+        samples = scrape(port)
+        stop(restarted["proc"])
+    finally:
+        for proc in children:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    resume = [r["resume_latency_s"] for r in results if r.get("resume_latency_s") is not None]
+    complete = [r for r in results if r["status"] == 200 and r["finish_reason"] == "length"
+                and len(r["token_ids"]) == HTTP_NEW]
+    kill = dict(exit_code=restarted["exit_code"], startup_s=startup,
+                restart_startup_s=restarted["startup_s"], wall_s=wall, complete=len(complete),
+                resumed_streams=sum(r["resumed"] > 0 for r in results),
+                resend_retries=sum(r["retries"] - r["resumed"] for r in results),
+                restart_to_first_resumed_token_s=dict(
+                    p50=_pct(np, resume, 50), max=max(resume) if resume else None,
+                    min=min(resume) if resume else None),
+                journal_replayed_total=samples.get("llm_serve_journal_replayed_total"),
+                journal_resumed_total=samples.get("llm_serve_journal_resumed_total"),
+                journal_epoch=samples.get("llm_serve_journal_epoch"))
+    if kill["exit_code"] != -signal.SIGKILL or len(complete) != HTTP_REQUESTS:
+        checks.append(f"restart: exit {kill['exit_code']}, {len(complete)} of {HTTP_REQUESTS} "
+                      f"streams complete: {[(r['status'], r['finish_reason'], len(r['token_ids'])) for r in results]}")
+    if not kill["resumed_streams"] or not kill["journal_replayed_total"]:
+        checks.append(f"restart: nothing resumed through the journal: {kill}")
+    for leg in (plain, journaled):
+        if leg["answered"] != HTTP_REQUESTS:
+            checks.append(f"restart {leg['leg']}: {leg['answered']} of {HTTP_REQUESTS} answered")
+    gaps = []
+    for item, r in zip(trace, results):
+        gap = first_divergence(torch, forward, params, cfg, item["prompt"], r["token_ids"],
+                               plain["tokens"][item["seed"]])
+        if gap is not None:
+            gaps.append(gap)
+    parity = dict(identical=HTTP_REQUESTS - len(gaps), divergence_top2_gaps=gaps,
+                  tol=TEACHER_TOL, ok=all(g <= TEACHER_TOL for g in gaps))
+    if not parity["ok"]:
+        checks.append(f"restart: streams part from the plain leg away from a near-tie: {parity}")
+    tf = teacher_forced_requests(
+        torch, forward, params, cfg,
+        [SimpleNamespace(prompt=item["prompt"], generated=r["token_ids"])
+         for item, r in zip(trace, results) if r["token_ids"]], TEACHER_TOL)
+    if not tf["ok"] or tf["requests"] != HTTP_REQUESTS:
+        checks.append(f"restart teacher-forced: {tf}")
+    for leg in (plain, journaled):
+        del leg["tokens"]
+    del params
+    torch.cuda.empty_cache()
+    return dict(phase="restart", model=model_id, weights="seeded random bf16", card=card,
+                trace=dict(requests=HTTP_REQUESTS, rate_rps=HTTP_RATE, prompt_len=HTTP_PROMPTS,
+                           new_tokens=HTTP_NEW, seed=HTTP_SEED),
+                kill_tick=RESTART_KILL_TICK, legs=dict(plain=plain, journaled=journaled),
+                journaled_over_plain_tok_s=journaled["tok_s"] / plain["tok_s"], kill=kill,
+                parity_vs_plain=parity, teacher_forced=tf, checks=checks, ok=not checks)
+
+
 KERNEL_META = {
     "flash_attention": ("llm_np_cp_tpu_torch/csrc/flash_attention.cu",
                         "llm_np_cp_tpu/ops/pallas/flash_attention.py:180"),
@@ -2847,6 +3316,8 @@ KERNEL_META = {
 
 
 def main() -> int:
+    if "--serve-child" in sys.argv[1:]:
+        return serve_child(sys.argv[1:])
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write every result line (and the ptxas report) to this JSON file")
     args = ap.parse_args()
@@ -2968,6 +3439,14 @@ def main() -> int:
     record(hp)
     if not hp["ok"]:
         raise AssertionError("http checks failed: " + json.dumps(hp["checks"], default=str))
+    cp = chaos_phase(torch, np, kernels, smi)
+    record(cp)
+    if not cp["ok"]:
+        raise AssertionError("chaos checks failed: " + json.dumps(cp["checks"], default=str))
+    rp = restart_phase(torch, np, smi)
+    record(rp)
+    if not rp["ok"]:
+        raise AssertionError("restart checks failed: " + json.dumps(rp["checks"], default=str))
 
     path_launches = dict(mp["launches"])
     path_launches["ragged_paged_attention"] = sv["legs"]["A_mixed"]["launches"][

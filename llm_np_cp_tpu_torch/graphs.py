@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import threading
 import time
 from typing import Callable, Iterator
 
@@ -43,6 +44,13 @@ TOTALS = {"captures": 0, "replays": 0, "eager": 0, "capture_s": 0.0, "pool_bytes
 
 
 _EAGER = [0]
+
+# the stream each device's first (eager) calls run on: one a device for
+# the process, since every stream a step runs on gets a cuBLAS workspace
+# of its own from the caching allocator, kept until the process ends — a
+# new stream a capture would grow reserved memory with every engine
+# rebuilt after a restart
+_SIDE_STREAMS: dict[torch.device, torch.cuda.Stream] = {}
 
 
 @contextlib.contextmanager
@@ -92,6 +100,9 @@ class CapturedStep:
         self.calls = self.replays = 0
         self.capture_s: float | None = None
         self.pool_bytes: int | None = None
+        # set by ``retire``; the lock makes a replay and a retire exclusive
+        self.retired = False
+        self._lock = threading.Lock()
 
     @property
     def compiled(self) -> bool:
@@ -99,20 +110,41 @@ class CapturedStep:
         eagerly: the step has been built and run)."""
         return self.graph is not None if self.device.type == "cuda" else self.calls > 0
 
+    def retire(self) -> None:
+        """Drop the graph and refuse every later call: after its engine is
+        retired, the memory the graph would replay into may belong to the
+        engine that replaced it (a replay after a free does not fail, it
+        writes whatever now lives there)."""
+        with self._lock:
+            self.retired = True
+            if self.graph is not None:
+                self.graph.reset()
+            self.graph = None
+
+    def _refuse(self) -> None:
+        raise RuntimeError(f"{self.name}: this step's engine was retired; nothing replays it")
+
     def __call__(self) -> None:
+        if self.retired:
+            self._refuse()
         self.calls += 1
         if self.device.type != "cuda" or _EAGER[0]:
             self.fn()
             return
         if self.graph is not None:
-            self.graph.replay()
+            with self._lock:
+                if self.retired:
+                    self._refuse()
+                self.graph.replay()
             self.replays += 1
             TOTALS["replays"] += 1
             for fn, attr, n in self.deltas:
                 setattr(fn, attr, getattr(fn, attr) + n)
             return
         cur = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
+        side = _SIDE_STREAMS.get(self.device)
+        if side is None:
+            side = _SIDE_STREAMS.setdefault(self.device, torch.cuda.Stream(self.device))
         side.wait_stream(cur)
         with torch.cuda.stream(side):
             self.fn()
@@ -151,7 +183,11 @@ class CapturedStep:
         self.capture_s = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
         self.deltas = tuple(m for m in moved if m[2])
-        self.graph = graph
+        with self._lock:
+            if self.retired:
+                graph.reset()
+                self._refuse()
+            self.graph = graph
         TOTALS["captures"] += 1
         TOTALS["capture_s"] += self.capture_s
         TOTALS["pool_bytes"] += self.pool_bytes

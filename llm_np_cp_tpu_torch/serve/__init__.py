@@ -31,16 +31,28 @@ Modules:
   protocol uses (the tenant ledger is a later slice).
 - ``tracing``      — the W3C ``traceparent`` helpers (the trace
   recorder is a later slice).
+- ``faults``       — ``FaultInjector``: the seeded chaos schedule whose
+  sites the engine, the HTTP runner, the journal and checkpoint loading
+  trip; the runner's supervised restart rebuilds a dead engine
+  (``ServeEngine.clone_fresh``) and replays its streams (``recover``).
+- ``journal``      — ``RequestJournal``: the CRC-framed, fsync'd record of
+  admissions, delivery watermarks and terminals that a restarted process
+  replays (``scan_journal`` reads it).
+- ``request_log``  — ``RequestLog``: one JSON line per terminal request
+  (``read_request_log`` reads it).
 
-The supervised restart, journal, fleet, lifecycle, SLO, tenant ledger,
-trace recorder and CLI layers of the JAX package are later slices.
+The fleet, lifecycle, SLO, tenant ledger, trace recorder and CLI layers
+of the JAX package are later slices.
 """
 
 from llm_np_cp_tpu_torch.serve.block_pool import BlockPool, FreeList, PagedKV
+from llm_np_cp_tpu_torch.serve.faults import FaultInjected, FaultInjector
 from llm_np_cp_tpu_torch.serve.host_tier import HostBlock, HostTier, HostTierError
 from llm_np_cp_tpu_torch.serve.engine import ServeEngine, pool_geometry, worst_case_slots
+from llm_np_cp_tpu_torch.serve.journal import RequestJournal, scan_journal
 from llm_np_cp_tpu_torch.serve.metrics import ServeMetrics
 from llm_np_cp_tpu_torch.serve.prefix_cache import PrefixCache, prefix_block_keys
+from llm_np_cp_tpu_torch.serve.request_log import RequestLog, read_request_log
 from llm_np_cp_tpu_torch.serve.scheduler import (
     QueueFull,
     Request,
@@ -54,6 +66,8 @@ from llm_np_cp_tpu_torch.serve.trace import poisson_trace, replay_arrivals
 __all__ = [
     "BlockPool",
     "DraftState",
+    "FaultInjected",
+    "FaultInjector",
     "FreeList",
     "HostBlock",
     "HostTier",
@@ -62,6 +76,8 @@ __all__ = [
     "PrefixCache",
     "QueueFull",
     "Request",
+    "RequestJournal",
+    "RequestLog",
     "RequestState",
     "Scheduler",
     "ServeEngine",
@@ -70,6 +86,8 @@ __all__ = [
     "poisson_trace",
     "pool_geometry",
     "prefix_block_keys",
+    "read_request_log",
     "replay_arrivals",
+    "scan_journal",
     "worst_case_slots",
 ]

@@ -228,7 +228,9 @@ class BlockPool:
             self.prefix_cache.n_reclaimable
             if self.prefix_cache is not None else 0
         )
-        total = int(sum(a.numel() * a.element_size() for a in self.pages if a is not None))
+        # a retired engine's pool has released its pages
+        total = 0 if self.pages is None else int(
+            sum(a.numel() * a.element_size() for a in self.pages if a is not None))
         return {
             "capacity": self.capacity,
             "free": self.free_list.num_free,

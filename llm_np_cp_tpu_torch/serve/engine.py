@@ -88,13 +88,26 @@ capture holds the tier's writer off the card (``HostTier.quiesce``).
 A copy that fails raises; only a missing host block falls back to
 re-prefill.
 
+Faults and recovery, as in the JAX engine: a seeded ``fault_injector``
+(``serve/faults.py``) fires the ``prefill``, ``decode`` and ``host_sync``
+sites; ``recover`` resubmits an in-flight request into a rebuilt engine
+with its delivered tokens teacher-forced, ``finish_recovered`` closes
+one that needs no re-run, and ``clone_fresh`` rebuilds the engine with
+an empty pool; the ``journal`` (``serve/journal.py``) records
+admissions, one delivery watermark a tick and terminals, and the
+``request_log`` (``serve/request_log.py``) one line per terminal.  Where
+the card differs: a ``decode`` fault raises (the JAX engine degrades the
+kernel to its XLA sibling first; here nothing falls back, so a dispatch
+fault ends in a supervised restart), and a rebuild cannot share the
+dead engine's compiled steps — ``retire`` drops its graphs and pages
+(its ``step`` raises from then on, so no graph replays into memory the
+clone now owns), and the clone captures its own before it serves.
+
 What the port leaves out, as the JAX package has it: donation (pages are
 updated in place) and the runtime degradation to XLA fallbacks — on the
 card a kernel launches or raises, and a step captures or raises; nothing
-falls back.  Meshes, the journal, request log, tracer, sentinel,
-lifecycle actions, telemetry, tenants and fault injection raise
-``NotImplementedError``; ``recover``,
-``finish_recovered`` and ``clone_fresh`` are not defined yet, nor is
+falls back.  Meshes, the tracer, sentinel, lifecycle actions, telemetry
+and tenants raise ``NotImplementedError``, and so does
 ``share_compiled_steps``: a graph replays its own engine's pool and
 weight addresses, so a peer engine cannot adopt it.
 """
@@ -128,11 +141,15 @@ from llm_np_cp_tpu_torch.ops.cuda import decode_attention as _da
 from llm_np_cp_tpu_torch.ops.rope import rope_cos_sin
 from llm_np_cp_tpu_torch.ops.sampling import Sampler
 from llm_np_cp_tpu_torch.serve.block_pool import BlockPool
+from llm_np_cp_tpu_torch.serve.faults import FaultInjected, FaultInjector
 from llm_np_cp_tpu_torch.serve.host_tier import HostTier
+from llm_np_cp_tpu_torch.serve.journal import RequestJournal
 from llm_np_cp_tpu_torch.serve.metrics import ServeMetrics
 from llm_np_cp_tpu_torch.serve.prefix_cache import prefix_block_keys
+from llm_np_cp_tpu_torch.serve.request_log import RequestLog, request_record
 from llm_np_cp_tpu_torch.serve.scheduler import QueueFull, Request, RequestState, Scheduler
 from llm_np_cp_tpu_torch.serve.spec import DraftState
+from llm_np_cp_tpu_torch.serve.tracing import gen_trace_id
 
 Params = dict[str, Any]
 
@@ -142,9 +159,8 @@ GLOBAL_WINDOW = 1 << 30
 # keyword → value that means "off", for the JAX engine's options the port
 # does not have yet
 _NOT_PORTED = {
-    "mesh_plan": None, "journal": None,
-    "request_log": None, "tracer": None, "sentinel": None, "actions": None,
-    "telemetry": None, "tenants": None, "fault_injector": None,
+    "mesh_plan": None, "tracer": None, "sentinel": None, "actions": None,
+    "telemetry": None, "tenants": None,
 }
 
 
@@ -367,6 +383,9 @@ class ServeEngine:
         spec_min_accept: float = 0.1,
         spec_window: int = 64,
         host_tier: HostTier | None = None,
+        fault_injector: FaultInjector | None = None,
+        journal: RequestJournal | None = None,
+        request_log: RequestLog | None = None,
         device: str | torch.device = "cuda",
         **not_ported: Any,
     ) -> None:
@@ -415,6 +434,8 @@ class ServeEngine:
         self.params = params
         self.config = config
         self.decode_attn_impl = decode_attn_impl
+        self.mixed_step_mode = mixed_step
+        self.sample_epilogue_mode = sample_epilogue
         self.mixed = mixed_step != "off"  # "auto" = "on": no probe to consult
         self.sampler = sampler or Sampler(kind="greedy")
         self.stop_tokens = tuple(stop_tokens)
@@ -482,14 +503,23 @@ class ServeEngine:
             self.metrics.on_tier_gauge(
                 resident_bytes=host_tier.resident_bytes,
                 breakeven=host_tier.breakeven_ratio(self.block_size))
+        # seeded chaos schedule (serve/faults.py), the durable request
+        # journal (serve/journal.py) and the canonical request log
+        # (serve/request_log.py): None = every hook is an is-None check
+        self.faults = fault_injector
+        self.journal = journal
+        self.request_log = request_log
         # what the HTTP server reads of the JAX engine's later layers, at
         # the values that engine holds with them off: the weight version
         # a rolling upgrade bumps, the runtime degradation to an XLA
-        # fallback (none here: a kernel launches or raises), the tracer,
-        # lifecycle actions, fault injector, journal and tenant ledger
+        # fallback (none here: a kernel launches or raises, and a
+        # dispatch fault ends in a supervised restart), the tracer,
+        # lifecycle actions and tenant ledger
         self.weights_version = 0
         self.decode_degraded: str | None = None
-        self.tracer = self.actions = self.faults = self.journal = self.tenants = None
+        self.tracer = self.actions = self.tenants = None
+        # set by ``retire``: a superseded engine's step raises
+        self.retired: str | None = None
         self._next_id = 0
         self._detok: dict[int, IncrementalDetok] = {}
         # live (queued or running) requests by id — the abort/deadline index
@@ -1079,12 +1109,17 @@ class ServeEngine:
         trace_id: str | None = None,
         speculative: bool = False,
         tenant: str = "default",
+        _recovered: bool = False,
     ) -> Request:
         """Queue a request.  ``speculative=True`` opts it into draft-then-
-        verify (inert on an engine built without ``spec_k``).  ``trace_id``
-        (the W3C trace id the HTTP server parsed or generated) is kept in
-        ``req.extra["trace"]``; ``tenant`` is recorded on the request only,
-        as the JAX engine records it with no tenant ledger attached."""
+        verify (inert on an engine built without ``spec_k``, kept so that a
+        replay onto a spec engine resumes drafting).  ``trace_id`` (the W3C
+        trace id the HTTP server parsed or generated; minted here when a
+        request log will record it) is kept in ``req.extra["trace"]``;
+        ``tenant`` is recorded on the request only, as the JAX engine
+        records it with no tenant ledger attached.  ``_recovered`` is
+        ``recover``'s resubmit: exempt from the queue cap, counted as a
+        recovery, and journaled by ``recover`` once its tokens are seeded."""
         prompt = np.asarray(prompt_ids, dtype=np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")
@@ -1127,16 +1162,25 @@ class ServeEngine:
         req.submit_time = self.clock()
         if deadline_s is not None:
             req.deadline = req.submit_time + deadline_s
+        if trace_id is None and self.request_log is not None:
+            trace_id = gen_trace_id()
         if trace_id is not None:
             req.extra["trace"] = trace_id
         req.extra["weights_version"] = self.weights_version
         try:
-            self.scheduler.add(req)
+            self.scheduler.add(req, exempt_cap=_recovered)
         except QueueFull:
             self.metrics.on_reject()
             raise
-        self.metrics.on_submit(req)
+        if _recovered:
+            # counted at its original submit (the metrics survive the
+            # restart): record the recovery itself instead
+            self.metrics.on_recover()
+        else:
+            self.metrics.on_submit(req)
         self._requests[req.req_id] = req
+        if self.journal is not None and not _recovered:
+            self.journal.admit(req, now=self.clock())
         if self.tokenizer is not None:
             self._detok[req.req_id] = IncrementalDetok(self.tokenizer)
         return req
@@ -1182,6 +1226,12 @@ class ServeEngine:
             self._draft_states.pop(req.req_id, None)
             self._flush_detok(req)
             self.metrics.on_finish(req)
+            if self.journal is not None:
+                # the finishing tick's delta first (the request leaves the
+                # live set before the tick's watermark), then the terminal
+                self.journal.end_tick((req,))
+                self.journal.terminal(req.req_id, req.finish_reason)
+            self._log_request(req, req.finish_reason)
             self._emit_event(req, req.finish_reason)
             return True
         return False
@@ -1201,6 +1251,10 @@ class ServeEngine:
         req.finish_time = self.clock()
         self._flush_detok(req)
         self.metrics.on_abort(req)
+        if self.journal is not None:
+            self.journal.end_tick((req,))
+            self.journal.terminal(req.req_id, "aborted")
+        self._log_request(req, "aborted")
         self._emit_event(req, "aborted")
         return True
 
@@ -1224,6 +1278,217 @@ class ServeEngine:
             self.metrics.on_prefix(requested=len(keys), hits=req.n_shared_blocks)
 
     # ------------------------------------------------------------------
+    # Recovery: replay into a rebuilt engine (the supervised restart and
+    # the journal's process restart)
+    # ------------------------------------------------------------------
+    def recover(
+        self,
+        prompt_ids: np.ndarray | list[int],
+        max_new_tokens: int,
+        *,
+        request_id: int,
+        seed: int = 0,
+        generated: list[int] | tuple[int, ...] = (),
+        callback: Callable[[Request, int, str | None], None] | None = None,
+        on_event: Callable[[Request, str], None] | None = None,
+        deadline_s: float | None = None,
+        deadline_at: float | None = None,
+        trace_id: str | None = None,
+        lineage: dict | None = None,
+        speculative: bool = False,
+        tenant: str = "default",
+        weights_version: int | None = None,
+    ) -> Request:
+        """Resubmit a request that was in flight when a previous engine (or
+        process) died, with its delivered tokens teacher-forced: the
+        evict-requeue discipline across a rebuild.  ``generated`` pre-seeds
+        the request, so its prefill runs over prompt + generated and its
+        later rows are keyed by (seed, content position) as before; the
+        pre-seeded tokens are not re-emitted through the callback.  On the
+        card the replay prefills, through prefill tiles, positions the first
+        run decoded: in float32 the continuation equals the uninterrupted
+        one, in bf16 it may part from it at a near-tie.
+
+        ``trace_id`` continues the request's trace; ``lineage`` carries the
+        ``replays`` / ``drains`` counts the request log reports; with
+        ``speculative`` a spec engine's replay resumes drafting.  Deadlines
+        resume the remaining budget: ``deadline_at`` is the original
+        absolute deadline on the engine clock (``clone_fresh`` shares the
+        clock), and one that expired while the engine was down is swept on
+        the first tick; ``deadline_s`` is a fresh window instead.  A request
+        already at its budget needs only its finish (``finish_recovered``)."""
+        if deadline_s is not None and deadline_at is not None:
+            raise ValueError("pass deadline_s or deadline_at, not both")
+        if len(generated) >= max_new_tokens:
+            raise ValueError(
+                f"request {request_id} already generated {len(generated)}/{max_new_tokens} "
+                "tokens; deliver its finish event instead of recovering it")
+        req = self.submit(
+            prompt_ids, max_new_tokens, request_id=request_id, seed=seed,
+            callback=callback, on_event=on_event, deadline_s=deadline_s,
+            trace_id=trace_id, speculative=speculative, tenant=tenant, _recovered=True,
+        )
+        if deadline_at is not None:
+            req.deadline = deadline_at
+        req.generated = [int(t) for t in generated]
+        if weights_version is not None:
+            req.extra["weights_version"] = int(weights_version)
+        if lineage:
+            # before the journal's re-admission, so a second crash replays
+            # the lineage with the token state
+            req.extra.update({k: int(v) for k, v in lineage.items()
+                              if k in ("replays", "drains")})
+        if self.journal is not None:
+            self.journal.admit(req, now=self.clock())
+        detok = self._detok.get(req.req_id)
+        if detok is not None:
+            # the next delta continues the client's text exactly; the
+            # replayed tokens' deltas were delivered before the crash
+            for tok in req.generated:
+                detok.push(tok)
+        return req
+
+    def finish_recovered(
+        self,
+        prompt_ids: np.ndarray | list[int],
+        max_new_tokens: int,
+        *,
+        request_id: int,
+        generated: list[int] | tuple[int, ...],
+        reason: str,
+        trace_id: str | None = None,
+        lineage: dict | None = None,
+        tenant: str = "default",
+        weights_version: int | None = None,
+    ) -> str | None:
+        """Terminal bookkeeping for a recovered request that needs no re-run
+        (every token generated before the crash, only its finish lost) or
+        that recovery dropped: the finish or abort is counted in the
+        metrics (which survive the rebuild), journaled and logged.  Returns
+        the detokenizer's held-back tail text for the caller to deliver."""
+        req = Request(
+            req_id=request_id,
+            prompt=np.asarray(prompt_ids, dtype=np.int32).reshape(-1),
+            max_new_tokens=max_new_tokens,
+        )
+        req.generated = [int(t) for t in generated]
+        req.finish_reason = reason
+        req.tenant = tenant
+        if trace_id is not None:
+            req.extra["trace"] = trace_id
+        req.extra["weights_version"] = int(
+            weights_version if weights_version is not None else self.weights_version)
+        if lineage:
+            req.extra.update({k: int(v) for k, v in lineage.items()
+                              if k in ("replays", "drains")})
+        if self.journal is not None:
+            self.journal.terminal(request_id, reason)
+        if reason == "aborted":
+            self.metrics.on_abort(req)
+        else:
+            self.metrics.on_finish(req)
+        self._log_request(req, reason)
+        if self.tokenizer is None or not req.generated:
+            return None
+        detok = IncrementalDetok(self.tokenizer)
+        for tok in req.generated:
+            detok.push(tok)
+        return detok.flush() or None
+
+    def retire(self, reason: str = "superseded by a restart") -> None:
+        """Take this engine out of service before its replacement is built:
+        every captured step drops its graph and raises if called again
+        (the memory a graph replays into may belong to the replacement by
+        then), the pool's pages are released (a late eager write fails on
+        them, as a JAX engine's does on its deleted buffers), and ``step``
+        raises.  The shapes it had captured are kept for ``clone_fresh``.
+        Idempotent."""
+        if self.retired is not None:
+            return
+        self._captured_shapes = (
+            sorted(t for t, st in self._mixed_steps.items() if st.run.compiled),
+            self._split_step is not None and self._split_step.run.compiled,
+        )
+        self.retired = reason
+        for run in self.graph_steps():
+            run.retire()
+        self._mixed_steps = {}
+        self._split_step = None
+        self.pool.pages = None
+
+    def clone_fresh(self) -> "ServeEngine":
+        """A fresh engine with the same params, config, geometry and options
+        and an empty pool: what a supervised restart rebuilds after a
+        crash.  Carried across: the metrics (operator counters survive),
+        the fault injector (its hit counts keep counting), the host tier
+        (its entries survive the restart: the empty pool restores instead
+        of re-prefilling), the journal, the request log and the request-id
+        counter.
+
+        Not carried: the captured steps.  The JAX clone shares its jitted
+        steps; a CUDA graph replays its own engine's pool and buffer
+        addresses, so the clone captures its own, and ``compile_counts()``
+        on it counts them.  The order keeps the restart's peak at about one
+        pool plus one set of graph pools: this engine is retired first
+        (``retire``), the clone's pool is allocated into the memory that
+        released, and the clone captures every bucket this engine had
+        captured (and the phase-split decode step, if it had one) before
+        it serves, so no capture lands inside a serving tick."""
+        self.retire("superseded by clone_fresh")
+        eng = ServeEngine(
+            self.params, self.config,
+            sampler=self.sampler,
+            stop_tokens=self.stop_tokens,
+            max_slots=self.scheduler.max_slots,
+            num_blocks=self.pool.num_blocks,
+            block_size=self.block_size,
+            max_seq_len=self.max_seq_len,
+            prefill_chunk=self.prefill_chunk,
+            cache_dtype=self.cache_dtype,
+            decode_attn_impl=self.decode_attn_impl,
+            enable_prefix_cache=self.pool.prefix_cache is not None,
+            max_queue=self.scheduler.max_queue,
+            tokenizer=self.tokenizer,
+            clock=self.clock,
+            mixed_step=self.mixed_step_mode,
+            sample_epilogue=self.sample_epilogue_mode,
+            tick_token_budget=self.tick_token_budget or None,
+            spec_k=self.spec_k,
+            spec_ngram=self.spec_ngram,
+            spec_min_accept=self.spec_min_accept,
+            spec_window=self.spec_window,
+            host_tier=self.host_tier,
+            fault_injector=self.faults,
+            journal=self.journal,
+            request_log=self.request_log,
+            device=self.device,
+        )
+        eng.metrics = self.metrics
+        eng.weights_version = self.weights_version
+        eng._next_id = self._next_id
+        buckets, split = self._captured_shapes
+        for t_w in buckets:
+            eng._warm_mixed_bucket(t_w)
+        if split:
+            eng._warm_split_step()
+        return eng
+
+    def share_compiled_steps(self, src: "ServeEngine") -> None:
+        """Not ported: a CUDA graph replays its own engine's pool and
+        weight addresses, so a peer engine cannot adopt it as the JAX engine
+        adopts a jitted callable (the fleet / lifecycle slice)."""
+        raise NotImplementedError(
+            "ServeEngine.share_compiled_steps is not ported to PyTorch yet: it is the "
+            "fleet and lifecycle slice")
+
+    def _log_request(self, req: Request, reason: str) -> None:
+        """Emit the canonical wide-event line for a terminal request
+        (enqueue only: the request log's writer thread does the IO)."""
+        if self.request_log is None:
+            return
+        self.request_log.emit(request_record(req, reason=reason, clock=self.clock))
+
+    # ------------------------------------------------------------------
     # Phase-split tick
     # ------------------------------------------------------------------
     def _prefill_request(self, req: Request) -> None:
@@ -1235,6 +1500,8 @@ class ServeEngine:
         remaining chunks run from that offset.  Host-tier hits land
         first: the claimed blocks must hold real K/V before they are
         gathered (a miss un-covers the tail, which then prefills)."""
+        if self.faults is not None and self.faults.trip("prefill") is not None:
+            raise FaultInjected("prefill")
         self._enqueue_tier_restores(req)
         self._apply_tier_restores([req])
         content = req.effective_prompt()
@@ -1281,7 +1548,11 @@ class ServeEngine:
         self._emit(req, tok_host)
 
     def step(self) -> bool:
-        """One scheduler tick; returns True while work remains."""
+        """One scheduler tick; returns True while work remains.  A retired
+        engine (``retire``) raises: its pool and graphs are gone."""
+        if self.retired is not None:
+            raise RuntimeError(f"this engine was retired ({self.retired}); step the "
+                               "engine that replaced it")
         if self.mixed:
             return self._step_mixed()
         return self._step_split()
@@ -1331,9 +1602,11 @@ class ServeEngine:
                 blk=tables[np.arange(b), lengths // bs], off=lengths % bs,
                 tables=tables, vis=vis, pads=pads, pads_sliding=pads_sliding, seeds=seeds,
             )
+            self._dispatch_faults(has_prefill=False)
             self.n_dispatches += 1
             self.n_decode_dispatches += 1
             out = self._decode_step(host)
+            self._host_sync_fault()
             # THE tick's one device→host transfer: the packed [B, 4] rows
             out_host = out.cpu().numpy()
             self.n_host_fetches += 1
@@ -1341,6 +1614,7 @@ class ServeEngine:
                 self._emit(r, int(out_host[r.slot, 0]))
                 self._maybe_finish(r)
 
+        self._journal_tick()
         self._tier_tick_end()
         self.metrics.on_tick(
             queue_depth=self.scheduler.queue_depth,
@@ -1350,6 +1624,36 @@ class ServeEngine:
             kv_bytes=self._kv_bytes_tick(running) if running else 0,
         )
         return self.scheduler.has_work
+
+    def _dispatch_faults(self, has_prefill: bool) -> None:
+        """A dispatch's chaos sites, before the step runs: ``prefill`` when
+        the tick carries prefill tokens, ``decode`` at every dispatch.  The
+        JAX engine answers a ``decode`` fault by degrading the kernel to
+        its XLA sibling; the port has no plain fallback on the card, so the
+        fault raises and the supervisor restarts the engine
+        (``decode_degraded`` stays None)."""
+        faults = self.faults
+        if faults is None:
+            return
+        if has_prefill and faults.trip("prefill") is not None:
+            raise FaultInjected("prefill")
+        if faults.trip("decode") is not None:
+            raise FaultInjected("decode")
+
+    def _host_sync_fault(self) -> None:
+        """The ``host_sync`` chaos site: a real stall inside the tick's
+        host fetch window, between the dispatch and the fetch."""
+        if self.faults is not None:
+            hang = self.faults.trip("host_sync")
+            if hang is not None:
+                time.sleep(hang)
+
+    def _journal_tick(self) -> None:
+        """One delivery-watermark record for the whole tick: rows for every
+        live request whose count advanced (rejected drafts never reach
+        ``generated``, so they never reach the journal)."""
+        if self.journal is not None:
+            self.journal.end_tick(self._requests.values())
 
     # ------------------------------------------------------------------
     # Unified tick
@@ -1552,9 +1856,11 @@ class ServeEngine:
         if decode_rows or prefill_segs:
             host = self._pack_mixed(decode_rows, prefill_segs)
             td0 = self.clock()
+            self._dispatch_faults(has_prefill=bool(prefill_segs))
             self.n_dispatches += 1
             self.n_verify_dispatches += n_spec_tok > 0
             out = self._mixed_step(host)
+            self._host_sync_fault()
             # THE tick's one device→host transfer: samples + stop mask +
             # watermark + accept length in one int32 array
             out_host = out.cpu().numpy()
@@ -1581,6 +1887,7 @@ class ServeEngine:
                     self._emit(r, int(nxt_host[r.slot, 0]))
                     self._maybe_finish(r)
 
+        self._journal_tick()
         self._tier_tick_end()
         active = n_decode_tok + len(prefill_segs)
         self.metrics.on_tick(
@@ -1658,6 +1965,20 @@ class ServeEngine:
             steps.append(self._split_step)
         return [st.run for st in steps]
 
+    def _warm_split_step(self) -> None:
+        """Capture the phase-split decode step with a batch whose every row
+        sees one slot, the scratch slot it writes (finite, so no row's
+        attention is empty)."""
+        if self._split_step is None:
+            self._split_step = _decode_step_state(self)
+        st = self._split_step
+        if not st.run.compiled:
+            host = {k: np.zeros(st.ops[k].shape, np.int32) for k in _DECODE_OPERANDS}
+            host["vis"][:] = 1
+            st.upload(host)
+            st.run()
+            st.out.cpu()
+
     def _warm_mixed_bucket(self, t_w: int) -> None:
         """Capture one packed-width bucket's step with an all-dead batch:
         every lane points at the scratch block and is fully masked, so
@@ -1677,10 +1998,16 @@ class ServeEngine:
         capture stalls a measured tick; then drop the dummy's traces:
         prefix-cache entries, the finished ledger and the metrics.  The
         host tier is detached meanwhile: the dummy's blocks neither spill
-        nor restore, and its times do not feed the breakeven."""
+        nor restore, and its times do not feed the breakeven.  The fault
+        injector, journal and request log are detached too: a scheduled
+        fault must not fire (or a hit be counted) in a capture, and the
+        dummy is neither journaled nor logged."""
         if not prompt_lens:
             return
         host_tier, self.host_tier = self.host_tier, None
+        faults, self.faults = self.faults, None
+        journal, self.journal = self.journal, None
+        request_log, self.request_log = self.request_log, None
         try:
             self.submit(np.ones(min(prompt_lens), np.int32), min(2, max_new_tokens))
             self.run_until_complete()
@@ -1689,6 +2016,9 @@ class ServeEngine:
                     self._warm_mixed_bucket(t_w)
         finally:
             self.host_tier = host_tier
+            self.faults = faults
+            self.journal = journal
+            self.request_log = request_log
         if self.pool.prefix_cache is not None:
             self.pool.prefix_cache.clear()
         self.scheduler.finished.clear()

@@ -1,0 +1,230 @@
+"""Deterministic fault injection for the serving stack (port of
+``llm_np_cp_tpu/serve/faults.py``: the same spec grammar, sites, seeded
+per-site RNGs and counters, so one spec and seed give the JAX package's
+schedule hit for hit).
+
+A chaos spec names injection sites and when they trip; the injection
+points threaded through the stack ask ``trip(site)`` per hit and the
+injector answers from the schedule.  The injector only *decides*; each
+site owns its fault's behaviour (raise ``FaultInjected``, raise
+``OSError``, sleep past the tick deadline, abort a socket).
+
+Spec grammar (events joined by ``;`` or ``,``)::
+
+    site@N          fire on the N-th hit of that site (1-based)
+    site@N:C        fire on hits N .. N+C-1
+    site%P          fire each hit with probability P (seeded RNG, so a
+                    given seed replays the identical schedule)
+    ...=ARG         optional float argument (hang seconds, Retry-After
+                    of an injected 429); default 1.0
+
+Sites, where the port threads them:
+
+- ``decode``      — every device dispatch of ``ServeEngine.step`` (the
+                    unified tick's step, the phase-split decode step).
+                    The JAX engine degrades the kernel to its XLA sibling
+                    first; the port has no plain fallback on the card, so
+                    here it raises ``FaultInjected`` and the supervisor
+                    restarts the engine
+- ``prefill``     — ``ServeEngine._prefill_request`` entry, and a unified
+                    tick that carries prefill tokens
+- ``tick_crash``  — the HTTP runner's tick loop (supervised restart)
+- ``tick_hang``   — ditto, but sleep ``ARG`` seconds (watchdog food)
+- ``ckpt_read``   — transient ``OSError`` during checkpoint shard reads
+                    (``utils/loading.py`` bounded retry)
+- ``http_429``    — reject a ``/v1/completions`` with 429 + Retry-After
+                    ``ARG``
+- ``http_reset``  — hard-abort the client socket mid-SSE-stream
+- ``proc_kill``   — SIGKILL the whole process from the tick loop (hit
+                    once per busy tick): what the durable request
+                    journal's restart/resume path is tested against
+                    (``serve/journal.py``)
+- ``journal_write`` / ``journal_fsync`` — fail the journal writer's file
+                    write / fsync (the batch is dropped and counted,
+                    serving continues)
+- ``host_sync``   — sleep ``ARG`` seconds inside the tick's host fetch
+- ``upgrade_ckpt`` — the rolling upgrade's checkpoint read; the upgrade
+                    is not ported, so nothing trips it yet
+
+No-op by default: nothing constructs an injector unless a spec is given,
+and every injection point is a single ``is None`` check when chaos is
+off.
+"""
+
+
+from __future__ import annotations
+
+import dataclasses
+import random
+import threading
+from collections import Counter
+
+SITES = (
+    "decode",
+    "prefill",
+    "tick_crash",
+    "tick_hang",
+    "ckpt_read",
+    "http_429",
+    "http_reset",
+    "proc_kill",
+    "journal_write",
+    "journal_fsync",
+    "host_sync",
+    "upgrade_ckpt",
+)
+
+
+class FaultInjected(RuntimeError):
+    """An injected (not organic) fault — recovery paths treat it exactly
+    like the real failure it stands in for, but logs/metrics can tell
+    the two apart."""
+
+    def __init__(self, site: str) -> None:
+        super().__init__(f"chaos: injected fault at site {site!r}")
+        self.site = site
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultEvent:
+    """One parsed spec event."""
+
+    site: str
+    start: int | None = None  # 1-based hit index (deterministic events)
+    count: int = 1
+    prob: float | None = None  # per-hit probability (seeded events)
+    arg: float = 1.0
+
+    def triggers(self, hit: int, rng: random.Random) -> bool:
+        if self.prob is not None:
+            return rng.random() < self.prob
+        assert self.start is not None
+        return self.start <= hit < self.start + self.count
+
+
+def parse_chaos_spec(spec: str) -> list[FaultEvent]:
+    """Parse the spec grammar above; raises ValueError with the offending
+    token on malformed input (the CLI surfaces it pre-model-load)."""
+    events: list[FaultEvent] = []
+    for raw in spec.replace(",", ";").split(";"):
+        token = raw.strip()
+        if not token:
+            continue
+        try:
+            body, _, arg_s = token.partition("=")
+            arg = float(arg_s) if arg_s else 1.0
+            if "@" in body:
+                site, _, when = body.partition("@")
+                n_s, _, c_s = when.partition(":")
+                start, count = int(n_s), int(c_s) if c_s else 1
+                if start < 1 or count < 1:
+                    raise ValueError("hit index/count must be >= 1")
+                event = FaultEvent(site=site.strip(), start=start,
+                                   count=count, arg=arg)
+            elif "%" in body:
+                site, _, p_s = body.partition("%")
+                prob = float(p_s)
+                if not 0.0 <= prob <= 1.0:
+                    raise ValueError("probability must be in [0, 1]")
+                event = FaultEvent(site=site.strip(), prob=prob, arg=arg)
+            else:
+                raise ValueError("expected site@N[:C][=ARG] or site%P[=ARG]")
+        except ValueError as e:
+            raise ValueError(f"bad chaos event {token!r}: {e}") from None
+        if event.site not in SITES:
+            raise ValueError(
+                f"bad chaos event {token!r}: unknown site {event.site!r} "
+                f"(known: {', '.join(SITES)})"
+            )
+        events.append(event)
+    return events
+
+
+class FaultInjector:
+    """Seeded, replayable fault schedule over the sites above.
+
+    Thread-safe: sites are hit from the engine tick thread, the asyncio
+    event loop, the watchdog, and checkpoint loading.  The per-site hit
+    counters survive engine rebuilds (the injector object outlives any
+    one engine), so a schedule like ``decode@40`` keeps counting across
+    a supervised restart.
+    """
+
+    def __init__(self, spec: str, *, seed: int = 0) -> None:
+        self.spec = spec
+        self.seed = seed
+        self._events = parse_chaos_spec(spec)
+        # one RNG PER SITE (seeded from (seed, site) — random.Random
+        # seeds strings deterministically): sites are hit from different
+        # threads, and a shared stream would make a multi-site %P
+        # schedule depend on thread interleaving, breaking replay
+        self._rngs: dict[str, random.Random] = {}
+        self._lock = threading.Lock()
+        self.hits: Counter[str] = Counter()
+        self.injected: Counter[str] = Counter()
+
+    @classmethod
+    def from_spec(cls, spec: str | None, *, seed: int = 0
+                  ) -> "FaultInjector | None":
+        """None for an empty/missing spec — the zero-overhead default."""
+        if not spec or not spec.strip():
+            return None
+        return cls(spec, seed=seed)
+
+    @property
+    def injected_total(self) -> int:
+        with self._lock:
+            return sum(self.injected.values())
+
+    def trip(self, site: str) -> float | None:
+        """Count one hit of ``site``; return the event's ARG when a fault
+        should fire now, else None.  The caller owns the fault behavior."""
+        with self._lock:
+            self.hits[site] += 1
+            hit = self.hits[site]
+            rng = self._rngs.get(site)
+            if rng is None:
+                rng = self._rngs[site] = random.Random(f"{self.seed}:{site}")
+            for ev in self._events:
+                if ev.site == site and ev.triggers(hit, rng):
+                    self.injected[site] += 1
+                    return ev.arg
+        return None
+
+    def snapshot(self) -> dict[str, int]:
+        """Per-site injected counts plus the total (metrics scrape)."""
+        with self._lock:
+            out = {f"injected_{site}": n for site, n in
+                   sorted(self.injected.items())}
+            out["injected_total"] = sum(self.injected.values())
+            return out
+
+
+# -- process-global injector --------------------------------------------
+# Checkpoint loading runs before any engine exists (and must not import
+# the serving stack), so installing an injector wires the engine-less
+# injection points through hooks owned by THEIR modules — the dependency
+# points serve → utils, never back.  Callers (and tests) install and
+# uninstall around themselves.
+_ACTIVE: FaultInjector | None = None
+
+
+def install(injector: FaultInjector | None) -> None:
+    global _ACTIVE
+    _ACTIVE = injector
+    from llm_np_cp_tpu_torch.utils import loading
+
+    if injector is None:
+        loading.SHARD_READ_HOOK = None
+    else:
+        def _ckpt_read_hook(path) -> None:
+            if injector.trip("ckpt_read") is not None:
+                raise OSError(
+                    f"chaos: injected transient read error on {path.name}"
+                )
+
+        loading.SHARD_READ_HOOK = _ckpt_read_hook
+
+
+def active() -> FaultInjector | None:
+    return _ACTIVE

@@ -30,7 +30,8 @@ Endpoints:
 - ``GET /v1/completions/<id>`` with ``Last-Event-ID`` — stream resume:
   the delivered-token suffix from the in-flight ledger (or, for a
   finished stream, from the bounded LRUs of finished output), then live.
-- ``GET /healthz`` — ``ok`` / ``draining`` / ``crashed``.
+- ``GET /healthz`` — ``ok`` / ``degraded`` (a supervised restart in
+  progress, still 200) / ``draining`` / ``crashed``.
 - ``GET /metrics`` — Prometheus text from ``ServeMetrics`` plus the
   live pool/stream gauges of the JAX server.
 
@@ -38,16 +39,24 @@ Shutdown (``begin_drain``, SIGTERM/SIGINT when the server runs on the
 main thread): new completions get 503, in-flight streams finish up to
 ``drain_timeout``, stragglers are aborted, then the socket closes.
 
-With supervision off, a dead tick thread ends every stream cleanly
-(``aborted``), ``/healthz`` turns 503 ``crashed`` and new work gets 503;
-a tick that hangs past ``tick_deadline`` is such a death.  What the JAX
-server has beyond this slice raises ``NotImplementedError`` naming its
-layer: supervised restarts (``max_restarts > 0``, which need the
-engine's ``clone_fresh`` and ``recover``), a ``ReplicaRunner`` fleet
-(``runner=``), rolling upgrades (``upgrade_loader=``), and an engine
-with a journal or a tracer.  ``/debug/slo``, ``/debug/tenants``,
-``/debug/trace``, ``/admin/upgrade`` and ``/admin/scale`` answer as the
-JAX server does with those layers off.
+Faults and recovery: a tick that raises, or hangs past
+``tick_deadline``, is an engine death.  With ``max_restarts > 0`` the
+runner retires the dead engine, rebuilds it (``clone_fresh``: a fresh
+pool, its graphs captured again before it serves) and replays every
+in-flight stream teacher-forced (``recover``); past the restart budget,
+or with supervision off, a death ends every stream cleanly
+(``aborted``), ``/healthz`` turns 503 ``crashed`` and new work gets 503.
+An engine with a request journal (``serve/journal.py``) has the
+unterminated requests of a dead process replayed when the runner is
+built.  The chaos sites ``tick_hang``, ``tick_crash``, ``proc_kill``,
+``http_429`` and ``http_reset`` (``serve/faults.py``) fire from the
+engine's fault injector.  What the JAX server has beyond this slice
+raises ``NotImplementedError`` naming its layer: a ``ReplicaRunner``
+fleet (``runner=``), rolling upgrades (``upgrade_loader=``,
+``EngineRunner.rolling_upgrade`` and its parts), and an engine with a
+tracer.  ``/debug/slo``, ``/debug/tenants``, ``/debug/trace``,
+``/admin/upgrade`` and ``/admin/scale`` answer as the JAX server does
+with those layers off.
 """
 
 from __future__ import annotations
@@ -56,14 +65,20 @@ import asyncio
 import contextlib
 import itertools
 import json
+import os
 import queue as queue_mod
 import signal
+import sys
 import threading
 import time
 import traceback
+from collections import deque
 from typing import Any
 
 import torch
+
+from llm_np_cp_tpu_torch.generate import IncrementalDetok
+from llm_np_cp_tpu_torch.serve.faults import FaultInjected
 
 from llm_np_cp_tpu_torch.serve.http.protocol import (
     HTTPError,
@@ -76,6 +91,7 @@ from llm_np_cp_tpu_torch.serve.http.protocol import (
     parse_resume_request,
 )
 from llm_np_cp_tpu_torch.serve.http.sse import DONE_SENTINEL, sse_event
+from llm_np_cp_tpu_torch.serve.metrics import ServeMetrics
 from llm_np_cp_tpu_torch.serve.scheduler import QueueFull, TenantThrottled
 from llm_np_cp_tpu_torch.serve.tracing import gen_trace_id, make_traceparent, parse_traceparent
 
@@ -105,8 +121,8 @@ def _not_ported(what: str, layer: str) -> NotImplementedError:
 
 
 class EngineRunner:
-    """Runs the engine's tick loop on a worker thread and bridges it to
-    asyncio handlers.
+    """Runs the engine's tick loop on a worker thread, supervises it, and
+    bridges it to asyncio handlers.
 
     Commands (submit/attach/abort) are drained at the top of every loop
     pass, then one ``engine.step()`` runs if there is work; when idle the
@@ -116,37 +132,54 @@ class EngineRunner:
     per generated token, ``("finish", reason, final_text_delta)``
     terminally.
 
-    A tick that raises, or one the watchdog finds hung (no heartbeat
-    within ``tick_deadline``), is a terminal crash: the generation
-    counter moves on (a hung thread that wakes finds itself superseded
-    and its callbacks mute), every stream gets ``aborted``, and
-    ``crashed`` holds the reason.  Nothing catches a tick failure and
-    carries on.
+    Supervision (``max_restarts > 0``): a tick that raises (an injected
+    ``tick_crash`` or ``decode`` fault, or a real one), or one the
+    watchdog finds hung (no heartbeat within ``tick_deadline``), is an
+    engine death.  The runner bumps the generation (a superseded thread
+    that wakes finds itself stale and its callbacks mute), waits a
+    backoff that doubles per death in ``restart_window_s`` (capped at
+    10 s), then, on a new tick thread: retires the dead engine (its
+    graphs and pages released, its ``step`` raising), rebuilds it with
+    ``clone_fresh`` (a fresh pool, every bucket captured again before it
+    serves), and replays every in-flight request with its delivered
+    tokens teacher-forced (``ServeEngine.recover``), so no token is sent
+    twice.  Submits that arrive meanwhile queue up; ``/healthz`` answers
+    ``degraded`` (200) until the rebuilt engine completes its first loop
+    pass.  Once ``max_restarts`` deaths fall inside the window (or with
+    supervision off, the default), a death is terminal: every stream gets
+    ``aborted``, ``crashed`` holds the reason, new work is refused.  A
+    real kernel fault that poisons the CUDA context makes ``clone_fresh``
+    raise too, and such a death is terminal in-process: only a process
+    restart over the request journal resumes those streams.
+
+    With a journal on the engine, the runner's constructor replays the
+    unterminated requests a dead process left behind (before any thread
+    exists); their streams generate detached until a client resumes them
+    by Last-Event-ID.
     """
 
     def __init__(self, engine: Any, *, request_timeout: float | None = None,
                  idle_poll_s: float = 0.02,
                  metrics_max_samples: int = 100_000,
                  tick_deadline: float | None = None,
-                 max_restarts: int = 0) -> None:
-        if max_restarts > 0:
-            raise _not_ported(
-                "EngineRunner(max_restarts > 0), a supervised restart that rebuilds the "
-                "engine (ServeEngine.clone_fresh) and replays its streams (recover),",
-                "faults-and-recovery")
-        if getattr(engine, "journal", None) is not None:
-            raise _not_ported("serving an engine with a request journal", "journal")
+                 max_restarts: int = 0,
+                 restart_backoff_s: float = 0.5,
+                 restart_window_s: float = 300.0) -> None:
         if getattr(engine, "tracer", None) is not None:
             raise _not_ported("serving an engine with a tracer", "tracing")
         self.engine = engine
+        self.faults = getattr(engine, "faults", None)
         self.request_timeout = request_timeout
         self.idle_poll_s = idle_poll_s
         self.tick_deadline = tick_deadline
+        self.max_restarts = max_restarts
+        self.restart_backoff_s = restart_backoff_s
+        self.restart_window_s = restart_window_s
         # a server runs for weeks: bound the metrics sample lists
         # (counters stay exact; percentiles become a recent window) and
         # drop the scheduler's terminal ledgers after every tick
         engine.metrics.max_samples = metrics_max_samples
-        # the torch state the tick thread runs under, which is per
+        # the torch state the tick threads run under, which is per
         # thread: the engine's device, the stream current here (where
         # warmup captured the step graphs) and grad mode
         self._device = getattr(engine, "device", torch.device("cpu"))
@@ -161,38 +194,152 @@ class EngineRunner:
         # (submit/attach) and removed once (engine thread, on the
         # terminal event or reject)
         self._live: dict[int, tuple[asyncio.AbstractEventLoop, asyncio.Queue]] = {}
-        # set when the tick thread dies: the server turns /healthz
-        # unhealthy and rejects new work instead of wedging every stream
+        # set when the tick thread dies terminally: the server turns
+        # /healthz unhealthy and rejects new work
         self.crashed: str | None = None
-        # guards the generation check against the engine calls and the
-        # crash flush; reentrant, since an abort's terminal event
-        # re-enters it through the bridge callbacks
+        # -- supervision state, guarded by _sup_lock: reentrant, since
+        # _exec holds it across engine calls and an abort's terminal
+        # event re-enters it through the bridge callbacks
         self._sup_lock = threading.RLock()
-        self._gen = 0  # a terminal crash moves it on: the old thread mutes
+        # commands a superseded thread had in hand: drained before the
+        # queue by the live thread, in arrival order
+        self._handback: deque = deque()
+        self._gen = 0  # engine generation; a restart or a terminal crash bumps it
+        # lifetime restarts (restarts_total); the budget is the deaths
+        # inside restart_window_s
+        self.restarts = 0
+        self._recent_deaths: list[float] = []
+        self.recovering = False
+        self.recovery_latency_s: list[float] = []
+        # per rebuild: generation, clone seconds, captures, capture
+        # seconds and graph-pool bytes (the restart's cost against the
+        # JAX package's shared steps)
+        self.rebuilds: list[dict] = []
+        self._death_t: float | None = None
         self._beat = time.monotonic()
-        # rid → {trace, tokens and text deltas delivered so far}: what a
-        # Last-Event-ID resume replays
+        # the current restart's backoff: the watchdog's grace while
+        # recovering, so a rebuilt engine that wedges is still caught
+        self._backoff_delay = 0.0
+        # rid → everything a restart needs to teacher-force the stream
+        # back (prompt, budget, seed, absolute deadline, trace, lineage,
+        # tokens and text deltas delivered so far), in FIFO order; also
+        # what a Last-Event-ID resume replays
         self._inflight: dict[int, dict] = {}
-        # terminal output of streams that finished while no client was
-        # attached (the client's loop went away), kept so a late resume
-        # gets its suffix + finish; bounded LRU
+        # terminal output of streams that finished with no client
+        # attached (journal-recovered ones above all), kept so a late
+        # resume gets its suffix + finish; bounded LRU
         self._resumable: dict[int, dict] = {}
         # delivered terminals, re-readable for a while: a client whose
         # final read tore on the wire can replay the stream; bounded LRU
         self._claimed: dict[int, dict] = {}
-        # Last-Event-ID attaches served (the JAX server's scrape names
-        # it journal_resumed_total, journal or not)
+        # the durable request journal: replay what a dead process left
+        # behind, here, before any thread exists
+        self.journal = getattr(engine, "journal", None)
+        self.journal_replayed = 0
+        # Last-Event-ID attaches served
         self.journal_resumed = 0
-        self._rid = itertools.count(getattr(engine, "_next_id", 0))
+        if self.journal is not None:
+            self._replay_journal()
+        # past every replayed rid, parked ones included, so a fresh
+        # request never shadows a stream a client is about to resume
+        self._rid = itertools.count(max(getattr(engine, "_next_id", 0),
+                                        max(self._resumable, default=-1) + 1))
 
-    # -- stream resume --------------------------------------------------
+    # -- journal replay + stream resume --------------------------------
+    def _replay_journal(self) -> None:
+        """Teacher-force every unterminated journaled request back into the
+        engine: delivered tokens forced, the remaining deadline budget
+        resumed (wall time on disk; an expired one is swept on the first
+        tick), and the ledger rebuilt so a client can re-attach."""
+        now_wall = time.time()
+        clock_now = self.engine.clock()
+        for rec in self.journal.replay():
+            deadline_at = None
+            if rec.get("deadline_wall") is not None:
+                deadline_at = clock_now + (rec["deadline_wall"] - now_wall)
+            self._replay_one(0, dict(rec, deadline_at=deadline_at,
+                                     deltas=self._replay_deltas(rec["tokens"])),
+                             require_live=False)
+            self.journal_replayed += 1
+
+    def _replay_deltas(self, tokens: list) -> list:
+        """Per-token text deltas of a journaled token prefix (a fresh
+        detokenizer over the same ids yields the deltas the stream sent)."""
+        tok = getattr(self.engine, "tokenizer", None)
+        if tok is None or not tokens:
+            return [None] * len(tokens)
+        detok = IncrementalDetok(tok)
+        return [detok.push(t) for t in tokens]
+
+    def _replay_one(self, gen: int, rec: dict, *, require_live: bool = True) -> None:
+        """Recover one ledger or journal record into ``self.engine``.  With
+        ``require_live`` (the supervised restart), a stream whose client
+        went away while the engine was down is dropped; a journal replay
+        keeps detached requests generating for a later resume."""
+        rid = rec["rid"]
+        if require_live and rid not in self._live:
+            with self._sup_lock:
+                if gen == self._gen:
+                    self._inflight.pop(rid, None)
+            return
+        engine = self.engine
+        tokens = rec["tokens"]
+        stopped = bool(tokens) and tokens[-1] in tuple(engine.stop_tokens)
+        if len(tokens) >= rec["max_tokens"] or stopped:
+            # generated before the crash; only the finish was lost
+            self._finish_replayed(gen, rec, "stop" if stopped else "length")
+            return
+        lineage = {"replays": int(rec.get("replays", 0)) + 1,
+                   "drains": int(rec.get("drains", 0))}
+        cb, on_event = self._bridge(gen)
+        try:
+            engine.recover(
+                rec["prompt"], rec["max_tokens"], request_id=rid, seed=rec["seed"],
+                generated=tokens, callback=cb, on_event=on_event,
+                deadline_at=rec.get("deadline_at"), trace_id=rec.get("trace"),
+                lineage=lineage, speculative=bool(rec.get("spec", False)),
+                tenant=rec.get("tenant", "default"), weights_version=rec.get("wv"),
+            )
+        except Exception as e:  # noqa: BLE001 — one request's fate, not the replay's
+            self._finish_replayed(gen, rec, "aborted")
+            print(f"[serve] recovery dropped request {rid}: {e}", file=sys.stderr)
+        else:
+            with self._sup_lock:
+                if gen == self._gen:
+                    self._inflight[rid] = dict(
+                        rec, tokens=list(tokens), replays=lineage["replays"],
+                        deltas=list(rec.get("deltas") or [None] * len(tokens)))
+
+    def _finish_replayed(self, gen: int, rec: dict, reason: str) -> None:
+        """Terminal bookkeeping for a replayed request that needs no re-run:
+        deliver the lost finish to an attached stream, or park the output
+        for a late resume."""
+        rid = rec["rid"]
+        with self._sup_lock:
+            if gen != self._gen:
+                return
+            self._inflight.pop(rid, None)
+        tail = self.engine.finish_recovered(
+            rec["prompt"], rec["max_tokens"], request_id=rid, generated=rec["tokens"],
+            reason=reason, trace_id=rec.get("trace"),
+            lineage={"replays": int(rec.get("replays", 0)) + 1,
+                     "drains": int(rec.get("drains", 0))},
+            tenant=rec.get("tenant", "default"), weights_version=rec.get("wv"),
+        )
+        if rid in self._live:
+            self._push(rid, ("finish", reason, tail))
+            self._live.pop(rid, None)
+            self._claim_insert(rid, self._fin_record(rec, reason, tail))
+        else:
+            self._stash_resumable(rid, rec, reason, tail)
+
     @staticmethod
     def _fin_record(rec: dict, reason: str, tail: str | None) -> dict:
         """The one parked/claimed terminal record shape (the resume wire
         format)."""
         return {
             "tokens": list(rec["tokens"]),
-            "deltas": list(rec["deltas"]),
+            "deltas": list(rec.get("deltas") or [None] * len(rec["tokens"])),
             "reason": reason,
             "tail": tail,
             # a late resume's response carries the original trace context
@@ -219,9 +366,7 @@ class EngineRunner:
 
     # -- event-loop side ----------------------------------------------
     def start(self) -> None:
-        self._thread = threading.Thread(target=self._run, args=(self._gen,),
-                                        name="serve-engine-tick", daemon=True)
-        self._thread.start()
+        self._spawn_thread(self._gen)
         if self.tick_deadline is not None:
             self._watchdog = threading.Thread(target=self._watch, name="serve-engine-watchdog",
                                               daemon=True)
@@ -230,10 +375,15 @@ class EngineRunner:
     def stop(self, timeout: float = 10.0) -> None:
         self._stop.set()
         self._cmds.put(("wake",))
-        if self._thread is not None:
-            self._thread.join(timeout=timeout)
+        thread = self._thread
+        if thread is not None:
+            thread.join(timeout=timeout)
         if self._watchdog is not None:
             self._watchdog.join(timeout=1.0)
+        if self.journal is not None:
+            # the drain's aborts journaled their terminals: a clean
+            # shutdown leaves an empty replay set
+            self.journal.close()
 
     @property
     def inflight(self) -> int:
@@ -242,8 +392,10 @@ class EngineRunner:
 
     @property
     def state(self) -> str:
-        """``ok`` | ``crashed``."""
-        return "crashed" if self.crashed else "ok"
+        """``ok`` | ``degraded`` (restart in progress) | ``crashed``."""
+        if self.crashed:
+            return "crashed"
+        return "degraded" if self.recovering else "ok"
 
     def next_rid(self) -> int:
         return next(self._rid)
@@ -264,6 +416,21 @@ class EngineRunner:
     def abort_all(self) -> None:
         self._cmds.put(("abort_all",))
 
+    # -- the rolling upgrade: a later slice ------------------------------
+    def detach_inflight(self) -> list[dict]:
+        raise _not_ported("EngineRunner.detach_inflight", "lifecycle (rolling upgrade)")
+
+    def rebuild_upgraded(self, params: Any, version: int, replay: list[dict], *,
+                         share_from: Any = None) -> None:
+        raise _not_ported("EngineRunner.rebuild_upgraded", "lifecycle (rolling upgrade)")
+
+    def await_recovered(self, timeout_s: float = 300.0) -> None:
+        raise _not_ported("EngineRunner.await_recovered", "lifecycle (rolling upgrade)")
+
+    def rolling_upgrade(self, params_fn: Any, *, version: int | None = None,
+                        timeout_s: float = 300.0) -> dict:
+        raise _not_ported("EngineRunner.rolling_upgrade", "lifecycle (rolling upgrade)")
+
     # -- engine-thread side -------------------------------------------
     def _push(self, rid: int, item: tuple) -> None:
         ent = self._live.get(rid)
@@ -277,8 +444,11 @@ class EngineRunner:
             self._live.pop(rid, None)
 
     def _bridge(self, gen: int) -> tuple:
-        """Per-request engine callbacks for generation ``gen``: a thread
-        superseded by a crash (a hung tick that wakes) is mute."""
+        """Per-request engine callbacks for generation ``gen``.  The gen
+        guard (under the supervision lock, so it is atomic with a
+        restart's replay snapshot) makes a superseded engine mute: a hung
+        thread that wakes cannot append to the ledger or push tokens at a
+        stream the rebuilt engine now owns."""
 
         def cb(req: Any, tok: int, delta: str | None) -> None:
             with self._sup_lock:
@@ -318,12 +488,21 @@ class EngineRunner:
         while len(self._claimed) > 64:
             self._claimed.pop(next(iter(self._claimed)))
 
+    def _next_handback(self, gen: int) -> tuple | None:
+        """Pop the next handed-back command, for the live generation only."""
+        with self._sup_lock:
+            if gen == self._gen and self._handback:
+                return self._handback.popleft()
+        return None
+
     def _exec(self, cmd: tuple, gen: int) -> bool:
-        """Execute one command for generation ``gen``; False when the
-        thread was superseded (the command is dropped with it: a crashed
-        runner answers nothing more)."""
+        """Execute one command for generation ``gen``.  The gen check and
+        the engine call are atomic under the supervision lock; a thread
+        superseded in between hands the command to the live generation
+        (order kept) and returns False."""
         with self._sup_lock:
             if gen != self._gen:
+                self._handback.append(cmd)
                 return False
             self._exec_inner(cmd, gen)
         return True
@@ -357,7 +536,20 @@ class EngineRunner:
                 self._live.pop(rid, None)
             else:
                 self._inflight[rid] = {
+                    "rid": rid,
+                    "prompt": payload.prompt_ids,
+                    "max_tokens": payload.max_tokens,
+                    "seed": payload.seed,
+                    # the absolute deadline on the engine clock, which
+                    # clone_fresh shares: a restart resumes the remaining
+                    # budget instead of granting a fresh window
+                    "deadline_at": req.deadline,
                     "trace": req.extra.get("trace"),
+                    "replays": 0,
+                    "drains": 0,
+                    "spec": bool(payload.speculative),
+                    "wv": int(req.extra.get("weights_version", 0)),
+                    "tenant": payload.tenant,
                     "tokens": [],
                     # parallel text deltas: a resume replays the exact
                     # text the stream carried
@@ -419,7 +611,7 @@ class EngineRunner:
             self._push(rid, ("finish", fin["reason"], fin["tail"]))
             self._live.pop(rid, None)
 
-    # -- the tick thread -------------------------------------------------
+    # -- the tick threads -----------------------------------------------
     def _torch_context(self) -> contextlib.ExitStack:
         stack = contextlib.ExitStack()
         stack.enter_context(torch.set_grad_enabled(self._grad))
@@ -428,32 +620,68 @@ class EngineRunner:
             stack.enter_context(torch.cuda.stream(self._stream))
         return stack
 
-    def _run(self, gen: int) -> None:
+    def _spawn_thread(self, gen: int, *, delay: float = 0.0,
+                      replay: list[dict] | None = None) -> None:
+        self._thread = threading.Thread(target=self._run, args=(gen, delay, replay),
+                                        name=f"serve-engine-tick-{gen}", daemon=True)
+        self._thread.start()
+
+    def _run(self, gen: int, delay: float = 0.0, replay: list[dict] | None = None) -> None:
+        """One generation's tick thread: the backoff, then (after a death)
+        the rebuild and replay, then the loop — all on the engine's device
+        and stream, so the rebuilt engine's captures and replays run where
+        ``warmup`` captured the first engine's."""
         try:
+            if delay:
+                time.sleep(delay)
+            if self._stop.is_set():
+                return
+            if gen == self._gen:
+                self._beat = time.monotonic()  # the backoff slept the clock off
             with self._torch_context():
+                if replay is not None:
+                    self._rebuild_and_replay(gen, replay)
                 self._loop(gen)
-        except BaseException as e:  # noqa: BLE001 — the thread's boundary
+        except BaseException as e:  # noqa: BLE001 — the supervisor's boundary
             traceback.print_exc()
             self._on_engine_death(f"{type(e).__name__}: {e}", gen)
 
     def _loop(self, gen: int) -> None:
         engine = self.engine
+        faults = self.faults
         while not self._stop.is_set() and gen == self._gen:
-            try:
-                block = not engine.scheduler.has_work
-                cmd = self._cmds.get(block=block, timeout=self.idle_poll_s if block else None)
-            except queue_mod.Empty:
-                cmd = None
-            while cmd is not None:
-                if cmd[0] != "wake" and not self._exec(cmd, gen):
-                    return  # superseded
+            cmd = self._next_handback(gen)
+            if cmd is None:
                 try:
-                    cmd = self._cmds.get_nowait()
+                    block = not engine.scheduler.has_work
+                    cmd = self._cmds.get(block=block, timeout=self.idle_poll_s if block else None)
                 except queue_mod.Empty:
                     cmd = None
+            while cmd is not None:
+                if cmd[0] != "wake" and not self._exec(cmd, gen):
+                    return  # superseded; _exec handed the command back
+                cmd = self._next_handback(gen)
+                if cmd is None:
+                    try:
+                        cmd = self._cmds.get_nowait()
+                    except queue_mod.Empty:
+                        cmd = None
             if self._stop.is_set() or gen != self._gen:
                 break
             if engine.scheduler.has_work:
+                if faults is not None:
+                    hang = faults.trip("tick_hang")
+                    if hang is not None:
+                        time.sleep(hang)
+                        if gen != self._gen:
+                            return  # the watchdog superseded this thread
+                    if faults.trip("tick_crash") is not None:
+                        raise FaultInjected("tick_crash")
+                    if faults.trip("proc_kill") is not None:
+                        # the kill -9 site: no drain, no flush, no atexit —
+                        # what the journal's restart/resume must survive
+                        print("[chaos] proc_kill: SIGKILL self", file=sys.stderr, flush=True)
+                        os.kill(os.getpid(), signal.SIGKILL)
                 engine.step()
                 # terminal requests delivered their events through the
                 # bridge: dropping them keeps a long-running server flat
@@ -461,17 +689,88 @@ class EngineRunner:
                 engine.scheduler.aborted.clear()
             # tick heartbeat: idle passes beat every idle_poll_s, so only
             # a stuck tick starves it (a superseded thread must not
-            # freshen the heartbeat)
+            # freshen the heartbeat the live generation is judged by)
+            if gen == self._gen:
+                self._beat = time.monotonic()
+            if self.recovering:
+                with self._sup_lock:
+                    if gen == self._gen and self.recovering:
+                        self.recovering = False
+                        if self._death_t is not None:
+                            self.recovery_latency_s.append(time.monotonic() - self._death_t)
+                            self._death_t = None
+
+    def _rebuild_and_replay(self, gen: int, replay: list[dict]) -> None:
+        """The restart, on the new tick thread: (a) retire the dead engine —
+        its graphs and pages are released, and its ``step`` raises, so a
+        zombie thread can never replay a graph into memory the rebuilt
+        engine now owns; (b) ``clone_fresh`` allocates the fresh pool into
+        that memory and (c) captures every bucket before the replay, so no
+        capture lands inside a serving tick; then every in-flight request
+        is resubmitted with its delivered tokens teacher-forced."""
+        old = self.engine
+        t0 = time.perf_counter()
+        old.retire(f"superseded by restart generation {gen}")
+        engine = old.clone_fresh()
+        if gen == self._gen:
+            self._beat = time.monotonic()  # the captures were progress, not a hang
+        steps = engine.graph_steps()
+        self.rebuilds.append(dict(
+            gen=gen, rebuild_s=time.perf_counter() - t0, captures=len(steps),
+            capture_s=sum(st.capture_s or 0.0 for st in steps),
+            pool_bytes=sum(st.pool_bytes or 0 for st in steps)))
+        # mute the zombie: the clone shares the real metrics, journal,
+        # request log and host tier, and a superseded thread finishing a
+        # slow tick must not write into them (engine internals have no
+        # generation guard; only the bridge does)
+        old.metrics = ServeMetrics(clock=old.clock)
+        old.journal = None
+        old.request_log = None
+        old.host_tier = None
+        with self._sup_lock:
+            if gen != self._gen:
+                # superseded during the rebuild: the newer generation
+                # rebuilds from the retired engine itself
+                engine.retire("superseded during its rebuild")
+                return
+            self.engine = engine
+        for rec in replay:
+            if gen != self._gen:
+                return  # superseded mid-replay: the newer thread redoes it
+            self._replay_one(gen, rec)
             if gen == self._gen:
                 self._beat = time.monotonic()
 
     def _on_engine_death(self, reason: str, gen: int) -> None:
-        """Crash or hang (from the dying thread or the watchdog): with
-        supervision off, the terminal backstop."""
+        """Crash or hang (from the dying thread or the watchdog): schedule a
+        supervised restart, or go terminally dark."""
+        now = time.monotonic()
         with self._sup_lock:
             if gen != self._gen:
                 return  # a superseded thread died late: already handled
-            self._terminal_crash(reason)
+            # the budget is restart intensity: only deaths inside the
+            # window count, and the backoff exponent follows them
+            self._recent_deaths = [t for t in self._recent_deaths
+                                   if now - t < self.restart_window_s]
+            if self._stop.is_set() or len(self._recent_deaths) >= self.max_restarts:
+                self._terminal_crash(reason)
+                return
+            self._recent_deaths.append(now)
+            self.restarts += 1
+            self._gen += 1
+            self.recovering = True
+            if self._death_t is None:
+                self._death_t = now
+            delay = min(self.restart_backoff_s * (2 ** (len(self._recent_deaths) - 1)), 10.0)
+            self._backoff_delay = delay
+            self._beat = time.monotonic()  # the restart's clock starts now
+            replay = [dict(rec, tokens=list(rec["tokens"]), deltas=list(rec["deltas"]))
+                      for rec in self._inflight.values()]
+            new_gen = self._gen
+        print(f"[serve] engine death ({reason}); supervised restart, {len(replay)} in flight "
+              f"to replay, {len(self._recent_deaths)}/{self.max_restarts} deaths in window, "
+              f"backoff {delay:.2f}s", file=sys.stderr)
+        self._spawn_thread(new_gen, delay=delay, replay=replay)
 
     def _terminal_crash(self, reason: str) -> None:
         """The backstop (caller holds ``_sup_lock``): every in-flight
@@ -480,25 +779,35 @@ class EngineRunner:
         that wakes stops instead of ticking for flushed streams."""
         self.crashed = reason
         self._gen += 1
+        self.recovering = False
         for rid in list(self._live):
             self._push(rid, ("finish", "aborted", None))
             self._live.pop(rid, None)
+        # the flush is these requests' terminal: journal it (the writer
+        # outlives the tick thread), or the next process would replay
+        # streams whose clients already saw "aborted"
+        if self.journal is not None:
+            for rid in self._inflight:
+                self.journal.terminal(rid, "aborted")
         self._inflight.clear()
 
     def _watch(self) -> None:
         """Watchdog: declare the engine hung when the tick heartbeat goes
-        stale past ``tick_deadline``."""
+        stale past ``tick_deadline``.  While a restart is in progress the
+        budget stretches by that restart's backoff, so a rebuilt engine
+        that wedges is still caught."""
         assert self.tick_deadline is not None
         interval = max(self.tick_deadline / 4.0, 0.01)
         while not self._stop.is_set() and not self.crashed:
             time.sleep(interval)
             with self._sup_lock:
                 gen, beat = self._gen, self._beat
+                grace = self._backoff_delay if self.recovering else 0.0
             stale = time.monotonic() - beat
-            if stale > self.tick_deadline:
+            if stale > self.tick_deadline + grace:
                 self._on_engine_death(
-                    f"engine tick hung ({stale:.2f}s > tick-deadline {self.tick_deadline:g}s)",
-                    gen)
+                    f"engine tick hung ({stale:.2f}s > tick-deadline {self.tick_deadline:g}s "
+                    f"+ {grace:g}s restart grace)", gen)
 
 
 class HttpServer:
@@ -516,6 +825,8 @@ class HttpServer:
         max_tokens_cap: int | None = None,
         tick_deadline: float | None = None,
         max_restarts: int = 0,
+        restart_backoff_s: float = 0.5,
+        restart_window_s: float = 300.0,
         runner: Any = None,
         upgrade_loader: Any = None,
     ) -> None:
@@ -534,6 +845,7 @@ class HttpServer:
         self.runner = EngineRunner(
             engine, request_timeout=request_timeout,
             tick_deadline=tick_deadline, max_restarts=max_restarts,
+            restart_backoff_s=restart_backoff_s, restart_window_s=restart_window_s,
         )
         self.draining = False
         self.host: str | None = None
@@ -629,14 +941,17 @@ class HttpServer:
             return  # torn/oversized request line — nothing to answer
         if method == "GET" and path == "/healthz":
             crashed = self.runner.crashed
+            # degraded (a supervised restart in progress) stays 200: the
+            # server still accepts and queues work, so a load balancer
+            # must not eject it mid-recovery
             status = 503 if (self.draining or crashed) else 200
             state = ("crashed" if crashed
                      else "draining" if self.draining
                      else self.runner.state)
             payload = {
                 "status": state, "model": self.model_id,
-                "restarts": 0,  # supervised restarts are not ported
-                "weights_version": self.engine.weights_version,
+                "restarts": self.runner.restarts,
+                "weights_version": self.runner.engine.weights_version,
             }
             if crashed:
                 payload["error"] = crashed
@@ -719,10 +1034,27 @@ class HttpServer:
     def _render_metrics(self) -> str:
         """The JAX server's scrape: the metrics' exposition plus its live
         gauges, in its order.  Host reads only (the pool's counts and the
-        pages' shapes): no CUDA call from the event loop."""
-        engine = self.engine
+        pages' shapes): no CUDA call from the event loop.  The runner's
+        engine, not ``self.engine``: a supervised restart rebinds it."""
+        runner = self.runner
+        engine = runner.engine
         stats = engine.pool.stats()
         wv = engine.weights_version
+        faults = runner.faults
+        recov = runner.recovery_latency_s
+        journal_gauges = {
+            "journal_replayed_total": float(runner.journal_replayed),
+            "journal_resumed_total": float(runner.journal_resumed),
+        }
+        if runner.journal is not None:
+            jstats = runner.journal.stats()
+            journal_gauges.update({
+                "journal_records_total": float(jstats["records"]),
+                "journal_fsync_p99_s": jstats["fsync_p99_s"],
+                "journal_write_errors_total": float(
+                    jstats["write_errors"] + jstats["fsync_errors"]),
+                "journal_epoch": float(jstats["epoch"]),
+            })
         return engine.metrics.prometheus(
             # the version label appears once an upgrade rolled (wv > 0)
             const_labels={"version": str(wv)} if wv else None,
@@ -733,20 +1065,16 @@ class HttpServer:
                 "pool_blocks_cache_only": stats["cache_only"],
                 "pool_kv_bytes_shard": stats["kv_bytes_shard"],
                 "pool_kv_shards": stats["kv_shards"],
-                "inflight_streams": self.runner.inflight,
+                "inflight_streams": runner.inflight,
                 "queue_depth_live": engine.scheduler.queue_depth,
                 "draining": 1.0 if self.draining else 0.0,
-                # supervised restarts and fault injection, at their
-                # values with those layers absent
-                "restarts_total": 0.0,
-                "faults_injected_total": 0.0,
-                "degraded": 0.0,
-                "recovery_latency_s_last": 0.0,
+                # supervision: what recovery reads off the scrape
+                "restarts_total": runner.restarts,
+                "faults_injected_total": faults.injected_total if faults is not None else 0.0,
+                "degraded": 1.0 if runner.state == "degraded" else 0.0,
+                "recovery_latency_s_last": recov[-1] if recov else 0.0,
                 "decode_impl_degraded": 1.0 if engine.decode_degraded else 0.0,
-                # the journal's: nothing replays without one; resumes
-                # count all the same
-                "journal_replayed_total": 0.0,
-                "journal_resumed_total": float(self.runner.journal_resumed),
+                **journal_gauges,
             })
 
     # ------------------------------------------------------------------
@@ -760,6 +1088,16 @@ class HttpServer:
             await self._respond_error(writer, HTTPError(
                 503, msg, etype="server_error", headers=(("Retry-After", "1"),)))
             return
+        faults = self.runner.faults
+        if faults is not None:
+            retry_after = faults.trip("http_429")
+            if retry_after is not None:
+                # an injected transient reject: client retry and backoff
+                # without saturating the queue
+                await self._respond_error(writer, HTTPError(
+                    429, "chaos: injected transient reject", etype="rate_limit_error",
+                    headers=(("Retry-After", f"{max(retry_after, 0):g}"),)))
+                return
         try:
             resume = parse_resume_request(body, headers, model_id=self.model_id)
             if resume is not None:
@@ -923,6 +1261,13 @@ class HttpServer:
                     rid, payload.echo_model, created,
                     text=tail or "", token_id=None, finish_reason=reason,
                 )) + DONE_SENTINEL
+            faults = self.runner.faults
+            if faults is not None and faults.trip("http_reset") is not None:
+                # an injected socket reset mid-stream: the client sees a
+                # hard RST, the request aborts like any disconnect
+                writer.transport.abort()
+                self.runner.abort(rid)
+                return
             try:
                 writer.write(frame)
                 await writer.drain()
@@ -991,6 +1336,8 @@ async def run_server(
     max_tokens_cap: int | None = None,
     tick_deadline: float | None = None,
     max_restarts: int = 0,
+    restart_backoff_s: float = 0.5,
+    restart_window_s: float = 300.0,
     port_file: str | None = None,
     exit_after_s: float | None = None,
     on_started: Any = None,
@@ -1004,6 +1351,7 @@ async def run_server(
         default_max_tokens=default_max_tokens,
         max_tokens_cap=max_tokens_cap,
         tick_deadline=tick_deadline, max_restarts=max_restarts,
+        restart_backoff_s=restart_backoff_s, restart_window_s=restart_window_s,
         runner=runner,
         upgrade_loader=upgrade_loader,
     )

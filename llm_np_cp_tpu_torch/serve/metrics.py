@@ -41,8 +41,9 @@ renders the text exposition format (0.0.4) and ``format()`` the operator
 block, both as the JAX package renders them for the layers the port has;
 the series of layers it has not yet (SLO goodput, roofline telemetry,
 the anomaly sentinel, lifecycle actions) are absent, as the JAX package
-leaves them out when those layers are off, and
-``requests_recovered_total`` (supervised restarts) reads 0.
+leaves them out when those layers are off.  ``requests_recovered_total``
+counts the requests a supervised restart or a journal replay resubmitted
+(``on_recover``).
 
 Every record hook and ``snapshot()`` take one lock: the engine thread
 records while the HTTP scrape renders from the event loop.
@@ -97,6 +98,7 @@ class ServeMetrics:
         self.n_finished = 0
         self.n_aborted = 0
         self.n_rejected = 0
+        self.n_recovered = 0
         self.n_ticks = 0
         self.preemptions = 0
         self.total_generated = 0
@@ -148,6 +150,14 @@ class ServeMetrics:
         """A submit bounced off the queue-depth cap (HTTP 429)."""
         with self._lock:
             self.n_rejected += 1
+
+    def on_recover(self) -> None:
+        """A supervisor replayed an in-flight request into a rebuilt
+        engine (teacher-forced resubmit).  Counted apart from submits: the
+        request was counted at its original submit, and its finish or
+        abort still fires exactly once."""
+        with self._lock:
+            self.n_recovered += 1
 
     def _trim(self, values: list) -> None:
         # caller holds the lock
@@ -280,9 +290,7 @@ class ServeMetrics:
                 "finished": self.n_finished,
                 "aborted": self.n_aborted,
                 "rejected": self.n_rejected,
-                # supervised restarts (the JAX engine's recover) are not
-                # ported: nothing is ever replayed into a rebuilt engine
-                "recovered": 0,
+                "recovered": self.n_recovered,
                 "ticks": self.n_ticks,
                 "preemptions": self.preemptions,
                 "total_generated_tokens": self.total_generated,

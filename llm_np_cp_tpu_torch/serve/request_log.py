@@ -1,0 +1,218 @@
+"""Canonical request log: one structured JSON line per terminal (port of
+``llm_np_cp_tpu/serve/request_log.py``; the same record, writer thread
+and reader).
+
+At every terminal (finish / abort / recovered terminal) the engine emits
+one wide-event JSON line carrying what forensics needs in one place:
+
+- identity   — ``rid``, the W3C ``trace`` id (the same id across
+  restarts), wall ``ts``, and the normalized ``tenant`` (written only
+  when non-default);
+- routing    — ``replica``, ``spilled`` and the ``weights_version`` that
+  admitted the request;
+- reuse      — prompt length, ``prefix_blocks`` claimed from the prefix
+  cache;
+- survival   — ``preemptions``, ``replays`` (supervised-restart and
+  journal recoveries), ``drains``;
+- latency    — ``queue_wait_s``, ``prefill_s``, ``ttft_s``, ``decode_s``,
+  ``total_s`` from the request's timestamps;
+- outcome    — ``reason``, token counts, and the ``slo`` verdict when a
+  policy is given (the SLO layer is not ported: the engine passes none).
+
+The JAX record adds a ``cost`` block (device-cost attribution) when its
+telemetry layer measured a non-zero cost; the port has no telemetry
+layer yet, so its records never carry one, as the JAX records do not
+when the costs are zero.
+
+Writer discipline: the engine tick thread only enqueues records under
+the lock; a dedicated writer thread owns the file handle and does all
+IO (and makes no CUDA call).  IO errors drop the batch and are counted.
+Nothing constructs a ``RequestLog`` unless asked, and every engine hook
+is a single ``is None`` check.
+"""
+
+
+from __future__ import annotations
+
+import json
+import threading
+import time
+from typing import Any, Callable
+
+
+def request_record(
+    req: Any,
+    *,
+    reason: str,
+    policy: Any = None,
+    clock: Callable[[], float] = time.perf_counter,
+) -> dict[str, Any]:
+    """Build the canonical wide-event dict for one terminal request.
+    Pure (no IO): the engine calls it on the tick thread, tests call it
+    directly."""
+    extra = req.extra
+    finish = req.finish_time if req.finish_time is not None else clock()
+    rec: dict[str, Any] = {
+        "ts": time.time(),
+        "rid": req.req_id,
+        "trace": extra.get("trace"),
+        "reason": reason,
+        "replica": int(extra.get("replica", 0)),
+        "spilled": bool(extra.get("spilled", False)),
+        # the ONE weight version that served this request end-to-end
+        # (stamped at admission; drains/replays preserve it)
+        "weights_version": int(extra.get("weights_version", 0)),
+        "prompt_tokens": req.prompt_len,
+        "new_tokens": len(req.generated),
+        "prefix_blocks": req.n_shared_blocks,
+        "preemptions": req.n_preemptions,
+        "replays": int(extra.get("replays", 0)),
+        "drains": int(extra.get("drains", 0)),
+    }
+    tenant = getattr(req, "tenant", "default")
+    if tenant != "default":
+        # written only when non-default, so single-tenant logs stay
+        # byte-stable across the tenancy feature; the id is already
+        # normalized (charset-whitelisted) at the protocol boundary
+        rec["tenant"] = tenant
+    phases: dict[str, float] = {}
+    if req.submit_time is not None:
+        if req.admit_time is not None:
+            phases["queue_wait_s"] = req.admit_time - req.submit_time
+        phases["total_s"] = finish - req.submit_time
+    if req.prefill_s:
+        phases["prefill_s"] = req.prefill_s
+    if req.first_token_time is not None:
+        if req.submit_time is not None:
+            base = extra.get("arrival_wall", req.submit_time)
+            phases["ttft_s"] = req.first_token_time - base
+        phases["decode_s"] = finish - req.first_token_time
+    rec["phases"] = {k: round(v, 6) for k, v in phases.items()}
+    if policy is not None:
+        rec["slo"] = policy.verdict(req).to_dict()
+    return rec
+
+
+class RequestLog:
+    """One JSONL file + one writer thread (the journal's ownership
+    shape, without framing — lines are self-delimiting and a torn tail
+    line is skipped by any JSONL reader).
+
+    Engine-thread API: ``emit(record)`` (enqueue only, no IO).
+    Control: ``flush()`` (barrier: everything enqueued before the call
+    is on disk), ``close()``, ``stats()``.
+    """
+
+    def __init__(self, path: str) -> None:
+        self.path = path
+        # writer-thread-owned from here on: the
+        # file handle and the lines-written counter
+        self._wlog = open(path, "a", encoding="utf-8")
+        self._wlines = 0
+        # shared under _lock: the pending queue and the stats counters
+        self._lock = threading.Lock()
+        self._cond = threading.Condition(self._lock)
+        self._pending: list = []
+        self._stopping = False
+        self.n_records = 0
+        self.n_write_errors = 0
+        self._thread = threading.Thread(
+            target=self._writer_loop, name="serve-request-log-writer",
+            daemon=True,
+        )
+        self._thread.start()
+
+    # -- engine-thread hook (enqueue only, no IO) ----------------------
+    def emit(self, record: dict[str, Any]) -> None:
+        with self._lock:
+            if self._stopping:
+                return
+            self._pending.append(record)
+            self._cond.notify()
+
+    # -- control -------------------------------------------------------
+    def flush(self, timeout: float = 10.0) -> bool:
+        ev = threading.Event()
+        with self._lock:
+            if self._stopping and self._thread.is_alive() is False:
+                return True
+            self._pending.append(("flush", ev))
+            self._cond.notify()
+        return ev.wait(timeout)
+
+    def close(self, timeout: float = 10.0) -> None:
+        with self._lock:
+            if self._stopping:
+                return
+            self._stopping = True
+            self._cond.notify()
+        self._thread.join(timeout)
+
+    def stats(self) -> dict[str, Any]:
+        with self._lock:
+            return {
+                "records": self.n_records,
+                "write_errors": self.n_write_errors,
+            }
+
+    # -- writer thread ----------------------------------------------
+    def _writer_loop(self) -> None:
+        while True:
+            with self._lock:
+                while not self._pending and not self._stopping:
+                    self._cond.wait(0.5)
+                batch, self._pending = self._pending, []
+                stopping = self._stopping
+            if batch:
+                self._writer_batch(batch)
+            if stopping:
+                with self._lock:
+                    leftover, self._pending = self._pending, []
+                if leftover:
+                    self._writer_batch(leftover)
+                try:
+                    self._wlog.close()
+                except OSError:
+                    pass
+                return
+
+    def _writer_batch(self, batch: list) -> None:
+        recs = [b for b in batch if isinstance(b, dict)]
+        barriers = [b[1] for b in batch if not isinstance(b, dict)]
+        if recs:
+            try:
+                for rec in recs:
+                    self._wlog.write(
+                        json.dumps(rec, separators=(",", ":"),
+                                   sort_keys=True) + "\n"
+                    )
+                self._wlog.flush()
+            except (OSError, TypeError, ValueError):
+                # telemetry degradation, never an outage: drop + count
+                with self._lock:
+                    self.n_write_errors += 1
+            else:
+                self._wlines += len(recs)
+                with self._lock:
+                    self.n_records += len(recs)
+        for ev in barriers:
+            ev.set()
+
+
+def read_request_log(path: str) -> list[dict[str, Any]]:
+    """Parse a request-log file, skipping a torn tail line (the writer
+    appends whole lines, so only the last can be partial)."""
+    out: list[dict[str, Any]] = []
+    try:
+        with open(path, encoding="utf-8") as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    out.append(json.loads(line))
+                except ValueError:
+                    continue  # torn tail
+    except FileNotFoundError:
+        pass
+    return out

@@ -239,12 +239,13 @@ class Scheduler:
     def has_work(self) -> bool:
         return bool(self.queue or self.running)
 
-    def add(self, req: Request) -> None:
+    def add(self, req: Request, *, exempt_cap: bool = False) -> None:
         """Enqueue a NEW request; raises ``QueueFull`` past ``max_queue``.
         Preemption requeues bypass this (``_preempt`` appendleft's
-        directly): they were already admitted once and must be able to
-        come back, cap or no cap."""
-        if self.max_queue is not None and len(self.queue) >= self.max_queue:
+        directly), and supervisor recovery replays pass ``exempt_cap``:
+        both were already admitted once and must be able to come back,
+        cap or no cap."""
+        if not exempt_cap and self.max_queue is not None and len(self.queue) >= self.max_queue:
             raise QueueFull(len(self.queue), self.max_queue)
         req.state = RequestState.QUEUED
         self.queue.append(req)

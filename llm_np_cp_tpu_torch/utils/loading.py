@@ -8,7 +8,11 @@ tensor bytes, which are memory-mapped and viewed with numpy.  BF16 is read
 as ``int16`` and viewed as ``torch.bfloat16``.  Tensors are copied into
 preallocated stacked ``[num_layers, ...]`` buffers on ``device``
 (projections transposed to (in, out) on the way) with the family key maps
-of ``models/{llama,gemma2,qwen2}.py``.
+of ``models/{llama,gemma2,qwen2}.py``.  A shard read that fails with a
+transient ``OSError`` is retried a bounded number of times with a
+doubling backoff (``SHARD_READ_RETRIES``, ``SHARD_READ_BACKOFF_S``);
+``SHARD_READ_HOOK`` is the fault-injection seam the ``ckpt_read`` chaos
+site uses (``serve/faults.install``).
 """
 
 from __future__ import annotations
@@ -16,8 +20,9 @@ from __future__ import annotations
 import json
 import re
 import struct
+import time
 from pathlib import Path
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -28,6 +33,24 @@ from llm_np_cp_tpu_torch.models import gemma2, llama, qwen2
 from llm_np_cp_tpu_torch.models.transformer import param_shapes
 
 _LAYER_RE = re.compile(r"^model\.layers\.(\d+)\.(.+)$")
+
+# Transient shard-read IO (a network mount dropping a connection) gets a
+# bounded retry instead of killing a long load; the backoff doubles per
+# attempt.  Module-level so tests can shrink the backoff.
+SHARD_READ_RETRIES = 2
+SHARD_READ_BACKOFF_S = 0.5
+
+# configuration mistakes, not flaky IO: retrying them only delays the
+# diagnosis
+_PERMANENT_OS_ERRORS = (
+    FileNotFoundError, PermissionError, IsADirectoryError, NotADirectoryError,
+)
+
+# Fault-injection seam: when set, called with the shard path before each
+# read attempt and may raise OSError to simulate transient IO.  Wired by
+# ``serve.faults.install`` — the hook lives here so that loading never
+# imports the serving stack.
+SHARD_READ_HOOK: Callable[[Path], None] | None = None
 
 # safetensors dtype → (numpy storage dtype, torch dtype it is viewed as)
 _DTYPES: dict[str, tuple[np.dtype, torch.dtype]] = {
@@ -83,6 +106,27 @@ class SafetensorsFile:
         arr = np.frombuffer(self._data, dtype=np_dtype, count=count, offset=begin).reshape(shape)
         t = torch.from_numpy(arr.copy())
         return t.view(t_dtype) if t.dtype != t_dtype else t
+
+
+def _read_shard(path: Path, consume: Callable[[SafetensorsFile], None]) -> None:
+    """Open one shard and run ``consume(f)`` over it, with a bounded
+    retry on transient ``OSError`` and shard-named errors otherwise.
+    Retrying the whole shard is safe: ``consume`` only copies tensors
+    into preallocated buffers and records names in a set."""
+    for attempt in range(SHARD_READ_RETRIES + 1):
+        try:
+            if SHARD_READ_HOOK is not None:
+                SHARD_READ_HOOK(path)
+            consume(SafetensorsFile(path))
+            return
+        except _PERMANENT_OS_ERRORS:
+            raise  # the OS message already names the path
+        except OSError as e:
+            if attempt >= SHARD_READ_RETRIES:
+                raise OSError(
+                    f"{path.name}: shard read failed after {SHARD_READ_RETRIES + 1} "
+                    f"attempts: {e}") from e
+            time.sleep(SHARD_READ_BACKOFF_S * (2 ** attempt))
 
 
 def _key_maps(config: ModelConfig):
@@ -144,8 +188,7 @@ def load_params(
             )
         dest.copy_(value.to(dtype))
 
-    for path in shard_files(model_dir):
-        f = SafetensorsFile(path)
+    def consume(f: SafetensorsFile) -> None:
         for key in f.keys():
             m = _LAYER_RE.match(key)
             if m:
@@ -175,6 +218,8 @@ def load_params(
                 fill(f, key, params[name], transpose)
                 filled.add(name)
 
+    for path in shard_files(model_dir):
+        _read_shard(path, consume)
     _check_complete(params, filled, config)
     return params, config
 

@@ -423,21 +423,34 @@ def test_metrics_text_equals_jax(max_samples):
 
 
 def test_unported_options_raise(llama):
+    """The options of later slices raise ``NotImplementedError`` naming
+    their layer; the supervised restart, the journal, the request log and
+    the fault injector (the faults-and-recovery slice) are accepted."""
     eng = engine(llama)
-    with pytest.raises(NotImplementedError, match="faults-and-recovery"):
-        HttpServer(eng, model_id="tiny", max_restarts=1)
+    runner = HttpServer(eng, model_id="tiny", max_restarts=1, restart_backoff_s=0.1,
+                        restart_window_s=60.0).runner
+    assert (runner.max_restarts, runner.restart_backoff_s, runner.restart_window_s) == (
+        1, 0.1, 60.0)
     with pytest.raises(NotImplementedError, match="fleet"):
         HttpServer(eng, model_id="tiny", runner=object())
     with pytest.raises(NotImplementedError, match="lifecycle"):
         HttpServer(eng, model_id="tiny", upgrade_loader=lambda body: None)
-    for name, layer in (("journal", "journal"), ("tracer", "tracing")):
-        setattr(eng, name, object())
-        with pytest.raises(NotImplementedError, match=layer):
-            EngineRunner(eng)
-        setattr(eng, name, None)
-    for name in ("journal", "tracer", "tenants", "fault_injector"):
+    for name in ("detach_inflight", "await_recovered"):
+        with pytest.raises(NotImplementedError, match="lifecycle"):
+            getattr(runner, name)()
+    with pytest.raises(NotImplementedError, match="lifecycle"):
+        runner.rolling_upgrade(lambda: None)
+    with pytest.raises(NotImplementedError, match="lifecycle"):
+        runner.rebuild_upgraded(None, 1, [])
+    eng.tracer = object()
+    with pytest.raises(NotImplementedError, match="tracing"):
+        EngineRunner(eng)
+    eng.tracer = None
+    for name in ("tracer", "tenants", "mesh_plan"):
         with pytest.raises(NotImplementedError):
             engine(llama, **{name: object()})
+    accepted = engine(llama, fault_injector=serve.FaultInjector("decode@99"))
+    assert accepted.faults is not None and accepted.journal is None
     # the engine attributes the server reads, at the JAX engine's "off"
     assert (eng.weights_version, eng.decode_degraded, eng.tracer, eng.actions, eng.faults,
             eng.journal, eng.tenants) == (0, None, None, None, None, None, None)

@@ -37,7 +37,9 @@ def test_scan_sees_the_port():
             "llm_np_cp_tpu_torch/serve/engine.py", "llm_np_cp_tpu_torch/serve/scheduler.py",
             "llm_np_cp_tpu_torch/random.py", "llm_np_cp_tpu_torch/ops/cuda/threefry.py",
             "llm_np_cp_tpu_torch/serve/host_tier.py", "llm_np_cp_tpu_torch/serve/http/server.py",
-            "llm_np_cp_tpu_torch/serve/http/protocol.py", "chip_smoke.py"} <= names
+            "llm_np_cp_tpu_torch/serve/http/protocol.py", "llm_np_cp_tpu_torch/serve/faults.py",
+            "llm_np_cp_tpu_torch/serve/journal.py", "llm_np_cp_tpu_torch/serve/request_log.py",
+            "llm_np_cp_tpu_torch/utils/loading.py", "chip_smoke.py"} <= names
     assert imported_roots(ROOT / "tests" / "test_torch_model.py") >= {"jax", "llm_np_cp_tpu"}
     assert "llm_np_cp_tpu_torch" in imported_roots(ROOT / "chip_smoke.py")
 

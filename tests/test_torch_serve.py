@@ -529,9 +529,12 @@ def test_auto_means_on_and_unported_options_raise(llama):
               device="cpu")
     eng = serve.ServeEngine(tp, cfg, mixed_step="auto", **kw)
     assert eng.mixed and eng.mixed_buckets[0] == da.RAGGED_Q_TILE
-    for opt in ("tracer", "journal", "telemetry", "mesh_plan", "tenants", "fault_injector"):
+    for opt in ("tracer", "telemetry", "mesh_plan", "tenants"):
         with pytest.raises(NotImplementedError, match=opt):
             serve.ServeEngine(tp, cfg, **{opt: object()}, **kw)
+    # the faults-and-recovery slice is ported: its layers are accepted
+    inj = serve.FaultInjector("decode@9")
+    assert serve.ServeEngine(tp, cfg, fault_injector=inj, **kw).faults is inj
     # host_tier is ported: it takes the JAX engine's gate instead
     with pytest.raises(ValueError, match="enable_prefix_cache"):
         serve.ServeEngine(tp, cfg, host_tier=object(), **kw)
@@ -541,8 +544,10 @@ def test_auto_means_on_and_unported_options_raise(llama):
         serve.ServeEngine(tp, cfg, bogus=1, **kw)
     with pytest.raises(ValueError, match="device"):
         serve.ServeEngine(tp, cfg, **{**kw, "device": "meta"})
-    for name in ("recover", "finish_recovered", "clone_fresh", "share_compiled_steps"):
-        assert not hasattr(eng, name)
+    for name in ("recover", "finish_recovered", "clone_fresh", "retire"):
+        assert callable(getattr(eng, name))
+    with pytest.raises(NotImplementedError, match="fleet"):
+        eng.share_compiled_steps(eng)
     assert eng.compile_counts() == {"mixed_step": 0}
 
 
