@@ -142,6 +142,31 @@ Phases, each printing JSON lines; any failure exits non-zero:
    the thread that ran it (their difference, the time off the CPU inside
    the tick, is what the event loop's share of the GIL costs the HTTP
    legs), with the kv_bytes_tick gauge's host time.
+9b. observe — the observability plane (``serve/{tracing,slo,telemetry,
+   otel,tenants}.py``) on the http phase's trace and engine: HTTP legs
+   untraced, traced, traced without the OTLP exporter (twice), traced,
+   untraced.  A traced leg carries a ``TraceRecorder`` (a ring), a
+   ``TickSentinel``, an ``SLOTracker``, a ``TelemetryModel`` with the
+   card's 3350 GB/s and 989 TFLOP/s, a ``TenantLedger`` over three
+   tenants, a request log and an ``OtlpExporter`` feeding a stdlib
+   collector on 127.0.0.1 that the phase runs.  Required: traced tokens
+   equal to the untraced leg's or apart at a near-tie, every token
+   teacher-forced; no capture, every tick a replay, launches as the ticks
+   imply; one tick span a tick, its phases contiguous and covering it;
+   ``0 < roofline_util < 1`` and ``mfu < 1`` on every graded tick; the
+   ticks' byte args summing to the ledgers, and the request log's cost
+   blocks and ``/debug/tenants``' per-tenant sums equal to them; every
+   span the exporter counts received, none dropped; the ``/debug/trace``
+   dump read by ``tools/summarize_trace.py`` (a subprocess).  Then a
+   torch.profiler capture of traced ticks (``serve.mixed_dispatch``
+   ranges; the dispatch → fetch wall against each tick's device span), a
+   tenant leg whose in-flight cap throttles one tenant (429s counted as
+   throttles and rejects), an OTLP leg against a closed port (errors and
+   drops counted, no tick stalled), and traced against untraced on one
+   composition: a phase-split leg (paged decode; ``TICK_PHASES``, the
+   prefill chunks' records), a min-p leg (the threefry kernels) and a
+   float32 leg — tokens identical, attribution conserving.  Per HTTP
+   leg: tok/s, TTFT and TPOT p50, each tick's host wall and CPU time.
 10. chaos — faults and supervised recovery (``serve/faults.py``, the
    runner's restart) on the JAX bench's ``serve_chaos_poisson`` shape,
    not cut: the http phase's model, trace and engine over HTTP
@@ -160,7 +185,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
    near-tie, every token teacher-forced.  Float32 legs on the trace's
    first 8 requests (16 new tokens), greedy and min-p, under a crash and
    a hang past a 3 s ``tick_deadline``: two restarts, recovered streams
-   equal to the clean leg's token for token.
+   equal to the clean leg's token for token.  The chaos legs run with a
+   tracer and a sentinel: one ``engine-death`` instant and one
+   ``restart`` span a restart, no tick span between a death and the end
+   of its rebuild, and the sentinel's samples equal to the tick spans.
 11. restart — the durable journal's ``kill -9`` resume on the JAX bench's
    ``serve_restart_poisson`` shape: the server runs in a child process
    (this script with ``--serve-child``).  A plain leg and a journaled leg
@@ -2566,7 +2594,8 @@ def _pct(np, vals: list, q: float) -> float | None:
 
 
 def http_leg(torch, np, eng, trace: list[dict], model_id: str, *, server_kwargs=None,
-             retries: int = 0, cut_stream: bool = True) -> dict:
+             retries: int = 0, cut_stream: bool = True, body=None,
+             probes: tuple[str, ...] = ()) -> dict:
     """The trace's arrivals through the port's server over ``eng``, started
     through ``run_server`` (the coroutine ``serve_forever`` runs) on this
     event loop, its runner thread ticking the engine: one
@@ -2574,7 +2603,9 @@ def http_leg(torch, np, eng, trace: list[dict], model_id: str, *, server_kwargs=
     failures each), sleeping until its arrival; then a ``/metrics``
     scrape, and (``cut_stream``) one more stream cut after HTTP_CUT_AFTER tokens,
     whose blocks must come back; then the drain that ends ``run_server``.
-    ``server_kwargs`` go to ``run_server`` (supervision).  The runner's
+    ``server_kwargs`` go to ``run_server`` (supervision); ``body(item)``
+    adds fields to a request's body (its tenant); each path of ``probes``
+    is read with a GET after the scrape (``/debug/...``).  The runner's
     engine is read at the end: a supervised restart replaces ``eng``."""
     import asyncio
 
@@ -2597,7 +2628,8 @@ def http_leg(torch, np, eng, trace: list[dict], model_id: str, *, server_kwargs=
             return await astream_completion(
                 server.host, server.port,
                 {"model": model_id, "prompt": [int(t) for t in item["prompt"]],
-                 "max_tokens": item["max_new_tokens"], "seed": item["seed"]},
+                 "max_tokens": item["max_new_tokens"], "seed": item["seed"],
+                 **(body(item) if body is not None else {})},
                 timeout=300.0, retries=retries, backoff_s=0.1)
 
         t0 = time.perf_counter()
@@ -2605,6 +2637,10 @@ def http_leg(torch, np, eng, trace: list[dict], model_id: str, *, server_kwargs=
         wall = time.perf_counter() - t0
         status, raw = await loop.run_in_executor(None, http_get, server.host, server.port,
                                                  "/metrics")
+        probed = {}
+        for path in probes:
+            probed[path] = await loop.run_in_executor(None, http_get, server.host, server.port,
+                                                      path)
         runner = server.runner
         snap = runner.engine.metrics.snapshot()
         sup = dict(restarts=runner.restarts, recovery_latency_s=list(runner.recovery_latency_s),
@@ -2613,7 +2649,7 @@ def http_leg(torch, np, eng, trace: list[dict], model_id: str, *, server_kwargs=
             server.begin_drain()
             await serving
             return dict(results=results, wall=wall, status=status, prom=raw.decode(),
-                        snap=snap, sup=sup)
+                        snap=snap, sup=sup, probed=probed)
         cut = await astream_completion(
             server.host, server.port,
             {"model": model_id, "prompt": [int(t) for t in trace[0]["prompt"]],
@@ -2628,7 +2664,7 @@ def http_leg(torch, np, eng, trace: list[dict], model_id: str, *, server_kwargs=
         server.begin_drain()
         await serving
         return dict(results=results, wall=wall, status=status, prom=raw.decode(), snap=snap,
-                    sup=sup, cut=cut, held=held, aborted=aborted)
+                    sup=sup, cut=cut, held=held, aborted=aborted, probed=probed)
 
     return asyncio.run(leg())
 
@@ -2643,11 +2679,20 @@ def tick_timer(np, eng):
     reported: the thread clock advances in coarse steps on the card's
     host (a single tick can read more CPU than wall time), so per-tick
     percentiles of the difference mean nothing.  Wraps the engine's
-    bound methods; returns (summary, restore)."""
+    ``step`` and the byte model's ``mixed_tick_kv_read`` (its gauge
+    calls, ``per_request=False``, are timed); ``runner`` holds the
+    thread ident that ran the last tick.  Returns (summary, restore,
+    runner)."""
+    import threading
+
+    from llm_np_cp_tpu_torch.serve import telemetry as tel
+
     rec = dict(wall=[], cpu=[], gauge=[])
-    real_step, real_gauge = eng.step, eng._kv_bytes_tick_mixed
+    runner = [None]
+    real_step, real_kv = eng.step, tel.mixed_tick_kv_read
 
     def step():
+        runner[0] = threading.get_ident()
         d0, w0, c0 = eng.n_dispatches, time.perf_counter(), time.thread_time()
         try:
             return real_step()
@@ -2656,10 +2701,11 @@ def tick_timer(np, eng):
                 rec["cpu"].append(time.thread_time() - c0)
                 rec["wall"].append(time.perf_counter() - w0)
 
-    def gauge(*args):
+    def kv_read(*args, per_request=True):
         t0 = time.perf_counter()
-        out = real_gauge(*args)
-        rec["gauge"].append(time.perf_counter() - t0)
+        out = real_kv(*args, per_request=per_request)
+        if not per_request:
+            rec["gauge"].append(time.perf_counter() - t0)
         return out
 
     def summary() -> dict:
@@ -2674,9 +2720,77 @@ def tick_timer(np, eng):
                     gauge_us_max=float(np.max(rec["gauge"]) * 1e6))
 
     def restore() -> None:
-        del eng.step, eng._kv_bytes_tick_mixed
+        del eng.step
+        tel.mixed_tick_kv_read = real_kv
 
-    eng.step, eng._kv_bytes_tick_mixed = step, gauge
+    eng.step, tel.mixed_tick_kv_read = step, kv_read
+    return summary, restore, runner
+
+
+# the observability plane's per-tick hooks, grouped as the observe phase
+# reports them: (group, owner key, method names); owner keys name an
+# entry of hook_timer's ``owners``
+OBSERVE_HOOKS = (
+    ("bill", "telemetry", ("mixed_tick_cost", "split_tick_cost")),
+    ("grade and attribute", "telemetry", ("finish", "attribute")),
+    ("grade and attribute", "metrics", ("on_telemetry",)),
+    ("trace appends", "tracer", ("tick", "request_phase", "request_instant", "request_end",
+                                 "instant", "complete")),
+    ("trace clock reads", "tracer", ("now_us",)),
+    ("request args", "engine", ("_targs",)),
+    ("sentinel", "engine", ("_sentinel_observe",)),
+    ("tenant ledger", "tenants", ("on_terminal", "on_throttle", "cost_shares")),
+    ("SLO verdicts", "slo", ("observe",)),
+    ("request log", "engine", ("_log_request",)),
+)
+
+
+def hook_timer(eng, runner: list):
+    """Time each of the plane's hooks (OBSERVE_HOOKS) by wrapping it on its
+    instance: calls and seconds per group, on the thread that runs the
+    ticks (``runner``, from tick_timer) and off it.  Each wrapper adds two
+    clock reads a call.  Returns (summary, restore)."""
+    import threading
+
+    owners = dict(telemetry=eng.telemetry, metrics=eng.metrics, tracer=eng.tracer,
+                  engine=eng, tenants=eng.tenants, slo=eng.metrics.slo)
+    rec: dict[tuple[str, bool], list] = {}
+    wrapped = []
+
+    def wrap(group, obj, name):
+        real = getattr(obj, name)
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real(*args, **kw)
+            finally:
+                dt = time.perf_counter() - t0
+                slot = rec.setdefault((group, threading.get_ident() == runner[0]), [0, 0.0])
+                slot[0] += 1
+                slot[1] += dt
+
+        setattr(obj, name, timed)
+        wrapped.append((obj, name))
+
+    for group, owner, names in OBSERVE_HOOKS:
+        for name in names:
+            wrap(group, owners[owner], name)
+
+    def summary(ticks: int) -> dict:
+        out = {}
+        for (group, on_runner), (calls, secs) in sorted(rec.items()):
+            where = "runner" if on_runner else "off_runner"
+            out.setdefault(group, {})[where] = dict(
+                calls=calls, ms=secs * 1e3, us_per_tick=secs * 1e6 / max(ticks, 1))
+        out["total_runner_us_per_tick"] = sum(
+            v["runner"]["us_per_tick"] for v in out.values() if "runner" in v)
+        return out
+
+    def restore() -> None:
+        for obj, name in wrapped:
+            delattr(obj, name)
+
     return summary, restore
 
 
@@ -2752,7 +2866,7 @@ def http_phase(torch, np, kernels: dict, card: str) -> dict:
         """The direct realtime replay, the no-HTTP baseline."""
         eng.metrics = ServeMetrics(clock=eng.clock)
         eng.scheduler.finished.clear()
-        summary, restore = tick_timer(np, eng)
+        summary, restore, _ = tick_timer(np, eng)
         t0 = time.perf_counter()
         try:
             counts, snap = counted(where, lambda: eng.replay_trace(trace, realtime=True))
@@ -2776,7 +2890,7 @@ def http_phase(torch, np, kernels: dict, card: str) -> dict:
         thread."""
         eng.metrics = ServeMetrics(clock=eng.clock)
         eng.scheduler.finished.clear()
-        summary, restore = tick_timer(np, eng)
+        summary, restore, _ = tick_timer(np, eng)
         try:
             counts, res = counted(where, lambda: http_leg(torch, np, eng, trace, model_id))
         finally:
@@ -2871,6 +2985,647 @@ def http_phase(torch, np, kernels: dict, card: str) -> dict:
 
 
 # ----------------------------------------------------------------------
+# phase 9b: the observability plane over the captured unified tick
+# ----------------------------------------------------------------------
+
+# the traced legs' layers: an SLO policy (the JAX bench's serve targets
+# are not fixed; these are a chat service's), the trace ring, the
+# tenants of the traced trace, the tenant leg's in-flight cap and burst
+OBSERVE_SLO = dict(ttft_s=0.5, tpot_s=0.05)
+OBSERVE_RING = 1 << 20
+OBSERVE_TENANTS = ("team-a", "team-b", "team-c")
+OBSERVE_CAP, OBSERVE_BURST = 2, 12
+# the split, min-p, OTLP-down, float32 and profiled legs: the trace's
+# first requests, all submitted at once (one composition a run)
+OBSERVE_SHORT_REQUESTS, OBSERVE_SHORT_TOKENS = 8, 16
+
+
+def otlp_collector():
+    """A stdlib OTLP/HTTP JSON collector on 127.0.0.1 (loopback only):
+    counts the spans and scopes it was sent.  Returns (server, got);
+    ``server.shutdown(); server.server_close()`` stops it."""
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    got = dict(posts=0, spans=0, scopes=set(), names={})
+    lock = threading.Lock()
+
+    class Handler(BaseHTTPRequestHandler):
+        def do_POST(self):
+            body = json.loads(self.rfile.read(int(self.headers.get("Content-Length", "0"))))
+            with lock:
+                got["posts"] += 1
+                for rs in body["resourceSpans"]:
+                    for ss in rs["scopeSpans"]:
+                        got["scopes"].add(ss["scope"]["name"])
+                        got["spans"] += len(ss["spans"])
+                        for sp in ss["spans"]:
+                            got["names"][sp["name"]] = got["names"].get(sp["name"], 0) + 1
+            self.send_response(200)
+            self.send_header("Content-Length", "0")
+            self.end_headers()
+
+        def log_message(self, *args):
+            pass
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    threading.Thread(target=server.serve_forever, name="otlp-collector", daemon=True).start()
+    return server, got
+
+
+def closed_port() -> int:
+    """A loopback port nothing listens on (bound, then closed)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def tick_checks(events: list[dict], phases: tuple[str, ...], hbm_gbps: float,
+                peak_tflops: float) -> dict:
+    """A trace's tick spans: each followed by its phase slices, named
+    ``phases`` in order, contiguous inside the tick and covering it (the
+    phases sum to t6 - t0; the tick's end adds the args' emission: ticks
+    of 200 µs or more must be >= 0.9 covered, as the JAX package's test
+    holds them), and each roofline-graded tick at 0 < util < 1 and mfu < 1
+    against the given constants."""
+    ticks, bad, shortfall, utils, mfus, walls, graded_hbm = 0, [], [], [], [], [], set()
+    i = 0
+    while i < len(events):
+        ev = events[i]
+        i += 1
+        if ev.get("cat") != "tick" or ev.get("ph") != "X" or ev.get("name") != "tick":
+            continue
+        ph = events[i:i + len(phases)]
+        i += len(phases)
+        ticks += 1
+        if [p["name"] for p in ph] != list(phases):
+            bad.append(("names", [p.get("name") for p in ph]))
+            continue
+        t_end = ev["ts"] + ev["dur"]
+        prev = ev["ts"]
+        for p in ph:
+            if abs(p["ts"] - prev) > 1e-3 or p["ts"] + p["dur"] > t_end + 1e-3:
+                bad.append(("not contiguous", ev["ts"], p["name"]))
+            prev = p["ts"] + p["dur"]
+        covered = sum(p["dur"] for p in ph)
+        shortfall.append(ev["dur"] - covered)
+        if ev["dur"] >= 200.0 and covered < 0.9 * ev["dur"]:
+            bad.append(("coverage", ev["ts"], covered, ev["dur"]))
+        args = ev.get("args", {})
+        if "roofline_util" in args:
+            utils.append(args["roofline_util"])
+            mfus.append(args["mfu"])
+            walls.append(args["device_time_s"])
+            if not (0.0 < args["roofline_util"] < 1.0 and args["mfu"] < 1.0):
+                bad.append(("roofline", ev["ts"], args["roofline_util"], args["mfu"]))
+    arr = lambda v: sorted(v) or [0.0]  # noqa: E731
+    return dict(ticks=ticks, graded=len(utils), problems=bad[:5], n_problems=len(bad),
+                shortfall_us_max=max(shortfall, default=0.0),
+                roofline_util_min=min(utils, default=None),
+                roofline_util_median=arr(utils)[len(utils) // 2] if utils else None,
+                roofline_util_max=max(utils, default=None), mfu_max=max(mfus, default=None),
+                device_time_s_median=arr(walls)[len(walls) // 2] if walls else None,
+                hbm_gbps=hbm_gbps, peak_tflops=peak_tflops)
+
+
+def observe_phase(torch, np, kernels: dict, card: str) -> dict:
+    """The observability plane on the http phase's engine and trace
+    (serve_http_poisson): HTTP legs untraced, traced, traced, untraced —
+    the traced ones with a tracer, a sentinel, an SLO tracker, telemetry
+    with the card's constants, a tenant ledger over three tenants and an
+    OTLP exporter feeding a loopback collector — then a traced phase-split
+    leg, a traced min-p leg, a tenant leg whose in-flight cap throttles
+    one tenant, an OTLP leg against a closed port, a float32 pair of
+    legs (untraced, traced) and a torch.profiler capture of traced ticks."""
+    import os
+    from types import SimpleNamespace
+
+    from llm_np_cp_tpu_torch.config import PRESETS
+    from llm_np_cp_tpu_torch.models.transformer import forward, init_params
+    from llm_np_cp_tpu_torch.ops.cuda import decode_attention as da
+    from llm_np_cp_tpu_torch.ops.sampling import Sampler
+    from llm_np_cp_tpu_torch.serve import ServeEngine, ServeMetrics, poisson_trace, pool_geometry
+    from llm_np_cp_tpu_torch.serve.otel import OtlpExporter
+    from llm_np_cp_tpu_torch.serve.request_log import RequestLog, read_request_log
+    from llm_np_cp_tpu_torch.serve.slo import SLOPolicy, SLOTracker, TickSentinel
+    from llm_np_cp_tpu_torch.serve.telemetry import (
+        HBM_GBPS_DEFAULT,
+        PEAK_TFLOPS_DEFAULT,
+        TelemetryModel,
+    )
+    from llm_np_cp_tpu_torch.serve.tenants import TenantLedger
+    from llm_np_cp_tpu_torch.serve.tracing import MIXED_TICK_PHASES, TICK_PHASES, TraceRecorder
+
+    model_id = "meta-llama/Llama-3.2-1B"
+    cfg = PRESETS[model_id]
+    layers = cfg.num_hidden_layers
+    params = init_params(0, cfg, torch.bfloat16, device="cuda")
+    trace = poisson_trace(np.random.default_rng(HTTP_SEED), HTTP_REQUESTS, rate_rps=HTTP_RATE,
+                          prompt_len_range=HTTP_PROMPTS, max_new_tokens=HTTP_NEW,
+                          vocab_size=cfg.vocab_size, seed_base=HTTP_SEED)
+    short = [dict(item, arrival_s=0.0, max_new_tokens=OBSERVE_SHORT_TOKENS)
+             for item in trace[:OBSERVE_SHORT_REQUESTS]]
+    _, num_blocks, max_seq_len = pool_geometry(HTTP_PROMPTS[1], HTTP_NEW, HTTP_SLOTS,
+                                               HTTP_BLOCK, HTTP_CHUNK)
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(root, "smoke_out", "observe")
+    os.makedirs(out_dir, exist_ok=True)
+    policy = SLOPolicy(**OBSERVE_SLO)
+    checks: list[str] = []
+    collector, got = otlp_collector()
+
+    def engine(leg_params, dtype=torch.bfloat16, sampler=None, **kw) -> ServeEngine:
+        kw.setdefault("mixed_step", "on")
+        eng = ServeEngine(leg_params, cfg, sampler=sampler or Sampler("greedy"),
+                          max_slots=HTTP_SLOTS, num_blocks=num_blocks, block_size=HTTP_BLOCK,
+                          max_seq_len=max_seq_len, prefill_chunk=HTTP_CHUNK, cache_dtype=dtype,
+                          device=torch.device("cuda"), **kw)
+        eng.warmup([int(t["prompt"].size) for t in trace], HTTP_NEW)
+        torch.cuda.synchronize()
+        return eng
+
+    def attach(eng, leg_params, *, endpoint: str | None, ledger=None, log=None) -> dict:
+        """Every layer of the plane on ``eng`` (fresh metrics with the SLO
+        tracker); returns them."""
+        tracer = TraceRecorder(ring=OBSERVE_RING)
+        exporter = None
+        if endpoint is not None:
+            exporter = OtlpExporter(endpoint, batch_max=256, flush_interval_s=0.2,
+                                    timeout_s=2.0).attach(tracer)
+        layers_ = dict(tracer=tracer, sentinel=TickSentinel(),
+                       telemetry=TelemetryModel(cfg, leg_params),
+                       tenants=ledger or TenantLedger(policy=policy), otel=exporter)
+        eng.tracer, eng.sentinel = layers_["tracer"], layers_["sentinel"]
+        eng.telemetry, eng.tenants = layers_["telemetry"], layers_["tenants"]
+        eng.request_log = log
+        eng.metrics = ServeMetrics(clock=eng.clock, slo=SLOTracker(policy, clock=eng.clock))
+        return layers_
+
+    def detach(eng) -> None:
+        eng.tracer = eng.sentinel = eng.telemetry = eng.tenants = eng.request_log = None
+        eng.metrics = ServeMetrics(clock=eng.clock)
+
+    def counted(where: str, eng, run, *, sampled: bool = False) -> tuple[dict, object]:
+        """One leg with the launch counters at 0: its launches against its
+        dispatches, one host fetch and one graph replay a dispatch, no
+        capture."""
+        reset_counts(kernels)
+        d0, f0, b0, g0 = (eng.n_dispatches, eng.n_host_fetches, dict(eng.bucket_dispatches),
+                          graph_totals())
+        out = run()
+        torch.cuda.synchronize()
+        launches, graphs_run = read_counts(kernels), graph_delta(g0)
+        dispatches, fetches = eng.n_dispatches - d0, eng.n_host_fetches - f0
+        if eng.mixed:
+            want = {name: 0 for name in kernels}
+            want.update(ragged_paged_attention=layers * dispatches,
+                        ragged_paged_attention_combine=ragged_combines(torch, da, eng, cfg, b0))
+            if sampled:
+                want.update(threefry2x32=dispatches, categorical=dispatches)
+            else:
+                want.update(sample_epilogue=dispatches)
+            if launches != want or fetches != dispatches:
+                checks.append(f"{where}: launch counts {launches} != implied {want}, "
+                              f"{fetches} host fetches for {dispatches} dispatches")
+            if graphs_run != dict(captures=0, replays=dispatches, eager=0):
+                checks.append(f"{where}: {dispatches} ticks, graphs ran {graphs_run}")
+        return dict(launches=launches, graphs=graphs_run, dispatches=dispatches,
+                    host_fetches=fetches), out
+
+    def ledgers_conserve(where: str, snap: dict, tenants: dict, log_records=None) -> dict:
+        """Per-tenant sums (and the request log's per-request cost blocks)
+        against the global ledgers."""
+        keys = (("kv_bytes_read", "kv_read_bytes_total"),
+                ("kv_bytes_written", "kv_write_bytes_total"),
+                ("weight_bytes_amortized", "weight_bytes_total"),
+                ("device_time_s", "device_time_s_total"))
+        rel = {}
+        for tk, mk in keys:
+            total = snap.get(mk, 0.0)
+            rel[tk] = abs(sum(e[tk] for e in tenants.values()) - total) / max(total, 1e-30)
+            if log_records is not None:
+                lsum = sum(r.get("cost", {}).get(tk, 0.0) for r in log_records)
+                rel[f"log_{tk}"] = abs(lsum - total) / max(total, 1e-30)
+        n_req = sum(e["requests"] for e in tenants.values())
+        n_tok = sum(e["tokens"] for e in tenants.values())
+        out = dict(rel_err=rel, requests=n_req,
+                   terminals=snap["finished"] + snap["aborted"], tokens=n_tok,
+                   generated=snap["total_generated_tokens"],
+                   ok=max(rel.values()) <= 1e-6 and n_req == snap["finished"] + snap["aborted"]
+                   and n_tok == snap["total_generated_tokens"])
+        if not out["ok"]:
+            checks.append(f"{where}: ledgers do not conserve: {out}")
+        return out
+
+    def trace_ticks_to_ledger(where: str, events: list[dict], snap: dict) -> dict:
+        """The tick args' bytes (rounded to ints) summed against the
+        metrics' ledgers of the graded ticks."""
+        graded = [e["args"] for e in events if e.get("name") == "tick" and e.get("ph") == "X"
+                  and "kv_read_bytes" in e.get("args", {})]
+        kv = sum(a["kv_read_bytes"] for a in graded)
+        total = snap.get("kv_read_bytes_total", 0.0)
+        ok = abs(kv - total) <= len(graded) and len(graded) == snap.get("roofline_ticks", 0)
+        if not ok:
+            checks.append(f"{where}: the ticks' kv_read_bytes {kv} over {len(graded)} ticks, "
+                          f"ledger {total} over {snap.get('roofline_ticks')}")
+        return dict(graded_ticks=len(graded), ticks_kv_read_bytes=kv,
+                    ledger_kv_read_bytes=total, ok=ok)
+
+    def exported(where: str, layers_: dict) -> dict:
+        """Flush and close the leg's exporter; the collector's spans
+        against its stats."""
+        exp = layers_["otel"]
+        flushed = exp.flush(timeout=30.0)
+        exp.close()
+        return dict(flushed=flushed, **exp.stats())
+
+    eng = engine(params)
+    if eng.epilogue_impl != "fused":
+        raise AssertionError(f"observe: epilogue {eng.epilogue_impl} for a greedy sampler")
+    endpoint = f"http://127.0.0.1:{collector.server_address[1]}/v1/traces"
+    tenant_of = {item["seed"]: OBSERVE_TENANTS[j % len(OBSERVE_TENANTS)]
+                 for j, item in enumerate(trace)}
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_per_tick(prof, events: list[dict]) -> dict:
+        """Each graded tick's device work under the profiler: the kernels
+        and copies that start between its serve.mixed_dispatch range and
+        the next one (the tick's fetch waits for them), as their
+        first-start-to-last-end span and as their summed durations, against
+        the tick's dispatch → fetch wall; the range's own annotation on the
+        device timeline is not device work."""
+        walls = [1e3 * e["args"]["device_time_s"] for e in events
+                 if e.get("name") == "tick" and "device_time_s" in e.get("args", {})]
+        fevents = list(prof.events())
+        starts = sorted(e.time_range.start for e in fevents if e.name == "serve.mixed_dispatch"
+                        and e.device_type == DeviceType.CPU)
+        dev = sorted((e.time_range.start, e.time_range.end) for e in fevents
+                     if e.device_type == DeviceType.CUDA and not e.name.startswith("serve."))
+        spans, busy = [], []
+        j = 0
+        for k, t0 in enumerate(starts):
+            t1 = starts[k + 1] if k + 1 < len(starts) else float("inf")
+            while j < len(dev) and dev[j][0] < t0:
+                j += 1
+            mine = []
+            while j < len(dev) and dev[j][0] < t1:
+                mine.append(dev[j])
+                j += 1
+            if mine:
+                spans.append((max(b for _, b in mine) - min(a for a, _ in mine)) / 1e3)
+                busy.append(sum(b - a for a, b in mine) / 1e3)
+        gap_share = [(sp - b) / sp for sp, b in zip(spans, busy) if sp > 0]
+        out = dict(ticks=len(walls), mixed_dispatch_ranges=len(starts),
+                   ticks_with_device_work=len(spans),
+                   dispatch_to_fetch_ms_mean=float(np.mean(walls)) if walls else None,
+                   dispatch_to_fetch_ms_p50=_pct(np, walls, 50),
+                   device_span_ms_mean=float(np.mean(spans)) if spans else None,
+                   device_span_ms_p50=_pct(np, spans, 50),
+                   device_busy_ms_mean=float(np.mean(busy)) if busy else None,
+                   device_busy_ms_p50=_pct(np, busy, 50),
+                   gap_share_of_span_mean=float(np.mean(gap_share)) if gap_share else None,
+                   gap_share_of_span_p50=_pct(np, gap_share, 50))
+        if spans and walls and len(spans) == len(walls):
+            over = [w - sp for w, sp in zip(walls, spans)]
+            out.update(wall_over_span_ms_mean=float(np.mean(over)),
+                       wall_over_span_ms_p50=_pct(np, over, 50))
+        if not walls or len(starts) < len(walls) or len(spans) != len(walls):
+            checks.append(f"observe profile: {out}")
+        return out
+
+    def http_observed(where: str, traced: bool, direct_tokens: dict | None,
+                      export: bool = True, hooks: bool = False) -> dict:
+        """One HTTP leg, untraced or with every layer (``export``: the
+        OTLP exporter too); each tick's host wall and thread CPU time
+        (``hooks``: and each hook's time)."""
+        detach(eng)
+        eng.scheduler.finished.clear()
+        layers_ = None
+        log_path = os.path.join(out_dir, f"{where.replace(' ', '_')}.jsonl")
+        if traced:
+            if os.path.exists(log_path):
+                os.remove(log_path)
+            layers_ = attach(eng, params, endpoint=endpoint if export else None,
+                             log=RequestLog(log_path))
+            spans0 = got["spans"]
+        probes = ("/debug/trace", "/debug/tenants", "/debug/slo") if traced else ()
+        summary, restore, runner = tick_timer(np, eng)
+        hook_summary = hook_restore = None
+        if hooks:
+            hook_summary, hook_restore = hook_timer(eng, runner)
+        try:
+            counts, res = counted(where, eng, lambda: http_leg(
+                torch, np, eng, trace, model_id, cut_stream=False, probes=probes,
+                body=lambda item: {"tenant": tenant_of[item["seed"]]}))
+        finally:
+            restore()
+            if hook_restore is not None:
+                hook_restore()
+        results = res["results"]
+        ok200 = [r for r in results if r["status"] == 200 and r["finish_reason"] == "length"
+                 and len(r["token_ids"]) == HTTP_NEW]
+        if len(ok200) != HTTP_REQUESTS:
+            checks.append(f"{where}: {len(ok200)} of {HTTP_REQUESTS} answered 200 with "
+                          f"{HTTP_NEW} tokens: {[r['status'] for r in results]}")
+        tokens = {item["seed"]: r["token_ids"] for item, r in zip(trace, results)}
+        ttft = [r["ttft_s"] for r in ok200 if r["ttft_s"] is not None]
+        tpot = [(r["latency_s"] - r["ttft_s"]) / (len(r["token_ids"]) - 1) for r in ok200
+                if r["ttft_s"] is not None and len(r["token_ids"]) > 1]
+        generated = sum(len(r["token_ids"]) for r in results)
+        snap = res["snap"]
+        out = dict(leg=where, traced=traced, export=traced and export, **counts,
+                   wall_s=res["wall"], generated_tokens=generated,
+                   tok_s=generated / res["wall"], ticks=snap["ticks"],
+                   ttft_s_p50=_pct(np, ttft, 50), ttft_s_p99=_pct(np, ttft, 99),
+                   tpot_s_p50=_pct(np, tpot, 50), tick_host=summary())
+        if hook_summary is not None:
+            out["hooks"] = hook_summary(counts["dispatches"])
+        if direct_tokens is not None:
+            gaps = []
+            for item in trace:
+                gap = first_divergence(torch, forward, params, cfg, item["prompt"],
+                                       tokens[item["seed"]], direct_tokens[item["seed"]])
+                if gap is not None:
+                    gaps.append(gap)
+            out["parity_vs_untraced"] = dict(identical=HTTP_REQUESTS - len(gaps),
+                                             divergence_top2_gaps=gaps, tol=TEACHER_TOL,
+                                             ok=all(g <= TEACHER_TOL for g in gaps))
+            if not out["parity_vs_untraced"]["ok"]:
+                checks.append(f"{where} parts from the untraced leg away from a near-tie: "
+                              f"{out['parity_vs_untraced']}")
+            tf = teacher_forced_requests(
+                torch, forward, params, cfg,
+                [SimpleNamespace(prompt=item["prompt"], generated=tokens[item["seed"]])
+                 for item in trace if tokens[item["seed"]]], TEACHER_TOL)
+            out["teacher_forced"] = tf
+            if not tf["ok"] or tf["requests"] != HTTP_REQUESTS:
+                checks.append(f"{where} teacher-forced: {tf}")
+        if traced:
+            eng.request_log.close()
+            records = read_request_log(log_path)
+            events = layers_["tracer"].events()
+            tk = tick_checks(events, MIXED_TICK_PHASES, layers_["telemetry"].hbm_gbps,
+                             layers_["telemetry"].peak_tflops)
+            if tk["n_problems"] or tk["graded"] != counts["dispatches"]:
+                checks.append(f"{where} ticks: {tk}, {counts['dispatches']} dispatches")
+            st_trace, raw_trace = res["probed"]["/debug/trace"]
+            dump = os.path.join(out_dir, f"{where.replace(' ', '_')}_trace.json")
+            with open(dump, "wb") as f:
+                f.write(raw_trace)
+            summ = subprocess.run(
+                [sys.executable, os.path.join(root, "tools", "summarize_trace.py"), dump,
+                 "--top", "3"],
+                capture_output=True, text=True, timeout=120)
+            st_ten, raw_ten = res["probed"]["/debug/tenants"]
+            st_slo, raw_slo = res["probed"]["/debug/slo"]
+            tenants_view = json.loads(raw_ten)["tenants"] if st_ten == 200 else {}
+            walls = [1e3 * e["args"]["device_time_s"] for e in events
+                     if e.get("name") == "tick" and "device_time_s" in e.get("args", {})]
+            out["dispatch_to_fetch_ms_p50"] = _pct(np, walls, 50)
+            by_phase: dict[str, list[float]] = {}
+            for t, ph in ((e, events[k + 1:k + 1 + len(MIXED_TICK_PHASES)])
+                          for k, e in enumerate(events)
+                          if e.get("name") == "tick" and e.get("ph") == "X"):
+                by_phase.setdefault("tick", []).append(t["dur"])
+                for p in ph:
+                    by_phase.setdefault(p["name"], []).append(p["dur"])
+            out.update(
+                phase_us_mean={k: sum(v) / len(v) for k, v in by_phase.items()},
+                tick_checks=tk,
+                ticks_vs_ledger=trace_ticks_to_ledger(where, events, snap),
+                conservation=ledgers_conserve(where, snap, tenants_view, records),
+                debug=dict(trace=st_trace, tenants=st_ten, slo=st_slo,
+                           slo_body=json.loads(raw_slo) if st_slo == 200 else None),
+                summarize_trace=dict(rc=summ.returncode, head=summ.stdout[:600],
+                                     stderr=summ.stderr[-400:]),
+                sentinel=dict(ticks=layers_["sentinel"].ticks,
+                              anomalies=dict(layers_["sentinel"].anomalies)),
+                request_log_records=len(records),
+                roofline=dict(util_mean=snap.get("roofline_util_mean"),
+                              gbps_mean=snap.get("roofline_gbps_mean"),
+                              mfu_mean=snap.get("mfu_mean"), hbm_gbps=snap.get("hbm_gbps")),
+                slo=dict(attainment=snap.get("slo_attainment"),
+                         goodput_tok_s=snap.get("goodput_tok_s")),
+                trace_events=len(events), trace_dropped=layers_["tracer"].dropped)
+            if export:
+                exp = exported(where, layers_)
+                exp["collector_spans_during_leg"] = got["spans"] - spans0
+                out["otlp"] = exp
+                if (not exp["flushed"] or exp["dropped"] or exp["export_errors"]
+                        or exp["spans"] != exp["collector_spans_during_leg"]
+                        or exp["spans"] == 0):
+                    checks.append(f"{where} OTLP: {exp}")
+            if summ.returncode != 0 or "host_sync" not in summ.stdout:
+                checks.append(f"{where}: summarize_trace.py failed: {out['summarize_trace']}")
+            if (st_trace, st_ten, st_slo) != (200, 200, 200):
+                checks.append(f"{where} debug routes: {out['debug']}")
+            if layers_["sentinel"].ticks != tk["ticks"]:
+                checks.append(f"{where}: the sentinel saw {layers_['sentinel'].ticks} ticks, "
+                              f"the trace has {tk['ticks']}")
+            if len(records) != HTTP_REQUESTS:
+                checks.append(f"{where}: {len(records)} request-log records")
+        detach(eng)
+        return out, tokens
+
+    # the legs alternate, untraced, traced, traced without the exporter
+    # (twice), traced, untraced: what one leg leaves behind falls on every
+    # kind
+    u1, u1_tokens = http_observed("observe untraced 1", False, None)
+    t1, _ = http_observed("observe traced 1", True, u1_tokens)
+    x1, _ = http_observed("observe traced no-export 1", True, u1_tokens, export=False)
+    x2, _ = http_observed("observe traced no-export 2", True, u1_tokens, export=False)
+    t2, _ = http_observed("observe traced 2", True, u1_tokens)
+    u2, _ = http_observed("observe untraced 2", False, None)
+    # after the alternated legs: a traced leg with every hook timed
+    hk, _ = http_observed("observe traced hooks timed", True, None, hooks=True)
+    http_legs = [u1, t1, x1, x2, t2, u2, hk]
+
+    def mean(pair, get):
+        vals = [get(leg) for leg in pair]
+        return None if None in vals else sum(vals) / len(vals)
+
+    cost = {}
+    for key, get in (("tok_s", lambda leg: leg["tok_s"]),
+                     ("ttft_s_p50", lambda leg: leg["ttft_s_p50"]),
+                     ("tpot_s_p50", lambda leg: leg["tpot_s_p50"]),
+                     ("tick_wall_ms_mean", lambda leg: leg["tick_host"]["wall_ms_mean"]),
+                     ("tick_cpu_ms_mean", lambda leg: leg["tick_host"]["cpu_ms_mean"])):
+        v = dict(untraced=mean((u1, u2), get), traced=mean((t1, t2), get),
+                 traced_no_export=mean((x1, x2), get))
+        for kind in ("traced", "traced_no_export"):
+            v[f"{kind}_over_untraced"] = (v[kind] / v["untraced"]
+                                          if v[kind] and v["untraced"] else None)
+        cost[key] = v
+
+    def direct_observed(where: str, profiled: bool) -> dict:
+        """The served trace's arrivals in real time straight into the
+        traced engine on this thread (the profiler records the ranges of
+        the thread that starts it only, and the HTTP leg's ticks run on the
+        runner's): its ticks, and under torch.profiler each tick's device
+        span and kernel time."""
+        detach(eng)
+        eng.scheduler.finished.clear()
+        lay = attach(eng, params, endpoint=None)
+        prof = None
+        if profiled:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                counts, snap = counted(where, eng, lambda: eng.replay_trace(trace, realtime=True))
+        else:
+            counts, snap = counted(where, eng, lambda: eng.replay_trace(trace, realtime=True))
+        events = lay["tracer"].events()
+        tk = tick_checks(events, MIXED_TICK_PHASES, HBM_GBPS_DEFAULT, PEAK_TFLOPS_DEFAULT)
+        if tk["n_problems"] or tk["graded"] != counts["dispatches"]:
+            checks.append(f"{where} ticks: {tk}, {counts['dispatches']} dispatches")
+        walls = [1e3 * e["args"]["device_time_s"] for e in events
+                 if e.get("name") == "tick" and "device_time_s" in e.get("args", {})]
+        out = dict(leg=where, **counts, generated_tokens=snap["total_generated_tokens"],
+                   tok_s=snap["throughput_tok_s"], dispatch_to_fetch_ms_p50=_pct(np, walls, 50),
+                   roofline_util_median=tk["roofline_util_median"])
+        if prof is not None:
+            out["profile"] = device_per_tick(prof, events)
+        detach(eng)
+        eng.scheduler.finished.clear()
+        return out
+
+    # -- the profiler over the served composition: serve.mixed_dispatch
+    # ranges, and the dispatch → fetch wall against the graph's device
+    # time, beside the same arrivals without the profiler and the HTTP
+    # traced legs' wall
+    direct = direct_observed("observe direct traced", False)
+    direct_prof = direct_observed("observe direct traced profiled", True)
+    profiled = dict(direct_prof["profile"], unprofiled_direct=direct,
+                    profiled_direct={k: v for k, v in direct_prof.items() if k != "profile"},
+                    http_traced_dispatch_to_fetch_ms_p50=[
+                        t1["dispatch_to_fetch_ms_p50"], t2["dispatch_to_fetch_ms_p50"]])
+
+    # -- the tenant leg: one tenant bursts past its in-flight cap
+    burst = [dict(item, arrival_s=0.0, max_new_tokens=OBSERVE_SHORT_TOKENS)
+             for item in trace[:OBSERVE_BURST]]
+    ten_ledger = TenantLedger(max_inflight=OBSERVE_CAP, policy=policy)
+    ten_layers = attach(eng, params, endpoint=None, ledger=ten_ledger)
+    ten_of = {item["seed"]: ("burst" if j < OBSERVE_BURST - 2 else OBSERVE_TENANTS[j % 3])
+              for j, item in enumerate(burst)}
+    counts, res = counted("observe tenant leg", eng, lambda: http_leg(
+        torch, np, eng, burst, model_id, cut_stream=False, probes=("/debug/tenants",),
+        body=lambda item: {"tenant": ten_of[item["seed"]]}))
+    statuses = [r["status"] for r in res["results"]]
+    st_ten, raw_ten = res["probed"]["/debug/tenants"]
+    view = json.loads(raw_ten)["tenants"] if st_ten == 200 else {}
+    _, samples = scrape_counters(res["prom"])
+    tenant_leg = dict(
+        cap=OBSERVE_CAP, requests=len(burst), status_429=statuses.count(429),
+        status_200=statuses.count(200), throttled=view.get("burst", {}).get("throttled"),
+        rejected=res["snap"]["rejected"], debug_tenants=st_ten,
+        tenant_series="llm_serve_tenant_throttled_total" in res["prom"],
+        conservation=ledgers_conserve("observe tenant leg", res["snap"], view), **counts)
+    if (tenant_leg["status_429"] == 0 or tenant_leg["throttled"] != tenant_leg["status_429"]
+            or tenant_leg["rejected"] != tenant_leg["status_429"]
+            or not tenant_leg["tenant_series"]
+            or tenant_leg["status_200"] + tenant_leg["status_429"] != len(burst)):
+        checks.append(f"observe tenant leg: {tenant_leg}")
+    detach(eng)
+    eng.scheduler.finished.clear()
+
+    # -- OTLP against a closed loopback port: errors and drops counted,
+    # no tick stalls
+    down = attach(eng, params, endpoint=f"http://127.0.0.1:{closed_port()}/v1/traces")
+    counts, _ = counted("observe otlp down", eng, lambda: eng.replay_trace(short))
+    down_ticks = [e["dur"] for e in down["tracer"].events() if e.get("name") == "tick"
+                  and e.get("ph") == "X"]
+    exp = down["otel"]
+    exp.flush(timeout=30.0)
+    exp.close()
+    otlp_down = dict(**exp.stats(), offered=len(down["tracer"]),
+                     tick_us_max=max(down_ticks, default=None), ticks=len(down_ticks), **counts)
+    if (otlp_down["export_errors"] == 0 or otlp_down["spans"] != 0
+            or otlp_down["dropped"] == 0 or otlp_down["tick_us_max"] is None
+            or otlp_down["tick_us_max"] > 100_000):
+        checks.append(f"observe otlp down: {otlp_down}")
+    detach(eng)
+    eng.scheduler.finished.clear()
+    del eng
+    torch.cuda.empty_cache()
+
+    def direct_pair(where: str, eng, leg_params, *, phases, sampled: bool = False) -> dict:
+        """``short`` submitted at once, untraced then traced (one
+        composition, so the tokens must be identical), with the traced
+        run's per-request attribution against the ledgers."""
+        runs = {}
+        for traced in (False, True):
+            detach(eng)
+            eng.scheduler.finished.clear()
+            lay = attach(eng, leg_params, endpoint=None) if traced else None
+            counts, _ = counted(f"{where} {'traced' if traced else 'untraced'}", eng,
+                                lambda: eng.replay_trace(short), sampled=sampled)
+            reqs = sorted(eng.scheduler.finished, key=lambda r: r.seed)
+            runs[traced] = dict(counts=counts, tokens=[list(r.generated) for r in reqs],
+                                reqs=reqs, layers=lay, snap=eng.metrics.snapshot())
+        tr = runs[True]
+        events = tr["layers"]["tracer"].events()
+        tk = tick_checks(events, phases, HBM_GBPS_DEFAULT, PEAK_TFLOPS_DEFAULT)
+        snap = tr["snap"]
+        rel = {}
+        for rk, mk in (("kv_bytes_read", "kv_read_bytes_total"),
+                       ("kv_bytes_written", "kv_write_bytes_total"),
+                       ("weight_bytes_amortized", "weight_bytes_total"),
+                       ("device_time_s", "device_time_s_total")):
+            total = snap.get(mk, 0.0)
+            rel[rk] = abs(sum(getattr(r, rk) for r in tr["reqs"]) - total) / max(total, 1e-30)
+        identical = sum(a == b for a, b in zip(runs[False]["tokens"], tr["tokens"]))
+        out = dict(leg=where, identical=identical, requests=len(short),
+                   untraced=runs[False]["counts"], traced=tr["counts"], tick_checks=tk,
+                   attribution_rel_err=rel,
+                   prefill_chunk_spans=sum(1 for e in events if e.get("name") == "prefill_chunk"),
+                   roofline_ticks=snap.get("roofline_ticks"),
+                   tenants=ledgers_conserve(where, snap, tr["layers"]["tenants"].snapshot()[
+                       "tenants"]))
+        if (identical != len(short) or tk["n_problems"] or max(rel.values()) > 1e-6
+                or runs[False]["counts"]["graphs"]["captures"]
+                or tr["counts"]["graphs"]["captures"]):
+            checks.append(f"{where}: {out}")
+        detach(eng)
+        eng.scheduler.finished.clear()
+        return out
+
+    # -- the phase-split leg (paged decode): TICK_PHASES and the eager
+    # prefill chunks' prefill_cost records
+    split_eng = engine(params, mixed_step="off", decode_attn_impl="paged")
+    split = direct_pair("observe split paged", split_eng, params, phases=TICK_PHASES)
+    if split["prefill_chunk_spans"] < len(short):
+        checks.append(f"observe split paged: {split['prefill_chunk_spans']} prefill_chunk spans")
+    del split_eng
+    # -- the min-p leg: the threefry kernels under the tracer
+    minp_eng = engine(params, sampler=Sampler("min_p", **SERVE_SAMPLERS["min_p"]))
+    minp = direct_pair("observe min_p", minp_eng, params, phases=MIXED_TICK_PHASES,
+                       sampled=True)
+    del minp_eng
+    torch.cuda.empty_cache()
+    # -- the float32 pair: tokens identical stream for stream
+    f32 = float32_params(params)
+    del params
+    f32_eng = engine(f32, dtype=torch.float32)
+    float32 = direct_pair("observe float32", f32_eng, f32, phases=MIXED_TICK_PHASES)
+    del f32_eng, f32
+    collector.shutdown()
+    collector.server_close()
+    torch.cuda.empty_cache()
+    return dict(phase="observe", model=model_id, layers=layers, weights="seeded random bf16",
+                card=card, hbm_gbps=HBM_GBPS_DEFAULT, peak_tflops=PEAK_TFLOPS_DEFAULT,
+                slo_policy=OBSERVE_SLO, trace=dict(requests=HTTP_REQUESTS, rate_rps=HTTP_RATE,
+                                                   prompt_len=HTTP_PROMPTS, new_tokens=HTTP_NEW,
+                                                   seed=HTTP_SEED),
+                http_legs=http_legs, tracer_cost=cost, profile=profiled, tenant_leg=tenant_leg,
+                otlp_down=otlp_down, split=split, min_p=minp, float32=float32,
+                collector=dict(posts=got["posts"], spans=got["spans"],
+                               scopes=sorted(got["scopes"])),
+                checks=checks, ok=not checks)
+
+
+# ----------------------------------------------------------------------
 # phase 10: faults and recovery — the chaos injector and the supervised
 # restart
 # ----------------------------------------------------------------------
@@ -2887,6 +3642,8 @@ def chaos_phase(torch, np, kernels: dict, card: str) -> dict:
     from llm_np_cp_tpu_torch.models.transformer import forward, init_params
     from llm_np_cp_tpu_torch.ops.sampling import Sampler
     from llm_np_cp_tpu_torch.serve import FaultInjector, ServeEngine, poisson_trace, pool_geometry
+    from llm_np_cp_tpu_torch.serve.slo import TickSentinel
+    from llm_np_cp_tpu_torch.serve.tracing import TraceRecorder
 
     model_id = "meta-llama/Llama-3.2-1B"
     cfg = PRESETS[model_id]
@@ -2927,6 +3684,12 @@ def chaos_phase(torch, np, kernels: dict, card: str) -> dict:
                           fault_injector=injector, device=torch.device("cuda"))
         eng.warmup([int(t["prompt"].size) for t in leg_trace], new_tokens)
         torch.cuda.synchronize()
+        # both legs run traced, with a sentinel, so that the faults are
+        # all that differs between them: the restarts' marks on the trace,
+        # no tick span inside a recovery, and the rebuilds' captures no
+        # sentinel samples
+        eng.tracer, eng.sentinel = TraceRecorder(ring=OBSERVE_RING), TickSentinel()
+        tracer, sentinel = eng.tracer, eng.sentinel
         graph_pool = sum(st.pool_bytes or 0 for st in eng.graph_steps())
         pool_bytes = eng.pool.stats()["kv_bytes_total"]
         built.clear()
@@ -2970,7 +3733,24 @@ def chaos_phase(torch, np, kernels: dict, card: str) -> dict:
         tpot = [(r["latency_s"] - r["ttft_s"]) / (len(r["token_ids"]) - 1) for r in ok
                 if r["ttft_s"] is not None and len(r["token_ids"]) > 1]
         generated = sum(len(r["token_ids"]) for r in results)
-        out = dict(leg=where, spec=spec, dtype=str(dtype).replace("torch.", ""),
+        traced = None
+        if tracer is not None:
+            events = tracer.events()
+            deaths = [e for e in events if e.get("name") == "engine-death"]
+            restarts = [e for e in events if e.get("name") == "restart" and e.get("ph") == "X"]
+            ticks = [e for e in events if e.get("name") == "tick" and e.get("ph") == "X"]
+            # no tick span starts between a death and the end of its
+            # rebuild and replay (the captures, a zombie)
+            inside = [t["ts"] for d, r in zip(deaths, restarts) for t in ticks
+                      if d["ts"] <= t["ts"] <= r["ts"] + r["dur"]]
+            traced = dict(engine_deaths=len(deaths), restart_spans=len(restarts),
+                          tick_spans=len(ticks), sentinel_ticks=sentinel.ticks,
+                          ticks_inside_recovery=len(inside), dropped=tracer.dropped,
+                          anomalies=dict(sentinel.anomalies))
+            if (len(deaths) != sup["restarts"] or len(restarts) != sup["restarts"] or inside
+                    or sentinel.ticks != len(ticks) or tracer.dropped):
+                checks.append(f"{where} trace: {traced}")
+        out = dict(leg=where, spec=spec, traced=traced, dtype=str(dtype).replace("torch.", ""),
                    sampler=sampler.kind, answered=len(ok), restarts=sup["restarts"],
                    recovery_latency_s=sup["recovery_latency_s"], rebuilds=sup["rebuilds"],
                    injected=injector.snapshot() if injector else None, dispatches=dispatches,
@@ -3041,6 +3821,7 @@ def chaos_phase(torch, np, kernels: dict, card: str) -> dict:
             same = sum(fx["tokens"][k] == v for k, v in fc["tokens"].items())
             float32[name] = dict(identical=same, requests=F32_CHAOS_REQUESTS,
                                  restarts=fx["restarts"], injected=fx["injected"],
+                                 traced=fx["traced"],
                                  recovery_latency_s=fx["recovery_latency_s"],
                                  rebuilds=fx["rebuilds"],
                                  ok=same == F32_CHAOS_REQUESTS and fx["restarts"] == 2)
@@ -3439,6 +4220,10 @@ def main() -> int:
     record(hp)
     if not hp["ok"]:
         raise AssertionError("http checks failed: " + json.dumps(hp["checks"], default=str))
+    op = observe_phase(torch, np, kernels, smi)
+    record(op)
+    if not op["ok"]:
+        raise AssertionError("observe checks failed: " + json.dumps(op["checks"], default=str))
     cp = chaos_phase(torch, np, kernels, smi)
     record(cp)
     if not cp["ok"]:

@@ -27,10 +27,21 @@ Modules:
   resume, ``/healthz``, ``/metrics``), ``run_server`` /
   ``serve_forever``, and the stdlib ``client``.  Imported on its own
   (``llm_np_cp_tpu_torch.serve.http``), as in the JAX package.
-- ``tenants``      — ``normalize_tenant``, the tenant-id validator the
-  protocol uses (the tenant ledger is a later slice).
-- ``tracing``      — the W3C ``traceparent`` helpers (the trace
-  recorder is a later slice).
+- ``tenants``      — ``normalize_tenant`` (the tenant-id validator the
+  protocol uses), ``TenantLedger`` (per-tenant cost and SLO accounting,
+  the in-flight cap, the fair-share prefill order) and
+  ``aggregate_tenants``.
+- ``tracing``      — ``TraceRecorder`` (request tracks and tick-phase
+  spans as Chrome trace events, ``/debug/trace``) and the W3C
+  ``traceparent`` helpers.
+- ``slo``          — ``SLOPolicy`` / ``SLOTracker`` (goodput, attainment,
+  burn rates), ``aggregate_slo`` and ``TickSentinel`` (per-phase tick
+  anomalies).
+- ``telemetry``    — ``TelemetryModel``: each tick's byte / FLOP bill
+  against its dispatch → fetch wall (roofline utilization and MFU with
+  the H100's constants) and per-request cost attribution.
+- ``otel``         — ``OtlpExporter``: the trace plane shipped to an
+  OTLP/HTTP JSON collector from a writer thread.
 - ``faults``       — ``FaultInjector``: the seeded chaos schedule whose
   sites the engine, the HTTP runner, the journal and checkpoint loading
   trip; the runner's supervised restart rebuilds a dead engine
@@ -41,8 +52,8 @@ Modules:
 - ``request_log``  — ``RequestLog``: one JSON line per terminal request
   (``read_request_log`` reads it).
 
-The fleet, lifecycle, SLO, tenant ledger, trace recorder and CLI layers
-of the JAX package are later slices.
+The fleet, lifecycle and CLI layers of the JAX package are later
+slices.
 """
 
 from llm_np_cp_tpu_torch.serve.block_pool import BlockPool, FreeList, PagedKV
@@ -51,6 +62,7 @@ from llm_np_cp_tpu_torch.serve.host_tier import HostBlock, HostTier, HostTierErr
 from llm_np_cp_tpu_torch.serve.engine import ServeEngine, pool_geometry, worst_case_slots
 from llm_np_cp_tpu_torch.serve.journal import RequestJournal, scan_journal
 from llm_np_cp_tpu_torch.serve.metrics import ServeMetrics
+from llm_np_cp_tpu_torch.serve.otel import OtlpExporter
 from llm_np_cp_tpu_torch.serve.prefix_cache import PrefixCache, prefix_block_keys
 from llm_np_cp_tpu_torch.serve.request_log import RequestLog, read_request_log
 from llm_np_cp_tpu_torch.serve.scheduler import (
@@ -60,8 +72,12 @@ from llm_np_cp_tpu_torch.serve.scheduler import (
     Scheduler,
     TenantThrottled,
 )
+from llm_np_cp_tpu_torch.serve.slo import SLOPolicy, SLOTracker, TickSentinel, aggregate_slo
 from llm_np_cp_tpu_torch.serve.spec import DraftState
+from llm_np_cp_tpu_torch.serve.telemetry import TelemetryModel
+from llm_np_cp_tpu_torch.serve.tenants import TenantLedger, aggregate_tenants, normalize_tenant
 from llm_np_cp_tpu_torch.serve.trace import poisson_trace, replay_arrivals
+from llm_np_cp_tpu_torch.serve.tracing import TraceRecorder
 
 __all__ = [
     "BlockPool",
@@ -72,6 +88,7 @@ __all__ = [
     "HostBlock",
     "HostTier",
     "HostTierError",
+    "OtlpExporter",
     "PagedKV",
     "PrefixCache",
     "QueueFull",
@@ -79,10 +96,19 @@ __all__ = [
     "RequestJournal",
     "RequestLog",
     "RequestState",
+    "SLOPolicy",
+    "SLOTracker",
     "Scheduler",
     "ServeEngine",
     "ServeMetrics",
+    "TelemetryModel",
+    "TenantLedger",
     "TenantThrottled",
+    "TickSentinel",
+    "TraceRecorder",
+    "aggregate_slo",
+    "aggregate_tenants",
+    "normalize_tenant",
     "poisson_trace",
     "pool_geometry",
     "prefix_block_keys",

@@ -103,17 +103,36 @@ dead engine's compiled steps — ``retire`` drops its graphs and pages
 (its ``step`` raises from then on, so no graph replays into memory the
 clone now owns), and the clone captures its own before it serves.
 
+The observability plane, as in the JAX engine: a ``tracer``
+(``serve/tracing.TraceRecorder``: request tracks, one ``tick`` span a
+tick with its phase slices, the ``prefix-evict`` / ``kv-restore`` /
+``spec-fallback`` instants), a ``sentinel`` (``serve/slo.TickSentinel``
+over the traced phases and the ``roofline_deficit`` pseudo-phase),
+``telemetry`` (``serve/telemetry.TelemetryModel``: each tick's byte and
+FLOP bill, made while the step runs and before the accept walk, graded
+against the dispatch → fetch wall and attributed to its requests before
+delivery; the ``kv_bytes_tick`` gauge reads the same byte model) and ``tenants``
+(``serve/tenants.TenantLedger``: a bill at every terminal, the in-flight
+cap that raises ``TenantThrottled``, the fair-share prefill order).
+Every hook is one ``is None`` check and runs in the host tick code
+around the step — Python inside a captured step runs only at capture —
+so attaching them adds no device operation, no capture and no change to
+any token.  On the card ``mixed_dispatch`` (or ``decode_dispatch``) is
+the graph launch and ``host_sync`` the token fetch's wait on the device;
+the dispatch runs under ``torch.profiler.record_function`` while a
+tracer is attached, so a profiler capture lines up with the trace.
+
 What the port leaves out, as the JAX package has it: donation (pages are
 updated in place) and the runtime degradation to XLA fallbacks — on the
 card a kernel launches or raises, and a step captures or raises; nothing
-falls back.  Meshes, the tracer, sentinel, lifecycle actions, telemetry
-and tenants raise ``NotImplementedError``, and so does
-``share_compiled_steps``: a graph replays its own engine's pool and
-weight addresses, so a peer engine cannot adopt it.
+falls back.  Meshes and lifecycle actions raise ``NotImplementedError``,
+and so does ``share_compiled_steps``: a graph replays its own engine's
+pool and weight addresses, so a peer engine cannot adopt it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import math
 import time
@@ -140,6 +159,7 @@ from llm_np_cp_tpu_torch.ops.attention import gqa_attention
 from llm_np_cp_tpu_torch.ops.cuda import decode_attention as _da
 from llm_np_cp_tpu_torch.ops.rope import rope_cos_sin
 from llm_np_cp_tpu_torch.ops.sampling import Sampler
+from llm_np_cp_tpu_torch.serve import telemetry as _tel
 from llm_np_cp_tpu_torch.serve.block_pool import BlockPool
 from llm_np_cp_tpu_torch.serve.faults import FaultInjected, FaultInjector
 from llm_np_cp_tpu_torch.serve.host_tier import HostTier
@@ -147,7 +167,13 @@ from llm_np_cp_tpu_torch.serve.journal import RequestJournal
 from llm_np_cp_tpu_torch.serve.metrics import ServeMetrics
 from llm_np_cp_tpu_torch.serve.prefix_cache import prefix_block_keys
 from llm_np_cp_tpu_torch.serve.request_log import RequestLog, request_record
-from llm_np_cp_tpu_torch.serve.scheduler import QueueFull, Request, RequestState, Scheduler
+from llm_np_cp_tpu_torch.serve.scheduler import (
+    QueueFull,
+    Request,
+    RequestState,
+    Scheduler,
+    TenantThrottled,
+)
 from llm_np_cp_tpu_torch.serve.spec import DraftState
 from llm_np_cp_tpu_torch.serve.tracing import gen_trace_id
 
@@ -158,58 +184,27 @@ GLOBAL_WINDOW = 1 << 30
 
 # keyword → value that means "off", for the JAX engine's options the port
 # does not have yet
-_NOT_PORTED = {
-    "mesh_plan": None, "tracer": None, "sentinel": None, "actions": None,
-    "telemetry": None, "tenants": None,
-}
+_NOT_PORTED = {"mesh_plan": None, "actions": None}
+
+_NULL_CTX = contextlib.nullcontext()
+
+
+def _roofline_targs(tel: dict) -> dict:
+    """The roofline part of a tick's trace args (callers hold the tracer
+    guard): what tools/summarize_trace.py's roofline section reads."""
+    return {
+        "roofline_gbps": round(tel["achieved_gbps"], 3),
+        "roofline_util": round(tel["roofline_util"], 6),
+        "mfu": round(tel["mfu"], 6),
+        "device_time_s": round(tel["device_time_s"], 6),
+        "kv_read_bytes": int(tel["kv_read_bytes"]),
+        "kv_write_bytes": int(tel["kv_write_bytes"]),
+        "weight_bytes": int(tel["weight_bytes"]),
+    }
 
 
 def _ceil_to(n: int, g: int) -> int:
     return -(-n // g) * g
-
-
-def _floor_sum(n: int, m: int, a: int, b: int) -> int:
-    """``sum((a * i + b) // m for i in range(n))`` for non-negative a, b
-    in O(log m) steps (the Euclid-like floor sum)."""
-    total = 0
-    while True:
-        if a >= m:
-            total += n * (n - 1) // 2 * (a // m)
-            a %= m
-        if b >= m:
-            total += n * (b // m)
-            b %= m
-        y_max = a * n + b
-        if y_max < m:
-            return total
-        n, b = divmod(y_max, m)
-        m, a = a, m
-
-
-def _segment_kv_slots(pad: int, start: int, n: int, *, block_size: int, q_tile: int,
-                      window: int | None, n_layers: int, n_sliding: int) -> int:
-    """Cache slots (summed over layers) the ragged kernel reads for one
-    row's segment of ``n`` query tokens from position ``start``: each
-    q tile reads the blocks from its row's first (``pad``) through the
-    one holding its last query, a sliding layer only those from its
-    window's first.  The per-tile sum in closed form, so a tick's gauge
-    costs O(rows), not O(tiles)."""
-    bs, qb = block_size, q_tile
-    m = -(-n // qb)
-    # sum over tiles of (last query // bs): the tiles before the last
-    # end at start + (k + 1) * qb - 1, the last at start + n - 1
-    last_blocks = _floor_sum(m - 1, bs, qb, start + qb - 1) + (start + n - 1) // bs
-    full = last_blocks - m * (pad // bs) + m
-    windowed = 0
-    if n_sliding:
-        # tile k's window starts at max(pad, start + k * qb - window + 1):
-        # at pad for the first k0 tiles, then on an arithmetic run
-        k0 = min(m, max(0, (pad + window - 1 - start) // qb + 1))
-        first_blocks = k0 * (pad // bs)
-        if m > k0:
-            first_blocks += _floor_sum(m - k0, bs, qb, start - window + 1 + k0 * qb)
-        windowed = last_blocks - first_blocks + m
-    return ((n_layers - n_sliding) * full + n_sliding * windowed) * bs
 
 
 def _stop_hits(samples: torch.Tensor, stops: torch.Tensor | None) -> torch.Tensor:
@@ -386,6 +381,10 @@ class ServeEngine:
         fault_injector: FaultInjector | None = None,
         journal: RequestJournal | None = None,
         request_log: RequestLog | None = None,
+        tracer: Any = None,
+        sentinel: Any = None,
+        telemetry: Any = None,
+        tenants: Any = None,
         device: str | torch.device = "cuda",
         **not_ported: Any,
     ) -> None:
@@ -476,17 +475,19 @@ class ServeEngine:
         self._block_nbytes = int(sum(
             a.numel() * a.element_size() // a.shape[1]
             for a in self.pool.pages if a is not None))
-        # the kv_bytes_tick gauge's constants: K+V bytes one cache slot
-        # costs per layer (an int8 pool streams its float32 scale pages
-        # beside the quantized blocks), and the layers that read only
-        # their sliding window
+        # the K/V byte model's geometry (the kv_bytes_tick gauge and
+        # telemetry's bill): the ragged kernel's q tile and the layers
+        # that read only their sliding window
         n_layers = config.num_hidden_layers
-        self._kv_slot_bytes = self._block_nbytes // (block_size * n_layers)
-        self._kv_n_sliding = 0 if config.sliding_window is None else sum(
-            config.layer_is_sliding(i) for i in range(n_layers))
-        # bytes spilled and restored this tick (the per-tick gauge refresh)
+        self._kv_geom = dict(
+            block_size=block_size, q_tile=_da.RAGGED_Q_TILE, window=config.sliding_window,
+            n_layers=n_layers, n_sliding=0 if config.sliding_window is None else sum(
+                config.layer_is_sliding(i) for i in range(n_layers)))
+        # bytes spilled and restored this tick, and the restores' staging
+        # time (the per-tick gauge refresh and the tick's trace args)
         self._tier_spill_bytes = 0
         self._tier_restore_bytes = 0
+        self._tier_restore_us = 0.0
         if self.pool.prefix_cache is not None:
             # LRU reclaim is counted and, with a tier, spills the block
             self.pool.prefix_cache.on_reclaim = self._on_prefix_reclaim
@@ -500,6 +501,12 @@ class ServeEngine:
             if self.pool.pages.quantized:
                 probes += [(blk_shape[:-1], torch.float32)] * 2
             host_tier.ensure_probe(probes, device=self.device)
+            if telemetry is not None:
+                # the recompute side seeds from the byte model until a
+                # measured prefill rate refines it
+                w = telemetry.weight_bytes(self.prefill_chunk, 1)
+                host_tier.note_prefill_rate(
+                    self.prefill_chunk / (w / (telemetry.hbm_gbps * 1e9)))
             self.metrics.on_tier_gauge(
                 resident_bytes=host_tier.resident_bytes,
                 breakeven=host_tier.breakeven_ratio(self.block_size))
@@ -509,15 +516,25 @@ class ServeEngine:
         self.faults = fault_injector
         self.journal = journal
         self.request_log = request_log
+        # the observability plane: the trace recorder (serve/tracing.py),
+        # the tick sentinel (serve/slo.py; fed only traced ticks), the
+        # roofline model (serve/telemetry.py) and the tenant ledger
+        # (serve/tenants.py).  None = every hook is an is-None check.  The
+        # hooks re-read the attribute each time: the supervisor mutes a
+        # dead engine by clearing them
+        self.tracer = tracer
+        self.sentinel = sentinel
+        self.telemetry = telemetry
+        self.tenants = tenants
         # what the HTTP server reads of the JAX engine's later layers, at
         # the values that engine holds with them off: the weight version
         # a rolling upgrade bumps, the runtime degradation to an XLA
         # fallback (none here: a kernel launches or raises, and a
-        # dispatch fault ends in a supervised restart), the tracer,
-        # lifecycle actions and tenant ledger
+        # dispatch fault ends in a supervised restart) and the lifecycle
+        # actions
         self.weights_version = 0
         self.decode_degraded: str | None = None
-        self.tracer = self.actions = self.tenants = None
+        self.actions = None
         # set by ``retire``: a superseded engine's step raises
         self.retired: str | None = None
         self._next_id = 0
@@ -562,10 +579,6 @@ class ServeEngine:
 
         if self.mixed:
             self._q_tile = _da.RAGGED_Q_TILE
-            self._kv_geom = dict(block_size=block_size, q_tile=self._q_tile,
-                                 window=config.sliding_window,
-                                 n_layers=config.num_hidden_layers,
-                                 n_sliding=self._kv_n_sliding)
             # sample columns per row: a verify slice samples its input
             # token and every draft; plain rows use column 0
             self._spec_w = spec_k + 1
@@ -967,13 +980,18 @@ class ServeEngine:
         ordered on the engine's stream ahead of any later write to the
         block — and handed to the tier's writer thread."""
         nbytes = self._block_nbytes
+        spilled = False
         if self.host_tier is not None:
+            spilled = True
             # the ledgers count only blocks the tier accepted (it dedupes
             # resident and queued keys)
             if self.host_tier.enqueue_spill(key, *self._block_clone(blk)):
                 self._tier_spill_bytes += nbytes
                 self.metrics.on_tier_spill(blocks=1, nbytes=nbytes)
         self.metrics.on_prefix_evicted(blocks=1, nbytes=nbytes)
+        if self.tracer is not None:
+            self.tracer.instant("prefix-evict", cat="kv_tier", args={
+                "blocks": 1, "bytes": nbytes, "spilled": spilled})
 
     def _enqueue_tier_restores(self, req: Request) -> None:
         """Stage the admission plan's host-tier hits: one writer-thread
@@ -1048,7 +1066,11 @@ class ServeEngine:
             if n_restored:
                 nbytes = n_restored * self._block_nbytes
                 self._tier_restore_bytes += nbytes
+                self._tier_restore_us += lat * 1e6
                 self.metrics.on_tier_restore(blocks=n_restored, nbytes=nbytes, latency_s=lat)
+                if self.tracer is not None:
+                    self.tracer.request_instant(req.req_id, "kv-restore", args=self._targs(
+                        req, blocks=n_restored, bytes=nbytes, restore_us=round(lat * 1e6, 1)))
 
     def spill_prefix_blocks(self, keys: list[bytes] | None = None) -> int:
         """Ship registered prefix blocks into the host tier WITHOUT
@@ -1084,6 +1106,7 @@ class ServeEngine:
             self.host_tier.check()
             self._tier_spill_bytes = 0
             self._tier_restore_bytes = 0
+            self._tier_restore_us = 0.0
 
     def _tier_tick_end(self) -> None:
         """Refresh the tier gauges on a tick that moved tier bytes."""
@@ -1115,11 +1138,13 @@ class ServeEngine:
         verify (inert on an engine built without ``spec_k``, kept so that a
         replay onto a spec engine resumes drafting).  ``trace_id`` (the W3C
         trace id the HTTP server parsed or generated; minted here when a
-        request log will record it) is kept in ``req.extra["trace"]``;
-        ``tenant`` is recorded on the request only, as the JAX engine
-        records it with no tenant ledger attached.  ``_recovered`` is
-        ``recover``'s resubmit: exempt from the queue cap, counted as a
-        recovery, and journaled by ``recover`` once its tokens are seeded."""
+        tracer or a request log will record it) is kept in
+        ``req.extra["trace"]``; ``tenant`` is the request's bill, and with a
+        ``TenantLedger`` whose ``max_inflight`` cap the tenant's live
+        requests already fill, the submit raises ``TenantThrottled``.
+        ``_recovered`` is ``recover``'s resubmit: exempt from both caps,
+        counted as a recovery, and journaled by ``recover`` once its tokens
+        are seeded."""
         prompt = np.asarray(prompt_ids, dtype=np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")
@@ -1148,6 +1173,19 @@ class ServeEngine:
         if request_id is None:
             request_id = self._next_id
         self._next_id = max(self._next_id, request_id) + 1
+        # the per-tenant in-flight cap over the live requests (queued and
+        # running); recovered work is exempt, like the queue cap
+        if self.tenants is not None and not _recovered:
+            cap = self.tenants.max_inflight
+            if cap is not None:
+                n_live = sum(1 for r in self._requests.values() if r.tenant == tenant)
+                if n_live >= cap:
+                    self.tenants.on_throttle(tenant)
+                    self.metrics.on_reject()
+                    if self.tracer is not None:
+                        self.tracer.instant("tenant-throttled", cat="request", args={
+                            "tenant": tenant, "inflight": n_live, "cap": cap})
+                    raise TenantThrottled(tenant, n_live, cap)
         req = Request(
             req_id=request_id,
             prompt=prompt,
@@ -1162,7 +1200,7 @@ class ServeEngine:
         req.submit_time = self.clock()
         if deadline_s is not None:
             req.deadline = req.submit_time + deadline_s
-        if trace_id is None and self.request_log is not None:
+        if trace_id is None and (self.tracer is not None or self.request_log is not None):
             trace_id = gen_trace_id()
         if trace_id is not None:
             req.extra["trace"] = trace_id
@@ -1178,6 +1216,13 @@ class ServeEngine:
             self.metrics.on_recover()
         else:
             self.metrics.on_submit(req)
+        if self.tracer is not None:
+            self.tracer.request_phase(req.req_id, "queued", args=self._targs(
+                req, prompt_len=req.prompt_len, max_new_tokens=max_new_tokens))
+            if _recovered:
+                # the link instant: a replay continues the same trace id
+                self.tracer.request_instant(req.req_id, "recovery-replay",
+                                            args=self._targs(req))
         self._requests[req.req_id] = req
         if self.journal is not None and not _recovered:
             self.journal.admit(req, now=self.clock())
@@ -1226,12 +1271,16 @@ class ServeEngine:
             self._draft_states.pop(req.req_id, None)
             self._flush_detok(req)
             self.metrics.on_finish(req)
+            if self.tenants is not None:
+                self.tenants.on_terminal(req)
             if self.journal is not None:
                 # the finishing tick's delta first (the request leaves the
                 # live set before the tick's watermark), then the terminal
                 self.journal.end_tick((req,))
                 self.journal.terminal(req.req_id, req.finish_reason)
             self._log_request(req, req.finish_reason)
+            if self.tracer is not None:
+                self.tracer.request_end(req.req_id, req.finish_reason, args=self._targs(req))
             self._emit_event(req, req.finish_reason)
             return True
         return False
@@ -1251,10 +1300,16 @@ class ServeEngine:
         req.finish_time = self.clock()
         self._flush_detok(req)
         self.metrics.on_abort(req)
+        if self.tenants is not None:
+            # aborted work is billed work: the cost it accrued lands on
+            # its tenant
+            self.tenants.on_terminal(req)
         if self.journal is not None:
             self.journal.end_tick((req,))
             self.journal.terminal(req.req_id, "aborted")
         self._log_request(req, "aborted")
+        if self.tracer is not None:
+            self.tracer.request_end(req.req_id, "aborted", args=self._targs(req))
         self._emit_event(req, "aborted")
         return True
 
@@ -1387,7 +1442,16 @@ class ServeEngine:
             self.metrics.on_abort(req)
         else:
             self.metrics.on_finish(req)
+        if self.tenants is not None:
+            # the recovered terminal charges whatever cost the replay
+            # carried (the dead engine's device time died with it)
+            self.tenants.on_terminal(req)
         self._log_request(req, reason)
+        if self.tracer is not None:
+            # closes the span the dead engine left open: one finish
+            # instant a terminal, across recoveries too
+            self.tracer.request_end(request_id, reason, args=self._targs(
+                req, recovered_terminal=True))
         if self.tokenizer is None or not req.generated:
             return None
         detok = IncrementalDetok(self.tokenizer)
@@ -1423,7 +1487,9 @@ class ServeEngine:
         the fault injector (its hit counts keep counting), the host tier
         (its entries survive the restart: the empty pool restores instead
         of re-prefilling), the journal, the request log and the request-id
-        counter.
+        counter, and the observability plane (the tracer, the sentinel, the
+        telemetry model and the tenant ledger: a restart is the same
+        replica, so its timeline and bills go on).
 
         Not carried: the captured steps.  The JAX clone shares its jitted
         steps; a CUDA graph replays its own engine's pool and buffer
@@ -1461,6 +1527,10 @@ class ServeEngine:
             fault_injector=self.faults,
             journal=self.journal,
             request_log=self.request_log,
+            tracer=self.tracer,
+            sentinel=self.sentinel,
+            telemetry=self.telemetry,
+            tenants=self.tenants,
             device=self.device,
         )
         eng.metrics = self.metrics
@@ -1486,7 +1556,50 @@ class ServeEngine:
         (enqueue only: the request log's writer thread does the IO)."""
         if self.request_log is None:
             return
-        self.request_log.emit(request_record(req, reason=reason, clock=self.clock))
+        tracker = self.metrics.slo
+        self.request_log.emit(request_record(
+            req, reason=reason, policy=tracker.policy if tracker is not None else None,
+            clock=self.clock))
+
+    def _targs(self, req: Request, **kw: Any) -> dict:
+        """Span args with the request's W3C trace id (and a non-default
+        tenant) merged in.  Callers hold the tracer's is-None guard."""
+        tid = req.extra.get("trace")
+        if tid is not None:
+            kw["trace"] = tid
+        if req.tenant != "default":
+            kw["tenant"] = req.tenant
+        return kw
+
+    def _sentinel_observe(self, phases: tuple[tuple[str, float, float], ...]) -> list[dict]:
+        """Feed one traced tick's phase slices to the sentinel; an outlier
+        bumps the per-phase anomaly counter and stamps a trace instant
+        naming the guiltiest phase.  Returns the outliers."""
+        sent = self.sentinel
+        if sent is None:
+            return []
+        outliers = sent.observe(phases)
+        if not outliers:
+            return []
+        for o in outliers:
+            self.metrics.on_anomaly(str(o["phase"]))
+        guilty = outliers[0]
+        if self.tracer is not None:
+            self.tracer.instant("anomaly", cat="sentinel", args={
+                "phase": guilty["phase"], "dur_us": round(float(guilty["dur_us"]), 1),
+                "baseline_us": round(float(guilty["baseline_us"]), 1), "tick": sent.ticks})
+        return outliers
+
+    def _fair_prefill_order(self, running: list[Request]) -> list[Request]:
+        """The tenant-fairness prefill order: the running list sorted by
+        each tenant's accumulated cost share (byte-based with telemetry
+        attached, token-based otherwise), a stable sort, so a tenant's
+        requests stay oldest first and one tenant's order is unchanged.
+        Only the prefill fill reads it: decode rows are never reordered."""
+        if self.tenants is None:
+            return running
+        share = self.tenants.cost_shares(running, use_bytes=self.telemetry is not None)
+        return sorted(running, key=lambda r: share.get(r.tenant, 0.0))
 
     # ------------------------------------------------------------------
     # Phase-split tick
@@ -1504,6 +1617,7 @@ class ServeEngine:
             raise FaultInjected("prefill")
         self._enqueue_tier_restores(req)
         self._apply_tier_restores([req])
+        t_tel = self.clock() if self.telemetry is not None else 0.0
         content = req.effective_prompt()
         w = self._prefill_width(req)
         req.pad = w - content.size
@@ -1526,9 +1640,18 @@ class ServeEngine:
         last = None
         for off in range(shared_slots, w, self.prefill_chunk):
             end = off + self.prefill_chunk
+            t_chunk = self.tracer.now_us() if self.tracer is not None else -1.0
             self.n_dispatches += 1
-            last, cache = self._prefill_step(
-                self.params, ids_d[:, off:end], cache, mask_d[:, off:end], pads)
+            with (torch.profiler.record_function("serve.prefill_chunk")
+                  if self.tracer is not None else _NULL_CTX):
+                last, cache = self._prefill_step(
+                    self.params, ids_d[:, off:end], cache, mask_d[:, off:end], pads)
+            if self.tracer is not None and t_chunk >= 0.0:
+                # launch time, not device time: the chunk is eager and
+                # asynchronous; its device side is in a profiler capture
+                # under the record_function range above
+                self.tracer.complete("prefill_chunk", t_chunk, cat="prefill", args={
+                    "rid": req.req_id, "offset": off, "width": end - off})
         self.n_dispatches += 1
         self._scatter_prefill(cache, req.block_ids[n_shared:], n_shared)
         self._register_prefix(req)
@@ -1545,6 +1668,14 @@ class ServeEngine:
             dt = self.clock() - t_pf
             if dt > 0:
                 self.host_tier.note_prefill_rate((w - shared_slots) / dt)
+        if self.telemetry is not None:
+            # the chunks are this request's alone: their whole bill (the
+            # weights streamed a chunk, the fresh K/V written, the wall the
+            # sync above closed) lands on it, and the totals-only record
+            # keeps the metrics' ledgers equal to the requests' sums.
+            # Before _emit: a token callback may abort the request
+            self.metrics.on_telemetry(self.telemetry.prefill_cost(
+                self, req, self.clock() - t_tel))
         self._emit(req, tok_host)
 
     def step(self) -> bool:
@@ -1559,23 +1690,43 @@ class ServeEngine:
 
     def _step_split(self) -> bool:
         """One phase-split tick: deadline sweep, admissions (+prefill),
-        block growth, then one packed decode step."""
+        block growth, then one packed decode step.  With a tracer attached
+        each tick records one ``tick`` span and its ``TICK_PHASES`` slices
+        at consecutive timestamps; ``self.tracer`` is re-read at every hook
+        (the supervisor mutes a dead engine by clearing it), and a tick
+        that started untraced records nothing."""
+        t0 = self.tracer.now_us() if self.tracer is not None else -1.0
+        fetches0 = self.n_host_fetches
         self._tier_tick_start()
         self._sweep_deadlines()
         admitted = self.scheduler.admit()
+        t1 = self.tracer.now_us() if self.tracer is not None else -1.0
         for req in admitted:
             t_req = self.clock()
             if req.admit_time is None:
                 req.admit_time = t_req
+            if self.tracer is not None:
+                self.tracer.request_phase(req.req_id, "prefill", args=self._targs(
+                    req, shared_blocks=req.n_shared_blocks, preemptions=req.n_preemptions))
             self._prefill_request(req)
             req.prefill_s += self.clock() - t_req
-            self._maybe_finish(req)
+            if not self._maybe_finish(req) and self.tracer is not None:
+                self.tracer.request_phase(req.req_id, "decode")
+        t2 = self.tracer.now_us() if self.tracer is not None else -1.0
 
         # preempted requests are already requeued; slots rebuilt below
         for req in self.scheduler.ensure_decode_blocks():
+            if self.tracer is not None:
+                self.tracer.request_instant(req.req_id, "evicted-requeued")
+                self.tracer.request_phase(req.req_id, "queued")
             self._emit_event(req, "evicted-requeued")
+        t3 = self.tracer.now_us() if self.tracer is not None else -1.0
 
         running = [r for r in self.scheduler.running if r.generated]
+        t4 = t5 = t3
+        tel = None
+        cost = None
+        tdev0 = 0.0
         if running:
             b = self.scheduler.max_slots
             bs = self.block_size
@@ -1602,14 +1753,30 @@ class ServeEngine:
                 blk=tables[np.arange(b), lengths // bs], off=lengths % bs,
                 tables=tables, vis=vis, pads=pads, pads_sliding=pads_sliding, seeds=seeds,
             )
+            if self.telemetry is not None:
+                tdev0 = self.clock()
             self._dispatch_faults(has_prefill=False)
             self.n_dispatches += 1
             self.n_decode_dispatches += 1
-            out = self._decode_step(host)
+            with (torch.profiler.record_function("serve.decode_dispatch")
+                  if self.tracer is not None else _NULL_CTX):
+                out = self._decode_step(host)
+            t4 = self.tracer.now_us() if self.tracer is not None else -1.0
+            if self.telemetry is not None:
+                # the dispatch's byte bill while the graph runs; the
+                # measured wall closes over it after the host sync below
+                cost = self.telemetry.split_tick_cost(self, running)
             self._host_sync_fault()
             # THE tick's one device→host transfer: the packed [B, 4] rows
             out_host = out.cpu().numpy()
             self.n_host_fetches += 1
+            t5 = self.tracer.now_us() if self.tracer is not None else -1.0
+            if cost is not None and self.telemetry is not None:
+                # attribution before delivery, so a finishing request's
+                # log line carries its last tick's cost
+                tel = self.telemetry.finish(cost, self.clock() - tdev0)
+                self.telemetry.attribute(cost, tel["device_time_s"])
+                self.metrics.on_telemetry(tel)
             for r in running:
                 self._emit(r, int(out_host[r.slot, 0]))
                 self._maybe_finish(r)
@@ -1621,8 +1788,39 @@ class ServeEngine:
             occupancy=self.pool.occupancy,
             active_slots=len(running),
             preemptions_total=self.scheduler.n_preemptions,
-            kv_bytes=self._kv_bytes_tick(running) if running else 0,
+            kv_bytes=_tel.split_tick_kv_read(self, running, per_request=False)[0]
+            if running else 0,
         )
+        if self.tracer is not None and t0 >= 0.0:
+            t6 = self.tracer.now_us()
+            targs: dict[str, Any] = {
+                "active_slots": len(running),
+                "queue_depth": self.scheduler.queue_depth,
+                "admitted": len(admitted),
+                # the one-fetch contract covers the decode fetch; the
+                # phase-split prefill's first-token sync counts in prefill
+                "host_sync_us": round(max(t5 - t4, 0.0), 1),
+                "host_fetches": self.n_host_fetches - fetches0,
+            }
+            if self.host_tier is not None:
+                targs["tier_spill_bytes"] = self._tier_spill_bytes
+                targs["tier_restore_bytes"] = self._tier_restore_bytes
+                targs["tier_restore_us"] = round(self._tier_restore_us, 1)
+            if tel is not None:
+                targs.update(_roofline_targs(tel))
+            self.tracer.tick(t0, (
+                ("admission", t0, t1), ("prefill", t1, t2),
+                ("grow", t2, t3), ("decode_dispatch", t3, t4),
+                ("host_sync", t4, t5), ("deliver", t5, t6),
+            ), args=targs)
+            if self.sentinel is not None:
+                # the tick's phases, and the roofline deficit as a
+                # pseudo-phase, so a utilization regression pages too
+                self._sentinel_observe((
+                    ("admission", t0, t1), ("prefill", t1, t2),
+                    ("grow", t2, t3), ("decode_dispatch", t3, t4),
+                    ("host_sync", t4, t5), ("deliver", t5, t6),
+                ) + ((("roofline_deficit", 0.0, tel["deficit_us"]),) if tel is not None else ()))
         return self.scheduler.has_work
 
     def _dispatch_faults(self, has_prefill: bool) -> None:
@@ -1751,7 +1949,8 @@ class ServeEngine:
         req.extra.pop("prefill_content", None)
         self._register_prefix(req)
         self._emit(req, tok)
-        self._maybe_finish(req)
+        if not self._maybe_finish(req) and self.tracer is not None:
+            self.tracer.request_phase(req.req_id, "decode")
 
     def _draft_tick(self) -> None:
         """Propose draft tokens for every speculating decode row by
@@ -1797,18 +1996,22 @@ class ServeEngine:
         if st[1] < self.spec_min_accept * st[0]:
             req.extra["spec_off"] = True
             self._draft_states.pop(req.req_id, None)
+            if self.tracer is not None:
+                self.tracer.request_instant(req.req_id, "spec-fallback", args=self._targs(
+                    req, drafted=st[0], accepted=st[1]))
         else:
             st[0] //= 2
             st[1] //= 2
 
-    def _deliver_verify(self, r: Request, samples: np.ndarray, n_match: int) -> None:
+    def _deliver_verify(self, r: Request, samples: np.ndarray, n_match: int) -> int:
         """The host deliver walk of one verify slice: the step sampled
         every position of the slice by the plain decode rule, so sample
         j IS the token the stream emits there — emit while the drafts
         matched (``n_match`` of them, from the packed fetch), then the
         first correction or the bonus sample, stopping early at a stop
         token, the budget or an abort.  Rejected drafts' K/V sit past
-        the new ``cache_len`` and are overwritten before being read."""
+        the new ``cache_len`` and are overwritten before being read.
+        Returns the accepted drafts."""
         r.extra.pop("spec_draft")
         acc = 0
         for j in range(1 + r.draft_len):
@@ -1824,12 +2027,19 @@ class ServeEngine:
                 break
         drafted, r.draft_len = r.draft_len, 0
         self._spec_feedback(r, drafted, acc)
+        return acc
 
     def _step_mixed(self) -> bool:
         """One unified tick: deadline sweep + admission, draft proposal,
         block growth, token-budget planning, then ONE mixed step covering
         every planned prefill slice, plain decode row and verify slice,
-        and ONE host fetch."""
+        and ONE host fetch.  With a tracer attached each tick records one
+        ``tick`` span and its ``MIXED_TICK_PHASES`` slices at consecutive
+        timestamps, with the prefill/decode token split (and the draft /
+        accept split on a spec engine) in its args; ``self.tracer`` is
+        re-read at every hook, as in the phase-split tick."""
+        t0 = self.tracer.now_us() if self.tracer is not None else -1.0
+        fetches0 = self.n_host_fetches
         self._tier_tick_start()
         self._sweep_deadlines()
         admitted = self.scheduler.admit()
@@ -1841,25 +2051,48 @@ class ServeEngine:
             # below, before the step that attends them
             self._enqueue_tier_restores(req)
             self._init_mixed_prefill(req)
+            if self.tracer is not None:
+                self.tracer.request_phase(req.req_id, "prefill", args=self._targs(
+                    req, shared_blocks=req.n_shared_blocks, preemptions=req.n_preemptions))
         self._apply_tier_restores(admitted)
+        t1 = self.tracer.now_us() if self.tracer is not None else -1.0
 
         self._draft_tick()
+        td = self.tracer.now_us() if self.tracer is not None else -1.0
         for req in self.scheduler.ensure_decode_blocks():
+            if self.tracer is not None:
+                self.tracer.request_instant(req.req_id, "evicted-requeued")
+                self.tracer.request_phase(req.req_id, "queued")
             self._emit_event(req, "evicted-requeued")
+        t2 = self.tracer.now_us() if self.tracer is not None else -1.0
 
         decode_rows, prefill_segs = self.scheduler.plan_tick(
-            self.tick_token_budget, self.prefill_chunk)
+            self.tick_token_budget, self.prefill_chunk,
+            prefill_order=(self._fair_prefill_order
+                           if self.tenants is not None and self.tenants.fairness else None))
+        t3 = self.tracer.now_us() if self.tracer is not None else -1.0
+        t4 = t5 = t3
         n_prefill_tok = sum(n for _, n in prefill_segs)
         n_decode_tok = len(decode_rows)
-        # drafts packed this tick (after the planner's trim)
+        # drafts packed this tick (after the planner's trim), and accepted
         n_spec_tok = sum(r.draft_len for r in decode_rows)
+        n_spec_acc = 0
+        tel = None
+        cost = None
         if decode_rows or prefill_segs:
             host = self._pack_mixed(decode_rows, prefill_segs)
             td0 = self.clock()
             self._dispatch_faults(has_prefill=bool(prefill_segs))
             self.n_dispatches += 1
             self.n_verify_dispatches += n_spec_tok > 0
-            out = self._mixed_step(host)
+            with (torch.profiler.record_function("serve.mixed_dispatch")
+                  if self.tracer is not None else _NULL_CTX):
+                out = self._mixed_step(host)
+            t4 = self.tracer.now_us() if self.tracer is not None else -1.0
+            if self.telemetry is not None:
+                # the byte/FLOP bill while the graph runs, and before the
+                # accept walk: verify lanes live in draft_len only until then
+                cost = self.telemetry.mixed_tick_cost(self, decode_rows, prefill_segs)
             self._host_sync_fault()
             # THE tick's one device→host transfer: samples + stop mask +
             # watermark + accept length in one int32 array
@@ -1867,6 +2100,14 @@ class ServeEngine:
             self.n_host_fetches += 1
             nxt_host = out_host[:, : self._spec_w]
             accept_host = out_host[:, self._spec_w + 2]
+            t5 = self.tracer.now_us() if self.tracer is not None else -1.0
+            if cost is not None and self.telemetry is not None:
+                # graded against the dispatch → fetch wall, and attributed
+                # before delivery, so a finishing request's log line
+                # carries its last tick's cost
+                tel = self.telemetry.finish(cost, self.clock() - td0)
+                self.telemetry.attribute(cost, tel["device_time_s"])
+                self.metrics.on_telemetry(tel)
             if n_prefill_tok:
                 # per-request prefill time: the step's wall split by
                 # token share (the mixed analogue of Request.prefill_s)
@@ -1882,7 +2123,8 @@ class ServeEngine:
                     self._finish_mixed_prefill(r, int(nxt_host[r.slot, 0]))
             for r in decode_rows:
                 if r.draft_len:
-                    self._deliver_verify(r, nxt_host[r.slot], int(accept_host[r.slot]))
+                    n_spec_acc += self._deliver_verify(r, nxt_host[r.slot],
+                                                       int(accept_host[r.slot]))
                 else:
                     self._emit(r, int(nxt_host[r.slot, 0]))
                     self._maybe_finish(r)
@@ -1895,48 +2137,52 @@ class ServeEngine:
             occupancy=self.pool.occupancy,
             active_slots=active,
             preemptions_total=self.scheduler.n_preemptions,
-            kv_bytes=self._kv_bytes_tick_mixed(decode_rows, prefill_segs) if active else 0,
+            # after the accept walk and prefill bookkeeping, as the JAX
+            # engine calls it (draft_len is 0, prefill_done counts this
+            # tick's slice), so the gauge equals that engine's
+            kv_bytes=_tel.mixed_tick_kv_read(self, decode_rows, prefill_segs,
+                                             per_request=False)[0] if active else 0,
             prefill_tokens=n_prefill_tok,
             decode_tokens=n_decode_tok,
         )
+        if self.tracer is not None and t0 >= 0.0:
+            t6 = self.tracer.now_us()
+            targs: dict[str, Any] = {
+                "active_slots": active,
+                "queue_depth": self.scheduler.queue_depth,
+                "admitted": len(admitted),
+                "prefill_tokens": n_prefill_tok,
+                "decode_tokens": n_decode_tok,
+                # the tick tail: host_sync wall (µs) and the device→host
+                # transfers this tick (exactly 1 on a dispatching tick)
+                "host_sync_us": round(max(t5 - t4, 0.0), 1),
+                "host_fetches": self.n_host_fetches - fetches0,
+            }
+            if self.spec_k:
+                targs["spec_draft_tokens"] = n_spec_tok
+                targs["spec_accept_tokens"] = n_spec_acc
+            if self.host_tier is not None:
+                targs["tier_spill_bytes"] = self._tier_spill_bytes
+                targs["tier_restore_bytes"] = self._tier_restore_bytes
+                targs["tier_restore_us"] = round(self._tier_restore_us, 1)
+            if tel is not None:
+                targs.update(_roofline_targs(tel))
+            self.tracer.tick(t0, (
+                ("admission", t0, t1), ("draft", t1, td),
+                ("grow", td, t2), ("plan", t2, t3),
+                ("mixed_dispatch", t3, t4),
+                ("host_sync", t4, t5), ("deliver", t5, t6),
+            ), args=targs)
+            if self.sentinel is not None:
+                # the tick's phases, and the roofline deficit as a
+                # pseudo-phase, so a utilization regression pages too
+                self._sentinel_observe((
+                    ("admission", t0, t1), ("draft", t1, td),
+                    ("grow", td, t2), ("plan", t2, t3),
+                    ("mixed_dispatch", t3, t4),
+                    ("host_sync", t4, t5), ("deliver", t5, t6),
+                ) + ((("roofline_deficit", 0.0, tel["deficit_us"]),) if tel is not None else ()))
         return self.scheduler.has_work
-
-    # ------------------------------------------------------------------
-    # K/V bytes a tick's attention reads (the metrics' kv_bytes_tick; the
-    # JAX engine's arithmetic, serve/telemetry.py's tick totals)
-    # ------------------------------------------------------------------
-    def _kv_bytes_tick_mixed(self, decode_rows: list[Request],
-                             prefill_segs: list[tuple[Request, int]]) -> int:
-        """K/V bytes one unified tick's ragged kernel reads: each q tile's
-        visible blocks, window-aware per layer.  Called after the tick's
-        accept walk and prefill bookkeeping, as the JAX engine calls it
-        (draft_len is 0 and prefill_done already counts this tick's
-        slice), so the gauge equals that engine's."""
-        geom = self._kv_geom
-        total = sum(_segment_kv_slots(r.pad, r.cache_len - 1, 1 + r.draft_len, **geom)
-                    for r in decode_rows)
-        total += sum(_segment_kv_slots(r.pad, r.pad + r.prefill_done, n, **geom)
-                     for r, n in prefill_segs)
-        return total * self._kv_slot_bytes
-
-    def _kv_bytes_tick(self, running: list[Request]) -> int:
-        """K/V bytes one phase-split decode step reads: the gathered
-        [B, S_max] view of every slot for the gathering impls, each row's
-        visible blocks (window-aware) for the paged kernel."""
-        n_layers, per_slot = self.config.num_hidden_layers, self._kv_slot_bytes
-        if self.decode_attn_impl != "paged":
-            return self.scheduler.max_slots * self.max_seq_len * n_layers * per_slot
-        n_sliding = self._kv_n_sliding
-        win, bs = self.config.sliding_window, self.block_size
-        total = 0
-        for r in running:
-            nb_hi = -(-r.cache_len // bs)
-            slot_layers = (n_layers - n_sliding) * (nb_hi - r.pad // bs) * bs
-            if n_sliding:
-                pad_eff = max(r.pad, r.cache_len - win)
-                slot_layers += n_sliding * (nb_hi - pad_eff // bs) * bs
-            total += slot_layers * per_slot
-        return total
 
     # ------------------------------------------------------------------
     def compile_counts(self) -> dict[str, int]:
@@ -2001,13 +2247,20 @@ class ServeEngine:
         nor restore, and its times do not feed the breakeven.  The fault
         injector, journal and request log are detached too: a scheduled
         fault must not fire (or a hit be counted) in a capture, and the
-        dummy is neither journaled nor logged."""
+        dummy is neither journaled nor logged.  So is the observability
+        plane: the dummy's ticks and the captures are not traced (so the
+        sentinel never sees them), billed or counted as SLO verdicts, and
+        the SLO tracker passes to the fresh metrics."""
         if not prompt_lens:
             return
         host_tier, self.host_tier = self.host_tier, None
         faults, self.faults = self.faults, None
         journal, self.journal = self.journal, None
         request_log, self.request_log = self.request_log, None
+        tracer, self.tracer = self.tracer, None
+        telemetry, self.telemetry = self.telemetry, None
+        tenants, self.tenants = self.tenants, None
+        slo_tracker, self.metrics.slo = self.metrics.slo, None
         try:
             self.submit(np.ones(min(prompt_lens), np.int32), min(2, max_new_tokens))
             self.run_until_complete()
@@ -2019,10 +2272,14 @@ class ServeEngine:
             self.faults = faults
             self.journal = journal
             self.request_log = request_log
+            self.tracer = tracer
+            self.telemetry = telemetry
+            self.tenants = tenants
+            self.metrics.slo = slo_tracker
         if self.pool.prefix_cache is not None:
             self.pool.prefix_cache.clear()
         self.scheduler.finished.clear()
-        self.metrics = ServeMetrics(clock=self.clock)
+        self.metrics = ServeMetrics(clock=self.clock, slo=slo_tracker)
 
     def run_until_complete(self, max_ticks: int = 100_000) -> None:
         for _ in range(max_ticks):

@@ -33,7 +33,18 @@ Endpoints:
 - ``GET /healthz`` — ``ok`` / ``degraded`` (a supervised restart in
   progress, still 200) / ``draining`` / ``crashed``.
 - ``GET /metrics`` — Prometheus text from ``ServeMetrics`` plus the
-  live pool/stream gauges of the JAX server.
+  live pool/stream gauges of the JAX server, the OTLP exporter's
+  counters and the tenant ledger's series when those are attached.
+- ``GET /debug/trace`` — the engine's ``TraceRecorder`` as Chrome
+  trace-event JSON (copied under the recorder's lock, serialized off the
+  event loop); ``GET /debug/slo`` — the metrics' ``SLOTracker``
+  (``aggregate_slo``); ``GET /debug/tenants`` — the ``TenantLedger``
+  (``aggregate_tenants``).  Each answers 404 with its layer off, as the
+  JAX server does.
+
+With a tracer on the engine, every completion gets an ``http`` span on
+its request track from socket accept to the response's end, enclosing
+the engine's queued / prefill / decode spans.
 
 Shutdown (``begin_drain``, SIGTERM/SIGINT when the server runs on the
 main thread): new completions get 503, in-flight streams finish up to
@@ -50,13 +61,17 @@ An engine with a request journal (``serve/journal.py``) has the
 unterminated requests of a dead process replayed when the runner is
 built.  The chaos sites ``tick_hang``, ``tick_crash``, ``proc_kill``,
 ``http_429`` and ``http_reset`` (``serve/faults.py``) fire from the
-engine's fault injector.  What the JAX server has beyond this slice
-raises ``NotImplementedError`` naming its layer: a ``ReplicaRunner``
-fleet (``runner=``), rolling upgrades (``upgrade_loader=``,
-``EngineRunner.rolling_upgrade`` and its parts), and an engine with a
-tracer.  ``/debug/slo``, ``/debug/tenants``, ``/debug/trace``,
-``/admin/upgrade`` and ``/admin/scale`` answer as the JAX server does
-with those layers off.
+engine's fault injector.  A restart mutes the dead engine's tracer,
+sentinel and tenant ledger (the rebuilt engine shares them), stamps
+``engine-death`` and a ``restart`` span (or ``engine-terminal-crash``)
+on the trace, and the rebuild's captures are never tick spans or
+sentinel samples (they run outside ``step``).  What the JAX server has
+beyond this slice raises ``NotImplementedError`` naming its layer: a
+``ReplicaRunner`` fleet (``runner=``) and rolling upgrades
+(``upgrade_loader=``, ``EngineRunner.rolling_upgrade`` and its parts);
+SLO load shedding (a 503 with a burn-scaled Retry-After) is the
+lifecycle layer's ``ActionPolicy``, not ported.  ``/admin/upgrade`` and
+``/admin/scale`` answer as the JAX server does with those layers off.
 """
 
 from __future__ import annotations
@@ -93,6 +108,8 @@ from llm_np_cp_tpu_torch.serve.http.protocol import (
 from llm_np_cp_tpu_torch.serve.http.sse import DONE_SENTINEL, sse_event
 from llm_np_cp_tpu_torch.serve.metrics import ServeMetrics
 from llm_np_cp_tpu_torch.serve.scheduler import QueueFull, TenantThrottled
+from llm_np_cp_tpu_torch.serve.slo import aggregate_slo
+from llm_np_cp_tpu_torch.serve.tenants import aggregate_tenants
 from llm_np_cp_tpu_torch.serve.tracing import gen_trace_id, make_traceparent, parse_traceparent
 
 TERMINAL_EVENTS = ("stop", "length", "aborted")
@@ -143,7 +160,9 @@ class EngineRunner:
     ``clone_fresh`` (a fresh pool, every bucket captured again before it
     serves), and replays every in-flight request with its delivered
     tokens teacher-forced (``ServeEngine.recover``), so no token is sent
-    twice.  Submits that arrive meanwhile queue up; ``/healthz`` answers
+    twice.  The watchdog does not judge the rebuild itself: its captures
+    are not a tick, and a second rebuild started beside a capture would
+    only collide with it.  Submits that arrive meanwhile queue up; ``/healthz`` answers
     ``degraded`` (200) until the rebuilt engine completes its first loop
     pass.  Once ``max_restarts`` deaths fall inside the window (or with
     supervision off, the default), a death is terminal: every stream gets
@@ -165,8 +184,6 @@ class EngineRunner:
                  max_restarts: int = 0,
                  restart_backoff_s: float = 0.5,
                  restart_window_s: float = 300.0) -> None:
-        if getattr(engine, "tracer", None) is not None:
-            raise _not_ported("serving an engine with a tracer", "tracing")
         self.engine = engine
         self.faults = getattr(engine, "faults", None)
         self.request_timeout = request_timeout
@@ -220,6 +237,9 @@ class EngineRunner:
         # the current restart's backoff: the watchdog's grace while
         # recovering, so a rebuilt engine that wedges is still caught
         self._backoff_delay = 0.0
+        # the generation whose rebuild (retire + clone_fresh) is running:
+        # the watchdog leaves it alone until its first heartbeat
+        self._rebuilding: int | None = None
         # rid → everything a restart needs to teacher-force the stream
         # back (prompt, budget, seed, absolute deadline, trace, lineage,
         # tokens and text deltas delivered so far), in FIFO order; also
@@ -709,24 +729,38 @@ class EngineRunner:
         capture lands inside a serving tick; then every in-flight request
         is resubmitted with its delivered tokens teacher-forced."""
         old = self.engine
+        tr = old.tracer
+        t_restart = tr.now_us() if tr is not None else 0.0
         t0 = time.perf_counter()
-        old.retire(f"superseded by restart generation {gen}")
-        engine = old.clone_fresh()
-        if gen == self._gen:
-            self._beat = time.monotonic()  # the captures were progress, not a hang
+        with self._sup_lock:
+            self._rebuilding = gen
+        try:
+            old.retire(f"superseded by restart generation {gen}")
+            engine = old.clone_fresh()
+        finally:
+            with self._sup_lock:
+                if gen == self._gen:
+                    self._beat = time.monotonic()  # the captures were progress, not a hang
+                if self._rebuilding == gen:
+                    self._rebuilding = None
         steps = engine.graph_steps()
         self.rebuilds.append(dict(
             gen=gen, rebuild_s=time.perf_counter() - t0, captures=len(steps),
             capture_s=sum(st.capture_s or 0.0 for st in steps),
             pool_bytes=sum(st.pool_bytes or 0 for st in steps)))
         # mute the zombie: the clone shares the real metrics, journal,
-        # request log and host tier, and a superseded thread finishing a
-        # slow tick must not write into them (engine internals have no
-        # generation guard; only the bridge does)
+        # request log, host tier, tracer, sentinel and tenant ledger, and a
+        # superseded thread finishing a slow tick must not write into them
+        # (engine internals have no generation guard; only the bridge
+        # does): no stale span in the rebuilt engine's timeline, no sample
+        # in its sentinel's baselines, no tenant billed twice
         old.metrics = ServeMetrics(clock=old.clock)
         old.journal = None
         old.request_log = None
         old.host_tier = None
+        old.tracer = None
+        old.sentinel = None
+        old.tenants = None
         with self._sup_lock:
             if gen != self._gen:
                 # superseded during the rebuild: the newer generation
@@ -740,6 +774,9 @@ class EngineRunner:
             self._replay_one(gen, rec)
             if gen == self._gen:
                 self._beat = time.monotonic()
+        if tr is not None:
+            tr.complete("restart", t_restart, cat="supervisor",
+                        args={"gen": gen, "replayed": len(replay)})
 
     def _on_engine_death(self, reason: str, gen: int) -> None:
         """Crash or hang (from the dying thread or the watchdog): schedule a
@@ -767,6 +804,10 @@ class EngineRunner:
             replay = [dict(rec, tokens=list(rec["tokens"]), deltas=list(rec["deltas"]))
                       for rec in self._inflight.values()]
             new_gen = self._gen
+        tr = self.engine.tracer
+        if tr is not None:
+            tr.instant("engine-death", cat="supervisor",
+                       args={"reason": reason, "gen": gen, "restart": new_gen})
         print(f"[serve] engine death ({reason}); supervised restart, {len(replay)} in flight "
               f"to replay, {len(self._recent_deaths)}/{self.max_restarts} deaths in window, "
               f"backoff {delay:.2f}s", file=sys.stderr)
@@ -778,6 +819,9 @@ class EngineRunner:
         submits are refused.  The generation moves on, so a hung thread
         that wakes stops instead of ticking for flushed streams."""
         self.crashed = reason
+        tr = self.engine.tracer
+        if tr is not None:
+            tr.instant("engine-terminal-crash", cat="supervisor", args={"reason": reason})
         self._gen += 1
         self.recovering = False
         for rid in list(self._live):
@@ -795,7 +839,8 @@ class EngineRunner:
         """Watchdog: declare the engine hung when the tick heartbeat goes
         stale past ``tick_deadline``.  While a restart is in progress the
         budget stretches by that restart's backoff, so a rebuilt engine
-        that wedges is still caught."""
+        that wedges is still caught; the rebuild itself (its captures) is
+        not judged, and its end restarts the clock."""
         assert self.tick_deadline is not None
         interval = max(self.tick_deadline / 4.0, 0.01)
         while not self._stop.is_set() and not self.crashed:
@@ -803,6 +848,8 @@ class EngineRunner:
             with self._sup_lock:
                 gen, beat = self._gen, self._beat
                 grace = self._backoff_delay if self.recovering else 0.0
+                if self._rebuilding == gen:
+                    continue
             stale = time.monotonic() - beat
             if stale > self.tick_deadline + grace:
                 self._on_engine_death(
@@ -913,13 +960,24 @@ class HttpServer:
         await self._done.wait()
 
     # ------------------------------------------------------------------
+    @property
+    def tracer(self) -> Any:
+        """The live engine's trace recorder, or None (the recorder is
+        shared across supervised restarts; the runner's engine changes)."""
+        return self.runner.engine.tracer
+
     async def _on_conn(self, reader: asyncio.StreamReader,
                        writer: asyncio.StreamWriter) -> None:
         task = asyncio.current_task()
         if task is not None:
             self._conn_tasks.add(task)
+        # a request's http span starts at socket accept: reading and
+        # parsing are part of what the client waits for.  -1 when the
+        # tracer appears only after accept (a restart's mute window)
+        tracer = self.tracer
+        t_accept = tracer.now_us() if tracer is not None else -1.0
         try:
-            await self._handle(reader, writer)
+            await self._handle(reader, writer, t_accept)
         except (ConnectionResetError, BrokenPipeError, asyncio.TimeoutError):
             pass
         finally:
@@ -930,7 +988,7 @@ class HttpServer:
                 await writer.wait_closed()
 
     async def _handle(self, reader: asyncio.StreamReader,
-                      writer: asyncio.StreamWriter) -> None:
+                      writer: asyncio.StreamWriter, t_accept: float = -1.0) -> None:
         try:
             method, path, headers, body = await asyncio.wait_for(
                 self._read_request(reader), timeout=30.0)
@@ -961,15 +1019,33 @@ class HttpServer:
                 writer, 200, self._render_metrics().encode(),
                 content_type="text/plain; version=0.0.4; charset=utf-8")
         elif method == "GET" and path == "/debug/slo":
-            await self._respond_error(writer, HTTPError(
-                404, "SLO accounting is off; start the server with --slo-ttft/--slo-tpot"))
+            tracker = self.runner.engine.metrics.slo
+            if tracker is None:
+                await self._respond_error(writer, HTTPError(
+                    404, "SLO accounting is off; start the server with --slo-ttft/--slo-tpot"))
+            else:
+                await self._respond(writer, 200, json.dumps(aggregate_slo([tracker])).encode())
         elif method == "GET" and path == "/debug/tenants":
-            await self._respond_error(writer, HTTPError(
-                404, "tenant accounting is off; start the server with --tenants"))
+            ledger = self.runner.engine.tenants
+            if ledger is None:
+                await self._respond_error(writer, HTTPError(
+                    404, "tenant accounting is off; start the server with --tenants"))
+            else:
+                await self._respond(writer, 200,
+                                    json.dumps(aggregate_tenants([ledger])).encode())
         elif method == "GET" and path == "/debug/trace":
-            await self._respond_error(writer, HTTPError(
-                404, "tracing is off; start the server with "
-                "--trace-ring N (and/or --trace-out PATH)"))
+            tracer = self.tracer
+            if tracer is None:
+                await self._respond_error(writer, HTTPError(
+                    404, "tracing is off; start the server with "
+                    "--trace-ring N (and/or --trace-out PATH)"))
+            else:
+                # copied under the recorder's lock, serialized off the
+                # event loop: a full ring is many thousands of dicts, and
+                # dumping them inline would stall every live stream
+                body = await asyncio.get_running_loop().run_in_executor(
+                    None, lambda: json.dumps(tracer.to_dict()).encode())
+                await self._respond(writer, 200, body)
         elif path == "/admin/upgrade":
             if method != "POST":
                 await self._respond_error(writer, HTTPError(405, "use POST for /admin/upgrade"))
@@ -987,7 +1063,7 @@ class HttpServer:
             if method != "POST":
                 await self._respond_error(writer, HTTPError(405, "use POST for /v1/completions"))
             else:
-                await self._completions(reader, writer, body, headers)
+                await self._completions(reader, writer, body, headers, t_accept)
         elif path.startswith("/v1/completions/"):
             # stream resume by id: GET /v1/completions/cmpl-N with a
             # Last-Event-ID header replays the suffix and continues live
@@ -1001,7 +1077,7 @@ class HttpServer:
             except HTTPError as e:
                 await self._respond_error(writer, e)
                 return
-            await self._resume(reader, writer, rid, last_idx, self.model_id)
+            await self._resume(reader, writer, rid, last_idx, self.model_id, t_accept)
         else:
             await self._respond_error(writer, HTTPError(404, f"no route for {method} {path}"))
 
@@ -1046,6 +1122,16 @@ class HttpServer:
             "journal_replayed_total": float(runner.journal_replayed),
             "journal_resumed_total": float(runner.journal_resumed),
         }
+        # OTLP span export (serve/otel.py): shipped and dropped counters,
+        # so a silent collector outage shows on the scrape
+        otel = engine.tracer.otel if engine.tracer is not None else None
+        if otel is not None:
+            ostats = otel.stats()
+            journal_gauges.update({
+                "otlp_spans_exported_total": float(ostats["spans"]),
+                "otlp_spans_dropped_total": float(ostats["dropped"]),
+                "otlp_export_errors_total": float(ostats["export_errors"]),
+            })
         if runner.journal is not None:
             jstats = runner.journal.stats()
             journal_gauges.update({
@@ -1055,7 +1141,7 @@ class HttpServer:
                     jstats["write_errors"] + jstats["fsync_errors"]),
                 "journal_epoch": float(jstats["epoch"]),
             })
-        return engine.metrics.prometheus(
+        text = engine.metrics.prometheus(
             # the version label appears once an upgrade rolled (wv > 0)
             const_labels={"version": str(wv)} if wv else None,
             extra_gauges={
@@ -1076,11 +1162,17 @@ class HttpServer:
                 "decode_impl_degraded": 1.0 if engine.decode_degraded else 0.0,
                 **journal_gauges,
             })
+        if engine.tenants is not None:
+            # the tenant series, their label cardinality bounded by the
+            # ledger's top-max_series roll-up
+            text += engine.tenants.prometheus(const_labels={"version": str(wv)} if wv else None)
+        return text
 
     # ------------------------------------------------------------------
     async def _completions(self, reader: asyncio.StreamReader,
                            writer: asyncio.StreamWriter,
-                           body: bytes, headers: dict[str, str]) -> None:
+                           body: bytes, headers: dict[str, str],
+                           t_accept: float = -1.0) -> None:
         if self.draining or self.runner.crashed:
             msg = ("engine tick thread crashed: " + self.runner.crashed
                    if self.runner.crashed
@@ -1104,7 +1196,7 @@ class HttpServer:
                 # re-POST with the original request id: the resume
                 # protocol's POST spelling
                 rid, last_idx, echo_model = resume
-                await self._resume(reader, writer, rid, last_idx, echo_model)
+                await self._resume(reader, writer, rid, last_idx, echo_model, t_accept)
                 return
             payload = parse_completion_request(
                 body, model_id=self.model_id, tokenizer=self.tokenizer,
@@ -1123,6 +1215,20 @@ class HttpServer:
         loop = asyncio.get_running_loop()
         aq: asyncio.Queue = asyncio.Queue()
         rid = self.runner.next_rid()
+        tracer = self.tracer
+        if tracer is not None:
+            # the http bracket: accept → response done, around the
+            # engine's spans on the same track
+            tracer.async_begin(rid, "http", ts_us=t_accept if t_accept >= 0.0 else None,
+                               args={"stream": bool(payload.stream),
+                                     "trace": payload.trace_id})
+        try:
+            await self._completions_inner(reader, writer, payload, rid, loop, aq)
+        finally:
+            if tracer is not None:
+                tracer.async_end(rid, "http")
+
+    async def _completions_inner(self, reader, writer, payload, rid, loop, aq) -> None:
         self.runner.submit(rid, payload, loop, aq)
         verdict = await aq.get()
         if verdict[0] == "rejected":
@@ -1161,7 +1267,7 @@ class HttpServer:
 
     async def _resume(self, reader: asyncio.StreamReader,
                       writer: asyncio.StreamWriter, rid: int,
-                      last_idx: int, echo_model: str) -> None:
+                      last_idx: int, echo_model: str, t_accept: float = -1.0) -> None:
         """Re-attach a dropped SSE stream: replay the delivered-token
         suffix from the client's Last-Event-ID, then continue live.  404
         when the id is unknown or expired — the client falls back to a
@@ -1173,6 +1279,18 @@ class HttpServer:
                 "engine tick thread crashed: " + str(self.runner.crashed),
                 etype="server_error", headers=(("Retry-After", "1"),)))
             return
+        tracer = self.tracer
+        if tracer is not None:
+            tracer.async_begin(rid, "http", ts_us=t_accept if t_accept >= 0.0 else None,
+                               args={"resume": True, "last_event_id": last_idx})
+        try:
+            await self._resume_inner(reader, writer, rid, last_idx, echo_model)
+        finally:
+            if tracer is not None:
+                tracer.async_end(rid, "http")
+
+    async def _resume_inner(self, reader, writer, rid: int, last_idx: int,
+                            echo_model: str) -> None:
         loop = asyncio.get_running_loop()
         aq: asyncio.Queue = asyncio.Queue()
         self.runner.resume(rid, last_idx, loop, aq)

@@ -22,8 +22,9 @@ flat dict (``snapshot()``), so tests, ``chip_smoke.py`` and the HTTP
 - ``throughput_tok_s``     — total generated tokens / wall span
 - ``prefix_hit_rate``      — prompt blocks reused from the prefix cache
                              / shareable prompt blocks requested
-- ``kv_bytes_tick_*``      — K/V bytes a tick's attention reads (the
-                             engine's ``_kv_bytes_tick*``)
+- ``kv_bytes_tick_*``      — K/V bytes a tick's attention reads
+                             (``telemetry.mixed_tick_kv_read`` /
+                             ``split_tick_kv_read``)
 - ``mixed_prefill_tokens`` / ``mixed_decode_tokens`` — how the unified
                              tick's token budget was spent
 - ``queue_wait_s_*`` / ``prefill_s_*`` — per-request phase splits
@@ -32,6 +33,18 @@ flat dict (``snapshot()``), so tests, ``chip_smoke.py`` and the HTTP
 - ``prefix_evicted_*`` / ``tier_*`` — LRU prefix reclaim, and the
                              host-RAM KV tier's flow, present only once
                              a tier is attached
+- ``roofline_*`` / ``*_bytes_total`` / ``device_time_s_total`` — device
+                             roofline telemetry (``serve/telemetry.py``):
+                             achieved GB/s, utilization against the
+                             model's ``hbm_gbps`` and MFU per graded
+                             dispatch, and the byte and time ledgers that
+                             per-request attribution sums to, present
+                             only with a ``TelemetryModel`` attached
+- ``slo_*`` / ``goodput_*`` — the ``slo`` tracker's verdicts, goodput and
+                             burn rates (``serve/slo.py``), present only
+                             with a tracker attached
+- ``anomaly_ticks``        — per-phase outlier counts of the tick
+                             sentinel
 
 ``ttft_s`` and ``decode_tok_s`` also keep real Prometheus histograms
 (``TTFT_BUCKETS`` / ``DECODE_TOK_S_BUCKETS``) updated at record time, so
@@ -39,9 +52,8 @@ they stay exact when ``max_samples`` trims the percentile windows (the
 HTTP runner sets it for a long-running server).  ``prometheus()``
 renders the text exposition format (0.0.4) and ``format()`` the operator
 block, both as the JAX package renders them for the layers the port has;
-the series of layers it has not yet (SLO goodput, roofline telemetry,
-the anomaly sentinel, lifecycle actions) are absent, as the JAX package
-leaves them out when those layers are off.  ``requests_recovered_total``
+the lifecycle-action series (a later slice) is absent, as the JAX
+package leaves it out when that layer is off.  ``requests_recovered_total``
 counts the requests a supervised restart or a journal replay resubmitted
 (``on_recover``).
 
@@ -69,6 +81,10 @@ TTFT_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
 DECODE_TOK_S_BUCKETS = (0.5, 1.0, 2.0, 5.0, 10.0, 20.0, 50.0, 100.0,
                         200.0, 500.0, 1000.0)
 SPEC_ACCEPT_BUCKETS = (0.0, 1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 12.0, 16.0)
+# roofline utilization per graded tick (achieved GB/s over hbm_gbps):
+# log-ish lower buckets, since CPU runs sit far below the roofline
+ROOFLINE_UTIL_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+                         0.2, 0.35, 0.5, 0.65, 0.8, 0.9, 1.0)
 
 
 def _pcts(values: list[float], name: str) -> dict[str, float]:
@@ -84,9 +100,16 @@ def _pcts(values: list[float], name: str) -> dict[str, float]:
 
 
 class ServeMetrics:
-    def __init__(self, clock=time.perf_counter, max_samples: int | None = None) -> None:
+    def __init__(self, clock=time.perf_counter, max_samples: int | None = None,
+                 slo: Any = None) -> None:
         self.clock = clock
         self._lock = threading.Lock()
+        # SLO accounting (serve/slo.SLOTracker): a verdict per terminal,
+        # judged under this lock in _record_latencies; None = one is-None
+        # check a terminal
+        self.slo = slo
+        # the tick sentinel's outliers by phase (ServeEngine._sentinel_observe)
+        self.anomaly_ticks: Counter[str] = Counter()
         # bounded retention for long-running servers: None keeps every
         # sample (exact full-trace percentiles); an int caps each value
         # list, dropping the oldest half on overflow (percentiles become
@@ -137,6 +160,21 @@ class ServeMetrics:
         self.tier_restore_s: list[float] = []
         self.tier_resident_bytes = 0.0
         self.tier_breakeven: float | None = None
+        # device roofline telemetry (serve/telemetry.py): byte and time
+        # ledgers (never trimmed: per-request attribution sums to them),
+        # per-dispatch windows and a utilization histogram; empty without
+        # a TelemetryModel
+        self.roofline_ticks = 0
+        self.kv_read_bytes_total = 0.0
+        self.kv_write_bytes_total = 0.0
+        self.weight_bytes_total = 0.0
+        self.device_time_s_total = 0.0
+        self.hbm_gbps: float | None = None
+        self.roofline_gbps: list[float] = []
+        self.roofline_util: list[float] = []
+        self.mfu_tick: list[float] = []
+        self.util_hist = [0] * (len(ROOFLINE_UTIL_BUCKETS) + 1)
+        self.util_hist_sum = 0.0
 
     # -- record hooks (engine calls these) -----------------------------
     def on_submit(self, req: Request) -> None:
@@ -183,6 +221,35 @@ class ServeMetrics:
                 self.kv_bytes_tick.append(float(kv_bytes))
             for vals in (self.queue_depth, self.occupancy, self.active_slots,
                          self.kv_bytes_tick):
+                self._trim(vals)
+
+    def on_anomaly(self, phase: str) -> None:
+        """The tick sentinel named ``phase`` as an outlier this tick."""
+        with self._lock:
+            self.anomaly_ticks[phase] += 1
+
+    def on_telemetry(self, tel: dict[str, Any]) -> None:
+        """One telemetry record (serve/telemetry.py): a roofline-graded
+        dispatch (``roofline: True``, the unified tick's step or the split
+        tick's decode step) feeds the per-tick windows and the utilization
+        histogram; a totals-only record (a phase-split prefill, whose wall
+        holds host work) feeds only the byte and time ledgers."""
+        with self._lock:
+            self.kv_read_bytes_total += tel["kv_read_bytes"]
+            self.kv_write_bytes_total += tel["kv_write_bytes"]
+            self.weight_bytes_total += tel["weight_bytes"]
+            self.device_time_s_total += tel["device_time_s"]
+            self.hbm_gbps = tel.get("hbm_gbps", self.hbm_gbps)
+            if not tel.get("roofline", True):
+                return
+            self.roofline_ticks += 1
+            util = tel["roofline_util"]
+            self.roofline_gbps.append(tel["achieved_gbps"])
+            self.roofline_util.append(util)
+            self.mfu_tick.append(tel["mfu"])
+            self.util_hist[bisect.bisect_left(ROOFLINE_UTIL_BUCKETS, util)] += 1
+            self.util_hist_sum += util
+            for vals in (self.roofline_gbps, self.roofline_util, self.mfu_tick):
                 self._trim(vals)
 
     def on_prefix(self, *, requested: int, hits: int) -> None:
@@ -257,6 +324,9 @@ class ServeMetrics:
 
     def _record_latencies(self, req: Request) -> None:
         # caller holds the lock
+        if self.slo is not None:
+            # every terminal gets a verdict: ok, miss (aborts) or untimed
+            self.slo.observe(req)
         if req.submit_time is not None and req.first_token_time is not None:
             # realtime replay records the wall arrival, so TTFT includes
             # the wait before the tick loop noticed the request
@@ -322,6 +392,22 @@ class ServeMetrics:
                 out["spec_accept_rate"] = (
                     self.spec_accepted / self.spec_drafted if self.spec_drafted else 0.0)
                 out["spec_accept_len_mean"] = self.spec_accepted / self.spec_rounds
+            if self.slo is not None:
+                out.update(self.slo.snapshot())
+            if self.anomaly_ticks:
+                out["anomaly_ticks"] = dict(self.anomaly_ticks)
+            if self.roofline_ticks:
+                # only once a graded dispatch ran: zeros would read as a
+                # stalled device
+                out["roofline_ticks"] = self.roofline_ticks
+                out["hbm_gbps"] = self.hbm_gbps
+                out["kv_read_bytes_total"] = self.kv_read_bytes_total
+                out["kv_write_bytes_total"] = self.kv_write_bytes_total
+                out["weight_bytes_total"] = self.weight_bytes_total
+                out["device_time_s_total"] = self.device_time_s_total
+                out["roofline_gbps_last"] = self.roofline_gbps[-1]
+                out["roofline_util_last"] = self.roofline_util[-1]
+                out["mfu_last"] = self.mfu_tick[-1]
             # copy-on-read: percentile math sees frozen lists while the
             # tick loop keeps appending
             series = {
@@ -335,6 +421,9 @@ class ServeMetrics:
                 "active_slots": [float(a) for a in self.active_slots],
                 "kv_bytes_tick": list(self.kv_bytes_tick),
                 "tier_restore_s": list(self.tier_restore_s),
+                "roofline_gbps": list(self.roofline_gbps),
+                "roofline_util": list(self.roofline_util),
+                "mfu": list(self.mfu_tick),
             }
             prefix_req = self.prefix_blocks_requested
             prefix_hit = self.prefix_blocks_hit
@@ -462,6 +551,63 @@ class ServeMetrics:
         emit("throughput_tok_s", "gauge",
              "Generated tokens per second over the traffic span",
              [("", s["throughput_tok_s"])])
+        # SLO goodput (only with a tracker: always-0 series would read as
+        # a perfect SLO on a fleet dashboard)
+        if "slo_ok" in s:
+            emit("goodput_tok_s", "gauge",
+                 "SLO-attaining tokens per second over the traffic span "
+                 "(tokens of requests that met every latency target)",
+                 [("", s["goodput_tok_s"])])
+            if "slo_attainment" in s:
+                emit("slo_attainment", "gauge",
+                     "Fraction of timed terminal requests meeting the "
+                     "SLO",
+                     [("", s["slo_attainment"])])
+            emit("slo_requests_total", "counter",
+                 "Terminal requests by SLO verdict (untimed = recovered "
+                 "with no surviving timestamps; excluded from attainment)",
+                 [('{verdict="ok"}', s["slo_ok"]),
+                  ('{verdict="miss"}', s["slo_miss"]),
+                  ('{verdict="untimed"}', s["slo_untimed"])])
+            burn = [(f'{{window="{k[len("slo_burn_rate_"):]}"}}', s[k])
+                    for k in sorted(s) if k.startswith("slo_burn_rate_")]
+            if burn:
+                emit("slo_burn_rate", "gauge",
+                     "Error-budget burn rate per window (observed miss "
+                     "rate / budgeted miss rate; >1 = overspending)",
+                     burn)
+        # device roofline telemetry (only once a graded dispatch ran)
+        if "roofline_ticks" in s:
+            emit("device_bytes_total", "counter",
+                 "Modeled HBM traffic by kind (analytic byte model, "
+                 "serve/telemetry.py)",
+                 [('{kind="kv_read"}', s["kv_read_bytes_total"]),
+                  ('{kind="kv_write"}', s["kv_write_bytes_total"]),
+                  ('{kind="weight"}', s["weight_bytes_total"])])
+            emit("device_time_seconds_total", "counter",
+                 "Measured dispatch-to-host-sync wall attributed to "
+                 "device work",
+                 [("", s["device_time_s_total"])])
+            emit("roofline_gbps", "gauge",
+                 "Achieved GB/s of the last graded dispatch (modeled "
+                 "bytes / measured wall)",
+                 [("", s["roofline_gbps_last"])])
+            emit("roofline_util", "gauge",
+                 "Achieved GB/s over the --hbm-gbps roofline, last "
+                 "graded dispatch",
+                 [("", s["roofline_util_last"])])
+            emit("mfu", "gauge",
+                 "Model FLOP utilization estimate, last graded dispatch",
+                 [("", s["mfu_last"])])
+            emit("hbm_gbps_target", "gauge",
+                 "The HBM roofline utilization is graded against",
+                 [("", s["hbm_gbps"] or 0.0)])
+        if s.get("anomaly_ticks"):
+            emit("anomaly_ticks_total", "counter",
+                 "Ticks where the sentinel flagged this phase as an "
+                 "outlier vs its rolling baseline",
+                 [(f'{{phase="{p}"}}', n)
+                  for p, n in sorted(s["anomaly_ticks"].items())])
         # -- real histograms: cumulative _bucket/_sum/_count from the
         # incrementally kept counters (exact, unlike the trimmed windows)
         with self._lock:
@@ -472,6 +618,9 @@ class ServeMetrics:
             spec_hist = list(self.spec_hist)
             spec_hist_sum = self.spec_hist_sum
             spec_rounds = self.spec_rounds
+            util_hist = list(self.util_hist)
+            util_hist_sum = self.util_hist_sum
+            roofline_ticks = self.roofline_ticks
 
         def emit_hist(name: str, help_: str, buckets: tuple,
                       counts: list[int], total: float) -> None:
@@ -500,6 +649,11 @@ class ServeMetrics:
                       "Accepted draft tokens per speculative verify "
                       "round",
                       SPEC_ACCEPT_BUCKETS, spec_hist, spec_hist_sum)
+        if roofline_ticks:
+            emit_hist("roofline_util_hist",
+                      "Roofline utilization per graded dispatch "
+                      "(achieved GB/s over --hbm-gbps)",
+                      ROOFLINE_UTIL_BUCKETS, util_hist, util_hist_sum)
         # -- quantile gauges over the recorded windows, and the
         # per-request phase split ("queueing or compute?")
         for base, help_ in (
@@ -512,6 +666,12 @@ class ServeMetrics:
              "(re-prefills after preemption/recovery included)"),
             ("tier_restore_s",
              "Host-tier restore staging latency per restored span"),
+            ("roofline_gbps",
+             "Achieved-GB/s quantiles over the recorded dispatch "
+             "window"),
+            ("roofline_util",
+             "Roofline-utilization quantiles over the recorded "
+             "dispatch window"),
         ):
             samples = [(f'{{quantile="{q}"}}', s[f"{base}_{p}"])
                        for q, p in (("0.5", "p50"), ("0.9", "p90"), ("0.99", "p99"))
@@ -556,6 +716,14 @@ class ServeMetrics:
             f"{s['tier_breakeven_ratio']:.2f}"
             if "tier_spilled_blocks" in s else ""
         )
+        roofline = (
+            f"\nroofline: {s['roofline_gbps_mean']:.2f} GB/s mean "
+            f"({s['roofline_util_mean']:.2%} of {s['hbm_gbps']:g} GB/s, "
+            f"p99 util {s.get('roofline_util_p99', 0.0):.2%}, "
+            f"mfu {s['mfu_mean']:.4%}) over {s['roofline_ticks']} "
+            "graded dispatches"
+            if "roofline_ticks" in s else ""
+        )
         return (
             f"requests: {s['submitted']} submitted, {s['finished']} finished"
             f"{aborts}, "
@@ -576,5 +744,5 @@ class ServeMetrics:
             f"p99 {g('occupancy_p99', '{:.2f}')}; "
             f"active_slots mean {g('active_slots_mean', '{:.2f}')}\n"
             f"kv MiB/tick mean {mb_tick}; prefix cache hit rate {prefix}"
-            f"{spec}{tier}"
+            f"{spec}{tier}{roofline}"
         )

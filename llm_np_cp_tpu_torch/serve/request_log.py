@@ -16,13 +16,12 @@ one wide-event JSON line carrying what forensics needs in one place:
   journal recoveries), ``drains``;
 - latency    — ``queue_wait_s``, ``prefill_s``, ``ttft_s``, ``decode_s``,
   ``total_s`` from the request's timestamps;
+- cost       — the ``cost`` block (``kv_bytes_read``,
+  ``kv_bytes_written``, ``weight_bytes_amortized``, ``device_time_s``:
+  ``serve/telemetry.py``'s attribution), present once a cost was
+  measured;
 - outcome    — ``reason``, token counts, and the ``slo`` verdict when a
-  policy is given (the SLO layer is not ported: the engine passes none).
-
-The JAX record adds a ``cost`` block (device-cost attribution) when its
-telemetry layer measured a non-zero cost; the port has no telemetry
-layer yet, so its records never carry one, as the JAX records do not
-when the costs are zero.
+  policy is given (the engine passes its metrics' SLO policy).
 
 Writer discipline: the engine tick thread only enqueues records under
 the lock; a dedicated writer thread owns the file handle and does all
@@ -88,6 +87,15 @@ def request_record(
             phases["ttft_s"] = req.first_token_time - base
         phases["decode_s"] = finish - req.first_token_time
     rec["phases"] = {k: round(v, 6) for k, v in phases.items()}
+    if req.device_time_s or req.kv_bytes_read or req.weight_bytes_amortized:
+        # device-cost attribution (serve/telemetry.py): per-request sums
+        # equal the metrics ledgers, and tenants are billed on these
+        rec["cost"] = {
+            "kv_bytes_read": round(req.kv_bytes_read, 1),
+            "kv_bytes_written": round(req.kv_bytes_written, 1),
+            "weight_bytes_amortized": round(req.weight_bytes_amortized, 1),
+            "device_time_s": round(req.device_time_s, 9),
+        }
     if policy is not None:
         rec["slo"] = policy.verdict(req).to_dict()
     return rec

@@ -74,9 +74,8 @@ class QueueFull(RuntimeError):
 class TenantThrottled(QueueFull):
     """Admission rejected by a per-tenant in-flight cap.  A ``QueueFull``
     subclass so every "try again later" handler (HTTP 429 + Retry-After)
-    applies unchanged; carries the tenant.  Raised by the JAX engine's
-    tenant ledger, which the port has not yet: the HTTP runner maps it
-    as the JAX runner does."""
+    applies unchanged; carries the tenant.  Raised by ``submit`` when a
+    ``TenantLedger``'s ``max_inflight`` cap is full."""
 
     def __init__(self, tenant: str, inflight: int, cap: int) -> None:
         # bypass QueueFull.__init__: the message names the TENANT's live
@@ -138,10 +137,19 @@ class Request:
     draft_len: int = 0
     # normalized tenant id (``serve/tenants.normalize_tenant``): the
     # X-Tenant-Id header or a "tenant" body field, "default" without
-    # one.  Recorded only: the tenant ledger is not ported yet
+    # one; the tenant ledger bills the request to it
     tenant: str = "default"
     slot: int = -1  # decode slot while RUNNING
     n_preemptions: int = 0
+    # -- device-cost attribution (serve/telemetry.py) -----------------
+    # over the request's lifetime (a preemption's re-prefill keeps
+    # adding): the K/V bytes its attention read and its tokens wrote, its
+    # token share of each tick's streamed weight bytes and measured
+    # dispatch wall.  Zero without a TelemetryModel
+    kv_bytes_read: float = 0.0
+    kv_bytes_written: float = 0.0
+    weight_bytes_amortized: float = 0.0
+    device_time_s: float = 0.0
     # -- metrics timestamps -------------------------------------------
     submit_time: float | None = None
     # first admission into a decode slot (queue_wait_s = admit_time -
@@ -282,7 +290,8 @@ class Scheduler:
 
     # ------------------------------------------------------------------
     def plan_tick(
-        self, budget: int, max_chunk: int,
+        self, budget: int, max_chunk: int, *,
+        prefill_order: Callable[[list[Request]], list[Request]] | None = None,
     ) -> tuple[list[Request], list[tuple[Request, int]]]:
         """The unified-tick token-budget planner: split this tick's
         ``budget`` tokens between decode rows and prefill chunk slices.
@@ -299,6 +308,10 @@ class Scheduler:
           up to ``max_chunk`` tokens each from what is left.  Token
           granularity: a segment smaller than a full chunk is legal, so
           any ``budget >= max_slots`` guarantees forward progress.
+          ``prefill_order`` overrides the candidate order only (the
+          tenant-fairness hook: smallest cost share first, a stable
+          re-sort, so ties keep admission order); ``None`` is oldest
+          first.
         - **budgets are exact**: the planned token count never exceeds
           ``budget``.
         - **prefix-cache hits are free**: covered content was pre-marked
@@ -313,13 +326,12 @@ class Scheduler:
 
         Pure accounting (no allocation): callers run it after admission
         and block growth, then build the packed mixed batch from it.
-        (The JAX scheduler also takes a tenant-fairness order here; it
-        is not ported.)
         """
         decode = [r for r in self.running if r.prefilled and r.generated]
         left = budget - len(decode)
         prefill: list[tuple[Request, int]] = []
-        for r in self.running:
+        candidates = self.running if prefill_order is None else prefill_order(self.running)
+        for r in candidates:
             if r.prefilled or left <= 0:
                 continue
             n = min(max_chunk, r.prefill_target - r.prefill_done, left)

@@ -1,0 +1,386 @@
+"""SLO accounting for serving: goodput, burn rates, tick anomalies (port
+of ``llm_np_cp_tpu/serve/slo.py``).
+
+- ``SLOPolicy(ttft_s, tpot_s)``: the per-request targets, time to first
+  token and time per output token.  A request meets the SLO when every
+  observable target holds; an aborted request is always a miss; a
+  request recovered with no timestamps (a ``finish_recovered`` terminal)
+  is ``untimed``, excluded from attainment rather than guessed.
+- ``SLOTracker``: per-engine accounting fed from
+  ``ServeMetrics._record_latencies`` under the metrics lock —
+  ``slo_attainment``, ``goodput_tok_s`` (tokens of SLO-attaining
+  requests over the traffic span) and error-budget burn rates over the
+  5m and 1h windows (observed miss rate over the budgeted ``1 -
+  target``), kept in bucketed ring counters (O(buckets) memory).
+- ``aggregate_slo``: summed counters and burn rates recomputed from the
+  summed window totals (``GET /debug/slo``).
+- ``TickSentinel``: per-phase EWMA baselines over the engine's tick-phase
+  slices (``MIXED_TICK_PHASES`` / ``TICK_PHASES``, plus the
+  ``roofline_deficit`` pseudo-phase with telemetry attached).  An outlier
+  tick names the guilty phase through a trace instant and
+  ``llm_serve_anomaly_ticks_total{phase=}``.  The engine feeds it only
+  the ticks it traced: warm-up and a rebuild's captures are not ticks.
+
+Everything here is host-side Python: attaching it adds no device
+operation and no capture, and every engine hook is one ``is None``
+check.  ``SLOTracker`` is mutated only under the owning ``ServeMetrics``
+lock; ``TickSentinel`` is engine-thread state, like the scheduler.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import Counter
+from typing import Any, Callable
+
+# (label, window seconds, bucket count) — the standard multi-window
+# burn-rate pair: a fast window that catches a cliff and a slow one
+# that catches a smolder.  Bucketed so memory is O(buckets) forever.
+BURN_WINDOWS: tuple[tuple[str, float, int], ...] = (
+    ("5m", 300.0, 30),
+    ("1h", 3600.0, 60),
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class SLOPolicy:
+    """Per-request latency targets.  ``None`` disables that target;
+    ``target`` is the attainment objective the burn rate reads its
+    error budget from (0.99 → 1% of requests may miss)."""
+
+    ttft_s: float | None = None
+    tpot_s: float | None = None
+    target: float = 0.99
+
+    def __post_init__(self) -> None:
+        if self.ttft_s is not None and self.ttft_s <= 0:
+            raise ValueError(f"ttft_s must be > 0, got {self.ttft_s}")
+        if self.tpot_s is not None and self.tpot_s <= 0:
+            raise ValueError(f"tpot_s must be > 0, got {self.tpot_s}")
+        if not (0.0 < self.target < 1.0):
+            raise ValueError(
+                f"target must be in (0, 1), got {self.target}"
+            )
+
+    # ------------------------------------------------------------------
+    def verdict(self, req: Any) -> "SLOVerdict":
+        """Judge one terminal request from its own timestamps.  Pure —
+        the request log and the metrics tracker both call this and must
+        agree.  TTFT uses the same base as ServeMetrics (the wall
+        arrival when the realtime replay recorded one, else submit)."""
+        ttft = tpot = None
+        if req.submit_time is not None and req.first_token_time is not None:
+            base = req.extra.get("arrival_wall", req.submit_time)
+            ttft = req.first_token_time - base
+        n_after = len(req.generated) - 1
+        if (
+            req.first_token_time is not None
+            and req.finish_time is not None
+            and n_after > 0
+        ):
+            tpot = (req.finish_time - req.first_token_time) / n_after
+        timed = ttft is not None or tpot is not None
+        ttft_ok = (
+            None if ttft is None or self.ttft_s is None
+            else ttft <= self.ttft_s
+        )
+        tpot_ok = (
+            None if tpot is None or self.tpot_s is None
+            else tpot <= self.tpot_s
+        )
+        aborted = req.finish_reason == "aborted"
+        ok = (
+            not aborted
+            and timed
+            and ttft_ok is not False
+            and tpot_ok is not False
+        )
+        return SLOVerdict(ok=ok, timed=timed,
+                          ttft_ok=ttft_ok, tpot_ok=tpot_ok,
+                          ttft_s=ttft, tpot_s=tpot)
+
+
+@dataclasses.dataclass(frozen=True)
+class SLOVerdict:
+    ok: bool
+    timed: bool  # False → untimed: excluded from attainment entirely
+    ttft_ok: bool | None  # None = target off or latency unobservable
+    tpot_ok: bool | None
+    ttft_s: float | None
+    tpot_s: float | None
+
+    def to_dict(self) -> dict[str, Any]:
+        out: dict[str, Any] = {"ok": self.ok, "timed": self.timed}
+        if self.ttft_s is not None:
+            out["ttft_s"] = round(self.ttft_s, 6)
+            if self.ttft_ok is not None:
+                out["ttft_ok"] = self.ttft_ok
+        if self.tpot_s is not None:
+            out["tpot_s"] = round(self.tpot_s, 6)
+            if self.tpot_ok is not None:
+                out["tpot_ok"] = self.tpot_ok
+        return out
+
+
+class RollingWindow:
+    """Bucketed (total, miss) counters over a sliding time window.
+
+    ``add(t, ok)`` lands in bucket ``int(t / bucket_s)``; a bucket is
+    lazily reset when its slot is reused for a newer period, and
+    ``totals(t)`` sums only buckets whose period is still inside the
+    window — so the estimate is exact to bucket granularity with O(1)
+    writes and O(buckets) reads/memory, whatever the traffic rate.
+    """
+
+    def __init__(self, span_s: float, n_buckets: int) -> None:
+        if span_s <= 0 or n_buckets < 1:
+            raise ValueError(
+                f"bad window span_s={span_s} n_buckets={n_buckets}"
+            )
+        self.span_s = span_s
+        self.bucket_s = span_s / n_buckets
+        self.n = n_buckets
+        # slot → [period index, total, miss]
+        self._buckets = [[-1, 0, 0] for _ in range(n_buckets)]
+
+    def _slot(self, t: float) -> list:
+        period = int(t // self.bucket_s)
+        b = self._buckets[period % self.n]
+        if b[0] != period:
+            b[0], b[1], b[2] = period, 0, 0
+        return b
+
+    def add(self, t: float, ok: bool) -> None:
+        b = self._slot(t)
+        b[1] += 1
+        if not ok:
+            b[2] += 1
+
+    def totals(self, t: float) -> tuple[int, int]:
+        """→ ``(total, miss)`` over the window ending at ``t``."""
+        lo = int(t // self.bucket_s) - self.n + 1
+        total = miss = 0
+        for period, n, bad in self._buckets:
+            if period >= lo and period >= 0:
+                total += n
+                miss += bad
+        return total, miss
+
+
+class SLOTracker:
+    """Per-engine SLO accounting: verdict counters, goodput tokens, and
+    the multi-window burn-rate rings.  Mutated ONLY under the owning
+    ``ServeMetrics`` lock (``observe`` is called from the lock-assumed
+    ``_record_latencies``); ``snapshot`` copies scalars, so a racy read
+    sees a consistent-enough point-in-time view (counters are ints)."""
+
+    def __init__(
+        self,
+        policy: SLOPolicy,
+        *,
+        clock: Callable[[], float] = time.perf_counter,
+        windows: tuple[tuple[str, float, int], ...] = BURN_WINDOWS,
+    ) -> None:
+        self.policy = policy
+        self.clock = clock
+        self.n_ok = 0
+        self.n_miss = 0
+        self.n_untimed = 0
+        self.goodput_tokens = 0
+        self.t_first: float | None = None
+        self.t_last: float | None = None
+        self.windows = {
+            label: RollingWindow(span, buckets)
+            for label, span, buckets in windows
+        }
+
+    # -- record (caller holds the ServeMetrics lock) -------------------
+    def observe(self, req: Any, now: float | None = None) -> SLOVerdict:
+        v = self.policy.verdict(req)
+        now = self.clock() if now is None else now
+        if not v.timed and req.finish_reason != "aborted":
+            # nothing observable and it wasn't aborted (a recovered
+            # terminal whose timestamps died with the old process):
+            # excluded from attainment rather than guessed.  Aborts
+            # always count — timed or not, they failed to deliver
+            self.n_untimed += 1
+            return v
+        if self.t_first is None:
+            self.t_first = now
+        self.t_last = now
+        if v.ok:
+            self.n_ok += 1
+            self.goodput_tokens += len(req.generated)
+        else:
+            self.n_miss += 1
+        for w in self.windows.values():
+            w.add(now, v.ok)
+        return v
+
+    # -- read ----------------------------------------------------------
+    def burn_rate(self, label: str, now: float | None = None) -> float:
+        """Observed miss rate over the window / budgeted miss rate.
+        1.0 = spending the error budget exactly as planned; 0 traffic =
+        0 burn (nothing is being spent)."""
+        now = self.clock() if now is None else now
+        total, miss = self.windows[label].totals(now)
+        if total == 0:
+            return 0.0
+        return (miss / total) / (1.0 - self.policy.target)
+
+    def snapshot(self, now: float | None = None) -> dict[str, Any]:
+        now = self.clock() if now is None else now
+        timed = self.n_ok + self.n_miss
+        span = (
+            (self.t_last - self.t_first)
+            if self.t_first is not None and self.t_last is not None
+            else 0.0
+        )
+        out: dict[str, Any] = {
+            "policy": {
+                "ttft_s": self.policy.ttft_s,
+                "tpot_s": self.policy.tpot_s,
+                "target": self.policy.target,
+            },
+            "slo_ok": self.n_ok,
+            "slo_miss": self.n_miss,
+            "slo_untimed": self.n_untimed,
+            "goodput_tokens": self.goodput_tokens,
+            "goodput_tok_s": (
+                self.goodput_tokens / span if span > 0 else 0.0
+            ),
+        }
+        if timed:
+            out["slo_attainment"] = self.n_ok / timed
+        for label in self.windows:
+            out[f"slo_burn_rate_{label}"] = self.burn_rate(label, now)
+        return out
+
+
+def aggregate_slo(trackers: list[SLOTracker | None]) -> dict[str, Any]:
+    """Fleet aggregation for ``GET /debug/slo``: summed verdict/goodput
+    counters and burn rates recomputed from the SUMMED window totals (a
+    mean of per-replica ratios would weight an idle replica like a
+    loaded one)."""
+    live = [t for t in trackers if t is not None]
+    if not live:
+        return {}
+    now = live[0].clock()
+    ok = sum(t.n_ok for t in live)
+    miss = sum(t.n_miss for t in live)
+    spans = [
+        t.t_last - t.t_first
+        for t in live
+        if t.t_first is not None and t.t_last is not None
+    ]
+    span = max(spans, default=0.0)
+    goodput = sum(t.goodput_tokens for t in live)
+    out: dict[str, Any] = {
+        "policy": {
+            "ttft_s": live[0].policy.ttft_s,
+            "tpot_s": live[0].policy.tpot_s,
+            "target": live[0].policy.target,
+        },
+        "slo_ok": ok,
+        "slo_miss": miss,
+        "slo_untimed": sum(t.n_untimed for t in live),
+        "goodput_tokens": goodput,
+        "goodput_tok_s": goodput / span if span > 0 else 0.0,
+    }
+    if ok + miss:
+        out["slo_attainment"] = ok / (ok + miss)
+    for label in live[0].windows:
+        total = bad = 0
+        for t in live:
+            n, b = t.windows[label].totals(now)
+            total += n
+            bad += b
+        out[f"slo_burn_rate_{label}"] = (
+            (bad / total) / (1.0 - live[0].policy.target) if total else 0.0
+        )
+    return out
+
+
+class TickSentinel:
+    """Rolling per-phase anomaly detector over the engine's tick-phase
+    slices.
+
+    Each phase keeps an EWMA mean and an EWMA of absolute deviation
+    (cheap, outlier-resistant).  After ``warmup_ticks`` observations a
+    phase whose duration exceeds ``mean + threshold * max(dev, jitter
+    floor)`` is an OUTLIER: ``observe`` returns the offenders sorted
+    guiltiest-first so the engine can stamp a trace instant naming the
+    phase and bump ``anomaly_ticks_total{phase=}``.  Outlier samples
+    update the baseline CLAMPED to the detection bound — a one-tick
+    spike barely moves it, while a persistent regression re-baselines
+    within ~1/alpha ticks instead of firing forever.
+
+    Engine-thread-only state (like the scheduler); ``anomalies`` is a
+    plain Counter the engine folds into ServeMetrics under its lock.
+    """
+
+    def __init__(
+        self,
+        *,
+        alpha: float = 0.05,
+        threshold: float = 8.0,
+        warmup_ticks: int = 32,
+        min_us: float = 200.0,
+    ) -> None:
+        if not (0.0 < alpha <= 1.0):
+            raise ValueError(f"alpha must be in (0, 1], got {alpha}")
+        if threshold <= 0:
+            raise ValueError(f"threshold must be > 0, got {threshold}")
+        self.alpha = alpha
+        self.threshold = threshold
+        self.warmup_ticks = warmup_ticks
+        self.min_us = min_us
+        self.ticks = 0
+        # phase → [ewma mean us, ewma abs-dev us, samples]
+        self._stats: dict[str, list[float]] = {}
+        self.anomalies: Counter[str] = Counter()
+
+    def observe(
+        self, phases: tuple[tuple[str, float, float], ...],
+    ) -> list[dict[str, float | str]]:
+        """Fold one tick's ``(name, t0_us, t1_us)`` slices in; returns
+        the outliers (possibly empty), guiltiest-first by excess over
+        baseline."""
+        self.ticks += 1
+        out: list[dict[str, float | str]] = []
+        for name, p0, p1 in phases:
+            dur = max(p1 - p0, 0.0)
+            st = self._stats.get(name)
+            if st is None:
+                self._stats[name] = [dur, 0.0, 1]
+                continue
+            mean, dev, n = st
+            # jitter floor: microsecond-scale phases on a quiet host
+            # have dev ~ 0, and without a floor every scheduler blip
+            # would page
+            bound = mean + self.threshold * max(dev, 0.1 * mean,
+                                                self.min_us)
+            is_outlier = n >= self.warmup_ticks and dur > bound
+            if is_outlier:
+                self.anomalies[name] += 1
+                out.append({
+                    "phase": name,
+                    "dur_us": dur,
+                    "baseline_us": mean,
+                    "dev_us": dev,
+                    "excess": dur / bound,
+                })
+                dur = bound  # clamp: spikes nudge, regressions re-baseline
+            st[0] = mean + self.alpha * (dur - mean)
+            st[1] = dev + self.alpha * (abs(dur - st[0]) - dev)
+            st[2] = n + 1
+        out.sort(key=lambda o: -float(o["excess"]))
+        return out
+
+    def baselines(self) -> dict[str, dict[str, float]]:
+        """Operator view: per-phase baseline mean/dev in µs."""
+        return {
+            name: {"mean_us": st[0], "dev_us": st[1], "samples": st[2]}
+            for name, st in self._stats.items()
+        }

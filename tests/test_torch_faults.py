@@ -21,6 +21,7 @@ import asyncio
 import dataclasses
 import json
 import re
+import time
 
 import jax
 import jax.numpy as jnp
@@ -348,6 +349,37 @@ def test_spent_restart_budget_is_terminal(tiny, case):
             res = await stream_all(srv, tiled_prompts(3, lens=(6,)), n=4)
             assert res[0]["status"] == 503
             assert not srv.runner.recovering and srv.runner.state == "crashed"
+
+    run(main())
+
+
+@pytest.mark.http
+def test_slow_rebuild_is_not_a_hang(tiny):
+    """A rebuild (retire + ``clone_fresh``, whose captures take seconds on
+    the card) that outlasts ``tick_deadline`` plus the backoff is not a
+    hung tick: the watchdog waits for it, so one crash is one restart, no
+    second rebuild starts beside the first, and every stream completes
+    equal to an uninterrupted run."""
+    prompts = tiled_prompts(4, lens=(5, 8))
+    want = direct_tokens(engine(tiny), prompts)
+    eng = engine(tiny, fault_injector=faults.FaultInjector("tick_crash@3"))
+    clones = []
+    real_clone = eng.clone_fresh
+
+    def slow_clone():
+        clones.append(time.monotonic())
+        time.sleep(1.2)
+        return real_clone()
+
+    eng.clone_fresh = slow_clone
+
+    async def main():
+        async with serving(eng, max_restarts=2, restart_backoff_s=0.01,
+                           tick_deadline=0.3) as srv:
+            res = await stream_all(srv, prompts)
+            assert [r["token_ids"] for r in res] == want
+            assert srv.runner.restarts == 1 and len(clones) == 1
+            assert len(srv.runner.rebuilds) == 1 and srv.runner.rebuilds[0]["rebuild_s"] >= 1.2
 
     run(main())
 

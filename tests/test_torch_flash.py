@@ -21,6 +21,16 @@ from llm_np_cp_tpu.ops.pallas.flash_attention import flash_attention as j_flash
 from llm_np_cp_tpu_torch.ops.cuda import flash_attention as fa
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """These tiny tensors gain nothing from intra-op threads, and beside
+    other test workers the threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [64, 128, 256])
 def test_flash_plan_fits_the_card(d, dtype):

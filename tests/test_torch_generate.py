@@ -28,6 +28,16 @@ from llm_np_cp_tpu_torch.ops.sampling import Sampler
 from sampled_parity import assert_prefix_parity, generate_margins, stream_margins
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """These tiny tensors gain nothing from intra-op threads, and beside
+    other test workers the threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def np_params(cfg, seed, scale=0.15):
     """Random float32 weights as numpy, in the layout both packages share."""
     rng = np.random.default_rng(seed)

@@ -20,6 +20,17 @@ from llm_np_cp_tpu_torch.quant import quant_einsum, quantize_array, quantize_par
 
 pytestmark = pytest.mark.gpu
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """These tiny tensors gain nothing from intra-op threads, and beside
+    other test workers the threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # |kernel - plain| <= TOL * (1 + |plain|): two ulps of the output's type
 TOL = {torch.bfloat16: 2.0 ** -6, torch.float32: 2e-5}
 
@@ -1268,6 +1279,64 @@ def test_tier_cuda_error_raises_not_a_miss(cuda):
     assert tier.stats()["restore_misses"] == 0 and tier.stats()["restored_blocks"] == 0
     tier.close()
     assert torch.ones(3, device="cuda").sum().item() == 3.0
+
+
+@pytest.mark.parametrize("mixed", ["on", "off"])
+def test_traced_ticks_are_replays(cuda, mixed):
+    """The observability plane over the captured ticks: after warm-up every
+    tick is a graph replay (no capture, traced or not), one ``tick`` span
+    a tick with its phases contiguous and summing to it, every graded tick
+    at 0 < roofline_util < 1 against the card's constants, and tokens equal
+    to the untraced run's (float32)."""
+    import numpy as np
+
+    from llm_np_cp_tpu_torch import graphs
+    from llm_np_cp_tpu_torch.serve import ServeEngine
+    from llm_np_cp_tpu_torch.serve.slo import TickSentinel
+    from llm_np_cp_tpu_torch.serve.telemetry import TelemetryModel
+    from llm_np_cp_tpu_torch.serve.tenants import TenantLedger
+    from llm_np_cp_tpu_torch.serve.tracing import MIXED_TICK_PHASES, TICK_PHASES, TraceRecorder
+
+    cfg, params = _tiny_llama(torch.float32)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32) for n in (9, 30, 17, 44)]
+    eng = ServeEngine(params, cfg, mixed_step=mixed, decode_attn_impl="paged", max_slots=4,
+                      num_blocks=64, block_size=16, max_seq_len=96, prefill_chunk=16,
+                      cache_dtype=torch.float32)
+    eng.warmup([len(p) for p in prompts], 8)
+
+    def serve_all():
+        eng.scheduler.finished.clear()
+        for j, p in enumerate(prompts):
+            eng.submit(p, 8, seed=j)
+        t0 = dict(graphs.TOTALS)
+        eng.run_until_complete()
+        return ({r.seed: r.generated for r in eng.scheduler.finished},
+                {k: graphs.TOTALS[k] - t0[k] for k in t0})
+
+    plain, plain_graphs = serve_all()
+    eng.tracer, eng.sentinel = TraceRecorder(), TickSentinel()
+    eng.telemetry, eng.tenants = TelemetryModel(cfg, params), TenantLedger()
+    d0 = eng.n_decode_dispatches if mixed == "off" else eng.n_dispatches
+    traced, traced_graphs = serve_all()
+    dispatches = (eng.n_decode_dispatches if mixed == "off" else eng.n_dispatches) - d0
+    assert traced == plain
+    assert plain_graphs["captures"] == traced_graphs["captures"] == 0
+    assert traced_graphs["replays"] == dispatches
+    names = MIXED_TICK_PHASES if mixed == "on" else TICK_PHASES
+    evs = eng.tracer.events()
+    ticks = [(i, e) for i, e in enumerate(evs) if e["name"] == "tick" and e["ph"] == "X"]
+    assert len(ticks) == eng.sentinel.ticks
+    graded = 0
+    for i, t in ticks:
+        ph = evs[i + 1:i + 1 + len(names)]
+        assert [p["name"] for p in ph] == list(names)
+        assert ph[0]["ts"] == t["ts"]
+        assert sum(p["dur"] for p in ph) <= t["dur"] + 1e-6
+        if "roofline_util" in t["args"]:
+            graded += 1
+            assert 0.0 < t["args"]["roofline_util"] < 1.0 and t["args"]["mfu"] < 1.0
+    assert graded == dispatches
 
 
 def test_capture_raises_on_host_sync(cuda):

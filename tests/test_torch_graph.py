@@ -35,6 +35,17 @@ from llm_np_cp_tpu_torch.convert import params_from_jax
 from llm_np_cp_tpu_torch.models import transformer as ttf
 from llm_np_cp_tpu_torch.ops.sampling import Sampler
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """These tiny tensors gain nothing from intra-op threads, and beside
+    other test workers the threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 MODELS = ["llama", "gemma2", "qwen2"]
 # logits: float32 on both sides differ in summation order only (1e-4, as
 # in test_torch_model.py); a bf16 or int8 cache rounds each K/V element,

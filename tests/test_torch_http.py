@@ -442,11 +442,11 @@ def test_unported_options_raise(llama):
         runner.rolling_upgrade(lambda: None)
     with pytest.raises(NotImplementedError, match="lifecycle"):
         runner.rebuild_upgraded(None, 1, [])
-    eng.tracer = object()
-    with pytest.raises(NotImplementedError, match="tracing"):
-        EngineRunner(eng)
+    # a traced engine is served; the lifecycle and fleet layers still refuse
+    eng.tracer = tracing.TraceRecorder()
+    assert EngineRunner(eng).engine.tracer is eng.tracer
     eng.tracer = None
-    for name in ("tracer", "tenants", "mesh_plan"):
+    for name in ("mesh_plan", "actions"):
         with pytest.raises(NotImplementedError):
             engine(llama, **{name: object()})
     accepted = engine(llama, fault_injector=serve.FaultInjector("decode@99"))

@@ -1,15 +1,27 @@
 """The port stands alone: no module of ``llm_np_cp_tpu_torch`` and no line
-of ``chip_smoke.py`` imports JAX, the JAX package, or a package the
-machine with the card lacks."""
+of ``chip_smoke.py`` imports JAX, the JAX package, the repo's ``tools``, or
+a package the machine with the card lacks."""
 
 import ast
 import pathlib
 
 import pytest
+import torch
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """These tiny tensors gain nothing from intra-op threads, and beside
+    other test workers the threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "llm_np_cp_tpu", "ml_dtypes", "safetensors", "transformers",
-             "huggingface_hub", "triton"}
+             "huggingface_hub", "triton", "tools"}
 FILES = sorted((ROOT / "llm_np_cp_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -39,7 +51,10 @@ def test_scan_sees_the_port():
             "llm_np_cp_tpu_torch/serve/host_tier.py", "llm_np_cp_tpu_torch/serve/http/server.py",
             "llm_np_cp_tpu_torch/serve/http/protocol.py", "llm_np_cp_tpu_torch/serve/faults.py",
             "llm_np_cp_tpu_torch/serve/journal.py", "llm_np_cp_tpu_torch/serve/request_log.py",
-            "llm_np_cp_tpu_torch/utils/loading.py", "chip_smoke.py"} <= names
+            "llm_np_cp_tpu_torch/utils/loading.py", "llm_np_cp_tpu_torch/serve/tracing.py",
+            "llm_np_cp_tpu_torch/serve/slo.py", "llm_np_cp_tpu_torch/serve/telemetry.py",
+            "llm_np_cp_tpu_torch/serve/otel.py", "llm_np_cp_tpu_torch/serve/tenants.py",
+            "chip_smoke.py"} <= names
     assert imported_roots(ROOT / "tests" / "test_torch_model.py") >= {"jax", "llm_np_cp_tpu"}
     assert "llm_np_cp_tpu_torch" in imported_roots(ROOT / "chip_smoke.py")
 

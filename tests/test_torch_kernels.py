@@ -34,6 +34,17 @@ from llm_np_cp_tpu_torch.ops.cuda.flash_attention import flash_attention
 from llm_np_cp_tpu_torch.ops.cuda.sample_epilogue import sample_epilogue
 from llm_np_cp_tpu_torch.ops.cuda.softmax import softmax
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """These tiny tensors gain nothing from intra-op threads, and beside
+    other test workers the threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ATOL = 2e-5  # float32 on both sides; only summation order differs
 
 

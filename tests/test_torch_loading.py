@@ -20,6 +20,16 @@ from llm_np_cp_tpu_torch.models.transformer import param_shapes
 from llm_np_cp_tpu_torch.utils import loading as tloading
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """These tiny tensors gain nothing from intra-op threads, and beside
+    other test workers the threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def hf_checkpoint(cfg, seed, np_dtype=np.float32):
     """Random weights under HF key names, as the family key maps read them."""
     layer_map, top_map = tloading._key_maps(cfg)

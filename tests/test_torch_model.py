@@ -26,6 +26,17 @@ from llm_np_cp_tpu_torch.convert import params_from_jax, tensor_from_numpy
 from llm_np_cp_tpu_torch.models import api as tapi
 from llm_np_cp_tpu_torch.models import transformer as ttf
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """These tiny tensors gain nothing from intra-op threads, and beside
+    other test workers the threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ATOL = 1e-4
 MODELS = ["llama", "gemma2", "qwen2"]
 

@@ -26,6 +26,17 @@ from llm_np_cp_tpu_torch.ops import norms as tnorms
 from llm_np_cp_tpu_torch.ops import rope as trope
 from llm_np_cp_tpu_torch.ops import sampling as tsamp
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """These tiny tensors gain nothing from intra-op threads, and beside
+    other test workers the threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ATOL = 1e-5  # float32 on both sides
 
 

@@ -36,6 +36,17 @@ from llm_np_cp_tpu_torch.ops.cuda.decode_attention import (
 )
 from llm_np_cp_tpu_torch.serve import pool_geometry
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """These tiny tensors gain nothing from intra-op threads, and beside
+    other test workers the threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ATOL = 1e-5  # float32 on both sides; only summation order and the
 # softmax's max (AMLA grid vs global) differ
 

@@ -35,6 +35,17 @@ from llm_np_cp_tpu_torch.models import transformer as ttf
 from llm_np_cp_tpu_torch.ops.sampling import Sampler
 from llm_np_cp_tpu_torch.utils.quality import quant_quality
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """These tiny tensors gain nothing from intra-op threads, and beside
+    other test workers the threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # mode → quantize_params keywords (the names of utils/quality.MODES)
 MODES = {
     "int8": dict(bits=8, act_quant=False),

@@ -43,7 +43,22 @@ from llm_np_cp_tpu_torch.models.transformer import param_shapes
 from llm_np_cp_tpu_torch.ops.cuda import decode_attention as da
 from llm_np_cp_tpu_torch.ops.sampling import Sampler
 from llm_np_cp_tpu_torch.serve.engine import _pack_sync
+from llm_np_cp_tpu_torch.serve.slo import TickSentinel
+from llm_np_cp_tpu_torch.serve.telemetry import TelemetryModel
+from llm_np_cp_tpu_torch.serve.tenants import TenantLedger
+from llm_np_cp_tpu_torch.serve.tracing import TraceRecorder
 from sampled_parity import assert_prefix_parity, request_margins
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """These tiny tensors gain nothing from intra-op threads, and beside
+    other test workers the threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 # leg name → (mixed_step, decode_attn_impl) on both engines
 LEGS = {
@@ -431,9 +446,10 @@ def test_pool_sizing_matches_jax(p, m, chunk, slots, bs):
 @pytest.mark.parametrize("bs,qb,window,n_sliding", [(16, 8, None, 0), (128, 8, None, 0),
                                                    (8, 8, 16, 2), (16, 8, 5, 1), (12, 8, 40, 3)])
 def test_segment_kv_slots_equals_the_per_tile_sum(bs, qb, window, n_sliding):
-    """The kv_bytes_tick gauge's closed form equals the per-q-tile sum
-    the JAX engine walks, on random segments."""
-    from llm_np_cp_tpu_torch.serve.engine import _segment_kv_slots
+    """The byte model's closed form (the kv_bytes_tick gauge and the
+    telemetry bill) equals the per-q-tile sum the JAX engine walks, on
+    random segments."""
+    from llm_np_cp_tpu_torch.serve.telemetry import _segment_kv_slots
 
     n_layers = 4
 
@@ -529,9 +545,14 @@ def test_auto_means_on_and_unported_options_raise(llama):
               device="cpu")
     eng = serve.ServeEngine(tp, cfg, mixed_step="auto", **kw)
     assert eng.mixed and eng.mixed_buckets[0] == da.RAGGED_Q_TILE
-    for opt in ("tracer", "telemetry", "mesh_plan", "tenants"):
+    for opt in ("mesh_plan", "actions"):
         with pytest.raises(NotImplementedError, match=opt):
             serve.ServeEngine(tp, cfg, **{opt: object()}, **kw)
+    # the observability plane is ported: its layers are accepted
+    tr = TraceRecorder()
+    traced = serve.ServeEngine(tp, cfg, tracer=tr, sentinel=TickSentinel(),
+                               telemetry=TelemetryModel(cfg, tp), tenants=TenantLedger(), **kw)
+    assert traced.tracer is tr and traced.tenants is not None and traced.telemetry is not None
     # the faults-and-recovery slice is ported: its layers are accepted
     inj = serve.FaultInjector("decode@9")
     assert serve.ServeEngine(tp, cfg, fault_injector=inj, **kw).faults is inj

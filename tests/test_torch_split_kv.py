@@ -18,6 +18,17 @@ from llm_np_cp_tpu_torch.cache import quantize_kv
 from llm_np_cp_tpu_torch.ops.attention import NEG_INF
 from llm_np_cp_tpu_torch.ops.cuda import decode_attention as da
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """These tiny tensors gain nothing from intra-op threads, and beside
+    other test workers the threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=1e-6, atol=1e-6)
 H100_SMS = 132
 

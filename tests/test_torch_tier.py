@@ -236,8 +236,8 @@ def test_host_tier_validation_and_engine_gate(llama):
                           max_seq_len=64, cache_dtype=torch.float32, mixed_step="on",
                           host_tier=tier, device="cpu")
     # host_tier is ported: only the still-missing keywords refuse
-    with pytest.raises(NotImplementedError, match="tracer"):
-        port_engine(llama, tracer=object())
+    with pytest.raises(NotImplementedError, match="mesh_plan"):
+        port_engine(llama, mesh_plan=object())
     tier.close()
 
 
