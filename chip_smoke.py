@@ -4059,6 +4059,835 @@ def restart_phase(torch, np, card: str) -> dict:
                 parity_vs_plain=parity, teacher_forced=tf, checks=checks, ok=not checks)
 
 
+# ----------------------------------------------------------------------
+# phase 12: the fleet — replicas, rolling upgrades, elastic scale and
+# auto-actions over the captured unified tick
+# ----------------------------------------------------------------------
+
+# the JAX bench's serve_rolling_upgrade (bench.py:305-308, run at
+# bench.py:2584-2735): llama1b, 3 replicas, 32 requests at 16 req/s,
+# prompts 128-512 tokens (poisson_trace seeded 29), 64 new tokens, 8
+# slots, 128-slot blocks, 256-token chunks, a full roll onto the same
+# weights as version 1 after tick 8; its float32 pair on the first 8
+# requests with 16 new tokens, rolled after tick 3
+ROLL_REPLICAS, ROLL_REQUESTS, ROLL_RATE, ROLL_PROMPT, ROLL_NEW, ROLL_SEED, ROLL_AFTER = (
+    3, 32, 16.0, 512, 64, 29, 8)
+F32_ROLL_REQUESTS, F32_ROLL_NEW, F32_ROLL_AFTER = 8, 16, 3
+# the HTTP fleet on the http phase's trace: 2 replicas; POST /admin/upgrade
+# this long after the first arrival (onto a second seeded weight set made
+# with numpy), POST /admin/scale to 3 and back to 1 at these offsets
+FLEET_REPLICAS, FLEET_UPGRADE_AT_S, FLEET_SCALE_AT_S = 2, 0.6, (0.4, 1.2)
+# the crash legs: float32, the trace's first 12 requests with 16 new
+# tokens, replica 0 crashing at its 6th busy tick and restarted once
+FLEET_CRASH_SPEC, F32_FLEET_REQUESTS, F32_FLEET_NEW = "tick_crash@6", 12, 16
+# shed load: an SLO no request meets (every terminal a miss, burn 100),
+# so the policy engages after the first wave; the burn window's aging
+# is the tracker clock moved on by FLEET_BURN_AGE_S
+FLEET_SHED_SLO, FLEET_BURN_AGE_S, FLEET_WAVE = dict(ttft_s=1e-4, tpot_s=1e-4), 400.0, 4
+# shed prefill: a 50 ms host_sync stall on dispatching ticks 8-14 (the
+# JAX test's window) under the default sentinel, well above the ~4-15 ms
+# a prefill-heavy tick waits on the card
+FLEET_SHED_PREFILL_SPEC = "host_sync@8:14=0.05"
+# scaling on one card: the http phase's prompts, arriving at this rate
+FLEET_SCALE_RATE = 256.0
+# a fleet leg that has not ended by then is reported stuck (its state)
+FLEET_LEG_TIMEOUT_S = 120.0
+# the waves sent after a roll and after a scale-up: their new tokens
+FLEET_POST_NEW = 16
+
+
+def numpy_params(np, torch, cfg, seed: int, dtype) -> dict:
+    """A second seeded weight set made with numpy (the upgrade's new
+    checkpoint: nothing is downloaded) and converted leaf by leaf: norm
+    gammas ones (zeros under unit offset), every other leaf one of 256
+    levels drawn from N(0, 0.02^2), picked by a numpy byte per element
+    (1.2 G normal draws would take the host ~25 s; bytes take ~1 s)."""
+    from llm_np_cp_tpu_torch.convert import tensor_from_numpy
+    from llm_np_cp_tpu_torch.models.transformer import param_shapes
+
+    rng = np.random.default_rng(seed)
+
+    def leaf(name, shape):
+        if name.startswith("ln_") or name == "final_norm":
+            a = np.full(shape, 0.0 if cfg.rms_norm_unit_offset else 1.0, np.float32)
+            return tensor_from_numpy(a, "cuda").to(dtype)
+        levels = tensor_from_numpy(0.02 * rng.standard_normal(256).astype(np.float32), "cuda")
+        codes = np.frombuffer(rng.bytes(int(np.prod(shape))), np.uint8).reshape(shape)
+        return levels[tensor_from_numpy(codes, "cuda").long()].to(dtype)
+
+    return {k: {n: leaf(n, s) for n, s in v.items()} if k == "layers" else leaf(k, v)
+            for k, v in param_shapes(cfg).items()}
+
+
+async def fleet_wave(server, model_id: str, items: list[dict], max_tokens: int) -> list[dict]:
+    """One request a trace item at once (seeds as given), no retry."""
+    import asyncio
+
+    from llm_np_cp_tpu_torch.serve.http.client import astream_completion
+
+    return await asyncio.gather(*(astream_completion(
+        server.host, server.port,
+        {"model": model_id, "prompt": [int(t) for t in it["prompt"]],
+         "max_tokens": max_tokens, "seed": it["seed"]}, timeout=FLEET_LEG_TIMEOUT_S)
+        for it in items))
+
+
+class CaptureWatch:
+    """Every CUDA-graph capture of the process while installed: the
+    packed width of each (a ``mixed_step[T=...]`` step) and those made on
+    a thread that was inside ``ServeEngine.step`` (a capture inside a
+    serving tick).  Wraps ``CapturedStep._capture`` and ``ServeEngine.step``
+    at class level (restored by ``close``)."""
+
+    def __init__(self):
+        import threading
+
+        from llm_np_cp_tpu_torch import graphs
+        from llm_np_cp_tpu_torch.serve import ServeEngine
+
+        self._graphs, self._engine = graphs, ServeEngine
+        self._real = graphs.CapturedStep._capture, ServeEngine.step
+        self._local = threading.local()
+        self._lock = threading.Lock()
+        self.widths: list[int] = []
+        self.inside: list[str] = []
+        watch = self
+
+        def capture(st, side):
+            with watch._lock:
+                if "T=" in st.name:
+                    watch.widths.append(int(st.name.split("T=")[1].rstrip("]")))
+                if getattr(watch._local, "in_step", False):
+                    watch.inside.append(st.name)
+            return watch._real[0](st, side)
+
+        def step(eng):
+            watch._local.in_step = True
+            try:
+                return watch._real[1](eng)
+            finally:
+                watch._local.in_step = False
+
+        graphs.CapturedStep._capture, ServeEngine.step = capture, step
+
+    def mark(self) -> tuple[int, int]:
+        return len(self.widths), len(self.inside)
+
+    def since(self, mark: tuple[int, int]) -> tuple[list[int], list[str]]:
+        return self.widths[mark[0]:], self.inside[mark[1]:]
+
+    def close(self) -> None:
+        self._graphs.CapturedStep._capture, self._engine.step = self._real
+
+
+def fleet_launches(torch, da, cfg, kernels: dict, engines: list, before: dict,
+                   eager_widths: list[int], live) -> tuple[dict, dict, int]:
+    """What a fleet leg's ticks imply: per packed width, the dispatches of
+    every engine that ticked (``before`` maps id(engine) to its
+    ``bucket_dispatches`` at the leg's start) plus the eager first call of
+    each capture; ``layers`` ragged launches and one epilogue launch each,
+    and the combine where the width's ragged split plan is > 1 (read on
+    ``live``, geometry-identical).  Returns (implied counts, dispatches,
+    eager calls)."""
+    from collections import Counter
+
+    from llm_np_cp_tpu_torch.serve.engine import GLOBAL_WINDOW
+
+    per_w: Counter = Counter()
+    dispatches = 0
+    for e in engines:
+        b0 = before.get(id(e), {})
+        for w, c in e.bucket_dispatches.items():
+            per_w[w] += c - b0.get(w, 0)
+            dispatches += c - b0.get(w, 0)
+    per_w.update(eager_widths)
+    pages = live.pool.pages.k[0]
+    tables = torch.empty((live.scheduler.max_slots, live.max_blocks_per_seq), dtype=torch.int32,
+                         device="cuda")
+    combine = 0
+    for w, n in per_w.items():
+        q = torch.empty((w, cfg.num_attention_heads, cfg.head_dim), dtype=torch.bfloat16,
+                        device="cuda")
+        for i in range(cfg.num_hidden_layers):
+            window = (cfg.sliding_window if cfg.sliding_window is not None
+                      and cfg.layer_is_sliding(i) else GLOBAL_WINDOW)
+            combine += n * int(da.ragged_split_plan(q, pages, tables, window) > 1)
+    total = sum(per_w.values())
+    want = {name: 0 for name in kernels}
+    want.update(ragged_paged_attention=cfg.num_hidden_layers * total, sample_epilogue=total,
+                ragged_paged_attention_combine=combine)
+    return want, dispatches, len(eager_widths)
+
+
+def device_share(prof, wall: float) -> dict:
+    """The device's work under a profiler capture: the union of its kernel
+    and copy intervals over the wall time (busy share), and their summed
+    durations over that union (above 1 where streams overlapped)."""
+    from torch.autograd import DeviceType
+
+    iv = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                if e.device_type == DeviceType.CUDA and not e.name.startswith("serve."))
+    union, summed, cur = 0.0, 0.0, None
+    for a, b in iv:
+        summed += b - a
+        if cur is None or a > cur[1]:
+            if cur is not None:
+                union += cur[1] - cur[0]
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    if cur is not None:
+        union += cur[1] - cur[0]
+    return dict(device_intervals=len(iv), device_busy_s=union / 1e6,
+                device_busy_share=union / 1e6 / wall if wall > 0 else None,
+                kernel_overlap=summed / union if union > 0 else None)
+
+
+def fleet_state(runner) -> list[dict]:
+    """Each replica runner's supervision and queue state (a stuck leg's
+    report)."""
+    return [dict(replica=i, state=r.state, crashed=r.crashed, recovering=r.recovering,
+                 gen=r._gen, thread_alive=r._thread is not None and r._thread.is_alive(),
+                 live=sorted(r._live), inflight=sorted(r._inflight),
+                 requests=sorted(r.engine._requests), queued_cmds=r._cmds.qsize(),
+                 handback=len(r._handback), retired=r.engine.retired)
+            for i, r in enumerate(runner.replicas)]
+
+
+def fleet_http_leg(torch, np, runner, trace: list[dict], model_id: str, *,
+                   upgrade_loader=None, during=None, profile: bool = False) -> dict:
+    """The trace's arrivals through ``HttpServer(runner=...)`` started by
+    ``run_server``, one ``astream_completion`` client a request (no
+    retry: a dropped stream shows); ``during(server)`` runs beside the
+    clients (the admin calls, a /healthz poll) and its result is kept;
+    then a ``/metrics`` scrape and ``/healthz``, then the drain.  With
+    ``profile`` the clients run under torch.profiler (the device's busy
+    share and overlap, ``device_share``)."""
+    import asyncio
+    import contextlib
+
+    from llm_np_cp_tpu_torch.serve.http.client import astream_completion, http_get
+    from llm_np_cp_tpu_torch.serve.http.server import run_server
+
+    async def leg() -> dict:
+        loop = asyncio.get_running_loop()
+        started = loop.create_future()
+        serving = asyncio.ensure_future(run_server(
+            runner.engine, model_id=model_id, host="127.0.0.1", port=0, drain_timeout=60.0,
+            runner=runner, upgrade_loader=upgrade_loader, on_started=started.set_result))
+        await asyncio.wait([started, serving], return_when=asyncio.FIRST_COMPLETED)
+        if not started.done():
+            serving.result()
+        server = started.result()
+
+        async def one(item):
+            await asyncio.sleep(item["arrival_s"])
+            return await astream_completion(
+                server.host, server.port,
+                {"model": model_id, "prompt": [int(t) for t in item["prompt"]],
+                 "max_tokens": item["max_new_tokens"], "seed": item["seed"]},
+                timeout=FLEET_LEG_TIMEOUT_S)
+
+        prof_ctx = contextlib.nullcontext()
+        if profile:
+            from torch.profiler import ProfilerActivity
+            from torch.profiler import profile as tprofile
+
+            prof_ctx = tprofile(activities=[ProfilerActivity.CUDA])
+        with prof_ctx as prof:
+            side = asyncio.ensure_future(during(server)) if during is not None else None
+            t0 = time.perf_counter()
+            try:
+                results = await asyncio.wait_for(asyncio.gather(*(one(item) for item in trace)),
+                                                 FLEET_LEG_TIMEOUT_S)
+                wall = time.perf_counter() - t0
+                side_out = (await asyncio.wait_for(side, FLEET_LEG_TIMEOUT_S)
+                            if side is not None else None)
+            except asyncio.TimeoutError:
+                raise AssertionError(f"fleet leg stuck after {FLEET_LEG_TIMEOUT_S:g} s: "
+                                     + json.dumps(fleet_state(runner), default=str)) from None
+        status, raw = await loop.run_in_executor(None, http_get, server.host, server.port,
+                                                 "/metrics")
+        hz_status, hz = await loop.run_in_executor(None, http_get, server.host, server.port,
+                                                   "/healthz")
+        server.begin_drain()
+        await serving
+        out = dict(results=results, wall=wall, status=status, prom=raw.decode(),
+                   healthz=(hz_status, json.loads(hz)), side=side_out)
+        if profile:
+            out["device"] = device_share(prof, wall)
+        return out
+
+    return asyncio.run(leg())
+
+
+def client_stats(np, results: list[dict], wall: float) -> dict:
+    ok = [r for r in results if r["status"] == 200 and r["finish_reason"] == "length"]
+    ttft = [r["ttft_s"] for r in ok if r["ttft_s"] is not None]
+    tpot = [(r["latency_s"] - r["ttft_s"]) / (len(r["token_ids"]) - 1) for r in ok
+            if r["ttft_s"] is not None and len(r["token_ids"]) > 1]
+    generated = sum(len(r["token_ids"]) for r in results)
+    return dict(answered=len(ok), wall_s=wall, tok_s=generated / wall,
+                ttft_s_p50=_pct(np, ttft, 50), ttft_s_p99=_pct(np, ttft, 99),
+                tpot_s_p50=_pct(np, tpot, 50))
+
+
+def switch_forced(torch, forward, old, new, cfg, prompt, tokens: list, tol: float) -> list[int]:
+    """Every index k such that the tokens before k are teacher-forced
+    (within ``tol`` of their row's max) under ``old`` and those from k on
+    under ``new`` — the one switch a stream drained onto new weights may
+    make (k = 0: all new; k = len(tokens): all old); [] if none."""
+    gen = torch.tensor(tokens, device="cuda").long()
+    ids = torch.cat([torch.as_tensor(prompt, device="cuda").long(), gen[:-1]])[None]
+    gaps = []
+    for p in (old, new):
+        logits, _ = forward(p, ids, cfg, None)
+        rows = logits[0, prompt.size - 1:]
+        if not bool(torch.isfinite(rows).all()):
+            return []
+        gaps.append((rows.amax(dim=-1) - rows.gather(-1, gen[:, None])[:, 0]).tolist())
+    return [k for k in range(len(tokens) + 1)
+            if max(gaps[0][:k], default=0.0) <= tol and max(gaps[1][k:], default=0.0) <= tol]
+
+
+def fleet_phase(torch, np, kernels: dict, card: str) -> dict:
+    """Engine replicas on one card: the JAX bench's serve_rolling_upgrade
+    in direct mode (steady and rolling legs, bf16 and float32), the HTTP
+    fleet on the http phase's trace (an upgrade onto a second weight set,
+    a scale to 3 and back to 1, a replica crash beside a serving peer),
+    the auto-actions (503-first load shedding, shed prefill under a
+    host_sync stall) and the same trace at 1, 2 and 3 replicas."""
+    import gc
+    import os
+    import tempfile
+    from types import SimpleNamespace
+
+    from llm_np_cp_tpu_torch.config import PRESETS
+    from llm_np_cp_tpu_torch.models.transformer import forward, init_params
+    from llm_np_cp_tpu_torch.ops.cuda import decode_attention as da
+    from llm_np_cp_tpu_torch.ops.sampling import Sampler
+    from llm_np_cp_tpu_torch.serve import (ActionPolicy, FaultInjector, LifecycleController,
+                                           ReplicaRunner, ReplicaSet, RequestLog, ServeEngine,
+                                           ServeMetrics, SLOPolicy, SLOTracker, TickSentinel,
+                                           TraceRecorder, poisson_trace, pool_geometry,
+                                           read_request_log)
+    from llm_np_cp_tpu_torch.serve.trace import replay_arrivals
+
+    model_id = "meta-llama/Llama-3.2-1B"
+    cfg = PRESETS[model_id]
+    layers = cfg.num_hidden_layers
+    params = init_params(0, cfg, torch.bfloat16, device="cuda")
+    checks: list[str] = []
+    watch = CaptureWatch()
+    out_dir = os.path.join("smoke_out", "fleet")
+    os.makedirs(out_dir, exist_ok=True)
+
+    def engine(leg_params, dtype, trace, new_tokens, **kw) -> ServeEngine:
+        _, num_blocks, max_seq_len = pool_geometry(max(int(t["prompt"].size) for t in trace),
+                                                   new_tokens, HTTP_SLOTS, HTTP_BLOCK,
+                                                   HTTP_CHUNK)
+        eng = ServeEngine(leg_params, cfg, sampler=Sampler("greedy"), max_slots=HTTP_SLOTS,
+                          num_blocks=num_blocks, block_size=HTTP_BLOCK,
+                          max_seq_len=max_seq_len, prefill_chunk=HTTP_CHUNK, cache_dtype=dtype,
+                          mixed_step="on", device=torch.device("cuda"), **kw)
+        eng.warmup([int(t["prompt"].size) for t in trace], new_tokens)
+        return eng
+
+    def counted(where: str, engines_fn, run, live_fn) -> tuple[dict, object]:
+        """One leg with the launch counters at 0 and the capture watch
+        marked: its launches against what every engine's ticks and every
+        capture's eager first call imply, its graph runs, no capture
+        inside a serving tick."""
+        torch.cuda.synchronize()
+        first = list(engines_fn())
+        before = {id(e): dict(e.bucket_dispatches) for e in first}
+        reset_counts(kernels)
+        g0, m0 = graph_totals(), watch.mark()
+        t_leg = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        launches, graphs_run = read_counts(kernels), graph_delta(g0)
+        widths, inside = watch.since(m0)
+        seen = {id(e): e for e in first + list(engines_fn())}
+        want, dispatches, eager = fleet_launches(torch, da, cfg, kernels, list(seen.values()),
+                                                 before, widths, live_fn())
+        if launches != want:
+            checks.append(f"{where}: launch counts {launches} != implied {want}")
+        if graphs_run != dict(captures=eager, replays=dispatches, eager=eager):
+            checks.append(f"{where}: {dispatches} ticks, {eager} captures, graphs ran "
+                          f"{graphs_run}")
+        if inside:
+            checks.append(f"{where}: captures inside a serving tick: {inside}")
+        for k, v in launches.items():
+            phase_launches[k] = phase_launches.get(k, 0) + v
+        print(f"[fleet] {where}: {dispatches} ticks, {eager} captures, "
+              f"{time.perf_counter() - t_leg:.1f} s", file=sys.stderr, flush=True)
+        return dict(launches=launches, implied=want, dispatches=dispatches,
+                    captures=eager, graphs=graphs_run, captures_in_ticks=len(inside)), out
+
+    def teacher(leg_params, pairs) -> dict:
+        return teacher_forced_requests(
+            torch, forward, leg_params, cfg,
+            [SimpleNamespace(prompt=p, generated=t) for p, t in pairs if t], TEACHER_TOL)
+
+    def near_ties(leg_params, trace, a: dict, b: dict) -> dict:
+        gaps = [g for g in (first_divergence(torch, forward, leg_params, cfg, item["prompt"],
+                                             a[item["seed"]], b[item["seed"]])
+                            for item in trace) if g is not None]
+        return dict(identical=len(trace) - len(gaps), divergence_top2_gaps=gaps,
+                    tol=TEACHER_TOL, ok=all(g <= TEACHER_TOL for g in gaps))
+
+    results: dict = {}
+    phase_launches: dict = {}
+    try:
+        # -- 1. serve_rolling_upgrade, direct mode ------------------------
+        roll_trace = poisson_trace(np.random.default_rng(ROLL_SEED), ROLL_REQUESTS,
+                                   rate_rps=ROLL_RATE,
+                                   prompt_len_range=(ROLL_PROMPT // 4, ROLL_PROMPT),
+                                   max_new_tokens=ROLL_NEW, vocab_size=cfg.vocab_size,
+                                   seed_base=ROLL_SEED)
+
+        def roll_leg(where, leg_params, dtype, trace, new_tokens, roll_after) -> dict:
+            gc.collect()
+            torch.cuda.empty_cache()
+            fleet = ReplicaSet([engine(leg_params, dtype, trace, new_tokens)
+                                for _ in range(ROLL_REPLICAS)])
+            ctl = LifecycleController(fleet)
+            rolled: dict = {}
+            submitted_after: list = []
+
+            def on_tick(i):
+                if roll_after is not None and i == roll_after and not rolled:
+                    t0 = time.perf_counter()
+                    rolled.update(ctl.rolling_upgrade(lambda: leg_params, version=1,
+                                                      steps_between=1))
+                    rolled["roll_s"] = time.perf_counter() - t0
+                    submitted_after.append(fleet._next_id)
+
+            counts, snap = counted(where, lambda: fleet.engines,
+                                   lambda: replay_arrivals(fleet, trace, fleet.snapshot,
+                                                           on_tick=on_tick),
+                                   lambda: fleet.engines[0])
+            reqs = fleet.finished
+            versions = sorted({r.extra["weights_version"] for r in reqs})
+            late = [r.extra["weights_version"] for r in reqs
+                    if submitted_after and r.req_id >= submitted_after[0]]
+            leg = dict(leg=where, dtype=str(dtype).replace("torch.", ""), **counts,
+                       finished=snap["finished"], dropped=len(trace) - snap["finished"],
+                       rolled=rolled.get("rolled"), drained=rolled.get("drained"),
+                       roll_s=rolled.get("roll_s"), weights_versions=snap["weights_versions"],
+                       request_versions=versions, admitted_after_roll=len(late),
+                       lifecycle_actions=_sum_actions(fleet.engines),
+                       tok_s=snap["throughput_tok_s"], ttft_s_p50=snap.get("ttft_s_p50"),
+                       ttft_s_p99=snap.get("ttft_s_p99"),
+                       tokens={r.seed: list(r.generated) for r in reqs})
+            if leg["dropped"]:
+                checks.append(f"{where}: {leg['dropped']} dropped streams")
+            if roll_after is not None and (
+                    leg["rolled"] != list(range(ROLL_REPLICAS))
+                    or leg["weights_versions"] != [1] * ROLL_REPLICAS
+                    or any(v != 1 for v in late)):
+                checks.append(f"{where}: roll {rolled}, versions {leg['weights_versions']}, "
+                              f"admitted after it {late}")
+            del fleet, ctl
+            return leg
+
+        steady = roll_leg("roll bf16 steady", params, torch.bfloat16, roll_trace, ROLL_NEW, None)
+        rolling = roll_leg("roll bf16 rolling", params, torch.bfloat16, roll_trace, ROLL_NEW,
+                           ROLL_AFTER)
+        parity = near_ties(params, roll_trace, rolling["tokens"], steady["tokens"])
+        if not parity["ok"]:
+            checks.append(f"roll bf16 parts from the steady leg away from a near-tie: {parity}")
+        tf = teacher(params, [(item["prompt"], rolling["tokens"][item["seed"]])
+                              for item in roll_trace])
+        if not tf["ok"] or tf["requests"] != ROLL_REQUESTS:
+            checks.append(f"roll bf16 teacher-forced: {tf}")
+        f32 = float32_params(params)
+        f32_trace = [dict(item, max_new_tokens=F32_ROLL_NEW)
+                     for item in roll_trace[:F32_ROLL_REQUESTS]]
+        f_steady = roll_leg("roll float32 steady", f32, torch.float32, f32_trace, F32_ROLL_NEW,
+                            None)
+        f_rolling = roll_leg("roll float32 rolling", f32, torch.float32, f32_trace,
+                             F32_ROLL_NEW, F32_ROLL_AFTER)
+        f_same = sum(f_rolling["tokens"][k] == v for k, v in f_steady["tokens"].items())
+        if f_same != F32_ROLL_REQUESTS or not f_rolling["drained"]:
+            checks.append(f"roll float32: {f_same} of {F32_ROLL_REQUESTS} streams equal the "
+                          f"steady leg's, {f_rolling['drained']} drained")
+        deg = (rolling["ttft_s_p99"] / steady["ttft_s_p99"]
+               if steady["ttft_s_p99"] else None)
+        for leg in (steady, rolling, f_steady, f_rolling):
+            del leg["tokens"]
+        results["rolling_upgrade"] = dict(
+            trace=dict(requests=ROLL_REQUESTS, rate_rps=ROLL_RATE,
+                       prompt_len=(ROLL_PROMPT // 4, ROLL_PROMPT), new_tokens=ROLL_NEW,
+                       seed=ROLL_SEED, replicas=ROLL_REPLICAS, roll_after_ticks=ROLL_AFTER),
+            legs=[steady, rolling], parity_vs_steady=parity, teacher_forced=tf,
+            ttft_p99_degradation=deg,
+            float32=dict(requests=F32_ROLL_REQUESTS, new_tokens=F32_ROLL_NEW,
+                         roll_after_ticks=F32_ROLL_AFTER, identical=f_same,
+                         legs=[f_steady, f_rolling]))
+
+        # -- 2. the HTTP fleet on the http phase's trace --------------------
+        trace = poisson_trace(np.random.default_rng(HTTP_SEED), HTTP_REQUESTS,
+                              rate_rps=HTTP_RATE, prompt_len_range=HTTP_PROMPTS,
+                              max_new_tokens=HTTP_NEW, vocab_size=cfg.vocab_size,
+                              seed_base=HTTP_SEED)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        new_params = numpy_params(np, torch, cfg, 1, torch.bfloat16)
+        new_params_s = time.perf_counter() - t0
+        log_path = os.path.join(out_dir, "upgrade_requests.jsonl")
+        if os.path.exists(log_path):
+            os.remove(log_path)
+        log = RequestLog(log_path)
+        post_items = [dict(item, seed=item["seed"] + 1000) for item in trace[:FLEET_WAVE]]
+        fleet_engines = [engine(params, torch.bfloat16, trace, HTTP_NEW, request_log=log)
+                         for _ in range(FLEET_REPLICAS)]
+        runner = ReplicaRunner(fleet_engines)
+        loads: list[int] = []
+
+        def loader(body):
+            loads.append(1)
+            return new_params
+
+        async def upgrade_during(server):
+            import asyncio
+
+            from llm_np_cp_tpu_torch.serve.http.client import http_post
+
+            loop = asyncio.get_running_loop()
+            await asyncio.sleep(FLEET_UPGRADE_AT_S)
+            t_start = time.perf_counter()
+            first = loop.run_in_executor(None, http_post, server.host, server.port,
+                                         "/admin/upgrade", {"version": 1})
+            await asyncio.sleep(0.05)
+            second = await loop.run_in_executor(None, http_post, server.host, server.port,
+                                                "/admin/upgrade", {})
+            st, body = await first
+            roll_s = time.perf_counter() - t_start
+            # admitted after the roll: the new weights' streams
+            post = await fleet_wave(server, model_id, post_items, FLEET_POST_NEW)
+            return dict(status=st, body=body, second_status=second[0], roll_s=roll_s,
+                        post=post)
+
+        counts, res = counted(
+            "fleet upgrade", lambda: [r.engine for r in runner.replicas],
+            lambda: fleet_http_leg(torch, np, runner, trace, model_id, upgrade_loader=loader,
+                                   during=upgrade_during),
+            lambda: runner.replicas[0].engine)
+        log.flush(10.0)
+        log.close()
+        lines = {ln["rid"]: ln for ln in read_request_log(log_path)}
+        side = res["side"]
+        served = (list(zip(trace, res["results"]))
+                  + list(zip(post_items, side["post"])))
+        rid_of = {item["seed"]: int((r.get("stream_id") or "cmpl--1").split("-")[-1])
+                  for item, r in served}
+        forced, unforced = {0: 0, 1: 0, "switched": 0}, []
+        for item, r in served:
+            ln = lines.get(rid_of[item["seed"]])
+            if ln is None or not r["token_ids"]:
+                unforced.append((item["seed"], "no log line"))
+                continue
+            ks = switch_forced(torch, forward, params, new_params, cfg, item["prompt"],
+                               r["token_ids"], TEACHER_TOL)
+            v, n = ln["weights_version"], len(r["token_ids"])
+            if v == 1 and 0 in ks:
+                forced[1] += 1
+            elif v == 0 and ln["drains"] == 0 and n in ks:
+                forced[0] += 1
+            elif v == 0 and ln["drains"] > 0 and ks:
+                forced["switched" if n not in ks else 0] += 1
+            else:
+                unforced.append((item["seed"], v, ln["drains"], ks[:3], n))
+        versions = {ln["weights_version"] for ln in lines.values()}
+        post_ok = sum(r["status"] == 200 and len(r["token_ids"]) == FLEET_POST_NEW
+                      for r in side["post"])
+        upgrade = dict(**counts, **client_stats(np, res["results"], res["wall"]),
+                       new_weights_s=new_params_s, post_roll_answered=post_ok,
+                       admin={k: v for k, v in side.items() if k != "post"},
+                       checkpoint_loads=len(loads),
+                       log_lines=len(lines), versions=sorted(versions),
+                       teacher_forced=forced, unforced=unforced,
+                       weights_versions=[r.engine.weights_version for r in runner.replicas],
+                       scrape_has_version_label='version="1"' in res["prom"])
+        if (upgrade["answered"] != HTTP_REQUESTS or side["status"] != 200
+                or side["body"] != {"rolled": [0, 1], "version": 1}
+                or side["second_status"] != 409 or len(loads) != 1 or post_ok != FLEET_WAVE
+                or len(lines) != HTTP_REQUESTS + FLEET_WAVE or unforced
+                or forced[1] < FLEET_WAVE
+                or upgrade["weights_versions"] != [1, 1]):
+            checks.append(f"fleet upgrade: {upgrade}")
+        results["http_upgrade"] = upgrade
+
+        # scale: the rolled fleet grows to 3 and shrinks to 1 under traffic
+        runner = ReplicaRunner([r.engine for r in runner.replicas])
+        # prompts the router has not seen (a seen prefix sticks to its replica)
+        scale_items = poisson_trace(np.random.default_rng(HTTP_SEED + 1), FLEET_WAVE,
+                                    rate_rps=HTTP_RATE, prompt_len_range=HTTP_PROMPTS,
+                                    max_new_tokens=FLEET_POST_NEW, vocab_size=cfg.vocab_size,
+                                    seed_base=HTTP_SEED + 2000)
+        for e in runner.replicas[0].engine, runner.replicas[1].engine:
+            e.request_log = None
+
+        async def scale_during(server):
+            import asyncio
+
+            from llm_np_cp_tpu_torch.serve.http.client import http_post
+
+            loop = asyncio.get_running_loop()
+            await asyncio.sleep(FLEET_SCALE_AT_S[0])
+            up = await loop.run_in_executor(None, http_post, server.host, server.port,
+                                            "/admin/scale", {"replicas": 3})
+            added = runner.replicas[-1].engine
+            joined = dict(counts=added.compile_counts(),
+                          source=runner.replicas[0].engine.compile_counts(),
+                          reserved=torch.cuda.memory_reserved())
+            # fresh prefixes after the scale-up: first sight routes one to
+            # the newcomer
+            wave = await fleet_wave(server, model_id, scale_items, FLEET_POST_NEW)
+            await asyncio.sleep(FLEET_SCALE_AT_S[1] - FLEET_SCALE_AT_S[0])
+            served_by_added = added.metrics.snapshot()["submitted"]
+            down = await loop.run_in_executor(None, http_post, server.host, server.port,
+                                              "/admin/scale", {"replicas": 1})
+            return dict(up=up, down=down, joined=joined, served_by_added=served_by_added,
+                        wave=wave)
+
+        counts, res = counted(
+            "fleet scale", lambda: [r.engine for r in runner.replicas],
+            lambda: fleet_http_leg(torch, np, runner, trace, model_id, during=scale_during),
+            lambda: runner.replicas[0].engine)
+        side = res["side"]
+        tf = teacher(new_params, [(item["prompt"], r["token_ids"]) for item, r in
+                                  list(zip(trace, res["results"]))
+                                  + list(zip(scale_items, side["wave"]))])
+        scale = dict(**counts, **client_stats(np, res["results"], res["wall"]),
+                     up=side["up"][1], down=side["down"][1], joined=side["joined"],
+                     served_by_added=side["served_by_added"],
+                     wave_answered=sum(r["status"] == 200 for r in side["wave"]),
+                     teacher_forced=tf,
+                     states=[s["state"] for s in runner.replica_states()])
+        if (scale["answered"] != HTTP_REQUESTS or side["up"][0] != 200
+                or side["down"][0] != 200 or side["up"][1].get("added") != [2]
+                or side["down"][1].get("removed") != [2, 1]
+                or side["joined"]["counts"] != side["joined"]["source"]
+                or not tf["ok"] or tf["requests"] != HTTP_REQUESTS + FLEET_WAVE
+                or scale["wave_answered"] != FLEET_WAVE or side["served_by_added"] < 1
+                or scale["states"] != ["ok", "removed", "removed"]):
+            checks.append(f"fleet scale: {scale}")
+        results["http_scale"] = scale
+
+        # shed load on the fleet's survivor: an SLO it never meets burns
+        survivor = runner.replicas[0].engine
+        skew = [0.0]
+        survivor.metrics = ServeMetrics(clock=survivor.clock, slo=SLOTracker(
+            SLOPolicy(**FLEET_SHED_SLO), clock=lambda: time.perf_counter() + skew[0]))
+        survivor.actions = ActionPolicy(min_flip_interval_s=0.0)
+        runner = ReplicaRunner([survivor])
+
+        async def shed_during(server):
+            import asyncio
+
+            def wave(items):
+                return fleet_wave(server, model_id, items, 8)
+
+            async def until(cond, limit=30.0):
+                end = time.perf_counter() + limit
+                while not cond() and time.perf_counter() < end:
+                    await asyncio.sleep(0.01)
+                return cond()
+
+            items = trace[:FLEET_WAVE]
+            first = await wave(items)
+            engaged = await until(lambda: survivor.actions.shedding)
+            shed = await wave(items)
+            skew[0] += FLEET_BURN_AGE_S  # the burn window ages out
+            released = await until(lambda: not survivor.actions.shedding)
+            again = await wave(items)
+            return dict(first=[r["status"] for r in first], engaged=engaged,
+                        shed=[(r["status"], r.get("retry_after_s")) for r in shed],
+                        released=released, again=[r["status"] for r in again],
+                        snapshot=survivor.actions.snapshot())
+
+        counts, res = counted(
+            "fleet shed load", lambda: [survivor],
+            lambda: fleet_http_leg(torch, np, runner, [], model_id, during=shed_during),
+            lambda: survivor)
+        side = res["side"]
+        shed_load = dict(**counts, **side, scrape_counts='action="shed_load_on"' in res["prom"])
+        if (side["first"] != [200] * FLEET_WAVE or not side["engaged"]
+                or any(st != 503 or not ra or ra < 1 for st, ra in side["shed"])
+                or not side["released"] or side["again"] != [200] * FLEET_WAVE
+                or not shed_load["scrape_counts"]):
+            checks.append(f"fleet shed load: {shed_load}")
+        results["shed_load"] = shed_load
+
+        # shed prefill: a host_sync stall under the sentinel, direct
+        survivor.metrics = ServeMetrics(clock=survivor.clock)
+        survivor.tracer = TraceRecorder(ring=OBSERVE_RING)
+        survivor.sentinel = TickSentinel(warmup_ticks=4)
+        survivor.actions = ActionPolicy(engage_streak=3, release_clean=8,
+                                        min_flip_interval_s=0.0)
+        survivor.faults = FaultInjector(FLEET_SHED_PREFILL_SPEC)
+        budgets: list[int] = []
+        real_budget = survivor._tick_budget
+
+        def tick_budget():
+            budgets.append(real_budget())
+            return budgets[-1]
+
+        survivor._tick_budget = tick_budget
+        counts, snap = counted("fleet shed prefill", lambda: [survivor],
+                               lambda: survivor.replay_trace(trace), lambda: survivor)
+        del survivor._tick_budget
+        acts = snap.get("lifecycle_actions", {})
+        shed_prefill = dict(**counts, spec=FLEET_SHED_PREFILL_SPEC,
+                            finished=snap["finished"], lifecycle_actions=acts,
+                            anomaly_ticks=snap.get("anomaly_ticks", {}),
+                            full_budget=survivor.tick_token_budget,
+                            min_budget=min(budgets), last_budget=budgets[-1],
+                            shed_ticks=sum(b < survivor.tick_token_budget for b in budgets),
+                            decode_floor=survivor.scheduler.max_slots)
+        if (not acts.get("shed_prefill_on")
+                or acts.get("shed_prefill_on") != acts.get("shed_prefill_off")
+                or not (shed_prefill["decode_floor"] <= shed_prefill["min_budget"]
+                        < shed_prefill["full_budget"] == shed_prefill["last_budget"])
+                or snap["finished"] != HTTP_REQUESTS or counts["captures"]):
+            checks.append(f"fleet shed prefill: {shed_prefill}")
+        results["shed_prefill"] = shed_prefill
+        survivor.tracer = survivor.sentinel = survivor.actions = survivor.faults = None
+        del runner, survivor, fleet_engines, new_params
+
+        # -- 3. a crash beside a serving peer, float32 ----------------------
+        f32_trace = [dict(item, max_new_tokens=F32_FLEET_NEW)
+                     for item in trace[:F32_FLEET_REQUESTS]]
+
+        def crash_leg(where, spec) -> dict:
+            gc.collect()
+            torch.cuda.empty_cache()
+            engines = [engine(f32, torch.float32, f32_trace, F32_FLEET_NEW,
+                              fault_injector=FaultInjector(spec) if spec and i == 0 else None)
+                       for i in range(FLEET_REPLICAS)]
+            fl = ReplicaRunner(engines, max_restarts=1, restart_backoff_s=0.2,
+                               tick_deadline=60.0)
+            states: list = []
+
+            async def poll(server):
+                import asyncio
+
+                from llm_np_cp_tpu_torch.serve.http.client import http_get
+
+                loop = asyncio.get_running_loop()
+                last = time.perf_counter() + max(t["arrival_s"] for t in f32_trace) + 0.5
+                while fl.inflight or time.perf_counter() < last:
+                    st, body = await loop.run_in_executor(None, http_get, server.host,
+                                                          server.port, "/healthz")
+                    states.append(json.loads(body)["status"])
+                    await asyncio.sleep(0.01)
+                return sorted(set(states))
+
+            counts, res = counted(where, lambda: [r.engine for r in fl.replicas],
+                                  lambda: fleet_http_leg(torch, np, fl, f32_trace, model_id,
+                                                         during=poll),
+                                  lambda: fl.replicas[1].engine)
+            owners = dict(fl._owner)
+            return dict(leg=where, **counts, **client_stats(np, res["results"], res["wall"]),
+                        restarts=fl.restarts, healthz_states=res["side"],
+                        rebuilds=fl.replicas[0].rebuilds,
+                        peer_rids=sorted(r for r, i in owners.items() if i == 1),
+                        tokens={item["seed"]: r["token_ids"]
+                                for item, r in zip(f32_trace, res["results"])},
+                        rid_of={item["seed"]: int((r.get("stream_id") or "cmpl--1").split("-")[-1])
+                                for item, r in zip(f32_trace, res["results"])})
+
+        clean = crash_leg("fleet float32 clean", None)
+        crash = crash_leg("fleet float32 crash", FLEET_CRASH_SPEC)
+        peer = [s for s, rid in crash["rid_of"].items() if rid in crash["peer_rids"]]
+        same = sum(crash["tokens"][s] == clean["tokens"][s] for s in clean["tokens"])
+        peer_same = sum(crash["tokens"][s] == clean["tokens"][s] for s in peer)
+        for leg in (clean, crash):
+            del leg["tokens"], leg["rid_of"], leg["peer_rids"]
+        crash_out = dict(spec=FLEET_CRASH_SPEC, requests=F32_FLEET_REQUESTS,
+                         new_tokens=F32_FLEET_NEW, legs=[clean, crash], identical=same,
+                         peer_streams=len(peer), peer_identical=peer_same)
+        if (same != F32_FLEET_REQUESTS or not peer or peer_same != len(peer)
+                or crash["restarts"] != 1 or "degraded" not in crash["healthz_states"]
+                or crash["answered"] != F32_FLEET_REQUESTS or clean["restarts"]):
+            checks.append(f"fleet crash: {crash_out}")
+        results["crash"] = crash_out
+        del f32
+
+        # -- 4. the same trace at 1, 2 and 3 replicas -----------------------
+        gc.collect()
+        torch.cuda.empty_cache()
+        scale_trace = poisson_trace(np.random.default_rng(HTTP_SEED), HTTP_REQUESTS,
+                                    rate_rps=FLEET_SCALE_RATE, prompt_len_range=HTTP_PROMPTS,
+                                    max_new_tokens=HTTP_NEW, vocab_size=cfg.vocab_size,
+                                    seed_base=HTTP_SEED)
+        pool = []
+        scaling = []
+        for n in (1, 2, 3):
+            # what building and warming one more replica adds to the
+            # reserved bytes (the collector and the cache emptied on both
+            # sides, so earlier phases' garbage does not count)
+            torch.cuda.synchronize()
+            gc.collect()
+            torch.cuda.empty_cache()
+            reserved0 = torch.cuda.memory_reserved()
+            pool.append(engine(params, torch.bfloat16, scale_trace, HTTP_NEW))
+            torch.cuda.synchronize()
+            gc.collect()
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved()
+            row = dict(replicas=n, reserved_bytes=reserved,
+                       replica_reserved_bytes=reserved - reserved0,
+                       pool_bytes=pool[-1].pool.stats()["kv_bytes_total"],
+                       graph_pool_bytes=sum(st.pool_bytes or 0 for st in pool[-1].graph_steps()))
+            for profiled in (False, True):
+                for e in pool:
+                    e.metrics = ServeMetrics(clock=e.clock)
+                fl = ReplicaRunner(list(pool), spill_queue_depth=None)
+                where = f"fleet scaling x{n}" + (" profiled" if profiled else "")
+                # the profiled leg replays half the trace: the profiler's
+                # post-processing grows with the kernels it saw
+                leg_trace = scale_trace[:HTTP_REQUESTS // 2] if profiled else scale_trace
+                counts, res = counted(where, lambda: list(pool),
+                                      lambda: fleet_http_leg(torch, np, fl, leg_trace,
+                                                             model_id, profile=profiled),
+                                      lambda: pool[0])
+                stats = client_stats(np, res["results"], res["wall"])
+                if stats["answered"] != len(leg_trace):
+                    checks.append(f"{where}: {stats}")
+                if profiled:
+                    row["profiled"] = dict(**res["device"], requests=len(leg_trace),
+                                           tok_s=stats["tok_s"])
+                else:
+                    row.update(**stats, dispatches=counts["dispatches"],
+                               launches=counts["launches"])
+            scaling.append(row)
+        results["scaling"] = dict(rate_rps=FLEET_SCALE_RATE, legs=scaling)
+        del pool
+    finally:
+        watch.close()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(phase="fleet", model=model_id, layers=layers, weights="seeded random bf16",
+                card=card, engine=dict(max_slots=HTTP_SLOTS, block_size=HTTP_BLOCK,
+                                       prefill_chunk=HTTP_CHUNK, mixed_step="on",
+                                       sampler="greedy"),
+                launches=phase_launches, **results, checks=checks, ok=not checks)
+
+
+def _sum_actions(engines) -> dict:
+    out: dict = {}
+    for e in engines:
+        for k, v in e.metrics.snapshot().get("lifecycle_actions", {}).items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
 KERNEL_META = {
     "flash_attention": ("llm_np_cp_tpu_torch/csrc/flash_attention.cu",
                         "llm_np_cp_tpu/ops/pallas/flash_attention.py:180"),
@@ -4232,6 +5061,13 @@ def main() -> int:
     record(rp)
     if not rp["ok"]:
         raise AssertionError("restart checks failed: " + json.dumps(rp["checks"], default=str))
+    fp = fleet_phase(torch, np, kernels, smi)
+    record(fp)
+    if not fp["ok"]:
+        raise AssertionError("fleet checks failed: " + json.dumps(fp["checks"], default=str))
+    for name in ("ragged_paged_attention", "sample_epilogue"):
+        if not fp["launches"][name]:
+            raise AssertionError(f"fleet phase: {name} never launched")
 
     path_launches = dict(mp["launches"])
     path_launches["ragged_paged_attention"] = sv["legs"]["A_mixed"]["launches"][

@@ -21,10 +21,23 @@ capture, no replay): the check that a replayed step gives what the same
 function gives eagerly, on the same card.
 
 A replay runs no Python, so the kernel wrappers' launch counters would
-not see it.  The capture therefore records how far each counter moved
-while the step was captured (the kernels in the graph), puts the
-counters back (a capture launches nothing) and adds that record at every
-replay: a counter reads kernels captured × replays, plus eager launches.
+not see it.  The capture therefore records, on its own thread, what each
+counter would have moved (the kernels in the graph; a capture launches
+nothing) and adds that record at every replay: a counter reads kernels
+captured × replays, plus eager launches.  Counts move under one lock
+(``ops/cuda/_common.count``), so engines ticking on several threads at
+once, one of them capturing, lose none.
+
+Several engines may share the card, each ticking on its own thread (a
+replica fleet, ``serve/replica.py``).  A first call (the eager step and
+its capture) holds a process-wide lock, so one capture runs at a time;
+the capture is ``thread_local`` (only the capturing thread is barred
+from calls a capture forbids: a peer's replays and host fetches go on),
+and it makes no device-wide synchronize — it waits on its side stream
+only.  Each engine captures on a side stream of its own
+(``take_side_stream``): a graph keeps the cuBLAS workspace of the
+stream it was captured on, and two engines' graphs replaying at once
+must not share one.
 """
 
 from __future__ import annotations
@@ -37,20 +50,54 @@ from typing import Callable, Iterator
 
 import torch
 
+from llm_np_cp_tpu_torch.ops.cuda import _common
+
 # totals over every captured step of the process, as a caller may read
 # them around a run: captures, replays, eager first calls, seconds spent
 # capturing and the bytes the graphs' pools took from the card
 TOTALS = {"captures": 0, "replays": 0, "eager": 0, "capture_s": 0.0, "pool_bytes": 0}
+_TOTALS_LOCK = threading.Lock()
+
+# held by a step's first call (eager run + capture) and by a graph's
+# reset: one capture at a time in the process, never beside a teardown
+_CAPTURE_LOCK = threading.RLock()
+
+
+def _add_totals(**moves: float) -> None:
+    with _TOTALS_LOCK:
+        for k, v in moves.items():
+            TOTALS[k] += v
 
 
 _EAGER = [0]
 
-# the stream each device's first (eager) calls run on: one a device for
-# the process, since every stream a step runs on gets a cuBLAS workspace
-# of its own from the caching allocator, kept until the process ends — a
-# new stream a capture would grow reserved memory with every engine
-# rebuilt after a restart
+# the stream each device's first (eager) calls run on and are captured
+# on, for steps that name none: one a device for the process, since every
+# stream a step runs on gets a cuBLAS workspace of its own from the
+# caching allocator, kept until the process ends
 _SIDE_STREAMS: dict[torch.device, torch.cuda.Stream] = {}
+# the side streams engines own (``take_side_stream``).  A captured graph
+# keeps the cuBLAS workspace of the stream it was captured on, so two
+# engines whose graphs replay at once on two streams (a fleet's replicas)
+# must not share one: each engine captures on its own side stream, and a
+# dead or retired engine's goes back here for the next engine (a restart
+# reuses it, so reserved memory does not grow with every rebuild)
+_FREE_SIDE: dict[torch.device, list[torch.cuda.Stream]] = {}
+_FREE_SIDE_LOCK = threading.Lock()
+
+
+def take_side_stream(device: torch.device) -> torch.cuda.Stream:
+    """A side stream for one engine's captures on ``device``: a freed one,
+    or a new one."""
+    with _FREE_SIDE_LOCK:
+        free = _FREE_SIDE.setdefault(device, [])
+        return free.pop() if free else torch.cuda.Stream(device)
+
+
+def give_side_stream(device: torch.device, stream: torch.cuda.Stream) -> None:
+    """Return an engine's side stream once no graph of it replays."""
+    with _FREE_SIDE_LOCK:
+        _FREE_SIDE.setdefault(device, []).append(stream)
 
 
 @contextlib.contextmanager
@@ -87,11 +134,15 @@ class CapturedStep:
     that draws reads its keys from its static buffers (``random``), so a
     replay draws as the eager step would.  ``guard()``, when given, is
     entered around the capture: a CUDA call from another thread while a
-    capture is open would break it."""
+    capture is open would break it.  ``side`` is the stream the first call
+    runs on and is captured on (the device's shared one by default; an
+    engine passes its own)."""
 
     def __init__(self, fn: Callable[[], None], device: torch.device, name: str,
-                 guard: Callable[[], contextlib.AbstractContextManager] | None = None) -> None:
+                 guard: Callable[[], contextlib.AbstractContextManager] | None = None,
+                 side: torch.cuda.Stream | None = None) -> None:
         self.fn, self.device, self.name = fn, device, name
+        self.side = side
         # entered around a capture: what must stay off the card meanwhile
         # (the engine's host tier writer, ``HostTier.quiesce``)
         self.guard = guard
@@ -115,7 +166,7 @@ class CapturedStep:
         retired, the memory the graph would replay into may belong to the
         engine that replaced it (a replay after a free does not fail, it
         writes whatever now lives there)."""
-        with self._lock:
+        with _CAPTURE_LOCK, self._lock:
             self.retired = True
             if self.graph is not None:
                 self.graph.reset()
@@ -137,28 +188,32 @@ class CapturedStep:
                     self._refuse()
                 self.graph.replay()
             self.replays += 1
-            TOTALS["replays"] += 1
+            _add_totals(replays=1)
             for fn, attr, n in self.deltas:
-                setattr(fn, attr, getattr(fn, attr) + n)
+                _common.count(fn, attr, n)
             return
-        cur = torch.cuda.current_stream(self.device)
-        side = _SIDE_STREAMS.get(self.device)
-        if side is None:
-            side = _SIDE_STREAMS.setdefault(self.device, torch.cuda.Stream(self.device))
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            self.fn()
-        cur.wait_stream(side)
-        TOTALS["eager"] += 1
-        with self.guard() if self.guard is not None else contextlib.nullcontext():
-            self._capture()
+        with _CAPTURE_LOCK:
+            cur = torch.cuda.current_stream(self.device)
+            side = self.side or _SIDE_STREAMS.get(self.device)
+            if side is None:
+                side = _SIDE_STREAMS.setdefault(self.device, torch.cuda.Stream(self.device))
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                self.fn()
+            cur.wait_stream(side)
+            _add_totals(eager=1)
+            with self.guard() if self.guard is not None else contextlib.nullcontext():
+                self._capture(side)
 
-    def _capture(self) -> None:
-        snap = [(fn, attr, getattr(fn, attr)) for fn, attr in launch_counters()]
+    def _capture(self, side: torch.cuda.Stream) -> None:
+        """Capture ``fn`` on ``side`` (caller holds ``_CAPTURE_LOCK``).
+        What ``torch.cuda.graph`` does on entry, without its device-wide
+        synchronize: the eager run's stream is waited on, garbage is
+        collected and the allocator's free memory (retired graphs' pools
+        among it) goes back, so the reserved bytes below move by this
+        graph's pool alone (and by what a peer allocates meanwhile)."""
         graph = torch.cuda.CUDAGraph()
-        # what torch.cuda.graph does on entry, done first so that the
-        # reserved bytes below move by the graph's pool alone
-        torch.cuda.synchronize(self.device)
+        side.synchronize()
         gc.collect()
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(self.device)
@@ -169,25 +224,24 @@ class CapturedStep:
         gc.disable()
         t0 = time.perf_counter()
         try:
-            with torch.cuda.graph(graph):
-                self.fn()
-            torch.cuda.synchronize(self.device)
+            with _common.recording() as moves, torch.cuda.stream(side):
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    self.fn()
+                finally:
+                    graph.capture_end()
+            side.synchronize()
         except Exception as e:
             raise RuntimeError(f"capturing {self.name} as a CUDA graph failed: {e}") from e
         finally:
             if gc_on:
                 gc.enable()
-            moved = [(fn, attr, getattr(fn, attr) - n) for fn, attr, n in snap]
-            for fn, attr, n in snap:
-                setattr(fn, attr, n)
         self.capture_s = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
-        self.deltas = tuple(m for m in moved if m[2])
+        self.deltas = tuple((fn, attr, n) for (fn, attr), n in moves.items() if n)
         with self._lock:
             if self.retired:
                 graph.reset()
                 self._refuse()
             self.graph = graph
-        TOTALS["captures"] += 1
-        TOTALS["capture_s"] += self.capture_s
-        TOTALS["pool_bytes"] += self.pool_bytes
+        _add_totals(captures=1, capture_s=self.capture_s, pool_bytes=self.pool_bytes)

@@ -1,6 +1,10 @@
-"""Argument checks shared by the kernel wrappers."""
+"""Argument checks and the launch counts shared by the kernel wrappers."""
 
 from __future__ import annotations
+
+import contextlib
+import threading
+from typing import Callable, Iterator
 
 import torch
 
@@ -44,3 +48,41 @@ def check_head_dim(name: str, d: int) -> None:
 
 def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# the launch counts: every wrapper's ``launches`` (and ``combine_launches``
+# / ``launches_int8``) attribute moves only through ``count``, under one
+# lock, so tick threads of several engines launching at once lose no
+# count.  A thread that is capturing a CUDA graph records what its
+# kernels would add in its own record instead (``recording``): a capture
+# launches nothing, and the graph's replays add the record.
+_COUNT_LOCK = threading.Lock()
+_RECORD = threading.local()
+
+
+def count(fn: Callable, attr: str, n: int = 1) -> None:
+    """Add ``n`` launches to ``fn.attr`` — or, on a thread inside
+    ``recording()``, to that thread's record."""
+    if not n:
+        return
+    rec = getattr(_RECORD, "moves", None)
+    if rec is not None:
+        rec[(fn, attr)] = rec.get((fn, attr), 0) + n
+        return
+    with _COUNT_LOCK:
+        setattr(fn, attr, getattr(fn, attr) + n)
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[dict[tuple[Callable, str], int]]:
+    """While entered, this thread's ``count`` calls fill the yielded dict
+    (``(wrapper, attribute) → launches``) and leave the counts alone;
+    other threads count as usual."""
+    if getattr(_RECORD, "moves", None) is not None:
+        raise RuntimeError("launch recording does not nest")
+    moves: dict[tuple[Callable, str], int] = {}
+    _RECORD.moves = moves
+    try:
+        yield moves
+    finally:
+        _RECORD.moves = None

@@ -314,8 +314,8 @@ def decode_attention(
     out = torch.empty_like(q)
     launched, _ = _launch_decode("decode_attention", q, k, v, mask, k_scale, v_scale, scale,
                                  logit_softcap, nsplit, out)
-    decode_attention.launches += int(launched >= 1)
-    decode_attention.combine_launches += int(launched >= 2)
+    _common.count(decode_attention, "launches", int(launched >= 1))
+    _common.count(decode_attention, "combine_launches", int(launched >= 2))
     return out
 
 
@@ -342,7 +342,7 @@ def decode_attention_split(
         )
     launched, parts = _launch_decode("decode_attention_split", q, k, v, mask, k_scale, v_scale,
                                      scale, logit_softcap, nsplit, None)
-    decode_attention_split.launches += launched
+    _common.count(decode_attention_split, "launches", launched)
     return parts
 
 
@@ -378,7 +378,7 @@ def combine_splits(
         _common.stream_ptr(acc),
     )
     check(err, "combine_splits")
-    combine_splits.launches += 1
+    _common.count(combine_splits, "launches")
     return out
 
 
@@ -555,8 +555,8 @@ def paged_decode_attention(
     launched, _ = _launch_paged(name, q, k_pages, v_pages, tables, lengths, pads, k_scale,
                                 v_scale, scale, logit_softcap,
                                 paged_split_plan(q, k_pages, tables), out)
-    paged_decode_attention.launches += int(launched >= 1)
-    paged_decode_attention.combine_launches += int(launched >= 2)
+    _common.count(paged_decode_attention, "launches", int(launched >= 1))
+    _common.count(paged_decode_attention, "combine_launches", int(launched >= 2))
     return out
 
 
@@ -587,7 +587,7 @@ def paged_decode_attention_split(
         )
     launched, parts = _launch_paged(name, q, k_pages, v_pages, tables, lengths, pads, k_scale,
                                     v_scale, scale, logit_softcap, nsplit, None)
-    paged_decode_attention_split.launches += launched
+    _common.count(paged_decode_attention_split, "launches", launched)
     return parts
 
 
@@ -808,8 +808,8 @@ def ragged_paged_attention(
     launched, _ = _launch_ragged(name, q, k_pages, v_pages, tables, tile_row, tile_qpos0,
                                  tile_qlen, pads, window, k_scale, v_scale, scale, logit_softcap,
                                  ragged_split_plan(q, k_pages, tables, window), out)
-    ragged_paged_attention.launches += int(launched >= 1)
-    ragged_paged_attention.combine_launches += int(launched >= 2)
+    _common.count(ragged_paged_attention, "launches", int(launched >= 1))
+    _common.count(ragged_paged_attention, "combine_launches", int(launched >= 2))
     return out
 
 
@@ -844,7 +844,7 @@ def ragged_paged_attention_split(
     launched, parts = _launch_ragged(name, q, k_pages, v_pages, tables, tile_row, tile_qpos0,
                                      tile_qlen, pads, window, k_scale, v_scale, scale,
                                      logit_softcap, nsplit, None)
-    ragged_paged_attention_split.launches += launched
+    _common.count(ragged_paged_attention_split, "launches", launched)
     return parts
 
 

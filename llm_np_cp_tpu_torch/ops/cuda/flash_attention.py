@@ -149,7 +149,7 @@ def flash_attention(
         _common.stream_ptr(q),
     )
     check(err, "flash_attention")
-    flash_attention.launches += 1
+    _common.count(flash_attention, "launches")
     return out
 
 

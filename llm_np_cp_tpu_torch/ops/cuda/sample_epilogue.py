@@ -107,9 +107,9 @@ def sample_epilogue(
     )
     check(err, "sample_epilogue")
     if int8:
-        sample_epilogue.launches_int8 += 1
+        _common.count(sample_epilogue, "launches_int8")
     else:
-        sample_epilogue.launches += 1
+        _common.count(sample_epilogue, "launches")
     return out
 
 

@@ -37,7 +37,7 @@ def softmax(x: torch.Tensor) -> torch.Tensor:
     err = library().softmax_launch(
         x.data_ptr(), out.data_ptr(), rows, n, code, _common.stream_ptr(x))
     check(err, "softmax")
-    softmax.launches += 1
+    _common.count(softmax, "launches")
     return out
 
 

@@ -67,7 +67,7 @@ def threefry2x32(keys: torch.Tensor, n: int, cols: int, data: torch.Tensor | Non
         out.data_ptr(), n, cols, mode, float(lo), float(np.float32(maxval) - lo),
         _common.stream_ptr(keys))
     check(err, "threefry2x32")
-    threefry2x32.launches += 1
+    _common.count(threefry2x32, "launches")
     return out
 
 
@@ -97,7 +97,7 @@ def categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
         keys.data_ptr(), int(keys.dim() == 2), logits.data_ptr(), part_val.data_ptr(),
         part_idx.data_ptr(), out.data_ptr(), n, v, splits, _common.stream_ptr(logits))
     check(err, "categorical")
-    categorical.launches += 1
+    _common.count(categorical, "launches")
     return out
 
 

@@ -51,9 +51,14 @@ Modules:
   replays (``scan_journal`` reads it).
 - ``request_log``  — ``RequestLog``: one JSON line per terminal request
   (``read_request_log`` reads it).
+- ``replica``      — the fleet: ``PrefixRouter`` (prefix-affinity routing),
+  ``ReplicaSet`` (N engines from one loop) and ``ReplicaRunner`` (one
+  supervised runner a replica under the HTTP server).
+- ``lifecycle``    — rolling weight upgrades (``UpgradeAborted``,
+  ``LifecycleController``), the ``Autoscaler`` and the ``ActionPolicy``
+  auto-actions (shed prefill, shed load).
 
-The fleet, lifecycle and CLI layers of the JAX package are later
-slices.
+The CLI layer of the JAX package is a later slice.
 """
 
 from llm_np_cp_tpu_torch.serve.block_pool import BlockPool, FreeList, PagedKV
@@ -61,9 +66,16 @@ from llm_np_cp_tpu_torch.serve.faults import FaultInjected, FaultInjector
 from llm_np_cp_tpu_torch.serve.host_tier import HostBlock, HostTier, HostTierError
 from llm_np_cp_tpu_torch.serve.engine import ServeEngine, pool_geometry, worst_case_slots
 from llm_np_cp_tpu_torch.serve.journal import RequestJournal, scan_journal
+from llm_np_cp_tpu_torch.serve.lifecycle import (
+    ActionPolicy,
+    Autoscaler,
+    LifecycleController,
+    UpgradeAborted,
+)
 from llm_np_cp_tpu_torch.serve.metrics import ServeMetrics
 from llm_np_cp_tpu_torch.serve.otel import OtlpExporter
 from llm_np_cp_tpu_torch.serve.prefix_cache import PrefixCache, prefix_block_keys
+from llm_np_cp_tpu_torch.serve.replica import PrefixRouter, ReplicaRunner, ReplicaSet
 from llm_np_cp_tpu_torch.serve.request_log import RequestLog, read_request_log
 from llm_np_cp_tpu_torch.serve.scheduler import (
     QueueFull,
@@ -80,6 +92,8 @@ from llm_np_cp_tpu_torch.serve.trace import poisson_trace, replay_arrivals
 from llm_np_cp_tpu_torch.serve.tracing import TraceRecorder
 
 __all__ = [
+    "ActionPolicy",
+    "Autoscaler",
     "BlockPool",
     "DraftState",
     "FaultInjected",
@@ -88,10 +102,14 @@ __all__ = [
     "HostBlock",
     "HostTier",
     "HostTierError",
+    "LifecycleController",
     "OtlpExporter",
     "PagedKV",
     "PrefixCache",
+    "PrefixRouter",
     "QueueFull",
+    "ReplicaRunner",
+    "ReplicaSet",
     "Request",
     "RequestJournal",
     "RequestLog",
@@ -106,6 +124,7 @@ __all__ = [
     "TenantThrottled",
     "TickSentinel",
     "TraceRecorder",
+    "UpgradeAborted",
     "aggregate_slo",
     "aggregate_tenants",
     "normalize_tenant",

@@ -125,9 +125,19 @@ tracer is attached, so a profiler capture lines up with the trace.
 What the port leaves out, as the JAX package has it: donation (pages are
 updated in place) and the runtime degradation to XLA fallbacks — on the
 card a kernel launches or raises, and a step captures or raises; nothing
-falls back.  Meshes and lifecycle actions raise ``NotImplementedError``,
-and so does ``share_compiled_steps``: a graph replays its own engine's
-pool and weight addresses, so a peer engine cannot adopt it.
+falls back.  Meshes raise ``NotImplementedError``.
+
+The fleet's hooks (``serve/lifecycle.py``, ``serve/replica.py``), as in
+the JAX engine: ``actions`` (an ``ActionPolicy``) is fed once a tick
+(``_actions_tick``) and its shed-prefill verdict caps the planner's
+budget (``_tick_budget``); ``weights_version`` tags every admission;
+``clone_fresh(params=, weights_version=)`` is a rolling upgrade's
+rebuild.  Where the card differs: ``share_compiled_steps`` adopts no
+peer's graph (a graph replays its own engine's pool and buffer
+addresses) but captures every bucket the peer has captured, so a
+joining or rolled replica never captures inside a serving tick; and
+``clone_fresh`` retires its source, so the fleet's ``add_replica`` clones
+a live replica with ``clone_peer``.
 """
 
 from __future__ import annotations
@@ -136,12 +146,13 @@ import contextlib
 import logging
 import math
 import time
+import weakref
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
-from llm_np_cp_tpu_torch import random
+from llm_np_cp_tpu_torch import graphs, random
 from llm_np_cp_tpu_torch.cache import KVCache, dequantize_kv, quantize_kv
 from llm_np_cp_tpu_torch.config import ModelConfig
 from llm_np_cp_tpu_torch.device import resolve_device
@@ -184,7 +195,7 @@ GLOBAL_WINDOW = 1 << 30
 
 # keyword → value that means "off", for the JAX engine's options the port
 # does not have yet
-_NOT_PORTED = {"mesh_plan": None, "actions": None}
+_NOT_PORTED = {"mesh_plan": None}
 
 _NULL_CTX = contextlib.nullcontext()
 
@@ -315,7 +326,7 @@ class _StaticStep:
         self.out = torch.zeros((eng.scheduler.max_slots, out_cols), dtype=torch.int32,
                                device=dev)
         self.run = CapturedStep(lambda: body(self.ops, self.out), dev, name,
-                                guard=eng._capture_guard)
+                                guard=eng._capture_guard, side=eng._side_stream)
 
     def upload(self, host: dict[str, np.ndarray]) -> None:
         """The tick's host operands → the static device buffer, in ONE
@@ -385,6 +396,8 @@ class ServeEngine:
         sentinel: Any = None,
         telemetry: Any = None,
         tenants: Any = None,
+        actions: Any = None,
+        weights_version: int = 0,
         device: str | torch.device = "cuda",
         **not_ported: Any,
     ) -> None:
@@ -470,6 +483,16 @@ class ServeEngine:
         # check.  A capture holds the tier's writer off the card.
         self.host_tier = host_tier
         self._capture_guard = host_tier.quiesce if host_tier is not None else None
+        # the stream this engine's steps are captured on, its own (graphs
+        # of two engines replaying at once must not share one stream's
+        # cuBLAS workspace); it goes back for reuse at ``retire`` or when
+        # the engine is collected
+        self._side_stream = None
+        self._release_side = None
+        if self.device.type == "cuda":
+            self._side_stream = graphs.take_side_stream(self.device)
+            self._release_side = weakref.finalize(self, graphs.give_side_stream, self.device,
+                                                  self._side_stream)
         # bytes one pool block holds across all layers (K+V + int8 scale
         # pages) — the unit every tier ledger counts in
         self._block_nbytes = int(sum(
@@ -526,15 +549,20 @@ class ServeEngine:
         self.sentinel = sentinel
         self.telemetry = telemetry
         self.tenants = tenants
-        # what the HTTP server reads of the JAX engine's later layers, at
-        # the values that engine holds with them off: the weight version
-        # a rolling upgrade bumps, the runtime degradation to an XLA
-        # fallback (none here: a kernel launches or raises, and a
-        # dispatch fault ends in a supervised restart) and the lifecycle
-        # actions
-        self.weights_version = 0
+        # lifecycle auto-actions (serve/lifecycle.ActionPolicy): the
+        # sentinel's verdicts and the SLO burn rate feed it once a tick;
+        # its shed-prefill verdict caps the planner's budget and its
+        # shed-load verdict turns HTTP admission 503-first.  None = every
+        # hook is an is-None check
+        self.actions = actions
+        # the weight version a rolling upgrade stamps on every admission
+        # (journal records, request-log lines); clone_fresh(params=...)
+        # sets the new one
+        self.weights_version = int(weights_version)
+        # the runtime degradation to an XLA fallback the JAX server reads:
+        # none here (a kernel launches or raises, and a dispatch fault
+        # ends in a supervised restart)
         self.decode_degraded: str | None = None
-        self.actions = None
         # set by ``retire``: a superseded engine's step raises
         self.retired: str | None = None
         self._next_id = 0
@@ -1469,40 +1497,64 @@ class ServeEngine:
         Idempotent."""
         if self.retired is not None:
             return
-        self._captured_shapes = (
-            sorted(t for t, st in self._mixed_steps.items() if st.run.compiled),
-            self._split_step is not None and self._split_step.run.compiled,
-        )
+        self._captured_shapes = self._captured_now()
         self.retired = reason
         for run in self.graph_steps():
             run.retire()
         self._mixed_steps = {}
         self._split_step = None
         self.pool.pages = None
+        if self._release_side is not None:
+            self._release_side()
 
-    def clone_fresh(self) -> "ServeEngine":
+    def _captured_now(self) -> tuple[list[int], bool]:
+        """The packed widths whose step has its graph, and whether the
+        phase-split decode step has one (a retired engine's, as it had
+        them at ``retire``)."""
+        if self.retired is not None:
+            return self._captured_shapes
+        return (sorted(t for t, st in self._mixed_steps.items() if st.run.compiled),
+                self._split_step is not None and self._split_step.run.compiled)
+
+    def clone_fresh(self, *, params: Params | None = None,
+                    weights_version: int | None = None) -> "ServeEngine":
         """A fresh engine with the same params, config, geometry and options
         and an empty pool: what a supervised restart rebuilds after a
-        crash.  Carried across: the metrics (operator counters survive),
-        the fault injector (its hit counts keep counting), the host tier
-        (its entries survive the restart: the empty pool restores instead
-        of re-prefilling), the journal, the request log and the request-id
-        counter, and the observability plane (the tracer, the sentinel, the
-        telemetry model and the tenant ledger: a restart is the same
-        replica, so its timeline and bills go on).
+        crash.  ``params`` / ``weights_version`` override the weights: the
+        rolling upgrade's rebuild (``serve/replica.py``).  Carried across:
+        the metrics (operator counters survive), the fault injector (its
+        hit counts keep counting), the host tier (its entries survive the
+        restart: the empty pool restores instead of re-prefilling), the
+        journal, the request log and the request-id counter, and the
+        observability plane and the action policy (the tracer, the
+        sentinel, the telemetry model, the tenant ledger, ``actions``: a
+        restart is the same replica, so its timeline and bills go on).
 
         Not carried: the captured steps.  The JAX clone shares its jitted
         steps; a CUDA graph replays its own engine's pool and buffer
         addresses, so the clone captures its own, and ``compile_counts()``
-        on it counts them.  The order keeps the restart's peak at about one
+        on it counts them.  The order keeps the rebuild's peak at about one
         pool plus one set of graph pools: this engine is retired first
         (``retire``), the clone's pool is allocated into the memory that
         released, and the clone captures every bucket this engine had
         captured (and the phase-split decode step, if it had one) before
-        it serves, so no capture lands inside a serving tick."""
+        it serves, so no capture lands inside a serving tick.  A live
+        engine that must go on serving (the fleet's ``add_replica``)
+        clones with ``clone_peer`` instead."""
         self.retire("superseded by clone_fresh")
+        return self.clone_peer(params=params, weights_version=weights_version)
+
+    def clone_peer(self, *, params: Params | None = None,
+                   weights_version: int | None = None) -> "ServeEngine":
+        """``clone_fresh`` without retiring this engine: the fleet's elastic
+        ``add_replica`` clones a live replica, which goes on serving (the
+        JAX clone never retires its source; the port's restart path does).
+        The clone shares the params tensors (or takes ``params``), carries
+        what ``clone_fresh`` carries, and captures every bucket this engine
+        has captured, before anyone routes to it.  On the card call it on
+        the thread and stream that will tick the clone."""
         eng = ServeEngine(
-            self.params, self.config,
+            params if params is not None else self.params, self.config,
             sampler=self.sampler,
             stop_tokens=self.stop_tokens,
             max_slots=self.scheduler.max_slots,
@@ -1531,25 +1583,34 @@ class ServeEngine:
             sentinel=self.sentinel,
             telemetry=self.telemetry,
             tenants=self.tenants,
+            actions=self.actions,
+            weights_version=(weights_version if weights_version is not None
+                             else self.weights_version),
             device=self.device,
         )
         eng.metrics = self.metrics
-        eng.weights_version = self.weights_version
         eng._next_id = self._next_id
-        buckets, split = self._captured_shapes
-        for t_w in buckets:
-            eng._warm_mixed_bucket(t_w)
-        if split:
-            eng._warm_split_step()
+        eng.share_compiled_steps(self)
         return eng
 
     def share_compiled_steps(self, src: "ServeEngine") -> None:
-        """Not ported: a CUDA graph replays its own engine's pool and
-        weight addresses, so a peer engine cannot adopt it as the JAX engine
-        adopts a jitted callable (the fleet / lifecycle slice)."""
-        raise NotImplementedError(
-            "ServeEngine.share_compiled_steps is not ported to PyTorch yet: it is the "
-            "fleet and lifecycle slice")
+        """The port's spelling of the JAX engine's adoption of a peer's
+        jitted steps.  A CUDA graph replays its own engine's pool and
+        buffer addresses, so nothing is adopted; the contract kept is that
+        joining the fleet captures nothing while serving: this engine
+        captures every bucket ``src`` has captured (and the phase-split
+        decode step, if ``src`` has it) now, before it is routed to, and,
+        with ``actions``, every bucket (a shed budget packs smaller ticks,
+        whose buckets ``src`` may never have used).  ``compile_counts()``
+        counts those captures."""
+        if self.mixed != src.mixed:
+            return
+        buckets, split = src._captured_now()
+        for t_w in self.mixed_buckets:
+            if t_w in buckets or self.actions is not None:
+                self._warm_mixed_bucket(t_w)
+        if split:
+            self._warm_split_step()
 
     def _log_request(self, req: Request, reason: str) -> None:
         """Emit the canonical wide-event line for a terminal request
@@ -1589,6 +1650,30 @@ class ServeEngine:
                 "phase": guilty["phase"], "dur_us": round(float(guilty["dur_us"]), 1),
                 "baseline_us": round(float(guilty["baseline_us"]), 1), "tick": sent.ticks})
         return outliers
+
+    def _tick_budget(self) -> int:
+        """This tick's token budget: the configured budget, capped by the
+        ActionPolicy's shed-prefill verdict (decode rows are never shed:
+        the floor is max_slots).  Every budget it can give picks a bucket
+        of ``mixed_buckets``, which ``warmup`` captures (and a clone with
+        actions captures up front, ``share_compiled_steps``)."""
+        if self.actions is None:
+            return self.tick_token_budget
+        return self.actions.plan_budget(self.tick_token_budget, self.scheduler.max_slots)
+
+    def _actions_tick(self, outliers: list[dict]) -> None:
+        """Feed one tick's sentinel verdicts and SLO burn to the
+        ActionPolicy; count and trace every flip (the
+        ``llm_serve_lifecycle_actions_total{action=}`` series and the
+        ``lifecycle-action`` instants).  ``self.actions`` is re-read at
+        each use: the supervisor mutes a dead engine by clearing it."""
+        if self.actions is None:
+            return
+        for action in self.actions.on_tick(outliers, self.metrics.slo):
+            self.metrics.on_lifecycle_action(action)
+            if self.tracer is not None and self.actions is not None:
+                self.tracer.instant("lifecycle-action", cat="lifecycle",
+                                    args={"action": action, **self.actions.state_args()})
 
     def _fair_prefill_order(self, running: list[Request]) -> list[Request]:
         """The tenant-fairness prefill order: the running list sorted by
@@ -1697,6 +1782,7 @@ class ServeEngine:
         that started untraced records nothing."""
         t0 = self.tracer.now_us() if self.tracer is not None else -1.0
         fetches0 = self.n_host_fetches
+        outliers: list[dict] = []
         self._tier_tick_start()
         self._sweep_deadlines()
         admitted = self.scheduler.admit()
@@ -1816,11 +1902,12 @@ class ServeEngine:
             if self.sentinel is not None:
                 # the tick's phases, and the roofline deficit as a
                 # pseudo-phase, so a utilization regression pages too
-                self._sentinel_observe((
+                outliers = self._sentinel_observe((
                     ("admission", t0, t1), ("prefill", t1, t2),
                     ("grow", t2, t3), ("decode_dispatch", t3, t4),
                     ("host_sync", t4, t5), ("deliver", t5, t6),
                 ) + ((("roofline_deficit", 0.0, tel["deficit_us"]),) if tel is not None else ()))
+        self._actions_tick(outliers)
         return self.scheduler.has_work
 
     def _dispatch_faults(self, has_prefill: bool) -> None:
@@ -2040,6 +2127,7 @@ class ServeEngine:
         re-read at every hook, as in the phase-split tick."""
         t0 = self.tracer.now_us() if self.tracer is not None else -1.0
         fetches0 = self.n_host_fetches
+        outliers: list[dict] = []
         self._tier_tick_start()
         self._sweep_deadlines()
         admitted = self.scheduler.admit()
@@ -2067,7 +2155,7 @@ class ServeEngine:
         t2 = self.tracer.now_us() if self.tracer is not None else -1.0
 
         decode_rows, prefill_segs = self.scheduler.plan_tick(
-            self.tick_token_budget, self.prefill_chunk,
+            self._tick_budget(), self.prefill_chunk,
             prefill_order=(self._fair_prefill_order
                            if self.tenants is not None and self.tenants.fairness else None))
         t3 = self.tracer.now_us() if self.tracer is not None else -1.0
@@ -2176,12 +2264,13 @@ class ServeEngine:
             if self.sentinel is not None:
                 # the tick's phases, and the roofline deficit as a
                 # pseudo-phase, so a utilization regression pages too
-                self._sentinel_observe((
+                outliers = self._sentinel_observe((
                     ("admission", t0, t1), ("draft", t1, td),
                     ("grow", td, t2), ("plan", t2, t3),
                     ("mixed_dispatch", t3, t4),
                     ("host_sync", t4, t5), ("deliver", t5, t6),
                 ) + ((("roofline_deficit", 0.0, tel["deficit_us"]),) if tel is not None else ()))
+        self._actions_tick(outliers)
         return self.scheduler.has_work
 
     # ------------------------------------------------------------------

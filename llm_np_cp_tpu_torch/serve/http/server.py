@@ -65,13 +65,18 @@ engine's fault injector.  A restart mutes the dead engine's tracer,
 sentinel and tenant ledger (the rebuilt engine shares them), stamps
 ``engine-death`` and a ``restart`` span (or ``engine-terminal-crash``)
 on the trace, and the rebuild's captures are never tick spans or
-sentinel samples (they run outside ``step``).  What the JAX server has
-beyond this slice raises ``NotImplementedError`` naming its layer: a
-``ReplicaRunner`` fleet (``runner=``) and rolling upgrades
-(``upgrade_loader=``, ``EngineRunner.rolling_upgrade`` and its parts);
-SLO load shedding (a 503 with a burn-scaled Retry-After) is the
-lifecycle layer's ``ActionPolicy``, not ported.  ``/admin/upgrade`` and
-``/admin/scale`` answer as the JAX server does with those layers off.
+sentinel samples (they run outside ``step``).
+
+The fleet and its lifecycle (``serve/replica.py``, ``serve/lifecycle.py``):
+``runner=`` takes a ``ReplicaRunner`` (one ``EngineRunner`` a replica,
+each ticking on its own thread and CUDA stream, behind the
+prefix-affinity router; ``/healthz`` lists the replicas and reads
+``degraded`` while one is dark, ``/metrics`` labels each replica's
+series); ``POST /admin/upgrade`` rolls the fleet (or the single engine
+in place) onto what ``upgrade_loader`` returns, ``POST /admin/scale``
+grows or shrinks a fleet, one admin operation at a time (409 otherwise);
+and an engine's ``ActionPolicy`` sheds fresh completions 503-first with
+a burn-scaled ``Retry-After`` while the SLO budget burns.
 """
 
 from __future__ import annotations
@@ -133,10 +138,6 @@ _REASONS = {
 MAX_BODY_BYTES = 8 << 20
 
 
-def _not_ported(what: str, layer: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to PyTorch yet: it is the {layer} slice")
-
-
 class EngineRunner:
     """Runs the engine's tick loop on a worker thread, supervises it, and
     bridges it to asyncio handlers.
@@ -186,6 +187,9 @@ class EngineRunner:
                  restart_window_s: float = 300.0) -> None:
         self.engine = engine
         self.faults = getattr(engine, "faults", None)
+        # which replica this runner is in a fleet (ReplicaRunner sets it);
+        # the request log tags every line with it
+        self.replica_index = 0
         self.request_timeout = request_timeout
         self.idle_poll_s = idle_poll_s
         self.tick_deadline = tick_deadline
@@ -214,6 +218,10 @@ class EngineRunner:
         # set when the tick thread dies terminally: the server turns
         # /healthz unhealthy and rejects new work
         self.crashed: str | None = None
+        # one rolling upgrade at a time (the fleet-of-one roll): a second
+        # detach would supersede the first rebuild's generation, and its
+        # replay snapshot would run nowhere
+        self._upgrade_lock = threading.Lock()
         # -- supervision state, guarded by _sup_lock: reentrant, since
         # _exec holds it across engine calls and an abort's terminal
         # event re-enters it through the bridge callbacks
@@ -245,6 +253,13 @@ class EngineRunner:
         # tokens and text deltas delivered so far), in FIFO order; also
         # what a Last-Event-ID resume replays
         self._inflight: dict[int, dict] = {}
+        # a planned weight swap's (params, version, share_from) for the
+        # next rebuild (rolling upgrade); consumed by _rebuild_and_replay
+        self._pending_weights: tuple | None = None
+        # fleet hook (serve/replica.ReplicaRunner): called from
+        # _terminal_crash with the in-flight replay list; returns the rids
+        # a live peer adopted (those streams are not abort-flushed)
+        self.on_terminal_crash = None
         # terminal output of streams that finished with no client
         # attached (journal-recovered ones above all), kept so a late
         # resume gets its suffix + finish; bounded LRU
@@ -313,7 +328,7 @@ class EngineRunner:
                    "drains": int(rec.get("drains", 0))}
         cb, on_event = self._bridge(gen)
         try:
-            engine.recover(
+            req = engine.recover(
                 rec["prompt"], rec["max_tokens"], request_id=rid, seed=rec["seed"],
                 generated=tokens, callback=cb, on_event=on_event,
                 deadline_at=rec.get("deadline_at"), trace_id=rec.get("trace"),
@@ -324,6 +339,9 @@ class EngineRunner:
             self._finish_replayed(gen, rec, "aborted")
             print(f"[serve] recovery dropped request {rid}: {e}", file=sys.stderr)
         else:
+            # the request now lives on this runner's replica (a drain
+            # adoption moved it): the request log tags it here
+            req.extra["replica"] = self.replica_index
             with self._sup_lock:
                 if gen == self._gen:
                     self._inflight[rid] = dict(
@@ -417,6 +435,12 @@ class EngineRunner:
             return "crashed"
         return "degraded" if self.recovering else "ok"
 
+    def serving_engines(self) -> list:
+        """Engines whose ActionPolicy verdicts may govern admission: a
+        crashed engine's tick thread can never release a shed flag, so
+        its frozen verdict must not shed the server forever."""
+        return [] if self.crashed else [self.engine]
+
     def next_rid(self) -> int:
         return next(self._rid)
 
@@ -436,20 +460,87 @@ class EngineRunner:
     def abort_all(self) -> None:
         self._cmds.put(("abort_all",))
 
-    # -- the rolling upgrade: a later slice ------------------------------
+    # -- planned lifecycle (rolling weight swap) -------------------------
     def detach_inflight(self) -> list[dict]:
-        raise _not_ported("EngineRunner.detach_inflight", "lifecycle (rolling upgrade)")
+        """Supersede the live tick generation and hand back the in-flight
+        replay snapshot: the first half of a planned swap (upgrade or
+        removal), with the crash path's discipline (the old thread turns
+        zombie, its commands handed back).  The snapshot is what peers
+        adopt (a drain) or the rebuilt engine replays."""
+        with self._sup_lock:
+            self._gen += 1
+            self.recovering = True
+            self._beat = time.monotonic()
+            # the rebuild captures every bucket again: the same grace a
+            # backoff restart gets
+            self._backoff_delay = max(self._backoff_delay, 10.0)
+            replay = [dict(rec, tokens=list(rec["tokens"]),
+                           deltas=list(rec.get("deltas") or ()))
+                      for rec in self._inflight.values()]
+            self._inflight.clear()
+        self._cmds.put(("wake",))  # unblock an idle superseded thread
+        return replay
 
     def rebuild_upgraded(self, params: Any, version: int, replay: list[dict], *,
                          share_from: Any = None) -> None:
-        raise _not_ported("EngineRunner.rebuild_upgraded", "lifecycle (rolling upgrade)")
+        """Second half of the swap: spawn the new generation's tick thread,
+        which waits for the superseded thread to finish its tick, rebuilds
+        with ``clone_fresh(params=...)`` (every bucket the old engine had
+        captured is captured again before it serves, and those of
+        ``share_from``, a peer that already rolled) and replays ``replay``
+        teacher-forced.  Caller ran ``detach_inflight`` first."""
+        with self._sup_lock:
+            if self._stop.is_set():
+                raise RuntimeError("runner is stopped")
+            self._pending_weights = (params, int(version), share_from)
+            new_gen = self._gen
+        self._spawn_thread(new_gen, replay=replay, after=self._thread)
 
     def await_recovered(self, timeout_s: float = 300.0) -> None:
-        raise _not_ported("EngineRunner.await_recovered", "lifecycle (rolling upgrade)")
+        """Block until the rebuilt engine completes its first loop pass
+        (``recovering`` clears): a roll moves on only once this replica
+        serves again."""
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            if self.crashed:
+                raise RuntimeError(f"replica crashed during upgrade: {self.crashed}")
+            if not self.recovering:
+                return
+            time.sleep(0.01)
+        raise TimeoutError(f"upgrade rebuild did not complete within {timeout_s:g}s")
 
     def rolling_upgrade(self, params_fn: Any, *, version: int | None = None,
                         timeout_s: float = 300.0) -> dict:
-        raise _not_ported("EngineRunner.rolling_upgrade", "lifecycle (rolling upgrade)")
+        """The fleet-of-one roll (``POST /admin/upgrade`` on a single-engine
+        server): no peer to drain to, so in-flight streams are replayed in
+        place on the rebuilt engine, teacher-forced — delivered tokens
+        never change; tokens still to come sample from the new weights,
+        and the request's version tag records its admission version."""
+        from llm_np_cp_tpu_torch.serve.lifecycle import UpgradeAborted, load_upgrade_params
+
+        if not self._upgrade_lock.acquire(blocking=False):
+            raise RuntimeError("a rolling upgrade is already in progress")
+        try:
+            if self.crashed:
+                raise RuntimeError(f"cannot upgrade a crashed server: {self.crashed}")
+            params = load_upgrade_params(
+                params_fn, replica=self.replica_index, faults=self.faults,
+                metrics=self.engine.metrics, rolled=[], version=version)
+            if version is None:
+                version = self.engine.weights_version + 1
+            replay = [dict(rec, detached_ok=True) for rec in self.detach_inflight()]
+            self.rebuild_upgraded(params, version, replay)
+            try:
+                self.await_recovered(timeout_s)
+            except TimeoutError as e:
+                # the same clean abort shape as a checkpoint failure: the
+                # admin handler answers 500, the supervisor keeps going
+                raise UpgradeAborted(f"replica {self.replica_index} rebuild timed out: {e}",
+                                     rolled=[], version=version) from e
+            self.engine.metrics.on_lifecycle_action("upgrade_replica")
+            return {"rolled": [self.replica_index], "version": version}
+        finally:
+            self._upgrade_lock.release()
 
     # -- engine-thread side -------------------------------------------
     def _push(self, rid: int, item: tuple) -> None:
@@ -555,6 +646,11 @@ class EngineRunner:
                 self._push(rid, ("error", str(e)))
                 self._live.pop(rid, None)
             else:
+                # route verdict and replica tag for the request log (the
+                # fleet's router filled payload.route_spilled)
+                req.extra["replica"] = self.replica_index
+                if getattr(payload, "route_spilled", False):
+                    req.extra["spilled"] = True
                 self._inflight[rid] = {
                     "rid": rid,
                     "prompt": payload.prompt_ids,
@@ -578,6 +674,10 @@ class EngineRunner:
                 self._push(rid, ("accepted",))
         elif kind == "attach":
             self._exec_attach(cmd)
+        elif kind == "recover":
+            # a peer replica's drained stream (fleet adoption): the same
+            # teacher-forced move as a restart replay
+            self._replay_one(gen, cmd[1], require_live=False)
         elif kind == "abort":
             self.engine.abort(cmd[1])
         elif kind == "abort_all":
@@ -641,17 +741,22 @@ class EngineRunner:
         return stack
 
     def _spawn_thread(self, gen: int, *, delay: float = 0.0,
-                      replay: list[dict] | None = None) -> None:
-        self._thread = threading.Thread(target=self._run, args=(gen, delay, replay),
+                      replay: list[dict] | None = None,
+                      after: threading.Thread | None = None) -> None:
+        self._thread = threading.Thread(target=self._run, args=(gen, delay, replay, after),
                                         name=f"serve-engine-tick-{gen}", daemon=True)
         self._thread.start()
 
-    def _run(self, gen: int, delay: float = 0.0, replay: list[dict] | None = None) -> None:
-        """One generation's tick thread: the backoff, then (after a death)
-        the rebuild and replay, then the loop — all on the engine's device
-        and stream, so the rebuilt engine's captures and replays run where
-        ``warmup`` captured the first engine's."""
+    def _run(self, gen: int, delay: float = 0.0, replay: list[dict] | None = None,
+             after: threading.Thread | None = None) -> None:
+        """One generation's tick thread: the backoff, then (after a death
+        or a planned swap) the rebuild and replay, then the loop — all on
+        the engine's device and stream.  A planned swap first waits for
+        the superseded thread (``after``) to finish its tick, so the
+        rebuild never retires an engine in the middle of one."""
         try:
+            if after is not None and after is not threading.current_thread():
+                after.join(timeout=60.0)
             if delay:
                 time.sleep(delay)
             if self._stop.is_set():
@@ -707,6 +812,11 @@ class EngineRunner:
                 # bridge: dropping them keeps a long-running server flat
                 engine.scheduler.finished.clear()
                 engine.scheduler.aborted.clear()
+            elif engine.actions is not None:
+                # an idle server must still release its auto-actions:
+                # shed_load 503s the fresh work whose ticks would release
+                # it, so an idle pass feeds the policy a clean tick
+                engine._actions_tick([])
             # tick heartbeat: idle passes beat every idle_poll_s, so only
             # a stuck tick starves it (a superseded thread must not
             # freshen the heartbeat the live generation is judged by)
@@ -727,16 +837,26 @@ class EngineRunner:
         engine now owns; (b) ``clone_fresh`` allocates the fresh pool into
         that memory and (c) captures every bucket before the replay, so no
         capture lands inside a serving tick; then every in-flight request
-        is resubmitted with its delivered tokens teacher-forced."""
+        is resubmitted with its delivered tokens teacher-forced.  A
+        planned weight swap (``rebuild_upgraded``) rides the same path
+        with the new params and version, and captures the buckets of the
+        peer it names too."""
         old = self.engine
         tr = old.tracer
         t_restart = tr.now_us() if tr is not None else 0.0
         t0 = time.perf_counter()
         with self._sup_lock:
             self._rebuilding = gen
+            pend = self._pending_weights
         try:
             old.retire(f"superseded by restart generation {gen}")
-            engine = old.clone_fresh()
+            if pend is not None:
+                new_params, new_version, share_from = pend
+                engine = old.clone_fresh(params=new_params, weights_version=new_version)
+                if share_from is not None:
+                    engine.share_compiled_steps(share_from)
+            else:
+                engine = old.clone_fresh()
         finally:
             with self._sup_lock:
                 if gen == self._gen:
@@ -761,6 +881,7 @@ class EngineRunner:
         old.tracer = None
         old.sentinel = None
         old.tenants = None
+        old.actions = None
         with self._sup_lock:
             if gen != self._gen:
                 # superseded during the rebuild: the newer generation
@@ -768,10 +889,15 @@ class EngineRunner:
                 engine.retire("superseded during its rebuild")
                 return
             self.engine = engine
+            if pend is not None and self._pending_weights is pend:
+                self._pending_weights = None
         for rec in replay:
             if gen != self._gen:
                 return  # superseded mid-replay: the newer thread redoes it
-            self._replay_one(gen, rec)
+            # an upgrade's leftover streams keep generating detached (a
+            # journal-recovered client may attach later); a crash
+            # restart's streams must have a live client
+            self._replay_one(gen, rec, require_live=not rec.pop("detached_ok", False))
             if gen == self._gen:
                 self._beat = time.monotonic()
         if tr is not None:
@@ -824,7 +950,18 @@ class EngineRunner:
             tr.instant("engine-terminal-crash", cat="supervisor", args={"reason": reason})
         self._gen += 1
         self.recovering = False
+        # fleet drain (serve/replica.ReplicaRunner): a live peer can adopt
+        # this runner's unterminated streams; their clients see a pause,
+        # then the peer's teacher-forced continuation, not an abort
+        adopted: set[int] = set()
+        hook = self.on_terminal_crash
+        if hook is not None and self._inflight:
+            adopted = hook([dict(rec, tokens=list(rec["tokens"]),
+                                 deltas=list(rec.get("deltas") or ()))
+                            for rec in self._inflight.values()])
         for rid in list(self._live):
+            if rid in adopted:
+                continue  # a peer now owns this stream's bridge entry
             self._push(rid, ("finish", "aborted", None))
             self._live.pop(rid, None)
         # the flush is these requests' terminal: journal it (the writer
@@ -832,7 +969,8 @@ class EngineRunner:
         # streams whose clients already saw "aborted"
         if self.journal is not None:
             for rid in self._inflight:
-                self.journal.terminal(rid, "aborted")
+                if rid not in adopted:
+                    self.journal.terminal(rid, "aborted")
         self._inflight.clear()
 
     def _watch(self) -> None:
@@ -877,19 +1015,23 @@ class HttpServer:
         runner: Any = None,
         upgrade_loader: Any = None,
     ) -> None:
-        if runner is not None:
-            raise _not_ported("HttpServer(runner=...), a ReplicaRunner fleet,", "fleet")
-        if upgrade_loader is not None:
-            raise _not_ported("HttpServer(upgrade_loader=...), rolling weight upgrades,",
-                              "lifecycle")
         self.engine = engine
         self.model_id = model_id
+        # rolling weight swaps (POST /admin/upgrade): the loader maps the
+        # request body to fresh params; None = the endpoint 404s with a
+        # hint.  One admin mutation at a time: a roll and a scale racing
+        # would drain the same peers out from under each other
+        self.upgrade_loader = upgrade_loader
+        self._admin_lock = threading.Lock()
         self.tokenizer = tokenizer if tokenizer is not None \
             else getattr(engine, "tokenizer", None)
         self.drain_timeout = drain_timeout
         self.default_max_tokens = default_max_tokens
         self.max_tokens_cap = max_tokens_cap
-        self.runner = EngineRunner(
+        # ``runner`` injects a prebuilt fleet (serve/replica.ReplicaRunner:
+        # N supervised replicas behind prefix-affinity routing); the
+        # default is the single-engine runner
+        self.runner = runner if runner is not None else EngineRunner(
             engine, request_timeout=request_timeout,
             tick_deadline=tick_deadline, max_restarts=max_restarts,
             restart_backoff_s=restart_backoff_s, restart_window_s=restart_window_s,
@@ -1011,6 +1153,9 @@ class HttpServer:
                 "restarts": self.runner.restarts,
                 "weights_version": self.runner.engine.weights_version,
             }
+            replica_states = getattr(self.runner, "replica_states", None)
+            if replica_states is not None:
+                payload["replicas"] = replica_states()
             if crashed:
                 payload["error"] = crashed
             await self._respond(writer, status, json.dumps(payload).encode())
@@ -1019,20 +1164,9 @@ class HttpServer:
                 writer, 200, self._render_metrics().encode(),
                 content_type="text/plain; version=0.0.4; charset=utf-8")
         elif method == "GET" and path == "/debug/slo":
-            tracker = self.runner.engine.metrics.slo
-            if tracker is None:
-                await self._respond_error(writer, HTTPError(
-                    404, "SLO accounting is off; start the server with --slo-ttft/--slo-tpot"))
-            else:
-                await self._respond(writer, 200, json.dumps(aggregate_slo([tracker])).encode())
+            await self._respond_slo(writer)
         elif method == "GET" and path == "/debug/tenants":
-            ledger = self.runner.engine.tenants
-            if ledger is None:
-                await self._respond_error(writer, HTTPError(
-                    404, "tenant accounting is off; start the server with --tenants"))
-            else:
-                await self._respond(writer, 200,
-                                    json.dumps(aggregate_tenants([ledger])).encode())
+            await self._respond_tenants(writer)
         elif method == "GET" and path == "/debug/trace":
             tracer = self.tracer
             if tracer is None:
@@ -1050,15 +1184,12 @@ class HttpServer:
             if method != "POST":
                 await self._respond_error(writer, HTTPError(405, "use POST for /admin/upgrade"))
             else:
-                await self._respond_error(writer, HTTPError(
-                    404, "no upgrade loader configured; the serve CLI "
-                    "wires one (POST /admin/upgrade)"))
+                await self._admin_upgrade(writer, body)
         elif path == "/admin/scale":
             if method != "POST":
                 await self._respond_error(writer, HTTPError(405, "use POST for /admin/scale"))
             else:
-                await self._respond_error(writer, HTTPError(
-                    400, "single-engine server cannot scale; start with --replicas N"))
+                await self._admin_scale(writer, body)
         elif path == "/v1/completions":
             if method != "POST":
                 await self._respond_error(writer, HTTPError(405, "use POST for /v1/completions"))
@@ -1109,15 +1240,13 @@ class HttpServer:
 
     def _render_metrics(self) -> str:
         """The JAX server's scrape: the metrics' exposition plus its live
-        gauges, in its order.  Host reads only (the pool's counts and the
-        pages' shapes): no CUDA call from the event loop.  The runner's
-        engine, not ``self.engine``: a supervised restart rebinds it."""
+        gauges, in its order (a fleet renders its replicas' series with a
+        ``replica`` label, ``ReplicaRunner.render_metrics``).  Host reads
+        only (the pool's counts and the pages' shapes): no CUDA call from
+        the event loop.  The runner's engine, not ``self.engine``: a
+        supervised restart rebinds it."""
         runner = self.runner
         engine = runner.engine
-        stats = engine.pool.stats()
-        wv = engine.weights_version
-        faults = runner.faults
-        recov = runner.recovery_latency_s
         journal_gauges = {
             "journal_replayed_total": float(runner.journal_replayed),
             "journal_resumed_total": float(runner.journal_resumed),
@@ -1132,8 +1261,9 @@ class HttpServer:
                 "otlp_spans_dropped_total": float(ostats["dropped"]),
                 "otlp_export_errors_total": float(ostats["export_errors"]),
             })
-        if runner.journal is not None:
-            jstats = runner.journal.stats()
+        journal = getattr(runner, "journal", None)
+        if journal is not None:
+            jstats = journal.stats()
             journal_gauges.update({
                 "journal_records_total": float(jstats["records"]),
                 "journal_fsync_p99_s": jstats["fsync_p99_s"],
@@ -1141,6 +1271,14 @@ class HttpServer:
                     jstats["write_errors"] + jstats["fsync_errors"]),
                 "journal_epoch": float(jstats["epoch"]),
             })
+        render = getattr(runner, "render_metrics", None)
+        if render is not None:
+            return render(extra_gauges={"draining": 1.0 if self.draining else 0.0,
+                                        **journal_gauges})
+        stats = engine.pool.stats()
+        wv = engine.weights_version
+        faults = runner.faults
+        recov = runner.recovery_latency_s
         text = engine.metrics.prometheus(
             # the version label appears once an upgrade rolled (wv > 0)
             const_labels={"version": str(wv)} if wv else None,
@@ -1167,6 +1305,150 @@ class HttpServer:
             # ledger's top-max_series roll-up
             text += engine.tenants.prometheus(const_labels={"version": str(wv)} if wv else None)
         return text
+
+    async def _respond_slo(self, writer: asyncio.StreamWriter) -> None:
+        """``GET /debug/slo``: the SLO accounting as one JSON, summed across
+        a fleet's replicas with a per-replica breakdown; 404 and a hint
+        when no tracker is attached."""
+        replicas = getattr(self.runner, "replicas", None)
+        runners = replicas if replicas is not None else [self.runner]
+        trackers = [r.engine.metrics.slo for r in runners]
+        if not any(t is not None for t in trackers):
+            await self._respond_error(writer, HTTPError(
+                404, "SLO accounting is off; start the server with --slo-ttft/--slo-tpot"))
+            return
+        body = aggregate_slo(trackers)
+        if replicas is not None:
+            body["replicas"] = [t.snapshot() if t is not None else None for t in trackers]
+        await self._respond(writer, 200, json.dumps(body).encode())
+
+    async def _respond_tenants(self, writer: asyncio.StreamWriter) -> None:
+        """``GET /debug/tenants``: the per-tenant accounting as one JSON,
+        summed across a fleet's replicas with a per-replica breakdown;
+        404 and a hint when no ledger is attached."""
+        replicas = getattr(self.runner, "replicas", None)
+        runners = replicas if replicas is not None else [self.runner]
+        ledgers = [r.engine.tenants for r in runners]
+        if not any(t is not None for t in ledgers):
+            await self._respond_error(writer, HTTPError(
+                404, "tenant accounting is off; start the server with --tenants"))
+            return
+        body = aggregate_tenants(ledgers)
+        if replicas is not None:
+            body["replicas"] = [t.snapshot() if t is not None else None for t in ledgers]
+        await self._respond(writer, 200, json.dumps(body).encode())
+
+    # -- fleet lifecycle admin (serve/lifecycle.py) ----------------------
+    async def _admin_upgrade(self, writer: asyncio.StreamWriter, body: bytes) -> None:
+        """``POST /admin/upgrade``: roll the fleet onto fresh weights, one
+        replica at a time, no stream dropped.  Body (optional JSON):
+        ``{"model": <what the loader reads>, "version": N}``.  Answers
+        after the roll with ``{"rolled": [...], "version"}``; 409 while
+        another admin operation runs, 500 with the rolled prefix when the
+        roll aborted (the fleet keeps serving, mixed-version)."""
+        from llm_np_cp_tpu_torch.serve.lifecycle import UpgradeAborted
+
+        if self.upgrade_loader is None:
+            await self._respond_error(writer, HTTPError(
+                404, "no upgrade loader configured; the serve CLI "
+                "wires one (POST /admin/upgrade)"))
+            return
+        try:
+            data = json.loads(body) if body else {}
+            if not isinstance(data, dict):
+                raise ValueError("body must be a JSON object")
+        except ValueError as e:
+            await self._respond_error(writer, HTTPError(400, f"bad JSON body: {e}"))
+            return
+        version = data.get("version")
+        if version is not None and (not isinstance(version, int) or isinstance(version, bool)
+                                    or version < 1):
+            await self._respond_error(writer, HTTPError(
+                400, f"version must be a positive integer, got {version!r}"))
+            return
+        if not self._admin_lock.acquire(blocking=False):
+            await self._respond_error(writer, HTTPError(
+                409, "an admin operation is already in progress"))
+            return
+        loader = self.upgrade_loader
+        loop = asyncio.get_running_loop()
+        try:
+            result = await loop.run_in_executor(
+                None, lambda: self.runner.rolling_upgrade(lambda: loader(data), version=version))
+        except UpgradeAborted as e:
+            await self._respond(writer, 500, json.dumps({
+                "error": str(e), "rolled": e.rolled}).encode())
+            return
+        except RuntimeError as e:
+            # only a concurrent roll is a conflict; a crashed or stopped
+            # runner or an empty fleet is unavailability (a 409 would invite
+            # retries against a fleet that can never finish a roll)
+            status = 409 if "in progress" in str(e) else 503
+            await self._respond_error(writer, HTTPError(status, str(e)))
+            return
+        finally:
+            self._admin_lock.release()
+        await self._respond(writer, 200, json.dumps(result).encode())
+
+    async def _admin_scale(self, writer: asyncio.StreamWriter, body: bytes) -> None:
+        """``POST /admin/scale`` ``{"replicas": N}``: elastic data
+        parallelism for a fleet — grow with warmed share-nothing clones,
+        shrink with drain-to-peer removals."""
+        if getattr(self.runner, "add_replica", None) is None:
+            await self._respond_error(writer, HTTPError(
+                400, "single-engine server cannot scale; start with --replicas N"))
+            return
+        try:
+            data = json.loads(body) if body else {}
+            n = data["replicas"]
+            if not isinstance(n, int) or isinstance(n, bool) or not (1 <= n <= 64):
+                raise ValueError(f"replicas must be in [1, 64], got {n!r}")
+        except (KeyError, TypeError, ValueError) as e:
+            await self._respond_error(writer, HTTPError(
+                400, f'bad body (want {{"replicas": N}}): {e}'))
+            return
+        if not self._admin_lock.acquire(blocking=False):
+            await self._respond_error(writer, HTTPError(
+                409, "an admin operation is already in progress"))
+            return
+
+        def apply() -> tuple[list[int], list[int]]:
+            added: list[int] = []
+            removed: list[int] = []
+            while self.runner.active_replicas() < n:
+                added.append(self.runner.add_replica())
+            while self.runner.active_replicas() > n:
+                removed.append(self.runner.remove_replica())
+            return added, removed
+
+        loop = asyncio.get_running_loop()
+        try:
+            added, removed = await loop.run_in_executor(None, apply)
+        except RuntimeError as e:
+            await self._respond_error(writer, HTTPError(400, str(e)))
+            return
+        finally:
+            self._admin_lock.release()
+        await self._respond(writer, 200, json.dumps({
+            "replicas": self.runner.active_replicas(),
+            "added": added, "removed": removed,
+            "states": self.runner.replica_states(),
+        }).encode())
+
+    def _shed_retry_after(self) -> float | None:
+        """503-first load shedding: the largest Retry-After across serving
+        replicas whose ActionPolicy sheds, or None while admission is
+        open.  Only serving replicas vote (``serving_engines``): a removed
+        or crashed replica can never release its flag.  The reads race
+        the tick threads by design: one request admitted a tick early or
+        late is noise."""
+        worst = None
+        for engine in self.runner.serving_engines():
+            acts = engine.actions
+            if acts is not None and acts.shedding:
+                ra = acts.retry_after()
+                worst = ra if worst is None else max(worst, ra)
+        return worst
 
     # ------------------------------------------------------------------
     async def _completions(self, reader: asyncio.StreamReader,
@@ -1197,6 +1479,17 @@ class HttpServer:
                 # protocol's POST spelling
                 rid, last_idx, echo_model = resume
                 await self._resume(reader, writer, rid, last_idx, echo_model, t_accept)
+                return
+            # 503-first load shedding (serve/lifecycle.ActionPolicy): while
+            # the SLO error budget burns past threshold, fresh admissions
+            # shed at the door with a burn-scaled Retry-After (resumes,
+            # above, attach to work already done and always pass)
+            shed = self._shed_retry_after()
+            if shed is not None:
+                await self._respond_error(writer, HTTPError(
+                    503, "load shedding: SLO error budget is burning past threshold; "
+                    "retry later", etype="server_error",
+                    headers=(("Retry-After", f"{shed:g}"),)))
                 return
             payload = parse_completion_request(
                 body, model_id=self.model_id, tokenizer=self.tokenizer,

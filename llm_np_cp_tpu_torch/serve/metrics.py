@@ -45,15 +45,17 @@ flat dict (``snapshot()``), so tests, ``chip_smoke.py`` and the HTTP
                              with a tracker attached
 - ``anomaly_ticks``        — per-phase outlier counts of the tick
                              sentinel
+- ``lifecycle_actions``    — fleet lifecycle events (``serve/lifecycle.py``:
+                             auto-action flips, rolled replicas, aborted
+                             rolls, elastic add/remove), present only once
+                             one happened
 
 ``ttft_s`` and ``decode_tok_s`` also keep real Prometheus histograms
 (``TTFT_BUCKETS`` / ``DECODE_TOK_S_BUCKETS``) updated at record time, so
 they stay exact when ``max_samples`` trims the percentile windows (the
 HTTP runner sets it for a long-running server).  ``prometheus()``
 renders the text exposition format (0.0.4) and ``format()`` the operator
-block, both as the JAX package renders them for the layers the port has;
-the lifecycle-action series (a later slice) is absent, as the JAX
-package leaves it out when that layer is off.  ``requests_recovered_total``
+block, both as the JAX package renders them.  ``requests_recovered_total``
 counts the requests a supervised restart or a journal replay resubmitted
 (``on_recover``).
 
@@ -110,6 +112,10 @@ class ServeMetrics:
         self.slo = slo
         # the tick sentinel's outliers by phase (ServeEngine._sentinel_observe)
         self.anomaly_ticks: Counter[str] = Counter()
+        # fleet lifecycle events (serve/lifecycle.ActionPolicy flips,
+        # rolling upgrades, elastic add/remove), exported as
+        # llm_serve_lifecycle_actions_total{action=}
+        self.lifecycle_actions: Counter[str] = Counter()
         # bounded retention for long-running servers: None keeps every
         # sample (exact full-trace percentiles); an int caps each value
         # list, dropping the oldest half on overflow (percentiles become
@@ -228,6 +234,14 @@ class ServeMetrics:
         with self._lock:
             self.anomaly_ticks[phase] += 1
 
+
+    def on_lifecycle_action(self, action: str) -> None:
+        """One fleet lifecycle event: an ActionPolicy flip
+        (shed_prefill_on/off, shed_load_on/off), a rolled replica
+        (upgrade_replica), an aborted roll, or an elastic
+        add/remove_replica."""
+        with self._lock:
+            self.lifecycle_actions[action] += 1
     def on_telemetry(self, tel: dict[str, Any]) -> None:
         """One telemetry record (serve/telemetry.py): a roofline-graded
         dispatch (``roofline: True``, the unified tick's step or the split
@@ -396,6 +410,8 @@ class ServeMetrics:
                 out.update(self.slo.snapshot())
             if self.anomaly_ticks:
                 out["anomaly_ticks"] = dict(self.anomaly_ticks)
+            if self.lifecycle_actions:
+                out["lifecycle_actions"] = dict(self.lifecycle_actions)
             if self.roofline_ticks:
                 # only once a graded dispatch ran: zeros would read as a
                 # stalled device
@@ -608,6 +624,13 @@ class ServeMetrics:
                  "outlier vs its rolling baseline",
                  [(f'{{phase="{p}"}}', n)
                   for p, n in sorted(s["anomaly_ticks"].items())])
+        if s.get("lifecycle_actions"):
+            emit("lifecycle_actions_total", "counter",
+                 "Fleet lifecycle events: auto-action flips "
+                 "(shed_prefill/shed_load on/off), rolled replicas, "
+                 "elastic add/remove",
+                 [(f'{{action="{a}"}}', n)
+                  for a, n in sorted(s["lifecycle_actions"].items())])
         # -- real histograms: cumulative _bucket/_sum/_count from the
         # incrementally kept counters (exact, unlike the trimmed windows)
         with self._lock:

@@ -1,0 +1,1488 @@
+"""Data-parallel engine replicas behind one front end, with prefix-affinity
+routing (port of ``llm_np_cp_tpu/serve/replica.py``).
+
+Capacity past one engine's slots comes from N independent engine + pool
+stacks on the card and a router between them.  The router is where the
+prefix cache meets the fleet: two requests with the same prompt prefix
+share KV blocks only if they land on the same replica, so the router keys
+on the prefix cache's own chained content hash
+(``serve/prefix_cache.prefix_block_keys``: key equality here is block-key
+equality there) and sticks each prefix chain to one replica.
+Shared-prompt traffic therefore stays block-local; unrelated traffic
+spreads by least-loaded assignment, and queue pressure spills a request
+off its affine replica rather than letting affinity amplify a hot spot.
+
+Three layers, smallest first:
+
+- ``PrefixRouter``  — the routing policy (sticky prefix → replica map,
+  least-loaded assignment, spill on pressure, forget on death); no
+  engine, no tensor.
+- ``ReplicaSet``    — the direct-mode fleet for tests and benchmarks: N
+  engines ticked from one loop, ``submit`` / ``replay_trace`` as on one
+  engine, ``restart_replica`` (``clone_fresh`` + ``recover``, the
+  supervisor's discipline driven synchronously), rolling upgrades and
+  elastic add / remove.
+- ``ReplicaRunner`` — the HTTP fleet: one supervised ``EngineRunner``
+  (``serve/http/server.py``) a replica behind the runner interface
+  ``HttpServer`` speaks, so abort, drain and restart stay per replica —
+  one crashed replica degrades the server, it does not take it down.
+
+Replicas must be geometry-identical (same pool, slots, chunk): the router
+may send any request anywhere, so admission limits cannot differ.
+
+Where the card differs from the JAX fleet.  A CUDA graph replays its own
+engine's pool and buffer addresses, so no replica adopts a peer's
+compiled steps: a joining or rolled replica captures every bucket its
+source has captured before the router names it, never inside a serving
+tick (``ServeEngine.share_compiled_steps``).  ``clone_fresh`` retires its
+source, so ``add_replica`` clones a live replica with ``clone_peer``.  A
+removed replica keeps its slot and its terminal history, as in JAX, and
+is also retired, so its pool and graph pools go back to the card.  In
+the HTTP fleet each replica's tick thread runs on its own CUDA stream
+(a removed replica's stream is reused by the next ``add_replica``: every
+stream a step runs on keeps a cuBLAS workspace for the life of the
+process).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import hashlib
+import itertools
+import math
+import queue as queue_mod
+import sys
+import threading
+from functools import partial
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from llm_np_cp_tpu_torch.serve.lifecycle import (
+    UpgradeAborted,
+    cache_params_fn,
+    load_upgrade_params,
+)
+from llm_np_cp_tpu_torch.serve.metrics import ServeMetrics
+from llm_np_cp_tpu_torch.serve.prefix_cache import prefix_block_keys
+from llm_np_cp_tpu_torch.serve.scheduler import Request
+from llm_np_cp_tpu_torch.serve.slo import SLOTracker, TickSentinel, aggregate_slo
+from llm_np_cp_tpu_torch.serve.tenants import TenantLedger, aggregate_tenants
+from llm_np_cp_tpu_torch.serve.trace import replay_arrivals
+
+
+def _ceil_to(n: int, g: int) -> int:
+    return -(-n // g) * g
+
+
+def _fresh_replica_engine(src: Any) -> Any:
+    """A warmed new replica cloned from the live ``src`` (elastic
+    ``add_replica``): same geometry and params tensors, every bucket
+    ``src`` has captured captured again before it is routed to
+    (``clone_peer``), and share-nothing observability — its own metrics,
+    SLO tracker, sentinel, ActionPolicy and tenant ledger (per-tick-thread
+    state; a restart shares them because a restart is the same replica)
+    and no journal (a journal segment is a per-path resource the caller
+    wires).  On the card call it on the thread and stream that will tick
+    the clone."""
+    eng = src.clone_peer()
+    eng.journal = None
+    metrics = ServeMetrics(clock=src.clock)
+    slo = src.metrics.slo
+    if slo is not None:
+        metrics.slo = SLOTracker(slo.policy, clock=slo.clock)
+    eng.metrics = metrics
+    sent = src.sentinel
+    if sent is not None:
+        eng.sentinel = TickSentinel(
+            alpha=sent.alpha, threshold=sent.threshold,
+            warmup_ticks=sent.warmup_ticks, min_us=sent.min_us,
+        )
+    eng.actions = None if src.actions is None else src.actions.spawn()
+    ledger = src.tenants
+    if ledger is not None:
+        # share-nothing here too: each replica bills its own ledger (same
+        # config), and the scrape and debug endpoints aggregate
+        eng.tenants = TenantLedger(
+            fairness=ledger.fairness, max_inflight=ledger.max_inflight,
+            max_series=ledger.max_series, policy=ledger.policy,
+            clock=ledger.clock,
+        )
+    return eng
+
+
+# the HTTP fleet's tick streams, one a replica: a removed replica's
+# stream goes back here for the next add_replica, since every stream a
+# step runs on keeps a cuBLAS workspace for the life of the process
+_FREE_STREAMS: dict[torch.device, list[torch.cuda.Stream]] = {}
+_STREAMS_LOCK = threading.Lock()
+
+
+def _take_stream(device: torch.device) -> torch.cuda.Stream | None:
+    """A tick stream for a new replica on ``device`` (None on the CPU),
+    ordered after the caller's current stream (where the replica's
+    engine allocated and zeroed its pool)."""
+    if device.type != "cuda":
+        return None
+    with _STREAMS_LOCK:
+        free = _FREE_STREAMS.setdefault(device, [])
+        stream = free.pop() if free else torch.cuda.Stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    return stream
+
+
+def _give_stream(device: torch.device, stream: torch.cuda.Stream | None) -> None:
+    if stream is not None:
+        with _STREAMS_LOCK:
+            _FREE_STREAMS.setdefault(device, []).append(stream)
+
+
+def _on_stream(device: torch.device,
+               stream: torch.cuda.Stream | None) -> contextlib.AbstractContextManager:
+    """Enter ``stream`` on ``device`` (nothing on the CPU): an
+    ``EngineRunner`` built inside ticks on it."""
+    if stream is None:
+        return contextlib.nullcontext()
+    stack = contextlib.ExitStack()
+    stack.enter_context(torch.cuda.device(device))
+    stack.enter_context(torch.cuda.stream(stream))
+    return stack
+
+
+class PrefixRouter:
+    """Sticky prefix-affinity routing over ``n`` replicas.
+
+    ``affinity_key`` mirrors the engine's admission-time hashing exactly
+    (same left-pad, same share-unit truncation, same chained SHA-256),
+    so the deepest shareable block key of a prompt is the routing key —
+    if two prompts route together here, their leading blocks would have
+    matched in a replica's prefix cache, and vice versa.  Prompts too
+    short to share any block fall back to a whole-prompt hash: affinity
+    still groups exact duplicates, it just cannot promise block reuse.
+
+    Policy:
+    - **first sight**: a new key is assigned to the least-loaded alive
+      replica and remembered (``routed`` counts every affinity-honoring
+      verdict, first sights included).
+    - **spill**: when the sticky replica's queue depth is at least
+      ``spill_queue_depth`` AND some other alive replica's is strictly
+      lower, the request goes to the least-loaded replica instead
+      (``spilled``).  The sticky entry is NOT moved — a spill is load
+      shedding, not a migration; the prefix blocks still live where the
+      entry points.
+    - **death**: verdicts never name a dead replica; sticky entries
+      pointing at one are dropped on touch, so its prefixes re-home to
+      live replicas (their blocks died with the pool anyway).
+    """
+
+    def __init__(self, n_replicas: int, *, block_size: int,
+                 prefill_chunk: int,
+                 spill_queue_depth: int | None = 4) -> None:
+        if n_replicas < 1:
+            raise ValueError(f"n_replicas must be >= 1, got {n_replicas}")
+        self.n = n_replicas
+        self.block_size = block_size
+        self.prefill_chunk = prefill_chunk
+        # share granularity in blocks — must mirror ServeEngine._share_unit
+        self._unit = (
+            math.lcm(block_size, prefill_chunk) // block_size
+        )
+        self.spill_queue_depth = spill_queue_depth
+        self._sticky: dict[bytes, int] = {}
+        self._rr = 0  # rotating tiebreak so equal loads spread
+        self.routed = 0
+        self.spilled = 0
+
+    def affinity_chain(
+        self, prompt_ids: Any,
+    ) -> tuple[bytes, tuple[list[bytes], int] | None]:
+        """→ ``(routing key, reusable (keys, prefill_width) or None)``.
+
+        The routing key is the DEEPEST shareable prefix-block key of the
+        prompt — identical to the last entry of the chain the engine
+        registers in its prefix cache — or a whole-prompt hash when no
+        block is shareable.  The chain itself is returned so direct-mode
+        callers can pre-seed ``Request.extra['prefix_keys']`` and the
+        engine's admission plan reuses it instead of re-running the
+        SHA-256 chain over the same prompt."""
+        content = np.asarray(prompt_ids, dtype=np.int32).reshape(-1)
+        w = _ceil_to(max(content.size, 1), self.prefill_chunk)
+        pad = w - content.size
+        n_keys = (
+            (w - self.prefill_chunk) // (self._unit * self.block_size)
+        ) * self._unit
+        if n_keys > 0:
+            keys = prefix_block_keys(content, pad, self.block_size, n_keys)
+            if keys:
+                return keys[-1], (keys, w)
+        return hashlib.sha256(
+            b"whole;" + content.tobytes()
+        ).digest(), None
+
+    def affinity_key(self, prompt_ids: Any) -> bytes:
+        return self.affinity_chain(prompt_ids)[0]
+
+    def _least_loaded(self, loads: list[int], alive: list[bool]) -> int:
+        # ties rotate: an idle fleet's first N distinct prefixes spread
+        # over the N replicas instead of piling onto index 0
+        idx = min(
+            (i for i in range(self.n) if alive[i]),
+            key=lambda i: (loads[i], (i - self._rr) % self.n),
+        )
+        self._rr = (idx + 1) % self.n
+        return idx
+
+    def route(self, key: bytes, *, loads: list[int],
+              queue_depths: list[int] | None = None,
+              alive: list[bool] | None = None) -> tuple[int, bool]:
+        """→ ``(replica index, spilled)``.  ``loads`` orders candidates
+        for least-loaded assignment (live request counts); spill
+        pressure is judged on ``queue_depths`` (defaults to ``loads``) —
+        a deep QUEUE means waiting, a full decode batch is just
+        utilization."""
+        alive = alive if alive is not None else [True] * self.n
+        if not any(alive):
+            raise RuntimeError("no alive replica to route to")
+        qd = queue_depths if queue_depths is not None else loads
+        idx = self._sticky.get(key)
+        if idx is not None and not alive[idx]:
+            del self._sticky[key]  # re-home: the blocks died with the pool
+            idx = None
+        if idx is None:
+            idx = self._least_loaded(loads, alive)
+            self._sticky[key] = idx
+            self.routed += 1
+            return idx, False
+        if (
+            self.spill_queue_depth is not None
+            and qd[idx] >= self.spill_queue_depth
+        ):
+            spill_to = self._least_loaded(loads, alive)
+            if spill_to != idx and qd[spill_to] < qd[idx]:
+                self.spilled += 1
+                return spill_to, True
+        self.routed += 1
+        return idx, False
+
+    def sticky_owner(self, key: bytes) -> int | None:
+        """The replica a prefix chain is currently sticky to, or None —
+        a read-only probe the fleet's block-shipping paths use to find
+        WHERE a spilled request's prefix blocks live so the affine
+        replica can ship them through the host tier."""
+        return self._sticky.get(key)
+
+    def forget_replica(self, idx: int) -> int:
+        """Drop every sticky entry pointing at ``idx`` (replica death /
+        rebuild with a zeroed pool).  Returns how many were dropped."""
+        dead = [k for k, v in self._sticky.items() if v == idx]
+        for k in dead:
+            del self._sticky[k]
+        return len(dead)
+
+    def grow(self, n: int) -> None:
+        """Widen the candidate set to ``n`` replicas (elastic
+        ``add_replica`` — the new index starts cold and picks up
+        traffic first-sight by least-loaded assignment).  Shrinking is
+        never an index operation: a removed replica keeps its slot and
+        just leaves the ``alive`` mask, so sticky entries and owner
+        maps stay valid."""
+        if n < self.n:
+            raise ValueError(
+                f"router cannot shrink ({self.n} -> {n}); removal is "
+                "an alive-mask change, not an index change"
+            )
+        self.n = n
+
+
+def _check_homogeneous(engines: list) -> None:
+    if not engines:
+        raise ValueError("need at least one engine")
+    e0 = engines[0]
+    sig0 = (e0.block_size, e0.prefill_chunk, e0.max_seq_len,
+            e0.scheduler.max_slots, e0.pool.num_blocks,
+            str(e0.cache_dtype))
+    for i, e in enumerate(engines[1:], 1):
+        sig = (e.block_size, e.prefill_chunk, e.max_seq_len,
+               e.scheduler.max_slots, e.pool.num_blocks,
+               str(e.cache_dtype))
+        if sig != sig0:
+            raise ValueError(
+                f"replica {i} geometry {sig} != replica 0 {sig0}: the "
+                "router may send any request anywhere, so replicas must "
+                "be geometry-identical"
+            )
+
+
+class ReplicaSet:
+    """Direct-mode data-parallel fleet: N engines, one tick loop.
+
+    The single-engine ``submit``/``step``/``replay_trace`` surface over
+    N replicas — what tests and benchmarks drive (the HTTP path wraps the
+    same engines in ``ReplicaRunner`` instead).  Request ids are
+    globally unique across the set; ``step()`` ticks every alive
+    replica once.
+    """
+
+    def __init__(self, engines: list, *,
+                 spill_queue_depth: int | None = 4) -> None:
+        _check_homogeneous(engines)
+        self.engines = list(engines)
+        e0 = self.engines[0]
+        self.router = PrefixRouter(
+            len(self.engines), block_size=e0.block_size,
+            prefill_chunk=e0.prefill_chunk,
+            spill_queue_depth=spill_queue_depth,
+        )
+        self.alive = [True] * len(self.engines)
+        self._owner: dict[int, int] = {}  # rid → replica index
+        self._next_id = max(e._next_id for e in self.engines)
+        self.clock = e0.clock
+
+    # -- routing-aware single-engine surface ---------------------------
+    def _loads(self) -> list[int]:
+        return [len(e._requests) for e in self.engines]
+
+    def _queue_depths(self) -> list[int]:
+        return [e.scheduler.queue_depth for e in self.engines]
+
+    def submit(self, prompt_ids, max_new_tokens: int, *,
+               seed: int = 0, callback: Callable | None = None,
+               on_event: Callable | None = None,
+               deadline_s: float | None = None,
+               arrival_time: float | None = None,
+               trace_id: str | None = None,
+               speculative: bool = False,
+               tenant: str = "default",
+               replica: int | None = None) -> Request:
+        """Route (or pin, via ``replica=``) and submit.  The returned
+        Request carries its replica in ``extra['replica']`` and the
+        router's spill verdict in ``extra['spilled']``."""
+        chain = None
+        spilled = False
+        if replica is None:
+            key, chain = self.router.affinity_chain(prompt_ids)
+            replica, spilled = self.router.route(
+                key, loads=self._loads(),
+                queue_depths=self._queue_depths(), alive=self.alive,
+            )
+        elif not self.alive[replica]:
+            raise RuntimeError(f"replica {replica} is dead")
+        rid = self._next_id
+        self._next_id += 1
+        req = self.engines[replica].submit(
+            prompt_ids, max_new_tokens, request_id=rid, seed=seed,
+            callback=callback, on_event=on_event, deadline_s=deadline_s,
+            arrival_time=arrival_time, trace_id=trace_id,
+            speculative=speculative, tenant=tenant,
+        )
+        if spilled:
+            req.extra["spilled"] = True
+            # fleet block shipping: a spill verdict lands the request
+            # OFF its prefix-affine replica — with the shared host tier
+            # on, the affine replica ships the chain's blocks host-side
+            # so the spill target restores them instead of re-prefilling
+            tier = getattr(self.engines[replica], "host_tier", None)
+            if tier is not None and chain is not None:
+                src = self.router.sticky_owner(key)
+                if src is not None and src != replica and self.alive[src]:
+                    self.engines[src].spill_prefix_blocks(keys=chain[0])
+                    # the shipped entries must be host-RESIDENT before
+                    # the spill target's next tick plans the admission,
+                    # or the coverage walk misses and silently
+                    # re-prefills.  Per-CHAIN wait, not drain(): the
+                    # shared tier's queue may hold a whole prefix-set
+                    # ship from a concurrent drain, and this submit
+                    # must not flush strangers' jobs — a timeout just
+                    # re-prefills, the fallback every tier path shares
+                    src_cache = self.engines[src].pool.prefix_cache
+                    have = (
+                        len(src_cache.match(chain[0]))
+                        if src_cache is not None else 0
+                    )
+                    if have:
+                        tier.await_resident(chain[0][:have])
+        tracer = getattr(self.engines[replica], "tracer", None)
+        if tracer is not None:
+            tracer.instant("route", cat="router", args={
+                "rid": rid, "replica": replica, "spilled": spilled,
+                "trace": req.extra.get("trace"),
+            })
+        if chain is not None:
+            # hand the router's hash chain to the engine's admission
+            # plan — same content, same width, same chain — so the
+            # prompt is SHA-256'd once per submit, not twice
+            keys, width = chain
+            req.extra["prefix_keys"] = keys
+            req.extra["prefix_keys_width"] = width
+        req.extra["replica"] = replica
+        self._owner[rid] = replica
+        return req
+
+    def abort(self, request_id: int) -> bool:
+        idx = self._owner.get(request_id)
+        if idx is None:
+            return False
+        return self.engines[idx].abort(request_id)
+
+    def step(self) -> bool:
+        """One tick across the fleet; True while any replica has work."""
+        has_work = False
+        for i, engine in enumerate(self.engines):
+            if self.alive[i]:
+                has_work |= engine.step()
+        return has_work
+
+    def run_until_complete(self, max_ticks: int = 100_000) -> None:
+        for _ in range(max_ticks):
+            if not self.step():
+                return
+        raise RuntimeError(
+            f"replica set did not drain within {max_ticks} ticks"
+        )
+
+    @property
+    def finished(self) -> list[Request]:
+        """Terminal requests across the fleet, submission order."""
+        out = [r for e in self.engines for r in e.scheduler.finished]
+        return sorted(out, key=lambda r: r.req_id)
+
+    # -- fleet lifecycle ----------------------------------------------
+    def kill_replica(self, idx: int) -> list[Request]:
+        """Simulate one replica's death: mark it dead (the router stops
+        naming it; its sticky prefixes re-home) and return its in-flight
+        requests — what a supervisor would replay.  The dead engine is
+        left untouched for inspection, exactly like a hung tick thread's
+        engine object."""
+        self.alive[idx] = False
+        self.router.forget_replica(idx)
+        return list(self.engines[idx]._requests.values())
+
+    def restart_replica(self, idx: int) -> None:
+        """Supervised-restart discipline, driven synchronously: rebuild
+        the replica via ``clone_fresh`` (the dead engine retired, its
+        buckets captured again) and replay its in-flight requests
+        teacher-forced (``recover``), token-identically.  Peers keep
+        serving between ``kill_replica`` and this call — nothing here
+        touches them."""
+        old = self.engines[idx]
+        engine = old.clone_fresh()
+        # the same adoption body as a drain/roll (_adopt_recovered):
+        # an in-flight request whose tokens already reached its budget
+        # (or a stop token) moves straight to the `finished` ledger
+        # with its terminal event delivered — not just counted
+        self._replay_in_place(old, engine)
+        # terminal history survives the rebuild: the fleet's `finished`
+        # ledger (and the parity checks reading it) must keep the
+        # requests this replica completed BEFORE it died
+        engine.scheduler.finished.extend(old.scheduler.finished)
+        engine.scheduler.aborted.extend(old.scheduler.aborted)
+        self.engines[idx] = engine
+        self.alive[idx] = True
+
+    # -- fleet lifecycle: rolling upgrade + elastic DP -----------------
+    def _drain_to_peers(self, idx: int, *,
+                        prefer_version: int | None = None) -> list[int]:
+        """Move replica ``idx``'s in-flight requests onto live peers —
+        the drain-to-peer discipline driven synchronously: each
+        request re-routes through the router AFTER ``idx``'s sticky
+        prefixes were forgotten, is replayed teacher-forced on the peer
+        (token-identical — deterministic (seed, content-pos) keys), and
+        keeps its admission-time ``weights_version`` tag.  With
+        ``prefer_version`` set (a mid-roll drain), peers still on that
+        weight version are preferred so a stream is served end-to-end
+        by one version whenever such a peer exists; when none is left
+        (the last old-version replica draining), any live peer adopts
+        it — the tag still reports the admission version.  Caller has
+        already marked ``idx`` dead and forgotten its prefixes."""
+        alive = list(self.alive)
+        if prefer_version is not None:
+            same = [
+                ok and self.engines[i].weights_version == prefer_version
+                for i, ok in enumerate(alive)
+            ]
+            if any(same):
+                alive = same
+        stops = tuple(self.engines[idx].stop_tokens or ())
+        # fleet block shipping: the draining replica's prefixes are
+        # about to re-home, so ship its registered prefix blocks
+        # through the shared host tier FIRST — the adopting peers'
+        # teacher-forced recover() admissions (and any later traffic on
+        # those prefixes) then restore the K/V instead of re-prefilling
+        # it (the tier's writer thread pays the copies; a dead pool —
+        # pages yanked — ships nothing, which is the drop-and-recompute
+        # behavior the tier-less fleet always had)
+        tier = self.engines[idx].host_tier
+        if tier is not None and self.engines[idx].pool.pages is not None:
+            self.engines[idx].spill_prefix_blocks()
+            tier.drain()  # entries must be resident before peers plan
+        # the draining replica's journal segment must terminate each
+        # moved stream (the peer's recover() re-admits it into the
+        # peer's segment) — otherwise a restart scanning both segments
+        # replays it twice.  Same rule as the HTTP fleet's _drain_dead.
+        src_journal = self.engines[idx].journal
+        drained: list[int] = []
+        inflight = sorted(
+            self.engines[idx]._requests.values(), key=lambda r: r.req_id
+        )
+        for req in inflight:
+            key, _ = self.router.affinity_chain(req.prompt)
+            peer, _ = self.router.route(
+                key, loads=self._loads(),
+                queue_depths=self._queue_depths(), alive=alive,
+            )
+            engine = self.engines[peer]
+            lineage = {
+                "replays": int(req.extra.get("replays", 0)),
+                "drains": int(req.extra.get("drains", 0)) + 1,
+            }
+            tracer = engine.tracer
+            if tracer is not None:
+                tracer.request_instant(req.req_id, "drain-to-peer", args={
+                    "trace": req.extra.get("trace"),
+                    "from_replica": idx, "to_replica": peer,
+                })
+            self._adopt_recovered(engine, req, lineage=lineage,
+                                  stops=stops)
+            if src_journal is not None:
+                src_journal.terminal(req.req_id, "drained")
+            self._owner[req.req_id] = peer
+            drained.append(req.req_id)
+        return drained
+
+    def _adopt_recovered(self, engine: Any, req: Any, *,
+                         lineage: dict[str, int],
+                         stops: tuple[int, ...]) -> None:
+        """The ONE done/stopped/recover adoption body shared by
+        ``_drain_to_peers`` and ``_replay_in_place``: a fully generated
+        stream moves only its terminal bookkeeping (the fleet's
+        ``finished`` ledger reads scheduler state, so a drained-terminal
+        request must appear there like any other finish, and the
+        client's final event carries the remaining text); anything else
+        is replayed teacher-forced through ``recover`` with its lineage
+        and admission-time ``weights_version`` tag."""
+        wv = req.extra.get("weights_version")
+        tokens = list(req.generated)
+        done = len(tokens) >= req.max_new_tokens
+        stopped = bool(tokens) and tokens[-1] in stops
+        if done or stopped:
+            reason = "stop" if stopped else "length"
+            tail = engine.finish_recovered(
+                req.prompt, req.max_new_tokens,
+                request_id=req.req_id, generated=tokens,
+                reason=reason,
+                trace_id=req.extra.get("trace"), lineage=lineage,
+                tenant=getattr(req, "tenant", "default"),
+                weights_version=wv,
+            )
+            req.finish_reason = reason
+            engine.scheduler.finished.append(req)
+            if req.on_event is not None:
+                req.extra["final_text_delta"] = tail
+                req.on_event(req, reason)
+        else:
+            engine.recover(
+                req.prompt, req.max_new_tokens,
+                request_id=req.req_id, seed=req.seed,
+                generated=tokens, callback=req.callback,
+                on_event=req.on_event, deadline_at=req.deadline,
+                trace_id=req.extra.get("trace"), lineage=lineage,
+                speculative=req.speculative,
+                tenant=getattr(req, "tenant", "default"),
+                weights_version=wv,
+            )
+
+    def _replay_in_place(self, old: Any, engine: Any) -> int:
+        """Fleet-of-one roll: no peer to drain to, so the rebuilt
+        engine replays its own in-flight streams teacher-forced —
+        delivered tokens never change; tokens still to come sample
+        from the new weights (there is no same-version peer to finish
+        them on, and the request's version tag records its admission
+        version either way)."""
+        stops = tuple(old.stop_tokens or ())
+        n = 0
+        for req in sorted(old._requests.values(),
+                          key=lambda r: r.req_id):
+            lineage = {
+                "replays": int(req.extra.get("replays", 0)) + 1,
+                "drains": int(req.extra.get("drains", 0)),
+            }
+            self._adopt_recovered(engine, req, lineage=lineage,
+                                  stops=stops)
+            n += 1
+        return n
+
+    def rolling_upgrade(self, params_fn: Callable[[], Any], *,
+                        version: int | None = None,
+                        steps_between: int = 1) -> dict[str, Any]:
+        """Swap the fleet onto fresh weights with zero downtime: one
+        replica at a time is drained to its peers (in-flight streams
+        complete token-identically there), rebuilt on ``params_fn()``'s
+        weights via ``clone_fresh(params=...)``, and returned to
+        routing; ``steps_between`` fleet ticks run after each swap so
+        traffic keeps flowing mid-roll.
+
+        Capture discipline: each rolled replica is retired and rebuilt
+        (``clone_fresh(params=...)``), capturing every bucket it had
+        captured before it rejoins routing, and every later rolled
+        replica also captures the buckets of the first one
+        (``share_compiled_steps``): no capture lands inside a serving
+        tick.  Same-shaped weights keep the bucket set; the params
+        tensors are loaded once per roll (``cache_params_fn``) and shared
+        by reference.
+
+        A checkpoint failure (``params_fn`` raising, or the
+        ``upgrade_ckpt`` chaos site) aborts the roll CLEANLY with
+        ``UpgradeAborted``: the replica being rolled was not yet
+        drained, so it stays live on its old weights and the fleet
+        never drops below N-1 capacity.  Replicas already rolled stay
+        on the new weights (the version tag says which weights served
+        each request)."""
+        order = [i for i, ok in enumerate(self.alive) if ok]
+        if not order:
+            raise RuntimeError("no alive replica to upgrade")
+        if version is None:
+            version = max(e.weights_version for e in self.engines) + 1
+        params_once = cache_params_fn(params_fn)
+        rolled: list[int] = []
+        drained_total = 0
+        first_rolled: Any = None
+        for idx in order:
+            old = self.engines[idx]
+            params = load_upgrade_params(
+                params_once, replica=idx, faults=old.faults,
+                metrics=old.metrics, rolled=rolled, version=version,
+            )
+            old_version = old.weights_version
+            self.alive[idx] = False
+            self.router.forget_replica(idx)
+            # fleet of one (or every peer already dead): nothing to
+            # drain TO — the rebuilt engine replays its own streams in
+            # place instead (the EngineRunner fleet-of-one discipline)
+            had_peer = any(self.alive)
+            drained = (
+                self._drain_to_peers(idx, prefer_version=old_version)
+                if had_peer else []
+            )
+            drained_total += len(drained)
+            engine = old.clone_fresh(params=params,
+                                     weights_version=version)
+            if first_rolled is None:
+                first_rolled = engine
+            else:
+                engine.share_compiled_steps(first_rolled)
+            if not had_peer:
+                self._replay_in_place(old, engine)
+            engine.scheduler.finished.extend(old.scheduler.finished)
+            engine.scheduler.aborted.extend(old.scheduler.aborted)
+            self.engines[idx] = engine
+            self.alive[idx] = True
+            engine.metrics.on_lifecycle_action("upgrade_replica")
+            tracer = engine.tracer
+            if tracer is not None:
+                tracer.instant("upgrade-replica", cat="lifecycle", args={
+                    "replica": idx, "version": version,
+                    "drained": len(drained),
+                })
+            rolled.append(idx)
+            for _ in range(steps_between):
+                self.step()
+        return {
+            "rolled": rolled, "version": version,
+            "drained": drained_total,
+        }
+
+    def add_replica(self, engine: Any = None) -> int:
+        """Grow the fleet at runtime: a warmed clone of a live replica
+        (every bucket its source captured, captured before it joins;
+        fresh metrics/sentinel/policy — per-thread state is never shared
+        across replicas), appended under a new index the router starts
+        routing to first-sight.  Returns the new replica index."""
+        src_idx = next(
+            (i for i, ok in enumerate(self.alive) if ok), None)
+        if src_idx is None:
+            raise RuntimeError("no alive replica to clone from")
+        if engine is None:
+            engine = _fresh_replica_engine(self.engines[src_idx])
+        _check_homogeneous([self.engines[src_idx], engine])
+        self.engines.append(engine)
+        self.alive.append(True)
+        idx = len(self.engines) - 1
+        self.router.grow(len(self.engines))
+        self._next_id = max(self._next_id, engine._next_id)
+        engine.metrics.on_lifecycle_action("add_replica")
+        tracer = engine.tracer
+        if tracer is not None:
+            tracer.instant("add-replica", cat="lifecycle",
+                           args={"replica": idx})
+        return idx
+
+    def remove_replica(self, idx: int) -> list[int]:
+        """Shrink the fleet at runtime — the SIGTERM-style drain: the
+        replica leaves routing, its sticky prefixes re-home, and every
+        in-flight stream is adopted by a peer (teacher-forced, token-
+        identical).  The engine object keeps its slot (indices are
+        stable forever; ``alive`` is the membership mask) so its
+        terminal history stays readable, and is retired (its pool and
+        graphs released).  Returns the drained request ids."""
+        if not (0 <= idx < len(self.engines)) or not self.alive[idx]:
+            raise ValueError(f"replica {idx} is not an alive replica")
+        if sum(self.alive) < 2:
+            raise RuntimeError(
+                "cannot remove the last alive replica — scale-down "
+                "floor is 1"
+            )
+        self.alive[idx] = False
+        self.router.forget_replica(idx)
+        drained = self._drain_to_peers(idx)
+        # the port's difference: the slot stays, its pool and graphs go
+        # back to the card
+        self.engines[idx].retire("removed from the fleet")
+        self.engines[idx].metrics.on_lifecycle_action("remove_replica")
+        tracer = self.engines[idx].tracer
+        if tracer is not None:
+            tracer.instant("remove-replica", cat="lifecycle", args={
+                "replica": idx, "drained": len(drained),
+            })
+        return drained
+
+    # -- aggregate observability ---------------------------------------
+    def snapshot(self) -> dict[str, Any]:
+        """Fleet-level metrics: summed counters, percentile stats over
+        the CONCATENATED per-request samples (a request's TTFT does not
+        care which replica served it), per-replica snapshots, and the
+        router's verdict counters."""
+        per = [e.metrics.snapshot() for e in self.engines]
+        out: dict[str, Any] = {
+            "replicas": per,
+            "n_replicas": len(self.engines),
+            "alive_replicas": sum(1 for a in self.alive if a),
+            "weights_versions": [
+                e.weights_version for e in self.engines
+            ],
+            "router_routed": self.router.routed,
+            "router_spilled": self.router.spilled,
+        }
+        for key in ("submitted", "finished", "aborted", "rejected",
+                    "recovered", "ticks", "preemptions",
+                    "total_generated_tokens"):
+            out[key] = sum(s[key] for s in per)
+        span = max((s["wall_s"] for s in per), default=0.0)
+        out["wall_s"] = span
+        out["throughput_tok_s"] = (
+            out["total_generated_tokens"] / span if span > 0 else 0.0
+        )
+        ttft: list[float] = []
+        for e in self.engines:
+            with e.metrics._lock:
+                ttft.extend(e.metrics.ttft_s)
+        if ttft:
+            arr = np.asarray(ttft, dtype=np.float64)
+            for q, name in ((50, "p50"), (90, "p90"), (99, "p99")):
+                out[f"ttft_s_{name}"] = float(np.percentile(arr, q))
+        req = sum(s.get("prefix_blocks_requested", 0) for s in per)
+        hit = sum(s.get("prefix_blocks_hit", 0) for s in per)
+        out["prefix_blocks_requested"] = req
+        out["prefix_blocks_hit"] = hit
+        if req:
+            out["prefix_hit_rate"] = hit / req
+        # fleet roofline telemetry (serve/telemetry.py): summed byte/
+        # time ledgers, with the aggregate utilization recomputed from
+        # the SUMS (a mean of per-replica ratios would weight an idle
+        # replica like a loaded one — the burn-rate discipline)
+        rf = [s for s in per if "roofline_ticks" in s]
+        if rf:
+            for key in ("roofline_ticks", "kv_read_bytes_total",
+                        "kv_write_bytes_total", "weight_bytes_total",
+                        "device_time_s_total"):
+                out[key] = sum(s[key] for s in rf)
+            dev = out["device_time_s_total"]
+            total_bytes = (out["kv_read_bytes_total"]
+                           + out["kv_write_bytes_total"]
+                           + out["weight_bytes_total"])
+            hbm = next(
+                (s["hbm_gbps"] for s in rf if s.get("hbm_gbps")), None
+            )
+            out["hbm_gbps"] = hbm
+            if dev > 0:
+                out["roofline_gbps"] = total_bytes / dev / 1e9
+                if hbm:
+                    out["roofline_util"] = out["roofline_gbps"] / hbm
+        # fleet SLO accounting: summed verdicts, burn rates recomputed
+        # from summed window totals (serve/slo.aggregate_slo)
+        agg = aggregate_slo([e.metrics.slo for e in self.engines])
+        out.update({k: v for k, v in agg.items() if k != "policy"})
+        # fleet tenant accounting: per-tenant counters summed across
+        # replica ledgers, cost shares and SLO burn recomputed from the
+        # sums (serve/tenants.aggregate_tenants)
+        tn = aggregate_tenants([e.tenants for e in self.engines])
+        if tn:
+            out["tenants"] = tn["tenants"]
+            out["n_tenants"] = tn["n_tenants"]
+        return out
+
+    # ------------------------------------------------------------------
+    def replay_trace(self, trace: list[dict[str, Any]], *,
+                     realtime: bool = False,
+                     max_ticks: int = 100_000) -> dict[str, Any]:
+        """The single-engine trace replay over the fleet (same loop —
+        serve/trace.replay_arrivals — same virtual-clock discipline),
+        with routing per arrival."""
+        return replay_arrivals(
+            self, trace, self.snapshot,
+            realtime=realtime, max_ticks=max_ticks,
+        )
+
+
+class ReplicaRunner:
+    """The HTTP-mode fleet: per-replica ``EngineRunner`` supervision
+    behind the one runner interface ``HttpServer`` speaks.
+
+    Every replica keeps its OWN tick thread, watchdog, restart budget,
+    and recovery replay — a crash or hang on one replica degrades the
+    fleet (``state == "degraded"``) while its peers keep streaming; the
+    server only reports ``crashed`` (503) when EVERY replica is
+    terminally dark.  Routing happens at submit time on the event-loop
+    thread: the router reads each runner's live-stream count and each
+    scheduler's queue depth (both plain int reads — racing a tick by one
+    request is harmless for placement).
+    """
+
+    def __init__(self, engines: list, *,
+                 request_timeout: float | None = None,
+                 tick_deadline: float | None = None,
+                 max_restarts: int = 0,
+                 restart_backoff_s: float = 0.5,
+                 restart_window_s: float = 300.0,
+                 spill_queue_depth: int | None = 4) -> None:
+        _check_homogeneous(engines)
+        # supervision config, kept so an elastic add_replica builds its
+        # runner with the SAME watchdog/restart policy as the founders
+        self._supervision = dict(
+            request_timeout=request_timeout,
+            tick_deadline=tick_deadline, max_restarts=max_restarts,
+            restart_backoff_s=restart_backoff_s,
+            restart_window_s=restart_window_s,
+        )
+        # each replica ticks on its own CUDA stream, so one replica's
+        # host work (planning, delivery, the fetch's wait) overlaps a
+        # peer's step on the card
+        self.replicas = [self._runner(e) for e in engines]
+        for i, runner in enumerate(self.replicas):
+            # fleet drain: a replica going terminally dark hands its
+            # unterminated streams to the peers the router re-homes its
+            # prefixes to, instead of abort-flushing them
+            runner.on_terminal_crash = partial(self._drain_dead, i)
+            # request-log lines tag which replica served the request
+            runner.replica_index = i
+        e0 = engines[0]
+        self.router = PrefixRouter(
+            len(engines), block_size=e0.block_size,
+            prefill_chunk=e0.prefill_chunk,
+            spill_queue_depth=spill_queue_depth,
+        )
+        self.faults = self.replicas[0].faults
+        self._owner: dict[int, int] = {}
+        self._rid = itertools.count(max(
+            max(getattr(e, "_next_id", 0) for e in engines),
+            # journal-replayed rids must never be re-issued — PARKED
+            # (finished-while-detached) ones included: finish_recovered
+            # never bumps the engine's _next_id, and a fresh request
+            # reusing the rid would shadow the stream its client is
+            # about to resume (the EngineRunner.__init__ defense,
+            # fleet-wide)
+            max((r for runner in self.replicas
+                 for r in (*runner._inflight, *runner._resumable)),
+                default=-1) + 1,
+        ))
+        self._dead: set[int] = set()  # replicas whose death was forgotten
+        # lifecycle membership: replicas mid-upgrade (back after the
+        # swap) and replicas removed for good — both leave routing;
+        # indices are stable forever, `alive` is the membership mask.
+        # Mutated only by the admin/lifecycle thread, read racily by
+        # submit-time routing (a set membership read is GIL-atomic and
+        # one stale verdict just routes one request to a replica that
+        # immediately drains it — harmless, like the load reads)
+        self._lifecycle: set[int] = set()
+        self._removed: set[int] = set()
+        self._upgrade_lock = threading.Lock()
+
+    def _runner(self, engine: Any, stream: Any = False) -> Any:
+        """A supervised ``EngineRunner`` for ``engine``, built on its own
+        tick stream (``stream``, or one taken from the free list)."""
+        from llm_np_cp_tpu_torch.serve.http.server import EngineRunner
+
+        if stream is False:
+            stream = _take_stream(engine.device)
+        with _on_stream(engine.device, stream):
+            return EngineRunner(engine, **self._supervision)
+
+    # -- the EngineRunner interface ------------------------------------
+    @property
+    def engine(self) -> Any:
+        """A representative engine (tokenizer / tracer / clock access —
+        geometry-identical across the fleet by construction)."""
+        return self.replicas[0].engine
+
+    def start(self) -> None:
+        for r in self.replicas:
+            r.start()
+
+    def stop(self, timeout: float = 10.0) -> None:
+        """Stop every replica's runner; their tick streams go back to the
+        free list (a removed replica's went back at its removal)."""
+        for i, r in enumerate(self.replicas):
+            r.stop(timeout=timeout)
+            if i not in self._removed:
+                _give_stream(r.engine.device, r._stream)
+                r._stream = None
+
+    def next_rid(self) -> int:
+        return next(self._rid)
+
+    @property
+    def inflight(self) -> int:
+        return sum(r.inflight for r in self.replicas)
+
+    @property
+    def restarts(self) -> int:
+        return sum(r.restarts for r in self.replicas)
+
+    @property
+    def recovery_latency_s(self) -> list[float]:
+        return [v for r in self.replicas for v in r.recovery_latency_s]
+
+    @property
+    def journal_replayed(self) -> int:
+        return sum(r.journal_replayed for r in self.replicas)
+
+    @property
+    def journal_resumed(self) -> int:
+        return sum(r.journal_resumed for r in self.replicas)
+
+    @property
+    def crashed(self) -> str | None:
+        """Terminal only when the WHOLE fleet is dark — a single crashed
+        replica is a degradation the router routes around.  Replicas
+        removed by elastic scale-down left the fleet on purpose and do
+        not count either way."""
+        downs = {
+            i: r.crashed for i, r in enumerate(self.replicas)
+            if i not in self._removed
+        }
+        if downs and all(downs.values()):
+            return "; ".join(
+                f"replica {i}: {c}" for i, c in sorted(downs.items())
+            )
+        return None
+
+    @property
+    def state(self) -> str:
+        if self.crashed:
+            return "crashed"
+        if any(r.crashed or r.recovering for r in self.replicas):
+            return "degraded"
+        return "ok"
+
+    def replica_states(self) -> list[dict[str, Any]]:
+        """Per-replica health for ``/healthz``."""
+        return [
+            {
+                "replica": i,
+                "state": (
+                    "removed" if i in self._removed
+                    else "upgrading" if i in self._lifecycle
+                    else r.state
+                ),
+                "restarts": r.restarts,
+                "inflight": r.inflight,
+                "weights_version": getattr(r.engine, "weights_version", 0),
+                "mesh": getattr(r.engine, "mesh_desc", None),
+            }
+            for i, r in enumerate(self.replicas)
+        ]
+
+    def _routable(self, i: int) -> bool:
+        """May the router place NEW work on replica ``i``?  Not crashed,
+        not removed, not mid-upgrade."""
+        return (
+            self.replicas[i].crashed is None
+            and i not in self._removed
+            and i not in self._lifecycle
+        )
+
+    def _alive(self) -> list[bool]:
+        alive = []
+        for i, r in enumerate(self.replicas):
+            ok = r.crashed is None
+            if not ok and i not in self._dead:
+                # first sight of a terminal crash: its sticky prefixes
+                # re-home to survivors
+                self._dead.add(i)
+                self.router.forget_replica(i)
+            alive.append(ok and i not in self._removed
+                         and i not in self._lifecycle)
+        return alive
+
+    def submit(self, rid: int, payload: Any, loop: Any, aq: Any) -> None:
+        alive = self._alive()
+        if not any(alive):
+            # mimic EngineRunner's crash answer so handlers need no
+            # fleet-awareness
+            aq.put_nowait(("error",
+                           f"engine tick thread crashed: {self.crashed}"))
+            return
+        key = self.router.affinity_key(payload.prompt_ids)
+        loads = [r.inflight for r in self.replicas]
+        qd = [r.engine.scheduler.queue_depth for r in self.replicas]
+        idx, spilled = self.router.route(
+            key, loads=loads, queue_depths=qd, alive=alive,
+        )
+        # the routing verdict rides the payload into the engine thread:
+        # the canonical request log reports route + spill per request
+        payload.route_spilled = spilled
+        tracer = getattr(self.engine, "tracer", None)
+        if tracer is not None:
+            # routing decisions are part of the request's trace: the
+            # instant carries the SAME trace id the engine spans will
+            tracer.instant("route", cat="router", args={
+                "rid": rid, "replica": idx, "spilled": spilled,
+                "trace": getattr(payload, "trace_id", None),
+            })
+        if len(self._owner) > 64 + 4 * max(self.inflight, 1):
+            self._owner = {
+                r: i for r, i in self._owner.items()
+                if r in self.replicas[i]._live
+            }
+        self._owner[rid] = idx
+        self.replicas[idx].submit(rid, payload, loop, aq)
+
+    def abort(self, rid: int) -> None:
+        idx = self._owner.get(rid)
+        if idx is not None:
+            self.replicas[idx].abort(rid)
+        else:
+            for r in self.replicas:
+                r.abort(rid)
+
+    def abort_all(self) -> None:
+        for r in self.replicas:
+            r.abort_all()
+
+    def resume(self, rid: int, last_idx: int, loop: Any, aq: Any) -> None:
+        """Route a Last-Event-ID resume to the replica holding the
+        stream.  After a process restart the owner map is empty, so an
+        unknown rid probes each replica's ledger/parked set (the
+        journal segments replayed into their own replicas)."""
+        idx = self._owner.get(rid)
+        if idx is None or self.replicas[idx].crashed \
+                or idx in self._removed:
+            idx = next(
+                (i for i, r in enumerate(self.replicas)
+                 if r.crashed is None and i not in self._removed
+                 and (rid in r._inflight or rid in r._resumable
+                      or rid in r._claimed)),
+                None,
+            )
+        if idx is None:
+            aq.put_nowait(("gone",
+                           f"unknown or expired request id {rid}"))
+            return
+        self._owner[rid] = idx
+        self.replicas[idx].resume(rid, last_idx, loop, aq)
+
+    def _drain_dead(self, dead_idx: int, replay: list[dict], *,
+                    prefer_version: int | None = None) -> set[int]:
+        """A replica went terminally dark: adopt its unterminated
+        streams onto live peers — each request re-routes through the
+        router AFTER its sticky prefixes are forgotten, so a stream
+        lands on the peer its prefix chain re-homes to, is replayed
+        teacher-forced there (token-identical), and its bridge entry
+        moves so the client never sees more than a pause.  The dead
+        replica's journal gets a ``drained`` terminal per adopted
+        request, so a later process restart does not replay it twice.
+        With ``prefer_version`` set (a mid-roll drain), peers still on
+        that weight version are preferred so a stream is served
+        end-to-end by one version whenever such a peer exists — same
+        rule as the direct-mode ``ReplicaSet._drain_to_peers``.
+        Returns the adopted rids (the dead runner abort-flushes the
+        rest).  Runs on the dying replica's supervisor thread."""
+        dead = self.replicas[dead_idx]
+        alive = [i != dead_idx and self._routable(i)
+                 for i in range(len(self.replicas))]
+        if prefer_version is not None:
+            same = [
+                ok and getattr(self.replicas[i].engine,
+                               "weights_version", 0) == prefer_version
+                for i, ok in enumerate(alive)
+            ]
+            if any(same):
+                alive = same
+        if not any(alive):
+            return set()
+        self._dead.add(dead_idx)
+        self.router.forget_replica(dead_idx)
+        # fleet block shipping (the ReplicaSet._drain_to_peers twin):
+        # an upgrade/scale-down drain leaves the source pool intact, so
+        # its registered prefix blocks ship through the shared host
+        # tier before the prefixes re-home — the adopting peers restore
+        # instead of re-prefilling.  A terminal CRASH arrives here with
+        # the pool slabs yanked (pages None): nothing ships, exactly
+        # the drop-and-recompute the tier-less fleet always had.
+        tier = dead.engine.host_tier
+        if tier is not None and dead.engine.pool.pages is not None \
+                and dead.crashed is None:
+            dead.engine.spill_prefix_blocks()
+            tier.drain()
+        dead_journal = dead.engine.journal
+        adopted: set[int] = set()
+        loads = [r.inflight for r in self.replicas]
+        qd = [r.engine.scheduler.queue_depth for r in self.replicas]
+        tracer = dead.engine.tracer
+        for rec in replay:
+            rid = rec["rid"]
+            key = self.router.affinity_key(rec["prompt"])
+            idx, _ = self.router.route(key, loads=loads,
+                                       queue_depths=qd, alive=alive)
+            ent = dead._live.pop(rid, None)
+            if ent is not None:
+                self.replicas[idx]._live[rid] = ent
+            self._owner[rid] = idx
+            # the adoption is a survival event: bump the drain counter
+            # (it rides the peer's recovery re-admission into its
+            # journal, so a later restart still reports it)
+            rec = dict(rec, drains=int(rec.get("drains", 0)) + 1)
+            if tracer is not None:
+                # the LINK instant on the request's track: the merged
+                # timeline connects the dead replica's spans to the
+                # peer's continuation through the shared trace id
+                tracer.request_instant(rid, "drain-to-peer", args={
+                    "trace": rec.get("trace"),
+                    "from_replica": dead_idx, "to_replica": idx,
+                })
+            self.replicas[idx]._cmds.put(("recover", rec))
+            if dead_journal is not None:
+                dead_journal.terminal(rid, "drained")
+            loads[idx] += 1
+            adopted.add(rid)
+        if adopted:
+            print(f"[serve] replica {dead_idx} terminal: drained "
+                  f"{len(adopted)} in-flight streams to live peers",
+                  file=sys.stderr)
+        return adopted
+
+    # -- fleet lifecycle: rolling upgrade + elastic DP -----------------
+    def active_replicas(self) -> int:
+        return sum(
+            1 for i, r in enumerate(self.replicas)
+            if r.crashed is None and i not in self._removed
+        )
+
+    def serving_engines(self) -> list:
+        """Engines whose ActionPolicy verdicts may govern admission:
+        routable replicas only — a removed or crashed replica's tick
+        thread can never release a shed flag, so its frozen verdict
+        must not shed the fleet forever."""
+        return [
+            self.replicas[i].engine
+            for i in range(len(self.replicas)) if self._routable(i)
+        ]
+
+    def rolling_upgrade(self, params_fn: Callable[[], Any], *,
+                        version: int | None = None,
+                        timeout_s: float = 300.0) -> dict[str, Any]:
+        """The HTTP fleet's zero-downtime weight swap (the engine-level
+        mechanics live in ``ReplicaSet.rolling_upgrade``'s docstring;
+        this is the supervised-runner spelling): per replica — leave
+        routing, supersede the tick generation, hand the in-flight
+        replay snapshot to live peers through the drain path
+        (``_drain_dead``: bridge entries move, streams continue
+        token-identically, ``drained`` terminals land in this replica's
+        journal), rebuild the engine on the new weights on a fresh tick
+        thread (``EngineRunner.rebuild_upgraded``), wait for its first
+        loop pass, rejoin routing.  The rebuild retires the old engine and captures every
+        bucket it had captured, and those of the first rolled replica,
+        before the replica rejoins routing.  Serialized by
+        ``_upgrade_lock`` — exactly one roll at a time.  Runs OFF the event loop (the ``POST /admin/upgrade``
+        handler dispatches it to an executor thread)."""
+        if not self._upgrade_lock.acquire(blocking=False):
+            raise RuntimeError("a rolling upgrade is already in progress")
+        try:
+            order = [i for i in range(len(self.replicas))
+                     if self._routable(i)]
+            if not order:
+                raise RuntimeError("no live replica to upgrade")
+            if version is None:
+                version = max(
+                    getattr(r.engine, "weights_version", 0)
+                    for r in self.replicas
+                ) + 1
+            params_once = cache_params_fn(params_fn)
+            rolled: list[int] = []
+            shared_src: Any = None
+            for idx in order:
+                runner = self.replicas[idx]
+                params = load_upgrade_params(
+                    params_once, replica=idx, faults=runner.faults,
+                    metrics=runner.engine.metrics, rolled=rolled,
+                    version=version,
+                )
+                self._lifecycle.add(idx)
+                try:
+                    old_version = getattr(
+                        runner.engine, "weights_version", 0)
+                    self.router.forget_replica(idx)
+                    replay = runner.detach_inflight()
+                    adopted = self._drain_dead(
+                        idx, replay, prefer_version=old_version)
+                    leftover = [
+                        dict(rec, detached_ok=True) for rec in replay
+                        if rec["rid"] not in adopted
+                    ]
+                    runner.rebuild_upgraded(
+                        params, version, leftover,
+                        share_from=shared_src,
+                    )
+                    try:
+                        runner.await_recovered(timeout_s)
+                    except TimeoutError as e:
+                        # the rebuild wedged — surface the same clean
+                        # abort shape as a checkpoint failure (the
+                        # rolled prefix serves on new weights, this
+                        # replica's supervisor keeps trying)
+                        raise UpgradeAborted(
+                            f"replica {idx} rebuild timed out: {e}",
+                            rolled=rolled, version=version,
+                        ) from e
+                finally:
+                    self._lifecycle.discard(idx)
+                    # _drain_dead marked it dead-and-forgotten; it is
+                    # back, and a FUTURE crash must re-forget
+                    self._dead.discard(idx)
+                if shared_src is None:
+                    shared_src = runner.engine
+                runner.engine.metrics.on_lifecycle_action(
+                    "upgrade_replica")
+                rolled.append(idx)
+            return {"rolled": rolled, "version": version}
+        finally:
+            self._upgrade_lock.release()
+
+    def add_replica(self) -> int:
+        """Grow the HTTP fleet at runtime: a warmed share-nothing clone
+        of a live replica behind its own supervised ``EngineRunner``,
+        routed to first-sight.  Returns the new index."""
+        src_idx = next(
+            (i for i in range(len(self.replicas)) if self._routable(i)),
+            None,
+        )
+        if src_idx is None:
+            raise RuntimeError("no live replica to clone from")
+        src = self.replicas[src_idx].engine
+        stream = _take_stream(src.device)
+        with _on_stream(src.device, stream):
+            # the clone's pool and its captures on the stream that will
+            # tick it, all before the router can name it
+            engine = _fresh_replica_engine(src)
+        runner = self._runner(engine, stream)
+        idx = len(self.replicas)
+        runner.on_terminal_crash = partial(self._drain_dead, idx)
+        runner.replica_index = idx
+        self.replicas.append(runner)
+        self.router.grow(len(self.replicas))
+        runner.start()
+        engine.metrics.on_lifecycle_action("add_replica")
+        return idx
+
+    def remove_replica(self, idx: int | None = None) -> int:
+        """Shrink the HTTP fleet at runtime — the SIGTERM-style drain:
+        the replica leaves routing, its prefixes re-home, its in-flight
+        streams are adopted by peers through the drain path (clients
+        see a pause, then the peer's token-identical continuation), its
+        runner stops, and its engine is retired.  The slot stays (stable indices); ``idx``
+        defaults to the highest-index active replica."""
+        if idx is None:
+            idx = max(
+                (i for i in range(len(self.replicas))
+                 if self._routable(i)), default=-1,
+            )
+        if idx < 0 or idx >= len(self.replicas) \
+                or not self._routable(idx):
+            raise ValueError(f"replica {idx} is not an active replica")
+        if self.active_replicas() < 2:
+            raise RuntimeError(
+                "cannot remove the last active replica — scale-down "
+                "floor is 1"
+            )
+        runner = self.replicas[idx]
+        # count the action on a SURVIVOR's metrics: render_metrics
+        # skips removed replicas, so a counter on the removed engine
+        # would vanish from the scrape the moment the action lands
+        survivor = next(
+            i for i in range(len(self.replicas))
+            if i != idx and self._routable(i)
+        )
+        self.replicas[survivor].engine.metrics.on_lifecycle_action(
+            "remove_replica")
+        self._removed.add(idx)
+        self.router.forget_replica(idx)
+        replay = runner.detach_inflight()
+        adopted = self._drain_dead(idx, replay)
+        # streams no peer adopted (all peers died between the check and
+        # the drain): flush them with a clean terminal instead of
+        # leaving clients hanging, and terminate them in the journal
+        # segment too — otherwise a restart on the same path would
+        # replay streams whose clients already saw 'aborted'
+        journal = runner.journal
+        for rec in replay:
+            rid = rec["rid"]
+            if rid not in adopted and rid in runner._live:
+                runner._push(rid, ("finish", "aborted", None))
+                runner._live.pop(rid, None)
+                if journal is not None:
+                    journal.terminal(rid, "aborted")
+        with runner._sup_lock:
+            runner.recovering = False
+        runner.stop(timeout=10.0)
+        self._reroute_pending(runner)
+        # the port's difference: the slot stays, its pool and graph pools
+        # go back to the card, and its tick stream to the free list
+        runner.engine.retire("removed from the fleet")
+        _give_stream(runner.engine.device, runner._stream)
+        runner._stream = None
+        return idx
+
+    def _reroute_pending(self, runner: Any) -> None:
+        """Hand a stopped (removed) runner's unexecuted commands to the
+        fleet: a submit routed to it just before its removal, a stream
+        adopted by it, an abort or a resume would otherwise wait forever
+        on a thread that no longer runs (the port's repair of a race the
+        JAX fleet leaves open).  Commands keep their order."""
+        pending = list(runner._handback)
+        runner._handback.clear()
+        while True:
+            try:
+                pending.append(runner._cmds.get_nowait())
+            except queue_mod.Empty:
+                break
+        for cmd in pending:
+            kind = cmd[0]
+            if kind == "submit":
+                _, rid, payload = cmd
+                ent = runner._live.pop(rid, None)
+                if ent is not None:
+                    self.submit(rid, payload, *ent)
+            elif kind == "recover":
+                rec = cmd[1]
+                alive = [self._routable(i) for i in range(len(self.replicas))]
+                if not any(alive):
+                    continue
+                idx, _ = self.router.route(
+                    self.router.affinity_key(rec["prompt"]),
+                    loads=[r.inflight for r in self.replicas], alive=alive)
+                ent = runner._live.pop(rec["rid"], None)
+                if ent is not None:
+                    self.replicas[idx]._live[rec["rid"]] = ent
+                self._owner[rec["rid"]] = idx
+                self.replicas[idx]._cmds.put(cmd)
+            elif kind == "abort":
+                self.abort(cmd[1])
+            elif kind == "attach":
+                _, rid, last_idx, loop, aq = cmd
+                self.resume(rid, last_idx, loop, aq)
+
+    # -- scrape rendering ----------------------------------------------
+    def render_metrics(self, extra_gauges: dict[str, float] | None = None,
+                       ) -> str:
+        """Fleet Prometheus exposition: every per-replica series carries
+        a ``replica`` label (the histograms aggregate across them, which
+        is why they are real histograms), HELP/TYPE headers are emitted
+        once per family, and the router's verdict counters ride at the
+        end."""
+        blocks: list[str] = []
+        seen_meta: set[str] = set()
+        for i, runner in enumerate(self.replicas):
+            if i in self._removed:
+                # a removed replica's frozen counters would read as a
+                # stalled replica on a dashboard; it left on purpose
+                continue
+            engine = runner.engine
+            stats = engine.pool.stats()
+            recov = runner.recovery_latency_s
+            wv = getattr(engine, "weights_version", 0)
+            per_gauges = {
+                "weights_version": float(wv),
+                "pool_blocks_free": stats["free"],
+                "pool_blocks_request_held": stats["request_held"],
+                "pool_blocks_cache_only": stats["cache_only"],
+                "pool_kv_bytes_shard": stats["kv_bytes_shard"],
+                "pool_kv_shards": stats["kv_shards"],
+                "inflight_streams": runner.inflight,
+                "queue_depth_live": engine.scheduler.queue_depth,
+                "restarts_total": runner.restarts,
+                "degraded": 1.0 if runner.state != "ok" else 0.0,
+                "recovery_latency_s_last": recov[-1] if recov else 0.0,
+                "decode_impl_degraded": (
+                    1.0 if engine.decode_degraded else 0.0
+                ),
+            }
+            journal = runner.journal
+            if journal is not None:
+                jstats = journal.stats()
+                per_gauges.update({
+                    "journal_records_total": float(jstats["records"]),
+                    "journal_fsync_p99_s": jstats["fsync_p99_s"],
+                    "journal_write_errors_total": float(
+                        jstats["write_errors"] + jstats["fsync_errors"]),
+                    "journal_epoch": float(jstats["epoch"]),
+                })
+            const = {"replica": str(i)}
+            if wv:
+                # the version label appears once a replica has rolled:
+                # mid-roll the scrape shows both versions side by side,
+                # and pre-upgrade series keep their exact labelsets
+                const["version"] = str(wv)
+            text = engine.metrics.prometheus(
+                extra_gauges=per_gauges,
+                const_labels=const,
+            )
+            ledger = getattr(engine, "tenants", None)
+            if ledger is not None:
+                # tenant-labeled series carry the same replica/version
+                # const labels; the seen_meta dedup below collapses the
+                # repeated HELP/TYPE headers across replicas
+                text += ledger.prometheus(const_labels=const)
+            lines = []
+            for line in text.splitlines():
+                if line.startswith("#"):
+                    if line in seen_meta:
+                        continue
+                    seen_meta.add(line)
+                lines.append(line)
+            blocks.append("\n".join(lines))
+        router = (
+            "# HELP llm_serve_router_routed_total Requests routed to "
+            "their prefix-affine replica (first assignments included)\n"
+            "# TYPE llm_serve_router_routed_total counter\n"
+            f"llm_serve_router_routed_total {self.router.routed}\n"
+            "# HELP llm_serve_router_spilled_total Requests spilled off "
+            "their affine replica under queue pressure\n"
+            "# TYPE llm_serve_router_spilled_total counter\n"
+            f"llm_serve_router_spilled_total {self.router.spilled}\n"
+            # fleet-level because the injector is process-global (one
+            # seeded schedule shared by every replica) — the same series
+            # the single-engine scrape exports and the chaos e2e reads
+            "# HELP llm_serve_faults_injected_total Chaos faults "
+            "injected process-wide\n"
+            "# TYPE llm_serve_faults_injected_total gauge\n"
+            "llm_serve_faults_injected_total "
+            f"{self.faults.injected_total if self.faults is not None else 0.0:g}"
+        )
+        for key, value in (extra_gauges or {}).items():
+            router += (
+                f"\n# HELP llm_serve_{key} Live server gauge"
+                f"\n# TYPE llm_serve_{key} gauge"
+                f"\nllm_serve_{key} {float(value):.10g}"
+            )
+        blocks.append(router)
+        return "\n".join(blocks) + "\n"

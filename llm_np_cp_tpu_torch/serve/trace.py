@@ -28,8 +28,10 @@ def replay_arrivals(
     *,
     realtime: bool = False,
     max_ticks: int = 100_000,
+    on_tick: Callable[[int], None] | None = None,
 ) -> dict[str, Any]:
-    """The arrival-replay loop behind ``ServeEngine.replay_trace``.
+    """The arrival-replay loop behind ``ServeEngine.replay_trace`` and
+    ``ReplicaSet.replay_trace``.
 
     ``target`` provides ``clock``/``submit``/``step``; ``snapshot``
     renders the final metrics.  realtime=False (default, what tests and
@@ -37,11 +39,13 @@ def replay_arrivals(
     advances to the next arrival whenever the target is idle — the
     schedule stress is preserved without wall-clock sleeps.
     realtime=True sleeps until each arrival (live serving simulation).
+    ``on_tick(i)`` (optional) runs after the i-th ``step()``: the hook a
+    mid-trace rolling upgrade rides.
     """
     pending = sorted(trace, key=lambda t: t["arrival_s"])
     t0 = target.clock()
     virtual_now = 0.0
-    for _ in range(max_ticks):
+    for tick_i in range(max_ticks):
         now = target.clock() - t0 if realtime else virtual_now
         while pending and pending[0]["arrival_s"] <= now:
             item = pending.pop(0)
@@ -57,6 +61,9 @@ def replay_arrivals(
                 # arrival and the tick loop noticing the request
                 req.extra["arrival_wall"] = t0 + item["arrival_s"]
         had_work = target.step()
+        if on_tick is not None:
+            on_tick(tick_i)
+            had_work = had_work or target.step()  # a roll may move work
         if not had_work and pending:
             nxt = pending[0]["arrival_s"]
             if realtime:

@@ -1339,6 +1339,81 @@ def test_traced_ticks_are_replays(cuda, mixed):
     assert graded == dispatches
 
 
+def test_replica_captures_beside_a_replaying_peer(cuda):
+    """Two replicas of one fleet on one card, each on its own stream and
+    thread: while the peer serves (graph replays and host fetches), the
+    other is built and captures every bucket (``capture_error_mode``
+    thread_local, no device-wide synchronize), then serves.  Both sets of
+    float32 streams equal each engine's run alone, and the ragged and
+    epilogue launch counts are exact across both threads."""
+    import threading
+
+    import numpy as np
+
+    from llm_np_cp_tpu_torch import graphs
+    from llm_np_cp_tpu_torch.ops.sampling import Sampler
+    from llm_np_cp_tpu_torch.serve import ServeEngine, poisson_trace
+
+    cfg, params = _tiny_llama(torch.float32)
+    trace = poisson_trace(np.random.default_rng(5), 12, rate_rps=40.0, prompt_len_range=(5, 60),
+                          max_new_tokens=24, vocab_size=cfg.vocab_size)
+
+    def engine(warm=True):
+        eng = ServeEngine(params, cfg, sampler=Sampler("greedy"), mixed_step="on", max_slots=4,
+                          num_blocks=96, block_size=16, max_seq_len=128, prefill_chunk=16,
+                          cache_dtype=torch.float32)
+        if warm:
+            eng.warmup([8], 2)
+        return eng
+
+    def serve_all(eng):
+        reqs = [eng.submit(item["prompt"], item["max_new_tokens"], seed=j)
+                for j, item in enumerate(trace)]
+        eng.run_until_complete()
+        return [list(r.generated) for r in reqs]
+
+    want = serve_all(engine())
+    peer = engine()
+    got, errors = {}, []
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    before, g0 = _counts(), dict(graphs.TOTALS)
+    peer_warm = sum(peer.bucket_dispatches.values())
+    go = threading.Event()
+
+    def run_peer():
+        try:
+            with torch.cuda.stream(streams[0]):
+                go.set()
+                for rep in range(3):  # long enough to span the other's captures
+                    got[f"peer{rep}"] = serve_all(peer)
+                torch.cuda.current_stream().synchronize()
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    t = threading.Thread(target=run_peer)
+    t.start()
+    go.wait(10.0)
+    with torch.cuda.stream(streams[1]):
+        other = engine()  # captures every bucket while the peer replays
+        got["other"] = serve_all(other)
+        torch.cuda.current_stream().synchronize()
+    t.join(120.0)
+    assert not errors, errors
+    assert [got[f"peer{r}"] for r in range(3)] == [want] * 3 and got["other"] == want
+    after = _counts()
+    eager = graphs.TOTALS["eager"] - g0["eager"]
+    replays = graphs.TOTALS["replays"] - g0["replays"]
+    # every capture was the other engine's (the peer was warm), each after
+    # one eager first call; a replay and an eager call each launch the
+    # ragged kernel once a layer and the epilogue once
+    assert graphs.TOTALS["captures"] - g0["captures"] == eager >= len(other.mixed_buckets)
+    assert replays >= sum(peer.bucket_dispatches.values()) - peer_warm
+    assert after["ragged"] - before["ragged"] == cfg.num_hidden_layers * (replays + eager)
+    assert after["epilogue"] - before["epilogue"] == replays + eager
+
+
 def test_capture_raises_on_host_sync(cuda):
     """A step that reads the card back while captured raises; nothing
     falls back to running it eagerly.  (Last in this file: it leaves a

@@ -13,8 +13,8 @@ stream, and 8 concurrent streams on a 2-slot engine.  Then the server's
 behaviours: 429 with Retry-After on a full queue, a mid-stream
 disconnect returning every block, a deadline expiry, the crash
 backstop, drain, Last-Event-ID resume, the scrape, the 404 hints and
-the idle scrape held to a JAX server's bytes, and the options of later
-slices raising ``NotImplementedError``.
+the idle scrape held to a JAX server's bytes, and the option of a later
+slice (the mesh) raising ``NotImplementedError``.
 """
 
 import asyncio
@@ -423,32 +423,33 @@ def test_metrics_text_equals_jax(max_samples):
 
 
 def test_unported_options_raise(llama):
-    """The options of later slices raise ``NotImplementedError`` naming
-    their layer; the supervised restart, the journal, the request log and
-    the fault injector (the faults-and-recovery slice) are accepted."""
+    """Only the mesh (a later slice) raises ``NotImplementedError``; the
+    supervised restart, the journal, the request log and the fault
+    injector (faults and recovery), and the fleet and its lifecycle
+    (``runner=``, ``upgrade_loader=``, the runner's roll methods,
+    ``actions=``) are accepted."""
     eng = engine(llama)
     runner = HttpServer(eng, model_id="tiny", max_restarts=1, restart_backoff_s=0.1,
                         restart_window_s=60.0).runner
     assert (runner.max_restarts, runner.restart_backoff_s, runner.restart_window_s) == (
         1, 0.1, 60.0)
-    with pytest.raises(NotImplementedError, match="fleet"):
-        HttpServer(eng, model_id="tiny", runner=object())
-    with pytest.raises(NotImplementedError, match="lifecycle"):
-        HttpServer(eng, model_id="tiny", upgrade_loader=lambda body: None)
-    for name in ("detach_inflight", "await_recovered"):
-        with pytest.raises(NotImplementedError, match="lifecycle"):
-            getattr(runner, name)()
-    with pytest.raises(NotImplementedError, match="lifecycle"):
-        runner.rolling_upgrade(lambda: None)
-    with pytest.raises(NotImplementedError, match="lifecycle"):
-        runner.rebuild_upgraded(None, 1, [])
-    # a traced engine is served; the lifecycle and fleet layers still refuse
+    fleet = serve.ReplicaRunner([engine(llama), engine(llama)])
+    assert HttpServer(eng, model_id="tiny", runner=fleet).runner is fleet
+    loader = lambda body: None  # noqa: E731
+    assert HttpServer(eng, model_id="tiny", upgrade_loader=loader).upgrade_loader is loader
+    # an idle runner's planned swap: nothing in flight, a clean timeout
+    assert runner.detach_inflight() == [] and runner.recovering
+    with pytest.raises(TimeoutError):
+        runner.await_recovered(0.05)
+    assert callable(runner.rolling_upgrade) and callable(runner.rebuild_upgraded)
+    assert runner.serving_engines() == [eng]
+    # a traced engine is served
     eng.tracer = tracing.TraceRecorder()
     assert EngineRunner(eng).engine.tracer is eng.tracer
     eng.tracer = None
-    for name in ("mesh_plan", "actions"):
-        with pytest.raises(NotImplementedError):
-            engine(llama, **{name: object()})
+    with pytest.raises(NotImplementedError):
+        engine(llama, mesh_plan=object())
+    assert engine(llama, actions=serve.ActionPolicy()).actions is not None
     accepted = engine(llama, fault_injector=serve.FaultInjector("decode@99"))
     assert accepted.faults is not None and accepted.journal is None
     # the engine attributes the server reads, at the JAX engine's "off"

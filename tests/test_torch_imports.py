@@ -54,6 +54,7 @@ def test_scan_sees_the_port():
             "llm_np_cp_tpu_torch/utils/loading.py", "llm_np_cp_tpu_torch/serve/tracing.py",
             "llm_np_cp_tpu_torch/serve/slo.py", "llm_np_cp_tpu_torch/serve/telemetry.py",
             "llm_np_cp_tpu_torch/serve/otel.py", "llm_np_cp_tpu_torch/serve/tenants.py",
+            "llm_np_cp_tpu_torch/serve/lifecycle.py", "llm_np_cp_tpu_torch/serve/replica.py",
             "chip_smoke.py"} <= names
     assert imported_roots(ROOT / "tests" / "test_torch_model.py") >= {"jax", "llm_np_cp_tpu"}
     assert "llm_np_cp_tpu_torch" in imported_roots(ROOT / "chip_smoke.py")

@@ -545,9 +545,12 @@ def test_auto_means_on_and_unported_options_raise(llama):
               device="cpu")
     eng = serve.ServeEngine(tp, cfg, mixed_step="auto", **kw)
     assert eng.mixed and eng.mixed_buckets[0] == da.RAGGED_Q_TILE
-    for opt in ("mesh_plan", "actions"):
-        with pytest.raises(NotImplementedError, match=opt):
-            serve.ServeEngine(tp, cfg, **{opt: object()}, **kw)
+    with pytest.raises(NotImplementedError, match="mesh_plan"):
+        serve.ServeEngine(tp, cfg, mesh_plan=object(), **kw)
+    # the lifecycle slice is ported: actions and the weight version are
+    # accepted
+    acting = serve.ServeEngine(tp, cfg, actions=serve.ActionPolicy(), weights_version=2, **kw)
+    assert acting.actions is not None and acting.weights_version == 2
     # the observability plane is ported: its layers are accepted
     tr = TraceRecorder()
     traced = serve.ServeEngine(tp, cfg, tracer=tr, sentinel=TickSentinel(),
@@ -567,8 +570,8 @@ def test_auto_means_on_and_unported_options_raise(llama):
         serve.ServeEngine(tp, cfg, **{**kw, "device": "meta"})
     for name in ("recover", "finish_recovered", "clone_fresh", "retire"):
         assert callable(getattr(eng, name))
-    with pytest.raises(NotImplementedError, match="fleet"):
-        eng.share_compiled_steps(eng)
+    # the fleet's contract: capture what the peer captured (nothing yet)
+    eng.share_compiled_steps(eng)
     assert eng.compile_counts() == {"mixed_step": 0}
 
 
