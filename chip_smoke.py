@@ -189,9 +189,38 @@ Phases, each printing JSON lines; any failure exits non-zero:
    tracer and a sentinel: one ``engine-death`` instant and one
    ``restart`` span a restart, no tick span between a death and the end
    of its rebuild, and the sentinel's samples equal to the tick spans.
+10b. cli — the port's command line (``llm_np_cp_tpu_torch.cli``) over
+   an HF checkpoint directory that the phase writes under
+   ``smoke_out/cli/`` (config.json, two safetensors shards and their
+   index, written here: the card's machine has no ``safetensors``) from
+   the seeded weights, and loads back through ``--model`` (``load_model``;
+   it must equal the seeded weights), with a byte-level stand-in
+   tokenizer (``ByteTokenizer``) passed as ``cli.run(..., tokenizer=)``.
+   Seven legs through ``cli.run`` in process: (a) greedy ``--no-stream
+   --attn-impl flash --decode-attn pallas --metrics --jax-profile``
+   (flash, the decode kernel and its combine, the epilogue; the profiler's
+   trace must name the three kernels), (b) the default streamed min-p run
+   with ``--seed`` (the threefry kernels), (c) ``--quantize int8`` greedy
+   (the int8-head epilogue), (d) ``--prompts-file`` of four uneven prompts
+   with ``--batch-size 2``, (e) ``--speculative 4 --draft trunc4``, (f)
+   ``serve-bench --requests 32 --rate 16 --json`` (the ragged kernel and
+   the epilogue; all 32 finished) and (g) the same with ``--mixed-step off
+   --attn-impl paged`` (the paged decode kernel).  Each leg's launch
+   counts must equal what its flags imply (a, c, f, g by formula; b, d, e:
+   the same work run directly through the library), and its tokens must
+   equal a direct ``Generator`` / ``SpeculativeGenerator`` / ``ServeEngine``
+   run on the same loaded params (f and g: or first apart at a near-tie,
+   their schedules following the wall clock), greedy ones teacher-forced
+   and min-p ones inside the sampler's support.  Then ``python -m
+   llm_np_cp_tpu_torch.cli serve`` as a child process with ``--journal``:
+   ``/healthz`` ok, two unary and two SSE token-id completions equal to an
+   in-process engine's on the same weights, and after SIGTERM a drain and
+   exit 0.  Recorded: each leg's launches, TTFT and tok/s as ``--metrics``
+   and ``--json`` report them, the checkpoint's write and load seconds.
 11. restart — the durable journal's ``kill -9`` resume on the JAX bench's
    ``serve_restart_poisson`` shape: the server runs in a child process
-   (this script with ``--serve-child``).  A plain leg and a journaled leg
+   (``python -m llm_np_cp_tpu_torch.cli serve`` over the cli phase's
+   checkpoint, with ``--journal`` and ``--chaos-spec``).  A plain leg and a journaled leg
    on the same arrivals (their tok/s, the journal's fsync p99), then a
    journaled child that SIGKILLs itself at its 90th busy tick
    (``proc_kill@90``); a new child on the same port and journal replays
@@ -212,9 +241,13 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
+
+# the checkout this script runs from (smoke_out/ under it is gitignored)
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bandwidth and
 # bf16 tensor-core rate — the bound of each kernel case.
@@ -315,10 +348,11 @@ CHAOS_SPEC, CHAOS_DEADLINE, CHAOS_BACKOFF, CHAOS_RESTARTS = (
 F32_CHAOS_REQUESTS, F32_CHAOS_TOKENS = 8, 16
 F32_CHAOS_SPEC, F32_CHAOS_DEADLINE = "tick_crash@6;tick_hang@12=6", 3.0
 # the restart phase: the JAX bench's serve_restart_poisson (bench.py:285-
-# 287, run at bench.py:2354-): the same trace and model, the server in a
-# child process (this script with --serve-child) that SIGKILLs itself at
-# its 90th busy tick (proc_kill@90); a new child on the same port and
-# journal replays it, and every client resumes by Last-Event-ID
+# 287, run at bench.py:2354-): the same trace and model, the server the
+# port's ``cli serve`` in a child process that SIGKILLs itself at its
+# 90th busy tick (--chaos-spec proc_kill@90); a new child on the same
+# port and --journal replays it, and every client resumes by
+# Last-Event-ID
 RESTART_KILL_TICK = 90
 
 # the quant phase: quantize_params keywords per weight mode, and the
@@ -1734,19 +1768,21 @@ def serve_trace(np, cfg, n: int, new_tokens: int, seed: int,
                          vocab_size=cfg.vocab_size)
 
 
-def ragged_combines(torch, da, eng, cfg, since: dict[int, int]) -> int:
+def ragged_combines(torch, da, eng, cfg, since: dict[int, int],
+                    counts: dict[int, int] | None = None) -> int:
     """Combine launches the unified tick's dispatches since ``since`` (the
-    engine's ``bucket_dispatches`` then) imply: per packed width, the
-    layers whose ragged split plan over that width is > 1 (the plan reads
-    shapes alone, so a replayed graph launches the combine exactly where
-    the eager step did)."""
+    engine's ``bucket_dispatches`` then; ``counts``: runs per width in
+    their place) imply: per packed width, the layers whose ragged split
+    plan over that width is > 1 (the plan reads shapes alone, so a
+    replayed graph launches the combine exactly where the eager step
+    did)."""
     from llm_np_cp_tpu_torch.serve.engine import GLOBAL_WINDOW
 
     pages = eng.pool.pages.k[0]
     tables = torch.empty((eng.scheduler.max_slots, eng.max_blocks_per_seq), dtype=torch.int32,
                          device="cuda")
     n = 0
-    for t_w, count in eng.bucket_dispatches.items():
+    for t_w, count in (eng.bucket_dispatches if counts is None else counts).items():
         q = torch.empty((t_w, cfg.num_attention_heads, cfg.head_dim), dtype=torch.bfloat16,
                         device="cuda")
         for i in range(cfg.num_hidden_layers):
@@ -2998,6 +3034,9 @@ OBSERVE_CAP, OBSERVE_BURST = 2, 12
 # the split, min-p, OTLP-down, float32 and profiled legs: the trace's
 # first requests, all submitted at once (one composition a run)
 OBSERVE_SHORT_REQUESTS, OBSERVE_SHORT_TOKENS = 8, 16
+# profiled legs taken at most this many times when the profiler lost
+# kernel records (device_per_tick's launches_without_records)
+PROFILE_ATTEMPTS = 3
 
 
 def otlp_collector():
@@ -3045,10 +3084,9 @@ def closed_port() -> int:
 def tick_checks(events: list[dict], phases: tuple[str, ...], hbm_gbps: float,
                 peak_tflops: float) -> dict:
     """A trace's tick spans: each followed by its phase slices, named
-    ``phases`` in order, contiguous inside the tick and covering it (the
-    phases sum to t6 - t0; the tick's end adds the args' emission: ticks
-    of 200 µs or more must be >= 0.9 covered, as the JAX package's test
-    holds them), and each roofline-graded tick at 0 < util < 1 and mfu < 1
+    ``phases`` in order, contiguous inside the tick and covering it whole
+    (the engine ends the tick where its last phase ends, so the phases sum
+    to t6 - t0), and each roofline-graded tick at 0 < util < 1 and mfu < 1
     against the given constants."""
     ticks, bad, shortfall, utils, mfus, walls, graded_hbm = 0, [], [], [], [], [], set()
     i = 0
@@ -3071,7 +3109,7 @@ def tick_checks(events: list[dict], phases: tuple[str, ...], hbm_gbps: float,
             prev = p["ts"] + p["dur"]
         covered = sum(p["dur"] for p in ph)
         shortfall.append(ev["dur"] - covered)
-        if ev["dur"] >= 200.0 and covered < 0.9 * ev["dur"]:
+        if abs(ev["dur"] - covered) > 1e-3:
             bad.append(("coverage", ev["ts"], covered, ev["dur"]))
         args = ev.get("args", {})
         if "roofline_util" in args:
@@ -3088,6 +3126,104 @@ def tick_checks(events: list[dict], phases: tuple[str, ...], hbm_gbps: float,
                 roofline_util_max=max(utils, default=None), mfu_max=max(mfus, default=None),
                 device_time_s_median=arr(walls)[len(walls) // 2] if walls else None,
                 hbm_gbps=hbm_gbps, peak_tflops=peak_tflops)
+
+
+def device_per_tick(np, prof, events: list[dict], checks: list[str]) -> dict:
+    """Each graded tick's device work under the profiler: its graph
+    replay's kernels, and the copies made by the torch ops that start
+    between its serve.mixed_dispatch range and the next one (the tick's
+    fetch waits for them), as their first-start-to-last-end span and as
+    their summed durations, against the tick's dispatch → fetch wall.
+
+    Records join ticks by id and order, not by their own times: the
+    profiler places some ticks' device records whole milliseconds away
+    from the host's timeline (``displaced_ticks``, by up to
+    ``displaced_ms_max``).  A tick makes one ``cudaGraphLaunch`` (the
+    CUDA tracer numbers its calls in order, and its kernels carry the
+    call's number); a copy carries the number of the torch op that made
+    it, and the op its start on the host's clock.  A launch none of whose
+    kernels reached the profile (``launches_without_records``: the
+    profiler lost them) leaves its tick without device work.  The range's
+    own annotation on the device timeline is not device work."""
+    import bisect
+
+    from torch.autograd import DeviceType
+
+    walls = [1e3 * e["args"]["device_time_s"] for e in events
+             if e.get("name") == "tick" and "device_time_s" in e.get("args", {})]
+    raw = prof.profiler.kineto_results.events()
+    base = min((r.start_ns() for r in raw), default=0)
+    recs = [(r.name(), r.device_type(), (r.start_ns() - base) / 1e3,
+             ((r.end_ns() if hasattr(r, "end_ns") else r.start_ns() + r.duration_ns()) - base)
+             / 1e3, r.correlation_id(), r.linked_correlation_id())
+            for r in raw]
+    starts = sorted(t0 for name, dt, t0, _, _, _ in recs
+                    if name == "serve.mixed_dispatch" and dt == DeviceType.CPU)
+    launches = sorted(corr for name, dt, _, _, corr, _ in recs
+                      if name == "cudaGraphLaunch" and dt == DeviceType.CPU)
+    tick_of_launch = ({corr: k for k, corr in enumerate(launches)}
+                      if len(launches) == len(starts) else {})
+    # torch's ops and ranges (the CUDA tracer's own host records number
+    # from another series); an id that two of them share links nowhere
+    op_start: dict[int, float] = {}
+    shared: set[int] = set()
+    for name, dt, t0, _, corr, link in recs:
+        if dt == DeviceType.CPU and link == 0 and ("::" in name or name.startswith("serve.")):
+            if corr in op_start:
+                shared.add(corr)
+            op_start[corr] = t0
+    for corr in shared:
+        del op_start[corr]
+    by_tick: list[list[tuple[float, float]]] = [[] for _ in starts]
+    n_records = unlinked = 0
+    seen: set[int] = set()
+    for name, dt, t0, t1, corr, link in recs:
+        if dt != DeviceType.CUDA or name.startswith("serve."):
+            continue
+        n_records += 1
+        seen.add(corr)
+        k = tick_of_launch.get(corr)
+        if k is None:
+            t_op = op_start.get(link)
+            k = None if t_op is None else bisect.bisect_right(starts, t_op) - 1
+        if k is None or k < 0:
+            unlinked += 1
+            continue
+        by_tick[k].append((t0, t1))
+    spans, busy, displaced = [], [], []
+    for k, mine in enumerate(by_tick):
+        if not mine:
+            continue
+        first, last = min(a for a, _ in mine), max(b for _, b in mine)
+        spans.append((last - first) / 1e3)
+        busy.append(sum(b - a for a, b in mine) / 1e3)
+        # the device starts a tick's work inside the tick's window
+        t1 = starts[k + 1] if k + 1 < len(starts) else float("inf")
+        if first < starts[k] or first >= t1:
+            displaced.append(max(starts[k] - first, first - t1) / 1e3)
+    gap_share = [(sp - b) / sp for sp, b in zip(spans, busy) if sp > 0]
+    out = dict(ticks=len(walls), mixed_dispatch_ranges=len(starts),
+               ticks_with_device_work=len(spans), device_records=n_records,
+               graph_launches=len(launches),
+               launches_without_records=sum(1 for c in launches if c not in seen),
+               device_records_unlinked=unlinked,
+               displaced_ticks=len(displaced), displaced_ms_max=max(displaced, default=0.0),
+               dispatch_to_fetch_ms_mean=float(np.mean(walls)) if walls else None,
+               dispatch_to_fetch_ms_p50=_pct(np, walls, 50),
+               device_span_ms_mean=float(np.mean(spans)) if spans else None,
+               device_span_ms_p50=_pct(np, spans, 50),
+               device_busy_ms_mean=float(np.mean(busy)) if busy else None,
+               device_busy_ms_p50=_pct(np, busy, 50),
+               gap_share_of_span_mean=float(np.mean(gap_share)) if gap_share else None,
+               gap_share_of_span_p50=_pct(np, gap_share, 50))
+    if spans and walls and len(spans) == len(walls):
+        over = [w - sp for w, sp in zip(walls, spans)]
+        out.update(wall_over_span_ms_mean=float(np.mean(over)),
+                   wall_over_span_ms_p50=_pct(np, over, 50))
+    if (not walls or len(starts) < len(walls) or len(spans) != len(walls)
+            or len(launches) != len(starts)):
+        checks.append(f"observe profile: {out}")
+    return out
 
 
 def observe_phase(torch, np, kernels: dict, card: str) -> dict:
@@ -3248,54 +3384,7 @@ def observe_phase(torch, np, kernels: dict, card: str) -> dict:
     tenant_of = {item["seed"]: OBSERVE_TENANTS[j % len(OBSERVE_TENANTS)]
                  for j, item in enumerate(trace)}
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    def device_per_tick(prof, events: list[dict]) -> dict:
-        """Each graded tick's device work under the profiler: the kernels
-        and copies that start between its serve.mixed_dispatch range and
-        the next one (the tick's fetch waits for them), as their
-        first-start-to-last-end span and as their summed durations, against
-        the tick's dispatch → fetch wall; the range's own annotation on the
-        device timeline is not device work."""
-        walls = [1e3 * e["args"]["device_time_s"] for e in events
-                 if e.get("name") == "tick" and "device_time_s" in e.get("args", {})]
-        fevents = list(prof.events())
-        starts = sorted(e.time_range.start for e in fevents if e.name == "serve.mixed_dispatch"
-                        and e.device_type == DeviceType.CPU)
-        dev = sorted((e.time_range.start, e.time_range.end) for e in fevents
-                     if e.device_type == DeviceType.CUDA and not e.name.startswith("serve."))
-        spans, busy = [], []
-        j = 0
-        for k, t0 in enumerate(starts):
-            t1 = starts[k + 1] if k + 1 < len(starts) else float("inf")
-            while j < len(dev) and dev[j][0] < t0:
-                j += 1
-            mine = []
-            while j < len(dev) and dev[j][0] < t1:
-                mine.append(dev[j])
-                j += 1
-            if mine:
-                spans.append((max(b for _, b in mine) - min(a for a, _ in mine)) / 1e3)
-                busy.append(sum(b - a for a, b in mine) / 1e3)
-        gap_share = [(sp - b) / sp for sp, b in zip(spans, busy) if sp > 0]
-        out = dict(ticks=len(walls), mixed_dispatch_ranges=len(starts),
-                   ticks_with_device_work=len(spans),
-                   dispatch_to_fetch_ms_mean=float(np.mean(walls)) if walls else None,
-                   dispatch_to_fetch_ms_p50=_pct(np, walls, 50),
-                   device_span_ms_mean=float(np.mean(spans)) if spans else None,
-                   device_span_ms_p50=_pct(np, spans, 50),
-                   device_busy_ms_mean=float(np.mean(busy)) if busy else None,
-                   device_busy_ms_p50=_pct(np, busy, 50),
-                   gap_share_of_span_mean=float(np.mean(gap_share)) if gap_share else None,
-                   gap_share_of_span_p50=_pct(np, gap_share, 50))
-        if spans and walls and len(spans) == len(walls):
-            over = [w - sp for w, sp in zip(walls, spans)]
-            out.update(wall_over_span_ms_mean=float(np.mean(over)),
-                       wall_over_span_ms_p50=_pct(np, over, 50))
-        if not walls or len(starts) < len(walls) or len(spans) != len(walls):
-            checks.append(f"observe profile: {out}")
-        return out
 
     def http_observed(where: str, traced: bool, direct_tokens: dict | None,
                       export: bool = True, hooks: bool = False) -> dict:
@@ -3461,12 +3550,13 @@ def observe_phase(torch, np, kernels: dict, card: str) -> dict:
                                           if v[kind] and v["untraced"] else None)
         cost[key] = v
 
-    def direct_observed(where: str, profiled: bool) -> dict:
+    def direct_observed(where: str, profiled: bool, profile_checks: list[str] | None = None
+                        ) -> dict:
         """The served trace's arrivals in real time straight into the
         traced engine on this thread (the profiler records the ranges of
         the thread that starts it only, and the HTTP leg's ticks run on the
         runner's): its ticks, and under torch.profiler each tick's device
-        span and kernel time."""
+        span and kernel time (its shortfalls into ``profile_checks``)."""
         detach(eng)
         eng.scheduler.finished.clear()
         lay = attach(eng, params, endpoint=None)
@@ -3486,7 +3576,7 @@ def observe_phase(torch, np, kernels: dict, card: str) -> dict:
                    tok_s=snap["throughput_tok_s"], dispatch_to_fetch_ms_p50=_pct(np, walls, 50),
                    roofline_util_median=tk["roofline_util_median"])
         if prof is not None:
-            out["profile"] = device_per_tick(prof, events)
+            out["profile"] = device_per_tick(np, prof, events, profile_checks)
         detach(eng)
         eng.scheduler.finished.clear()
         return out
@@ -3496,7 +3586,25 @@ def observe_phase(torch, np, kernels: dict, card: str) -> dict:
     # time, beside the same arrivals without the profiler and the HTTP
     # traced legs' wall
     direct = direct_observed("observe direct traced", False)
-    direct_prof = direct_observed("observe direct traced profiled", True)
+    # the profiler now and then loses a whole launch's kernel records: a
+    # leg that lost some, and nothing else, is taken again, up to
+    # PROFILE_ATTEMPTS times; a tick that really has no device work has
+    # none every time
+    attempts = []
+    for _ in range(PROFILE_ATTEMPTS):
+        lost: list[str] = []
+        direct_prof = direct_observed("observe direct traced profiled", True, lost)
+        pr = direct_prof["profile"]
+        attempts.append({k: pr[k] for k in ("ticks", "ticks_with_device_work", "graph_launches",
+                                             "launches_without_records", "device_records",
+                                             "displaced_ticks", "displaced_ms_max")})
+        only_lost = (pr["graph_launches"] == pr["mixed_dispatch_ranges"] == pr["ticks"]
+                     and pr["ticks_with_device_work"] + pr["launches_without_records"]
+                     == pr["ticks"])
+        if not lost or not only_lost:
+            break
+    checks.extend(lost)
+    direct_prof["profile"]["attempts"] = attempts
     profiled = dict(direct_prof["profile"], unprofiled_direct=direct,
                     profiled_direct={k: v for k, v in direct_prof.items() if k != "profile"},
                     http_traced_dispatch_to_fetch_ms_p50=[
@@ -3848,111 +3956,603 @@ def chaos_phase(torch, np, kernels: dict, card: str) -> dict:
                 checks=checks, ok=not checks)
 
 
-def serve_child(argv: list[str]) -> int:
-    """``--serve-child``: serve the http phase's model and engine from this
-    process until SIGTERM (the restart phase's server), with a request
-    journal and a chaos spec when given."""
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--serve-child", action="store_true")
-    ap.add_argument("--port", type=int, default=0)
-    ap.add_argument("--port-file", required=True)
-    ap.add_argument("--journal")
-    ap.add_argument("--chaos")
-    args = ap.parse_args(argv)
+# ----------------------------------------------------------------------
+# phase 10b: the command line (llm_np_cp_tpu_torch.cli) over a checkpoint
+# directory
+# ----------------------------------------------------------------------
 
-    import numpy as np
-    import torch
+# the cli phase: Llama-3.2-1B written as an HF checkpoint directory
+# (seeded random bf16 weights, init_params(0)) under smoke_out/cli/ and
+# loaded back through ``--model``; the restart phase's child servers
+# serve the same directory
+CLI_MODEL = "meta-llama/Llama-3.2-1B"
+CLI_DIR = os.path.join(ROOT, "smoke_out", "cli")
+CLI_SHARDS = 2
+# the device every CLI leg and child asks for (--backend)
+CLI_BACKEND = "cuda"
+CLI_NEW, CLI_SEED, CLI_SPEC_NEW = 32, 7, 16
+CLI_PROMPT = ("The quick brown fox jumps over the lazy dog while the five boxing wizards "
+              "jump quickly; a journey of a thousand miles begins with a single step, "
+              "and the early bird catches the worm before the sun rises over the hills.")
+# leg d's prompts file: four uneven prompts, run in ragged batches of two
+CLI_FILE_PROMPTS = (CLI_PROMPT[:40], CLI_PROMPT[:95], CLI_PROMPT, CLI_PROMPT[40:180])
+CLI_BATCH = 2
+# the serve child's four token-id completions (the http trace's first
+# prompts): two unary, two SSE
+CLI_SERVE_REQUESTS, CLI_SERVE_NEW = 4, 32
 
-    from llm_np_cp_tpu_torch.config import PRESETS
+
+class ByteTokenizer:
+    """A byte-level stand-in for the checkpoint's tokenizer (the port takes
+    its tokenizer from the caller): a text's UTF-8 bytes, offset past the
+    special ids, are its token ids, and ``decode`` maps each id to one
+    character, so printed text gives back the ids (``ids``)."""
+
+    eos_token_id = 128001  # Llama 3's <|end_of_text|>
+    OFFSET, BASE = 3, 0x10000
+
+    def __call__(self, text, return_tensors=None):
+        import numpy as np
+
+        return {"input_ids": np.asarray([[b + self.OFFSET for b in text.encode()]], np.int32)}
+
+    def decode(self, ids, skip_special_tokens=True):
+        return "".join(chr(self.BASE + int(i)) for i in ids)
+
+    @classmethod
+    def ids(cls, text: str) -> list[int]:
+        return [ord(c) - cls.BASE for c in text]
+
+
+def hf_config(cfg) -> dict:
+    """``cfg`` as the ``config.json`` of its HF checkpoint (Llama family:
+    the keys ``ModelConfig.from_hf_dict`` reads, with llama3 RoPE scaling)."""
+    d = dict(architectures=["LlamaForCausalLM"], model_type=cfg.model_type,
+             vocab_size=cfg.vocab_size, hidden_size=cfg.hidden_size,
+             intermediate_size=cfg.intermediate_size, num_hidden_layers=cfg.num_hidden_layers,
+             num_attention_heads=cfg.num_attention_heads,
+             num_key_value_heads=cfg.num_key_value_heads, head_dim=cfg.head_dim,
+             max_position_embeddings=cfg.max_position_embeddings, rope_theta=cfg.rope_theta,
+             rms_norm_eps=cfg.rms_norm_eps, hidden_act=cfg.hidden_act,
+             tie_word_embeddings=cfg.tie_word_embeddings, attention_bias=cfg.attention_bias,
+             mlp_bias=cfg.mlp_bias, torch_dtype="bfloat16",
+             bos_token_id=128000, eos_token_id=ByteTokenizer.eos_token_id)
+    if cfg.rope_scaling_type == "llama3":
+        d["rope_scaling"] = dict(
+            rope_type="llama3", factor=cfg.rope_scaling_factor,
+            low_freq_factor=cfg.rope_scaling_low_freq_factor,
+            high_freq_factor=cfg.rope_scaling_high_freq_factor,
+            original_max_position_embeddings=cfg.rope_scaling_original_max_position)
+    return d
+
+
+def write_checkpoint(torch, params, cfg, out_dir: str, shards: int = CLI_SHARDS) -> dict:
+    """``params`` (the port's layout) as an HF checkpoint directory:
+    ``config.json``, ``shards`` safetensors files with HF key names and
+    [out, in] projections, and their index.  The format is written here
+    (the card's machine has no ``safetensors`` package): an 8-byte
+    little-endian header length, the JSON header, the raw bytes."""
+    import struct
+
+    from llm_np_cp_tpu_torch.config import ModelConfig
+    from llm_np_cp_tpu_torch.utils.loading import _key_maps
+
+    hf = hf_config(cfg)
+    if ModelConfig.from_hf_dict(hf) != cfg:
+        raise AssertionError(f"config.json does not read back as the config: {hf}")
+    layer_map, top_map = _key_maps(cfg)
+    tensors = [(key, params[name], t) for key, (name, t) in top_map.items() if name in params]
+    tensors += [(f"model.layers.{i}.{suffix}", params["layers"][name][i], t)
+                for i in range(cfg.num_hidden_layers)
+                for suffix, (name, t) in layer_map.items() if name in params["layers"]]
+    dtypes = {torch.bfloat16: "BF16", torch.float32: "F32"}
+    total = sum(x.numel() * x.element_size() for _, x, _ in tensors)
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    weight_map, groups, size = {}, [[]], 0
+    for item in tensors:
+        if size >= total * len(groups) / shards and len(groups) < shards:
+            groups.append([])
+        groups[-1].append(item)
+        size += item[1].numel() * item[1].element_size()
+    for s, group in enumerate(groups):
+        fn = f"model-{s + 1:05d}-of-{len(groups):05d}.safetensors"
+        header, off = {}, 0
+        for key, x, t in group:
+            n = x.numel() * x.element_size()
+            shape = list(x.shape[::-1] if t else x.shape)
+            header[key] = dict(dtype=dtypes[x.dtype], shape=shape, data_offsets=[off, off + n])
+            off += n
+            weight_map[key] = fn
+        raw = json.dumps(header).encode()
+        raw += b" " * (-len(raw) % 8)
+        with open(os.path.join(out_dir, fn), "wb") as f:
+            f.write(struct.pack("<Q", len(raw)) + raw)
+            for _, x, t in group:
+                f.write((x.T if t else x).contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    with open(os.path.join(out_dir, "model.safetensors.index.json"), "w") as f:
+        json.dump(dict(metadata=dict(total_size=total), weight_map=weight_map), f)
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump(hf, f, indent=1)
+    return dict(dir=os.path.relpath(out_dir, ROOT), shards=len(groups), tensors=len(tensors),
+                bytes=total, write_s=time.perf_counter() - t0)
+
+
+def cli_checkpoint(torch, cfg) -> dict:
+    """The checkpoint directory of CLI_MODEL's seeded weights, written
+    once a run (the cli phase writes it, the restart phase reuses it)."""
+    import shutil
+
     from llm_np_cp_tpu_torch.models.transformer import init_params
-    from llm_np_cp_tpu_torch.ops.sampling import Sampler
-    from llm_np_cp_tpu_torch.serve import (FaultInjector, RequestJournal, ServeEngine,
-                                           poisson_trace, pool_geometry)
-    from llm_np_cp_tpu_torch.serve.http.server import serve_forever
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA card visible", file=sys.stderr)
-        return 1
-    model_id = "meta-llama/Llama-3.2-1B"
-    cfg = PRESETS[model_id]
-    trace = poisson_trace(np.random.default_rng(HTTP_SEED), HTTP_REQUESTS, rate_rps=HTTP_RATE,
-                          prompt_len_range=HTTP_PROMPTS, max_new_tokens=HTTP_NEW,
-                          vocab_size=cfg.vocab_size, seed_base=HTTP_SEED)
-    _, num_blocks, max_seq_len = pool_geometry(HTTP_PROMPTS[1], HTTP_NEW, HTTP_SLOTS,
-                                               HTTP_BLOCK, HTTP_CHUNK)
-    eng = ServeEngine(init_params(0, cfg, torch.bfloat16, device="cuda"), cfg,
-                      sampler=Sampler("greedy"), max_slots=HTTP_SLOTS, num_blocks=num_blocks,
-                      block_size=HTTP_BLOCK, max_seq_len=max_seq_len, prefill_chunk=HTTP_CHUNK,
-                      cache_dtype=torch.bfloat16, mixed_step="on", device=torch.device("cuda"),
-                      journal=RequestJournal(args.journal) if args.journal else None,
-                      fault_injector=FaultInjector(args.chaos) if args.chaos else None)
-    eng.warmup([int(t["prompt"].size) for t in trace], HTTP_NEW)
+    done = os.path.join(CLI_DIR, "written.json")
+    if os.path.exists(done):
+        with open(done) as f:
+            return json.load(f)
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    params = init_params(0, cfg, torch.bfloat16, device="cuda")
+    info = write_checkpoint(torch, params, cfg, CLI_DIR)
+    del params
+    torch.cuda.empty_cache()
+    with open(done, "w") as f:
+        json.dump(info, f)
+    return info
+
+
+def serve_argv(model: str, port_file: str, *, port: int = 0, journal: str | None = None,
+               chaos: str | None = None) -> list[str]:
+    """``python -m llm_np_cp_tpu_torch.cli serve`` over ``model`` with the
+    http phase's engine (8 slots, 128-slot blocks, 256-token chunks, pool
+    sized for 512-token prompts and 64 new tokens, greedy)."""
+    argv = [sys.executable, "-m", "llm_np_cp_tpu_torch.cli", "serve", "--model", model,
+            f"--backend={CLI_BACKEND}", "--port", str(port), "--port-file", port_file,
+            "--prompt-len", str(HTTP_PROMPTS[1]), "--max-tokens", str(HTTP_NEW),
+            "--slots", str(HTTP_SLOTS), "--block-size", str(HTTP_BLOCK), "--sampler", "greedy",
+            "--drain-timeout", "60"]
+    if journal:
+        argv += ["--journal", journal]
+    if chaos:
+        argv += ["--chaos-spec", chaos]
+    return argv
+
+
+def start_server(argv: list[str], port_file: str, log_path: str):
+    """Start a CLI server process (its output to ``log_path``) and wait for
+    its port file; → (process, port, seconds to the port file)."""
+    log = open(log_path, "w")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, stdout=log, stderr=subprocess.STDOUT, cwd=ROOT)
+    log.close()
+    while not (os.path.exists(port_file) and open(port_file).read().endswith("\n")):
+        if proc.poll() is not None or time.perf_counter() - t0 > 300:
+            proc.kill()
+            proc.wait()
+            with open(log_path) as f:
+                raise RuntimeError(f"server {argv[4:]} did not start: {f.read()[-2000:]}")
+        time.sleep(0.05)
+    return proc, int(open(port_file).read().split()[1]), time.perf_counter() - t0
+
+
+def cli_run(cli, argv: list[str], log: str) -> tuple[str, str, str, float]:
+    """``cli.run(argv)`` with the byte tokenizer, its stdout and stderr
+    captured (and kept in ``log``); → (returned text, stdout, stderr,
+    seconds)."""
+    import contextlib
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        text = cli.run(argv, tokenizer=ByteTokenizer())
+    wall = time.perf_counter() - t0
+    with open(log, "w", encoding="utf-8") as f:
+        f.write(" ".join(argv) + "\n--- stdout\n" + out.getvalue() + "--- stderr\n"
+                + err.getvalue())
+    return text, out.getvalue(), err.getvalue(), wall
+
+
+def recorded_engines(cli) -> tuple[list, object]:
+    """Wrap ``cli._build_serve_engine`` to keep every engine it builds;
+    → (the list, the original to restore)."""
+    built, orig = [], cli._build_serve_engine
+
+    def build(*a, **k):
+        out = orig(*a, **k)
+        built.append(out[0])
+        return out
+
+    cli._build_serve_engine = build
+    return built, orig
+
+
+def mixed_step_runs(eng) -> dict[int, int]:
+    """Per packed width, the times the unified tick's step ran (its eager
+    first call and every replay: the warm-up's and the trace's)."""
+    return {w: st.run.calls for w, st in eng._mixed_steps.items() if st.run.calls}
+
+
+def cli_phase(torch, np, kernels: dict, card: str) -> dict:
+    """The port's command line on the card, in process (``cli.run``) and as
+    a ``serve`` child, over a checkpoint directory written here; every leg
+    held to a direct library run on the same loaded params."""
+    import gc
+    from types import SimpleNamespace
+
+    from llm_np_cp_tpu_torch import cli
+    from llm_np_cp_tpu_torch.cache import KVCache
+    from llm_np_cp_tpu_torch.config import PRESETS
+    from llm_np_cp_tpu_torch.generate import Generator
+    from llm_np_cp_tpu_torch.models.transformer import forward, init_params
+    from llm_np_cp_tpu_torch.ops.cuda import decode_attention as da
+    from llm_np_cp_tpu_torch.ops.sampling import Sampler
+    from llm_np_cp_tpu_torch.quant import quantize_params
+    from llm_np_cp_tpu_torch.serve import ServeEngine, poisson_trace, pool_geometry
+    from llm_np_cp_tpu_torch.serve.http.client import astream_completion, http_get, post_completion
+    from llm_np_cp_tpu_torch.speculative import SpeculativeGenerator, truncated_draft
+    from llm_np_cp_tpu_torch.utils.loading import load_model
+    from llm_np_cp_tpu_torch.utils.profiling import TRACE_FILE
+
+    cfg = PRESETS[CLI_MODEL]
+    layers = cfg.num_hidden_layers
+    dev = torch.device("cuda")
+    eos = ByteTokenizer.eos_token_id
+    ckpt = cli_checkpoint(torch, cfg)
+    logs = os.path.join(CLI_DIR, "logs")
+    os.makedirs(logs, exist_ok=True)
+    t0 = time.perf_counter()
+    tok, params, loaded_cfg = load_model(CLI_DIR, device="cuda", tokenizer=ByteTokenizer())
     torch.cuda.synchronize()
-    serve_forever(eng, model_id=model_id, host="127.0.0.1", port=args.port,
-                  port_file=args.port_file, drain_timeout=60.0)
-    return 0
+    load_s = time.perf_counter() - t0
+    seeded = init_params(0, cfg, torch.bfloat16, device="cuda")
+    same = loaded_cfg == cfg and all(
+        torch.equal(params[k], seeded[k]) for k in ("embed_tokens", "final_norm")) and all(
+        torch.equal(v, seeded["layers"][k]) for k, v in params["layers"].items())
+    del seeded
+    checks: list[str] = []
+    if not same:
+        checks.append("the checkpoint does not load back as the seeded weights")
+    prompt = ByteTokenizer()(CLI_PROMPT)["input_ids"][0]
+    base = [f"--model={CLI_DIR}", f"--backend={CLI_BACKEND}", f"--prompt={CLI_PROMPT}"]
+    legs: dict[str, dict] = {}
+
+    def rel(argv: list[str]) -> list[str]:  # the argv as recorded: paths from the checkout
+        return [a.replace(CLI_DIR, os.path.relpath(CLI_DIR, ROOT)) for a in argv]
+
+    def counted(name: str, argv: list[str]) -> tuple[str, str, str, dict, dict, float]:
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_counts(kernels)
+        g0 = graph_totals()
+        text, out, err, wall = cli_run(cli, argv, os.path.join(logs, f"{name}.log"))
+        torch.cuda.synchronize()
+        return text, out, err, read_counts(kernels), graph_delta(g0), wall
+
+    def direct_counts(fn):
+        reset_counts(kernels)
+        out = fn()
+        torch.cuda.synchronize()
+        return out, read_counts(kernels)
+
+    def leg(name: str, argv: list[str], launches: dict, want: dict, graphs_run: dict,
+            wall: float, tokens_equal: bool, check: dict, must: tuple[str, ...], **extra) -> None:
+        ok_launch = launches == want and all(launches[k] > 0 for k in must)
+        legs[name] = dict(argv=argv, launches=launches, implied=want, graphs=graphs_run,
+                          wall_s=wall, tokens_equal=tokens_equal, check=check, **extra)
+        if not ok_launch:
+            checks.append(f"cli leg {name}: launches {launches} != implied {want} "
+                          f"(or one of {must} is 0)")
+        if not tokens_equal:
+            checks.append(f"cli leg {name}: tokens differ from the direct run")
+        if not check["ok"]:
+            checks.append(f"cli leg {name}: {check}")
+
+    def metric(pattern: str, err: str) -> float | None:
+        import re
+
+        m = re.search(pattern, err)
+        return float(m.group(1)) if m else None
+
+    # -- a: greedy, captured decode loop, flash prefill, the decode kernel,
+    # the epilogue, --metrics and the profiler trace
+    prof_dir = os.path.join(CLI_DIR, "prof")
+    argv = base + ["--sampler=greedy", "--no-stream", "--attn-impl=flash", "--decode-attn=pallas",
+                   "--metrics", f"--jax-profile={prof_dir}", f"--max-tokens={CLI_NEW}"]
+    text, _, err, launches, graphs_run, wall = counted("a", argv)
+    got = ByteTokenizer.ids(text)
+    gen = Generator(params, cfg, sampler=Sampler("greedy"), stop_tokens=(eos,),
+                    prefill_attn_impl="flash", decode_attn_impl="flash_decode")
+    want_toks = [int(t) for t in gen.generate(prompt, CLI_NEW).tokens[0]]
+    del gen
+    steps = CLI_NEW - 1
+    want = {k: 0 for k in kernels}
+    want.update(flash_attention=layers, decode_attention=layers * steps,
+                decode_attention_combine=layers * steps * combines(
+                    torch, cfg, 1, prompt.size + CLI_NEW),
+                sample_epilogue=steps)
+    with open(os.path.join(prof_dir, TRACE_FILE)) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"}
+    markers = {"flash_attention": "flash_kernel", "decode_attention": "decode_kernel",
+               "sample_epilogue": "epilogue_"}
+    profiled = {k: sorted(n for n in names if m in n)[:3] for k, m in markers.items()}
+    tf = teacher_forced(torch, forward, KVCache, params, cfg,
+                        torch.as_tensor(prompt[None], device=dev),
+                        torch.as_tensor([got], device=dev))
+    leg("a_greedy_kernels", rel(argv[1:]), launches, want, graphs_run, wall, got == want_toks,
+        tf, ("flash_attention", "decode_attention", "sample_epilogue"),
+        tokens=len(got), ttft_s=metric(r"ttft ([0-9.]+)s", err),
+        decode_tok_s=metric(r"([0-9.]+) tok/s decode", err),
+        profile=dict(file=os.path.relpath(os.path.join(prof_dir, TRACE_FILE), ROOT),
+                     kernels=profiled))
+    if not all(profiled.values()):
+        checks.append(f"cli leg a: the profile names no {[k for k, v in profiled.items() if not v]}")
+
+    # -- b: the default streamed min-p run, seeded
+    argv = base + [f"--seed={CLI_SEED}", f"--max-tokens={CLI_NEW}", "--metrics"]
+    text, _, err, launches, graphs_run, wall = counted("b", argv)
+    got = ByteTokenizer.ids(text)
+    minp = Sampler("min_p")
+    gen = Generator(params, cfg, sampler=minp, stop_tokens=(eos,))
+    want_toks, want = direct_counts(lambda: list(gen.stream(prompt, CLI_NEW, seed=CLI_SEED)))
+    del gen
+    sup = sampled_support(torch, forward, params, cfg, minp,
+                          [SimpleNamespace(prompt=prompt, generated=got)])
+    stream_s = metric(r"tokens in ([0-9.]+)s", err)
+    leg("b_min_p_stream", rel(argv[1:]), launches, want, graphs_run, wall, got == want_toks, sup,
+        ("threefry2x32", "categorical"), tokens=len(got),
+        ttft_s=metric(r"ttft ([0-9.]+)s", err), stream_s=stream_s,
+        stream_tok_s=len(got) / stream_s if stream_s else None)
+
+    # -- c: int8 weights, greedy, streamed: the int8-head epilogue
+    argv = base + ["--quantize=int8", "--sampler=greedy", f"--max-tokens={CLI_NEW}", "--metrics"]
+    text, _, err, launches, graphs_run, wall = counted("c", argv)
+    got = ByteTokenizer.ids(text)
+    q8 = quantize_params(params, bits=8)
+    gen = Generator(q8, cfg, sampler=Sampler("greedy"), stop_tokens=(eos,))
+    want_toks = list(gen.stream(prompt, CLI_NEW))
+    del gen
+    want = {k: 0 for k in kernels}
+    want["sample_epilogue_int8"] = CLI_NEW - 1
+    tf = teacher_forced(torch, forward, KVCache, q8, cfg, torch.as_tensor(prompt[None], device=dev),
+                        torch.as_tensor([got], device=dev))
+    del q8
+    stream_s = metric(r"tokens in ([0-9.]+)s", err)
+    leg("c_int8_stream", rel(argv[1:]), launches, want, graphs_run, wall, got == want_toks, tf,
+        ("sample_epilogue_int8",), tokens=len(got), ttft_s=metric(r"ttft ([0-9.]+)s", err),
+        stream_s=stream_s, stream_tok_s=len(got) / stream_s if stream_s else None)
+
+    # -- d: a prompts file of four uneven prompts in ragged batches of two
+    pf = os.path.join(CLI_DIR, "prompts.txt")
+    with open(pf, "w") as f:
+        f.write("\n".join(CLI_FILE_PROMPTS) + "\n")
+    argv = [f"--model={CLI_DIR}", f"--backend={CLI_BACKEND}", f"--prompts-file={pf}",
+            f"--batch-size={CLI_BATCH}", "--sampler=greedy", f"--max-tokens={CLI_NEW}", "--metrics"]
+    text, _, err, launches, graphs_run, wall = counted("d", argv)
+    rows = [ByteTokenizer.ids(line) for line in text.split("\n")]
+    file_ids = [ByteTokenizer()(p)["input_ids"][0] for p in CLI_FILE_PROMPTS]
+    gen = Generator(params, cfg, sampler=Sampler("greedy"), stop_tokens=(eos,))
+    res, want = direct_counts(lambda: gen.generate_many(file_ids, CLI_NEW, batch_size=CLI_BATCH))
+    del gen
+    want_rows = [[int(t) for t in r.tokens[0]] for r in res]
+    want_rows = [r[:r.index(eos)] if eos in r else r for r in want_rows]  # as the CLI trims
+    tf = teacher_forced_requests(torch, forward, params, cfg, [
+        SimpleNamespace(prompt=p, generated=r) for p, r in zip(file_ids, rows)], TEACHER_TOL)
+    leg("d_prompts_file", rel(argv[1:]), launches, want, graphs_run, wall, rows == want_rows, tf,
+        ("sample_epilogue",), prompt_lens=[int(p.size) for p in file_ids],
+        ttft_s=metric(r"ttft ([0-9.]+)s", err),
+        decode_tok_s_per_row=metric(r"([0-9.]+) tok/s/row decode", err))
+
+    # -- e: speculative decoding, a 4-layer draft, min-p (the default)
+    argv = base + ["--speculative=4", "--draft=trunc4", f"--max-tokens={CLI_SPEC_NEW}", "--metrics"]
+    text, _, err, launches, graphs_run, wall = counted("e", argv)
+    got = ByteTokenizer.ids(text)
+    dp, dc = truncated_draft(params, cfg, 4)
+    spec = SpeculativeGenerator(params, cfg, draft_params=dp, draft_config=dc, gamma=4,
+                                sampler=minp)
+    res, want = direct_counts(lambda: spec.generate(prompt, CLI_SPEC_NEW, stop_tokens=(eos,)))
+    del spec, dp
+    sup = sampled_support(torch, forward, params, cfg, minp,
+                          [SimpleNamespace(prompt=prompt, generated=got)])
+    leg("e_speculative_trunc4", rel(argv[1:]), launches, want, graphs_run, wall,
+        got == [int(t) for t in res.tokens], sup, (), tokens=len(got),
+        acceptance=metric(r"accept ([0-9.]+)", err),
+        tokens_per_round=metric(r"([0-9.]+) tok/round", err),
+        decode_tok_s=metric(r"([0-9.]+) tok/s, accept", err))
+
+    # -- f, g: serve-bench, the unified tick and the phase split with the
+    # paged decode; the engine the CLI built is read after its run
+    sb = cli.build_serve_parser(CLI_MODEL).parse_args([])
+    for name, extra in (("f_serve_bench", []),
+                        ("g_serve_bench_split_paged", ["--mixed-step=off", "--attn-impl=paged"])):
+        argv = ["serve-bench", f"--model={CLI_DIR}", f"--backend={CLI_BACKEND}", "--requests=32",
+                "--rate=16", "--json", *extra]
+        built, orig = recorded_engines(cli)
+        try:
+            _, out, _, launches, graphs_run, wall = counted(name[0], argv)
+        finally:
+            cli._build_serve_engine = orig
+        eng = built[0]
+        snap = json.loads(out.strip().rsplit("\n", 1)[-1])
+        trace = poisson_trace(np.random.default_rng(sb.seed), 32, rate_rps=16.0,
+                              prompt_len_range=(sb.prompt_len // 4, sb.prompt_len),
+                              max_new_tokens=sb.max_tokens, vocab_size=cfg.vocab_size,
+                              seed_base=sb.seed)
+        want = {k: 0 for k in kernels}
+        if eng.mixed:
+            runs = mixed_step_runs(eng)
+            want.update(ragged_paged_attention=layers * sum(runs.values()),
+                        ragged_paged_attention_combine=ragged_combines(torch, da, eng, cfg, {},
+                                                                       runs),
+                        sample_epilogue=sum(runs.values()))
+            must = ("ragged_paged_attention", "sample_epilogue")
+        else:
+            kh = cfg.num_key_value_heads
+            nsplit = da.split_plan(eng.scheduler.max_slots, kh,
+                                   eng.max_blocks_per_seq * eng.block_size, cfg.head_dim,
+                                   da.sm_count(dev), cfg.num_attention_heads // kh)
+            n = eng.n_decode_dispatches
+            want.update(paged_decode_attention=layers * n,
+                        paged_decode_attention_combine=layers * n * int(nsplit > 1),
+                        sample_epilogue=n)
+            must = ("paged_decode_attention",)
+        got = {r.seed: list(r.generated) for r in eng.scheduler.finished}
+        _, num_blocks, max_seq_len = pool_geometry(sb.prompt_len, sb.max_tokens, sb.slots,
+                                                   sb.block_size, min(sb.block_size * 2, 256))
+        direct = ServeEngine(params, cfg, sampler=Sampler("greedy"), max_slots=sb.slots,
+                             num_blocks=num_blocks, block_size=sb.block_size,
+                             max_seq_len=max_seq_len, prefill_chunk=min(sb.block_size * 2, 256),
+                             decode_attn_impl=eng.decode_attn_impl,
+                             mixed_step="on" if eng.mixed else "off")
+        direct.replay_trace(trace)
+        ref = {r.seed: list(r.generated) for r in direct.scheduler.finished}
+        del direct
+        gaps = [g for item in trace for g in [first_divergence(
+            torch, forward, params, cfg, item["prompt"], got.get(item["seed"], []),
+            ref[item["seed"]])] if g is not None]
+        tf = teacher_forced_requests(torch, forward, params, cfg, eng.scheduler.finished,
+                                     TEACHER_TOL)
+        tf["ok"] = tf["ok"] and snap["finished"] == 32
+        # greedy tokens equal, or first apart at a near-tie: the replay's
+        # virtual clock follows the wall clock, so the two runs' schedules
+        # (and with them which kernel tile computes a row) may differ
+        leg(name, rel(argv[1:]), launches, want, graphs_run, wall,
+            all(g <= TEACHER_TOL for g in gaps), tf, must,
+            identical=32 - len(gaps), divergence_top2_gaps=gaps,
+            finished=snap["finished"], tick=("mixed" if eng.mixed else "split"),
+            attn=eng.decode_attn_impl, dispatches=eng.n_dispatches,
+            decode_dispatches=eng.n_decode_dispatches,
+            throughput_tok_s=snap["throughput_tok_s"], ttft_s_p50=snap.get("ttft_s_p50"),
+            ttft_s_p99=snap.get("ttft_s_p99"), tpot_s_p50=snap.get("tpot_s_p50"))
+        del eng, built
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the serve subcommand as a child process: token-id completions,
+    # /healthz, SIGTERM drain
+    import asyncio
+    import signal
+
+    http_trace = poisson_trace(np.random.default_rng(HTTP_SEED), HTTP_REQUESTS,
+                               rate_rps=HTTP_RATE, prompt_len_range=HTTP_PROMPTS,
+                               max_new_tokens=HTTP_NEW, vocab_size=cfg.vocab_size,
+                               seed_base=HTTP_SEED)[:CLI_SERVE_REQUESTS]
+    pfile = os.path.join(CLI_DIR, "serve.port")
+    if os.path.exists(pfile):
+        os.remove(pfile)
+    journal = os.path.join(CLI_DIR, "serve.journal")
+    if os.path.exists(journal):
+        os.remove(journal)
+    proc, port, startup = start_server(serve_argv(CLI_DIR, pfile, journal=journal), pfile,
+                                       os.path.join(logs, "serve.log"))
+    try:
+        status, raw = http_get("127.0.0.1", port, "/healthz")
+        health = json.loads(raw)
+        served, client_s = [], []
+        for i, item in enumerate(http_trace):
+            body = {"model": CLI_DIR, "prompt": [int(t) for t in item["prompt"]],
+                    "max_tokens": CLI_SERVE_NEW}
+            t0 = time.perf_counter()
+            if i % 2 == 0:
+                st, obj = post_completion("127.0.0.1", port, body, timeout=300.0)
+                served.append((st, obj["choices"][0]["token_ids"] if st == 200 else []))
+            else:
+                r = asyncio.run(astream_completion("127.0.0.1", port, body, timeout=300.0))
+                served.append((r["status"], r["token_ids"]))
+            client_s.append(time.perf_counter() - t0)
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            code = proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            code = proc.wait()
+    _, num_blocks, max_seq_len = pool_geometry(HTTP_PROMPTS[1], HTTP_NEW, HTTP_SLOTS, HTTP_BLOCK,
+                                               HTTP_CHUNK)
+    ref_eng = ServeEngine(params, cfg, sampler=Sampler("greedy"), max_slots=HTTP_SLOTS,
+                          num_blocks=num_blocks, block_size=HTTP_BLOCK, max_seq_len=max_seq_len,
+                          prefill_chunk=HTTP_CHUNK, mixed_step="on")
+    ref = []
+    for item in http_trace:
+        req = ref_eng.submit(item["prompt"], CLI_SERVE_NEW)
+        ref_eng.run_until_complete()
+        ref.append(list(req.generated))
+    del ref_eng
+    with open(os.path.join(logs, "serve.log")) as f:
+        serve_log = f.read()
+    serve = dict(argv=serve_argv("DIR", "PORT_FILE", journal="JOURNAL")[3:],
+                 startup_s=startup, healthz=dict(status=status, body=health),
+                 statuses=[s for s, _ in served], tokens_equal=[t == r for (_, t), r in
+                                                                zip(served, ref)],
+                 client_s=client_s, exit_code=code,
+                 drained="[serve] drained, bye" in serve_log,
+                 unary=CLI_SERVE_REQUESTS // 2, sse=CLI_SERVE_REQUESTS - CLI_SERVE_REQUESTS // 2)
+    tf = teacher_forced_requests(torch, forward, params, cfg, [
+        SimpleNamespace(prompt=item["prompt"], generated=t)
+        for item, (_, t) in zip(http_trace, served) if t], TEACHER_TOL)
+    serve["teacher_forced"] = tf
+    if (status != 200 or health.get("status") != "ok" or any(s != 200 for s, _ in served)
+            or not all(serve["tokens_equal"]) or code != 0 or not serve["drained"]
+            or not tf["ok"] or tf["requests"] != CLI_SERVE_REQUESTS):
+        checks.append(f"cli serve child: {serve}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary = {}
+    for name in kernels:
+        summary[name] = sum(v["launches"].get(name, 0) for v in legs.values())
+    return dict(phase="cli", model=CLI_MODEL, layers=layers, weights="seeded random bf16",
+                card=card, checkpoint=dict(ckpt, load_s=load_s, loads_as_seeded=same),
+                legs=legs, serve=serve, launches=summary, checks=checks, ok=not checks)
 
 
 def restart_phase(torch, np, card: str) -> dict:
     """The JAX bench's serve_restart_poisson: the http phase's trace
-    against a server in a child process — a plain leg, a journaled leg,
-    and a leg whose child SIGKILLs itself at its RESTART_KILL_TICK-th busy
-    tick (proc_kill), restarted on the same port and journal while every
-    client resumes its stream by Last-Event-ID."""
+    against ``python -m llm_np_cp_tpu_torch.cli serve`` in a child process
+    over the cli phase's checkpoint directory — a plain leg, a journaled
+    leg, and a leg whose child SIGKILLs itself at its RESTART_KILL_TICK-th
+    busy tick (``--chaos-spec proc_kill@N``), restarted on the same port
+    and ``--journal`` while every client resumes its stream by
+    Last-Event-ID."""
     import asyncio
-    import os
     import shutil
     import signal
     from types import SimpleNamespace
 
     from llm_np_cp_tpu_torch.config import PRESETS
-    from llm_np_cp_tpu_torch.models.transformer import forward, init_params
+    from llm_np_cp_tpu_torch.models.transformer import forward
     from llm_np_cp_tpu_torch.serve import poisson_trace
     from llm_np_cp_tpu_torch.serve.http.client import astream_completion, http_get
+    from llm_np_cp_tpu_torch.utils.loading import load_model
 
-    model_id = "meta-llama/Llama-3.2-1B"
-    cfg = PRESETS[model_id]
-    params = init_params(0, cfg, torch.bfloat16, device="cuda")
+    cfg = PRESETS[CLI_MODEL]
+    cli_checkpoint(torch, cfg)
+    # the server's model id is its --model: the checkpoint directory
+    model_id = CLI_DIR
+    _, params, _ = load_model(CLI_DIR, device="cuda")
     trace = poisson_trace(np.random.default_rng(HTTP_SEED), HTTP_REQUESTS, rate_rps=HTTP_RATE,
                           prompt_len_range=HTTP_PROMPTS, max_new_tokens=HTTP_NEW,
                           vocab_size=cfg.vocab_size, seed_base=HTTP_SEED)
     # the journals and the children's logs, under the checkout's
     # smoke_out/ (gitignored), made anew: a stale journal would replay
-    tmp = os.path.join(os.path.dirname(os.path.abspath(__file__)), "smoke_out", "restart")
+    tmp = os.path.join(ROOT, "smoke_out", "restart")
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
     checks: list[str] = []
     children: list = []
+    exit_codes: dict[str, int] = {}
 
     def spawn(tag: str, port: int = 0, journal: str | None = None,
               chaos: str | None = None) -> tuple:
         """Start a child server; → (process, port, seconds to its port file)."""
         pf = os.path.join(tmp, f"port_{tag}")
-        cmd = [sys.executable, os.path.abspath(__file__), "--serve-child", "--port", str(port),
-               "--port-file", pf]
-        if journal:
-            cmd += ["--journal", journal]
-        if chaos:
-            cmd += ["--chaos", chaos]
-        log = open(os.path.join(tmp, f"log_{tag}"), "w")
-        t0 = time.perf_counter()
-        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
-        children.append(proc)
-        while not os.path.exists(pf):
-            if proc.poll() is not None or time.perf_counter() - t0 > 300:
-                raise RuntimeError(f"child {tag} did not start: {log_tail(tag)}")
-            time.sleep(0.05)
-        while not open(pf).read().endswith("\n"):
-            time.sleep(0.01)
-        return proc, int(open(pf).read().split()[1]), time.perf_counter() - t0
+        out = start_server(serve_argv(CLI_DIR, pf, port=port, journal=journal, chaos=chaos), pf,
+                           os.path.join(tmp, f"log_{tag}"))
+        children.append(out[0])
+        return out
 
-    def log_tail(tag: str) -> str:
-        with open(os.path.join(tmp, f"log_{tag}")) as f:
-            return f.read()[-2000:]
-
-    def stop(proc) -> None:
+    def stop(tag: str, proc) -> None:
         proc.send_signal(signal.SIGTERM)
-        proc.wait(timeout=120)
+        exit_codes[tag] = proc.wait(timeout=120)
 
     def scrape(port: int) -> dict:
         _, raw = http_get("127.0.0.1", port, "/metrics")
@@ -3975,7 +4575,7 @@ def restart_phase(torch, np, card: str) -> dict:
         proc, port, startup = spawn(tag, journal=journal)
         results, wall = asyncio.run(clients(port, retries=0))
         samples = scrape(port)
-        stop(proc)
+        stop(tag, proc)
         generated = sum(len(r["token_ids"]) for r in results)
         return dict(leg=tag, startup_s=startup, wall_s=wall, tok_s=generated / wall,
                     answered=sum(r["status"] == 200 and len(r["token_ids"]) == HTTP_NEW
@@ -4004,7 +4604,7 @@ def restart_phase(torch, np, card: str) -> dict:
 
         results, wall = asyncio.run(kill_leg())
         samples = scrape(port)
-        stop(restarted["proc"])
+        stop("restarted", restarted["proc"])
     finally:
         for proc in children:
             if proc.poll() is None:
@@ -4051,7 +4651,10 @@ def restart_phase(torch, np, card: str) -> dict:
         del leg["tokens"]
     del params
     torch.cuda.empty_cache()
-    return dict(phase="restart", model=model_id, weights="seeded random bf16", card=card,
+    return dict(phase="restart", model=CLI_MODEL, weights="seeded random bf16", card=card,
+                server=serve_argv("smoke_out/cli", "PORT_FILE", journal="JOURNAL",
+                                  chaos=f"proc_kill@{RESTART_KILL_TICK}")[2:],
+                sigterm_exit_codes=exit_codes,
                 trace=dict(requests=HTTP_REQUESTS, rate_rps=HTTP_RATE, prompt_len=HTTP_PROMPTS,
                            new_tokens=HTTP_NEW, seed=HTTP_SEED),
                 kill_tick=RESTART_KILL_TICK, legs=dict(plain=plain, journaled=journaled),
@@ -4926,8 +5529,6 @@ KERNEL_META = {
 
 
 def main() -> int:
-    if "--serve-child" in sys.argv[1:]:
-        return serve_child(sys.argv[1:])
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write every result line (and the ptxas report) to this JSON file")
     args = ap.parse_args()
@@ -5057,6 +5658,10 @@ def main() -> int:
     record(cp)
     if not cp["ok"]:
         raise AssertionError("chaos checks failed: " + json.dumps(cp["checks"], default=str))
+    clp = cli_phase(torch, np, kernels, smi)
+    record(clp)
+    if not clp["ok"]:
+        raise AssertionError("cli checks failed: " + json.dumps(clp["checks"], default=str))
     rp = restart_phase(torch, np, smi)
     record(rp)
     if not rp["ok"]:
@@ -5103,7 +5708,7 @@ def main() -> int:
             launches=path_launches[name], launches_from=launches_from[name],
             max_abs_err=c["max_abs_err"], ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"], bound_by=c["bound_by"],
-            library_ms=c["library_ms"], case=c["case"],
+            library_ms=c["library_ms"], case=c["case"], cli_launches=clp["launches"].get(name),
             **{k: c[k] for k in ("library", "gather_ms", "nsplit", "device_ms", "race_ms")
                if k in c},
         ))

@@ -19,7 +19,11 @@ as CUDA graphs, the KV cache's offset on the card), the counterpart of
 ``jax.jit``; and speculative decoding (``speculative.py``, the
 offline ``SpeculativeGenerator`` over per-row cache offsets, its round
 one captured graph; ``ServeEngine(spec_k=...)`` with ``serve/spec.py``'s
-prompt-lookup drafts verified in the captured unified tick).
+prompt-lookup drafts verified in the captured unified tick).  The
+command line, ``python -m llm_np_cp_tpu_torch.cli`` (generation,
+``serve-bench`` and ``serve``), drives every layer from a local
+checkpoint directory (``utils/loading.load_model``); ``--backend numpy``
+runs the fp32 NumPy oracle (``backends/numpy_ref.py``).
 
 Entry points take ``device=`` and default to ``"cuda"``; they raise when
 no card is present unless the caller asks for ``"cpu"``.

@@ -1,0 +1,1487 @@
+"""Command-line entry of the port (port of ``llm_np_cp_tpu/cli.py``).
+
+    python -m llm_np_cp_tpu_torch.cli --model DIR [--backend cuda|cpu|numpy] ...
+    python -m llm_np_cp_tpu_torch.cli serve-bench --model DIR ...
+    python -m llm_np_cp_tpu_torch.cli serve --model DIR ...
+
+The same three commands as the JAX package's CLI, with its flags, their
+defaults and its messages, over the port's layers:
+
+- ``cuda`` (the default) and ``cpu``: the torch path on that device —
+  ``Generator`` (prefill, captured decode steps, streaming),
+  ``SpeculativeGenerator``, ``quantize_params``; ``serve-bench`` and
+  ``serve`` drive ``ServeEngine``, ``ReplicaSet`` / ``ReplicaRunner``
+  and the HTTP server.  With ``cuda`` and no card every command raises:
+  the port never carries on on the CPU unless asked to.
+- ``numpy``: the fp32 NumPy oracle (``backends/numpy_ref.py``).
+
+``--model`` names a local checkpoint directory (``utils/loading.
+load_model``; nothing is downloaded).  The port does not import
+``transformers``: a caller that generates from text passes its tokenizer
+(``run(argv, tokenizer=tok)``, an object with ``__call__(text,
+return_tensors="np")``, ``decode`` and ``eos_token_id``).  ``serve-bench``
+needs none (its traffic is token ids) and ``serve`` without one answers
+token-id prompts.
+
+What differs from the JAX CLI:
+- there is no kernel probe: ``--mixed-step auto`` means ``on``,
+  ``--attn-impl auto`` means ``paged``, ``--sample-epilogue auto`` fuses
+  wherever the fused epilogue can serve the sampler, and a kernel that
+  fails to build or launch raises;
+- ``--decode-attn pallas`` and ``--jax-profile`` keep their spelling (one
+  argv drives both CLIs) and select the CUDA decode kernels and a
+  ``torch.profiler`` trace;
+- ``--mesh`` and ``--attn-impl ring`` raise ``NotImplementedError``
+  before any model loads (parallelism is not ported yet);
+- ``--hbm-gbps`` defaults to the H100's 3350 GB/s.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from typing import Any
+
+import numpy as np
+
+# the spelling of "no mesh" in each parser (generation: data,seq,model)
+_NO_MESH = {"generate": "1,1,1", "serve": ""}
+_NOT_PORTED = ("is not ported to the PyTorch port yet (ROADMAP.md queue 1 item 8: "
+               "parallel/*, mesh_plan and mesh-sharded serving)")
+
+
+def _reject_tpu(backend: str) -> str:
+    if backend == "tpu":
+        raise SystemExit(
+            "--backend tpu is the JAX package's (python -m llm_np_cp_tpu.cli); the "
+            "port runs on --backend cuda (the card), cpu or numpy")
+    return backend
+
+
+def build_parser(default_model: str) -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="PyTorch/CUDA LLM inference (llm_np_cp capability surface)",
+        epilog="subcommands (dispatched before this parser, each with its "
+        "own flags): serve-bench — replay a Poisson trace through the "
+        "continuous-batching ServeEngine (serve-bench --help); serve — "
+        "the OpenAI-compatible streaming HTTP front-end over the same "
+        "engine (serve --help)",
+    )
+    p.add_argument("--model", default=default_model,
+                   help="local checkpoint dir (config.json + safetensors)")
+    p.add_argument("--backend", choices=["cuda", "cpu", "numpy", "tpu"],
+                   metavar="{cuda,cpu,numpy}", default="cuda",
+                   help="cuda (the card) or cpu: the torch path; numpy: the "
+                        "fp32 NumPy oracle")
+    p.add_argument("--prompt", default="Once upon a time")
+    p.add_argument("--batch-size", type=int, default=0, metavar="N",
+                   help="with --prompts-file: run the workload in ragged "
+                        "batches of N (longest-first grouping; 0 = one "
+                        "batch of everything)")
+    p.add_argument("--prompts-file", default=None, metavar="PATH",
+                   help="batch mode: one prompt per line, generated together "
+                        "as a ragged batch (left-padded, per-row positions "
+                        "exact); prints one completion per line")
+    p.add_argument("--max-tokens", type=int, default=200)
+    p.add_argument("--sampler", choices=["min_p", "greedy", "cdf", "top_k", "top_p"],
+                   default="min_p")
+    p.add_argument("--p-base", type=float, default=0.1, help="min-p threshold")
+    p.add_argument("--top-k", type=int, default=50,
+                   help="k for --sampler top_k")
+    p.add_argument("--top-p", type=float, default=0.9,
+                   help="nucleus mass for --sampler top_p")
+    p.add_argument("--temperature", type=float, default=1.0)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--dtype", choices=["bf16", "f32"], default="bf16")
+    p.add_argument("--cache-dtype", choices=["auto", "bf16", "f32", "int8"],
+                   default="auto",
+                   help="KV-cache storage dtype (auto = follow --dtype); "
+                        "int8 stores per-token-per-head absmax-quantized "
+                        "K/V, halving cache HBM traffic for long contexts")
+    p.add_argument("--quantize",
+                   choices=["none", "int8", "int8_a8", "int4", "int4_a8"],
+                   default="none",
+                   help="quantization: int8 (weight-only) halves decode HBM "
+                        "traffic, int4 packs projections two-per-byte "
+                        "(embed stays int8); the _a8 variants add dynamic "
+                        "activation quant (int8 x int8 products; lossier, "
+                        "opt-in)")
+    p.add_argument("--mesh", default=_NO_MESH["generate"],
+                   help="data,seq,model parallel degrees (not ported: any "
+                        "other value than 1,1,1 raises)")
+    p.add_argument("--max-seq-len", type=int, default=None,
+                   help="KV cache capacity (default: prompt + max tokens)")
+    p.add_argument("--no-cache", action="store_true",
+                   help="cache-less full-recompute mode (reference parity)")
+    p.add_argument("--no-stream", action="store_true",
+                   help="captured decode loop (fastest) instead of token "
+                        "streaming")
+    p.add_argument("--attn-impl", choices=["xla", "flash", "ring"], default=None,
+                   help="prefill attention: xla (default: plain torch ops), "
+                        "flash (the CUDA flash_attention kernel), ring (not "
+                        "ported: raises)")
+    p.add_argument("--flash-prefill", action="store_true",
+                   help=argparse.SUPPRESS)  # deprecated alias: --attn-impl flash
+    p.add_argument("--prefill-chunk", type=int, default=None, metavar="N",
+                   help="prefill the prompt in N-token chunks")
+    p.add_argument("--decode-attn", choices=["xla", "pallas"], default="xla",
+                   help="decode-step attention: xla (default: plain torch "
+                        "ops) or pallas, the CUDA split-KV decode kernel "
+                        "over the cache slab (the JAX CLI's spelling)")
+    p.add_argument("--speculative", type=int, default=0, metavar="GAMMA",
+                   help="speculative decoding: GAMMA draft proposals per "
+                        "round (exact target distribution regardless of "
+                        "draft; torch backends, implies --no-stream)")
+    p.add_argument("--draft", default="int8", metavar="KIND",
+                   help="draft model for --speculative: int8 (default) or "
+                        "int4 self-quantization, or truncN / truncN_int4 — "
+                        "a layer-skip draft from the target's first N "
+                        "layers (e.g. trunc8_int4)")
+    p.add_argument("--early-stop", action="store_true",
+                   help="the decode loop exits once every row has hit EOS "
+                        "instead of running the full token budget; needs a "
+                        "tokenizer EOS")
+    p.add_argument("--metrics", action="store_true",
+                   help="print tokens/sec and TTFT after generation")
+    p.add_argument("--jax-profile", default=None, metavar="DIR",
+                   help="write a torch.profiler trace (CPU and CUDA "
+                        "activity) of the generation to DIR/trace.json "
+                        "(the JAX CLI's spelling)")
+    return p
+
+
+def _add_serve_engine_flags(p: argparse.ArgumentParser,
+                            default_model: str) -> None:
+    """Engine flags shared by the ``serve-bench`` (trace replay) and
+    ``serve`` (HTTP front-end) subcommands — ONE definition so the HTTP
+    server can always be pointed at exactly the configuration a bench
+    measured."""
+    p.add_argument("--model", default=default_model)
+    p.add_argument("--backend", choices=["cuda", "cpu", "tpu"],
+                   metavar="{cuda,cpu}", default="cuda",
+                   help="device of the engine: cuda (the card) or cpu")
+    p.add_argument("--prompt-len", type=int, default=64, metavar="MAX",
+                   help="serve-bench: prompt lengths are uniform in "
+                   "[MAX//4, MAX]; serve: the longest prompt the pool is "
+                   "sized to admit")
+    p.add_argument("--max-tokens", type=int, default=32,
+                   help="decode budget per request (serve: the cap and "
+                   "default for the request's max_tokens field)")
+    p.add_argument("--slots", type=int, default=4,
+                   help="decode slots (packed batch width)")
+    p.add_argument("--block-size", type=int, default=64,
+                   help="KV pool block size in cache slots (multiple of 8)")
+    p.add_argument("--num-blocks", type=int, default=0,
+                   help="KV pool blocks; 0 sizes the pool so every slot "
+                   "can hold a worst-case request plus one spare block")
+    p.add_argument("--cache-dtype", choices=["bf16", "f32", "int8"],
+                   default="bf16")
+    p.add_argument("--attn-impl", choices=["gather", "paged", "auto"],
+                   default="gather",
+                   help="phase-split decode K/V access: 'gather' "
+                   "materializes the active batch's cache view through the "
+                   "block tables, 'paged' runs the block-table-native CUDA "
+                   "kernel (paged_decode_attention) with no gather, 'auto' "
+                   "is 'paged' (the port has no probe to consult)")
+    p.add_argument("--prefix-cache", action=argparse.BooleanOptionalAction,
+                   default=False,
+                   help="share fully-filled prompt-prefix blocks across "
+                   "requests (refcounted; hits skip those prefill chunks). "
+                   "Cache entries are reclaimed LRU under pool pressure, "
+                   "so give --num-blocks headroom beyond the worst-case "
+                   "default for entries to survive between twin prompts")
+    p.add_argument("--kv-tier", choices=["off", "host"], default="off",
+                   help="tiered KV prefix cache (serve/host_tier.py): "
+                   "'host' spills LRU-reclaimed prefix blocks to a "
+                   "pinned host-RAM pool (keyed by the same chained "
+                   "content hash the prefix cache uses) and restores "
+                   "them at admission, copied on the tier's own stream.  "
+                   "Restore-vs-recompute is a MEASURED breakeven.  One "
+                   "tier is shared across all replicas.  Requires "
+                   "--prefix-cache")
+    p.add_argument("--kv-host-tier-gb", type=float, default=4.0,
+                   metavar="G",
+                   help="host-RAM budget for --kv-tier host, GiB "
+                   "(LRU eviction past it; the tier is a cache, so "
+                   "dropping is always safe)")
+    p.add_argument("--decode-attn", choices=["xla", "pallas"], default="xla",
+                   help="attention of the GATHERED decode step: xla (plain "
+                   "torch ops) or pallas, the CUDA decode kernel (the JAX "
+                   "CLI's spelling); ignored under --attn-impl paged")
+    p.add_argument("--mixed-step", choices=["auto", "on", "off"],
+                   default="auto",
+                   help="unified ragged prefill+decode tick: ONE captured "
+                   "step per tick runs a mixed batch of prefill chunk "
+                   "slices and decode rows against the paged pool "
+                   "(ragged_paged_attention) under --tick-token-budget.  "
+                   "'auto' (default) and 'on' take it (the port has no "
+                   "probe); 'off' is the phase-split engine "
+                   "(--attn-impl/--decode-attn then select its decode "
+                   "path)")
+    p.add_argument("--sample-epilogue", choices=["auto", "on", "off"],
+                   default="auto",
+                   help="fused sampling epilogue: the step's final-norm → "
+                   "lm_head → greedy argmax runs as ONE CUDA kernel over "
+                   "vocab tiles, so the [rows, V] logits never "
+                   "materialize.  'auto' (default) fuses wherever the "
+                   "draw is the logits tail's (greedy sampler, float/int8 "
+                   "head); 'on' warns when it cannot fuse; 'off' forces "
+                   "the final_logits+sampler tail.  The banner reports "
+                   "the resolution as epilogue=fused|xla")
+    p.add_argument("--tick-token-budget", type=int, default=0, metavar="N",
+                   help="unified tick only: token budget per tick — "
+                   "decode rows are budgeted first (never starved), "
+                   "remaining tokens go to prefill chunk slices.  Must be "
+                   ">= --slots.  0 = slots + 2*prefill_chunk")
+    p.add_argument("--speculative-serve", action="store_true",
+                   help="speculative decoding inside the unified tick: "
+                   "per-request host-side prompt-lookup drafts verified "
+                   "as ragged q-slices in the SAME one step per tick.  "
+                   "Requests opt in per-submit ('\"speculative\": true' "
+                   "on /v1/completions; serve-bench marks its whole "
+                   "trace).  Requires the unified tick (--mixed-step "
+                   "auto/on)")
+    p.add_argument("--spec-k", type=int, default=4, metavar="N",
+                   help="max draft tokens proposed per speculating "
+                   "request per tick (the verify slice is <= N+1 wide); "
+                   "only read under --speculative-serve")
+    p.add_argument("--mesh", default=_NO_MESH["serve"], metavar="SPEC",
+                   help="shard each engine over a tensor-parallel mesh "
+                   "(not ported: any value raises)")
+    p.add_argument("--replicas", type=int, default=1, metavar="N",
+                   help="data-parallel engine replicas behind one "
+                   "front-end with prefix-affinity routing "
+                   "(serve/replica.py), each with its own pool and "
+                   "graphs on the one card")
+    p.add_argument("--spill-queue-depth", type=int, default=4, metavar="D",
+                   help="router spill threshold: a request leaves its "
+                   "prefix-affine replica when that replica's queue is "
+                   ">= D deep and a less-loaded replica exists "
+                   "(0 = never spill)")
+    p.add_argument("--sampler", choices=["greedy", "min_p", "top_k", "top_p",
+                                         "cdf"], default="greedy")
+    p.add_argument("--dtype", choices=["bf16", "f32"], default="bf16")
+    p.add_argument("--chaos-spec", default=None, metavar="SPEC",
+                   help="fault-injection schedule (serve/faults.py): "
+                   "events 'site@N[:COUNT][=ARG]' (deterministic) or "
+                   "'site%%P[=ARG]' (seeded probability) joined by ';' — "
+                   "sites: decode, prefill, tick_crash, tick_hang, "
+                   "ckpt_read, http_429, http_reset, proc_kill, "
+                   "journal_write, journal_fsync, host_sync, "
+                   "upgrade_ckpt.  Default: the "
+                   "LLMTPU_CHAOS_SPEC env var, else chaos off")
+    p.add_argument("--chaos-seed", type=int, default=0,
+                   help="seed for probabilistic chaos events (a fixed "
+                   "seed replays the identical fault schedule)")
+    p.add_argument("--trace-out", default=None, metavar="PATH",
+                   help="write the request-lifecycle + tick-phase "
+                   "timeline as Chrome/Perfetto trace-event JSON to "
+                   "PATH on exit.  Default: tracing off")
+    p.add_argument("--trace-ring", type=int, default=0, metavar="N",
+                   help="keep only the newest N trace events in memory "
+                   "(served live at GET /debug/trace).  0 = unbounded "
+                   "when --trace-out is set, else tracing off")
+    p.add_argument("--slo-ttft", type=float, default=0.0, metavar="S",
+                   help="SLO target: time to first token, seconds "
+                   "(goodput, attainment and burn rates on /metrics and "
+                   "GET /debug/slo).  0 = no TTFT target")
+    p.add_argument("--slo-tpot", type=float, default=0.0, metavar="S",
+                   help="SLO target: time per output token, seconds.  "
+                   "0 = no TPOT target")
+    p.add_argument("--slo-target", type=float, default=0.99, metavar="F",
+                   help="attainment objective the burn rate reads its "
+                   "error budget from (0.99 = 1%% of requests may miss)")
+    p.add_argument("--request-log", default=None, metavar="PATH",
+                   help="canonical request log: ONE structured JSON "
+                   "line per terminal request, written off the tick "
+                   "thread.  Default: off")
+    p.add_argument("--tick-sentinel", action=argparse.BooleanOptionalAction,
+                   default=False,
+                   help="tick anomaly sentinel: rolling per-phase EWMA "
+                   "baselines over the tick-phase slices; implies host "
+                   "tracing")
+    p.add_argument("--sentinel-threshold", type=float, default=8.0,
+                   metavar="K",
+                   help="sentinel sensitivity: a phase is an outlier "
+                   "past baseline + K deviations")
+    p.add_argument("--auto-actions", action=argparse.BooleanOptionalAction,
+                   default=False,
+                   help="closed-loop sentinel/SLO auto-actions "
+                   "(serve/lifecycle.ActionPolicy): shed prefill budget "
+                   "on a persistent host_sync regression, 503-first load "
+                   "shedding past --shed-burn-threshold.  Default: off")
+    p.add_argument("--shed-burn-threshold", type=float, default=2.0,
+                   metavar="B",
+                   help="auto-actions: start 503-first load shedding "
+                   "when the 5m SLO burn rate exceeds B (release at B/2)")
+    p.add_argument("--tenants", action=argparse.BooleanOptionalAction,
+                   default=False,
+                   help="multi-tenant accounting (serve/tenants.py): "
+                   "X-Tenant-Id header or \"tenant\" body field; "
+                   "tenant-labeled series on /metrics and GET "
+                   "/debug/tenants.  Default: off")
+    p.add_argument("--tenant-fairness",
+                   action=argparse.BooleanOptionalAction, default=False,
+                   help="fair-share admission (implies --tenants)")
+    p.add_argument("--tenant-max-inflight", type=int, default=0,
+                   metavar="N",
+                   help="per-tenant in-flight cap (implies --tenants): "
+                   "429 + Retry-After past it.  0 = uncapped")
+    p.add_argument("--max-tenant-series", type=int, default=20,
+                   metavar="K",
+                   help="Prometheus cardinality bound for tenant-labeled "
+                   "series (the rest roll up into tenant=\"other\")")
+    p.add_argument("--roofline", action=argparse.BooleanOptionalAction,
+                   default=False,
+                   help="device roofline telemetry (serve/telemetry.py): "
+                   "a per-tick byte/FLOP model against the measured "
+                   "dispatch wall gives achieved GB/s, utilization vs "
+                   "--hbm-gbps and an MFU estimate.  Default: off")
+    p.add_argument("--hbm-gbps", type=float, default=3350.0, metavar="G",
+                   help="the HBM roofline --roofline grades "
+                   "utilization against, GB/s (3350 = one H100 SXM)")
+    p.add_argument("--otlp-endpoint", default=None, metavar="URL",
+                   help="ship the trace plane's spans to an "
+                   "OTLP/HTTP JSON collector, batched off the serving "
+                   "threads (serve/otel.py).  Implies host tracing")
+    p.add_argument("--jax-profile", default=None, metavar="DIR",
+                   help="write a torch.profiler trace (CPU and CUDA "
+                   "activity) of the run to DIR/trace.json (the JAX CLI's "
+                   "spelling).  Implies host tracing, whose tick phases "
+                   "appear in it as record_function ranges")
+
+
+def build_serve_parser(default_model: str) -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="serve-bench",
+        description="Replay a synthetic Poisson arrival trace through the "
+        "continuous-batching ServeEngine and report TTFT/throughput "
+        "percentiles (llm_np_cp_tpu_torch/serve/)",
+    )
+    _add_serve_engine_flags(p, default_model)
+    p.add_argument("--requests", type=int, default=16,
+                   help="number of synthetic requests in the trace")
+    p.add_argument("--rate", type=float, default=8.0, metavar="RPS",
+                   help="mean Poisson arrival rate, requests/second")
+    p.add_argument("--distinct-prompts", type=int, default=0, metavar="N",
+                   help="draw only N distinct prompts and cycle requests "
+                   "through them (0 = every prompt distinct) — the "
+                   "shared-prefix workload shape --prefix-cache hits on")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--realtime", action="store_true",
+                   help="sleep until each arrival instead of the virtual "
+                   "clock (live serving simulation)")
+    p.add_argument("--json", action="store_true",
+                   help="also print the full metrics snapshot as one JSON "
+                   "line")
+    return p
+
+
+def build_http_serve_parser(default_model: str) -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="serve",
+        description="Serve the model over HTTP: OpenAI-compatible "
+        "POST /v1/completions (SSE streaming), GET /healthz, and a "
+        "Prometheus GET /metrics (llm_np_cp_tpu_torch/serve/http/).  "
+        "Aborts requests on client disconnect or deadline, returns 429 "
+        "when the queue cap is hit, and drains gracefully on SIGTERM",
+    )
+    _add_serve_engine_flags(p, default_model)
+    p.add_argument("--host", default="127.0.0.1",
+                   help="bind address (0.0.0.0 to accept remote clients)")
+    p.add_argument("--port", type=int, default=8000,
+                   help="TCP port; 0 picks an ephemeral port")
+    p.add_argument("--max-queue", type=int, default=64,
+                   help="queue-depth cap: submits past it get HTTP 429 "
+                   "with Retry-After (0 = unbounded)")
+    p.add_argument("--request-timeout", type=float, default=0.0,
+                   metavar="S",
+                   help="per-request deadline in seconds; past it the "
+                   "request is aborted with finish_reason='aborted' "
+                   "(0 = none)")
+    p.add_argument("--drain-timeout", type=float, default=30.0, metavar="S",
+                   help="SIGTERM drain: wait this long for in-flight "
+                   "requests before aborting stragglers")
+    p.add_argument("--tick-deadline", type=float, default=0.0, metavar="S",
+                   help="watchdog: declare the engine HUNG when no tick "
+                   "heartbeat lands within S seconds and hand it to the "
+                   "supervisor (0 = no watchdog)")
+    p.add_argument("--max-restarts", type=int, default=3,
+                   help="supervised restart budget: engine deaths within "
+                   "a --restart-window span (in-flight requests are "
+                   "replayed token-identically) before the server goes "
+                   "terminally 503.  0 = crash equals outage")
+    p.add_argument("--restart-window", type=float, default=300.0,
+                   metavar="S",
+                   help="the sliding window (seconds) --max-restarts "
+                   "counts engine deaths in")
+    p.add_argument("--journal", default=None, metavar="PATH",
+                   help="durable request journal (serve/journal.py): on "
+                   "start, unterminated requests found in PATH are "
+                   "replayed token-identically and clients resume dropped "
+                   "SSE streams via Last-Event-ID.  With --replicas N "
+                   "each replica journals to PATH.<i>.  Default: none")
+    p.add_argument("--journal-compact-bytes", type=int,
+                   default=4 << 20, metavar="N",
+                   help="rewrite the journal as a live-set snapshot "
+                   "whenever N appended bytes accumulate")
+    p.add_argument("--journal-sync", choices=["async", "admission"],
+                   default="async",
+                   help="journal durability mode: 'async' (default) "
+                   "fsyncs off the tick thread; 'admission' fsyncs each "
+                   "admission record before the stream starts")
+    p.add_argument("--port-file", default=None, metavar="PATH",
+                   help="write 'host port' to PATH once listening "
+                   "(readiness for scripts and tests)")
+    p.add_argument("--exit-after-s", type=float, default=None,
+                   help=argparse.SUPPRESS)  # test hook: timed drain
+    return p
+
+
+def _validate_pool_flags(args) -> None:
+    """Cheap argument checks that must fire BEFORE the model load."""
+    if args.block_size < 8 or args.block_size % 8:
+        raise SystemExit(
+            f"--block-size must be a multiple of 8, got {args.block_size}"
+        )
+    if getattr(args, "trace_ring", 0) < 0:
+        raise SystemExit(
+            f"--trace-ring must be >= 0, got {args.trace_ring}"
+        )
+    budget = getattr(args, "tick_token_budget", 0)
+    if budget < 0 or (budget and budget < args.slots):
+        raise SystemExit(
+            f"--tick-token-budget must be 0 (auto) or >= --slots "
+            f"({args.slots}) so decode rows are never starved, got "
+            f"{budget}"
+        )
+    if getattr(args, "speculative_serve", False):
+        if getattr(args, "mixed_step", "off") == "off":
+            raise SystemExit(
+                "--speculative-serve rides the unified tick's batched "
+                "verifier; it cannot run with --mixed-step off"
+            )
+        if getattr(args, "spec_k", 4) < 1:
+            raise SystemExit(
+                f"--spec-k must be >= 1, got {args.spec_k}"
+            )
+    for flag in ("slo_ttft", "slo_tpot"):
+        if getattr(args, flag, 0.0) < 0:
+            raise SystemExit(
+                f"--{flag.replace('_', '-')} must be >= 0 "
+                f"(0 = no target), got {getattr(args, flag)}"
+            )
+    target = getattr(args, "slo_target", 0.99)
+    if not (0.0 < target < 1.0):
+        raise SystemExit(
+            f"--slo-target must be in (0, 1), got {target}"
+        )
+    if getattr(args, "shed_burn_threshold", 2.0) <= 0:
+        raise SystemExit(
+            f"--shed-burn-threshold must be > 0, got "
+            f"{args.shed_burn_threshold}"
+        )
+    if getattr(args, "hbm_gbps", 3350.0) <= 0:
+        raise SystemExit(
+            f"--hbm-gbps must be > 0, got {args.hbm_gbps}"
+        )
+
+
+def _resolve_serve_mesh(args, prog: str) -> None:
+    """Validate --mesh/--replicas BEFORE the model load.  The JAX CLI
+    returns a mesh plan and each replica's device slice; the port's
+    replicas share the one card, and any ``--mesh`` raises
+    ``NotImplementedError``."""
+    replicas = args.replicas
+    if replicas < 1:
+        raise SystemExit(f"--replicas must be >= 1, got {replicas}")
+    if args.spill_queue_depth < 0:
+        raise SystemExit(
+            f"--spill-queue-depth must be >= 0, got {args.spill_queue_depth}"
+        )
+    if args.mesh != _NO_MESH["serve"]:
+        raise NotImplementedError(f"{prog}: --mesh {args.mesh!r}: {_NOT_PORTED}")
+
+
+def _device(args):
+    """The torch device of ``--backend`` (cuda raises without a card)."""
+    from llm_np_cp_tpu_torch.device import resolve_device
+
+    return resolve_device("cuda" if _reject_tpu(args.backend) == "cuda" else "cpu")
+
+
+def _chaos_injector(args):
+    """Resolve --chaos-spec (or LLMTPU_CHAOS_SPEC) into a FaultInjector —
+    or None, the zero-overhead default.  Called BEFORE the model load so
+    the ckpt_read site covers checkpoint IO, and installed globally for
+    the engine-less injection points.  Malformed specs fail here."""
+    import os
+
+    from llm_np_cp_tpu_torch.serve.faults import FaultInjector, install
+
+    spec = args.chaos_spec
+    if spec is None:
+        spec = os.environ.get("LLMTPU_CHAOS_SPEC", "")
+    try:
+        injector = FaultInjector.from_spec(spec, seed=args.chaos_seed)
+    except ValueError as e:
+        raise SystemExit(f"--chaos-spec: {e}") from None
+    if injector is not None:
+        install(injector)
+        print(f"[chaos] fault injection ACTIVE: {spec!r} "
+              f"(seed {args.chaos_seed})")
+    return injector
+
+
+def _build_serve_engine(args, params, config, *, prog: str,
+                        tokenizer=None, max_queue: int | None = None,
+                        fault_injector=None, shared_tracer=None,
+                        journal=None, shared_request_log=None,
+                        shared_host_tier=None, quiet=False):
+    """The shared engine build for both serve subcommands: validate the
+    pool flags, resolve --attn-impl (no probe: auto is paged), size the
+    pool, build.  The JAX build's ``mesh_plan`` / ``mesh_devices`` have
+    no counterpart (``_resolve_serve_mesh`` refuses a mesh)."""
+    import torch
+
+    from llm_np_cp_tpu_torch.ops.sampling import Sampler
+    from llm_np_cp_tpu_torch.serve import ServeEngine
+    from llm_np_cp_tpu_torch.serve.engine import pool_geometry
+
+    _validate_pool_flags(args)  # re-checked for non-CLI callers
+    cache_dtype = {
+        "bf16": torch.bfloat16, "f32": torch.float32, "int8": torch.int8,
+    }[args.cache_dtype]
+    if args.attn_impl in ("paged", "auto"):
+        decode_attn_impl = "paged"
+    else:
+        decode_attn_impl = "flash_decode" if args.decode_attn == "pallas" else "xla"
+
+    # tracing on iff requested (--trace-out / --trace-ring / implied by
+    # --jax-profile, --tick-sentinel or --otlp-endpoint): the recorder's
+    # absence IS the off switch
+    tracer = shared_tracer
+    jax_profile = getattr(args, "jax_profile", None)
+    sentinel_on = getattr(args, "tick_sentinel", False)
+    otlp_endpoint = getattr(args, "otlp_endpoint", None)
+    if tracer is None and (args.trace_out or args.trace_ring
+                           or jax_profile or sentinel_on
+                           or otlp_endpoint):
+        from llm_np_cp_tpu_torch.serve.tracing import TraceRecorder
+
+        ring = args.trace_ring or None
+        if ring is None and not args.trace_out:
+            # implied alone: keep the recorder's memory bounded
+            ring = 100_000
+        tracer = TraceRecorder(ring=ring)
+        implied = (jax_profile or sentinel_on or otlp_endpoint) \
+            and not (args.trace_out or args.trace_ring)
+        print(f"[{prog}] tracing ACTIVE (ring={ring or 'unbounded'}"
+              + (f", dump to {args.trace_out}" if args.trace_out else "")
+              + (", implied by --jax-profile/--tick-sentinel/"
+                 "--otlp-endpoint" if implied else "")
+              + ")")
+    if otlp_endpoint and tracer is not None and tracer.otel is None:
+        # one exporter per PROCESS, shared by every replica through the
+        # shared recorder
+        from llm_np_cp_tpu_torch.serve.otel import OtlpExporter
+
+        OtlpExporter(
+            otlp_endpoint, resource_attrs={"llm.model": args.model},
+        ).attach(tracer)
+        print(f"[{prog}] OTLP export ACTIVE: {otlp_endpoint} "
+              "(spans batched off-thread, dropped+counted on "
+              "collector failure)")
+    sentinel = None
+    if sentinel_on:
+        from llm_np_cp_tpu_torch.serve.slo import TickSentinel
+
+        sentinel = TickSentinel(
+            threshold=getattr(args, "sentinel_threshold", 8.0))
+        if not quiet:
+            print(f"[{prog}] tick sentinel ACTIVE "
+                  f"(threshold {sentinel.threshold:g} deviations)")
+    actions = None
+    if getattr(args, "auto_actions", False):
+        from llm_np_cp_tpu_torch.serve.lifecycle import ActionPolicy
+
+        # one policy PER ENGINE (verdict state is tick-thread-owned)
+        actions = ActionPolicy(
+            burn_threshold=getattr(args, "shed_burn_threshold", 2.0),
+        )
+        if not quiet:
+            slo_on = bool(getattr(args, "slo_ttft", 0.0)
+                          or getattr(args, "slo_tpot", 0.0))
+            print(f"[{prog}] auto-actions ACTIVE: shed prefill on "
+                  "persistent host_sync anomalies"
+                  + ("" if sentinel_on else
+                     " (needs --tick-sentinel to observe)")
+                  + ", 503-first shedding past burn "
+                  f"{actions.burn_threshold:g}"
+                  + ("" if slo_on else
+                     " (needs --slo-ttft/--slo-tpot to measure burn)"))
+    telemetry = None
+    if getattr(args, "roofline", False):
+        from llm_np_cp_tpu_torch.serve.telemetry import TelemetryModel
+
+        telemetry = TelemetryModel(
+            config, params, hbm_gbps=getattr(args, "hbm_gbps", 3350.0),
+        )
+        if not quiet:
+            print(f"[{prog}] roofline telemetry ACTIVE: grading "
+                  f"dispatches against {telemetry.hbm_gbps:g} GB/s "
+                  "(achieved GB/s + MFU on /metrics, per-request cost "
+                  "attribution in the request log)")
+    slo_ttft = getattr(args, "slo_ttft", 0.0) or None
+    slo_tpot = getattr(args, "slo_tpot", 0.0) or None
+    slo_policy = None
+    if slo_ttft or slo_tpot:
+        from llm_np_cp_tpu_torch.serve.slo import SLOPolicy
+
+        slo_policy = SLOPolicy(
+            ttft_s=slo_ttft, tpot_s=slo_tpot,
+            target=getattr(args, "slo_target", 0.99),
+        )
+    tenants = None
+    tenant_fairness = getattr(args, "tenant_fairness", False)
+    tenant_cap = getattr(args, "tenant_max_inflight", 0)
+    if tenant_cap < 0:
+        raise SystemExit(
+            f"--tenant-max-inflight must be >= 0, got {tenant_cap}")
+    if getattr(args, "tenants", False) or tenant_fairness or tenant_cap:
+        max_series = getattr(args, "max_tenant_series", 20)
+        if max_series < 1:
+            raise SystemExit(
+                f"--max-tenant-series must be >= 1, got {max_series}")
+        from llm_np_cp_tpu_torch.serve.tenants import TenantLedger
+
+        # one ledger PER ENGINE; the scrape and debug layers aggregate
+        tenants = TenantLedger(
+            fairness=tenant_fairness,
+            max_inflight=tenant_cap or None,
+            max_series=max_series,
+            policy=slo_policy,
+        )
+        if not quiet:
+            print(f"[{prog}] tenant accounting ACTIVE: "
+                  f"fairness={'on' if tenant_fairness else 'off'}, "
+                  f"max-inflight={tenant_cap or 'uncapped'}, "
+                  f"top-{max_series} tenants labeled on /metrics "
+                  "(X-Tenant-Id header names the tenant; "
+                  "GET /debug/tenants for the full breakdown)")
+    host_tier = shared_host_tier
+    if host_tier is None and getattr(args, "kv_tier", "off") == "host":
+        if not args.prefix_cache:
+            raise SystemExit(
+                "--kv-tier host requires --prefix-cache: the tier is "
+                "keyed by the prefix cache's chained content hashes"
+            )
+        gb = getattr(args, "kv_host_tier_gb", 4.0)
+        if gb <= 0:
+            raise SystemExit(
+                f"--kv-host-tier-gb must be > 0, got {gb:g}"
+            )
+        from llm_np_cp_tpu_torch.serve.host_tier import HostTier
+
+        # ONE tier per process, shared by every replica: a drain or
+        # re-home spills through it and the destination restores from it
+        host_tier = HostTier(int(gb * 2**30))
+        if not quiet:
+            print(f"[{prog}] KV host tier ACTIVE: {gb:g} GiB host pool "
+                  "(evicted prefix blocks spill instead of dropping; "
+                  "admissions restore above the measured breakeven; "
+                  "shared fleet-wide for drain/re-home block shipping)")
+    request_log = shared_request_log
+    rl_path = getattr(args, "request_log", None)
+    if request_log is None and rl_path:
+        from llm_np_cp_tpu_torch.serve.request_log import RequestLog
+
+        request_log = RequestLog(rl_path)
+        print(f"[{prog}] request log ACTIVE: {rl_path} "
+              "(one JSON line per terminal)")
+
+    # the JAX CLI's chunking, so one argv sizes both packages' pools alike
+    chunk = min(args.block_size * 2, 256)
+    _, sized_blocks, max_seq_len = pool_geometry(
+        args.prompt_len, args.max_tokens, args.slots, args.block_size,
+        prefill_chunk=chunk,
+    )
+    num_blocks = args.num_blocks or sized_blocks
+    engine = ServeEngine(
+        params, config,
+        sampler=Sampler(kind=args.sampler),
+        max_slots=args.slots,
+        num_blocks=num_blocks,
+        block_size=args.block_size,
+        max_seq_len=max_seq_len,
+        prefill_chunk=chunk,
+        cache_dtype=cache_dtype,
+        decode_attn_impl=decode_attn_impl,
+        enable_prefix_cache=args.prefix_cache,
+        max_queue=max_queue,
+        tokenizer=tokenizer,
+        fault_injector=fault_injector,
+        tracer=tracer,
+        mixed_step=getattr(args, "mixed_step", "off"),
+        sample_epilogue=getattr(args, "sample_epilogue", "auto"),
+        tick_token_budget=getattr(args, "tick_token_budget", 0) or None,
+        journal=journal,
+        request_log=request_log,
+        sentinel=sentinel,
+        actions=actions,
+        telemetry=telemetry,
+        host_tier=host_tier,
+        tenants=tenants,
+        spec_k=(
+            getattr(args, "spec_k", 4)
+            if getattr(args, "speculative_serve", False) else 0
+        ),
+        device=_device(args),
+    )
+    if slo_policy is not None:
+        from llm_np_cp_tpu_torch.serve.slo import SLOTracker
+
+        engine.metrics.slo = SLOTracker(slo_policy, clock=engine.clock)
+        if not quiet:
+            print(f"[{prog}] SLO accounting ACTIVE: "
+                  f"ttft<={slo_ttft or '-'}s tpot<={slo_tpot or '-'}s "
+                  f"target {getattr(args, 'slo_target', 0.99):g} "
+                  "(goodput/burn on /metrics, GET /debug/slo)")
+    if quiet:
+        return engine, num_blocks
+    if engine.mixed:
+        print(f"[{prog}] unified tick ACTIVE: one mixed dispatch/tick, "
+              f"budget {engine.tick_token_budget} tokens "
+              f"(ragged attention: {_ragged_impl(engine)}, "
+              f"epilogue={'fused' if engine.epilogue_impl == 'fused' else 'xla'})")
+    if engine.spec_k:
+        print(f"[{prog}] speculative serving ACTIVE: k={engine.spec_k} "
+              "draft tokens/tick, prompt-lookup drafts verified in the "
+              "mixed dispatch (per-request opt-in: "
+              '"speculative": true)')
+    return engine, num_blocks
+
+
+def _ragged_impl(engine) -> str:
+    """What runs the unified tick's attention: the CUDA kernel on the
+    card, its plain version on the CPU (the JAX CLI prints pallas|xla)."""
+    return "cuda" if engine.device.type == "cuda" else "plain"
+
+
+def _topology(args) -> str:
+    # every replica shares the one device (the JAX CLI names its mesh)
+    return "single chip" if args.replicas == 1 else f"{args.replicas} replicas x (single chip)"
+
+
+def _jax_profile_ctx(args):
+    """--jax-profile DIR → a torch.profiler trace context
+    (``utils/profiling.trace``), or a no-op context."""
+    import contextlib
+
+    if not getattr(args, "jax_profile", None):
+        return contextlib.nullcontext()
+    from llm_np_cp_tpu_torch.utils.profiling import trace
+
+    return trace(args.jax_profile)
+
+
+def _close_otel(tracer, prog: str) -> None:
+    """Final flush of the OTLP exporter (if one rode the recorder):
+    everything offered is attempted against the collector once before
+    exit, then the ship/drop tally is printed."""
+    otel = getattr(tracer, "otel", None)
+    if otel is None:
+        return
+    otel.flush(10.0)
+    otel.close()
+    st = otel.stats()
+    print(f"[{prog}] OTLP export: {st['spans']} spans shipped in "
+          f"{st['batches']} batches, {st['dropped']} dropped "
+          f"({st['export_errors']} collector errors)")
+
+
+def _dump_trace(tracer, args, prog: str) -> None:
+    # takes the RECORDER, not the engine: a supervised restart mutes the
+    # dead engine's tracer attribute, but the recorder object (shared by
+    # every rebuilt engine) holds the full timeline
+    if args.trace_out and tracer is not None:
+        n = tracer.dump(args.trace_out)
+        print(f"[{prog}] wrote {n} trace events to {args.trace_out}"
+              + (f" ({tracer.dropped} dropped by the ring)"
+                 if tracer.dropped else ""))
+
+
+def _run_serve_bench(argv: list[str], default_model: str,
+                     tokenizer: Any = None) -> str:
+    import json as _json
+
+    from llm_np_cp_tpu_torch.serve import poisson_trace
+
+    args = build_serve_parser(default_model).parse_args(argv)
+    args.tokenizer = tokenizer
+    _validate_pool_flags(args)
+    if args.distinct_prompts < 0:
+        raise SystemExit(
+            f"--distinct-prompts must be >= 0 (0 = every prompt distinct), "
+            f"got {args.distinct_prompts}"
+        )
+    _resolve_serve_mesh(args, "serve-bench")
+    _device(args)
+    injector = _chaos_injector(args)
+    _tok, params, config = _load(args)
+    engine, num_blocks = _build_serve_engine(
+        args, params, config, prog="serve-bench", fault_injector=injector,
+    )
+    replica_set = None
+    if args.replicas > 1:
+        from llm_np_cp_tpu_torch.serve import ReplicaSet
+
+        peers = [
+            _build_serve_engine(
+                args, params, config, prog="serve-bench",
+                fault_injector=injector, shared_tracer=engine.tracer,
+                shared_request_log=engine.request_log,
+                shared_host_tier=engine.host_tier,
+                quiet=True,
+            )[0]
+            for i in range(1, args.replicas)
+        ]
+        replica_set = ReplicaSet(
+            [engine] + peers,
+            spill_queue_depth=args.spill_queue_depth or None,
+        )
+        print(f"[serve-bench] replicas ACTIVE: {args.replicas} engines, "
+              "prefix-affinity routing")
+    rng = np.random.default_rng(args.seed)
+    trace = poisson_trace(
+        rng, args.requests, rate_rps=args.rate,
+        prompt_len_range=(max(args.prompt_len // 4, 1), args.prompt_len),
+        max_new_tokens=args.max_tokens, vocab_size=config.vocab_size,
+        seed_base=args.seed,
+        distinct_prompts=args.distinct_prompts or None,
+    )
+    if engine.spec_k:
+        # serve-bench's whole trace opts in (the HTTP surface is where
+        # per-request opt-in lives); tokens are identical either way
+        for item in trace:
+            item["speculative"] = True
+    # capture outside the measured span (steady-state numbers only)
+    lens = [int(t["prompt"].size) for t in trace]
+    for e in (replica_set.engines if replica_set is not None else [engine]):
+        e.warmup(lens, max_new_tokens=args.max_tokens)
+    with _jax_profile_ctx(args):
+        snap = (replica_set or engine).replay_trace(
+            trace, realtime=args.realtime
+        )
+    _dump_trace(engine.tracer, args, "serve-bench")
+    _close_otel(engine.tracer, "serve-bench")
+    tick = (
+        f"mixed:{_ragged_impl(engine)}"
+        f"(budget={engine.tick_token_budget})"
+        if engine.mixed else "split"
+    ) + f",epilogue={engine.epilogue_impl}"
+    out = (
+        f"[serve-bench] {args.requests} requests @ {args.rate} req/s, "
+        f"slots={args.slots}, pool={num_blocks}x{args.block_size} "
+        f"({args.cache_dtype}), attn={engine.decode_attn_impl}, "
+        f"tick={tick}, topo={_topology(args)}, "
+        f"prefix_cache={'on' if args.prefix_cache else 'off'}, "
+        f"kv_tier={args.kv_tier}\n"
+    )
+    if replica_set is not None:
+        out += (
+            f"fleet: {snap['finished']} finished, "
+            f"{snap['throughput_tok_s']:.1f} tok/s, ttft p99 "
+            f"{snap.get('ttft_s_p99', float('nan')):.3f}s, router "
+            f"{snap['router_routed']} routed / "
+            f"{snap['router_spilled']} spilled\n"
+            + "\n".join(
+                f"-- replica {i} --\n{e.metrics.format()}"
+                for i, e in enumerate(replica_set.engines)
+            )
+        )
+    else:
+        out += engine.metrics.format()
+    if "goodput_tok_s" in snap:
+        att = snap.get("slo_attainment")
+        out += (
+            f"\nslo: attainment "
+            f"{att if att is None else format(att, '.3f')}, "
+            f"goodput {snap['goodput_tok_s']:.1f} tok/s, burn "
+            f"5m {snap.get('slo_burn_rate_5m', 0.0):.2f} / "
+            f"1h {snap.get('slo_burn_rate_1h', 0.0):.2f}"
+        )
+    print(out)
+    if engine.request_log is not None:
+        engine.request_log.close()
+        print(f"[serve-bench] wrote "
+              f"{engine.request_log.stats()['records']} request-log "
+              f"lines to {args.request_log}")
+    if args.json:
+        print(_json.dumps(snap))
+    return out
+
+
+def _run_http_serve(argv: list[str], default_model: str,
+                    tokenizer: Any = None) -> str:
+    from llm_np_cp_tpu_torch.serve.http import serve_forever
+
+    args = build_http_serve_parser(default_model).parse_args(argv)
+    args.tokenizer = tokenizer
+    _validate_pool_flags(args)
+    if args.max_queue < 0:
+        raise SystemExit(f"--max-queue must be >= 0, got {args.max_queue}")
+    if args.request_timeout < 0:
+        raise SystemExit(
+            f"--request-timeout must be >= 0, got {args.request_timeout}"
+        )
+    if args.tick_deadline < 0:
+        raise SystemExit(
+            f"--tick-deadline must be >= 0, got {args.tick_deadline}"
+        )
+    if args.max_restarts < 0:
+        raise SystemExit(
+            f"--max-restarts must be >= 0, got {args.max_restarts}"
+        )
+    _resolve_serve_mesh(args, "serve")
+    _device(args)
+    injector = _chaos_injector(args)
+    # per-replica durable journal segments, opened (and replayed for
+    # unterminated requests) BEFORE the model load; a malformed path
+    # fails fast here
+    journals: list = [None] * args.replicas
+    if args.journal:
+        from llm_np_cp_tpu_torch.serve.journal import RequestJournal
+
+        paths = (
+            [args.journal] if args.replicas == 1
+            else [f"{args.journal}.{i}" for i in range(args.replicas)]
+        )
+        journals = [
+            RequestJournal(p, fault_injector=injector,
+                           compact_bytes=args.journal_compact_bytes,
+                           sync_admissions=args.journal_sync == "admission")
+            for p in paths
+        ]
+        replays = [j.stats()["replayed"] for j in journals]
+        print(f"[serve] journal ACTIVE: {args.journal} "
+              f"(epoch {journals[0].epoch}, sync={args.journal_sync}, "
+              f"{sum(replays)} unterminated to replay)")
+    tok, params, config = _load(args)
+    engine, num_blocks = _build_serve_engine(
+        args, params, config, prog="serve", tokenizer=tok,
+        max_queue=args.max_queue or None, fault_injector=injector,
+        journal=journals[0],
+    )
+    engines = [engine] + [
+        _build_serve_engine(
+            args, params, config, prog="serve", tokenizer=tok,
+            max_queue=args.max_queue or None, fault_injector=injector,
+            shared_tracer=engine.tracer, journal=journals[i],
+            shared_request_log=engine.request_log,
+            shared_host_tier=engine.host_tier, quiet=True,
+        )[0]
+        for i in range(1, args.replicas)
+    ]
+    runner = None
+    if args.replicas > 1:
+        from llm_np_cp_tpu_torch.serve import ReplicaRunner
+
+        runner = ReplicaRunner(
+            engines,
+            request_timeout=args.request_timeout or None,
+            tick_deadline=args.tick_deadline or None,
+            max_restarts=args.max_restarts,
+            restart_window_s=args.restart_window,
+            spill_queue_depth=args.spill_queue_depth or None,
+        )
+    # hold the recorder here: a supervised restart rebinds the runner's
+    # engine and mutes the dead one's tracer attribute
+    tracer = engine.tracer
+    # capture the tick's graphs BEFORE accepting traffic: the first real
+    # request must not pay a capture in its TTFT
+    for e in engines:
+        e.warmup([args.prompt_len], max_new_tokens=args.max_tokens)
+    banner = (
+        f"[serve] model={args.model} slots={args.slots} "
+        f"pool={num_blocks}x{args.block_size} ({args.cache_dtype}), "
+        f"attn={engine.decode_attn_impl}, "
+        f"epilogue={engine.epilogue_impl}, topo={_topology(args)}, "
+        f"prefix_cache={'on' if args.prefix_cache else 'off'}, "
+        f"kv_tier={args.kv_tier}, "
+        f"max_queue={args.max_queue or 'unbounded'}, "
+        f"supervision={'off' if not args.max_restarts else f'{args.max_restarts} restarts'}, "
+        f"journal={'on' if args.journal else 'off'}"
+    )
+    print(banner, flush=True)
+
+    def on_started(server) -> None:
+        print(f"[serve] listening on http://{server.host}:{server.port} "
+              f"(POST /v1/completions, GET /healthz, GET /metrics)", flush=True)
+
+    def upgrade_loader(body: dict):
+        # POST /admin/upgrade: reload a checkpoint (the body may name a
+        # different --model) and hand the params to the rolling swap.
+        # Geometry must match — the pool and the captured steps are
+        # shaped by config
+        ns = argparse.Namespace(**vars(args))
+        if body.get("model"):
+            ns.model = str(body["model"])
+        print(f"[serve] admin upgrade: loading checkpoint {ns.model}")
+        _, new_params, new_config = _load(ns)
+        if new_config != config:
+            raise ValueError(
+                f"upgrade checkpoint {ns.model} has a different model "
+                "geometry than the serving config; rolling upgrades "
+                "swap weights, not architectures"
+            )
+        return new_params
+
+    with _jax_profile_ctx(args):
+        serve_forever(
+            engine,
+            model_id=args.model,
+            tokenizer=tok,
+            host=args.host,
+            port=args.port,
+            request_timeout=args.request_timeout or None,
+            drain_timeout=args.drain_timeout,
+            default_max_tokens=args.max_tokens,
+            max_tokens_cap=args.max_tokens,
+            tick_deadline=args.tick_deadline or None,
+            max_restarts=args.max_restarts,
+            restart_window_s=args.restart_window,
+            port_file=args.port_file,
+            exit_after_s=args.exit_after_s,
+            on_started=on_started,
+            runner=runner,
+            upgrade_loader=upgrade_loader,
+        )
+    _dump_trace(tracer, args, "serve")
+    _close_otel(tracer, "serve")
+    if engine.request_log is not None:
+        engine.request_log.close()
+    print("[serve] drained, bye", flush=True)
+    return banner
+
+
+def run(argv: list[str] | None = None, default_model: str = "meta-llama/Llama-3.2-1B",
+        *, tokenizer: Any = None) -> str:
+    """Run one command.  ``tokenizer`` is the caller's (the port builds
+    none): it rides ``args.tokenizer`` into ``_load``."""
+    if argv is None:
+        argv = sys.argv[1:]
+    if argv and argv[0] == "serve-bench":
+        return _run_serve_bench(argv[1:], default_model, tokenizer)
+    if argv and argv[0] == "serve":
+        return _run_http_serve(argv[1:], default_model, tokenizer)
+    args = build_parser(default_model).parse_args(argv)
+    args.tokenizer = tokenizer
+    _reject_tpu(args.backend)
+    _validate_draft(args)
+    if args.batch_size < 0:
+        raise SystemExit(f"--batch-size must be >= 0, got {args.batch_size}")
+    if args.prompts_file and args.backend == "numpy":
+        raise SystemExit(
+            "--prompts-file batches through the torch backend; the numpy "
+            "oracle is single-prompt"
+        )
+    if args.prompts_file and (args.attn_impl in ("flash", "ring") or args.flash_prefill):
+        raise SystemExit(
+            "--prompts-file uses ragged pad masks, which the flash/ring "
+            "prefill kernels do not consume; use the default --attn-impl xla"
+        )
+    if args.backend == "numpy":
+        if args.quantize != "none":
+            raise SystemExit("--quantize applies to the torch backend only "
+                             "(the numpy oracle is fp32 by definition)")
+        return _run_numpy(args)
+    return _run_torch(args)
+
+
+def _parse_draft(kind: str) -> tuple[int | None, bool]:
+    """--draft KIND → (trunc_layers | None, int4).  Raises SystemExit on
+    malformed kinds — called at parse time, before any model load."""
+    import re
+
+    if kind == "int8":
+        return None, False
+    if kind == "int4":
+        return None, True
+    m = re.fullmatch(r"trunc(\d+)(_int4)?", kind)
+    if m is None or int(m.group(1)) < 1:
+        raise SystemExit(
+            f"--draft must be int8, int4, truncN or truncN_int4; got {kind!r}"
+        )
+    return int(m.group(1)), bool(m.group(2))
+
+
+def _validate_draft(args) -> None:
+    """Fail fast on bad --draft combinations, before the model loads."""
+    trunc_layers, int4 = _parse_draft(args.draft)
+    if args.draft != "int8" and args.speculative == 0:
+        raise SystemExit("--draft requires --speculative GAMMA")
+    if int4 and args.quantize != "none":
+        # re-quantizing already-quantized leaves is undefined; the int8
+        # self-draft (reuse-the-target guard) and plain truncN (slices
+        # quantized leaves fine) both compose with --quantize
+        raise SystemExit(
+            f"--draft {args.draft} requires an unquantized target; with "
+            f"--quantize {args.quantize}, use --draft int8 or truncN"
+        )
+
+
+def _draft_kwargs(kind: str, params: Any, config: Any) -> dict[str, Any]:
+    """--draft KIND → SpeculativeGenerator draft kwargs.
+
+    int8 is the class default (empty kwargs); int4 quantizes the target's
+    projections to 4 bits; truncN[_int4] takes the target's first N
+    layers (speculative.truncated_draft), optionally int4-quantized.
+    Combination validity was checked at parse time (_validate_draft).
+    """
+    trunc_layers, int4 = _parse_draft(kind)
+    if trunc_layers is not None:
+        from llm_np_cp_tpu_torch.speculative import truncated_draft
+
+        dp, dc = truncated_draft(
+            params, config, trunc_layers, bits=4 if int4 else None
+        )
+        return {"draft_params": dp, "draft_config": dc}
+    if int4:
+        from llm_np_cp_tpu_torch.quant import quantize_params
+
+        return {"draft_params": quantize_params(params, bits=4)}
+    return {}
+
+
+def _load(args) -> tuple[Any, Any, Any]:
+    """(tokenizer, params, config): the checkpoint directory ``--model``
+    on the backend's device, with the caller's tokenizer."""
+    import torch
+
+    from llm_np_cp_tpu_torch.utils.loading import load_model
+
+    dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
+    device = "cpu" if args.backend == "numpy" else _device(args)
+    return load_model(args.model, dtype=dtype, device=device,
+                      tokenizer=getattr(args, "tokenizer", None))
+
+
+def _need_tokenizer(tok: Any) -> None:
+    if tok is None:
+        raise SystemExit(
+            "this run turns text into tokens, and the port takes its tokenizer "
+            "from the caller: pass run(argv, tokenizer=...) (an object with "
+            "__call__(text, return_tensors='np'), decode and eos_token_id); "
+            "serve-bench needs none, and serve answers token-id prompts "
+            "without one")
+
+
+def _run_numpy(args) -> str:
+    """The reference's NumPy path: fp32 oracle forward, Python decode loop."""
+    import torch
+
+    from llm_np_cp_tpu_torch.backends.numpy_ref import NpKVCache, forward_np
+
+    tok, params, config = _load(args)
+    _need_tokenizer(tok)
+
+    def host(x):
+        if isinstance(x, dict):
+            return {k: host(v) for k, v in x.items()}
+        return x.detach().to("cpu", torch.float32).numpy()
+
+    params_np = host(params)
+    rng = np.random.default_rng(args.seed)
+
+    ids = tok(args.prompt, return_tensors="np")["input_ids"].astype(np.int32)
+    prompt_len = ids.shape[1]
+    cache = None if args.no_cache else NpKVCache()
+    all_ids = list(ids[0])
+    emitted = ""
+    t0 = time.perf_counter()
+    ttft = None
+    for i in range(args.max_tokens):
+        logits, cache = forward_np(params_np, ids, config, cache)
+        nxt = _sample_np(logits[0, -1], args, rng)
+        if ttft is None:
+            ttft = time.perf_counter() - t0
+        all_ids.append(nxt)
+        text = tok.decode(all_ids[prompt_len:], skip_special_tokens=True)
+        if not text.endswith("�"):
+            delta, emitted = text[len(emitted):], text
+            print(delta, end="", flush=True)
+        if nxt == getattr(tok, "eos_token_id", None):
+            break
+        if args.no_cache:
+            ids = np.asarray([all_ids], dtype=np.int32)
+        else:
+            ids = np.asarray([[nxt]], dtype=np.int32)
+    # final flush: emit any delta held back by the mid-multibyte guard
+    text = tok.decode(all_ids[prompt_len:], skip_special_tokens=True)
+    if text != emitted:
+        print(text[len(emitted):], end="", flush=True)
+        emitted = text
+    print()
+    if args.metrics:
+        dt = time.perf_counter() - t0
+        n = len(all_ids) - prompt_len
+        print(f"[numpy] {n} tokens in {dt:.2f}s "
+              f"({n / dt:.2f} tok/s, ttft {ttft:.2f}s)", file=sys.stderr)
+    return emitted
+
+
+def _sample_np(logits: np.ndarray, args, rng: np.random.Generator) -> int:
+    """NumPy samplers mirroring ops.sampling semantics (all five kinds)."""
+    logits = logits.astype(np.float64)
+    if args.sampler == "greedy":
+        return int(np.argmax(logits))
+    logits = logits / args.temperature
+    p = np.exp(logits - logits.max())
+    p /= p.sum()
+    if args.sampler == "min_p":
+        keep = p >= p.max() * args.p_base
+    elif args.sampler == "top_k":
+        kth = np.sort(p)[-min(max(args.top_k, 1), p.size)]
+        keep = p >= kth
+    elif args.sampler == "top_p":
+        order = np.argsort(p)[::-1]
+        csum = np.cumsum(p[order])
+        keep_sorted = (csum - p[order]) < args.top_p
+        keep_sorted[0] = True  # top token always survives (p<=0 → greedy)
+        keep = np.zeros_like(p, dtype=bool)
+        keep[order[keep_sorted]] = True
+    else:  # cdf: plain draw from the full distribution
+        keep = np.ones_like(p, dtype=bool)
+    p = np.where(keep, p, 0.0)
+    p /= p.sum()
+    return int(rng.choice(len(p), p=p))
+
+
+def _run_torch(args) -> str:
+    """The torch path on ``--backend`` cuda or cpu (the JAX CLI's
+    ``_run_tpu``): ``Generator`` or ``SpeculativeGenerator``."""
+    import torch
+
+    from llm_np_cp_tpu_torch.generate import Generator
+    from llm_np_cp_tpu_torch.ops.sampling import Sampler
+
+    # parallelism is not ported: refuse before the (long) model load
+    if args.mesh != _NO_MESH["generate"]:
+        raise NotImplementedError(f"--mesh {args.mesh!r} {_NOT_PORTED}")
+    if args.attn_impl == "ring":
+        raise NotImplementedError(f"--attn-impl ring {_NOT_PORTED}")
+    device = _device(args)
+    label = f"[{device.type}]"
+
+    tok, params, config = _load(args)
+    _need_tokenizer(tok)
+
+    if args.quantize != "none":
+        from llm_np_cp_tpu_torch.quant import quantize_params
+
+        params = quantize_params(
+            params, bits=4 if args.quantize.startswith("int4") else 8,
+            act_quant=args.quantize.endswith("_a8"),
+        )
+
+    if args.speculative > 0 and (
+        args.attn_impl or args.flash_prefill or args.decode_attn != "xla"
+    ):
+        raise SystemExit(
+            "--speculative uses its own fused draft/verify pipeline; "
+            "--attn-impl/--flash-prefill/--decode-attn do not apply to it"
+        )
+    if args.speculative > 0 and (args.batch_size or args.early_stop):
+        raise SystemExit(
+            "--speculative does not implement --batch-size grouping or "
+            "--early-stop (its verify loop has its own stopping rule); "
+            "drop those flags or drop --speculative"
+        )
+    attn_impl = args.attn_impl or ("flash" if args.flash_prefill else "xla")
+
+    sampler = Sampler(
+        kind=args.sampler, temperature=args.temperature, p_base=args.p_base,
+        top_k=args.top_k, top_p=args.top_p,
+    )
+    eos = getattr(tok, "eos_token_id", None)
+    cache_dtype = {
+        "auto": torch.bfloat16 if args.dtype == "bf16" else torch.float32,
+        "bf16": torch.bfloat16,
+        "f32": torch.float32,
+        "int8": torch.int8,
+    }[args.cache_dtype]
+
+    # one definition of prompts-file parsing for BOTH pipelines below
+    batch_prompt_ids = None
+    if args.prompts_file:
+        with open(args.prompts_file) as f:
+            prompts = [line.rstrip("\n") for line in f if line.strip()]
+        if not prompts:
+            raise SystemExit(f"--prompts-file {args.prompts_file}: no prompts")
+        batch_prompt_ids = [
+            tok(p, return_tensors="np")["input_ids"][0].astype(np.int32)
+            for p in prompts
+        ]
+
+    with _jax_profile_ctx(args):
+        if args.speculative > 0:
+            return _run_speculative(args, tok, params, config, sampler, cache_dtype,
+                                    eos, batch_prompt_ids, device, label)
+        if args.early_stop and eos is None:
+            raise SystemExit("--early-stop needs a tokenizer with an EOS token")
+        gen = Generator(
+            params, config,
+            sampler=sampler,
+            stop_tokens=(eos,) if eos is not None else (),
+            cache_dtype=cache_dtype,
+            prefill_attn_impl=attn_impl,
+            prefill_chunk=args.prefill_chunk,
+            decode_attn_impl="flash_decode" if args.decode_attn == "pallas" else "xla",
+            early_stop=args.early_stop,
+            device=device,
+        )
+        if batch_prompt_ids is not None:
+            return _run_batch(args, tok, gen, eos, batch_prompt_ids, label)
+        if args.no_stream:
+            prompt_ids = tok(args.prompt, return_tensors="np")["input_ids"][0]
+            res = gen.generate(
+                prompt_ids, args.max_tokens,
+                max_seq_len=args.max_seq_len, seed=args.seed,
+            )
+            text = tok.decode(res.tokens[0], skip_special_tokens=True)
+            print(text)
+            if args.metrics:
+                print(
+                    f"{label} {res.num_generated} tokens, ttft {res.ttft_s:.3f}s, "
+                    f"{res.decode_tokens_per_s:.1f} tok/s decode",
+                    file=sys.stderr,
+                )
+            return text
+        text = gen.stream_text(
+            tok, args.prompt, args.max_tokens, seed=args.seed,
+            echo=lambda s: print(s, end="", flush=True),
+        )
+        print()
+        if args.metrics:
+            st = gen.last_stream_stats
+            print(
+                f"{label} streamed {st['tokens']} tokens in {st['duration_s']:.2f}s "
+                f"(ttft {st['ttft_s']:.3f}s)",
+                file=sys.stderr,
+            )
+        return text
+
+
+def _run_speculative(args, tok, params, config, sampler, cache_dtype, eos,
+                     batch_prompt_ids, device, label: str) -> str:
+    """``--speculative GAMMA``: one prompt or the ragged prompts file."""
+    from llm_np_cp_tpu_torch.speculative import SpeculativeGenerator
+
+    spec = SpeculativeGenerator(
+        params, config, gamma=args.speculative, sampler=sampler,
+        cache_dtype=cache_dtype, prefill_chunk=args.prefill_chunk,
+        device=device, **_draft_kwargs(args.draft, params, config),
+    )
+    stops = (eos,) if eos is not None else ()
+    if batch_prompt_ids is not None:
+        res = spec.generate_ragged(
+            batch_prompt_ids, args.max_tokens,
+            max_seq_len=args.max_seq_len, seed=args.seed,
+            stop_tokens=stops,
+        )
+        texts = [
+            tok.decode(row, skip_special_tokens=True)
+            for row in np.asarray(res.tokens)
+        ]
+        for text in texts:
+            print(text)
+        if args.metrics:
+            print(
+                f"{label} speculative ragged batch of {len(texts)} "
+                f"γ={args.speculative}: {res.decode_tokens_per_s:.1f} "
+                f"tok/s aggregate, accept {res.acceptance_rate:.2f}, "
+                f"{res.tokens_per_round:.2f} tok/round, "
+                f"ttft {res.ttft_s:.3f}s",
+                file=sys.stderr,
+            )
+        return "\n".join(texts)
+    prompt_ids = tok(args.prompt, return_tensors="np")["input_ids"][0]
+    res = spec.generate(
+        prompt_ids, args.max_tokens, seed=args.seed,
+        stop_tokens=stops,
+    )
+    text = tok.decode(res.tokens, skip_special_tokens=True)
+    print(text)
+    if args.metrics:
+        print(
+            f"{label} speculative γ={args.speculative}: "
+            f"{res.num_generated} tokens, {res.decode_tokens_per_s:.1f} "
+            f"tok/s, accept {res.acceptance_rate:.2f}, "
+            f"{res.tokens_per_round:.2f} tok/round, ttft {res.ttft_s:.3f}s",
+            file=sys.stderr,
+        )
+    return text
+
+
+def _run_batch(args, tok, gen, eos, batch_prompt_ids, label: str) -> str:
+    """``--prompts-file``: one ragged batch, or batches of ``--batch-size``."""
+    n_batches = 1
+    if args.batch_size and args.batch_size < len(batch_prompt_ids):
+        # dynamic batching: ragged batches of N, longest-first
+        results = gen.generate_many(
+            batch_prompt_ids, args.max_tokens,
+            batch_size=args.batch_size,
+            max_seq_len=args.max_seq_len, seed=args.seed,
+        )
+        rows = [np.asarray(r.tokens)[0] for r in results]
+        # each result carries ITS batch's rate; time-to-first-output is
+        # the first EXECUTED batch's ttft — the one holding the longest
+        # prompt (longest-first grouping)
+        row_rates = [r.decode_tokens_per_s for r in results]
+        longest = max(
+            range(len(batch_prompt_ids)),
+            key=lambda i: len(batch_prompt_ids[i]),
+        )
+        ttft = results[longest].ttft_s
+        rate = float(np.mean(row_rates))
+        row_steps = [r.steps for r in results]
+        n_batches = -(-len(rows) // args.batch_size)
+    else:
+        res = gen.generate_ragged(
+            batch_prompt_ids, args.max_tokens,
+            max_seq_len=args.max_seq_len, seed=args.seed,
+        )
+        rows = list(np.asarray(res.tokens))
+        ttft, rate = res.ttft_s, res.decode_tokens_per_s
+        row_rates = [rate] * len(rows)
+        row_steps = [res.steps] * len(rows)
+    texts, row_counts = [], []
+    for row in rows:
+        if eos is not None and (row == eos).any():
+            row = row[: int(np.argmax(row == eos))]
+        row_counts.append(len(row))
+        texts.append(tok.decode(row, skip_special_tokens=True))
+    for text in texts:
+        print(text)
+    if args.metrics:
+        # each row scales ITS batch's per-sequence step rate by the kept
+        # fraction (a row that hit EOS early still paid the loop); the
+        # denominator is steps EXECUTED + the prefill token
+        per_row = [
+            f"{c}tok@{r * c / max(s + 1, 1):.1f}tok/s"
+            for c, r, s in zip(row_counts, row_rates, row_steps)
+        ]
+        print(
+            f"{label} ragged batch of {len(texts)}"
+            + (f" in {n_batches} batches" if n_batches > 1 else "")
+            + f": ttft {ttft:.3f}s, {rate:.1f} tok/s/row decode, rows: "
+            + " ".join(per_row),
+            file=sys.stderr,
+        )
+    return "\n".join(texts)
+
+
+if __name__ == "__main__":
+    run()

@@ -58,7 +58,8 @@ Modules:
   ``LifecycleController``), the ``Autoscaler`` and the ``ActionPolicy``
   auto-actions (shed prefill, shed load).
 
-The CLI layer of the JAX package is a later slice.
+The command line over them is ``llm_np_cp_tpu_torch.cli`` (``serve-bench``,
+``serve``).
 """
 
 from llm_np_cp_tpu_torch.serve.block_pool import BlockPool, FreeList, PagedKV

@@ -1878,6 +1878,8 @@ class ServeEngine:
             if running else 0,
         )
         if self.tracer is not None and t0 >= 0.0:
+            # the tick ends with its last phase: building its args is the
+            # tracer's work, outside the tick like the sentinel's below
             t6 = self.tracer.now_us()
             targs: dict[str, Any] = {
                 "active_slots": len(running),
@@ -1898,7 +1900,7 @@ class ServeEngine:
                 ("admission", t0, t1), ("prefill", t1, t2),
                 ("grow", t2, t3), ("decode_dispatch", t3, t4),
                 ("host_sync", t4, t5), ("deliver", t5, t6),
-            ), args=targs)
+            ), args=targs, end_us=t6)
             if self.sentinel is not None:
                 # the tick's phases, and the roofline deficit as a
                 # pseudo-phase, so a utilization regression pages too
@@ -2234,6 +2236,8 @@ class ServeEngine:
             decode_tokens=n_decode_tok,
         )
         if self.tracer is not None and t0 >= 0.0:
+            # the tick ends with its last phase: building its args is the
+            # tracer's work, outside the tick like the sentinel's below
             t6 = self.tracer.now_us()
             targs: dict[str, Any] = {
                 "active_slots": active,
@@ -2260,7 +2264,7 @@ class ServeEngine:
                 ("grow", td, t2), ("plan", t2, t3),
                 ("mixed_dispatch", t3, t4),
                 ("host_sync", t4, t5), ("deliver", t5, t6),
-            ), args=targs)
+            ), args=targs, end_us=t6)
             if self.sentinel is not None:
                 # the tick's phases, and the roofline deficit as a
                 # pseudo-phase, so a utilization regression pages too

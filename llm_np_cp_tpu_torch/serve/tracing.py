@@ -179,12 +179,14 @@ class TraceRecorder:
         self._append(ev)
 
     def tick(self, start_us: float, phases: tuple[tuple[str, float, float], ...], *,
-             args: dict | None = None) -> None:
+             args: dict | None = None, end_us: float | None = None) -> None:
         """One tick: the ``tick`` slice and its phase slices ``(name,
         t0_us, t1_us)``, appended atomically (a ``/debug/trace`` read
         never sees half a tick).  Measured at consecutive timestamps, the
-        phases sum to the tick span."""
-        end_us = self.now_us()
+        phases sum to the tick span.  The slice ends at ``end_us``, or now
+        when it is None."""
+        if end_us is None:
+            end_us = self.now_us()
         tid = threading.get_ident()
         events = [{"name": "tick", "cat": "tick", "ph": "X", "ts": start_us,
                    "dur": max(end_us - start_us, 0.0), "pid": self._pid, "tid": tid,

@@ -12,7 +12,8 @@ of ``models/{llama,gemma2,qwen2}.py``.  A shard read that fails with a
 transient ``OSError`` is retried a bounded number of times with a
 doubling backoff (``SHARD_READ_RETRIES``, ``SHARD_READ_BACKOFF_S``);
 ``SHARD_READ_HOOK`` is the fault-injection seam the ``ckpt_read`` chaos
-site uses (``serve/faults.install``).
+site uses (``serve/faults.install``).  ``load_model`` is the command
+line's entry: a local directory only, with the caller's tokenizer.
 """
 
 from __future__ import annotations
@@ -240,3 +241,31 @@ def _check_complete(params: dict, filled: set, config: ModelConfig) -> None:
             f"checkpoint incomplete: {len(missing)} tensors missing ({preview}"
             + (", ..." if len(missing) > 6 else "") + ")"
         )
+
+
+# ----------------------------------------------------------------------
+# The reference's load_model() equivalent
+# ----------------------------------------------------------------------
+
+def load_model(
+    model_dir: str | Path,
+    *,
+    dtype: torch.dtype = torch.bfloat16,
+    device: str | torch.device = "cuda",
+    tokenizer: Any = None,
+) -> tuple[Any, dict[str, Any], ModelConfig]:
+    """(tokenizer, params, config) from a local checkpoint directory
+    (``config.json`` plus ``model.safetensors`` or its sharded index).
+
+    The JAX package's ``load_model`` downloads a hub id and builds an
+    ``AutoTokenizer``; the port does neither (no network, no
+    ``transformers``): a path that is not a directory raises
+    ``FileNotFoundError``, and the tokenizer is the caller's object,
+    returned as it was given."""
+    path = Path(model_dir)
+    if not path.is_dir():
+        raise FileNotFoundError(
+            f"{str(model_dir)!r} is not a local checkpoint directory; the port loads "
+            "config.json and safetensors shards from disk and downloads nothing")
+    params, config = load_params(path, dtype=dtype, device=device)
+    return tokenizer, params, config

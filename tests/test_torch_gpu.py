@@ -17,6 +17,7 @@ from llm_np_cp_tpu_torch.ops.cuda import sample_epilogue as se
 from llm_np_cp_tpu_torch.ops.cuda import softmax as sm
 from llm_np_cp_tpu_torch.ops.cuda import threefry as tf
 from llm_np_cp_tpu_torch.quant import quant_einsum, quantize_array, quantize_params
+from tick_clock import clocked
 
 pytestmark = pytest.mark.gpu
 
@@ -695,9 +696,9 @@ def test_serve_mixed_and_split_give_equal_tokens(cuda):
                           max_new_tokens=8, vocab_size=cfg.vocab_size)
     out = {}
     for leg, (mixed, impl) in {"mixed": ("on", "xla"), "split": ("off", "paged")}.items():
-        eng = ServeEngine(params, cfg, mixed_step=mixed, decode_attn_impl=impl, max_slots=4,
-                          num_blocks=40, block_size=16, max_seq_len=96, prefill_chunk=16,
-                          cache_dtype=torch.float32)
+        eng = clocked(ServeEngine, params, cfg, mixed_step=mixed, decode_attn_impl=impl,
+                      max_slots=4, num_blocks=40, block_size=16, max_seq_len=96,
+                      prefill_chunk=16, cache_dtype=torch.float32)
         rag, pag = da.ragged_paged_attention.launches, da.paged_decode_attention.launches
         assert eng.replay_trace(trace)["finished"] == 8
         layers = cfg.num_hidden_layers
@@ -1429,3 +1430,38 @@ def test_capture_raises_on_host_sync(cuda):
     assert step.graph is None and not step.compiled and seen == [4.0]
     torch.cuda.synchronize()
     assert torch.ones(3, device="cuda").sum().item() == 3.0
+
+
+def test_cli_greedy_runs_the_decode_kernel(cuda, monkeypatch):
+    """``cli.run`` greedy on cuda at the tiny config: the decode kernel
+    launched once a layer on each of the 7 decode steps (eager first step,
+    then graph replays), the text a direct ``Generator``'s."""
+    import numpy as np
+
+    from llm_np_cp_tpu_torch import cli
+    from llm_np_cp_tpu_torch.config import tiny_config
+    from llm_np_cp_tpu_torch.generate import Generator
+    from llm_np_cp_tpu_torch.models.transformer import init_params
+    from llm_np_cp_tpu_torch.ops.sampling import Sampler
+
+    class Tok:
+        eos_token_id = 199
+
+        def __call__(self, text, return_tensors=None):
+            return {"input_ids": np.asarray([[(ord(c) % 250) + 1 for c in text]], np.int32)}
+
+        def decode(self, ids, skip_special_tokens=True):
+            return "".join(chr(0x4E00 + int(i)) for i in ids)
+
+    cfg = tiny_config("llama", head_dim=64, hidden_size=128, num_attention_heads=4,
+                      num_key_value_heads=2)
+    params = init_params(0, cfg, torch.bfloat16, device="cuda")
+    monkeypatch.setattr(cli, "_load", lambda args: (args.tokenizer, params, cfg))
+    before = da.decode_attention.launches
+    text = cli.run(["--sampler=greedy", "--no-stream", "--decode-attn=pallas", "--max-tokens=8",
+                    "--prompt=hello there"], tokenizer=Tok())
+    assert da.decode_attention.launches - before == cfg.num_hidden_layers * 7
+    gen = Generator(params, cfg, sampler=Sampler("greedy"), stop_tokens=(Tok.eos_token_id,),
+                    decode_attn_impl="flash_decode")
+    want = gen.generate(Tok()("hello there")["input_ids"][0], 8).tokens[0]
+    assert text == Tok().decode(want)

@@ -34,6 +34,7 @@ from llm_np_cp_tpu_torch.config import tiny_config
 from llm_np_cp_tpu_torch.convert import params_from_jax
 from llm_np_cp_tpu_torch.models import transformer as ttf
 from llm_np_cp_tpu_torch.ops.sampling import Sampler
+from tick_clock import clocked
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -239,10 +240,10 @@ def test_engine_compile_counts_match_jax_contract():
                                 prompt_len_range=(3, 14), max_new_tokens=6,
                                 vocab_size=cfg.vocab_size)
     kw = dict(max_slots=4, num_blocks=48, block_size=8, max_seq_len=64)
-    port = serve.ServeEngine(tp, cfg, sampler=Sampler("greedy"), mixed_step="on",
-                             cache_dtype=torch.float32, device="cpu", **kw)
-    ref = jserve.ServeEngine(jp, jcfg, sampler=JSampler("greedy"), mixed_step="on",
-                             cache_dtype=jnp.float32, **kw)
+    port = clocked(serve.ServeEngine, tp, cfg, sampler=Sampler("greedy"), mixed_step="on",
+                   cache_dtype=torch.float32, device="cpu", **kw)
+    ref = clocked(jserve.ServeEngine, jp, jcfg, sampler=JSampler("greedy"), mixed_step="on",
+                  cache_dtype=jnp.float32, **kw)
     assert port.replay_trace(trace)["finished"] == 32
     assert ref.replay_trace(trace)["finished"] == 32
     first = {r.req_id: list(r.generated) for r in port.scheduler.finished}
@@ -252,9 +253,7 @@ def test_engine_compile_counts_match_jax_contract():
     assert 0 < counts["mixed_step"] <= len(port.mixed_buckets)
     assert counts["mixed_step"] == len(port.bucket_dispatches)
     assert sum(port.bucket_dispatches.values()) == port.n_dispatches
-    # the replay's virtual clock follows the wall clock, so its ticks may
-    # differ run to run: the growth check runs the trace's requests all
-    # at once, whose ticks are the same every time
+    # the growth check also runs the trace's requests all at once
     for rnd in range(2):
         for j, item in enumerate(trace):
             port.submit(item["prompt"], item["max_new_tokens"], seed=j)
@@ -266,8 +265,8 @@ def test_engine_compile_counts_match_jax_contract():
     assert len(port.scheduler.finished) == 96
     # warmup captures every bucket (an all-dead batch each), as the JAX
     # engine compiles every bucket; the tokens stay the same
-    warm = serve.ServeEngine(tp, cfg, sampler=Sampler("greedy"), mixed_step="on",
-                             cache_dtype=torch.float32, device="cpu", **kw)
+    warm = clocked(serve.ServeEngine, tp, cfg, sampler=Sampler("greedy"), mixed_step="on",
+                   cache_dtype=torch.float32, device="cpu", **kw)
     warm.warmup([5], 2)
     assert warm.compile_counts() == {"mixed_step": len(warm.mixed_buckets)}
     assert warm.replay_trace(trace)["finished"] == 32
@@ -275,8 +274,8 @@ def test_engine_compile_counts_match_jax_contract():
     assert {r.req_id - 1: list(r.generated) for r in warm.scheduler.finished} == first
     assert warm.compile_counts() == {"mixed_step": len(warm.mixed_buckets)}
     # the phase-split engine: one decode step, built at its first tick
-    split = serve.ServeEngine(tp, cfg, mixed_step="off", cache_dtype=torch.float32,
-                              device="cpu", **kw)
+    split = clocked(serve.ServeEngine, tp, cfg, mixed_step="off", cache_dtype=torch.float32,
+                    device="cpu", **kw)
     assert split.compile_counts() == {"decode_step": 0}
     assert split.replay_trace(trace)["finished"] == 32
     assert split.compile_counts() == {"decode_step": 1}

@@ -44,6 +44,7 @@ from llm_np_cp_tpu_torch.serve import faults
 from llm_np_cp_tpu_torch.serve.http.client import astream_completion, http_get
 from llm_np_cp_tpu_torch.serve.http.server import HttpServer
 from test_torch_http import np_params, run
+from tick_clock import TickClock, clocked
 
 pytestmark = pytest.mark.http
 
@@ -87,10 +88,15 @@ def engine(pkg, m, **kw):
                               cache_dtype=jnp.float32, **kw)
 
 
-def fleet(pkg, m, n, *, spill_queue_depth=4, **kw):
+def fleet(pkg, m, n, *, spill_queue_depth=4, clock=None, **kw):
+    """``clock``: one ``TickClock`` shared by (and watching) every replica."""
     S = serve if pkg == "port" else jserve
-    return S.ReplicaSet([engine(pkg, m, **kw) for _ in range(n)],
-                        spill_queue_depth=spill_queue_depth)
+    if clock is not None:
+        kw["clock"] = clock
+    engines = [engine(pkg, m, **kw) for _ in range(n)]
+    if clock is not None:
+        clock.watch(*engines)
+    return S.ReplicaSet(engines, spill_queue_depth=spill_queue_depth)
 
 
 def streams(x):
@@ -179,11 +185,11 @@ def test_fleet_trace_parity_32_requests(tiny):
     trace, equal to the JAX ``ReplicaSet``'s token for token, with the
     same routing counters and per-replica placement."""
     tr = trace(tiny, 0, 32, (3, 14), 6)
-    single = engine("port", tiny)
+    single = clocked(engine, "port", tiny)
     snap1 = single.replay_trace(tr)
     out = {}
     for pkg in ("port", "jax"):
-        f = fleet(pkg, tiny, 2)
+        f = fleet(pkg, tiny, 2, clock=TickClock())
         snap = f.replay_trace(tr)
         out[pkg] = (streams(f), snap["router_routed"], snap["router_spilled"],
                     [r.extra["replica"] for r in f.finished], snap["finished"],
@@ -199,13 +205,13 @@ def test_shared_prompt_trace_100pct_block_local(tiny):
     spill, each prompt on one replica, the fleet's prefix hits equal to
     one engine's — as the JAX fleet routes them."""
     tr = trace(tiny, 3, 32, (18, 30), 5, distinct=8)
-    single = engine("port", tiny, enable_prefix_cache=True, num_blocks=96)
+    single = clocked(engine, "port", tiny, enable_prefix_cache=True, num_blocks=96)
     snap1 = single.replay_trace(tr)
     assert snap1["prefix_blocks_hit"] > 0
     out = {}
     for pkg in ("port", "jax"):
         f = fleet(pkg, tiny, 4, spill_queue_depth=None, enable_prefix_cache=True,
-                  num_blocks=96)
+                  num_blocks=96, clock=TickClock())
         snap = f.replay_trace(tr)
         owners: dict[bytes, set] = {}
         for i, e in enumerate(f.engines):

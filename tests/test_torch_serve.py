@@ -48,6 +48,7 @@ from llm_np_cp_tpu_torch.serve.telemetry import TelemetryModel
 from llm_np_cp_tpu_torch.serve.tenants import TenantLedger
 from llm_np_cp_tpu_torch.serve.tracing import TraceRecorder
 from sampled_parity import assert_prefix_parity, request_margins
+from tick_clock import clocked
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -97,20 +98,23 @@ def llama():
     return pair("llama")
 
 
-def engines(models, leg, *, int8=False, sampler="greedy", **kw):
-    """(port engine, JAX engine) with the same geometry, for one leg."""
+def engines(models, leg, *, int8=False, sampler="greedy", tick_clock=False, **kw):
+    """(port engine, JAX engine) with the same geometry, for one leg;
+    ``tick_clock``: each on its own ``TickClock`` (trace replays)."""
     cfg, tp, jcfg, jp = models
     mixed, impl = LEGS[leg]
     kw.setdefault("max_slots", 4)
     kw.setdefault("num_blocks", 48)
     kw.setdefault("block_size", 8)
     kw.setdefault("max_seq_len", 64)
-    port = serve.ServeEngine(
-        tp, cfg, sampler=Sampler(sampler), mixed_step=mixed, decode_attn_impl=impl,
-        cache_dtype=torch.int8 if int8 else torch.float32, device="cpu", **kw)
-    ref = jserve.ServeEngine(
-        jp, jcfg, sampler=JSampler(sampler), mixed_step=mixed, decode_attn_impl=impl,
-        cache_dtype=jnp.int8 if int8 else jnp.float32, **kw)
+    build = clocked if tick_clock else (lambda f, *a, **k: f(*a, **k))
+    port = build(
+        serve.ServeEngine, tp, cfg, sampler=Sampler(sampler), mixed_step=mixed,
+        decode_attn_impl=impl, cache_dtype=torch.int8 if int8 else torch.float32,
+        device="cpu", **kw)
+    ref = build(
+        jserve.ServeEngine, jp, jcfg, sampler=JSampler(sampler), mixed_step=mixed,
+        decode_attn_impl=impl, cache_dtype=jnp.int8 if int8 else jnp.float32, **kw)
     return port, ref
 
 
@@ -153,7 +157,7 @@ def trace32(cfg):
 def test_trace_parity_32_requests_vs_jax_engine_and_offline(llama, leg):
     cfg, tp = llama[:2]
     trace = trace32(cfg)
-    port, ref = engines(llama, leg)
+    port, ref = engines(llama, leg, tick_clock=True)
     snap = port.replay_trace(trace)
     assert ref.replay_trace(trace)["finished"] == 32
     assert snap["finished"] == 32
@@ -175,10 +179,9 @@ def test_flash_decode_leg_matches_xla_leg(llama):
     trace = trace32(cfg)
 
     def run(impl):
-        eng = serve.ServeEngine(tp, cfg, sampler=Sampler("greedy"), mixed_step="off",
-                                decode_attn_impl=impl, max_slots=4, num_blocks=48,
-                                block_size=8, max_seq_len=64, cache_dtype=torch.float32,
-                                device="cpu")
+        eng = clocked(serve.ServeEngine, tp, cfg, sampler=Sampler("greedy"), mixed_step="off",
+                      decode_attn_impl=impl, max_slots=4, num_blocks=48, block_size=8,
+                      max_seq_len=64, cache_dtype=torch.float32, device="cpu")
         eng.replay_trace(trace)
         return tokens(eng)
 

@@ -45,6 +45,7 @@ from llm_np_cp_tpu_torch.serve.block_pool import FreeList
 from llm_np_cp_tpu_torch.serve.scheduler import Request, Scheduler
 from llm_np_cp_tpu_torch.serve.spec import DraftState
 from sampled_parity import assert_prefix_parity, spec_margins
+from tick_clock import clocked
 
 # logits compared across the two packages, float32
 ATOL = 1e-4
@@ -604,8 +605,8 @@ def test_spec_trace_parity_32_requests(tiny):
                                             [t["prompt"].size for t in trace])):
         item["prompt"] = p
         item["speculative"] = True
-    spec, plain = engine(tiny, 4), engine(tiny, 0)
-    ref = engine(tiny, 4, jax_engine=True)
+    spec, plain = clocked(engine, tiny, 4), clocked(engine, tiny, 0)
+    ref = clocked(engine, tiny, 4, jax_engine=True)
     snap = spec.replay_trace(trace)
     psnap = plain.replay_trace(trace)
     jsnap = ref.replay_trace(trace)

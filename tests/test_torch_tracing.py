@@ -204,6 +204,36 @@ def test_ticks_equal_jax_and_phases_sum_to_them(leg):
                                      if e["name"] == "prefill_chunk"]
 
 
+def test_tick_slice_ends_at_the_given_end():
+    """``end_us`` ends the tick slice there; without it the slice ends
+    at the call, as the JAX recorder's does."""
+    t = [0.0]
+
+    def clock():
+        t[0] += 0.001
+        return t[0]
+
+    rec = tracing.TraceRecorder(clock=clock)
+    t0 = rec.now_us()
+    rec.tick(t0, (("a", t0, t0 + 10.0), ("b", t0 + 10.0, t0 + 25.0)), end_us=t0 + 25.0)
+    rec.tick(t0, (("a", t0, t0 + 10.0),))
+    ticks = [e for e in rec.events() if e["name"] == "tick"]
+    assert ticks[0]["dur"] == pytest.approx(25.0)
+    assert ticks[1]["dur"] == pytest.approx(1000.0)
+
+
+@pytest.mark.parametrize("leg", list(op.LEGS))
+def test_port_ticks_end_with_their_last_phase(leg):
+    """The port's engine ends each tick where its last phase ends: the
+    phases cover the tick whole, and the args' build after it is outside."""
+    names = tracing.TICK_PHASES if leg == "split" else tracing.MIXED_TICK_PHASES
+    got = op.run(leg, True)
+    ticks = op.ticks(got["events"], names)
+    assert ticks and len(ticks) == got["snapshot"]["ticks"]
+    for t, ph in ticks:
+        assert t["ts"] + t["dur"] == pytest.approx(ph[-1]["ts"] + ph[-1]["dur"], abs=1e-6)
+        assert sum(p["dur"] for p in ph) == pytest.approx(t["dur"], abs=1e-6)
+
 def test_guarded_hooks_lint_is_clean(tmp_path):
     """Every tracer / sentinel / telemetry / tenants call in the port's
     engine and server sits behind an ``is None`` check (the JAX package's
