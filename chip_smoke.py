@@ -230,8 +230,33 @@ Phases, each printing JSON lines; any failure exits non-zero:
    leg's or apart at a near-tie; recorded: restart to first resumed token
    as the clients saw it (the new child's start, weights and captures
    included) and ``journal_replayed_total``.
-12. the ``kernels`` summary line, the card's ``nvidia-smi`` name and power
-   limit, and last the result line
+12. moe — Mixtral-8x7B's published widths (``ModelConfig.from_hf_dict``
+   of its config.json: 8 experts, 2 a token, untied 4096 x 32000 head)
+   at 8 of its 32 layers on seeded random bf16 weights (~23.7 GB; 32
+   layers would not fit the card), its expert stacks drawn and quantized
+   a layer at a time.  Offline ``generate`` / ``generate_ragged`` /
+   ``stream`` with launch counts and graph replays (TTFT, decode rate),
+   each run again eagerly with its routes recorded: identical tokens
+   required, then route-pinned teacher forcing (``pinned_forced``: the
+   cache-less plain forward takes the path's experts and drops, so that
+   a near-tied route bf16 rounding flips cannot cascade; output logits
+   within ``MOE_TEACHER_TOL``, router logits within ``MOE_ROUTER_TOL``,
+   ~3x the plain path's own floor), a gate without drops
+   (capacity factor E / k = 4.0) and recorded at the published 2.0; a
+   model with one expert's down projection zeroed must fail it.  The
+   serve trace through legs A, B and A with min-p at 2.0 (launches,
+   fetches, replays, tok/s, TTFT, TPOT); each leg's requests, and leg
+   A's without drops, submitted at once through a captured and an eager
+   engine (identical tokens; routes dropped per tick; leg A's requests
+   route-pinned teacher-forced, a gate without drops).  The four weight
+   modes without drops (``param_bytes``, peak reserved bytes while
+   quantizing, decode rate, captured = eager, route-pinned teacher
+   forcing) and an int8 unified-tick replay; a float32 2-layer run whose
+   legs A and B equal the offline ``generate_ragged``; a profile
+   splitting device time among routing, slot positions, dispatch,
+   expert products, combine, attention kernels and epilogue.
+13. the ``kernels`` summary line (each row with its ``moe_launches``), the
+   card's ``nvidia-smi`` name and power limit, and last the result line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Exits non-zero, printing no result, when no CUDA card is visible.
@@ -512,6 +537,8 @@ FLASH_SPECS = (
     ("llama1b_prefill_1x4096", 1, 4096, 32, 8, 64, None, None),
     ("llama8b_prefill_1x2048_d128", 1, 2048, 32, 8, 128, None, None),
     ("gemma2_2b_1x4096_softcap50_window4096", 1, 4096, 8, 4, 256, 50.0, 4096),
+    # the moe phase's prefill at Mixtral-8x7B's attention widths
+    ("mixtral_prefill_4x128_d128", 4, 128, 32, 8, 128, None, None),
 )
 
 
@@ -606,23 +633,41 @@ DECODE_MARKERS = {"decode_attention": "decode_kernel",
                   "decode_attention_combine": "combine_splits_kernel"}
 
 
+# the slab decode's cases: name, B, S, H, K, D, int8 — the main path's
+# shape first.  S is the Generator's slab (its live slots rounded up by
+# align_capacity); B > 1 rows are ragged (``decode_mask``)
+DECODE_SPECS = [
+    ("llama1b_b4_s256_bf16_ragged", 4, 256, 32, 8, 64, False),
+    ("llama1b_b4_s256_int8_ragged", 4, 256, 32, 8, 64, True),
+    ("llama1b_b4_s4096_bf16_ragged", 4, 4096, 32, 8, 64, False),
+    ("llama1b_b4_s4096_int8_ragged", 4, 4096, 32, 8, 64, True),
+    ("llama1b_b1_s32768_bf16", 1, 32768, 32, 8, 64, False),
+    # the moe phase at Mixtral-8x7B's attention widths: generate,
+    # generate_ragged and the weight modes (B=4, 192 live of 256 slots),
+    # and stream (B=1)
+    ("mixtral_b4_s256_bf16_ragged", 4, 256, 32, 8, 128, False),
+    ("mixtral_b1_s256_bf16", 1, 256, 32, 8, 128, False),
+]
+
+
+def decode_inputs(torch, spec: tuple, seed: int):
+    """(q, k, v, mask) of a slab decode spec, bf16, seeded."""
+    _, b, s, h, kh, d, _ = spec
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, 1, h, d), generator=g, device="cuda").bfloat16()
+    k = torch.randn((b, s, kh, d), generator=g, device="cuda").bfloat16()
+    v = torch.randn((b, s, kh, d), generator=g, device="cuda").bfloat16()
+    return q, k, v, decode_mask(torch, b, s)
+
+
 def decode_cases(torch, F, da, quantize_kv, sdpa_gqa: bool) -> list[dict]:
-    """The slab kernel at Llama-3.2-1B widths: the main path's S=256 first,
-    a long cache (S=4096), and one long-context row (B=1, S=32768).  Each
-    case records the NSPLIT that ``split_plan`` gives it on this card."""
+    """The slab kernel on ``DECODE_SPECS``.  Each case records the NSPLIT
+    that ``split_plan`` gives it on this card."""
     cases = []
-    h, kh, d = 32, 8, 64
     sms = da.sm_count(torch.device("cuda"))
-    specs = [(4, 256, False), (4, 256, True), (4, 4096, False), (4, 4096, True),
-             (1, 32768, False)]
-    for b, s, int8 in specs:
-        name = (f"llama1b_b{b}_s{s}_{'int8' if int8 else 'bf16'}"
-                + ("_ragged" if b > 1 else ""))
-        g = torch.Generator(device="cuda").manual_seed(100 + s + int8)
-        q = torch.randn((b, 1, h, d), generator=g, device="cuda").bfloat16()
-        k = torch.randn((b, s, kh, d), generator=g, device="cuda").bfloat16()
-        v = torch.randn((b, s, kh, d), generator=g, device="cuda").bfloat16()
-        mask = decode_mask(torch, b, s)
+    for spec in DECODE_SPECS:
+        name, b, s, h, kh, d, int8 = spec
+        q, k, v, mask = decode_inputs(torch, spec, 100 + s + int8 + (0 if d == 64 else d))
         kw = dict(scale=d ** -0.5)
         if int8:
             k, ks = quantize_kv(k)
@@ -641,7 +686,7 @@ def decode_cases(torch, F, da, quantize_kv, sdpa_gqa: bool) -> list[dict]:
             lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=am, scale=kw["scale"], enable_gqa=True), 100)
         dev = device_ms(torch, lambda: da.decode_attention(q, k, v, mask, **kw), DECODE_MARKERS)
-        nsplit = da.split_plan(b, kh, s, d, sms)
+        nsplit = da.split_plan(b, kh, s, d, sms, h // kh)
         if (dev["decode_attention_combine"] > 0) != (nsplit > 1):
             raise AssertionError(f"{name}: NSPLIT {nsplit} but the profiler saw combine time "
                                  f"{dev['decode_attention_combine']} ms")
@@ -660,23 +705,22 @@ def decode_cases(torch, F, da, quantize_kv, sdpa_gqa: bool) -> list[dict]:
 def combine_cases(torch, da) -> list[dict]:
     """The split-KV combine alone (``csrc/split_kv.cuh``) on the split
     kernel's own partials, against its plain version on the same partials:
-    the main path's shape (B=4, S=256) first, then S=4096 and one B=1 x
-    S=32768 row.  Each case also shows that its check sees a fault: the
-    combine over the partials with the middle split dropped must fall
-    outside the tolerance against the whole (``combine_case``)."""
+    the bf16 ``DECODE_SPECS`` (the main path's shape first).  Each case
+    also shows that its check sees a fault: the combine over the partials
+    with the middle split dropped must fall outside the tolerance against
+    the whole (``combine_case``)."""
     cases = []
-    h, kh, d = 32, 8, 64
     sms = da.sm_count(torch.device("cuda"))
-    for b, s in ((4, 256), (4, 4096), (1, 32768)):
-        n = da.split_plan(b, kh, s, d, sms)
-        g = torch.Generator(device="cuda").manual_seed(500 + s)
-        q = torch.randn((b, 1, h, d), generator=g, device="cuda").bfloat16()
-        k = torch.randn((b, s, kh, d), generator=g, device="cuda").bfloat16()
-        v = torch.randn((b, s, kh, d), generator=g, device="cuda").bfloat16()
-        acc, m, l = da.decode_attention_split(q, k, v, decode_mask(torch, b, s), nsplit=n,
-                                              scale=d ** -0.5)
+    for spec in DECODE_SPECS:
+        name, b, s, h, kh, d, int8 = spec
+        if int8:
+            continue
+        n = da.split_plan(b, kh, s, d, sms, h // kh)
+        q, k, v, mask = decode_inputs(torch, spec, 500 + s + (0 if d == 64 else d))
+        acc, m, l = da.decode_attention_split(q, k, v, mask, nsplit=n, scale=d ** -0.5)
         cases.append(combine_case(torch, da, "decode_attention_combine",
-                                  f"llama1b_b{b}_s{s}_nsplit{n}", acc, m, l))
+                                  f"{name.removesuffix('_ragged').removesuffix('_bf16')}"
+                                  f"_nsplit{n}", acc, m, l))
     return cases
 
 
@@ -735,6 +779,10 @@ EPILOGUE_SPECS = [
     ("gemma2_27b_n8_tied_softcap30_unitoffset", 8, 4608, 256000, True, 30.0, True),
     # the spec_k=4 tick: 8 slots x 5 sample columns
     ("llama1b_n40_tied_spec_tick", 40, 2048, 128256, True, None, False),
+    # Mixtral-8x7B's untied bf16 head: the moe phase's generate rows and
+    # its serve tick's 8 slots
+    ("mixtral_n4_untied", 4, 4096, 32000, False, None, False),
+    ("mixtral_n8_untied_serve_tick", 8, 4096, 32000, False, None, False),
 ]
 EPILOGUE_INT8_SPECS = [
     ("llama1b_n4_tied_int8", 4, 2048, 128256, True, None, False),
@@ -742,6 +790,10 @@ EPILOGUE_INT8_SPECS = [
     ("gemma2_widths_n4_untied_int8_softcap30_unitoffset", 4, 2304, 256000, False, 30.0, True),
     ("llama3_8b_n8_untied_int8", 8, 4096, 128256, False, None, False),
     ("gemma2_27b_n8_tied_int8_softcap30_unitoffset", 8, 4608, 256000, True, 30.0, True),
+    # Mixtral-8x7B's untied head quantized: the moe phase's weight modes'
+    # generate rows and its int8 serve tick's 8 slots
+    ("mixtral_n4_untied_int8", 4, 4096, 32000, False, None, False),
+    ("mixtral_n8_untied_int8_serve_tick", 8, 4096, 32000, False, None, False),
 ]
 EPILOGUE_MARKERS = {"sample_epilogue": "epilogue_"}
 # how far a planted column's logit lies above its row's best random one:
@@ -937,6 +989,8 @@ CATEGORICAL_SPECS = (
     ("generator_4x128256", 4, 128256),
     ("spec_tick_40x128256", 40, 128256),
     ("gemma2_vocab_8x256000", 8, 256000),
+    # the moe phase's min-p serve tick at Mixtral-8x7B's vocab
+    ("mixtral_vocab_serve_tick_8x32000", 8, 32000),
 )
 
 
@@ -1096,6 +1150,8 @@ PAGED_SPECS = [
     ("llama1b_b8_s4096_bs16_int8", 32, 8, 64, LONG_LENGTHS, LONG_PADS, None, None, True),
     # one long-context row: 2048 blocks of 16, ~67 MB of bf16 K/V
     ("llama1b_b1_s32768_bs16", 32, 8, 64, [32768], [0], None, None, False),
+    # the moe phase's leg B at Mixtral-8x7B's attention widths (D=128)
+    ("mixtral_serve_b8_bs16", 32, 8, 128, SERVE_LENGTHS, SERVE_PADS, None, None, False),
 ]
 
 
@@ -1162,9 +1218,10 @@ def paged_cases(torch, F, da, quantize_kv, sdpa_gqa: bool) -> list[dict]:
 def paged_combine_cases(torch, da, quantize_kv) -> list[dict]:
     """The combine alone on the paged split kernel's own partials, against
     its plain version, with the dropped-split fault (``combine_case``): the
-    serve shape first, then B=8 x 4096 and the B=1 x 32768 row."""
+    serve shape first, then B=8 x 4096, the B=1 x 32768 row and the serve
+    shape at Mixtral-8x7B's widths (the moe phase's leg B)."""
     cases = []
-    for i in (0, 1, 5):
+    for i in (0, 1, 5, 6):
         args, kw = paged_inputs(torch, quantize_kv, i)
         n = da.paged_split_plan(args[0], args[1], args[3])
         acc, m, l = da.paged_decode_attention_split(*args, nsplit=n, **kw)
@@ -1247,6 +1304,10 @@ RAGGED_SPECS = [
      SERVE_PADS, 64),
     ("llama1b_verify8x5_4096", 32, 8, 64, None, None, False, LONG_VERIFY_SEGMENTS,
      LONG_LENGTHS, LONG_PADS, 64),
+    # the moe phase's leg A decode-only tick at Mixtral-8x7B's attention
+    # widths (D=128)
+    ("mixtral_legA_decode8_288", 32, 8, 128, None, None, False, LEG_A_SEGMENTS, LEG_A_LENGTHS,
+     SERVE_PADS, 64),
 ]
 RAGGED_MARKERS = {"ragged_paged_attention": "ragged_kernel",
                   "ragged_paged_attention_combine": "combine_splits_kernel"}
@@ -1596,11 +1657,15 @@ def profile_run(torch, fn, markers: dict[str, str]) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []
-    for e in prof.key_averages():
+    events = prof.key_averages()
+    # a record_function range's device-side span (``moe_mlp``'s, in an
+    # eager prefill) repeats the kernels inside it
+    ranges = {e.key for e in events if getattr(e, "is_user_annotation", False)}
+    for e in events:
         # kernels only: an operator's own "self device time" repeats the
         # time of the kernels it launched
         dev_us = getattr(e, "self_device_time_total", 0) or 0
-        if e.device_type == DeviceType.CUDA and dev_us > 0:
+        if e.device_type == DeviceType.CUDA and dev_us > 0 and e.key not in ranges:
             rows.append(dict(name=e.key[:90], device_ms=dev_us / 1e3, count=e.count))
     rows.sort(key=lambda r: -r["device_ms"])
     busy = sum(r["device_ms"] for r in rows) / 1e3
@@ -1881,31 +1946,33 @@ def first_divergence(torch, forward, params, cfg, prompt, a: list, b: list) -> f
     return (top2[0] - top2[1]).item()
 
 
-def leg_a_replay(torch, np, kernels: dict, params, cfg, where: str, trace: list[dict],
-                 prompt: int, new_tokens: int, epilogue: str = "sample_epilogue",
-                 sampler: str = "greedy", **extra) -> tuple[dict, dict]:
-    """Serve leg A (the unified tick; ``extra``: engine keywords) on
-    ``trace``, its pool sized for ``prompt`` + ``new_tokens`` tokens, after
-    a warm-up that captures every bucket: launch counts (``epilogue``: the
-    head's epilogue kernel; a sampled kind draws instead, one row-key
-    derivation and one categorical a tick) against what the ticks imply,
-    one host fetch per dispatching tick, every step a replay and no graph
-    beyond the buckets, teacher-forced tokens (a sampled kind: each token
-    inside its sampler's support, ``sampled_support``).  Returns the
-    record and each request's tokens by seed."""
-    from llm_np_cp_tpu_torch.models.transformer import forward
+def timed_serve_leg(torch, kernels: dict, params, cfg, where: str, leg: str, trace: list[dict],
+                    *, sampler: str = "greedy", prompt: int = SERVE_PROMPTS[1],
+                    new_tokens: int = SERVE_NEW_TOKENS, epilogue: str = "sample_epilogue",
+                    **extra) -> tuple[dict, object]:
+    """One timed ``replay_trace`` of ``trace`` on a fresh engine in
+    ``SERVE_LEGS[leg]`` (``extra``: engine keywords), its pool sized for
+    ``prompt`` + ``new_tokens`` tokens, after a warm-up that captures
+    every graph: every request finished, launch counts against what the
+    ticks imply (``epilogue``: the head's epilogue kernel; a sampled kind
+    draws instead, one row-key derivation and one categorical a step, and
+    the phase split also draws each prefill's first token), one host
+    fetch per dispatching step, every step a replay and no graph beyond
+    the unified tick's buckets or the phase split's one decode step.
+    Returns (the record, the engine); the caller checks the tokens."""
     from llm_np_cp_tpu_torch.ops.cuda import decode_attention as da
 
-    layers = cfg.num_hidden_layers
-    eng = serve_engine(params, cfg, torch.bfloat16, "A_mixed", prompt, new_tokens,
-                       sampler=sampler, **extra)
+    layers, kh = cfg.num_hidden_layers, cfg.num_key_value_heads
+    eng = serve_engine(params, cfg, torch.bfloat16, leg, prompt, new_tokens, sampler=sampler,
+                       **extra)
     if (eng.epilogue_impl == "fused") != (sampler == "greedy"):
         raise AssertionError(f"{where}: epilogue {eng.epilogue_impl} for a {sampler} sampler")
     eng.warmup([SERVE_PROMPTS[0]], 2)
     torch.cuda.synchronize()
     reset_counts(kernels)
-    d0, v0, f0, b0, g0 = (eng.n_dispatches, eng.n_verify_dispatches, eng.n_host_fetches,
-                          dict(eng.bucket_dispatches), graph_totals())
+    d0, dd0, v0, f0 = (eng.n_dispatches, eng.n_decode_dispatches, eng.n_verify_dispatches,
+                       eng.n_host_fetches)
+    b0, g0 = dict(eng.bucket_dispatches), graph_totals()
     t0 = time.perf_counter()
     snap = eng.replay_trace(trace)
     torch.cuda.synchronize()
@@ -1913,40 +1980,76 @@ def leg_a_replay(torch, np, kernels: dict, params, cfg, where: str, trace: list[
     launches = read_counts(kernels)
     graphs_run = graph_delta(g0)
     dispatches, fetches = eng.n_dispatches - d0, eng.n_host_fetches - f0
+    decode_dispatches = eng.n_decode_dispatches - dd0
     if snap["finished"] != len(trace):
         raise AssertionError(f"{where}: {snap['finished']} of {len(trace)} finished")
+    steps = dispatches if eng.mixed else decode_dispatches  # the steps that fetch
     want = {name: 0 for name in kernels}
-    want.update({"ragged_paged_attention": layers * dispatches,
-                 "ragged_paged_attention_combine": ragged_combines(torch, da, eng, cfg, b0)})
     if sampler == "greedy":
-        want[epilogue] = dispatches
+        want[epilogue] = steps
     else:
-        want.update(threefry2x32=dispatches, categorical=dispatches)
-    if launches != want or fetches != dispatches:
+        draws = steps + (0 if eng.mixed else len(trace) + snap["preemptions"])
+        want.update(threefry2x32=draws, categorical=draws)
+    nsplit = None
+    if eng.mixed:
+        want["ragged_paged_attention"] = layers * steps
+        want["ragged_paged_attention_combine"] = ragged_combines(torch, da, eng, cfg, b0)
+    else:
+        # the paged decode's split plan over the engine's [slots, blocks
+        # per sequence] tables: a combine follows each launch when > 1
+        nsplit = da.split_plan(eng.scheduler.max_slots, kh, eng.max_blocks_per_seq * SERVE_BLOCK,
+                               cfg.head_dim, da.sm_count(torch.device("cuda")),
+                               cfg.num_attention_heads // kh)
+        want["paged_decode_attention"] = layers * steps
+        want["paged_decode_attention_combine"] = layers * steps * int(nsplit > 1)
+    if launches != want or fetches != steps:
         raise AssertionError(f"{where}: launch counts {launches} != implied {want}, "
-                             f"{fetches} host fetches for {dispatches} dispatches")
-    check_replayed(where, graphs_run, dispatches)
-    if graphs_run["captures"] or eng.compile_counts()["mixed_step"] > len(eng.mixed_buckets):
-        raise AssertionError(f"{where}: graphs beyond the buckets: {graphs_run}, "
-                             f"{eng.compile_counts()}")
-    if sampler == "greedy":
-        tf = teacher_forced_requests(torch, forward, params, cfg, eng.scheduler.finished,
-                                     TEACHER_TOL)
-    else:
-        tf = sampled_support(torch, forward, params, cfg, eng.sampler, eng.scheduler.finished)
-    out = dict(sampler=sampler, launches=launches, implied=want, graphs=graphs_run,
-               compile_counts=eng.compile_counts(), mixed_buckets=list(eng.mixed_buckets),
-               requests=len(trace), new_tokens=new_tokens,
+                             f"{fetches} host fetches for {steps} dispatching steps")
+    check_replayed(where, graphs_run, steps)
+    counts = eng.compile_counts()
+    if graphs_run["captures"] or (counts["mixed_step"] > len(eng.mixed_buckets) if eng.mixed
+                                  else counts != {"decode_step": 1}):
+        raise AssertionError(f"{where}: graphs beyond the warm-up's: {graphs_run}, {counts}")
+    out = dict(leg=leg, sampler=sampler, launches=launches, implied=want, graphs=graphs_run,
+               compile_counts=counts, mixed_buckets=list(eng.mixed_buckets),
+               paged_nsplit=nsplit, requests=len(trace), new_tokens=new_tokens,
                table_slots=eng.max_blocks_per_seq * SERVE_BLOCK,
                tick_token_budget=eng.tick_token_budget, wall_s=wall,
                generated_tokens=snap["total_generated_tokens"],
                tok_s_per_card=snap["total_generated_tokens"] / wall, ticks=snap["ticks"],
-               dispatches=dispatches, verify_dispatches=eng.n_verify_dispatches - v0,
+               dispatches=dispatches, decode_dispatches=decode_dispatches,
+               dispatching_steps=steps, verify_dispatches=eng.n_verify_dispatches - v0,
                host_fetches=fetches, preemptions=snap["preemptions"],
                ttft_s_p50=snap.get("ttft_s_p50"), ttft_s_p99=snap.get("ttft_s_p99"),
                tpot_s_p50=snap.get("tpot_s_p50"), tpot_s_p99=snap.get("tpot_s_p99"),
-               teacher_forced=tf,
-               **{k: v for k, v in snap.items() if k.startswith("spec_")})
+               **{k: v for k, v in snap.items()
+                  if k.startswith(("spec_", "mixed_prefill_tokens", "mixed_decode_tokens"))})
+    return out, eng
+
+
+def served_tokens_check(torch, forward, params, cfg, eng) -> dict:
+    """A served leg's tokens: greedy teacher-forced against a cache-less
+    plain forward (``teacher_forced_requests``), a sampled kind each
+    token inside its sampler's support (``sampled_support``)."""
+    if eng.sampler.kind == "greedy":
+        return teacher_forced_requests(torch, forward, params, cfg, eng.scheduler.finished,
+                                       TEACHER_TOL)
+    return sampled_support(torch, forward, params, cfg, eng.sampler, eng.scheduler.finished)
+
+
+def leg_a_replay(torch, np, kernels: dict, params, cfg, where: str, trace: list[dict],
+                 prompt: int, new_tokens: int, epilogue: str = "sample_epilogue",
+                 sampler: str = "greedy", **extra) -> tuple[dict, dict]:
+    """Serve leg A (the unified tick; ``extra``: engine keywords) on
+    ``trace`` through ``timed_serve_leg``, its tokens checked by
+    ``served_tokens_check``.  Returns the record and each request's
+    tokens by seed."""
+    from llm_np_cp_tpu_torch.models.transformer import forward
+
+    out, eng = timed_serve_leg(torch, kernels, params, cfg, where, "A_mixed", trace,
+                               sampler=sampler, prompt=prompt, new_tokens=new_tokens,
+                               epilogue=epilogue, **extra)
+    out["teacher_forced"] = served_tokens_check(torch, forward, params, cfg, eng)
     tokens = {r.seed: list(r.generated) for r in eng.scheduler.finished}
     del eng
     torch.cuda.empty_cache()
@@ -1958,12 +2061,10 @@ def serve_phase(torch, np, kernels: dict, card: str) -> dict:
     from llm_np_cp_tpu_torch.config import PRESETS
     from llm_np_cp_tpu_torch.generate import Generator
     from llm_np_cp_tpu_torch.models.transformer import forward, init_params
-    from llm_np_cp_tpu_torch.ops.cuda import decode_attention as da
     from llm_np_cp_tpu_torch.ops.sampling import Sampler
 
     cfg = PRESETS["meta-llama/Llama-3.2-1B"]
     layers = cfg.num_hidden_layers
-    kh = cfg.num_key_value_heads
     params = init_params(0, cfg, torch.bfloat16, device="cuda")
     trace = serve_trace(np, cfg, SERVE_REQUESTS, SERVE_NEW_TOKENS, seed=0)
     legs = {}
@@ -1972,76 +2073,11 @@ def serve_phase(torch, np, kernels: dict, card: str) -> dict:
     runs = {"A_mixed": ("A_mixed", "greedy"), "B_split_paged": ("B_split_paged", "greedy"),
             "A_min_p": ("A_mixed", "min_p"), "B_min_p": ("B_split_paged", "min_p")}
     for name, (leg, sampler) in runs.items():
-        eng = serve_engine(params, cfg, torch.bfloat16, leg, sampler=sampler)
-        if (eng.epilogue_impl == "fused") != (sampler == "greedy"):
-            raise AssertionError(f"serve leg {name}: epilogue {eng.epilogue_impl}")
-        eng.warmup([SERVE_PROMPTS[0]], 2)
-        torch.cuda.synchronize()
-        reset_counts(kernels)
-        d0, dd0, f0 = eng.n_dispatches, eng.n_decode_dispatches, eng.n_host_fetches
-        b0, g0 = dict(eng.bucket_dispatches), graph_totals()
-        t0 = time.perf_counter()
-        snap = eng.replay_trace(trace)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = read_counts(kernels)
-        graphs_run = graph_delta(g0)
-        dispatches, fetches = eng.n_dispatches - d0, eng.n_host_fetches - f0
-        decode_dispatches = eng.n_decode_dispatches - dd0
-        if snap["finished"] != SERVE_REQUESTS:
-            raise AssertionError(f"serve leg {name}: {snap['finished']} of {SERVE_REQUESTS} "
-                                 "finished")
-        steps = dispatches if eng.mixed else decode_dispatches  # steps that fetch
-        want = {k: 0 for k in kernels}
-        if sampler == "greedy":
-            want["sample_epilogue"] = steps
-        else:
-            # a draw a step (its row keys, then the categorical); the
-            # phase split also draws each prefill's first token
-            draws = steps + (0 if eng.mixed else SERVE_REQUESTS + snap["preemptions"])
-            want.update(threefry2x32=draws, categorical=draws)
-        want["ragged_paged_attention" if eng.mixed else "paged_decode_attention"] = layers * steps
-        nsplit = None
-        # the unified tick replays one graph per bucket, the phase-split
-        # tick its one decode step's graph (both captured at warmup)
-        check_replayed(f"serve leg {name}", graphs_run, steps)
-        if graphs_run["captures"] or (not eng.mixed
-                                      and eng.compile_counts() != {"decode_step": 1}):
-            raise AssertionError(f"serve leg {name}: captures in the timed replay {graphs_run}, "
-                                 f"{eng.compile_counts()}")
-        if eng.mixed:
-            want["ragged_paged_attention_combine"] = ragged_combines(torch, da, eng, cfg, b0)
-        if not eng.mixed:
-            # the paged decode's split plan over the engine's [slots, blocks
-            # per sequence] tables: a combine follows each launch when > 1
-            nsplit = da.split_plan(eng.scheduler.max_slots, kh, eng.max_blocks_per_seq * SERVE_BLOCK,
-                                   cfg.head_dim, da.sm_count(torch.device("cuda")),
-                                   cfg.num_attention_heads // kh)
-            want["paged_decode_attention_combine"] = layers * steps * int(nsplit > 1)
-        if launches != want:
-            raise AssertionError(f"serve leg {name}: launch counts {launches} != implied {want}")
-        if fetches != steps:
-            raise AssertionError(f"serve leg {name}: {fetches} host fetches for {steps} "
-                                 "dispatching steps")
-        if sampler == "greedy":
-            tf = teacher_forced_requests(torch, forward, params, cfg, eng.scheduler.finished,
-                                         TEACHER_TOL)
-        else:
-            tf = sampled_support(torch, forward, params, cfg, eng.sampler, eng.scheduler.finished)
-        legs[name] = dict(
-            sampler=sampler, launches=launches, implied=want, graphs=graphs_run,
-            compile_counts=eng.compile_counts(),
-            mixed_buckets=list(eng.mixed_buckets), paged_nsplit=nsplit, wall_s=wall,
-            generated_tokens=snap["total_generated_tokens"],
-            tok_s_per_card=snap["total_generated_tokens"] / wall,
-            ticks=snap["ticks"], dispatches=dispatches, decode_dispatches=decode_dispatches,
-            host_fetches=fetches, preemptions=snap["preemptions"],
-            ttft_s_p50=snap.get("ttft_s_p50"), ttft_s_p99=snap.get("ttft_s_p99"),
-            tpot_s_p50=snap.get("tpot_s_p50"), tpot_s_p99=snap.get("tpot_s_p99"),
-            mixed_prefill_tokens=snap["mixed_prefill_tokens"],
-            mixed_decode_tokens=snap["mixed_decode_tokens"], teacher_forced=tf,
-            tokens={r.seed: list(r.generated) for r in eng.scheduler.finished},
-        )
+        rec, eng = timed_serve_leg(torch, kernels, params, cfg, f"serve leg {name}", leg, trace,
+                                   sampler=sampler)
+        legs[name] = dict(rec, teacher_forced=served_tokens_check(torch, forward, params, cfg,
+                                                                  eng),
+                          tokens={r.seed: list(r.generated) for r in eng.scheduler.finished})
         if name == "A_mixed":
             prof_engine = eng
         else:
@@ -2185,7 +2221,7 @@ def quant_phase(torch, np, kernels: dict, card: str, main: dict, serve: dict) ->
                           serve_trace(np, cfg, SERVE_REQUESTS, SERVE_NEW_TOKENS, seed=0),
                           SERVE_PROMPTS[1], SERVE_NEW_TOKENS, epilogue="sample_epilogue_int8")
     served = dict(
-        weights="int8", leg="A_mixed", **run,
+        weights="int8", **run,
         bf16_leg_A=dict(tok_s_per_card=serve["legs"]["A_mixed"]["tok_s_per_card"],
                         ttft_s_p50=serve["legs"]["A_mixed"]["ttft_s_p50"],
                         tpot_s_p50=serve["legs"]["A_mixed"]["tpot_s_p50"]))
@@ -5491,6 +5527,691 @@ def _sum_actions(engines) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 13: Mixture-of-Experts at Mixtral-8x7B widths
+# ----------------------------------------------------------------------
+
+# mistralai/Mixtral-8x7B-v0.1's published config.json (the keys
+# ModelConfig.from_hf_dict reads); the JAX defaults moe_capacity_factor
+# 2.0 and moe_group_size 1024 stand.  Depth is cut from 32 to MOE_LAYERS:
+# 32 bf16 layers are ~93 GB, above the card's 80 GB; 8 are ~11.9 B
+# parameters (~23.7 GB).
+MIXTRAL_HF = dict(
+    model_type="mixtral", vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+    num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
+    max_position_embeddings=32768, rope_theta=1e6, rms_norm_eps=1e-5, hidden_act="silu",
+    tie_word_embeddings=False, num_local_experts=8, num_experts_per_tok=2,
+    router_aux_loss_coef=0.02)
+MOE_MODEL = "mistralai/Mixtral-8x7B-v0.1"
+MOE_LAYERS = 8
+# E / k: every expert's capacity is its group's length, so no route drops
+# and a token's output does not depend on the rest of its forward
+MOE_NO_DROP = 4.0
+# route-pinned teacher forcing (``pinned_forced``): the chosen tokens'
+# logit gap, and the plain forward's router logits against the path's at
+# every position and layer.  At these widths the plain path alone (its
+# cached twin against the cache-less forward, both pinned to the same
+# routes) measured gaps of 0.066-0.081 and router-logit differences of
+# 0.11-0.13 in bf16 (weights bf16, int8 or int4), 0.28-0.43 and 0.30-0.45
+# in the W8A8 modes, on an NVIDIA H100 80GB HBM3 (700 W); each limit is
+# ~3x that floor, as A8_TEACHER_TOL is, and far below what one expert
+# without its down projection gives (7.4 and 7.0).  The W8A8 paths read
+# router differences up to ~1.0, so MOE_A8_ROUTER_TOL, about one router
+# logit's spread at these widths, catches gross faults only (the zeroed
+# expert, checked under W8A8 too): there the logit gap and the flip rule
+# (``pinned_forced``) gate
+MOE_TEACHER_TOL = 0.25
+MOE_ROUTER_TOL = 0.4
+MOE_A8_ROUTER_TOL = 1.35
+# the float32 serve check's depth (2 float32 layers of experts: ~11 GB)
+MOE_F32_LAYERS = 2
+
+
+def moe_config():
+    """Mixtral-8x7B's config at MOE_LAYERS layers (capacity 2.0, group
+    1024: the JAX defaults)."""
+    from llm_np_cp_tpu_torch.config import ModelConfig
+
+    return ModelConfig.from_hf_dict(dict(MIXTRAL_HF, num_hidden_layers=MOE_LAYERS))
+
+
+class RouteLog:
+    """While entered, record every MoE layer call's router logits
+    (float32), its top-k experts and which of those routes its capacity
+    kept (``ops.moe.route`` and ``dispatch_mask`` wrapped; device
+    tensors).  For eager steps only: a captured graph would not run the
+    wrappers again.  The calls come ``layers`` to a forward, in order."""
+
+    def __init__(self, torch, layers: int):
+        self.torch, self.layers = torch, layers
+        self.logits, self.idx, self.kept = [], [], []
+
+    def __enter__(self):
+        from llm_np_cp_tpu_torch.ops import moe
+
+        self.moe, self.route, self.dispatch = moe, moe.route, moe.dispatch_mask
+
+        def route(x, router_w, *, top_k):
+            probs, gates = self.route(x, router_w, top_k=top_k)
+            self.logits.append(x.float() @ router_w.float())
+            self.idx.append(moe.top_k_stable(probs, top_k)[1])
+            return probs, gates
+
+        def dispatch(routed, gs, capacity, dtype):
+            d = self.dispatch(routed, gs, capacity, dtype)
+            kept = d.reshape(routed.shape[0], routed.shape[1], -1).sum(dim=-1) > 0  # [T, E]
+            self.kept.append(kept.gather(1, self.idx[-1]))
+            return d
+
+        moe.route, moe.dispatch_mask = route, dispatch
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route, self.moe.dispatch_mask = self.route, self.dispatch
+
+    def forwards(self) -> list[list[tuple]]:
+        """Per forward, per layer: (logits [T, E], top-k [T, k], kept [T, k])."""
+        calls = list(zip(self.logits, self.idx, self.kept))
+        return [calls[f:f + self.layers] for f in range(0, len(calls), self.layers)]
+
+    def drops(self) -> dict:
+        """The share of the routes each forward dropped."""
+        torch = self.torch
+        n = torch.stack([torch.stack([k.numel() - k.sum() for _, _, k in fw]).sum()
+                         for fw in self.forwards()]).float().cpu()
+        routes = torch.tensor([sum(k.numel() for _, _, k in fw) for fw in self.forwards()],
+                              dtype=torch.float32)
+        share = n / routes
+        return dict(forwards=len(routes), routes=int(routes.sum()), dropped=int(n.sum()),
+                    dropped_share=float(n.sum() / routes.sum()),
+                    dropped_share_per_forward_mean=share.mean().item(),
+                    dropped_share_per_forward_max=share.max().item(),
+                    forwards_with_drops=int((share > 0).sum().item()))
+
+
+def batch_routes(torch, log: RouteLog, b: int) -> list[tuple]:
+    """A ``Generator`` run's routes as the cache-less forward over its
+    [B, P] ids sees them: each forward covers the next columns of every
+    row (prefill, then one a decode step).  Per layer: (logits [B, P, E],
+    top-k [B, P, k], kept [B, P, k])."""
+    per_layer = list(zip(*log.forwards()))
+    return [tuple(torch.cat([t.reshape(b, -1, t.shape[-1]) for t in parts], dim=1)
+                  for parts in zip(*calls)) for calls in per_layer]
+
+
+def request_routes(torch, log: RouteLog, ticks: list[list[tuple]], req) -> list[tuple]:
+    """One served request's routes, per layer, over its content positions
+    0 .. P-1 (prompt + generated, less the last token), gathered from the
+    unified ticks that computed them (``ticks``: each tick's
+    ``ServeEngine.tick_segments``): per layer (logits [1, P, E], top-k
+    [1, P, k], kept [1, P, k])."""
+    p = req.prompt.size + len(req.generated) - 1
+    fws = log.forwards()
+    if len(fws) != len(ticks):
+        raise AssertionError(f"{len(fws)} routed forwards for {len(ticks)} ticks")
+    cols = [[] for _ in range(p)]
+    for f, segments in enumerate(ticks):
+        for rid, lane0, n, pos0 in segments:
+            if rid == req.req_id:
+                for k in range(min(n, p - pos0)):
+                    cols[pos0 + k].append((f, lane0 + k))
+    if not all(cols):
+        raise AssertionError(f"request {req.req_id}: positions never computed")
+    # a preempted request's re-prefill computes positions again: the last
+    # computation is the one its later tokens attended
+    return [tuple(torch.stack([fws[f][layer][j][lane] for f, lane in (c[-1] for c in cols)])[None]
+                  for j in range(3)) for layer in range(log.layers)]
+
+
+def pinned_forced(torch, forward, params, cfg, prompt_ids, tokens, routes: list[tuple],
+                  tol: float, attn_mask=None, pad_offsets=None, *, router_tol: float,
+                  twin: bool = False) -> dict:
+    """Teacher forcing with the routes pinned: one cache-less plain
+    forward over prompt + tokens (capacity E / k, so it drops nothing of
+    its own) whose every MoE layer takes the experts the path under test
+    chose and drops the routes it dropped, weighted by its own router
+    probabilities.  Each chosen token's logit must lie within ``tol`` of
+    its row's max, and the plain router logits within ``router_tol`` of
+    the path's at every valid position.  A position whose plain top-k
+    differs from the path's (``flips``, counted with their top-k
+    margins) must have a plain margin of at most twice its own largest
+    router-logit difference d: logits within d of each other can swap
+    two experts only if they lie within 2d, so a flip beyond that is a
+    choice the path's own logits do not explain (``unexplained_flips``).
+    Without pinning, one flipped near-tie changes a token's output by a
+    whole expert and every later token through attention.  ``twin``:
+    also the plain cached twin (prefill, then one plain token a forward),
+    pinned alike, against the cache-less forward — the bf16 floor of
+    both checks."""
+    import dataclasses
+
+    from llm_np_cp_tpu_torch.cache import KVCache
+    from llm_np_cp_tpu_torch.ops import moe
+
+    s, n = prompt_ids.shape[1], tokens.shape[1]
+    tokens = tokens.long()
+    ids = torch.cat([prompt_ids.long(), tokens[:, :-1]], dim=1)
+    b, p = ids.shape
+    mask = torch.ones((b, p), dtype=torch.bool, device=ids.device)
+    if attn_mask is not None:
+        mask[:, :s] = attn_mask
+    plain_cfg = dataclasses.replace(
+        cfg, moe_capacity_factor=cfg.num_local_experts / cfg.num_experts_per_tok)
+    route = moe.route
+
+    def run(x_ids, c0: int, seen: list, **kw):
+        """One plain forward over columns c0 .. c0 + width of the rows,
+        its routes pinned; ``seen`` gets each layer's router logits."""
+        w, layer = x_ids.shape[1], [0]
+
+        def pinned(x, router_w, *, top_k):
+            logits_r, idx_r, kept_r = (t[:, c0:c0 + w].reshape(b * w, -1)
+                                       for t in routes[layer[0]])
+            layer[0] += 1
+            logits = x.float() @ router_w.float()
+            probs = torch.softmax(logits, dim=-1)
+            own = moe.top_k_stable(probs, top_k)[1]
+            vals = probs.gather(1, idx_r)
+            vals = vals / vals.sum(dim=-1, keepdim=True) * kept_r
+            top = torch.topk(logits, top_k + 1, dim=-1).values
+            seen.append((logits.reshape(b, w, -1), (logits - logits_r).abs().amax(dim=-1),
+                         (own.sort(dim=-1).values != idx_r.sort(dim=-1).values).any(dim=-1),
+                         top[:, top_k - 1] - top[:, top_k]))  # [T] each but the first
+            return probs, torch.zeros_like(probs).scatter(1, idx_r, vals)
+
+        moe.route = pinned
+        try:
+            return forward(params, x_ids, plain_cfg, kw.pop("cache", None), **kw)[0]
+        finally:
+            moe.route = route
+
+    seen: list = []
+    logits = run(ids, 0, seen, attn_mask=mask if attn_mask is not None else None,
+                 pad_offsets=pad_offsets)
+    rows = logits[:, s - 1:s - 1 + n].float()
+    gap = rows.amax(dim=-1) - rows.gather(-1, tokens[..., None])[..., 0]
+    valid = mask.reshape(-1)
+    dlogit = torch.stack([d for _, d, _, _ in seen])[:, valid]
+    flips = torch.stack([f for _, _, f, _ in seen])[:, valid]
+    margins = torch.stack([m for _, _, _, m in seen])[:, valid]
+    # 2d: the widest margin that logits within d of the path's can cross;
+    # 1e-4: the float32 rounding of the margin itself
+    unexplained = flips & (margins > 2 * dlogit + 1e-4)
+    ratio = margins / (2 * dlogit).clamp_min(1e-12)
+    out = dict(tokens=tokens.numel(),
+               exact_share=(rows.argmax(dim=-1) == tokens).float().mean().item(),
+               max_gap=gap.max().item(), tol=tol,
+               max_router_logit_diff=dlogit.max().item(), router_tol=router_tol,
+               routes=int(flips.numel()), flips=int(flips.sum().item()),
+               max_flip_margin=margins[flips].max().item() if bool(flips.any()) else None,
+               max_flip_margin_over_2d=ratio[flips].max().item() if bool(flips.any()) else None,
+               unexplained_flips=int(unexplained.sum().item()),
+               dropped=int(sum(int((~t[2][:, :p].bool()).sum()) for t in routes)))
+    out["ok"] = (bool(torch.isfinite(rows).all()) and out["max_gap"] <= tol
+                 and out["max_router_logit_diff"] <= router_tol
+                 and out["unexplained_flips"] == 0)
+    if twin:
+        cache = KVCache.init(plain_cfg, b, p, params["final_norm"].dtype)
+        tseen: list = []
+        steps = [run(prompt_ids.long(), 0, tseen, cache=cache, attn_mask=attn_mask,
+                     pad_offsets=pad_offsets, logits_last_only=True)[:, -1]]
+        for j in range(n - 1):
+            steps.append(run(tokens[:, j:j + 1], s + j, tseen, cache=cache,
+                             pad_offsets=pad_offsets, logits_last_only=True)[:, -1])
+        twin_rows = torch.stack(steps, dim=1).float()
+        full = torch.stack([lg for lg, _, _, _ in seen])  # [L, B, P, E]
+        per_layer = [torch.cat([lg for lg, _, _, _ in tseen[i::len(seen)]], dim=1)
+                     for i in range(len(seen))]
+        tw = torch.stack(per_layer)
+        floor = rows.amax(dim=-1) - rows.gather(-1, twin_rows.argmax(dim=-1)[..., None])[..., 0]
+        out["plain_twin"] = dict(
+            max_gap_vs_cacheless=floor.max().item(),
+            max_logit_diff_vs_cacheless=(twin_rows - rows).abs().max().item(),
+            max_router_logit_diff_vs_cacheless=(tw - full).abs().amax(dim=-1).reshape(
+                len(seen), -1)[:, valid].max().item())
+    return out
+
+
+def merge_forced(parts: list[dict]) -> dict:
+    """``pinned_forced`` results of several requests → their totals."""
+    n = sum(p["tokens"] for p in parts)
+    margins = [p["max_flip_margin"] for p in parts if p["max_flip_margin"] is not None]
+    return dict(requests=len(parts), tokens=n,
+                exact_share=sum(p["exact_share"] * p["tokens"] for p in parts) / max(1, n),
+                max_gap=max(p["max_gap"] for p in parts), tol=parts[0]["tol"],
+                max_router_logit_diff=max(p["max_router_logit_diff"] for p in parts),
+                router_tol=MOE_ROUTER_TOL, routes=sum(p["routes"] for p in parts),
+                flips=sum(p["flips"] for p in parts),
+                max_flip_margin=max(margins) if margins else None,
+                max_flip_margin_over_2d=max((p["max_flip_margin_over_2d"] for p in parts
+                                             if p["max_flip_margin_over_2d"] is not None),
+                                            default=None),
+                unexplained_flips=sum(p["unexplained_flips"] for p in parts),
+                dropped=sum(p["dropped"] for p in parts), ok=all(p["ok"] for p in parts))
+
+
+def zeroed_expert_fault(torch, forward, params, cfg, prompts, tol: float,
+                        router_tol: float) -> dict:
+    """The fault the route-pinned check must catch: ``params`` with
+    expert 0's down projection zeroed (a quantized payload's integers)
+    generates 16 tokens eagerly, its routes recorded; ``pinned_forced``
+    over the sound ``params`` must fail them.  Also says whether the
+    router-logit bound alone fails them."""
+    from llm_np_cp_tpu_torch import graphs
+    from llm_np_cp_tpu_torch.generate import Generator
+    from llm_np_cp_tpu_torch.ops.sampling import Sampler
+    from llm_np_cp_tpu_torch.quant import is_quantized, payload_key
+
+    down = params["layers"]["down_proj"]
+    if is_quantized(down):
+        key = payload_key(down)
+        bad_down = dict(down, **{key: down[key].clone()})
+        bad_down[key][:, 0] = 0
+    else:
+        bad_down = down.clone()
+        bad_down[:, 0] = 0
+    bad = dict(params, layers=dict(params["layers"], down_proj=bad_down))
+    with graphs.eager_steps(), RouteLog(torch, cfg.num_hidden_layers) as log:
+        faulty = Generator(bad, cfg, sampler=Sampler("greedy"), prefill_attn_impl="flash",
+                           decode_attn_impl="flash_decode").generate(prompts, 16).tokens
+    del bad, bad_down
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    out = pinned_forced(torch, forward, params, cfg, torch.as_tensor(prompts, device=dev),
+                        torch.as_tensor(faulty, device=dev),
+                        batch_routes(torch, log, len(prompts)), tol, router_tol=router_tol)
+    out.update(caught=not out["ok"],
+               router_bound_failed=out["max_router_logit_diff"] > router_tol)
+    return out
+
+
+def moe_offline(torch, np, kernels: dict, params, cfg, prompts, ragged, gate: bool) -> tuple:
+    """``generate`` (flash prefill, the decode kernel, the fused epilogue),
+    ``generate_ragged`` (left pads route through the experts) and
+    ``stream`` at ``cfg``'s capacity: launch counts against what the path
+    implies, every decode step a replay after its first, TTFT and decode
+    rate.  Then each again eagerly (``graphs.eager_steps``) with its
+    routes recorded: its tokens must equal the captured run's, and
+    ``pinned_forced`` holds them (a gate where ``gate``).  Returns (the
+    record, the captured Generator)."""
+    from llm_np_cp_tpu_torch import graphs
+    from llm_np_cp_tpu_torch.generate import Generator
+    from llm_np_cp_tpu_torch.models.transformer import forward
+    from llm_np_cp_tpu_torch.ops.sampling import Sampler
+
+    layers = cfg.num_hidden_layers
+
+    def generators():
+        return (Generator(params, cfg, sampler=Sampler("greedy"), prefill_attn_impl="flash",
+                          decode_attn_impl="flash_decode"),
+                Generator(params, cfg, sampler=Sampler("greedy"), prefill_attn_impl="xla",
+                          decode_attn_impl="flash_decode"))
+
+    gen, gen_r = generators()
+    if gen.epilogue_impl != "fused" or gen_r.epilogue_impl != "fused":
+        raise AssertionError("moe: greedy Generator did not select the fused epilogue")
+    gen.generate(prompts, 4)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    g0 = graph_totals()
+    res = gen.generate(prompts, DECODE_STEPS)
+    res_r = gen_r.generate_ragged(ragged, DECODE_STEPS)
+    streamed = list(gen.stream(prompts[0], STREAM_TOKENS))
+    torch.cuda.synchronize()
+    launches = read_counts(kernels)
+    steps = DECODE_STEPS - 1
+    graphs_run = graph_delta(g0)
+    check_replayed("moe offline", graphs_run, 2 * steps + STREAM_TOKENS - 1)
+    want = {name: 0 for name in kernels}
+    want.update({
+        "flash_attention": layers * 2,
+        "decode_attention": layers * (2 * steps + STREAM_TOKENS - 1),
+        "decode_attention_combine": layers * (
+            steps * combines(torch, cfg, 4, prompts.shape[1] + DECODE_STEPS)
+            + steps * combines(torch, cfg, 4, max(len(r) for r in ragged) + DECODE_STEPS)
+            + (STREAM_TOKENS - 1) * combines(torch, cfg, 1, prompts.shape[1] + STREAM_TOKENS)),
+        "sample_epilogue": 2 * steps + STREAM_TOKENS - 1,
+    })
+    if launches != want:
+        raise AssertionError(f"moe offline: launch counts {launches} != implied {want}")
+    if res.tokens.shape != (4, DECODE_STEPS) or len(streamed) != STREAM_TOKENS:
+        raise AssertionError(f"moe offline: shapes {res.tokens.shape}, {len(streamed)}")
+
+    dev = torch.device("cuda")
+    ids, mask, pads = Generator.left_pad(ragged)
+    runs = {"generate": (lambda g, gr: g.generate(prompts, DECODE_STEPS).tokens, res.tokens,
+                         prompts, {}),
+            "generate_ragged": (lambda g, gr: gr.generate_ragged(ragged, DECODE_STEPS).tokens,
+                                res_r.tokens, ids,
+                                dict(attn_mask=torch.as_tensor(mask, device=dev),
+                                     pad_offsets=torch.as_tensor(pads, device=dev).long())),
+            "stream": (lambda g, gr: np.asarray([list(g.stream(prompts[0], STREAM_TOKENS))]),
+                       np.asarray([streamed]), prompts[:1], {})}
+    forced, identical, drops = {}, {}, {}
+    with graphs.eager_steps():
+        eager, eager_r = generators()
+        for name, (run, captured, prompt, kw) in runs.items():
+            with RouteLog(torch, layers) as log:
+                toks = run(eager, eager_r)
+            identical[name] = bool((np.asarray(toks) == np.asarray(captured)).all())
+            drops[name] = log.drops()
+            forced[name] = pinned_forced(
+                torch, forward, params, cfg, torch.as_tensor(prompt, device=dev),
+                torch.as_tensor(np.asarray(captured), device=dev),
+                batch_routes(torch, log, len(prompt)), MOE_TEACHER_TOL, **kw,
+                router_tol=MOE_ROUTER_TOL, twin=name == "generate")
+            del log
+    out = dict(capacity_factor=cfg.moe_capacity_factor, launches=launches, implied=want,
+               graphs=graphs_run,
+               generate=dict(batch=4, prompt_len=int(prompts.shape[1]), new_tokens=DECODE_STEPS,
+                             ttft_s=res.ttft_s, decode_tok_s_per_seq=res.decode_tokens_per_s,
+                             decode_tok_s=res.decode_tokens_per_s * 4),
+               generate_ragged=dict(prompt_lens=[len(r) for r in ragged], ttft_s=res_r.ttft_s,
+                                    decode_tok_s_per_seq=res_r.decode_tokens_per_s),
+               stream_tokens=len(streamed), captured_equals_eager=identical, drops=drops,
+               teacher_forced=forced, gated_on_teacher_forcing=gate,
+               ok=all(identical.values()) and (not gate or all(v["ok"] for v in forced.values())))
+    return out, gen
+
+
+def moe_at_once(torch, params, cfg, leg: str, sampler: str, trace: list[dict],
+                gate: bool) -> dict:
+    """The trace's requests submitted at once (so both runs tick alike)
+    through a captured engine and an eager one (``graphs.eager_steps``):
+    identical tokens required.  The eager run records its routes and
+    drops; a greedy unified tick's requests are then held by
+    ``pinned_forced`` (a gate where ``gate``)."""
+    from llm_np_cp_tpu_torch import graphs
+    from llm_np_cp_tpu_torch.models.transformer import forward
+
+    def serve_all(eng, ticks: list | None = None):
+        """Every request to its end; ``ticks`` gets each unified tick's
+        packed segments."""
+        for j, item in enumerate(trace):
+            eng.submit(item["prompt"], item["max_new_tokens"], seed=j)
+        while True:
+            last = eng.tick_segments
+            more = eng.step()
+            if ticks is not None and eng.tick_segments is not last:  # a tick was packed
+                ticks.append(eng.tick_segments)
+            if not more:
+                return {r.req_id: list(r.generated) for r in eng.scheduler.finished}
+
+    ticks: list = []
+    with graphs.eager_steps():
+        eager = serve_engine(params, cfg, torch.bfloat16, leg, sampler=sampler)
+        with RouteLog(torch, cfg.num_hidden_layers) as log:
+            want = serve_all(eager, ticks)
+    eng = serve_engine(params, cfg, torch.bfloat16, leg, sampler=sampler)
+    g0 = graph_totals()
+    got = serve_all(eng)
+    run = graph_delta(g0)
+    out = dict(leg=leg, sampler=sampler, capacity_factor=cfg.moe_capacity_factor,
+               requests=len(trace), graphs_run=run, drops=log.drops(),
+               identical=got == want and len(got) == len(trace) and run["replays"] > 0,
+               gated_on_teacher_forcing=gate)
+    if eager.mixed and sampler == "greedy":
+        dev = torch.device("cuda")
+        out["teacher_forced"] = merge_forced([pinned_forced(
+            torch, forward, params, cfg, torch.as_tensor(r.prompt, device=dev)[None],
+            torch.tensor(r.generated, device=dev)[None],
+            request_routes(torch, log, ticks, r), MOE_TEACHER_TOL, router_tol=MOE_ROUTER_TOL)
+            for r in eager.scheduler.finished])
+    out["ok"] = out["identical"] and (not gate or out["teacher_forced"]["ok"])
+    del eng, eager, log, ticks
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_profile(torch, gen, params, cfg, prompts) -> dict:
+    """torch.profiler over one 4 x 128-token prefill (flash) and one B=4
+    decode step (the decode kernel and the fused epilogue), both eager so
+    that the layer's own ``record_function`` ranges (``ops/moe.py``)
+    split its device time: routing (router product, softmax, top-k,
+    scatter), slot positions, dispatch, expert products, combine; then
+    the attention kernels and the epilogue, and the busy share; then the
+    captured ``generate``'s busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from llm_np_cp_tpu_torch.cache import KVCache, align_capacity
+    from llm_np_cp_tpu_torch.models import transformer
+
+    markers = {"attention_kernels": ("flash_kernel", "decode_kernel", "combine_splits"),
+               "epilogue": ("epilogue_",)}
+    names = ["moe.routing", "moe.positions", "moe.dispatch", "moe.experts", "moe.combine"]
+
+    def split(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        parts = {n: 0.0 for n in names}
+        kernels_ms, by_marker = 0.0, {k: 0.0 for k in markers}
+        for e in prof.key_averages():
+            if e.key in parts and e.device_type == DeviceType.CPU:
+                parts[e.key] += (getattr(e, "device_time_total", 0) or 0) / 1e3
+            dev_us = getattr(e, "self_device_time_total", 0) or 0
+            if e.device_type == DeviceType.CUDA and dev_us > 0 and e.key not in parts:
+                kernels_ms += dev_us / 1e3
+                for k, ms in markers.items():
+                    if any(m in e.key for m in ms):
+                        by_marker[k] += dev_us / 1e3
+        parts.update(by_marker)
+        parts["other"] = kernels_ms - sum(parts.values())
+        return dict(wall_s=wall, device_busy_ms=kernels_ms,
+                    device_busy_share=kernels_ms / 1e3 / wall, device_ms=parts)
+
+    ids = torch.as_tensor(prompts, device="cuda")
+    b, s = ids.shape
+    cap = align_capacity(s + 8)
+
+    def prefill():
+        cache = KVCache.init(cfg, b, cap, torch.bfloat16, device="cuda")
+        h, cache = transformer.forward(params, ids, cfg, cache, attn_impl="flash",
+                                       skip_logits=True, logits_last_only=True)
+        return transformer.sample_epilogue_tail(params, h[:, -1], cfg), cache
+
+    prefill()  # warm-up
+    pre = split(prefill)
+    tok, cache = prefill()
+
+    def decode():
+        h, _ = transformer.forward(params, tok[:, None], cfg, cache, attn_impl="flash_decode",
+                                   skip_logits=True, logits_last_only=True)
+        return transformer.sample_epilogue_tail(params, h[:, -1], cfg)
+
+    decode()  # warm-up (the cache advances one slot a call)
+    dec = split(decode)
+    gen.generate(prompts, 2)
+    captured = profile_run(torch, lambda: gen.generate(prompts, 16), {
+        "flash_attention": "flash_kernel", **DECODE_MARKERS, "sample_epilogue": "epilogue_"})
+    return dict(prefill=dict(batch=b, prompt_len=s, **pre), decode_step=dict(batch=b, **dec),
+                captured_generate=dict(new_tokens=16, **{k: captured[k] for k in (
+                    "wall_s", "device_busy_s", "device_busy_share", "port_kernels_device_ms")}))
+
+
+def moe_phase(torch, np, kernels: dict, card: str) -> dict:
+    """Mixtral-8x7B's widths at 8 layers on seeded random bf16 weights,
+    through the Generator, the ServeEngine (unified and phase-split ticks,
+    min-p) and the four weight modes; see the module docstring, 12."""
+    import dataclasses
+
+    from llm_np_cp_tpu_torch import graphs
+    from llm_np_cp_tpu_torch.generate import Generator
+    from llm_np_cp_tpu_torch.models.transformer import forward, init_params
+    from llm_np_cp_tpu_torch.ops.sampling import Sampler
+    from llm_np_cp_tpu_torch.quant import param_bytes, quantize_params
+
+    t_phase = time.perf_counter()
+    cfg = moe_config()
+    nodrop = dataclasses.replace(cfg, moe_capacity_factor=MOE_NO_DROP)
+    layers = cfg.num_hidden_layers
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(0, cfg, torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    init = dict(s=time.perf_counter() - t0, param_bytes=param_bytes(params),
+                peak_reserved_bytes=torch.cuda.max_memory_reserved())
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, size=(4, 128))
+    ragged = [rng.integers(0, cfg.vocab_size, size=n) for n in (37, 128, 80, 101)]
+    dev = torch.device("cuda")
+    checks = {}
+
+    # offline without drops: tokens held by route-pinned teacher forcing
+    off_nodrop, gen = moe_offline(torch, np, kernels, params, nodrop, prompts, ragged, gate=True)
+    del gen
+    checks["offline_no_drop"] = off_nodrop["ok"]
+    # the check must catch a model whose expert 0 has no down projection
+    caught = zeroed_expert_fault(torch, forward, params, nodrop, prompts, MOE_TEACHER_TOL,
+                                 MOE_ROUTER_TOL)
+    checks["zeroed_expert_caught"] = caught["caught"]
+
+    # offline at the published capacity 2.0: the timed run; captured
+    # against eager steps gated, route-pinned teacher forcing recorded
+    off, gen = moe_offline(torch, np, kernels, params, cfg, prompts, ragged, gate=False)
+    checks["offline_captured_equals_eager"] = all(off["captured_equals_eager"].values())
+    prof = moe_profile(torch, gen, params, cfg, prompts)
+    del gen
+    torch.cuda.empty_cache()
+
+    # serve: the serve phase's trace through legs A, B and A with min-p at
+    # 2.0 (timed replays); their tokens checked on the requests submitted
+    # at once, and leg A's without drops too (captured == eager; leg A's
+    # route-pinned teacher forcing, gated without drops)
+    trace = serve_trace(np, cfg, SERVE_REQUESTS, SERVE_NEW_TOKENS, seed=0)
+    runs = {"A_mixed": (cfg, "A_mixed", "greedy"), "B_split_paged": (cfg, "B_split_paged", "greedy"),
+            "A_min_p": (cfg, "A_mixed", "min_p"), "A_mixed_no_drop": (nodrop, "A_mixed", "greedy")}
+    legs = {}
+    for name, (c, leg, sampler) in runs.items():
+        if c is cfg:
+            legs[name] = dict(timed_serve_leg(torch, kernels, params, c, f"moe {name}", leg,
+                                              trace, sampler=sampler)[0],
+                              capacity_factor=c.moe_capacity_factor)
+            torch.cuda.empty_cache()
+    at_once = {name: moe_at_once(torch, params, c, leg, sampler, trace, gate=c is nodrop)
+               for name, (c, leg, sampler) in runs.items()}
+    for name, v in at_once.items():
+        checks[f"serve_at_once_{name}"] = v["ok"]
+
+    # quant: the four weight modes at the same depth without drops (timed
+    # captured run, then eager with routes recorded: identical tokens and
+    # route-pinned teacher forcing over the quantized params); one int8
+    # unified-tick replay at 2.0
+    modes, steps = {}, DECODE_STEPS - 1
+    for mode, qkw in QUANT_MODES.items():
+        torch.cuda.reset_peak_memory_stats()
+        qp = quantize_params(params, **qkw)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_reserved()
+
+        def make():
+            return Generator(qp, nodrop, sampler=Sampler("greedy"), prefill_attn_impl="flash",
+                             decode_attn_impl="flash_decode")
+
+        gen = make()
+        gen.generate(prompts, 4)
+        torch.cuda.synchronize()
+        reset_counts(kernels)
+        g0 = graph_totals()
+        res = gen.generate(prompts, DECODE_STEPS)
+        torch.cuda.synchronize()
+        launches = read_counts(kernels)
+        check_replayed(f"moe quant {mode}", graph_delta(g0), steps)
+        want = {name: 0 for name in kernels}
+        want.update(flash_attention=layers, decode_attention=layers * steps,
+                    decode_attention_combine=layers * steps * combines(
+                        torch, cfg, 4, 128 + DECODE_STEPS),
+                    sample_epilogue_int8=steps)
+        if launches != want:
+            raise AssertionError(f"moe quant {mode}: launch counts {launches} != implied {want}")
+        with graphs.eager_steps(), RouteLog(torch, layers) as log:
+            eager = make().generate(prompts, DECODE_STEPS).tokens
+        a8 = qkw["act_quant"]
+        tf = pinned_forced(torch, forward, qp, nodrop, torch.as_tensor(prompts, device=dev),
+                           torch.as_tensor(res.tokens, device=dev), batch_routes(torch, log, 4),
+                           A8_TEACHER_TOL if a8 else MOE_TEACHER_TOL,
+                           router_tol=MOE_A8_ROUTER_TOL if a8 else MOE_ROUTER_TOL, twin=True)
+        del log
+        modes[mode] = dict(launches=launches, implied=want, param_bytes=param_bytes(qp),
+                           peak_reserved_bytes_quantizing=peak, ttft_s=res.ttft_s,
+                           decode_tok_s_per_seq=res.decode_tokens_per_s,
+                           decode_tok_s=res.decode_tokens_per_s * 4,
+                           captured_equals_eager=bool((eager == res.tokens).all()),
+                           teacher_forced=tf)
+        checks[f"quant_{mode}"] = tf["ok"] and modes[mode]["captured_equals_eager"]
+        if mode == "int8_a8":  # the W8A8 limits must catch the fault too
+            fault = zeroed_expert_fault(torch, forward, qp, nodrop, prompts, A8_TEACHER_TOL,
+                                        MOE_A8_ROUTER_TOL)
+            modes[mode]["zeroed_expert_fault"] = fault
+            checks["zeroed_expert_caught_int8_a8"] = fault["caught"]
+        if mode == "int8":  # the int8 head: the epilogue's int8 variant
+            int8_serve = timed_serve_leg(torch, kernels, qp, cfg, "moe int8 A_mixed", "A_mixed",
+                                         trace, epilogue="sample_epilogue_int8")[0]
+            torch.cuda.empty_cache()
+        del gen, qp
+        torch.cuda.empty_cache()
+
+    # float32 at MOE_F32_LAYERS layers without drops: legs A and B equal the
+    # offline generate_ragged token for token, or part at a near-tie
+    f32cfg = dataclasses.replace(nodrop, num_hidden_layers=MOE_F32_LAYERS)
+    p32 = {k: ({n: t[:MOE_F32_LAYERS].float() for n, t in v.items()} if k == "layers"
+               else v.float()) for k, v in params.items()}
+    del params
+    torch.cuda.empty_cache()
+    trace32 = serve_trace(np, f32cfg, F32_SERVE_REQUESTS, F32_SERVE_TOKENS, seed=1)
+    got32 = {}
+    for leg in SERVE_LEGS:
+        eng = serve_engine(p32, f32cfg, torch.float32, leg)
+        eng.replay_trace(trace32)
+        got32[leg] = {r.seed: list(r.generated) for r in eng.scheduler.finished}
+        del eng
+    gen32 = Generator(p32, f32cfg, sampler=Sampler("greedy"), prefill_attn_impl="xla",
+                      decode_attn_impl="flash_decode", cache_dtype=torch.float32)
+    identical, gaps = 0, []
+    for item in trace32:
+        want_t = [int(t) for t in gen32.generate_ragged([item["prompt"]], F32_SERVE_TOKENS).tokens[0]]
+        seqs = [got32[leg].get(item["seed"]) for leg in SERVE_LEGS]
+        if any(s is None for s in seqs):
+            raise AssertionError(f"moe float32 serve run lost request {item['seed']}")
+        divs = [first_divergence(torch, forward, p32, f32cfg, item["prompt"], s, want_t)
+                for s in seqs]
+        divs.append(first_divergence(torch, forward, p32, f32cfg, item["prompt"], *seqs))
+        divs = [d for d in divs if d is not None]
+        identical += not divs
+        gaps += divs
+    f32 = dict(layers=MOE_F32_LAYERS, capacity_factor=MOE_NO_DROP,
+               requests=F32_SERVE_REQUESTS, new_tokens=F32_SERVE_TOKENS,
+               identical_across_legs_and_offline=identical, divergence_top2_gaps=gaps,
+               tol=F32_TEACHER_TOL, ok=all(g <= F32_TEACHER_TOL for g in gaps))
+    checks["float32_legs_equal_offline"] = f32["ok"]
+    del p32, gen32
+    torch.cuda.empty_cache()
+    counted = ([off_nodrop["launches"], off["launches"], int8_serve["launches"]]
+               + [v["launches"] for v in legs.values()] + [v["launches"] for v in modes.values()])
+    launches_total = {name: sum(c[name] for c in counted) for name in kernels}
+    return dict(phase="moe", model=MOE_MODEL, layers=MOE_LAYERS, reduced="depth 32 -> 8 layers",
+                weights="seeded random bf16 (init_params, std 0.02)", card=card,
+                config=dict(hidden=cfg.hidden_size, intermediate=cfg.intermediate_size,
+                            heads=cfg.num_attention_heads, kv_heads=cfg.num_key_value_heads,
+                            head_dim=cfg.head_dim, vocab=cfg.vocab_size,
+                            experts=cfg.num_local_experts, top_k=cfg.num_experts_per_tok,
+                            capacity_factor=cfg.moe_capacity_factor,
+                            group_size=cfg.moe_group_size, no_drop_capacity=MOE_NO_DROP),
+                init=init, offline_no_drop=off_nodrop, zeroed_expert_fault=caught, offline=off,
+                serve=dict(trace=dict(requests=SERVE_REQUESTS, rate_rps=40.0,
+                                      prompt_len=SERVE_PROMPTS, new_tokens=SERVE_NEW_TOKENS),
+                           legs=legs, at_once=at_once),
+                quant=dict(modes=modes, serve_int8=int8_serve), float32=f32, profile=prof,
+                teacher_tol=MOE_TEACHER_TOL, router_tol=MOE_ROUTER_TOL,
+                a8_teacher_tol=A8_TEACHER_TOL, a8_router_tol=MOE_A8_ROUTER_TOL,
+                launches_total=launches_total, checks=checks,
+                phase_s=time.perf_counter() - t_phase, ok=all(checks.values()))
+
 KERNEL_META = {
     "flash_attention": ("llm_np_cp_tpu_torch/csrc/flash_attention.cu",
                         "llm_np_cp_tpu/ops/pallas/flash_attention.py:180"),
@@ -5673,6 +6394,14 @@ def main() -> int:
     for name in ("ragged_paged_attention", "sample_epilogue"):
         if not fp["launches"][name]:
             raise AssertionError(f"fleet phase: {name} never launched")
+    mo = moe_phase(torch, np, kernels, smi)
+    record(mo)
+    if not mo["ok"]:
+        raise AssertionError("moe checks failed: " + json.dumps(mo["checks"], default=str))
+    idle = [name for name, n in mo["launches_total"].items()
+            if n == 0 and not name.endswith("_combine")]
+    if idle:
+        raise AssertionError(f"moe phase: kernels never launched on its path: {idle}")
 
     path_launches = dict(mp["launches"])
     path_launches["ragged_paged_attention"] = sv["legs"]["A_mixed"]["launches"][
@@ -5709,6 +6438,7 @@ def main() -> int:
             max_abs_err=c["max_abs_err"], ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"], bound_by=c["bound_by"],
             library_ms=c["library_ms"], case=c["case"], cli_launches=clp["launches"].get(name),
+            moe_launches=mo["launches_total"].get(name),
             **{k: c[k] for k in ("library", "gather_ms", "nsplit", "device_ms", "race_ms")
                if k in c},
         ))

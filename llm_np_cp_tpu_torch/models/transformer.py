@@ -3,7 +3,9 @@
 
 Llama-3.x (pre-norm, SwiGLU, tied head), Gemma-2 (sandwich norms,
 embedding scaling, GeGLU, attention and final-logit softcaps, alternating
-sliding/global layers) and Qwen-2 (Q/K/V biases) through one function.
+sliding/global layers), Qwen-2 (Q/K/V biases) and Mixtral-style MoE
+layers (``ops/moe.py``: top-k routed experts in place of the dense MLP)
+through one function.
 
 Layout is the JAX package's: params are a plain dict with per-layer
 weights stacked on a leading ``[num_layers, ...]`` axis (layer ``i`` is a
@@ -13,8 +15,7 @@ Python loop in place of ``lax.scan``, the ``lax.cond`` on a sliding
 layer is a Python branch on ``config.layer_is_sliding(i)``, and the KV
 cache is written in place.  Weights may be quantized payloads
 (``quant.quantize_params``: int8 / int4, weight-only or W8A8): every
-projection goes through ``quant_einsum``.  Dense layers only: MoE
-configs raise ``NotImplementedError``.
+projection goes through ``quant_einsum``.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from llm_np_cp_tpu_torch.ops.attention import causal_mask, gqa_attention
 from llm_np_cp_tpu_torch.ops.cuda.decode_attention import decode_attention
 from llm_np_cp_tpu_torch.ops.cuda.flash_attention import flash_attention
 from llm_np_cp_tpu_torch.ops.cuda.sample_epilogue import sample_epilogue
+from llm_np_cp_tpu_torch.ops.moe import moe_mlp
 from llm_np_cp_tpu_torch.ops.norms import rms_norm
 from llm_np_cp_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 from llm_np_cp_tpu_torch.quant import is_quantized, quant_einsum
@@ -53,9 +55,7 @@ ATTN_IMPLS = ("xla", "flash", "flash_decode")
 
 def param_shapes(config: ModelConfig) -> dict[str, Any]:
     """Shape spec of the parameter dict (stacked layers) — the JAX
-    package's layout, minus the MoE leaves."""
-    if config.is_moe:
-        raise NotImplementedError("MoE layers are not ported yet (ops/moe.py)")
+    package's layout."""
     L = config.num_hidden_layers
     H = config.hidden_size
     D = config.head_dim
@@ -76,8 +76,15 @@ def param_shapes(config: ModelConfig) -> dict[str, Any]:
     if config.o_proj_bias:
         layers.update(o_bias=(L, H))
     if config.mlp_bias:
+        if config.is_moe:
+            raise NotImplementedError("mlp_bias is not supported for MoE configs")
         layers.update(gate_bias=(L, I), up_bias=(L, I), down_bias=(L, H))
-    layers.update(gate_proj=(L, H, I), up_proj=(L, H, I), down_proj=(L, I, H))
+    if config.is_moe:
+        E = config.num_local_experts
+        layers.update(router=(L, H, E), gate_proj=(L, E, H, I), up_proj=(L, E, H, I),
+                      down_proj=(L, E, I, H))
+    else:
+        layers.update(gate_proj=(L, H, I), up_proj=(L, H, I), down_proj=(L, I, H))
     if config.sandwich_norms:
         layers["ln_attn_out"] = (L, H)
         layers["ln_mlp_out"] = (L, H)
@@ -100,7 +107,10 @@ def init_params(
     gammas are ones (zeros under unit offset), every other leaf is
     N(0, 0.02^2).  The draws differ from ``jax.random``'s; tests that
     compare with the JAX package build one set of weights with numpy and
-    convert it (``convert.params_from_jax``)."""
+    convert it (``convert.params_from_jax``).  An expert stack
+    ``[L, E, in, out]`` is drawn one layer at a time (at Mixtral-8x7B
+    widths one float32 draw of it is a 15 GB temporary); every other
+    leaf is one draw."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -109,6 +119,11 @@ def init_params(
         if name.startswith("ln_") or name == "final_norm":
             fill = 0.0 if config.rms_norm_unit_offset else 1.0
             return torch.full(shape, fill, dtype=dtype, device=dev)
+        if len(shape) == 4:  # [L, E, in, out]: one layer's float32 at a time
+            out = torch.empty(shape, dtype=dtype, device=dev)
+            for i in range(shape[0]):
+                out[i] = make(name, shape[1:])
+            return out
         w = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
         return (w * 0.02).to(dtype)
 
@@ -253,7 +268,7 @@ def run_decoder_layer(
     kv_update: Callable | None = None,
     output_attentions: bool = False,
     attn_fn: Callable | None = None,
-) -> tuple[torch.Tensor, tuple[Any, Any], torch.Tensor | None]:
+) -> tuple[torch.Tensor, tuple[Any, Any], torch.Tensor | None, torch.Tensor | None]:
     """One decoder block (pre-norm or Gemma sandwich-norm residual).
 
     w: one layer's weights (views into the stacked leaves).
@@ -264,7 +279,10 @@ def run_decoder_layer(
     attn_fn: optional ``(q, k_att, v_att, sliding) -> attn`` override —
         the serving engine's block-table kernels plug in here (their
         visibility comes from per-row scalars, not a mask tensor).
-    Returns ``(x_out, (k_att, v_att), attn_weights | None)``.
+    Returns ``(x_out, (k_att, v_att), attn_weights | None, moe_aux_loss)``:
+    the MoE layer's float32 load-balancing loss, None on a dense layer
+    (where the JAX package returns a zero: here a dense step launches
+    nothing for it).
     """
     b, s = x.shape[:2]
     eps, unit = config.rms_norm_eps, config.rms_norm_unit_offset
@@ -323,21 +341,28 @@ def run_decoder_layer(
     x = x + attn
 
     h = rms_norm(x, w["ln_mlp_in"], eps=eps, unit_offset=unit)
-    gate = act(proj_b(h, "gate_proj"))
-    up = proj_b(h, "up_proj")
-    mlp = proj_b(gate * up, "down_proj")
+    if config.is_moe:
+        mlp, moe_aux = moe_mlp(
+            h, w["router"], w["gate_proj"], w["up_proj"], w["down_proj"],
+            act=act, top_k=config.num_experts_per_tok,
+            capacity_factor=config.moe_capacity_factor,
+            group_size=config.moe_group_size,
+        )
+    else:
+        moe_aux = None
+        gate = act(proj_b(h, "gate_proj"))
+        up = proj_b(h, "up_proj")
+        mlp = proj_b(gate * up, "down_proj")
     if config.sandwich_norms:
         mlp = rms_norm(mlp, w["ln_mlp_out"], eps=eps, unit_offset=unit)
     x = x + mlp
-    return x, (k_att, v_att), attn_weights
+    return x, (k_att, v_att), attn_weights, moe_aux
 
 
 def _check_contracts(
     params: Params, config: ModelConfig, cache: KVCache | None, dev: torch.device,
     attn_impl: str, attn_mask: Any, pad_offsets: Any, output_attentions: bool,
 ) -> None:
-    if config.is_moe:
-        raise NotImplementedError("MoE layers are not ported yet (ops/moe.py)")
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
     if output_attentions and attn_impl != "xla":
@@ -378,6 +403,7 @@ def forward(
     logits_last_only: bool = False,
     output_hidden_states: bool = False,
     output_attentions: bool = False,
+    output_router_losses: bool = False,
     attn_impl: str = "xla",
     skip_logits: bool = False,
     device: str | torch.device = "cuda",
@@ -403,11 +429,13 @@ def forward(
     attn_impl: "xla" (the plain path), "flash" (the prefill kernel; fresh
         cache, no ragged input) or "flash_decode" (the decode kernel when
         S == 1, the plain path otherwise).
+    output_router_losses: on an MoE config, put the layers' mean
+        load-balancing loss in the aux dict as "moe_aux_loss".
     device: where ``params`` live; "cuda" (default) raises without a card.
 
     Returns (logits [B, S|1, V] float32, cache), plus an aux dict with
-    "hidden_states" / "attentions" / "final_hidden_state" when either
-    output flag is set.
+    "hidden_states" / "attentions" / "final_hidden_state" /
+    "moe_aux_loss" when an output flag asks for one of them.
     """
     dev = resolve_device(device)
     _check_contracts(params, config, cache, dev, attn_impl, attn_mask,
@@ -455,7 +483,7 @@ def forward(
 
     act = ACT2FN[config.hidden_act]
     lp = params["layers"]
-    hidden_states, attentions = [], []
+    hidden_states, attentions, moe_aux = [], [], []
     for i in range(config.num_hidden_layers):
         w = layer_weights(lp, i)
         sliding = config.layer_is_sliding(i)
@@ -478,7 +506,7 @@ def forward(
 
         if output_hidden_states:
             hidden_states.append(x)
-        x, _, attn_w = run_decoder_layer(
+        x, _, attn_w, layer_aux = run_decoder_layer(
             w, x, config=config, act=act, cos=cos, sin=sin,
             mask=mask_local if sliding else mask_global, sliding=sliding,
             attn_impl=attn_impl, kv_update=kv_update,
@@ -486,6 +514,7 @@ def forward(
         )
         if output_attentions:
             attentions.append(attn_w)
+        moe_aux.append(layer_aux)
 
     if skip_logits:
         logits = x[:, -1:, :] if logits_last_only else x
@@ -496,6 +525,8 @@ def forward(
         cache.length += s
 
     aux: dict[str, torch.Tensor] = {}
+    if config.is_moe and output_router_losses:
+        aux["moe_aux_loss"] = torch.stack(moe_aux).mean()  # mean over layers
     if output_hidden_states:
         aux["hidden_states"] = torch.stack(hidden_states)  # [L, B, S, H]
         aux["final_hidden_state"] = rms_norm(

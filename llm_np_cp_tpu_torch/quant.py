@@ -15,6 +15,11 @@ Symmetric, rounded half to even (``torch.round``, as ``jnp.round``):
 ``q = round(w / s)`` with ``s = max|w| / 127`` (``/ 7`` for int4) per
 output channel.  Norm gammas and anything 1-D stay float.
 
+The MoE experts' two specs (``gech,ehi->geci``, ``geci,eih->gech``)
+contract every expert's slots against its own weights: one batched
+product over the expert axis, or, in the W8A8 modes, one int8 product
+per expert.
+
 The products are library calls, as the JAX package leaves them to XLA:
 ``q``/``q4`` take ``x @ payload.to(x.dtype)`` with a float32 result and
 then the scale; ``qa``/``q4a`` quantize each row of ``x`` to int8 and
@@ -25,7 +30,7 @@ becomes a float product.
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
@@ -42,6 +47,9 @@ _PAYLOAD_KEYS = ("q", "qa", "q4", "q4a")
 # the einsum specs of the model: x [b, s, h] against a weight stored
 # (in, out) (projections, untied head) or (out, in) (the tied head)
 _SPECS = {"bsh,ho->bso": False, "bsh,hv->bsv": False, "bsh,vh->bsv": True}
+# the MoE experts' specs: dispatched slots x [g, e, c, in] against the
+# expert stack [e, in, out] (ops/moe.py)
+_EXPERT_SPECS = ("gech,ehi->geci", "geci,eih->gech")
 
 # torch._int_mm on CUDA takes more than 16 rows
 _INT_MM_MIN_ROWS = 17
@@ -136,7 +144,7 @@ def quantize_params(
     layers = dict(params["layers"])
     for key in list(layers):
         if key in _QUANT_KEYS:
-            w = qproj(layers[key], axis=-2)
+            w = _quantize_stack(qproj, layers[key])
             if act_quant:
                 pk = "q" if "q" in w else "q4"
                 w = {pk + "a": w.pop(pk), **w}
@@ -149,6 +157,20 @@ def quantize_params(
     return out
 
 
+def _quantize_stack(qproj: Callable, w: torch.Tensor) -> dict[str, torch.Tensor]:
+    """``qproj(w, axis=-2)`` of a layer stack ``[L, ..., in, out]``, one
+    layer at a time into preallocated payloads (the numbers are the
+    whole stack's: the scales are per column of each slice).  Its
+    float32 temporaries are one layer's: at Mixtral-8x7B widths, a whole
+    expert stack's float32 copies would be tens of GB."""
+    first = qproj(w[0], axis=-2)
+    out = {k: v.new_empty((w.shape[0], *v.shape)) for k, v in first.items()}
+    for i in range(w.shape[0]):
+        for k, v in (first if i == 0 else qproj(w[i], axis=-2)).items():
+            out[k][i] = v
+    return out
+
+
 def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x [M, K] @ w [K, N]`` with a float32 result.  On the card a
     bf16 product keeps its float32 accumulators (``out_dtype``) and
@@ -157,6 +179,16 @@ def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.is_cuda and x.dtype != torch.float32 and w.dtype == x.dtype:
         return torch.mm(x, w, out_dtype=torch.float32)
     return x.float() @ w.float()
+
+
+def _bmm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Batched ``x [B, M, K] @ w [B, K, N]`` with a float32 result, as
+    ``_mm_f32``: on the card a bf16 product keeps its float32
+    accumulators and copies neither operand (a transposed view
+    included)."""
+    if x.is_cuda and x.dtype != torch.float32 and w.dtype == x.dtype:
+        return torch.bmm(x, w, out_dtype=torch.float32)
+    return torch.bmm(x.float(), w.float())
 
 
 def _int_mm(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
@@ -179,11 +211,39 @@ def _act_quant(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.clamp(torch.round(x32 / sx), -127, 127).to(torch.int8), sx
 
 
+def _expert_einsum(x: torch.Tensor, w: Any) -> torch.Tensor:
+    """``einsum("gec<in>,e<in><out>->gec<out>", x, w)`` with a float32
+    result: x's slots ``[G, E, C, in]`` meet their expert's weight
+    ``[E, in, out]`` (plain or a quantized dict whose scale is
+    ``[E, 1, out]``).  int4 payloads unpack to ``[E, in/2, 2, out]``,
+    whose pair axes merge as a view (the pair contraction, with no
+    copy of the weight); the W8A8 modes quantize each slot's row over
+    ``in`` (an empty slot has amax 0 and so scale 1) and take one int8
+    product per expert."""
+    g, e, c, k = x.shape
+    xe = x.transpose(0, 1).reshape(e, g * c, k)  # a view when G == 1
+    if not is_quantized(w):
+        y = _bmm_f32(xe, w)
+    else:
+        key = payload_key(w)
+        p = payload(w)  # int8 [E, in, out]
+        if key in ("qa", "q4a"):
+            xq, sx = _act_quant(xe)
+            y = torch.stack([_int_mm(xq[j], p[j].contiguous()) for j in range(e)])
+            y = y.float() * sx * w["s"]
+        else:
+            y = _bmm_f32(xe, p.to(x.dtype)) * w["s"]
+    return y.reshape(e, g, c, -1).transpose(0, 1)
+
+
 def quant_einsum(spec: str, x: torch.Tensor, w: Any) -> torch.Tensor:
     """``einsum(spec, x, w)`` with a float32 result, for the model's three
-    specs (``bsh,ho->bso``, ``bsh,hv->bsv``, ``bsh,vh->bsv``), taking a
+    specs (``bsh,ho->bso``, ``bsh,hv->bsv``, ``bsh,vh->bsv``) and the MoE
+    experts' two (``gech,ehi->geci``, ``geci,eih->gech``), taking a
     plain tensor or a quantized dict for ``w``."""
     spec = spec.replace(" ", "")
+    if spec in _EXPERT_SPECS:
+        return _expert_einsum(x, w)
     if spec not in _SPECS:
         raise NotImplementedError(f"quant_einsum: spec {spec!r} is not one the model uses")
     out_major = _SPECS[spec]

@@ -582,6 +582,9 @@ class ServeEngine:
         self._mixed_steps: dict[int, _StaticStep] = {}
         self._split_step: _StaticStep | None = None
         self.bucket_dispatches: dict[int, int] = {}
+        # the last unified tick's packed segments: (request id, first
+        # lane, tokens, first content position) each, lanes consecutive
+        self.tick_segments: list[tuple[int, int, int, int]] = []
         self._stops = (torch.tensor(self.stop_tokens, dtype=torch.int32, device=self.device)
                        if self.stop_tokens else None)
         # speculative serving: spec_k fixes the step's [R, spec_k+1]
@@ -816,7 +819,7 @@ class ServeEngine:
                 write(i, k, v)
                 return None, None
 
-            x, _, _ = run_decoder_layer(
+            x, _, _, _ = run_decoder_layer(
                 w, x, config=cfg, act=act, cos=cos, sin=sin,
                 sliding=cfg.layer_is_sliding(i), kv_update=kv_update,
                 attn_fn=lambda q, _k, _v, sliding, i=i: attend(i, q, sliding),
@@ -2004,9 +2007,11 @@ class ServeEngine:
             verify_len=np.zeros(b, np.int32),
         )
         cur = 0
+        self.tick_segments = []
         for r, toks, start_slot, n_verify in segs:
             n = toks.size
             slot = r.slot
+            self.tick_segments.append((r.req_id, cur, n, start_slot - r.pad))
             h["tables"][slot, :len(r.block_ids)] = r.block_ids
             h["pads"][slot] = r.pad
             h["seeds"][slot] = _seed_word(r.seed)

@@ -59,7 +59,9 @@ or with supervision off, a death ends every stream cleanly
 (``aborted``), ``/healthz`` turns 503 ``crashed`` and new work gets 503.
 An engine with a request journal (``serve/journal.py``) has the
 unterminated requests of a dead process replayed when the runner is
-built.  The chaos sites ``tick_hang``, ``tick_crash``, ``proc_kill``,
+built, and its stream events reach clients only once the journal holds
+what they carry (write-ahead delivery: after a ``kill -9`` a client
+never holds a token the restart has to regenerate).  The chaos sites ``tick_hang``, ``tick_crash``, ``proc_kill``,
 ``http_429`` and ``http_reset`` (``serve/faults.py``) fire from the
 engine's fault injector.  A restart mutes the dead engine's tracer,
 sentinel and tenant ledger (the rebuilt engine shares them), stamps
@@ -267,17 +269,25 @@ class EngineRunner:
         # delivered terminals, re-readable for a while: a client whose
         # final read tore on the wire can replay the stream; bounded LRU
         self._claimed: dict[int, dict] = {}
+        # write-ahead delivery (with a journal): ((loop, queue), event)
+        # pairs pushed since the last release; ``_release`` hands them to
+        # the journal, whose writer delivers them once every record
+        # enqueued before (the tick's watermark above all) is on disk
+        self._outbox: list[tuple] = []
+        self._outbox_lock = threading.Lock()
         # the durable request journal: replay what a dead process left
         # behind, here, before any thread exists
         self.journal = getattr(engine, "journal", None)
         self.journal_replayed = 0
         # Last-Event-ID attaches served
         self.journal_resumed = 0
+        # past every rid the journal saw end (drained ones included)
+        self._rid_floor = 0
         if self.journal is not None:
             self._replay_journal()
         # past every replayed rid, parked ones included, so a fresh
         # request never shadows a stream a client is about to resume
-        self._rid = itertools.count(max(getattr(engine, "_next_id", 0),
+        self._rid = itertools.count(max(getattr(engine, "_next_id", 0), self._rid_floor,
                                         max(self._resumable, default=-1) + 1))
 
     # -- journal replay + stream resume --------------------------------
@@ -285,9 +295,18 @@ class EngineRunner:
         """Teacher-force every unterminated journaled request back into the
         engine: delivered tokens forced, the remaining deadline budget
         resumed (wall time on disk; an expired one is swept on the first
-        tick), and the ledger rebuilt so a client can re-attach."""
+        tick), and the ledger rebuilt so a client can re-attach.  The
+        requests the journal saw end are parked for a late resume."""
         now_wall = time.time()
         clock_now = self.engine.clock()
+        # streams that ended before the kill: a client may still lack
+        # their tail (write-ahead delivery sends it after the ``fin`` is
+        # on disk); a drained one lives on in a peer's journal
+        for rec in self.journal.replay_finished():
+            self._rid_floor = max(self._rid_floor, rec["rid"] + 1)
+            if rec["reason"] != "drained":
+                self._stash_resumable(rec["rid"], dict(rec, deltas=self._replay_deltas(rec["tokens"])),
+                                      rec["reason"], None)
         for rec in self.journal.replay():
             deadline_at = None
             if rec.get("deadline_wall") is not None:
@@ -419,6 +438,7 @@ class EngineRunner:
         if self._watchdog is not None:
             self._watchdog.join(timeout=1.0)
         if self.journal is not None:
+            self._release(wait=True)
             # the drain's aborts journaled their terminals: a clean
             # shutdown leaves an empty replay set
             self.journal.close()
@@ -479,6 +499,8 @@ class EngineRunner:
                       for rec in self._inflight.values()]
             self._inflight.clear()
         self._cmds.put(("wake",))  # unblock an idle superseded thread
+        if self.journal is not None:
+            self._release(wait=True)  # peers may adopt these streams
         return replay
 
     def rebuild_upgraded(self, params: Any, version: int, replay: list[dict], *,
@@ -547,12 +569,35 @@ class EngineRunner:
         ent = self._live.get(rid)
         if ent is None:
             return
-        loop, aq = ent
-        try:
-            loop.call_soon_threadsafe(aq.put_nowait, item)
-        except RuntimeError:
-            # loop already closed (shutdown race): nobody is reading
-            self._live.pop(rid, None)
+        if self.journal is not None:
+            with self._outbox_lock:
+                self._outbox.append((rid, ent, item))
+            return
+        self._deliver([(rid, ent, item)])
+
+    def _deliver(self, events: list[tuple]) -> None:
+        for rid, (loop, aq), item in events:
+            try:
+                loop.call_soon_threadsafe(aq.put_nowait, item)
+            except RuntimeError:
+                # loop already closed (shutdown race): nobody is reading
+                if self._live.get(rid) == (loop, aq):
+                    self._live.pop(rid, None)
+
+    def _release(self, wait: bool = False) -> None:
+        """Deliver the outbox once the journal holds what it carries: by
+        the journal's writer (``after_durable``), or with ``wait`` here,
+        after a flush barrier — before a stream moves to a peer runner,
+        whose journal would not order it behind this one's."""
+        with self._outbox_lock:
+            events, self._outbox = self._outbox, []
+        if not events:
+            return
+        if wait:
+            self.journal.flush(timeout=10.0)
+            self._deliver(events)
+        else:
+            self.journal.after_durable(lambda: self._deliver(events))
 
     def _bridge(self, gen: int) -> tuple:
         """Per-request engine callbacks for generation ``gen``.  The gen
@@ -791,6 +836,7 @@ class EngineRunner:
                         cmd = self._cmds.get_nowait()
                     except queue_mod.Empty:
                         cmd = None
+            self._release()
             if self._stop.is_set() or gen != self._gen:
                 break
             if engine.scheduler.has_work:
@@ -808,6 +854,8 @@ class EngineRunner:
                         print("[chaos] proc_kill: SIGKILL self", file=sys.stderr, flush=True)
                         os.kill(os.getpid(), signal.SIGKILL)
                 engine.step()
+                # the tick's tokens go out behind its watermark record
+                self._release()
                 # terminal requests delivered their events through the
                 # bridge: dropping them keeps a long-running server flat
                 engine.scheduler.finished.clear()
@@ -955,6 +1003,8 @@ class EngineRunner:
         # then the peer's teacher-forced continuation, not an abort
         adopted: set[int] = set()
         hook = self.on_terminal_crash
+        if self.journal is not None:
+            self._release(wait=True)  # peers may adopt these streams
         if hook is not None and self._inflight:
             adopted = hook([dict(rec, tokens=list(rec["tokens"]),
                                  deltas=list(rec.get("deltas") or ()))
@@ -971,6 +1021,7 @@ class EngineRunner:
             for rid in self._inflight:
                 if rid not in adopted:
                     self.journal.terminal(rid, "aborted")
+            self._release()
         self._inflight.clear()
 
     def _watch(self) -> None:

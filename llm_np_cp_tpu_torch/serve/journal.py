@@ -9,8 +9,11 @@ through the teacher-forced ``ServeEngine.recover``.  Rows are keyed by
 (seed, content position), so the replayed continuation is the
 interrupted one token for token (in float32; in bf16 a replay prefills
 what the first run decoded, which can flip a near-tie): any durable
-prefix of the delivered stream resumes it, and a lost tail is
-regenerated.
+prefix of the stream resumes it, and a lost tail is regenerated.  A
+regenerated token that a client already held could differ from it, so
+the HTTP runner delivers stream events only once the journal holds what
+they carry (``after_durable``, the port's difference): what a client
+holds is always a durable prefix.
 
 Records (JSON payloads in a ``[u32 len][u32 crc32]`` frame):
 
@@ -31,7 +34,8 @@ frame, and reopening truncates the file back to the valid prefix.
 Threading: the engine tick thread owns the enqueue side (``admit`` /
 ``end_tick`` / ``terminal`` and the ``_mark`` index); the writer thread
 owns the file handle and the live mirror it compacts from, and does file
-IO only (no CUDA call); the pending queue and the stats share ``_lock``.
+IO and the ``after_durable`` callbacks only (no CUDA call); the pending
+queue and the stats share ``_lock``.
 Chaos sites ``journal_write`` / ``journal_fsync`` fail the IO: the batch
 is dropped and counted, serving continues.
 """
@@ -95,6 +99,34 @@ def iter_records(path: str) -> Iterator[dict]:
         return
     for rec, _ in _iter_frames(data):
         yield rec
+
+
+def scan_finished(path: str, keep: int = 512) -> dict[int, dict]:
+    """→ the requests the journal saw end (a ``fin`` after their
+    admission), the last ``keep`` to end, by rid: each its replay entry
+    with the final tokens and the ``reason``.  Write-ahead delivery sends
+    a stream's last tokens and its finish only once the ``fin`` is on
+    disk, so after a ``kill -9`` a client can hold part of a stream that
+    the live replay set no longer has: the runner parks these for its
+    resume (the port's difference; compaction keeps live requests only,
+    so a finished request compacted away is gone)."""
+    state: dict[int, dict] = {}
+    done: dict[int, dict] = {}
+    try:
+        data = open(path, "rb").read()
+    except FileNotFoundError:
+        return done
+    for rec, _ in _iter_frames(data):
+        t = rec.get("t")
+        if t in ("adm", "fin"):
+            rid = int(rec["rid"])
+            ent = done.pop(rid, None) if t == "adm" else state.get(rid)
+            if t == "fin" and ent is not None:
+                done[rid] = dict(ent, tokens=list(ent["tokens"]), reason=rec.get("reason"))
+                while len(done) > keep:
+                    done.pop(next(iter(done)))
+        _apply(state, rec)
+    return done
 
 
 def _apply(state: dict[int, dict], rec: dict) -> int | None:
@@ -171,7 +203,9 @@ class RequestJournal:
     thread): ``admit(req, now)``, ``end_tick(requests)``,
     ``terminal(rid, reason)``.  Control: ``replay()`` (the unterminated
     state found at open), ``flush()`` (barrier: everything enqueued so
-    far is written AND fsynced), ``close()``, ``stats()``.
+    far is written AND fsynced), ``after_durable(fn)`` (the same
+    barrier, non-blocking: ``fn`` runs on the writer thread), ``close()``,
+    ``stats()``.
     """
 
     def __init__(
@@ -202,6 +236,7 @@ class RequestJournal:
         # threaded: the writer thread starts below, after this)
         state, valid_end, epoch = scan_journal(path)
         self._replay_state = state
+        self._finished_state = scan_finished(path)
         self.epoch = epoch + 1
         f = open(path, "ab")
         if f.tell() != valid_end:
@@ -255,6 +290,13 @@ class RequestJournal:
                 tokens=list(ent["tokens"]),
             ))
         return out
+
+    def replay_finished(self) -> list[dict]:
+        """The requests found ended when the journal was opened
+        (``scan_finished``), rid-ascending: each ``{rid, prompt,
+        max_tokens, seed, tokens, reason, ...}``."""
+        return [dict(self._finished_state[rid], tokens=list(self._finished_state[rid]["tokens"]))
+                for rid in sorted(self._finished_state)]
 
     # -- engine-thread hooks (enqueue only, no IO) ---------------------
     def admit(self, req: Any, now: float) -> None:
@@ -342,6 +384,21 @@ class RequestJournal:
             self._cond.notify()
         return ev.wait(timeout)
 
+    def after_durable(self, fn: Callable[[], None]) -> None:
+        """Run ``fn`` on the writer thread once every record enqueued
+        BEFORE this call is written and fsynced (or its batch failed and
+        was counted: durability degrades, delivery does not stall).  The
+        HTTP runner releases stream events through it, so a client never
+        holds a token that a restart would regenerate.  Once the journal
+        is closing, ``fn`` runs here after the writer has drained."""
+        with self._lock:
+            if not self._stopping:
+                self._pending.append(("call", fn))
+                self._cond.notify()
+                return
+        self._thread.join()
+        fn()
+
     def close(self, timeout: float = 10.0) -> None:
         """Drain the queue, fsync, and stop the writer thread."""
         with self._lock:
@@ -393,7 +450,7 @@ class RequestJournal:
 
     def _writer_batch(self, batch: list) -> None:
         recs = [b for b in batch if isinstance(b, dict)]
-        barriers = [b[1] for b in batch if not isinstance(b, dict)]
+        barriers = [b for b in batch if not isinstance(b, dict)]
         if recs:
             blob = b"".join(_frame(r) for r in recs)
             faults = self.faults
@@ -435,8 +492,13 @@ class RequestJournal:
                                 del self.fsync_s[:5_000]
                 if self._wsince >= self.compact_bytes:
                     self._writer_compact()
-        for ev in barriers:
-            ev.set()
+        # in queue order: a flush barrier or a delivery (``after_durable``)
+        # enqueued after another runs after it
+        for kind, obj in barriers:
+            if kind == "flush":
+                obj.set()
+            else:
+                obj()
 
     def _writer_compact(self) -> None:
         """Rewrite the file as epoch + one admission per live request

@@ -1465,3 +1465,100 @@ def test_cli_greedy_runs_the_decode_kernel(cuda, monkeypatch):
                     decode_attn_impl="flash_decode")
     want = gen.generate(Tok()("hello there")["input_ids"][0], 8).tokens[0]
     assert text == Tok().decode(want)
+
+
+def _tiny_moe(dtype):
+    """A tiny Mixtral-style model (8 experts, 2 a token, capacity 2.0)
+    with weights of std 0.15, so routes and greedy tokens vary."""
+    from llm_np_cp_tpu_torch.config import tiny_config
+    from llm_np_cp_tpu_torch.models.transformer import init_params
+
+    cfg = tiny_config("llama", head_dim=64, hidden_size=128, num_attention_heads=4,
+                      num_key_value_heads=2, num_local_experts=8, num_experts_per_tok=2)
+    params = init_params(0, cfg, dtype, device="cuda")
+    for name, w in params["layers"].items():
+        if not name.startswith("ln_"):
+            params["layers"][name] = (w.float() * 7.5).to(dtype)
+    return cfg, params
+
+
+def test_moe_routing_is_tie_stable_on_the_card(cuda):
+    """The stable selection takes the lower expert first on ties on CUDA
+    tensors too (``torch.topk`` on CUDA does not promise it), and the
+    layer on the card routes as on the CPU: same dispatch, outputs within
+    float32 rounding."""
+    from llm_np_cp_tpu_torch.ops import moe
+
+    p = torch.full((5, 64), 1.0 / 64, device="cuda")
+    p[1, 40:] = 2.0 / 64
+    assert moe.top_k_stable(p, 2)[1].tolist() == [[0, 1], [40, 41], [0, 1], [0, 1], [0, 1]]
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(2, 33, 128, generator=g, device="cuda")
+    x[0, 5] = 0.0  # every expert ties
+    rw = 0.5 * torch.randn(128, 8, generator=g, device="cuda")
+    ws = [0.1 * torch.randn(s, generator=g, device="cuda")
+          for s in ((8, 128, 256), (8, 128, 256), (8, 256, 128))]
+    _, gates = moe.route(x.reshape(-1, 128), rw, top_k=2)
+    assert torch.nonzero(gates[5]).flatten().tolist() == [0, 1]
+    _, cpu_gates = moe.route(x.reshape(-1, 128).cpu(), rw.cpu(), top_k=2)
+    assert torch.equal((gates > 0).cpu(), cpu_gates > 0)
+    out, aux = moe.moe_mlp(x, rw, *ws, act=torch.nn.functional.silu, top_k=2,
+                           capacity_factor=1.0, group_size=16)
+    ref, ref_aux = moe.moe_mlp(x.cpu(), rw.cpu(), *(w.cpu() for w in ws),
+                               act=torch.nn.functional.silu, top_k=2, capacity_factor=1.0,
+                               group_size=16)
+    _assert_close(out.cpu(), ref, torch.float32)
+    assert abs(aux.item() - ref_aux.item()) < 1e-5
+
+
+@pytest.mark.parametrize("mode", [None, "int8_a8"])
+def test_moe_generator_and_tick_replay_as_eager(cuda, mode):
+    """An MoE model's captured decode step and unified tick give the eager
+    steps' tokens (bf16, the default capacity, so routes can drop): the
+    layer reads nothing back to the host, and every replay counts its
+    kernels."""
+    import numpy as np
+
+    from llm_np_cp_tpu_torch import graphs
+    from llm_np_cp_tpu_torch.generate import Generator
+    from llm_np_cp_tpu_torch.ops.sampling import Sampler
+    from llm_np_cp_tpu_torch.serve import ServeEngine, poisson_trace
+
+    cfg, params = _tiny_moe(torch.bfloat16)
+    if mode is not None:
+        params = quantize_params(params, bits=8, act_quant=True)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    prompts = torch.randint(0, cfg.vocab_size, (4, 19), generator=g, device="cuda")
+    kw = dict(sampler=Sampler("greedy"), prefill_attn_impl="flash",
+              decode_attn_impl="flash_decode")
+    with graphs.eager_steps():
+        want = Generator(params, cfg, **kw).generate(prompts, 16).tokens
+    gen = Generator(params, cfg, **kw)
+    before = _counts()
+    assert (gen.generate(prompts, 16).tokens == want).all()
+    assert _counts()["decode"] - before["decode"] == cfg.num_hidden_layers * 15
+    assert sum(s.replays for s in gen.graph_steps()) == 14
+    assert len(set(np.asarray(want).ravel().tolist())) > 4
+
+    trace = poisson_trace(np.random.default_rng(2), 10, rate_rps=40.0, prompt_len_range=(5, 40),
+                          max_new_tokens=8, vocab_size=cfg.vocab_size)
+
+    def serve_all(eng):
+        for j, item in enumerate(trace):
+            eng.submit(item["prompt"], item["max_new_tokens"], seed=j)
+        eng.run_until_complete()
+        return {r.req_id: r.generated for r in eng.scheduler.finished}
+
+    def engine():
+        return ServeEngine(params, cfg, mixed_step="on", max_slots=4, num_blocks=64,
+                           block_size=16, max_seq_len=96, prefill_chunk=16,
+                           cache_dtype=torch.bfloat16)
+
+    with graphs.eager_steps():
+        want = serve_all(engine())
+    eng = engine()
+    before = _counts()
+    assert serve_all(eng) == want
+    assert _counts()["ragged"] - before["ragged"] == cfg.num_hidden_layers * eng.n_dispatches
+    counts = eng.compile_counts()
+    assert sum(s.replays for s in eng.graph_steps()) == eng.n_dispatches - counts["mixed_step"]

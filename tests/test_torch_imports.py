@@ -57,7 +57,7 @@ def test_scan_sees_the_port():
             "llm_np_cp_tpu_torch/serve/lifecycle.py", "llm_np_cp_tpu_torch/serve/replica.py",
             "llm_np_cp_tpu_torch/cli.py", "llm_np_cp_tpu_torch/backends/__init__.py",
             "llm_np_cp_tpu_torch/backends/numpy_ref.py", "llm_np_cp_tpu_torch/utils/profiling.py",
-            "chip_smoke.py"} <= names
+            "llm_np_cp_tpu_torch/ops/moe.py", "chip_smoke.py"} <= names
     assert imported_roots(ROOT / "tests" / "test_torch_model.py") >= {"jax", "llm_np_cp_tpu"}
     assert "llm_np_cp_tpu_torch" in imported_roots(ROOT / "chip_smoke.py")
 

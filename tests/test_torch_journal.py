@@ -502,3 +502,96 @@ def test_proc_kill_leaves_a_journal_that_resumes_every_stream(llama, tmp_path):
     for seed, res in outs.items():
         assert res["finish_reason"] == "length"
         assert got[seed][0] + res["token_ids"] == want[seed]
+
+
+@pytest.mark.http
+def test_a_client_holds_only_journaled_tokens(llama, tmp_path):
+    """With the journal's writer held back 0.3 s a batch, a client that
+    cuts its stream after three events finds every token it holds
+    already in the journal file: stream events wait for the journal
+    (write-ahead delivery), so a ``kill -9`` never leaves a client
+    holding a token the restarted server would have to regenerate (in
+    bf16 a regenerated token can differ from it).  The stream still
+    runs to the uninterrupted tokens."""
+    prompt = prompts_of(4)[0]
+    want = uninterrupted(llama, [prompt])[0]
+    jl = journal.RequestJournal(str(tmp_path / "j"))
+    write = jl._writer_batch
+
+    def held_back(batch):
+        time.sleep(0.3)
+        write(batch)
+
+    jl._writer_batch = held_back
+    eng = plain_engine(llama, journal=jl)
+    body = {"model": "tiny", "prompt": [int(t) for t in prompt], "max_tokens": NEW_TOKENS,
+            "seed": 0, "stream": True}
+
+    async def main():
+        srv = HttpServer(eng, model_id="tiny", drain_timeout=10.0)
+        await srv.start("127.0.0.1", 0)
+        cut = await astream_completion(srv.host, srv.port, body, timeout=60,
+                                       disconnect_after=3)
+        on_disk = list(journal.iter_records(jl.path))
+        full = await astream_completion(srv.host, srv.port, body, timeout=60)
+        srv.begin_drain()
+        await srv.serve_until_shutdown()
+        return cut, on_disk, full
+
+    cut, on_disk, full = asyncio.run(asyncio.wait_for(main(), timeout=120))
+    rid = int(cut["stream_id"].rsplit("-", 1)[1])
+    # the request's tokens in the file, finished or not (a tiny model
+    # may have run to its end before the writer's first batch)
+    durable = [t for rec in on_disk if rec["t"] == "adm" and rec["rid"] == rid
+               for t in rec["tokens"]]
+    durable += [t for rec in on_disk if rec["t"] == "wm"
+                for r, _, toks in rec["rows"] if r == rid for t in toks]
+    assert cut["token_ids"], cut
+    assert durable[:len(cut["token_ids"])] == cut["token_ids"], (durable, cut["token_ids"])
+    assert full["finish_reason"] == "length" and full["token_ids"] == want
+
+
+@pytest.mark.http
+def test_a_stream_that_ended_before_the_kill_resumes(llama, tmp_path):
+    """A request whose ``fin`` reached the journal before a ``kill -9``
+    leaves the replay set, yet its client may lack the tail (write-ahead
+    delivery sends it only after the ``fin`` is on disk).  A fresh runner
+    parks it: a Last-Event-ID resume gets the missing suffix and the
+    finish, a fresh request never takes its id, and a stream drained to
+    a peer is not parked (404)."""
+    jl = journal.RequestJournal(str(tmp_path / "j"))
+    done = mk_req("port", 5, [3, 1, 4], max_tokens=6, seed=2)
+    drained = mk_req("port", 6, [2, 7], max_tokens=6, seed=3)
+    jl.admit(done, now=0.0)
+    jl.admit(drained, now=0.0)
+    done.generated += [11, 12, 13, 14, 15, 16]
+    drained.generated += [21, 22]
+    jl.end_tick([done, drained])
+    jl.terminal(5, "length")
+    jl.terminal(6, "drained")
+    assert jl.flush(5.0)
+    jl.close()
+
+    jl = journal.RequestJournal(jl.path)
+    assert jl.replay() == [] and [r["rid"] for r in jl.replay_finished()] == [5, 6]
+    eng = plain_engine(llama, journal=jl)
+
+    async def main():
+        srv = HttpServer(eng, model_id="tiny", drain_timeout=10.0)
+        await srv.start("127.0.0.1", 0)
+        tail = await astream_completion(srv.host, srv.port, {
+            "model": "tiny", "request_id": "cmpl-5", "last_event_id": 2, "stream": True},
+            timeout=30)
+        gone = await astream_completion(srv.host, srv.port, {
+            "model": "tiny", "request_id": "cmpl-6", "last_event_id": 2, "stream": True},
+            timeout=30)
+        fresh = await astream_completion(srv.host, srv.port, {
+            "model": "tiny", "prompt": [1, 2, 3], "max_tokens": 2, "stream": True}, timeout=30)
+        srv.begin_drain()
+        await srv.serve_until_shutdown()
+        return tail, gone, fresh
+
+    tail, gone, fresh = asyncio.run(asyncio.wait_for(main(), timeout=120))
+    assert tail["token_ids"] == [13, 14, 15, 16] and tail["finish_reason"] == "length"
+    assert gone["status"] == 404
+    assert int(fresh["stream_id"].rsplit("-", 1)[1]) > 6

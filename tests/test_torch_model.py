@@ -78,8 +78,9 @@ def test_param_shapes_match_jax(model_type):
     cfg = tiny_config(model_type.split("_")[0], **kw)
     jcfg = jconfig.ModelConfig(**dataclasses.asdict(cfg))
     assert ttf.param_shapes(cfg) == jtf.param_shapes(jcfg)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        ttf.param_shapes(dataclasses.replace(cfg, num_local_experts=4))
+    moe_cfg = dataclasses.replace(cfg, num_local_experts=4)
+    moe_jcfg = dataclasses.replace(jcfg, num_local_experts=4)
+    assert ttf.param_shapes(moe_cfg) == jtf.param_shapes(moe_jcfg)
 
 
 def test_init_params_is_seeded():
