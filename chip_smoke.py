@@ -217,6 +217,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
    in-process engine's on the same weights, and after SIGTERM a drain and
    exit 0.  Recorded: each leg's launches, TTFT and tok/s as ``--metrics``
    and ``--json`` report them, the checkpoint's write and load seconds.
+   Last, ``--mesh 1,1,2`` on ``--backend cuda`` must refuse with JAX's
+   ``plan needs 2 devices, have 1`` on one card (NCCL wants a card a
+   rank; the mesh phase shares one card over gloo instead).
 11. restart — the durable journal's ``kill -9`` resume on the JAX bench's
    ``serve_restart_poisson`` shape: the server runs in a child process
    (``python -m llm_np_cp_tpu_torch.cli serve`` over the cli phase's
@@ -255,7 +258,26 @@ Phases, each printing JSON lines; any failure exits non-zero:
    legs A and B equal the offline ``generate_ragged``; a profile
    splitting device time among routing, slot positions, dispatch,
    expert products, combine, attention kernels and epilogue.
-13. the ``kernels`` summary line (each row with its ``moe_launches``), the
+13. mesh — generation over a mesh (``parallel/``, ``Generator(mesh=)``):
+   one spawned group of 4 ranks, all on cuda:0, joined over gloo (every
+   collective stages its CUDA tensor through host memory; the decode
+   steps run eagerly), Llama-3.2-1B at full widths and depth on the main
+   path's seeded bf16 weights.  Leg a: seq 2 x model 2, ring prefill of a
+   2047-token prompt (padded to 2048 over the seq axis) and 32 greedy
+   tokens; leg b: data 2 x model 2 at B=4 x 128, greedy and min-p; leg c:
+   leg b's greedy run on int8 weights.  Every leg: the ranks return the
+   same tokens, greedy tokens teacher-forced against the one-rank plain
+   forward and its cached twin within ``TEACHER_TOL`` (min-p: inside the
+   sampler's support), the first divergence from the one-rank
+   ``Generator`` printed, every rank's launches (flash prefill,
+   ``decode_attention`` and its combine, the epilogue merged over the
+   vocab shards, min-p's categorical) equal to what the leg implies, and
+   every collective host-staged; TTFT and tok/s as one card shared by 4
+   ranks, not a multi-GPU figure.  The kernel phase holds each kernel at
+   a rank's shapes too (16 of 32 heads, half the tied head with its row
+   maxima).
+14. the ``kernels`` summary line (each row with its ``moe_launches`` and
+   ``mesh_launches``), the
    card's ``nvidia-smi`` name and power limit, and last the result line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -526,6 +548,13 @@ def float32_params(params: dict) -> dict:
 # phase 2: kernels against their plain versions
 # ----------------------------------------------------------------------
 
+def picked(specs, names) -> list[tuple[int, tuple]]:
+    """``(index, spec)`` of every spec (``names`` None), or of those whose
+    name (``spec[0]``) is in ``names``; the index seeds a case's inputs,
+    so a case draws the same inputs either way."""
+    return [(i, s) for i, s in enumerate(specs) if names is None or s[0] in names]
+
+
 # name, B, S, H, K, D, softcap, window — the main path's shape first,
 # then the long prompts where prefill attention is bound by operations:
 # Llama-3.2-1B at 4096, Llama-3.1-8B's widths (D=128, also Llama-3.2-3B's
@@ -539,6 +568,9 @@ FLASH_SPECS = (
     ("gemma2_2b_1x4096_softcap50_window4096", 1, 4096, 8, 4, 256, 50.0, 4096),
     # the moe phase's prefill at Mixtral-8x7B's attention widths
     ("mixtral_prefill_4x128_d128", 4, 128, 32, 8, 128, None, None),
+    # the mesh phase's per-rank prefill (data 2 x model 2: 2 of 4 rows,
+    # 16 of 32 heads, 4 of 8 KV heads)
+    ("llama1b_tp2_rank_2x128", 2, 128, 16, 4, 64, None, None),
 )
 
 
@@ -574,12 +606,13 @@ def flash_dropped_tile(torch, fa, q, k, v, kw):
     return gqa_attention(q, k, v, mask, scale=kw["scale"], logit_softcap=kw["logit_softcap"])
 
 
-def flash_cases(torch, F, fa, sdpa_gqa: bool) -> list[dict]:
-    """The prefill kernel on ``FLASH_SPECS``: events ms, the kernel's own
-    device time (profiler), SDPA's beside it where SDPA computes the same
-    function (no softcap, no window), the bound and the achieved rate."""
+def flash_cases(torch, F, fa, sdpa_gqa: bool, names=None) -> list[dict]:
+    """The prefill kernel on ``FLASH_SPECS`` (those in ``names``, if
+    given): events ms, the kernel's own device time (profiler), SDPA's
+    beside it where SDPA computes the same function (no softcap, no
+    window), the bound and the achieved rate."""
     cases = []
-    for i, (name, b, s, h, kh, d, cap, win) in enumerate(FLASH_SPECS):
+    for i, (name, b, s, h, kh, d, cap, win) in picked(FLASH_SPECS, names):
         q, k, v, kw = flash_inputs(torch, i)
         out = fa.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -647,6 +680,11 @@ DECODE_SPECS = [
     # and stream (B=1)
     ("mixtral_b4_s256_bf16_ragged", 4, 256, 32, 8, 128, False),
     ("mixtral_b1_s256_bf16", 1, 256, 32, 8, 128, False),
+    # the mesh phase's per-rank decode (16 of 32 heads, 4 of 8 KV heads):
+    # legs b and c (2 of 4 rows, 160 live of 256 slots) and leg a (the
+    # 2047-token prompt's 2176-slot slab)
+    ("llama1b_tp2_rank_b2_s256_bf16_ragged", 2, 256, 16, 4, 64, False),
+    ("llama1b_tp2_rank_b1_s2176_bf16", 1, 2176, 16, 4, 64, False),
 ]
 
 
@@ -660,12 +698,13 @@ def decode_inputs(torch, spec: tuple, seed: int):
     return q, k, v, decode_mask(torch, b, s)
 
 
-def decode_cases(torch, F, da, quantize_kv, sdpa_gqa: bool) -> list[dict]:
-    """The slab kernel on ``DECODE_SPECS``.  Each case records the NSPLIT
-    that ``split_plan`` gives it on this card."""
+def decode_cases(torch, F, da, quantize_kv, sdpa_gqa: bool, names=None) -> list[dict]:
+    """The slab kernel on ``DECODE_SPECS`` (those in ``names``, if given).
+    Each case records the NSPLIT that ``split_plan`` gives it on this
+    card."""
     cases = []
     sms = da.sm_count(torch.device("cuda"))
-    for spec in DECODE_SPECS:
+    for _, spec in picked(DECODE_SPECS, names):
         name, b, s, h, kh, d, int8 = spec
         q, k, v, mask = decode_inputs(torch, spec, 100 + s + int8 + (0 if d == 64 else d))
         kw = dict(scale=d ** -0.5)
@@ -702,16 +741,17 @@ def decode_cases(torch, F, da, quantize_kv, sdpa_gqa: bool) -> list[dict]:
     return cases
 
 
-def combine_cases(torch, da) -> list[dict]:
+def combine_cases(torch, da, names=None) -> list[dict]:
     """The split-KV combine alone (``csrc/split_kv.cuh``) on the split
     kernel's own partials, against its plain version on the same partials:
-    the bf16 ``DECODE_SPECS`` (the main path's shape first).  Each case
+    the bf16 ``DECODE_SPECS`` (the main path's shape first; those in
+    ``names``, if given).  Each case
     also shows that its check sees a fault: the combine over the partials
     with the middle split dropped must fall outside the tolerance against
     the whole (``combine_case``)."""
     cases = []
     sms = da.sm_count(torch.device("cuda"))
-    for spec in DECODE_SPECS:
+    for _, spec in picked(DECODE_SPECS, names):
         name, b, s, h, kh, d, int8 = spec
         if int8:
             continue
@@ -783,6 +823,13 @@ EPILOGUE_SPECS = [
     # its serve tick's 8 slots
     ("mixtral_n4_untied", 4, 4096, 32000, False, None, False),
     ("mixtral_n8_untied_serve_tick", 8, 4096, 32000, False, None, False),
+    # a tensor-parallel rank's half of the tied head (64128 of 128256
+    # rows): the mesh phase's 2 rows a rank, and 4 and 8
+    ("llama1b_tp2_shard_n2_tied", 2, 2048, 64128, True, None, False),
+    ("llama1b_tp2_shard_n4_tied", 4, 2048, 64128, True, None, False),
+    ("llama1b_tp2_shard_n8_tied", 8, 2048, 64128, True, None, False),
+    # the mesh phase's leg a: its one row on a model rank's half
+    ("llama1b_tp2_shard_n1_tied", 1, 2048, 64128, True, None, False),
 ]
 EPILOGUE_INT8_SPECS = [
     ("llama1b_n4_tied_int8", 4, 2048, 128256, True, None, False),
@@ -794,6 +841,8 @@ EPILOGUE_INT8_SPECS = [
     # generate rows and its int8 serve tick's 8 slots
     ("mixtral_n4_untied_int8", 4, 4096, 32000, False, None, False),
     ("mixtral_n8_untied_int8_serve_tick", 8, 4096, 32000, False, None, False),
+    # the mesh phase's leg c: a rank's half of the int8 tied head
+    ("llama1b_tp2_shard_n2_tied_int8", 2, 2048, 64128, True, None, False),
 ]
 EPILOGUE_MARKERS = {"sample_epilogue": "epilogue_"}
 # how far a planted column's logit lies above its row's best random one:
@@ -803,7 +852,8 @@ PLANT_MARGIN = 0.05
 
 def epilogue_inputs(torch, norms, quantize_array, spec: tuple, i: int, int8: bool):
     """(x, gamma, w, keywords) of epilogue case ``i`` from ``spec``.  Row
-    0's best column is planted at V-1 and row 1's at 0: that row's normed
+    0's best column is planted at V-1 and row 1's (where N > 1) at 0:
+    that row's normed
     vector scaled so that its logit lies ``PLANT_MARGIN`` above the row's
     best random logit.  The other rows see about 1/sqrt(H) of it, far
     below their own best; the planted row's token holds the vocab's first
@@ -819,7 +869,7 @@ def epilogue_inputs(torch, norms, quantize_array, spec: tuple, i: int, int8: boo
     w = (0.02 * torch.randn((vocab, hd) if tied else (hd, vocab), generator=g, device="cuda")).bfloat16()
     xn = norms.rms_norm(x, gamma, eps=1e-6, unit_offset=unit)[:2].float()
     best = (xn @ (w.T if tied else w).float()).max(dim=-1).values
-    for row, col in ((0, vocab - 1), (1, 0)):
+    for row, col in ((0, vocab - 1), (1, 0))[:n]:
         v = xn[row]
         planted = (v * ((best[row] + PLANT_MARGIN) / v.dot(v))).bfloat16()
         if tied:
@@ -836,16 +886,17 @@ def epilogue_inputs(torch, norms, quantize_array, spec: tuple, i: int, int8: boo
 
 
 def plant_needs_full_sum(torch, xn, w, kw) -> bool:
-    """True when rows 0 and 1's logits summed over only the first eighth
-    of H (one of the untied kernel's 8 warp slices) pick neither planted
-    column: the planted tokens are exact only if every slice's dot
-    arrives."""
+    """True when rows 0 and 1's logits (row 0's alone at N = 1) summed
+    over only the first eighth of H (one of the untied kernel's 8 warp
+    slices) pick neither planted column: the planted tokens are exact
+    only if every slice's dot arrives."""
     h8 = xn.shape[-1] // 8
     part = xn[:2, :h8].float() @ (w[:, :h8].T if kw["tied"] else w[:h8]).float()
     if "w_scale" in kw:
         part = part * kw["w_scale"]
     got = torch.argmax(part, dim=-1).tolist()
-    return got[0] != w.shape[0 if kw["tied"] else 1] - 1 and got[1] != 0
+    planted = (w.shape[0 if kw["tied"] else 1] - 1, 0)
+    return all(g != p for g, p in zip(got, planted))
 
 
 def epilogue_library(torch, norms, x, gamma, w, kw):
@@ -859,12 +910,13 @@ def epilogue_library(torch, norms, x, gamma, w, kw):
     return lambda: torch.argmax(torch.matmul(xn, wt), dim=-1)
 
 
-def epilogue_cases(torch, se, norms, quantize_array, int8: bool) -> list[dict]:
+def epilogue_cases(torch, se, norms, quantize_array, int8: bool, names=None) -> list[dict]:
     """The float-head (``sample_epilogue``) or int8-head
-    (``sample_epilogue_int8``) cases; each head is freed after its case."""
+    (``sample_epilogue_int8``) cases (those in ``names``, if given); each
+    head is freed after its case."""
     cases = []
     kernel = "sample_epilogue_int8" if int8 else "sample_epilogue"
-    for i, spec in enumerate(EPILOGUE_INT8_SPECS if int8 else EPILOGUE_SPECS):
+    for i, spec in picked(EPILOGUE_INT8_SPECS if int8 else EPILOGUE_SPECS, names):
         name, n, hd, vocab, tied, cap, unit = spec
         x, gamma, w, kw = epilogue_inputs(torch, norms, quantize_array, spec, i, int8)
         got = se.sample_epilogue(x, gamma, w, **kw)
@@ -876,8 +928,9 @@ def epilogue_cases(torch, se, norms, quantize_array, int8: bool) -> list[dict]:
         if cap is not None:
             logits = torch.tanh(logits / cap) * cap
         err = check_tokens(torch, logits, got, EPILOGUE_TOL)
-        if got[:2].tolist() != [vocab - 1, 0]:
-            raise AssertionError(f"{name}: planted best columns [{vocab - 1}, 0], got {got[:2].tolist()}")
+        if got[:2].tolist() != [vocab - 1, 0][:n]:
+            raise AssertionError(f"{name}: planted best columns {[vocab - 1, 0][:n]}, "
+                                 f"got {got[:2].tolist()}")
         want = torch.argmax(logits, -1).to(torch.int32)
         if {0, vocab - 1} & set(want[2:].tolist()):
             raise AssertionError(f"{name}: a planted column wins an unplanted row: {want.tolist()}")
@@ -886,6 +939,16 @@ def epilogue_cases(torch, se, norms, quantize_array, int8: bool) -> list[dict]:
         plain = se.sample_epilogue_plain(x, gamma, w, **kw)
         if not torch.equal(plain, want):
             raise AssertionError(f"{name}: sample_epilogue_plain disagrees with its own logits")
+        # the row maximum a tensor-parallel head merges its shards by
+        tok_m, best = se.sample_epilogue(x, gamma, w, return_max=True, **kw)
+        plain_tok, plain_best = se.sample_epilogue_plain(x, gamma, w, return_max=True, **kw)
+        torch.cuda.synchronize()
+        max_err = (best - logits.amax(dim=-1)).abs().max().item()
+        plain_max_err = (plain_best - logits.amax(dim=-1)).abs().max().item()
+        if (not torch.equal(tok_m, got) or not torch.equal(plain_tok, want)
+                or max(max_err, plain_max_err) > EPILOGUE_TOL):
+            raise AssertionError(f"{name}: return_max: tokens {tok_m.tolist()} / "
+                                 f"{got.tolist()}, max error {max_err}")
         del logits, xn
         call = lambda: se.sample_epilogue(x, gamma, w, **kw)  # noqa: E731
         ms = time_ms(torch, call, 50)
@@ -901,7 +964,8 @@ def epilogue_cases(torch, se, norms, quantize_array, int8: bool) -> list[dict]:
             nbytes = vocab * hd * 2 + n * hd * 2 + hd * 2 + n * 4
         bms, by = bound(nbytes, 2.0 * n * hd * vocab)
         case = dict(kernel=kernel, case=name, max_abs_err=err, tol=EPILOGUE_TOL,
-                    within_tol=err <= EPILOGUE_TOL, ms=ms, device_ms=dev,
+                    within_tol=err <= EPILOGUE_TOL, row_max_abs_err=max_err, ms=ms,
+                    device_ms=dev,
                     plain_ms=plain_ms, library_ms=lib_ms, library_device_ms=lib_dev,
                     bound_ms=bms, bound_by=by)
         if int8:
@@ -981,16 +1045,20 @@ THREEFRY_OPS = 20 * 3 + 5 * 2 + 2 + 1 + 2
 # flip between the kernel and the plain version (their logs may differ
 # in the last bit): counted as a tie, not an error
 CATEGORICAL_TIE = 1e-5
-# name, N, V: the min-p unified tick's 8 rows first (the path whose
-# launches the summary counts), the min-p Generator's 4 rows, the
-# spec_k=4 tick's 8 x 5 rows, and Gemma-2's vocab
+# name, N, V, row0: the min-p unified tick's 8 rows first (the path
+# whose launches the summary counts), the min-p Generator's 4 rows, the
+# spec_k=4 tick's 8 x 5 rows, and Gemma-2's vocab.  row0 > 0: under one
+# key the N rows are rows row0... of a larger draw (a data-parallel
+# rank's share)
 CATEGORICAL_SPECS = (
-    ("serve_tick_8x128256", 8, 128256),
-    ("generator_4x128256", 4, 128256),
-    ("spec_tick_40x128256", 40, 128256),
-    ("gemma2_vocab_8x256000", 8, 256000),
+    ("serve_tick_8x128256", 8, 128256, 0),
+    ("generator_4x128256", 4, 128256, 0),
+    ("spec_tick_40x128256", 40, 128256, 0),
+    ("gemma2_vocab_8x256000", 8, 256000, 0),
     # the moe phase's min-p serve tick at Mixtral-8x7B's vocab
-    ("mixtral_vocab_serve_tick_8x32000", 8, 32000),
+    ("mixtral_vocab_serve_tick_8x32000", 8, 32000, 0),
+    # the mesh phase's min-p leg: data rank 1's rows 2..3 of the 4
+    ("mesh_data_rank1_2x128256_row0_2", 2, 128256, 2),
 )
 
 
@@ -1014,23 +1082,25 @@ def threefry_known_answers(torch, tr) -> dict:
     return {k: dict(ok=g == ka[k]) for k, g in got.items()}
 
 
-def threefry_cases(torch, tr, tfk) -> list[dict]:
+def threefry_cases(torch, tr, tfk, names=None) -> list[dict]:
     """``threefry2x32`` (the serve tick's row keys first: fold_in of 8
     seeds and positions; then the words of a [4, 128256] draw) and
-    ``categorical`` (CATEGORICAL_SPECS) against their plain versions:
-    words equal, tokens equal (flips under CATEGORICAL_TIE are ties);
-    events and device ms, the plain version's, the bound, and for the
-    draw the exponential race the port drew with before (softmax,
-    ``exponential_``, divide, argmax) as the yardstick."""
+    ``categorical`` (CATEGORICAL_SPECS) against their plain versions (the
+    cases in ``names``, if given): words equal, tokens equal (flips under
+    CATEGORICAL_TIE are ties); a draw at row0 > 0 also equal to those
+    rows of the whole draw; events and device ms, the plain version's,
+    the bound, and for the draw the exponential race the port drew with
+    before (softmax, ``exponential_``, divide, argmax) as the
+    yardstick."""
     known = threefry_known_answers(torch, tr)
     known_ok = all(v["ok"] for v in known.values())
     cases = []
     seeds = torch.arange(8, dtype=torch.int32, device="cuda") * 7919 + 5
     pos = torch.arange(8, dtype=torch.int32, device="cuda") * 61 + 100
     keys = tr.PRNGKey(seeds)
-    for name, n, cols, data, mode in (
+    for _, (name, n, cols, data, mode) in picked((
             ("serve_tick_row_keys_8", 8, 1, pos, tr.PAIR),
-            ("words_4x128256", 4 * 128256, 4 * 128256, None, tr.BITS)):
+            ("words_4x128256", 4 * 128256, 4 * 128256, None, tr.BITS)), names):
         k = keys if data is not None else tr.PRNGKey(42, "cuda")
         call = lambda: tfk.threefry2x32(k, n, cols, data, mode)  # noqa: E731
         got = call()
@@ -1052,27 +1122,32 @@ def threefry_cases(torch, tr, tfk) -> list[dict]:
                           bound_ms=bms, bound_by=by, device_ms=dev,
                           bound_share=bms / dev if dev else None))
 
-    def draw_check(k, logits) -> tuple[bool, int, int]:
+    def draw_check(k, logits, row0: int = 0, want=None) -> tuple[bool, int, int]:
         """(tokens equal but for ties, flips, flips at a tie) of the
-        kernel's draw against the plain version's under keys ``k``."""
+        kernel's draw under keys ``k`` against ``want``, by default the
+        plain version's."""
         n, v = logits.shape
-        got = tfk.categorical(k, logits)
+        got = tfk.categorical(k, logits, row0)
         torch.cuda.synchronize()
-        want = tr.categorical_plain(k, logits)
-        top2 = torch.topk(tr.gumbel(k, (n, v)) + logits, 2).values
+        if want is None:
+            want = tr.categorical_plain(k, logits, row0)
+        top2 = torch.topk(tr.gumbel(k, (row0 + n, v))[row0:] + logits, 2).values
         ties = (top2[:, 0] - top2[:, 1]) < CATEGORICAL_TIE
         flips = got != want
         return bool((~flips | ties).all()), int(flips.sum()), int((flips & ties).sum())
 
-    for i, (name, n, v) in enumerate(CATEGORICAL_SPECS):
+    for i, (name, n, v, row0) in picked(CATEGORICAL_SPECS, names):
         g = torch.Generator(device="cuda").manual_seed(900 + i)
-        logits = 3.0 * torch.randn((n, v), generator=g, device="cuda")
+        whole = 3.0 * torch.randn((row0 + n, v), generator=g, device="cuda")
+        logits = whole[row0:].contiguous()
         k = tr.PRNGKey(i, "cuda")
-        ok, flips, tie_flips = draw_check(k, logits)
-        ok_rows, flips_rows, tie_flips_rows = draw_check(tr.split(k, n), logits)
-        first = dict(ok=ok and ok_rows and known_ok, flips=flips + flips_rows,
-                     ties_flipped=tie_flips + tie_flips_rows)
-        call = lambda: tfk.categorical(k, logits)  # noqa: E731
+        checks = [draw_check(k, logits, row0), draw_check(tr.split(k, n), logits)]
+        if row0:  # the same rows of the whole draw, as one rank of the batch sees them
+            checks.append(draw_check(k, logits, row0, tfk.categorical(k, whole)[row0:]))
+        del whole
+        first = dict(ok=all(c[0] for c in checks) and known_ok, flips=sum(c[1] for c in checks),
+                     ties_flipped=sum(c[2] for c in checks))
+        call = lambda: tfk.categorical(k, logits, row0)  # noqa: E731
         race = lambda: torch.argmax(  # noqa: E731
             torch.softmax(logits, dim=-1) / torch.empty_like(logits).exponential_(), dim=-1)
         bms, by = bound(n * v * 4 + 8 + n * 4, THREEFRY_OPS * n * v, INT32_OPS_PER_S)
@@ -1082,9 +1157,11 @@ def threefry_cases(torch, tr, tfk) -> list[dict]:
                           max_abs_err=float(first["flips"] - first["ties_flipped"]),
                           tokens_equal=first["ok"], flips=first["flips"],
                           ties_flipped=first["ties_flipped"], tie_margin=CATEGORICAL_TIE,
-                          keys="one key, and a key a row",
-                          within_tol=first["ok"], ms=time_ms(torch, call, 100),
-                          plain_ms=time_ms(torch, lambda: tr.categorical_plain(k, logits), 10),
+                          keys="one key, and a key a row" + (
+                              f"; rows {row0}.. of the whole draw" if row0 else ""),
+                          row0=row0, within_tol=first["ok"], ms=time_ms(torch, call, 100),
+                          plain_ms=time_ms(torch, lambda: tr.categorical_plain(k, logits, row0),
+                                           10),
                           library_ms=None,
                           library="none: no PyTorch call draws jax's stream",
                           race_ms=time_ms(torch, race, 100),
@@ -4533,12 +4610,26 @@ def cli_phase(torch, np, kernels: dict, card: str) -> dict:
     del params
     gc.collect()
     torch.cuda.empty_cache()
+
+    # -- a multi-rank --mesh on --backend cuda wants a card a rank (NCCL):
+    # on one card it refuses with JAX's make_mesh message, spawning nothing
+    want_refusal = f"plan needs 2 devices, have {torch.cuda.device_count()}"
+    try:
+        cli_run(cli, base + ["--mesh=1,1,2", "--sampler=greedy", "--max-tokens=2"],
+                os.path.join(logs, "mesh.log"))
+        refusal = None
+    except ValueError as e:
+        refusal = str(e)
+    mesh_refusal = dict(argv=rel(base + ["--mesh=1,1,2"]), raised=refusal, want=want_refusal)
+    if torch.cuda.device_count() < 2 and refusal != want_refusal:
+        checks.append(f"cli --mesh on one card: {mesh_refusal}")
     summary = {}
     for name in kernels:
         summary[name] = sum(v["launches"].get(name, 0) for v in legs.values())
     return dict(phase="cli", model=CLI_MODEL, layers=layers, weights="seeded random bf16",
                 card=card, checkpoint=dict(ckpt, load_s=load_s, loads_as_seeded=same),
-                legs=legs, serve=serve, launches=summary, checks=checks, ok=not checks)
+                legs=legs, serve=serve, mesh_refusal=mesh_refusal, launches=summary,
+                checks=checks, ok=not checks)
 
 
 def restart_phase(torch, np, card: str) -> dict:
@@ -6212,6 +6303,319 @@ def moe_phase(torch, np, kernels: dict, card: str) -> dict:
                 launches_total=launches_total, checks=checks,
                 phase_s=time.perf_counter() - t_phase, ok=all(checks.values()))
 
+# the mesh phase: generation over a 4-rank mesh on this one card.  The
+# ranks are processes on cuda:0 joined over gloo, whose collectives stage
+# every CUDA tensor through host memory (NCCL will not put two ranks on
+# one GPU), so its times are one card shared by 4 ranks, not a multi-GPU
+# figure.  Llama-3.2-1B at full widths and depth on the main path's
+# seeded bf16 weights.  Leg a: seq 2 x model 2, ring prefill of a
+# 2047-token prompt (the seq axis pads it to 2048) and 32 greedy tokens;
+# leg b: data 2 x model 2 at B=4 x 128-token prompts, greedy and min-p;
+# leg c: leg b's greedy run on int8 weights.
+MESH_RANKS = 4
+MESH_LEGS = {
+    "a_seq2_model2_ring": dict(plan=dict(seq=2, model=2), batch=1, prompt=2047, new=32,
+                               sampler=dict(kind="greedy"), prefill="ring"),
+    "b_data2_model2_greedy": dict(plan=dict(data=2, model=2), batch=4, prompt=128, new=32,
+                                  sampler=dict(kind="greedy"), prefill="flash"),
+    "b_data2_model2_min_p": dict(plan=dict(data=2, model=2), batch=4, prompt=128, new=32,
+                                 sampler=dict(kind="min_p", p_base=0.1), prefill="flash",
+                                 seed=5),
+    "c_data2_model2_int8": dict(plan=dict(data=2, model=2), batch=4, prompt=128, new=32,
+                                sampler=dict(kind="greedy"), prefill="flash", quantize=8),
+}
+MESH_WARMUP_TOKENS = 2
+MESH_TIMEOUT_S = 600.0
+# a sampled draw whose margin (``draw_margins``, over the plain forward's
+# logits) is under this may go either way between the mesh and the
+# one-rank path: their bf16 logits differ by summation order, within the
+# teacher-forced tolerance of the plain forward
+MESH_NEAR_TIE = TEACHER_TOL
+
+
+def mesh_prompts(np, cfg, leg: dict):
+    """A leg's prompts [B, S], seeded by its shape."""
+    rng = np.random.default_rng(1000 + leg["prompt"] + leg["batch"])
+    return rng.integers(0, cfg.vocab_size, size=(leg["batch"], leg["prompt"]))
+
+
+def mesh_counters() -> dict:
+    """The mesh path's launch counters: name → (wrapper, attribute)."""
+    from llm_np_cp_tpu_torch.ops.cuda import decode_attention as da
+    from llm_np_cp_tpu_torch.ops.cuda import flash_attention as fa
+    from llm_np_cp_tpu_torch.ops.cuda import sample_epilogue as se
+    from llm_np_cp_tpu_torch.ops.cuda import threefry as tfk
+
+    return {"flash_attention": (fa.flash_attention, "launches"),
+            "decode_attention": (da.decode_attention, "launches"),
+            "decode_attention_combine": (da.decode_attention, "combine_launches"),
+            "sample_epilogue": (se.sample_epilogue, "launches"),
+            "sample_epilogue_int8": (se.sample_epilogue, "launches_int8"),
+            "threefry2x32": (tfk.threefry2x32, "launches"),
+            "categorical": (tfk.categorical, "launches")}
+
+
+def mesh_rank(rank: int, legs: dict) -> dict:
+    """One rank of the mesh phase, a spawned process on cuda:0 over gloo:
+    per leg its mesh, its shards of the seeded weights and a
+    ``Generator(mesh=)``; a short warm-up run, then the counted run.
+    Returns each leg's tokens (the whole batch's), TTFT, decode rate,
+    wall, this rank's kernel launches and collective calls."""
+    import numpy as np
+    import torch
+
+    from llm_np_cp_tpu_torch.config import PRESETS
+    from llm_np_cp_tpu_torch.generate import Generator
+    from llm_np_cp_tpu_torch.models.transformer import init_params
+    from llm_np_cp_tpu_torch.ops.sampling import Sampler
+    from llm_np_cp_tpu_torch.parallel import collectives
+    from llm_np_cp_tpu_torch.parallel.sharding import MeshPlan, make_mesh, shard_params
+    from llm_np_cp_tpu_torch.quant import quantize_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    cfg = PRESETS["meta-llama/Llama-3.2-1B"]
+    full = init_params(0, cfg, torch.bfloat16, device=dev)
+    counters = mesh_counters()
+    out = {}
+    for name, leg in legs.items():
+        params = quantize_params(full, bits=leg["quantize"]) if leg.get("quantize") else full
+        mesh = make_mesh(MeshPlan(**leg["plan"]), device=dev, backend="gloo")
+        local = shard_params(params, cfg, mesh.plan, mesh)
+        del params
+        gen = Generator(local, cfg, sampler=Sampler(**leg["sampler"]),
+                        prefill_attn_impl=leg["prefill"], decode_attn_impl="flash_decode",
+                        mesh=mesh)
+        prompts = mesh_prompts(np, cfg, leg)
+        seed = leg.get("seed", 0)
+        gen.generate(prompts, MESH_WARMUP_TOKENS, seed=seed)
+        reset_counts(counters)
+        collectives.reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        res = gen.generate(prompts, leg["new"], seed=seed)
+        torch.cuda.synchronize()
+        out[name] = dict(tokens=res.tokens.tolist(), ttft_s=res.ttft_s,
+                         decode_tok_s_per_seq=res.decode_tokens_per_s,
+                         wall_s=time.perf_counter() - t0, steps=res.steps,
+                         launches=read_counts(counters), collectives=collectives.counts(),
+                         compile_counts=gen.compile_counts(), epilogue=gen.epilogue_impl,
+                         coords=mesh.coords, backend=mesh.backend,
+                         peak_allocated_bytes=torch.cuda.max_memory_allocated(dev))
+        del gen, local
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_implied(torch, cfg, leg: dict) -> dict:
+    """The launches one rank's counted run implies: a flash prefill
+    launches once a layer, every decode step the slab kernel once a layer
+    (and its combine where the rank's split plan splits), the greedy tail
+    the (float or int8) epilogue once a step, min-p the categorical once a
+    token (the prefill's draw and each step's)."""
+    from llm_np_cp_tpu_torch.cache import align_capacity
+    from llm_np_cp_tpu_torch.ops.cuda import decode_attention as da
+
+    plan = leg["plan"]
+    tp, dp = plan.get("model", 1), plan.get("data", 1)
+    layers, steps = cfg.num_hidden_layers, leg["new"] - 1
+    b = leg["batch"] // dp if leg["batch"] % dp == 0 else leg["batch"]
+    kh = cfg.num_key_value_heads // tp
+    nsplit = da.split_plan(b, kh, align_capacity(leg["prompt"] + leg["new"]), cfg.head_dim,
+                           da.sm_count(torch.device("cuda")), cfg.num_query_groups)
+    greedy = leg["sampler"]["kind"] == "greedy"
+    epi = "sample_epilogue_int8" if leg.get("quantize") else "sample_epilogue"
+    want = {name: 0 for name in mesh_counters()}
+    want.update(flash_attention=layers if leg["prefill"] == "flash" else 0,
+                decode_attention=layers * steps,
+                decode_attention_combine=layers * steps * int(nsplit > 1))
+    if greedy:
+        want[epi] = steps
+    else:
+        want["categorical"] = leg["new"]
+        want["threefry2x32"] = 2  # the prefill's and the loop's keys
+    return want
+
+
+def draw_margins(torch, sampler, g, logits):
+    """How far the logits ``[N, V]`` of a Gumbel-max draw under noise ``g``
+    may move before the draw can change, per row: the top-two gap of
+    gumbel + filtered logits; for min-p also the distance to the keep
+    threshold of the winner and of every masked token whose gumbel +
+    logit beats it (either may fall on the other side of the threshold).
+    Returns (margin, top-two gap)."""
+    import math
+
+    z = g + sampler.filtered_logits(logits)
+    top2 = torch.topk(z, 2).values
+    gap = top2[:, 0] - top2[:, 1]
+    if sampler.kind != "min_p":
+        return gap, gap
+    lg = logits.float() / sampler.temperature
+    d = (lg - (lg.amax(dim=-1, keepdim=True) + math.log(sampler.p_base))).abs()
+    za = g + lg
+    w = z.argmax(dim=-1, keepdim=True)
+    beats = za > za.gather(-1, w)
+    near = torch.where(beats, d, torch.inf).amin(dim=-1)
+    return torch.minimum(gap, torch.minimum(near, d.gather(-1, w)[:, 0])), gap
+
+
+def generator_margins(torch, forward, params, cfg, sampler, prompts, tokens, seed: int):
+    """The margins ``[B, n]`` (``draw_margins``: the margin and the
+    top-two gap) of each draw of ``Generator.generate`` that emitted
+    ``tokens`` (one key over the whole batch: the prefill's ``k_pre``,
+    step i's ``split(k_loop, n - 1)[i]``), over the plain cache-less
+    forward's logits behind each token."""
+    from llm_np_cp_tpu_torch import random as tr
+
+    b, n = tokens.shape
+    k_pre, k_loop = tr.split(tr.PRNGKey(seed, "cuda"))
+    keys = [k_pre] + (list(tr.split(k_loop, n - 1)) if n > 1 else [])
+    ids = torch.cat([torch.as_tensor(prompts, device="cuda"),
+                     torch.as_tensor(tokens[:, :-1], device="cuda")], dim=1).long()
+    logits, _ = forward(params, ids, cfg, None)
+    rows = logits[:, prompts.shape[1] - 1:].float()
+    del logits
+    margins, gaps = [], []
+    for t, key in enumerate(keys):
+        m, gap = draw_margins(torch, sampler, tr.gumbel(key, (b, rows.shape[-1])), rows[:, t])
+        margins.append(m.cpu())
+        gaps.append(gap.cpu())
+    return torch.stack(margins, dim=1).numpy(), torch.stack(gaps, dim=1).numpy()
+
+
+def prefix_parity(want, got, margins, gaps, near_tie: float) -> dict:
+    """Each row of ``got`` equal to that of ``want`` up to its first
+    difference, which must fall on a draw whose margin along ``want`` is
+    under ``near_tie``: the tokens compared, and per row where it parted,
+    the margin and the top-two gap there."""
+    rows, compared, ok = [], 0, True
+    for w, g, m, gap in zip(want, got, margins, gaps):
+        d = next((t for t, (x, y) in enumerate(zip(w, g)) if x != y), None)
+        if d is None:
+            rows.append(dict(parted_at=None, margin=None, top2_gap=None))
+            compared += len(w)
+            continue
+        rows.append(dict(parted_at=d, margin=float(m[d]), top2_gap=float(gap[d])))
+        compared += d
+        ok = ok and bool(m[d] < near_tie)
+    return dict(rows=rows, tokens_compared=compared, near_tie=near_tie, ok=ok)
+
+
+def mesh_phase(torch, np, card: str) -> dict:
+    """Generation over a mesh on the card: the four legs of ``MESH_LEGS``
+    in one spawned group of ``MESH_RANKS`` ranks (``mesh_rank``), each
+    leg's tokens held to the one-rank path (teacher forcing against the
+    cache-less plain forward and its cached twin; min-p equal to the
+    one-rank ``Generator``'s tokens up to a near-tie, and inside the
+    sampler's support), its first divergence from the one-rank
+    ``Generator`` printed, and every rank's launches equal to what the
+    leg implies."""
+    import gc
+    from types import SimpleNamespace
+
+    from llm_np_cp_tpu_torch.cache import KVCache
+    from llm_np_cp_tpu_torch.config import PRESETS
+    from llm_np_cp_tpu_torch.generate import Generator
+    from llm_np_cp_tpu_torch.models.transformer import forward, init_params
+    from llm_np_cp_tpu_torch.ops.sampling import Sampler
+    from llm_np_cp_tpu_torch.parallel.launch import run_ranks
+    from llm_np_cp_tpu_torch.quant import quantize_params
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = PRESETS["meta-llama/Llama-3.2-1B"]
+    t0 = time.perf_counter()
+    ranks = run_ranks(mesh_rank, MESH_RANKS, MESH_LEGS, backend="gloo",
+                      timeout_s=MESH_TIMEOUT_S)
+    group_s = time.perf_counter() - t0
+    dev = torch.device("cuda")
+    full = init_params(0, cfg, torch.bfloat16, device="cuda")
+    checks: list[str] = []
+    legs = {}
+    for name, leg in MESH_LEGS.items():
+        params = quantize_params(full, bits=leg["quantize"]) if leg.get("quantize") else full
+        r0 = ranks[0][name]
+        tokens = np.asarray(r0["tokens"])
+        prompts = mesh_prompts(np, cfg, leg)
+        if any(r[name]["tokens"] != r0["tokens"] for r in ranks[1:]):
+            checks.append(f"mesh {name}: the ranks returned different tokens")
+        if tokens.shape != (leg["batch"], leg["new"]):
+            checks.append(f"mesh {name}: tokens {tokens.shape}")
+        sampler = Sampler(**leg["sampler"])
+        one = Generator(params, cfg, sampler=sampler, decode_attn_impl="flash_decode",
+                        prefill_attn_impl="flash")
+        ref = one.generate(prompts, leg["new"], seed=leg.get("seed", 0)).tokens
+        del one
+        diverge = [first_divergence(torch, forward, params, cfg, prompts[i], list(ref[i]),
+                                    list(tokens[i])) for i in range(leg["batch"])]
+        agree = [int(j) for j in ((ref != tokens).argmax(axis=1))]
+        first = [None if d is None else agree[i] for i, d in enumerate(diverge)]
+        print(f"mesh {name}: first divergence from the one-rank Generator per row "
+              f"(token index, plain top-2 gap there): {list(zip(first, diverge))}", flush=True)
+        if leg["sampler"]["kind"] == "greedy":
+            tol = TEACHER_TOL
+            check = teacher_forced(torch, forward, KVCache, params, cfg,
+                                   torch.as_tensor(prompts, device=dev),
+                                   torch.as_tensor(tokens, device=dev), tol=tol)
+        else:
+            check = sampled_support(torch, forward, params, cfg, sampler, [
+                SimpleNamespace(prompt=prompts[i], generated=list(tokens[i]))
+                for i in range(leg["batch"])])
+            # each data rank's rows drew the whole batch's bits: a rank
+            # drawing another row's would part from the one-rank tokens at
+            # a draw that is no near-tie
+            margins, gaps = generator_margins(torch, forward, params, cfg, sampler, prompts,
+                                              ref, leg.get("seed", 0))
+            check["one_rank_prefix"] = prefix_parity(ref, tokens, margins, gaps, MESH_NEAR_TIE)
+            print(f"mesh {name}: against the one-rank tokens up to a near-tie: "
+                  f"{check['one_rank_prefix']}", flush=True)
+            check["ok"] = check["ok"] and check["one_rank_prefix"]["ok"]
+        if not check["ok"]:
+            checks.append(f"mesh {name}: {check}")
+        want = mesh_implied(torch, cfg, leg)
+        per_rank = [r[name]["launches"] for r in ranks]
+        if any(got != want for got in per_rank):
+            checks.append(f"mesh {name}: per-rank launches {per_rank} != implied {want}")
+        colls = [r[name]["collectives"] for r in ranks]
+        if not all(c["all_reduce"]["calls"] > 0 and c["all_reduce"]["staged"] ==
+                   c["all_reduce"]["calls"] for c in colls):
+            checks.append(f"mesh {name}: collectives not all host-staged over gloo: {colls}")
+        if any(r[name]["compile_counts"] != {"decode_step": 0, "decode_step_eager": 1}
+               for r in ranks):
+            checks.append(f"mesh {name}: decode steps {[r[name]['compile_counts'] for r in ranks]}")
+        legs[name] = dict(
+            plan=leg["plan"], batch=leg["batch"], prompt_len=leg["prompt"], new_tokens=leg["new"],
+            sampler=leg["sampler"], prefill=leg["prefill"], weights=(
+                f"int{leg['quantize']}" if leg.get("quantize") else "bf16"),
+            timing_note=f"one card shared by {MESH_RANKS} ranks over gloo (host-staged "
+                        "collectives, eager decode steps): not a multi-GPU figure",
+            ttft_s=r0["ttft_s"], decode_tok_s_per_seq=r0["decode_tok_s_per_seq"],
+            decode_tok_s=r0["decode_tok_s_per_seq"] * leg["batch"], wall_s=r0["wall_s"],
+            ranks=[dict(coords=r[name]["coords"], launches=r[name]["launches"],
+                        collectives=r[name]["collectives"],
+                        peak_allocated_bytes=r[name]["peak_allocated_bytes"],
+                        ttft_s=r[name]["ttft_s"]) for r in ranks],
+            implied=want, backend=r0["backend"], epilogue=r0["epilogue"],
+            compile_counts=r0["compile_counts"], first_divergence=dict(
+                token=first, plain_top2_gap=diverge), check=check)
+        del params
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches_total = {}
+    for name in mesh_counters():
+        launches_total[name] = sum(r[leg]["launches"][name] for r in ranks for leg in MESH_LEGS)
+    return dict(phase="mesh", model="meta-llama/Llama-3.2-1B", layers=cfg.num_hidden_layers,
+                weights="seeded random bf16", card=card, ranks=MESH_RANKS, device="cuda:0",
+                backend="gloo", staging="every collective copies its CUDA tensor to the host "
+                "and back (a gloo group)", group_s=group_s, legs=legs,
+                teacher_tol=TEACHER_TOL, launches_total=launches_total, checks=checks,
+                phase_s=time.perf_counter() - t_phase, ok=not checks)
+
+
 KERNEL_META = {
     "flash_attention": ("llm_np_cp_tpu_torch/csrc/flash_attention.cu",
                         "llm_np_cp_tpu/ops/pallas/flash_attention.py:180"),
@@ -6402,6 +6806,15 @@ def main() -> int:
             if n == 0 and not name.endswith("_combine")]
     if idle:
         raise AssertionError(f"moe phase: kernels never launched on its path: {idle}")
+    me = mesh_phase(torch, np, smi)
+    record(me)
+    if not me["ok"]:
+        raise AssertionError("mesh checks failed: " + json.dumps(me["checks"], default=str))
+    idle = [name for name in ("flash_attention", "decode_attention", "sample_epilogue",
+                              "sample_epilogue_int8", "categorical")
+            if not me["launches_total"][name]]
+    if idle:
+        raise AssertionError(f"mesh phase: kernels never launched on its path: {idle}")
 
     path_launches = dict(mp["launches"])
     path_launches["ragged_paged_attention"] = sv["legs"]["A_mixed"]["launches"][
@@ -6439,6 +6852,7 @@ def main() -> int:
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"], bound_by=c["bound_by"],
             library_ms=c["library_ms"], case=c["case"], cli_launches=clp["launches"].get(name),
             moe_launches=mo["launches_total"].get(name),
+            mesh_launches=me["launches_total"].get(name),
             **{k: c[k] for k in ("library", "gather_ms", "nsplit", "device_ms", "race_ms")
                if k in c},
         ))

@@ -23,7 +23,10 @@ prompt-lookup drafts verified in the captured unified tick).  The
 command line, ``python -m llm_np_cp_tpu_torch.cli`` (generation,
 ``serve-bench`` and ``serve``), drives every layer from a local
 checkpoint directory (``utils/loading.load_model``); ``--backend numpy``
-runs the fp32 NumPy oracle (``backends/numpy_ref.py``).
+runs the fp32 NumPy oracle (``backends/numpy_ref.py``).  Generation
+runs over a mesh (``parallel/``: tensor, data and sequence parallelism
+over ``torch.distributed``, ring attention, ``Generator(mesh=)`` and the
+CLI's ``--mesh``).
 
 Entry points take ``device=`` and default to ``"cuda"``; they raise when
 no card is present unless the caller asks for ``"cpu"``.

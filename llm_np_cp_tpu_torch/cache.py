@@ -80,16 +80,19 @@ class KVCache:
         dtype: torch.dtype = torch.bfloat16,
         *,
         device: str | torch.device = "cuda",
+        kv_heads: int | None = None,
     ) -> "KVCache":
         """Allocate zeroed slabs with capacity ``max_seq_len`` on ``device``
         (callers that derive capacity from request shapes round it up with
-        ``align_capacity`` first; ``init`` honours the exact value)."""
+        ``align_capacity`` first; ``init`` honours the exact value).
+        ``kv_heads``: the KV heads a rank holds under a tensor-parallel
+        mesh (``parallel.sharding.local_kv_heads``); default all."""
         dev = resolve_device(device)
         shape = (
             config.num_hidden_layers,
             batch_size,
             max_seq_len,
-            config.num_key_value_heads,
+            kv_heads or config.num_key_value_heads,
             config.head_dim,
         )
         quantized = dtype == torch.int8
@@ -109,6 +112,10 @@ class KVCache:
     @property
     def max_seq_len(self) -> int:
         return self.k.shape[2]
+
+    def positions(self) -> torch.Tensor:
+        """Absolute position of every cache slot: ``[S_max]`` int32."""
+        return torch.arange(self.max_seq_len, dtype=torch.int32, device=self.k.device)
 
 
 def truncate(cache: KVCache, new_length: int | torch.Tensor) -> KVCache:

@@ -31,8 +31,16 @@ What differs from the JAX CLI:
 - ``--decode-attn pallas`` and ``--jax-profile`` keep their spelling (one
   argv drives both CLIs) and select the CUDA decode kernels and a
   ``torch.profiler`` trace;
-- ``--mesh`` and ``--attn-impl ring`` raise ``NotImplementedError``
-  before any model loads (parallelism is not ported yet);
+- generation's ``--mesh`` runs the plan's ranks as processes
+  (``parallel/launch.py``): when this process is not already a rank
+  (no ``WORLD_SIZE``), the CLI loads the model once and spawns the ranks
+  itself — gloo on ``--backend cpu``, NCCL on ``--backend cuda``, where
+  a plan needs a card a rank (``plan needs N devices, have M``) — and
+  each builds ``Generator(mesh=)`` over its shards; rank 0's tokens come
+  back and this process prints the text.  ``--attn-impl ring`` needs a
+  "seq" axis > 1.  ``--speculative`` under a mesh and serve ``--mesh``
+  raise ``NotImplementedError`` before any model loads (ROADMAP.md queue
+  1 item 8b);
 - ``--hbm-gbps`` defaults to the H100's 3350 GB/s.
 """
 
@@ -47,8 +55,8 @@ import numpy as np
 
 # the spelling of "no mesh" in each parser (generation: data,seq,model)
 _NO_MESH = {"generate": "1,1,1", "serve": ""}
-_NOT_PORTED = ("is not ported to the PyTorch port yet (ROADMAP.md queue 1 item 8: "
-               "parallel/*, mesh_plan and mesh-sharded serving)")
+_NOT_PORTED = ("is not ported to the PyTorch port yet (ROADMAP.md queue 1 item 8b: "
+               "the engine's mesh_plan and mesh-sharded serving)")
 
 
 def _reject_tpu(backend: str) -> str:
@@ -108,8 +116,9 @@ def build_parser(default_model: str) -> argparse.ArgumentParser:
                         "activation quant (int8 x int8 products; lossier, "
                         "opt-in)")
     p.add_argument("--mesh", default=_NO_MESH["generate"],
-                   help="data,seq,model parallel degrees (not ported: any "
-                        "other value than 1,1,1 raises)")
+                   help="data,seq,model parallel degrees (or named axes "
+                        "data=2,model=2): one rank a process, spawned by "
+                        "the CLI unless it runs as a rank already")
     p.add_argument("--max-seq-len", type=int, default=None,
                    help="KV cache capacity (default: prompt + max tokens)")
     p.add_argument("--no-cache", action="store_true",
@@ -119,8 +128,9 @@ def build_parser(default_model: str) -> argparse.ArgumentParser:
                         "streaming")
     p.add_argument("--attn-impl", choices=["xla", "flash", "ring"], default=None,
                    help="prefill attention: xla (default: plain torch ops), "
-                        "flash (the CUDA flash_attention kernel), ring (not "
-                        "ported: raises)")
+                        "flash (the CUDA flash_attention kernel), ring "
+                        "(sequence-parallel ring attention; needs --mesh "
+                        "with seq>1)")
     p.add_argument("--flash-prefill", action="store_true",
                    help=argparse.SUPPRESS)  # deprecated alias: --attn-impl flash
     p.add_argument("--prefill-chunk", type=int, default=None, metavar="N",
@@ -1259,19 +1269,113 @@ def _sample_np(logits: np.ndarray, args, rng: np.random.Generator) -> int:
     return int(rng.choice(len(p), p=p))
 
 
+def _rank_generator(plan, on_cuda: bool, params, config, gen_kwargs: dict):
+    """This rank's ``Generator(mesh=)``: its mesh (a card a rank on CUDA,
+    the CPU otherwise) and its shards of ``params``."""
+    from llm_np_cp_tpu_torch.generate import Generator
+    from llm_np_cp_tpu_torch.parallel.sharding import make_mesh, shard_params
+
+    mesh = make_mesh(plan, device=None if on_cuda else "cpu")
+    return Generator(shard_params(params, config, plan, mesh), config, mesh=mesh, **gen_kwargs)
+
+
+def _mesh_rank(rank: int, plan, on_cuda: bool, params, config, gen_kwargs: dict,
+               method: str, call_args: tuple, call_kwargs: dict):
+    """One spawned rank of a ``--mesh`` run: ``method`` of its
+    ``Generator(mesh=)``, called as every rank calls it.  ``"stream"``
+    returns ``(token ids, ttft s, duration s)``."""
+    gen = _rank_generator(plan, on_cuda, params, config, gen_kwargs)
+    if method != "stream":
+        return getattr(gen, method)(*call_args, **call_kwargs)
+    t0 = time.perf_counter()
+    ids, ttft = [], None
+    for t in gen.stream(*call_args, **call_kwargs):
+        ttft = time.perf_counter() - t0 if ttft is None else ttft
+        ids.append(t)
+    return ids, ttft, time.perf_counter() - t0
+
+
+def _on_host(tree):
+    """A param tree's tensors on the CPU."""
+    return {k: _on_host(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.cpu()
+
+
+class _MeshGenerator:
+    """``Generator``'s calls over spawned ranks: each call starts the
+    plan's ranks (``parallel.launch.run_ranks``; gloo on the CPU, NCCL on
+    CUDA), which build ``Generator(mesh=)`` over their shards of the
+    loaded params and make the call; rank 0's result comes back.  The
+    params go to the ranks from the CPU (shared memory), and each rank
+    moves its own shards to its card.  Text stays in this process:
+    ``stream_text`` streams ids on the ranks and detokenizes here."""
+
+    def __init__(self, plan, on_cuda: bool, params, config, gen_kwargs: dict) -> None:
+        self.plan, self.on_cuda = plan, on_cuda
+        self.params, self.config, self.gen_kwargs = _on_host(params), config, gen_kwargs
+        self.last_stream_stats: dict[str, Any] = {}
+
+    def _call(self, method: str, *a, **kw):
+        from llm_np_cp_tpu_torch.parallel.launch import run_ranks
+
+        return run_ranks(_mesh_rank, self.plan.num_devices, self.plan, self.on_cuda,
+                         self.params, self.config, self.gen_kwargs, method, a, kw,
+                         backend="nccl" if self.on_cuda else "gloo")[0]
+
+    def generate(self, *a, **kw):
+        return self._call("generate", *a, **kw)
+
+    def generate_ragged(self, *a, **kw):
+        return self._call("generate_ragged", *a, **kw)
+
+    def generate_many(self, *a, **kw):
+        return self._call("generate_many", *a, **kw)
+
+    def stream_text(self, tokenizer, prompt: str, max_new_tokens: int, *, seed: int = 0,
+                    echo=None) -> str:
+        from llm_np_cp_tpu_torch.generate import IncrementalDetok
+
+        prompt_ids = tokenizer(prompt, return_tensors="np")["input_ids"][0]
+        ids, ttft, duration = self._call("stream", prompt_ids, max_new_tokens, seed=seed)
+        detok = IncrementalDetok(tokenizer)
+        for t in ids:
+            delta = detok.push(t)
+            if echo and delta:
+                echo(delta)
+        tail = detok.flush()
+        if echo and tail:
+            echo(tail)
+        self.last_stream_stats = {"tokens": len(ids), "ttft_s": ttft, "duration_s": duration}
+        return detok.emitted
+
+
+def _mesh_plan(args):
+    """``--mesh`` as a plan, with the JAX CLI's refusal of the training
+    axes (checked before the model load)."""
+    from llm_np_cp_tpu_torch.parallel.sharding import parse_mesh_spec
+
+    plan = parse_mesh_spec(args.mesh)
+    if plan.pipe > 1 or plan.expert > 1:
+        raise SystemExit(
+            "pipe/expert parallelism are training-side axes "
+            "(python -m llm_np_cp_tpu.train); inference meshes use "
+            "data/seq/model"
+        )
+    return plan
+
+
 def _run_torch(args) -> str:
     """The torch path on ``--backend`` cuda or cpu (the JAX CLI's
-    ``_run_tpu``): ``Generator`` or ``SpeculativeGenerator``."""
+    ``_run_tpu``): ``Generator`` or ``SpeculativeGenerator``; under a
+    multi-rank ``--mesh``, ``Generator(mesh=)`` on every rank."""
+    import os
+
     import torch
 
     from llm_np_cp_tpu_torch.generate import Generator
     from llm_np_cp_tpu_torch.ops.sampling import Sampler
+    from llm_np_cp_tpu_torch.parallel.sharding import device_count_error
 
-    # parallelism is not ported: refuse before the (long) model load
-    if args.mesh != _NO_MESH["generate"]:
-        raise NotImplementedError(f"--mesh {args.mesh!r} {_NOT_PORTED}")
-    if args.attn_impl == "ring":
-        raise NotImplementedError(f"--attn-impl ring {_NOT_PORTED}")
+    plan = _mesh_plan(args)
     device = _device(args)
     label = f"[{device.type}]"
 
@@ -1285,6 +1389,13 @@ def _run_torch(args) -> str:
             params, bits=4 if args.quantize.startswith("int4") else 8,
             act_quant=args.quantize.endswith("_a8"),
         )
+    multi = plan.num_devices > 1
+    in_rank = multi and "WORLD_SIZE" in os.environ  # launched as a rank (torchrun)
+    if multi:
+        plan.validate(config)
+        err = device_count_error(plan, None if device.type == "cuda" else "cpu", None)
+        if err:
+            raise ValueError(err)
 
     if args.speculative > 0 and (
         args.attn_impl or args.flash_prefill or args.decode_attn != "xla"
@@ -1300,6 +1411,14 @@ def _run_torch(args) -> str:
             "drop those flags or drop --speculative"
         )
     attn_impl = args.attn_impl or ("flash" if args.flash_prefill else "xla")
+    if attn_impl == "ring" and (not multi or plan.seq <= 1):
+        raise SystemExit(
+            "--attn-impl ring needs a sequence-parallel mesh: pass "
+            "--mesh data,seq,model with seq>1 (ring attention shards the "
+            "prompt over the mesh's 'seq' axis)"
+        )
+    if multi and args.speculative > 0:
+        raise NotImplementedError(f"--speculative under --mesh {args.mesh!r} {_NOT_PORTED}")
 
     sampler = Sampler(
         kind=args.sampler, temperature=args.temperature, p_base=args.p_base,
@@ -1331,8 +1450,7 @@ def _run_torch(args) -> str:
                                     eos, batch_prompt_ids, device, label)
         if args.early_stop and eos is None:
             raise SystemExit("--early-stop needs a tokenizer with an EOS token")
-        gen = Generator(
-            params, config,
+        gen_kwargs = dict(
             sampler=sampler,
             stop_tokens=(eos,) if eos is not None else (),
             cache_dtype=cache_dtype,
@@ -1340,8 +1458,13 @@ def _run_torch(args) -> str:
             prefill_chunk=args.prefill_chunk,
             decode_attn_impl="flash_decode" if args.decode_attn == "pallas" else "xla",
             early_stop=args.early_stop,
-            device=device,
         )
+        if in_rank:
+            gen = _rank_generator(plan, device.type == "cuda", params, config, gen_kwargs)
+        elif multi:
+            gen = _MeshGenerator(plan, device.type == "cuda", params, config, gen_kwargs)
+        else:
+            gen = Generator(params, config, device=device, **gen_kwargs)
         if batch_prompt_ids is not None:
             return _run_batch(args, tok, gen, eos, batch_prompt_ids, label)
         if args.no_stream:

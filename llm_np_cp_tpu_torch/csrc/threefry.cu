@@ -130,10 +130,12 @@ __device__ __forceinline__ void warp_best(float& v, int& i) {
 
 __global__ void __launch_bounds__(kThreads)
 categorical_chunks(const int* __restrict__ keys, int per_row, const float* __restrict__ logits,
-                   float* __restrict__ part_val, int* __restrict__ part_idx, int V, int splits) {
+                   float* __restrict__ part_val, int* __restrict__ part_idx, int V, int splits,
+                   long long row0) {
   const int n = blockIdx.y, s = blockIdx.x;
   const Key k = load_key(keys, per_row ? n : 0);
-  const uint64_t base = per_row ? 0ull : (uint64_t)n * (uint64_t)V;
+  // one key: row n of these logits is row row0 + n of the whole draw
+  const uint64_t base = per_row ? 0ull : (uint64_t)(row0 + n) * (uint64_t)V;
   const float* row = logits + (size_t)n * V;
   const int end = min(V, (s + 1) * kChunk);
   float best = -INFINITY;
@@ -193,13 +195,14 @@ extern "C" int threefry2x32_launch(const void* keys, int per_row, const void* da
 
 extern "C" int categorical_launch(const void* keys, int per_row, const void* logits,
                                   void* part_val, void* part_idx, void* out, int N, int V,
-                                  int splits, void* stream) {
+                                  int splits, long long row0, void* stream) {
   if (N <= 0) return cudaSuccess;
-  if (V <= 0 || splits != (V + kChunk - 1) / kChunk || N > 65535) return cudaErrorInvalidValue;
+  if (V <= 0 || splits != (V + kChunk - 1) / kChunk || N > 65535 || row0 < 0)
+    return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   categorical_chunks<<<dim3(splits, N), kThreads, 0, st>>>(
       (const int*)keys, per_row, (const float*)logits, (float*)part_val, (int*)part_idx, V,
-      splits);
+      splits, row0);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   categorical_rows<<<N, 32, 0, st>>>((const float*)part_val, (const int*)part_idx, (int*)out,

@@ -28,6 +28,16 @@ JAX package's tokens.  A ``Generator`` keeps one cache per (batch,
 capacity) and resets it per call (validity bitmap and offsets), so its
 graphs replay the same addresses.  ``GenerateResult`` timings
 synchronise the card before reading the clock.
+
+Under a mesh (``Generator(mesh=)``, ``parallel/``) every rank builds the
+Generator over its own shards and makes the same calls: each rank runs
+its block of the batch rows when they divide over "data" (every row
+otherwise), the forward runs tensor parallel over "model" (and ring
+prefill over "seq"), a sampled kind draws its rows' share of the whole
+batch's bits (``row0``), and the tokens are all-gathered over "data", so
+every rank returns the whole batch's.  A decode step under a multi-rank
+mesh runs eagerly: its gloo collectives cannot be captured into a CUDA
+graph (and NCCL capture is not wired up).
 """
 
 from __future__ import annotations
@@ -50,6 +60,9 @@ from llm_np_cp_tpu_torch.models.transformer import (
     sample_epilogue_tail,
 )
 from llm_np_cp_tpu_torch.ops.sampling import Sampler
+from llm_np_cp_tpu_torch.parallel.collectives import all_gather
+from llm_np_cp_tpu_torch.parallel.ring_attention import check_ring_mesh
+from llm_np_cp_tpu_torch.parallel.sharding import DATA_AXIS, Mesh, local_kv_heads
 
 Params = dict[str, Any]
 
@@ -84,32 +97,35 @@ def _sync(device: torch.device) -> None:
 
 def make_prefill_fn(
     config: ModelConfig, sampler: Sampler, attn_impl: str = "xla",
-    *, device: str | torch.device = "cuda",
+    *, device: str | torch.device = "cuda", mesh: Mesh | None = None,
 ) -> Callable:
-    """(params, prompt_ids, cache, key, attn_mask=None, pad_offsets=None)
-    → (first_token [B], cache, last logits [B, V]).  The cache is written
-    in place.  attn_impl="flash" routes prefill attention through the
-    flash kernel (prefill always starts from a fresh cache)."""
+    """(params, prompt_ids, cache, key, attn_mask=None, pad_offsets=None,
+    row0=0) → (first_token [B], cache, last logits [B, V]).  The cache is
+    written in place.  attn_impl="flash" routes prefill attention through
+    the flash kernel, "ring" through ring attention over ``mesh``'s "seq"
+    axis (prefill always starts from a fresh cache).  ``row0``: the first
+    of these rows in the whole batch (a data-parallel rank's rows)."""
 
-    def prefill(params, prompt_ids, cache, key, attn_mask=None, pad_offsets=None):
+    def prefill(params, prompt_ids, cache, key, attn_mask=None, pad_offsets=None, row0=0):
         logits, cache = forward(
             params, prompt_ids, config, cache, logits_last_only=True,
             attn_mask=attn_mask, pad_offsets=pad_offsets, attn_impl=attn_impl,
-            device=device,
+            device=device, mesh=mesh,
         )
-        return sampler(key, logits[:, -1]), cache, logits[:, -1]
+        return sampler(key, logits[:, -1], row0), cache, logits[:, -1]
 
     return prefill
 
 
-def make_ragged_prefill_step(config: ModelConfig, *, device: str | torch.device = "cuda") -> Callable:
+def make_ragged_prefill_step(config: ModelConfig, *, device: str | torch.device = "cuda",
+                             mesh: Mesh | None = None) -> Callable:
     """(params, ids, cache, mask, pads) → (last_logits [B, V], cache) — one
     ragged (left-padded) prefill chunk at the cache's running offset."""
 
     def ragged_step(params, ids, cache, mask, pads):
         logits, cache = forward(
             params, ids, config, cache, logits_last_only=True,
-            attn_mask=mask, pad_offsets=pads, attn_impl="xla", device=device,
+            attn_mask=mask, pad_offsets=pads, attn_impl="xla", device=device, mesh=mesh,
         )
         return logits[:, -1], cache
 
@@ -123,23 +139,25 @@ def make_chunked_prefill_fn(
     attn_impl: str = "xla",
     *,
     device: str | torch.device = "cuda",
+    mesh: Mesh | None = None,
 ) -> Callable:
     """Same contract as ``make_prefill_fn``, but the prompt is consumed in
-    chunks of ``chunk_size`` tokens.  ``attn_impl="flash"`` applies to the
-    FIRST chunk only (the kernel needs a fresh cache); later chunks
-    attend cached history on the plain path."""
+    chunks of ``chunk_size`` tokens.  ``attn_impl="flash"`` or ``"ring"``
+    applies to the FIRST chunk only (both need a fresh cache); later
+    chunks attend cached history on the plain path."""
     if chunk_size < 1:
         raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
-    ragged_step = make_ragged_prefill_step(config, device=device)
+    ragged_step = make_ragged_prefill_step(config, device=device, mesh=mesh)
 
     def step(params, ids, cache, impl):
         logits, cache = forward(
             params, ids, config, cache, logits_last_only=True, attn_impl=impl,
-            device=device,
+            device=device, mesh=mesh,
         )
         return logits[:, -1], cache
 
-    def prefill_chunked(params, prompt_ids, cache, key, attn_mask=None, pad_offsets=None):
+    def prefill_chunked(params, prompt_ids, cache, key, attn_mask=None, pad_offsets=None,
+                        row0=0):
         ragged = attn_mask is not None or pad_offsets is not None
         if ragged and (attn_mask is None or pad_offsets is None):
             raise ValueError("ragged chunked prefill needs BOTH attn_mask and pad_offsets")
@@ -160,18 +178,20 @@ def make_chunked_prefill_fn(
             else:
                 last, cache = step(params, prompt_ids[:, off:off + w], cache, impl)
             impl, off = "xla", off + w
-        return sampler(key, last), cache, last
+        return sampler(key, last, row0), cache, last
 
     return prefill_chunked
 
 
-def _make_sample_tail(config: ModelConfig, sampler: Sampler, fused_epilogue: bool) -> Callable:
-    """``(params, key, fwd_out) → next_tok [B]`` — the decode tail: the
-    fused epilogue kernel over pre-final-norm hidden states, or the
-    sampler over the last logits."""
+def _make_sample_tail(config: ModelConfig, sampler: Sampler, fused_epilogue: bool,
+                      mesh: Mesh | None = None) -> Callable:
+    """``(params, key, fwd_out, row0) → next_tok [B]`` — the decode tail:
+    the fused epilogue kernel over pre-final-norm hidden states (merged
+    over the "model" axis's vocab shards under a mesh), or the sampler
+    over the last logits."""
     if not fused_epilogue:
-        return lambda params, key, logits: sampler(key, logits[:, -1])
-    return lambda params, key, hid: sample_epilogue_tail(params, hid[:, -1], config)
+        return lambda params, key, logits, row0: sampler(key, logits[:, -1], row0)
+    return lambda params, key, hid, row0: sample_epilogue_tail(params, hid[:, -1], config, mesh)
 
 
 @dataclasses.dataclass(eq=False)
@@ -189,32 +209,34 @@ class _StepState:
     stops: torch.Tensor | None
     keys: torch.Tensor | None  # [capacity, 2] int32 (sampled kinds)
     step: torch.Tensor | None  # [1] int64: the next step's row of keys
+    row0: int = 0  # these rows' first row in the whole batch (data parallel)
     run: CapturedStep | None = None
 
 
 def _make_step_body(config: ModelConfig, sampler: Sampler, attn_impl: str,
-                    fused_epilogue: bool, device: torch.device) -> Callable:
+                    fused_epilogue: bool, device: torch.device,
+                    mesh: Mesh | None = None) -> Callable:
     """``body(st)``: one token through the decoder from ``st.tok`` at the
     cache's device offset, the sample written back to ``st.tok`` (rows
     already ``done`` keep their token, and a stop token marks its row
     done), a sampled kind drawing under ``st.keys[st.step]`` and moving
     the index on.  It moves the device offsets alone: a replay runs no
     Python, so the caller advances the host count."""
-    sample_tail = _make_sample_tail(config, sampler, fused_epilogue)
+    sample_tail = _make_sample_tail(config, sampler, fused_epilogue, mesh)
 
     def body(st: _StepState) -> None:
         n = st.cache.length
         out, _ = forward(
             st.params, st.tok[:, None], config, st.cache, logits_last_only=True,
             pad_offsets=st.pads, attn_impl=attn_impl, skip_logits=fused_epilogue,
-            device=device,
+            device=device, mesh=mesh,
         )
         st.cache.length = n
         key = None
         if st.keys is not None:
             key = st.keys.index_select(0, st.step)[0]
             st.step += 1
-        nxt = sample_tail(st.params, key, out)
+        nxt = sample_tail(st.params, key, out, st.row0)
         if st.stops is not None:
             nxt = torch.where(st.done, st.tok, nxt)
             st.done |= torch.isin(nxt, st.stops)
@@ -224,10 +246,10 @@ def _make_step_body(config: ModelConfig, sampler: Sampler, attn_impl: str,
 
 
 def _step_state(body: Callable, sampler: Sampler, stop_tokens: tuple[int, ...], params: Params,
-                cache: KVCache, ragged: bool) -> _StepState:
+                cache: KVCache, ragged: bool, row0: int = 0, eager: bool = False) -> _StepState:
     """The cache's static step for ``body`` over ``params``, built at the
-    first call with these inputs."""
-    key = (body, id(params), ragged)
+    first call with these inputs (``eager``: never captured)."""
+    key = (body, id(params), ragged, row0)
     st = cache.steps.get(key)
     if st is None:
         dev, b = cache.k.device, cache.k.shape[1]
@@ -242,9 +264,10 @@ def _step_state(body: Callable, sampler: Sampler, stop_tokens: tuple[int, ...], 
             keys=(torch.zeros((cache.max_seq_len, 2), dtype=torch.int32, device=dev)
                   if draws else None),
             step=torch.zeros(1, dtype=torch.int64, device=dev) if draws else None,
+            row0=row0,
         )
         st.run = CapturedStep(lambda: body(st), dev,
-                              f"decode_step[B={b}, S={cache.max_seq_len}]")
+                              f"decode_step[B={b}, S={cache.max_seq_len}]", eager=eager)
         cache.steps[key] = st
     return st
 
@@ -276,18 +299,26 @@ def _load_inputs(st: _StepState, tok: torch.Tensor, pad_offsets: torch.Tensor | 
         st.step.zero_()
 
 
+def _multi_rank(mesh: Mesh | None) -> bool:
+    return mesh is not None and mesh.plan.num_devices > 1
+
+
 def make_decode_step_fn(
     config: ModelConfig, sampler: Sampler, attn_impl: str = "xla",
     fused_epilogue: bool = False, *, device: str | torch.device = "cuda",
+    mesh: Mesh | None = None,
 ) -> Callable:
-    """(params, tok [B], cache, key, pad_offsets=None) → (next_tok [B],
-    cache) — one token drawn under ``key`` (None for greedy), the cache
-    written in place.  The step is built over the cache's static buffers
-    and, on the card, captured at its first call and replayed after."""
-    body = _make_step_body(config, sampler, attn_impl, fused_epilogue, resolve_device(device))
+    """(params, tok [B], cache, key, pad_offsets=None, row0=0) →
+    (next_tok [B], cache) — one token drawn under ``key`` (None for
+    greedy), the cache written in place.  The step is built over the
+    cache's static buffers and, on the card, captured at its first call
+    and replayed after (under a multi-rank mesh: run eagerly)."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    body = _make_step_body(config, sampler, attn_impl, fused_epilogue, dev, mesh)
 
-    def step(params, tok, cache, key, pad_offsets=None):
-        st = _step_state(body, sampler, (), params, cache, pad_offsets is not None)
+    def step(params, tok, cache, key, pad_offsets=None, row0=0):
+        st = _step_state(body, sampler, (), params, cache, pad_offsets is not None, row0,
+                         _multi_rank(mesh))
         _load_inputs(st, tok, pad_offsets, None if key is None else key[None])
         _advance(st)
         return st.tok.clone(), cache
@@ -304,9 +335,10 @@ def make_decode_loop_fn(
     fused_epilogue: bool = False,
     *,
     device: str | torch.device = "cuda",
+    mesh: Mesh | None = None,
 ) -> Callable:
-    """(params, first_tok, cache, key, num_steps, pad_offsets=None) →
-    (tokens [B, num_steps], cache, steps_executed).
+    """(params, first_tok, cache, key, num_steps, pad_offsets=None, row0=0)
+    → (tokens [B, num_steps], cache, steps_executed).
 
     A sampled kind draws step i under ``split(key, num_steps)[i]``, as
     the JAX loop does (``decode_loop.run_keys`` takes those keys
@@ -315,14 +347,18 @@ def make_decode_loop_fn(
     every row is done; unfilled tail slots hold 0 and
     ``_trim_after_stop`` normalises them, so outputs equal the
     fixed-trip loop's.  Every step is the one static step of the cache
-    (captured on the card at the first, replayed after)."""
+    (captured on the card at the first, replayed after; under a
+    multi-rank mesh, eager).  ``row0``: these rows' first row in the
+    whole batch."""
     if early_stop and not stop_tokens:
         raise ValueError("early_stop requires stop_tokens")
-    body = _make_step_body(config, sampler, attn_impl, fused_epilogue, resolve_device(device))
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    body = _make_step_body(config, sampler, attn_impl, fused_epilogue, dev, mesh)
     draws = sampler.kind != "greedy"
 
-    def run_keys(params, first_tok, cache, keys, num_steps, pad_offsets=None):
-        st = _step_state(body, sampler, stop_tokens, params, cache, pad_offsets is not None)
+    def run_keys(params, first_tok, cache, keys, num_steps, pad_offsets=None, row0=0):
+        st = _step_state(body, sampler, stop_tokens, params, cache, pad_offsets is not None,
+                         row0, _multi_rank(mesh))
         _load_inputs(st, first_tok, pad_offsets, keys)
         if st.stops is not None:
             st.done.copy_(torch.isin(st.tok, st.stops))
@@ -337,9 +373,9 @@ def make_decode_loop_fn(
             i += 1
         return buf, cache, i
 
-    def decode_loop(params, first_tok, cache, key, num_steps, pad_offsets=None):
+    def decode_loop(params, first_tok, cache, key, num_steps, pad_offsets=None, row0=0):
         keys = random.split(key, num_steps) if draws and num_steps > 0 else None
-        return run_keys(params, first_tok, cache, keys, num_steps, pad_offsets)
+        return run_keys(params, first_tok, cache, keys, num_steps, pad_offsets, row0)
 
     decode_loop.run_keys = run_keys
     return decode_loop
@@ -389,6 +425,13 @@ class Generator:
     ``compile_counts()`` reports the decode-step graphs captured (on the
     CPU, the static steps built), one per (batch, capacity, ragged)
     the Generator has served.
+
+    ``mesh`` (``parallel.sharding.make_mesh``): ``params`` are this rank's
+    shards (``shard_params``) and every rank of the mesh makes the same
+    calls with the same (whole-batch) inputs; see the module docstring.
+    ``prefill_attn_impl="ring"`` needs a "seq" axis of at least 2.  The
+    decode steps of a multi-rank mesh run eagerly, and
+    ``compile_counts()["decode_step_eager"]`` counts them.
     """
 
     def __init__(
@@ -404,15 +447,20 @@ class Generator:
         decode_attn_impl: str = "xla",
         early_stop: bool = False,
         device: str | torch.device = "cuda",
+        mesh: Mesh | None = None,
     ) -> None:
-        self.device = resolve_device(device)
+        self.device = mesh.device if mesh is not None else resolve_device(device)
+        self.mesh = mesh
         self.params = params
         self.config = config
         self.sampler = sampler or Sampler()
         self.stop_tokens = tuple(stop_tokens)
         self.cache_dtype = cache_dtype
-        if prefill_attn_impl not in ("xla", "flash"):
-            raise ValueError(f"prefill_attn_impl must be 'xla' or 'flash', got {prefill_attn_impl!r}")
+        if prefill_attn_impl not in ("xla", "flash", "ring"):
+            raise ValueError(
+                f"prefill_attn_impl must be 'xla', 'flash' or 'ring', got {prefill_attn_impl!r}")
+        if prefill_attn_impl == "ring":
+            check_ring_mesh(mesh, "prefill_attn_impl='ring'")
         if decode_attn_impl not in ("xla", "flash_decode"):
             raise ValueError(
                 f"decode_attn_impl must be 'xla' or 'flash_decode', got {decode_attn_impl!r}"
@@ -420,10 +468,11 @@ class Generator:
         dev = self.device
         if prefill_chunk:
             self._prefill = make_chunked_prefill_fn(
-                config, self.sampler, prefill_chunk, prefill_attn_impl, device=dev
+                config, self.sampler, prefill_chunk, prefill_attn_impl, device=dev, mesh=mesh
             )
         else:
-            self._prefill = make_prefill_fn(config, self.sampler, prefill_attn_impl, device=dev)
+            self._prefill = make_prefill_fn(config, self.sampler, prefill_attn_impl, device=dev,
+                                            mesh=mesh)
         self.last_stream_stats: dict[str, Any] = {}
         self.epilogue_impl = (
             "fused" if epilogue_gate_error(params, config, self.sampler.kind) is None else "xla"
@@ -434,7 +483,7 @@ class Generator:
         self._caches: dict[tuple[int, int], KVCache] = {}
         self._loop = make_decode_loop_fn(
             config, self.sampler, self.stop_tokens, decode_attn_impl,
-            early_stop=early_stop, fused_epilogue=fused_epi, device=dev,
+            early_stop=early_stop, fused_epilogue=fused_epi, device=dev, mesh=mesh,
         )
 
     def _cache(self, batch: int, max_seq_len: int) -> KVCache:
@@ -445,7 +494,8 @@ class Generator:
         cache = self._caches.get(key)
         if cache is None:
             cache = self._caches[key] = KVCache.init(
-                self.config, batch, key[1], dtype=self.cache_dtype, device=self.device)
+                self.config, batch, key[1], dtype=self.cache_dtype, device=self.device,
+                kv_heads=local_kv_heads(self.config, self.mesh))
         else:
             cache.valid.zero_()
             cache.set_length(0)
@@ -454,9 +504,13 @@ class Generator:
     def compile_counts(self) -> dict[str, int]:
         """``{"decode_step": n}``: the decode-step graphs captured so far
         (on the CPU, the static steps built) — one per (batch, capacity,
-        ragged) served, and no more on a repeat of the same shapes."""
-        return {"decode_step": sum(st.run.compiled for c in self._caches.values()
-                                   for st in c.steps.values())}
+        ragged) served, and no more on a repeat of the same shapes.  Under
+        a multi-rank mesh, whose steps run eagerly (no graph),
+        ``"decode_step_eager"`` counts the steps built instead."""
+        steps = [st.run for c in self._caches.values() for st in c.steps.values()]
+        if _multi_rank(self.mesh):
+            return {"decode_step": 0, "decode_step_eager": sum(r.calls > 0 for r in steps)}
+        return {"decode_step": sum(r.compiled for r in steps)}
 
     def graph_steps(self) -> list[CapturedStep]:
         """Every decode step the Generator has built (capture time,
@@ -466,6 +520,23 @@ class Generator:
     def _ids(self, ids: Any) -> torch.Tensor:
         t = torch.as_tensor(ids, dtype=torch.long, device=self.device)
         return t[None, :] if t.ndim == 1 else t
+
+    def _rows(self, b: int) -> tuple[int, int]:
+        """``(lo, hi)``: the batch rows this rank runs — its block when the
+        rows divide over "data", else every row (each data rank runs the
+        whole batch)."""
+        dp = self.mesh.size(DATA_AXIS) if self.mesh is not None else 1
+        if dp == 1 or b % dp:
+            return 0, b
+        lo = self.mesh.index(DATA_AXIS) * (b // dp)
+        return lo, lo + b // dp
+
+    def _gather_rows(self, tokens: np.ndarray, b: int) -> np.ndarray:
+        """Every data rank's rows of ``tokens``, in batch order."""
+        if self._rows(b) == (0, b):
+            return tokens
+        t = torch.as_tensor(tokens, device=self.device)
+        return all_gather(t, self.mesh, DATA_AXIS, dim=0).cpu().numpy()
 
     def _key(self, seed: int) -> torch.Tensor | None:
         """``PRNGKey(seed)`` on the card for a sampled kind; greedy draws
@@ -481,8 +552,14 @@ class Generator:
         attn_mask: torch.Tensor | None = None,
         pad_offsets: torch.Tensor | None = None,
     ) -> GenerateResult:
-        """Prefill, then the decode loop."""
-        b, s = prompt_ids.shape
+        """Prefill, then the decode loop (this rank's rows under a mesh)."""
+        b_all, s = prompt_ids.shape
+        lo, hi = self._rows(b_all)
+        if (lo, hi) != (0, b_all):
+            prompt_ids = prompt_ids[lo:hi]
+            attn_mask = None if attn_mask is None else attn_mask[lo:hi]
+            pad_offsets = None if pad_offsets is None else pad_offsets[lo:hi]
+        b = hi - lo
         max_seq_len = max_seq_len or s + max_new_tokens
         _check_capacity(s, max_new_tokens, max_seq_len)
         key = self._key(seed)
@@ -492,14 +569,14 @@ class Generator:
         _sync(self.device)
         t0 = time.perf_counter()
         tok0, cache, _ = self._prefill(self.params, prompt_ids, cache, k_pre, attn_mask,
-                                       pad_offsets)
+                                       pad_offsets, row0=lo)
         _sync(self.device)
         t1 = time.perf_counter()
 
         first = tok0.cpu().numpy()[:, None]
         if max_new_tokens > 1:
             rest, cache, steps = self._loop(
-                self.params, tok0, cache, k_loop, max_new_tokens - 1, pad_offsets
+                self.params, tok0, cache, k_loop, max_new_tokens - 1, pad_offsets, row0=lo
             )
             _sync(self.device)
             t2 = time.perf_counter()
@@ -508,7 +585,7 @@ class Generator:
         else:
             tokens, rate, steps = first, float("nan"), 0
 
-        tokens = _trim_after_stop(tokens, self.stop_tokens)
+        tokens = self._gather_rows(_trim_after_stop(tokens, self.stop_tokens), b_all)
         return GenerateResult(
             tokens=tokens,
             ttft_s=t1 - t0,

@@ -18,7 +18,9 @@ into them, its outputs read out of them), and ``CapturedStep`` runs it:
 
 ``eager_steps()`` runs every step eagerly while it is entered (no
 capture, no replay): the check that a replayed step gives what the same
-function gives eagerly, on the same card.
+function gives eagerly, on the same card.  A step built with
+``eager=True`` always runs eagerly: a step that issues gloo collectives
+(a decode step under a multi-rank mesh) cannot be captured.
 
 A replay runs no Python, so the kernel wrappers' launch counters would
 not see it.  The capture therefore records, on its own thread, what each
@@ -136,12 +138,14 @@ class CapturedStep:
     entered around the capture: a CUDA call from another thread while a
     capture is open would break it.  ``side`` is the stream the first call
     runs on and is captured on (the device's shared one by default; an
-    engine passes its own)."""
+    engine passes its own).  ``eager=True``: never captured, run eagerly
+    at every call."""
 
     def __init__(self, fn: Callable[[], None], device: torch.device, name: str,
                  guard: Callable[[], contextlib.AbstractContextManager] | None = None,
-                 side: torch.cuda.Stream | None = None) -> None:
+                 side: torch.cuda.Stream | None = None, eager: bool = False) -> None:
         self.fn, self.device, self.name = fn, device, name
+        self.eager = eager
         self.side = side
         # entered around a capture: what must stay off the card meanwhile
         # (the engine's host tier writer, ``HostTier.quiesce``)
@@ -158,8 +162,11 @@ class CapturedStep:
     @property
     def compiled(self) -> bool:
         """The step's graph exists (on the CPU, where the step runs
-        eagerly: the step has been built and run)."""
-        return self.graph is not None if self.device.type == "cuda" else self.calls > 0
+        eagerly: the step has been built and run).  An ``eager`` step has
+        no graph on the card."""
+        if self.device.type != "cuda":
+            return self.calls > 0
+        return self.graph is not None
 
     def retire(self) -> None:
         """Drop the graph and refuse every later call: after its engine is
@@ -179,7 +186,7 @@ class CapturedStep:
         if self.retired:
             self._refuse()
         self.calls += 1
-        if self.device.type != "cuda" or _EAGER[0]:
+        if self.device.type != "cuda" or self.eager or _EAGER[0]:
             self.fn()
             return
         if self.graph is not None:

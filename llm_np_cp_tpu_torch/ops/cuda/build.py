@@ -146,8 +146,8 @@ SIGNATURES: dict[str, tuple] = {
     # minval, maxval - minval, stream
     "threefry2x32_launch": (_P, _I, _P, _P, ctypes.c_longlong, _I, _I, _F, _F, _P),
     # keys, per-row keys flag, logits, part_val, part_idx, out, N, V,
-    # chunks a row, stream
-    "categorical_launch": (_P, _I) + (_P,) * 4 + (_I, _I, _I, _P),
+    # chunks a row, the first row's index in the whole draw, stream
+    "categorical_launch": (_P, _I) + (_P,) * 4 + (_I, _I, _I, ctypes.c_longlong, _P),
 }
 
 

@@ -25,27 +25,28 @@ def sample_epilogue_plain(
     x: torch.Tensor, gamma: torch.Tensor, w: torch.Tensor, *,
     w_scale: torch.Tensor | None = None,
     tied: bool, eps: float, unit_offset: bool = False,
-    logit_softcap: float | None = None,
-) -> torch.Tensor:
+    logit_softcap: float | None = None, return_max: bool = False,
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version: rms_norm (cast back to x's dtype), float32
     logits from a float32 product (an int8 head's payload as float32,
     the product times the per-column scale), softcap, first-occurrence
-    argmax."""
+    argmax (and, with ``return_max``, each row's largest logit)."""
     xn = rms_norm(x, gamma, eps=eps, unit_offset=unit_offset).float()
     logits = xn @ (w.float().T if tied else w.float())
     if w_scale is not None:
         logits = logits * w_scale.float().reshape(1, -1)
     if logit_softcap is not None:
         logits = _softcap(logits, logit_softcap)
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    return (tok, logits.amax(dim=-1)) if return_max else tok
 
 
 def sample_epilogue(
     x: torch.Tensor, gamma: torch.Tensor, w: torch.Tensor, *,
     w_scale: torch.Tensor | None = None,
     tied: bool, eps: float, unit_offset: bool = False,
-    logit_softcap: float | None = None,
-) -> torch.Tensor:
+    logit_softcap: float | None = None, return_max: bool = False,
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """Greedy-sample the next token for each row of ``x`` without
     materializing the logits.
 
@@ -53,6 +54,10 @@ def sample_epilogue(
     weight, w the lm-head weight: ``[V, H]`` when ``tied``, ``[H, V]``
     otherwise → [N] int32 token ids.  An int8 ``w`` comes with
     ``w_scale`` [1, V] float32 per-vocab-column scales (and only then).
+    ``return_max``: also return each row's largest (softcapped) logit
+    ``[N]`` float32, the maximum over the tiles' bests the kernel already
+    writes (``part_val``) — what a tensor-parallel head merges its vocab
+    shards by.
 
     CPU tensors run ``sample_epilogue_plain``; CUDA tensors launch the
     kernel or raise.  ``launches`` counts float-head launches,
@@ -77,7 +82,7 @@ def sample_epilogue(
     if _common.on_cpu(x, gamma, w, *extra):
         return sample_epilogue_plain(
             x, gamma, w, w_scale=w_scale, tied=tied, eps=eps, unit_offset=unit_offset,
-            logit_softcap=logit_softcap,
+            logit_softcap=logit_softcap, return_max=return_max,
         )
     if x.dtype != gamma.dtype or (not int8 and w.dtype != x.dtype):
         raise TypeError(f"sample_epilogue: dtypes differ: {x.dtype}, {gamma.dtype}, {w.dtype}")
@@ -110,7 +115,7 @@ def sample_epilogue(
         _common.count(sample_epilogue, "launches_int8")
     else:
         _common.count(sample_epilogue, "launches")
-    return out
+    return (out, part_val.amax(dim=1)) if return_max else out
 
 
 sample_epilogue.launches = 0

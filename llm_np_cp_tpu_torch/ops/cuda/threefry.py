@@ -74,15 +74,18 @@ def threefry2x32(keys: torch.Tensor, n: int, cols: int, data: torch.Tensor | Non
 threefry2x32.launches = 0
 
 
-def categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+def categorical(keys: torch.Tensor, logits: torch.Tensor, row0: int = 0) -> torch.Tensor:
     """One Gumbel-max draw per row of float32 logits ``[N, V]`` under keys
-    ``[2]`` (counters ``n * V + v``) or ``[N, 2]`` (counters ``v``) →
-    int32 ``[N]``, the first index on ties.
+    ``[2]`` (counters ``(row0 + n) * V + v``: these rows are rows row0...
+    of a larger draw, a data-parallel rank's share) or ``[N, 2]``
+    (counters ``v``) → int32 ``[N]``, the first index on ties.
 
     CPU tensors run ``random.categorical_plain``; CUDA tensors launch the
     kernel (two passes: row chunks, then each row's chunks) or raise."""
+    if row0 < 0:
+        raise ValueError(f"categorical: row0 must be >= 0, got {row0}")
     if _common.on_cpu(keys, logits):
-        return _random.categorical_plain(keys, logits)
+        return _random.categorical_plain(keys, logits, row0)
     if logits.dtype != torch.float32 or logits.dim() != 2:
         raise ValueError(f"categorical: logits must be float32 [N, V], got {logits.dtype} "
                          f"{tuple(logits.shape)}")
@@ -95,7 +98,8 @@ def categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n,), dtype=torch.int32, device=logits.device)
     err = library().categorical_launch(
         keys.data_ptr(), int(keys.dim() == 2), logits.data_ptr(), part_val.data_ptr(),
-        part_idx.data_ptr(), out.data_ptr(), n, v, splits, _common.stream_ptr(logits))
+        part_idx.data_ptr(), out.data_ptr(), n, v, splits, int(row0),
+        _common.stream_ptr(logits))
     check(err, "categorical")
     _common.count(categorical, "launches")
     return out

@@ -33,9 +33,10 @@ def min_p_mask(logits: torch.Tensor, p_base: float) -> torch.Tensor:
     return torch.where(keep, logits, NEG_INF)
 
 
-def min_p(key: torch.Tensor, logits: torch.Tensor, p_base: float = 0.1) -> torch.Tensor:
+def min_p(key: torch.Tensor, logits: torch.Tensor, p_base: float = 0.1,
+          row0: int = 0) -> torch.Tensor:
     """One min-p draw per row: ``categorical`` over ``min_p_mask``."""
-    return random.categorical(key, min_p_mask(logits, p_base))
+    return random.categorical(key, min_p_mask(logits, p_base), row0)
 
 
 def top_k_mask(logits: torch.Tensor, k: int) -> torch.Tensor:
@@ -58,12 +59,14 @@ def top_p_mask(logits: torch.Tensor, p: float) -> torch.Tensor:
     return torch.where(logits >= threshold, logits, NEG_INF)
 
 
-def sample_cdf(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+def sample_cdf(key: torch.Tensor, logits: torch.Tensor, row0: int = 0) -> torch.Tensor:
     """Inverse-CDF draw — the vectorized form of the reference's Python
-    probability walk — with one uniform a row."""
+    probability walk — with one uniform a row of ``logits [N, ..., V]``
+    (``row0``: under one key, rows from row0 on of a larger draw, whose
+    uniforms they take; keys a row take row0 = 0)."""
     probs = torch.softmax(logits.float(), dim=-1)
     cdf = torch.cumsum(probs, dim=-1)
-    u = random.uniform(key, tuple(logits.shape[:-1]) + (1,))
+    u = random.uniform(key, (row0 + logits.shape[0], *logits.shape[1:-1], 1))[row0:]
     return (cdf < u).sum(dim=-1).to(torch.int32)
 
 
@@ -82,15 +85,19 @@ class Sampler:
     top_k: int = 50
     top_p: float = 0.9
 
-    def __call__(self, key: torch.Tensor | None, logits: torch.Tensor) -> torch.Tensor:
+    def __call__(self, key: torch.Tensor | None, logits: torch.Tensor,
+                 row0: int = 0) -> torch.Tensor:
+        """``row0``: under one key, ``logits [N, V]`` are the rows from
+        row0 on of a larger batch (a data-parallel rank's rows), and draw
+        that batch's bits."""
         logits = logits.float()
         if self.kind == "greedy":
             return greedy(logits)
         if self.kind == "cdf":
             if self.temperature != 1.0:
                 logits = logits / self.temperature
-            return sample_cdf(key, logits)
-        return random.categorical(key, self.filtered_logits(logits))
+            return sample_cdf(key, logits, row0)
+        return random.categorical(key, self.filtered_logits(logits), row0)
 
     def filtered_logits(self, logits: torch.Tensor) -> torch.Tensor:
         """Post-filter logits whose softmax is this sampler's effective

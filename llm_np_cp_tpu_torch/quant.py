@@ -202,11 +202,16 @@ def _int_mm(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(xq, wq)
 
 
-def _act_quant(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _act_quant(x: torch.Tensor, row_amax: Callable | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-row absmax int8 quantization of x's last axis → (int8, scale
-    with size 1 on that axis)."""
+    with size 1 on that axis).  ``row_amax`` maps the rows' maxima to the
+    ones to scale by (a tensor-parallel projection's maxima over every
+    rank's columns)."""
     x32 = x.float()
     amax = x32.abs().amax(dim=-1, keepdim=True)
+    if row_amax is not None:
+        amax = row_amax(amax)
     sx = _scale(amax, 127.0)
     return torch.clamp(torch.round(x32 / sx), -127, 127).to(torch.int8), sx
 
@@ -236,11 +241,14 @@ def _expert_einsum(x: torch.Tensor, w: Any) -> torch.Tensor:
     return y.reshape(e, g, c, -1).transpose(0, 1)
 
 
-def quant_einsum(spec: str, x: torch.Tensor, w: Any) -> torch.Tensor:
+def quant_einsum(spec: str, x: torch.Tensor, w: Any,
+                 row_amax: Callable | None = None) -> torch.Tensor:
     """``einsum(spec, x, w)`` with a float32 result, for the model's three
     specs (``bsh,ho->bso``, ``bsh,hv->bsv``, ``bsh,vh->bsv``) and the MoE
     experts' two (``gech,ehi->geci``, ``geci,eih->gech``), taking a
-    plain tensor or a quantized dict for ``w``."""
+    plain tensor or a quantized dict for ``w``.  ``row_amax``: the W8A8
+    modes' hook on the rows' absmax (``_act_quant``), for the dense
+    specs."""
     spec = spec.replace(" ", "")
     if spec in _EXPERT_SPECS:
         return _expert_einsum(x, w)
@@ -256,7 +264,7 @@ def quant_einsum(spec: str, x: torch.Tensor, w: Any) -> torch.Tensor:
     wt = p.T if out_major else p
     s = w["s"].reshape(-1)  # per output column
     if key in ("qa", "q4a"):
-        xq, sx = _act_quant(x2)
+        xq, sx = _act_quant(x2, row_amax)
         if not wt.is_contiguous():
             wt = wt.contiguous()
         y = _int_mm(xq, wt).float() * sx * s

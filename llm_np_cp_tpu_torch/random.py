@@ -132,13 +132,15 @@ def gumbel_from_bits(bits: torch.Tensor) -> torch.Tensor:
     return -torch.log(-torch.log(uniform_from_bits(bits, TINY, 1.0)))
 
 
-def categorical_plain(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+def categorical_plain(keys: torch.Tensor, logits: torch.Tensor, row0: int = 0) -> torch.Tensor:
     """The plain version of the ``categorical`` kernel: logits ``[N, V]``
-    (float32), keys ``[2]`` (counters ``n * V + v``) or ``[N, 2]``
+    (float32), keys ``[2]`` (counters ``(row0 + n) * V + v``) or ``[N, 2]``
     (counters ``v``) → int32 ``[N]``, the argmax of gumbel + logits (the
     first index on ties)."""
     n, v = logits.shape
     k0, k1, c = _keys_rows(keys, n * v, v)
+    if keys.dim() == 1:
+        c = c + row0 * v
     y0, y1 = hash_plain(k0, k1, c >> 32, c & MASK)
     g = gumbel_from_bits(y0 ^ y1).view(n, v)
     return torch.argmax(g + logits, dim=-1).to(torch.int32)
@@ -220,12 +222,14 @@ def gumbel(key: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
     return -torch.log(-torch.log(uniform(key, shape, TINY, 1.0)))
 
 
-def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+def categorical(key: torch.Tensor, logits: torch.Tensor, row0: int = 0) -> torch.Tensor:
     """One draw per row from softmax(logits) over the last axis: the
     argmax of gumbel + logits (int32, the first index on ties).  One key
     ``[2]`` draws over every element of ``logits``; keys ``[N, 2]`` key
-    each of the N rows (``logits.shape[:-1]`` flattened) on its own."""
+    each of the N rows (``logits.shape[:-1]`` flattened) on its own.
+    ``row0``: with one key, ``logits`` are the rows from ``row0`` on of a
+    larger draw (a data-parallel rank's rows), whose bits they take."""
     lead = logits.shape[:-1]
     rows = logits.reshape(-1, logits.shape[-1]).float().contiguous()
     _check_keys(key, (rows.shape[0],))
-    return _kernels().categorical(key.contiguous(), rows).view(lead)
+    return _kernels().categorical(key.contiguous(), rows, row0).view(lead)

@@ -35,8 +35,10 @@ from llm_np_cp_tpu_torch import cli as tcli
 from llm_np_cp_tpu_torch.backends import numpy_ref as tnumpy_ref
 from llm_np_cp_tpu_torch.config import tiny_config
 from llm_np_cp_tpu_torch.convert import params_from_jax
+from llm_np_cp_tpu_torch.parallel.launch import run_ranks
 from llm_np_cp_tpu_torch.utils import loading as tloading
 from llm_np_cp_tpu_torch.utils import profiling
+from mesh_ranks import BASE, FakeTokenizer, cli_in_rank
 from sampled_parity import assert_prefix_parity, generate_margins, stream_margins
 
 
@@ -51,21 +53,6 @@ def one_torch_thread():
 
 
 REAL_LOAD = tcli._load
-BASE = 0x4E00  # FakeTokenizer.decode: token id t is the character BASE + t
-
-
-class FakeTokenizer:
-    """The JAX CLI tests' tokenizer (the same encode and EOS), with a
-    lossless decode: one character a token id."""
-
-    eos_token_id = 199
-
-    def __call__(self, text, return_tensors=None):
-        ids = [(ord(c) % 250) + 1 for c in text][:8]
-        return {"input_ids": np.asarray([ids], dtype=np.int32)}
-
-    def decode(self, ids, skip_special_tokens=True):
-        return "".join(chr(BASE + int(i)) for i in ids)
 
 
 def token_ids(text: str) -> list[int]:
@@ -191,24 +178,34 @@ def test_a8_text_matches_jax_up_to_one_int8_step(clis, weights, mode):
 
 
 PROMPTS = ["hi", "hello", "hello wo", "yo yo", "a"]
+# the batch runs that run inside ranks (``mesh_in_ranks``)
+BATCH_IN_RANKS = ("mesh_batch_size",)
 BATCH = {
     "one_batch": [],
     "batch_size": ["--batch-size=2", "--metrics"],
     "prefill_chunk": ["--prefill-chunk=3"],
     "batch_size_prefill_chunk": ["--batch-size=3", "--prefill-chunk=2"],
     "speculative": ["--speculative=2", "--metrics"],
+    "mesh_batch_size": ["--batch-size=2", "--mesh=2,1,2", "--metrics"],
 }
 
 
-@pytest.mark.parametrize("extra", list(BATCH.values()), ids=list(BATCH))
-def test_prompts_file_matches_jax(clis, tmp_path, extra, capsys):
-    pf = tmp_path / "prompts.txt"
-    pf.write_text("\n".join(PROMPTS) + "\n")
-    want, got = clis(["--sampler=greedy", "--max-tokens=5", "--dtype=f32",
-                      f"--prompts-file={pf}", *extra])
+def batch_argv(prompts_file, extra: list[str]) -> list[str]:
+    return ["--sampler=greedy", "--max-tokens=5", "--dtype=f32",
+            f"--prompts-file={prompts_file}", *extra]
+
+
+@pytest.mark.parametrize("name", list(BATCH))
+def test_prompts_file_matches_jax(clis, mesh_in_ranks, name, capsys):
+    extra = BATCH[name]
+    argv = batch_argv(mesh_in_ranks["prompts_file"], extra)
+    if name in BATCH_IN_RANKS:
+        want, (got, err) = jcli.run(["--backend=tpu", *argv]), mesh_in_ranks[name]
+    else:
+        want, got = clis(argv)
+        err = capsys.readouterr().err
     assert got == want and len(got.split("\n")) == len(PROMPTS)
     if "--metrics" in extra:
-        err = capsys.readouterr().err
         assert ("in 3 batches" if "--batch-size=2" in extra
                 else "speculative ragged batch of 5") in err
 
@@ -493,10 +490,100 @@ def test_rejections_match_jax(clis, tmp_path, argv):
     assert got == want.replace("the tpu backend", "the torch backend")
 
 
-NOT_PORTED = {
+# generation over a mesh: the JAX CLI runs on its 8-device virtual CPU
+# mesh, the port the plan's gloo ranks; the same text, or the same
+# rejection.  "mesh" spawns its ranks from the CLI; the runs named in
+# MESH_IN_RANKS run inside ranks already running (``mesh_in_ranks``)
+MESH_RUNS = {
     "mesh": ["--mesh=1,1,2"],
     "ring": ["--attn-impl=ring"],
     "speculative_ring": ["--speculative=2", "--attn-impl=ring"],
+    "ring_on_mesh": ["--mesh=1,2,2", "--attn-impl=ring", "--no-stream"],
+    "quantize_int8_mesh": ["--quantize=int8", "--mesh=2,1,2", "--no-stream"],
+    "training_axes": ["--mesh=pipe=2,model=2"],
+    "malformed_mesh": ["--mesh=1,2"],
+}
+MESH_IN_RANKS = ("ring_on_mesh", "quantize_int8_mesh")
+INSIDE_RANKS = [*COMMON, "--sampler=greedy", "--mesh=1,1,2", "--no-stream"]
+
+
+def mesh_argv(name: str) -> list[str]:
+    return [*COMMON, "--sampler=greedy", *MESH_RUNS[name]]
+
+
+@pytest.fixture(scope="module")
+def mesh_in_ranks(weights, tmp_path_factory):
+    """Launched as ranks already (``WORLD_SIZE`` set, the group running,
+    as under torchrun), the CLI builds its mesh in place and spawns
+    nothing.  One spawned group a world size runs every such argv (the
+    CLI's ``--backend=cpu``): ``{name: (rank 0's text, its stderr)}``,
+    after checking that every rank returned rank 0's text; and
+    ``"prompts_file"``, the batch runs' prompts."""
+    from llm_np_cp_tpu_torch.parallel.sharding import parse_mesh_spec
+
+    cfg, tp, _, _ = weights
+    pf = tmp_path_factory.mktemp("mesh_cli") / "prompts.txt"
+    pf.write_text("\n".join(PROMPTS) + "\n")
+    runs = {"inside_running_ranks": INSIDE_RANKS,
+            **{n: mesh_argv(n) for n in MESH_IN_RANKS},
+            **{n: batch_argv(pf, BATCH[n]) for n in BATCH_IN_RANKS}}
+    by_world: dict[int, list[str]] = {}
+    for name, argv in runs.items():
+        spec = next(a.split("=", 1)[1] for a in argv if a.startswith("--mesh="))
+        by_world.setdefault(parse_mesh_spec(spec).num_devices, []).append(name)
+    out = {"prompts_file": pf}
+    for world, names in sorted(by_world.items()):
+        ranks = run_ranks(cli_in_rank, world, [["--backend=cpu", *runs[n]] for n in names],
+                          tp, cfg)
+        for i, name in enumerate(names):
+            assert all(r[i][0] == ranks[0][i][0] for r in ranks), name
+            out[name] = ranks[0][i]
+    return out
+
+
+@pytest.mark.parametrize("name", list(MESH_RUNS))
+def test_mesh_runs_match_jax(clis, mesh_in_ranks, name, capsys):
+    argv = mesh_argv(name)
+    try:
+        want = jcli.run(["--backend=tpu", *argv])
+    except SystemExit as e:
+        with pytest.raises(SystemExit) as got:
+            tcli.run(["--backend=cpu", *argv])
+        assert str(got.value.code) == str(e.code)
+        return
+    assert len(token_ids(want)) > 0
+    if name in MESH_IN_RANKS:
+        assert mesh_in_ranks[name][0] == want
+        return
+    got = tcli.run(["--backend=cpu", *argv])
+    assert got == want
+    assert capsys.readouterr().out.count(got) >= 2  # both printed it
+
+
+def test_mesh_cli_inside_running_ranks_matches_jax(clis, mesh_in_ranks):
+    """Inside running ranks, rank 0's text (every rank's) is the JAX
+    CLI's."""
+    want = jcli.run(["--backend=tpu", *INSIDE_RANKS])
+    assert mesh_in_ranks["inside_running_ranks"][0] == want
+
+
+def test_mesh_refusals(clis):
+    """What the port refuses under a mesh: a plan the config does not
+    divide (JAX's ValueError), ``--speculative`` (not ported: item 8b)
+    and, on CUDA, more ranks than cards (JAX's device-count message; no
+    card here, so the device check itself is asserted)."""
+    with pytest.raises(ValueError, match="not divisible by model=3"):
+        tcli.run(["--backend=cpu", "--mesh=1,1,3", *COMMON])
+    with pytest.raises(NotImplementedError, match="item 8b"):
+        tcli.run(["--backend=cpu", "--mesh=1,1,2", "--speculative=2", *COMMON])
+    from llm_np_cp_tpu_torch.parallel.sharding import MeshPlan, device_count_error
+
+    have = torch.cuda.device_count()
+    assert device_count_error(MeshPlan(model=2 + have), None, None) == (
+        f"plan needs {2 + have} devices, have {have}")
+
+
+SERVE_MESH = {
     "serve_bench_tp": ["serve-bench", "--mesh", "model=2"],
     "serve_bench_dp": ["serve-bench", "--mesh", "data=2"],
     "serve_bench_overcommit": ["serve-bench", "--mesh", "model=8", "--replicas=4"],
@@ -504,18 +591,17 @@ NOT_PORTED = {
 }
 
 
-@pytest.mark.parametrize("argv", list(NOT_PORTED.values()), ids=list(NOT_PORTED))
+@pytest.mark.parametrize("argv", list(SERVE_MESH.values()), ids=list(SERVE_MESH))
 def test_parallel_flags_raise_before_load(monkeypatch, argv):
-    """Parallelism is not ported: the JAX CLI runs (or rejects) these
-    meshes, the port raises NotImplementedError naming the ROADMAP item,
-    before any model loads."""
+    """Mesh-sharded serving is not ported: the JAX CLI runs (or rejects)
+    these meshes, the port raises NotImplementedError naming the ROADMAP
+    item, before any model loads."""
     def no_load(args):
         raise AssertionError("the model loaded")
 
     monkeypatch.setattr(tcli, "_load", no_load)
-    sub = argv[:1] if argv[0] in ("serve", "serve-bench") else []
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tcli.run(sub + ["--backend=cpu"] + argv[len(sub):])
+    with pytest.raises(NotImplementedError, match="queue 1 item 8b"):
+        tcli.run(argv[:1] + ["--backend=cpu"] + argv[1:])
 
 
 def test_backend_names(monkeypatch, weights):

@@ -222,6 +222,30 @@ def test_sample_epilogue_kernel(cuda, dtype, n, hd, vocab, tied, softcap, unit):
         assert bool(((logits.amax(-1) - picked) <= 1e-4).all())
 
 
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("n,tied,softcap", [(2, True, None), (4, False, 30.0), (8, True, 30.0)])
+def test_sample_epilogue_returns_the_row_maximum(cuda, n, tied, softcap, int8):
+    """``return_max``: the kernel's token and each row's largest logit
+    (from the tiles' bests it writes) against the plain version's — what
+    a tensor-parallel head merges its vocab shards by."""
+    g = torch.Generator(device="cuda").manual_seed(n + 31)
+    hd, vocab = 256, 3001 if not tied else 2000
+    x = _randn((n, hd), g, torch.bfloat16)
+    gamma = (0.1 * torch.randn((hd,), generator=g, device="cuda") + 1.0).bfloat16()
+    w = _randn((vocab, hd) if tied else (hd, vocab), g, torch.bfloat16, 0.1)
+    kw = dict(tied=tied, eps=1e-6, logit_softcap=softcap)
+    if int8:
+        wq = quantize_array(w, axis=-1 if tied else -2)
+        w, kw["w_scale"] = wq["q"], wq["s"].reshape(1, -1)
+    tok, best = se.sample_epilogue(x, gamma, w, return_max=True, **kw)
+    want_tok, want_best = se.sample_epilogue_plain(x, gamma, w, return_max=True, **kw)
+    assert torch.equal(tok, se.sample_epilogue(x, gamma, w, **kw))
+    assert best.dtype == torch.float32 and best.shape == (n,)
+    assert (best - want_best).abs().max().item() <= 1e-3
+    same = tok == want_tok
+    assert bool(same.all()) or bool(((want_best - best).abs() <= 1e-4)[~same].all())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
     "n,hd,vocab,tied,softcap,unit",
@@ -1048,6 +1072,23 @@ def test_categorical_kernel_matches_plain(cuda, n, v):
     key = tr.PRNGKey(ka["seed"], "cuda")
     assert tr.categorical(key, known).tolist() == ka["categorical"]
     assert tr.categorical(tr.split(key, rows), known).tolist() == ka["categorical_rows"]
+
+
+@pytest.mark.parametrize("row0", [1, 3])
+def test_categorical_row_offset_draws_the_whole_batchs_bits(cuda, row0):
+    """A data-parallel rank's rows: ``categorical(key, rows, row0)``
+    gives the tokens of rows row0... of the whole batch's draw under one
+    key, as its plain version does."""
+    from llm_np_cp_tpu_torch import random as tr
+
+    g = torch.Generator(device="cuda").manual_seed(row0)
+    logits = _randn((6, 128256), g, torch.float32, 3.0)
+    key = tr.PRNGKey(11, "cuda")
+    whole = tf.categorical(key, logits)
+    part = tf.categorical(key, logits[row0:row0 + 2].contiguous(), row0)
+    assert torch.equal(part, whole[row0:row0 + 2])
+    assert torch.equal(part.cpu(), tr.categorical_plain(key.cpu(), logits[row0:row0 + 2].cpu(),
+                                                        row0))
 
 
 @pytest.mark.parametrize("leg", ["mixed", "split_paged", "split_xla"])

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``llm_np_cp_tpu_torch`` and no line
-of ``chip_smoke.py`` imports JAX, the JAX package, the repo's ``tools``, or
-a package the machine with the card lacks."""
+"""The port stands alone: no module of ``llm_np_cp_tpu_torch``, no line
+of ``chip_smoke.py`` or ``tools/mesh_phase.py``, and none of the spawned
+ranks' bodies in ``tests/mesh_ranks.py`` imports JAX, the JAX package,
+the repo's ``tools``, or a package the machine with the card lacks."""
 
 import ast
 import pathlib
@@ -22,7 +23,8 @@ def one_torch_thread():
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "llm_np_cp_tpu", "ml_dtypes", "safetensors", "transformers",
              "huggingface_hub", "triton", "tools"}
-FILES = sorted((ROOT / "llm_np_cp_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / "llm_np_cp_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tools" / "mesh_phase.py", ROOT / "tests" / "mesh_ranks.py"]
 
 
 def imported_roots(path: pathlib.Path) -> set[str]:
@@ -57,7 +59,11 @@ def test_scan_sees_the_port():
             "llm_np_cp_tpu_torch/serve/lifecycle.py", "llm_np_cp_tpu_torch/serve/replica.py",
             "llm_np_cp_tpu_torch/cli.py", "llm_np_cp_tpu_torch/backends/__init__.py",
             "llm_np_cp_tpu_torch/backends/numpy_ref.py", "llm_np_cp_tpu_torch/utils/profiling.py",
-            "llm_np_cp_tpu_torch/ops/moe.py", "chip_smoke.py"} <= names
+            "llm_np_cp_tpu_torch/ops/moe.py", "llm_np_cp_tpu_torch/parallel/sharding.py",
+            "llm_np_cp_tpu_torch/parallel/collectives.py",
+            "llm_np_cp_tpu_torch/parallel/ring_attention.py",
+            "llm_np_cp_tpu_torch/parallel/launch.py", "tests/mesh_ranks.py",
+            "chip_smoke.py"} <= names
     assert imported_roots(ROOT / "tests" / "test_torch_model.py") >= {"jax", "llm_np_cp_tpu"}
     assert "llm_np_cp_tpu_torch" in imported_roots(ROOT / "chip_smoke.py")
 

@@ -174,6 +174,23 @@ def test_categorical_matches_jax(seed):
                                   np.asarray(jax.random.categorical(jkey, flat)))
 
 
+@pytest.mark.parametrize("js", [s for s in SAMPLERS if s.kind in ("min_p", "cdf")],
+                         ids=lambda s: f"{s.kind}_t{s.temperature}")
+@pytest.mark.parametrize("row0", [1, 2])
+def test_sampler_rows_from_row0_draw_the_whole_batchs_bits(js, row0):
+    """A data-parallel rank's rows (``row0`` on, one key): the tokens of
+    the whole batch's draw at those rows, jax's included."""
+    ts = tsamp.Sampler(js.kind, temperature=js.temperature, p_base=js.p_base)
+    logits = _logits(row0, (4, 5000))
+    key, jkey = tr.PRNGKey(17), jax.random.PRNGKey(17)
+    whole = ts(key, torch.from_numpy(logits)).numpy()
+    part = ts(key, torch.from_numpy(logits[row0:row0 + 2]), row0).numpy()
+    np.testing.assert_array_equal(part, whole[row0:row0 + 2])
+    want = np.asarray(js(jkey, jnp.asarray(logits)))[row0:row0 + 2]
+    margins = draw_margins(js, jkey, logits)[row0:row0 + 2]
+    assert_prefix_parity(want[:, None], part[:, None], margins[:, None], f"row0 {row0}")
+
+
 def test_min_p_matches_jax():
     """``ops.sampling.min_p`` (the reference's live sampler) is jax's."""
     logits = _logits(5, (5, 300))
