@@ -235,8 +235,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
    included) and ``journal_replayed_total``.
 12. moe — Mixtral-8x7B's published widths (``ModelConfig.from_hf_dict``
    of its config.json: 8 experts, 2 a token, untied 4096 x 32000 head)
-   at 8 of its 32 layers on seeded random bf16 weights (~23.7 GB; 32
-   layers would not fit the card), its expert stacks drawn and quantized
+   at 4 of its 32 layers on seeded random bf16 weights (~12.3 GB; 32
+   layers would not fit the card; 8 until the mesh phase's serve legs
+   needed the time), its expert stacks drawn and quantized
    a layer at a time.  Offline ``generate`` / ``generate_ragged`` /
    ``stream`` with launch counts and graph replays (TTFT, decode rate),
    each run again eagerly with its routes recorded: identical tokens
@@ -273,9 +274,23 @@ Phases, each printing JSON lines; any failure exits non-zero:
    ``decode_attention`` and its combine, the epilogue merged over the
    vocab shards, min-p's categorical) equal to what the leg implies, and
    every collective host-staged; TTFT and tok/s as one card shared by 4
-   ranks, not a multi-GPU figure.  The kernel phase holds each kernel at
-   a rank's shapes too (16 of 32 heads, half the tied head with its row
-   maxima).
+   ranks, not a multi-GPU figure.  Then, in the same group, the
+   tensor-parallel ``ServeEngine(mesh_plan=MeshPlan(model=4))`` (8 of 32
+   query heads, 2 of 8 KV heads, a 32064-row vocab shard a rank), eager
+   ticks: leg s1, the unified tick, greedy, 16 requests of 64-256-token
+   prompts cycling 8 with the prefix cache on, 32 new tokens, 8 slots,
+   16-slot blocks; leg s2, the phase-split tick with the paged decode
+   over an int8 pool, 8 requests.  Each: the ranks serve the same tokens,
+   every rank's ragged / paged launches (and their combines) and fused
+   epilogue equal to its dispatching steps' implication, no graph
+   captured, the pool in 4 KV shards (``shard_stats``), every request
+   teacher-forced against the cache-less plain forward (s2: over an int8
+   cache), its first divergence from a one-rank engine on the same trace
+   printed with the plain top-2 gap there; TTFT / TPOT / tok/s of the
+   shared card.  The kernel phase holds each kernel at a rank's shapes
+   too (16 of 32 heads, half the tied head with its row maxima; at
+   model=4, the ragged serve tick at 8/2 heads, the paged int8 decode and
+   the epilogue on a quarter of the head).
 14. the ``kernels`` summary line (each row with its ``moe_launches`` and
    ``mesh_launches``), the
    card's ``nvidia-smi`` name and power limit, and last the result line
@@ -830,6 +845,9 @@ EPILOGUE_SPECS = [
     ("llama1b_tp2_shard_n8_tied", 8, 2048, 64128, True, None, False),
     # the mesh phase's leg a: its one row on a model rank's half
     ("llama1b_tp2_shard_n1_tied", 1, 2048, 64128, True, None, False),
+    # the mesh phase's serve legs: a model=4 rank's quarter of the tied
+    # head (32064 rows) under a tick's 8 slots
+    ("llama1b_tp4_shard_n8_tied", 8, 2048, 32064, True, None, False),
 ]
 EPILOGUE_INT8_SPECS = [
     ("llama1b_n4_tied_int8", 4, 2048, 128256, True, None, False),
@@ -1229,6 +1247,10 @@ PAGED_SPECS = [
     ("llama1b_b1_s32768_bs16", 32, 8, 64, [32768], [0], None, None, False),
     # the moe phase's leg B at Mixtral-8x7B's attention widths (D=128)
     ("mixtral_serve_b8_bs16", 32, 8, 128, SERVE_LENGTHS, SERVE_PADS, None, None, False),
+    # a model=4 rank's share (8 of 32 query heads on 2 of 8 KV heads) of
+    # the mesh phase's serve leg s2: its int8 pool
+    ("llama1b_tp4_rank_serve_b8_bs16_int8", 8, 2, 64, SERVE_LENGTHS, SERVE_PADS, None, None,
+     True),
 ]
 
 
@@ -1248,12 +1270,12 @@ def paged_inputs(torch, quantize_kv, i: int):
     return (q, k, v, tables, lens, row_pads), dict(scale=d ** -0.5, logit_softcap=cap, **scales)
 
 
-def paged_cases(torch, F, da, quantize_kv, sdpa_gqa: bool) -> list[dict]:
+def paged_cases(torch, F, da, quantize_kv, sdpa_gqa: bool, names=None) -> list[dict]:
     """The paged decode (split-KV) at the serve shape and wider ones; each
     case records the NSPLIT that ``paged_split_plan`` gives it on this card
     and its kernels' own device time."""
     cases = []
-    for i, (name, h, kh, d, _, _, cap, _, int8) in enumerate(PAGED_SPECS):
+    for i, (name, h, kh, d, _, _, cap, _, int8) in picked(PAGED_SPECS, names):
         args, kw = paged_inputs(torch, quantize_kv, i)
         q, k, v, tables, lens, row_pads = args
         b, mb = tables.shape
@@ -1385,6 +1407,10 @@ RAGGED_SPECS = [
     # widths (D=128)
     ("mixtral_legA_decode8_288", 32, 8, 128, None, None, False, LEG_A_SEGMENTS, LEG_A_LENGTHS,
      SERVE_PADS, 64),
+    # the serve shape at a model=4 rank's heads (8 of 32 query, 2 of 8
+    # KV): the mesh phase's serve leg s1
+    ("llama1b_tp4_rank_mixed_6dec_2x64pf", 8, 2, 64, None, None, False, SERVE_SEGMENTS,
+     SERVE_LENGTHS, SERVE_PADS, 192),
 ]
 RAGGED_MARKERS = {"ragged_paged_attention": "ragged_kernel",
                   "ragged_paged_attention_combine": "combine_splits_kernel"}
@@ -1464,13 +1490,13 @@ def ragged_bound(torch, args, live) -> tuple[float, str]:
     return bound(nbytes, 4.0 * h * d * int(span.sum().item()))
 
 
-def ragged_cases(torch, F, da, quantize_kv, sdpa_gqa: bool) -> list[dict]:
+def ragged_cases(torch, F, da, quantize_kv, sdpa_gqa: bool, names=None) -> list[dict]:
     """The unified tick's kernel on each of RAGGED_SPECS: live lanes held
     to the plain version, dead lanes exactly zero, events and device time
     (the kernel and its combine), and SDPA on the rows' pre-gathered views
     beside each bf16 case without softcap."""
     cases = []
-    for i, (name, *_, cap, _, int8, _, _, _, _) in enumerate(RAGGED_SPECS):
+    for i, (name, *_, cap, _, int8, _, _, _, _) in picked(RAGGED_SPECS, names):
         args, kw, live = ragged_inputs(torch, quantize_kv, i)
         call = lambda: da.ragged_paged_attention(*args, **kw)  # noqa: E731
         out = call()
@@ -1911,13 +1937,14 @@ def serve_trace(np, cfg, n: int, new_tokens: int, seed: int,
 
 
 def ragged_combines(torch, da, eng, cfg, since: dict[int, int],
-                    counts: dict[int, int] | None = None) -> int:
+                    counts: dict[int, int] | None = None, heads: int | None = None) -> int:
     """Combine launches the unified tick's dispatches since ``since`` (the
     engine's ``bucket_dispatches`` then; ``counts``: runs per width in
     their place) imply: per packed width, the layers whose ragged split
     plan over that width is > 1 (the plan reads shapes alone, so a
     replayed graph launches the combine exactly where the eager step
-    did)."""
+    did).  ``heads``: a tensor-parallel rank's query heads (its pool holds
+    its KV heads)."""
     from llm_np_cp_tpu_torch.serve.engine import GLOBAL_WINDOW
 
     pages = eng.pool.pages.k[0]
@@ -1925,8 +1952,8 @@ def ragged_combines(torch, da, eng, cfg, since: dict[int, int],
                          device="cuda")
     n = 0
     for t_w, count in (eng.bucket_dispatches if counts is None else counts).items():
-        q = torch.empty((t_w, cfg.num_attention_heads, cfg.head_dim), dtype=torch.bfloat16,
-                        device="cuda")
+        q = torch.empty((t_w, heads or cfg.num_attention_heads, cfg.head_dim),
+                        dtype=torch.bfloat16, device="cuda")
         for i in range(cfg.num_hidden_layers):
             window = (cfg.sliding_window if cfg.sliding_window is not None
                       and cfg.layer_is_sliding(i) else GLOBAL_WINDOW)
@@ -5625,8 +5652,9 @@ def _sum_actions(engines) -> dict:
 # mistralai/Mixtral-8x7B-v0.1's published config.json (the keys
 # ModelConfig.from_hf_dict reads); the JAX defaults moe_capacity_factor
 # 2.0 and moe_group_size 1024 stand.  Depth is cut from 32 to MOE_LAYERS:
-# 32 bf16 layers are ~93 GB, above the card's 80 GB; 8 are ~11.9 B
-# parameters (~23.7 GB).
+# 32 bf16 layers are ~93 GB, above the card's 80 GB; 4 are ~6.2 B
+# parameters (~12.3 GB), cut from 8 to leave the whole script's time to
+# the mesh phase's serve legs.
 MIXTRAL_HF = dict(
     model_type="mixtral", vocab_size=32000, hidden_size=4096, intermediate_size=14336,
     num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
@@ -5634,7 +5662,7 @@ MIXTRAL_HF = dict(
     tie_word_embeddings=False, num_local_experts=8, num_experts_per_tok=2,
     router_aux_loss_coef=0.02)
 MOE_MODEL = "mistralai/Mixtral-8x7B-v0.1"
-MOE_LAYERS = 8
+MOE_LAYERS = 4
 # E / k: every expert's capacity is its group's length, so no route drops
 # and a token's output does not depend on the rest of its forward
 MOE_NO_DROP = 4.0
@@ -6125,8 +6153,8 @@ def moe_profile(torch, gen, params, cfg, prompts) -> dict:
 
 
 def moe_phase(torch, np, kernels: dict, card: str) -> dict:
-    """Mixtral-8x7B's widths at 8 layers on seeded random bf16 weights,
-    through the Generator, the ServeEngine (unified and phase-split ticks,
+    """Mixtral-8x7B's widths at MOE_LAYERS layers on seeded random bf16
+    weights, through the Generator, the ServeEngine (unified and phase-split ticks,
     min-p) and the four weight modes; see the module docstring, 12."""
     import dataclasses
 
@@ -6285,7 +6313,8 @@ def moe_phase(torch, np, kernels: dict, card: str) -> dict:
     counted = ([off_nodrop["launches"], off["launches"], int8_serve["launches"]]
                + [v["launches"] for v in legs.values()] + [v["launches"] for v in modes.values()])
     launches_total = {name: sum(c[name] for c in counted) for name in kernels}
-    return dict(phase="moe", model=MOE_MODEL, layers=MOE_LAYERS, reduced="depth 32 -> 8 layers",
+    return dict(phase="moe", model=MOE_MODEL, layers=MOE_LAYERS,
+                reduced=f"depth 32 -> {MOE_LAYERS} layers",
                 weights="seeded random bf16 (init_params, std 0.02)", card=card,
                 config=dict(hidden=cfg.hidden_size, intermediate=cfg.intermediate_size,
                             heads=cfg.num_attention_heads, kv_heads=cfg.num_key_value_heads,
@@ -6325,7 +6354,23 @@ MESH_LEGS = {
                                 sampler=dict(kind="greedy"), prefill="flash", quantize=8),
 }
 MESH_WARMUP_TOKENS = 2
-MESH_TIMEOUT_S = 600.0
+MESH_TIMEOUT_S = 900.0
+# the mesh phase's serve legs, in the same group of ranks: the
+# tensor-parallel ServeEngine at model=4 (8 of 32 query heads, 2 of 8 KV
+# heads and a 32064-row vocab shard a rank: kv-sharded), the serve
+# phase's pool geometry (8 slots, 16-slot blocks, 64-token chunks) and
+# seeded prompts of 64-256 tokens, 32 new tokens each.  s1: the unified
+# tick, greedy, 16 requests cycling 8 prompts with the prefix cache on;
+# s2: the phase-split tick with the paged decode over an int8 pool, 8
+# requests
+MESH_SERVE_PLAN = dict(model=4)
+MESH_SERVE_PROMPTS, MESH_SERVE_NEW, MESH_SERVE_RATE = (64, 256), 32, 40.0
+MESH_SERVE_LEGS = {
+    "s1_unified_prefix": dict(leg="A_mixed", cache="bfloat16", requests=16, distinct=8,
+                              seed=61, extra=dict(enable_prefix_cache=True)),
+    "s2_split_paged_int8": dict(leg="B_split_paged", cache="int8", requests=8, seed=62,
+                                extra={}),
+}
 # a sampled draw whose margin (``draw_margins``, over the plain forward's
 # logits) is under this may go either way between the mesh and the
 # one-rank path: their bf16 logits differ by summation order, within the
@@ -6355,12 +6400,94 @@ def mesh_counters() -> dict:
             "categorical": (tfk.categorical, "launches")}
 
 
+def mesh_serve_counters() -> dict:
+    """The serve legs' launch counters: name → (wrapper, attribute)."""
+    from llm_np_cp_tpu_torch.ops.cuda import decode_attention as da
+    from llm_np_cp_tpu_torch.ops.cuda import sample_epilogue as se
+
+    return {"ragged_paged_attention": (da.ragged_paged_attention, "launches"),
+            "ragged_paged_attention_combine": (da.ragged_paged_attention, "combine_launches"),
+            "paged_decode_attention": (da.paged_decode_attention, "launches"),
+            "paged_decode_attention_combine": (da.paged_decode_attention, "combine_launches"),
+            "sample_epilogue": (se.sample_epilogue, "launches"),
+            "sample_epilogue_int8": (se.sample_epilogue, "launches_int8")}
+
+
+def mesh_serve_trace(np, cfg, leg: dict) -> list[dict]:
+    from llm_np_cp_tpu_torch.serve import poisson_trace
+
+    return poisson_trace(np.random.default_rng(leg["seed"]), leg["requests"],
+                         rate_rps=MESH_SERVE_RATE, prompt_len_range=MESH_SERVE_PROMPTS,
+                         max_new_tokens=MESH_SERVE_NEW, vocab_size=cfg.vocab_size,
+                         distinct_prompts=leg.get("distinct"))
+
+
+def mesh_serve_engine(torch, params, cfg, leg: dict, **extra):
+    """A serve leg's engine (``serve_engine``'s geometry); ``extra``:
+    ``mesh_plan=`` in a rank."""
+    return serve_engine(params, cfg, getattr(torch, leg["cache"]), leg["leg"],
+                        MESH_SERVE_PROMPTS[1], MESH_SERVE_NEW, **leg["extra"], **extra)
+
+
+def mesh_serve_rank(torch, np, full, cfg) -> dict:
+    """The serve legs on this rank: ``ServeEngine(mesh_plan=model 4)`` over
+    the full seeded weights (it cuts its own shards), a warm-up, then the
+    counted replay of the leg's trace.  Returns each leg's tokens by
+    request seed, this rank's launches, collective calls, graph counts,
+    dispatching steps and the combines they imply, ``shard_stats``, TTFT
+    / TPOT / tok/s (one card shared by the ranks) and the wall."""
+    from llm_np_cp_tpu_torch.ops.cuda import decode_attention as da
+    from llm_np_cp_tpu_torch.parallel import collectives
+    from llm_np_cp_tpu_torch.parallel.sharding import MeshPlan
+
+    counters = mesh_serve_counters()
+    out = {}
+    for name, leg in MESH_SERVE_LEGS.items():
+        eng = mesh_serve_engine(torch, full, cfg, leg, mesh_plan=MeshPlan(**MESH_SERVE_PLAN))
+        eng.warmup([MESH_SERVE_PROMPTS[0]], 2)
+        torch.cuda.synchronize()
+        reset_counts(counters)
+        collectives.reset_counts()
+        g0, b0 = graph_totals(), dict(eng.bucket_dispatches)
+        d0, dd0, f0 = eng.n_dispatches, eng.n_decode_dispatches, eng.n_host_fetches
+        t0 = time.perf_counter()
+        snap = eng.replay_trace(mesh_serve_trace(np, cfg, leg))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = eng.n_dispatches - d0 if eng.mixed else eng.n_decode_dispatches - dd0
+        heads = cfg.num_attention_heads // MESH_SERVE_PLAN["model"]
+        kh = eng.pool.kv_heads
+        if eng.mixed:
+            combines = ragged_combines(torch, da, eng, cfg, b0, heads=heads)
+        else:
+            nsplit = da.split_plan(eng.scheduler.max_slots, kh,
+                                   eng.max_blocks_per_seq * SERVE_BLOCK, cfg.head_dim,
+                                   da.sm_count(torch.device("cuda")), heads // kh)
+            combines = cfg.num_hidden_layers * steps * int(nsplit > 1)
+        out[name] = dict(
+            tokens={r.seed: list(r.generated) for r in eng.scheduler.finished},
+            finished=snap["finished"], launches=read_counts(counters),
+            collectives=collectives.counts(), graphs=graph_delta(g0),
+            compile_counts=eng.compile_counts(), steps=steps, combines=combines,
+            host_fetches=eng.n_host_fetches - f0, mixed=eng.mixed,
+            epilogue=eng.epilogue_impl, mesh_desc=eng.mesh_desc,
+            shard_stats=eng.pool.shard_stats(), wall_s=wall, ticks=snap["ticks"],
+            tok_s=snap["total_generated_tokens"] / wall,
+            prefix_blocks_hit=snap["prefix_blocks_hit"],
+            **{k: snap.get(k) for k in ("ttft_s_p50", "ttft_s_p99", "tpot_s_p50",
+                                        "tpot_s_p99")})
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
 def mesh_rank(rank: int, legs: dict) -> dict:
     """One rank of the mesh phase, a spawned process on cuda:0 over gloo:
     per leg its mesh, its shards of the seeded weights and a
     ``Generator(mesh=)``; a short warm-up run, then the counted run.
     Returns each leg's tokens (the whole batch's), TTFT, decode rate,
-    wall, this rank's kernel launches and collective calls."""
+    wall, this rank's kernel launches and collective calls; then the
+    serve legs (``mesh_serve_rank``) under ``"serve"``."""
     import numpy as np
     import torch
 
@@ -6405,6 +6532,7 @@ def mesh_rank(rank: int, legs: dict) -> dict:
                          peak_allocated_bytes=torch.cuda.max_memory_allocated(dev))
         del gen, local
         torch.cuda.empty_cache()
+    out["serve"] = mesh_serve_rank(torch, np, full, cfg)
     return out
 
 
@@ -6602,18 +6730,104 @@ def mesh_phase(torch, np, card: str) -> dict:
             compile_counts=r0["compile_counts"], first_divergence=dict(
                 token=first, plain_top2_gap=diverge), check=check)
         del params
+    serve = {name: mesh_serve_leg(torch, np, full, cfg, name, leg, ranks, checks)
+             for name, leg in MESH_SERVE_LEGS.items()}
     del full
     gc.collect()
     torch.cuda.empty_cache()
     launches_total = {}
     for name in mesh_counters():
         launches_total[name] = sum(r[leg]["launches"][name] for r in ranks for leg in MESH_LEGS)
+    for name in mesh_serve_counters():
+        launches_total[name] = launches_total.get(name, 0) + sum(
+            r["serve"][leg]["launches"][name] for r in ranks for leg in MESH_SERVE_LEGS)
     return dict(phase="mesh", model="meta-llama/Llama-3.2-1B", layers=cfg.num_hidden_layers,
                 weights="seeded random bf16", card=card, ranks=MESH_RANKS, device="cuda:0",
                 backend="gloo", staging="every collective copies its CUDA tensor to the host "
-                "and back (a gloo group)", group_s=group_s, legs=legs,
+                "and back (a gloo group)", group_s=group_s, legs=legs, serve=serve,
                 teacher_tol=TEACHER_TOL, launches_total=launches_total, checks=checks,
                 phase_s=time.perf_counter() - t_phase, ok=not checks)
+
+
+def mesh_serve_leg(torch, np, full, cfg, name: str, leg: dict, ranks: list, checks: list) -> dict:
+    """A serve leg's record from the ranks' results: the ranks' tokens
+    equal, every request finished; each rank's launches equal to what its
+    dispatching steps imply (16 ragged or paged launches a step, their
+    combines where the rank's split plan splits, one float epilogue a
+    step) with 0 graphs captured and the steps eager; the pool in 4 KV
+    shards; each request's tokens teacher-forced against the cache-less
+    plain forward (the int8 pool's against the plain forward over an int8
+    cache); and the first divergence from a one-rank engine on the same
+    trace, with the plain top-2 gap there (under ``MESH_NEAR_TIE``: a
+    near-tie, as PR 21's rule reads a parting)."""
+    from types import SimpleNamespace
+
+    from llm_np_cp_tpu_torch.models.transformer import forward
+
+    r0 = ranks[0]["serve"][name]
+    trace = mesh_serve_trace(np, cfg, leg)
+    where = f"mesh serve {name}"
+    if any(r["serve"][name]["tokens"] != r0["tokens"] for r in ranks[1:]):
+        checks.append(f"{where}: the ranks served different tokens")
+    if r0["finished"] != len(trace):
+        checks.append(f"{where}: {r0['finished']} of {len(trace)} finished")
+    layers = cfg.num_hidden_layers
+    per_rank = []
+    for r in ranks:
+        got = r["serve"][name]
+        want = {k: 0 for k in mesh_serve_counters()}
+        kernel = "ragged_paged_attention" if got["mixed"] else "paged_decode_attention"
+        want.update({kernel: layers * got["steps"], kernel + "_combine": got["combines"],
+                     "sample_epilogue": got["steps"]})
+        per_rank.append(dict(launches=got["launches"], implied=want,
+                             collectives=got["collectives"], graphs=got["graphs"],
+                             compile_counts=got["compile_counts"],
+                             shard_stats=got["shard_stats"]))
+        if got["launches"] != want or got["host_fetches"] != got["steps"]:
+            checks.append(f"{where}: launches {got['launches']} != implied {want}, "
+                          f"{got['host_fetches']} fetches for {got['steps']} steps")
+        step = "mixed_step" if got["mixed"] else "decode_step"
+        if got["graphs"]["captures"] or got["compile_counts"][step] or \
+                not got["compile_counts"][step + "_eager"]:
+            checks.append(f"{where}: not eager: {got['graphs']}, {got['compile_counts']}")
+        st = got["shard_stats"]
+        if st["kv_shards"] != MESH_SERVE_PLAN["model"] or \
+                st["kv_bytes_shard"] * MESH_SERVE_PLAN["model"] != st["kv_bytes_total"]:
+            checks.append(f"{where}: shard_stats {st}")
+    prompts = {t["seed"]: t["prompt"] for t in trace}
+    reqs = [SimpleNamespace(prompt=prompts[rid], generated=toks)
+            for rid, toks in sorted(r0["tokens"].items())]
+    int8 = leg["cache"] == "int8"
+    check = teacher_forced_requests(torch, forward, full, cfg, reqs, TEACHER_TOL,
+                                    cache_dtype=torch.int8 if int8 else None)
+    if not check["ok"]:
+        checks.append(f"{where}: {check}")
+    one = mesh_serve_engine(torch, full, cfg, leg)
+    one.warmup([MESH_SERVE_PROMPTS[0]], 2)
+    one.replay_trace(trace)
+    ref = {r.seed: list(r.generated) for r in one.scheduler.finished}
+    del one
+    torch.cuda.empty_cache()
+    parted = {}
+    for rid, toks in sorted(r0["tokens"].items()):
+        gap = first_divergence(torch, forward, full, cfg, prompts[rid], ref[rid], toks)
+        if gap is not None:
+            at = next((j for j, (x, y) in enumerate(zip(ref[rid], toks)) if x != y), None)
+            parted[rid] = dict(token=at, plain_top2_gap=gap, near_tie=gap < MESH_NEAR_TIE)
+    print(f"{where}: first divergence from the one-rank engine (request: token, plain top-2 "
+          f"gap): {parted}", flush=True)
+    return dict(
+        plan=MESH_SERVE_PLAN, tick=leg["leg"], cache=leg["cache"], requests=len(trace),
+        prompts=MESH_SERVE_PROMPTS, new_tokens=MESH_SERVE_NEW, mesh_desc=r0["mesh_desc"],
+        epilogue=r0["epilogue"], steps=r0["steps"], ticks=r0["ticks"],
+        prefix_blocks_hit=r0["prefix_blocks_hit"], wall_s=r0["wall_s"], tok_s=r0["tok_s"],
+        ttft_s_p50=r0["ttft_s_p50"], ttft_s_p99=r0["ttft_s_p99"], tpot_s_p50=r0["tpot_s_p50"],
+        tpot_s_p99=r0["tpot_s_p99"],
+        timing_note=f"one card shared by {MESH_RANKS} ranks over gloo (host-staged "
+                    "collectives, eager ticks): not a multi-GPU figure",
+        ranks=per_rank, teacher_forced=check,
+        one_rank=dict(requests_parted=len(parted), parted=parted,
+                      all_near_ties=all(p["near_tie"] for p in parted.values())))
 
 
 KERNEL_META = {
@@ -6811,7 +7025,8 @@ def main() -> int:
     if not me["ok"]:
         raise AssertionError("mesh checks failed: " + json.dumps(me["checks"], default=str))
     idle = [name for name in ("flash_attention", "decode_attention", "sample_epilogue",
-                              "sample_epilogue_int8", "categorical")
+                              "sample_epilogue_int8", "categorical", "ragged_paged_attention",
+                              "paged_decode_attention")
             if not me["launches_total"][name]]
     if idle:
         raise AssertionError(f"mesh phase: kernels never launched on its path: {idle}")

@@ -38,9 +38,16 @@ What differs from the JAX CLI:
   a plan needs a card a rank (``plan needs N devices, have M``) — and
   each builds ``Generator(mesh=)`` over its shards; rank 0's tokens come
   back and this process prints the text.  ``--attn-impl ring`` needs a
-  "seq" axis > 1.  ``--speculative`` under a mesh and serve ``--mesh``
-  raise ``NotImplementedError`` before any model loads (ROADMAP.md queue
-  1 item 8b);
+  "seq" axis > 1;
+- ``serve-bench --mesh model=N`` (``--replicas 1``) runs the
+  tensor-parallel engine the same way: N ranks (spawned here, or this
+  process already a rank), each building ``ServeEngine(mesh_plan=)`` over
+  its shards and replaying the same trace; rank 0 prints the banner
+  (``mesh ACTIVE: tp=N ...``) and the report.  ``--speculative`` under a
+  mesh, ``--mesh`` with ``--replicas > 1``, ``serve --mesh`` and the
+  serve-bench options a multi-rank engine refuses raise
+  ``NotImplementedError`` before any model loads (ROADMAP.md queue 1
+  item 8c);
 - ``--hbm-gbps`` defaults to the H100's 3350 GB/s.
 """
 
@@ -55,8 +62,12 @@ import numpy as np
 
 # the spelling of "no mesh" in each parser (generation: data,seq,model)
 _NO_MESH = {"generate": "1,1,1", "serve": ""}
-_NOT_PORTED = ("is not ported to the PyTorch port yet (ROADMAP.md queue 1 item 8b: "
-               "the engine's mesh_plan and mesh-sharded serving)")
+_NOT_PORTED = ("is not ported to the PyTorch port yet (ROADMAP.md queue 1 item 8c: "
+               "the fleet's DP x TP placement, HTTP serve --mesh, speculation and the "
+               "host tier under a mesh)")
+# serve-bench flags whose engine options a multi-rank engine refuses
+_MESH_REFUSED = {"speculative_serve": "--speculative-serve", "auto_actions": "--auto-actions",
+                 "tick_sentinel": "--tick-sentinel", "realtime": "--realtime"}
 
 
 def _reject_tpu(backend: str) -> str:
@@ -498,11 +509,17 @@ def _validate_pool_flags(args) -> None:
         )
 
 
-def _resolve_serve_mesh(args, prog: str) -> None:
-    """Validate --mesh/--replicas BEFORE the model load.  The JAX CLI
-    returns a mesh plan and each replica's device slice; the port's
-    replicas share the one card, and any ``--mesh`` raises
-    ``NotImplementedError``."""
+def _resolve_serve_mesh(args, prog: str):
+    """--mesh/--replicas → a tensor-parallel ``MeshPlan`` or None,
+    validated BEFORE the model load with the JAX CLI's messages: serve
+    meshes are TP-only, ``--replicas`` >= 1, and on ``--backend cuda`` a
+    rank needs a card of its own (on the CPU every rank is a process).
+    The port's replicas share the one card.  What is not ported raises
+    ``NotImplementedError``: ``--mesh`` with ``--replicas > 1``, ``serve
+    --mesh`` (HTTP), and the serve-bench options whose engine options a
+    multi-rank engine refuses."""
+    from llm_np_cp_tpu_torch.parallel.sharding import parse_mesh_spec
+
     replicas = args.replicas
     if replicas < 1:
         raise SystemExit(f"--replicas must be >= 1, got {replicas}")
@@ -510,8 +527,43 @@ def _resolve_serve_mesh(args, prog: str) -> None:
         raise SystemExit(
             f"--spill-queue-depth must be >= 0, got {args.spill_queue_depth}"
         )
-    if args.mesh != _NO_MESH["serve"]:
-        raise NotImplementedError(f"{prog}: --mesh {args.mesh!r}: {_NOT_PORTED}")
+    plan = None
+    if args.mesh:
+        plan = parse_mesh_spec(args.mesh)
+        for axis in ("data", "seq", "pipe", "expert"):
+            if getattr(plan, axis) != 1:
+                raise SystemExit(
+                    f"--mesh {args.mesh!r}: serve meshes are "
+                    f"tensor-parallel only (model=N); {axis}="
+                    f"{getattr(plan, axis)} is not a serve axis — use "
+                    "--replicas for data parallelism"
+                )
+        if plan.model == 1:
+            plan = None
+    if plan is None:
+        return None
+    need = plan.num_devices * replicas
+    if _reject_tpu(args.backend) == "cuda":
+        import torch
+
+        have = torch.cuda.device_count()
+        if need > have:
+            raise SystemExit(
+                f"{prog}: --mesh/--replicas need {need} devices "
+                f"({replicas} replicas x {plan.num_devices}), have {have}"
+            )
+    if replicas > 1:
+        raise NotImplementedError(
+            f"{prog}: --mesh {args.mesh!r} with --replicas {replicas} {_NOT_PORTED}")
+    if prog == "serve":
+        raise NotImplementedError(f"serve: --mesh {args.mesh!r} {_NOT_PORTED}")
+    on = [flag for key, flag in _MESH_REFUSED.items() if getattr(args, key, False)]
+    if getattr(args, "kv_tier", "off") == "host":
+        on.append("--kv-tier host")
+    if on:
+        raise NotImplementedError(
+            f"{prog}: {', '.join(on)} under --mesh {args.mesh!r} {_NOT_PORTED}")
+    return plan
 
 
 def _device(args):
@@ -548,11 +600,12 @@ def _build_serve_engine(args, params, config, *, prog: str,
                         tokenizer=None, max_queue: int | None = None,
                         fault_injector=None, shared_tracer=None,
                         journal=None, shared_request_log=None,
-                        shared_host_tier=None, quiet=False):
+                        shared_host_tier=None, quiet=False, mesh_plan=None):
     """The shared engine build for both serve subcommands: validate the
     pool flags, resolve --attn-impl (no probe: auto is paged), size the
-    pool, build.  The JAX build's ``mesh_plan`` / ``mesh_devices`` have
-    no counterpart (``_resolve_serve_mesh`` refuses a mesh)."""
+    pool, build.  ``mesh_plan``: the tensor-parallel plan, inside a rank
+    (``params`` whole; the engine cuts this rank's shards).  The JAX
+    build's ``mesh_devices`` has no counterpart."""
     import torch
 
     from llm_np_cp_tpu_torch.ops.sampling import Sampler
@@ -748,6 +801,7 @@ def _build_serve_engine(args, params, config, *, prog: str,
             if getattr(args, "speculative_serve", False) else 0
         ),
         device=_device(args),
+        mesh_plan=mesh_plan,
     )
     if slo_policy is not None:
         from llm_np_cp_tpu_torch.serve.slo import SLOTracker
@@ -760,6 +814,8 @@ def _build_serve_engine(args, params, config, *, prog: str,
                   "(goodput/burn on /metrics, GET /debug/slo)")
     if quiet:
         return engine, num_blocks
+    if engine.mesh is not None:
+        print(f"[{prog}] mesh ACTIVE: {engine.mesh_desc}")
     if engine.mixed:
         print(f"[{prog}] unified tick ACTIVE: one mixed dispatch/tick, "
               f"budget {engine.tick_token_budget} tokens "
@@ -779,8 +835,10 @@ def _ragged_impl(engine) -> str:
     return "cuda" if engine.device.type == "cuda" else "plain"
 
 
-def _topology(args) -> str:
-    # every replica shares the one device (the JAX CLI names its mesh)
+def _topology(args, engine) -> str:
+    # the mesh, else every replica shares the one device
+    if engine.mesh_desc is not None:
+        return engine.mesh_desc
     return "single chip" if args.replicas == 1 else f"{args.replicas} replicas x (single chip)"
 
 
@@ -824,10 +882,6 @@ def _dump_trace(tracer, args, prog: str) -> None:
 
 def _run_serve_bench(argv: list[str], default_model: str,
                      tokenizer: Any = None) -> str:
-    import json as _json
-
-    from llm_np_cp_tpu_torch.serve import poisson_trace
-
     args = build_serve_parser(default_model).parse_args(argv)
     args.tokenizer = tokenizer
     _validate_pool_flags(args)
@@ -836,12 +890,64 @@ def _run_serve_bench(argv: list[str], default_model: str,
             f"--distinct-prompts must be >= 0 (0 = every prompt distinct), "
             f"got {args.distinct_prompts}"
         )
-    _resolve_serve_mesh(args, "serve-bench")
-    _device(args)
+    plan = _resolve_serve_mesh(args, "serve-bench")
+    device = _device(args)
     injector = _chaos_injector(args)
+    if plan is not None and injector is not None:
+        raise NotImplementedError(f"serve-bench: --chaos-spec under --mesh {args.mesh!r} "
+                                  f"{_NOT_PORTED}")
     _tok, params, config = _load(args)
+    if plan is None:
+        return _serve_bench_replay(args, params, config, injector)
+    import contextlib
+    import io
+    import os
+
+    plan.validate(config)
+    if "WORLD_SIZE" in os.environ:  # launched as a rank (torchrun): rank 0 prints
+        import torch.distributed as dist
+
+        quiet = dist.is_initialized() and dist.get_rank() != 0
+        with contextlib.redirect_stdout(io.StringIO()) if quiet else contextlib.nullcontext():
+            return _serve_bench_replay(args, params, config, None, plan)
+    from llm_np_cp_tpu_torch.parallel.launch import run_ranks
+
+    on_cuda = device.type == "cuda"
+    rank_args = argparse.Namespace(**{**vars(args), "tokenizer": None})
+    printed, out = run_ranks(_serve_bench_rank, plan.num_devices, rank_args,
+                             _on_host(params), config, plan, on_cuda,
+                             backend="nccl" if on_cuda else "gloo")[0]
+    sys.stdout.write(printed)
+    return out
+
+
+def _serve_bench_rank(rank: int, args, params, config, plan, on_cuda: bool):
+    """One spawned rank of ``serve-bench --mesh``: the replay on this
+    rank's engine (a card a rank on CUDA), with what it printed captured;
+    rank 0's comes back to the parent, which prints it."""
+    import contextlib
+    import io
+
+    if on_cuda:
+        import torch
+
+        torch.cuda.set_device(rank)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = _serve_bench_replay(args, params, config, None, plan)
+    return buf.getvalue(), out
+
+
+def _serve_bench_replay(args, params, config, injector, plan=None) -> str:
+    """serve-bench after the load: build the engine(s) (``plan``: this
+    rank's tensor-parallel engine), replay the seeded trace, print and
+    return the report."""
+    import json as _json
+
+    from llm_np_cp_tpu_torch.serve import poisson_trace
+
     engine, num_blocks = _build_serve_engine(
-        args, params, config, prog="serve-bench", fault_injector=injector,
+        args, params, config, prog="serve-bench", fault_injector=injector, mesh_plan=plan,
     )
     replica_set = None
     if args.replicas > 1:
@@ -895,7 +1001,7 @@ def _run_serve_bench(argv: list[str], default_model: str,
         f"[serve-bench] {args.requests} requests @ {args.rate} req/s, "
         f"slots={args.slots}, pool={num_blocks}x{args.block_size} "
         f"({args.cache_dtype}), attn={engine.decode_attn_impl}, "
-        f"tick={tick}, topo={_topology(args)}, "
+        f"tick={tick}, topo={_topology(args, engine)}, "
         f"prefix_cache={'on' if args.prefix_cache else 'off'}, "
         f"kv_tier={args.kv_tier}\n"
     )
@@ -1017,7 +1123,7 @@ def _run_http_serve(argv: list[str], default_model: str,
         f"[serve] model={args.model} slots={args.slots} "
         f"pool={num_blocks}x{args.block_size} ({args.cache_dtype}), "
         f"attn={engine.decode_attn_impl}, "
-        f"epilogue={engine.epilogue_impl}, topo={_topology(args)}, "
+        f"epilogue={engine.epilogue_impl}, topo={_topology(args, engine)}, "
         f"prefix_cache={'on' if args.prefix_cache else 'off'}, "
         f"kv_tier={args.kv_tier}, "
         f"max_queue={args.max_queue or 'unbounded'}, "

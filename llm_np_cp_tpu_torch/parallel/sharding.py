@@ -55,7 +55,7 @@ MESH_AXES = (DATA_AXIS, PIPE_AXIS, SEQ_AXIS, EXPERT_AXIS, MODEL_AXIS)
 
 # what a multi-rank MoE forward waits for
 MOE_TP_ITEM = ("MoE under a model axis > 1 (expert and tensor parallelism over ops/moe.py) "
-               "is not ported yet (ROADMAP.md queue 1 item 8b)")
+               "is not ported yet (ROADMAP.md queue 1 item 8c)")
 
 
 class P(tuple):

@@ -23,6 +23,14 @@ int8 mode mirrors ``KVCache``'s quantized slabs: per-token-per-head
 absmax scales (cache.quantize_kv layout) ride in parallel
 ``[L, NB, BS, K]`` float32 pages.
 
+Under a tensor-parallel mesh (``ServeEngine(mesh_plan=...)``) each rank's
+pool holds only its KV heads (``kv_heads``: ``[L, NB, BS, K_local, D]``
+slabs and ``[L, NB, BS, K_local]`` scale pages, the head axis split over
+"model" as ``parallel.sharding.paged_kv_specs`` says), while the free
+list, the block ids and the prefix cache stay global: every rank makes
+the same allocation decisions, so every rank's tables name the same
+blocks, each holding this rank's head slice of their K/V.
+
 The allocator is host-side Python (a free list); blocks are REFCOUNTED
 so prompt-prefix blocks can be shared across requests
 (serve/prefix_cache.py).  The pages are plain tensors that the engine's
@@ -147,6 +155,7 @@ class BlockPool:
         dtype: torch.dtype = torch.bfloat16,
         enable_prefix_cache: bool = False,
         device: str | torch.device = "cuda",
+        kv_heads: int | None = None,
     ) -> None:
         if block_size < 8 or block_size % 8:
             # the JAX package's decode kernels need it (Mosaic's
@@ -163,11 +172,13 @@ class BlockPool:
             self.prefix_cache: PrefixCache | None = PrefixCache(self.free_list)
         else:
             self.prefix_cache = None
+        # the KV heads this rank's slabs hold (all of them off a mesh)
+        self.kv_heads = kv_heads or config.num_key_value_heads
         shape = (
             config.num_hidden_layers,
             num_blocks,
             block_size,
-            config.num_key_value_heads,
+            self.kv_heads,
             config.head_dim,
         )
         quantized = dtype == torch.int8
@@ -217,29 +228,44 @@ class BlockPool:
         """Point-in-time accounting for tests and reports: raw free-list
         state plus the prefix-cache split (``cache_only`` blocks are held
         solely by the cache's own reference and are reclaimable on
-        demand), ``request_held = allocated - cache_only``, and the JAX
-        pool's ``shard_stats``: ``kv_bytes_total``, the bytes of every
-        page, ``kv_bytes_shard``, what one device holds, and ``kv_shards``,
-        the shards the slabs split into.  The port's pool lives on one
-        card, so the shard is the whole slab and there is one (the
-        ``/metrics`` scrape reads both)."""
+        demand), ``request_held = allocated - cache_only``, and
+        ``shard_stats``."""
         allocated = self.free_list.num_allocated
         cache_only = (
             self.prefix_cache.n_reclaimable
             if self.prefix_cache is not None else 0
         )
-        # a retired engine's pool has released its pages
-        total = 0 if self.pages is None else int(
-            sum(a.numel() * a.element_size() for a in self.pages if a is not None))
-        return {
+        out = {
             "capacity": self.capacity,
             "free": self.free_list.num_free,
             "allocated": allocated,
             "cache_only": cache_only,
             "request_held": allocated - cache_only,
+        }
+        out.update(self.shard_stats())
+        return out
+
+    def shard_stats(self) -> dict[str, int]:
+        """Per-shard KV slab accounting (the ``/metrics`` scrape and the
+        serve banner read it): ``kv_bytes_total``, the bytes of the whole
+        logical slab (every KV head), ``kv_bytes_shard``, what this rank
+        holds, and ``kv_shards``, the distinct shards the slab splits
+        into (their ratio).  Off a mesh the shard is the whole slab.  Under
+        tensor parallelism with the KV heads sharded there are ``model``
+        shards; with them replicated each rank holds only the heads its
+        query heads read, so the slab splits into as many distinct shards
+        as that leaves (the JAX pool reports 1 there: its replicated slab
+        is whole on every device).  Occupancy needs no per-shard variant:
+        the free list is global."""
+        if self.pages is None:  # a retired engine's pool released its pages
+            return {"kv_bytes_total": 0, "kv_bytes_shard": 0, "kv_shards": 1}
+        shard = int(sum(a.numel() * a.element_size() for a in self.pages if a is not None))
+        # every page is linear in its head count
+        total = shard // self.kv_heads * self.config.num_key_value_heads
+        return {
             "kv_bytes_total": total,
-            "kv_bytes_shard": total,
-            "kv_shards": 1,
+            "kv_bytes_shard": shard,
+            "kv_shards": max(round(total / shard), 1) if shard else 1,
         }
 
     def alloc(self, n: int) -> list[int] | None:

@@ -125,7 +125,37 @@ tracer is attached, so a profiler capture lines up with the trace.
 What the port leaves out, as the JAX package has it: donation (pages are
 updated in place) and the runtime degradation to XLA fallbacks — on the
 card a kernel launches or raises, and a step captures or raises; nothing
-falls back.  Meshes raise ``NotImplementedError``.
+falls back.
+
+Tensor parallelism (``mesh_plan=MeshPlan(model=N)``), as in the JAX
+engine, which is TP-only (data parallelism is replicas behind a router,
+``serve/replica.py``): the params are cut into this rank's shards
+(``parallel.sharding.shard_params``), the pool's slabs hold this rank's
+KV heads (``paged_kv_specs``; ``BlockPool.shard_stats``), and the tick
+bodies issue the forward's collectives (``models.transformer``: the
+vocab-parallel embedding, the row-parallel reduces, the greedy
+epilogue's (row maximum, global index) merge or the sampled kinds'
+gathered logits).  The paged kernels run unchanged on a rank's query
+heads and slabs: GQA's kv-major head order makes the local group math
+the global one.  Where the KV heads do not divide "model" (Gemma-2's 2
+on 4 ranks) each rank's pool holds only the KV heads its query heads
+read (``kv_head_select``), written there by the tick, so both kernels
+still launch.  Where the JAX engine is one controller running every
+shard, the port is one process a rank (``parallel/launch.run_ranks`` or
+the CLI's spawn), each running its own engine on the same submissions:
+every tick all-gathers a digest of its plan (the tick number, the step
+and a checksum of the packed host operands) over "model" and raises
+``RuntimeError`` naming the first rank whose plan differs, so ranks that
+parted never pair the wrong collectives.  What would make a rank's host
+decisions follow its own wall clock or an outside source raises
+``NotImplementedError`` under a multi-rank mesh (``realtime`` replays,
+deadlines, ``actions``, ``sentinel``, ``host_tier``, ``spec_k``,
+``journal``, a fault injector: ROADMAP.md queue 1 item 8c), and
+``replay_trace`` releases arrivals by the ranks' largest clock reading.
+A gloo collective cannot be captured, so a multi-rank engine's steps
+run eagerly (``compile_counts``: ``mixed_step_eager`` /
+``decode_step_eager``), and where the JAX engine keeps the unfused tail
+under ``model > 1`` the port keeps the fused epilogue (the same tokens).
 
 The fleet's hooks (``serve/lifecycle.py``, ``serve/replica.py``), as in
 the JAX engine: ``actions`` (an ``ActionPolicy``) is fed once a tick
@@ -147,10 +177,12 @@ import logging
 import math
 import time
 import weakref
+import zlib
 from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from llm_np_cp_tpu_torch import graphs, random
 from llm_np_cp_tpu_torch.cache import KVCache, dequantize_kv, quantize_kv
@@ -163,6 +195,7 @@ from llm_np_cp_tpu_torch.models.transformer import (
     embed_inputs,
     epilogue_gate_error,
     final_logits,
+    kv_head_select,
     run_decoder_layer,
 )
 from llm_np_cp_tpu_torch.ops.activations import ACT2FN
@@ -170,6 +203,17 @@ from llm_np_cp_tpu_torch.ops.attention import gqa_attention
 from llm_np_cp_tpu_torch.ops.cuda import decode_attention as _da
 from llm_np_cp_tpu_torch.ops.rope import rope_cos_sin
 from llm_np_cp_tpu_torch.ops.sampling import Sampler
+from llm_np_cp_tpu_torch.parallel.collectives import all_gather, all_reduce
+from llm_np_cp_tpu_torch.parallel.sharding import (
+    MODEL_AXIS,
+    MOE_TP_ITEM,
+    Mesh,
+    MeshPlan,
+    kv_heads_shardable,
+    local_kv_heads,
+    make_mesh,
+    shard_params,
+)
 from llm_np_cp_tpu_torch.serve import telemetry as _tel
 from llm_np_cp_tpu_torch.serve.block_pool import BlockPool
 from llm_np_cp_tpu_torch.serve.faults import FaultInjected, FaultInjector
@@ -193,9 +237,16 @@ Params = dict[str, Any]
 # the window a global layer passes to the ragged kernel
 GLOBAL_WINDOW = 1 << 30
 
+# what a multi-rank engine waits for
+MESH_ITEM = "ROADMAP.md queue 1 item 8c"
+
 # keyword → value that means "off", for the JAX engine's options the port
-# does not have yet
-_NOT_PORTED = {"mesh_plan": None}
+# does not have yet: a one-device placement mesh belongs to the fleet's
+# data-parallel placement
+_NOT_PORTED = {"mesh_devices": None}
+
+# the plans a tick's digest names
+_DIGEST_WHAT = {"mixed": 1, "decode": 2, "prefill": 3}
 
 _NULL_CTX = contextlib.nullcontext()
 
@@ -325,8 +376,10 @@ class _StaticStep:
             o += n
         self.out = torch.zeros((eng.scheduler.max_slots, out_cols), dtype=torch.int32,
                                device=dev)
+        # a multi-rank engine's collectives cannot be captured: eager
         self.run = CapturedStep(lambda: body(self.ops, self.out), dev, name,
-                                guard=eng._capture_guard, side=eng._side_stream)
+                                guard=eng._capture_guard, side=eng._side_stream,
+                                eager=eng._multi)
 
     def upload(self, host: dict[str, np.ndarray]) -> None:
         """The tick's host operands → the static device buffer, in ONE
@@ -399,14 +452,25 @@ class ServeEngine:
         actions: Any = None,
         weights_version: int = 0,
         device: str | torch.device = "cuda",
+        mesh_plan: MeshPlan | None = None,
+        mesh: Mesh | None = None,
         **not_ported: Any,
     ) -> None:
+        """``mesh_plan``: a tensor-parallel plan (``MeshPlan(model=N)``);
+        the engine is built inside a rank of a running process group of
+        N ranks, makes its mesh over the group (``make_mesh``, the group's
+        backend, this rank's tensors on ``device``) and cuts this rank's
+        shards out of the full ``params``.  ``mesh``: that mesh, made by
+        the caller (``params`` are then this rank's shards already, as
+        ``Generator(mesh=)`` takes them; ``clone_fresh`` passes its
+        own).  A plan of one device is no mesh."""
         for name, value in not_ported.items():
             if name not in _NOT_PORTED:
                 raise TypeError(f"ServeEngine got an unexpected keyword argument {name!r}")
             if value != _NOT_PORTED[name]:
                 raise NotImplementedError(
-                    f"ServeEngine({name}=...) is not ported to PyTorch yet")
+                    f"ServeEngine({name}=...) is not ported to PyTorch yet ({MESH_ITEM}: "
+                    "the fleet's data-parallel placement)")
         if decode_attn_impl not in ("xla", "flash_decode", "paged"):
             raise ValueError(
                 f"decode_attn_impl must be 'xla', 'flash_decode' or 'paged', "
@@ -437,12 +501,37 @@ class ServeEngine:
             raise ValueError(
                 "host_tier requires enable_prefix_cache=True: the tier is keyed by the "
                 "prefix cache's chained content hashes")
-        self.device = resolve_device(device)
+        if mesh is not None:
+            if mesh_plan is not None and mesh_plan != mesh.plan:
+                raise ValueError(f"mesh_plan {mesh_plan} is not the mesh's plan {mesh.plan}")
+            mesh_plan = mesh.plan
+        self.mesh_plan = mesh_plan
+        self.mesh: Mesh | None = None
+        if mesh_plan is not None and mesh_plan.num_devices > 1:
+            self._check_mesh(mesh_plan, config, spec_k=spec_k, host_tier=host_tier,
+                             fault_injector=fault_injector, journal=journal,
+                             sentinel=sentinel, actions=actions)
+            if mesh is None:
+                mesh = make_mesh(mesh_plan, device=device,
+                                 backend=dist.get_backend() if dist.is_initialized() else None)
+                params = shard_params(params, config, mesh_plan, mesh)
+            self.mesh = mesh
+        # one process a rank: every rank runs this engine on the same
+        # submissions, in lockstep (``_lockstep``)
+        self._multi = self.mesh is not None
+        # under TP with replicated KV heads: the heads this rank's pool
+        # holds (those its query heads read); None = every head it computes
+        self._kv_sel = kv_head_select(config, self.mesh)
+        self.device = self.mesh.device if self._multi else resolve_device(device)
         if params["final_norm"].device != self.device:
             raise ValueError(
                 f"params live on {params['final_norm'].device}, the engine asked for "
                 f"device={str(self.device)!r}"
             )
+        # the tick digest's collective moves host memory on a gloo group
+        self._digest_device = (torch.device("cpu") if not self._multi
+                               or self.mesh.backend == "gloo" else self.device)
+        self._ticks = 0
         self.params = params
         self.config = config
         self.decode_attn_impl = decode_attn_impl
@@ -468,6 +557,7 @@ class ServeEngine:
         self.pool = BlockPool(
             config, num_blocks, block_size, dtype=cache_dtype,
             enable_prefix_cache=enable_prefix_cache, device=self.device,
+            kv_heads=self._pool_kv_heads(),
         )
         self.scheduler = Scheduler(
             self.pool,
@@ -629,7 +719,86 @@ class ServeEngine:
         else:
             self.tick_token_budget = 0
             self.mixed_buckets: tuple[int, ...] = ()
-            self._prefill_step = make_ragged_prefill_step(config, device=self.device)
+            self._prefill_step = make_ragged_prefill_step(config, device=self.device,
+                                                          mesh=self.mesh)
+
+    @staticmethod
+    def _check_mesh(plan: MeshPlan, config: ModelConfig, **options: Any) -> None:
+        """The JAX engine's refusals of a multi-device plan (TP only, the
+        config divisible), then the port's: MoE under TP and the options
+        whose host decisions would differ between ranks."""
+        for axis in ("data", "seq", "pipe", "expert"):
+            if getattr(plan, axis) != 1:
+                raise ValueError(
+                    f"ServeEngine meshes are tensor-parallel only (model axis); got "
+                    f"{axis}={getattr(plan, axis)} — use serve/replica.py ReplicaSet for "
+                    "data parallelism")
+        plan.validate(config)
+        if config.is_moe:
+            raise NotImplementedError(MOE_TP_ITEM)
+        on = [name for name, value in options.items() if value]
+        if on:
+            raise NotImplementedError(
+                f"ServeEngine({', '.join(f'{n}=...' for n in on)}) under a multi-rank mesh "
+                f"is not ported yet ({MESH_ITEM}): its host decisions follow the wall "
+                "clock or a source outside the trace, which the ranks do not share")
+
+    def _pool_kv_heads(self) -> int:
+        """The KV heads this rank's pool holds: its share over "model"
+        when they shard, else those ``kv_head_select`` names."""
+        sel = self._kv_sel
+        if sel is None:
+            return local_kv_heads(self.config, self.mesh)
+        return sel.stop - sel.start if isinstance(sel, slice) else int(sel.numel())
+
+    def _pool_heads(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """``t``'s KV heads (along ``dim``) that this rank's pool holds."""
+        sel = self._kv_sel
+        if sel is None:
+            return t
+        if isinstance(sel, slice):
+            return t.narrow(dim, sel.start, sel.stop - sel.start)
+        return t.index_select(dim, sel)
+
+    @property
+    def mesh_desc(self) -> str | None:
+        """The topology for the serve banner and ``/healthz``: the TP
+        degree, the ranks and this rank's device, the group backend, and
+        whether the KV heads are sharded or replicated (None without a
+        mesh)."""
+        if self.mesh is None:
+            return None
+        kv = "kv-sharded" if kv_heads_shardable(self.config, self.mesh_plan) else "kv-replicated"
+        return (f"tp={self.mesh_plan.model} over {self.mesh_plan.num_devices} "
+                f"{self.mesh.backend} ranks on {self.device} ({kv})")
+
+    def _lockstep(self, what: str, bucket: int, host: np.ndarray) -> None:
+        """Under a multi-rank mesh: all-gather this tick's digest (tick
+        number, which plan, its bucket, a checksum of its packed host
+        operands) over "model" and raise ``RuntimeError`` naming the first
+        rank whose digest differs from rank 0's, before any collective of
+        the step could pair with another rank's different call."""
+        if not self._multi:
+            return
+        crc = zlib.crc32(np.ascontiguousarray(host).view(np.uint8))
+        mine = torch.tensor([[self._ticks, _DIGEST_WHAT[what], bucket, host.size, crc]],
+                            dtype=torch.int64, device=self._digest_device)
+        got = all_gather(mine, self.mesh, MODEL_AXIS, dim=0).cpu()
+        bad = (got != got[0]).any(dim=1).nonzero()
+        if bad.numel():
+            r = int(bad[0, 0])
+            ranks = dist.get_process_group_ranks(self.mesh.group(MODEL_AXIS))
+            raise RuntimeError(
+                f"tensor-parallel ranks out of lockstep at tick {self._ticks}: model rank {r} "
+                f"(global rank {ranks[r]}) planned {got[r].tolist()}, model rank 0 planned "
+                f"{got[0].tolist()} ([tick, plan, bucket, operands, crc32]); every rank must "
+                "make the same submissions, aborts and calls in the same order")
+
+    def _synced_clock(self) -> float:
+        """The largest of the ranks' clock readings (one all-reduce): what
+        a multi-rank replay releases arrivals by."""
+        t = torch.tensor([self.clock()], dtype=torch.float64, device=self._digest_device)
+        return float(all_reduce(t, self.mesh, MODEL_AXIS, op="max")[0])
 
     def _make_buckets(self, budget: int, max_slots: int) -> tuple[int, ...]:
         """Packed-width buckets for the mixed step: a doubling ladder of
@@ -791,8 +960,10 @@ class ServeEngine:
         """Write fresh K/V ``[N, K, D]`` of layer ``i`` at pool slots
         ``(blk, off)``, in place.  Dead lanes all write (scratch block 0,
         slot 0); which duplicate lands is unspecified on CUDA and
-        harmless — no live table reads block 0."""
+        harmless — no live table reads block 0.  Under TP with replicated
+        KV heads only the heads this rank's pool holds are written."""
         kp, vp, ksp, vsp = self._layer_pages(i)
+        k, v = self._pool_heads(k, 1), self._pool_heads(v, 1)
         if ksp is not None:
             kq, ks = quantize_kv(k)
             vq, vs = quantize_kv(v)
@@ -823,6 +994,7 @@ class ServeEngine:
                 w, x, config=cfg, act=act, cos=cos, sin=sin,
                 sliding=cfg.layer_is_sliding(i), kv_update=kv_update,
                 attn_fn=lambda q, _k, _v, sliding, i=i: attend(i, q, sliding),
+                mesh=self.mesh,
             )
         return x
 
@@ -841,10 +1013,14 @@ class ServeEngine:
                      pos: torch.Tensor) -> torch.Tensor:
         """Rows of pre-final-norm hidden states ``x [N, H]`` → ``[N]``
         int32 samples: the fused epilogue kernel (greedy, float or int8 head), or
-        final_logits + the keyed sampler."""
+        final_logits + the keyed sampler.  Under TP the epilogue runs on this
+        rank's vocab shard and the ranks' (row maximum, index) pairs merge;
+        the logits are gathered over "model" before a keyed draw, so every
+        rank draws the same token."""
         if self.epilogue_impl == "fused":
-            return transformer.sample_epilogue_tail(self.params, x, self.config)
-        return self._draw(final_logits(self.params, x[:, None], self.config)[:, 0], seeds, pos)
+            return transformer.sample_epilogue_tail(self.params, x, self.config, self.mesh)
+        logits = final_logits(self.params, x[:, None], self.config, mesh=self.mesh)
+        return self._draw(logits[:, 0], seeds, pos)
 
     def _mixed_step(self, host: dict[str, np.ndarray]) -> torch.Tensor:
         """The unified-tick step of the tick's bucket: the packed operands
@@ -854,6 +1030,7 @@ class ServeEngine:
         t_w = host["tokens"].shape[0]
         st = self._bucket_step(t_w)
         st.upload(host)
+        self._lockstep("mixed", t_w, st.host_np)
         self.bucket_dispatches[t_w] = self.bucket_dispatches.get(t_w, 0) + 1
         st.run()
         return st.out
@@ -888,7 +1065,7 @@ class ServeEngine:
                 logit_softcap=cfg.attn_logit_softcapping,
             )[None]
 
-        x = embed_inputs(self.params, tokens[None, :], cfg)  # [1, T, H]
+        x = embed_inputs(self.params, tokens[None, :], cfg, self.mesh)  # [1, T, H]
         x = self._run_layers(x, positions[None, :], write, attend)
         r, w_cols = last_idx.shape
         xr = x[0][last_idx.reshape(-1)]  # [R*W, H]: only the sample slots
@@ -912,6 +1089,7 @@ class ServeEngine:
             self._split_step = _decode_step_state(self)
         st = self._split_step
         st.upload(host)
+        self._lockstep("decode", 0, st.host_np)
         st.run()
         return st.out
 
@@ -956,7 +1134,7 @@ class ServeEngine:
                 v_att = dequantize_kv(v_att, view(vsp), q.dtype)
             return gqa_attention(q, k_att, v_att, mask[:, None, :], **kw)
 
-        x = embed_inputs(self.params, toks[:, None], cfg)  # [B, 1, H]
+        x = embed_inputs(self.params, toks[:, None], cfg, self.mesh)  # [B, 1, H]
         x = self._run_layers(x, content_pos[:, None], write, attend)
         nxt = self._sample_tail(x[:, -1], seeds, content_pos)[:, None]
         accept = torch.zeros(nxt.shape[0], dtype=torch.int32, device=nxt.device)
@@ -971,10 +1149,19 @@ class ServeEngine:
         idx = torch.tensor(ids, dtype=torch.long, device=self.device)
         p = self.pool.pages
         l_axis = p.k.shape[0]
+        sel = self._kv_sel
         for slab, page in ((cache.k, p.k), (cache.v, p.v),
                            (cache.k_scale, p.k_scale), (cache.v_scale, p.v_scale)):
             if page is not None:
-                slab[:, 0, :n] = page[:, idx].reshape(l_axis, n, *page.shape[3:])
+                src = page[:, idx].reshape(l_axis, n, *page.shape[3:])
+                # under TP with replicated KV heads the pool holds the
+                # heads the query heads read; the others stay unread
+                if sel is None:
+                    slab[:, 0, :n] = src
+                elif isinstance(sel, slice):
+                    slab[:, 0, :n, sel] = src
+                else:
+                    slab[:, 0, :n].index_copy_(2, sel, src)
         pos = torch.arange(cache.max_seq_len, device=self.device)
         cache.valid[0] = (pos >= pad) & (pos < n)
         cache.set_length(n)
@@ -990,7 +1177,7 @@ class ServeEngine:
         for slab, page in ((cache.k, p.k), (cache.v, p.v),
                            (cache.k_scale, p.k_scale), (cache.v_scale, p.v_scale)):
             if page is not None:
-                fresh = slab[:, 0, start * bs:(start + nb) * bs]
+                fresh = self._pool_heads(slab[:, 0, start * bs:(start + nb) * bs], 2)
                 page[:, idx] = fresh.reshape(l_axis, nb, bs, *page.shape[3:])
 
     # ------------------------------------------------------------------
@@ -1201,6 +1388,10 @@ class ServeEngine:
             )
         if deadline_s is not None and deadline_s <= 0:
             raise ValueError(f"deadline_s must be > 0, got {deadline_s}")
+        if deadline_s is not None and self._multi:
+            raise NotImplementedError(
+                f"deadlines under a multi-rank mesh are not ported yet ({MESH_ITEM}): each "
+                "rank's sweep would read its own wall clock")
         if request_id is None:
             request_id = self._next_id
         self._next_id = max(self._next_id, request_id) + 1
@@ -1405,6 +1596,9 @@ class ServeEngine:
         already at its budget needs only its finish (``finish_recovered``)."""
         if deadline_s is not None and deadline_at is not None:
             raise ValueError("pass deadline_s or deadline_at, not both")
+        if deadline_at is not None and self._multi:
+            raise NotImplementedError(
+                f"deadlines under a multi-rank mesh are not ported yet ({MESH_ITEM})")
         if len(generated) >= max_new_tokens:
             raise ValueError(
                 f"request {request_id} already generated {len(generated)}/{max_new_tokens} "
@@ -1516,8 +1710,13 @@ class ServeEngine:
         them at ``retire``)."""
         if self.retired is not None:
             return self._captured_shapes
-        return (sorted(t for t, st in self._mixed_steps.items() if st.run.compiled),
-                self._split_step is not None and self._split_step.run.compiled)
+        return (sorted(t for t, st in self._mixed_steps.items() if self._built(st)),
+                self._split_step is not None and self._built(self._split_step))
+
+    def _built(self, st: _StaticStep) -> bool:
+        """The step has its graph, or, under a multi-rank mesh (eager
+        steps), has run."""
+        return st.run.calls > 0 if self._multi else st.run.compiled
 
     def clone_fresh(self, *, params: Params | None = None,
                     weights_version: int | None = None) -> "ServeEngine":
@@ -1556,8 +1755,12 @@ class ServeEngine:
         what ``clone_fresh`` carries, and captures every bucket this engine
         has captured, before anyone routes to it.  On the card call it on
         the thread and stream that will tick the clone."""
+        if params is None:
+            params = self.params
+        elif self.mesh is not None:
+            params = shard_params(params, self.config, self.mesh_plan, self.mesh)
         eng = ServeEngine(
-            params if params is not None else self.params, self.config,
+            params, self.config,
             sampler=self.sampler,
             stop_tokens=self.stop_tokens,
             max_slots=self.scheduler.max_slots,
@@ -1590,6 +1793,7 @@ class ServeEngine:
             weights_version=(weights_version if weights_version is not None
                              else self.weights_version),
             device=self.device,
+            mesh=self.mesh,
         )
         eng.metrics = self.metrics
         eng._next_id = self._next_id
@@ -1720,7 +1924,7 @@ class ServeEngine:
         mask_d = torch.from_numpy(mask).to(dev)
         pads = torch.tensor([req.pad], dtype=torch.long, device=dev)
         cache = KVCache.init(self.config, 1, self.max_seq_len, dtype=self.cache_dtype,
-                             device=dev)
+                             device=dev, kv_heads=local_kv_heads(self.config, self.mesh))
         if n_shared:
             self.n_dispatches += 1
             self._gather_prefix(cache, req.block_ids[:n_shared], req.pad)
@@ -1772,6 +1976,7 @@ class ServeEngine:
         if self.retired is not None:
             raise RuntimeError(f"this engine was retired ({self.retired}); step the "
                                "engine that replaced it")
+        self._ticks += 1
         if self.mixed:
             return self._step_mixed()
         return self._step_split()
@@ -1789,6 +1994,11 @@ class ServeEngine:
         self._tier_tick_start()
         self._sweep_deadlines()
         admitted = self.scheduler.admit()
+        if self._multi:
+            # the admissions' prefills run the forward's collectives
+            self._lockstep("prefill", len(admitted), np.asarray(
+                [x for r in admitted for x in (r.req_id, r.total_len, r.n_shared_blocks,
+                                               *r.block_ids)], np.int64))
         t1 = self.tracer.now_us() if self.tracer is not None else -1.0
         for req in admitted:
             t_req = self.clock()
@@ -2294,11 +2504,16 @@ class ServeEngine:
         the first sample and the scatter run eagerly and are not
         reported.  Nor are the host tier's copies (the JAX engine's
         ``restore_block`` / ``slice_block`` programs): they are eager
-        operations between steps, so a tier-on run adds no capture."""
-        if not self.mixed:
-            st = self._split_step
-            return {"decode_step": int(st is not None and st.run.compiled)}
-        return {"mixed_step": sum(st.run.compiled for st in self._mixed_steps.values())}
+        operations between steps, so a tier-on run adds no capture.
+        Under a multi-rank mesh the steps run eagerly: ``mixed_step`` /
+        ``decode_step`` are 0 and ``mixed_step_eager`` /
+        ``decode_step_eager`` count the steps that have run."""
+        name = "mixed_step" if self.mixed else "decode_step"
+        steps = (list(self._mixed_steps.values()) if self.mixed
+                 else [st for st in (self._split_step,) if st is not None])
+        if self._multi:
+            return {name: 0, name + "_eager": sum(st.run.calls > 0 for st in steps)}
+        return {name: sum(st.run.compiled for st in steps)}
 
     def graph_steps(self) -> list[CapturedStep]:
         """The captured steps: the unified tick's bucket steps, or the
@@ -2316,7 +2531,7 @@ class ServeEngine:
         if self._split_step is None:
             self._split_step = _decode_step_state(self)
         st = self._split_step
-        if not st.run.compiled:
+        if not self._built(st):
             host = {k: np.zeros(st.ops[k].shape, np.int32) for k in _DECODE_OPERANDS}
             host["vis"][:] = 1
             st.upload(host)
@@ -2328,7 +2543,7 @@ class ServeEngine:
         every lane points at the scratch block and is fully masked, so
         the only effect is the capture (and a garbage write to scratch)."""
         st = self._bucket_step(t_w)
-        if not st.run.compiled:
+        if not self._built(st):
             st.upload({k: np.zeros(st.ops[k].shape, np.int32) for k in _MIXED_OPERANDS})
             st.run()
             st.out.cpu()
@@ -2396,8 +2611,29 @@ class ServeEngine:
         "speculative"?}]``
         (see ``serve/trace.replay_arrivals``): a virtual clock releases
         arrivals whenever the engine is idle, or ``realtime=True`` sleeps
-        until each one.  Returns ``metrics.snapshot()``."""
+        until each one.  Returns ``metrics.snapshot()``.  Under a
+        multi-rank mesh every rank replays the same trace and the virtual
+        clock follows the ranks' largest clock reading, so every rank
+        releases the same arrivals at the same tick (``realtime`` would
+        follow each rank's own wall clock: not ported yet)."""
         from llm_np_cp_tpu_torch.serve.trace import replay_arrivals
 
-        return replay_arrivals(self, trace, self.metrics.snapshot,
+        target: Any = self
+        if self._multi:
+            if realtime:
+                raise NotImplementedError(
+                    f"replay_trace(realtime=True) under a multi-rank mesh is not ported yet "
+                    f"({MESH_ITEM}): each rank would release arrivals by its own wall clock")
+            target = _LockstepReplay(self)
+        return replay_arrivals(target, trace, self.metrics.snapshot,
                                realtime=realtime, max_ticks=max_ticks)
+
+
+class _LockstepReplay:
+    """A multi-rank engine as ``replay_arrivals`` drives it: its clock is
+    the ranks' largest reading (``ServeEngine._synced_clock``)."""
+
+    def __init__(self, eng: ServeEngine) -> None:
+        self.clock = eng._synced_clock
+        self.submit = eng.submit
+        self.step = eng.step

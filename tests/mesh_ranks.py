@@ -1,6 +1,6 @@
 """Rank bodies of the mesh tests (``test_torch_sharding.py``,
-``test_torch_ring_attention.py``, and ``test_torch_cli.py``'s
-``cli_in_rank``).
+``test_torch_ring_attention.py``, ``test_torch_serve_sharded.py``'s
+``serve_case``, and ``test_torch_cli.py``'s ``cli_in_rank``).
 
 A spawned rank imports the module of the function it runs, so the rank
 side lives here and imports torch, numpy and the port only — no JAX.
@@ -160,19 +160,143 @@ def cli_in_rank(rank: int, argvs: list[list[str]], params, cfg) -> list[tuple[st
     return out
 
 
+def _serve_tokens(engines) -> dict:
+    return {r.req_id: list(r.generated) for e in engines for r in e.scheduler.finished}
+
+
+def serve_case(plan, params, cfg, engine_kw, trace=None, prompts=None, max_new=6,
+               script="trace", diverge_rank=None):
+    """A tensor-parallel ``ServeEngine(mesh_plan=plan)`` on this rank over
+    the full numpy ``params`` (each rank cuts its own shards), on a
+    ``TickClock``, and what it did: every finished request's tokens, the
+    pool's stats and page shapes, ``mesh_desc``, ``compile_counts``, the
+    graph captures, the collective counts and the block tables of the
+    last dispatch.  ``script``: ``"trace"`` replays ``trace``;
+    ``"submit"`` submits ``prompts`` (seed = index) and runs them out;
+    ``"abort_recover"`` warms the engine, submits ``prompts``, ticks once,
+    aborts request 1, ticks again, then rebuilds (``clone_fresh``) and
+    recovers the survivors with their tokens so far; ``"diverge"``: as
+    ``"submit"``, but rank ``diverge_rank`` submits its first prompt one
+    token longer (what the tick digest must catch, as a message);
+    ``"refusals"``: the messages of the calls a multi-rank engine refuses
+    (a deadline, ``recover(deadline_at=)``, a realtime replay)."""
+    import torch
+
+    from llm_np_cp_tpu_torch import graphs
+    from llm_np_cp_tpu_torch.convert import params_from_jax
+    from llm_np_cp_tpu_torch.ops.sampling import Sampler
+    from llm_np_cp_tpu_torch.serve import ServeEngine
+    from tick_clock import clocked
+
+    kw = dict(engine_kw)
+    kw["cache_dtype"] = getattr(torch, kw.pop("cache_dtype", "float32"))
+    sampler = Sampler(**kw.pop("sampler", {"kind": "greedy"}))
+    before = dict(graphs.TOTALS)
+    eng = clocked(ServeEngine, params_from_jax(params, device="cpu"), cfg, sampler=sampler,
+                  mesh_plan=plan, device="cpu", **kw)
+    out = {}
+    engines = [eng]
+    if script == "trace":
+        out["snapshot"] = eng.replay_trace(trace)
+    elif script in ("submit", "diverge"):
+        for j, p in enumerate(prompts):
+            if script == "diverge" and j == 0 and torch.distributed.get_rank() == diverge_rank:
+                p = list(p) + [1]
+            eng.submit(p, max_new, seed=j)
+        try:
+            eng.run_until_complete()
+        except RuntimeError as e:
+            out["error"] = str(e)
+    elif script == "abort_recover":
+        eng.warmup([len(p) for p in prompts], max_new_tokens=max_new)
+        live = [eng.submit(p, max_new, seed=j) for j, p in enumerate(prompts)]
+        eng.step()
+        out["aborted"] = eng.abort(live[1].req_id)
+        eng.step()
+        rebuilt = eng.clone_fresh()
+        for r in (live[0], live[2]):
+            if r.req_id in eng._requests:
+                rebuilt.recover(r.prompt, r.max_new_tokens, request_id=r.req_id, seed=r.seed,
+                                generated=list(r.generated))
+        rebuilt.run_until_complete()
+        engines.append(rebuilt)
+        out["rebuilt_stats"] = rebuilt.pool.stats()
+        out["rebuilt_desc"] = rebuilt.mesh_desc
+    elif script == "refusals":
+        calls = {
+            "deadline_s": lambda: eng.submit(prompts[0], max_new, deadline_s=1.0),
+            "deadline_at": lambda: eng.recover(prompts[0], max_new, request_id=7,
+                                               deadline_at=1.0),
+            "realtime": lambda: eng.replay_trace([], realtime=True),
+        }
+        out["refused"] = {}
+        for what, call in calls.items():
+            try:
+                call()
+            except NotImplementedError as e:
+                out["refused"][what] = str(e)
+    last = engines[-1]
+    out.update(
+        tokens=_serve_tokens(engines), stats=eng.pool.stats() if last is eng else None,
+        shard_stats=last.pool.shard_stats(), mesh_desc=last.mesh_desc,
+        counts=last.compile_counts(), mixed=last.mixed, epilogue=last.epilogue_impl,
+        page_shapes=[None if a is None else tuple(a.shape) for a in last.pool.pages],
+        captures=graphs.TOTALS["captures"] - before["captures"],
+        eager_steps=[run.eager for run in last.graph_steps()],
+        buckets=list(last.mixed_buckets), ticks=last._ticks,
+    )
+    return out
+
+
+def serve_bench_in_rank(rank: int | None, argv: list[str], params, cfg) -> tuple[str, dict]:
+    """``cli.run(argv)`` of a ``serve-bench`` inside a rank of a running
+    process group (``WORLD_SIZE`` set; ``rank=None``: in this process,
+    no group) over these weights: what it printed and every served
+    request's tokens (the engines it built are recorded)."""
+    import contextlib
+    import io
+    import os
+
+    from llm_np_cp_tpu_torch import cli, serve
+
+    built = []
+    engine_cls = serve.ServeEngine
+
+    def record(*a, **kw):
+        built.append(engine_cls(*a, **kw))
+        return built[-1]
+
+    if rank is not None:
+        os.environ["WORLD_SIZE"] = "set by the test's rank"
+    load, cli._load = cli._load, lambda args: (None, params, cfg)
+    serve.ServeEngine = record
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            cli.run(argv)
+    finally:
+        serve.ServeEngine = engine_cls
+        cli._load = load
+    return out.getvalue(), _serve_tokens(built)
+
+
 KINDS = {"forward": forward_case, "cached": cached_case, "generate": generate_case,
-         "ring": ring_case}
+         "ring": ring_case, "serve": serve_case}
+# kinds that take the plan (and build their own mesh) rather than a mesh
+PLAN_KINDS = {"serve"}
 
 
 def run_cases(rank: int, cases: list[tuple[str, str, dict]]) -> dict:
     """Every case in order on this rank: ``{name: result}``, with the
     collective counts each case issued under ``name + "/collectives"``."""
     from llm_np_cp_tpu_torch.parallel import collectives
+    from llm_np_cp_tpu_torch.parallel.sharding import MeshPlan
 
     out = {}
     for name, kind, kw in cases:
         kw = dict(kw)
-        mesh = _mesh(kw.pop("plan"))
+        plan = kw.pop("plan")
+        mesh = MeshPlan(**plan) if kind in PLAN_KINDS else _mesh(plan)
         collectives.reset_counts()
         out[name] = KINDS[kind](mesh, **kw)
         out[name + "/collectives"] = collectives.counts()

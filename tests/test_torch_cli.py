@@ -569,12 +569,12 @@ def test_mesh_cli_inside_running_ranks_matches_jax(clis, mesh_in_ranks):
 
 def test_mesh_refusals(clis):
     """What the port refuses under a mesh: a plan the config does not
-    divide (JAX's ValueError), ``--speculative`` (not ported: item 8b)
+    divide (JAX's ValueError), ``--speculative`` (not ported: item 8c)
     and, on CUDA, more ranks than cards (JAX's device-count message; no
     card here, so the device check itself is asserted)."""
     with pytest.raises(ValueError, match="not divisible by model=3"):
         tcli.run(["--backend=cpu", "--mesh=1,1,3", *COMMON])
-    with pytest.raises(NotImplementedError, match="item 8b"):
+    with pytest.raises(NotImplementedError, match="item 8c"):
         tcli.run(["--backend=cpu", "--mesh=1,1,2", "--speculative=2", *COMMON])
     from llm_np_cp_tpu_torch.parallel.sharding import MeshPlan, device_count_error
 
@@ -591,17 +591,95 @@ SERVE_MESH = {
 }
 
 
+# what each serve mesh argv does before the load: the tensor-parallel
+# serve-bench reaches it (the ranks load nothing themselves), the rest
+# raise with the JAX CLI's message or name the ROADMAP item of what is not
+# ported
+SERVE_MESH_BEFORE_LOAD = {
+    "serve_bench_tp": (AssertionError, "the model loaded"),
+    "serve_bench_dp": (SystemExit, "tensor-parallel only"),
+    "serve_bench_overcommit": (NotImplementedError, "--replicas 4 .*queue 1 item 8c"),
+    "serve_tp": (NotImplementedError, "serve: --mesh 'model=2' .*queue 1 item 8c"),
+}
+
+
 @pytest.mark.parametrize("argv", list(SERVE_MESH.values()), ids=list(SERVE_MESH))
-def test_parallel_flags_raise_before_load(monkeypatch, argv):
-    """Mesh-sharded serving is not ported: the JAX CLI runs (or rejects)
-    these meshes, the port raises NotImplementedError naming the ROADMAP
-    item, before any model loads."""
+def test_parallel_flags_raise_before_load(monkeypatch, argv, request):
+    """The serve meshes are checked before any model loads: a
+    tensor-parallel ``serve-bench`` goes on to the load, a data axis
+    raises the JAX CLI's message, and ``--replicas`` with ``--mesh`` and
+    HTTP ``serve --mesh`` raise NotImplementedError naming the ROADMAP
+    item (8c)."""
     def no_load(args):
         raise AssertionError("the model loaded")
 
     monkeypatch.setattr(tcli, "_load", no_load)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8b"):
+    exc, match = SERVE_MESH_BEFORE_LOAD[request.node.callspec.id]
+    with pytest.raises(exc, match=match):
         tcli.run(argv[:1] + ["--backend=cpu"] + argv[1:])
+
+
+SERVE_BENCH_MESH = ["serve-bench", "--backend=cpu", "--requests=6", "--rate=50",
+                    "--prompt-len=12", "--max-tokens=4", "--slots=2", "--block-size=8",
+                    "--dtype=f32", "--cache-dtype=f32", "--prefix-cache"]
+
+
+@pytest.fixture(scope="module")
+def serve_bench_tp(weights):
+    """``serve-bench --mesh model=2`` inside two running ranks
+    (``WORLD_SIZE`` set): each rank's printed text and served tokens."""
+    from mesh_ranks import serve_bench_in_rank
+
+    cfg, tp, _, _ = weights
+    return run_ranks(serve_bench_in_rank, 2, SERVE_BENCH_MESH + ["--mesh", "model=2"], tp, cfg)
+
+
+def test_serve_bench_mesh_matches_one_rank(monkeypatch, weights, serve_bench_tp, capsys):
+    """``serve-bench --mesh model=2``: inside running ranks, rank 0 prints
+    the banner and the report (``topo=`` the mesh), rank 1 prints
+    nothing, and every rank's tokens equal the one-rank replay's; spawned
+    from the CLI, the ranks' banner and report come back and print
+    here."""
+    from mesh_ranks import serve_bench_in_rank
+
+    cfg, tp, _, _ = weights
+    desc = "tp=2 over 2 gloo ranks on cpu (kv-sharded)"
+    (text0, tokens0), (text1, tokens1) = serve_bench_tp
+    assert f"[serve-bench] mesh ACTIVE: {desc}" in text0
+    assert f"topo={desc}" in text0 and "6 finished" in text0
+    assert text1 == ""
+    _, one_rank = serve_bench_in_rank(None, SERVE_BENCH_MESH, tp, cfg)
+    assert len(one_rank) == 6 and tokens0 == tokens1 == one_rank
+    monkeypatch.setattr(tcli, "_load", lambda args: (None, tp, cfg))
+    out = tcli.run(SERVE_BENCH_MESH + ["--mesh", "model=2"])
+    printed = capsys.readouterr().out
+    assert f"[serve-bench] mesh ACTIVE: {desc}" in printed
+    assert out in printed and f"topo={desc}" in out
+
+
+def test_cli_serve_mesh_validation(clis):
+    """Mesh / replica errors fire before the model load with the JAX
+    CLI's messages (non-TP axes, a bad replica count, more devices than
+    the host has: on ``--backend cuda`` a rank needs a card), and
+    ``--replicas`` with ``--mesh`` names item 8c."""
+    base = ["serve-bench", "--requests=2", "--prompt-len=8", "--max-tokens=2", "--slots=2",
+            "--block-size=8"]
+    for extra in (["--mesh", "data=2"], ["--replicas=0"]):
+        with pytest.raises(SystemExit) as want:
+            jcli.run(base + extra)
+        with pytest.raises(SystemExit) as got:
+            tcli.run(base + ["--backend=cpu"] + extra)
+        assert str(got.value.code) == str(want.value.code)
+    have = torch.cuda.device_count()
+    with pytest.raises(SystemExit, match=(
+            f"serve-bench: --mesh/--replicas need {2 * (have + 1)} devices "
+            rf"\(1 replicas x {2 * (have + 1)}\), have {have}")):
+        tcli.run(base + ["--backend=cuda", "--mesh", f"model={2 * (have + 1)}"])
+    with pytest.raises(NotImplementedError, match="item 8c"):
+        tcli.run(base + ["--backend=cpu", "--mesh", "model=2", "--replicas=2"])
+    for flag in ("--speculative-serve", "--auto-actions", "--realtime"):
+        with pytest.raises(NotImplementedError, match=f"{flag} under --mesh.*item 8c"):
+            tcli.run(base + ["--backend=cpu", "--mesh", "model=2", flag])
 
 
 def test_backend_names(monkeypatch, weights):

@@ -447,8 +447,8 @@ def test_unported_options_raise(llama):
     eng.tracer = tracing.TraceRecorder()
     assert EngineRunner(eng).engine.tracer is eng.tracer
     eng.tracer = None
-    with pytest.raises(NotImplementedError):
-        engine(llama, mesh_plan=object())
+    with pytest.raises(NotImplementedError, match="mesh_devices"):
+        engine(llama, mesh_devices=[0])
     assert engine(llama, actions=serve.ActionPolicy()).actions is not None
     accepted = engine(llama, fault_injector=serve.FaultInjector("decode@99"))
     assert accepted.faults is not None and accepted.journal is None

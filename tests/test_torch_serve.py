@@ -548,8 +548,10 @@ def test_auto_means_on_and_unported_options_raise(llama):
               device="cpu")
     eng = serve.ServeEngine(tp, cfg, mixed_step="auto", **kw)
     assert eng.mixed and eng.mixed_buckets[0] == da.RAGGED_Q_TILE
-    with pytest.raises(NotImplementedError, match="mesh_plan"):
-        serve.ServeEngine(tp, cfg, mesh_plan=object(), **kw)
+    # mesh_plan is ported (tests/test_torch_serve_sharded.py); the fleet's
+    # one-device placement (mesh_devices) still refuses
+    with pytest.raises(NotImplementedError, match="mesh_devices.*item 8c"):
+        serve.ServeEngine(tp, cfg, mesh_devices=[0], **kw)
     # the lifecycle slice is ported: actions and the weight version are
     # accepted
     acting = serve.ServeEngine(tp, cfg, actions=serve.ActionPolicy(), weights_version=2, **kw)

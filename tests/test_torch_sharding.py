@@ -285,7 +285,7 @@ def test_moe_under_tensor_parallelism_names_item_8b():
     mesh = tsh.Mesh(plan=tsh.MeshPlan(model=2), device_mesh=None,
                     device=torch.device("cpu"), backend="gloo",
                     coords=dict.fromkeys(tsh.MESH_AXES, 0))
-    with pytest.raises(NotImplementedError, match="item 8b"):
+    with pytest.raises(NotImplementedError, match="item 8c"):
         tsh.shard_params(tp, cfg, mesh.plan, mesh)
 
 

@@ -235,9 +235,9 @@ def test_host_tier_validation_and_engine_gate(llama):
         serve.ServeEngine(llama[1], llama[0], max_slots=2, num_blocks=12, block_size=8,
                           max_seq_len=64, cache_dtype=torch.float32, mixed_step="on",
                           host_tier=tier, device="cpu")
-    # host_tier is ported: only the still-missing keyword (mesh_plan) refuses
-    with pytest.raises(NotImplementedError, match="mesh_plan"):
-        port_engine(llama, mesh_plan=object())
+    # host_tier is ported: only the still-missing keyword (mesh_devices) refuses
+    with pytest.raises(NotImplementedError, match="mesh_devices"):
+        port_engine(llama, mesh_devices=[0])
     tier.close()
 
 

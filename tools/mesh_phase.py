@@ -7,10 +7,12 @@ mesh rank's shapes, and print what they measured.
 The kernel cases are ``chip_smoke.py``'s cases named in ``CASES``: flash,
 decode and its combine at 16 of Llama-3.2-1B's 32 heads, the epilogue on
 half its tied head (float at N = 1, 2, 4, 8 and int8) with the row
-maxima, and the categorical draw of a data rank's rows 2..3 of 4.  A
+maxima, the categorical draw of a data rank's rows 2..3 of 4, and a
+model=4 rank's serve shapes (the ragged serve tick at 8 / 2 heads, the
+paged int8 decode, the epilogue on a quarter of the head at N = 8).  A
 name that matches no case fails the run.  Then
 ``chip_smoke.mesh_phase``: one spawned group of 4 ranks on cuda:0 over
-gloo, its four legs, their checks.  Prints the torch / CUDA
+gloo, its four generation legs and two serve legs, their checks.  Prints the torch / CUDA
 versions, ``init_device_mesh``'s signature, the card's ``nvidia-smi``
 name and power limit, one JSON line a kernel case, and a line a leg
 (TTFT, decode rate, first divergence, the teacher-forced or support
@@ -36,6 +38,8 @@ CASES = (
     "llama1b_tp2_shard_n1_tied", "llama1b_tp2_shard_n2_tied", "llama1b_tp2_shard_n4_tied",
     "llama1b_tp2_shard_n8_tied", "llama1b_tp2_shard_n2_tied_int8",
     "mesh_data_rank1_2x128256_row0_2",
+    "llama1b_tp4_rank_mixed_6dec_2x64pf", "llama1b_tp4_rank_serve_b8_bs16_int8",
+    "llama1b_tp4_shard_n8_tied",
 )
 
 
@@ -74,6 +78,8 @@ def main() -> int:
     cases = (cs.flash_cases(torch, F, fa, sdpa_gqa, CASES)
              + cs.decode_cases(torch, F, da, quantize_kv, sdpa_gqa, CASES)
              + cs.combine_cases(torch, da, CASES)
+             + cs.paged_cases(torch, F, da, quantize_kv, sdpa_gqa, CASES)
+             + cs.ragged_cases(torch, F, da, quantize_kv, sdpa_gqa, CASES)
              + cs.epilogue_cases(torch, se, norms, quantize_array, False, CASES)
              + cs.epilogue_cases(torch, se, norms, quantize_array, True, CASES)
              + cs.threefry_cases(torch, tr, tfk, CASES))
@@ -92,6 +98,11 @@ def main() -> int:
                                                      "first_divergence", "check")}, default=str),
               json.dumps(leg["ranks"][0]["launches"]), json.dumps(leg["ranks"][0]["collectives"]),
               flush=True)
+    for name, leg in me["serve"].items():
+        print(name, json.dumps({k: leg[k] for k in (
+            "mesh_desc", "steps", "ticks", "prefix_blocks_hit", "wall_s", "tok_s", "ttft_s_p50",
+            "ttft_s_p99", "tpot_s_p50", "tpot_s_p99", "teacher_forced", "one_rank")}, default=str),
+              json.dumps(leg["ranks"][0], default=str), flush=True)
     print(json.dumps(dict(group_s=me["group_s"], phase_s=me["phase_s"], ok=me["ok"],
                           checks=me["checks"]), default=str), flush=True)
     bad = [c["case"] for c in cases if not c["within_tol"]]
