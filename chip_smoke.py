@@ -259,6 +259,20 @@ Phases, each printing JSON lines; any failure exits non-zero:
    legs A and B equal the offline ``generate_ragged``; a profile
    splitting device time among routing, slot positions, dispatch,
    expert products, combine, attention kernels and epilogue.
+12b. train — training on the card through ``llm_np_cp_tpu_torch.train.run``
+   (the user's ``python -m llm_np_cp_tpu_torch.train``): Llama-3.2-1B at
+   full width and depth in float32 (the CLI's default dtype), seeded
+   weights, 8 x 128 tokens of the fixed synthetic corpus, 6 steps: each
+   step's loss and tok/s, the first loss beside ln(vocab), peak reserved
+   memory; then the same weights and batches through the library's
+   pieces (``causal_lm_loss``, ``loss_and_grads``, ``AdamW.update``),
+   each step's device time split into forward, backward and optimizer
+   (CUDA events) and the achieved TFLOP/s (6·N·tokens plus attention);
+   then the checkpoint round trip of the whole state (params and both
+   moments) after step 4: write and read seconds and bytes, and step 5
+   from the continued and the restored state, whose losses must agree
+   within 1e-6.  No kernel of the port is on this path (the plain
+   attention, as the JAX loss).
 13. mesh — generation over a mesh (``parallel/``, ``Generator(mesh=)``):
    one spawned group of 4 ranks, all on cuda:0, joined over gloo (every
    collective stages its CUDA tensor through host memory; the decode
@@ -290,7 +304,13 @@ Phases, each printing JSON lines; any failure exits non-zero:
    shared card.  The kernel phase holds each kernel at a rank's shapes
    too (16 of 32 heads, half the tied head with its row maxima; at
    model=4, the ragged serve tick at 8/2 heads, the paged int8 decode and
-   the epilogue on a quarter of the head).
+   the epilogue on a quarter of the head).  Last in the same group, two
+   training legs on the train phase's float32 weights and batches, 2
+   steps each: t1 ``data=2,model=2`` (``make_train_step(mesh=)``) and t2
+   ``pipe=2,model=2`` with 2 microbatches (``make_pp_train_step``), their
+   losses within 2e-4 of the train phase's, each rank's collective
+   counts and step walls (gloo staging on a shared card, not a
+   multi-GPU figure).
 14. the ``kernels`` summary line (each row with its ``moe_launches`` and
    ``mesh_launches``), the
    card's ``nvidia-smi`` name and power limit, and last the result line
@@ -733,12 +753,17 @@ def decode_cases(torch, F, da, quantize_kv, sdpa_gqa: bool, names=None) -> list[
         err, ok = attn_err_rows(out, ref)
         ms = time_ms(torch, lambda: da.decode_attention(q, k, v, mask, **kw), 100)
         plain_ms = time_ms(torch, lambda: da.decode_attention_plain(q, k, v, mask, **kw), 10)
-        lib_ms = None
+        lib_ms = lib_dev = None
         if not int8 and sdpa_gqa:
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             am = mask[:, None, None, :]
-            lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=am, scale=kw["scale"], enable_gqa=True), 100)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am,
+                                                      scale=kw["scale"], enable_gqa=True)
+
+            lib_ms = time_ms(torch, sdpa, 100)
+            lib_dev = device_ms(torch, sdpa, {"all": ""})["all"]
         dev = device_ms(torch, lambda: da.decode_attention(q, k, v, mask, **kw), DECODE_MARKERS)
         nsplit = da.split_plan(b, kh, s, d, sms, h // kh)
         if (dev["decode_attention_combine"] > 0) != (nsplit > 1):
@@ -751,7 +776,7 @@ def decode_cases(torch, F, da, quantize_kv, sdpa_gqa: bool, names=None) -> list[
         cases.append(dict(kernel="decode_attention", case=name, max_abs_err=err,
                           tol=ATTN_TOL, tol_kind="relative to the head row's largest |plain|",
                           within_tol=ok, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                          bound_ms=bms, bound_by=by, nsplit=nsplit,
+                          library_device_ms=lib_dev, bound_ms=bms, bound_by=by, nsplit=nsplit,
                           device_ms=sum(dev.values()), device_ms_by_kernel=dev))
     return cases
 
@@ -4834,6 +4859,11 @@ F32_ROLL_REQUESTS, F32_ROLL_NEW, F32_ROLL_AFTER = 8, 16, 3
 # this long after the first arrival (onto a second seeded weight set made
 # with numpy), POST /admin/scale to 3 and back to 1 at these offsets
 FLEET_REPLICAS, FLEET_UPGRADE_AT_S, FLEET_SCALE_AT_S = 2, 0.6, (0.4, 1.2)
+# the fleet phase's depth: Llama-3.2-1B's widths at 8 of its 16 layers,
+# cut to make room for the train phase (at 16 layers it was the script's
+# costliest phase, 138 s on an H100); the fleet's checks are about ticks,
+# captures and routing, which depth does not change
+FLEET_LAYERS = 8
 # the crash legs: float32, the trace's first 12 requests with 16 new
 # tokens, replica 0 crashing at its 6th busy tick and restarted once
 FLEET_CRASH_SPEC, F32_FLEET_REQUESTS, F32_FLEET_NEW = "tick_crash@6", 12, 16
@@ -5114,6 +5144,7 @@ def fleet_phase(torch, np, kernels: dict, card: str) -> dict:
     a scale to 3 and back to 1, a replica crash beside a serving peer),
     the auto-actions (503-first load shedding, shed prefill under a
     host_sync stall) and the same trace at 1, 2 and 3 replicas."""
+    import dataclasses
     import gc
     import os
     import tempfile
@@ -5131,7 +5162,7 @@ def fleet_phase(torch, np, kernels: dict, card: str) -> dict:
     from llm_np_cp_tpu_torch.serve.trace import replay_arrivals
 
     model_id = "meta-llama/Llama-3.2-1B"
-    cfg = PRESETS[model_id]
+    cfg = dataclasses.replace(PRESETS[model_id], num_hidden_layers=FLEET_LAYERS)
     layers = cfg.num_hidden_layers
     params = init_params(0, cfg, torch.bfloat16, device="cuda")
     checks: list[str] = []
@@ -5630,7 +5661,8 @@ def fleet_phase(torch, np, kernels: dict, card: str) -> dict:
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(phase="fleet", model=model_id, layers=layers, weights="seeded random bf16",
+    return dict(phase="fleet", model=model_id, layers=layers,
+                reduced=f"depth 16 -> {FLEET_LAYERS} layers", weights="seeded random bf16",
                 card=card, engine=dict(max_slots=HTTP_SLOTS, block_size=HTTP_BLOCK,
                                        prefill_chunk=HTTP_CHUNK, mixed_step="on",
                                        sampler="greedy"),
@@ -6332,6 +6364,196 @@ def moe_phase(torch, np, kernels: dict, card: str) -> dict:
                 launches_total=launches_total, checks=checks,
                 phase_s=time.perf_counter() - t_phase, ok=all(checks.values()))
 
+# the train phase: Llama-3.2-1B at full width and depth in float32 (the
+# training CLI's default dtype) on seeded weights, 8 x 128 tokens of the
+# fixed synthetic corpus, through the user's entry point
+# (``train.run``), then the library's pieces for the device time split
+# and the checkpoint round trip.  The mesh phase's training legs take
+# the same weights, batches and learning rate.
+TRAIN_PRESET = "llama1b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR, TRAIN_SEED = 8, 128, 6, 1e-4, 0
+TRAIN_ARGV = [f"--model={TRAIN_PRESET}", f"--batch={TRAIN_BATCH}", f"--seq-len={TRAIN_SEQ}",
+              f"--steps={TRAIN_STEPS}", f"--lr={TRAIN_LR}", f"--seed={TRAIN_SEED}",
+              "--dtype=f32", "--device=cuda"]
+# the checkpoint is written after this many steps of the split run, and
+# the next step taken from the continued and the restored state
+TRAIN_CKPT_AFTER = 4
+# the resumed step's loss against the continued one's: the embedding's
+# backward sums float32 with atomics on the card, so two runs of one
+# step may differ in the last bits
+TRAIN_RESUME_RTOL = 1e-6
+TRAIN_DIR = os.path.join(ROOT, "smoke_out", "train")
+# float32 outside the tensor cores: the plain float32 products' peak
+F32_TFLOPS = F32_FLOPS_PER_S / 1e12
+
+
+def train_batches(vocab: int) -> list:
+    """The train phase's batches: ``train._batches``' synthetic corpus
+    for these settings (what ``train.run`` draws)."""
+    from types import SimpleNamespace
+
+    from llm_np_cp_tpu_torch import train
+
+    args = SimpleNamespace(data=None, seed=TRAIN_SEED, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+    gen = train._batches(args, None, vocab)
+    return [next(gen) for _ in range(TRAIN_STEPS)]
+
+
+def train_flops(cfg, n_params: int) -> float:
+    """The operations of one training step: 6 · params · tokens (forward
+    and backward products) plus attention's scores and weighted sums
+    (4 · B · heads · S² · D a layer forward, three times that with the
+    backward; the plain path computes the whole square)."""
+    s = TRAIN_SEQ - 1
+    tokens = TRAIN_BATCH * s
+    attn = 12 * cfg.num_hidden_layers * TRAIN_BATCH * cfg.num_attention_heads * s * s \
+        * cfg.head_dim
+    return 6.0 * n_params * tokens + attn
+
+
+def train_phase(torch, np, kernels: dict, card: str) -> dict:
+    """Training on the card (phase 12b of the module docstring)."""
+    import contextlib
+    import gc
+    import io
+    import math
+    import re
+    import shutil
+
+    from llm_np_cp_tpu_torch import train
+    from llm_np_cp_tpu_torch.config import LLAMA_3_2_1B
+    from llm_np_cp_tpu_torch.models.transformer import init_params
+    from llm_np_cp_tpu_torch.utils.checkpoint import (
+        STATE_FILE,
+        restore_checkpoint,
+        save_checkpoint,
+    )
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = LLAMA_3_2_1B
+    checks: list[str] = []
+    # 1. the entry point
+    reset_counts(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        losses = train.run(TRAIN_ARGV)
+    run_s = time.perf_counter() - t0
+    peak_reserved = torch.cuda.max_memory_reserved()
+    launches = read_counts(kernels)
+    printed = err.getvalue()
+    print(printed, end="", flush=True)
+    tok_s = [float(m.replace(",", "")) for m in re.findall(r"([\d,]+) tok/s", printed)]
+    ln_vocab = math.log(cfg.vocab_size)
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+        checks.append(f"train.run losses {losses}")
+    if not losses[-1] < losses[0]:
+        checks.append(f"train.run loss did not fall: {losses}")
+    if abs(losses[0] - ln_vocab) > 0.5:
+        checks.append(f"first loss {losses[0]} far from ln(vocab) {ln_vocab}")
+    if any(launches.values()):
+        checks.append(f"kernels launched on the training path: {launches}")
+    print(f"train: first loss {losses[0]:.4f} against ln({cfg.vocab_size}) = {ln_vocab:.4f}",
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. the same weights and batches through the library's pieces
+    params = init_params(TRAIN_SEED, cfg, torch.float32, device="cuda")
+    n_params = sum(t.numel() for _, t in train.tree_leaves(params))
+    opt = train.default_optimizer(TRAIN_LR)
+    state = opt.init(params)
+    batches = [torch.as_tensor(b, device="cuda") for b in train_batches(cfg.vocab_size)]
+    step = train.make_train_step(cfg, opt, device="cuda")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+
+    def loss_fn(p, b):
+        loss = train.causal_lm_loss(p, b, cfg, device="cuda")
+        ev[1].record()
+        return loss
+
+    split, split_losses = [], []
+    for i in range(TRAIN_CKPT_AFTER):
+        ev[0].record()
+        loss, grads = train.loss_and_grads(loss_fn, params, batches[i])
+        ev[2].record()
+        opt.update(grads, state, params)
+        ev[3].record()
+        del grads
+        ev[3].synchronize()
+        split_losses.append(float(loss))
+        split.append(dict(forward_ms=ev[0].elapsed_time(ev[1]),
+                          backward_ms=ev[1].elapsed_time(ev[2]),
+                          optimizer_ms=ev[2].elapsed_time(ev[3]),
+                          step_ms=ev[0].elapsed_time(ev[3])))
+    if not np.allclose(split_losses, losses[:TRAIN_CKPT_AFTER], rtol=1e-5, atol=0):
+        checks.append(f"library steps {split_losses} != train.run's {losses[:TRAIN_CKPT_AFTER]}")
+    # the steps after the first (its cuBLAS and allocator warm-up)
+    steady = split[1:]
+    med = {k: float(np.median([s[k] for s in steady])) for k in steady[0]}
+    flops = train_flops(cfg, n_params)
+    tflops = flops / (med["step_ms"] / 1e3) / 1e12
+
+    # 3. the checkpoint round trip of the whole state after step 4
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    state_bytes = sum(t.numel() * t.element_size() for tree in (params, state["mu"], state["nu"])
+                      for _, t in train.tree_leaves(tree))
+    os.makedirs(TRAIN_DIR, exist_ok=True)
+    disk_free = shutil.disk_usage(TRAIN_DIR).free
+    if disk_free < state_bytes * 1.1:
+        raise RuntimeError(f"train phase: {disk_free} bytes free under {TRAIN_DIR}, the "
+                           f"checkpoint needs {state_bytes}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_checkpoint(TRAIN_DIR, {"params": params, "opt_state": state,
+                                "step": TRAIN_CKPT_AFTER})
+    write_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(os.path.join(TRAIN_DIR, STATE_FILE))
+    t0 = time.perf_counter()
+    restored = restore_checkpoint(TRAIN_DIR, like={"params": params, "opt_state": state,
+                                                   "step": 0})
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    if restored["step"] != TRAIN_CKPT_AFTER or restored["opt_state"]["count"] != TRAIN_CKPT_AFTER:
+        checks.append(f"restored step / count {restored['step']} / "
+                      f"{restored['opt_state']['count']}")
+    _, _, loss_c = step(params, state, batches[TRAIN_CKPT_AFTER])
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, _, loss_r = step(restored["params"], restored["opt_state"], batches[TRAIN_CKPT_AFTER])
+    loss_c, loss_r = float(loss_c), float(loss_r)
+    resume_rel = abs(loss_r - loss_c) / abs(loss_c)
+    if not resume_rel <= TRAIN_RESUME_RTOL:
+        checks.append(f"resumed step loss {loss_r} vs continued {loss_c}")
+    del restored
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"train: step split (median of steps 2-{TRAIN_CKPT_AFTER}) {med}; "
+          f"{tflops:.2f} TFLOP/s of {F32_TFLOPS:.0f} (float32); checkpoint {nbytes} bytes, "
+          f"write {write_s:.2f} s, read {read_s:.2f} s; {card}", flush=True)
+    return dict(phase="train", model="meta-llama/Llama-3.2-1B", preset=TRAIN_PRESET,
+                layers=cfg.num_hidden_layers, dtype="float32", weights="seeded random float32",
+                card=card, argv=TRAIN_ARGV, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                tokens_per_step=TRAIN_BATCH * (TRAIN_SEQ - 1), losses=losses, tok_s=tok_s,
+                first_loss=losses[0], ln_vocab=ln_vocab, run_s=run_s,
+                peak_reserved_bytes=peak_reserved, launches=launches,
+                split_losses=split_losses, split_ms=split, split_ms_median=med,
+                n_params=n_params, flops_per_step=flops, tflops=tflops,
+                tflops_peak_f32=F32_TFLOPS,
+                checkpoint=dict(after_step=TRAIN_CKPT_AFTER, file_bytes=nbytes,
+                                state_bytes=state_bytes, disk_free_bytes=disk_free,
+                                write_s=write_s, read_s=read_s,
+                                read_note="warm: the file was just written",
+                                loss_continued=loss_c, loss_restored=loss_r,
+                                rel_diff=resume_rel, rtol=TRAIN_RESUME_RTOL),
+                checks=checks, phase_s=time.perf_counter() - t_phase, ok=not checks)
+
+
 # the mesh phase: generation over a 4-rank mesh on this one card.  The
 # ranks are processes on cuda:0 joined over gloo, whose collectives stage
 # every CUDA tensor through host memory (NCCL will not put two ranks on
@@ -6371,6 +6593,16 @@ MESH_SERVE_LEGS = {
     "s2_split_paged_int8": dict(leg="B_split_paged", cache="int8", requests=8, seed=62,
                                 extra={}),
 }
+# the mesh phase's training legs, last in the same group: the train
+# phase's float32 weights, batches and learning rate, 2 steps each.  t1:
+# data 2 x model 2; t2: pipe 2 x model 2, GPipe with 2 microbatches of 4
+# rows (8 of 16 layers a stage)
+MESH_TRAIN_LEGS = {
+    "t1_data2_model2": dict(plan=dict(data=2, model=2)),
+    "t2_pipe2_model2": dict(plan=dict(pipe=2, model=2), microbatches=2),
+}
+MESH_TRAIN_STEPS = 2
+MESH_TRAIN_RTOL = 2e-4  # tests/test_train_cli.py's mesh tolerance
 # a sampled draw whose margin (``draw_margins``, over the plain forward's
 # logits) is under this may go either way between the mesh and the
 # one-rank path: their bf16 logits differ by summation order, within the
@@ -6481,6 +6713,54 @@ def mesh_serve_rank(torch, np, full, cfg) -> dict:
     return out
 
 
+def mesh_train_rank(torch, np, dev) -> dict:
+    """The training legs on this rank: its shards of the train phase's
+    float32 weights, ``make_train_step(mesh=)`` or ``make_pp_train_step``
+    over a gloo mesh on cuda:0, ``MESH_TRAIN_STEPS`` steps on the train
+    phase's batches.  Returns each leg's losses, step walls, collective
+    calls and peak allocated bytes."""
+    import torch.distributed as dist
+
+    from llm_np_cp_tpu_torch import train
+    from llm_np_cp_tpu_torch.config import LLAMA_3_2_1B
+    from llm_np_cp_tpu_torch.models.transformer import init_params
+    from llm_np_cp_tpu_torch.parallel import collectives
+    from llm_np_cp_tpu_torch.parallel.pipeline import make_pp_train_step
+    from llm_np_cp_tpu_torch.parallel.sharding import MeshPlan, make_mesh, shard_params
+
+    cfg = LLAMA_3_2_1B
+    batches = train_batches(cfg.vocab_size)[:MESH_TRAIN_STEPS]
+    out = {}
+    for name, leg in MESH_TRAIN_LEGS.items():
+        mesh = make_mesh(MeshPlan(**leg["plan"]), device=dev, backend="gloo")
+        full = init_params(TRAIN_SEED, cfg, torch.float32, device=dev)
+        local = shard_params(full, cfg, mesh.plan, mesh)
+        del full
+        torch.cuda.empty_cache()
+        dist.barrier()  # no rank trains while another still holds the whole model
+        opt = train.default_optimizer(TRAIN_LR)
+        state = opt.init(local)
+        if mesh.plan.pipe > 1:
+            step = make_pp_train_step(cfg, opt, mesh.plan, mesh,
+                                      num_microbatches=leg["microbatches"])
+        else:
+            step = train.make_train_step(cfg, opt, mesh=mesh)
+        collectives.reset_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        losses, walls = [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            local, state, loss = step(local, state, torch.as_tensor(b, device=dev))
+            losses.append(float(loss))
+            walls.append(time.perf_counter() - t0)
+        out[name] = dict(losses=losses, step_s=walls, collectives=collectives.counts(),
+                         coords=mesh.coords,
+                         peak_allocated_bytes=torch.cuda.max_memory_allocated(dev))
+        del local, state, step
+        torch.cuda.empty_cache()
+    return out
+
+
 def mesh_rank(rank: int, legs: dict) -> dict:
     """One rank of the mesh phase, a spawned process on cuda:0 over gloo:
     per leg its mesh, its shards of the seeded weights and a
@@ -6533,6 +6813,9 @@ def mesh_rank(rank: int, legs: dict) -> dict:
         del gen, local
         torch.cuda.empty_cache()
     out["serve"] = mesh_serve_rank(torch, np, full, cfg)
+    del full
+    torch.cuda.empty_cache()
+    out["train"] = mesh_train_rank(torch, np, dev)
     return out
 
 
@@ -6631,7 +6914,46 @@ def prefix_parity(want, got, margins, gaps, near_tie: float) -> dict:
     return dict(rows=rows, tokens_compared=compared, near_tie=near_tie, ok=ok)
 
 
-def mesh_phase(torch, np, card: str) -> dict:
+def mesh_train_legs(torch, ranks: list, train_losses: list | None, checks: list) -> dict:
+    """The training legs' record: the ranks' losses equal, within
+    ``MESH_TRAIN_RTOL`` of the one-rank losses (the train phase's, or
+    ``train.run``'s first steps here when the phase did not run)."""
+    if train_losses is None:
+        import contextlib
+        import io
+
+        from llm_np_cp_tpu_torch import train
+
+        argv = [a for a in TRAIN_ARGV if not a.startswith("--steps=")]
+        with contextlib.redirect_stderr(io.StringIO()):
+            train_losses = train.run(argv + [f"--steps={MESH_TRAIN_STEPS}"])
+        torch.cuda.empty_cache()
+    want = train_losses[:MESH_TRAIN_STEPS]
+    legs = {}
+    for name, leg in MESH_TRAIN_LEGS.items():
+        r0 = ranks[0]["train"][name]
+        if any(r["train"][name]["losses"] != r0["losses"] for r in ranks[1:]):
+            checks.append(f"mesh {name}: the ranks' losses differ: "
+                          f"{[r['train'][name]['losses'] for r in ranks]}")
+        rel = [abs(a - b) / abs(b) for a, b in zip(r0["losses"], want)]
+        if len(rel) != MESH_TRAIN_STEPS or max(rel) > MESH_TRAIN_RTOL:
+            checks.append(f"mesh {name}: losses {r0['losses']} vs one rank's {want}")
+        print(f"mesh {name}: losses {r0['losses']} against one rank's {want} "
+              f"(relative {rel}); step walls {r0['step_s']} s", flush=True)
+        legs[name] = dict(
+            plan=leg["plan"], microbatches=leg.get("microbatches"), steps=MESH_TRAIN_STEPS,
+            dtype="float32", losses=r0["losses"], one_rank_losses=want, rel_diff=rel,
+            rtol=MESH_TRAIN_RTOL, step_s=r0["step_s"],
+            timing_note=f"one card shared by {MESH_RANKS} ranks over gloo (host-staged "
+                        "collectives): not a multi-GPU figure",
+            ranks=[dict(coords=r["train"][name]["coords"],
+                        collectives=r["train"][name]["collectives"],
+                        peak_allocated_bytes=r["train"][name]["peak_allocated_bytes"])
+                   for r in ranks])
+    return legs
+
+
+def mesh_phase(torch, np, card: str, train_losses: list | None = None) -> dict:
     """Generation over a mesh on the card: the four legs of ``MESH_LEGS``
     in one spawned group of ``MESH_RANKS`` ranks (``mesh_rank``), each
     leg's tokens held to the one-rank path (teacher forcing against the
@@ -6735,6 +7057,7 @@ def mesh_phase(torch, np, card: str) -> dict:
     del full
     gc.collect()
     torch.cuda.empty_cache()
+    train_legs = mesh_train_legs(torch, ranks, train_losses, checks)
     launches_total = {}
     for name in mesh_counters():
         launches_total[name] = sum(r[leg]["launches"][name] for r in ranks for leg in MESH_LEGS)
@@ -6745,6 +7068,7 @@ def mesh_phase(torch, np, card: str) -> dict:
                 weights="seeded random bf16", card=card, ranks=MESH_RANKS, device="cuda:0",
                 backend="gloo", staging="every collective copies its CUDA tensor to the host "
                 "and back (a gloo group)", group_s=group_s, legs=legs, serve=serve,
+                train=train_legs,
                 teacher_tol=TEACHER_TOL, launches_total=launches_total, checks=checks,
                 phase_s=time.perf_counter() - t_phase, ok=not checks)
 
@@ -6871,6 +7195,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write every result line (and the ptxas report) to this JSON file")
     args = ap.parse_args()
+    t_script = time.perf_counter()
 
     import torch
 
@@ -6918,6 +7243,7 @@ def main() -> int:
 
     sdpa_gqa = tuple(int(p) for p in torch.__version__.split(".")[:2]) >= (2, 5)
     sm.softmax.launches = 0
+    t_phase = time.perf_counter()
     cases = (flash_cases(torch, F, fa, sdpa_gqa)
              + decode_cases(torch, F, da, quantize_kv, sdpa_gqa)
              + combine_cases(torch, da)
@@ -6934,6 +7260,7 @@ def main() -> int:
     softmax_launches = sm.softmax.launches
     for c in cases:
         record(dict(phase="kernel_case", card=smi, **c))
+    record(dict(phase="kernel_cases", cases=len(cases), phase_s=time.perf_counter() - t_phase))
     bad = [c for c in cases if not c["within_tol"]]
     if bad:
         raise AssertionError(f"kernels outside tolerance: {bad}")
@@ -6950,14 +7277,24 @@ def main() -> int:
                "sample_epilogue_int8": (se.sample_epilogue, "launches_int8"),
                "threefry2x32": (tfk.threefry2x32, "launches"),
                "categorical": (tfk.categorical, "launches")}
+    def timed(fn, *a, **kw) -> dict:
+        """A phase's result line with its seconds (``phase_s``) where the
+        phase does not time itself."""
+        t0 = time.perf_counter()
+        line = fn(*a, **kw)
+        line.setdefault("phase_s", time.perf_counter() - t0)
+        return line
+
+    t0 = time.perf_counter()
     mp, gen, prompts, main_tokens = main_path(torch, np, kernels, smi)
+    mp.setdefault("phase_s", time.perf_counter() - t0)
     record(mp)
-    prof = profile_generate(torch, gen, prompts, smi)
+    prof = timed(profile_generate, torch, gen, prompts, smi)
     record(prof)
     failed = [k for k, v in mp.items() if isinstance(v, dict) and not v.get("teacher_forced", {}).get("ok", True)]
     if failed:
         raise AssertionError(f"teacher-forced check failed for {failed}")
-    gp = graph_phase(torch, np, smi, gen, prompts, main_tokens)
+    gp = timed(graph_phase, torch, np, smi, gen, prompts, main_tokens)
     record(gp)
     if not gp["ok"]:
         raise AssertionError("captured steps differ from their eager runs: " + json.dumps(
@@ -6965,47 +7302,47 @@ def main() -> int:
     del gen
     torch.cuda.empty_cache()
 
-    sv = serve_phase(torch, np, kernels, smi)
+    sv = timed(serve_phase, torch, np, kernels, smi)
     record(sv)
     failed = [leg for leg, v in sv["legs"].items() if not v["teacher_forced"]["ok"]]
     if failed or not sv["float32"]["ok"]:
         raise AssertionError(f"serve checks failed: teacher-forced {failed}, float32 {sv['float32']}")
-    qt = quant_phase(torch, np, kernels, smi, mp, sv)
+    qt = timed(quant_phase, torch, np, kernels, smi, mp, sv)
     record(qt)
     failed = [m for m, v in qt["modes"].items() if not v["teacher_forced"]["ok"]]
     failed += [f"float32 {m}" for m, v in qt["float32"].items() if not v["teacher_forced"]["ok"]]
     if failed or not qt["serve"]["teacher_forced"]["ok"]:
         raise AssertionError(f"quant checks failed: teacher-forced {failed}, serve "
                              f"{qt['serve']['teacher_forced']}")
-    sp = spec_phase(torch, np, kernels, smi, mp)
+    sp = timed(spec_phase, torch, np, kernels, smi, mp)
     record(sp)
     if not sp["ok"]:
         raise AssertionError("spec checks failed: " + json.dumps(sp, default=str))
-    tp = tier_phase(torch, np, kernels, smi)
+    tp = timed(tier_phase, torch, np, kernels, smi)
     record(tp)
     if not tp["ok"]:
         raise AssertionError("tier checks failed: " + json.dumps(tp["checks"], default=str))
-    hp = http_phase(torch, np, kernels, smi)
+    hp = timed(http_phase, torch, np, kernels, smi)
     record(hp)
     if not hp["ok"]:
         raise AssertionError("http checks failed: " + json.dumps(hp["checks"], default=str))
-    op = observe_phase(torch, np, kernels, smi)
+    op = timed(observe_phase, torch, np, kernels, smi)
     record(op)
     if not op["ok"]:
         raise AssertionError("observe checks failed: " + json.dumps(op["checks"], default=str))
-    cp = chaos_phase(torch, np, kernels, smi)
+    cp = timed(chaos_phase, torch, np, kernels, smi)
     record(cp)
     if not cp["ok"]:
         raise AssertionError("chaos checks failed: " + json.dumps(cp["checks"], default=str))
-    clp = cli_phase(torch, np, kernels, smi)
+    clp = timed(cli_phase, torch, np, kernels, smi)
     record(clp)
     if not clp["ok"]:
         raise AssertionError("cli checks failed: " + json.dumps(clp["checks"], default=str))
-    rp = restart_phase(torch, np, smi)
+    rp = timed(restart_phase, torch, np, smi)
     record(rp)
     if not rp["ok"]:
         raise AssertionError("restart checks failed: " + json.dumps(rp["checks"], default=str))
-    fp = fleet_phase(torch, np, kernels, smi)
+    fp = timed(fleet_phase, torch, np, kernels, smi)
     record(fp)
     if not fp["ok"]:
         raise AssertionError("fleet checks failed: " + json.dumps(fp["checks"], default=str))
@@ -7020,7 +7357,11 @@ def main() -> int:
             if n == 0 and not name.endswith("_combine")]
     if idle:
         raise AssertionError(f"moe phase: kernels never launched on its path: {idle}")
-    me = mesh_phase(torch, np, smi)
+    tr_line = train_phase(torch, np, kernels, smi)
+    record(tr_line)
+    if not tr_line["ok"]:
+        raise AssertionError("train checks failed: " + json.dumps(tr_line["checks"], default=str))
+    me = mesh_phase(torch, np, smi, tr_line["losses"])
     record(me)
     if not me["ok"]:
         raise AssertionError("mesh checks failed: " + json.dumps(me["checks"], default=str))
@@ -7071,6 +7412,7 @@ def main() -> int:
             **{k: c[k] for k in ("library", "gather_ms", "nsplit", "device_ms", "race_ms")
                if k in c},
         ))
+    record(dict(phase="total", script_s=time.perf_counter() - t_script))
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(results=results, kernels=summary,

@@ -26,7 +26,11 @@ checkpoint directory (``utils/loading.load_model``); ``--backend numpy``
 runs the fp32 NumPy oracle (``backends/numpy_ref.py``).  Generation
 runs over a mesh (``parallel/``: tensor, data and sequence parallelism
 over ``torch.distributed``, ring attention, ``Generator(mesh=)`` and the
-CLI's ``--mesh``).
+CLI's ``--mesh``).  Training (``train.py``: the causal-LM loss, an AdamW
+step equal to the JAX package's optax chain, ``python -m
+llm_np_cp_tpu_torch.train``) runs on one card or over a data-, tensor-
+and pipeline-parallel mesh (``parallel/pipeline.py``), and
+``utils/checkpoint.py`` saves and restores its state.
 
 Entry points take ``device=`` and default to ``"cuda"``; they raise when
 no card is present unless the caller asks for ``"cpu"``.

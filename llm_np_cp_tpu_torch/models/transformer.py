@@ -51,7 +51,7 @@ from llm_np_cp_tpu_torch.ops.cuda.sample_epilogue import sample_epilogue
 from llm_np_cp_tpu_torch.ops.moe import moe_mlp
 from llm_np_cp_tpu_torch.ops.norms import rms_norm
 from llm_np_cp_tpu_torch.ops.rope import apply_rope, rope_cos_sin
-from llm_np_cp_tpu_torch.parallel.collectives import all_gather, all_reduce
+from llm_np_cp_tpu_torch.parallel.collectives import all_gather, all_reduce, copy_to
 from llm_np_cp_tpu_torch.parallel.ring_attention import check_ring_mesh, ring_attention_ctx
 from llm_np_cp_tpu_torch.parallel.sharding import (
     MODEL_AXIS,
@@ -180,6 +180,13 @@ def _tp(mesh: Mesh | None) -> int:
     return mesh.size(MODEL_AXIS) if mesh is not None else 1
 
 
+def _to_model(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+    """``x``, replicated over "model", entering column-parallel work:
+    its gradient is summed over "model" (``collectives.copy_to``; the
+    identity, and no collective, off the gradient path)."""
+    return copy_to(x, mesh, MODEL_AXIS) if _tp(mesh) > 1 else x
+
+
 def _row_project(x: torch.Tensor, w: Any, mesh: Mesh | None) -> torch.Tensor:
     """``x @ W`` for a row-parallel projection (``o_proj``, ``down_proj``).
     Under tensor parallelism: this rank's float32 partial sum (its rows
@@ -276,6 +283,7 @@ def final_logits(
     )
     if last_only:
         x = x[:, -1:, :]
+    x = _to_model(x, mesh)
     if config.tie_word_embeddings:
         logits = quant_einsum("bsh,vh->bsv", x, params["embed_tokens"])
     else:
@@ -402,10 +410,17 @@ def run_decoder_layer(
         bias = w.get(name.replace("_proj", "_bias"))
         return y + bias.to(y.dtype) if bias is not None else y
 
-    # head counts from the projections' widths: this rank's under a mesh
-    q = proj_b(h, "q_proj").reshape(b, s, -1, config.head_dim)
-    k = proj_b(h, "k_proj").reshape(b, s, -1, config.head_dim)
-    v = proj_b(h, "v_proj").reshape(b, s, -1, config.head_dim)
+    # head counts from the projections' widths: this rank's under a mesh.
+    # Replicated KV heads (``kv_sel``): every rank projects them all and
+    # attends with its own, so their gradient is summed over "model"
+    # after the projection instead of before it
+    hq = _to_model(h, mesh)
+    q = proj_b(hq, "q_proj").reshape(b, s, -1, config.head_dim)
+    hk = h if kv_sel is not None else hq
+    k = proj_b(hk, "k_proj").reshape(b, s, -1, config.head_dim)
+    v = proj_b(hk, "v_proj").reshape(b, s, -1, config.head_dim)
+    if kv_sel is not None:
+        k, v = _to_model(k, mesh), _to_model(v, mesh)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
@@ -468,6 +483,7 @@ def run_decoder_layer(
         )
     else:
         moe_aux = None
+        h = _to_model(h, mesh)
         gate = act(proj_b(h, "gate_proj"))
         up = proj_b(h, "up_proj")
         mlp = _row_project(gate * up, w["down_proj"], mesh)

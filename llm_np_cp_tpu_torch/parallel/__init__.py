@@ -14,7 +14,13 @@ its own shards, and explicit collectives where GSPMD inserted them:
 - ``ring_attention.py``: sequence-parallel causal attention over the
   ``seq`` axis;
 - ``launch.py``: spawning a group of ranks on one host and returning
-  what each rank's function returned.
+  what each rank's function returned;
+- ``pipeline.py``: GPipe over the ``pipe`` axis (training and the
+  cache-less forward).
+
+The collectives carry gradients (``copy_to`` marks where a replicated
+value enters per-rank work), so ``train.py`` differentiates the mesh
+forward with ``torch.autograd``.
 
 The tensor-, data- and sequence-parallel forward is
 ``models.transformer.forward(..., mesh=)``; the ``Generator`` takes the

@@ -420,6 +420,33 @@ def local_shards(params: Any, config: ModelConfig, plan: MeshPlan,
     return place(param_specs(config, plan), params, "params")
 
 
+def gather_shards(local: Any, config: ModelConfig, mesh: Mesh) -> Any:
+    """The inverse of ``local_shards``: the whole param tree from every
+    rank's shards (a tree shaped like the params: their gradients or an
+    optimizer moment alike), each cut dimension all-gathered over its
+    axis.  Every rank must call it; every rank gets the whole tree, on
+    the device of its shards."""
+    from llm_np_cp_tpu_torch.parallel.collectives import all_gather
+    from llm_np_cp_tpu_torch.quant import is_quantized, payload_key
+
+    def whole(t: torch.Tensor, spec: P) -> torch.Tensor:
+        for dim, axis in enumerate(spec):
+            if axis is not None and mesh.size(axis) > 1:
+                t = all_gather(t, mesh, axis, dim=dim)
+        return t
+
+    def join(spec: Any, leaf: Any) -> Any:
+        if isinstance(spec, dict):
+            return {k: join(spec[k], leaf[k]) for k in leaf}
+        if is_quantized(leaf):
+            pk = payload_key(leaf)
+            return {pk: whole(leaf[pk], spec), "s": whole(leaf["s"], _scale_spec(spec, leaf))}
+        return whole(leaf, spec)
+
+    with torch.no_grad():
+        return join(param_specs(config, mesh.plan), local)
+
+
 def shard_params(params: Any, config: ModelConfig, plan: MeshPlan, mesh: Mesh) -> Any:
     """This rank's local shards of a full param dict, on ``mesh.device``:
     plain contiguous tensors cut by the rank's coordinate.  Quantized

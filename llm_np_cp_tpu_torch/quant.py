@@ -175,8 +175,11 @@ def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x [M, K] @ w [K, N]`` with a float32 result.  On the card a
     bf16 product keeps its float32 accumulators (``out_dtype``) and
     copies neither operand; on the CPU the product runs in float32,
-    which is exact for bf16 inputs."""
-    if x.is_cuda and x.dtype != torch.float32 and w.dtype == x.dtype:
+    which is exact for bf16 inputs; so does a product on the gradient
+    path (training), which autograd differentiates as plain float32
+    products."""
+    if (x.is_cuda and x.dtype != torch.float32 and w.dtype == x.dtype
+            and not (torch.is_grad_enabled() and (x.requires_grad or w.requires_grad))):
         return torch.mm(x, w, out_dtype=torch.float32)
     return x.float() @ w.float()
 

@@ -1,6 +1,8 @@
 """Rank bodies of the mesh tests (``test_torch_sharding.py``,
 ``test_torch_ring_attention.py``, ``test_torch_serve_sharded.py``'s
-``serve_case``, and ``test_torch_cli.py``'s ``cli_in_rank``).
+``serve_case``, ``test_torch_cli.py``'s ``cli_in_rank``, and the
+training tests' gradient, pipeline and checkpoint cases), and
+``np_params``, the numpy weights those tests carry into both packages.
 
 A spawned rank imports the module of the function it runs, so the rank
 side lives here and imports torch, numpy and the port only — no JAX.
@@ -19,6 +21,25 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def np_params(cfg, seed, scale=0.15):
+    """Random float32 weights as numpy, in the layout both packages
+    share (norm gammas near their identity)."""
+    from llm_np_cp_tpu_torch.models.transformer import param_shapes
+
+    rng = np.random.default_rng(seed)
+
+    def leaf(name, shape):
+        if name.startswith("ln_") or name == "final_norm":
+            base = 0.0 if cfg.rms_norm_unit_offset else 1.0
+            return (base + 0.1 * rng.standard_normal(shape)).astype(np.float32)
+        return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+    return {
+        k: {n: leaf(n, s) for n, s in v.items()} if k == "layers" else leaf(k, v)
+        for k, v in param_shapes(cfg).items()
+    }
 
 
 def _mesh(plan_kw: dict):
@@ -280,8 +301,87 @@ def serve_bench_in_rank(rank: int | None, argv: list[str], params, cfg) -> tuple
     return out.getvalue(), _serve_tokens(built)
 
 
+def _numpy_tree(tree):
+    return {k: _numpy_tree(v) if isinstance(v, dict) else v.numpy() for k, v in tree.items()}
+
+
+def train_grads_case(mesh, params, cfg, batch, loss_mask=None, microbatches=None):
+    """The loss and the whole gradient on this rank: ``causal_lm_loss``
+    (or, with ``microbatches``, the pipelined loss) over this rank's
+    shards of the float32 ``params``, its gradients gathered over the
+    mesh (``gather_shards``)."""
+    from llm_np_cp_tpu_torch import train
+    from llm_np_cp_tpu_torch.parallel.pipeline import make_pp_loss_fn
+    from llm_np_cp_tpu_torch.parallel.sharding import gather_shards, shard_params
+
+    local = shard_params(params, cfg, mesh.plan, mesh)
+    if microbatches:
+        pp_loss = make_pp_loss_fn(cfg, mesh.plan, mesh, num_microbatches=microbatches)
+
+        def loss_fn(p, b):
+            return pp_loss(p, b, loss_mask)
+    else:
+        def loss_fn(p, b):
+            return train.causal_lm_loss(p, b, cfg, loss_mask=loss_mask, mesh=mesh)
+
+    loss, grads = train.loss_and_grads(loss_fn, local, batch, mesh=mesh)
+    return dict(loss=float(loss), grads=_numpy_tree(gather_shards(grads, cfg, mesh)),
+                norm=float(train.global_norm(grads, mesh, cfg)))
+
+
+def pp_forward_case(mesh, params, cfg, ids, microbatches):
+    """``pp_forward`` logits over the whole batch."""
+    from llm_np_cp_tpu_torch.parallel.pipeline import pp_forward
+    from llm_np_cp_tpu_torch.parallel.sharding import shard_params
+
+    local = shard_params(params, cfg, mesh.plan, mesh)
+    logits = pp_forward(local, _rows(mesh, torch.as_tensor(ids)), cfg, mesh.plan, mesh,
+                        num_microbatches=microbatches)
+    return _all_rows(mesh, logits).numpy()
+
+
+def train_steps_case(mesh, params, cfg, batch, steps, lr, microbatches=None):
+    """``steps`` train steps on this rank's shards (``make_train_step``,
+    or the pipelined step with ``microbatches``): every step's loss."""
+    from llm_np_cp_tpu_torch import train
+    from llm_np_cp_tpu_torch.parallel.pipeline import make_pp_train_step
+    from llm_np_cp_tpu_torch.parallel.sharding import shard_params
+
+    local = train.tree_map(torch.clone, shard_params(params, cfg, mesh.plan, mesh))
+    opt = train.default_optimizer(lr)
+    state = opt.init(local)
+    if microbatches:
+        step = make_pp_train_step(cfg, opt, mesh.plan, mesh, num_microbatches=microbatches)
+    else:
+        step = train.make_train_step(cfg, opt, mesh=mesh)
+    losses = []
+    for _ in range(steps):
+        local, state, loss = step(local, state, batch)
+        losses.append(float(loss))
+    return losses
+
+
+def checkpoint_case(mesh, cfg, state_dir, out_dir):
+    """Restore the single-rank checkpoint at ``state_dir`` onto this
+    rank's shards (``like=`` a state of its shapes), then save it under
+    the mesh to ``out_dir``: this rank's restored shards as numpy."""
+    from llm_np_cp_tpu_torch import train
+    from llm_np_cp_tpu_torch.models.transformer import init_params
+    from llm_np_cp_tpu_torch.parallel.sharding import shard_params
+    from llm_np_cp_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+
+    fresh = shard_params(init_params(0, cfg, torch.float32, device="cpu"), cfg, mesh.plan, mesh)
+    like = {"params": fresh, "opt_state": train.default_optimizer(1e-2).init(fresh), "step": 0}
+    state = restore_checkpoint(state_dir, like=like, mesh=mesh, config=cfg)
+    save_checkpoint(out_dir, state, mesh=mesh, config=cfg)
+    return dict(params=_numpy_tree(state["params"]), mu=_numpy_tree(state["opt_state"]["mu"]),
+                count=state["opt_state"]["count"], step=state["step"])
+
+
 KINDS = {"forward": forward_case, "cached": cached_case, "generate": generate_case,
-         "ring": ring_case, "serve": serve_case}
+         "ring": ring_case, "serve": serve_case, "train_grads": train_grads_case,
+         "pp_forward": pp_forward_case, "checkpoint": checkpoint_case,
+         "train_steps": train_steps_case}
 # kinds that take the plan (and build their own mesh) rather than a mesh
 PLAN_KINDS = {"serve"}
 

@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``llm_np_cp_tpu_torch``, no line
 of ``chip_smoke.py`` or ``tools/mesh_phase.py``, and none of the spawned
 ranks' bodies in ``tests/mesh_ranks.py`` imports JAX, the JAX package,
-the repo's ``tools``, or a package the machine with the card lacks."""
+the repo's ``tools``, a package the machine with the card lacks, or the
+JAX package's optimizer and checkpoint libraries (``optax``, ``orbax``)."""
 
 import ast
 import pathlib
@@ -22,7 +23,7 @@ def one_torch_thread():
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "llm_np_cp_tpu", "ml_dtypes", "safetensors", "transformers",
-             "huggingface_hub", "triton", "tools"}
+             "huggingface_hub", "triton", "tools", "optax", "orbax"}
 FILES = sorted((ROOT / "llm_np_cp_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "mesh_phase.py", ROOT / "tests" / "mesh_ranks.py"]
 
@@ -63,7 +64,8 @@ def test_scan_sees_the_port():
             "llm_np_cp_tpu_torch/parallel/collectives.py",
             "llm_np_cp_tpu_torch/parallel/ring_attention.py",
             "llm_np_cp_tpu_torch/parallel/launch.py", "tests/mesh_ranks.py",
-            "chip_smoke.py"} <= names
+            "llm_np_cp_tpu_torch/train.py", "llm_np_cp_tpu_torch/parallel/pipeline.py",
+            "llm_np_cp_tpu_torch/utils/checkpoint.py", "chip_smoke.py"} <= names
     assert imported_roots(ROOT / "tests" / "test_torch_model.py") >= {"jax", "llm_np_cp_tpu"}
     assert "llm_np_cp_tpu_torch" in imported_roots(ROOT / "chip_smoke.py")
 

@@ -12,7 +12,9 @@ model=4 rank's serve shapes (the ragged serve tick at 8 / 2 heads, the
 paged int8 decode, the epilogue on a quarter of the head at N = 8).  A
 name that matches no case fails the run.  Then
 ``chip_smoke.mesh_phase``: one spawned group of 4 ranks on cuda:0 over
-gloo, its four generation legs and two serve legs, their checks.  Prints the torch / CUDA
+gloo, its four generation legs, two serve legs and two training legs
+(t1 / t2, against a 2-step one-rank ``train.run`` made here), their
+checks.  Prints the torch / CUDA
 versions, ``init_device_mesh``'s signature, the card's ``nvidia-smi``
 name and power limit, one JSON line a kernel case, and a line a leg
 (TTFT, decode rate, first divergence, the teacher-forced or support
@@ -102,6 +104,10 @@ def main() -> int:
         print(name, json.dumps({k: leg[k] for k in (
             "mesh_desc", "steps", "ticks", "prefix_blocks_hit", "wall_s", "tok_s", "ttft_s_p50",
             "ttft_s_p99", "tpot_s_p50", "tpot_s_p99", "teacher_forced", "one_rank")}, default=str),
+              json.dumps(leg["ranks"][0], default=str), flush=True)
+    for name, leg in me["train"].items():
+        print(name, json.dumps({k: leg[k] for k in ("losses", "one_rank_losses", "rel_diff",
+                                                     "step_s")}, default=str),
               json.dumps(leg["ranks"][0], default=str), flush=True)
     print(json.dumps(dict(group_s=me["group_s"], phase_s=me["phase_s"], ok=me["ok"],
                           checks=me["checks"]), default=str), flush=True)
